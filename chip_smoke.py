@@ -5,8 +5,8 @@
 Run from the root of the repository, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA. Phases, each reporting on lines of its own:
 
-1. environment and build: the card's name and power limit, TF32 off, every
-   kernel under ``tpu_on_k8s_torch/ops/csrc`` built with nvcc;
+1. environment and build: the card's name and power limit, TF32 off, the
+   kernel ``tpu_on_k8s_torch/ops/csrc/flash_fwd.cu`` built with nvcc;
 2. each kernel against its plain PyTorch version on the card, at the serving
    path's shapes, within stated tolerances;
 3. serving: ``generate`` at ``llama2_7b`` width (32 layers, bf16, random
@@ -41,12 +41,11 @@ PEAK_BYTES = 3.35e12
 # against a running max (the plain version against the final max); lse is
 # fp32 from the same fp32 scores. fp32 differs only in summation order.
 TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-4, 1e-4)}
-# Prefill logits, kernel vs plain attention, 32 bf16 layers with random
-# weights: rounding differences grow through depth, so the tolerance is set
-# by the bf16 noise floor, max|plain bf16 - fp32 model|. If the kernel's
-# model is within 1.5x that floor of the fp32 model, it is within 2.5x of
-# the plain bf16 model (triangle inequality).
-LOGITS_NOISE_MULT = 2.5
+# Prefill logits, 32 bf16 layers with random weights: rounding differences
+# grow through depth, so both bf16 models are held against the same weights
+# run in fp32. The plain-attention bf16 model's distance from it is the bf16
+# noise floor; the kernel's model may exceed that floor by at most 25%.
+LOGITS_NOISE_MULT = 1.25
 
 
 def fail(msg: str) -> None:
@@ -142,13 +141,12 @@ def main() -> int:
     print("[env] torch.backends.cuda.matmul.allow_tf32 = False: fp32 "
           "matmuls run at full fp32 precision")
     t0 = time.perf_counter()
-    libs = _build.build_all()
-    print(f"[build] {sorted(libs)} with nvcc {' '.join(_build.NVCC_FLAGS)} "
+    path = _build.build("flash_fwd")
+    print(f"[build] flash_fwd with nvcc {' '.join(_build.NVCC_FLAGS)} "
           f"in {time.perf_counter() - t0:.1f} s")
-    for name, path in libs.items():
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print(f"[build] {name}: {line.strip()}")
+    for line in path.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"[build] flash_fwd: {line.strip()}")
 
     # ---- 2. kernel against its plain version ---------------------------
     dev = torch.device("cuda")
@@ -202,16 +200,30 @@ def main() -> int:
               f"(tol {tol_lse:g}) {'ok' if ok else 'MISS'}")
         if not ok:
             misses.append(label)
-    # the layout wrapper: [B, L, H, D] views straight into the kernel
-    q, k, v = qkv(2, 32, 8, 333, 128, torch.bfloat16)
-    got = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), causal=True)
-    want = fa.flash_attention_plain(q, k, v, True)[0].transpose(1, 2)
-    err = (got.float() - want.float()).abs().max().item()
-    print(f"[kernel] flash_attention [B,L,H,D] L=333: max|o-plain| "
-          f"{err:.3e} (tol {TOL[torch.bfloat16][0]:g})")
-    if err > TOL[torch.bfloat16][0]:
-        misses.append("flash_attention layout wrapper")
+    # the serving path's own calls: contiguous [B, L, H, D] projections (as
+    # ``Attention`` makes them) through ``flash_attention``, so the kernel
+    # reads strided [B, H, L, D] views; at both requests' prefill shapes
+    tol_o, tol_lse = TOL[torch.bfloat16]
+    for b, l in ((4, 512), (1, 333)):
+        h, hkv, d = 32, 8, 128
+        q, k, v = (torch.randn(b, l, n, d, generator=gen, device=dev)
+                   .to(torch.bfloat16) for n in (h, hkv, hkv))
+        got = fa.flash_attention(q, k, v, causal=True)
+        views = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        _, lse = fa.flash_with_lse_fwd(*views, True)
+        po, plse = fa.flash_attention_plain(*views, True)
+        torch.cuda.synchronize()
+        err_o = (got.float() - po.transpose(1, 2).float()).abs().max().item()
+        err_lse = (lse - plse).abs().max().item()
+        ok = (err_o <= tol_o and err_lse <= tol_lse
+              and bool(torch.isfinite(got).all()))
+        bf16_err = max(bf16_err, err_o)
+        label = f"flash_attention [B,L,H,D] B={b} L={l} H={h} Hkv={hkv} D={d}"
+        print(f"[kernel] {label} bf16 causal: max|o-plain| {err_o:.3e} "
+              f"(tol {tol_o:g}) max|lse-plain| {err_lse:.3e} "
+              f"(tol {tol_lse:g}) {'ok' if ok else 'MISS'}")
+        if not ok:
+            misses.append(label)
     if misses:
         fail(f"flash kernel disagrees with its plain version: {misses}")
 
@@ -293,15 +305,16 @@ def main() -> int:
     kernel_noise = (logits_kernel - logits_f32).abs().max().item()
     agree = (logits_kernel.argmax(-1) == logits_plain.argmax(-1)).float()
     print(f"[serve] prefill logits [4, 512, {cfg.vocab_size}] fp32: "
-          f"max|kernel - plain| {diff:.3e} (tol {LOGITS_NOISE_MULT:g} x "
-          f"bf16 noise {noise:.3e} = max|plain bf16 - fp32 model|); "
-          f"max|kernel - fp32 model| {kernel_noise:.3e}; max |logit| "
+          f"max|kernel bf16 - fp32 model| {kernel_noise:.3e} (tol "
+          f"{LOGITS_NOISE_MULT:g} x bf16 noise {noise:.3e} = max|plain bf16 "
+          f"- fp32 model|); max|kernel - plain| {diff:.3e}; max |logit| "
           f"{logits_plain.abs().max().item():.3e}; argmax agreement "
           f"kernel/plain {agree.mean().item():.4f}")
     if not bool(torch.isfinite(logits_kernel).all()):
         fail("prefill logits not finite")
-    if diff > LOGITS_NOISE_MULT * noise:
-        fail("prefill logits with the kernel disagree with plain attention")
+    if kernel_noise > LOGITS_NOISE_MULT * noise:
+        fail("prefill logits with the kernel stray further from the fp32 "
+             "model than bf16 rounding explains")
     del logits_kernel, logits_plain, logits_f32
 
     # ---- 4. times -----------------------------------------------------

@@ -23,11 +23,17 @@ from tpu_on_k8s_torch import generate as cli
 from tpu_on_k8s_torch.models import decode, params as pparams, sampling
 from tpu_on_k8s_torch.models.transformer import TransformerConfig
 
+# tiny shapes: one intra-op thread, so that parallel test workers do not
+# oversubscribe the cores under the suite's timing-sensitive tests
+torch.set_num_threads(1)
+
 # fp32 end to end: the two packages differ only in summation order.
 FP32_ATOL = 1e-4
-# bf16 weights and activations (fp32 logits): ~3 significant digits per
-# rounding, through 2 layers; logits here are O(1).
-BF16_ATOL = 5e-2
+# bf16 weights and activations (fp32 logits), 2 layers. The tiny model's
+# logits have a std of ~0.16 (max ~0.64); the two packages round to bf16 in
+# different places and differ by 3.2e-3-3.7e-3 over init seeds 1-7, so the
+# tolerance is ~2.5x that.
+BF16_ATOL = 8e-3
 
 _DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
@@ -215,7 +221,7 @@ def test_bf16_prefill_logits_match_jax(setup):
     model, cache = _port_model(pcfg, params)
     with torch.no_grad():
         got = model(torch.from_numpy(tokens), None, cache)
-    assert cache[0].k.dtype == torch.bfloat16
+    assert cache[0].k.dtype == torch.bfloat16 and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, atol=BF16_ATOL, rtol=0)
 
 

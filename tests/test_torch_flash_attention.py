@@ -15,6 +15,10 @@ import torch
 from tpu_on_k8s.ops import flash_attention as jfa
 from tpu_on_k8s_torch.ops import flash_attention as pfa
 
+# tiny shapes: one intra-op thread, so that parallel test workers do not
+# oversubscribe the cores under the suite's timing-sensitive tests
+torch.set_num_threads(1)
+
 # fp32: the same fp32 arithmetic, summed in another order.
 FP32_ATOL = 1e-5
 # bf16: outputs carry ~3 significant digits, and the Pallas kernel rounds P

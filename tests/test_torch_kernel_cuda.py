@@ -61,14 +61,21 @@ def test_kernel_matches_plain(cuda, dtype, d, causal, l, valid, segmented):
     assert (lse - plse).abs().max().item() <= TOL[dtype][1]
 
 
-def test_layout_wrapper_reads_strided_views(cuda):
-    q, k, v = _qkv(2, 32, 8, 333, 128, torch.bfloat16)
-    got = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), causal=True)
-    want = fa.flash_attention_plain(q, k, v, True)[0].transpose(1, 2)
-    assert got.shape == (2, 333, 32, 128)
-    assert (got.float() - want.float()).abs().max().item() <= TOL[
-        torch.bfloat16][0]
+@pytest.mark.parametrize("b, l", [(4, 512), (1, 333)])
+def test_layout_wrapper_reads_strided_views(cuda, b, l):
+    """The serving path's call: contiguous [B, L, H, D] projections, which
+    the kernel reads as strided [B, H, L, D] views."""
+    q, k, v = (t.transpose(1, 2).contiguous()
+               for t in _qkv(b, 32, 8, l, 128, torch.bfloat16))
+    got = fa.flash_attention(q, k, v, causal=True)
+    views = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    _, lse = fa.flash_with_lse_fwd(*views, True)
+    want, plse = fa.flash_attention_plain(*views, True)
+    assert got.shape == (b, l, 32, 128)
+    tol_o, tol_lse = TOL[torch.bfloat16]
+    assert (got.float() - want.transpose(1, 2).float()).abs().max().item(
+        ) <= tol_o
+    assert (lse - plse).abs().max().item() <= tol_lse
 
 
 @pytest.mark.parametrize("dtype, d, match", [

@@ -15,6 +15,10 @@ from tpu_on_k8s_torch.models import decode, params as pparams
 from tpu_on_k8s_torch.models.transformer import TransformerConfig
 from tpu_on_k8s_torch.ops import _build
 
+# tiny shapes: one intra-op thread, so that parallel test workers do not
+# oversubscribe the cores under the suite's timing-sensitive tests
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "tpu_on_k8s")
 
@@ -103,7 +107,7 @@ def test_build_is_keyed_by_the_sources_and_needs_nvcc(monkeypatch, tmp_path):
     path = _build.library_path("flash_fwd")
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("flash_fwd-") and path.suffix == ".so"
-    assert "flash_fwd" in _build.sources()
+    assert (_build.CSRC / "flash_fwd.cu").is_file()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

@@ -1,12 +1,11 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
-``build/<name>-<hash>.so``, where the hash covers the source files and the
+``build/<name>-<hash>.so``, where the hash covers the source and the
 compiler flags: an edited source builds anew, an unchanged one is loaded
-from the build directory. The build happens on first use (``load``), or for
-every source at once, one nvcc process each, all started together
-(``build_all``). nvcc's report (``-Xptxas=-v``: registers, shared memory,
-spills per kernel) is kept beside the library as ``<name>-<hash>.log``.
+from the build directory. The build happens on first use (``load``). nvcc's
+report (``-Xptxas=-v``: registers, shared memory, spills per kernel) is kept
+beside the library as ``<name>-<hash>.log``.
 
 Nothing is built or loaded when this module is imported.
 """
@@ -44,55 +43,35 @@ def nvcc_path() -> str:
                        "the port's CUDA kernels are built from source")
 
 
-def sources() -> list[str]:
-    """Names of the kernels under ``csrc/`` (one library per ``.cu``)."""
-    return sorted(p.stem for p in CSRC.glob("*.cu"))
-
-
 def library_path(name: str) -> Path:
-    h = hashlib.sha256()
-    for p in sorted(CSRC.glob("*.cu*")):     # .cu and shared .cuh headers
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names: list[str] | None = None) -> dict[str, Path]:
-    """Compile each named source (default: all) that has no library yet, one
-    nvcc process per source, all running at once. Raises with nvcc's output
-    if any build fails. Returns ``{name: library path}``."""
-    names = sources() if names is None else names
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library exists; raises with
+    nvcc's output if the build fails. Returns the library's path."""
+    out = library_path(name)
+    if out.exists():
+        return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
-    procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        # compile to a private name, then rename: a reader never sees a
-        # half-written library
-        tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-        log = open(out.with_suffix(".log"), "w")
-        procs[name] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=log, stderr=subprocess.STDOUT), tmp, out, log)
-    failed = []
-    for name, (proc, tmp, out, log) in procs.items():
-        rc = proc.wait()
-        log.close()
-        if rc == 0:
-            os.replace(tmp, out)
-        else:
-            failed.append(f"{name} (nvcc exit {rc}):\n"
-                          f"{out.with_suffix('.log').read_text()}")
-    if failed:
-        raise RuntimeError("CUDA build failed: " + "\n".join(failed))
-    return {name: library_path(name) for name in names}
+    # compile to a private name, then rename: a reader never sees a
+    # half-written library
+    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+    res = subprocess.run(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out.with_suffix(".log").write_text(res.stdout)
+    if res.returncode:
+        raise RuntimeError(f"CUDA build of {name} failed (nvcc exit "
+                           f"{res.returncode}):\n{res.stdout}")
+    os.replace(tmp, out)
+    return out
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``, building it first if
     needed (one library per process, kept for its lifetime)."""
-    return ctypes.CDLL(str(build_all([name])[name]))
+    return ctypes.CDLL(str(build(name)))

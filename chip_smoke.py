@@ -5,18 +5,27 @@
 Run from the root of the repository, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA. Phases, each reporting on lines of its own:
 
-1. environment and build: the card's name and power limit, TF32 off, the
-   kernel ``tpu_on_k8s_torch/ops/csrc/flash_fwd.cu`` built with nvcc;
-2. each kernel against its plain PyTorch version on the card, at the serving
-   path's shapes, within stated tolerances;
+1. environment and build: the card's name and power limit, TF32 off, every
+   kernel source under ``tpu_on_k8s_torch/ops/csrc/`` built with nvcc (one
+   process per source, all at once), with each kernel's registers and
+   spills;
+2. each kernel against its plain PyTorch version on the card, at the
+   serving and training paths' shapes, within stated tolerances: the flash
+   forward, and the two backward kernels (dq, dk/dv);
 3. serving: ``generate`` at ``llama2_7b`` width (32 layers, bf16, random
    weights from a seed) answers a greedy batch-4 request and a sampled
-   batch-1 request; the flash kernel's launch count shows that each prefill
+   batch-1 request; the flash forward's launch count shows that each prefill
    went through it; the prefill logits with the kernel agree with the same
    model run on the plain attention;
-4. times on the card, each beside the card's name and power limit.
+4. training: a gradient gate (the first step's gradients of the kernel
+   model against plain-attention models in bf16 and fp32), then ``Trainer``
+   at ``llama2_1b`` (16 layers, full width, fp32 masters, bf16 compute,
+   flash attention, MLP remat) takes 8 steps on one fixed batch 4 x 2048;
+   the launch counts show that every layer's forward and backward went
+   through the kernels, and the loss is finite and falls;
+5. times on the card, each beside the card's name and power limit.
 
-Then one JSON line per kernel set, the card's line, and as the last line
+Then one JSON line for the kernels, the card's line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line; so does a machine without CUDA. Imports nothing of JAX.
 """
@@ -24,10 +33,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+from contextlib import nullcontext
 from unittest import mock
 
 import torch
@@ -36,16 +47,29 @@ import torch
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
-# Stated tolerances of the kernel against its plain version: bf16 outputs
-# carry ~3 significant digits and the kernel rounds P to bf16 per K tile
-# against a running max (the plain version against the final max); lse is
-# fp32 from the same fp32 scores. fp32 differs only in summation order.
+# Stated tolerances of the forward kernel against its plain version: bf16
+# outputs carry ~3 significant digits and the kernel rounds P to bf16 per K
+# tile against a running max (the plain version against the final max); lse
+# is fp32 from the same fp32 scores. fp32 differs only in summation order.
 TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-4, 1e-4)}
+# Backward kernels, as max|kernel - plain| / max|plain| per gradient: bf16
+# gradients keep 8 bits of mantissa (4e-3 of the largest value), and ds and
+# p round to bf16 from fp32 values summed in another order; fp32 differs
+# only in summation order.
+BWD_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 # Prefill logits, 32 bf16 layers with random weights: rounding differences
 # grow through depth, so both bf16 models are held against the same weights
 # run in fp32. The plain-attention bf16 model's distance from it is the bf16
 # noise floor; the kernel's model may exceed that floor by at most 25%.
 LOGITS_NOISE_MULT = 1.25
+# The same rule for the first training step's gradients, per parameter
+# tensor: ||g - g_fp32|| / ||g_fp32|| of the kernel model may exceed the
+# plain-attention bf16 model's by at most 25%. Readings on llama2_1b (see
+# PERF.md): both ~4.1e-2 median, 4.8e-2 max; kernel/plain per tensor
+# 1.000 median, 1.025 max.
+GRAD_NOISE_MULT = 1.25
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
 
 
 def fail(msg: str) -> None:
@@ -91,6 +115,25 @@ def time_ms(fn, iters: int = 20, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+def event_ms(fn, iters: int = 10, reps: int = 5) -> float:
+    """Median device time of one ``fn()`` call between CUDA events, without
+    a graph (for autograd calls), after warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
 def wall_ms(fn, reps: int = 5) -> float:
     """Median host time of ``fn()`` ending in a synchronize, after one
     warm-up call."""
@@ -105,17 +148,48 @@ def wall_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def flash_bound_ms(b, h, hkv, l, d, causal) -> tuple[float, str]:
-    """Least time for the bf16 flash forward on this card: the larger of
-    its FLOPs (QK^T and PV over the kept key columns) at the tensor-core
-    peak and its bytes (q, k, v read once; o and fp32 lse written once) at
-    the memory rate."""
-    pairs = l * (l + 1) // 2 if causal else l * l
-    flop_s = 4 * b * h * d * pairs / PEAK_BF16_FLOPS
-    byte_s = (2 * (2 * b * h * l * d + 2 * b * hkv * l * d)
-              + 4 * b * h * l) / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time for the work on this card: the larger of its FLOPs at
+    the bf16 tensor-core peak and its bytes at the memory rate."""
+    flop_s, byte_s = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return max(flop_s, byte_s) * 1e3, ("operations" if flop_s > byte_s
                                        else "bytes")
+
+
+def causal_pairs(l: int, causal: bool) -> int:
+    return l * (l + 1) // 2 if causal else l * l
+
+
+def flash_bound_ms(b, h, hkv, l, d, causal) -> tuple[float, str]:
+    """The bf16 flash forward: QK^T and PV over the kept pairs; q, k, v read
+    once, o and the fp32 lse written once."""
+    return bound_ms(4 * b * h * d * causal_pairs(l, causal),
+                    2 * (2 * b * h * l * d + 2 * b * hkv * l * d)
+                    + 4 * b * h * l)
+
+
+def dq_bound_ms(b, h, hkv, l, d, causal) -> tuple[float, str]:
+    """The bf16 dq kernel: QK^T, dO V^T and dS K over the kept pairs; q, dO,
+    k, v, lse and delta read once, dq written once."""
+    return bound_ms(6 * b * h * d * causal_pairs(l, causal),
+                    2 * (3 * b * h * l * d + 2 * b * hkv * l * d)
+                    + 2 * 4 * b * h * l)
+
+
+def dkv_bound_ms(b, h, hkv, l, d, causal) -> tuple[float, str]:
+    """The bf16 dk/dv kernel: QK^T, dO V^T, P^T dO and dS^T Q over the kept
+    pairs; q, dO, k, v, lse and delta read once, dk and dv written once."""
+    return bound_ms(8 * b * h * d * causal_pairs(l, causal),
+                    2 * (2 * b * h * l * d + 4 * b * hkv * l * d)
+                    + 2 * 4 * b * h * l)
+
+
+def counts(fa) -> tuple[int, int, int]:
+    return fa.launches, fa.dq_launches, fa.dkv_launches
+
+
+def reset_counts(fa) -> None:
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
 
 
 def main() -> int:
@@ -125,9 +199,11 @@ def main() -> int:
         return 1
 
     from tpu_on_k8s_torch.models import decode, transformer
-    from tpu_on_k8s_torch.models.params import init_params
+    from tpu_on_k8s_torch.models.params import init_params, load_model
     from tpu_on_k8s_torch.ops import _build
     from tpu_on_k8s_torch.ops import flash_attention as fa
+    from tpu_on_k8s_torch.train import Trainer, default_optimizer
+    from tpu_on_k8s_torch.train import trainer as trainer_mod
 
     t_start = time.perf_counter()
     # ---- 1. environment and build --------------------------------------
@@ -141,21 +217,23 @@ def main() -> int:
     print("[env] torch.backends.cuda.matmul.allow_tf32 = False: fp32 "
           "matmuls run at full fp32 precision")
     t0 = time.perf_counter()
-    path = _build.build("flash_fwd")
-    print(f"[build] flash_fwd with nvcc {' '.join(_build.NVCC_FLAGS)} "
-          f"in {time.perf_counter() - t0:.1f} s")
-    for line in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"[build] flash_fwd: {line.strip()}")
+    paths = _build.build_all()
+    print(f"[build] {', '.join(paths)} with nvcc {' '.join(_build.NVCC_FLAGS)}"
+          f", in parallel, in {time.perf_counter() - t0:.1f} s")
+    for name, path in paths.items():
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"[build] {name}: {line.strip()}")
 
-    # ---- 2. kernel against its plain version ---------------------------
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
     def qkv(b, h, hkv, l, d, dtype):
-        return (torch.randn(b, h, l, d, generator=gen, device=dev).to(dtype),
-                torch.randn(b, hkv, l, d, generator=gen, device=dev).to(dtype),
-                torch.randn(b, hkv, l, d, generator=gen, device=dev).to(dtype))
+        return (randn(b, h, l, d, dtype=dtype), randn(b, hkv, l, d, dtype=dtype),
+                randn(b, hkv, l, d, dtype=dtype))
 
     def segments_for(b, l):
         # three packed documents per row, boundaries drawn per row
@@ -165,6 +243,7 @@ def main() -> int:
         return ((pos[None] >= cuts[:, :1]).int()
                 + (pos[None] >= cuts[:, 1:]).int()).to(torch.int32)
 
+    # ---- 2. kernels against their plain versions -----------------------
     cases = [  # (b, h, hkv, l, d, dtype, causal, valid_len, segmented)
         (2, 32, 8, 512, 128, torch.bfloat16, True, 0, False),
         (2, 32, 8, 333, 128, torch.bfloat16, True, 0, False),
@@ -208,7 +287,8 @@ def main() -> int:
         h, hkv, d = 32, 8, 128
         q, k, v = (torch.randn(b, l, n, d, generator=gen, device=dev)
                    .to(torch.bfloat16) for n in (h, hkv, hkv))
-        got = fa.flash_attention(q, k, v, causal=True)
+        with torch.no_grad():
+            got = fa.flash_attention(q, k, v, causal=True)
         views = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
         _, lse = fa.flash_with_lse_fwd(*views, True)
         po, plse = fa.flash_attention_plain(*views, True)
@@ -224,8 +304,62 @@ def main() -> int:
               f"(tol {tol_lse:g}) {'ok' if ok else 'MISS'}")
         if not ok:
             misses.append(label)
+
+    # backward: dq, dk, dv from the kernels against the plain twins, from
+    # the forward kernel's o and lse; the llama2_7b (32/8) and llama2_1b
+    # (16/8, and 16/16 after the training path's repeat) head shapes
+    bwd_cases = [  # (b, h, hkv, l, d, dtype, causal, valid, segmented, g_lse)
+        (2, 32, 8, 512, 128, torch.bfloat16, True, 0, False, False),
+        (2, 32, 8, 333, 128, torch.bfloat16, True, 0, False, False),
+        (2, 32, 8, 512, 128, torch.bfloat16, False, 0, False, False),
+        (2, 32, 8, 512, 128, torch.bfloat16, True, 400, False, False),
+        (2, 16, 8, 512, 128, torch.bfloat16, True, 0, False, False),
+        (2, 16, 8, 333, 128, torch.bfloat16, False, 0, True, False),
+        (2, 16, 16, 333, 128, torch.bfloat16, True, 0, True, False),
+        (2, 16, 4, 333, 64, torch.bfloat16, True, 0, False, False),
+        (2, 16, 8, 512, 128, torch.bfloat16, True, 0, False, True),
+        (TRAIN_BATCH, 16, 16, TRAIN_SEQ, 128, torch.bfloat16, True, 0, False,
+         False),
+        (2, 32, 8, 333, 128, torch.float32, True, 0, False, False),
+        (2, 16, 8, 333, 128, torch.float32, False, 0, True, False),
+        (2, 16, 4, 200, 64, torch.float32, True, 150, False, True),
+    ]
+    bwd_err = {"dq": 0.0, "dkv": 0.0}
+    for b, h, hkv, l, d, dtype, causal, valid, segmented, cot in bwd_cases:
+        q, k, v = qkv(b, h, hkv, l, d, dtype)
+        do = randn(b, h, l, d, dtype=dtype)
+        g_lse = randn(b, h, 1, l, dtype=torch.float32) if cot else None
+        seg = segments_for(b, l) if segmented else None
+        o, lse = fa.flash_with_lse_fwd(q, k, v, causal, valid, seg)
+        got = fa.flash_bwd(q, k, v, o, lse, do, causal, valid, seg, g_lse)
+        delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
+        if cot:
+            delta = delta - g_lse
+        want = (fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, valid,
+                                      seg),
+                *fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+                                        valid, seg))
+        torch.cuda.synchronize()
+        label = (f"B={b} H={h} Hkv={hkv} L={l} D={d} "
+                 f"{str(dtype).split('.')[-1]} causal={causal} "
+                 f"valid_len={valid} segments={segmented} lse_cotangent={cot}")
+        parts, ok = [], True
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            err = (a.float() - w.float()).abs().max().item()
+            rel = err / w.float().abs().max().item()
+            ok = ok and rel <= BWD_REL_TOL[dtype] and bool(
+                torch.isfinite(a).all())
+            if dtype == torch.bfloat16:
+                key = "dq" if name == "dq" else "dkv"
+                bwd_err[key] = max(bwd_err[key], err)
+            parts.append(f"{name} max|err| {err:.3e} rel {rel:.2e}")
+        print(f"[kernel] flash_bwd {label}: {', '.join(parts)} (tol rel "
+              f"{BWD_REL_TOL[dtype]:g}) {'ok' if ok else 'MISS'}")
+        if not ok:
+            misses.append(f"flash_bwd {label}")
+        del q, k, v, do, o, lse, got, want, delta
     if misses:
-        fail(f"flash kernel disagrees with its plain version: {misses}")
+        fail(f"flash kernels disagree with their plain versions: {misses}")
 
     # ---- 3. serving: generate at llama2_7b width -----------------------
     cfg = transformer.TransformerConfig.llama2_7b()
@@ -245,7 +379,7 @@ def main() -> int:
     prompt1 = torch.randint(0, cfg.vocab_size, (1, 333), generator=pgen,
                             device=dev, dtype=torch.int32)
 
-    fa.launches = 0
+    reset_counts(fa)
     greedy = decode.generate(cfg, params, prompt4, 64)
     torch.cuda.synchronize()
     after_greedy = fa.launches
@@ -254,17 +388,19 @@ def main() -> int:
                               generator=torch.Generator(device=dev)
                               .manual_seed(2))
     torch.cuda.synchronize()
-    main_launches = fa.launches
+    serve_counts = counts(fa)
     print(f"[serve] request 1: batch 4 x prompt 512 -> 64 tokens, greedy; "
           f"flash_fwd launches {after_greedy}")
     print(f"[serve] request 2: batch 1 x prompt 333 -> 32 tokens, "
           f"temperature 0.8 top_p 0.9; flash_fwd launches "
-          f"{main_launches - after_greedy}")
+          f"{serve_counts[0] - after_greedy}")
     print(f"[serve] greedy row 0: {greedy[0, :16].tolist()} ...")
     print(f"[serve] sampled row 0: {sampled[0, :16].tolist()} ...")
-    if after_greedy != cfg.n_layers or main_launches - after_greedy != cfg.n_layers:
-        fail(f"flash_fwd launches per prefill {after_greedy}, "
-             f"{main_launches - after_greedy}; expected {cfg.n_layers} each")
+    if (after_greedy != cfg.n_layers
+            or serve_counts != (2 * cfg.n_layers, 0, 0)):
+        fail(f"serving launches (flash_fwd, dq, dkv) {serve_counts}, first "
+             f"prefill {after_greedy}; expected {cfg.n_layers} flash_fwd per "
+             f"prefill and no backward")
     for name, toks, shape in (("greedy", greedy, (4, 64)),
                               ("sampled", sampled, (1, 32))):
         if tuple(toks.shape) != shape or toks.dtype != torch.int32:
@@ -316,35 +452,218 @@ def main() -> int:
         fail("prefill logits with the kernel stray further from the fp32 "
              "model than bf16 rounding explains")
     del logits_kernel, logits_plain, logits_f32
-
-    # ---- 4. times -----------------------------------------------------
-    b, h, hkv, l, d = 4, cfg.n_heads, cfg.n_kv_heads, 512, cfg.head_dim
-    q, k, v = qkv(b, h, hkv, l, d, torch.bfloat16)
-    kernel_ms = time_ms(lambda: fa.flash_with_lse_fwd(q, k, v, True))
-    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, True))
-    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    bound_ms, bound_by = flash_bound_ms(b, h, hkv, l, d, True)
     prefill_ms = wall_ms(lambda: decode.generate(cfg, params, prompt4, 1))
     gen64_ms = wall_ms(lambda: decode.generate(cfg, params, prompt4, 64))
     decode_ms = (gen64_ms - prefill_ms) / 63
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- 4. training: llama2_1b, full width and depth ------------------
+    tcfg = dataclasses.replace(transformer.TransformerConfig.llama2_1b(),
+                               remat=True, remat_policy="mlp",
+                               attn_impl="flash")
+    tgen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    tparams = init_params(tcfg, tgen, dev, dtype=tcfg.param_dtype)
+    tokens = torch.randint(0, tcfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           generator=tgen, device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for p in tparams.values())
+    print(f"[train] llama2_1b: {tcfg.n_layers} layers d_model {tcfg.d_model} "
+          f"heads {tcfg.n_heads}/{tcfg.n_kv_heads} d_ff {tcfg.d_ff} vocab "
+          f"{tcfg.vocab_size}, {n_train:,} params, fp32 masters, bf16 "
+          f"compute, attn flash (kv repeated to {tcfg.n_heads} heads), "
+          f"remat mlp; batch {TRAIN_BATCH} x seq {TRAIN_SEQ}; init "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # the gradient gate: the first step's gradients on these weights, with
+    # remat "full" to bound memory, from the kernel model and from
+    # plain-attention models in bf16 and in fp32
+    def plain_bhld(q, k, v, causal=True, valid_len=0, segments=None):
+        return fa.flash_attention_plain(q, k, v, causal, valid_len,
+                                        segments)[0]
+
+    def first_grads(model_cfg, plain):
+        model = load_model(model_cfg, tparams, dev)
+        loss_fn = trainer_mod._make_loss_fn(model, 0, None)
+        patch = (mock.patch.object(transformer, "flash_attention_bhld",
+                                   plain_bhld) if plain else nullcontext())
+        with patch:
+            loss, _ = loss_fn(tokens)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+        names = [n for n, _ in model.named_parameters()]
+        return loss.item(), dict(zip(names, grads))
+
+    gcfg = dataclasses.replace(tcfg, remat_policy="full")
+    reset_counts(fa)
+    loss_k, grads_k = first_grads(gcfg, plain=False)
+    torch.cuda.synchronize()
+    full_counts = counts(fa)
+    loss_p, grads_p = first_grads(gcfg, plain=True)
+    loss_32, grads_32 = first_grads(
+        dataclasses.replace(gcfg, dtype=torch.float32), plain=True)
+    torch.cuda.synchronize()
+    print(f"[train] remat full, one forward+backward: launches flash_fwd "
+          f"{full_counts[0]}, dq {full_counts[1]}, dkv {full_counts[2]} "
+          f"(the forward runs again in each block's recompute)")
+    if full_counts != (2 * tcfg.n_layers, tcfg.n_layers, tcfg.n_layers):
+        fail(f"remat full launches {full_counts}; expected "
+             f"({2 * tcfg.n_layers}, {tcfg.n_layers}, {tcfg.n_layers})")
+
+    def rel_dist(g, ref):
+        return {n: ((g[n].float() - ref[n]).norm() / ref[n].norm()).item()
+                for n in ref}
+
+    dist_k, dist_p = rel_dist(grads_k, grads_32), rel_dist(grads_p, grads_32)
+    worst_k, worst_p = max(dist_k.values()), max(dist_p.values())
+    ratios = sorted(dist_k[n] / dist_p[n] for n in dist_k)
+    worst_name = max(dist_k, key=dist_k.get)
+    print(f"[train] gradient gate, step 1, {len(dist_k)} tensors, "
+          f"||g - g_fp32|| / ||g_fp32||: kernel bf16 max {worst_k:.4e} "
+          f"(at {worst_name}), median {statistics.median(dist_k.values()):.4e}"
+          f"; plain bf16 max {worst_p:.4e}, median "
+          f"{statistics.median(dist_p.values()):.4e}; per-tensor ratio "
+          f"kernel/plain median {statistics.median(ratios):.3f}, max "
+          f"{ratios[-1]:.3f} (limit {GRAD_NOISE_MULT:g})")
+    print(f"[train] gradient gate, step-1 loss: kernel bf16 {loss_k:.6f}, "
+          f"plain bf16 {loss_p:.6f}, fp32 {loss_32:.6f}")
+    for name in ("embed", "blocks.0.attn.wq.weight", "blocks.0.attn.wk.weight",
+                 "blocks.15.attn.wv.weight", "blocks.15.mlp.w_down.weight",
+                 "lm_head"):
+        print(f"[train]   {name}: kernel {dist_k[name]:.4e} plain "
+              f"{dist_p[name]:.4e}")
+    if not all(torch.isfinite(g).all() for g in grads_k.values()):
+        fail("kernel-model gradients not finite")
+    if ratios[-1] > GRAD_NOISE_MULT:
+        fail("the kernel model's gradients stray further from the fp32 "
+             "model's than bf16 rounding explains")
+    del grads_k, grads_p, grads_32
+    torch.cuda.empty_cache()
+
+    model = load_model(tcfg, tparams, dev)
+    trainer = Trainer(model, default_optimizer(
+        model.parameters(), warmup_steps=10,
+        decay_steps=max(TRAIN_STEPS, 11)))
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, step_ms = [], [], []
+    reset_counts(fa)
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(tokens)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    train_counts = counts(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[train] {TRAIN_STEPS} steps on one fixed batch: loss "
+          f"{[round(x, 5) for x in losses]}")
+    print(f"[train] grad_norm {[round(x, 4) for x in norms]}")
+    print(f"[train] launches over {TRAIN_STEPS} steps: flash_fwd "
+          f"{train_counts[0]}, dq {train_counts[1]}, dkv {train_counts[2]} "
+          f"({tcfg.n_layers} layers, remat mlp)")
+    want = tuple(TRAIN_STEPS * tcfg.n_layers for _ in range(3))
+    if train_counts != want:
+        fail(f"training launches {train_counts}; expected {want}: one "
+             f"flash_fwd, dq and dkv per layer per step")
+    if not all(map(math.isfinite, losses)):
+        fail(f"training loss not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"training loss did not fall: {losses}")
+    train_ms = statistics.median(step_ms[1:])
+    print(f"[train] step wall ms {[round(x, 1) for x in step_ms]}; median "
+          f"of steps 2-{TRAIN_STEPS} {train_ms:.1f} ms, "
+          f"{TRAIN_BATCH * TRAIN_SEQ / train_ms * 1e3:,.0f} tokens/s; peak "
+          f"memory {peak_gb:.2f} GB")
+    del trainer, model, tparams
+    torch.cuda.empty_cache()
+
+    # ---- 5. times -----------------------------------------------------
+    scfg = transformer.TransformerConfig.llama2_7b()
+    b, h, hkv, l, d = 4, scfg.n_heads, scfg.n_kv_heads, 512, scfg.head_dim
+    q, k, v = qkv(b, h, hkv, l, d, torch.bfloat16)
+    serve_fwd_ms = time_ms(lambda: fa.flash_with_lse_fwd(q, k, v, True))
+    serve_plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, True))
+    serve_sdpa_ms = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+    serve_bound, serve_by = flash_bound_ms(b, h, hkv, l, d, True)
     print(f"[time] {gpu}: flash_fwd B={b} H={h} Hkv={hkv} L={l} D={d} bf16 "
-          f"causal: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-          f"{bound_ms / kernel_ms:.1%} of bound")
+          f"causal (serving prefill): kernel {serve_fwd_ms:.4f} ms, plain "
+          f"{serve_plain_ms:.4f} ms, sdpa {serve_sdpa_ms:.4f} ms, bound "
+          f"{serve_bound:.4f} ms ({serve_by}); "
+          f"{serve_bound / serve_fwd_ms:.1%} of bound")
     print(f"[time] {gpu}: generate llama2_7b bf16 batch 4 x prompt 512: "
           f"prefill (+1 token) {prefill_ms:.2f} ms, 64 tokens "
-          f"{gen64_ms:.2f} ms, per-token decode {decode_ms:.3f} ms; peak "
-          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
-          f"script {time.perf_counter() - t_start:.0f} s")
+          f"{gen64_ms:.2f} ms, per-token decode {decode_ms:.3f} ms")
 
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "tpu_on_k8s_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "tpu_on_k8s/ops/flash_attention.py:131",
-        "launches": main_launches, "max_abs_err": bf16_err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms}]}))
+    # the training path's attention: kv repeated to 16 heads, L 2048
+    b, h, hkv, l, d = TRAIN_BATCH, 16, 16, TRAIN_SEQ, 128
+    q, k, v = qkv(b, h, hkv, l, d, torch.bfloat16)
+    do = randn(b, h, l, d)
+    o, lse = fa.flash_with_lse_fwd(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
+    shape = f"B={b} H={h} Hkv={hkv} L={l} D={d} bf16 causal"
+    timed = {
+        "flash_fwd": (
+            time_ms(lambda: fa.flash_with_lse_fwd(q, k, v, True)),
+            time_ms(lambda: fa.flash_attention_plain(q, k, v, True)),
+            flash_bound_ms(b, h, hkv, l, d, True)),
+        "flash_bwd_dq": (
+            time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True)),
+            time_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                  True)),
+            dq_bound_ms(b, h, hkv, l, d, True)),
+        "flash_bwd_dkv": (
+            time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)),
+            time_ms(lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                   True)),
+            dkv_bound_ms(b, h, hkv, l, d, True)),
+    }
+    sdpa_fwd_ms = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg,
+                                                           is_causal=True)
+    sdpa_bwd_ms = event_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True))
+    library = {"flash_fwd": sdpa_fwd_ms, "flash_bwd_dq": sdpa_bwd_ms,
+               "flash_bwd_dkv": sdpa_bwd_ms}
+    for name, (ms, plain, (bound, by)) in timed.items():
+        print(f"[time] {gpu}: {name} {shape} (training): kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, bound {bound:.4f} ms ({by}), "
+              f"{bound / ms:.1%} of bound; sdpa "
+              f"{'forward' if name == 'flash_fwd' else 'backward (dq, dk, dv together)'}"
+              f" {library[name]:.4f} ms")
+    print(f"[time] {gpu}: train step llama2_1b batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} (remat mlp, flash): {train_ms:.1f} ms, "
+          f"{TRAIN_BATCH * TRAIN_SEQ / train_ms * 1e3:,.0f} tokens/s, peak "
+          f"memory {peak_gb:.2f} GB; script "
+          f"{time.perf_counter() - t_start:.0f} s")
+
+    sources = {"flash_fwd": ("flash_fwd.cu", 131),
+               "flash_bwd_dq": ("flash_bwd.cu", 229),
+               "flash_bwd_dkv": ("flash_bwd.cu", 265)}
+    by_path = {"flash_fwd": (serve_counts[0], train_counts[0]),
+               "flash_bwd_dq": (serve_counts[1], train_counts[1]),
+               "flash_bwd_dkv": (serve_counts[2], train_counts[2])}
+    errs = {"flash_fwd": bf16_err, "flash_bwd_dq": bwd_err["dq"],
+            "flash_bwd_dkv": bwd_err["dkv"]}
+    kernels = []
+    for name, (ms, plain, (bound, by)) in timed.items():
+        src, line = sources[name]
+        serve_n, train_n = by_path[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"tpu_on_k8s_torch/ops/csrc/{src}",
+            "replaces": f"tpu_on_k8s/ops/flash_attention.py:{line}",
+            "launches": serve_n + train_n,
+            "launches_by_path": {"serve": serve_n, "train": train_n},
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": library[name],
+            "shape": shape})
+    print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -245,10 +245,17 @@ def test_unported_flags_raise(flag, value):
         decode.decode_model(cfg, {}, "cpu")
 
 
-def test_training_forward_is_not_ported():
+@pytest.mark.parametrize("flag, value", [
+    ("attn_int8", True), ("remat_policy", "dots"),
+    ("remat_policy", "dots_kernels"), ("mlp_int8", True), ("head_int8", True),
+    ("fused_qkv", True), ("attn_impl", "ulysses"),
+])
+def test_unported_training_flags_raise(flag, value):
     from tpu_on_k8s_torch.models.transformer import Transformer
-    with pytest.raises(NotImplementedError, match="decode=False"):
-        Transformer(TransformerConfig.tiny())
+    cfg = dataclasses.replace(TransformerConfig.tiny(), remat=True,
+                              **{flag: value})
+    with pytest.raises(NotImplementedError, match=flag):
+        Transformer(cfg)
 
 
 # ---- sampling ----------------------------------------------------------

@@ -1,4 +1,6 @@
-"""The Hopper flash-attention kernel against its plain version, on the card.
+"""The Hopper flash-attention kernels against their plain versions, on the
+card: the forward (``flash_fwd``) and the two backward kernels
+(``flash_bwd_dq``, ``flash_bwd_dkv``).
 
 Every test here needs a CUDA card and nvcc, and skips without them. The
 file imports neither JAX nor the JAX package, so that it also runs on a
@@ -18,6 +20,11 @@ pytestmark = pytest.mark.cuda
 # per 64-key tile against a running max; lse is fp32 from fp32 scores. fp32
 # differs only in summation order.
 TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-4, 1e-4)}
+# Backward, as max|kernel - plain| / max|plain| per gradient: bf16 gradients
+# are stored with 8 bits of mantissa (4e-3 of the largest value), and ds and
+# p round to bf16 from fp32 values summed in another order than the plain
+# version's; fp32 differs only in summation order.
+BWD_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 
 
 @pytest.fixture
@@ -88,3 +95,61 @@ def test_kernel_refuses_what_it_does_not_take(cuda, dtype, d, match):
     with pytest.raises(ValueError, match=match):
         fa.flash_with_lse_fwd(q, k, v, True)
     assert fa.launches == before
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def _plain_bwd(q, k, v, o, lse, do, causal, valid, seg):
+    delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
+    dq = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, valid, seg)
+    dk, dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, valid,
+                                    seg)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("dtype, d, h, hkv, causal, l, valid, segmented", [
+    (torch.bfloat16, 128, 32, 8, True, 333, 0, False),
+    (torch.bfloat16, 128, 16, 8, False, 200, 0, True),
+    (torch.bfloat16, 64, 16, 16, True, 512, 400, False),
+    (torch.bfloat16, 128, 16, 4, True, 256, 0, True),
+    (torch.float32, 128, 32, 8, True, 333, 0, True),
+    (torch.float32, 64, 16, 4, False, 130, 100, False),
+])
+def test_backward_kernels_match_plain(cuda, dtype, d, h, hkv, causal, l,
+                                      valid, segmented):
+    q, k, v = _qkv(2, h, hkv, l, d, dtype)
+    do = _qkv(2, h, h, l, d, dtype, seed=7)[0]
+    seg = _segments(2, l) if segmented else None
+    o, lse = fa.flash_with_lse_fwd(q, k, v, causal, valid, seg)
+    before = (fa.dq_launches, fa.dkv_launches)
+    got = fa.flash_bwd(q, k, v, o, lse, do, causal, valid, seg)
+    want = _plain_bwd(q, k, v, o, lse, do, causal, valid, seg)
+    torch.cuda.synchronize()
+    assert (fa.dq_launches, fa.dkv_launches) == (before[0] + 1, before[1] + 1)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert _rel_err(a, b) <= BWD_REL_TOL[dtype], name
+
+
+def test_autograd_runs_the_kernels_on_model_layout(cuda):
+    """The training path's call: [B, L, H, D] projections read as strided
+    [B, H, L, D] views, a non-contiguous dO, gradients through autograd."""
+    b, l, h, hkv, d = 2, 333, 16, 8, 128
+    q, k, v = (t.transpose(1, 2).contiguous().requires_grad_()
+               for t in _qkv(b, h, hkv, l, d, torch.bfloat16))
+    g = _qkv(b, h, h, l, d, torch.bfloat16, seed=8)[0]
+    g = g.transpose(1, 2).contiguous()                 # [B, L, H, D]
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    o = fa.flash_attention(q, k, v, causal=True)
+    o.backward(g)
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        n + 1 for n in before)
+    views = [t.detach().transpose(1, 2) for t in (q, k, v)]
+    po, plse = fa.flash_with_lse_fwd(*views, True)
+    want = _plain_bwd(*views, po, plse, g.transpose(1, 2), True, 0, None)
+    tol = BWD_REL_TOL[torch.bfloat16]
+    for name, a, w in zip(("dq", "dk", "dv"), (q.grad, k.grad, v.grad), want):
+        assert _rel_err(a.transpose(1, 2), w) <= tol, name

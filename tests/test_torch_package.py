@@ -48,7 +48,11 @@ def test_the_scan_sees_the_whole_port():
     names = {p.relative_to(REPO).as_posix() for p in _port_files()}
     assert {"chip_smoke.py", "tpu_on_k8s_torch/models/decode.py",
             "tpu_on_k8s_torch/ops/flash_attention.py",
-            "tpu_on_k8s_torch/generate.py"} <= names
+            "tpu_on_k8s_torch/generate.py",
+            "tpu_on_k8s_torch/train_llama.py",
+            "tpu_on_k8s_torch/train/trainer.py",
+            "tpu_on_k8s_torch/train/optimizer.py",
+            "tpu_on_k8s_torch/data/loader.py"} <= names
 
 
 @pytest.fixture
@@ -72,6 +76,11 @@ def test_entry_points_raise_without_cuda(no_cuda):
     from tpu_on_k8s_torch import generate as cli
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["--config", "tiny"])
+    from tpu_on_k8s_torch import train_llama
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_llama.main(["--config", "tiny", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        pparams.load_model(cfg, params)
     out = decode.generate(cfg, params, torch.zeros(1, 4, dtype=torch.int32),
                           2, device="cpu")
     assert out.shape == (1, 2)
@@ -81,6 +90,16 @@ def test_resolve_device_rejects_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_build_key_covers_the_shared_headers(monkeypatch, tmp_path):
+    for src in _build.CSRC.iterdir():
+        shutil.copy(src, tmp_path)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build.library_path(n) for n in _build.sources()}
+    with open(tmp_path / "flash_common.cuh", "a") as f:
+        f.write("\n// an edit\n")
+    assert all(_build.library_path(n) != p for n, p in before.items())
 
 
 def _run_chip_smoke(cwd: Path):
@@ -104,10 +123,12 @@ def test_chip_smoke_fails_alone(tmp_path):
 
 
 def test_build_is_keyed_by_the_sources_and_needs_nvcc(monkeypatch, tmp_path):
-    path = _build.library_path("flash_fwd")
-    assert path.parent == _build.BUILD_DIR
-    assert path.name.startswith("flash_fwd-") and path.suffix == ".so"
-    assert (_build.CSRC / "flash_fwd.cu").is_file()
+    assert _build.sources() == ["flash_bwd", "flash_fwd"]
+    for name in _build.sources():
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR
+        assert path.name.startswith(f"{name}-") and path.suffix == ".so"
+        assert (_build.CSRC / f"{name}.cu").is_file()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -115,3 +136,6 @@ def test_build_is_keyed_by_the_sources_and_needs_nvcc(monkeypatch, tmp_path):
         pytest.skip("a CUDA toolkit is installed here")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
+    if not all(_build.library_path(n).exists() for n in _build.sources()):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.build_all()

@@ -14,6 +14,7 @@ from typing import Dict, List, Optional
 import torch
 
 from tpu_on_k8s_torch.device import resolve_device
+from tpu_on_k8s_torch.models.params import load_model
 from tpu_on_k8s_torch.models.sampling import SamplingParams, sample
 from tpu_on_k8s_torch.models.transformer import (
     KVCache,
@@ -30,20 +31,14 @@ PAGE_TOKENS = 128
 def decode_model(cfg: TransformerConfig, params: Dict[str, torch.Tensor],
                  device: str | torch.device = "cuda") -> Transformer:
     """The architecture in KV-cache mode, holding ``params`` (a state dict,
-    see ``models/params.py``). Weights are used in ``cfg.dtype`` and norm
-    scales in fp32, as the reference casts them at every call; tensors
-    already in that dtype on ``device`` are used as they are, not copied."""
+    see ``models/params.py``). Weights are stored in ``cfg.dtype`` — what
+    the reference casts its fp32 masters to at every call — and norm scales
+    in fp32; tensors already in that dtype on ``device`` are used as they
+    are, not copied."""
     check_supported(cfg)
-    dev = resolve_device(device)
-    cfg = dataclasses.replace(cfg, decode=True, remat=False, attn_impl="xla")
-    with torch.device("meta"):
-        model = Transformer(cfg)
-    state = {}
-    for name, ref in model.state_dict().items():
-        if name not in params:
-            raise KeyError(f"params lack {name!r}")
-        state[name] = params[name].to(device=dev, dtype=ref.dtype)
-    model.load_state_dict(state, strict=True, assign=True)
+    cfg = dataclasses.replace(cfg, decode=True, remat=False, attn_impl="xla",
+                              param_dtype=cfg.dtype)
+    model = load_model(cfg, params, device)
     return model.eval().requires_grad_(False)
 
 

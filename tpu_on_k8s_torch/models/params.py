@@ -1,4 +1,4 @@
-"""The serving model's parameters: a flat state dict of tensors.
+"""The model's parameters: a flat state dict of tensors.
 
 Names are those of ``Transformer.state_dict()``: ``embed [V, D]``,
 ``blocks.{i}.attn_norm.scale``, ``blocks.{i}.attn.w{q,k,v,o}.weight``,
@@ -9,7 +9,9 @@ is ``[out, in]``, the transpose of the reference's Flax ``kernel``.
 ``from_jax_params`` carries a reference parameter tree across (the
 scan-stacked layout: every ``blocks/...`` leaf has a leading layer axis);
 ``init_params`` draws fresh ones as Flax initialises them, on the device,
-from a seeded generator.
+from a seeded generator. Serving stores matrices in ``cfg.dtype`` (the
+default); training keeps fp32 masters (``dtype=torch.float32``).
+``load_model`` builds the model around a state dict.
 """
 from __future__ import annotations
 
@@ -54,6 +56,24 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 
 _ATTN = ("wq", "wk", "wv", "wo")
 _MLP = ("w_gate", "w_up", "w_down", "w_gateup")
+
+
+def load_model(cfg: TransformerConfig, params: Mapping[str, torch.Tensor],
+               device: str | torch.device = "cuda") -> Transformer:
+    """``Transformer(cfg)`` on ``device`` holding ``params``. Each tensor
+    already in the dtype the model stores it in (``cfg.param_dtype``; fp32
+    for norm scales) and on ``device`` becomes the parameter itself, not a
+    copy, so an optimizer's in-place update is seen through ``params``."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = Transformer(cfg)
+    state = {}
+    for name, ref in model.state_dict().items():
+        if name not in params:
+            raise KeyError(f"params lack {name!r}")
+        state[name] = params[name].to(device=dev, dtype=ref.dtype)
+    model.load_state_dict(state, strict=True, assign=True)
+    return model
 
 
 def _as_numpy(leaf) -> np.ndarray:

@@ -1,19 +1,27 @@
-"""Llama-family decoder in KV-cache (serving) mode.
+"""Llama-family decoder: the training forward and the KV-cache (serving)
+mode.
 
-Counterpart of ``tpu_on_k8s/models/transformer.py`` for the path that
-``generate`` runs: ``TransformerConfig``, ``RMSNorm``, half-split RoPE, the
-decode-mode ``Attention`` with its single-cursor KV cache, the SwiGLU
-``MLP``, ``Block`` and ``Transformer`` with fp32 logits and an untied head.
+Counterpart of ``tpu_on_k8s/models/transformer.py``: ``TransformerConfig``,
+``RMSNorm``, half-split RoPE, ``Attention`` (heads-leading flash or plain
+attention in training, the single-cursor KV cache in decode mode), the
+SwiGLU ``MLP``, ``Block`` and ``Transformer`` with fp32 logits and an untied
+head, and ``features`` for the chunked loss.
 
 PyTorch idiom in place of Flax's: ``nn.Module``s whose parameters are plain
 tensors, a Python loop over per-layer blocks in place of ``nn.scan`` over
-stacked parameters, and KV caches preallocated by ``decode.init_cache`` and
-written in place. Dense layers are ``nn.Linear`` (weight ``[out, in]``, the
-transpose of a Flax ``kernel``), stored and computed in ``cfg.dtype`` as
-``nn.Dense(dtype=cfg.dtype)`` computes after casting its fp32 master weight.
+stacked parameters, ``torch.utils.checkpoint`` in place of ``nn.remat``, and
+KV caches preallocated by ``decode.init_cache`` and written in place. Dense
+layers are ``Dense`` (an ``nn.Linear``: weight ``[out, in]``, the transpose
+of a Flax ``kernel``) stored in ``cfg.param_dtype`` and cast to ``cfg.dtype``
+at every use, as ``nn.Dense(dtype, param_dtype)`` computes. Training keeps
+fp32 master weights; serving stores them already cast (``decode_model``), so
+the cast is a no-op there.
 
-A config flag this slice does not cover raises ``NotImplementedError``
-naming it (``check_supported``); none is silently ignored.
+A config flag this port does not cover raises ``NotImplementedError``
+naming it (``check_supported``; ``check_trainable`` for the training
+forward); none is silently ignored. ``scan_unroll`` and
+``attn_block_q``/``attn_block_k`` are TPU compile and tiling knobs with no
+counterpart here: they are accepted and have no effect.
 """
 from __future__ import annotations
 
@@ -24,7 +32,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpu_on_k8s_torch.ops.flash_attention import NEG_INF, flash_attention
+from torch.utils.checkpoint import checkpoint
+
+from tpu_on_k8s_torch.ops.flash_attention import (
+    NEG_INF,
+    flash_attention,
+    flash_attention_bhld,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,10 +54,11 @@ class TransformerConfig:
     max_seq_len: int = 4096
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
-    dtype: torch.dtype = torch.bfloat16        # compute and weight dtype
-    param_dtype: torch.dtype = torch.float32   # the reference's master weights
-    # Training knobs: the reference's decode model does not read them either
-    # (``decode_model`` turns remat off and attention to "xla").
+    dtype: torch.dtype = torch.bfloat16        # compute dtype
+    param_dtype: torch.dtype = torch.float32   # master weights (serving
+                                               # stores them in ``dtype``)
+    # Training knobs; ``decode_model`` turns remat off and attention to "xla"
+    # as the reference's decode model does.
     remat: bool = True
     remat_policy: str = "full"
     attn_impl: str = "xla"
@@ -115,14 +130,33 @@ _NOT_PORTED = (
 )
 
 
-def check_supported(cfg: TransformerConfig) -> None:
-    """Raise ``NotImplementedError`` naming the first flag of ``cfg`` that
-    this port does not cover yet."""
-    for flag, unsupported, later in _NOT_PORTED:
+def _raise_first(cfg: TransformerConfig, table) -> None:
+    for flag, unsupported, later in table:
         if unsupported(cfg):
             raise NotImplementedError(
                 f"{flag}={getattr(cfg, flag)!r} is not ported to "
                 f"tpu_on_k8s_torch yet ({later} is a later slice)")
+
+
+def check_supported(cfg: TransformerConfig) -> None:
+    """Raise ``NotImplementedError`` naming the first flag of ``cfg`` that
+    this port does not cover yet."""
+    _raise_first(cfg, _NOT_PORTED)
+
+
+#: What the training forward does not cover on top of ``_NOT_PORTED``.
+_NOT_TRAINABLE = (
+    ("attn_int8", lambda c: c.attn_int8, "the int8 GEMM kernel"),
+    ("remat_policy",
+     lambda c: c.remat and c.remat_policy in ("dots", "dots_kernels"),
+     "the dots/dots_kernels remat policies"),
+)
+
+
+def check_trainable(cfg: TransformerConfig) -> None:
+    """``check_supported``, and the flags only the training forward reads."""
+    check_supported(cfg)
+    _raise_first(cfg, _NOT_TRAINABLE)
 
 
 def _rope_tables(positions: torch.Tensor, half: int, theta: float):
@@ -146,6 +180,29 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     """Rotary position embedding. x: [B, L, H, Dh]; positions: [B, L]."""
     cos, sin = _rope_tables(positions, x.shape[-1] // 2, theta)
     return _rope_rotate(x, cos[:, :, None, :], sin[:, :, None, :])
+
+
+def xla_attention_bhld(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool = True,
+                       segments: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Plain attention on heads-leading ``[B, H, L, Dh]`` q/k/v (kv already
+    repeated to H heads), the reference's ``attn_impl="xla"`` training path:
+    fp32 scores scaled after the dot, masked to the fp32 minimum, softmax in
+    fp32, probabilities cast to q's dtype before the V product.
+    ``segments [B, L]`` keeps only same-segment pairs (packed windows)."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    l = logits.shape[-1]
+    mask = torch.ones(1, 1, l, l, dtype=torch.bool, device=q.device)
+    if causal:
+        mask = torch.tril(mask)
+    if segments is not None:
+        mask = mask & (segments[:, None, :, None]
+                       == segments[:, None, None, :])
+    logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(probs, v)
 
 
 class RMSNorm(nn.Module):
@@ -187,8 +244,16 @@ class KVCache:
     index: int = 0
 
 
-def _linear(n_in: int, n_out: int, cfg: TransformerConfig) -> nn.Linear:
-    return nn.Linear(n_in, n_out, bias=False, dtype=cfg.dtype)
+class Dense(nn.Linear):
+    """A bias-free ``nn.Linear`` whose weight is stored in
+    ``cfg.param_dtype`` and cast to ``cfg.dtype`` at every use."""
+
+    def __init__(self, n_in: int, n_out: int, cfg: TransformerConfig):
+        super().__init__(n_in, n_out, bias=False, dtype=cfg.param_dtype)
+        self.compute_dtype = cfg.dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(self.compute_dtype))
 
 
 class Attention(nn.Module):
@@ -196,13 +261,14 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         hd = cfg.head_dim
-        self.wq = _linear(cfg.d_model, cfg.n_heads * hd, cfg)
-        self.wk = _linear(cfg.d_model, cfg.n_kv_heads * hd, cfg)
-        self.wv = _linear(cfg.d_model, cfg.n_kv_heads * hd, cfg)
-        self.wo = _linear(cfg.n_heads * hd, cfg.d_model, cfg)
+        self.wq = Dense(cfg.d_model, cfg.n_heads * hd, cfg)
+        self.wk = Dense(cfg.d_model, cfg.n_kv_heads * hd, cfg)
+        self.wv = Dense(cfg.d_model, cfg.n_kv_heads * hd, cfg)
+        self.wo = Dense(cfg.n_heads * hd, cfg.d_model, cfg)
 
     def forward(self, x: torch.Tensor, pos: Positions,
-                cache: KVCache) -> torch.Tensor:
+                cache: Optional[KVCache] = None,
+                segments: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         b, l, _ = x.shape
         q = self.wq(x).view(b, l, cfg.n_heads, cfg.head_dim)
@@ -210,8 +276,32 @@ class Attention(nn.Module):
         v = self.wv(x).view(b, l, cfg.n_kv_heads, cfg.head_dim)
         q = _rope_rotate(q, pos.cos, pos.sin)
         k = _rope_rotate(k, pos.cos, pos.sin)
-        out = self._cached_attention(q, k, v, pos, cache)
+        if cache is not None:
+            out = self._cached_attention(q, k, v, pos, cache)
+        else:
+            out = self._attention_bhld(q, k, v, segments)
         return self.wo(out.reshape(b, l, cfg.n_heads * cfg.head_dim))
+
+    def _attention_bhld(self, q, k, v, segments) -> torch.Tensor:
+        """The training path's attention, as the reference's
+        ``_attention_bhld``: q/k/v ``[B, L, H, Dh]`` read as heads-leading
+        views. ``attn_impl="flash"`` runs the differentiable flash kernels
+        on Hkv-head k/v (``attn_native_gqa``) or on k/v repeated to H heads;
+        ``"xla"`` repeats k/v and runs ``xla_attention_bhld``. Autograd sums
+        the gradients of a repeat. Returns ``[B, L, H, Dh]``."""
+        cfg = self.cfg
+        rep = cfg.n_heads // cfg.n_kv_heads
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        if cfg.attn_impl == "flash":
+            if not cfg.attn_native_gqa:
+                k = k.repeat_interleave(rep, dim=1)
+                v = v.repeat_interleave(rep, dim=1)
+            out = flash_attention_bhld(q, k, v, True, 0, segments)
+        else:
+            out = xla_attention_bhld(q, k.repeat_interleave(rep, dim=1),
+                                     v.repeat_interleave(rep, dim=1), True,
+                                     segments)
+        return out.transpose(1, 2)
 
     def _cached_attention(self, q, k, v, pos: Positions,
                           cache: KVCache) -> torch.Tensor:
@@ -265,11 +355,11 @@ class MLP(nn.Module):
         self.d_ff = cfg.d_ff
         self.fused = cfg.mlp_fused_gateup
         if self.fused:
-            self.w_gateup = _linear(cfg.d_model, 2 * cfg.d_ff, cfg)
+            self.w_gateup = Dense(cfg.d_model, 2 * cfg.d_ff, cfg)
         else:
-            self.w_gate = _linear(cfg.d_model, cfg.d_ff, cfg)
-            self.w_up = _linear(cfg.d_model, cfg.d_ff, cfg)
-        self.w_down = _linear(cfg.d_ff, cfg.d_model, cfg)
+            self.w_gate = Dense(cfg.d_model, cfg.d_ff, cfg)
+            self.w_up = Dense(cfg.d_model, cfg.d_ff, cfg)
+        self.w_down = Dense(cfg.d_ff, cfg.d_model, cfg)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused:
@@ -280,65 +370,102 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm block."""
+    """Pre-norm block. With ``remat`` and ``remat_policy="mlp"`` the MLP is
+    recomputed in the backward pass while the attention's residuals stay
+    (the reference's MLP-only ``nn.remat``)."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
+        self.remat_mlp = cfg.remat and cfg.remat_policy == "mlp"
         self.attn_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype)
         self.attn = Attention(cfg)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype)
         self.mlp = MLP(cfg)
 
     def forward(self, x: torch.Tensor, pos: Positions,
-                cache: KVCache) -> torch.Tensor:
-        h = x + self.attn(self.attn_norm(x), pos, cache)
-        return h + self.mlp(self.mlp_norm(h))
+                cache: Optional[KVCache] = None,
+                segments: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = x + self.attn(self.attn_norm(x), pos, cache, segments)
+        y = self.mlp_norm(h)
+        if self.remat_mlp and torch.is_grad_enabled():
+            return h + checkpoint(self.mlp, y, use_reentrant=False)
+        return h + self.mlp(y)
 
 
 class Transformer(nn.Module):
-    """Decoder-only LM in KV-cache mode: ``forward(tokens [B, L], positions,
-    cache)`` → fp32 logits ``[B, L, vocab]`` (``[B, 1, vocab]`` with
-    ``last_only``). Build it with ``decode.decode_model``; the training
-    forward (no cache, ``decode=False``) is a later slice."""
+    """Decoder-only LM. ``forward(tokens [B, L], positions, cache,
+    last_only, segments)`` → fp32 logits ``[B, L, vocab]`` (``[B, 1,
+    vocab]`` with ``last_only``); ``features`` → the final-norm hidden
+    states and the head ``[D, V]`` in ``cfg.dtype`` for the chunked loss.
+
+    With ``cfg.decode`` every call takes one ``KVCache`` per layer (build it
+    with ``decode.decode_model``); otherwise no cache, and ``segments
+    [B, L]`` restrict attention to packed documents. ``remat`` with any
+    policy but "mlp" recomputes each whole block in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant); "mlp" only the MLP."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
-        check_supported(cfg)
-        if not cfg.decode:
-            raise NotImplementedError(
-                "decode=False is not ported to tpu_on_k8s_torch yet (the "
-                "training forward is a later slice); build the serving "
-                "model with models.decode.decode_model")
+        if cfg.decode:
+            check_supported(cfg)
+        else:
+            check_trainable(cfg)
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
-                                              dtype=cfg.dtype))
+                                              dtype=cfg.param_dtype))
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype)
         self.lm_head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab_size,
-                                                dtype=cfg.dtype))
+                                                dtype=cfg.param_dtype))
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 cache: Optional[List[KVCache]] = None,
-                last_only: bool = False) -> torch.Tensor:
-        if cache is None or len(cache) != len(self.blocks):
-            raise ValueError("the serving model needs one KVCache per layer "
-                             "(decode.init_cache)")
+                last_only: bool = False,
+                segments: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x, head = self._trunk(tokens, positions, cache, segments)
+        if last_only:
+            x = x[:, -1:]
+        # fp32 logits from the cfg.dtype head: products of bf16 values are
+        # exact in fp32, so this is the reference's fp32-accumulated einsum.
+        return torch.matmul(x.float(), head.float())
+
+    def features(self, tokens: torch.Tensor,
+                 positions: Optional[torch.Tensor] = None,
+                 segments: Optional[torch.Tensor] = None):
+        """(final-norm hidden states ``[B, L, D]``, head ``[D, V]``), both
+        in ``cfg.dtype``: what ``chunked_cross_entropy`` takes."""
+        return self._trunk(tokens, positions, None, segments)
+
+    def _trunk(self, tokens, positions, cache, segments):
         cfg = self.cfg
+        if cfg.decode:
+            if cache is None or len(cache) != len(self.blocks):
+                raise ValueError("the serving model needs one KVCache per "
+                                 "layer (decode.init_cache)")
+            if segments is not None:
+                raise ValueError("segment-masked attention is a "
+                                 "packed-window training feature")
+        elif cache is not None:
+            raise ValueError("the training model (decode=False) takes no "
+                             "cache")
         arange = torch.arange(tokens.shape[1], dtype=torch.int32,
                               device=tokens.device).expand_as(tokens)
         if positions is None:
             positions = arange
         cos, sin = _rope_tables(positions, cfg.head_dim // 2, cfg.rope_theta)
         pos = Positions(positions, cos[:, :, None, :], sin[:, :, None, :],
-                        tokens.shape[1] > 1
+                        cfg.decode and tokens.shape[1] > 1
                         and torch.equal(positions.int(), arange))
-        x = F.embedding(tokens, self.embed)
-        for block, layer_cache in zip(self.blocks, cache):
-            x = block(x, pos, layer_cache)
-        x = self.final_norm(x)
-        if last_only:
-            x = x[:, -1:]
-        # fp32 logits from the cfg.dtype head: products of bf16 values are
-        # exact in fp32, so this is the reference's fp32-accumulated einsum.
-        return torch.matmul(x.float(), self.lm_head.float())
+        # an fp32 gather from the master table, then the cast
+        x = F.embedding(tokens, self.embed).to(cfg.dtype)
+        remat_block = (cfg.remat and cfg.remat_policy != "mlp"
+                       and torch.is_grad_enabled())
+        for i, block in enumerate(self.blocks):
+            if remat_block:
+                x = checkpoint(block, x, pos, None, segments,
+                               use_reentrant=False)
+            else:
+                x = block(x, pos, cache[i] if cache is not None else None,
+                          segments)
+        return self.final_norm(x), self.lm_head.to(cfg.dtype)

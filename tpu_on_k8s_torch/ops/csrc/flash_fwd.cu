@@ -41,13 +41,10 @@
 // shared memory. It exists so that a check on the card can also compare at
 // full precision; it is not tuned.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;  // finite, as NEG_INF in the TPU kernel
 constexpr int kBlockM = 64;        // query rows per block
 constexpr int kBlockN = 64;        // keys per K/V tile
 constexpr int kBf16Threads = 128;  // 4 warps x 16 query rows
@@ -69,14 +66,9 @@ struct FwdArgs {
   long long o_sb, o_sh, o_sl;
 };
 
-// The three masks of _mask_scores: key validity (kv_end = valid_len, or L),
-// causal, and same segment. seg_row is the query row's segment (-1 past L).
 __device__ __forceinline__ bool keep(const FwdArgs& a, const int* seg_b,
                                      int row, int col, int seg_row) {
-  if (col >= a.kv_end) return false;
-  if (a.causal && col > row) return false;
-  if (seg_b != nullptr && seg_b[col] != seg_row) return false;
-  return true;
+  return keep_pair(a.kv_end, a.causal, seg_b, row, col, seg_row);
 }
 
 // K tiles a query tile attends into: up to the last valid key and, under
@@ -93,55 +85,6 @@ __device__ __forceinline__ int num_kv_tiles(const FwdArgs& a, int q0) {
 // ---------------------------------------------------------------------------
 // bf16: tensor cores through mma.sync
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 at unrelated addresses as one fragment register (lo in bits 0-15).
-__device__ __forceinline__ uint32_t pack_u16(const __nv_bfloat16* lo,
-                                             const __nv_bfloat16* hi) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(lo)) |
-         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c[16x8] += a[16x16] * b[16x8], bf16 inputs, fp32 accumulation.
-// Fragments (lane = 4*g + t): a = {(g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..),
-// (g+8, 2t+8..)}; b = {(k 2t..2t+1, n g), (k 2t+8..2t+9, n g)};
-// c = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One 64-row tile [row0, row0+64) of a [L, D] bf16 head into shared memory
-// with row stride D+8; rows past `rows` are zero.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               long long stride, int row0,
-                                               int rows, int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kLd = D + 8;
-  for (int i = tid; i < kBlockN * kChunks; i += kBf16Threads) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < rows) {
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLd + c * 8) = val;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kBf16Threads)
@@ -170,17 +113,11 @@ __global__ void __launch_bounds__(kBf16Threads)
       static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + hk * a.v_sh;
   const int* seg_b = a.seg ? a.seg + static_cast<long long>(b) * a.L : nullptr;
 
-  load_tile_bf16<D>(sQ, q, a.q_sl, q0, a.L, tid);
+  load_tile_bf16<D, kBlockN, kBf16Threads>(sQ, q, a.q_sl, q0, a.L, tid);
   __syncthreads();
   uint32_t qf[D / 16][4];
-  const __nv_bfloat16* qw = sQ + warp * 16 * kLd + 2 * t;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    qf[kk][0] = ld_u32(qw + g * kLd + kk * 16);
-    qf[kk][1] = ld_u32(qw + (g + 8) * kLd + kk * 16);
-    qf[kk][2] = ld_u32(qw + g * kLd + kk * 16 + 8);
-    qf[kk][3] = ld_u32(qw + (g + 8) * kLd + kk * 16 + 8);
-  }
+  for (int kk = 0; kk < D / 16; ++kk) load_a_frag(qf[kk], sQ, kLd, warp, kk, g, t);
 
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   int seg_row[2];
@@ -204,8 +141,8 @@ __global__ void __launch_bounds__(kBf16Threads)
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * kBlockN;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_bf16<D>(sK, k, a.k_sl, k0, a.L, tid);
-    load_tile_bf16<D>(sV, v, a.v_sl, k0, a.L, tid);
+    load_tile_bf16<D, kBlockN, kBf16Threads>(sK, k, a.k_sl, k0, a.L, tid);
+    load_tile_bf16<D, kBlockN, kBf16Threads>(sV, v, a.v_sl, k0, a.L, tid);
     __syncthreads();
 
     float s[kBlockN / 8][4];
@@ -264,12 +201,8 @@ __global__ void __launch_bounds__(kBf16Threads)
     // fragment of step kk; V's B fragment pairs two keys of one column.
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_f32(s[2 * kk][0], s[2 * kk][1]),
-          pack_f32(s[2 * kk][2], s[2 * kk][3]),
-          pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
+      uint32_t pa[4];
+      acc_to_a_frag(pa, s, kk);
       const __nv_bfloat16* vr = sV + (kk * 16 + 2 * t) * kLd + g;
 #pragma unroll
       for (int dn = 0; dn < D / 8; ++dn) {
@@ -410,12 +343,8 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(FwdArgs a) {
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, int threads, int smem, const FwdArgs& a,
                    int batch, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((a.L + kBlockM - 1) / kBlockM, a.H, batch);
-  kernel<<<grid, threads, smem, stream>>>(a);
-  return cudaGetLastError();
+  return launch_kernel(kernel, grid, threads, smem, a, stream);
 }
 
 template <int D>

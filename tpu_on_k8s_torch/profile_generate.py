@@ -25,7 +25,11 @@ from tpu_on_k8s_torch.models.decode import generate
 from tpu_on_k8s_torch.models.params import init_params
 
 
-def _report(label: str, fn, top: int) -> None:
+def report(label: str, fn, top: int, group=None) -> None:
+    """Trace ``fn()`` and print its wall time, the device time summed over
+    kernels, the device's busy share and the ``top`` kernels by device
+    time; with ``group`` (kernel name → group name), the device time by
+    group as well."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -35,7 +39,10 @@ def _report(label: str, fn, top: int) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = collections.defaultdict(lambda: [0, 0.0])
     for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
+        # user annotations (e.g. the optimizer's step range) span kernels
+        # that are counted on their own
+        if (evt.device_type == DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
             entry = by_name[evt.name]
             entry[0] += 1
             entry[1] += evt.time_range.elapsed_us()
@@ -46,6 +53,15 @@ def _report(label: str, fn, top: int) -> None:
     print(f"[{label}] wall {wall_us / 1e3:.2f} ms, kernels "
           f"{busy_us / 1e3:.2f} ms in {launches} launches, device busy "
           f"{busy_us / wall_us:.1%}")
+    if group is not None:
+        groups = collections.defaultdict(lambda: [0, 0.0])
+        for name, (n, us) in by_name.items():
+            entry = groups[group(name)]
+            entry[0] += n
+            entry[1] += us
+        for name, (n, us) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
+            print(f"[{label}] group {us / 1e3:9.3f} ms {us / busy_us:6.1%} "
+                  f"x{n:<6d} {name}")
     for name, (n, us) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][1])[:top]:
         print(f"[{label}]   {us / 1e3:9.3f} ms {us / busy_us:6.1%} "
@@ -72,9 +88,9 @@ def main(argv=None) -> None:
           f"{args.prompt_len} new {args.max_new_tokens} on "
           f"{torch.cuda.get_device_name(0)}")
     generate(cfg, params, prompt, args.max_new_tokens, device=dev)  # warm-up
-    _report("prefill", lambda: generate(cfg, params, prompt, 1, device=dev),
+    report("prefill", lambda: generate(cfg, params, prompt, 1, device=dev),
             args.top)
-    _report(f"generate {args.max_new_tokens}",
+    report(f"generate {args.max_new_tokens}",
             lambda: generate(cfg, params, prompt, args.max_new_tokens,
                              device=dev), args.top)
 

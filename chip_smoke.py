@@ -10,19 +10,31 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    process per source, all at once), with each kernel's registers and
    spills;
 2. each kernel against its plain PyTorch version on the card, at the
-   serving and training paths' shapes, within stated tolerances: the flash
-   forward, and the two backward kernels (dq, dk/dv);
+   serving and training paths' shapes: the flash forward and the two
+   backward kernels (dq, dk/dv) within stated tolerances; the int8 GEMM
+   (also against ``torch._int_mm``), the quantize and the dequantize
+   kernels bit for bit;
 3. serving: ``generate`` at ``llama2_7b`` width (32 layers, bf16, random
    weights from a seed) answers a greedy batch-4 request and a sampled
    batch-1 request; the flash forward's launch count shows that each prefill
    went through it; the prefill logits with the kernel agree with the same
    model run on the plain attention;
+3b. W8A16 serving: ``quantize_serving_tree(stochastic=True)`` turns the
+   same weights into int8 (one quantize launch per matrix), ``generate``
+   serves the greedy request from that tree, and its prefill logits are
+   held against an fp32 model of its own dequantized weights; then
+   ``quantize_pytree`` / ``dequantize_pytree`` round-trip the ``llama2_1b``
+   fp32 masters;
 4. training: a gradient gate (the first step's gradients of the kernel
    model against plain-attention models in bf16 and fp32), then ``Trainer``
    at ``llama2_1b`` (16 layers, full width, fp32 masters, bf16 compute,
    flash attention, MLP remat) takes 8 steps on one fixed batch 4 x 2048;
    the launch counts show that every layer's forward and backward went
    through the kernels, and the loss is finite and falls;
+4b. int8 training: the same model with every int8 flag (``mlp_int8``,
+   ``mlp_fused_gateup``, ``head_int8``, ``attn_int8``, ``int8_impl=
+   "pallas"``): its first step's loss and gradients equal those of the same
+   model with the int8 GEMM's plain version patched in, then 8 steps;
 5. times on the card, each beside the card's name and power limit.
 
 Then one JSON line for the kernels, the card's line, and as the last line
@@ -45,6 +57,7 @@ import torch
 
 # H100 SXM dense peaks (NVIDIA data sheet), the denominators of bound_ms.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 # Stated tolerances of the forward kernel against its plain version: bf16
@@ -69,7 +82,39 @@ LOGITS_NOISE_MULT = 1.25
 # 1.000 median, 1.025 max.
 GRAD_NOISE_MULT = 1.25
 
+# W8A16 serving, 32 layers of random weights: rounding noise grows through
+# depth, so the W8 model is held against an fp32 model of its own
+# dequantized weights, as the bf16 model against the fp32 model of its
+# weights; its distance may exceed the bf16 one by at most 50%. Readings:
+# ratio 1.160 at llama2_7b on an H100; 1.21 on the CPU at width 2048, 32
+# layers. A wrong scale or layout moves logits by O(1), far beyond it.
+W8_NOISE_MULT = 1.5
+# The reference's bound on a stochastic int8 tree (tests/test_speculative.py):
+# max|q*s - w| <= max|w| / 60 per matrix.
+W8_WEIGHT_BOUND = 1 / 60
+W8_SEED = 7
+
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
+# The int8 GEMM at the llama2_1b training shapes, M = batch x seq rows:
+# (N, K, out) for wq/wo, wk/wv, the fused gate+up, w_down and the fp32-out
+# head, then ragged shapes.
+INT8_CASES = [(TRAIN_BATCH * TRAIN_SEQ, 2048, 2048, torch.bfloat16),
+              (TRAIN_BATCH * TRAIN_SEQ, 1024, 2048, torch.bfloat16),
+              (TRAIN_BATCH * TRAIN_SEQ, 11264, 2048, torch.bfloat16),
+              (TRAIN_BATCH * TRAIN_SEQ, 2048, 5632, torch.bfloat16),
+              (TRAIN_BATCH * TRAIN_SEQ, 32000, 2048, torch.float32),
+              (333, 1000, 200, torch.bfloat16),
+              (333, 1000, 5632, torch.float32)]
+# quantize: the llama2_7b matrices as the W8 tree quantizes them (rows =
+# output channels; the head transposed), and ragged shapes
+QUANT_CASES = [(4096, 4096, torch.bfloat16), (1024, 4096, torch.bfloat16),
+               (11008, 4096, torch.bfloat16), (4096, 11008, torch.bfloat16),
+               (32000, 4096, torch.bfloat16), (333, 1001, torch.bfloat16),
+               (333, 1001, torch.float32)]
+# dequantize: the llama2_1b fp32 masters' rows, and ragged shapes
+DEQUANT_CASES = [(5632, 2048, torch.float32), (32000, 2048, torch.float32),
+                 (2048, 32000, torch.float32), (333, 1001, torch.bfloat16),
+                 (333, 1001, torch.float32)]
 
 
 def fail(msg: str) -> None:
@@ -148,12 +193,34 @@ def wall_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    """The least time for the work on this card: the larger of its FLOPs at
-    the bf16 tensor-core peak and its bytes at the memory rate."""
-    flop_s, byte_s = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float,
+             peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    """The least time for the work on this card: the larger of its
+    operations at their tensor-core peak (bf16 unless given) and its bytes
+    at the memory rate."""
+    flop_s, byte_s = flops / peak, nbytes / PEAK_BYTES
     return max(flop_s, byte_s) * 1e3, ("operations" if flop_s > byte_s
                                        else "bytes")
+
+
+def int8_bound_ms(m, n, k, out_dtype) -> tuple[float, str]:
+    """The int8 GEMM: 2·M·N·K int8 operations; xq, wq and the fp32 scales
+    read once, the output written once."""
+    out_bytes = torch.finfo(out_dtype).bits // 8
+    return bound_ms(2 * m * n * k, m * k + n * k + 4 * (m + n)
+                    + out_bytes * m * n, PEAK_INT8_OPS)
+
+
+def quant_bound_ms(r, c, in_dtype) -> tuple[float, str]:
+    """Quantize: x read once, int8 values and fp32 scales written once."""
+    return bound_ms(0, (torch.finfo(in_dtype).bits // 8) * r * c + r * c
+                    + 4 * r)
+
+
+def dequant_bound_ms(r, c, out_dtype) -> tuple[float, str]:
+    """Dequantize: values and scales read once, the output written once."""
+    return bound_ms(0, r * c + 4 * r + (torch.finfo(out_dtype).bits // 8)
+                    * r * c)
 
 
 def causal_pairs(l: int, causal: bool) -> int:
@@ -188,8 +255,230 @@ def counts(fa) -> tuple[int, int, int]:
     return fa.launches, fa.dq_launches, fa.dkv_launches
 
 
-def reset_counts(fa) -> None:
-    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+#: each kernel's launch counter: (module key, attribute)
+COUNTERS = {"flash_fwd": ("fa", "launches"),
+            "flash_bwd_dq": ("fa", "dq_launches"),
+            "flash_bwd_dkv": ("fa", "dkv_launches"),
+            "int8_matmul": ("i8", "launches"),
+            "quantize_int8": ("qz", "quant_launches"),
+            "dequantize_int8": ("qz", "dequant_launches")}
+
+
+def reset_counts(mods) -> None:
+    """Every kernel's launch count to 0, just before a path runs."""
+    for key, attr in COUNTERS.values():
+        setattr(mods[key], attr, 0)
+
+
+def read_counts(mods) -> dict:
+    """Every kernel's launch count, just after a path ran."""
+    return {name: getattr(mods[key], attr)
+            for name, (key, attr) in COUNTERS.items()}
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def check_int8_kernels(i8, qz, randn, misses: list) -> dict:
+    """Phase 2 for the int8 GEMM, quantize and dequantize kernels: each
+    against its plain version bit for bit (the GEMM also against the
+    ``torch._int_mm`` route). Returns max |kernel - plain| per kernel."""
+    errs = {"int8_matmul": 0.0, "quantize_int8": 0.0, "dequantize_int8": 0.0}
+    for m, n, k, out in INT8_CASES:
+        xq, sx = i8._quant_rows(randn(m, k))
+        wq, sw = i8._quant_rows(randn(n, k) * 0.02)
+        got = i8.int8_matmul_kernel(xq, sx, wq, sw, out)
+        plain = i8.int8_matmul_plain(xq, sx, wq, sw, out)
+        lib = i8._int_mm(xq, sx, wq, sw, out)
+        torch.cuda.synchronize()
+        err = (got.float() - plain.float()).abs().max().item()
+        same, same_lib = torch.equal(got, plain), torch.equal(got, lib)
+        ok = same and same_lib and bool(torch.isfinite(got).all())
+        errs["int8_matmul"] = max(errs["int8_matmul"], err)
+        label = f"int8_matmul M={m} N={n} K={k} out {dtype_name(out)}"
+        print(f"[kernel] {label}: max|kernel-plain| {err:.3e}; bit-identical "
+              f"to plain {same}, to the torch._int_mm route {same_lib} "
+              f"{'ok' if ok else 'MISS'}")
+        if not ok:
+            misses.append(label)
+        del xq, wq, got, plain, lib
+    for r, c, dtype in QUANT_CASES:
+        x = randn(r, c, dtype=dtype) * 0.02
+        values, scales = qz.quantize_int8(x, seed=W8_SEED)
+        pvalues, pscales = qz.quantize_int8_plain(x, seed=W8_SEED)
+        torch.cuda.synchronize()
+        err = (values.int() - pvalues.int()).abs().max().item()
+        ok = torch.equal(values, pvalues) and torch.equal(scales, pscales)
+        errs["quantize_int8"] = max(errs["quantize_int8"], float(err))
+        label = f"quantize_int8 R={r} C={c} {dtype_name(dtype)}"
+        print(f"[kernel] {label}: values and scales bit-identical to plain "
+              f"{ok} (max |value diff| {err}) {'ok' if ok else 'MISS'}")
+        if not ok:
+            misses.append(label)
+    for r, c, dtype in DEQUANT_CASES:
+        values, scales = qz.quantize_int8(randn(r, c, dtype=torch.float32),
+                                          seed=1)
+        got = qz.dequantize_int8(values, scales, dtype)
+        plain = qz.dequantize_int8_plain(values, scales, dtype)
+        torch.cuda.synchronize()
+        err = (got.float() - plain.float()).abs().max().item()
+        ok = torch.equal(got, plain)
+        errs["dequantize_int8"] = max(errs["dequantize_int8"], err)
+        label = f"dequantize_int8 R={r} C={c} -> {dtype_name(dtype)}"
+        print(f"[kernel] {label}: max|kernel-plain| {err:.3e}, bit-identical "
+              f"{ok} {'ok' if ok else 'MISS'}")
+        if not ok:
+            misses.append(label)
+    return errs
+
+
+def dequantized(wparams: dict) -> dict:
+    """The bf16-layout state dict of a W8 tree's dequantized weights, q·s
+    in fp32 (other tensors as they are)."""
+    out = {}
+    for name, t in wparams.items():
+        if name == "lm_head_q":
+            out["lm_head"] = t.float() * wparams["lm_head_scale"]
+        elif name.endswith(".weight_q"):
+            out[name[:-2]] = t.float() * wparams[name[:-2] + "_scale"][:, None]
+        elif not (name.endswith(".weight_scale") or name == "lm_head_scale"):
+            out[name] = t
+    return out
+
+
+def serve_w8(cfg, params, prompt4, prefill_logits, mods, convert, decode):
+    """Phase 3b: the W8A16 tree of ``params`` through the quantize kernel,
+    served; the checks; prefill and decode times. Returns the readings."""
+    n_mats = 7 * cfg.n_layers + 1
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    wcfg, wparams = convert.quantize_serving_tree(cfg, params,
+                                                  stochastic=True,
+                                                  seed=W8_SEED)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    after_convert = read_counts(mods)
+    w8_gb = sum(t.numel() * t.element_size() for n, t in wparams.items()
+                if n.endswith("_q") or n.endswith("_scale")) / 1e9
+    print(f"[serve-w8] quantize_serving_tree(stochastic=True, seed="
+          f"{W8_SEED}): {after_convert['quantize_int8']} quantize launches for "
+          f"{n_mats} matrices in {convert_s:.2f} s; int8 weights and scales "
+          f"{w8_gb:.2f} GB")
+    others = [v for k, v in after_convert.items() if k != "quantize_int8"]
+    if any(others) or after_convert["quantize_int8"] != n_mats:
+        fail(f"conversion launches {after_convert}; expected {n_mats} "
+             f"quantize launches and nothing else")
+    worst = 0.0
+    for name, q in wparams.items():
+        if not name.endswith("_q"):
+            continue
+        if name == "lm_head_q":
+            w, back = params["lm_head"], q.float() * wparams["lm_head_scale"]
+        else:
+            w = params[name[:-2]]
+            back = q.float() * wparams[name[:-2] + "_scale"][:, None]
+        worst = max(worst, (back - w.float()).abs().max().item()
+                    / (w.float().abs().max().item() * W8_WEIGHT_BOUND))
+        del back
+    print(f"[serve-w8] every matrix: max|q*s - w| / (max|w| / 60) at most "
+          f"{worst:.4f} (limit 1)")
+    if worst > 1:
+        fail("a stochastic int8 matrix strays beyond the reference's bound")
+
+    greedy = decode.generate(wcfg, wparams, prompt4, 64)
+    torch.cuda.synchronize()
+    path = read_counts(mods)
+    print(f"[serve-w8] request 1 from the int8 tree: batch 4 x prompt 512 -> "
+          f"64 tokens, greedy; launches {path}")
+    if path["flash_fwd"] != cfg.n_layers or path["quantize_int8"] != n_mats:
+        fail(f"W8 serving launches {path}: expected {cfg.n_layers} flash_fwd "
+             f"for the prefill")
+    if tuple(greedy.shape) != (4, 64) or greedy.dtype != torch.int32 or \
+            int(greedy.min()) < 0 or int(greedy.max()) >= cfg.vocab_size:
+        fail(f"W8 tokens {tuple(greedy.shape)} {greedy.dtype} out of range")
+    if not torch.equal(decode.generate(wcfg, wparams, prompt4, 64), greedy):
+        fail("a repeated W8 greedy run gave other tokens")
+    print(f"[serve-w8] greedy row 0: {greedy[0, :16].tolist()} ...; tokens "
+          f"in [0, vocab); repeated run identical")
+
+    lw8 = prefill_logits(wcfg, wparams)
+    lbf16 = prefill_logits(cfg, params)
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    deq = dequantized(wparams)
+    ldeq = prefill_logits(f32, deq)
+    del deq
+    full = {n: p.float() for n, p in params.items()}
+    l32 = prefill_logits(f32, full)
+    del full
+    torch.cuda.synchronize()
+    noise_w8 = (lw8 - ldeq).abs().max().item()
+    noise_bf16 = (lbf16 - l32).abs().max().item()
+    rel = ((lw8 - lbf16).abs().max() / lbf16.abs().max()).item()
+    agree = (lw8.argmax(-1) == lbf16.argmax(-1)).float().mean().item()
+    print(f"[serve-w8] prefill logits [4, 512, {cfg.vocab_size}]: max|W8 - "
+          f"fp32 model of its dequantized weights| {noise_w8:.3e} (tol "
+          f"{W8_NOISE_MULT:g} x bf16 noise {noise_bf16:.3e} = max|bf16 - fp32 "
+          f"model|; ratio {noise_w8 / noise_bf16:.3f})")
+    print(f"[serve-w8] reading, not a gate: max|W8 - bf16| / max|bf16| = "
+          f"{rel:.4f} (the reference's 0.05 gate of its 2-layer width-64 "
+          f"test; 32 layers of random weights amplify the int8 rounding); "
+          f"argmax agreement W8/bf16 {agree:.4f}")
+    if not bool(torch.isfinite(lw8).all()):
+        fail("W8 prefill logits not finite")
+    if noise_w8 > W8_NOISE_MULT * noise_bf16:
+        fail("the W8 model strays further from the fp32 model of its weights "
+             "than bf16 rounding explains")
+    del lw8, lbf16, ldeq, l32
+    prefill_ms = wall_ms(lambda: decode.generate(wcfg, wparams, prompt4, 1))
+    gen64_ms = wall_ms(lambda: decode.generate(wcfg, wparams, prompt4, 64))
+    return {"counts": path, "prefill_ms": prefill_ms, "gen64_ms": gen64_ms,
+            "decode_ms": (gen64_ms - prefill_ms) / 63, "rel": rel,
+            "ratio": noise_w8 / noise_bf16, "convert_s": convert_s,
+            "gb": w8_gb}
+
+
+def pytree_roundtrip(tparams: dict, mods) -> dict:
+    """Phase 3b's second path: ``quantize_pytree`` / ``dequantize_pytree``
+    over fp32 master weights, with the reference's checks."""
+    qz = mods["qz"]
+    reset_counts(mods)
+    packed = qz.quantize_pytree(tparams, seed=W8_SEED)
+    back = qz.dequantize_pytree(packed)
+    torch.cuda.synchronize()
+    path = read_counts(mods)
+    n_q8 = sum(kind == "q8" for kind, _ in packed.values())
+    raw = small = 0
+    excess = -1.0
+    for name, (kind, payload) in packed.items():
+        if kind != "q8":
+            continue
+        values, scales, shape, _ = payload
+        x = tparams[name].reshape(-1, shape[-1])
+        err = (back[name].reshape(x.shape) - x).abs()
+        excess = max(excess, (err - scales - 1e-6).max().item())
+        raw += x.numel() * x.element_size()
+        small += values.numel() + scales.numel() * 4
+    print(f"[pytree] quantize_pytree -> dequantize_pytree on the llama2_1b fp32 "
+          f"masters: {n_q8} matrices, launches {path}; max(|back - x| - "
+          f"scale) per row {excess:.3e} (must be <= 1e-6); packed/raw "
+          f"{small / raw:.4f} (limit 1/3.8 = {1 / 3.8:.4f})")
+    if path["quantize_int8"] != n_q8 or path["dequantize_int8"] != n_q8:
+        fail(f"pytree launches {path}; expected {n_q8} of each")
+    if excess > 0 or not small / raw < 1 / 3.8:
+        fail("pytree round trip out of bounds")
+    del packed, back
+    return {"counts": path}
+
+
+def fuse_gateup(params: dict, n_layers: int) -> dict:
+    """The same weights in the ``mlp_fused_gateup`` layout (gate first)."""
+    out = dict(params)
+    for i in range(n_layers):
+        p = f"blocks.{i}.mlp."
+        out[p + "w_gateup.weight"] = torch.cat(
+            [out.pop(p + "w_gate.weight"), out.pop(p + "w_up.weight")])
+    return out
 
 
 def main() -> int:
@@ -198,13 +487,17 @@ def main() -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 1
 
-    from tpu_on_k8s_torch.models import decode, transformer
+    from tpu_on_k8s_torch.models import convert, decode, transformer
     from tpu_on_k8s_torch.models.params import init_params, load_model
     from tpu_on_k8s_torch.ops import _build
     from tpu_on_k8s_torch.ops import flash_attention as fa
+    from tpu_on_k8s_torch.ops import int8_matmul as i8
+    from tpu_on_k8s_torch.ops import quantization as qz
     from tpu_on_k8s_torch.train import Trainer, default_optimizer
     from tpu_on_k8s_torch.train import trainer as trainer_mod
 
+    mods = {"fa": fa, "i8": i8, "qz": qz}
+    by_path = {}    # path -> every kernel's launches in that path's run
     t_start = time.perf_counter()
     # ---- 1. environment and build --------------------------------------
     gpu = gpu_line()
@@ -272,7 +565,7 @@ def main() -> int:
         if dtype == torch.bfloat16:
             bf16_err = max(bf16_err, err_o)
         label = (f"B={b} H={h} Hkv={hkv} L={l} D={d} "
-                 f"{str(dtype).split('.')[-1]} causal={causal} "
+                 f"{dtype_name(dtype)} causal={causal} "
                  f"valid_len={valid} segments={segmented}")
         print(f"[kernel] flash_fwd {label}: max|o-plain| {err_o:.3e} "
               f"(tol {tol_o:g}) max|lse-plain| {err_lse:.3e} "
@@ -341,7 +634,7 @@ def main() -> int:
                                         valid, seg))
         torch.cuda.synchronize()
         label = (f"B={b} H={h} Hkv={hkv} L={l} D={d} "
-                 f"{str(dtype).split('.')[-1]} causal={causal} "
+                 f"{dtype_name(dtype)} causal={causal} "
                  f"valid_len={valid} segments={segmented} lse_cotangent={cot}")
         parts, ok = [], True
         for name, a, w in zip(("dq", "dk", "dv"), got, want):
@@ -358,8 +651,9 @@ def main() -> int:
         if not ok:
             misses.append(f"flash_bwd {label}")
         del q, k, v, do, o, lse, got, want, delta
+    int8_errs = check_int8_kernels(i8, qz, randn, misses)
     if misses:
-        fail(f"flash kernels disagree with their plain versions: {misses}")
+        fail(f"kernels disagree with their plain versions: {misses}")
 
     # ---- 3. serving: generate at llama2_7b width -----------------------
     cfg = transformer.TransformerConfig.llama2_7b()
@@ -370,7 +664,7 @@ def main() -> int:
     print(f"[serve] llama2_7b: {cfg.n_layers} layers d_model {cfg.d_model} "
           f"heads {cfg.n_heads}/{cfg.n_kv_heads} d_ff {cfg.d_ff} vocab "
           f"{cfg.vocab_size}, {n_params / 1e9:.3f} B params in "
-          f"{str(cfg.dtype).split('.')[-1]} "
+          f"{dtype_name(cfg.dtype)} "
           f"({sum(p.numel() * p.element_size() for p in params.values()) / 1e9:.2f} GB), "
           f"init {time.perf_counter() - t0:.1f} s")
     pgen = torch.Generator(device=dev).manual_seed(1)
@@ -379,7 +673,7 @@ def main() -> int:
     prompt1 = torch.randint(0, cfg.vocab_size, (1, 333), generator=pgen,
                             device=dev, dtype=torch.int32)
 
-    reset_counts(fa)
+    reset_counts(mods)
     greedy = decode.generate(cfg, params, prompt4, 64)
     torch.cuda.synchronize()
     after_greedy = fa.launches
@@ -389,6 +683,7 @@ def main() -> int:
                               .manual_seed(2))
     torch.cuda.synchronize()
     serve_counts = counts(fa)
+    by_path["serve"] = read_counts(mods)
     print(f"[serve] request 1: batch 4 x prompt 512 -> 64 tokens, greedy; "
           f"flash_fwd launches {after_greedy}")
     print(f"[serve] request 2: batch 1 x prompt 333 -> 32 tokens, "
@@ -455,6 +750,10 @@ def main() -> int:
     prefill_ms = wall_ms(lambda: decode.generate(cfg, params, prompt4, 1))
     gen64_ms = wall_ms(lambda: decode.generate(cfg, params, prompt4, 64))
     decode_ms = (gen64_ms - prefill_ms) / 63
+
+    # ---- 3b. W8A16 serving from the same weights -----------------------
+    w8 = serve_w8(cfg, params, prompt4, prefill_logits, mods, convert, decode)
+    by_path["serve_w8"] = w8["counts"]
     del params
     torch.cuda.empty_cache()
 
@@ -475,6 +774,8 @@ def main() -> int:
           f"compute, attn flash (kv repeated to {tcfg.n_heads} heads), "
           f"remat mlp; batch {TRAIN_BATCH} x seq {TRAIN_SEQ}; init "
           f"{time.perf_counter() - t0:.1f} s")
+    by_path["pytree"] = pytree_roundtrip(tparams, mods)["counts"]
+    torch.cuda.empty_cache()
 
     # the gradient gate: the first step's gradients on these weights, with
     # remat "full" to bound memory, from the kernel model and from
@@ -495,7 +796,7 @@ def main() -> int:
         return loss.item(), dict(zip(names, grads))
 
     gcfg = dataclasses.replace(tcfg, remat_policy="full")
-    reset_counts(fa)
+    reset_counts(mods)
     loss_k, grads_k = first_grads(gcfg, plain=False)
     torch.cuda.synchronize()
     full_counts = counts(fa)
@@ -546,7 +847,7 @@ def main() -> int:
         decay_steps=max(TRAIN_STEPS, 11)))
     torch.cuda.reset_peak_memory_stats()
     losses, norms, step_ms = [], [], []
-    reset_counts(fa)
+    reset_counts(mods)
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         metrics = trainer.train_step(tokens)
@@ -555,6 +856,7 @@ def main() -> int:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     train_counts = counts(fa)
+    by_path["train"] = read_counts(mods)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[train] {TRAIN_STEPS} steps on one fixed batch: loss "
           f"{[round(x, 5) for x in losses]}")
@@ -576,6 +878,106 @@ def main() -> int:
           f"{TRAIN_BATCH * TRAIN_SEQ / train_ms * 1e3:,.0f} tokens/s; peak "
           f"memory {peak_gb:.2f} GB")
     del trainer, model, tparams
+    torch.cuda.empty_cache()
+
+    # ---- 4b. int8 training: the same model with every int8 flag --------
+    i8cfg = dataclasses.replace(tcfg, mlp_int8=True, mlp_fused_gateup=True,
+                                head_int8=True, attn_int8=True,
+                                int8_impl="pallas")
+    # the same initial weights as phase 4 (same seed), gate+up fused
+    p8 = fuse_gateup(init_params(tcfg, torch.Generator(device=dev)
+                                 .manual_seed(0), dev,
+                                 dtype=tcfg.param_dtype), tcfg.n_layers)
+    # per step: q, k, v, o and the MLP's gate+up and down in every layer,
+    # the MLP again in its backward recompute (remat "mlp"), and the head
+    int8_per_step = (4 + 2 + 2) * tcfg.n_layers + 1
+
+    def int8_grads(model_cfg, plain):
+        model = load_model(model_cfg, p8, dev)
+        loss_fn = trainer_mod._make_loss_fn(model, 0, None)
+        patch = (mock.patch.object(i8, "int8_matmul_kernel",
+                                   i8.int8_matmul_plain)
+                 if plain else nullcontext())
+        with patch:
+            loss, _ = loss_fn(tokens)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+        names = [n for n, _ in model.named_parameters()]
+        return loss.item(), dict(zip(names, grads))
+
+    reset_counts(mods)
+    loss_k8, grads_k8 = int8_grads(i8cfg, plain=False)
+    torch.cuda.synchronize()
+    gate8_counts = read_counts(mods)
+    loss_p8, grads_p8 = int8_grads(i8cfg, plain=True)
+    torch.cuda.synchronize()
+    print(f"[train-int8] llama2_1b with mlp_int8, mlp_fused_gateup, "
+          f"head_int8, attn_int8, int8_impl pallas, remat mlp, flash; one "
+          f"forward+backward: launches {gate8_counts} (int8_matmul expected "
+          f"{int8_per_step})")
+    if (gate8_counts["int8_matmul"] != int8_per_step
+            or gate8_counts["flash_fwd"] != tcfg.n_layers):
+        fail(f"int8 step launches {gate8_counts}; expected {int8_per_step} "
+             f"int8_matmul")
+    same = [n for n in grads_k8 if torch.equal(grads_k8[n], grads_p8[n])]
+    rel8 = max(((grads_k8[n].float() - grads_p8[n].float()).norm()
+                / grads_p8[n].float().norm()).item() for n in grads_k8)
+    print(f"[train-int8] gate, step 1: loss kernel {loss_k8:.6f}, plain "
+          f"int8 GEMM {loss_p8:.6f} (equal {loss_k8 == loss_p8}); gradients "
+          f"bit-identical in {len(same)} of {len(grads_k8)} tensors, max "
+          f"||g - g_plain|| / ||g_plain|| {rel8:.3e}")
+    if loss_k8 != loss_p8 or len(same) != len(grads_k8):
+        fail("the int8 kernel model's first step differs from the same model "
+             "with the int8 GEMM's plain version")
+    del grads_p8
+    loss_b8, grads_b8 = int8_grads(dataclasses.replace(
+        i8cfg, mlp_int8=False, head_int8=False, attn_int8=False), plain=False)
+    dist8 = {n: ((grads_k8[n].float() - grads_b8[n].float()).norm()
+                 / grads_b8[n].float().norm()).item() for n in grads_k8}
+    print(f"[train-int8] for information, step 1 against the bf16 model of "
+          f"the same weights: loss int8 {loss_k8:.6f}, bf16 {loss_b8:.6f}; "
+          f"||g_int8 - g_bf16|| / ||g_bf16|| median "
+          f"{statistics.median(dist8.values()):.4e}, max "
+          f"{max(dist8.values()):.4e} (at {max(dist8, key=dist8.get)})")
+    for name in ("embed", "blocks.0.attn.wq.weight",
+                 "blocks.0.mlp.w_gateup.weight",
+                 "blocks.15.mlp.w_down.weight", "lm_head"):
+        print(f"[train-int8]   {name}: {dist8[name]:.4e}")
+    del grads_k8, grads_b8
+    torch.cuda.empty_cache()
+
+    model = load_model(i8cfg, p8, dev)
+    trainer = Trainer(model, default_optimizer(
+        model.parameters(), warmup_steps=10,
+        decay_steps=max(TRAIN_STEPS, 11)))
+    torch.cuda.reset_peak_memory_stats()
+    losses8, step8_ms = [], []
+    reset_counts(mods)
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses8.append(float(trainer.train_step(tokens)["loss"]))
+        torch.cuda.synchronize()
+        step8_ms.append((time.perf_counter() - t0) * 1e3)
+    by_path["train_int8"] = read_counts(mods)
+    peak8_gb = torch.cuda.max_memory_allocated() / 1e9
+    train8_ms = statistics.median(step8_ms[1:])
+    print(f"[train-int8] {TRAIN_STEPS} steps on the same batch: loss "
+          f"{[round(x, 5) for x in losses8]}; launches "
+          f"{by_path['train_int8']}")
+    want8 = {"int8_matmul": TRAIN_STEPS * int8_per_step,
+             "flash_fwd": TRAIN_STEPS * tcfg.n_layers,
+             "flash_bwd_dq": TRAIN_STEPS * tcfg.n_layers,
+             "flash_bwd_dkv": TRAIN_STEPS * tcfg.n_layers}
+    if any(by_path["train_int8"][k] != v for k, v in want8.items()):
+        fail(f"int8 training launches {by_path['train_int8']}; expected "
+             f"{want8}")
+    if not all(map(math.isfinite, losses8)) or not losses8[-1] < losses8[0]:
+        fail(f"int8 training loss not finite or not falling: {losses8}")
+    print(f"[train-int8] step wall ms {[round(x, 1) for x in step8_ms]}; "
+          f"median of steps 2-{TRAIN_STEPS} {train8_ms:.1f} ms, "
+          f"{TRAIN_BATCH * TRAIN_SEQ / train8_ms * 1e3:,.0f} tokens/s, peak "
+          f"memory {peak8_gb:.2f} GB (bf16 step {train_ms:.1f} ms, peak "
+          f"{peak_gb:.2f} GB)")
+    del trainer, model, p8
     torch.cuda.empty_cache()
 
     # ---- 5. times -----------------------------------------------------
@@ -637,32 +1039,101 @@ def main() -> int:
               f"{'forward' if name == 'flash_fwd' else 'backward (dq, dk, dv together)'}"
               f" {library[name]:.4f} ms")
     print(f"[time] {gpu}: train step llama2_1b batch {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ} (remat mlp, flash): {train_ms:.1f} ms, "
+          f"{TRAIN_SEQ} (remat mlp, flash): bf16 {train_ms:.1f} ms, "
           f"{TRAIN_BATCH * TRAIN_SEQ / train_ms * 1e3:,.0f} tokens/s, peak "
-          f"memory {peak_gb:.2f} GB; script "
-          f"{time.perf_counter() - t_start:.0f} s")
+          f"memory {peak_gb:.2f} GB; int8 (every flag, pallas) "
+          f"{train8_ms:.1f} ms, "
+          f"{TRAIN_BATCH * TRAIN_SEQ / train8_ms * 1e3:,.0f} tokens/s, peak "
+          f"memory {peak8_gb:.2f} GB")
+    print(f"[time] {gpu}: generate llama2_7b W8A16 batch 4 x prompt 512: "
+          f"prefill (+1 token) {w8['prefill_ms']:.2f} ms, 64 tokens "
+          f"{w8['gen64_ms']:.2f} ms, per-token decode {w8['decode_ms']:.3f} "
+          f"ms (bf16: {prefill_ms:.2f}, {gen64_ms:.2f}, {decode_ms:.3f})")
+    del q, k, v, do, o, lse, delta, qg, kg, vg, out
+    torch.cuda.empty_cache()
 
-    sources = {"flash_fwd": ("flash_fwd.cu", 131),
-               "flash_bwd_dq": ("flash_bwd.cu", 229),
-               "flash_bwd_dkv": ("flash_bwd.cu", 265)}
-    by_path = {"flash_fwd": (serve_counts[0], train_counts[0]),
-               "flash_bwd_dq": (serve_counts[1], train_counts[1]),
-               "flash_bwd_dkv": (serve_counts[2], train_counts[2])}
+    # the int8 GEMM at the training shapes: kernel, plain, and
+    # torch._int_mm with the epilogue in PyTorch (the library yardstick:
+    # two calls, the int32 product and then the fp32 rescale and cast)
+    int8_times = {}
+    for m, n, kk, out_dtype in INT8_CASES[:5]:
+        xq, sx = i8._quant_rows(randn(m, kk))
+        wq, sw = i8._quant_rows(randn(n, kk) * 0.02)
+        ms = time_ms(lambda: i8.int8_matmul_kernel(xq, sx, wq, sw, out_dtype))
+        plain = event_ms(lambda: i8.int8_matmul_plain(xq, sx, wq, sw,
+                                                       out_dtype))
+        lib = event_ms(lambda: i8._int_mm(xq, sx, wq, sw, out_dtype))
+        bound, by = int8_bound_ms(m, n, kk, out_dtype)
+        int8_times[(m, n, kk)] = (ms, plain, bound, by, lib)
+        print(f"[time] {gpu}: int8_matmul M={m} N={n} K={kk} out "
+              f"{dtype_name(out_dtype)}: kernel {ms:.4f} ms "
+              f"({2 * m * n * kk / ms / 1e9:,.0f} TOP/s), plain {plain:.4f} "
+              f"ms, torch._int_mm + epilogue {lib:.4f} ms, bound {bound:.4f} "
+              f"ms ({by}), {bound / ms:.1%} of bound")
+        del xq, wq
+    # quantize at a llama2_7b MLP matrix (the W8 tree's largest group);
+    # no single PyTorch call rounds stochastically, so no library time
+    qr, qc, qdt = 11008, 4096, torch.bfloat16
+    x = randn(qr, qc, dtype=qdt) * 0.02
+    quant_t = (time_ms(lambda: qz.quantize_int8(x, seed=W8_SEED)),
+               event_ms(lambda: qz.quantize_int8_plain(x, seed=W8_SEED)),
+               *quant_bound_ms(qr, qc, qdt), None)
+    # dequantize at a llama2_1b MLP master (fp32 out); the library
+    # yardstick is one torch.mul(values, scales) with type promotion
+    dr, dc, ddt = 5632, 2048, torch.float32
+    values, scales = qz.quantize_int8(randn(dr, dc, dtype=ddt), seed=1)
+    dequant_t = (time_ms(lambda: qz.dequantize_int8(values, scales, ddt)),
+                 event_ms(lambda: qz.dequantize_int8_plain(values, scales,
+                                                           ddt)),
+                 *dequant_bound_ms(dr, dc, ddt),
+                 time_ms(lambda: torch.mul(values, scales)))
+    for name, (ms, plain, bound, by, lib), label in (
+            ("quantize_int8", quant_t, f"R={qr} C={qc} {dtype_name(qdt)}"),
+            ("dequantize_int8", dequant_t,
+             f"R={dr} C={dc} -> {dtype_name(ddt)}")):
+        print(f"[time] {gpu}: {name} {label}: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, library "
+              f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+              f"{bound:.4f} ms ({by}), {bound / ms:.1%} of bound")
+    print(f"[time] script {time.perf_counter() - t_start:.0f} s")
+
+    gemm = (TRAIN_BATCH * TRAIN_SEQ, 11264, 2048)
+    ms8, plain8, bound8, by8, lib8 = int8_times[gemm]
+    timed.update({
+        "int8_matmul": (ms8, plain8, (bound8, by8)),
+        "quantize_int8": (quant_t[0], quant_t[1], quant_t[2:4]),
+        "dequantize_int8": (dequant_t[0], dequant_t[1], dequant_t[2:4])})
+    library.update({"int8_matmul": lib8, "quantize_int8": None,
+                    "dequantize_int8": dequant_t[4]})
+    shapes = {name: shape for name in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv")}
+    shapes.update({
+        "int8_matmul": "M={} N={} K={} bf16 out (the fused gate+up)".format(
+            *gemm),
+        "quantize_int8": f"R={qr} C={qc} bf16",
+        "dequantize_int8": f"R={dr} C={dc} -> float32"})
+    sources = {"flash_fwd": ("flash_fwd.cu", "flash_attention.py:131"),
+               "flash_bwd_dq": ("flash_bwd.cu", "flash_attention.py:229"),
+               "flash_bwd_dkv": ("flash_bwd.cu", "flash_attention.py:265"),
+               "int8_matmul": ("int8_matmul.cu", "int8_matmul.py:130"),
+               "quantize_int8": ("quantization.cu", "quantization.py:28"),
+               "dequantize_int8": ("quantization.cu", "quantization.py:46")}
     errs = {"flash_fwd": bf16_err, "flash_bwd_dq": bwd_err["dq"],
-            "flash_bwd_dkv": bwd_err["dkv"]}
+            "flash_bwd_dkv": bwd_err["dkv"], **int8_errs}
     kernels = []
     for name, (ms, plain, (bound, by)) in timed.items():
-        src, line = sources[name]
-        serve_n, train_n = by_path[name]
+        src, ref = sources[name]
+        paths = {path: c[name] for path, c in by_path.items() if c[name]}
+        if not paths:
+            fail(f"{name} launched on no path")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"tpu_on_k8s_torch/ops/csrc/{src}",
-            "replaces": f"tpu_on_k8s/ops/flash_attention.py:{line}",
-            "launches": serve_n + train_n,
-            "launches_by_path": {"serve": serve_n, "train": train_n},
+            "replaces": f"tpu_on_k8s/ops/{ref}",
+            "launches": sum(paths.values()), "launches_by_path": paths,
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": library[name],
-            "shape": shape})
+            "shape": shapes[name]})
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

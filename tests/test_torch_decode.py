@@ -234,10 +234,9 @@ def test_overflow_raises(setup):
 
 @pytest.mark.parametrize("flag, value", [
     ("decode_multislot", True), ("cache_int8", True),
-    ("serve_int8_weights", True), ("fused_qkv", True), ("n_experts", 4),
+    ("fused_qkv", True), ("n_experts", 4),
     ("pos_emb", "learned"), ("norm", "ln"), ("activation", "gelu"),
-    ("tie_embeddings", True), ("use_bias", True), ("mlp_int8", True),
-    ("head_int8", True), ("attn_impl", "ring"),
+    ("tie_embeddings", True), ("use_bias", True), ("attn_impl", "ring"),
 ])
 def test_unported_flags_raise(flag, value):
     cfg = dataclasses.replace(TransformerConfig.tiny(), **{flag: value})
@@ -246,8 +245,7 @@ def test_unported_flags_raise(flag, value):
 
 
 @pytest.mark.parametrize("flag, value", [
-    ("attn_int8", True), ("remat_policy", "dots"),
-    ("remat_policy", "dots_kernels"), ("mlp_int8", True), ("head_int8", True),
+    ("remat_policy", "dots"), ("remat_policy", "dots_kernels"),
     ("fused_qkv", True), ("attn_impl", "ulysses"),
 ])
 def test_unported_training_flags_raise(flag, value):

@@ -1,6 +1,7 @@
-"""The Hopper flash-attention kernels against their plain versions, on the
-card: the forward (``flash_fwd``) and the two backward kernels
-(``flash_bwd_dq``, ``flash_bwd_dkv``).
+"""The port's Hopper kernels against their plain versions, on the card: the
+flash-attention forward (``flash_fwd``) and backward kernels
+(``flash_bwd_dq``, ``flash_bwd_dkv``), the int8 GEMM (``int8_matmul``) and
+the quantize / dequantize kernels.
 
 Every test here needs a CUDA card and nvcc, and skips without them. The
 file imports neither JAX nor the JAX package, so that it also runs on a
@@ -13,6 +14,8 @@ import pytest
 import torch
 
 from tpu_on_k8s_torch.ops import flash_attention as fa
+from tpu_on_k8s_torch.ops import int8_matmul as i8
+from tpu_on_k8s_torch.ops import quantization as quant
 
 pytestmark = pytest.mark.cuda
 
@@ -153,3 +156,82 @@ def test_autograd_runs_the_kernels_on_model_layout(cuda):
     tol = BWD_REL_TOL[torch.bfloat16]
     for name, a, w in zip(("dq", "dk", "dv"), (q.grad, k.grad, v.grad), want):
         assert _rel_err(a.transpose(1, 2), w) <= tol, name
+
+
+# ---- int8 GEMM, quantize, dequantize: bit for bit ------------------------
+
+def _normal_cuda(shape, seed, dtype=torch.bfloat16, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.standard_normal(shape, np.float32) * scale)
+            .to("cuda", dtype))
+
+
+@pytest.mark.parametrize("m, n, k, out", [
+    (256, 384, 512, torch.bfloat16),
+    (333, 1000, 200, torch.bfloat16),      # ragged M, N; K % 16 != 0
+    (333, 1000, 5632, torch.float32),
+    (130, 32000, 256, torch.float32),      # the head's N
+    (64, 96, 48, torch.float16),
+])
+def test_int8_kernel_matches_plain_bit_for_bit(cuda, m, n, k, out):
+    xq, sx = i8._quant_rows(_normal_cuda((m, k), 1))
+    wq, sw = i8._quant_rows(_normal_cuda((n, k), 2, scale=0.05))
+    before = i8.launches
+    got = i8.int8_matmul_kernel(xq, sx, wq, sw, out)
+    want = i8.int8_matmul_plain(xq, sx, wq, sw, out)
+    torch.cuda.synchronize()
+    assert i8.launches == before + 1
+    assert got.dtype == out and got.shape == (m, n)
+    assert torch.equal(got, want)
+
+
+def test_int8_pallas_route_launches_the_kernel_and_backward_runs(cuda):
+    x = _normal_cuda((2, 100, 256), 3).requires_grad_()
+    w = _normal_cuda((384, 256), 4, scale=0.05).requires_grad_()
+    before = i8.launches
+    y = i8.int8_matmul_pallas(x, w)
+    assert i8.launches == before + 1
+    y_xla = i8.int8_matmul(x, w)             # torch._int_mm + epilogue
+    assert torch.equal(y, y_xla)
+    y.float().sum().backward()
+    assert x.grad.shape == x.shape and w.grad.shape == w.shape
+
+
+def test_int8_kernel_refuses_what_it_does_not_take(cuda):
+    xq = torch.zeros(32, i8.MAX_K + 1, dtype=torch.int8, device="cuda")
+    one = torch.ones(32, 1, device="cuda")
+    with pytest.raises(ValueError, match="overflow"):
+        i8.int8_matmul_kernel(xq, one, xq, one, torch.bfloat16)
+    with pytest.raises(ValueError, match="int8 operands"):
+        i8.int8_matmul_kernel(xq.float(), one, xq, one, torch.bfloat16)
+
+
+@pytest.mark.parametrize("r, c, dtype", [
+    (4096, 4096, torch.bfloat16), (1000, 11008, torch.bfloat16),
+    (333, 200, torch.float32), (77, 131, torch.bfloat16),
+    (5, 32000, torch.float32),
+])
+def test_quant_kernel_matches_plain_bit_for_bit(cuda, r, c, dtype):
+    x = _normal_cuda((r, c), 5, dtype, 0.02)
+    before = quant.quant_launches
+    values, scales = quant.quantize_int8(x, seed=11)
+    want_v, want_s = quant.quantize_int8_plain(x, seed=11)
+    torch.cuda.synchronize()
+    assert quant.quant_launches == before + 1
+    assert torch.equal(scales, want_s)
+    assert torch.equal(values, want_v)
+
+
+@pytest.mark.parametrize("r, c, dtype", [
+    (2048, 2048, torch.float32), (300, 5632, torch.bfloat16),
+    (33, 77, torch.float32), (16, 32000, torch.float16),
+])
+def test_dequant_kernel_matches_plain_bit_for_bit(cuda, r, c, dtype):
+    values, scales = quant.quantize_int8(_normal_cuda((r, c), 6,
+                                                      torch.float32), seed=2)
+    before = quant.dequant_launches
+    got = quant.dequantize_int8(values, scales, dtype)
+    want = quant.dequantize_int8_plain(values, scales, dtype)
+    torch.cuda.synchronize()
+    assert quant.dequant_launches == before + 1
+    assert got.dtype == dtype and torch.equal(got, want)

@@ -48,6 +48,9 @@ def test_the_scan_sees_the_whole_port():
     names = {p.relative_to(REPO).as_posix() for p in _port_files()}
     assert {"chip_smoke.py", "tpu_on_k8s_torch/models/decode.py",
             "tpu_on_k8s_torch/ops/flash_attention.py",
+            "tpu_on_k8s_torch/ops/int8_matmul.py",
+            "tpu_on_k8s_torch/ops/quantization.py",
+            "tpu_on_k8s_torch/models/convert.py",
             "tpu_on_k8s_torch/generate.py",
             "tpu_on_k8s_torch/train_llama.py",
             "tpu_on_k8s_torch/train/trainer.py",
@@ -123,7 +126,8 @@ def test_chip_smoke_fails_alone(tmp_path):
 
 
 def test_build_is_keyed_by_the_sources_and_needs_nvcc(monkeypatch, tmp_path):
-    assert _build.sources() == ["flash_bwd", "flash_fwd"]
+    assert _build.sources() == ["flash_bwd", "flash_fwd", "int8_matmul",
+                                "quantization"]
     for name in _build.sources():
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR

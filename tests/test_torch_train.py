@@ -308,7 +308,7 @@ def test_cli_trains_from_a_packed_record_file(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["--int8"], "--int8"), (["--eval-data", "x"], "--eval-data"),
+    (["--eval-data", "x"], "--eval-data"),
     (["--checkpoint-dir", "x"], "--checkpoint-dir"),
     (["--attn", "ring"], "ring"), (["--attn", "ulysses"], "ulysses"),
 ])

@@ -5,11 +5,13 @@ whole prompt through the decode-mode model in one call (the cache fills at
 positions [0, len), attention among the prompt runs the flash kernel); each
 step then attends over the cache with a single-token query. The reference's
 ``lax.scan`` under ``jit`` becomes a Python loop run eagerly.
+``quantize_weights_for_serving`` makes the W8A16 tree that a
+``serve_int8_weights`` config serves.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -26,6 +28,56 @@ from tpu_on_k8s_torch.models.transformer import (
 #: The position-bucket granule (and the reference's paged-KV page size), in
 #: tokens: every cache length ``generate`` allocates is a multiple of it.
 PAGE_TOKENS = 128
+
+#: Module names whose ``weight`` ``quantize_weights_for_serving`` converts.
+_W8_TARGETS = frozenset({"wq", "wk", "wv", "wo",
+                         "w_gate", "w_up", "w_down", "w_gateup"})
+
+#: A quantizer of one weight: ``[F, D]`` rows = output channels → (int8
+#: values ``[F, D]``, fp32 scales ``[F]``).
+Quantizer = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _absmax_rows(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Deterministic absmax round-to-nearest per output channel, as the
+    reference's: scale = max|w| / 127 floored at 1e-9 (after the division,
+    unlike the ops' 1e-30 floor before it), round half to even, clip."""
+    w32 = w.float()
+    s = torch.clamp(w32.abs().amax(dim=-1) / 127.0, min=1e-9)
+    q = torch.clamp(torch.round(w32 / s[:, None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+def quantize_weights_for_serving(params: Dict[str, torch.Tensor],
+                                 quantize: Optional[Quantizer] = None
+                                 ) -> Dict[str, torch.Tensor]:
+    """W8A16 weights for ``cfg.serve_int8_weights`` serving: each
+    ``{wq,wk,wv,wo,w_gate,w_up,w_down,w_gateup}.weight [F, D]`` becomes an
+    int8 ``weight_q [F, D]`` and a per-output-channel fp32 ``weight_scale
+    [F]``; ``lm_head [D, V]`` becomes ``lm_head_q [D, V]`` and
+    ``lm_head_scale [V]``. Embeddings and norms stay as they are. The
+    serving modules rescale the product, so the only error is the int8
+    rounding of the weights.
+
+    ``quantize`` swaps the rounding scheme: it maps one weight whose rows
+    are output channels, ``[F, D]``, to (int8 ``[F, D]``, fp32 ``[F]``) —
+    the reference's hook on its ``[D, F]`` kernels, transposed to the
+    port's layout. Default: deterministic absmax round-to-nearest;
+    ``convert.quantize_serving_tree`` passes the stochastic-rounding
+    kernel (``ops/quantization.py``) through here."""
+    quantize = quantize or _absmax_rows
+    out = {}
+    for name, t in params.items():
+        module, _, leaf = name.rpartition(".")
+        if leaf == "weight" and module.rpartition(".")[2] in _W8_TARGETS:
+            out[f"{module}.weight_q"], out[f"{module}.weight_scale"] = (
+                quantize(t))
+        elif name == "lm_head":
+            q, s = quantize(t.t())          # rows = vocab entries
+            out["lm_head_q"], out["lm_head_scale"] = q.t().contiguous(), s
+        else:
+            out[name] = t
+    return out
 
 
 def decode_model(cfg: TransformerConfig, params: Dict[str, torch.Tensor],

@@ -4,7 +4,10 @@ Names are those of ``Transformer.state_dict()``: ``embed [V, D]``,
 ``blocks.{i}.attn_norm.scale``, ``blocks.{i}.attn.w{q,k,v,o}.weight``,
 ``blocks.{i}.mlp_norm.scale``, ``blocks.{i}.mlp.w_{gate,up,down}.weight``
 (or ``w_gateup``), ``final_norm.scale`` and ``lm_head [D, V]``. A ``weight``
-is ``[out, in]``, the transpose of the reference's Flax ``kernel``.
+is ``[out, in]``, the transpose of the reference's Flax ``kernel``. The
+W8A16 serving layout (``serve_int8_weights``) holds each projection as an
+int8 ``weight_q [out, in]`` and an fp32 ``weight_scale [out]``, and the head
+as ``lm_head_q [D, V]`` int8 and ``lm_head_scale [V]``.
 
 ``from_jax_params`` carries a reference parameter tree across (the
 scan-stacked layout: every ``blocks/...`` leaf has a leading layer axis);
@@ -41,13 +44,17 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     embeddings and matrices, ones for norm scales. Drawn in fp32 on
     ``device`` from ``generator`` (which must live there), one tensor after
     another in registration order, then stored in ``dtype`` (default
-    ``cfg.dtype``; norm scales stay fp32)."""
+    ``cfg.dtype``; norm scales stay fp32). The int8 serving layout's
+    ``*_q`` / ``*_scale`` are zeros and ones, the reference's placeholders
+    (``quantize_weights_for_serving`` makes real ones)."""
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
     params = {}
     for name, shape in param_shapes(cfg).items():
-        if name.endswith(".scale"):
+        if name.endswith(".scale") or name.endswith("_scale"):
             params[name] = torch.ones(shape, dtype=torch.float32, device=dev)
+        elif name.endswith("_q"):
+            params[name] = torch.zeros(shape, dtype=torch.int8, device=dev)
         else:
             w = torch.empty(shape, dtype=torch.float32, device=dev)
             params[name] = w.normal_(0.0, 0.02, generator=generator).to(dtype)
@@ -62,8 +69,9 @@ def load_model(cfg: TransformerConfig, params: Mapping[str, torch.Tensor],
                device: str | torch.device = "cuda") -> Transformer:
     """``Transformer(cfg)`` on ``device`` holding ``params``. Each tensor
     already in the dtype the model stores it in (``cfg.param_dtype``; fp32
-    for norm scales) and on ``device`` becomes the parameter itself, not a
-    copy, so an optimizer's in-place update is seen through ``params``."""
+    for norm and int8 scales, int8 for int8 weights) and on ``device``
+    becomes the parameter itself, not a copy, so an optimizer's in-place
+    update is seen through ``params``."""
     dev = resolve_device(device)
     with torch.device("meta"):
         model = Transformer(cfg)
@@ -71,6 +79,9 @@ def load_model(cfg: TransformerConfig, params: Mapping[str, torch.Tensor],
     for name, ref in model.state_dict().items():
         if name not in params:
             raise KeyError(f"params lack {name!r}")
+        if (params[name].dtype == torch.int8) != (ref.dtype == torch.int8):
+            raise ValueError(f"{name!r} is {params[name].dtype}; the model "
+                             f"holds it as {ref.dtype}")
         state[name] = params[name].to(device=dev, dtype=ref.dtype)
     model.load_state_dict(state, strict=True, assign=True)
     return model
@@ -78,7 +89,7 @@ def load_model(cfg: TransformerConfig, params: Mapping[str, torch.Tensor],
 
 def _as_numpy(leaf) -> np.ndarray:
     arr = np.asarray(leaf)
-    if arr.dtype not in (np.float16, np.float32, np.float64):
+    if arr.dtype not in (np.float16, np.float32, np.float64, np.int8):
         arr = arr.astype(np.float32)     # e.g. bfloat16: exact in fp32
     return np.array(arr, order="C")      # a writable copy torch can own
 
@@ -92,43 +103,61 @@ def from_jax_params(tree: Mapping, dtype: Optional[torch.dtype] = None,
     ``blocks/mlp/w_{gate,up,down}/kernel`` or ``w_gateup``,
     ``embed [V, D]``, ``final_norm/scale [D]``, ``lm_head [D, V]``) as the
     port's state dict on ``device``. Matrices are stored in ``dtype``
-    (default: the tree's own); norm scales stay fp32. A tree of a layout
-    this slice does not serve raises ``NotImplementedError``."""
+    (default: the tree's own); norm scales stay fp32. The W8A16 tree of
+    ``quantize_weights_for_serving`` (``kernel_q [L, D_in, D_out]`` int8 and
+    ``kernel_scale [L, D_out]``; ``lm_head_q [D, V]``, ``lm_head_scale
+    [V]``) keeps its int8 values and fp32 scales. A tree of a layout this
+    slice does not serve raises ``NotImplementedError``."""
     dev = resolve_device(device)
 
     def mat(a) -> torch.Tensor:
         t = torch.from_numpy(_as_numpy(a))
+        if t.dtype == torch.int8:
+            return t.to(dev)
         return t.to(device=dev, dtype=dtype or t.dtype)
 
     def scale(a) -> torch.Tensor:
         return torch.from_numpy(_as_numpy(a)).to(device=dev,
                                                  dtype=torch.float32)
 
-    if set(tree) != {"blocks", "embed", "final_norm", "lm_head"}:
+    def layer(module, i) -> Dict[str, torch.Tensor]:
+        if "kernel" in module:
+            return {"weight": mat(_as_numpy(module["kernel"][i]).T)}
+        return {"weight_q": mat(_as_numpy(module["kernel_q"][i]).T),
+                "weight_scale": scale(module["kernel_scale"][i])}
+
+    base = {"blocks", "embed", "final_norm"}
+    int8_head = set(tree) == base | {"lm_head_q", "lm_head_scale"}
+    if set(tree) != base | {"lm_head"} and not int8_head:
         raise NotImplementedError(
             f"parameter tree with top-level keys {sorted(tree)}: only the "
             f"untied rope/rms Llama layout is ported")
     blocks = tree["blocks"]
     attn, mlp = blocks["attn"], blocks["mlp"]
+    leaves = {"kernel_q", "kernel_scale"} if int8_head else {"kernel"}
     if (set(blocks) != {"attn", "attn_norm", "mlp", "mlp_norm"}
             or set(attn) != set(_ATTN) or not set(mlp) <= set(_MLP)
-            or any(set(attn[w]) != {"kernel"} for w in attn)
-            or any(set(mlp[w]) != {"kernel"} for w in mlp)):
+            or any(set(attn[w]) != leaves for w in attn)
+            or any(set(mlp[w]) != leaves for w in mlp)):
         raise NotImplementedError(
-            "parameter tree layout not ported (fused qkv, biases, MoE, "
-            "int8 or GPT-2 family)")
+            "parameter tree layout not ported (fused qkv, biases, MoE or "
+            "GPT-2 family)")
     n_layers = np.shape(blocks["attn_norm"]["scale"])[0]
     params = {"embed": mat(tree["embed"])}
     for i in range(n_layers):
         p = f"blocks.{i}."
         params[p + "attn_norm.scale"] = scale(blocks["attn_norm"]["scale"][i])
         for w in _ATTN:
-            params[p + f"attn.{w}.weight"] = mat(_as_numpy(
-                attn[w]["kernel"][i]).T)
+            for leaf, t in layer(attn[w], i).items():
+                params[p + f"attn.{w}.{leaf}"] = t
         params[p + "mlp_norm.scale"] = scale(blocks["mlp_norm"]["scale"][i])
         for w in mlp:
-            params[p + f"mlp.{w}.weight"] = mat(_as_numpy(
-                mlp[w]["kernel"][i]).T)
+            for leaf, t in layer(mlp[w], i).items():
+                params[p + f"mlp.{w}.{leaf}"] = t
     params["final_norm.scale"] = scale(tree["final_norm"]["scale"])
-    params["lm_head"] = mat(tree["lm_head"])
+    if int8_head:
+        params["lm_head_q"] = mat(tree["lm_head_q"])
+        params["lm_head_scale"] = scale(tree["lm_head_scale"])
+    else:
+        params["lm_head"] = mat(tree["lm_head"])
     return params

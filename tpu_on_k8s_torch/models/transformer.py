@@ -17,6 +17,16 @@ at every use, as ``nn.Dense(dtype, param_dtype)`` computes. Training keeps
 fp32 master weights; serving stores them already cast (``decode_model``), so
 the cast is a no-op there.
 
+The int8 recipes: ``mlp_int8``, ``attn_int8`` (training forward only; decode
+keeps bf16 projections) and ``head_int8`` (fp32 logits) run their matmuls
+through ``ops/int8_matmul.py`` (``Int8Dense``; ``int8_impl`` "xla" or
+"pallas", the hand-written kernel), on the same ``weight`` a ``Dense`` holds.
+``mlp_int8`` and ``head_int8`` act in decode mode too, as in the reference.
+``serve_int8_weights`` (serving only) stores every projection as an int8
+``weight_q [out, in]`` with a per-output-channel fp32 ``weight_scale``
+(``W8Dense``) and the head as ``lm_head_q [D, V]`` with ``lm_head_scale
+[V]``: the tree ``decode.quantize_weights_for_serving`` makes.
+
 A config flag this port does not cover raises ``NotImplementedError``
 naming it (``check_supported``; ``check_trainable`` for the training
 forward); none is silently ignored. ``scan_unroll`` and
@@ -39,6 +49,7 @@ from tpu_on_k8s_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bhld,
 )
+from tpu_on_k8s_torch.ops.int8_matmul import int8_matmul, int8_matmul_pallas
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,8 +124,6 @@ _NOT_PORTED = (
     ("decode_multislot", lambda c: c.decode_multislot,
      "continuous-batching slot caches (models/serving.py)"),
     ("cache_int8", lambda c: c.cache_int8, "the int8 KV cache"),
-    ("serve_int8_weights", lambda c: c.serve_int8_weights,
-     "W8A16 serving weights"),
     ("fused_qkv", lambda c: c.fused_qkv, "the fused wqkv projection"),
     ("n_experts", lambda c: c.n_experts > 0, "MoE (models/moe.py)"),
     ("pos_emb", lambda c: c.pos_emb != "rope", "GPT-2 family serving"),
@@ -123,8 +132,6 @@ _NOT_PORTED = (
      "GPT-2 family serving"),
     ("tie_embeddings", lambda c: c.tie_embeddings, "GPT-2 family serving"),
     ("use_bias", lambda c: c.use_bias, "GPT-2 family serving"),
-    ("mlp_int8", lambda c: c.mlp_int8, "the int8 GEMM kernel"),
-    ("head_int8", lambda c: c.head_int8, "the int8 GEMM kernel"),
     ("attn_impl", lambda c: c.attn_impl not in ("xla", "flash"),
      "ring/ulysses sequence parallelism"),
 )
@@ -139,14 +146,21 @@ def _raise_first(cfg: TransformerConfig, table) -> None:
 
 
 def check_supported(cfg: TransformerConfig) -> None:
-    """Raise ``NotImplementedError`` naming the first flag of ``cfg`` that
-    this port does not cover yet."""
+    """Raise ``ValueError`` for the layouts the reference rejects with int8
+    weights, then ``NotImplementedError`` naming the first flag of ``cfg``
+    that this port does not cover yet."""
+    if cfg.serve_int8_weights and (cfg.fused_qkv or cfg.n_experts > 0):
+        raise ValueError("serve_int8_weights does not cover fused_qkv or MoE "
+                         "layouts")
+    if cfg.use_bias and (cfg.mlp_int8 or cfg.attn_int8
+                         or cfg.serve_int8_weights or cfg.fused_qkv):
+        raise ValueError("use_bias is not supported with the int8 or "
+                         "fused-qkv projection layouts")
     _raise_first(cfg, _NOT_PORTED)
 
 
 #: What the training forward does not cover on top of ``_NOT_PORTED``.
 _NOT_TRAINABLE = (
-    ("attn_int8", lambda c: c.attn_int8, "the int8 GEMM kernel"),
     ("remat_policy",
      lambda c: c.remat and c.remat_policy in ("dots", "dots_kernels"),
      "the dots/dots_kernels remat policies"),
@@ -256,15 +270,71 @@ class Dense(nn.Linear):
         return F.linear(x, self.weight.to(self.compute_dtype))
 
 
+def _int8_mm(impl: str):
+    """The int8-forward matmul for ``cfg.int8_impl``, shared by every int8
+    call site (MLP, attention projections, lm head)."""
+    if impl == "pallas":
+        return int8_matmul_pallas
+    if impl != "xla":
+        raise ValueError(f"unknown int8_impl {impl!r} (use 'xla'|'pallas')")
+    return int8_matmul
+
+
+class Int8Dense(Dense):
+    """``Dense`` whose matmul runs the int8-forward path on the weight cast
+    to ``cfg.dtype``; the parameter is the same, so the int8 recipes apply
+    to a checkpoint as it is."""
+
+    def __init__(self, n_in: int, n_out: int, cfg: TransformerConfig):
+        super().__init__(n_in, n_out, cfg)
+        self.impl = cfg.int8_impl
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _int8_mm(self.impl)(x, self.weight.to(self.compute_dtype))
+
+
+class W8Dense(nn.Module):
+    """Serving-time W8A16 dense: an int8 ``weight_q [out, in]`` and an fp32
+    ``weight_scale [out]`` per output channel. The product of x with the
+    int8 values widened to ``cfg.dtype`` is rescaled in fp32 (a bf16 scale
+    would add a systematic per-channel error), then cast: ``x @ (q·s)ᵀ ==
+    (x @ qᵀ)·s`` for a per-channel scale."""
+
+    def __init__(self, n_in: int, n_out: int, cfg: TransformerConfig):
+        super().__init__()
+        self.compute_dtype = cfg.dtype
+        self.weight_q = nn.Parameter(torch.empty(n_out, n_in,
+                                                 dtype=torch.int8),
+                                     requires_grad=False)
+        self.weight_scale = nn.Parameter(torch.empty(n_out,
+                                                     dtype=torch.float32),
+                                         requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x, self.weight_q.to(self.compute_dtype))
+        return (y.float() * self.weight_scale).to(self.compute_dtype)
+
+
+def _dense_class(cfg: TransformerConfig, int8: bool):
+    """The projection module of a layer: ``W8Dense`` for int8 serving
+    weights, else ``Int8Dense`` where the int8 recipe covers the layer,
+    else ``Dense``."""
+    if cfg.serve_int8_weights:
+        return W8Dense
+    return Int8Dense if int8 else Dense
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
         hd = cfg.head_dim
-        self.wq = Dense(cfg.d_model, cfg.n_heads * hd, cfg)
-        self.wk = Dense(cfg.d_model, cfg.n_kv_heads * hd, cfg)
-        self.wv = Dense(cfg.d_model, cfg.n_kv_heads * hd, cfg)
-        self.wo = Dense(cfg.n_heads * hd, cfg.d_model, cfg)
+        # decode keeps bf16 projections under attn_int8, as the reference
+        dense = _dense_class(cfg, cfg.attn_int8 and not cfg.decode)
+        self.wq = dense(cfg.d_model, cfg.n_heads * hd, cfg)
+        self.wk = dense(cfg.d_model, cfg.n_kv_heads * hd, cfg)
+        self.wv = dense(cfg.d_model, cfg.n_kv_heads * hd, cfg)
+        self.wo = dense(cfg.n_heads * hd, cfg.d_model, cfg)
 
     def forward(self, x: torch.Tensor, pos: Positions,
                 cache: Optional[KVCache] = None,
@@ -354,12 +424,13 @@ class MLP(nn.Module):
         super().__init__()
         self.d_ff = cfg.d_ff
         self.fused = cfg.mlp_fused_gateup
+        dense = _dense_class(cfg, cfg.mlp_int8)
         if self.fused:
-            self.w_gateup = Dense(cfg.d_model, 2 * cfg.d_ff, cfg)
+            self.w_gateup = dense(cfg.d_model, 2 * cfg.d_ff, cfg)
         else:
-            self.w_gate = Dense(cfg.d_model, cfg.d_ff, cfg)
-            self.w_up = Dense(cfg.d_model, cfg.d_ff, cfg)
-        self.w_down = Dense(cfg.d_ff, cfg.d_model, cfg)
+            self.w_gate = dense(cfg.d_model, cfg.d_ff, cfg)
+            self.w_up = dense(cfg.d_model, cfg.d_ff, cfg)
+        self.w_down = dense(cfg.d_ff, cfg.d_model, cfg)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused:
@@ -406,6 +477,9 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
+        if cfg.serve_int8_weights and not cfg.decode:
+            raise ValueError("serve_int8_weights is a serving (decode) "
+                             "recipe; training keeps bf16 weights")
         if cfg.decode:
             check_supported(cfg)
         else:
@@ -415,27 +489,48 @@ class Transformer(nn.Module):
                                               dtype=cfg.param_dtype))
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype)
-        self.lm_head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab_size,
-                                                dtype=cfg.param_dtype))
+        if cfg.serve_int8_weights:
+            self.lm_head_q = nn.Parameter(
+                torch.empty(cfg.d_model, cfg.vocab_size, dtype=torch.int8),
+                requires_grad=False)
+            self.lm_head_scale = nn.Parameter(
+                torch.empty(cfg.vocab_size, dtype=torch.float32),
+                requires_grad=False)
+        else:
+            self.lm_head = nn.Parameter(torch.empty(
+                cfg.d_model, cfg.vocab_size, dtype=cfg.param_dtype))
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 cache: Optional[List[KVCache]] = None,
                 last_only: bool = False,
                 segments: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x, head = self._trunk(tokens, positions, cache, segments)
+        cfg = self.cfg
+        x = self._trunk(tokens, positions, cache, segments)
         if last_only:
             x = x[:, -1:]
-        # fp32 logits from the cfg.dtype head: products of bf16 values are
-        # exact in fp32, so this is the reference's fp32-accumulated einsum.
+        # fp32 logits from the cfg.dtype (or int8) head: products of bf16
+        # and int8 values are exact in fp32, so this is the reference's
+        # fp32-accumulated einsum.
+        if cfg.serve_int8_weights:
+            return (torch.matmul(x.float(), self.lm_head_q.float())
+                    * self.lm_head_scale)
+        head = self.lm_head.to(cfg.dtype)
+        if cfg.head_int8:
+            return _int8_mm(cfg.int8_impl)(x, head.t(), torch.float32)
         return torch.matmul(x.float(), head.float())
 
     def features(self, tokens: torch.Tensor,
                  positions: Optional[torch.Tensor] = None,
                  segments: Optional[torch.Tensor] = None):
         """(final-norm hidden states ``[B, L, D]``, head ``[D, V]``), both
-        in ``cfg.dtype``: what ``chunked_cross_entropy`` takes."""
-        return self._trunk(tokens, positions, None, segments)
+        in ``cfg.dtype``: what ``chunked_cross_entropy`` takes. The int8
+        serving head is the pair (``lm_head_q``, ``lm_head_scale``), as the
+        reference returns it."""
+        x = self._trunk(tokens, positions, None, segments)
+        if self.cfg.serve_int8_weights:
+            return x, (self.lm_head_q, self.lm_head_scale)
+        return x, self.lm_head.to(self.cfg.dtype)
 
     def _trunk(self, tokens, positions, cache, segments):
         cfg = self.cfg
@@ -468,4 +563,4 @@ class Transformer(nn.Module):
             else:
                 x = block(x, pos, cache[i] if cache is not None else None,
                           segments)
-        return self.final_norm(x), self.lm_head.to(cfg.dtype)
+        return self.final_norm(x)

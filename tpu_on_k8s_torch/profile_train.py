@@ -5,7 +5,9 @@
 
 Random fp32 master weights from ``--seed``, one fixed batch of synthetic
 tokens, the training CLI's model and optimizer (flash attention, remat
-``--remat-policy``). After two warm-up steps it prints:
+``--remat-policy``). The int8 recipe's config fields are flags of the same
+names (``--mlp-int8``, ``--mlp-fused-gateup``, ``--head-int8``,
+``--attn-int8``, ``--int8-impl``). After two warm-up steps it prints:
 
 - the wall time of each part of a step (forward and loss, backward,
   optimizer), each ending in a synchronize, median of three steps;
@@ -38,6 +40,7 @@ _GROUPS = (
     ("dq_bf16", "flash_bwd_dq (port kernel)"),
     ("dq_f32", "flash_bwd_dq (port kernel)"),
     ("dkv_", "flash_bwd_dkv (port kernel)"),
+    ("int8_matmul_kernel", "int8_matmul (port kernel)"),
     ("gemm", "GEMM (cuBLAS)"), ("nvjet", "GEMM (cuBLAS)"),
     ("xmma", "GEMM (cuBLAS)"), ("cutlass", "GEMM (cuBLAS)"),
     ("reduce", "reductions"), ("softmax", "reductions"),
@@ -46,6 +49,10 @@ _GROUPS = (
     ("copy", "copies"), ("cat", "copies"),
     ("elementwise", "elementwise"), ("vectorized", "elementwise"),
 )
+
+
+#: The int8 recipe's boolean config fields, each a flag of the same name.
+_INT8_FLAGS = ("mlp_int8", "mlp_fused_gateup", "head_int8", "attn_int8")
 
 
 def group(name: str) -> str:
@@ -64,12 +71,16 @@ def main(argv=None) -> None:
     p.add_argument("--remat-policy", default="mlp", choices=["full", "mlp"])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--top", type=int, default=15)
+    for flag in _INT8_FLAGS:
+        p.add_argument(f"--{flag.replace('_', '-')}", action="store_true")
+    p.add_argument("--int8-impl", default="pallas", choices=["xla", "pallas"])
     args = p.parse_args(argv)
 
     dev = resolve_device("cuda")
     cfg = dataclasses.replace(CONFIGS[args.config](), remat=True,
                               remat_policy=args.remat_policy,
-                              attn_impl="flash")
+                              attn_impl="flash", int8_impl=args.int8_impl,
+                              **{f: getattr(args, f) for f in _INT8_FLAGS})
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = load_model(cfg, init_params(cfg, gen, dev,
                                         dtype=cfg.param_dtype), dev)
@@ -80,8 +91,10 @@ def main(argv=None) -> None:
     params = list(model.parameters())
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.seq_len + 1),
                            generator=gen, device=dev, dtype=torch.int32)
+    int8 = [f for f in _INT8_FLAGS if getattr(args, f)]
     print(f"[setup] {args.config} batch {args.batch} seq {args.seq_len} "
-          f"remat {args.remat_policy} on {torch.cuda.get_device_name(0)}")
+          f"remat {args.remat_policy} int8 {int8 or 'off'} "
+          f"({args.int8_impl}) on {torch.cuda.get_device_name(0)}")
     for _ in range(2):
         step(tokens)
     torch.cuda.synchronize()

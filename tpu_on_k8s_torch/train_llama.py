@@ -11,9 +11,12 @@ synthetic tokens (one fixed batch, as the example) or a packed record file
         --seq-len 2048 --steps 8
     python -m tpu_on_k8s_torch.train_llama --config tiny --device cpu
 
-There is no mesh: one process, one card. Flags of the example that belong
-to later slices (``--int8``, ``--eval-data``, ``--checkpoint-dir``, ring and
-ulysses attention) raise ``NotImplementedError``.
+``--int8`` is the example's int8 recipe: int8-forward MLP matmuls with the
+fused gate+up weight (``mlp_int8``, ``mlp_fused_gateup``), an exact bf16
+backward (``ops/int8_matmul.py``). There is no mesh: one process, one card.
+Flags of the example that belong to later slices (``--eval-data``,
+``--checkpoint-dir``, ring and ulysses attention) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,7 +34,6 @@ from tpu_on_k8s_torch.train import Trainer, default_optimizer
 
 #: example flag → the later slice that brings it
 _LATER = {
-    "int8": "the int8 training recipe (int8 GEMM kernel)",
     "eval_data": "eval data and the training loop (train/loop.py)",
     "checkpoint_dir": "checkpoints (train/checkpoint.py)",
 }
@@ -75,7 +77,9 @@ def main(argv=None) -> float:
     p.add_argument("--segment-eos", type=int, default=-1,
                    help=">= 0: records are stream-packed windows with this "
                         "EOS separator")
-    p.add_argument("--int8", action="store_true")
+    p.add_argument("--int8", action="store_true",
+                   help="int8-forward MLP matmuls + fused gate+up (exact "
+                        "bf16 backward; ops/int8_matmul.py)")
     p.add_argument("--eval-data", default="")
     p.add_argument("--checkpoint-dir", default="")
     p.add_argument("--device", default="cuda",
@@ -95,7 +99,9 @@ def main(argv=None) -> float:
     cfg = dataclasses.replace(CONFIGS[args.config](),
                               remat=args.remat.lower() == "true",
                               remat_policy=args.remat_policy,
-                              attn_impl=args.attn)
+                              attn_impl=args.attn,
+                              mlp_int8=args.int8,
+                              mlp_fused_gateup=args.int8)
     seq = args.seq_len or cfg.max_seq_len
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = load_model(cfg, init_params(cfg, gen, dev,

@@ -8,10 +8,15 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
 1. environment and build: the card's name and power limit, TF32 off, every
    kernel source under ``tpu_on_k8s_torch/ops/csrc/`` built with nvcc (one
    process per source, all at once), with each kernel's registers and
-   spills;
+   spills, and the count of ``HGMMA`` (wgmma) instructions that
+   ``cuobjdump --dump-sass`` finds in each flash kernel: the bf16 forward
+   and dq kernels must have some;
 2. each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes: the flash forward and the two
-   backward kernels (dq, dk/dv) within stated tolerances; the int8 GEMM
+   backward kernels (dq, dk/dv) within stated tolerances, the forward and
+   dq also at the Hopper kernels' tile edges (L 127-129, 255, 2047; D 64
+   and 128; valid_len 129; segments crossing a 128-row tile) and launched
+   twice on the same inputs, which must agree bit for bit; the int8 GEMM
    (also against ``torch._int_mm``), the quantize and the dequantize
    kernels bit for bit;
 3. serving: ``generate`` at ``llama2_7b`` width (32 layers, bf16, random
@@ -51,6 +56,7 @@ import subprocess
 import sys
 import time
 from contextlib import nullcontext
+from pathlib import Path
 from unittest import mock
 
 import torch
@@ -115,6 +121,19 @@ QUANT_CASES = [(4096, 4096, torch.bfloat16), (1024, 4096, torch.bfloat16),
 DEQUANT_CASES = [(5632, 2048, torch.float32), (32000, 2048, torch.float32),
                  (2048, 32000, torch.float32), (333, 1001, torch.bfloat16),
                  (333, 1001, torch.float32)]
+# The bf16 flash forward and dq kernels at their tile edges (128-row query
+# tiles; K/V tiles of 128 keys in the forward, 64 in dq): (h, hkv, l, d,
+# causal, valid_len, segments), batch 1; "tile" segments are cut at rows
+# 120 and 136, across the 128-row boundary.
+EDGE_CASES = ([(4, 2, l, d, True, 0, None) for d in (64, 128)
+               for l in (127, 128, 129, 255, 2047)]
+              + [(4, 1, 255, d, True, 129, None) for d in (64, 128)]
+              + [(4, 2, 255, d, True, 0, "tile") for d in (64, 128)]
+              + [(4, 4, 300, d, False, 0, "tile") for d in (64, 128)])
+# the kernels whose SASS must hold wgmma (HGMMA) instructions:
+# (library, kernel function name)
+WGMMA_KERNELS = (("flash_fwd", "flash_fwd_sm90_kernel"),
+                 ("flash_bwd", "dq_sm90_kernel"))
 
 
 def fail(msg: str) -> None:
@@ -128,6 +147,26 @@ def gpu_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def hgmma_counts(lib) -> dict:
+    """``HGMMA`` instructions per kernel function in the SASS of a built
+    library, read with ``cuobjdump --dump-sass`` from the toolkit of the
+    nvcc that built it."""
+    from tpu_on_k8s_torch.ops import _build
+
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def time_ms(fn, iters: int = 20, reps: int = 7) -> float:
@@ -515,8 +554,16 @@ def main() -> int:
           f", in parallel, in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if ("registers" in line or "spill" in line or "Compiling" in line
+                    or "wgmma" in line or "setmaxnreg" in line):
                 print(f"[build] {name}: {line.strip()}")
+    for name, kernel in WGMMA_KERNELS:
+        found = {fn: n for fn, n in hgmma_counts(paths[name]).items()
+                 if kernel in fn}
+        for fn, n in found.items():
+            print(f"[build] {name}: {n} HGMMA instructions in {fn}")
+        if not found or not all(found.values()):
+            fail(f"{kernel} holds no wgmma (HGMMA) instructions: {found}")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -535,6 +582,12 @@ def main() -> int:
         pos = torch.arange(l, device=dev)
         return ((pos[None] >= cuts[:, :1]).int()
                 + (pos[None] >= cuts[:, 1:]).int()).to(torch.int32)
+
+    def segments_across_tile(b, l):
+        # three documents per row cut at rows 120 and 136 (across row 128)
+        pos = torch.arange(l, device=dev)
+        return ((pos >= 120).int() + (pos >= 136).int()).to(
+            torch.int32)[None].repeat(b, 1)
 
     # ---- 2. kernels against their plain versions -----------------------
     cases = [  # (b, h, hkv, l, d, dtype, causal, valid_len, segmented)
@@ -651,6 +704,58 @@ def main() -> int:
         if not ok:
             misses.append(f"flash_bwd {label}")
         del q, k, v, do, o, lse, got, want, delta
+    # the bf16 forward and dq kernels at their tile edges, each launched
+    # twice on the same inputs: the two results must be bit-identical
+    for h, hkv, l, d, causal, valid, seg_kind in EDGE_CASES:
+        q, k, v = qkv(1, h, hkv, l, d, torch.bfloat16)
+        do = randn(1, h, l, d)
+        seg = segments_across_tile(1, l) if seg_kind else None
+        o, lse = fa.flash_with_lse_fwd(q, k, v, causal, valid, seg)
+        o2, lse2 = fa.flash_with_lse_fwd(q, k, v, causal, valid, seg)
+        po, plse = fa.flash_attention_plain(q, k, v, causal, valid, seg)
+        delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, valid, seg)
+        dq2 = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, valid, seg)
+        pdq = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, valid,
+                                    seg)
+        torch.cuda.synchronize()
+        err_o = (o.float() - po.float()).abs().max().item()
+        err_lse = (lse - plse).abs().max().item()
+        err_dq = (dq.float() - pdq.float()).abs().max().item()
+        rel_dq = err_dq / pdq.float().abs().max().item()
+        same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+                and torch.equal(dq, dq2))
+        tol_o, tol_lse = TOL[torch.bfloat16]
+        ok = (err_o <= tol_o and err_lse <= tol_lse
+              and rel_dq <= BWD_REL_TOL[torch.bfloat16] and same
+              and bool(torch.isfinite(o).all())
+              and bool(torch.isfinite(dq).all()))
+        bf16_err = max(bf16_err, err_o)
+        bwd_err["dq"] = max(bwd_err["dq"], err_dq)
+        label = (f"edge B=1 H={h} Hkv={hkv} L={l} D={d} bf16 causal={causal} "
+                 f"valid_len={valid} segments={seg_kind}")
+        print(f"[kernel] flash_fwd + flash_bwd_dq {label}: max|o-plain| "
+              f"{err_o:.3e} max|lse-plain| {err_lse:.3e} dq rel {rel_dq:.2e} "
+              f"(tols {tol_o:g}, {tol_lse:g}, {BWD_REL_TOL[torch.bfloat16]:g}"
+              f"); two launches bit-identical {same} "
+              f"{'ok' if ok else 'MISS'}")
+        if not ok:
+            misses.append(label)
+    # determinism at the training shape, where every block runs many tiles
+    q, k, v = qkv(TRAIN_BATCH, 16, 16, TRAIN_SEQ, 128, torch.bfloat16)
+    do = randn(TRAIN_BATCH, 16, TRAIN_SEQ, 128)
+    o, lse = fa.flash_with_lse_fwd(q, k, v, True)
+    o2, lse2 = fa.flash_with_lse_fwd(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
+    same = (torch.equal(o, o2) and torch.equal(lse, lse2) and torch.equal(
+        fa.flash_bwd_dq(q, k, v, do, lse, delta, True),
+        fa.flash_bwd_dq(q, k, v, do, lse, delta, True)))
+    print(f"[kernel] flash_fwd + flash_bwd_dq B={TRAIN_BATCH} H=16 "
+          f"L={TRAIN_SEQ} D=128 bf16 causal: two launches bit-identical "
+          f"{same} {'ok' if same else 'MISS'}")
+    if not same:
+        misses.append("determinism at the training shape")
+    del q, k, v, do, o, o2, lse, lse2, delta
     int8_errs = check_int8_kernels(i8, qz, randn, misses)
     if misses:
         fail(f"kernels disagree with their plain versions: {misses}")

@@ -131,6 +131,55 @@ def test_public_flash_attention_matches(l, segmented, dtype):
                                rtol=0)
 
 
+# The Hopper kernels' own head dims and tile edges: 128-row query tiles, K/V
+# tiles of 128 keys (forward) and 64 (dq). L 127/129/257 put the ragged edge
+# on either side of a tile boundary; valid_len 129 ends the keys one past a
+# tile; the segment cuts at 120 and 136 straddle the 128-row boundary. These
+# are the plain twins that the kernels are held against on the card.
+EDGE_CUTS = (120, 136)
+
+
+def _segments_across_tile(b, l):
+    """Three documents per row, cut at EDGE_CUTS (the middle one crosses
+    row 128)."""
+    pos = np.arange(l)[None].repeat(b, 0)
+    return ((pos >= EDGE_CUTS[0]).astype(np.int32)
+            + (pos >= EDGE_CUTS[1]).astype(np.int32))
+
+
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("l", [127, 129, 257])
+@pytest.mark.parametrize("d", [64, 128])
+def test_fwd_matches_pallas_at_kernel_tiles(d, l, rep):
+    q, k, v = _qkv(1, 4, 4 // rep, l, d, seed=7)
+    want_o, want_lse = _pallas_fwd(q, k, v, True)
+    got_o, got_lse = _port_fwd(q, k, v, True)
+    np.testing.assert_allclose(got_o, want_o, atol=FP32_ATOL, rtol=0)
+    np.testing.assert_allclose(got_lse, want_lse, atol=FP32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("mask", ["valid_len", "segments"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_fwd_masks_match_pallas_at_kernel_tiles(d, mask):
+    """valid_len 129 and segments crossing row 128, at L 257, GQA rep 4."""
+    q, k, v = _qkv(1, 4, 1, 257, d, seed=8)
+    kw = (dict(valid_len=129) if mask == "valid_len"
+          else dict(segments=_segments_across_tile(1, 257)))
+    want_o, want_lse = _pallas_fwd(q, k, v, True, **kw)
+    got_o, got_lse = _port_fwd(q, k, v, True, **kw)
+    np.testing.assert_allclose(got_o, want_o, atol=FP32_ATOL, rtol=0)
+    np.testing.assert_allclose(got_lse, want_lse, atol=FP32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_fwd_bf16_matches_pallas_at_kernel_tiles(d):
+    q, k, v = _qkv(1, 4, 1, 257, d, seed=9)
+    want_o, want_lse = _pallas_fwd(q, k, v, True, dtype=jnp.bfloat16)
+    got_o, got_lse = _port_fwd(q, k, v, True, dtype=torch.bfloat16)
+    np.testing.assert_allclose(got_o, want_o, atol=BF16_ATOL, rtol=0)
+    np.testing.assert_allclose(got_lse, want_lse, atol=BF16_LSE_ATOL, rtol=0)
+
+
 def test_cpu_tensors_take_the_plain_version_without_a_launch():
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, 4, 2, 24, 64))
     before = pfa.launches

@@ -122,6 +122,52 @@ def test_lse_cotangent_matches_pallas(rep):
     _assert_close([t.grad.numpy() for t in (qt, kt, vt)], want, FP32_ATOL)
 
 
+# The Hopper kernels' own head dims and tile edges (128-row query tiles, dq
+# K/V tiles of 64 keys): L 127/129/257 around tile boundaries, valid_len 129
+# one past a boundary, segment cuts at 120 and 136 straddling row 128. These
+# are the twins that the kernels are held against on the card.
+EDGE_CUTS = (120, 136)
+
+
+def _segments_across_tile(b, l):
+    pos = np.arange(l)[None].repeat(b, 0)
+    return ((pos >= EDGE_CUTS[0]).astype(np.int32)
+            + (pos >= EDGE_CUTS[1]).astype(np.int32))
+
+
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("l", [127, 129, 257])
+@pytest.mark.parametrize("d", [64, 128])
+def test_grads_match_pallas_at_kernel_tiles(d, l, rep):
+    q, k, v, g, _ = _inputs(1, 4, 4 // rep, l, d, seed=7)
+    _assert_close(_port_grads(q, k, v, g, True),
+                  _jax_grads(q, k, v, g, True), FP32_ATOL)
+
+
+@pytest.mark.parametrize("mask", ["valid_len", "segments"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_grads_masks_match_pallas_at_kernel_tiles(d, mask):
+    """valid_len 129 and segments crossing row 128, at L 257, GQA rep 4."""
+    q, k, v, g, _ = _inputs(1, 4, 1, 257, d, seed=8)
+    kw = (dict(valid_len=129) if mask == "valid_len"
+          else dict(segments=_segments_across_tile(1, 257)))
+    _assert_close(_port_grads(q, k, v, g, True, **kw),
+                  _jax_grads(q, k, v, g, True, **kw), FP32_ATOL)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_grads_near_pallas_at_kernel_tiles(d):
+    q, k, v, g, _ = _inputs(1, 4, 1, 257, d, seed=9)
+    l = q.shape[2]
+    bf = lambda x: jnp.asarray(x, jnp.bfloat16)
+    _, vjp = jax.vjp(lambda a, b, c: jfa._flash(a, b, c, True, l, l, 0),
+                     bf(q), bf(k), bf(v))
+    want = [np.asarray(x, np.float32) for x in vjp(bf(g))]
+    got = _port_grads(q, k, v, g, True, dtype=torch.bfloat16)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert np.abs(a - b).max() <= 2e-2 * np.abs(b).max(), name
+
+
 @pytest.mark.parametrize("case", [
     dict(causal=True), dict(causal=False), dict(causal=True, rep=4),
     dict(causal=True, valid_len=29), dict(causal=False, segmented=True),

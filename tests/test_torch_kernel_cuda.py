@@ -137,6 +137,55 @@ def test_backward_kernels_match_plain(cuda, dtype, d, h, hkv, causal, l,
         assert _rel_err(a, b) <= BWD_REL_TOL[dtype], name
 
 
+def _segments_across_tile(b, l):
+    """Three documents per row cut at rows 120 and 136 (across row 128)."""
+    pos = torch.arange(l, device="cuda")
+    return ((pos >= 120).int() + (pos >= 136).int()).to(
+        torch.int32)[None].repeat(b, 1)
+
+
+# The bf16 forward and dq kernels at their tile edges: 128-row query tiles,
+# K/V tiles of 128 keys (forward) and 64 (dq).
+@pytest.mark.parametrize("d, l, hkv, causal, valid, segmented", [
+    *[(d, l, 2, True, 0, False) for d in (64, 128)
+      for l in (127, 128, 129, 255, 2047)],
+    (64, 255, 1, True, 129, False), (128, 255, 1, True, 129, False),
+    (64, 255, 2, True, 0, True), (128, 255, 2, True, 0, True),
+    (128, 300, 4, False, 0, True),
+])
+def test_sm90_kernels_at_tile_edges(cuda, d, l, hkv, causal, valid,
+                                    segmented):
+    q, k, v = _qkv(1, 4, hkv, l, d, torch.bfloat16)
+    do = _qkv(1, 4, 4, l, d, torch.bfloat16, seed=7)[0]
+    seg = _segments_across_tile(1, l) if segmented else None
+    o, lse = fa.flash_with_lse_fwd(q, k, v, causal, valid, seg)
+    po, plse = fa.flash_attention_plain(q, k, v, causal, valid, seg)
+    delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, valid, seg)
+    pdq = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, valid, seg)
+    torch.cuda.synchronize()
+    tol_o, tol_lse = TOL[torch.bfloat16]
+    assert (o.float() - po.float()).abs().max().item() <= tol_o
+    assert (lse - plse).abs().max().item() <= tol_lse
+    assert _rel_err(dq, pdq) <= BWD_REL_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("l, segmented", [(2048, False), (255, True)])
+def test_sm90_kernels_repeat_bit_for_bit(cuda, l, segmented):
+    """No atomics: two launches on the same inputs agree to the bit."""
+    q, k, v = _qkv(2, 16, 16, l, 128, torch.bfloat16)
+    do = _qkv(2, 16, 16, l, 128, torch.bfloat16, seed=7)[0]
+    seg = _segments_across_tile(2, l) if segmented else None
+    runs = []
+    for _ in range(2):
+        o, lse = fa.flash_with_lse_fwd(q, k, v, True, 0, seg)
+        delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
+        runs.append((o, lse, fa.flash_bwd_dq(q, k, v, do, lse, delta, True,
+                                             0, seg)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
 def test_autograd_runs_the_kernels_on_model_layout(cuda):
     """The training path's call: [B, L, H, D] projections read as strided
     [B, H, L, D] views, a non-contiguous dO, gradients through autograd."""

@@ -26,15 +26,28 @@
 // written once) against 3.35 TB/s. At the training shape (L=2048, D=128) both
 // are bound by operations by a wide margin.
 //
-// What the design does about it (a first, simple version; no TMA, wgmma or
-// pipelining yet):
-//   * dq: one block of 4 warps per (b, h, 64-row query tile); each warp owns
-//     16 query rows. Q and dO stay in shared memory; a loop over 64-key K/V
-//     tiles computes S and dP on the tensor cores (mma.sync.m16n8k16 bf16 ->
-//     fp32), turns them into dS in registers, and re-packs dS as the A fragment
-//     of dQ += dS K, so neither S, P nor dS touches shared or device memory.
-//     Under causal masking the loop stops at the diagonal tile.
-//   * dk/dv: one block of 4 warps per (b, kv head, 64-key tile); each warp owns
+// What the designs do about it:
+//   * dq (bf16, flash_sm90.cuh's Hopper pieces): one block of 384 threads per
+//     (b, h, 128-row query tile), heaviest tiles first: one producer thread
+//     (its warpgroup gives its registers away, setmaxnreg 24) and two consumer
+//     warpgroups of 64 query rows (setmaxnreg 240). Q and dO are TMA-loaded
+//     once and stay in shared memory as wgmma operands; lse and delta sit in
+//     registers. K/V tiles of 64 keys stream through a ring of three stages
+//     (full/empty mbarriers), so the next tiles load while this one
+//     computes. S = Q K^T and dP = dO V^T are wgmmas with both operands in
+//     shared memory; dS = P * (dP - delta) * scale, with P = exp(S_masked -
+//     lse) (base 2, scale*log2(e) folded into one multiply of the fp32 dot),
+//     is cast to bf16 in registers and is the A operand of dQ += dS K, a
+//     wgmma reading K MN-major from the same tile; the dq accumulator takes
+//     D/2 fp32 registers a thread. Masks run only on tiles that cross the
+//     causal diagonal or kv_end, or on every tile with segments (key ids read
+//     once per tile into shared memory); the loop stops at the diagonal, and
+//     a warpgroup skips the products of tiles entirely above its rows. dq is
+//     written as bf16 over the warpgroup's Q rows in shared memory and stored
+//     by TMA (rows past L dropped). Shared memory at D 128: Q and dO 64 KB +
+//     3 x (K 16 KB + V 16 KB) = 160 KB.
+//   * dk/dv (bf16, mma.sync m16n8k16; its Hopper redesign comes next): one
+//     block of 4 warps per (b, kv head, 64-key tile); each warp owns
 //     16 keys and computes S^T = K Q^T and dP^T = V dO^T directly in the
 //     transposed orientation, so P^T and dS^T are A fragments of dV += P^T dO
 //     and dK += dS^T Q without a transpose. The dk and dv accumulators of 16
@@ -45,18 +58,17 @@
 //     masking). After each q-head its fp32 sums are cast to the output type
 //     and added, in that type, to what the earlier q-heads stored (each thread
 //     reads back only what it wrote).
-// The float32 path runs the same tiling and masking with scalar FMAs in shared
-// memory. It exists so that a check on the card can also compare at full
-// precision; it is not tuned.
+// The float32 paths run a 64 x 64 tiling with scalar FMAs in shared memory.
+// They exist so that a check on the card can also compare at full
+// precision; they are not tuned.
 
 #include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
-constexpr int kBf16Threads = 128;  // 4 warps x 16 rows
+constexpr int kBf16Threads = 128;  // dk/dv: 4 warps x 16 keys
 constexpr int kF32Threads = 256;
-constexpr int kDqRows = 64;        // dq: query rows per block
-constexpr int kDqKeys = 64;        // dq: keys per K/V tile
 constexpr int kDkvKeys = 64;       // dk/dv: keys per block
 constexpr int kDkvRows = 32;       // dk/dv (bf16): query rows per Q/dO tile
 constexpr int kF32Tile = 64;       // float32 path: every tile is 64 rows
@@ -136,130 +148,218 @@ __device__ __forceinline__ void store_or_add(float* p, float x, bool first) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
+// bf16 dq: TMA-fed wgmma, one producer thread and two consumer warpgroups
 // ---------------------------------------------------------------------------
 
-template <int D>
-__global__ void __launch_bounds__(kBf16Threads) dq_bf16_kernel(BwdArgs a) {
-  constexpr int kLd = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sDo = sQ + kDqRows * kLd;
-  __nv_bfloat16* sK = sDo + kDqRows * kLd;
-  __nv_bfloat16* sV = sK + kDqKeys * kLd;
+constexpr int kDqKeys = 64;   // keys per K/V tile
+constexpr int kDqStages = 3;  // K/V tiles in flight
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqRows;  // heaviest first
+struct DqSm90Params {
+  CUtensorMap q;     // boxes of [128 rows, 64]
+  CUtensorMap dout;  // [128 rows, 64]
+  CUtensorMap k;     // [kDqKeys rows, 64]
+  CUtensorMap v;     // [kDqKeys rows, 64]
+  CUtensorMap dq;    // [64 rows, 64]: one consumer warpgroup's rows
+  const float* lse;    // [B, H, 1, L]
+  const float* delta;  // [B, H, 1, L]
+  const int* seg;      // [B, L] int32 or null
+  int H, L, rep, kv_end, causal;
+  float scale;
+  float scale_log2;  // scale * log2(e)
+};
+
+// Byte offsets in the block's shared memory (after aligning it to 1024).
+template <int D>
+struct DqSmem {
+  static constexpr int kQ = kSm90Rows * D * 2;        // Q tile, later dQ
+  static constexpr int kDo = kQ;                      // dO tile
+  static constexpr int kKV = kDqKeys * D * 2;         // one K or V tile
+  static constexpr int kK = 2 * kQ;
+  static constexpr int kV = kK + kDqStages * kKV;
+  static constexpr int kSeg = kV + kDqStages * kKV;   // [2 wg][2][keys]
+  static constexpr int kBar = kSeg + 2 * 2 * kDqKeys * 4;
+  static constexpr int kLaunch = kBar + (1 + 3 * kDqStages) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+    dq_sm90_kernel(const __grid_constant__ DqSm90Params p) {
+  using S = DqSmem<D>;
+  constexpr int kN = kDqKeys;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + S::kBar);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + kDqStages;
+  uint64_t* empty = full_v + kDqStages;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kSm90Rows;  // heaviest first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int hk = h / a.rep;
-
-  const __nv_bfloat16* q = head_ptr<__nv_bfloat16>(a.q, a.q_s, b, h);
-  const __nv_bfloat16* dout = head_ptr<__nv_bfloat16>(a.dout, a.do_s, b, h);
-  const __nv_bfloat16* k = head_ptr<__nv_bfloat16>(a.k, a.k_s, b, hk);
-  const __nv_bfloat16* v = head_ptr<__nv_bfloat16>(a.v, a.v_s, b, hk);
-  const int* seg_b = a.seg ? a.seg + static_cast<long long>(b) * a.L : nullptr;
-
-  load_tile_bf16<D, kDqRows, kBf16Threads>(sQ, q, a.q_s.l, q0, a.L, tid);
-  load_tile_bf16<D, kDqRows, kBf16Threads>(sDo, dout, a.do_s.l, q0, a.L, tid);
-
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  int seg_row[2];
-  float lse[2], delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    seg_row[r] = (seg_b != nullptr && rows[r] < a.L) ? seg_b[rows[r]] : -1;
-    lse[r] = row_stat(a.lse, b, h, a, rows[r]);
-    delta[r] = row_stat(a.delta, b, h, a, rows[r]);
+  int n_tiles = (p.kv_end + kN - 1) / kN;
+  if (p.causal) {
+    n_tiles = min(n_tiles, (min(q0 + kSm90Rows, p.L) - 1) / kN + 1);
   }
+  if (threadIdx.x == 0) init_barriers(bar_q, full_k, full_v, empty, kDqStages);
+  __syncthreads();
 
-  float dq[D / 8][4];
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread keeps the K/V ring full
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, 2 * kSm90Rows * D * 2);
+      load_rows<D, kSm90Rows>(smem, &p.q, bar_q, q0, h, b);
+      load_rows<D, kSm90Rows>(smem + S::kDo, &p.dout, bar_q, q0, h, b);
+      produce_kv<D, kN, kDqStages>(smem + S::kK, smem + S::kV, &p.k, &p.v,
+                                   full_k, full_v, empty, n_tiles, h / p.rep,
+                                   b);
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128 - 1;  // consumer warpgroup: 0 or 1
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int g = (tid % 32) / 4;
+    const int t = tid % 4;
+    const int row0 = q0 + 64 * wg;  // the warpgroup's first query row
+    const int rows[2] = {row0 + 16 * warp + g, row0 + 16 * warp + g + 8};
+    const int* seg_b =
+        p.seg ? p.seg + static_cast<long long>(b) * p.L : nullptr;
+    int seg_row[2];
+    float lse2[2], delta[2];  // lse in base 2; rows past L are never stored
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[dn][e] = 0.f;
-  }
+    for (int r = 0; r < 2; ++r) {
+      const bool in = rows[r] < p.L;
+      const long long at =
+          (static_cast<long long>(b) * p.H + h) * p.L + rows[r];
+      seg_row[r] = (seg_b != nullptr && in) ? seg_b[rows[r]] : -1;
+      lse2[r] = in ? p.lse[at] * kLog2e : 0.f;
+      delta[r] = in ? p.delta[at] : 0.f;
+    }
+    int* seg_keys = reinterpret_cast<int*>(smem + S::kSeg) + wg * 2 * kN;
 
-  const int n_tiles = num_k_tiles(a, q0, kDqRows, kDqKeys);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kDqKeys;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_bf16<D, kDqKeys, kBf16Threads>(sK, k, a.k_s.l, k0, a.L, tid);
-    load_tile_bf16<D, kDqKeys, kBf16Threads>(sV, v, a.v_s.l, k0, a.L, tid);
-    __syncthreads();
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    const uint32_t q_tile = smem_u32(smem) + wg * 64 * 128;
+    const uint32_t do_tile = smem_u32(smem + S::kDo) + wg * 64 * 128;
+    mbar_wait(bar_q, 0);
 
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys
-    float s[kDqKeys / 8][4];
-    float dp[kDqKeys / 8][4];
-#pragma unroll
-    for (int n = 0; n < kDqKeys / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = 0.f;
-        dp[n][e] = 0.f;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kDqStages;
+      const uint32_t parity = (j / kDqStages) & 1;
+      const int k0 = j * kN;
+      const uint32_t k_tile = smem_u32(smem + S::kK + s * S::kKV);
+      const uint32_t v_tile = smem_u32(smem + S::kV + s * S::kKV);
+      const bool masked = seg_b != nullptr || k0 + kN > p.kv_end ||
+                          (p.causal && k0 + kN - 1 > row0);
+      // every key of the tile after every row of the warpgroup (under
+      // causal masking, the last tile of the first warpgroup): no products
+      const bool dead = p.causal && k0 > row0 + 63;
+      const int* seg_tile = nullptr;
+      if (seg_b != nullptr) {
+        int* buf = seg_keys + (j & 1) * kN;
+        load_key_segments(buf, seg_b, k0, kN, p.L, tid, 1 + wg);
+        seg_tile = buf;
       }
-    }
+      mbar_wait(&full_k[s], parity);
+      mbar_wait(&full_v[s], parity);
+      if (!dead) {
+        float sc[kN / 2];
+        float dp[kN / 2];
+        wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a_frag(qa, sQ, kLd, warp, kk, g, t);
-      load_a_frag(da, sDo, kLd, warp, kk, g, t);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          Wgmma<kN>::ss(sc, desc_k_major(q_tile, kSm90Rows, kk),
+                        desc_k_major(k_tile, kN, kk), kk > 0);
+        }
 #pragma unroll
-      for (int n = 0; n < kDqKeys / 8; ++n) {
-        const __nv_bfloat16* kr = sK + (n * 8 + g) * kLd + kk * 16 + 2 * t;
-        const __nv_bfloat16* vr = sV + (n * 8 + g) * kLd + kk * 16 + 2 * t;
-        mma_bf16(s[n], qa, ld_u32(kr), ld_u32(kr + 8));
-        mma_bf16(dp[n], da, ld_u32(vr), ld_u32(vr + 8));
+        for (int kk = 0; kk < D / 16; ++kk) {
+          Wgmma<kN>::ss(dp, desc_k_major(do_tile, kSm90Rows, kk),
+                        desc_k_major(v_tile, kN, kk), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(sc);
+        fence_operand(dp);
+
+        // dS = P * (dP - delta) * scale with P = exp(S_masked - lse); in sc
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          float pr = exp2f(fmaf(sc[i], p.scale_log2, -lse2[r]));
+          if (masked) {
+            const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+            if (!keep_key(col, rows[r], p.kv_end, p.causal,
+                          seg_tile ? seg_tile + (col - k0) : nullptr,
+                          seg_row[r])) {
+              pr = 0.f;
+            }
+          }
+          sc[i] = pr * (dp[i] - delta[r]) * p.scale;
+        }
+        uint32_t da[kN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kN / 16; ++kk) acc_to_a(da[kk], sc, kk);
+
+        fence_operand(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kN / 16; ++kk) {
+          Wgmma<D>::rs(dq, da[kk], desc_mn_major(k_tile, kN, kk), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(dq);
+        fence_operand(da);
       }
+      mbar_arrive(&empty[s]);
     }
 
-    // dS = P * (dP - delta) * scale, with P = exp(S_masked - lse); kept in s
-#pragma unroll
-    for (int n = 0; n < kDqKeys / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const float x = keep(a, seg_b, rows[r], col, seg_row[r])
-                            ? a.scale * s[n][e]
-                            : kNegInf;
-        const float p = expf(x - lse[r]);
-        s[n][e] = p * (dp[n][e] - delta[r]) * a.scale;
-      }
-    }
-
-    // dQ += dS K: dS (cast to bf16) is the A fragment; K's B fragment pairs
-    // two keys of one head-dim column.
-#pragma unroll
-    for (int kk = 0; kk < kDqKeys / 16; ++kk) {
-      uint32_t sa[4];
-      acc_to_a_frag(sa, s, kk);
-      const __nv_bfloat16* kr = sK + (kk * 16 + 2 * t) * kLd + g;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const __nv_bfloat16* kc = kr + dn * 8;
-        mma_bf16(dq[dn], sa, pack_u16(kc, kc + kLd),
-                 pack_u16(kc + 8 * kLd, kc + 9 * kLd));
-      }
-    }
-  }
-
-  __nv_bfloat16* out = head_ptr<__nv_bfloat16>(a.dq, a.dq_s, b, h);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= a.L) continue;
-    __nv_bfloat16* orow = out + rows[r] * a.dq_s.l + 2 * t;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      *reinterpret_cast<uint32_t*>(orow + dn * 8) =
-          pack_f32(dq[dn][2 * r], dq[dn][2 * r + 1]);
-    }
+    // dq over the warpgroup's own Q rows, which no wgmma reads any more
+    store_rows<D>(&p.dq, smem + wg * 64 * 128, dq, 1.f, 1.f, tid, 1 + wg,
+                  row0, h, b);
   }
 }
+
+// Builds the five tensor maps and launches the bf16 dq kernel.
+cudaError_t launch_dq_sm90(const BwdArgs& a, int D, int batch, int kv_heads,
+                           cudaStream_t stream) {
+  DqSm90Params p;
+  const bool mapped =
+      make_tile_map(&p.q, a.q, D, a.L, a.H, batch, a.q_s.l, a.q_s.h, a.q_s.b,
+                    kSm90Rows) &&
+      make_tile_map(&p.dout, a.dout, D, a.L, a.H, batch, a.do_s.l, a.do_s.h,
+                    a.do_s.b, kSm90Rows) &&
+      make_tile_map(&p.k, a.k, D, a.L, kv_heads, batch, a.k_s.l, a.k_s.h,
+                    a.k_s.b, kDqKeys) &&
+      make_tile_map(&p.v, a.v, D, a.L, kv_heads, batch, a.v_s.l, a.v_s.h,
+                    a.v_s.b, kDqKeys) &&
+      make_tile_map(&p.dq, a.dq, D, a.L, a.H, batch, a.dq_s.l, a.dq_s.h,
+                    a.dq_s.b, 64);
+  if (!mapped) return cudaErrorInvalidValue;
+  p.lse = a.lse;
+  p.delta = a.delta;
+  p.seg = a.seg;
+  p.H = a.H;
+  p.L = a.L;
+  p.rep = a.rep;
+  p.kv_end = a.kv_end;
+  p.causal = a.causal;
+  p.scale = a.scale;
+  p.scale_log2 = a.scale * kLog2e;
+  const dim3 grid((a.L + kSm90Rows - 1) / kSm90Rows, a.H, batch);
+  if (D == 128) {
+    return launch_kernel(dq_sm90_kernel<128>, grid, kSm90Threads,
+                         DqSmem<128>::kLaunch, p, stream);
+  }
+  return launch_kernel(dq_sm90_kernel<64>, grid, kSm90Threads,
+                       DqSmem<64>::kLaunch, p, stream);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dk/dv: tensor cores through mma.sync
+// ---------------------------------------------------------------------------
 
 template <int D>
 __global__ void __launch_bounds__(kBf16Threads) dkv_bf16_kernel(BwdArgs a) {
@@ -600,9 +700,6 @@ __global__ void __launch_bounds__(kF32Threads) dkv_f32_kernel(BwdArgs a) {
 }
 
 template <int D>
-int dq_bf16_smem() { return (2 * kDqRows + 2 * kDqKeys) * (D + 8) * 2; }
-
-template <int D>
 int dkv_bf16_smem() {
   return (2 * kDkvKeys + 2 * kDkvRows) * (D + 8) * 2 + 2 * kDkvRows * 4;
 }
@@ -660,11 +757,12 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. head_dim: 64 or 128. strides: the batch,
 // head and sequence strides (in elements) of q, k, v, dout, dq, dk and dv, in
 // that order (21 values; flash_bwd_dq ignores the last six, flash_bwd_dkv
-// those of dq); the head dim must be contiguous. lse and delta: [batch, heads,
-// 1, seq_len] fp32, contiguous. segments: [batch, seq_len] int32 or null.
-// valid_len: 0, or mask keys at positions >= valid_len. Each returns a
-// cudaError_t: the launch's, or cudaErrorInvalidValue for an unsupported
-// dtype, head_dim or shape.
+// those of dq); the head dim must be contiguous (bf16 dq: every stride of q,
+// k, v, dout and dq a multiple of 8 elements, as TMA requires). lse and
+// delta: [batch, heads, 1, seq_len] fp32, contiguous. segments: [batch,
+// seq_len] int32 or null. valid_len: 0, or mask keys at positions >=
+// valid_len. Each returns a cudaError_t: the launch's, or
+// cudaErrorInvalidValue for an unsupported dtype, head_dim, shape or layout.
 int flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
                  const void* v, const void* dout, const void* lse,
                  const void* delta, const void* segments, void* dq, int batch,
@@ -678,15 +776,10 @@ int flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid_bf16((seq_len + kDqRows - 1) / kDqRows, heads, batch);
   const dim3 grid_f32((seq_len + kF32Tile - 1) / kF32Tile, heads, batch);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 1 && head_dim == 128) {
-    err = launch_kernel(dq_bf16_kernel<128>, grid_bf16, kBf16Threads,
-                        dq_bf16_smem<128>(), a, s);
-  } else if (dtype == 1 && head_dim == 64) {
-    err = launch_kernel(dq_bf16_kernel<64>, grid_bf16, kBf16Threads,
-                        dq_bf16_smem<64>(), a, s);
+  if (dtype == 1 && (head_dim == 128 || head_dim == 64)) {
+    err = launch_dq_sm90(a, head_dim, batch, kv_heads, s);
   } else if (dtype == 0 && head_dim == 128) {
     err = launch_kernel(dq_f32_kernel<128>, grid_f32, kF32Threads,
                         dq_f32_smem<128>(), a, s);

@@ -12,44 +12,48 @@
 // causal masking) against 989 TFLOP/s of bf16 tensor cores, and the bytes of
 // q, k, v and o (each read or written once; lse is small) against 3.35 TB/s.
 // With H=32, Hkv=8 that is H*L/(2*(H+Hkv)) = 0.4*L FLOPs per byte under causal
-// masking, against the card's ~295: at the serving prefill shape (L=512) the
-// kernel is bound by bytes, from L of about 740 on by operations.
+// masking, against the card's ~295: the serving prefill (B 4, H 32, Hkv 8,
+// L 512, D 128: 8.6 GFLOP, 42 MB) is bound by bytes, 0.0126 ms; the training
+// shape (B 4, H 16, L 2048, D 128: 68.7 GFLOP) by operations, 0.0695 ms. Only
+// wgmma reaches the bf16 tensor-core rate, and only with its operands fed
+// from shared memory while the previous tile computes.
 //
-// What the design does about it (a first, simple kernel; no TMA, wgmma or warp
-// specialisation yet):
-//   * one block of 4 warps per (b, h, 64-row query tile); each warp owns 16
-//     query rows, which it keeps in registers as mma.sync A fragments, so q is
-//     read from device memory once;
-//   * a loop over 64-key K/V tiles staged in shared memory (16-byte loads,
-//     rows padded by 8 elements so the fragment reads hit 32 distinct banks);
-//   * S = Q K^T and O += P V on the tensor cores with
-//     mma.sync.m16n8k16 bf16 -> fp32; the S accumulator is re-packed in
-//     registers into the A fragment of the P V product, so neither S nor P
-//     nor O ever goes through shared or device memory;
-//   * the online softmax runs in fp32 registers; a row's 16 values of a tile
-//     sit in the 4 lanes of a quad and are reduced with two shuffles;
-//   * under causal masking the K loop stops at the diagonal tile, and query
-//     tiles are launched heaviest first;
-//   * ragged lengths are masked in-kernel: rows past L load as zeros, their
-//     keys are masked and their queries are never stored, so the caller
-//     needs no pad-and-slice.
-// Later work: K/V tiles shared by the H/Hkv q-heads of a group (today each
-// head's block reads them again, from L2), cp.async/TMA double buffering, and
-// wgmma.
+// The bf16 design (flash_sm90.cuh holds the Hopper pieces):
+//   * one block of 384 threads per (b, h, 128-row query tile), heaviest tiles
+//     first: a producer warpgroup, of which one thread issues every TMA load
+//     and the rest give their registers away (setmaxnreg 24), and two
+//     consumer warpgroups (setmaxnreg 240) of 64 query rows each;
+//   * Q is TMA-loaded once; K and V stream through a ring of two stages of
+//     128 keys each (full/empty mbarriers), so loads of the next tiles
+//     overlap the products of this one; the maps read the caller's strided
+//     views in place, and rows past L arrive as zeros;
+//   * S = Q K^T is a wgmma with both operands in shared memory (K-major);
+//     the online softmax runs in fp32 registers, in base 2 with scale*log2(e)
+//     folded into one multiply of the fp32 dot product; P is cast to bf16 in
+//     registers and is the A operand of O += P V, a wgmma with V read
+//     MN-major from the same tile TMA wrote;
+//   * masks run only on the tiles that need them: the tile(s) crossing the
+//     causal diagonal, the tile holding kv_end (valid_len or the ragged L),
+//     and every tile when segments are given, whose key ids are read once
+//     per tile into shared memory; interior tiles skip the test, and the
+//     causal loop stops at the diagonal;
+//   * o = acc / l is written as bf16 over the warpgroup's own Q rows in
+//     shared memory and stored by TMA, which drops rows past L; lse is
+//     stored by the threads that hold it.
+// Shared memory at D 128: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB.
 //
-// The float32 path runs the same tiling and masking with scalar FMAs in
-// shared memory. It exists so that a check on the card can also compare at
-// full precision; it is not tuned.
+// The float32 path runs a 64 x 64 tiling with scalar FMAs in shared memory.
+// It exists so that a check on the card can also compare at full precision;
+// it is not tuned.
 
 #include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;        // query rows per block
-constexpr int kBlockN = 64;        // keys per K/V tile
-constexpr int kBf16Threads = 128;  // 4 warps x 16 query rows
+constexpr int kBlockM = 64;        // float32 path: query rows per block
+constexpr int kBlockN = 64;        // float32 path: keys per K/V tile
 constexpr int kF32Threads = 256;
-static_assert(kBlockM == kBlockN, "one tile loader serves Q, K and V");
 
 struct FwdArgs {
   const void* q;
@@ -83,154 +87,245 @@ __device__ __forceinline__ int num_kv_tiles(const FwdArgs& a, int q0) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
+// bf16: TMA-fed wgmma, one producer thread and two consumer warpgroups
 // ---------------------------------------------------------------------------
 
-template <int D>
-__global__ void __launch_bounds__(kBf16Threads)
-    flash_fwd_bf16_kernel(FwdArgs a) {
-  constexpr int kLd = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + kBlockM * kLd;
-  __nv_bfloat16* sV = sK + kBlockN * kLd;
+constexpr int kFwdKeys = 128;  // keys per K/V tile
+constexpr int kFwdStages = 2;  // K/V tiles in flight
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;  // heaviest first
+struct FwdSm90Params {
+  CUtensorMap q;   // boxes of [128 rows, 64]
+  CUtensorMap k;   // [kFwdKeys rows, 64]
+  CUtensorMap v;   // [kFwdKeys rows, 64]
+  CUtensorMap o;   // [64 rows, 64]: one consumer warpgroup's rows
+  const int* seg;  // [B, L] int32 or null
+  float* lse;      // [B, H, 1, L]
+  int H, L, rep, kv_end, causal;
+  float scale_log2;  // scale * log2(e)
+};
+
+// Byte offsets in the block's shared memory (after aligning it to 1024).
+template <int D>
+struct FwdSmem {
+  static constexpr int kKV = kFwdKeys * D * 2;          // one K or V tile
+  static constexpr int kK = kSm90Rows * D * 2;          // Q (later O) first
+  static constexpr int kV = kK + kFwdStages * kKV;
+  static constexpr int kSeg = kV + kFwdStages * kKV;    // [2 wg][2][keys]
+  static constexpr int kBar = kSeg + 2 * 2 * kFwdKeys * 4;
+  static constexpr int kLaunch = kBar + (1 + 3 * kFwdStages) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+    flash_fwd_sm90_kernel(const __grid_constant__ FwdSm90Params p) {
+  using S = FwdSmem<D>;
+  constexpr int kN = kFwdKeys;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + S::kBar);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + kFwdStages;
+  uint64_t* empty = full_v + kFwdStages;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kSm90Rows;  // heaviest first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int hk = h / a.rep;
-
-  const __nv_bfloat16* q =
-      static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const __nv_bfloat16* k =
-      static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const __nv_bfloat16* v =
-      static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + hk * a.v_sh;
-  const int* seg_b = a.seg ? a.seg + static_cast<long long>(b) * a.L : nullptr;
-
-  load_tile_bf16<D, kBlockN, kBf16Threads>(sQ, q, a.q_sl, q0, a.L, tid);
+  int n_tiles = (p.kv_end + kN - 1) / kN;
+  if (p.causal) {
+    n_tiles = min(n_tiles, (min(q0 + kSm90Rows, p.L) - 1) / kN + 1);
+  }
+  if (threadIdx.x == 0) init_barriers(bar_q, full_k, full_v, empty, kFwdStages);
   __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a_frag(qf[kk], sQ, kLd, warp, kk, g, t);
 
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  int seg_row[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    seg_row[r] = (seg_b != nullptr && rows[r] < a.L) ? seg_b[rows[r]] : -1;
-  }
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
-  }
-  // m is the running row max; l this lane's share of the row sum (the quad's
-  // four shares are added once, at the end).
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-
-  const int n_tiles = num_kv_tiles(a, q0);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBlockN;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_bf16<D, kBlockN, kBf16Threads>(sK, k, a.k_sl, k0, a.L, tid);
-    load_tile_bf16<D, kBlockN, kBf16Threads>(sV, v, a.v_sl, k0, a.L, tid);
-    __syncthreads();
-
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBlockN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-      const __nv_bfloat16* kr = sK + (n * 8 + g) * kLd + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        mma_bf16(s[n], qf[kk], ld_u32(kr + kk * 16), ld_u32(kr + kk * 16 + 8));
-      }
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread keeps the K/V ring full
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, kSm90Rows * D * 2);
+      load_rows<D, kSm90Rows>(smem, &p.q, bar_q, q0, h, b);
+      produce_kv<D, kN, kFwdStages>(smem + S::kK, smem + S::kV, &p.k, &p.v,
+                                    full_k, full_v, empty, n_tiles,
+                                    h / p.rep, b);
     }
-
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < kBlockN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const float x = keep(a, seg_b, rows[r], col, seg_row[r])
-                            ? a.scale * s[n][e]
-                            : kNegInf;
-        s[n][e] = x;
-        mx[r] = fmaxf(mx[r], x);
-      }
-    }
-    float corr[2];
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128 - 1;  // consumer warpgroup: 0 or 1
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int g = (tid % 32) / 4;
+    const int t = tid % 4;
+    const int row0 = q0 + 64 * wg;  // the warpgroup's first query row
+    const int rows[2] = {row0 + 16 * warp + g, row0 + 16 * warp + g + 8};
+    const int* seg_b =
+        p.seg ? p.seg + static_cast<long long>(b) * p.L : nullptr;
+    int seg_row[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = expf(m[r] - mx[r]);
-      m[r] = mx[r];
-      l[r] *= corr[r];
+      seg_row[r] = (seg_b != nullptr && rows[r] < p.L) ? seg_b[rows[r]] : -1;
     }
+    int* seg_keys = reinterpret_cast<int*>(smem + S::kSeg) + wg * 2 * kN;
+
+    float o[D / 2];
 #pragma unroll
-    for (int n = 0; n < kBlockN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        s[n][e] = expf(s[n][e] - mx[r]);
-        l[r] += s[n][e];
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    // m: running row max of scale*log2(e)*s; l: this lane's share of the
+    // row sum (the quad's four shares are added once, at the end)
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};
+    const uint32_t q_tile = smem_u32(smem) + wg * 64 * 128;
+    mbar_wait(bar_q, 0);
+
+    // K/V tiles are as tall as the query tile, so the causal loop reaches
+    // no tile that lies wholly after a warpgroup's rows: every tile computes
+    static_assert(kFwdKeys == kSm90Rows, "no tile is skipped");
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kFwdStages;
+      const uint32_t parity = (j / kFwdStages) & 1;
+      const int k0 = j * kN;
+      const uint32_t k_tile = smem_u32(smem + S::kK + s * S::kKV);
+      const uint32_t v_tile = smem_u32(smem + S::kV + s * S::kKV);
+      const bool masked = seg_b != nullptr || k0 + kN > p.kv_end ||
+                          (p.causal && k0 + kN - 1 > row0);
+      const int* seg_tile = nullptr;
+      if (seg_b != nullptr) {
+        int* buf = seg_keys + (j & 1) * kN;
+        load_key_segments(buf, seg_b, k0, kN, p.L, tid, 1 + wg);
+        seg_tile = buf;
       }
-    }
+      float sc[kN / 2];
+      mbar_wait(&full_k[s], parity);
+      wgmma_fence();
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      o[dn][0] *= corr[0];
-      o[dn][1] *= corr[0];
-      o[dn][2] *= corr[1];
-      o[dn][3] *= corr[1];
+      for (int kk = 0; kk < D / 16; ++kk) {
+        Wgmma<kN>::ss(sc, desc_k_major(q_tile, kSm90Rows, kk),
+                      desc_k_major(k_tile, kN, kk), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(sc);
+
+      // A masked tile is scaled and masked first: y = scale*log2(e)*s, or
+      // -1e30 where masked, and p = exp2(y - m), so a masked key gives
+      // exactly 0 (or 1 in a row with no key kept yet, as in the
+      // reference). An interior tile keeps the raw scores, takes their row
+      // max (scale > 0 commutes with max) and forms p = exp2(s*c - m) in
+      // one FMA; that form would turn -1e30 into the product's rounding
+      // error, so it is used only where nothing is masked.
+      if (masked) {
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i) {
+          const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+          const int r = (i >> 1) & 1;
+          sc[i] = keep_key(col, rows[r], p.kv_end, p.causal,
+                           seg_tile ? seg_tile + (col - k0) : nullptr,
+                           seg_row[r])
+                      ? sc[i] * p.scale_log2
+                      : kNegInf;
+        }
+      }
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) {
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new =
+            fmaxf(m[r], masked ? mx[r] : mx[r] * p.scale_log2);
+        corr[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= corr[r];
+      }
+      if (masked) {
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          sc[i] = exp2f(sc[i] - m[r]);
+          l[r] += sc[i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          sc[i] = exp2f(fmaf(sc[i], p.scale_log2, -m[r]));
+          l[r] += sc[i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      uint32_t pa[kN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) acc_to_a(pa[kk], sc, kk);
+
+      mbar_wait(&full_v[s], parity);
+      fence_operand(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {
+        Wgmma<D>::rs(o, pa[kk], desc_mn_major(v_tile, kN, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(o);
+      fence_operand(pa);
+      mbar_arrive(&empty[s]);
     }
 
-    // O += P V: the S accumulators of key columns [16kk, 16kk+16) are the A
-    // fragment of step kk; V's B fragment pairs two keys of one column.
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pa[4];
-      acc_to_a_frag(pa, s, kk);
-      const __nv_bfloat16* vr = sV + (kk * 16 + 2 * t) * kLd + g;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const __nv_bfloat16* vc = vr + dn * 8;
-        mma_bf16(o[dn], pa, pack_u16(vc, vc + kLd),
-                 pack_u16(vc + 8 * kLd, vc + 9 * kLd));
-      }
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     }
-  }
-
-  __nv_bfloat16* out =
-      static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    if (rows[r] >= a.L) continue;
-    __nv_bfloat16* orow = out + rows[r] * a.o_sl + 2 * t;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      *reinterpret_cast<uint32_t*>(orow + dn * 8) =
-          pack_f32(o[dn][2 * r] / l[r], o[dn][2 * r + 1] / l[r]);
-    }
+    // o = acc / l over the warpgroup's own Q rows, which no wgmma reads
+    store_rows<D>(&p.o, smem + wg * 64 * 128, o, l[0], l[1], tid, 1 + wg,
+                  row0, h, b);
     if (t == 0) {
-      a.lse[(static_cast<long long>(b) * a.H + h) * a.L + rows[r]] =
-          m[r] + logf(l[r]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (rows[r] < p.L) {
+          p.lse[(static_cast<long long>(b) * p.H + h) * p.L + rows[r]] =
+              m[r] * kLn2 + logf(l[r]);
+        }
+      }
     }
   }
+}
+
+// Builds the four tensor maps and launches the bf16 kernel.
+cudaError_t launch_fwd_sm90(int D, const void* q, const void* k, const void* v,
+                            const void* segments, void* o, void* lse,
+                            int batch, int heads, int kv_heads, int seq_len,
+                            int causal, int kv_end, float scale,
+                            const long long* st, cudaStream_t stream) {
+  FwdSm90Params p;
+  const bool mapped =
+      make_tile_map(&p.q, q, D, seq_len, heads, batch, st[2], st[1], st[0],
+                    kSm90Rows) &&
+      make_tile_map(&p.k, k, D, seq_len, kv_heads, batch, st[5], st[4], st[3],
+                    kFwdKeys) &&
+      make_tile_map(&p.v, v, D, seq_len, kv_heads, batch, st[8], st[7], st[6],
+                    kFwdKeys) &&
+      make_tile_map(&p.o, o, D, seq_len, heads, batch, st[11], st[10], st[9],
+                    64);
+  if (!mapped) return cudaErrorInvalidValue;
+  p.seg = static_cast<const int*>(segments);
+  p.lse = static_cast<float*>(lse);
+  p.H = heads;
+  p.L = seq_len;
+  p.rep = heads / kv_heads;
+  p.kv_end = kv_end;
+  p.causal = causal;
+  p.scale_log2 = scale * kLog2e;
+  const dim3 grid((seq_len + kSm90Rows - 1) / kSm90Rows, heads, batch);
+  if (D == 128) {
+    return launch_kernel(flash_fwd_sm90_kernel<128>, grid, kSm90Threads,
+                         FwdSmem<128>::kLaunch, p, stream);
+  }
+  return launch_kernel(flash_fwd_sm90_kernel<64>, grid, kSm90Threads,
+                       FwdSmem<64>::kLaunch, p, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -340,16 +435,6 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(FwdArgs a) {
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int threads, int smem, const FwdArgs& a,
-                   int batch, cudaStream_t stream) {
-  const dim3 grid((a.L + kBlockM - 1) / kBlockM, a.H, batch);
-  return launch_kernel(kernel, grid, threads, smem, a, stream);
-}
-
-template <int D>
-int bf16_smem() { return 3 * kBlockM * (D + 8) * 2; }
-
 template <int D>
 int f32_smem() {
   return (kBlockM * D + kBlockN * (D + 1) + kBlockN * D +
@@ -362,19 +447,29 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. head_dim: 64 or 128. strides: the batch,
 // head and sequence strides (in elements) of q, k, v and o, in that order;
-// the head dim must be contiguous. segments: [batch, seq_len] int32 or null.
+// the head dim must be contiguous (bf16: every stride a multiple of 8
+// elements, as TMA requires). segments: [batch, seq_len] int32 or null.
 // valid_len: 0, or mask keys at positions >= valid_len. Returns a
 // cudaError_t: the launch's, or cudaErrorInvalidValue for an unsupported
-// dtype or head_dim.
+// dtype, head_dim or layout.
 int flash_fwd(int dtype, int head_dim, const void* q, const void* k,
               const void* v, const void* segments, void* o, void* lse,
               int batch, int heads, int kv_heads, int seq_len, int causal,
               int valid_len, float scale, const long long* strides,
               void* stream) {
   if (heads <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || seq_len <= 0 ||
-      batch <= 0 || valid_len < 0 || valid_len > seq_len) {
+      batch <= 0 || valid_len < 0 || valid_len > seq_len ||
+      (head_dim != 64 && head_dim != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int kv_end = valid_len > 0 ? valid_len : seq_len;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    return static_cast<int>(launch_fwd_sm90(
+        head_dim, q, k, v, segments, o, lse, batch, heads, kv_heads, seq_len,
+        causal, kv_end, scale, strides, s));
+  }
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   FwdArgs a;
   a.q = q;
   a.k = k;
@@ -385,24 +480,19 @@ int flash_fwd(int dtype, int head_dim, const void* q, const void* k,
   a.H = heads;
   a.L = seq_len;
   a.rep = heads / kv_heads;
-  a.kv_end = valid_len > 0 ? valid_len : seq_len;
+  a.kv_end = kv_end;
   a.causal = causal;
   a.scale = scale;
   a.q_sb = strides[0]; a.q_sh = strides[1]; a.q_sl = strides[2];
   a.k_sb = strides[3]; a.k_sh = strides[4]; a.k_sl = strides[5];
   a.v_sb = strides[6]; a.v_sh = strides[7]; a.v_sl = strides[8];
   a.o_sb = strides[9]; a.o_sh = strides[10]; a.o_sl = strides[11];
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 1 && head_dim == 128) {
-    err = launch(flash_fwd_bf16_kernel<128>, kBf16Threads, bf16_smem<128>(), a, batch, s);
-  } else if (dtype == 1 && head_dim == 64) {
-    err = launch(flash_fwd_bf16_kernel<64>, kBf16Threads, bf16_smem<64>(), a, batch, s);
-  } else if (dtype == 0 && head_dim == 128) {
-    err = launch(flash_fwd_f32_kernel<128>, kF32Threads, f32_smem<128>(), a, batch, s);
-  } else if (dtype == 0 && head_dim == 64) {
-    err = launch(flash_fwd_f32_kernel<64>, kF32Threads, f32_smem<64>(), a, batch, s);
-  }
+  const dim3 grid((seq_len + kBlockM - 1) / kBlockM, heads, batch);
+  cudaError_t err = head_dim == 128
+      ? launch_kernel(flash_fwd_f32_kernel<128>, grid, kF32Threads,
+                      f32_smem<128>(), a, s)
+      : launch_kernel(flash_fwd_f32_kernel<64>, grid, kF32Threads,
+                      f32_smem<64>(), a, s);
   return static_cast<int>(err);
 }
 

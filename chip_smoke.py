@@ -8,16 +8,19 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
 1. environment and build: the card's name and power limit, TF32 off, every
    kernel source under ``tpu_on_k8s_torch/ops/csrc/`` built with nvcc (one
    process per source, all at once), with each kernel's registers and
-   spills, and the count of ``HGMMA`` (wgmma) instructions that
-   ``cuobjdump --dump-sass`` finds in each flash kernel: the bf16 forward
-   and dq kernels must have some;
+   spills, and the count of wgmma instructions (``HGMMA`` for bf16,
+   ``IGMMA`` for int8) that ``cuobjdump --dump-sass`` finds in each Hopper
+   kernel, with the highest register it names: the bf16 forward, dq and
+   dk/dv kernels and the int8 GEMM must have some;
 2. each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes: the flash forward and the two
-   backward kernels (dq, dk/dv) within stated tolerances, the forward and
-   dq also at the Hopper kernels' tile edges (L 127-129, 255, 2047; D 64
-   and 128; valid_len 129; segments crossing a 128-row tile) and launched
-   twice on the same inputs, which must agree bit for bit; the int8 GEMM
-   (also against ``torch._int_mm``), the quantize and the dequantize
+   backward kernels (dq, dk/dv) within stated tolerances, all three also
+   at the Hopper kernels' tile edges (L 63-65, 127-129, 255, 2047; D 64
+   and 128; GQA rep 1, 2, 4; valid_len 129; segments crossing a 128-row
+   tile) and launched twice on the same inputs, which must agree bit for
+   bit; the int8 GEMM (also against ``torch._int_mm``) at the training
+   shapes and at its tile edges (M 1-8192, N 129/257, K 16-2064, and a K
+   that takes the byte-wise path), the quantize and the dequantize
    kernels bit for bit;
 3. serving: ``generate`` at ``llama2_7b`` width (32 layers, bf16, random
    weights from a seed) answers a greedy batch-4 request and a sampled
@@ -51,6 +54,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -121,19 +125,29 @@ QUANT_CASES = [(4096, 4096, torch.bfloat16), (1024, 4096, torch.bfloat16),
 DEQUANT_CASES = [(5632, 2048, torch.float32), (32000, 2048, torch.float32),
                  (2048, 32000, torch.float32), (333, 1001, torch.bfloat16),
                  (333, 1001, torch.float32)]
-# The bf16 flash forward and dq kernels at their tile edges (128-row query
-# tiles; K/V tiles of 128 keys in the forward, 64 in dq): (h, hkv, l, d,
-# causal, valid_len, segments), batch 1; "tile" segments are cut at rows
-# 120 and 136, across the 128-row boundary.
-EDGE_CASES = ([(4, 2, l, d, True, 0, None) for d in (64, 128)
-               for l in (127, 128, 129, 255, 2047)]
+# The bf16 flash kernels at their tile edges (128-row query tiles and K/V
+# tiles of 128 keys in the forward; 128-row query tiles and 64-key tiles in
+# dq; 128-key tiles and 64-row query tiles in dk/dv), with 4 q-heads on 4, 2
+# and 1 kv heads: (h, hkv, l, d, causal, valid_len, segments), batch 1;
+# "tile" segments are cut at rows 120 and 136, across the 128-row boundary.
+EDGE_CASES = ([(4, hkv, l, d, True, 0, None) for d in (64, 128)
+               for l in (63, 64, 65, 127, 128, 129, 255, 2047)
+               for hkv in (4, 2, 1)]
               + [(4, 1, 255, d, True, 129, None) for d in (64, 128)]
               + [(4, 2, 255, d, True, 0, "tile") for d in (64, 128)]
               + [(4, 4, 300, d, False, 0, "tile") for d in (64, 128)])
-# the kernels whose SASS must hold wgmma (HGMMA) instructions:
+# The int8 GEMM at its tile edges (128 x 256 output tiles, 128-byte K
+# tiles), fp32 and bf16 out: (m, n, k, out); K 40 takes the byte-wise path.
+INT8_EDGE_CASES = ([(m, n, k, out) for m in (1, 127, 129, 8192)
+                    for n in (129, 257) for k in (16, 48, 2064)
+                    for out in (torch.float32, torch.bfloat16)]
+                   + [(129, 257, 40, torch.bfloat16)])
+# the kernels whose SASS must hold wgmma (HGMMA, IGMMA) instructions:
 # (library, kernel function name)
 WGMMA_KERNELS = (("flash_fwd", "flash_fwd_sm90_kernel"),
-                 ("flash_bwd", "dq_sm90_kernel"))
+                 ("flash_bwd", "dq_sm90_kernel"),
+                 ("flash_bwd", "dkv_sm90_kernel"),
+                 ("int8_matmul", "int8_matmul_sm90_kernel"))
 
 
 def fail(msg: str) -> None:
@@ -149,24 +163,28 @@ def gpu_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def hgmma_counts(lib) -> dict:
-    """``HGMMA`` instructions per kernel function in the SASS of a built
-    library, read with ``cuobjdump --dump-sass`` from the toolkit of the
-    nvcc that built it."""
+def sass_stats(lib) -> dict:
+    """Per kernel function in the SASS of a built library, read with
+    ``cuobjdump --dump-sass`` from the toolkit of the nvcc that built it:
+    (wgmma instructions, ``HGMMA`` or ``IGMMA``; the highest register
+    ``R<n>`` it names). A consumer branch that names registers past the
+    launch's count runs on what ``setmaxnreg`` gave it."""
     from tpu_on_k8s_torch.ops import _build
 
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    counts, fn = {}, None
+    stats, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HGMMA" in line:
-            counts[fn] += 1
-    return counts
+            stats[fn] = [0, -1]
+        elif fn is not None:
+            stats[fn][0] += "HGMMA" in line or "IGMMA" in line
+            regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
+            stats[fn][1] = max([stats[fn][1], *regs])
+    return {fn: tuple(v) for fn, v in stats.items()}
 
 
 def time_ms(fn, iters: int = 20, reps: int = 7) -> float:
@@ -342,6 +360,24 @@ def check_int8_kernels(i8, qz, randn, misses: list) -> dict:
         if not ok:
             misses.append(label)
         del xq, wq, got, plain, lib
+    edge_same = 0
+    for m, n, k, out in INT8_EDGE_CASES:
+        xq, sx = i8._quant_rows(randn(m, k))
+        wq, sw = i8._quant_rows(randn(n, k) * 0.02)
+        got = i8.int8_matmul_kernel(xq, sx, wq, sw, out)
+        plain = i8.int8_matmul_plain(xq, sx, wq, sw, out)
+        torch.cuda.synchronize()
+        err = (got.float() - plain.float()).abs().max().item()
+        errs["int8_matmul"] = max(errs["int8_matmul"], err)
+        if torch.equal(got, plain):
+            edge_same += 1
+        else:
+            misses.append(f"int8_matmul M={m} N={n} K={k} out "
+                          f"{dtype_name(out)}: max|kernel-plain| {err:.3e}")
+    print(f"[kernel] int8_matmul at its tile edges (M 1/127/129/8192, N "
+          f"129/257, K 16/48/2064, fp32 and bf16 out; K 40 byte-wise): "
+          f"bit-identical to plain in {edge_same} of {len(INT8_EDGE_CASES)} "
+          f"{'ok' if edge_same == len(INT8_EDGE_CASES) else 'MISS'}")
     for r, c, dtype in QUANT_CASES:
         x = randn(r, c, dtype=dtype) * 0.02
         values, scales = qz.quantize_int8(x, seed=W8_SEED)
@@ -557,13 +593,16 @@ def main() -> int:
             if ("registers" in line or "spill" in line or "Compiling" in line
                     or "wgmma" in line or "setmaxnreg" in line):
                 print(f"[build] {name}: {line.strip()}")
+    stats = {name: sass_stats(paths[name])
+             for name in {lib for lib, _ in WGMMA_KERNELS}}
     for name, kernel in WGMMA_KERNELS:
-        found = {fn: n for fn, n in hgmma_counts(paths[name]).items()
-                 if kernel in fn}
-        for fn, n in found.items():
-            print(f"[build] {name}: {n} HGMMA instructions in {fn}")
-        if not found or not all(found.values()):
-            fail(f"{kernel} holds no wgmma (HGMMA) instructions: {found}")
+        found = {fn: v for fn, v in stats[name].items() if kernel in fn}
+        for fn, (n, top) in found.items():
+            print(f"[build] {name}: {n} wgmma (HGMMA/IGMMA) instructions, "
+                  f"highest register R{top}, in {fn}")
+        if not found or not all(n for n, _ in found.values()):
+            fail(f"{kernel} holds no wgmma (HGMMA/IGMMA) instructions: "
+                 f"{found}")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -704,41 +743,49 @@ def main() -> int:
         if not ok:
             misses.append(f"flash_bwd {label}")
         del q, k, v, do, o, lse, got, want, delta
-    # the bf16 forward and dq kernels at their tile edges, each launched
-    # twice on the same inputs: the two results must be bit-identical
+    # the bf16 forward, dq and dk/dv kernels at their tile edges, each
+    # launched twice on the same inputs: the two results must be
+    # bit-identical
+    tol_o, tol_lse = TOL[torch.bfloat16]
+    tol_bwd = BWD_REL_TOL[torch.bfloat16]
     for h, hkv, l, d, causal, valid, seg_kind in EDGE_CASES:
         q, k, v = qkv(1, h, hkv, l, d, torch.bfloat16)
         do = randn(1, h, l, d)
         seg = segments_across_tile(1, l) if seg_kind else None
-        o, lse = fa.flash_with_lse_fwd(q, k, v, causal, valid, seg)
-        o2, lse2 = fa.flash_with_lse_fwd(q, k, v, causal, valid, seg)
-        po, plse = fa.flash_attention_plain(q, k, v, causal, valid, seg)
+        args = (causal, valid, seg)
+        o, lse = fa.flash_with_lse_fwd(q, k, v, *args)
+        o2, lse2 = fa.flash_with_lse_fwd(q, k, v, *args)
+        po, plse = fa.flash_attention_plain(q, k, v, *args)
         delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
-        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, valid, seg)
-        dq2 = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, valid, seg)
-        pdq = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, valid,
-                                    seg)
+        grads = (fa.flash_bwd_dq(q, k, v, do, lse, delta, *args),
+                 *fa.flash_bwd_dkv(q, k, v, do, lse, delta, *args))
+        again = (fa.flash_bwd_dq(q, k, v, do, lse, delta, *args),
+                 *fa.flash_bwd_dkv(q, k, v, do, lse, delta, *args))
+        plain = (fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, *args),
+                 *fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, *args))
         torch.cuda.synchronize()
         err_o = (o.float() - po.float()).abs().max().item()
         err_lse = (lse - plse).abs().max().item()
-        err_dq = (dq.float() - pdq.float()).abs().max().item()
-        rel_dq = err_dq / pdq.float().abs().max().item()
+        errs = [(a.float() - w.float()).abs().max().item()
+                for a, w in zip(grads, plain)]
+        rels = [e / w.float().abs().max().item()
+                for e, w in zip(errs, plain)]
         same = (torch.equal(o, o2) and torch.equal(lse, lse2)
-                and torch.equal(dq, dq2))
-        tol_o, tol_lse = TOL[torch.bfloat16]
+                and all(map(torch.equal, grads, again)))
         ok = (err_o <= tol_o and err_lse <= tol_lse
-              and rel_dq <= BWD_REL_TOL[torch.bfloat16] and same
+              and max(rels) <= tol_bwd and same
               and bool(torch.isfinite(o).all())
-              and bool(torch.isfinite(dq).all()))
+              and all(bool(torch.isfinite(g).all()) for g in grads))
         bf16_err = max(bf16_err, err_o)
-        bwd_err["dq"] = max(bwd_err["dq"], err_dq)
+        bwd_err["dq"] = max(bwd_err["dq"], errs[0])
+        bwd_err["dkv"] = max(bwd_err["dkv"], *errs[1:])
         label = (f"edge B=1 H={h} Hkv={hkv} L={l} D={d} bf16 causal={causal} "
                  f"valid_len={valid} segments={seg_kind}")
-        print(f"[kernel] flash_fwd + flash_bwd_dq {label}: max|o-plain| "
-              f"{err_o:.3e} max|lse-plain| {err_lse:.3e} dq rel {rel_dq:.2e} "
-              f"(tols {tol_o:g}, {tol_lse:g}, {BWD_REL_TOL[torch.bfloat16]:g}"
-              f"); two launches bit-identical {same} "
-              f"{'ok' if ok else 'MISS'}")
+        print(f"[kernel] flash_fwd + flash_bwd_dq + flash_bwd_dkv {label}: "
+              f"max|o-plain| {err_o:.3e} max|lse-plain| {err_lse:.3e} rel "
+              f"dq {rels[0]:.2e} dk {rels[1]:.2e} dv {rels[2]:.2e} (tols "
+              f"{tol_o:g}, {tol_lse:g}, {tol_bwd:g}); two launches "
+              f"bit-identical {same} {'ok' if ok else 'MISS'}")
         if not ok:
             misses.append(label)
     # determinism at the training shape, where every block runs many tiles
@@ -749,9 +796,11 @@ def main() -> int:
     delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
     same = (torch.equal(o, o2) and torch.equal(lse, lse2) and torch.equal(
         fa.flash_bwd_dq(q, k, v, do, lse, delta, True),
-        fa.flash_bwd_dq(q, k, v, do, lse, delta, True)))
-    print(f"[kernel] flash_fwd + flash_bwd_dq B={TRAIN_BATCH} H=16 "
-          f"L={TRAIN_SEQ} D=128 bf16 causal: two launches bit-identical "
+        fa.flash_bwd_dq(q, k, v, do, lse, delta, True)) and all(map(
+            torch.equal, fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+            fa.flash_bwd_dkv(q, k, v, do, lse, delta, True))))
+    print(f"[kernel] flash_fwd + flash_bwd_dq + flash_bwd_dkv B={TRAIN_BATCH} "
+          f"H=16 L={TRAIN_SEQ} D=128 bf16 causal: two launches bit-identical "
           f"{same} {'ok' if same else 'MISS'}")
     if not same:
         misses.append("determinism at the training shape")

@@ -155,6 +155,44 @@ def test_grads_masks_match_pallas_at_kernel_tiles(d, mask):
                   _jax_grads(q, k, v, g, True, **kw), FP32_ATOL)
 
 
+# The dk/dv kernel's own tiles: 128-key blocks of two 64-key warpgroups,
+# 64-row query tiles, the q-heads of a GQA group summed in order. L 127-129
+# and 255 around those edges, rep 1, 2 and 4; the twin it is held against
+# on the card, called directly, against the Pallas _dkv_kernel.
+def _port_dkv(q, k, v, g, causal, valid_len=0, segments=None):
+    qt, kt, vt, gt = (torch.from_numpy(x) for x in (q, k, v, g))
+    seg = None if segments is None else torch.from_numpy(segments)
+    o, lse = pfa.flash_with_lse_fwd(qt, kt, vt, causal, valid_len, seg)
+    delta = (gt * o).sum(-1)[:, :, None, :]
+    return [t.numpy() for t in pfa.flash_bwd_dkv(qt, kt, vt, gt, lse, delta,
+                                                 causal, valid_len, seg)]
+
+
+def _assert_dkv_close(got, want):
+    for name, a, b in zip(("dk", "dv"), got, want):
+        np.testing.assert_allclose(a, b, atol=FP32_ATOL, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("rep", [1, 2, 4])
+@pytest.mark.parametrize("l", [127, 128, 129, 255])
+def test_dkv_twin_matches_pallas_at_dkv_tiles(l, rep):
+    q, k, v, g, _ = _inputs(1, 4, 4 // rep, l, 64, seed=10)
+    _assert_dkv_close(_port_dkv(q, k, v, g, True),
+                      _jax_grads(q, k, v, g, True)[1:])
+
+
+@pytest.mark.parametrize("rep", [1, 2, 4])
+@pytest.mark.parametrize("mask", ["valid_len", "segments"])
+def test_dkv_twin_masks_match_pallas_at_dkv_tiles(mask, rep):
+    """valid_len 129 (one key past a 128-key block) and segments cut across
+    key row 128, at L 255."""
+    q, k, v, g, _ = _inputs(1, 4, 4 // rep, 255, 64, seed=11)
+    kw = (dict(valid_len=129) if mask == "valid_len"
+          else dict(segments=_segments_across_tile(1, 255)))
+    _assert_dkv_close(_port_dkv(q, k, v, g, True, **kw),
+                      _jax_grads(q, k, v, g, True, **kw)[1:])
+
+
 @pytest.mark.parametrize("d", [64, 128])
 def test_bf16_grads_near_pallas_at_kernel_tiles(d):
     q, k, v, g, _ = _inputs(1, 4, 1, 257, d, seed=9)

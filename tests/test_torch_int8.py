@@ -88,6 +88,21 @@ def test_forward_is_bit_identical_to_jax(impl, out, xshape, n, tiles):
     np.testing.assert_array_equal(_np(got), _np(want))
 
 
+# The Hopper GEMM's edges (128 x 256 output tiles, 128-byte K tiles; K 40
+# takes its byte-wise path): the CPU twin against the JAX pallas route, which
+# falls back to XLA where its tiles do not cover the shape.
+@pytest.mark.parametrize("k", [16, 48, 40])
+@pytest.mark.parametrize("n", [129, 257])
+@pytest.mark.parametrize("m", [1, 129])
+def test_forward_is_bit_identical_to_jax_at_kernel_edges(m, n, k):
+    jx, tx = _bf16_pair((m, k), 5)
+    jw, tw = _bf16_pair((k, n), 6, 0.05)
+    want = jint8.int8_matmul_pallas(jx, jw, jnp.bfloat16)
+    got = pint8.int8_matmul_pallas(tx, tw.t(), torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (m, n)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
 def test_quantizers_are_bit_identical_to_jax():
     jx, tx = _bf16_pair((64, 256), 2)
     jq, js = jint8._quant_rows(jx)

@@ -170,9 +170,37 @@ def test_sm90_kernels_at_tile_edges(cuda, d, l, hkv, causal, valid,
     assert _rel_err(dq, pdq) <= BWD_REL_TOL[torch.bfloat16]
 
 
+# The bf16 dk/dv kernel at its tile edges: 128-key blocks of two 64-key
+# warpgroups, 64-row query tiles, the q-heads of a GQA group (rep 1, 2, 4)
+# summed in order in bf16.
+@pytest.mark.parametrize("d, l, hkv, valid, segmented", [
+    *[(d, l, hkv, 0, False) for d in (64, 128)
+      for l in (63, 64, 65, 127, 128, 129, 255, 2047) for hkv in (4, 2, 1)],
+    *[(d, 255, hkv, 129, False) for d in (64, 128) for hkv in (4, 1)],
+    *[(d, 255, hkv, 0, True) for d in (64, 128) for hkv in (4, 2)],
+])
+def test_dkv_kernel_at_tile_edges(cuda, d, l, hkv, valid, segmented):
+    q, k, v = _qkv(1, 4, hkv, l, d, torch.bfloat16)
+    do = _qkv(1, 4, 4, l, d, torch.bfloat16, seed=7)[0]
+    seg = _segments_across_tile(1, l) if segmented else None
+    o, lse = fa.flash_with_lse_fwd(q, k, v, True, valid, seg)
+    delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
+    before = fa.dkv_launches
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, valid, seg)
+    again = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, valid, seg)
+    pdk, pdv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True, valid,
+                                      seg)
+    torch.cuda.synchronize()
+    assert fa.dkv_launches == before + 2
+    assert _rel_err(dk, pdk) <= BWD_REL_TOL[torch.bfloat16]
+    assert _rel_err(dv, pdv) <= BWD_REL_TOL[torch.bfloat16]
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+
+
 @pytest.mark.parametrize("l, segmented", [(2048, False), (255, True)])
 def test_sm90_kernels_repeat_bit_for_bit(cuda, l, segmented):
-    """No atomics: two launches on the same inputs agree to the bit."""
+    """No atomics: two launches of the forward, dq and dk/dv kernels on the
+    same inputs agree to the bit."""
     q, k, v = _qkv(2, 16, 16, l, 128, torch.bfloat16)
     do = _qkv(2, 16, 16, l, 128, torch.bfloat16, seed=7)[0]
     seg = _segments_across_tile(2, l) if segmented else None
@@ -181,7 +209,9 @@ def test_sm90_kernels_repeat_bit_for_bit(cuda, l, segmented):
         o, lse = fa.flash_with_lse_fwd(q, k, v, True, 0, seg)
         delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
         runs.append((o, lse, fa.flash_bwd_dq(q, k, v, do, lse, delta, True,
-                                             0, seg)))
+                                             0, seg),
+                     *fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, 0,
+                                       seg)))
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
@@ -231,6 +261,22 @@ def test_int8_kernel_matches_plain_bit_for_bit(cuda, m, n, k, out):
     torch.cuda.synchronize()
     assert i8.launches == before + 1
     assert got.dtype == out and got.shape == (m, n)
+    assert torch.equal(got, want)
+
+
+# The wgmma GEMM's edges: 128 x 256 output tiles and 128-byte K tiles,
+# decode's M of 1; K 40 takes the byte-wise path.
+@pytest.mark.parametrize("m, n, k, out", [
+    *[(m, n, k, out) for m in (1, 127, 129, 8192) for n in (129, 257)
+      for k in (16, 48, 2064) for out in (torch.float32, torch.bfloat16)],
+    (129, 257, 40, torch.bfloat16),
+])
+def test_int8_kernel_at_tile_edges(cuda, m, n, k, out):
+    xq, sx = i8._quant_rows(_normal_cuda((m, k), 7))
+    wq, sw = i8._quant_rows(_normal_cuda((n, k), 8, scale=0.05))
+    got = i8.int8_matmul_kernel(xq, sx, wq, sw, out)
+    want = i8.int8_matmul_plain(xq, sx, wq, sw, out)
+    torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 

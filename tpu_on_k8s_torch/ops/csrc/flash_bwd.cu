@@ -16,8 +16,8 @@
 // [B,H,1,L] fp32. Any batch/head/sequence strides with a contiguous head dim.
 // Ragged L is masked in the kernel: rows past L load as zeros, are masked as
 // queries and as keys, and are never stored, so padded query rows contribute
-// exactly zero to dk/dv. No atomics: every output element is written by one
-// thread, so the result is the same from run to run.
+// exactly zero to dk/dv. No atomics: every output element is written once,
+// so the result is the same from run to run.
 //
 // What bounds them on an H100 SXM: dq does three products over the kept
 // (query, key) pairs (QK^T, dO V^T, dS K: 6*B*H*D*pairs FLOPs) and dk/dv four
@@ -46,18 +46,30 @@
 //     written as bf16 over the warpgroup's Q rows in shared memory and stored
 //     by TMA (rows past L dropped). Shared memory at D 128: Q and dO 64 KB +
 //     3 x (K 16 KB + V 16 KB) = 160 KB.
-//   * dk/dv (bf16, mma.sync m16n8k16; its Hopper redesign comes next): one
-//     block of 4 warps per (b, kv head, 64-key tile); each warp owns
-//     16 keys and computes S^T = K Q^T and dP^T = V dO^T directly in the
-//     transposed orientation, so P^T and dS^T are A fragments of dV += P^T dO
-//     and dK += dS^T Q without a transpose. The dk and dv accumulators of 16
-//     keys x D take D/2 + D/2 fp32 registers a thread (128 at D = 128), so the
-//     query tiles are 32 rows wide to leave room for S^T and dP^T (16 + 16).
-//     The loop runs over the group's q-heads and, for each, over the query
-//     tiles that attend into the key tile (from the diagonal on, under causal
-//     masking). After each q-head its fp32 sums are cast to the output type
-//     and added, in that type, to what the earlier q-heads stored (each thread
-//     reads back only what it wrote).
+//   * dk/dv (bf16, the same pieces): one block of 384 threads per (b, kv
+//     head, 128-key tile), heaviest tiles first: a producer thread and two
+//     consumer warpgroups of 64 keys each. K and V are TMA-loaded once and
+//     stay in shared memory. Tiles of 64 query rows of Q and dO (by TMA)
+//     stream through a ring of two stages at D 128, four at D 64, across
+//     the group's q-heads r = 0..rep-1 and, within each, the query tiles
+//     from the diagonal on; the producer never waits at a head boundary.
+//     Each consumer warpgroup reads the tiles' lse, delta and query segment
+//     ids itself into two shared-memory buffers, the next tile's while this
+//     one computes (one warpgroup barrier a tile). S^T = K Q^T
+//     and dP^T = V dO^T are wgmmas with both operands in shared memory (keys
+//     as rows, so lse and delta index the accumulator's columns); P^T =
+//     exp(S^T_masked - lse) and dS^T = P^T * (dP^T - delta) * scale are cast
+//     to bf16 in registers and are the A operands of dV += P^T dO and dK +=
+//     dS^T Q, wgmmas reading dO and Q MN-major (dV runs while dS^T is
+//     computed). The dk and dv accumulators take D/2 + D/2 fp32 registers a
+//     thread. Masks run only on tiles that cross the causal diagonal,
+//     kv_end or L, or on every tile with segments (key ids read once per
+//     block); a warpgroup skips the products of tiles wholly above its keys.
+//     After each q-head the fp32 sums are cast to bf16 and added, in bf16,
+//     to the earlier q-heads' sums in shared memory (r = 0..rep-1 in order,
+//     as _dkv_kernel's `dk_ref += dk.astype(dtype)`); the last is stored by
+//     TMA. Shared memory at D 128: K and V 64 KB + 2 x (Q 16 KB + dO 16 KB)
+//     + the two sums 64 KB = 192 KB.
 // The float32 paths run a 64 x 64 tiling with scalar FMAs in shared memory.
 // They exist so that a check on the card can also compare at full
 // precision; they are not tuned.
@@ -67,11 +79,8 @@
 
 namespace {
 
-constexpr int kBf16Threads = 128;  // dk/dv: 4 warps x 16 keys
 constexpr int kF32Threads = 256;
-constexpr int kDkvKeys = 64;       // dk/dv: keys per block
-constexpr int kDkvRows = 32;       // dk/dv (bf16): query rows per Q/dO tile
-constexpr int kF32Tile = 64;       // float32 path: every tile is 64 rows
+constexpr int kF32Tile = 64;  // float32 path: every tile is 64 rows
 
 struct BwdArgs {
   const void* q;
@@ -130,19 +139,8 @@ __device__ __forceinline__ float row_stat(const float* stat, int b, int h,
                    : 0.f;
 }
 
-// out += round(x) in the output type, rounding the sum once more, as
-// `ref[...] += x.astype(ref.dtype)` does; the first q-head stores round(x).
-__device__ __forceinline__ void store_or_add(__nv_bfloat16* p, float x0,
-                                             float x1, bool first) {
-  __nv_bfloat162 x = __floats2bfloat162_rn(x0, x1);
-  if (!first) {
-    const float2 old = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(p));
-    const float2 add = __bfloat1622float2(x);
-    x = __floats2bfloat162_rn(old.x + add.x, old.y + add.y);
-  }
-  *reinterpret_cast<__nv_bfloat162*>(p) = x;
-}
-
+// out += x, as `ref[...] += x.astype(ref.dtype)` does; the first q-head
+// stores x.
 __device__ __forceinline__ void store_or_add(float* p, float x, bool first) {
   *p = first ? x : *p + x;
 }
@@ -358,149 +356,370 @@ cudaError_t launch_dq_sm90(const BwdArgs& a, int D, int batch, int kv_heads,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dk/dv: tensor cores through mma.sync
+// bf16 dk/dv: TMA-fed wgmma, one producer thread and two consumer warpgroups
 // ---------------------------------------------------------------------------
 
-template <int D>
-__global__ void __launch_bounds__(kBf16Threads) dkv_bf16_kernel(BwdArgs a) {
-  constexpr int kLd = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + kDkvKeys * kLd;
-  __nv_bfloat16* sQ = sV + kDkvKeys * kLd;
-  __nv_bfloat16* sDo = sQ + kDkvRows * kLd;
-  float* sLse = reinterpret_cast<float*>(sDo + kDkvRows * kLd);
-  float* sDelta = sLse + kDkvRows;
+constexpr int kDkvKeys = 128;  // keys per block: 2 consumer warpgroups x 64
+constexpr int kDkvRows = 64;   // query rows per Q/dO tile of the ring
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+// Q/dO tiles in flight: two at D 128 (the ring, K, V and the two running sums
+// take 192 KB), four at D 64.
+template <int D>
+constexpr int dkv_stages() {
+  return D == 128 ? 2 : 4;
+}
+
+struct DkvSm90Params {
+  CUtensorMap q;      // boxes of [kDkvRows rows, 64]
+  CUtensorMap dout;   // [kDkvRows rows, 64]
+  CUtensorMap k;      // [kDkvKeys rows, 64]
+  CUtensorMap v;      // [kDkvKeys rows, 64]
+  CUtensorMap dk;     // [64 rows, 64]: one consumer warpgroup's keys
+  CUtensorMap dv;     // [64 rows, 64]
+  const float* lse;    // [B, H, 1, L]
+  const float* delta;  // [B, H, 1, L]
+  const int* seg;      // [B, L] int32 or null
+  int H, L, rep, kv_end, causal;
+  float scale;
+  float scale_log2;  // scale * log2(e)
+};
+
+// Byte offsets in the block's shared memory (after aligning it to 1024).
+template <int D>
+struct DkvSmem {
+  static constexpr int kStages = dkv_stages<D>();
+  static constexpr int kKV = kDkvKeys * D * 2;   // the K or V tile
+  static constexpr int kTile = kDkvRows * D * 2;  // one Q or dO tile
+  static constexpr int kK = 0;
+  static constexpr int kV = kKV;
+  static constexpr int kQ = 2 * kKV;                    // [stages] Q tiles
+  static constexpr int kDo = kQ + kStages * kTile;      // [stages] dO tiles
+  static constexpr int kSumK = kDo + kStages * kTile;   // dK of the q-heads
+  static constexpr int kSumV = kSumK + kKV;             // dV of the q-heads
+  // per consumer warpgroup, two buffers of a query tile's lse (base 2),
+  // delta and segment ids: [2 wg][2][3][kDkvRows] 4-byte words
+  static constexpr int kStats = kSumV + kKV;
+  static constexpr int kBar = kStats + 2 * 2 * 3 * kDkvRows * 4;
+  static constexpr int kLaunch = kBar + (1 + 2 * kStages) * 8 + 1024;
+};
+
+// A consumer warpgroup's fp32 [64, D] sum over one q-head, rounded to bf16
+// and added, in bf16, to the sum of the earlier q-heads in its 64 rows of a
+// 128-row swizzled tile at `tile` (row 0 of the warpgroup, column block 0);
+// the first q-head stores its rounded sum. `ref[...] += x.astype(dtype)` of
+// the reference. Each thread reads back only the elements it wrote.
+template <int D>
+__device__ __forceinline__ void add_head(unsigned char* tile,
+                                         const float (&acc)[D / 2],
+                                         bool first, int tid) {
+  const int r0 = 16 * (tid / 32) + (tid % 32) / 4;
+  const int t = tid % 4;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    unsigned char* block = tile + (j / 8) * kDkvKeys * 128;
+    const int col = (j % 8) * 8 + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(
+          block + swizzle128(r0 + 8 * half, col));
+      __nv_bfloat162 x = __floats2bfloat162_rn(acc[4 * j + 2 * half],
+                                               acc[4 * j + 2 * half + 1]);
+      if (!first) {
+        const float2 old = __bfloat1622float2(*p);
+        const float2 add = __bfloat1622float2(x);
+        x = __floats2bfloat162_rn(old.x + add.x, old.y + add.y);
+      }
+      *p = x;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+    dkv_sm90_kernel(const __grid_constant__ DkvSm90Params p) {
+  using S = DkvSmem<D>;
+  constexpr int kStages = S::kStages;
+  constexpr int kM = kDkvRows;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + S::kBar);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + kStages;
+
   const int k0 = blockIdx.x * kDkvKeys;  // under causal masking, heaviest first
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
-  const int* seg_b = a.seg ? a.seg + static_cast<long long>(b) * a.L : nullptr;
+  // the query tiles that attend into keys [k0, k0 + 128), for each q-head of
+  // the group: from the diagonal on under causal masking, none when no key of
+  // the block is valid
+  const int i_begin = p.causal ? k0 / kM : 0;
+  const int i_end = k0 < p.kv_end ? (p.L + kM - 1) / kM : 0;
+  const int n_q = max(i_end - i_begin, 0);
+  const int n_items = p.rep * n_q;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  load_tile_bf16<D, kDkvKeys, kBf16Threads>(
-      sK, head_ptr<__nv_bfloat16>(a.k, a.k_s, b, hk), a.k_s.l, k0, a.L, tid);
-  load_tile_bf16<D, kDkvKeys, kBf16Threads>(
-      sV, head_ptr<__nv_bfloat16>(a.v, a.v_s, b, hk), a.v_s.l, k0, a.L, tid);
-
-  // this thread's accumulator rows are keys[0] and keys[1]
-  const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  // no key of the tile is valid: dk = dv = 0, and the loop below is empty
-  const int i_begin = first_q_tile(a, k0, kDkvRows);
-  const int i_end = k0 < a.kv_end ? (a.L + kDkvRows - 1) / kDkvRows : 0;
-  __nv_bfloat16* dk_out = head_ptr<__nv_bfloat16>(a.dk, a.dk_s, b, hk);
-  __nv_bfloat16* dv_out = head_ptr<__nv_bfloat16>(a.dv, a.dv_s, b, hk);
-
-  for (int r = 0; r < a.rep; ++r) {
-    const int h = hk * a.rep + r;
-    const __nv_bfloat16* q = head_ptr<__nv_bfloat16>(a.q, a.q_s, b, h);
-    const __nv_bfloat16* dout = head_ptr<__nv_bfloat16>(a.dout, a.do_s, b, h);
-    float dk[D / 8][4];
-    float dv[D / 8][4];
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        dk[dn][e] = 0.f;
-        dv[dn][e] = 0.f;
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread loads K and V once, then keeps the
+    // Q/dO ring full across the q-heads and their query tiles
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_kv, 2 * S::kKV);
+      load_rows<D, kDkvKeys>(smem + S::kK, &p.k, bar_kv, k0, hk, b);
+      load_rows<D, kDkvKeys>(smem + S::kV, &p.v, bar_kv, k0, hk, b);
+      for (int it = 0; it < n_items; ++it) {
+        const int s = it % kStages;
+        const int r = it / n_q;
+        const int q0 = (i_begin + it - r * n_q) * kM;
+        if (it >= kStages) mbar_wait(&empty[s], (it / kStages + 1) & 1);
+        mbar_expect_tx(&full[s], 2 * S::kTile);
+        load_rows<D, kM>(smem + S::kQ + s * S::kTile, &p.q, &full[s], q0,
+                         hk * p.rep + r, b);
+        load_rows<D, kM>(smem + S::kDo + s * S::kTile, &p.dout, &full[s], q0,
+                         hk * p.rep + r, b);
       }
     }
-
-    for (int i = i_begin; i < i_end; ++i) {
-      const int q0 = i * kDkvRows;
-      __syncthreads();  // every warp is done with the previous Q/dO tile
-      load_tile_bf16<D, kDkvRows, kBf16Threads>(sQ, q, a.q_s.l, q0, a.L, tid);
-      load_tile_bf16<D, kDkvRows, kBf16Threads>(sDo, dout, a.do_s.l, q0, a.L,
-                                                tid);
-      if (tid < kDkvRows) {
-        sLse[tid] = row_stat(a.lse, b, h, a, q0 + tid);
-        sDelta[tid] = row_stat(a.delta, b, h, a, q0 + tid);
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128 - 1;  // consumer warpgroup: 0 or 1
+    const int tid = threadIdx.x % 128;
+    const int t = tid % 4;
+    const int key0 = k0 + 64 * wg;  // the warpgroup's first key
+    // this thread's accumulator rows are keys[0] and keys[1]
+    const int keys[2] = {key0 + 16 * (tid / 32) + (tid % 32) / 4,
+                         key0 + 16 * (tid / 32) + (tid % 32) / 4 + 8};
+    const bool segmented = p.seg != nullptr;
+    int seg_key[2] = {0, 0};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (segmented) {
+        seg_key[r] = keys[r] < p.L
+                         ? p.seg[static_cast<long long>(b) * p.L + keys[r]]
+                         : -2;
       }
-      __syncthreads();
+    }
+    const bool live = key0 < p.kv_end;  // some key of the warpgroup is valid
+    const uint32_t k_tile = smem_u32(smem + S::kK) + wg * 64 * 128;
+    const uint32_t v_tile = smem_u32(smem + S::kV) + wg * 64 * 128;
+    unsigned char* sum_k = smem + S::kSumK + wg * 64 * 128;
+    unsigned char* sum_v = smem + S::kSumV + wg * 64 * 128;
 
-      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 32 queries
-      float st[kDkvRows / 8][4];
-      float dpt[kDkvRows / 8][4];
+    float dk[D / 2];
+    float dv[D / 2];
 #pragma unroll
-      for (int n = 0; n < kDkvRows / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          st[n][e] = 0.f;
-          dpt[n][e] = 0.f;
+    for (int i = 0; i < D / 2; ++i) {
+      dk[i] = 0.f;
+      dv[i] = 0.f;
+    }
+    // the query tiles' lse (base 2), delta and segment ids, [2][3][kM]: a
+    // thread fetches one word of the next tile while this one computes
+    float* stats = reinterpret_cast<float*>(smem + S::kStats) + wg * 6 * kM;
+    const int word = tid % kM;
+    const bool first_half = tid < kM;  // lse and segment ids, else delta
+    float fetched = 0.f;
+    int fetched_seg = -1;
+    auto fetch = [&](int it) {
+      const int r = it / n_q;
+      const int row = (i_begin + it - r * n_q) * kM + word;
+      if (row < p.L) {
+        const long long at =
+            (static_cast<long long>(b) * p.H + hk * p.rep + r) * p.L + row;
+        fetched = first_half ? p.lse[at] * kLog2e : p.delta[at];
+        if (segmented && first_half) {
+          fetched_seg = p.seg[static_cast<long long>(b) * p.L + row];
         }
+      } else {  // query rows past L: masked as queries
+        fetched = 0.f;
+        fetched_seg = -1;
       }
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ka[4], va[4];
-        load_a_frag(ka, sK, kLd, warp, kk, g, t);
-        load_a_frag(va, sV, kLd, warp, kk, g, t);
-#pragma unroll
-        for (int n = 0; n < kDkvRows / 8; ++n) {
-          const __nv_bfloat16* qr = sQ + (n * 8 + g) * kLd + kk * 16 + 2 * t;
-          const __nv_bfloat16* dr = sDo + (n * 8 + g) * kLd + kk * 16 + 2 * t;
-          mma_bf16(st[n], ka, ld_u32(qr), ld_u32(qr + 8));
-          mma_bf16(dpt[n], va, ld_u32(dr), ld_u32(dr + 8));
-        }
+    };
+    auto publish = [&](int it) {
+      float* buf = stats + (it & 1) * 3 * kM;
+      buf[(first_half ? 0 : kM) + word] = fetched;
+      if (segmented && first_half) {
+        reinterpret_cast<int*>(buf + 2 * kM)[word] = fetched_seg;
       }
+    };
+    if (n_items > 0) {
+      fetch(0);
+      publish(0);
+    }
+    mbar_wait(bar_kv, 0);
 
-      // P^T (kept in st) and dS^T = P^T * (dP^T - delta) * scale (in dpt)
+    for (int it = 0; it < n_items; ++it) {
+      const int s = it % kStages;
+      const int r = it / n_q;
+      const int q0 = (i_begin + it - r * n_q) * kM;
+      // this tile's stats are in buffer it & 1; the next tile's are fetched
+      // now and published after the products, into the buffer the previous
+      // tile used (every thread has passed this barrier, so is done with it)
+      named_barrier(1 + wg, 128);
+      if (it + 1 < n_items) fetch(it + 1);
+      // every query of the tile before every key of the warpgroup (under
+      // causal masking), or no valid key: no products
+      const bool dead = !live || (p.causal && q0 + kM - 1 < key0);
+      // masks run on the tiles that cross the causal diagonal, kv_end or L,
+      // and on every tile with segments
+      const bool masked = segmented || key0 + 64 > p.kv_end ||
+                          q0 + kM > p.L || (p.causal && q0 < key0 + 63);
+      mbar_wait(&full[s], (it / kStages) & 1);
+      if (!dead) {
+        const uint32_t q_tile = smem_u32(smem + S::kQ + s * S::kTile);
+        const uint32_t do_tile = smem_u32(smem + S::kDo + s * S::kTile);
+        const float* lse2 = stats + (it & 1) * 3 * kM;
+        const float* delta = lse2 + kM;
+        const int* seg_q = reinterpret_cast<const int*>(lse2 + 2 * kM);
+        // S^T = K Q^T and dP^T = V dO^T: keys as rows, queries as columns
+        float st[kM / 2];
+        float dpt[kM / 2];
+        wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < kDkvRows / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = keys[e >> 1];
-          const int c = n * 8 + 2 * t + (e & 1);
-          const int row = q0 + c;
-          const int seg_row =
-              (seg_b != nullptr && row < a.L) ? seg_b[row] : -1;
-          const float x = keep(a, seg_b, row, key, seg_row)
-                              ? a.scale * st[n][e]
-                              : kNegInf;
-          const float p = expf(x - sLse[c]);
-          st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - sDelta[c]) * a.scale;
+        for (int kk = 0; kk < D / 16; ++kk) {
+          Wgmma<kM>::ss(st, desc_k_major(k_tile, kDkvKeys, kk),
+                        desc_k_major(q_tile, kM, kk), kk > 0);
         }
-      }
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          Wgmma<kM>::ss(dpt, desc_k_major(v_tile, kDkvKeys, kk),
+                        desc_k_major(do_tile, kM, kk), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_operand(st);
 
-      // dV += P^T dO and dK += dS^T Q: P^T and dS^T (cast to bf16) are A
-      // fragments; dO's and Q's B fragments pair two queries of one column.
+        // P^T = exp(S^T_masked - lse), lse indexed by column (query); a
+        // masked pair, or a query row past L, gives exactly 0. Each 16
+        // columns are packed to bf16 as they are done (fewer live values).
+        uint32_t pa[kM / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kDkvRows / 16; ++kk) {
-        uint32_t pa[4], sa[4];
-        acc_to_a_frag(pa, st, kk);
-        acc_to_a_frag(sa, dpt, kk);
-        const __nv_bfloat16* dr = sDo + (kk * 16 + 2 * t) * kLd + g;
-        const __nv_bfloat16* qr = sQ + (kk * 16 + 2 * t) * kLd + g;
+        for (int kk = 0; kk < kM / 16; ++kk) {
 #pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn) {
-          const __nv_bfloat16* dc = dr + dn * 8;
-          const __nv_bfloat16* qc = qr + dn * 8;
-          mma_bf16(dv[dn], pa, pack_u16(dc, dc + kLd),
-                   pack_u16(dc + 8 * kLd, dc + 9 * kLd));
-          mma_bf16(dk[dn], sa, pack_u16(qc, qc + kLd),
-                   pack_u16(qc + 8 * kLd, qc + 9 * kLd));
+          for (int i = 8 * kk; i < 8 * kk + 8; ++i) {
+            const int c = 8 * (i / 4) + 2 * t + (i & 1);
+            float pr = exp2f(fmaf(st[i], p.scale_log2, -lse2[c]));
+            if (masked) {
+              const int key = keys[(i >> 1) & 1];
+              const int row = q0 + c;
+              if (row >= p.L || key >= p.kv_end || (p.causal && key > row) ||
+                  (segmented && seg_key[(i >> 1) & 1] != seg_q[c])) {
+                pr = 0.f;
+              }
+            }
+            st[i] = pr;
+          }
+          acc_to_a(pa[kk], st, kk);
+        }
+        // dV += P^T dO, dO read MN-major (queries are the reduction); runs
+        // while dS^T is computed
+        fence_operand(dv);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kM / 16; ++kk) {
+          Wgmma<D>::rs(dv, pa[kk], desc_mn_major(do_tile, kM, kk), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // dP^T is done; dV may still run
+        fence_operand(dpt);
+
+        // dS^T = P^T * (dP^T - delta) * scale, cast to bf16
+        uint32_t da[kM / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kM / 16; ++kk) {
+#pragma unroll
+          for (int i = 8 * kk; i < 8 * kk + 8; ++i) {
+            const int c = 8 * (i / 4) + 2 * t + (i & 1);
+            dpt[i] = st[i] * (dpt[i] - delta[c]) * p.scale;
+          }
+          acc_to_a(da[kk], dpt, kk);
+        }
+        // dK += dS^T Q, Q read MN-major
+        fence_operand(dk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kM / 16; ++kk) {
+          Wgmma<D>::rs(dk, da[kk], desc_mn_major(q_tile, kM, kk), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(dv);
+        fence_operand(dk);
+        fence_operand(pa);
+        fence_operand(da);
+      }
+      mbar_arrive(&empty[s]);
+      if (it + 1 < n_items) publish(it + 1);
+      if (it - r * n_q == n_q - 1) {
+        // the q-head's last tile: add its sums to the earlier q-heads'
+        add_head<D>(sum_k, dk, r == 0, tid);
+        add_head<D>(sum_v, dv, r == 0, tid);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) {
+          dk[i] = 0.f;
+          dv[i] = 0.f;
         }
       }
     }
+    if (n_items == 0) {  // no valid key in the block: dk = dv = 0
+      add_head<D>(sum_k, dk, true, tid);
+      add_head<D>(sum_v, dv, true, tid);
+    }
 
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      if (keys[rr] >= a.L) continue;
-      __nv_bfloat16* dkrow = dk_out + keys[rr] * a.dk_s.l + 2 * t;
-      __nv_bfloat16* dvrow = dv_out + keys[rr] * a.dv_s.l + 2 * t;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        store_or_add(dkrow + dn * 8, dk[dn][2 * rr], dk[dn][2 * rr + 1],
-                     r == 0);
-        store_or_add(dvrow + dn * 8, dv[dn][2 * rr], dv[dn][2 * rr + 1],
-                     r == 0);
+    // the warpgroup's 64 keys of dK and dV, by TMA (keys past L dropped)
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    if (tid == 0) {
+      for (int c = 0; c < D / 64; ++c) {
+        tma_store_4d(&p.dk, sum_k + c * kDkvKeys * 128, c * 64, key0, hk, b);
+        tma_store_4d(&p.dv, sum_v + c * kDkvKeys * 128, c * 64, key0, hk, b);
       }
+      tma_store_wait();
     }
   }
+}
+
+// Builds the six tensor maps and launches the bf16 dk/dv kernel.
+cudaError_t launch_dkv_sm90(const BwdArgs& a, int D, int batch, int kv_heads,
+                            cudaStream_t stream) {
+  DkvSm90Params p;
+  const bool mapped =
+      make_tile_map(&p.q, a.q, D, a.L, a.H, batch, a.q_s.l, a.q_s.h, a.q_s.b,
+                    kDkvRows) &&
+      make_tile_map(&p.dout, a.dout, D, a.L, a.H, batch, a.do_s.l, a.do_s.h,
+                    a.do_s.b, kDkvRows) &&
+      make_tile_map(&p.k, a.k, D, a.L, kv_heads, batch, a.k_s.l, a.k_s.h,
+                    a.k_s.b, kDkvKeys) &&
+      make_tile_map(&p.v, a.v, D, a.L, kv_heads, batch, a.v_s.l, a.v_s.h,
+                    a.v_s.b, kDkvKeys) &&
+      make_tile_map(&p.dk, a.dk, D, a.L, kv_heads, batch, a.dk_s.l, a.dk_s.h,
+                    a.dk_s.b, 64) &&
+      make_tile_map(&p.dv, a.dv, D, a.L, kv_heads, batch, a.dv_s.l, a.dv_s.h,
+                    a.dv_s.b, 64);
+  if (!mapped) return cudaErrorInvalidValue;
+  p.lse = a.lse;
+  p.delta = a.delta;
+  p.seg = a.seg;
+  p.H = a.H;
+  p.L = a.L;
+  p.rep = a.rep;
+  p.kv_end = a.kv_end;
+  p.causal = a.causal;
+  p.scale = a.scale;
+  p.scale_log2 = a.scale * kLog2e;
+  const dim3 grid((a.L + kDkvKeys - 1) / kDkvKeys, kv_heads, batch);
+  if (D == 128) {
+    return launch_kernel(dkv_sm90_kernel<128>, grid, kSm90Threads,
+                         DkvSmem<128>::kLaunch, p, stream);
+  }
+  return launch_kernel(dkv_sm90_kernel<64>, grid, kSm90Threads,
+                       DkvSmem<64>::kLaunch, p, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -700,11 +919,6 @@ __global__ void __launch_bounds__(kF32Threads) dkv_f32_kernel(BwdArgs a) {
 }
 
 template <int D>
-int dkv_bf16_smem() {
-  return (2 * kDkvKeys + 2 * kDkvRows) * (D + 8) * 2 + 2 * kDkvRows * 4;
-}
-
-template <int D>
 int dq_f32_smem() {
   return (2 * kF32Tile * D + 2 * kF32Tile * (D + 1) +
           kF32Tile * (kF32Tile + 1) + 2 * kF32Tile) * 4;
@@ -757,8 +971,8 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. head_dim: 64 or 128. strides: the batch,
 // head and sequence strides (in elements) of q, k, v, dout, dq, dk and dv, in
 // that order (21 values; flash_bwd_dq ignores the last six, flash_bwd_dkv
-// those of dq); the head dim must be contiguous (bf16 dq: every stride of q,
-// k, v, dout and dq a multiple of 8 elements, as TMA requires). lse and
+// those of dq); the head dim must be contiguous (bf16: every stride of q, k,
+// v, dout and the outputs a multiple of 8 elements, as TMA requires). lse and
 // delta: [batch, heads, 1, seq_len] fp32, contiguous. segments: [batch,
 // seq_len] int32 or null. valid_len: 0, or mask keys at positions >=
 // valid_len. Each returns a cudaError_t: the launch's, or
@@ -803,15 +1017,10 @@ int flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid_bf16((seq_len + kDkvKeys - 1) / kDkvKeys, kv_heads, batch);
   const dim3 grid_f32((seq_len + kF32Tile - 1) / kF32Tile, kv_heads, batch);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 1 && head_dim == 128) {
-    err = launch_kernel(dkv_bf16_kernel<128>, grid_bf16, kBf16Threads,
-                        dkv_bf16_smem<128>(), a, s);
-  } else if (dtype == 1 && head_dim == 64) {
-    err = launch_kernel(dkv_bf16_kernel<64>, grid_bf16, kBf16Threads,
-                        dkv_bf16_smem<64>(), a, s);
+  if (dtype == 1 && (head_dim == 128 || head_dim == 64)) {
+    err = launch_dkv_sm90(a, head_dim, batch, kv_heads, s);
   } else if (dtype == 0 && head_dim == 128) {
     err = launch_kernel(dkv_f32_kernel<128>, grid_f32, kF32Threads,
                         dkv_f32_smem<128>(), a, s);

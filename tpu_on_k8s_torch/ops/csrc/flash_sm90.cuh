@@ -1,27 +1,31 @@
-// Hopper pieces of the flash-attention kernels that hold a 128-row query tile
-// still and stream K/V tiles past it (flash_fwd.cu's forward, flash_bwd.cu's
-// dq kernel): TMA tensor maps and loads into an mbarrier ring, warpgroup
-// register hand-over, and wgmma on bf16 operands in 128-byte-swizzled shared
-// memory. Everything is in an anonymous namespace, so each .cu that includes
-// it gets its own copy.
+// Hopper pieces of the port's wgmma kernels: TMA tensor maps and loads into
+// an mbarrier ring, warpgroup register hand-over, and wgmma on operands in
+// 128-byte-swizzled shared memory. The flash-attention kernels (flash_fwd.cu's
+// forward, flash_bwd.cu's dq and dk/dv) use the bf16 products; the int8 GEMM
+// (int8_matmul.cu) the s8 one. Everything is in an anonymous namespace, so
+// each .cu that includes it gets its own copy.
 //
 // Shared-memory tiles. A [rows, D] bf16 tile is stored as D/64 column blocks,
 // each [rows, 64] with rows of 128 bytes, exactly as a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B and a box of {64, rows} writes it: the 16-byte
 // chunk c of row r sits at chunk c ^ (r % 8). Every block starts on a 1024-byte
-// boundary (one 8-row swizzle atom), which the wgmma descriptors assume.
+// boundary (one 8-row swizzle atom), which the wgmma descriptors assume. An
+// int8 tile of 128 bytes of K per row is one such block.
 //
 // wgmma descriptors (PTX ISA, "Matrix Descriptor Format"): start address,
 // leading and stride byte offsets in 16-byte units, and layout 1 = 128-byte
 // swizzle.
-//   * K-major operand (Q, dO as A; K, V as the B of Q K^T, dO V^T): 8-row
-//     groups 1024 bytes apart (SBO); the leading offset is unused (1). The
-//     16-element k-step kk inside a column block is the start address plus
-//     32*kk bytes; the hardware applies the swizzle to the full address.
-//   * MN-major operand (V in P V, K in dS K, where the key dim is the
-//     reduction): 8 keys of 128 bytes form an atom, atoms 1024 bytes apart
-//     along the keys (SBO), 64-wide column blocks rows*128 bytes apart (LBO);
-//     the k-step kk is the start address plus 16*128*kk bytes.
+//   * K-major operand (Q, dO as A; K, V as the B of Q K^T, dO V^T; K, V as
+//     the A of K Q^T, V dO^T; both int8 operands): 8-row groups 1024 bytes
+//     apart (SBO); the leading offset is unused (1). The k-step kk (16 bf16
+//     or 32 int8 elements, 32 bytes either way) inside a column block is the
+//     start address plus 32*kk bytes; the hardware applies the swizzle to the
+//     full address.
+//   * MN-major operand (V in P V, K in dS K, dO in P^T dO, Q in dS^T Q, where
+//     the sequence dim is the reduction): 8 rows of 128 bytes form an atom,
+//     atoms 1024 bytes apart along the rows (SBO), 64-wide column blocks
+//     rows*128 bytes apart (LBO); the k-step kk is the start address plus
+//     16*128*kk bytes.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver is reached below
@@ -101,6 +105,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The box at (c0, c1) = (column, row) of a 2-D map.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 // The box at (c0, c1, c2, c3) from shared memory into the map's tensor; rows
 // outside the extent are not written.
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
@@ -164,6 +179,12 @@ template <int N>
 __device__ __forceinline__ void fence_operand(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_operand(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // The same for an RS wgmma's A fragment, which the hardware reads until the
@@ -334,6 +355,70 @@ struct Wgmma<128> {
           "r"(scale_d));
   }
 };
+
+// d[64 x 256] (+)= A[64 x 32] B[32 x 256], int8 in, exact int32 accumulators;
+// scale_d 0 overwrites d. Both operands from shared memory, K-major (int8
+// wgmma takes no MN-major operand). The accumulator layout is the bf16
+// products': d[4j + e] is row 16w + g + 8*(e >> 1), column 8j + 2t + (e & 1).
+__device__ __forceinline__ void wgmma_s8_m64n256(int (&d)[128], uint64_t a,
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // The A fragment of k-step kk (columns 16kk..16kk+15) of a warpgroup's fp32
 // accumulator, cast to bf16: the accumulator of one product is the A operand
 // of the next without leaving registers.
@@ -468,7 +553,19 @@ __device__ __forceinline__ void load_key_segments(int* dst, const int* seg_b,
   named_barrier(barrier_id, 128);
 }
 
-// ---- host: tensor maps -----------------------------------------------------
+// ---- host: launch and tensor maps -----------------------------------------
+
+// Launch with `smem` bytes of dynamic shared memory (allowed above 48 KB
+// first); returns the launch's error, since a refused launch never runs.
+template <typename Kernel, typename Args>
+cudaError_t launch_kernel(Kernel kernel, dim3 grid, int threads, int smem,
+                          const Args& a, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                    cuuint32_t, void*, const cuuint64_t*,
@@ -524,6 +621,26 @@ bool make_tile_map(CUtensorMap* map, const void* base, int D, int L, int H,
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A contiguous int8 [rows, K] operand as a 2-D map (K, rows) read in boxes of
+// [box_rows, 128 bytes] with the 128-byte swizzle; K must be a multiple of
+// 16 and the base 16-byte aligned. Rows and bytes past the extent arrive as
+// zeros.
+bool make_byte_map(CUtensorMap* map, const void* base, int rows, int K,
+                   int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
+  const cuuint32_t box[2] = {128, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+                dims, strides, box, elem_strides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -37,10 +37,10 @@ from tpu_on_k8s_torch.train import trainer as trainer_mod
 #: (substring of a kernel's name, its group), first match wins
 _GROUPS = (
     ("flash_fwd", "flash_fwd (port kernel)"),
-    ("dq_bf16", "flash_bwd_dq (port kernel)"),
+    ("dq_sm90", "flash_bwd_dq (port kernel)"),
     ("dq_f32", "flash_bwd_dq (port kernel)"),
     ("dkv_", "flash_bwd_dkv (port kernel)"),
-    ("int8_matmul_kernel", "int8_matmul (port kernel)"),
+    ("int8_matmul_", "int8_matmul (port kernel)"),
     ("gemm", "GEMM (cuBLAS)"), ("nvjet", "GEMM (cuBLAS)"),
     ("xmma", "GEMM (cuBLAS)"), ("cutlass", "GEMM (cuBLAS)"),
     ("reduce", "reductions"), ("softmax", "reductions"),

@@ -11,17 +11,25 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    spills, and the count of wgmma instructions (``HGMMA`` for bf16,
    ``IGMMA`` for int8) that ``cuobjdump --dump-sass`` finds in each Hopper
    kernel, with the highest register it names: the bf16 forward, dq and
-   dk/dv kernels and the int8 GEMM must have some;
+   dk/dv kernels and the int8 GEMM must have some; the quantizer's loops
+   are counted for its issue figure (phase 5);
 2. each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes: the flash forward and the two
    backward kernels (dq, dk/dv) within stated tolerances, all three also
    at the Hopper kernels' tile edges (L 63-65, 127-129, 255, 2047; D 64
    and 128; GQA rep 1, 2, 4; valid_len 129; segments crossing a 128-row
    tile) and launched twice on the same inputs, which must agree bit for
-   bit; the int8 GEMM (also against ``torch._int_mm``) at the training
-   shapes and at its tile edges (M 1-8192, N 129/257, K 16-2064, and a K
-   that takes the byte-wise path), the quantize and the dequantize
-   kernels bit for bit;
+   bit; the flash kernels at head dims 16, 32, 80 and 96 (zero-padded to
+   64 or 128 in the wrappers), forward and backward; the int8 GEMM (also
+   against ``torch._int_mm``) at the training shapes and at its tile edges
+   (M 1-8192, N 129/257, K 16-2064, and a K that takes the byte-wise
+   path); the ``torch._int_mm`` route at M 1, 16 and 17, K 40, N 129
+   (zero-padded; the refusal of the unpadded call is printed); the
+   quantize and the dequantize kernels bit for bit, also at their edges
+   (rows of zeros, one non-zero, subnormal and huge values, C 1, 3 and
+   17, 125 KB rows, a misaligned base); the row scales of ``_quant_rows``
+   and of the serving quantizer on the card equal to the CPU's (a true
+   division by 127);
 3. serving: ``generate`` at ``llama2_7b`` width (32 layers, bf16, random
    weights from a seed) answers a greedy batch-4 request and a sampled
    batch-1 request; the flash forward's launch count shows that each prefill
@@ -33,10 +41,15 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    held against an fp32 model of its own dequantized weights; then
    ``quantize_pytree`` / ``dequantize_pytree`` round-trip the ``llama2_1b``
    fp32 masters;
+3c. int8 serving: ``mlp_int8`` + ``head_int8`` greedy decoding at batch 4
+   on the ``int8_impl="xla"`` route (``torch._int_mm`` at decode's M) and
+   on the int8 GEMM kernel, with equal tokens;
+3d. both CLIs (``generate``, ``train_llama``) with their own defaults;
 4. training: a gradient gate (the first step's gradients of the kernel
    model against plain-attention models in bf16 and fp32), then ``Trainer``
    at ``llama2_1b`` (16 layers, full width, fp32 masters, bf16 compute,
-   flash attention, MLP remat) takes 8 steps on one fixed batch 4 x 2048;
+   flash attention, MLP remat) takes 8 steps on one fixed batch 4 x 2048,
+   after a count of the dense products the MLP's backward re-runs (0);
    the launch counts show that every layer's forward and backward went
    through the kernels, and the loss is finite and falls;
 4b. int8 training: the same model with every int8 flag (``mlp_int8``,
@@ -64,6 +77,7 @@ from pathlib import Path
 from unittest import mock
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 # H100 SXM dense peaks (NVIDIA data sheet), the denominators of bound_ms.
 PEAK_BF16_FLOPS = 989e12
@@ -121,10 +135,37 @@ QUANT_CASES = [(4096, 4096, torch.bfloat16), (1024, 4096, torch.bfloat16),
                (11008, 4096, torch.bfloat16), (4096, 11008, torch.bfloat16),
                (32000, 4096, torch.bfloat16), (333, 1001, torch.bfloat16),
                (333, 1001, torch.float32)]
-# dequantize: the llama2_1b fp32 masters' rows, and ragged shapes
+# quantize at its edges: (r, c, dtype, kind), kind shaping the values: a
+# row of zeros, a row with one non-zero, subnormal values (with and without
+# a large value in the row), a huge and a tiny value in one row, and a
+# contiguous slice whose base is not 16-byte aligned; C 1, 3 and 17 and a
+# C * size that is not a multiple of 16 take the element-wise kernel; C
+# 32000 fp32 (125 KB rows) streams through the ring in chunks
+QUANT_EDGE_CASES = [(64, 4096, torch.bfloat16, "zeros"),
+                    (64, 4096, torch.bfloat16, "one"),
+                    (64, 4096, torch.float32, "subnormal"),
+                    (64, 4096, torch.bfloat16, "subnormal"),
+                    (50, 1000, torch.float32, "huge"),
+                    (100, 4096, torch.bfloat16, "misaligned"),
+                    (5000, 1, torch.bfloat16, None),
+                    (333, 3, torch.float32, None),
+                    (333, 17, torch.bfloat16, None),
+                    (77, 4100, torch.float16, None),
+                    (2048, 32000, torch.float32, None)]
+# dequantize: the llama2_1b fp32 masters' rows, and ragged shapes; C 1, 3
+# and 17, and bf16 and fp16 out at the head's [2048, 32000]
 DEQUANT_CASES = [(5632, 2048, torch.float32), (32000, 2048, torch.float32),
                  (2048, 32000, torch.float32), (333, 1001, torch.bfloat16),
-                 (333, 1001, torch.float32)]
+                 (333, 1001, torch.float32), (500, 1, torch.float32),
+                 (333, 3, torch.bfloat16), (333, 17, torch.float16),
+                 (2048, 32000, torch.bfloat16), (2048, 32000, torch.float16)]
+# Head dims the flash kernels are not built for (zero-padded to 64 or 128
+# in the wrappers), forward and backward, causal, GQA rep 2:
+# (d, l) with 4 q-heads on 2 kv heads, batch 1
+HEAD_DIM_CASES = [(d, l) for d in (16, 32, 80, 96) for l in (129, 2047)]
+# The int8_impl="xla" route (torch._int_mm, zero-padded to the shapes it
+# takes on the card) at decode's M and ragged K, N: (m, n, k)
+INT_MM_CASES = [(m, 129, 40) for m in (1, 16, 17)]
 # The bf16 flash kernels at their tile edges (128-row query tiles and K/V
 # tiles of 128 keys in the forward; 128-row query tiles and 64-key tiles in
 # dq; 128-key tiles and 64-row query tiles in dk/dv), with 4 q-heads on 4, 2
@@ -337,11 +378,82 @@ def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
+def quant_edge_input(randn, r, c, dtype, kind):
+    """The input of a ``QUANT_EDGE_CASES`` case."""
+    x = randn(r, c, dtype=dtype) * 0.02
+    if kind == "zeros":
+        x[::2] = 0
+    elif kind == "one":
+        x.zero_()
+        x[:, 5] = torch.arange(1, r + 1, device=x.device, dtype=dtype)
+    elif kind == "subnormal":
+        x = (x * (torch.finfo(dtype).smallest_normal / 0.08)).to(dtype)
+        x[1::3, 7] = 1.0
+    elif kind == "huge":
+        x[:, 0] = 3e35
+        x[:, 1] = 1e-35
+    elif kind == "misaligned":
+        flat = randn(r * c + 8, dtype=dtype) * 0.02
+        x = flat[1:1 + r * c].view(r, c)
+        if x.data_ptr() % 16 == 0 or not x.is_contiguous():
+            fail("the misaligned quantize case is aligned")
+    return x
+
+
+def check_division(i8, decode, misses: list) -> None:
+    """Phase 2: the row scales of ``_quant_rows`` and of the serving
+    quantizer on the card against the same functions on the CPU, which
+    divide by 127 as the reference does. A Python-float divisor takes
+    CUDA's reciprocal route (x * fp32(1/127)); the count of rows where that
+    form differs is printed beside."""
+    rows = torch.randn(4096, 64, generator=torch.Generator().manual_seed(3))
+    q_cpu, s_cpu = i8._quant_rows(rows)
+    q_gpu, s_gpu = i8._quant_rows(rows.cuda())
+    recip = torch.clamp(rows.cuda().abs().amax(-1, keepdim=True),
+                        min=1e-30) / 127.0
+    wq_cpu, ws_cpu = decode._absmax_rows(rows)
+    wq_gpu, ws_gpu = decode._absmax_rows(rows.cuda())
+    same = (torch.equal(s_gpu.cpu(), s_cpu)
+            and torch.equal(q_gpu.cpu(), q_cpu))
+    same_w = (torch.equal(ws_gpu.cpu(), ws_cpu)
+              and torch.equal(wq_gpu.cpu(), wq_cpu))
+    print(f"[kernel] division by 127 on the card, 4096 rows of 64: "
+          f"_quant_rows scales and values equal the CPU's {same}; serving "
+          f"quantizer {same_w}; a Python-float divisor (x / 127.0 on the "
+          f"card) differs from the CPU's division in "
+          f"{(recip.cpu() != s_cpu).sum().item()} rows "
+          f"{'ok' if same and same_w else 'MISS'}")
+    if not (same and same_w):
+        misses.append("division by 127 on the card")
+
+
 def check_int8_kernels(i8, qz, randn, misses: list) -> dict:
     """Phase 2 for the int8 GEMM, quantize and dequantize kernels: each
     against its plain version bit for bit (the GEMM also against the
-    ``torch._int_mm`` route). Returns max |kernel - plain| per kernel."""
+    ``torch._int_mm`` route, at the training shapes and at decode's M).
+    Returns max |kernel - plain| per kernel."""
     errs = {"int8_matmul": 0.0, "quantize_int8": 0.0, "dequantize_int8": 0.0}
+    one = torch.ones(1, 40, dtype=torch.int8, device="cuda")
+    try:
+        torch._int_mm(one, torch.ones(40, 129, dtype=torch.int8,
+                                      device="cuda"))
+        said = "takes it"
+    except RuntimeError as e:
+        said = f"refuses it: {str(e).splitlines()[0]}"
+    print(f"[kernel] torch {torch.__version__}: torch._int_mm at M=1 K=40 "
+          f"N=129 {said}")
+    for m, n, k in INT_MM_CASES:
+        xq, sx = i8._quant_rows(randn(m, k))
+        wq, sw = i8._quant_rows(randn(n, k) * 0.02)
+        for out in (torch.bfloat16, torch.float32):
+            got = i8._int_mm(xq, sx, wq, sw, out)
+            ok = torch.equal(got, i8.int8_matmul_plain(xq, sx, wq, sw, out))
+            label = (f"the _int_mm route M={m} N={n} K={k} out "
+                     f"{dtype_name(out)}")
+            print(f"[kernel] {label} (zero-padded): bit-identical to plain "
+                  f"{ok} {'ok' if ok else 'MISS'}")
+            if not ok:
+                misses.append(label)
     for m, n, k, out in INT8_CASES:
         xq, sx = i8._quant_rows(randn(m, k))
         wq, sw = i8._quant_rows(randn(n, k) * 0.02)
@@ -378,15 +490,17 @@ def check_int8_kernels(i8, qz, randn, misses: list) -> dict:
           f"129/257, K 16/48/2064, fp32 and bf16 out; K 40 byte-wise): "
           f"bit-identical to plain in {edge_same} of {len(INT8_EDGE_CASES)} "
           f"{'ok' if edge_same == len(INT8_EDGE_CASES) else 'MISS'}")
-    for r, c, dtype in QUANT_CASES:
-        x = randn(r, c, dtype=dtype) * 0.02
+    for r, c, dtype, kind in ([(*case, None) for case in QUANT_CASES]
+                              + QUANT_EDGE_CASES):
+        x = quant_edge_input(randn, r, c, dtype, kind)
         values, scales = qz.quantize_int8(x, seed=W8_SEED)
         pvalues, pscales = qz.quantize_int8_plain(x, seed=W8_SEED)
         torch.cuda.synchronize()
         err = (values.int() - pvalues.int()).abs().max().item()
         ok = torch.equal(values, pvalues) and torch.equal(scales, pscales)
         errs["quantize_int8"] = max(errs["quantize_int8"], float(err))
-        label = f"quantize_int8 R={r} C={c} {dtype_name(dtype)}"
+        label = (f"quantize_int8 R={r} C={c} {dtype_name(dtype)}"
+                 + (f" {kind}" if kind else ""))
         print(f"[kernel] {label}: values and scales bit-identical to plain "
               f"{ok} (max |value diff| {err}) {'ok' if ok else 'MISS'}")
         if not ok:
@@ -544,6 +658,133 @@ def pytree_roundtrip(tparams: dict, mods) -> dict:
         fail("pytree round trip out of bounds")
     del packed, back
     return {"counts": path}
+
+
+def serve_int8_routes(cfg, params, prompt4, mods, decode) -> dict:
+    """Phase 3c: ``mlp_int8`` + ``head_int8`` serving at batch 4, 16 greedy
+    tokens, on the ``int8_impl="xla"`` route (``torch._int_mm``, zero-padded
+    at decode's M of 4) and on the "pallas" route (the int8 GEMM kernel):
+    the two routes compute the same bits, so their tokens must be equal.
+    Returns the pallas route's launches."""
+    toks, launched = {}, {}
+    for impl in ("xla", "pallas"):
+        icfg = dataclasses.replace(cfg, mlp_int8=True, head_int8=True,
+                                   int8_impl=impl)
+        reset_counts(mods)
+        toks[impl] = decode.generate(icfg, params, prompt4, 16)
+        torch.cuda.synchronize()
+        launched[impl] = read_counts(mods)
+    # 16 forward calls (the prefill and 15 steps), each with the MLP's three
+    # products in every layer and the head
+    want = 16 * (3 * cfg.n_layers + 1)
+    same = torch.equal(toks["xla"], toks["pallas"])
+    print(f"[serve-int8] llama2_7b bf16 weights, mlp_int8 + head_int8, batch 4 "
+          f"x prompt 512 -> 16 greedy tokens: int8_impl xla (torch._int_mm at "
+          f"M=4, padded) and pallas give equal tokens {same}; int8_matmul "
+          f"launches xla {launched['xla']['int8_matmul']}, pallas "
+          f"{launched['pallas']['int8_matmul']} (expected 0 and {want}); "
+          f"row 0 {toks['pallas'][0].tolist()}")
+    if not same:
+        fail("the xla and pallas int8 routes gave other tokens")
+    if (launched["xla"]["int8_matmul"] != 0
+            or launched["pallas"]["int8_matmul"] != want):
+        fail(f"int8 serving launches {launched}")
+    return launched["pallas"]
+
+
+def run_clis(mods) -> dict:
+    """Phase 3d: both CLIs with their own defaults (``--config tiny`` on
+    ``cuda``: head dim 16, through the padded flash kernels), in process.
+    Returns their launches."""
+    import contextlib
+    import io
+
+    from tpu_on_k8s_torch import generate as generate_cli
+    from tpu_on_k8s_torch import train_llama
+
+    reset_counts(mods)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        tokens = generate_cli.main([])
+        loss = train_llama.main([])
+    torch.cuda.synchronize()
+    launched = read_counts(mods)
+    lines = out.getvalue().splitlines()
+    print(f"[cli] python -m tpu_on_k8s_torch.generate (defaults: tiny, cuda): "
+          f"tokens {tuple(tokens.shape)}; python -m tpu_on_k8s_torch."
+          f"train_llama (defaults: tiny, cuda, 50 steps): final loss "
+          f"{loss:.5f}; {len(lines)} lines of output, the last: {lines[-1]}; "
+          f"launches {launched}")
+    if tuple(tokens.shape) != (1, 32) or not math.isfinite(loss):
+        fail("a CLI with its own defaults did not finish")
+    if not (launched["flash_fwd"] and launched["flash_bwd_dq"]
+            and launched["flash_bwd_dkv"]):
+        fail(f"the CLIs did not run the flash kernels: {launched}")
+    return launched
+
+
+class _CountProducts(TorchDispatchMode):
+    """Counts the dense products (``aten.mm``) run under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.mm = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.mm += func is torch.ops.aten.mm.default
+        return func(*args, **(kwargs or {}))
+
+
+def backward_products(model, loss_fn, tokens) -> int:
+    """The ``aten.mm`` calls in one backward pass of ``model``."""
+    loss, _ = loss_fn(tokens)
+    counter = _CountProducts()
+    with counter:
+        torch.autograd.grad(loss, list(model.parameters()))
+    return counter.mm
+
+
+def quant_issue_figure(lib, r: int, c: int, clock_mhz: float) -> dict:
+    """The quantizer's issue figure at [r, c] bf16: the SASS instructions of
+    ``quant_kernel<bf16, kSteps>`` on its common path, per element a thread
+    handles (kSteps vectors of 8), times the elements, over the card's issue
+    rate (132 SMs x 4 schedulers x 32 lanes x the SM clock). The common path
+    is the function less the regions a forward branch skips that hold the
+    division's outright fallback or a call (``FCHK`` or ``CALL``, no
+    ``FRND``), and less the called subroutines."""
+    from tpu_on_k8s_torch.ops import _build
+
+    steps = -(-c // 8 // 256)
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    body, fn = [], None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn is not None and f"quant_kernelI13__nv_bfloat16Li{steps}E" in fn:
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if m:
+                body.append((int(m.group(1), 16), m.group(2)))
+    if not body:
+        fail(f"quant_kernel<bf16, {steps}> not found in the SASS")
+    calls = [int(t, 16) for _, text in body
+             for t in re.findall(r"CALL\.\S+\s+(0x[0-9a-f]+)", text)]
+    end = min(calls, default=body[-1][0] + 1)
+    cold = {a for a, _ in body if a >= end}
+    for a, text in body:
+        m = re.match(r"@!?P\d\s+BRA\s+(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) > a:
+            skipped = [(x, t) for x, t in body if a < x < int(m.group(1), 16)]
+            if (any("FCHK" in t or "CALL" in t for _, t in skipped)
+                    and not any("FRND" in t for _, t in skipped)):
+                cold.update(x for x, _ in skipped)
+    hot = len(body) - len(cold)
+    per_elem = hot / (steps * 8)
+    ms = per_elem * r * c / (132 * 4 * 32 * clock_mhz * 1e6) * 1e3
+    return {"steps": steps, "hot": hot, "all": len(body),
+            "per_elem": per_elem, "ms": ms}
 
 
 def fuse_gateup(params: dict, n_layers: int) -> dict:
@@ -788,6 +1029,41 @@ def main() -> int:
               f"bit-identical {same} {'ok' if ok else 'MISS'}")
         if not ok:
             misses.append(label)
+    # head dims the kernels are not built for: q, k, v (and dO) zero-padded
+    # to 64 or 128 in the wrappers, the outputs sliced back
+    for d, l in HEAD_DIM_CASES:
+        q, k, v = qkv(1, 4, 2, l, d, torch.bfloat16)
+        do = randn(1, 4, l, d)
+        o, lse = fa.flash_with_lse_fwd(q, k, v, True)
+        po, plse = fa.flash_attention_plain(q, k, v, True)
+        delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
+        grads = (fa.flash_bwd_dq(q, k, v, do, lse, delta, True),
+                 *fa.flash_bwd_dkv(q, k, v, do, lse, delta, True))
+        plain = (fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, True),
+                 *fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True))
+        torch.cuda.synchronize()
+        err_o = (o.float() - po.float()).abs().max().item()
+        err_lse = (lse - plse).abs().max().item()
+        errs = [(a.float() - w.float()).abs().max().item()
+                for a, w in zip(grads, plain)]
+        rels = [e / w.float().abs().max().item()
+                for e, w in zip(errs, plain)]
+        ok = (err_o <= tol_o and err_lse <= tol_lse and max(rels) <= tol_bwd
+              and o.shape == q.shape
+              and all(g.shape == w.shape for g, w in zip(grads, plain))
+              and bool(torch.isfinite(o).all()))
+        bf16_err = max(bf16_err, err_o)
+        bwd_err["dq"] = max(bwd_err["dq"], errs[0])
+        bwd_err["dkv"] = max(bwd_err["dkv"], *errs[1:])
+        label = f"head dim D={d} (padded to {fa.kernel_head_dim(d)}) B=1 H=4 " \
+                f"Hkv=2 L={l} bf16 causal"
+        print(f"[kernel] flash_fwd + flash_bwd_dq + flash_bwd_dkv {label}: "
+              f"max|o-plain| {err_o:.3e} max|lse-plain| {err_lse:.3e} rel "
+              f"dq {rels[0]:.2e} dk {rels[1]:.2e} dv {rels[2]:.2e} (tols "
+              f"{tol_o:g}, {tol_lse:g}, {tol_bwd:g}) "
+              f"{'ok' if ok else 'MISS'}")
+        if not ok:
+            misses.append(label)
     # determinism at the training shape, where every block runs many tiles
     q, k, v = qkv(TRAIN_BATCH, 16, 16, TRAIN_SEQ, 128, torch.bfloat16)
     do = randn(TRAIN_BATCH, 16, TRAIN_SEQ, 128)
@@ -806,6 +1082,7 @@ def main() -> int:
         misses.append("determinism at the training shape")
     del q, k, v, do, o, o2, lse, lse2, delta
     int8_errs = check_int8_kernels(i8, qz, randn, misses)
+    check_division(i8, decode, misses)
     if misses:
         fail(f"kernels disagree with their plain versions: {misses}")
 
@@ -908,8 +1185,13 @@ def main() -> int:
     # ---- 3b. W8A16 serving from the same weights -----------------------
     w8 = serve_w8(cfg, params, prompt4, prefill_logits, mods, convert, decode)
     by_path["serve_w8"] = w8["counts"]
+
+    # ---- 3c. int8 serving on both int8 routes; 3d. the CLIs' defaults ---
+    by_path["serve_int8"] = serve_int8_routes(cfg, params, prompt4, mods,
+                                              decode)
     del params
     torch.cuda.empty_cache()
+    by_path["cli"] = run_clis(mods)
 
     # ---- 4. training: llama2_1b, full width and depth ------------------
     tcfg = dataclasses.replace(transformer.TransformerConfig.llama2_1b(),
@@ -993,6 +1275,25 @@ def main() -> int:
         fail("the kernel model's gradients stray further from the fp32 "
              "model's than bf16 rounding explains")
     del grads_k, grads_p, grads_32
+    torch.cuda.empty_cache()
+
+    # the MLP's selective checkpoint: the dense products its backward runs
+    # again, as the backward's aten.mm calls with remat "mlp" less those
+    # without remat (one sequence of the batch; the count is per layer)
+    products = {}
+    for label, mcfg in (("remat mlp", tcfg),
+                        ("no remat", dataclasses.replace(tcfg, remat=False))):
+        model = load_model(mcfg, tparams, dev)
+        products[label] = backward_products(
+            model, trainer_mod._make_loss_fn(model, 0, None), tokens[:1])
+        del model
+    rerun = products["remat mlp"] - products["no remat"]
+    print(f"[train] backward aten.mm calls, llama2_1b: remat mlp "
+          f"{products['remat mlp']}, no remat {products['no remat']}: the "
+          f"MLP's backward re-runs {rerun} dense products (0 expected: the "
+          f"gate and up outputs are kept)")
+    if rerun:
+        fail("the MLP's backward re-runs dense products")
     torch.cuda.empty_cache()
 
     model = load_model(tcfg, tparams, dev)
@@ -1241,6 +1542,18 @@ def main() -> int:
                                                            ddt)),
                  *dequant_bound_ms(dr, dc, ddt),
                  time_ms(lambda: torch.mul(values, scales)))
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.split()[0])
+    issue = quant_issue_figure(paths["quantization"], qr, qc, clock)
+    print(f"[time] {gpu}: quantize_int8 issue figure R={qr} C={qc} bf16: "
+          f"quant_kernel<bf16, {issue['steps']}> has {issue['hot']} SASS "
+          f"instructions on its common path (of {issue['all']}) for the "
+          f"{issue['steps'] * 8} elements a thread rounds: "
+          f"{issue['per_elem']:.1f} an element x {qr * qc} elements / (132 "
+          f"SMs x 4 x 32 lanes x {clock:.0f} MHz) = {issue['ms']:.4f} ms, "
+          f"beside the byte bound {quant_t[2]:.4f} ms")
     for name, (ms, plain, bound, by, lib), label in (
             ("quantize_int8", quant_t, f"R={qr} C={qc} {dtype_name(qdt)}"),
             ("dequantize_int8", dequant_t,

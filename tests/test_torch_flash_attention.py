@@ -203,3 +203,28 @@ def test_wrapper_rejects_malformed_inputs(bad, match):
     with pytest.raises(ValueError, match=match):
         pfa.flash_with_lse_fwd(q, k, k, True, bad.get("valid_len", 0), seg)
 
+
+
+# Head dims the kernels are not built for: the CUDA wrappers zero-pad q, k
+# and v to the next kernel width (64 or 128) and pass the true head dim's
+# scale. Here the same pad-and-slice wraps the plain twin.
+@pytest.mark.parametrize("rep", [1, 2])
+@pytest.mark.parametrize("d", [16, 32, 80])
+def test_padded_head_dim_matches_pallas(d, rep):
+    q, k, v = _qkv(1, 4, 4 // rep, 136, d, seed=12)
+    want_o, want_lse = _pallas_fwd(q, k, v, True)
+    assert pfa.kernel_head_dim(d) in (64, 128)
+    o, lse = pfa.with_kernel_head_dim(
+        lambda q_, k_, v_, scale: pfa.flash_attention_plain(
+            q_, k_, v_, True, 0, None, scale),
+        tuple(torch.from_numpy(x) for x in (q, k, v)), 1)
+    assert o.shape == (1, 4, 136, d) and lse.shape == (1, 4, 1, 136)
+    np.testing.assert_allclose(o.numpy(), want_o, atol=FP32_ATOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=FP32_ATOL, rtol=0)
+
+
+def test_head_dim_above_the_kernels_raises():
+    assert [pfa.kernel_head_dim(d) for d in (1, 64, 65, 128)] == [64, 64, 128,
+                                                                   128]
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        pfa.kernel_head_dim(129)

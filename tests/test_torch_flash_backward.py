@@ -297,3 +297,28 @@ def test_flash_bwd_rejects_malformed_inputs(bad, match):
                       dtype=bad.get("lse_dtype", torch.float32))
     with pytest.raises(ValueError, match=match):
         pfa.flash_bwd(q, k, k, o, lse, do, True)
+
+
+# Head dims the kernels are not built for: dq and dk/dv from q, k, v and dO
+# zero-padded to the kernel width, with the true head dim's scale, sliced
+# back (the CUDA wrappers' pad-and-slice around the plain twins).
+@pytest.mark.parametrize("rep", [1, 2])
+@pytest.mark.parametrize("d", [16, 32, 80])
+def test_padded_head_dim_grads_match_pallas(d, rep):
+    q, k, v, g, _ = _inputs(1, 4, 4 // rep, 136, d, seed=13)
+    qt, kt, vt, gt = (torch.from_numpy(x) for x in (q, k, v, g))
+    o, lse = pfa.with_kernel_head_dim(
+        lambda q_, k_, v_, scale: pfa.flash_attention_plain(
+            q_, k_, v_, True, 0, None, scale), (qt, kt, vt), 1)
+    delta = (gt * o).sum(-1)[:, :, None, :]
+    dq = pfa.with_kernel_head_dim(
+        lambda q_, k_, v_, do, scale: pfa.flash_bwd_dq_plain(
+            q_, k_, v_, do, lse, delta, True, 0, None, scale),
+        (qt, kt, vt, gt), 1)
+    dk, dv = pfa.with_kernel_head_dim(
+        lambda q_, k_, v_, do, scale: pfa.flash_bwd_dkv_plain(
+            q_, k_, v_, do, lse, delta, True, 0, None, scale),
+        (qt, kt, vt, gt), 2)
+    assert dq.shape == qt.shape and dk.shape == kt.shape == dv.shape
+    _assert_close([t.numpy() for t in (dq, dk, dv)],
+                  _jax_grads(q, k, v, g, True), FP32_ATOL)

@@ -311,3 +311,81 @@ def test_train_llama_int8_on_cpu(capsys):
     assert np.isfinite(loss)
     out = capsys.readouterr().out
     assert out.count("[elastic-metrics]") == 3
+
+
+def _strict_int_mm(a, b):
+    """A stand-in for the card's ``torch._int_mm``: the shape checks it makes
+    there (M > 16; K and N multiples of 8), then the exact int32 product."""
+    assert a.dtype == b.dtype == torch.int8
+    assert a.shape[0] > 16, f"M = {a.shape[0]}"
+    assert a.shape[1] % 8 == 0 and b.shape[1] % 8 == 0, (a.shape, b.shape)
+    return torch.matmul(a.double(), b.double()).to(torch.int32)
+
+
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m, k, n", [(1, 40, 129), (16, 40, 129),
+                                     (17, 40, 129), (33, 64, 128)])
+def test_int_mm_route_pads_to_the_shapes_it_takes(monkeypatch, m, k, n, out):
+    """The ``int8_impl="xla"`` route on the card zero-pads to the shapes
+    ``torch._int_mm`` takes and slices back: the bits are the plain GEMM's
+    at every M, K and N (decode's M of 1 included)."""
+    rng = np.random.default_rng(m + k + n)
+    xq, sx = pint8._quant_rows(torch.from_numpy(
+        rng.standard_normal((m, k)).astype(np.float32)))
+    wq, sw = pint8._quant_rows(torch.from_numpy(
+        rng.standard_normal((n, k)).astype(np.float32) * 0.05))
+    monkeypatch.setattr(torch, "_int_mm", _strict_int_mm)
+    got = pint8._int_mm(xq, sx, wq, sw, out)
+    want = pint8.int8_matmul_plain(xq, sx, wq, sw, out)
+    assert got.shape == (m, n) and got.dtype == out
+    assert torch.equal(got, want)
+
+
+def test_div127_is_a_true_division():
+    """The row scales divide by 127, as the reference's ``/ 127.0`` on the
+    CPU: every quotient equals numpy's fp32 division, also where the
+    product with fp32(1/127) is one ulp off."""
+    x = np.abs(np.random.default_rng(4).standard_normal(4096)
+               ).astype(np.float32)
+    want = x / np.float32(127.0)
+    got = pint8.div127(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (x * (np.float32(1) / np.float32(127)) != want).any()
+
+
+# What the reference's remat_policy="mlp" (dots_with_no_batch_dims_saveable)
+# keeps of the MLP, on one layer whose shapes the Pallas int8 tiles divide
+# (d_model 128, d_ff 256, 4 x 16 tokens, bf16): the gate and up dot outputs
+# (bf16, or int32 on the int8 xla route), and no output of the int8 kernel
+# route, whose gate and up kernels its backward runs again (w_down's
+# product, which the backward does not read, it does not). The port's
+# policy (``_mlp_remat_policy``) keeps the same: the ``aten.mm`` and
+# ``aten._int_mm`` outputs of the MLP's input, no output of the int8 kernel.
+@pytest.mark.parametrize("int8, bf16_saved, int32_saved, kernel_calls", [
+    (None, 2, 0, (0, 0)), ("xla", 0, 2, (0, 0)), ("pallas", 0, 0, (3, 5))])
+def test_reference_mlp_remat_keeps_what_the_port_keeps(
+        capsys, int8, bf16_saved, int32_saved, kernel_calls):
+    from jax.ad_checkpoint import print_saved_residuals
+
+    tokens = jnp.zeros((4, 16), jnp.int32)
+    calls = []
+    for remat in (False, True):
+        cfg = dataclasses.replace(JConfig.tiny(), n_layers=1, d_model=128,
+                                  d_ff=256, remat=remat, remat_policy="mlp",
+                                  dtype=jnp.bfloat16, mlp_int8=bool(int8),
+                                  int8_impl=int8 or "xla")
+        model = JTransformer(cfg)
+        params = model.init(jax.random.key(0), tokens)["params"]
+
+        def loss(p):
+            return model.apply({"params": p}, tokens).astype(
+                jnp.float32).sum()
+
+        calls.append(str(jax.make_jaxpr(jax.grad(loss))(params)).count(
+            "pallas_call["))
+    capsys.readouterr()
+    print_saved_residuals(loss, params)
+    saved = capsys.readouterr().out
+    assert saved.count("bf16[1,4,16,256]") == bf16_saved
+    assert saved.count("i32[1,4,16,256]") == int32_saved
+    assert tuple(calls) == kernel_calls

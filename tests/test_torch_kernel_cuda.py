@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_on_k8s_torch.models import decode
 from tpu_on_k8s_torch.ops import flash_attention as fa
 from tpu_on_k8s_torch.ops import int8_matmul as i8
 from tpu_on_k8s_torch.ops import quantization as quant
@@ -90,7 +91,7 @@ def test_layout_wrapper_reads_strided_views(cuda, b, l):
 
 @pytest.mark.parametrize("dtype, d, match", [
     (torch.float16, 128, "bfloat16 or float32"),
-    (torch.bfloat16, 96, "head dim"),
+    (torch.bfloat16, 192, "head dim"),
 ])
 def test_kernel_refuses_what_it_does_not_take(cuda, dtype, d, match):
     q, k, v = _qkv(1, 4, 2, 64, d, dtype)
@@ -330,3 +331,96 @@ def test_dequant_kernel_matches_plain_bit_for_bit(cuda, r, c, dtype):
     torch.cuda.synchronize()
     assert quant.dequant_launches == before + 1
     assert got.dtype == dtype and torch.equal(got, want)
+
+
+# ---- the faults: head dims, _int_mm shapes, division on the card ---------
+
+@pytest.mark.parametrize("d", [16, 32, 80, 96])
+@pytest.mark.parametrize("l", [129, 2047])
+def test_padded_head_dims_match_plain(cuda, d, l):
+    """Head dims the kernels are not built for run zero-padded to 64 or 128,
+    with the true head dim's scale: forward and backward within the
+    kernels' tolerances of the plain twins."""
+    q, k, v = _qkv(1, 4, 2, l, d, torch.bfloat16)
+    do = _normal_cuda((1, 4, l, d), 9)
+    o, lse = fa.flash_with_lse_fwd(q, k, v, True)
+    po, plse = fa.flash_attention_plain(q, k, v, True)
+    got = fa.flash_bwd(q, k, v, o, lse, do, True)
+    want = _plain_bwd(q, k, v, o, lse, do, True, 0, None)
+    torch.cuda.synchronize()
+    tol_o, tol_lse = TOL[torch.bfloat16]
+    assert o.shape == q.shape
+    assert (o.float() - po.float()).abs().max().item() <= tol_o
+    assert (lse - plse).abs().max().item() <= tol_lse
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert _rel_err(a, b) <= BWD_REL_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 16, 17])
+def test_int_mm_route_takes_decode_shapes(cuda, m, out):
+    """``torch._int_mm`` takes M > 16 and K, N multiples of 8 on the card;
+    the xla route pads to that and stays bit-identical to the plain GEMM."""
+    xq, sx = i8._quant_rows(_normal_cuda((m, 40), 10))
+    wq, sw = i8._quant_rows(_normal_cuda((129, 40), 11, scale=0.05))
+    got = i8._int_mm(xq, sx, wq, sw, out)
+    assert got.shape == (m, 129)
+    assert torch.equal(got, i8.int8_matmul_plain(xq, sx, wq, sw, out))
+
+
+def test_row_scales_divide_on_the_card(cuda):
+    """The row scales of ``_quant_rows`` and of the serving quantizer on the
+    card equal the CPU's, which divide by 127 as the reference does."""
+    rows = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (4096, 64)).astype(np.float32))
+    for fn in (i8._quant_rows, decode._absmax_rows):
+        q_cpu, s_cpu = fn(rows)
+        q_gpu, s_gpu = fn(rows.cuda())
+        assert torch.equal(s_gpu.cpu(), s_cpu)
+        assert torch.equal(q_gpu.cpu(), q_cpu)
+
+
+def _quant_edge(r, c, dtype, kind):
+    x = _normal_cuda((r, c), 13, dtype, 0.02)
+    if kind == "zeros":
+        x[::2] = 0
+    elif kind == "one":
+        x.zero_()
+        x[:, 5] = torch.arange(1, r + 1, device="cuda", dtype=dtype)
+    elif kind == "subnormal":
+        x = (x * (torch.finfo(dtype).smallest_normal / 0.08)).to(dtype)
+        x[1::3, 7] = 1.0
+    elif kind == "misaligned":
+        flat = _normal_cuda((r * c + 8,), 14, dtype, 0.02)
+        x = flat[1:1 + r * c].view(r, c)
+        assert x.data_ptr() % 16
+    return x
+
+
+@pytest.mark.parametrize("r, c, dtype, kind", [
+    (64, 4096, torch.bfloat16, "zeros"), (64, 4096, torch.bfloat16, "one"),
+    (64, 4096, torch.float32, "subnormal"),
+    (64, 4096, torch.bfloat16, "subnormal"),
+    (100, 4096, torch.bfloat16, "misaligned"),
+    (500, 1, torch.bfloat16, None), (333, 3, torch.float32, None),
+    (333, 17, torch.bfloat16, None), (64, 32000, torch.float32, None),
+])
+def test_quant_kernel_at_its_edges(cuda, r, c, dtype, kind):
+    x = _quant_edge(r, c, dtype, kind)
+    values, scales = quant.quantize_int8(x, seed=3)
+    want_v, want_s = quant.quantize_int8_plain(x, seed=3)
+    assert torch.equal(scales, want_s)
+    assert torch.equal(values, want_v)
+
+
+@pytest.mark.parametrize("r, c, dtype", [
+    (500, 1, torch.float32), (333, 3, torch.bfloat16),
+    (333, 17, torch.float16), (2048, 32000, torch.bfloat16),
+    (2048, 32000, torch.float16),
+])
+def test_dequant_kernel_at_its_edges(cuda, r, c, dtype):
+    values, scales = quant.quantize_int8(_normal_cuda((r, c), 15,
+                                                      torch.float32), seed=4)
+    got = quant.dequantize_int8(values, scales, dtype)
+    assert torch.equal(got, quant.dequantize_int8_plain(values, scales, dtype))

@@ -17,6 +17,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from tpu_on_k8s.data import DataLoader as JDataLoader
 from tpu_on_k8s.data import FixedRecordDataset as JDataset
@@ -315,3 +316,43 @@ def test_cli_trains_from_a_packed_record_file(tmp_path, capsys):
 def test_cli_unported_flags_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         train_llama.main(["--config", "tiny", "--device", "cpu", *argv])
+
+
+class _CountProducts(TorchDispatchMode):
+    """Counts the dense products (``aten.mm``) run under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.mm = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.mm += func is torch.ops.aten.mm.default
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_mlp_remat_keeps_the_products_of_the_mlp_input(int8):
+    """``remat_policy="mlp"`` saves what the reference's
+    ``dots_with_no_batch_dims_saveable`` saves: the outputs of the gate and
+    up products. Its backward runs as many dense products as the backward
+    without remat (the SiLU and the product are recomputed, no GEMM); with
+    ``mlp_int8`` it re-runs only w_down's int8 forward (whose product, on
+    CPU tensors, is the plain twin's ``mm``), one a layer. The fp32
+    gradients equal those without remat, bit for bit."""
+    cfg = dataclasses.replace(TransformerConfig.tiny(), mlp_int8=int8,
+                              remat_policy="mlp")
+    tokens = torch.from_numpy(packed_tokens())
+    params = pparams.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                                 dtype=torch.float32)
+    runs = []
+    for remat in (False, True):
+        model = pparams.load_model(dataclasses.replace(cfg, remat=remat),
+                                   params, "cpu")
+        loss = model(tokens).square().mean()
+        counter = _CountProducts()
+        with counter:
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+        runs.append((counter.mm, grads))
+    (mm_plain, g_plain), (mm_remat, g_remat) = runs
+    assert mm_remat == mm_plain + (cfg.n_layers if int8 else 0)
+    assert all(torch.equal(a, b) for a, b in zip(g_plain, g_remat))

@@ -24,6 +24,7 @@ from tpu_on_k8s_torch.models.transformer import (
     TransformerConfig,
     check_supported,
 )
+from tpu_on_k8s_torch.ops.int8_matmul import div127
 
 #: The position-bucket granule (and the reference's paged-KV page size), in
 #: tokens: every cache length ``generate`` allocates is a multiple of it.
@@ -43,7 +44,7 @@ def _absmax_rows(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     reference's: scale = max|w| / 127 floored at 1e-9 (after the division,
     unlike the ops' 1e-30 floor before it), round half to even, clip."""
     w32 = w.float()
-    s = torch.clamp(w32.abs().amax(dim=-1) / 127.0, min=1e-9)
+    s = torch.clamp(div127(w32.abs().amax(dim=-1)), min=1e-9)
     q = torch.clamp(torch.round(w32 / s[:, None]), -127, 127)
     return q.to(torch.int8), s
 

@@ -9,7 +9,8 @@ head, and ``features`` for the chunked loss.
 
 PyTorch idiom in place of Flax's: ``nn.Module``s whose parameters are plain
 tensors, a Python loop over per-layer blocks in place of ``nn.scan`` over
-stacked parameters, ``torch.utils.checkpoint`` in place of ``nn.remat``, and
+stacked parameters, ``torch.utils.checkpoint`` in place of ``nn.remat``
+(selective, with a policy, where the reference's remat has one), and
 KV caches preallocated by ``decode.init_cache`` and written in place. Dense
 layers are ``Dense`` (an ``nn.Linear``: weight ``[out, in]``, the transpose
 of a Flax ``kernel``) stored in ``cfg.param_dtype`` and cast to ``cfg.dtype``
@@ -36,13 +37,18 @@ counterpart here: they are accepted and have no effect.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from tpu_on_k8s_torch.ops.flash_attention import (
     NEG_INF,
@@ -440,14 +446,44 @@ class MLP(nn.Module):
         return self.w_down(F.silu(gate) * up)
 
 
+#: The products whose outputs ``remat_policy="mlp"`` keeps: the dense
+#: ``mm`` and the ``int8_impl="xla"`` route's ``_int_mm``, as the
+#: reference's ``dots_with_no_batch_dims_saveable`` keeps ``dot_general``
+#: outputs (its bf16 dots and its int8 ``dot_general``). The hand-written
+#: int8 kernel is no dot, so its output is recomputed, as a ``pallas_call``'s
+#: is there.
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten._int_mm.default)
+
+
+def _mlp_remat_policy(width: int):
+    """The policy of the MLP's selective checkpoint: save the outputs of the
+    products that read the MLP's input (gate and up, or the fused gate+up:
+    their first operand is ``width`` wide), recompute everything else. The
+    backward then re-runs only the SiLU and the product (and the int8
+    quantization and epilogue). ``w_down``'s output is not read by the
+    backward, so it is not kept; the reference's XLA drops its product from
+    the recompute, and torch's recompute stops before a dense ``mm`` whose
+    inputs are the last tensors it saves."""
+    def policy(ctx, op, *args, **kwargs):
+        if op in _SAVED_PRODUCTS and args[0].shape[-1] == width:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
 class Block(nn.Module):
     """Pre-norm block. With ``remat`` and ``remat_policy="mlp"`` the MLP is
-    recomputed in the backward pass while the attention's residuals stay
-    (the reference's MLP-only ``nn.remat``)."""
+    checkpointed selectively in the backward pass while the attention's
+    residuals stay (the reference's MLP-only ``nn.remat`` with
+    ``dots_with_no_batch_dims_saveable``): the outputs of the gate and up
+    products are kept, the rest of the MLP is recomputed."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.remat_mlp = cfg.remat and cfg.remat_policy == "mlp"
+        self.remat_context = functools.partial(
+            create_selective_checkpoint_contexts,
+            _mlp_remat_policy(cfg.d_model))
         self.attn_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype)
         self.attn = Attention(cfg)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype)
@@ -459,7 +495,8 @@ class Block(nn.Module):
         h = x + self.attn(self.attn_norm(x), pos, cache, segments)
         y = self.mlp_norm(h)
         if self.remat_mlp and torch.is_grad_enabled():
-            return h + checkpoint(self.mlp, y, use_reentrant=False)
+            return h + checkpoint(self.mlp, y, use_reentrant=False,
+                                  context_fn=self.remat_context)
         return h + self.mlp(y)
 
 

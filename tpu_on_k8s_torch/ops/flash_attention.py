@@ -17,10 +17,16 @@ reference's: q ``[B, H, L, D]``, k/v ``[B, Hkv, L, D]`` with GQA by index
   the counterpart of the reference's custom VJPs ``_flash``, ``_flash_seg``
   and ``flash_with_lse``.
 
-On a CUDA tensor each wrapper launches its kernel (bf16 or fp32, head dim 64
-or 128) or raises; it never falls back. On a CPU tensor it runs the plain
-twin (``flash_attention_plain``, ``flash_bwd_dq_plain``,
-``flash_bwd_dkv_plain``), the same function in plain PyTorch. The TPU
+On a CUDA tensor each wrapper launches its kernel (bf16 or fp32) or raises;
+it never falls back. The kernels are built for head dims 64 and 128; any
+other head dim up to 128 is zero-padded to the next of them before the
+launch and the outputs sliced back (``with_kernel_head_dim``), with the
+scale of the true head dim, as Mosaic pads the reference's head dim to its
+128-lane tile. Zero columns add nothing to q·k, to o, or to the gradients'
+sums, so the padding is exact; a head dim above 128 raises. On a CPU
+tensor it runs the plain twin (``flash_attention_plain``,
+``flash_bwd_dq_plain``, ``flash_bwd_dkv_plain``), the same function in
+plain PyTorch. The TPU
 kernels' ``block_q``/``block_k`` and pad-to-``padded_len`` are TPU tiling and
 do not carry over: the kernels own their tiles and mask ragged lengths
 themselves. A query row that no key is visible to (possible only with
@@ -34,6 +40,7 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30  # large-but-finite: keeps exp(masked - m) an exact underflow
 
@@ -46,6 +53,34 @@ dkv_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run a head dim ``d`` at: 64 or 128."""
+    for width in _HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(f"flash kernel takes head dims up to {_HEAD_DIMS[-1]}, "
+                     f"got {d}")
+
+
+def with_kernel_head_dim(call, tensors, n_wide: int):
+    """``call(*padded, scale=d ** -0.5)`` on ``tensors`` (q, k, v, and dO in
+    the backward; head dim last) zero-padded from their head dim d to
+    ``kernel_head_dim(d)``, with the first ``n_wide`` outputs sliced back
+    to d. The scale is the true head dim's. Padding is exact: zero columns
+    add nothing to q·k (so lse is unchanged) and come out of o, dq, dk and
+    dv as zeros, which the slice drops."""
+    d = tensors[0].shape[-1]
+    width = kernel_head_dim(d)
+    if width != d:
+        tensors = [F.pad(t, (0, width - d)) for t in tensors]
+    out = call(*tensors, scale=d ** -0.5)
+    if width == d:
+        return out
+    if isinstance(out, torch.Tensor):
+        return out[..., :d]
+    return tuple(o[..., :d] if i < n_wide else o for i, o in enumerate(out))
 
 
 def _check(q, k, v, valid_len: int, segments) -> None:
@@ -98,27 +133,33 @@ def _grouped(x: torch.Tensor, hkv: int) -> torch.Tensor:
     return x.reshape(x.shape[0], hkv, x.shape[1] // hkv, *x.shape[2:])
 
 
-def _scores(q, k, causal: bool, valid_len: int, segments) -> torch.Tensor:
+def _scores(q, k, causal: bool, valid_len: int, segments,
+            scale: Optional[float] = None) -> torch.Tensor:
     """fp32 scores ``scale * q.k`` masked to ``NEG_INF``,
-    ``[B, Hkv, rep, L, L]`` (scale after the dot, as the kernels)."""
+    ``[B, Hkv, rep, L, L]`` (scale after the dot, as the kernels; default
+    ``D ** -0.5``)."""
     b, _, l, d = q.shape
-    s = (d ** -0.5) * torch.matmul(_acc(_grouped(q, k.shape[1])),
-                                   _acc(k)[:, :, None].transpose(-1, -2))
+    if scale is None:
+        scale = d ** -0.5
+    s = scale * torch.matmul(_acc(_grouped(q, k.shape[1])),
+                             _acc(k)[:, :, None].transpose(-1, -2))
     return torch.where(_keep_mask(b, l, causal, valid_len, segments,
                                   q.device), s, NEG_INF)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, valid_len: int = 0,
-                          segments: Optional[torch.Tensor] = None
+                          segments: Optional[torch.Tensor] = None,
+                          scale: Optional[float] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's function in plain PyTorch, in one pass over all
     keys (no tiles): fp32 scores masked to ``NEG_INF``, softmax statistics
     in fp32, probabilities cast to the input type before the V product.
-    Same layouts and outputs as ``flash_with_lse_fwd``."""
+    Same layouts and outputs as ``flash_with_lse_fwd``; ``scale`` defaults
+    to ``D ** -0.5``."""
     _check(q, k, v, valid_len, segments)
     b, h, l, d = q.shape
-    s = _scores(q, k, causal, valid_len, segments)
+    s = _scores(q, k, causal, valid_len, segments, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True)
@@ -128,33 +169,36 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-def _probs_and_ds(q, k, v, do, lse, delta, causal, valid_len, segments):
+def _probs_and_ds(q, k, v, do, lse, delta, causal, valid_len, segments,
+                  scale=None):
     """p = exp(s − lse) and ds = p ∘ (dp − delta) · scale in fp32, with
     dp = dO·Vᵀ: ``[B, Hkv, rep, L, L]`` each, from the saved lse."""
-    hkv, d = k.shape[1], q.shape[-1]
-    p = torch.exp(_scores(q, k, causal, valid_len, segments)
+    hkv = k.shape[1]
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    p = torch.exp(_scores(q, k, causal, valid_len, segments, scale)
                   - _grouped(lse, hkv).transpose(-1, -2))
     dp = torch.matmul(_acc(_grouped(do, hkv)),
                       _acc(v)[:, :, None].transpose(-1, -2))
-    ds = p * (dp - _grouped(delta, hkv).transpose(-1, -2)) * d ** -0.5
+    ds = p * (dp - _grouped(delta, hkv).transpose(-1, -2)) * scale
     return p, ds
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool = True,
                        valid_len: int = 0,
-                       segments: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       segments: Optional[torch.Tensor] = None,
+                       scale: Optional[float] = None) -> torch.Tensor:
     """The dq kernel's function in plain PyTorch: dq = ds·K with ds cast to
     the input type, fp32 sums. ``lse``/``delta`` ``[B, H, 1, L]`` fp32."""
     _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, valid_len,
-                          segments)
+                          segments, scale)
     dq = torch.matmul(_acc(ds.to(k.dtype)), _acc(k)[:, :, None])
     return dq.to(q.dtype).reshape(q.shape)
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = True,
                         valid_len: int = 0,
-                        segments: Optional[torch.Tensor] = None
+                        segments: Optional[torch.Tensor] = None,
+                        scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dk/dv kernel's function in plain PyTorch: per q-head dv = pᵀ·dO
     and dk = dsᵀ·Q (p and ds cast to the input type, fp32 sums), each cast
@@ -162,7 +206,7 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = True,
     order r = 0..rep−1, as ``_dkv_kernel`` accumulates its output block."""
     hkv = k.shape[1]
     p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, valid_len,
-                          segments)
+                          segments, scale)
     dv_r = torch.matmul(_acc(p.to(do.dtype)).transpose(-1, -2),
                         _acc(_grouped(do, hkv))).to(v.dtype)
     dk_r = torch.matmul(_acc(ds.to(q.dtype)).transpose(-1, -2),
@@ -225,12 +269,10 @@ def _kernel_ok(t: torch.Tensor) -> bool:
 
 
 def _check_kernel_inputs(q, k, v) -> None:
-    b, h, _, d = q.shape
+    b, h = q.shape[:2]
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"flash kernel takes bfloat16 or float32, got "
                          f"{q.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head dim {_HEAD_DIMS}, got {d}")
     if h > 65535 or b > 65535:
         raise ValueError(f"grid too large: batch {b}, heads {h}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -246,7 +288,7 @@ def _segments_arg(segments):
     return segments, segments.data_ptr()
 
 
-def _launch(q, k, v, causal: bool, valid_len: int, segments
+def _launch(q, k, v, causal: bool, valid_len: int, segments, scale: float
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     global launches
     b, h, l, d = q.shape
@@ -262,7 +304,7 @@ def _launch(q, k, v, causal: bool, valid_len: int, segments
         err = lib.flash_fwd(
             _DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             seg_ptr, o.data_ptr(), lse.data_ptr(), b, h, k.shape[1], l,
-            int(causal), valid_len, d ** -0.5, strides, stream)
+            int(causal), valid_len, scale, strides, stream)
     if err:
         raise RuntimeError(f"flash_fwd launch failed: "
                            f"{lib.flash_fwd_error_string(err).decode()}")
@@ -271,7 +313,7 @@ def _launch(q, k, v, causal: bool, valid_len: int, segments
 
 
 def _launch_bwd(name: str, q, k, v, do, lse, delta, causal: bool,
-                valid_len: int, segments, outs) -> None:
+                valid_len: int, segments, scale: float, outs) -> None:
     """Launch ``flash_bwd_dq`` or ``flash_bwd_dkv`` writing ``outs``."""
     b, h, l, d = q.shape
     _check_kernel_inputs(q, k, v)
@@ -294,7 +336,7 @@ def _launch_bwd(name: str, q, k, v, do, lse, delta, causal: bool,
             _DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), seg_ptr,
             *(t.data_ptr() for t in outs), b, h, k.shape[1], l, int(causal),
-            valid_len, d ** -0.5, strides, stream)
+            valid_len, scale, strides, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.flash_bwd_error_string(err).decode()}")
@@ -327,9 +369,14 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, valid_len,
                                   segments)
     _require_cuda(q)
-    dq = torch.empty_like(q)
-    _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, causal, valid_len,
-                segments, (dq,))
+
+    def launch(q, k, v, do, scale):
+        dq = torch.empty_like(q)
+        _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, causal,
+                    valid_len, segments, scale, (dq,))
+        return dq
+
+    dq = with_kernel_head_dim(launch, (q, k, v, do), 1)
     dq_launches += 1
     return dq
 
@@ -351,9 +398,14 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
                                    valid_len, segments)
     _require_cuda(q)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, causal, valid_len,
-                segments, (dk, dv))
+
+    def launch(q, k, v, do, scale):
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, causal,
+                    valid_len, segments, scale, (dk, dv))
+        return dk, dv
+
+    dk, dv = with_kernel_head_dim(launch, (q, k, v, do), 2)
     dkv_launches += 1
     return dk, dv
 
@@ -378,7 +430,9 @@ def flash_with_lse_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, valid_len, segments)
     _require_cuda(q)
-    return _launch(q, k, v, causal, valid_len, segments)
+    return with_kernel_head_dim(
+        lambda q, k, v, scale: _launch(q, k, v, causal, valid_len, segments,
+                                       scale), (q, k, v), 1)
 
 
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -16,8 +16,10 @@ K-contiguous, the B operand an int8 MMA reads. ``x`` is ``[..., K]``; the
 result is ``[..., N]``.
 
 - ``int8_matmul`` (``int8_impl="xla"``): the product of XLA's ``dot_general``
-  — on a CUDA tensor ``torch._int_mm`` with the epilogue in PyTorch (a
-  shape ``_int_mm`` refuses raises).
+  — on a CUDA tensor ``torch._int_mm`` with the epilogue in PyTorch. The
+  operands are zero-padded to the shapes ``_int_mm`` takes on the card
+  (M > 16, K and N multiples of 8) and the product sliced back, so every
+  shape runs, as ``dot_general`` takes every shape.
 - ``int8_matmul_pallas`` (``int8_impl="pallas"``): on a CUDA tensor the
   product and its epilogue run in one hand-written kernel,
   ``csrc/int8_matmul.cu`` (the counterpart of ``_mm_kernel``): the int32
@@ -38,6 +40,7 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 #: Launches of ``csrc/int8_matmul.cu`` since the count was last set to 0.
 launches = 0
@@ -48,13 +51,27 @@ MAX_K = (2 ** 31 - 1) // (127 * 127)
 _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
+@functools.lru_cache(maxsize=None)
+def _one_twenty_seven(device: torch.device) -> torch.Tensor:
+    return torch.full((), 127.0, device=device)
+
+
+def div127(t: torch.Tensor) -> torch.Tensor:
+    """``t / 127`` as a true division on every device, as the reference
+    divides. A divisor that is a Python float (or any CPU scalar) takes
+    CUDA's reciprocal route, ``t * fp32(1/127)``, one ulp off the quotient
+    in ~4% of rows; a 0-dim divisor on ``t``'s own device divides."""
+    return t / _one_twenty_seven(t.device)
+
+
 def _quant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """[..., K] → (int8 values [..., K], fp32 scales [..., 1]): one scale per
     row, the last dim reduced. The reference's ``_quant_rows``; for the
     port's ``[N, K]`` weight it is also ``_quant_cols`` (one scale per
     output channel)."""
     x32 = x.float()
-    scale = torch.clamp(x32.abs().amax(dim=-1, keepdim=True), min=1e-30) / 127.0
+    scale = div127(torch.clamp(x32.abs().amax(dim=-1, keepdim=True),
+                               min=1e-30))
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -72,8 +89,20 @@ def int8_matmul_plain(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
 
 def _int_mm(xq, sx, wq, sw, out_dtype) -> torch.Tensor:
     """``int8_impl="xla"`` on the card: ``torch._int_mm``'s int32 product,
-    then the epilogue in PyTorch (two passes over device memory)."""
-    acc = torch._int_mm(xq, wq.t())
+    then the epilogue in PyTorch (two passes over device memory).
+
+    ``_int_mm`` on the card takes M > 16 and K, N multiples of 8 only, so xq
+    is zero-padded to at least 17 rows and both operands to K and N
+    multiples of 8; zeros add nothing to an int32 sum, and the product is
+    sliced back to [M, N] before the epilogue: the bits are unchanged."""
+    m, k = xq.shape
+    n = wq.shape[0]
+    kp = -(-k // 8) * 8
+    if m < 17 or kp != k:
+        xq = F.pad(xq, (0, kp - k, 0, max(17 - m, 0)))
+    if n % 8 or kp != k:
+        wq = F.pad(wq, (0, kp - k, 0, -n % 8))
+    acc = torch._int_mm(xq, wq.t())[:m, :n]
     return (acc.float() * sx.reshape(-1, 1) * sw.reshape(1, -1)).to(out_dtype)
 
 

@@ -44,7 +44,26 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
 3c. int8 serving: ``mlp_int8`` + ``head_int8`` greedy decoding at batch 4
    on the ``int8_impl="xla"`` route (``torch._int_mm`` at decode's M) and
    on the int8 GEMM kernel, with equal tokens;
-3d. both CLIs (``generate``, ``train_llama``) with their own defaults;
+3d. the three CLIs (``generate``, ``train_llama``, ``serve``) with their
+   own defaults;
+3e. continuous batching: ``ContinuousBatchingEngine`` on phase 3's weights,
+   8 slots of 2048 positions, greedy, serves 24 seeded requests (prompts
+   64-1000 tokens, 16-64 new, two submitted per step) five times: (a)
+   dense, (b) paged, (c) with chunked prefill, (d) with a registered
+   384-token prefix that 8 requests carry, (e) dense again. In (c), (d)
+   and (e) every flash call is held against the plain attention on the
+   engine's own q, k, v, within the bf16 tolerance. (b)'s and (e)'s tokens
+   equal (a)'s; every token of (a), (c) and (d) is within tau
+   (``TAU_MULT`` x phase 3's kernel-vs-plain logit distance) of the
+   maximum of a teacher-forced, no-cache forward on the plain attention,
+   and at least ``EXACT_MIN`` of them its argmax, while a control run with
+   a planted fault (each decode step's K/V written one position late)
+   must break both limits in every request; the flash forward launches
+   once a layer per prefill from an empty cache, as the engine counts
+   them (none for a later chunk or a suffix); every request is complete;
+   (b)'s pool drains with its null page zero. The decode step at full
+   occupancy, prefill times by bucket (CUDA events), tokens/s and the time
+   to first token of (a) and (b) are printed;
 4. training: a gradient gate (the first step's gradients of the kernel
    model against plain-attention models in bf16 and fp32), then ``Trainer``
    at ``llama2_1b`` (16 layers, full width, fp32 masters, bf16 compute,
@@ -76,6 +95,7 @@ from contextlib import nullcontext
 from pathlib import Path
 from unittest import mock
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -117,6 +137,27 @@ W8_NOISE_MULT = 1.5
 # max|q*s - w| <= max|w| / 60 per matrix.
 W8_WEIGHT_BOUND = 1 / 60
 W8_SEED = 7
+
+# Phase 3e, continuous batching at llama2_7b width: 24 requests from a
+# numpy seed, prompts of 64-1000 tokens (buckets 128-1024) and 16-64 new
+# tokens each, two submitted per engine step, on 8 slots of 2048 positions;
+# engine (d) registers a 384-token prefix that 8 of the requests carry.
+ENGINE_SEED, ENGINE_REQUESTS, ENGINE_SLOTS, ENGINE_MAX_LEN = 3, 24, 8, 2048
+ENGINE_PREFIX, ENGINE_CARRIERS, ENGINE_PAGES = 384, 8, 160
+# Each greedy token the engine emits must be within tau of the maximum of a
+# teacher-forced, no-cache forward of the same bf16 model on the plain
+# attention, at the same position, and at least EXACT_MIN of them must be
+# its argmax. Random weights give near-tied logits, so the engine's bf16
+# path (kernel prefill, M = 8 decode GEMMs) may pick a close second; a
+# fault must not. Both limits sit between two readings on an H100 (see
+# PERF.md), in units of phase 3's max|kernel - plain| prefill logits
+# (0.3736): the sound engines' worst gap 0.199-0.246 (0.53-0.66 of it) and
+# 86.7-87.1% exact; a control run with a planted fault (each decode step's
+# K/V written one position late) 0.4235 (1.13 of it) as the smallest of
+# its requests' worst gaps, and 54.2% exact. The control runs every time
+# and must break both limits in every request.
+TAU_MULT = 0.9
+EXACT_MIN = 0.7
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
 # The int8 GEMM at the llama2_1b training shapes, M = batch x seq rows:
@@ -693,20 +734,23 @@ def serve_int8_routes(cfg, params, prompt4, mods, decode) -> dict:
 
 
 def run_clis(mods) -> dict:
-    """Phase 3d: both CLIs with their own defaults (``--config tiny`` on
-    ``cuda``: head dim 16, through the padded flash kernels), in process.
-    Returns their launches."""
+    """Phase 3d: the three CLIs with their own defaults (``--config tiny``
+    on ``cuda``: head dim 16, through the padded flash kernels), in
+    process. Returns their launches."""
     import contextlib
     import io
 
     from tpu_on_k8s_torch import generate as generate_cli
+    from tpu_on_k8s_torch import serve as serve_cli
     from tpu_on_k8s_torch import train_llama
 
     reset_counts(mods)
-    out = io.StringIO()
+    out, served_out = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out):
         tokens = generate_cli.main([])
         loss = train_llama.main([])
+    with contextlib.redirect_stdout(served_out):
+        served = serve_cli.main([])
     torch.cuda.synchronize()
     launched = read_counts(mods)
     lines = out.getvalue().splitlines()
@@ -715,7 +759,11 @@ def run_clis(mods) -> dict:
           f"train_llama (defaults: tiny, cuda, 50 steps): final loss "
           f"{loss:.5f}; {len(lines)} lines of output, the last: {lines[-1]}; "
           f"launches {launched}")
-    if tuple(tokens.shape) != (1, 32) or not math.isfinite(loss):
+    print(f"[cli] python -m tpu_on_k8s_torch.serve (defaults: tiny, cuda, 16 "
+          f"requests): {served_out.getvalue().splitlines()[-1]}")
+    if (tuple(tokens.shape) != (1, 32) or not math.isfinite(loss)
+            or len(served) != 16
+            or any(t.shape != (16,) for t in served.values())):
         fail("a CLI with its own defaults did not finish")
     if not (launched["flash_fwd"] and launched["flash_bwd_dq"]
             and launched["flash_bwd_dkv"]):
@@ -733,6 +781,257 @@ class _CountProducts(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         self.mm += func is torch.ops.aten.mm.default
         return func(*args, **(kwargs or {}))
+
+
+def engine_traffic(vocab: int):
+    """Phase 3e's requests [(prompt, max_new_tokens)], the prefix and the
+    indices of the requests that carry it, from ENGINE_SEED."""
+    rng = np.random.default_rng(ENGINE_SEED)
+    reqs = [(rng.integers(0, vocab, size=int(rng.integers(64, 1001)))
+             .astype(np.int32), int(rng.integers(16, 65)))
+            for _ in range(ENGINE_REQUESTS)]
+    prefix = rng.integers(0, vocab, size=ENGINE_PREFIX).astype(np.int32)
+    carriers = set(rng.choice(ENGINE_REQUESTS, ENGINE_CARRIERS,
+                              replace=False).tolist())
+    return reqs, prefix, carriers
+
+
+def drive_engine(engine, reqs, prefix, carriers, mods, clock) -> dict:
+    """Serve ``reqs`` on ``engine`` (two submitted per step until all are
+    in; with ``prefix``, registered first and carried by ``carriers``) and
+    check its flash launches: one a layer per prefill from an empty cache,
+    as the engine counts them in ``stats["fresh_prefills"]`` (the batched
+    admissions, the prefix, each chunked prompt's first chunk; never a
+    later chunk or a suffix). Returns the tokens, the launches and the
+    times: decode steps entered with every slot busy (host clock; each
+    step ends in its copy of tokens to the host), admission prefills by
+    (bucket, batch) on CUDA events (no synchronize inside the run), time to
+    first token on the engine's ``clock``, and the wall time."""
+    # prefill times by bucket are what the reference's metrics object
+    # records; until that is ported, events around the engine's own
+    # prefill call take them
+    events = []
+    prefill_call = engine._prefill
+
+    def prefill(prompts, lps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        out = prefill_call(prompts, lps)
+        end.record()
+        events.append((prompts.shape[::-1], start, end))
+        return out
+
+    engine._prefill = prefill
+    before = read_counts(mods)
+    t_start = time.perf_counter()
+    pid = engine.register_prefix(prefix) if prefix is not None else None
+    submitted, first, out, step_ms = {}, {}, {}, []
+
+    def on_token(rid, tok):
+        first.setdefault(rid, clock())
+
+    while len(out) < len(reqs):
+        for _ in range(2):
+            j = len(submitted)
+            if j < len(reqs):
+                submitted[j] = clock()
+                rid = engine.submit(*reqs[j], on_token=on_token,
+                                    prefix_id=pid if j in carriers else None)
+                if rid != j:
+                    fail(f"engine request id {rid} for request {j}")
+        full = engine.free_slots == 0
+        t0 = time.perf_counter()
+        for rid in engine.step():     # ends in the step's copy to the host
+            out[rid] = engine.result(rid)
+        if full:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    wall = time.perf_counter() - t_start
+    after = read_counts(mods)
+    launched = {name: after[name] - before[name] for name in after}
+    fresh = engine.stats["fresh_prefills"]
+    for j, (_, n) in enumerate(reqs):
+        if j not in out or out[j].shape != (n,):
+            fail(f"engine request {j}: {out.get(j)} for {n} new tokens")
+    if (launched["flash_fwd"] != engine.cfg.n_layers * fresh
+            or any(c for name, c in launched.items() if name != "flash_fwd")):
+        fail(f"engine launches {launched} for {fresh} fresh prefills "
+             f"(engine stats {engine.stats})")
+    torch.cuda.synchronize()
+    prefill_ms: dict = {}
+    for shape, start, end in events:
+        prefill_ms.setdefault(shape, []).append(start.elapsed_time(end))
+    return {"tokens": out, "launched": launched, "fresh": fresh,
+            "step_ms": step_ms, "prefill_ms": prefill_ms,
+            "ttft_ms": [(first[j] - submitted[j]) * 1e3 for j in out],
+            "wall": wall, "emitted": sum(len(t) for t in out.values())}
+
+
+def flash_checked(transformer, plain_flash, worst: dict):
+    """Patch the model's ``flash_attention`` so that each call runs the
+    kernel (counted, its output returned) and then the plain attention on
+    the same q, k, v, keeping max|o - plain| per (L, B) in ``worst``."""
+    kernel = transformer.flash_attention
+
+    def checked(q, k, v, causal=True, segments=None):
+        o = kernel(q, k, v, causal, segments)
+        err = (o.float() - plain_flash(q, k, v, causal, segments).float()
+               ).abs().max().item()
+        key = (q.shape[1], q.shape[0])
+        worst[key] = max(worst.get(key, 0.0), err)
+        return o
+
+    return mock.patch.object(transformer, "flash_attention", checked)
+
+
+def teacher_forced_gaps(model, reqs, tokens, prefix, carriers, plain_flash,
+                        transformer, decode) -> list:
+    """max logit - logit[emitted token] at every emitted position, from one
+    no-cache forward per request of prompt + emitted tokens on the plain
+    attention (the flash kernel patched out)."""
+    dev = model.embed.device
+    gaps = []
+    with torch.inference_mode(), mock.patch.object(
+            transformer, "flash_attention", plain_flash):
+        for j, (p, n) in enumerate(reqs):
+            full = np.concatenate([prefix, p]) if j in carriers else p
+            seq = np.concatenate([full, tokens[j][:-1]])
+            logits = model(torch.from_numpy(seq)[None].to(dev), None,
+                           decode.init_cache(model, 1, seq.size))
+            rows = logits[0, full.size - 1:]
+            emitted = torch.from_numpy(tokens[j]).to(dev, torch.long)
+            gaps.append(rows.max(dim=-1).values
+                        - rows.gather(1, emitted[:, None])[:, 0])
+    return gaps
+
+
+def serve_engine(cfg, params, mods, plain_flash, diff, gpu, serving,
+                 transformer, decode) -> dict:
+    """Phase 3e: the continuous-batching engine at llama2_7b width, greedy,
+    on five engines over the same traffic: (a) dense, (b) paged
+    (ENGINE_PAGES pages of 128 tokens), (c) dense with prefill_chunk 256,
+    (d) dense with a registered prefix, (e) (a) again. In (c), (d) and (e)
+    every flash call is held against the plain attention on its own
+    inputs; (a) and (b) are timed. Gates: the flash outputs within the
+    bf16 tolerance at every (bucket, batch); (b)'s and (e)'s tokens equal
+    (a)'s; every token of (a), (c), (d) within tau of the teacher-forced
+    maximum and at least EXACT_MIN of them its argmax, and a control run
+    with a planted fault (each decode step's K/V written one position
+    late) caught by both in every request; flash launches
+    one a layer per fresh prefill (``drive_engine``); every request
+    complete; (b)'s pool drained and its null page zero. Prints the times
+    of (a) and (b). Returns the launches of (a)-(e)."""
+    reqs, prefix, carriers = engine_traffic(cfg.vocab_size)
+    dev = params["embed"].device
+    kinds = {"a": ("dense", {}),
+             "b": (f"paged, {ENGINE_PAGES} pages of 128 tokens",
+                   {"kv_pages": ENGINE_PAGES, "page_tokens": 128}),
+             "c": ("dense, prefill_chunk 256", {"prefill_chunk": 256}),
+             "d": (f"dense, a {ENGINE_PREFIX}-token prefix carried by "
+                   f"{ENGINE_CARRIERS} requests", {}),
+             "e": ("dense, as (a)", {}),
+             "control": ("dense, each decode step's K/V written one "
+                         "position late (a planted fault)", {})}
+    append = transformer._append_per_row
+
+    def late(k, v, positions, cache):
+        append(k, v, positions + 1, cache)
+
+    worst: dict = {}     # (bucket, batch) -> max|o - plain| of the flash
+    runs = {}
+    reset_counts(mods)
+    for key, (label, kw) in kinds.items():
+        if key == "control":
+            launches = read_counts(mods)
+        engine = serving.ContinuousBatchingEngine(
+            cfg, params, n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+            clock=time.monotonic, device=dev, **kw)
+        ctx = (flash_checked(transformer, plain_flash, worst)
+               if key in ("c", "d", "e") else
+               mock.patch.object(transformer, "_append_per_row", late)
+               if key == "control" else nullcontext())
+        with ctx:
+            run = drive_engine(engine, reqs,
+                               prefix if key == "d" else None,
+                               carriers if key == "d" else set(), mods,
+                               time.monotonic)
+        run["pages_in_use"] = engine.pages_in_use
+        run["null_page_zero"] = engine.null_page_is_zero()
+        runs[key] = run
+        print(f"[engine] ({key}) {kinds[key][0]}: {len(run['tokens'])} "
+              f"requests, {run['emitted']} tokens, steps "
+              f"{engine.stats['steps']}, admitted "
+              f"{engine.stats['admitted']}; fresh prefills {run['fresh']} "
+              f"(prefix {engine.stats['prefix_prefills']}), prefill "
+              f"positions {engine.stats['prefill_positions']}; flash_fwd "
+              f"launches {run['launched']['flash_fwd']} = {cfg.n_layers} x "
+              f"{run['fresh']}")
+        del engine
+        torch.cuda.empty_cache()
+
+    tol_o = TOL[torch.bfloat16][0]
+    print(f"[engine] flash_fwd against the plain attention on the engine's "
+          f"own q, k, v in (c), (d), (e), max|o - plain| by bucket x batch "
+          f"(tol {tol_o:g}): " + ", ".join(
+              f"{l} x {b}: {e:.3e}" for (l, b), e in sorted(worst.items())))
+    if not worst or max(worst.values()) > tol_o:
+        fail("the flash forward strays from the plain attention on the "
+             "engine's inputs")
+    a = runs["a"]["tokens"]
+    for key in "be":
+        same = all(np.array_equal(a[j], runs[key]["tokens"][j]) for j in a)
+        print(f"[engine] ({key}) tokens equal to (a), token for token: "
+              f"{same}")
+        if not same:
+            fail(f"engine ({key})'s tokens differ from the dense engine's")
+    b = runs["b"]
+    print(f"[engine] (b) pages in use after the run {b['pages_in_use']}, "
+          f"null page zero {b['null_page_zero']}")
+    if b["pages_in_use"] or not b["null_page_zero"]:
+        fail("the paged pool did not drain, or its null page is not zero")
+
+    tau = TAU_MULT * diff
+    model = decode.decode_model(
+        dataclasses.replace(cfg, max_seq_len=ENGINE_MAX_LEN), params, dev)
+    for key in ("a", "c", "d", "control"):
+        per_req = teacher_forced_gaps(
+            model, reqs, runs[key]["tokens"], prefix,
+            carriers if key == "d" else set(), plain_flash, transformer,
+            decode)
+        gaps = torch.cat(per_req)
+        exact = (gaps == 0).float().mean().item()
+        req_max = torch.stack([g.max() for g in per_req])
+        caught = int((req_max > tau).sum())
+        print(f"[engine] ({key}) teacher-forced check of {gaps.numel()} "
+              f"tokens: exact argmax {int((gaps == 0).sum())} ({exact:.4f}, "
+              f"min {EXACT_MIN:g}), max gap {gaps.max().item():.4f}, median "
+              f"gap {gaps.median().item():.4f}; per request max gap min "
+              f"{req_max.min().item():.4f} median "
+              f"{req_max.median().item():.4f}, {caught} of {len(per_req)} "
+              f"above tau {tau:.4f} = {TAU_MULT:g} x phase 3's max|kernel "
+              f"- plain| {diff:.4f}")
+        if key != "control" and (caught or exact < EXACT_MIN):
+            fail(f"engine ({key}) emitted tokens off the teacher-forced "
+                 f"maximum (tau {tau:.4f}, exact share {EXACT_MIN:g})")
+        if key == "control" and (caught < len(per_req)
+                                 or exact >= EXACT_MIN):
+            fail("the teacher-forced gate did not catch the planted fault "
+                 "in every request")
+    del model
+
+    for key in "ab":
+        run = runs[key]
+        by_bucket = ", ".join(
+            f"{bucket} x {n}: {statistics.median(ms):.2f} ms ({len(ms)})"
+            for (bucket, n), ms in sorted(run["prefill_ms"].items()))
+        print(f"[time] {gpu}: engine ({key}) {kinds[key][0]}, llama2_7b "
+              f"bf16, {ENGINE_SLOTS} slots: decode step at occupancy "
+              f"{ENGINE_SLOTS} median {statistics.median(run['step_ms']):.2f} "
+              f"ms over {len(run['step_ms'])} steps; prefill by bucket x "
+              f"batch (median on CUDA events, calls) {by_bucket}; "
+              f"{run['emitted'] / run['wall']:.1f} tokens/s aggregate "
+              f"({run['emitted']} tokens in {run['wall']:.2f} s); p50 TTFT "
+              f"{statistics.median(run['ttft_ms']):.1f} ms")
+    return launches
 
 
 def backward_products(model, loss_fn, tokens) -> int:
@@ -803,7 +1102,7 @@ def main() -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 1
 
-    from tpu_on_k8s_torch.models import convert, decode, transformer
+    from tpu_on_k8s_torch.models import convert, decode, serving, transformer
     from tpu_on_k8s_torch.models.params import init_params, load_model
     from tpu_on_k8s_torch.ops import _build
     from tpu_on_k8s_torch.ops import flash_attention as fa
@@ -1189,6 +1488,10 @@ def main() -> int:
     # ---- 3c. int8 serving on both int8 routes; 3d. the CLIs' defaults ---
     by_path["serve_int8"] = serve_int8_routes(cfg, params, prompt4, mods,
                                               decode)
+
+    # ---- 3e. continuous batching at llama2_7b width --------------------
+    by_path["engine"] = serve_engine(cfg, params, mods, plain_flash, diff,
+                                     gpu, serving, transformer, decode)
     del params
     torch.cuda.empty_cache()
     by_path["cli"] = run_clis(mods)

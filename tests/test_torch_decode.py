@@ -233,8 +233,7 @@ def test_overflow_raises(setup):
 
 
 @pytest.mark.parametrize("flag, value", [
-    ("decode_multislot", True), ("cache_int8", True),
-    ("fused_qkv", True), ("n_experts", 4),
+    ("cache_int8", True), ("fused_qkv", True), ("n_experts", 4),
     ("pos_emb", "learned"), ("norm", "ln"), ("activation", "gelu"),
     ("tie_embeddings", True), ("use_bias", True), ("attn_impl", "ring"),
 ])

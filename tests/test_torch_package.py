@@ -52,6 +52,8 @@ def test_the_scan_sees_the_whole_port():
             "tpu_on_k8s_torch/ops/quantization.py",
             "tpu_on_k8s_torch/models/convert.py",
             "tpu_on_k8s_torch/generate.py",
+            "tpu_on_k8s_torch/models/serving.py",
+            "tpu_on_k8s_torch/serve.py",
             "tpu_on_k8s_torch/train_llama.py",
             "tpu_on_k8s_torch/train/trainer.py",
             "tpu_on_k8s_torch/train/optimizer.py",

@@ -6,7 +6,9 @@ positions [0, len), attention among the prompt runs the flash kernel); each
 step then attends over the cache with a single-token query. The reference's
 ``lax.scan`` under ``jit`` becomes a Python loop run eagerly.
 ``quantize_weights_for_serving`` makes the W8A16 tree that a
-``serve_int8_weights`` config serves.
+``serve_int8_weights`` config serves. ``cache_shapes``, ``init_cache`` and
+``_set_cursor`` also serve the continuous-batching engine
+(``models/serving.py``).
 """
 from __future__ import annotations
 
@@ -95,15 +97,42 @@ def decode_model(cfg: TransformerConfig, params: Dict[str, torch.Tensor],
     return model.eval().requires_grad_(False)
 
 
-def init_cache(model: Transformer, batch: int) -> List[KVCache]:
-    """Zeroed per-layer caches for a generation batch, on the model's
-    device: ``[batch, max_seq_len, Hkv, Dh]`` in ``cfg.dtype``."""
+def cache_shapes(model: Transformer, batch: int,
+                 length: Optional[int] = None
+                 ) -> Tuple[Tuple[int, ...], torch.dtype]:
+    """The shape and dtype of each of a cache's two stacked tensors (K and
+    V): ``[n_layers, batch, length, Hkv, Dh]`` in ``cfg.dtype``, ``length``
+    defaulting to the model's ``max_seq_len``."""
     cfg = model.cfg
-    shape = (batch, cfg.max_seq_len, cfg.n_kv_heads, cfg.head_dim)
+    return ((cfg.n_layers, batch, length or cfg.max_seq_len,
+             cfg.n_kv_heads, cfg.head_dim), cfg.dtype)
+
+
+def layer_caches(k: torch.Tensor, v: torch.Tensor) -> List[KVCache]:
+    """The per-layer ``KVCache`` views of stacked ``[n_layers, B, ...]`` K
+    and V tensors: a write through a layer's cache lands in the stack."""
+    return [KVCache(k[i], v[i]) for i in range(k.shape[0])]
+
+
+def init_cache(model: Transformer, batch: int,
+               length: Optional[int] = None) -> List[KVCache]:
+    """Zeroed per-layer caches for a generation batch, on the model's
+    device: ``[batch, length, Hkv, Dh]`` in ``cfg.dtype``, views of one
+    stacked K and one stacked V (``cache_shapes``)."""
+    shape, dtype = cache_shapes(model, batch, length)
     dev = model.embed.device
-    return [KVCache(torch.zeros(shape, dtype=cfg.dtype, device=dev),
-                    torch.zeros(shape, dtype=cfg.dtype, device=dev))
-            for _ in range(cfg.n_layers)]
+    return layer_caches(torch.zeros(shape, dtype=dtype, device=dev),
+                        torch.zeros(shape, dtype=dtype, device=dev))
+
+
+def _set_cursor(cache: List[KVCache], value: int) -> List[KVCache]:
+    """Set every layer's append cursor to ``value``, in place (the cursor is
+    a host int): a suffix prefill appends after a prefix this way. Stale
+    K/V past the cursor is harmless: a query attends only to positions at
+    or below its own, and the next append overwrites it first."""
+    for layer in cache:
+        layer.index = value
+    return cache
 
 
 def _bucket_len(total: int, max_seq_len: int) -> int:
@@ -150,7 +179,8 @@ def generate(cfg: TransformerConfig, params: Dict[str, torch.Tensor],
     with torch.inference_mode():
         positions = torch.arange(lp, dtype=torch.int32,
                                  device=dev).expand(b, lp)
-        logits = model(prompt, positions, cache, last_only=True)
+        logits = model(prompt, positions, cache,
+                       at=torch.full((b,), lp - 1, device=dev))
         tok = sample(logits[:, -1], generator, sp)
         out = [tok]
         # the reference's scan makes one more step whose token it drops;

@@ -1,0 +1,1131 @@
+"""Continuous batching: requests join and leave a running decode batch.
+
+Counterpart of ``tpu_on_k8s/models/serving.py``'s ``ContinuousBatchingEngine``
+on one device. ``generate`` (``models/decode.py``) serves one batch of
+same-length requests; serving traffic is ragged and asynchronous, and a
+static batch runs until its longest member finishes. Here:
+
+* The batch dimension is a fixed pool of ``n_slots`` **slots**, each serving
+  one request or free. The cache is one ``[n_layers, n_slots, max_len, Hkv,
+  Dh]`` pair of tensors read by a ``decode_multislot`` model: each row
+  appends at its own position, and a free slot passes the sentinel position
+  ``max_len``, whose append writes nothing.
+* **Admission** prefills on the ordinary cursor-mode model: prompts pad to
+  their 128-token bucket (``decode._bucket_len``), same-bucket arrivals
+  prefill together in groups of ``_ADMIT_BATCH_SIZES``, and a fresh prefill
+  attends among its own tokens through the flash forward kernel. Each row's
+  first token comes from the hidden state at its own last prompt position;
+  its first ``lp`` cache positions are then copied into its slot.
+* A **step** advances every slot ``step_horizon`` tokens, active or not, and
+  returns the tokens to the host once. Retirement is host bookkeeping: the
+  next step runs without the request, and its row computes tokens nobody
+  reads. Positions and tokens stay on the device for the whole horizon.
+* **Prefix caching** (``register_prefix``): a shared prompt is prefilled
+  once; a request carrying its id prefills only its own suffix, appended
+  after the prefix by the cursor-mode model over the whole cache.
+* **Chunked prefill** (``prefill_chunk``): a long prompt prefills one chunk
+  per engine step in a private cache while the other slots keep decoding;
+  its slot is reserved and admits it when the last chunk lands.
+* **Paged KV** (``kv_pages``): the resident cache is a pool of fixed-size
+  pages, refcounted so a registered prefix's full pages are aliased into
+  every request that carries it (copy-on-write at the block table: a fork
+  writes its own fork and suffix pages). A step gathers each slot's block
+  table into the same ``[n_slots, max_len]`` view the dense step reads, runs
+  the same model, and scatters back only each slot's two tail pages; page 0
+  is the null page, zero after every scatter.
+
+The reference scans the horizon inside one compiled program and gathers
+the paged view as a transient inside it. Run eagerly, the horizon is a
+Python loop and the gathered view is one buffer allocated with the engine.
+
+One thread calls ``step``/``run`` (the stepping thread); ``submit`` and
+``result`` may come from other threads. A lock serializes the queue and the
+slot bookkeeping against the stepping thread; device work is
+single-threaded.
+
+Not in this slice (each constructor argument raises ``NotImplementedError``
+naming its slice): the KV handoff and disaggregated prefill, speculative
+decoding, mesh serving, the metrics objects and chaos injection. The int8 KV
+cache (``cache_int8``) raises where the model is built.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import threading
+import time
+import warnings
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tpu_on_k8s_torch.device import resolve_device
+from tpu_on_k8s_torch.models.decode import (
+    PAGE_TOKENS,
+    _bucket_len,
+    _set_cursor,
+    cache_shapes,
+    decode_model,
+    layer_caches,
+    quantize_weights_for_serving,
+)
+from tpu_on_k8s_torch.models.sampling import SamplingParams, sample
+from tpu_on_k8s_torch.models.transformer import KVCache, TransformerConfig
+
+
+class EngineOverloadedError(RuntimeError):
+    """``submit()`` refused: in-flight requests (queued + prefilling +
+    decoding) already meet ``queue_cap``. The typed rejection for callers
+    that bypass a gateway's bounded admission queue: an unbounded engine
+    queue would absorb any burst and melt under it. Carries the saturation
+    snapshot for a 429/Retry-After response."""
+
+    def __init__(self, inflight: int, cap: int) -> None:
+        super().__init__(f"engine saturated: {inflight} requests in flight "
+                         f">= queue_cap {cap}")
+        self.inflight = inflight
+        self.cap = cap
+
+
+class EngineCrashError(RuntimeError):
+    """The engine died mid-step: every slot's request state is lost (the
+    in-process shape of a decode-worker crash). ``reset()`` brings the
+    engine itself back, with its models, prefixes and cache pool; whoever
+    owns the requests re-admits them. A supervisor translating a real worker
+    death raises it so that recovery stays typed."""
+
+
+#: Constructor arguments of the reference's engine that this port does not
+#: cover yet: (argument, the later slice that brings it).
+_NOT_PORTED = (
+    ("mesh", "mesh serving (_ShardPlan)"),
+    ("rules", "mesh serving (_ShardPlan)"),
+    ("draft_cfg", "speculative decoding (_DraftRunner)"),
+    ("draft_params", "speculative decoding (_DraftRunner)"),
+    ("on_spec_round", "speculative decoding (_DraftRunner)"),
+    ("metrics", "the serving metrics objects (ServingMetrics)"),
+    ("kv_metrics", "the serving metrics objects (PagedKVMetrics)"),
+    ("shard_metrics", "the serving metrics objects (ShardMetrics)"),
+    ("spec_metrics", "the serving metrics objects (SpecMetrics)"),
+)
+
+
+@dataclasses.dataclass
+class _Slot:
+    request_id: int
+    pos: int                      # position of the NEXT append (== tokens
+                                  # cached so far)
+    last_token: int               # emitted but not yet fed back
+    emitted: List[int]
+    max_new_tokens: int
+    eos_id: Optional[int]
+    submitted_at: float = 0.0     # submit time on the engine's clock
+    on_token: Optional[Callable[[int, int], Any]] = None
+    pages: Optional[List[int]] = None   # paged mode: this slot's block
+                                  # table (pages[j] backs positions
+                                  # [j*page, (j+1)*page)); leading entries
+                                  # may alias shared prefix pages
+
+
+@dataclasses.dataclass
+class _Pending:
+    request_id: int
+    prompt: np.ndarray            # [lp] int32
+    max_new_tokens: int
+    eos_id: Optional[int]
+    submitted_at: float = 0.0
+    prefix_id: Optional[int] = None
+    on_token: Optional[Callable[[int, int], Any]] = None
+
+
+@dataclasses.dataclass
+class _KV:
+    """A cache as two stacked tensors ``[n_layers, B, length, Hkv, Dh]``;
+    ``layers()`` gives the per-layer ``KVCache`` views a model writes
+    through."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    def layers(self) -> List[KVCache]:
+        return layer_caches(self.k, self.v)
+
+
+@dataclasses.dataclass
+class _Prefilling:
+    """A long prompt mid-chunked-prefill: its KV accumulates in a private
+    batch-1 cache, one chunk per engine step, while decode continues for
+    everyone else; the reserved slot admits it when the last chunk lands."""
+
+    req: _Pending
+    pre_cache: _KV                # [.., 1, max_len, ..] accumulating KV
+    base: int                     # prefix length (0 without a prefix_id)
+    done: int                     # positions cached so far (incl. prefix)
+    total: int                    # base + prompt length
+    pages: Optional[List[int]] = None   # paged mode: the block table
+                                  # reserved at dequeue (admission must not
+                                  # fail after chunks ran)
+    fresh_from: int = 0           # leading entries of ``pages`` that alias
+                                  # shared prefix pages
+
+
+class _PagePool:
+    """Host-side allocator for the paged KV pool: fixed-size pages of token
+    positions, refcounted so shared-prefix pages can be aliased into many
+    slots' block tables (copy-on-write at the block table: a fork writes its
+    own fork and suffix pages and only references the shared full-prefix
+    pages, so a write past the fork never touches a sibling's bytes).
+
+    Page id 0 is the reserved null page: zero on the device, it backs every
+    unallocated block-table entry, so appends past a request's reservation
+    land there and are wiped after every scatter. Real pages are handed out
+    ascending from a LIFO free stack, so seeded replays see identical page
+    placement.
+
+    Lock order: callers hold the engine lock first when they hold both;
+    this lock is a leaf."""
+
+    def __init__(self, n_pages: int) -> None:
+        if n_pages < 1:
+            raise ValueError(f"kv_pages must be >= 1, got {n_pages}")
+        self.capacity = n_pages
+        # pop() yields 1, 2, 3, ... — ascending first-use order
+        self._free: List[int] = list(range(n_pages, 0, -1))
+        self._refs = np.zeros(n_pages + 1, np.int32)
+        self._lock = threading.Lock()
+
+    @property
+    def in_use(self) -> int:
+        with self._lock:
+            return self.capacity - len(self._free)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """``n`` fresh pages at refcount 1, or None (all or nothing) when
+        the pool cannot supply them: the caller stalls admission."""
+        if n == 0:
+            return []
+        with self._lock:
+            if len(self._free) < n:
+                return None
+            pids = [self._free.pop() for _ in range(n)]
+            for p in pids:
+                self._refs[p] = 1
+            return pids
+
+    def retain(self, pids: List[int]) -> None:
+        """Alias already-live pages into another block table."""
+        with self._lock:
+            for p in pids:
+                if self._refs[p] < 1:
+                    raise ValueError(f"retain of dead page {p}")
+                self._refs[p] += 1
+
+    def release(self, pids: List[int]) -> int:
+        """Drop one reference per pid; pages reaching zero return to the
+        free stack (in the given order). Returns the count freed."""
+        freed = 0
+        with self._lock:
+            for p in pids:
+                if self._refs[p] < 1:
+                    raise ValueError(f"release of dead page {p}")
+                self._refs[p] -= 1
+                if self._refs[p] == 0:
+                    self._free.append(p)
+                    freed += 1
+        return freed
+
+
+def _zeros(shape_dtype, device: torch.device) -> _KV:
+    shape, dtype = shape_dtype
+    return _KV(torch.zeros(shape, dtype=dtype, device=device),
+               torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _signature(params: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
+    return {name: (tuple(t.shape), t.dtype) for name, t in params.items()}
+
+
+class ContinuousBatchingEngine:
+    """Slot-pool continuous batching over one model and parameter set.
+
+    ``submit()`` enqueues a request; ``step()`` advances the world by one
+    horizon (admitting queued requests into free slots first) and returns
+    the requests that finished on it; ``run()`` drains everything. Greedy
+    by default; ``temperature > 0`` samples, with random draws from
+    ``generator`` (default: seed 0 on ``device``). ``device`` is where the
+    engine runs: the card unless the caller asks for the CPU.
+    """
+
+    #: batched-admission prefill sizes (the largest that fits is used); a
+    #: bounded set, so the prefill shapes do not proliferate
+    _ADMIT_BATCH_SIZES = (4, 2, 1)
+
+    def __init__(self, cfg: TransformerConfig,
+                 params: Dict[str, torch.Tensor], n_slots: int = 8,
+                 max_len: Optional[int] = None, temperature: float = 0.0,
+                 top_k: int = 0, top_p: float = 0.0,
+                 generator: Optional[torch.Generator] = None, mesh=None,
+                 rules=None, step_horizon: int = 1, metrics=None,
+                 int8_weights: bool = False, prefill_chunk: int = 0,
+                 queue_cap: Optional[int] = None,
+                 on_retire: Optional[Callable[[int, np.ndarray], Any]] = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 draft_cfg=None, draft_params=None, spec_metrics=None,
+                 on_spec_round=None, shard_metrics=None,
+                 kv_pages: int = 0, page_tokens: Optional[int] = None,
+                 kv_metrics=None, device: str | torch.device = "cuda"):
+        if step_horizon < 1:
+            raise ValueError(f"step_horizon must be >= 1, got {step_horizon}")
+        if queue_cap is not None and queue_cap < 1:
+            raise ValueError(f"queue_cap must be >= 1, got {queue_cap}")
+        if prefill_chunk < 0:
+            raise ValueError(f"prefill_chunk must be >= 0, got "
+                             f"{prefill_chunk}")
+        given = dict(mesh=mesh, rules=rules, draft_cfg=draft_cfg,
+                     draft_params=draft_params, on_spec_round=on_spec_round,
+                     metrics=metrics, kv_metrics=kv_metrics,
+                     shard_metrics=shard_metrics, spec_metrics=spec_metrics)
+        for arg, later in _NOT_PORTED:
+            if given[arg] is not None:
+                raise NotImplementedError(
+                    f"{arg}= is not ported to tpu_on_k8s_torch yet ({later} "
+                    f"is a later slice)")
+        self.device = resolve_device(device)
+        if int8_weights:
+            cfg = dataclasses.replace(cfg, serve_int8_weights=True)
+            params = quantize_weights_for_serving(params)
+        #: every queue/slot timestamp reads THIS clock, so seeded replays on
+        #: a virtual clock are wall-time-free
+        self._clock = clock
+        max_len = max_len or cfg.max_seq_len
+        self.cfg = cfg
+        self.n_slots = n_slots
+        self.max_len = max_len
+        # ---- paged KV pool configuration ------------------------------
+        if kv_pages < 0:
+            raise ValueError(f"kv_pages must be >= 0, got {kv_pages}")
+        #: tokens per KV page. Defaults to the position-bucket granule
+        #: (``decode.PAGE_TOKENS``) so pages and buckets coincide; tiny
+        #: configs (max_len < PAGE_TOKENS) shrink it to max_len, and an
+        #: explicit override must keep the alignment: every prefill bucket
+        #: is a PAGE_TOKENS multiple or max_len itself.
+        page = (page_tokens if page_tokens is not None
+                else min(PAGE_TOKENS, max_len))
+        if kv_pages:
+            if page < 1 or max_len % page != 0:
+                raise ValueError(f"page_tokens {page} must divide max_len "
+                                 f"{max_len}")
+            if max_len > PAGE_TOKENS and PAGE_TOKENS % page != 0:
+                raise ValueError(
+                    f"page_tokens {page} must divide the position bucket "
+                    f"granule {PAGE_TOKENS} (prefill buckets are its "
+                    f"multiples; a non-dividing page would misalign them)")
+            if step_horizon > page:
+                raise ValueError(
+                    f"step_horizon {step_horizon} exceeds page_tokens "
+                    f"{page}: a horizon's appends must span at most two "
+                    f"pages (the scatter-back window)")
+        self.page_tokens = page
+        self._nb_total = max_len // page if kv_pages else 0
+        #: > 0: prompts longer than this prefill one chunk per engine step
+        #: (in a private cache; the slot admits when the last chunk lands),
+        #: so decode for the other slots continues between chunks. Chunks
+        #: pad to PAGE_TOKENS prefill buckets, so at production lengths the
+        #: chunk rounds up to a bucket multiple.
+        if prefill_chunk and max_len > PAGE_TOKENS:
+            prefill_chunk = -(-prefill_chunk // PAGE_TOKENS) * PAGE_TOKENS
+        self.prefill_chunk = prefill_chunk
+        self.sampling = SamplingParams(temperature=temperature,
+                                       top_k=top_k, top_p=top_p)
+        self._generator = (generator if generator is not None else
+                           torch.Generator(device=self.device).manual_seed(0))
+        self.step_horizon = step_horizon
+        self._load(params)
+
+        self._cache: Optional[_KV] = None
+        self._pool: Optional[_PagePool] = None
+        self._pool_cache: Optional[_KV] = None
+        if kv_pages:
+            # every KV tensor becomes [L, P, page, ...]: the page axis where
+            # the dense pool has slots, the position axis cut to one page.
+            # P = kv_pages + 1: page id 0 is the null page.
+            self._pool = _PagePool(kv_pages)
+            (layers, _, _, *rest), dtype = cache_shapes(self._step_model, 1)
+            self._pool_cache = _zeros(
+                ((layers, kv_pages + 1, page, *rest), dtype), self.device)
+            #: the [L, n_slots, max_len, ...] view every paged step gathers
+            #: the block tables into and decodes over
+            self._view = _zeros(cache_shapes(self._step_model, n_slots),
+                                self.device)
+            #: per-slot block tables, host-resident (int32 page ids; 0 =
+            #: unallocated → the null page). One small copy per step.
+            self._tables = np.zeros((n_slots, self._nb_total), np.int32)
+            self._prefix_pages: Dict[int, List[int]] = {}
+        else:
+            self._cache = _zeros(cache_shapes(self._step_model, n_slots),
+                                 self.device)
+        self._prefixes: Dict[int, Tuple[_KV, int]] = {}  # id → (KV, length)
+        self._next_prefix_id = 0
+
+        self._slots: List[Optional[_Slot]] = [None] * n_slots
+        self._queue: deque[_Pending] = deque()
+        self._next_id = 0
+        self._finished: Dict[int, np.ndarray] = {}
+        self._prefilling: Optional[_Prefilling] = None
+        self._reserved_slot: Optional[int] = None
+        self._admitting: set = set()   # slots mid-admission (popped from
+                                       # the queue, prefill in flight):
+                                       # free_slots must not count them
+        self.stats = {"steps": 0, "emitted": 0, "admitted": 0,
+                      # prefill accounting: padded positions run through
+                      # prefills, how many of those calls were shared-prefix
+                      # registrations, and how many started from an empty
+                      # cache (the calls that run the flash forward kernel)
+                      "prefill_positions": 0, "prefix_prefills": 0,
+                      "fresh_prefills": 0,
+                      # admission copy traffic, in cache POSITIONS: dense
+                      # admissions copy the request's cached span into the
+                      # pool; paged admissions copy only freshly written
+                      # pages (aliased prefix pages move a reference)
+                      "admit_copy_positions": 0,
+                      # paged mode: pages allocated / aliased over the
+                      # engine's lifetime, and admissions stalled on an
+                      # exhausted pool (the request stays queued)
+                      "pages_allocated": 0, "pages_aliased": 0,
+                      "admission_stalls": 0,
+                      # parameter swaps applied (``replace_params``)
+                      "param_swaps": 0}
+        #: hard bound on requests in flight (queued + prefilling + slots);
+        #: ``submit`` past it raises ``EngineOverloadedError``. None keeps an
+        #: unbounded queue.
+        self.queue_cap = queue_cap
+        #: ``on_retire(request_id, tokens)`` fires (outside the lock) the
+        #: moment a request finishes, during ``step()`` or mid-admission. A
+        #: raising callback detaches with a warning.
+        self._on_retire = on_retire
+        self._lock = threading.Lock()
+
+    def _load(self, params: Dict[str, torch.Tensor]) -> None:
+        """Build the two models around ``params``: the cursor-mode prefill
+        model and the multislot step model, sharing every weight (tensors
+        already in ``cfg.dtype`` on the device are used as they are)."""
+        base = dataclasses.replace(self.cfg, max_seq_len=self.max_len)
+        prefill = decode_model(base, params, self.device)
+        self._step_model = decode_model(
+            dataclasses.replace(base, decode_multislot=True),
+            prefill.state_dict(), self.device)
+        self._prefill_model = prefill
+        self._params = params
+
+    # ---- model hot-swap ----------------------------------------------------
+    def replace_params(self, params: Dict[str, torch.Tensor], *,
+                       quantized: bool = False) -> Dict[str, torch.Tensor]:
+        """Swap the serving parameters for a tree of the same names, shapes
+        and dtypes (the int8 conversion runs first on an ``int8_weights``
+        engine unless ``quantized``). A mismatch raises before anything is
+        touched, and so does a busy engine (queued, prefilling or in-slot
+        requests): a mid-request swap would splice two models into one
+        decode stream. Returns the previous tree."""
+        if self.cfg.serve_int8_weights and not quantized:
+            params = quantize_weights_for_serving(params)
+        old, new = _signature(self._params), _signature(params)
+        if set(new) != set(old):
+            raise ValueError(
+                f"replace_params: tree structure mismatch (names "
+                f"{sorted(set(new) ^ set(old))} differ) — a swap takes a "
+                f"same-config tree only")
+        for name, sig in new.items():
+            if sig != old[name]:
+                raise ValueError(
+                    f"replace_params: leaf mismatch {name} {sig} vs "
+                    f"{old[name]} — same config shape is the swap contract")
+        with self._lock:
+            if (self._queue or self._prefilling is not None
+                    or self._admitting
+                    or any(s is not None for s in self._slots)):
+                raise RuntimeError(
+                    "replace_params on a busy engine: drain in-flight "
+                    "requests first")
+            prev = self._params
+            self._load(params)
+            self.stats["param_swaps"] += 1
+        return prev
+
+    # ---- paged-pool helpers ------------------------------------------------
+    def _pages_for_span(self, end: int) -> int:
+        """Block-table entries needed to back positions [0, end)."""
+        return -(-end // self.page_tokens)
+
+    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+        """``n`` fresh pages, or None (a counted stall: the request stays
+        queued and retries next step as pages free up)."""
+        pids = self._pool.alloc(n)
+        if pids is None:
+            self.stats["admission_stalls"] += 1
+            return None
+        self.stats["pages_allocated"] += len(pids)
+        return pids
+
+    def _alias_pages(self, pids: List[int]) -> List[int]:
+        """Reference shared pages into another block table: the copy-free
+        half of every prefix-seeded paged admission."""
+        self._pool.retain(pids)
+        self.stats["pages_aliased"] += len(pids)
+        return list(pids)
+
+    @property
+    def pages_in_use(self) -> int:
+        """Pool pages held by slots and registered prefixes (0 on a dense
+        engine): 0 once every request retired and every prefix dropped."""
+        return self._pool.in_use if self._pool is not None else 0
+
+    def null_page_is_zero(self) -> bool:
+        """Whether page 0, which unallocated blocks read, holds only zeros
+        (True on a dense engine). Reads the pool: one host sync."""
+        if self._pool_cache is None:
+            return True
+        return not (self._pool_cache.k[:, 0].any()
+                    or self._pool_cache.v[:, 0].any())
+
+    def _release_pages(self, pages: Optional[List[int]]) -> None:
+        if self._pool is not None and pages:
+            self._pool.release(pages)
+
+    def _prefix_alias_blocks(self, prefix_id: Optional[int],
+                             plen: int) -> List[int]:
+        """The shared FULL pages of a registered prefix (every block below
+        the fork block ``plen // page``), which an admission aliases instead
+        of copying. Empty when the prefix holds no page record (the pool was
+        exhausted at registration): the admission then writes every block
+        fresh, exactly as correct, without the sharing."""
+        if prefix_id is None or self._pool is None:
+            return []
+        pids = self._prefix_pages.get(prefix_id, [])
+        fb = plen // self.page_tokens
+        return list(pids[:fb]) if len(pids) >= fb else []
+
+    def _write_pages(self, kv: _KV, row: int,
+                     pids_by_block: np.ndarray) -> None:
+        """Copy the blocks of row ``row`` of a prefill cache into the pool
+        pages ``pids_by_block [nb]`` names (0 = skip)."""
+        blocks = np.flatnonzero(pids_by_block)
+        if blocks.size == 0:
+            return
+        dev = self.device
+        js = torch.from_numpy(blocks).to(dev)
+        pids = torch.from_numpy(pids_by_block[blocks].astype(np.int64)).to(dev)
+        with torch.inference_mode():
+            for pool, pre in ((self._pool_cache.k, kv.k),
+                              (self._pool_cache.v, kv.v)):
+                pool[:, pids] = pre[:, row].unflatten(
+                    1, (-1, self.page_tokens))[:, js]
+
+    def _table_row(self, pages: Optional[List[int]]) -> np.ndarray:
+        row = np.zeros(self._nb_total, np.int32)
+        if pages:
+            row[:len(pages)] = pages
+        return row
+
+    def _tail_args(self, pos: np.ndarray, span: int
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-slot tail blocks and their page ids ``[n_slots, 2]`` for a
+        step appending ``span`` positions from each slot's ``pos``: the at
+        most two blocks the appends can touch (span <= page, validated).
+        Sentinel rows (free slots) and unallocated blocks resolve to page 0:
+        their writes land in the null page, which is wiped."""
+        nb, page = self._nb_total, self.page_tokens
+        b0 = np.clip(pos // page, 0, nb - 1)
+        b1 = np.clip((pos + span - 1) // page, 0, nb - 1)
+        blocks = np.stack([b0, b1], axis=1).astype(np.int32)
+        pids = np.take_along_axis(self._tables, blocks, axis=1)
+        sentinel = pos >= self.max_len
+        blocks[sentinel] = 0
+        pids[sentinel] = 0
+        return blocks, pids
+
+    def _gather_view(self) -> None:
+        """Fill the step's ``[L, n_slots, max_len, ...]`` view from the
+        pool through the block tables (unallocated blocks read the null
+        page's zeros; positions past a slot's cursor are never attended
+        either way)."""
+        flat = torch.from_numpy(self._tables.reshape(-1).astype(np.int64))
+        flat = flat.to(self.device)
+        for pool, view in ((self._pool_cache.k, self._view.k),
+                           (self._pool_cache.v, self._view.v)):
+            torch.index_select(pool, 1, flat,
+                               out=view.view(pool.shape[0], -1,
+                                             *pool.shape[2:]))
+
+    def _scatter_tails(self, pos: np.ndarray) -> None:
+        """Scatter each slot's two tail pages of the view back to the pool,
+        then zero the null page. Every other gathered page is unchanged
+        private data or a shared prefix page below the fork, which appends
+        never reach. Duplicate ids carry identical bytes (one block twice)
+        or hit the null page, so the scatter is order-insensitive."""
+        blocks, pids = self._tail_args(pos, self.step_horizon)
+        dev = self.device
+        rows = torch.arange(self.n_slots, device=dev)[:, None]
+        blocks = torch.from_numpy(blocks.astype(np.int64)).to(dev)
+        pids = torch.from_numpy(pids.reshape(-1).astype(np.int64)).to(dev)
+        for pool, view in ((self._pool_cache.k, self._view.k),
+                           (self._pool_cache.v, self._view.v)):
+            tails = view.unflatten(2, (self._nb_total, self.page_tokens))
+            pool[:, pids] = tails[:, rows, blocks].flatten(1, 2)
+            pool[:, 0].zero_()
+
+    # ---- prefill calls -----------------------------------------------------
+    def _prefill(self, prompts: np.ndarray, lps: np.ndarray
+                 ) -> Tuple[_KV, torch.Tensor]:
+        """Prefill ``b`` same-bucket prompts ``[b, bucket]`` (true lengths
+        ``lps [b]``) in one call of the cursor-mode model, into a fresh
+        cache of the bucket's length: an empty cache and ``arange``
+        positions take the among-prompt branch, which runs the flash
+        forward kernel. Returns the cache and each row's first token,
+        sampled from the hidden state at its own ``lp - 1``."""
+        b, bucket = prompts.shape
+        dev = self.device
+        with torch.inference_mode():
+            kv = _zeros(cache_shapes(self._prefill_model, b, bucket), dev)
+            positions = torch.arange(bucket, dtype=torch.int32,
+                                     device=dev).expand(b, bucket)
+            logits = self._prefill_model(
+                torch.from_numpy(prompts).to(dev), positions, kv.layers(),
+                at=torch.from_numpy(lps - 1).to(dev))
+            first = sample(logits[:, -1], self._generator, self.sampling)
+        self.stats["fresh_prefills"] += 1
+        self.stats["prefill_positions"] += bucket * b
+        return kv, first
+
+    def _private_cache(self, prefix_id: Optional[int]) -> _KV:
+        """A batch-1 cache at ``max_len`` for a suffix or chunked prefill,
+        holding the registered prefix's positions when ``prefix_id`` is
+        given (the prefix's own cache stays untouched)."""
+        with torch.inference_mode():
+            kv = _zeros(cache_shapes(self._prefill_model, 1), self.device)
+            if prefix_id is not None:
+                prefix, plen = self._prefixes[prefix_id]
+                kv.k[:, :, :plen] = prefix.k[:, :, :plen]
+                kv.v[:, :, :plen] = prefix.v[:, :, :plen]
+        return kv
+
+    def _append_prefill(self, kv: _KV, tokens: np.ndarray,
+                        start: int) -> torch.Tensor:
+        """Prefill ``tokens`` (a suffix or a chunk) into ``kv`` after the
+        ``start`` positions it already holds, in place: the cursor set to
+        ``start`` (``_set_cursor``), positions ``start + arange(bucket)``.
+        From ``start > 0`` every query attends over the whole cache, prefix
+        included; from an empty cache it is a fresh prefill. Returns the
+        token sampled at the last real position."""
+        n = int(tokens.size)
+        # the bucket may not spill past max_len: appends land at
+        # start..start+bucket-1
+        bucket = _bucket_len(n, self.max_len - start)
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :n] = tokens
+        dev = self.device
+        with torch.inference_mode():
+            positions = start + torch.arange(bucket, dtype=torch.int32,
+                                             device=dev)[None]
+            logits = self._prefill_model(
+                torch.from_numpy(padded).to(dev), positions,
+                _set_cursor(kv.layers(), start),
+                at=torch.full((1,), n - 1, device=dev))
+            first = sample(logits[:, -1], self._generator, self.sampling)
+        if start == 0:
+            self.stats["fresh_prefills"] += 1
+        self.stats["prefill_positions"] += bucket
+        return first
+
+    # ---- request lifecycle -------------------------------------------------
+    def register_prefix(self, tokens) -> int:
+        """Prefill a shared prefix (a system prompt) once and keep its KV on
+        the device; requests submitted with the returned id attend to it
+        without recomputing it, and each admission prefills only its own
+        suffix. RoPE positions are absolute, so the prefix KV (at positions
+        [0, len)) is valid under every continuation. Costs one batch-1
+        cache of the prefix's bucket for the engine's lifetime (and, paged,
+        its full pages in the pool)."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        if tokens.size == 0:
+            raise ValueError("empty prefix")
+        if tokens.size > self.max_len - 2:
+            # every request needs >= 1 prompt token and >= 1 new token on
+            # top of the prefix: a longer prefix could never be used
+            raise ValueError(f"prefix {tokens.size} leaves no room under "
+                             f"max_len {self.max_len}")
+        lp = int(tokens.size)
+        padded = np.zeros((1, _bucket_len(lp, self.max_len)), np.int32)
+        padded[0, :lp] = tokens
+        kv, _ = self._prefill(padded, np.asarray([lp], np.int32))
+        self.stats["prefix_prefills"] += 1
+        with self._lock:
+            pid = self._next_prefix_id
+            self._next_prefix_id += 1
+            self._prefixes[pid] = (kv, lp)
+        if self._pool is not None:
+            # paged: ALSO write the prefix's full pages into the pool so
+            # admissions alias them (refcount, not copy). The partial tail
+            # block stays only in the prefix's own cache: each fork writes
+            # its own fork page.
+            fb = lp // self.page_tokens
+            pids = (self._pool.alloc(fb) if fb else []) or []
+            if pids:
+                self.stats["pages_allocated"] += len(pids)
+                self._write_pages(kv, 0, self._table_row(pids))
+            self._prefix_pages[pid] = pids
+        return pid
+
+    def drop_prefix(self, prefix_id: int) -> bool:
+        """Release a registered prefix's KV. The caller owns the invariant
+        that no queued or in-flight request still references the id."""
+        if self._pool is not None:
+            # refcounted: slots still aliasing these pages keep them live
+            # until they retire; only the prefix's own reference drops here
+            self._release_pages(self._prefix_pages.pop(prefix_id, None))
+        with self._lock:
+            return self._prefixes.pop(prefix_id, None) is not None
+
+    def check_request(self, prompt, max_new_tokens: int,
+                      prefix_id: Optional[int] = None) -> np.ndarray:
+        """Validate a request against this engine's limits without
+        enqueueing it; returns the coerced int32 prompt. ``submit`` enforces
+        its invariants through this, and a gateway may call it at its own
+        admission."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size == 0:
+            raise ValueError("empty prompt")
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got "
+                             f"{max_new_tokens}")
+        plen = 0
+        if prefix_id is not None:
+            with self._lock:
+                if prefix_id not in self._prefixes:
+                    raise ValueError(f"unknown prefix_id {prefix_id}")
+                plen = self._prefixes[prefix_id][1]
+        if plen + prompt.size + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prefix {plen} + prompt {prompt.size} + new "
+                f"{max_new_tokens} exceeds the engine's max_len "
+                f"{self.max_len}")
+        if self._pool is not None:
+            # a request that alone outsizes the pool would stall the
+            # admission loop forever: reject it at submission, typed
+            fresh = (self._pages_for_span(
+                plen + int(prompt.size) + max_new_tokens)
+                - plen // self.page_tokens)
+            if fresh > self._pool.capacity:
+                raise ValueError(
+                    f"request needs {fresh} fresh KV pages; the pool "
+                    f"holds {self._pool.capacity} (raise kv_pages or "
+                    f"shrink the request)")
+        return prompt
+
+    def submit(self, prompt, max_new_tokens: int,
+               eos_id: Optional[int] = None,
+               prefix_id: Optional[int] = None,
+               on_token: Optional[Callable[[int, int], Any]] = None) -> int:
+        """Enqueue a request; returns its id. ``prompt`` is a 1-D token
+        sequence (with ``prefix_id``: the tokens AFTER the registered
+        prefix); admission happens on a later ``step()``. ``on_token``
+        streams each emitted token as ``on_token(request_id, token)`` the
+        moment the host sees it (per admission, per horizon)."""
+        prompt = self.check_request(prompt, max_new_tokens, prefix_id)
+        with self._lock:
+            if self.queue_cap is not None:
+                inflight = self._inflight_locked()
+                if inflight >= self.queue_cap:
+                    raise EngineOverloadedError(inflight, self.queue_cap)
+            rid = self._next_id
+            self._next_id += 1
+            self._queue.append(_Pending(rid, prompt, max_new_tokens,
+                                        eos_id, self._clock(),
+                                        prefix_id, on_token))
+        return rid
+
+    def _inflight_locked(self) -> int:
+        return (len(self._queue) + len(self._admitting)
+                + sum(s is not None for s in self._slots)
+                + (1 if self._prefilling is not None else 0))
+
+    def _admit_pending(self) -> None:
+        if self._prefilling is not None:
+            self._advance_prefill()       # one chunk per engine step
+        with self._lock:
+            # bound this pass to the arrivals present at entry: under
+            # concurrent submitters an unbounded loop could admit and
+            # retire forever (instant-eos floods) and starve decode
+            budget = len(self._queue)
+        while budget > 0:
+            # selection runs under the lock (frontend threads append to the
+            # queue concurrently); device work happens after release
+            with self._lock:
+                if not self._queue:
+                    return
+                free = [i for i in range(self.n_slots)
+                        if self._slots[i] is None
+                        and i != self._reserved_slot
+                        and i not in self._admitting]
+                if not free:
+                    return
+                req = self._queue[0]
+                plen = (0 if req.prefix_id is None
+                        else self._prefixes[req.prefix_id][1])
+                chunked = (self.prefill_chunk
+                           and req.prompt.size > self.prefill_chunk)
+                if chunked and self._prefilling is not None:
+                    return    # strict FIFO: one chunked prefill in flight
+                if chunked or req.prefix_id is not None:
+                    head_pages: Optional[List[int]] = None
+                    fresh_from = 0
+                    if self._pool is not None:
+                        # eager reservation: pages for the whole span
+                        # [0, plen+prompt+max_new) are claimed BEFORE the
+                        # request leaves the queue, so admission can never
+                        # half-fail. Full prefix pages alias (the fork
+                        # block is always written fresh).
+                        alias = self._prefix_alias_blocks(req.prefix_id,
+                                                          plen)
+                        fresh_from = len(alias)
+                        end = (plen + int(req.prompt.size)
+                               + req.max_new_tokens)
+                        fresh = self._alloc_pages(
+                            self._pages_for_span(end) - fresh_from)
+                        if fresh is None:
+                            return    # pool short: stall, retry next step
+                        head_pages = self._alias_pages(alias) + fresh
+                    self._queue.popleft()
+                    if chunked:
+                        # reserve under the lock: free_slots must never
+                        # overcount while the chunked prefill is staged
+                        self._reserved_slot = free[0]
+                    else:
+                        self._admitting.add(free[0])
+                    group = [req]
+                    group_pages = ([head_pages]
+                                   if head_pages is not None else None)
+                else:
+                    # plain requests: batch the front FIFO run sharing this
+                    # request's prompt bucket into ONE prefill
+                    bucket = _bucket_len(int(req.prompt.size),
+                                         self.max_len)
+                    group = [req]
+                    for nxt in itertools.islice(
+                            self._queue, 1, self._ADMIT_BATCH_SIZES[0]):
+                        if (len(group) >= min(len(free),
+                                              self._ADMIT_BATCH_SIZES[0])
+                                or nxt.prefix_id is not None
+                                or (self.prefill_chunk
+                                    and (nxt.prompt.size
+                                         > self.prefill_chunk))
+                                or _bucket_len(int(nxt.prompt.size),
+                                               self.max_len) != bucket):
+                            break
+                        group.append(nxt)
+                    b = max(s for s in self._ADMIT_BATCH_SIZES
+                            if s <= min(len(group), len(free)))
+                    group = group[:b]
+                    group_pages = None
+                    if self._pool is not None:
+                        # eager per-request reservation bounds the batch
+                        # by what the pool can hold
+                        group_pages = []
+                        for r in group:
+                            fresh = self._alloc_pages(self._pages_for_span(
+                                int(r.prompt.size) + r.max_new_tokens))
+                            if fresh is None:
+                                break
+                            group_pages.append(fresh)
+                        if not group_pages:
+                            return    # head stalled on the pool
+                        if len(group_pages) < len(group):
+                            b = max(s for s in self._ADMIT_BATCH_SIZES
+                                    if s <= len(group_pages))
+                            for pl in group_pages[b:]:
+                                self._release_pages(pl)
+                            group = group[:b]
+                            group_pages = group_pages[:b]
+                    for _ in group:
+                        self._queue.popleft()
+                    self._admitting.update(free[:len(group)])
+            budget -= len(group)
+            if chunked:
+                self._prefilling = _Prefilling(
+                    req, self._private_cache(req.prefix_id), plen, plen,
+                    plen + int(req.prompt.size),
+                    pages=group_pages[0] if group_pages else None,
+                    fresh_from=fresh_from if group_pages else 0)
+                self._advance_prefill()
+                continue
+            unconsumed = list(group_pages) if group_pages else []
+            try:
+                if req.prefix_id is not None:
+                    kv = self._private_cache(req.prefix_id)
+                    first = self._append_prefill(kv, req.prompt, plen)
+                    pages = unconsumed.pop(0) if unconsumed else None
+                    self._finish_admission(free[0], req, kv, first,
+                                           plen + int(req.prompt.size),
+                                           pages=pages,
+                                           fresh_from=fresh_from)
+                    continue
+                b = len(group)
+                lps = np.asarray([r.prompt.size for r in group], np.int32)
+                padded = np.zeros((b, bucket), np.int32)
+                for j, r in enumerate(group):
+                    padded[j, :r.prompt.size] = r.prompt
+                kv, firsts = self._prefill(padded, lps)
+                firsts = firsts.cpu().numpy()
+                for j, (r, i) in enumerate(zip(group, free)):
+                    pages = unconsumed.pop(0) if unconsumed else None
+                    self._finish_admission(i, r, kv, firsts[j],
+                                           int(lps[j]), row=j, pages=pages)
+            finally:
+                # a failing prefill must not leak reservations or pages
+                # (success clears each slot in _finish_admission and drains
+                # ``unconsumed`` as rows land)
+                for pl in unconsumed:
+                    self._release_pages(pl)
+                with self._lock:
+                    self._admitting.difference_update(free)
+
+    def _advance_prefill(self) -> None:
+        """One chunk of the in-flight chunked prefill, appended to the
+        request's private cache; on the last chunk, the first token is
+        sampled and the request admitted into the reserved slot."""
+        st = self._prefilling
+        offset = st.done - st.base
+        chunk = st.req.prompt[offset:offset + self.prefill_chunk]
+        first = self._append_prefill(st.pre_cache, chunk, st.done)
+        st.done += int(chunk.size)
+        if st.done == st.total:
+            i = self._reserved_slot
+            self._prefilling = None
+            # fill the slot first, then drop the reservation: the brief
+            # filled+reserved overlap UNDERcounts free_slots (safe for
+            # admission control); the reverse order would overcount
+            self._finish_admission(i, st.req, st.pre_cache, first, st.total,
+                                   pages=st.pages, fresh_from=st.fresh_from)
+            with self._lock:
+                self._reserved_slot = None
+
+    def _finish_admission(self, i: int, req: _Pending, kv: _KV, first,
+                          lp: int, row: int = 0,
+                          pages: Optional[List[int]] = None,
+                          fresh_from: int = 0) -> None:
+        """Copy row ``row`` of a prefilled cache's first ``lp`` positions
+        into slot ``i`` and activate it; the first token (sampled by the
+        prefill) is emitted here. Positions >= lp keep the slot's old bytes,
+        never attended. Paged mode writes only the blocks past
+        ``fresh_from`` (aliased prefix pages are already live)."""
+        if self._pool is not None:
+            wb = self._pages_for_span(lp)
+            pids_row = np.zeros(self._nb_total, np.int32)
+            pids_row[fresh_from:wb] = pages[fresh_from:wb]
+            self._write_pages(kv, row, pids_row)
+            self._tables[i] = self._table_row(pages)
+            self.stats["admit_copy_positions"] += ((wb - fresh_from)
+                                                   * self.page_tokens)
+        else:
+            with torch.inference_mode():
+                self._cache.k[:, i, :lp] = kv.k[:, row, :lp]
+                self._cache.v[:, i, :lp] = kv.v[:, row, :lp]
+            self.stats["admit_copy_positions"] += lp
+        first = int(first)   # host sync: the first token IS emitted now
+        with self._lock:
+            self._slots[i] = _Slot(req.request_id, lp, first, [first],
+                                   req.max_new_tokens, req.eos_id,
+                                   req.submitted_at, req.on_token,
+                                   pages=pages)
+            self._admitting.discard(i)
+        self._fire_on_token(self._slots[i], first)
+        self.stats["admitted"] += 1
+        self.stats["emitted"] += 1
+        self._retire_if_done(i)
+
+    def _fire_on_token(self, slot: _Slot, token: int) -> None:
+        """Streaming callbacks run between device steps: a raising callback
+        (a disconnected client) must not unwind the engine loop mid-horizon,
+        or other slots' host state desyncs from the already-advanced device
+        cache. Detach it, warn, keep serving."""
+        if slot.on_token is None:
+            return
+        try:
+            slot.on_token(slot.request_id, token)
+        except Exception as e:  # noqa: BLE001 — isolate per-request faults
+            slot.on_token = None
+            warnings.warn(f"on_token callback for request {slot.request_id} "
+                          f"raised {type(e).__name__}: {e}; streaming "
+                          f"detached", stacklevel=3)
+
+    def _retire_if_done(self, i: int) -> bool:
+        slot = self._slots[i]
+        done = (len(slot.emitted) >= slot.max_new_tokens
+                or (slot.eos_id is not None
+                    and slot.emitted[-1] == slot.eos_id))
+        if done:
+            tokens = np.asarray(slot.emitted, np.int32)
+            with self._lock:
+                self._finished[slot.request_id] = tokens
+                self._slots[i] = None
+            if self._pool is not None:
+                self._release_pages(slot.pages)
+                self._tables[i, :] = 0
+            if self._on_retire is not None:
+                try:
+                    self._on_retire(slot.request_id, tokens)
+                except Exception as e:  # noqa: BLE001 — isolate like on_token
+                    self._on_retire = None
+                    warnings.warn(f"on_retire callback raised "
+                                  f"{type(e).__name__}: {e}; detached",
+                                  stacklevel=3)
+        return done
+
+    def abort(self, request_id: int) -> Optional[np.ndarray]:
+        """Abort a request wherever it lives (queued, mid-chunked-prefill or
+        mid-decode) and free its capacity at once: the very next ``step()``
+        runs without it and can admit a waiting request into the freed
+        slot (its stale KV rows are never attended and are overwritten on
+        reuse).
+
+        Returns the tokens emitted so far (empty for a request that never
+        reached a slot), or None when the id is unknown, already finished,
+        or mid-admission this instant (retryable on the next step). Call
+        from the stepping thread only."""
+        with self._lock:
+            for idx, p in enumerate(self._queue):
+                if p.request_id == request_id:
+                    del self._queue[idx]
+                    return np.zeros(0, np.int32)
+            st = self._prefilling
+            if st is not None and st.req.request_id == request_id:
+                # drop the private prefill cache and the slot reservation;
+                # nothing reached the shared pool yet
+                self._prefilling = None
+                self._reserved_slot = None
+                self._release_pages(st.pages)
+                return np.zeros(0, np.int32)
+            for i, s in enumerate(self._slots):
+                if s is not None and s.request_id == request_id:
+                    self._slots[i] = None
+                    if self._pool is not None:
+                        self._release_pages(s.pages)
+                        self._tables[i, :] = 0
+                    return np.asarray(s.emitted, np.int32)
+        return None
+
+    def reset(self) -> List[int]:
+        """Recover the engine after a crash (``EngineCrashError``): drop all
+        host-side request state (slots, queue, chunked prefill, admission
+        reservations), as a restarted decode worker would come up empty.
+        Models, registered prefixes and the cache pool survive; finished
+        results stay claimable. Returns the ids of every request dropped."""
+        with self._lock:
+            lost = [p.request_id for p in self._queue]
+            if self._prefilling is not None:
+                lost.append(self._prefilling.req.request_id)
+            lost += [s.request_id for s in self._slots if s is not None]
+            if self._pool is not None:
+                # per-request pages go back to the pool; registered
+                # prefixes keep theirs
+                for s in self._slots:
+                    if s is not None:
+                        self._release_pages(s.pages)
+                if self._prefilling is not None:
+                    self._release_pages(self._prefilling.pages)
+                self._tables[:, :] = 0
+            self._slots = [None] * self.n_slots
+            self._queue.clear()
+            self._prefilling = None
+            self._reserved_slot = None
+            self._admitting.clear()
+        return sorted(lost)
+
+    # ---- the engine loop ---------------------------------------------------
+    def step(self) -> List[int]:
+        """Admit queued requests, advance every active slot by one horizon
+        (``step_horizon`` tokens, one copy to the host), and return the ids
+        of the requests that finished. The ids are notifications: the
+        payload goes to whoever calls ``result()`` first."""
+        # snapshot BEFORE admission: a request that retires during
+        # admission itself (max_new_tokens=1, instant eos) must still be
+        # reported by THIS step
+        with self._lock:
+            before = set(self._finished)
+        self._admit_pending()
+        active = [i for i, s in enumerate(self._slots) if s is not None]
+        if active:
+            out = self._decode(active)              # [horizon, n_slots]
+            self.stats["steps"] += self.step_horizon
+            for i in active:
+                self._emit_tokens(i, out[:, i])
+        with self._lock:
+            return sorted(set(self._finished) - before)
+
+    def _decode(self, active: List[int]) -> np.ndarray:
+        """``step_horizon`` decode steps over the whole slot pool; free
+        slots pass the sentinel position. Paged mode gathers the view
+        first and scatters the tail pages back after."""
+        toks = np.zeros(self.n_slots, np.int32)
+        pos = np.full(self.n_slots, self.max_len, np.int32)   # sentinel
+        for i in active:
+            toks[i] = self._slots[i].last_token
+            pos[i] = self._slots[i].pos
+        dev = self.device
+        with torch.inference_mode():
+            if self._pool is not None:
+                self._gather_view()
+                cache = self._view.layers()
+            else:
+                cache = self._cache.layers()
+            tok = torch.from_numpy(toks).to(dev)
+            p = torch.from_numpy(pos).to(dev)
+            out = []
+            for _ in range(self.step_horizon):
+                logits = self._step_model(tok[:, None], p[:, None], cache)
+                tok = sample(logits[:, -1], self._generator, self.sampling)
+                p = p + 1
+                out.append(tok)
+            if self._pool is not None:
+                self._scatter_tails(pos)
+            return torch.stack(out).cpu().numpy()
+
+    def _emit_tokens(self, i: int, tokens) -> int:
+        """Append host-side ``tokens`` to slot ``i`` in order: position,
+        bookkeeping, streaming and retirement. Stops at retirement (surplus
+        tokens of a horizon are discarded; greedy output is unchanged);
+        returns the count emitted."""
+        n = 0
+        for tok in tokens:
+            slot = self._slots[i]
+            slot.pos += 1
+            slot.last_token = int(tok)
+            slot.emitted.append(slot.last_token)
+            self.stats["emitted"] += 1
+            n += 1
+            self._fire_on_token(slot, slot.last_token)
+            if self._retire_if_done(i):
+                break
+        return n
+
+    def run(self) -> Dict[int, np.ndarray]:
+        """Drain the queue and every active slot; returns {id: tokens}."""
+        while (self._queue or self._prefilling is not None
+               or any(s is not None for s in self._slots)):
+            self.step()
+        out, self._finished = self._finished, {}
+        return out
+
+    def result(self, request_id: int) -> Optional[np.ndarray]:
+        """The finished continuation of ``request_id`` (None while in
+        flight); pops it from the engine. Thread-safe."""
+        with self._lock:
+            return self._finished.pop(request_id, None)
+
+    @property
+    def free_slots(self) -> int:
+        with self._lock:
+            free = sum(s is None for s in self._slots)
+            return (free - len(self._admitting)
+                    - (1 if self._reserved_slot is not None else 0))

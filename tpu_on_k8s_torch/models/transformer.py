@@ -5,7 +5,9 @@ Counterpart of ``tpu_on_k8s/models/transformer.py``: ``TransformerConfig``,
 ``RMSNorm``, half-split RoPE, ``Attention`` (heads-leading flash or plain
 attention in training, the single-cursor KV cache in decode mode), the
 SwiGLU ``MLP``, ``Block`` and ``Transformer`` with fp32 logits and an untied
-head, and ``features`` for the chunked loss.
+head, and ``features`` for the chunked loss. ``decode_multislot`` (the
+continuous-batching engine's step model, ``models/serving.py``) makes the
+cache's batch rows independent slots, each appending at its own position.
 
 PyTorch idiom in place of Flax's: ``nn.Module``s whose parameters are plain
 tensors, a Python loop over per-layer blocks in place of ``nn.scan`` over
@@ -127,8 +129,6 @@ class TransformerConfig:
 
 #: (flag, holds when unsupported, the later slice that brings it)
 _NOT_PORTED = (
-    ("decode_multislot", lambda c: c.decode_multislot,
-     "continuous-batching slot caches (models/serving.py)"),
     ("cache_int8", lambda c: c.cache_int8, "the int8 KV cache"),
     ("fused_qkv", lambda c: c.fused_qkv, "the fused wqkv projection"),
     ("n_experts", lambda c: c.n_experts > 0, "MoE (models/moe.py)"),
@@ -245,7 +245,8 @@ class Positions(NamedTuple):
     """What every layer reads of a call's positions, computed once per
     forward: the positions ``[B, L]``, the RoPE tables ``[B, L, 1, Dh/2]``
     and whether the positions are the plain ``arange`` (one host sync per
-    forward, not one per layer)."""
+    forward, not one per layer; never for a multislot call, whose rows sit
+    at unrelated positions)."""
 
     ids: torch.Tensor
     cos: torch.Tensor
@@ -257,7 +258,8 @@ class Positions(NamedTuple):
 class KVCache:
     """One layer's KV cache: ``[B, max_seq_len, Hkv, Dh]`` tensors allocated
     once and written in place, plus the shared append cursor (positions
-    ``[0, index)`` hold keys/values)."""
+    ``[0, index)`` hold keys/values). A ``decode_multislot`` model neither
+    reads nor moves the cursor: each row appends at its own positions."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -385,7 +387,12 @@ class Attention(nn.Module):
         then attend. A multi-token call into an empty cache whose positions
         are the plain ``arange`` (how ``generate`` starts) attends among its
         own L tokens through ``flash_attention`` with Hkv-head k/v; every
-        other call attends over the whole cache."""
+        other call attends over the whole cache. A ``decode_multislot``
+        call appends at each row's own positions and always attends over
+        the cache, as the reference does."""
+        if self.cfg.decode_multislot:
+            _append_per_row(k, v, pos.ids, cache)
+            return self._over_cache(q, pos.ids, cache)
         l = q.shape[1]
         start = cache.index
         if start + l > cache.k.shape[1]:
@@ -420,6 +427,30 @@ class Attention(nn.Module):
         out = torch.matmul(probs.to(q.dtype), cache.v.transpose(1, 2))
         return out.view(b, hkv, rep, l, hd).permute(0, 3, 1, 2, 4).reshape(
             b, l, h, hd)
+
+
+def _append_per_row(k: torch.Tensor, v: torch.Tensor,
+                    positions: torch.Tensor, cache: KVCache) -> None:
+    """The multislot append of one token a row: row b's keys/values ``[B, 1,
+    Hkv, Dh]`` land at ``positions[b]`` of its own cache row, in place;
+    ``cache.index`` is not touched. A position at or past the cache length
+    (the free-slot sentinel ``max_len``, or a horizon's steps past a
+    request's end) writes nothing, as the reference's ``mode="drop"``: its
+    write is aimed at the last position and carries the bytes already
+    there, so a live row's bytes never change. All on the device, with no
+    host sync."""
+    b, l = positions.shape
+    if l > 1:
+        raise NotImplementedError(
+            f"a multislot call of {l} tokens a row is not ported to "
+            f"tpu_on_k8s_torch yet (speculative decoding's verify step is a "
+            f"later slice)")
+    length = cache.k.shape[1]
+    keep = (positions < length)[..., None, None]
+    idx = positions.clamp(max=length - 1).long()
+    rows = torch.arange(b, device=positions.device)[:, None]
+    for new, dst in ((k, cache.k), (v, cache.v)):
+        dst[rows, idx] = torch.where(keep, new, dst[:, length - 1:])
 
 
 class MLP(nn.Module):
@@ -502,9 +533,11 @@ class Block(nn.Module):
 
 class Transformer(nn.Module):
     """Decoder-only LM. ``forward(tokens [B, L], positions, cache,
-    last_only, segments)`` → fp32 logits ``[B, L, vocab]`` (``[B, 1,
-    vocab]`` with ``last_only``); ``features`` → the final-norm hidden
-    states and the head ``[D, V]`` in ``cfg.dtype`` for the chunked loss.
+    segments, at)`` → fp32 logits ``[B, L, vocab]``, or ``[B, 1, vocab]``
+    with ``at [B]``: each row's logits at its own position only (a prompt's
+    last token, or a padded prompt's last real one);
+    ``features`` → the final-norm hidden states and the head ``[D, V]`` in
+    ``cfg.dtype`` for the chunked loss.
 
     With ``cfg.decode`` every call takes one ``KVCache`` per layer (build it
     with ``decode.decode_model``); otherwise no cache, and ``segments
@@ -540,12 +573,12 @@ class Transformer(nn.Module):
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 cache: Optional[List[KVCache]] = None,
-                last_only: bool = False,
-                segments: Optional[torch.Tensor] = None) -> torch.Tensor:
+                segments: Optional[torch.Tensor] = None,
+                at: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         x = self._trunk(tokens, positions, cache, segments)
-        if last_only:
-            x = x[:, -1:]
+        if at is not None:
+            x = x[torch.arange(x.shape[0], device=x.device), at][:, None]
         # fp32 logits from the cfg.dtype (or int8) head: products of bf16
         # and int8 values are exact in fp32, so this is the reference's
         # fp32-accumulated einsum.
@@ -587,7 +620,8 @@ class Transformer(nn.Module):
             positions = arange
         cos, sin = _rope_tables(positions, cfg.head_dim // 2, cfg.rope_theta)
         pos = Positions(positions, cos[:, :, None, :], sin[:, :, None, :],
-                        cfg.decode and tokens.shape[1] > 1
+                        cfg.decode and not cfg.decode_multislot
+                        and tokens.shape[1] > 1
                         and torch.equal(positions.int(), arange))
         # an fp32 gather from the master table, then the cast
         x = F.embedding(tokens, self.embed).to(cfg.dtype)

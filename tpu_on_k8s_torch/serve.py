@@ -1,0 +1,158 @@
+"""Continuous-batching serving on the card (the port's production serving
+entry point).
+
+Counterpart of ``examples/serve.py``: random weights from ``--seed`` (no
+checkpoint restore yet), synthetic ragged traffic (seeded prompts arriving
+at ``--arrival`` requests per engine step on average) and
+``models.serving.ContinuousBatchingEngine``; a real frontend would call
+``engine.submit()`` from its request handler and ``engine.step()`` on a
+loop, as this file does::
+
+    python -m tpu_on_k8s_torch.serve --config llama2_7b --n-slots 8 \\
+        --max-len 2048 --prompt-min 64 --prompt-max 1000 --max-new-tokens 64
+    python -m tpu_on_k8s_torch.serve --config tiny --device cpu
+
+The closing line reports the p50 latency and time to first token on the
+engine's clock: submit, the first ``on_token`` and retirement. Flags of the
+example that belong to later slices raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import argparse
+import statistics
+import time
+
+import numpy as np
+import torch
+
+from tpu_on_k8s_torch.device import resolve_device
+from tpu_on_k8s_torch.generate import CONFIGS
+from tpu_on_k8s_torch.models.params import init_params
+from tpu_on_k8s_torch.models.serving import ContinuousBatchingEngine
+
+#: example flag → the later slice that brings it
+_LATER = {
+    "checkpoint_dir": "checkpoints (train/checkpoint.py)",
+    "hf_model": "HF interop (models/convert.py)",
+    "model_axis": "mesh serving (_ShardPlan)",
+    "fsdp": "mesh serving (_ShardPlan)",
+    "metrics_port": "the serving metrics objects (ServingMetrics)",
+    "gateway": "the serving plane (serve/gateway.py)",
+    "replicas": "the serving plane (serve/fleet.py)",
+}
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description="continuous-batching server")
+    p.add_argument("--config", default="tiny", choices=sorted(CONFIGS))
+    p.add_argument("--n-slots", type=int, default=8)
+    p.add_argument("--max-len", type=int, default=0,
+                   help="engine cache length (0 = the model's max_seq_len)")
+    p.add_argument("--horizon", type=int, default=1,
+                   help="decode steps per host round trip")
+    p.add_argument("--prefill-chunk", type=int, default=0,
+                   help=">0: prompts longer than this prefill one chunk "
+                        "per step (decode keeps flowing for other slots)")
+    p.add_argument("--temperature", type=float, default=0.0)
+    p.add_argument("--top-k", type=int, default=0,
+                   help="sample only the k highest-probability tokens")
+    p.add_argument("--top-p", type=float, default=0.0,
+                   help="nucleus sampling: smallest token set with mass p")
+    p.add_argument("--n-requests", type=int, default=16)
+    p.add_argument("--arrival", type=float, default=1.0,
+                   help="mean requests arriving per engine step")
+    p.add_argument("--prompt-min", type=int, default=4)
+    p.add_argument("--prompt-max", type=int, default=24)
+    p.add_argument("--max-new-tokens", type=int, default=16)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--system-prompt-len", type=int, default=0,
+                   help=">0 registers a shared prefix of this length once "
+                        "(prefix caching); every request then prefills "
+                        "only its own suffix")
+    p.add_argument("--kv-pages", type=int, default=0,
+                   help=">0: a paged KV pool of this many pages")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default; raises without a card) or 'cpu'")
+    p.add_argument("--checkpoint-dir", default="")
+    p.add_argument("--hf-model", default="")
+    p.add_argument("--model-axis", type=int, default=1)
+    p.add_argument("--fsdp", type=int, default=0)
+    p.add_argument("--metrics-port", type=int, default=0)
+    p.add_argument("--gateway", action="store_true")
+    p.add_argument("--replicas", type=int, default=0)
+    args = p.parse_args(argv)
+    asked = {flag: getattr(args, flag) for flag in _LATER}
+    asked["model_axis"] = args.model_axis > 1    # 1: no tensor parallelism
+    for flag, later in _LATER.items():
+        if asked[flag]:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported to "
+                f"tpu_on_k8s_torch yet ({later} is a later slice)")
+
+    dev = resolve_device(args.device)
+    cfg = CONFIGS[args.config]()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed), dev)
+    clock = time.monotonic
+    submitted, first, retired = {}, {}, {}
+    eng = ContinuousBatchingEngine(
+        cfg, params, n_slots=args.n_slots, max_len=args.max_len or None,
+        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        prefill_chunk=args.prefill_chunk, step_horizon=args.horizon,
+        kv_pages=args.kv_pages, clock=clock,
+        on_retire=lambda rid, toks: retired.setdefault(rid, clock()),
+        generator=torch.Generator(device=dev).manual_seed(args.seed + 1),
+        device=dev)
+
+    worst = (args.system_prompt_len + args.prompt_max
+             + args.max_new_tokens)
+    if worst > eng.max_len:
+        raise SystemExit(
+            f"system prompt {args.system_prompt_len} + prompt-max "
+            f"{args.prompt_max} + max-new-tokens {args.max_new_tokens} = "
+            f"{worst} exceeds the engine's max_len {eng.max_len}")
+    rng = np.random.default_rng(args.seed)
+    prefix_id = None
+    if args.system_prompt_len:
+        prefix_id = eng.register_prefix(rng.integers(
+            0, cfg.vocab_size, size=args.system_prompt_len).astype(np.int32))
+        print(f"registered a {args.system_prompt_len}-token shared prefix "
+              f"(id {prefix_id})")
+
+    def on_token(rid: int, tok: int) -> None:
+        first.setdefault(rid, clock())
+
+    finished = {}
+    t0 = time.perf_counter()
+    # the serving loop a frontend would run: submit arrivals, step, collect
+    while len(submitted) < args.n_requests or len(finished) < len(submitted):
+        if len(submitted) < args.n_requests:
+            for _ in range(rng.poisson(args.arrival)):
+                if len(submitted) >= args.n_requests:
+                    break
+                lp = int(rng.integers(args.prompt_min, args.prompt_max + 1))
+                prompt = rng.integers(0, cfg.vocab_size,
+                                      size=lp).astype(np.int32)
+                at = clock()
+                rid = eng.submit(prompt, args.max_new_tokens,
+                                 prefix_id=prefix_id, on_token=on_token)
+                submitted[rid] = at
+                print(f"→ r{rid} submitted (prompt {lp} tokens)")
+        for rid in eng.step():
+            finished[rid] = eng.result(rid)
+            print(f"← r{rid} done: {finished[rid].tolist()}")
+    dt = time.perf_counter() - t0
+    total = sum(len(v) for v in finished.values())
+    line = (f"served {len(finished)} requests, {total} tokens in {dt:.2f}s "
+            f"({total / dt:.1f} tok/s) — stats {eng.stats}")
+    if finished:
+        lat = [retired[r] - submitted[r] for r in finished]
+        ttft = [first[r] - submitted[r] for r in finished]
+        line += (f"; p50 latency {statistics.median(lat) * 1e3:.0f}ms, "
+                 f"p50 TTFT {statistics.median(ttft) * 1e3:.0f}ms")
+    print(line)
+    return finished
+
+
+if __name__ == "__main__":
+    main()

@@ -64,6 +64,25 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    (b)'s pool drains with its null page zero. The decode step at full
    occupancy, prefill times by bucket (CUDA events), tokens/s and the time
    to first token of (a) and (b) are printed;
+3f. disaggregated prefill on 3e's traffic and weights, three engines sharing
+   the parameter tensors: a monolithic dense engine M (prefill_chunk 256,
+   one batch-1 admission at a time), a prefill engine P driven only through
+   ``start_prefill`` → ``advance`` → ``handoff`` (the prefix's carriers
+   suffix-only) and a paged decode engine D adopting every handoff through
+   ``submit_kv``, its prefix imported from P. Every handoff verifies, and
+   fails with one payload byte flipped; D's tokens equal M's for every
+   request; D runs no prefill and no ``flash_fwd``, P one a layer per fresh
+   prefill; a second run of M moves 4 requests to D mid-decode
+   (``export_kv``, ``abort``, ``submit_kv``) with every output unchanged; a
+   descendant prefix imported over its 256-token ancestor aliases the
+   ancestor's pages and serves as D's own registered prefix; the serving
+   and paged-KV metrics, read through ``exposition()``, count what each
+   engine saw, and D's pool drains with page 0 zero; every flash call of M,
+   of its second run and of the prefix section is held against the plain
+   attention within 3e's bf16 tolerance, and each bucket x batch that P's
+   timed prefills launch must be among them. The handoff bytes, the
+   export, seal, verify and adoption times of each request and both
+   engines' decode step at occupancy 8 are printed;
 4. training: a gradient gate (the first step's gradients of the kernel
    model against plain-attention models in bf16 and fp32), then ``Trainer``
    at ``llama2_1b`` (16 layers, full width, fp32 masters, bf16 compute,
@@ -158,6 +177,12 @@ ENGINE_PREFIX, ENGINE_CARRIERS, ENGINE_PAGES = 384, 8, 160
 # and must break both limits in every request.
 TAU_MULT = 0.9
 EXACT_MIN = 0.7
+# Phase 3f, disaggregated prefill on phase 3e's traffic: the requests that
+# the monolithic engine's second run moves into the decode engine
+# mid-decode, the ancestor of the prefix in the base-aliased import, and a
+# handoff's bytes a position at llama2_7b bf16: 32 layers x (K, V) x 8 kv
+# heads x 128 x 2 B.
+DISAGG_MIGRATED, DISAGG_ANCESTOR, HANDOFF_BYTES_PER_POSITION = 4, 256, 131072
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
 # The int8 GEMM at the llama2_1b training shapes, M = batch x seq rows:
@@ -807,9 +832,8 @@ def drive_engine(engine, reqs, prefix, carriers, mods, clock) -> dict:
     step ends in its copy of tokens to the host), admission prefills by
     (bucket, batch) on CUDA events (no synchronize inside the run), time to
     first token on the engine's ``clock``, and the wall time."""
-    # prefill times by bucket are what the reference's metrics object
-    # records; until that is ported, events around the engine's own
-    # prefill call take them
+    # the metrics objects record no prefill time: events around the
+    # engine's own prefill call take them
     events = []
     prefill_call = engine._prefill
 
@@ -1034,6 +1058,381 @@ def serve_engine(cfg, params, mods, plain_flash, diff, gpu, serving,
     return launches
 
 
+def scrape(metrics_mod, metrics) -> dict:
+    """Sample name → value of the scrape body ``exposition()`` gives."""
+    out = {}
+    for line in metrics_mod.exposition(metrics).splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def drive_in_turn(engine, reqs, carriers, pid, migrate=None) -> dict:
+    """Phase 3f's monolithic driver: ``reqs`` submitted in order, one a
+    step, each only when a slot is free and every earlier request has its
+    first token, so that every admission is a batch-1 prefill (the calls a
+    ``PrefillJob`` makes). ``migrate(engine, seen)`` may take requests out
+    after a step (``seen``: tokens streamed per request). Returns the
+    tokens by request and the host times of the steps entered with every
+    slot busy (each ends in its copy of tokens to the host)."""
+    seen, out, step_ms, j = {}, {}, [], 0
+    gone: set = set()
+
+    def on_token(rid, tok):
+        seen[rid] = seen.get(rid, 0) + 1
+
+    while len(out) + len(gone) < len(reqs):
+        if (j < len(reqs) and engine.free_slots > 0
+                and all(seen.get(r, 0) for r in range(j))):
+            rid = engine.submit(*reqs[j], on_token=on_token,
+                                prefix_id=pid if j in carriers else None)
+            if rid != j:
+                fail(f"engine request id {rid} for request {j}")
+            j += 1
+        full = engine.free_slots == 0
+        t0 = time.perf_counter()
+        for rid in engine.step():
+            out[rid] = engine.result(rid)
+        if full:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        if migrate is not None:
+            gone |= migrate(engine, seen)
+    return {"tokens": out, "step_ms": step_ms}
+
+
+def serve_disagg(cfg, params, mods, plain_flash, gpu, serving, transformer,
+                 decode, metrics_mod) -> dict:
+    """Phase 3f: disaggregated prefill at llama2_7b width on phase 3e's
+    traffic, three engines sharing phase 3's parameter tensors. M:
+    monolithic, dense, 8 slots x 2048, prefill_chunk 256, driven by
+    ``drive_in_turn``. P: the same config, driven only through
+    ``start_prefill`` → ``advance`` → ``handoff`` (the prefix's carriers
+    suffix-only). D: paged (ENGINE_PAGES pages of 128 tokens), 8 slots,
+    adopting every handoff through ``submit_kv``; its prefix comes from P by
+    ``export_prefix`` / ``import_prefix``. Gates: every handoff verifies and
+    fails with one byte flipped, at pb x HANDOFF_BYTES_PER_POSITION bytes;
+    D's tokens equal M's for all requests; D runs no prefill and launches
+    no flash_fwd, P launches it once a layer per fresh prefill; a second run
+    of M hands DISAGG_MIGRATED requests to D mid-decode (``export_kv``,
+    ``abort``, ``submit_kv``) and every output equals the first run's; a
+    descendant prefix imported over its DISAGG_ANCESTOR-token ancestor
+    aliases the ancestor's pages and serves a request as D's own
+    registered prefix does; the metrics read through ``exposition()`` count
+    what the engines saw, D's pool drains with page 0 zero; every flash call
+    of M, of M's second run and of the prefix section held against the
+    plain attention on its own inputs within phase 3e's bf16 tolerance, and
+    every (bucket, batch) that P's timed prefills launch among those
+    checked. Prints the handoff bytes and times and both engines' decode
+    step at occupancy 8. Returns the phase's launches."""
+    reqs, prefix, carriers = engine_traffic(cfg.vocab_size)
+    dev = params["embed"].device
+    shape = dict(n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+                 clock=time.monotonic, device=dev)
+    client = metrics_mod._prom is not None
+    # built as without prometheus_client (which this machine may carry):
+    # the gate reads the body exposition() renders without it
+    with mock.patch.object(metrics_mod, "_prom", None):
+        m_metrics = metrics_mod.ServingMetrics()
+        d_metrics = metrics_mod.ServingMetrics()
+        d_kv_metrics = metrics_mod.PagedKVMetrics()
+    M = serving.ContinuousBatchingEngine(cfg, params, prefill_chunk=256,
+                                         metrics=m_metrics, **shape)
+    P = serving.ContinuousBatchingEngine(cfg, params, prefill_chunk=256,
+                                         **shape)
+    D = serving.ContinuousBatchingEngine(
+        cfg, params, kv_pages=ENGINE_PAGES, page_tokens=128,
+        metrics=d_metrics, kv_metrics=d_kv_metrics, **shape)
+    shared = all(t.data_ptr() == params[n].data_ptr()
+                 for e in (M, P, D)
+                 for model in (e._prefill_model, e._step_model)
+                 for n, t in model.named_parameters())
+    print(f"[disagg] engines M (dense, prefill_chunk 256), P (the same, "
+          f"prefill only) and D (paged, {ENGINE_PAGES} pages of 128), "
+          f"{ENGINE_SLOTS} slots x {ENGINE_MAX_LEN}; every model holds phase "
+          f"3's parameter tensors themselves: {shared}; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated on the "
+          f"card; prometheus_client {'present' if client else 'absent'} "
+          f"here, the metrics built without it")
+    if not shared:
+        fail("the engines copied the parameters")
+    reset_counts(mods)
+
+    # ---- M: the monolithic reference run, every flash call checked (its
+    # timed steps, entered with every slot busy, admit nothing and so run
+    # no flash call)
+    worst: dict = {}     # (bucket, batch) -> max|o - plain| of the flash
+    with flash_checked(transformer, plain_flash, worst):
+        pid_m = M.register_prefix(prefix)
+        mono = drive_in_turn(M, reqs, carriers, pid_m)
+    m_tokens = mono["tokens"]
+
+    # ---- P → D: every request prefilled on P, adopted by D. P's prefills
+    # are timed, so its flash calls are not checked in place; their
+    # (bucket, batch) shapes are kept and must be among those checked.
+    kernel = transformer.flash_attention
+    p_shapes: set = set()
+
+    def recorded(q, k, v, causal=True, segments=None):
+        p_shapes.add((q.shape[1], q.shape[0]))
+        return kernel(q, k, v, causal, segments)
+
+    recording = mock.patch.object(transformer, "flash_attention", recorded)
+    recording.start()
+    pid_p = P.register_prefix(prefix)
+    pid_d = D.import_prefix(*P.export_prefix(pid_p))
+    timing = {name: [] for name in ("prefill", "export", "seal", "verify",
+                                    "adopt")}
+    seal = serving.KVHandoff.seal
+
+    def timed_seal(self):
+        t0 = time.perf_counter()
+        out = seal(self)
+        timing["seal"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    p_flash = 0
+    handoffs = []
+    for j, (prompt, _) in enumerate(reqs):
+        before = mods["fa"].launches
+        t0 = time.perf_counter()
+        job = P.start_prefill(prompt, pid_p if j in carriers else None)
+        while not job.advance():
+            pass
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        p_flash += mods["fa"].launches - before
+        with mock.patch.object(serving.KVHandoff, "seal", timed_seal):
+            h = job.handoff(suffix_only=j in carriers)
+        timing["prefill"].append((t1 - t0) * 1e3)
+        timing["export"].append((time.perf_counter() - t1) * 1e3
+                                - timing["seal"][-1])
+        t0 = time.perf_counter()
+        ok = h.verify()
+        timing["verify"].append((time.perf_counter() - t0) * 1e3)
+        byte = h.cache["k"].view(torch.uint8).view(-1)
+        byte[0] ^= 0xFF
+        caught = not h.verify()
+        byte[0] ^= 0xFF            # restored: the byte D adopts is sound
+        pb = decode._bucket_len(h.pos, ENGINE_MAX_LEN)
+        if (not ok or not caught
+                or h.nbytes != pb * HANDOFF_BYTES_PER_POSITION
+                or h.base != (ENGINE_PREFIX if j in carriers else 0)):
+            fail(f"handoff {j}: verify {ok}, flipped byte caught {caught}, "
+                 f"{h.nbytes} bytes at bucket {pb}, base {h.base}")
+        handoffs.append(h)
+    recording.stop()
+    adopt = D._adopt_into_slot
+
+    def timed_adopt(*args, **kw):
+        t0 = time.perf_counter()
+        adopt(*args, **kw)
+        torch.cuda.synchronize()
+        timing["adopt"].append((time.perf_counter() - t0) * 1e3)
+
+    d_ids = {}
+    for j, h in enumerate(handoffs):
+        d_ids[D.submit_kv(h, reqs[j][1],
+                          prefix_id=pid_d if j in carriers else None)] = j
+    d_out, d_step_ms, d_flash = {}, [], 0
+    with mock.patch.object(D, "_adopt_into_slot", timed_adopt):
+        while len(d_out) < len(reqs):
+            full = D.free_slots == 0
+            before = mods["fa"].launches
+            t0 = time.perf_counter()
+            for rid in D.step():
+                d_out[d_ids[rid]] = D.result(rid)
+            if full:
+                d_step_ms.append((time.perf_counter() - t0) * 1e3)
+            d_flash += mods["fa"].launches - before
+    same = [j for j in range(len(reqs))
+            if np.array_equal(d_out[j], m_tokens[j])]
+    print(f"[disagg] D's tokens equal M's, token for token, in {len(same)} "
+          f"of {len(reqs)} requests ({sum(len(t) for t in d_out.values())} "
+          f"tokens)")
+    if len(same) != len(reqs):
+        fail(f"D's tokens differ from M's in requests "
+             f"{sorted(set(range(len(reqs))) - set(same))}")
+    print(f"[disagg] D: prefill positions {D.stats['prefill_positions']}, "
+          f"flash_fwd launches {d_flash}, adopted {D.stats['kv_adopted']}; "
+          f"P: fresh prefills {P.stats['fresh_prefills']} (the prefix's "
+          f"included), flash_fwd launches {p_flash} + {cfg.n_layers} for its "
+          f"prefix; every handoff verified and failed with one byte flipped")
+    if (D.stats["prefill_positions"] or d_flash
+            or D.stats["kv_adopted"] != len(reqs)
+            or p_flash != cfg.n_layers * (P.stats["fresh_prefills"] - 1)):
+        fail("the decode engine prefilled, or the prefill engine's flash "
+             "launches are not one a layer per fresh prefill")
+    mib = [h.nbytes / 2**20 for h in handoffs]
+    print(f"[disagg] handoff bytes a request: pb x "
+          f"{HANDOFF_BYTES_PER_POSITION:,} B (32 layers x K, V x 8 kv heads "
+          f"x 128 x 2 B), {min(mib):.0f}-{max(mib):.0f} MiB, "
+          f"{sum(mib) / 2**10:.2f} GiB in all")
+    for j, h in enumerate(handoffs):
+        print(f"[time] {gpu}: handoff {j}: pos {h.pos} pb "
+              f"{decode._bucket_len(h.pos, ENGINE_MAX_LEN)} base {h.base} "
+              f"{h.nbytes / 2**20:.0f} MiB; P prefill "
+              f"{timing['prefill'][j]:.2f} ms, export (device → host) "
+              f"{timing['export'][j]:.2f} ms, seal {timing['seal'][j]:.2f} "
+              f"ms, verify {timing['verify'][j]:.2f} ms, submit_kv → "
+              f"adoption (host → device, splice) "
+              f"{timing['adopt'][j]:.2f} ms")
+    by_pb: dict = {}
+    for j, h in enumerate(handoffs):
+        pb = decode._bucket_len(h.pos, ENGINE_MAX_LEN)
+        by_pb.setdefault(pb, []).append(j)
+    print(f"[time] {gpu}: handoff medians by bucket (export / seal / verify "
+          f"/ adoption / P prefill, ms): " + "; ".join(
+              f"{pb} x {len(js)}: " + " / ".join(
+                  f"{statistics.median(timing[k][j] for j in js):.2f}"
+                  for k in ("export", "seal", "verify", "adopt", "prefill"))
+              for pb, js in sorted(by_pb.items())))
+    print(f"[time] {gpu}: decode step at occupancy {ENGINE_SLOTS}, llama2_7b "
+          f"bf16: D (paged, adopted) median "
+          f"{statistics.median(d_step_ms):.2f} ms over {len(d_step_ms)} "
+          f"steps; M (dense, monolithic) median "
+          f"{statistics.median(mono['step_ms']):.2f} ms over "
+          f"{len(mono['step_ms'])} steps")
+
+    # ---- migration: a second run of M hands requests to D mid-decode;
+    # from here to the metrics every flash call is checked
+    checking = flash_checked(transformer, plain_flash, worst)
+    checking.start()
+    M2 = serving.ContinuousBatchingEngine(cfg, params, prefill_chunk=256,
+                                          **shape)
+    migrated = {}
+
+    def migrate(engine, seen):
+        if migrated:
+            return set()
+        live = [r for r, n in sorted(seen.items())
+                if 2 <= n <= reqs[r][1] - 2]
+        if len(live) < DISAGG_MIGRATED:
+            return set()
+        for r in live[:DISAGG_MIGRATED]:
+            h = engine.export_kv(r)
+            left = engine.abort(r)
+            if (h is None or not h.verify() or left is None
+                    or list(left) != list(h.emitted)):
+                fail(f"request {r} did not export and abort mid-decode")
+            migrated[r] = h
+        return set(migrated)
+
+    pid_m2 = M2.register_prefix(prefix)
+    rerun = drive_in_turn(M2, reqs, carriers, pid_m2, migrate)["tokens"]
+    if len(migrated) != DISAGG_MIGRATED:
+        fail(f"{len(migrated)} requests migrated")
+    moved = {D.submit_kv(h, reqs[r][1]): r for r, h in migrated.items()}
+    for rid, toks in D.run().items():
+        rerun[moved[rid]] = toks
+    same = all(np.array_equal(rerun[j], m_tokens[j]) for j in range(len(reqs)))
+    print(f"[disagg] migration: M's second run moved requests "
+          f"{sorted(migrated)} to D after "
+          f"{[len(migrated[r].emitted) for r in sorted(migrated)]} tokens "
+          f"(export_kv, abort, submit_kv); all {len(reqs)} outputs equal the "
+          f"first run's: {same}")
+    if not same:
+        fail("a migrated or repeated request's tokens differ")
+    del M2
+
+    # ---- prefix export and import with a base-aliased descendant
+    anc = prefix[:DISAGG_ANCESTOR]
+    anc_export = P.export_prefix(P.register_prefix(anc))
+    pid_anc = D.import_prefix(*anc_export)
+    aliased, allocated = D.stats["pages_aliased"], D.stats["pages_allocated"]
+    pid_desc = D.import_prefix(*P.export_prefix(pid_p), base_pid=pid_anc,
+                               base_len=DISAGG_ANCESTOR)
+    new_alias = D.stats["pages_aliased"] - aliased
+    new_pages = D.stats["pages_allocated"] - allocated
+    # a carrier whose suffix M prefilled whole (no chunk), as D does
+    j0 = min(j for j in carriers if reqs[j][0].size <= 256)
+    r_imp = D.submit(reqs[j0][0], reqs[j0][1], prefix_id=pid_desc)
+    imported = D.run()[r_imp]
+    pid_own = D.register_prefix(prefix)
+    r_own = D.submit(reqs[j0][0], reqs[j0][1], prefix_id=pid_own)
+    own = D.run()[r_own]
+    print(f"[disagg] import_prefix of the {ENGINE_PREFIX}-token prefix over "
+          f"its {DISAGG_ANCESTOR}-token ancestor on D: {new_alias} pages "
+          f"aliased, {new_pages} written; request {j0} under it equals the "
+          f"same under D's own registered prefix: "
+          f"{np.array_equal(imported, own)}, and M's: "
+          f"{np.array_equal(own, m_tokens[j0])}")
+    if (new_alias != DISAGG_ANCESTOR // 128
+            or new_pages != ENGINE_PREFIX // 128 - DISAGG_ANCESTOR // 128
+            or not np.array_equal(imported, own)
+            or not np.array_equal(own, m_tokens[j0])):
+        fail("the descendant prefix did not alias its ancestor's pages or "
+             "serve as D's own prefix does")
+    checking.stop()
+    tol_o = TOL[torch.bfloat16][0]
+    unchecked = sorted(p_shapes - set(worst))
+    print(f"[disagg] flash_fwd against the plain attention on the engines' "
+          f"own q, k, v in M, M's second run and the prefix section, "
+          f"max|o - plain| by bucket x batch (tol {tol_o:g}): " + ", ".join(
+              f"{l} x {b}: {e:.3e}" for (l, b), e in sorted(worst.items()))
+          + f"; P's bucket x batch {sorted(p_shapes)}, unchecked "
+          f"{unchecked}")
+    if not worst or max(worst.values()) > tol_o:
+        fail("the flash forward strays from the plain attention on phase "
+             "3f's inputs")
+    if unchecked:
+        fail(f"P launched flash_fwd at bucket x batch {unchecked}, which no "
+             f"checked call covered")
+
+    # ---- the metrics, read through the scrape body
+    for pid in (pid_d, pid_anc, pid_desc, pid_own):
+        D.drop_prefix(pid)
+    m_scrape = scrape(metrics_mod, m_metrics)
+    d_scrape = scrape(metrics_mod, d_metrics)
+    kv_scrape = scrape(metrics_mod, d_kv_metrics)
+    d_seen = len(reqs) + len(migrated) + 2
+    d_tokens = (sum(len(t) - len(h.emitted)
+                    for t, h in zip((d_out[j] for j in range(len(reqs))),
+                                    handoffs))
+                + sum(len(rerun[r]) - len(h.emitted)
+                      for r, h in migrated.items())
+                + len(imported) + len(own))
+    ns, paged = "tpu_on_k8s_serving_", "tpu_on_k8s_paged_"
+    want = {
+        "M": (m_scrape, len(reqs), len(reqs),
+              sum(len(t) for t in m_tokens.values()), len(reqs)),
+        "D": (d_scrape, d_seen, d_seen, d_tokens, 2)}
+    for name, (s, *counts) in want.items():
+        got = tuple(int(s[ns + key]) for key in (
+            "requests_submitted_total", "requests_finished_total",
+            "tokens_emitted_total", "time_to_first_token_seconds_count"))
+        print(f"[disagg] {name}'s ServingMetrics through exposition(): "
+              f"submitted, finished, tokens emitted, TTFT observations "
+              f"{got} (want {tuple(counts)}; an adopted handoff observes no "
+              f"TTFT, as in the reference)")
+        if got != tuple(counts):
+            fail(f"{name}'s serving metrics miscount")
+    p50 = {name: statistics.median(m_metrics.histograms[name]) * 1e3
+           for name in ("time_to_first_token_seconds",
+                        "request_latency_seconds")}
+    print(f"[time] {gpu}: M's p50 TTFT "
+          f"{p50['time_to_first_token_seconds']:.1f} ms, p50 latency "
+          f"{p50['request_latency_seconds']:.1f} ms (its ServingMetrics, "
+          f"engine clock)")
+    kv_got = (kv_scrape[paged + "pages_total"],
+              kv_scrape[paged + "pages_in_use"],
+              kv_scrape[paged + "page_allocs_total"],
+              kv_scrape[paged + "pages_aliased_total"],
+              kv_scrape[paged + "programs_compiled_total"])
+    kv_want = (ENGINE_PAGES, 0, D.stats["pages_allocated"],
+               D.stats["pages_aliased"], 0)
+    print(f"[disagg] D's PagedKVMetrics through exposition(): pages total, "
+          f"in use, allocated, aliased, programs compiled "
+          f"{tuple(int(v) for v in kv_got)} (want {kv_want}); page 0 zero "
+          f"{D.null_page_is_zero()}")
+    if kv_got != kv_want or not D.null_page_is_zero():
+        fail("D's paged metrics miscount, or its pool did not drain")
+    launched = read_counts(mods)
+    del M, P, D
+    torch.cuda.empty_cache()
+    return launched
+
+
 def backward_products(model, loss_fn, tokens) -> int:
     """The ``aten.mm`` calls in one backward pass of ``model``."""
     loss, _ = loss_fn(tokens)
@@ -1102,6 +1501,7 @@ def main() -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 1
 
+    from tpu_on_k8s_torch import metrics as metrics_mod
     from tpu_on_k8s_torch.models import convert, decode, serving, transformer
     from tpu_on_k8s_torch.models.params import init_params, load_model
     from tpu_on_k8s_torch.ops import _build
@@ -1492,6 +1892,11 @@ def main() -> int:
     # ---- 3e. continuous batching at llama2_7b width --------------------
     by_path["engine"] = serve_engine(cfg, params, mods, plain_flash, diff,
                                      gpu, serving, transformer, decode)
+
+    # ---- 3f. disaggregated prefill at llama2_7b width -------------------
+    by_path["disagg"] = serve_disagg(cfg, params, mods, plain_flash, gpu,
+                                     serving, transformer, decode,
+                                     metrics_mod)
     del params
     torch.cuda.empty_cache()
     by_path["cli"] = run_clis(mods)

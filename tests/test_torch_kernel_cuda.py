@@ -424,3 +424,39 @@ def test_dequant_kernel_at_its_edges(cuda, r, c, dtype):
                                                       torch.float32), seed=4)
     got = quant.dequantize_int8(values, scales, dtype)
     assert torch.equal(got, quant.dequantize_int8_plain(values, scales, dtype))
+
+
+def test_kv_handoff_roundtrip_on_the_card(cuda):
+    """The disaggregated path at ``tiny`` on the card: a prefill engine's
+    ``PrefillJob`` launches the flash forward once a layer, and its sealed
+    handoff, adopted by a dense and by a paged decode engine, decodes the
+    tokens a monolithic engine decodes, with no prefill and no flash launch
+    on the decode engines."""
+    from tpu_on_k8s_torch.models.params import init_params
+    from tpu_on_k8s_torch.models.serving import ContinuousBatchingEngine
+    from tpu_on_k8s_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig.tiny()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, 40).astype(np.int32)
+    mono = ContinuousBatchingEngine(cfg, params, n_slots=2, device="cuda")
+    r = mono.submit(prompt, 12)
+    want = mono.run()[r]
+    prefill = ContinuousBatchingEngine(cfg, params, n_slots=2, device="cuda")
+    before = fa.launches
+    job = prefill.start_prefill(prompt)
+    while not job.advance():
+        pass
+    assert fa.launches - before == cfg.n_layers
+    ho = job.handoff()
+    assert ho.verify() and ho.cache["k"].device.type == "cpu"
+    for kw in ({}, {"kv_pages": 8}):
+        dec = ContinuousBatchingEngine(cfg, params, n_slots=2, device="cuda",
+                                       **kw)
+        before = fa.launches
+        rid = dec.submit_kv(ho, 12)
+        np.testing.assert_array_equal(dec.run()[rid], want)
+        assert fa.launches == before
+        assert dec.stats["prefill_positions"] == 0

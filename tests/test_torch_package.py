@@ -53,11 +53,34 @@ def test_the_scan_sees_the_whole_port():
             "tpu_on_k8s_torch/models/convert.py",
             "tpu_on_k8s_torch/generate.py",
             "tpu_on_k8s_torch/models/serving.py",
+            "tpu_on_k8s_torch/models/layouts.py",
+            "tpu_on_k8s_torch/metrics.py",
+            "tpu_on_k8s_torch/chaos.py",
             "tpu_on_k8s_torch/serve.py",
             "tpu_on_k8s_torch/train_llama.py",
             "tpu_on_k8s_torch/train/trainer.py",
             "tpu_on_k8s_torch/train/optimizer.py",
             "tpu_on_k8s_torch/data/loader.py"} <= names
+
+
+def test_copied_modules_import_without_prometheus_client():
+    """The card's machine has no prometheus_client: the metrics module (and
+    the engine and CLI that import it) load without it, and the scrape body
+    is ``render_text``'s."""
+    code = (
+        "import sys; sys.modules['prometheus_client'] = None\n"
+        "from tpu_on_k8s_torch import metrics, serve\n"
+        "from tpu_on_k8s_torch.models import serving\n"
+        "assert metrics._prom is None\n"
+        "m = metrics.ServingMetrics(); m.inc('tokens_emitted', 4)\n"
+        "body = metrics.exposition(m)\n"
+        "assert body == metrics.render_text(m)\n"
+        "assert 'tpu_on_k8s_serving_tokens_emitted_total 4.0' in body\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
 
 
 @pytest.fixture

@@ -6,7 +6,10 @@ engine's and the JAX paged engine's through staggered admits, slot reuse,
 chunked prefill and prefix forks, while its pages come and go with the
 requests. Copy-on-write at the fork: a request writes its own fork and
 suffix pages and only references a prefix's full pages, so no write ever
-changes a sibling's bytes; page 0 (the null page) stays zero. A
+changes a sibling's bytes; page 0 (the null page) stays zero. A request's
+KV migrates between dense and paged engines (``export_kv`` /
+``submit_kv``), a descendant prefix imports over its ancestor's pages, and
+``PagedKVMetrics`` reads what the JAX engine's reads. A
 ``TransformerConfig.tiny()`` model (fp32, ``max_seq_len`` 64) is initialised
 by the JAX package and carried across with ``from_jax_params``; each JAX
 engine is built once per module.
@@ -19,10 +22,12 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_on_k8s.metrics.metrics import PagedKVMetrics as JPagedKVMetrics
 from tpu_on_k8s.models import decode as jdecode
 from tpu_on_k8s.models.serving import ContinuousBatchingEngine as JEngine
 from tpu_on_k8s.models.transformer import Transformer as JTransformer
 from tpu_on_k8s.models.transformer import TransformerConfig as JConfig
+from tpu_on_k8s_torch.metrics import PagedKVMetrics
 from tpu_on_k8s_torch.models import decode
 from tpu_on_k8s_torch.models import params as pparams
 from tpu_on_k8s_torch.models.serving import ContinuousBatchingEngine
@@ -62,10 +67,12 @@ class Setup:
         return ContinuousBatchingEngine(self.pcfg, self.params, device="cpu",
                                         **kw)
 
-    def jax_engine(self, kv_pages=24, **kw) -> JEngine:
-        """One JAX paged engine per configuration for the whole module."""
+    def jax_engine(self, kv_pages=24, role="", **kw) -> JEngine:
+        """One JAX paged engine per configuration (and ``role``: two
+        engines of one configuration) for the whole module; ``kv_pages=0``
+        gives a dense one."""
         kw.setdefault("n_slots", 2)
-        key = (kv_pages, *sorted(kw.items()))
+        key = (role, kv_pages, *sorted(kw.items()))
         if key not in self.jax_engines:
             self.jax_engines[key] = JEngine(self.jcfg, self.jparams,
                                             kv_pages=kv_pages,
@@ -83,6 +90,13 @@ def setup():
     params = pparams.from_jax_params(jax.tree.map(np.asarray, jparams),
                                      device="cpu")
     return Setup(jcfg, jparams, port_config(jcfg), params, {})
+
+
+def want_generate(setup, prompt, n) -> np.ndarray:
+    """The JAX ``generate`` oracle: the request's greedy continuation."""
+    return np.asarray(jdecode.generate(
+        setup.jcfg, setup.jparams, jnp.asarray(prompt, jnp.int32)[None],
+        max_new_tokens=n))[0]
 
 
 def prompts(seed, sizes):
@@ -267,3 +281,127 @@ def test_null_page_stays_zero_after_every_step(setup):
                 by_order(traffic(setup.engine(paged=False, n_slots=3,
                                               step_horizon=3))))
     assert eng.stats["steps"] > 0
+
+
+@pytest.mark.parametrize("src_paged, dst_paged",
+                         [(True, True), (True, False), (False, True),
+                          (False, False)],
+                         ids=["paged-paged", "paged-dense", "dense-paged",
+                              "dense-dense"])
+def test_export_submit_kv_between_modes(setup, src_paged, dst_paged):
+    """Mid-decode migration in every direction: the export ships the
+    bucket's page run (or slot row), and the stream continues token for
+    token as the JAX engines' through the same calls and the JAX
+    ``generate``."""
+    p = prompts(35, (7,))[0]
+
+    def migrate(src, dst):
+        r = src.submit(p, 14)
+        src.step()
+        src.step()
+        h = src.export_kv(r)
+        assert h is not None and h.verify()
+        src.abort(r)
+        r2 = dst.submit_kv(h, 14)
+        return h, dst.run()[r2]
+
+    h, got = migrate(setup.engine(paged=src_paged),
+                     setup.engine(paged=dst_paged))
+    assert h.cache["k"].shape == (2, 1, 64, 2, 16) and h.pos == 9
+    np.testing.assert_array_equal(got, want_generate(setup, p, 14))
+    jh, jgot = migrate(
+        setup.jax_engine(kv_pages=24 if src_paged else 0, role="src"),
+        setup.jax_engine(kv_pages=24 if dst_paged else 0, role="dst"))
+    assert h.emitted == jh.emitted
+    np.testing.assert_array_equal(got, jgot)
+
+
+def test_base_aliased_import_end_to_end(setup):
+    """A descendant prefix imported with ``base_pid``/``base_len`` aliases
+    the resident ancestor's full pages (their bytes untouched, no page
+    allocated for them) and writes only the rest; a request under the
+    imported prefix decodes as the JAX engines' and the JAX ``generate``."""
+    anc, tail, suffix = prompts(38, (33, 17, 5))
+    desc = np.concatenate([anc, tail])
+
+    def promote(a, b):
+        ha, la = a.export_prefix(a.register_prefix(anc))
+        hd, ld = a.export_prefix(a.register_prefix(desc))
+        pid_anc = b.import_prefix(ha, la)
+        allocated = b.stats["pages_allocated"]
+        aliased = b.stats["pages_aliased"]
+        pid_desc = b.import_prefix(hd, ld, base_pid=pid_anc, base_len=la)
+        pages = b._prefix_pages[pid_desc]
+        assert pages[:2] == b._prefix_pages[pid_anc]
+        assert b.stats["pages_aliased"] - aliased == 2
+        assert b.stats["pages_allocated"] - allocated == 1
+        r = b.submit(suffix, 9, prefix_id=pid_desc)
+        return b.run()[r]
+
+    b = setup.engine()
+    got = promote(setup.engine(), b)
+    np.testing.assert_array_equal(
+        got, want_generate(setup, np.concatenate([desc, suffix]), 9))
+    np.testing.assert_array_equal(got, promote(
+        setup.jax_engine(role="prefixes"), setup.jax_engine(role="adopter")))
+    assert b.pages_in_use == 3 and null_page_is_zero(b)
+
+
+def test_import_prefix_without_pages_when_the_pool_is_short(setup):
+    """An import the pool cannot back is recorded without pages (the
+    aliases it took are released) and still serves through its own cache,
+    every block written fresh, as the JAX engine's does."""
+    anc, tail, other, suffix = prompts(39, (33, 17, 48, 2))
+    desc = np.concatenate([anc, tail])
+
+    def short_pool(src, dst):
+        hd, ld = src.export_prefix(src.register_prefix(desc))
+        pid_anc = dst.register_prefix(anc)
+        pid_other = dst.register_prefix(other)
+        assert dst._pool.in_use == 5
+        pid = dst.import_prefix(hd, ld, base_pid=pid_anc, base_len=33)
+        assert dst._prefix_pages[pid] == [] and dst._pool.in_use == 5
+        dst.drop_prefix(pid_anc)
+        dst.drop_prefix(pid_other)
+        r = dst.submit(suffix, 4, prefix_id=pid)
+        return dst.run()[r]
+
+    dst = setup.engine(kv_pages=5)
+    got = short_pool(setup.engine(), dst)
+    np.testing.assert_array_equal(
+        got, want_generate(setup, np.concatenate([desc, suffix]), 4))
+    np.testing.assert_array_equal(got, short_pool(
+        setup.jax_engine(role="prefixes"),
+        setup.jax_engine(kv_pages=5, role="short")))
+    assert dst.stats["pages_aliased"] == 2 and dst.pages_in_use == 0
+
+
+def test_paged_kv_metrics_match_jax(setup):
+    """``PagedKVMetrics`` on the port's paged engine and on the JAX one,
+    the same traffic (a prefix fork and a pool short enough to stall):
+    equal page gauges and allocation, alias and stall counters.
+    ``programs_compiled`` counts the reference's compiled programs; the
+    port compiles none and never counts it."""
+    prefix, *ps = prompts(40, (20, 3, 22, 24))
+
+    def traffic(eng, m):
+        assert m.gauges == {"pages_total": 5, "pages_in_use": 0}
+        pid = eng.register_prefix(prefix)
+        eng.submit(ps[0], 8, prefix_id=pid)
+        for p in ps[1:]:
+            eng.submit(p, 8)
+        out = eng.run()
+        eng.drop_prefix(pid)
+        return out
+
+    m, jm = PagedKVMetrics(), JPagedKVMetrics()
+    got = traffic(setup.engine(kv_pages=5, n_slots=4, kv_metrics=m), m)
+    jgot = traffic(JEngine(setup.jcfg, setup.jparams, n_slots=4, kv_pages=5,
+                           page_tokens=PAGE, kv_metrics=jm), jm)
+    assert_same(by_order(got), by_order(jgot))
+    assert m.gauges == jm.gauges == {"pages_total": 5, "pages_in_use": 0}
+    assert jm.counters.pop("programs_compiled") > 0
+    assert m.counters.get("programs_compiled", 0) == 0
+    assert dict(m.counters) == dict(jm.counters)
+    assert m.counters["admission_stalls"] > 0
+    assert m.counters["pages_aliased"] == 1

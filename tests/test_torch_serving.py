@@ -8,11 +8,15 @@ engine and the JAX engine, and their greedy tokens must agree token for
 token; a few requests are also held against the JAX ``generate``. The JAX
 engines are built once per module (each compiles its programs once). Also
 here: the multislot append at the layer, the engine's lifecycle (streaming,
-threads, queue cap, abort, reset, parameter swaps) and the ``serve`` CLI.
+threads, queue cap, abort, reset, parameter swaps), its metrics (against the
+JAX package's counts and scrape text), chaos at its step, and the ``serve``
+CLI.
 """
 import dataclasses
 import sys
 import threading
+import urllib.error
+import urllib.request
 import warnings
 
 import jax
@@ -21,16 +25,22 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_on_k8s import chaos as jchaos
+from tpu_on_k8s.chaos import scenarios as jscenarios
+from tpu_on_k8s.metrics import metrics as jmetrics
 from tpu_on_k8s.models import decode as jdecode
 from tpu_on_k8s.models.serving import ContinuousBatchingEngine as JEngine
 from tpu_on_k8s.models.transformer import Attention as JAttention
 from tpu_on_k8s.models.transformer import Transformer as JTransformer
 from tpu_on_k8s.models.transformer import TransformerConfig as JConfig
+from tpu_on_k8s_torch import chaos
+from tpu_on_k8s_torch import metrics as pmetrics
 from tpu_on_k8s_torch import serve as cli
 from tpu_on_k8s_torch.models import params as pparams
 from tpu_on_k8s_torch.models import serving
 from tpu_on_k8s_torch.models.serving import (
     ContinuousBatchingEngine,
+    EngineCrashError,
     EngineOverloadedError,
 )
 from tpu_on_k8s_torch.models.transformer import (
@@ -508,7 +518,8 @@ def test_raising_callback_is_detached(setup):
     def explode(rid, tok):
         raise RuntimeError("client went away")
 
-    eng = setup.engine(step_horizon=2, on_retire=explode)
+    sm = pmetrics.ServingMetrics()
+    eng = setup.engine(step_horizon=2, on_retire=explode, metrics=sm)
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
         bad = eng.submit(ps[0], 6, on_token=explode)
@@ -517,6 +528,7 @@ def test_raising_callback_is_detached(setup):
     messages = [str(x.message) for x in w]
     assert sum("streaming detached" in m for m in messages) == 1
     assert sum("on_retire callback raised" in m for m in messages) == 1
+    assert sm.counters["callback_errors"] == 2
     assert out[bad].shape == (6,)
     np.testing.assert_array_equal(out[good], want_generate(setup, ps[1], 6))
 
@@ -686,6 +698,230 @@ def test_int8_weights_engine_serves(setup):
     both(setup, traffic, int8_weights=True)
 
 
+# ---- metrics ---------------------------------------------------------------
+
+def test_serving_metrics(setup):
+    """The engine reports through ``ServingMetrics``: counters, the TTFT,
+    queue-wait and latency histograms, the slot and queue gauges; its
+    counts and gauges equal the JAX engine's for the same traffic."""
+    def traffic(eng, m):
+        rng = np.random.default_rng(13)
+        ids = [eng.submit(rng.integers(0, 256, size=4 + i).astype(np.int32),
+                          3) for i in range(3)]
+        assert m.counters["requests_submitted"] == 3
+        assert m.gauges["queue_depth"] == 3     # nothing admitted yet
+        out = eng.run()
+        assert set(out) == set(ids)
+        return out
+
+    m = pmetrics.ServingMetrics()
+    out = traffic(setup.engine(n_slots=1, metrics=m), m)
+    assert m.counters["requests_finished"] == 3
+    assert m.counters["tokens_emitted"] == 9   # 3 requests x 3 tokens
+    assert len(m.histograms["time_to_first_token_seconds"]) == 3
+    assert len(m.histograms["queue_wait_seconds"]) == 3
+    assert len(m.histograms["request_latency_seconds"]) == 3
+    # one slot: the 2nd and 3rd requests queued longer than the 1st
+    waits = m.histograms["queue_wait_seconds"]
+    assert waits[0] <= waits[1] <= waits[2]
+    for ttft, lat in zip(m.histograms["time_to_first_token_seconds"],
+                         m.histograms["request_latency_seconds"]):
+        assert lat >= ttft
+    assert m.gauges["slots_active"] == 0 and m.gauges["queue_depth"] == 0
+
+    jm = jmetrics.ServingMetrics()
+    jout = traffic(JEngine(setup.jcfg, setup.jparams, n_slots=1, metrics=jm),
+                   jm)
+    same_tokens(by_order(out), by_order(jout))
+    assert dict(m.counters) == dict(jm.counters)
+    assert m.gauges == jm.gauges
+    assert dict(m.histogram_counts) == dict(jm.histogram_counts)
+
+
+def _feed(m, paged: bool) -> None:
+    """The same calls on either package's metrics object: values in several
+    buckets and past the last, exemplars whose ids need escaping."""
+    if paged:
+        m.inc("page_allocs", 7)
+        m.inc("pages_aliased", 2)
+        m.inc("admission_stalls")
+        m.set_gauge("pages_total", 24)
+        m.set_gauge("pages_in_use", 5)
+        return
+    m.inc("requests_submitted", 3)
+    m.inc("tokens_emitted", 41)
+    m.set_gauge("queue_depth", 2)
+    m.set_gauge("slots_active", 1.5)
+    for i, v in enumerate((0.0005, 0.01, 0.3, 0.3, 7.0, 45.0)):
+        m.observe("time_to_first_token_seconds", v,
+                  exemplar=f'trace "{i}"\\n' if i % 2 else None)
+    m.observe("request_latency_seconds", 1.25)
+
+
+@pytest.mark.parametrize("cls, paged", [("ServingMetrics", False),
+                                        ("PagedKVMetrics", True)])
+@pytest.mark.parametrize("openmetrics", [False, True])
+def test_render_text_matches_the_jax_package(cls, paged, openmetrics):
+    ours, theirs = getattr(pmetrics, cls)(), getattr(jmetrics, cls)()
+    _feed(ours, paged)
+    _feed(theirs, paged)
+    assert (pmetrics.render_text(ours, openmetrics=openmetrics)
+            == jmetrics.render_text(theirs, openmetrics=openmetrics))
+    assert ours._families == {n: pmetrics._Family(*dataclasses.astuple(f))
+                              for n, f in theirs._families.items()}
+
+
+def test_exposition_and_serve_without_prometheus_client(monkeypatch):
+    """With ``_prom`` patched to None, ``exposition()`` is ``render_text``
+    and ``serve()`` answers /metrics from a stdlib HTTP thread (on
+    localhost, an ephemeral port) with that body."""
+    monkeypatch.setattr(pmetrics, "_prom", None)
+    m = pmetrics.ServingMetrics()
+    assert m.registry is None
+    _feed(m, paged=False)
+    body = pmetrics.exposition(m)
+    assert body == pmetrics.render_text(m)
+    assert "tpu_on_k8s_serving_requests_submitted_total 3.0" in body
+    assert pmetrics.exposition(m, openmetrics=True).endswith("# EOF\n")
+    _check_served(m)
+
+
+def _check_served(m) -> None:
+    """``serve(m, 0)`` answers /metrics with ``exposition(m)`` (on
+    localhost, an ephemeral port) and 404 elsewhere."""
+    server = pmetrics.serve(m, 0)
+    # no proxy: the request must stay on this host whatever the environment
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        with opener.open(url + "/metrics", timeout=30) as r:
+            assert r.status == 200
+            assert r.read().decode() == pmetrics.exposition(m)
+        with pytest.raises(urllib.error.HTTPError, match="404"):
+            opener.open(url + "/other", timeout=30)
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def test_exposition_with_prometheus_client_is_the_clients():
+    if pmetrics._prom is None:
+        pytest.skip("prometheus_client is not installed here")
+    m = pmetrics.PagedKVMetrics()
+    _feed(m, paged=True)
+    assert pmetrics.exposition(m) == pmetrics._prom.generate_latest(
+        m.registry).decode()
+    assert "tpu_on_k8s_paged_page_allocs_total 7.0" in pmetrics.exposition(m)
+
+
+def test_serve_with_prometheus_client_answers_the_clients_body():
+    """The same stdlib server answers when the client imported, and its
+    body is then the client's rendering of the registry."""
+    if pmetrics._prom is None:
+        pytest.skip("prometheus_client is not installed here")
+    m = pmetrics.ServingMetrics()
+    assert m.registry is not None
+    _feed(m, paged=False)
+    assert pmetrics.exposition(m) == pmetrics._prom.generate_latest(
+        m.registry).decode()
+    _check_served(m)
+
+
+# ---- chaos at the step -----------------------------------------------------
+
+def test_engine_crash_mid_decode(setup):
+    """``engine_crash_mid_decode(at_steps=(3,))`` on the port's injector:
+    the third ``step()`` raises ``EngineCrashError`` and counts a crash, as
+    the JAX engine's does under the JAX injector; ``reset()`` drops every
+    in-flight request and the engine serves on, exactly."""
+    ps = prompts(9, (5, 7, 4))
+
+    def crash(eng, scenario):
+        ids = [eng.submit(p, 8) for p in ps]
+        crashes = eng.stats["crashes"]
+        with scenario(at_steps=(3,)).injector() as inj:
+            eng.step()
+            eng.step()
+            with pytest.raises(RuntimeError,
+                               match="crashed mid-decode") as err:
+                eng.step()
+        assert eng.stats["crashes"] == crashes + 1
+        assert eng.reset() == sorted(ids)
+        return err.type.__name__, inj.events
+
+    eng = setup.engine()
+    got = crash(eng, chaos.engine_crash_mid_decode)
+    assert got == (EngineCrashError.__name__,
+                   ["seq=1 engine_crash note=crash mid-decode"])
+    assert chaos.active() is None
+    assert got == crash(setup.jax_engine(),
+                        jscenarios.engine_crash_mid_decode)
+    assert eng.free_slots == 2 and not eng._queue
+    rid = eng.submit(ps[1], 8)
+    np.testing.assert_array_equal(eng.run()[rid],
+                                  want_generate(setup, ps[1], 8))
+
+
+def test_engine_stall_moves_no_token(setup):
+    """An ``EngineStall`` rule: ``step()`` returns ``[]`` with no
+    admission, no token and no retirement; the next step moves again and
+    every token is exact."""
+    p, q = prompts(10, (6, 9))
+    eng = setup.engine()
+    rid = eng.submit(p, 6)
+    eng.step()
+    queued = eng.submit(q, 4)
+    before = dict(eng.stats)
+    emitted = list(eng._slots[0].emitted)
+    rule = chaos.FaultRule(chaos.SITE_SERVE_STEP, chaos.on_call(1, 2),
+                           chaos.EngineStall())
+    with chaos.FaultInjector([rule], seed=0) as inj:
+        assert eng.step() == [] and eng.step() == []
+        assert eng.stats == before and eng._slots[0].emitted == emitted
+        assert [r.request_id for r in eng._queue] == [queued]
+        eng.step()
+        assert eng.stats["emitted"] > before["emitted"]
+    assert inj.counts() == {"serve.engine.step#0": (3, 2)}
+    out = eng.run()
+    np.testing.assert_array_equal(out[rid], want_generate(setup, p, 6))
+    np.testing.assert_array_equal(out[queued], want_generate(setup, q, 4))
+
+
+def test_injector_fires_as_the_jax_package_does():
+    """The copied injector elects the same invocations as the reference for
+    one seeded schedule (``prob``, ``every`` with a limit, ``at``, a ctx
+    filter), logs the same events, and refuses to stack."""
+    def schedule(ch):
+        return [
+            ch.FaultRule(ch.SITE_SERVE_STEP, ch.with_prob(0.3),
+                         ch.EngineStall(), note="flaky"),
+            ch.FaultRule(ch.SITE_SERVE_STEP, ch.every(4, limit=3),
+                         ch.EngineCrash()),
+            ch.FaultRule(ch.SITE_SERVE_STEP,
+                         ch.Trigger(at=(2,), match={"replica": "r-1"}),
+                         ch.EngineCrash(), note="r-1"),
+        ]
+
+    def run(ch):
+        inj = ch.FaultInjector(schedule(ch), seed=7)
+        kinds = [getattr(inj.fire(ch.SITE_SERVE_STEP, steps=i,
+                                  replica=f"r-{i % 11}"), "kind", None)
+                 for i in range(60)]
+        return kinds, inj.events, inj.counts(), inj.fired_total()
+
+    got = run(chaos)
+    assert got == run(jchaos)
+    assert got == run(chaos)
+    assert got[3] > 3
+    first = chaos.FaultInjector(schedule(chaos), name="first")
+    with first:
+        with pytest.raises(RuntimeError, match="already installed"):
+            chaos.install(chaos.FaultInjector([]))
+    assert chaos.active() is None
+    with pytest.raises(ValueError, match="trigger needs"):
+        chaos.Trigger()
+
+
 # ---- the CLI ---------------------------------------------------------------
 
 def test_cli_serves_on_cpu(capsys):
@@ -698,10 +934,33 @@ def test_cli_serves_on_cpu(capsys):
     assert "p50 latency" in line and "p50 TTFT" in line
 
 
+def test_cli_metrics_port_serves_the_engine_metrics(capsys, monkeypatch):
+    """``--metrics-port`` hands the engine's ``ServingMetrics`` to
+    ``serve`` (patched here: no port is bound), and the closing line's p50
+    latency and TTFT come from its histograms."""
+    bound = []
+    monkeypatch.setattr(cli, "serve_metrics",
+                        lambda m, port: bound.append((m, port)))
+    out = cli.main(["--config", "tiny", "--device", "cpu", "--n-requests",
+                    "3", "--n-slots", "2", "--max-new-tokens", "3",
+                    "--metrics-port", "9100"])
+    (m, port), = bound
+    assert port == 9100 and len(out) == 3
+    assert m.counters["requests_submitted"] == m.counters[
+        "requests_finished"] == 3
+    assert m.counters["tokens_emitted"] == 9
+    lat = m.histograms["request_latency_seconds"]
+    assert len(lat) == len(m.histograms["time_to_first_token_seconds"]) == 3
+    lines = capsys.readouterr().out.splitlines()
+    assert "metrics at :9100/metrics" in lines
+    assert lines[-1].startswith("served 3 requests, 9 tokens")
+    assert (f"p50 latency {np.median(list(lat)) * 1e3:.0f}ms"
+            in lines[-1]) and "p50 TTFT" in lines[-1]
+
+
 @pytest.mark.parametrize("flag", [
     ["--checkpoint-dir", "ckpt"], ["--hf-model", "hf"], ["--model-axis", "2"],
-    ["--fsdp", "2"], ["--metrics-port", "9100"], ["--gateway"],
-    ["--replicas", "2"]])
+    ["--fsdp", "2"], ["--gateway"], ["--replicas", "2"]])
 def test_cli_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="later slice"):
         cli.main(["--device", "cpu", *flag])

@@ -1,0 +1,324 @@
+"""Deterministic, seed-driven fault injection at the engine's step.
+
+Counterpart of the part of ``tpu_on_k8s/chaos/`` that the serving engine's
+step site needs: the ``Fault`` base with ``EngineCrash`` and
+``EngineStall`` (``faults.py``), ``SITE_SERVE_STEP``, the ``FaultInjector``
+that evaluates a schedule of ``FaultRule(site, trigger, fault)``
+(``injector.py``) and the ``engine_crash_mid_decode`` scenario
+(``scenarios.py``).
+
+Every instrumented call site calls ``fire(site, **ctx)``; with no injector
+installed that is one module-global read and a None return. With one
+installed, the injector counts the invocation against every rule whose
+site and ``match`` filter apply, and returns the first rule's fault whose
+trigger elects this invocation. ``at`` / ``every`` triggers depend only on
+the per-rule count of matching invocations; ``prob`` triggers draw from a
+``random.Random`` seeded by ``(seed, site, rule index)``. The event log
+holds a sequence id and the rule's stable description, so two runs of one
+seeded schedule log identically. Install is process-global, one injector
+at a time, typically ``with FaultInjector(rules, seed=s):``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import random
+import threading
+from typing import ClassVar, Dict, List, Mapping, Optional, Sequence, Tuple
+
+#: ``ContinuousBatchingEngine.step``: ``EngineCrash``, ``EngineStall``
+SITE_SERVE_STEP = "serve.engine.step"
+
+
+@dataclasses.dataclass(frozen=True)
+class Fault:
+    """Base class; ``kind`` is the stable name used in event logs."""
+
+    kind: ClassVar[str] = "fault"
+
+    def to_exception(self) -> Exception:
+        raise NotImplementedError(f"{self.kind} is interpreted by its call "
+                                  f"site, not raised")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineCrash(Fault):
+    """The serving engine dies mid-decode (``EngineCrashError`` from
+    ``step()``): every slot's request state is lost. Re-admission by the
+    requests' owner is the recovery under test."""
+
+    kind: ClassVar[str] = "engine_crash"
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineStall(Fault):
+    """The engine's device step wedges: ``step()`` makes no progress (no
+    admission, no tokens, no retirement) but does not raise. The caller's
+    timeouts are the recovery under test."""
+
+    kind: ClassVar[str] = "engine_stall"
+
+
+def describe(fault: Fault, note: Optional[str] = None) -> str:
+    """Stable one-line event-log form: the fault kind, its non-default
+    fields and the rule's note; no call-site context, which varies with
+    thread timing."""
+    fields = []
+    for f in dataclasses.fields(fault):
+        v = getattr(fault, f.name)
+        if v != f.default:
+            fields.append(f"{f.name}={v}")
+    body = f"{fault.kind}" + (f"({', '.join(fields)})" if fields else "")
+    return f"{body} note={note}" if note else body
+
+
+@dataclasses.dataclass(frozen=True)
+class Trigger:
+    """When a rule fires, in terms of its own matching-invocation count
+    (1-based). Exactly one of ``at`` / ``every`` / ``prob`` should be set:
+
+    * ``at``    — fire on these invocation indices (``(1,)``: the first).
+    * ``every`` — fire on every nth invocation.
+    * ``prob``  — fire with this probability per invocation (seeded rng).
+    * ``limit`` — cap total fires (``at`` implies ``len(at)``).
+    * ``match`` — ctx filter: every key must be present in the call's ctx
+      and equal after ``str()``, except that a string value matches as a
+      boundary-anchored substring of a string ctx value.
+    """
+
+    at: Tuple[int, ...] = ()
+    every: Optional[int] = None
+    prob: Optional[float] = None
+    limit: Optional[int] = None
+    match: Mapping[str, object] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        if self.every is not None and self.every < 1:
+            raise ValueError(f"every must be >= 1, got {self.every}")
+        if self.prob is not None and not 0.0 <= self.prob <= 1.0:
+            raise ValueError(f"prob must be in [0, 1], got {self.prob}")
+        if not self.at and self.every is None and self.prob is None:
+            raise ValueError("trigger needs at=, every=, or prob=")
+
+    def max_fires(self) -> Optional[int]:
+        if self.limit is not None:
+            return self.limit
+        if self.at and self.every is None and self.prob is None:
+            return len(self.at)
+        return None
+
+
+def on_call(*indices: int) -> Trigger:
+    """Fire on exactly these 1-based matching invocations."""
+    return Trigger(at=tuple(indices))
+
+
+def every(n: int, limit: Optional[int] = None) -> Trigger:
+    return Trigger(every=n, limit=limit)
+
+
+def with_prob(p: float, limit: Optional[int] = None) -> Trigger:
+    return Trigger(prob=p, limit=limit)
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultRule:
+    """One line of a fault schedule. ``note`` is a label carried into the
+    event log (stable across runs: no timestamps)."""
+
+    site: str
+    trigger: Trigger
+    fault: Fault
+    note: str = ""
+
+
+class _RuleState:
+    __slots__ = ("seen", "fired")
+
+    def __init__(self) -> None:
+        self.seen = 0
+        self.fired = 0
+
+
+def _substr_on_boundaries(want: str, have: str) -> bool:
+    """``want`` occurs in ``have`` with non-alphanumeric (or string-edge)
+    characters on both sides, so a rule for ``replica-1`` does not also hit
+    ``replica-10`` while ``/pods`` still matches inside a longer path."""
+    if not want:
+        return True
+    start = have.find(want)
+    while start != -1:
+        end = start + len(want)
+        # an edge is a boundary when the adjacent outside char or the
+        # pattern's own edge char is non-alphanumeric
+        pre = (start == 0 or not have[start - 1].isalnum()
+               or not want[0].isalnum())
+        post = (end == len(have) or not have[end].isalnum()
+                or not want[-1].isalnum())
+        if pre and post:
+            return True
+        start = have.find(want, start + 1)
+    return False
+
+
+def _ctx_matches(match: Mapping[str, object],
+                 ctx: Mapping[str, object]) -> bool:
+    for key, want in match.items():
+        if key not in ctx:
+            return False
+        have = ctx[key]
+        if isinstance(want, str) and isinstance(have, str):
+            if not _substr_on_boundaries(want, have):
+                return False
+        elif str(want) != str(have):
+            return False
+    return True
+
+
+class FaultInjector:
+    """Evaluate a fault schedule; as a context manager it installs itself
+    process-globally (one at a time)."""
+
+    def __init__(self, rules: Sequence[FaultRule], *, seed: int = 0,
+                 name: str = "") -> None:
+        self.rules: List[FaultRule] = list(rules)
+        self.seed = seed
+        self.name = name
+        self.events: List[str] = []
+        self._lock = threading.Lock()
+        self._state: List[_RuleState] = [_RuleState() for _ in self.rules]
+        # one rng per rule, seeded by (seed, site, index): adding a rule
+        # never perturbs another rule's draws
+        self._rngs: Dict[int, random.Random] = {
+            i: random.Random(f"{seed}:{r.site}:{i}")
+            for i, r in enumerate(self.rules) if r.trigger.prob is not None}
+
+    def fire(self, site: str, **ctx) -> Optional[Fault]:
+        """Count this invocation against every matching rule; return the
+        first rule's fault elected to fire (or None)."""
+        return self.fire_seq(site, **ctx)[0]
+
+    def fire_seq(self, site: str, **ctx) -> Tuple[Optional[Fault], int]:
+        """Like ``fire``, and also this invocation's event sequence id (0
+        when nothing fired), allocated under the injector lock."""
+        hit: Optional[FaultRule] = None
+        seq = 0
+        with self._lock:
+            for i, rule in enumerate(self.rules):
+                if rule.site != site:
+                    continue
+                if rule.trigger.match and not _ctx_matches(rule.trigger.match,
+                                                           ctx):
+                    continue
+                st = self._state[i]
+                st.seen += 1
+                if hit is not None:
+                    continue  # keep counting later rules; one fault a call
+                cap = rule.trigger.max_fires()
+                if cap is not None and st.fired >= cap:
+                    continue
+                if self._elects(rule.trigger, st.seen, self._rngs.get(i)):
+                    st.fired += 1
+                    hit = rule
+                    seq = len(self.events) + 1
+                    self.events.append(
+                        f"seq={seq} "
+                        + describe(rule.fault, rule.note or None))
+        return (hit.fault if hit is not None else None, seq)
+
+    @staticmethod
+    def _elects(trigger: Trigger, seen: int,
+                rng: Optional[random.Random]) -> bool:
+        if trigger.at and seen in trigger.at:
+            return True
+        if trigger.every is not None and seen % trigger.every == 0:
+            return True
+        if trigger.prob is not None and rng is not None:
+            return rng.random() < trigger.prob
+        return False
+
+    def counts(self) -> Dict[str, Tuple[int, int]]:
+        """{``site#index``: (seen, fired)}."""
+        with self._lock:
+            return {f"{r.site}#{i}": (s.seen, s.fired)
+                    for i, (r, s) in enumerate(zip(self.rules, self._state))}
+
+    def fired_total(self) -> int:
+        with self._lock:
+            return sum(s.fired for s in self._state)
+
+    def __enter__(self) -> "FaultInjector":
+        install(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        uninstall(self)
+
+
+_active: Optional[FaultInjector] = None
+_install_lock = threading.Lock()
+
+
+def install(injector: FaultInjector) -> FaultInjector:
+    """Make ``injector`` the process-global injector. Refuses to stack: a
+    forgotten uninstall must fail loudly, not merge schedules."""
+    global _active
+    with _install_lock:
+        if _active is not None and _active is not injector:
+            raise RuntimeError(
+                f"a FaultInjector ({_active.name or 'unnamed'}) is already "
+                f"installed; uninstall it first")
+        _active = injector
+    return injector
+
+
+def uninstall(injector: Optional[FaultInjector] = None) -> None:
+    """Remove the global injector (a given one, or whatever is installed).
+    Idempotent."""
+    global _active
+    with _install_lock:
+        if injector is None or _active is injector:
+            _active = None
+
+
+def active() -> Optional[FaultInjector]:
+    return _active
+
+
+def fire(site: str, **ctx) -> Optional[Fault]:
+    """The call-site entry point: free when nothing is installed."""
+    inj = _active
+    if inj is None:
+        return None
+    return inj.fire(site, **ctx)
+
+
+def fire_seq(site: str, **ctx) -> Tuple[Optional[Fault], int]:
+    """``fire`` plus this invocation's event sequence id (0 = no fault)."""
+    inj = _active
+    if inj is None:
+        return None, 0
+    return inj.fire_seq(site, **ctx)
+
+
+@dataclasses.dataclass(frozen=True)
+class Scenario:
+    """A named, seeded fault schedule; ``injector()`` mints a fresh
+    ``FaultInjector`` (rule counters zeroed), so a scenario runs any number
+    of times."""
+
+    name: str
+    rules: Tuple[FaultRule, ...]
+    seed: int = 0
+
+    def injector(self) -> FaultInjector:
+        return FaultInjector(self.rules, seed=self.seed, name=self.name)
+
+
+def engine_crash_mid_decode(at_steps: Tuple[int, ...] = (3,), *,
+                            seed: int = 0) -> Scenario:
+    """Crash the serving engine on these ``engine.step()`` calls (counted
+    per call)."""
+    return Scenario("engine-crash", (
+        FaultRule(SITE_SERVE_STEP, on_call(*at_steps), EngineCrash(),
+                  note="crash mid-decode"),
+    ), seed)

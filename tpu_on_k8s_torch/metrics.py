@@ -1,0 +1,390 @@
+"""Serving metrics: counters, histograms and gauges, scrapeable at /metrics.
+
+Counterpart of the serving half of ``tpu_on_k8s/metrics/metrics.py``:
+``ServingMetrics`` (request counters, time-to-first-token, queue-wait and
+latency histograms, slot and queue gauges) and ``PagedKVMetrics`` (page
+occupancy, allocations, aliases, admission stalls). Each is backed by
+``prometheus_client`` when it imports and always mirrored in plain dicts,
+so tests and drivers read them without a scrape. ``exposition`` renders
+the scrape body with the client or, without it, with ``render_text`` over
+the mirrors; ``serve`` answers /metrics with that body from a stdlib HTTP
+server thread either way.
+"""
+from __future__ import annotations
+
+import bisect
+import http.server
+import threading
+import warnings
+from collections import defaultdict, deque
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+try:
+    import prometheus_client as _prom
+except ImportError:
+    _prom = None
+
+# exemplar-capable Histogram.observe (prometheus_client >= 0.9), detected
+# once: the exemplar rides into the client's bucket storage, so an
+# OpenMetrics scrape carries it (classic text-format scrapes ignore it)
+if _prom is not None:
+    import inspect as _inspect
+    _PROM_EXEMPLARS = "exemplar" in _inspect.signature(
+        _prom.Histogram.observe).parameters
+else:
+    _PROM_EXEMPLARS = False
+
+
+@dataclass(frozen=True)
+class _Family:
+    """Schema of one exported metric family, declared by every metrics
+    class with or without prometheus, so the pure-Python ``render_text``
+    exports the families the prometheus backend would."""
+
+    full: str                      # exported family name (with namespace)
+    kind: str                      # "counter" | "gauge" | "histogram"
+    labels: Tuple[str, ...]        # label names ((), or exactly one)
+    help: str
+    buckets: Optional[Tuple[float, ...]] = None
+
+
+class _MetricsBase:
+    """Shared mirror scaffolding: a lock, plain-dict counters, gauges and
+    histograms (readable without a scrape) and the optional prometheus
+    twins. The histogram mirror is a bounded deque: serving observes per
+    request, so an unbounded list would grow for the life of a server;
+    prometheus keeps the full-precision aggregates."""
+
+    #: raw observations retained per histogram (newest win)
+    MIRROR_CAP = 10_000
+    #: (value, trace_id) exemplars retained per histogram
+    EXEMPLAR_CAP = 64
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.counters: Dict[str, int] = defaultdict(int)
+        self.gauges: Dict[str, float] = {}
+        cap = self.MIRROR_CAP
+        self.histograms: Dict[str, deque] = defaultdict(
+            lambda: deque(maxlen=cap))
+        # monotone observation counts per histogram: the bounded mirror
+        # stops growing at its cap, so delta readers position by these
+        self.histogram_counts: Dict[str, int] = defaultdict(int)
+        # trace-id exemplars per histogram (newest win)
+        self.exemplars: Dict[str, deque] = defaultdict(
+            lambda: deque(maxlen=self.EXEMPLAR_CAP))
+        # the exposition schema (mirror name -> _Family)
+        self._families: Dict[str, _Family] = {}
+        # running sums and per-bucket counts for render_text (the bounded
+        # mirror rotates, so they accrue here, never recomputed from it)
+        self.histogram_sums: Dict[str, float] = defaultdict(float)
+        self._bucket_counts: Dict[str, list] = {}
+        self._prom_counters = {}
+        self._prom_hists = {}
+        self._prom_gauges = {}
+        self.registry = None
+
+    def _declare(self, name: str, full: str, kind: str, help: str,
+                 labels: Tuple[str, ...] = (),
+                 buckets: Optional[Tuple[float, ...]] = None) -> None:
+        """Register one family: the schema always, the prometheus twin when
+        the client imported."""
+        self._families[name] = _Family(full, kind, tuple(labels), help,
+                                       tuple(buckets) if buckets else None)
+        if kind == "histogram":
+            self._bucket_counts[name] = [0] * (len(buckets or ()) + 1)
+        if _prom is None or self.registry is None:
+            return
+        if kind == "counter":
+            self._prom_counters[name] = _prom.Counter(
+                full, help, list(labels), registry=self.registry)
+        elif kind == "gauge":
+            self._prom_gauges[name] = _prom.Gauge(
+                full, help, list(labels), registry=self.registry)
+        else:
+            self._prom_hists[name] = _prom.Histogram(
+                full, help, list(labels), buckets=buckets,
+                registry=self.registry)
+
+    def set_gauge(self, name: str, value: float) -> None:
+        with self._lock:
+            self.gauges[name] = value
+        g = self._prom_gauges.get(name)
+        if g is not None:
+            g.set(value)
+
+    def inc(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self.counters[name] += n
+        c = self._prom_counters.get(name)
+        if c is not None:
+            c.inc(n)
+
+    def observe(self, name: str, seconds: float, exemplar=None) -> None:
+        """Record one histogram sample; ``exemplar`` (a trace id) rides
+        along in a bounded deque beside the mirror."""
+        with self._lock:
+            self.histograms[name].append(seconds)
+            self.histogram_counts[name] += 1
+            self.histogram_sums[name] += seconds
+            slots = self._bucket_counts.get(name)
+            if slots is not None:
+                fam = self._families[name]
+                slots[bisect.bisect_left(fam.buckets, seconds)] += 1
+            if exemplar is not None:
+                self.exemplars[name].append((seconds, exemplar))
+        h = self._prom_hists.get(name)
+        if h is not None:
+            if exemplar is not None and _PROM_EXEMPLARS:
+                # an over-long label value (the client caps exemplars at
+                # 128 runes) falls back to the plain observation: the
+                # sample must never be lost to its annotation
+                try:
+                    h.observe(seconds,
+                              exemplar={"trace_id": str(exemplar)})
+                except ValueError:
+                    h.observe(seconds)
+            else:
+                h.observe(seconds)
+
+
+_SERVING_BUCKETS = (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1,
+                    2.5, 5, 10, 30)
+
+
+class ServingMetrics(_MetricsBase):
+    """Continuous-batching serving: request counters, time-to-first-token,
+    queue-wait and request-latency histograms, slot and queue gauges. The
+    families are the reference's, gateway and crash-recovery counters
+    included, so one scrape schema serves both packages."""
+
+    def __init__(self, registry=None) -> None:
+        super().__init__()
+        if _prom is not None:
+            self.registry = registry or _prom.CollectorRegistry()
+        ns = "tpu_on_k8s_serving"
+        for name in ("requests_submitted", "requests_finished",
+                     "tokens_emitted",
+                     # gateway lifecycle: rejection, client cancel,
+                     # deadline abort
+                     "requests_rejected", "requests_cancelled",
+                     "deadline_exceeded",
+                     # per-reason rejection breakdown
+                     "rejected_queue_full", "rejected_load_shed",
+                     "rejected_quota", "rejected_deadline",
+                     "rejected_draining",
+                     # crash recovery: engine deaths, re-admitted requests,
+                     # requests whose replay budget ran out
+                     "engine_crashes", "requests_replayed",
+                     "retry_exhausted",
+                     # streaming callbacks that raised and were detached
+                     "callback_errors"):
+            self._declare(name, f"{ns}_{name}", "counter",
+                          f"Serving {name}")
+        for name in ("time_to_first_token_seconds",
+                     "queue_wait_seconds", "request_latency_seconds",
+                     # inter-token latency (TPOT)
+                     "time_per_output_token_seconds"):
+            self._declare(name, f"{ns}_{name}", "histogram",
+                          f"Serving {name}", buckets=_SERVING_BUCKETS)
+        for name in ("slots_active", "queue_depth"):
+            self._declare(name, f"{ns}_{name}", "gauge", f"Serving {name}")
+
+
+class PagedKVMetrics(_MetricsBase):
+    """Paged KV (the engine's ``kv_metrics=``): pool capacity and live-page
+    gauges (their ratio is the memory signal), fresh-page allocations
+    against prefix-page aliases (the copy-on-write sharing), admission
+    stalls (a request held in the queue because the pool could not supply
+    its reservation) and ``programs_compiled``. That last counter counts
+    the reference's compiled-program cache misses; the port runs eagerly
+    and compiles no programs, so its engine declares it and never
+    increments it."""
+
+    def __init__(self, registry=None) -> None:
+        super().__init__()
+        if _prom is not None:
+            self.registry = registry or _prom.CollectorRegistry()
+        ns = "tpu_on_k8s_paged"
+        for name in ("page_allocs", "pages_aliased", "admission_stalls",
+                     "programs_compiled"):
+            self._declare(name, f"{ns}_{name}", "counter",
+                          f"Paged KV {name}")
+        for name in ("pages_total", "pages_in_use"):
+            self._declare(name, f"{ns}_{name}", "gauge",
+                          f"Paged KV {name}")
+
+
+def count_detached_callback(metrics, message: str) -> None:
+    """The count-and-warn tail of every streaming-callback isolation site
+    (the engine's ``on_token`` and ``on_retire``): the caller has already
+    detached the raising callback; this counts it on ``callback_errors``
+    (when a metrics sink is attached) and warns with the site's message."""
+    if metrics is not None:
+        metrics.inc("callback_errors")
+    warnings.warn(message, stacklevel=3)
+
+
+def _escape_label(v: str) -> str:
+    """Label-value escaping per the exposition format: backslash first,
+    then double quote, then newline."""
+    return (v.replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _escape_help(v: str) -> str:
+    """HELP-text escaping: backslash and newline (quotes are legal)."""
+    return v.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _fmt(v: float) -> str:
+    """Sample values as prometheus_client renders them (integers carry a
+    trailing ``.0``)."""
+    return repr(float(v))
+
+
+def _mirror_entries(mirror: dict, name: str):
+    """All (label_value, value) pairs of family ``name`` in a mirror dict
+    keyed by plain names or ``(name, label)`` tuples, sorted by label."""
+    out = []
+    for key, val in mirror.items():
+        mname, label = key if isinstance(key, tuple) else (key, "")
+        if mname == name:
+            out.append((label, val))
+    return sorted(out, key=lambda kv: str(kv[0]))
+
+
+def _bucket_exemplars(fam: _Family, exemplars) -> dict:
+    """Bucket index → newest retained ``(value, trace_id)`` exemplar whose
+    value falls in that bucket's ``(prev, bound]`` range; index
+    ``len(buckets)`` is the ``+Inf`` bucket."""
+    out: dict = {}
+    bounds = fam.buckets or ()
+    for value, trace_id in exemplars:     # oldest → newest: newest wins
+        out[bisect.bisect_left(bounds, value)] = (value, trace_id)
+    return out
+
+
+def _exemplar_suffix(ex) -> str:
+    """The OpenMetrics exemplar clause of a bucket sample,
+    ``# {trace_id="..."} value`` (no timestamp, so deterministic runs
+    render byte-identical bodies)."""
+    if ex is None:
+        return ""
+    value, trace_id = ex
+    return f' # {{trace_id="{_escape_label(str(trace_id))}"}} {_fmt(value)}'
+
+
+def render_text(metrics, *, openmetrics: bool = False) -> str:
+    """Prometheus text format over the mirror dicts and the declared
+    families: what ``exposition()`` returns without prometheus_client.
+    Counter families carry the ``_total`` suffix, histograms render
+    cumulative ``le`` buckets, ``_count`` and ``_sum``, and label values
+    escape backslash, double quote and newline. ``openmetrics=True``
+    renders the OpenMetrics dialect: counter ``# TYPE`` lines name the bare
+    family, histogram buckets carry the retained exemplars, and the body
+    ends with ``# EOF``."""
+    with metrics._lock:
+        counters = dict(metrics.counters)
+        gauges = dict(metrics.gauges)
+        hist_counts = dict(metrics.histogram_counts)
+        hist_sums = dict(metrics.histogram_sums)
+        bucket_counts = {k: list(v)
+                         for k, v in metrics._bucket_counts.items()}
+        exemplars = {k: list(v) for k, v in metrics.exemplars.items()}
+    lines = []
+
+    def sample(fname: str, fam: _Family, label, value) -> None:
+        lbl = ""
+        if fam.labels and label is not None:
+            lbl = f'{{{fam.labels[0]}="{_escape_label(str(label))}"}}'
+        lines.append(f"{fname}{lbl} {_fmt(value)}")
+
+    for name, fam in metrics._families.items():
+        if fam.kind == "counter":
+            fname = (fam.full if fam.full.endswith("_total")
+                     else fam.full + "_total")
+            # OpenMetrics declares the family (no _total); samples keep it
+            tname = fname[:-len("_total")] if openmetrics else fname
+            lines.append(f"# HELP {tname} {_escape_help(fam.help)}")
+            lines.append(f"# TYPE {tname} counter")
+            entries = _mirror_entries(counters, name)
+            if not entries and not fam.labels:
+                entries = [("", 0)]       # prom exports unlabeled at 0
+            for label, val in entries:
+                sample(fname, fam, label if fam.labels else None, val)
+        elif fam.kind == "gauge":
+            lines.append(f"# HELP {fam.full} {_escape_help(fam.help)}")
+            lines.append(f"# TYPE {fam.full} gauge")
+            entries = _mirror_entries(gauges, name)
+            if not entries and not fam.labels:
+                entries = [("", 0.0)]
+            for label, val in entries:
+                sample(fam.full, fam, label if fam.labels else None, val)
+        else:
+            lines.append(f"# HELP {fam.full} {_escape_help(fam.help)}")
+            lines.append(f"# TYPE {fam.full} histogram")
+            slots = bucket_counts.get(name, [0])
+            by_bucket = (_bucket_exemplars(fam, exemplars.get(name, ()))
+                         if openmetrics else {})
+            cum = 0
+            for i, (bound, n) in enumerate(zip(fam.buckets or (), slots)):
+                cum += n
+                lines.append(f'{fam.full}_bucket{{le="{_fmt(bound)}"}} '
+                             f"{_fmt(cum)}"
+                             f"{_exemplar_suffix(by_bucket.get(i))}")
+            cum += slots[-1]
+            inf = _exemplar_suffix(by_bucket.get(len(fam.buckets or ())))
+            lines.append(f'{fam.full}_bucket{{le="+Inf"}} {_fmt(cum)}{inf}')
+            lines.append(f"{fam.full}_count "
+                         f"{_fmt(hist_counts.get(name, 0))}")
+            lines.append(f"{fam.full}_sum "
+                         f"{_fmt(hist_sums.get(name, 0.0))}")
+    if openmetrics:
+        lines.append("# EOF")
+    return "\n".join(lines) + "\n"
+
+
+def exposition(metrics, *, openmetrics: bool = False) -> str:
+    """The scrape body of a metrics instance (what ``serve()`` answers):
+    prometheus_client's rendering when it imported, else ``render_text``
+    over the mirrors, never an error. ``openmetrics=True`` is the
+    exemplar-carrying dialect."""
+    if _prom is not None and metrics.registry is not None:
+        if openmetrics:
+            from prometheus_client.openmetrics import (
+                exposition as _om_exposition,
+            )
+            return _om_exposition.generate_latest(
+                metrics.registry).decode()
+        return _prom.generate_latest(metrics.registry).decode()
+    return render_text(metrics, openmetrics=openmetrics)
+
+
+def serve(metrics, port: int = 8443):
+    """Answer ``GET /metrics`` on ``port`` with ``exposition(metrics)``
+    from a stdlib ``ThreadingHTTPServer`` on a daemon thread, returned so
+    the caller can ``shutdown()`` it. One server with or without
+    prometheus_client: ``exposition`` already picks the client's rendering
+    when it imported."""
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self) -> None:
+            if self.path.split("?")[0] != "/metrics":
+                self.send_error(404)
+                return
+            body = exposition(metrics).encode()
+            self.send_response(200)
+            self.send_header("Content-Type",
+                             "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args) -> None:   # no per-scrape stderr line
+            pass
+
+    server = http.server.ThreadingHTTPServer(("", port), Handler)
+    threading.Thread(target=server.serve_forever, daemon=True,
+                     name="metrics-http").start()
+    return server

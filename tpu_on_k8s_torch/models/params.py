@@ -10,7 +10,8 @@ int8 ``weight_q [out, in]`` and an fp32 ``weight_scale [out]``, and the head
 as ``lm_head_q [D, V]`` int8 and ``lm_head_scale [V]``.
 
 ``from_jax_params`` carries a reference parameter tree across (the
-scan-stacked layout: every ``blocks/...`` leaf has a leading layer axis);
+scan-stacked layout: every ``blocks/...`` leaf has a leading layer axis),
+``handoff_from_numpy`` a reference engine's KV handoff;
 ``init_params`` draws fresh ones as Flax initialises them, on the device,
 from a seeded generator. Serving stores matrices in ``cfg.dtype`` (the
 default); training keeps fp32 masters (``dtype=torch.float32``).
@@ -161,3 +162,39 @@ def from_jax_params(tree: Mapping, dtype: Optional[torch.dtype] = None,
     else:
         params["lm_head"] = mat(tree["lm_head"])
     return params
+
+
+def _host_tensor(leaf) -> torch.Tensor:
+    """A numpy array as a host tensor of the same dtype and bytes. numpy's
+    bfloat16 (an extension dtype) has no torch counterpart in
+    ``from_numpy``, so its raw 16-bit words are carried and reinterpreted."""
+    arr = np.array(leaf, order="C")      # a writable copy torch can own
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def handoff_from_numpy(cache: Mapping, *, pos: int, first_token: int,
+                       emitted, base: int = 0,
+                       prefix_hash: Optional[str] = None,
+                       checksum: str = ""):
+    """A reference engine's KV handoff (``cache`` its numpy pytree
+    ``{"blocks": {"attn": {"k", "v"}}}``, each leaf ``[n_layers, 1, pb,
+    Hkv, Dh]``, and the handoff's metadata fields) as the port's
+    ``KVHandoff``, on the host. The bytes, the leaf order and the metadata
+    are carried unchanged, so ``checksum`` (the reference's seal) still
+    verifies. A tree of another layout (the int8 cache's scales, unstacked
+    layers) raises ``NotImplementedError``."""
+    from tpu_on_k8s_torch.models.serving import KVHandoff
+
+    if set(cache) != {"blocks"} or set(cache["blocks"]) != {"attn"} or set(
+            cache["blocks"]["attn"]) != {"k", "v"}:
+        raise NotImplementedError(
+            "handoff payload layout not ported: only the layer-stacked "
+            "{'blocks': {'attn': {'k', 'v'}}} cache")
+    attn = cache["blocks"]["attn"]
+    return KVHandoff(
+        cache={name: _host_tensor(attn[name]) for name in ("k", "v")},
+        pos=int(pos), first_token=int(first_token),
+        emitted=tuple(int(t) for t in emitted), base=int(base),
+        prefix_hash=prefix_hash, checksum=checksum)

@@ -33,35 +33,47 @@ static batch runs until its longest member finishes. Here:
   table into the same ``[n_slots, max_len]`` view the dense step reads, runs
   the same model, and scatters back only each slot's two tail pages; page 0
   is the null page, zero after every scatter.
+* **KV handoff** (disaggregated prefill): ``start_prefill`` runs a
+  ``PrefillJob`` through the same prefill calls an admission would make and
+  ends in a sealed host ``KVHandoff`` instead of a slot; ``submit_kv`` on
+  another engine splices it into a free slot with no prefill at all.
+  ``export_kv`` takes a decoding request's accumulated cache the same way
+  (migration), and ``export_prefix`` / ``import_prefix`` move a registered
+  prefix between engines (paged: aliasing a resident ancestor's pages).
+* **Metrics and chaos**: ``metrics=`` (``ServingMetrics``) and
+  ``kv_metrics=`` (``PagedKVMetrics``) are fed where the reference feeds
+  them; ``step()`` fires ``chaos.SITE_SERVE_STEP`` first.
 
 The reference scans the horizon inside one compiled program and gathers
 the paged view as a transient inside it. Run eagerly, the horizon is a
 Python loop and the gathered view is one buffer allocated with the engine.
 
-One thread calls ``step``/``run`` (the stepping thread); ``submit`` and
-``result`` may come from other threads. A lock serializes the queue and the
-slot bookkeeping against the stepping thread; device work is
-single-threaded.
+One thread calls ``step``/``run`` (the stepping thread); ``submit``,
+``submit_kv`` and ``result`` may come from other threads. A lock
+serializes the queues and the slot bookkeeping against the stepping
+thread; device work is single-threaded.
 
 Not in this slice (each constructor argument raises ``NotImplementedError``
-naming its slice): the KV handoff and disaggregated prefill, speculative
-decoding, mesh serving, the metrics objects and chaos injection. The int8 KV
-cache (``cache_int8``) raises where the model is built.
+naming its slice): speculative decoding and mesh serving, with their
+metrics objects. The int8 KV cache (``cache_int8``) raises where the model
+is built.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import itertools
 import threading
 import time
-import warnings
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from tpu_on_k8s_torch import chaos
 from tpu_on_k8s_torch.device import resolve_device
+from tpu_on_k8s_torch.metrics import count_detached_callback
 from tpu_on_k8s_torch.models.decode import (
     PAGE_TOKENS,
     _bucket_len,
@@ -71,6 +83,7 @@ from tpu_on_k8s_torch.models.decode import (
     layer_caches,
     quantize_weights_for_serving,
 )
+from tpu_on_k8s_torch.models.layouts import CacheLayout
 from tpu_on_k8s_torch.models.sampling import SamplingParams, sample
 from tpu_on_k8s_torch.models.transformer import KVCache, TransformerConfig
 
@@ -105,10 +118,8 @@ _NOT_PORTED = (
     ("draft_cfg", "speculative decoding (_DraftRunner)"),
     ("draft_params", "speculative decoding (_DraftRunner)"),
     ("on_spec_round", "speculative decoding (_DraftRunner)"),
-    ("metrics", "the serving metrics objects (ServingMetrics)"),
-    ("kv_metrics", "the serving metrics objects (PagedKVMetrics)"),
-    ("shard_metrics", "the serving metrics objects (ShardMetrics)"),
-    ("spec_metrics", "the serving metrics objects (SpecMetrics)"),
+    ("shard_metrics", "mesh serving (ShardMetrics)"),
+    ("spec_metrics", "speculative decoding (SpecMetrics)"),
 )
 
 
@@ -141,6 +152,21 @@ class _Pending:
 
 
 @dataclasses.dataclass
+class _KVPending:
+    """A ``submit_kv`` request waiting for a free slot: its prefill already
+    happened elsewhere (the handoff carries the KV), so admission is a
+    cache splice and runs no prefill here."""
+
+    request_id: int
+    handoff: "KVHandoff"
+    max_new_tokens: int
+    eos_id: Optional[int]
+    prefix_id: Optional[int]
+    submitted_at: float = 0.0
+    on_token: Optional[Callable[[int, int], Any]] = None
+
+
+@dataclasses.dataclass
 class _KV:
     """A cache as two stacked tensors ``[n_layers, B, length, Hkv, Dh]``;
     ``layers()`` gives the per-layer ``KVCache`` views a model writes
@@ -164,6 +190,7 @@ class _Prefilling:
     base: int                     # prefix length (0 without a prefix_id)
     done: int                     # positions cached so far (incl. prefix)
     total: int                    # base + prompt length
+    dequeued_at: float            # left the queue (engine clock)
     pages: Optional[List[int]] = None   # paged mode: the block table
                                   # reserved at dequeue (admission must not
                                   # fail after chunks ran)
@@ -247,6 +274,91 @@ def _signature(params: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
     return {name: (tuple(t.shape), t.dtype) for name, t in params.items()}
 
 
+#: The leaves of a host KV payload, in the order the checksum hashes them:
+#: the reference's cache pytree flattens ``k`` before ``v``.
+_LEAVES = ("k", "v")
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous host copy: never a view of an engine's cache, also
+    when the engine runs on the CPU."""
+    return t.to("cpu", copy=True).contiguous()
+
+
+def _host_payload(kv: _KV, pb: int) -> Dict[str, torch.Tensor]:
+    """Positions ``[0, pb)`` of a batch-1 cache as a host payload."""
+    return {"k": _to_host(kv.k[:, :, :pb]), "v": _to_host(kv.v[:, :, :pb])}
+
+
+def _cache_nbytes(cache: Dict[str, torch.Tensor]) -> int:
+    return sum(t.numel() * t.element_size() for t in cache.values())
+
+
+def _cache_checksum(cache: Dict[str, torch.Tensor], *meta) -> str:
+    """Stable content hash of a host payload plus metadata ints: what lets
+    an adopting engine reject a handoff corrupted in transfer instead of
+    decoding wrong tokens from it. The bytes are the reference's (its cache
+    leaves in flatten order, raw, C order; numpy has no bfloat16, so every
+    leaf is hashed as bytes), so a payload carried across from the JAX
+    package keeps its digest. ``meta`` must hold Python ints: under numpy 2
+    the ``repr`` of an ``np.int32`` reads ``np.int32(5)``."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(repr(tuple(meta)).encode())
+    for name in _LEAVES:
+        h.update(cache[name].contiguous().view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def _zero_below(leaf: torch.Tensor, base: int) -> torch.Tensor:
+    """Zero a host leaf's positions < ``base`` (axis 2), in place: a
+    suffix-only handoff transfers nothing the adopting engine supplies
+    itself, and its checksum covers exactly the transferred bytes."""
+    leaf[:, :, :base] = 0
+    return leaf
+
+
+@dataclasses.dataclass
+class KVHandoff:
+    """A completed prefill's KV, on the host and portable between engines:
+    the payload a disaggregated fleet moves from its prefill pool to its
+    decode pool.
+
+    ``cache`` is ``{"k": Tensor, "v": Tensor}``, each ``[n_layers, 1, pb,
+    Hkv, Dh]`` on the host, trimmed to the position bucket ``pb`` of
+    ``pos`` so payload, copy and checksum bytes scale with the request,
+    not the engine's ``max_len``. ``pos`` counts all cached positions;
+    ``base`` counts leading positions not carried (a suffix-only handoff:
+    the shared prefix named by ``prefix_hash`` is expected resident on the
+    adopting engine; its rows here are zero). ``emitted`` holds the tokens
+    already produced (at least the prefill's first), so an adopted request
+    resumes with its budget intact. ``verify()`` recomputes the transfer
+    checksum: a corrupted payload must be rejected, never decoded.
+    ``layout`` records the source engine's mesh and the bytes its export
+    moved; it is metadata, outside the checksum."""
+
+    cache: Dict[str, torch.Tensor]
+    pos: int
+    first_token: int
+    emitted: Tuple[int, ...]
+    base: int = 0
+    prefix_hash: Optional[str] = None
+    checksum: str = ""
+    layout: Optional[CacheLayout] = None
+
+    def seal(self) -> "KVHandoff":
+        self.checksum = _cache_checksum(self.cache, self.pos, self.base,
+                                        self.emitted)
+        return self
+
+    def verify(self) -> bool:
+        return self.checksum == _cache_checksum(self.cache, self.pos,
+                                                self.base, self.emitted)
+
+    @property
+    def nbytes(self) -> int:
+        return _cache_nbytes(self.cache)
+
+
 class ContinuousBatchingEngine:
     """Slot-pool continuous batching over one model and parameter set.
 
@@ -255,7 +367,11 @@ class ContinuousBatchingEngine:
     the requests that finished on it; ``run()`` drains everything. Greedy
     by default; ``temperature > 0`` samples, with random draws from
     ``generator`` (default: seed 0 on ``device``). ``device`` is where the
-    engine runs: the card unless the caller asks for the CPU.
+    engine runs: the card unless the caller asks for the CPU. ``metrics``
+    (``tpu_on_k8s_torch.metrics.ServingMetrics``) takes request counters,
+    the queue-wait, time-to-first-token and latency histograms and the slot
+    and queue gauges; ``kv_metrics`` (``PagedKVMetrics``) the page gauges
+    and the allocation, alias and stall counters.
     """
 
     #: batched-admission prefill sizes (the largest that fits is used); a
@@ -285,7 +401,6 @@ class ContinuousBatchingEngine:
                              f"{prefill_chunk}")
         given = dict(mesh=mesh, rules=rules, draft_cfg=draft_cfg,
                      draft_params=draft_params, on_spec_round=on_spec_round,
-                     metrics=metrics, kv_metrics=kv_metrics,
                      shard_metrics=shard_metrics, spec_metrics=spec_metrics)
         for arg, later in _NOT_PORTED:
             if given[arg] is not None:
@@ -296,8 +411,11 @@ class ContinuousBatchingEngine:
         if int8_weights:
             cfg = dataclasses.replace(cfg, serve_int8_weights=True)
             params = quantize_weights_for_serving(params)
-        #: every queue/slot timestamp reads THIS clock, so seeded replays on
-        #: a virtual clock are wall-time-free
+        self.metrics = metrics
+        self.kv_metrics = kv_metrics
+        #: every queue/slot timestamp (submitted_at, dequeued_at, the
+        #: metrics' observations) reads THIS clock, so seeded replays on a
+        #: virtual clock are wall-time-free
         self._clock = clock
         max_len = max_len or cfg.max_seq_len
         self.cfg = cfg
@@ -363,14 +481,21 @@ class ContinuousBatchingEngine:
             #: unallocated → the null page). One small copy per step.
             self._tables = np.zeros((n_slots, self._nb_total), np.int32)
             self._prefix_pages: Dict[int, List[int]] = {}
+            if kv_metrics is not None:
+                kv_metrics.set_gauge("pages_total", self._pool.capacity)
+                kv_metrics.set_gauge("pages_in_use", 0)
         else:
             self._cache = _zeros(cache_shapes(self._step_model, n_slots),
                                  self.device)
         self._prefixes: Dict[int, Tuple[_KV, int]] = {}  # id → (KV, length)
         self._next_prefix_id = 0
+        #: {axis: size} of the mesh's non-trivial axes: {} on one device
+        #: (the layout block every export carries)
+        self.mesh_axes: Dict[str, int] = {}
 
         self._slots: List[Optional[_Slot]] = [None] * n_slots
         self._queue: deque[_Pending] = deque()
+        self._kv_queue: deque[_KVPending] = deque()
         self._next_id = 0
         self._finished: Dict[int, np.ndarray] = {}
         self._prefilling: Optional[_Prefilling] = None
@@ -378,13 +503,18 @@ class ContinuousBatchingEngine:
         self._admitting: set = set()   # slots mid-admission (popped from
                                        # the queue, prefill in flight):
                                        # free_slots must not count them
-        self.stats = {"steps": 0, "emitted": 0, "admitted": 0,
+        self.stats = {"steps": 0, "emitted": 0, "admitted": 0, "crashes": 0,
                       # prefill accounting: padded positions run through
                       # prefills, how many of those calls were shared-prefix
                       # registrations, and how many started from an empty
                       # cache (the calls that run the flash forward kernel)
                       "prefill_positions": 0, "prefix_prefills": 0,
                       "fresh_prefills": 0,
+                      # KV handoffs adopted (``submit_kv``) and exported
+                      # (``export_kv``), and the device-to-host bytes every
+                      # KV or prefix export moved
+                      "kv_adopted": 0, "kv_exported": 0,
+                      "export_gather_bytes": 0,
                       # admission copy traffic, in cache POSITIONS: dense
                       # admissions copy the request's cached span into the
                       # pool; paged admissions copy only freshly written
@@ -464,16 +594,31 @@ class ContinuousBatchingEngine:
         pids = self._pool.alloc(n)
         if pids is None:
             self.stats["admission_stalls"] += 1
+            if self.kv_metrics is not None:
+                self.kv_metrics.inc("admission_stalls")
             return None
-        self.stats["pages_allocated"] += len(pids)
+        self._count_allocs(pids)
         return pids
+
+    def _count_allocs(self, pids: List[int]) -> None:
+        if pids:
+            self.stats["pages_allocated"] += len(pids)
+            if self.kv_metrics is not None:
+                self.kv_metrics.inc("page_allocs", len(pids))
 
     def _alias_pages(self, pids: List[int]) -> List[int]:
         """Reference shared pages into another block table: the copy-free
         half of every prefix-seeded paged admission."""
         self._pool.retain(pids)
-        self.stats["pages_aliased"] += len(pids)
+        if pids:
+            self.stats["pages_aliased"] += len(pids)
+            if self.kv_metrics is not None:
+                self.kv_metrics.inc("pages_aliased", len(pids))
         return list(pids)
+
+    def _update_page_gauges(self) -> None:
+        if self.kv_metrics is not None and self._pool is not None:
+            self.kv_metrics.set_gauge("pages_in_use", self._pool.in_use)
 
     @property
     def pages_in_use(self) -> int:
@@ -672,10 +817,88 @@ class ContinuousBatchingEngine:
             fb = lp // self.page_tokens
             pids = (self._pool.alloc(fb) if fb else []) or []
             if pids:
-                self.stats["pages_allocated"] += len(pids)
+                self._count_allocs(pids)
                 self._write_pages(kv, 0, self._table_row(pids))
             self._prefix_pages[pid] = pids
+            self._update_page_gauges()
         return pid
+
+    def export_prefix(self, prefix_id: int
+                      ) -> Tuple[Dict[str, torch.Tensor], int]:
+        """Host copy of a registered prefix's KV: ``(payload, length)``,
+        the payload ``{"k", "v"}`` trimmed to the prefix's position bucket,
+        what another engine adopts through ``import_prefix`` without
+        recomputing the prefill."""
+        with self._lock:
+            kv, lp = self._prefixes[prefix_id]
+        host = _host_payload(kv, _bucket_len(lp, self.max_len))
+        self._export_layout(_cache_nbytes(host))
+        return host, lp
+
+    def import_prefix(self, cache: Dict[str, torch.Tensor], lp: int,
+                      base_pid: Optional[int] = None,
+                      base_len: int = 0) -> int:
+        """Register an already computed prefix KV (an ``export_prefix``
+        payload of a same-config engine) without running a prefill: a
+        host-to-device copy instead of compute. Returns the new prefix id.
+
+        On a paged engine, ``base_pid`` / ``base_len`` name a registered
+        ancestor of ``base_len`` positions that this prefix extends: the
+        ancestor's full pages are aliased into the new prefix's page record
+        instead of written again. When the pool is short, the prefix is
+        recorded without pages: it still serves through its own cache, and
+        admissions write every block."""
+        lp = int(lp)
+        if lp < 1 or lp > self.max_len - 2:
+            raise ValueError(f"prefix length {lp} does not fit under "
+                             f"max_len {self.max_len}")
+        self._check_payload(cache, lp)
+        with torch.inference_mode():
+            kv = _KV(cache["k"].to(self.device), cache["v"].to(self.device))
+        with self._lock:
+            pid = self._next_prefix_id
+            self._next_prefix_id += 1
+            self._prefixes[pid] = (kv, lp)
+        if self._pool is not None:
+            fb = lp // self.page_tokens
+            aliased: List[int] = []
+            if base_pid is not None and 0 < base_len <= lp:
+                ab = min(base_len // self.page_tokens, fb)
+                src = self._prefix_pages.get(base_pid, [])
+                if ab and len(src) >= ab:
+                    aliased = self._alias_pages(src[:ab])
+            fresh_n = fb - len(aliased)
+            fresh = self._pool.alloc(fresh_n) if fresh_n else []
+            if fresh is None:
+                self._release_pages(aliased)
+                pids: List[int] = []
+            else:
+                if fresh:
+                    self._count_allocs(fresh)
+                    row = np.zeros(self._nb_total, np.int32)
+                    row[len(aliased):fb] = fresh
+                    self._write_pages(kv, 0, row)
+                pids = aliased + fresh
+            self._prefix_pages[pid] = pids
+            self._update_page_gauges()
+        return pid
+
+    def _check_payload(self, cache: Dict[str, torch.Tensor],
+                       positions: int) -> None:
+        """A host payload from outside must be this engine's cache shape
+        and dtype, holding at least ``positions`` positions."""
+        (layers, _, _, hkv, dh), dtype = cache_shapes(self._prefill_model, 1)
+        for name in _LEAVES:
+            t = cache[name]
+            n = t.shape[2] if t.dim() == 5 else -1
+            if (t.dim() != 5 or (t.shape[0], t.shape[1], t.shape[3],
+                                 t.shape[4]) != (layers, 1, hkv, dh)
+                    or t.dtype != dtype
+                    or not positions <= n <= self.max_len):
+                raise ValueError(
+                    f"payload {name} {tuple(t.shape)} {t.dtype} does not fit "
+                    f"this engine's [{layers}, 1, {positions}..{self.max_len},"
+                    f" {hkv}, {dh}] {dtype} cache")
 
     def drop_prefix(self, prefix_id: int) -> bool:
         """Release a registered prefix's KV. The caller owns the invariant
@@ -684,6 +907,7 @@ class ContinuousBatchingEngine:
             # refcounted: slots still aliasing these pages keep them live
             # until they retire; only the prefix's own reference drops here
             self._release_pages(self._prefix_pages.pop(prefix_id, None))
+            self._update_page_gauges()
         with self._lock:
             return self._prefixes.pop(prefix_id, None) is not None
 
@@ -743,16 +967,216 @@ class ContinuousBatchingEngine:
             self._queue.append(_Pending(rid, prompt, max_new_tokens,
                                         eos_id, self._clock(),
                                         prefix_id, on_token))
+            depth = len(self._queue)
+        if self.metrics is not None:
+            self.metrics.inc("requests_submitted")
+            self.metrics.set_gauge("queue_depth", depth)
         return rid
 
     def _inflight_locked(self) -> int:
-        return (len(self._queue) + len(self._admitting)
+        return (len(self._queue) + len(self._kv_queue)
+                + len(self._admitting)
                 + sum(s is not None for s in self._slots)
                 + (1 if self._prefilling is not None else 0))
+
+    def submit_kv(self, handoff: KVHandoff, max_new_tokens: int,
+                  eos_id: Optional[int] = None,
+                  prefix_id: Optional[int] = None,
+                  on_token: Optional[Callable[[int, int], Any]] = None
+                  ) -> int:
+        """Enqueue a request whose prefill already happened on another
+        engine: ``handoff`` carries the KV, so admission splices it into a
+        free slot and runs no prefill here. ``max_new_tokens`` is the
+        request's total budget; the handoff's emitted tokens count against
+        it (they seed the slot and are not fired through ``on_token`` again:
+        the caller delivered them). A suffix-only handoff (``base > 0``)
+        needs ``prefix_id`` naming a registered prefix of exactly ``base``
+        positions. The caller verifies the checksum (``handoff.verify()``);
+        this method trusts the payload's bytes."""
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got "
+                             f"{max_new_tokens}")
+        if not handoff.emitted:
+            raise ValueError("handoff carries no emitted tokens")
+        if handoff.base > 0:
+            if prefix_id is None:
+                raise ValueError("suffix-only handoff needs a prefix_id")
+            with self._lock:
+                if prefix_id not in self._prefixes:
+                    raise ValueError(f"unknown prefix_id {prefix_id}")
+                plen = self._prefixes[prefix_id][1]
+            if plen != handoff.base:
+                raise ValueError(f"handoff base {handoff.base} != local "
+                                 f"prefix length {plen}")
+        remaining = max_new_tokens - len(handoff.emitted)
+        if handoff.pos + max(remaining, 0) > self.max_len:
+            raise ValueError(
+                f"cached {handoff.pos} + remaining {remaining} exceeds "
+                f"the engine's max_len {self.max_len}")
+        self._check_payload(handoff.cache, handoff.pos)
+        if self._pool is not None:
+            fresh = (self._pages_for_span(handoff.pos + max(remaining, 0))
+                     - handoff.base // self.page_tokens)
+            if fresh > self._pool.capacity:
+                raise ValueError(
+                    f"handoff needs {fresh} fresh KV pages; the pool "
+                    f"holds {self._pool.capacity}")
+        with self._lock:
+            if self.queue_cap is not None:
+                inflight = self._inflight_locked()
+                if inflight >= self.queue_cap:
+                    raise EngineOverloadedError(inflight, self.queue_cap)
+            rid = self._next_id
+            self._next_id += 1
+            self._kv_queue.append(_KVPending(
+                rid, handoff, max_new_tokens, eos_id, prefix_id,
+                self._clock(), on_token))
+        if self.metrics is not None:
+            self.metrics.inc("requests_submitted")
+        return rid
+
+    def export_kv(self, request_id: int) -> Optional[KVHandoff]:
+        """A slot-resident request's accumulated cache (prefix, prompt and
+        the tokens decoded so far) as a sealed host ``KVHandoff``: adopting
+        it on a same-config engine through ``submit_kv`` continues the
+        decode token for token. The request keeps running here; pair with
+        ``abort()`` to migrate it. None when the id is not in a slot
+        (queued, mid-prefill or finished). Call from the stepping thread
+        only: the slot's rows must not be read while a step runs."""
+        with self._lock:
+            found = next(((i, s) for i, s in enumerate(self._slots)
+                          if s is not None and s.request_id == request_id),
+                         None)
+            if found is None:
+                return None
+            i, s = found
+            pos, emitted = s.pos, tuple(s.emitted)
+        # trimmed to the position bucket of the live positions: the copy,
+        # the checksum and every hop downstream scale with the request.
+        # Pages and buckets share the PAGE_TOKENS granule, so the paged
+        # gather ships exactly the bucket's pages.
+        pb = _bucket_len(pos, self.max_len)
+        if self._pool is not None:
+            nbp = pb // self.page_tokens
+            table = torch.from_numpy(
+                self._tables[i, :nbp].astype(np.int64)).to(self.device)
+            row = {name: _to_host(pool[:, table].flatten(1, 2)[:, None])
+                   for name, pool in (("k", self._pool_cache.k),
+                                      ("v", self._pool_cache.v))}
+        else:
+            row = _host_payload(_KV(self._cache.k[:, i:i + 1],
+                                    self._cache.v[:, i:i + 1]), pb)
+        self.stats["kv_exported"] += 1
+        layout = self._export_layout(_cache_nbytes(row))
+        return KVHandoff(cache=row, pos=pos, first_token=emitted[0],
+                         emitted=emitted, layout=layout).seal()
+
+    def start_prefill(self, prompt, prefix_id: Optional[int] = None
+                      ) -> "PrefillJob":
+        """Begin an incremental prefill that ends in a ``KVHandoff``
+        instead of a slot admission: the prefill-pool half of
+        disaggregated serving. See ``PrefillJob``."""
+        prompt = self.check_request(prompt, 1, prefix_id)
+        return PrefillJob(self, prompt, prefix_id)
+
+    def _admit_kv_pending(self) -> None:
+        """Adopt queued KV handoffs into free slots, before the regular
+        queue: a handed-off request already paid its prefill (and its wait
+        on the prefill pool), and its splice runs no prefill."""
+        while True:
+            with self._lock:
+                if not self._kv_queue:
+                    return
+                free = [i for i in range(self.n_slots)
+                        if self._slots[i] is None
+                        and i != self._reserved_slot
+                        and i not in self._admitting]
+                if not free:
+                    return
+                req = self._kv_queue[0]
+                pages: Optional[List[int]] = None
+                fb = 0
+                if self._pool is not None:
+                    # eager reservation: the splice must never fail after
+                    # the request leaves the queue. A short pool stalls the
+                    # adoption (counted) until pages free up.
+                    h = req.handoff
+                    remaining = max(req.max_new_tokens - len(h.emitted), 0)
+                    alias = (self._prefix_alias_blocks(req.prefix_id, h.base)
+                             if h.base > 0 else [])
+                    fb = len(alias)
+                    fresh = self._alloc_pages(
+                        self._pages_for_span(h.pos + remaining) - fb)
+                    if fresh is None:
+                        return
+                    pages = self._alias_pages(alias) + fresh
+                self._kv_queue.popleft()
+                self._admitting.add(free[0])
+            i = free[0]
+            try:
+                self._adopt_into_slot(i, req, pages, fb)
+            except BaseException:
+                self._release_pages(pages)
+                raise
+            finally:
+                with self._lock:
+                    self._admitting.discard(i)
+
+    def _adopt_into_slot(self, i: int, req: _KVPending,
+                         pages: Optional[List[int]] = None,
+                         fb: int = 0) -> None:
+        """Splice a handoff's KV into slot ``i`` and activate it. A
+        suffix-only handoff lays its rows ``[base, pos)`` over the locally
+        registered prefix's (the bytes the prefill engine attended: same
+        parameters, same tokens, same calls). Paged: a batch-1 row is
+        staged and only blocks ``[fb, nbp)`` are written; the leading
+        ``fb`` entries of ``pages`` alias the prefix's full pages."""
+        h = req.handoff
+        base, pos = h.base, h.pos
+        with torch.inference_mode():
+            if self._pool is not None:
+                nbp = self._pages_for_span(pos)
+                (layers, _, _, *rest), dtype = cache_shapes(
+                    self._prefill_model, 1)
+                staged = _zeros(((layers, 1, nbp * self.page_tokens,
+                                  *rest), dtype), self.device)
+                target = (staged.k, staged.v, 0)
+            else:
+                target = (self._cache.k, self._cache.v, i)
+            k, v, row = target
+            if base > 0:
+                prefix, _ = self._prefixes[req.prefix_id]
+                k[:, row, :base] = prefix.k[:, 0, :base]
+                v[:, row, :base] = prefix.v[:, 0, :base]
+            k[:, row, base:pos] = h.cache["k"][:, 0, base:pos]
+            v[:, row, base:pos] = h.cache["v"][:, 0, base:pos]
+        if self._pool is not None:
+            pids_row = np.zeros(self._nb_total, np.int32)
+            pids_row[fb:nbp] = pages[fb:nbp]
+            self._write_pages(staged, 0, pids_row)
+            self._tables[i] = self._table_row(pages)
+            self.stats["admit_copy_positions"] += ((nbp - fb)
+                                                   * self.page_tokens)
+            self._update_page_gauges()
+        else:
+            self.stats["admit_copy_positions"] += pos
+        with self._lock:
+            self._slots[i] = _Slot(req.request_id, pos, int(h.emitted[-1]),
+                                   list(h.emitted), req.max_new_tokens,
+                                   req.eos_id, req.submitted_at,
+                                   req.on_token, pages=pages)
+        # the handoff's tokens are not fired or counted again: the prefill
+        # engine emitted them and the handoff's owner delivered them
+        self.stats["admitted"] += 1
+        self.stats["kv_adopted"] += 1
+        if self.metrics is not None:
+            self.metrics.set_gauge("queue_depth", len(self._queue))
+        self._retire_if_done(i)
 
     def _admit_pending(self) -> None:
         if self._prefilling is not None:
             self._advance_prefill()       # one chunk per engine step
+        self._admit_kv_pending()
         with self._lock:
             # bound this pass to the arrivals present at entry: under
             # concurrent submitters an unbounded loop could admit and
@@ -850,24 +1274,28 @@ class ContinuousBatchingEngine:
                     for _ in group:
                         self._queue.popleft()
                     self._admitting.update(free[:len(group)])
+                depth = len(self._queue)
             budget -= len(group)
             if chunked:
+                if self.metrics is not None:
+                    self.metrics.set_gauge("queue_depth", depth)
                 self._prefilling = _Prefilling(
                     req, self._private_cache(req.prefix_id), plen, plen,
-                    plen + int(req.prompt.size),
+                    plen + int(req.prompt.size), self._clock(),
                     pages=group_pages[0] if group_pages else None,
                     fresh_from=fresh_from if group_pages else 0)
                 self._advance_prefill()
                 continue
             unconsumed = list(group_pages) if group_pages else []
             try:
+                dequeued_at = self._clock()
                 if req.prefix_id is not None:
                     kv = self._private_cache(req.prefix_id)
                     first = self._append_prefill(kv, req.prompt, plen)
                     pages = unconsumed.pop(0) if unconsumed else None
                     self._finish_admission(free[0], req, kv, first,
                                            plen + int(req.prompt.size),
-                                           pages=pages,
+                                           dequeued_at, pages=pages,
                                            fresh_from=fresh_from)
                     continue
                 b = len(group)
@@ -880,7 +1308,8 @@ class ContinuousBatchingEngine:
                 for j, (r, i) in enumerate(zip(group, free)):
                     pages = unconsumed.pop(0) if unconsumed else None
                     self._finish_admission(i, r, kv, firsts[j],
-                                           int(lps[j]), row=j, pages=pages)
+                                           int(lps[j]), dequeued_at, row=j,
+                                           pages=pages)
             finally:
                 # a failing prefill must not leak reservations or pages
                 # (success clears each slot in _finish_admission and drains
@@ -906,12 +1335,13 @@ class ContinuousBatchingEngine:
             # filled+reserved overlap UNDERcounts free_slots (safe for
             # admission control); the reverse order would overcount
             self._finish_admission(i, st.req, st.pre_cache, first, st.total,
-                                   pages=st.pages, fresh_from=st.fresh_from)
+                                   st.dequeued_at, pages=st.pages,
+                                   fresh_from=st.fresh_from)
             with self._lock:
                 self._reserved_slot = None
 
     def _finish_admission(self, i: int, req: _Pending, kv: _KV, first,
-                          lp: int, row: int = 0,
+                          lp: int, dequeued_at: float, row: int = 0,
                           pages: Optional[List[int]] = None,
                           fresh_from: int = 0) -> None:
         """Copy row ``row`` of a prefilled cache's first ``lp`` positions
@@ -927,6 +1357,7 @@ class ContinuousBatchingEngine:
             self._tables[i] = self._table_row(pages)
             self.stats["admit_copy_positions"] += ((wb - fresh_from)
                                                    * self.page_tokens)
+            self._update_page_gauges()
         else:
             with torch.inference_mode():
                 self._cache.k[:, i, :lp] = kv.k[:, row, :lp]
@@ -942,6 +1373,13 @@ class ContinuousBatchingEngine:
         self._fire_on_token(self._slots[i], first)
         self.stats["admitted"] += 1
         self.stats["emitted"] += 1
+        if self.metrics is not None:
+            self.metrics.observe("queue_wait_seconds",
+                                 dequeued_at - req.submitted_at)
+            self.metrics.observe("time_to_first_token_seconds",
+                                 self._clock() - req.submitted_at)
+            self.metrics.inc("tokens_emitted")
+            self.metrics.set_gauge("queue_depth", len(self._queue))
         self._retire_if_done(i)
 
     def _fire_on_token(self, slot: _Slot, token: int) -> None:
@@ -955,9 +1393,10 @@ class ContinuousBatchingEngine:
             slot.on_token(slot.request_id, token)
         except Exception as e:  # noqa: BLE001 — isolate per-request faults
             slot.on_token = None
-            warnings.warn(f"on_token callback for request {slot.request_id} "
-                          f"raised {type(e).__name__}: {e}; streaming "
-                          f"detached", stacklevel=3)
+            count_detached_callback(
+                self.metrics,
+                f"on_token callback for request {slot.request_id} raised "
+                f"{type(e).__name__}: {e}; streaming detached")
 
     def _retire_if_done(self, i: int) -> bool:
         slot = self._slots[i]
@@ -972,14 +1411,20 @@ class ContinuousBatchingEngine:
             if self._pool is not None:
                 self._release_pages(slot.pages)
                 self._tables[i, :] = 0
+                self._update_page_gauges()
+            if self.metrics is not None:
+                self.metrics.inc("requests_finished")
+                self.metrics.observe("request_latency_seconds",
+                                     self._clock() - slot.submitted_at)
             if self._on_retire is not None:
                 try:
                     self._on_retire(slot.request_id, tokens)
                 except Exception as e:  # noqa: BLE001 — isolate like on_token
                     self._on_retire = None
-                    warnings.warn(f"on_retire callback raised "
-                                  f"{type(e).__name__}: {e}; detached",
-                                  stacklevel=3)
+                    count_detached_callback(
+                        self.metrics,
+                        f"on_retire callback raised {type(e).__name__}: "
+                        f"{e}; detached")
         return done
 
     def abort(self, request_id: int) -> Optional[np.ndarray]:
@@ -997,7 +1442,16 @@ class ContinuousBatchingEngine:
             for idx, p in enumerate(self._queue):
                 if p.request_id == request_id:
                     del self._queue[idx]
+                    if self.metrics is not None:
+                        self.metrics.set_gauge("queue_depth",
+                                               len(self._queue))
                     return np.zeros(0, np.int32)
+            for idx, p in enumerate(self._kv_queue):
+                if p.request_id == request_id:
+                    del self._kv_queue[idx]
+                    # the handoff's tokens were delivered by its owner:
+                    # partial, like a mid-decode abort
+                    return np.asarray(p.handoff.emitted, np.int32)
             st = self._prefilling
             if st is not None and st.req.request_id == request_id:
                 # drop the private prefill cache and the slot reservation;
@@ -1005,6 +1459,7 @@ class ContinuousBatchingEngine:
                 self._prefilling = None
                 self._reserved_slot = None
                 self._release_pages(st.pages)
+                self._update_page_gauges()
                 return np.zeros(0, np.int32)
             for i, s in enumerate(self._slots):
                 if s is not None and s.request_id == request_id:
@@ -1012,6 +1467,7 @@ class ContinuousBatchingEngine:
                     if self._pool is not None:
                         self._release_pages(s.pages)
                         self._tables[i, :] = 0
+                        self._update_page_gauges()
                     return np.asarray(s.emitted, np.int32)
         return None
 
@@ -1023,6 +1479,7 @@ class ContinuousBatchingEngine:
         results stay claimable. Returns the ids of every request dropped."""
         with self._lock:
             lost = [p.request_id for p in self._queue]
+            lost += [p.request_id for p in self._kv_queue]
             if self._prefilling is not None:
                 lost.append(self._prefilling.req.request_id)
             lost += [s.request_id for s in self._slots if s is not None]
@@ -1037,9 +1494,14 @@ class ContinuousBatchingEngine:
                 self._tables[:, :] = 0
             self._slots = [None] * self.n_slots
             self._queue.clear()
+            self._kv_queue.clear()
             self._prefilling = None
             self._reserved_slot = None
             self._admitting.clear()
+        self._update_page_gauges()
+        if self.metrics is not None:
+            self.metrics.set_gauge("queue_depth", 0)
+            self.metrics.set_gauge("slots_active", 0)
         return sorted(lost)
 
     # ---- the engine loop ---------------------------------------------------
@@ -1047,7 +1509,17 @@ class ContinuousBatchingEngine:
         """Admit queued requests, advance every active slot by one horizon
         (``step_horizon`` tokens, one copy to the host), and return the ids
         of the requests that finished. The ids are notifications: the
-        payload goes to whoever calls ``result()`` first."""
+        payload goes to whoever calls ``result()`` first. A fault installed
+        at ``chaos.SITE_SERVE_STEP`` fires first: ``EngineCrash`` raises
+        ``EngineCrashError`` (``reset()`` recovers the engine),
+        ``EngineStall`` returns ``[]`` having done nothing."""
+        fault = chaos.fire(chaos.SITE_SERVE_STEP, steps=self.stats["steps"])
+        if isinstance(fault, chaos.EngineCrash):
+            self.stats["crashes"] += 1
+            raise EngineCrashError("chaos: engine crashed mid-decode")
+        if isinstance(fault, chaos.EngineStall):
+            # a wedged device step: no admission, no tokens, no retirement
+            return []
         # snapshot BEFORE admission: a request that retires during
         # admission itself (max_new_tokens=1, instant eos) must still be
         # reported by THIS step
@@ -1058,8 +1530,13 @@ class ContinuousBatchingEngine:
         if active:
             out = self._decode(active)              # [horizon, n_slots]
             self.stats["steps"] += self.step_horizon
-            for i in active:
-                self._emit_tokens(i, out[:, i])
+            emitted_now = sum(self._emit_tokens(i, out[:, i])
+                              for i in active)
+            if self.metrics is not None:
+                self.metrics.inc("tokens_emitted", emitted_now)
+        if self.metrics is not None:
+            self.metrics.set_gauge("slots_active",
+                                   sum(s is not None for s in self._slots))
         with self._lock:
             return sorted(set(self._finished) - before)
 
@@ -1111,7 +1588,8 @@ class ContinuousBatchingEngine:
 
     def run(self) -> Dict[int, np.ndarray]:
         """Drain the queue and every active slot; returns {id: tokens}."""
-        while (self._queue or self._prefilling is not None
+        while (self._queue or self._kv_queue
+               or self._prefilling is not None
                or any(s is not None for s in self._slots)):
             self.step()
         out, self._finished = self._finished, {}
@@ -1129,3 +1607,111 @@ class ContinuousBatchingEngine:
             free = sum(s is None for s in self._slots)
             return (free - len(self._admitting)
                     - (1 if self._reserved_slot is not None else 0))
+
+    # ---- export accounting -------------------------------------------------
+    def _export_layout(self, nbytes: int) -> CacheLayout:
+        """The layout block every KV or prefix export carries, and the
+        export's device-to-host bytes counted."""
+        self.stats["export_gather_bytes"] += nbytes
+        return CacheLayout(mesh_axes=dict(self.mesh_axes),
+                           gathered_bytes=nbytes)
+
+    @property
+    def param_bytes_per_chip(self) -> int:
+        """Serving parameter bytes on the device (all of them, on one)."""
+        return sum(t.numel() * t.element_size()
+                   for t in self._params.values())
+
+    @property
+    def kv_bytes_per_chip(self) -> int:
+        """Slot-pool (dense) or page-pool (paged) KV bytes on the device;
+        registered prefixes are not counted."""
+        pool = self._pool_cache if self._pool is not None else self._cache
+        return (pool.k.numel() * pool.k.element_size()
+                + pool.v.numel() * pool.v.element_size())
+
+
+class PrefillJob:
+    """Incremental prefill that ends in a ``KVHandoff`` instead of a slot
+    admission: the prefill-pool half of disaggregated serving.
+
+    ``advance()`` runs one chunk a call (``engine.prefill_chunk`` positions
+    when chunking is on, else the whole prompt) through the engine's own
+    ``_prefill`` and ``_append_prefill``, the calls a monolithic engine of
+    the same config makes to admit the same request (same buckets, same
+    chunk boundaries), so decode from the handed-off KV equals monolithic
+    decode. The job never touches the slot pool; one job at a time per
+    engine is the caller's discipline. With ``prefix_id`` the job prefills
+    only the suffix over the registered prefix's cache."""
+
+    def __init__(self, engine: ContinuousBatchingEngine, prompt: np.ndarray,
+                 prefix_id: Optional[int]) -> None:
+        self._engine = engine
+        self.prompt = prompt
+        self.prefix_id = prefix_id
+        base = 0
+        if prefix_id is not None:
+            with engine._lock:
+                base = engine._prefixes[prefix_id][1]
+        self.base = base
+        self.done = base                   # positions cached so far
+        self.total = base + int(prompt.size)
+        self.first_token: Optional[int] = None
+        self._kv: Optional[_KV] = None
+
+    @property
+    def finished(self) -> bool:
+        return self.first_token is not None
+
+    @property
+    def remaining(self) -> int:
+        return self.total - self.done
+
+    def advance(self) -> bool:
+        """Prefill one chunk; True once the whole prompt is cached
+        (``first_token`` is then the prefill's sampled token)."""
+        if self.finished:
+            return True
+        eng = self._engine
+        chunked = (eng.prefill_chunk
+                   and self.prompt.size > eng.prefill_chunk)
+        if not chunked and self.base == 0:
+            # whole prompt, no prefix: the monolithic cold admission
+            lp = int(self.prompt.size)
+            padded = np.zeros((1, _bucket_len(lp, eng.max_len)), np.int32)
+            padded[0, :lp] = self.prompt
+            self._kv, first = eng._prefill(padded, np.asarray([lp], np.int32))
+            self.done = self.total
+        else:
+            if self._kv is None:
+                self._kv = eng._private_cache(self.prefix_id)
+            offset = self.done - self.base
+            chunk = (self.prompt[offset:offset + eng.prefill_chunk]
+                     if chunked else self.prompt[offset:])
+            first = eng._append_prefill(self._kv, chunk, self.done)
+            self.done += int(chunk.size)
+        if self.done == self.total:
+            self.first_token = int(first[0])
+            eng.stats["emitted"] += 1
+        return self.finished
+
+    def handoff(self, *, suffix_only: bool = False,
+                prefix_hash: Optional[str] = None) -> KVHandoff:
+        """The finished prefill as a sealed host ``KVHandoff``.
+        ``suffix_only`` (with a prefix-seeded job) zeroes the shared
+        prefix's rows: the adopting engine supplies them from its own
+        registered copy of ``prefix_hash``, so only suffix bytes travel."""
+        if not self.finished:
+            raise RuntimeError("prefill is not finished")
+        host = _host_payload(self._kv, _bucket_len(self.total,
+                                                   self._engine.max_len))
+        base = 0
+        if suffix_only and self.base > 0:
+            base = self.base
+            for leaf in host.values():
+                _zero_below(leaf, base)
+        layout = self._engine._export_layout(_cache_nbytes(host))
+        return KVHandoff(cache=host, pos=self.total,
+                         first_token=self.first_token,
+                         emitted=(self.first_token,), base=base,
+                         prefix_hash=prefix_hash, layout=layout).seal()

@@ -12,9 +12,11 @@ loop, as this file does::
         --max-len 2048 --prompt-min 64 --prompt-max 1000 --max-new-tokens 64
     python -m tpu_on_k8s_torch.serve --config tiny --device cpu
 
-The closing line reports the p50 latency and time to first token on the
-engine's clock: submit, the first ``on_token`` and retirement. Flags of the
-example that belong to later slices raise ``NotImplementedError``.
+The engine reports through a ``ServingMetrics``; ``--metrics-port`` serves
+it at ``/metrics`` (without ``prometheus_client``, from a stdlib HTTP
+thread). The closing line reports the p50 latency and time to first token
+from its histograms, on the engine's clock. Flags of the example that
+belong to later slices raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ import torch
 
 from tpu_on_k8s_torch.device import resolve_device
 from tpu_on_k8s_torch.generate import CONFIGS
+from tpu_on_k8s_torch.metrics import ServingMetrics
+from tpu_on_k8s_torch.metrics import serve as serve_metrics
 from tpu_on_k8s_torch.models.params import init_params
 from tpu_on_k8s_torch.models.serving import ContinuousBatchingEngine
 
@@ -36,7 +40,6 @@ _LATER = {
     "hf_model": "HF interop (models/convert.py)",
     "model_axis": "mesh serving (_ShardPlan)",
     "fsdp": "mesh serving (_ShardPlan)",
-    "metrics_port": "the serving metrics objects (ServingMetrics)",
     "gateway": "the serving plane (serve/gateway.py)",
     "replicas": "the serving plane (serve/fleet.py)",
 }
@@ -93,14 +96,15 @@ def main(argv=None) -> dict:
     cfg = CONFIGS[args.config]()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(
         args.seed), dev)
-    clock = time.monotonic
-    submitted, first, retired = {}, {}, {}
+    metrics = ServingMetrics()
+    if args.metrics_port:
+        serve_metrics(metrics, args.metrics_port)
+        print(f"metrics at :{args.metrics_port}/metrics")
     eng = ContinuousBatchingEngine(
         cfg, params, n_slots=args.n_slots, max_len=args.max_len or None,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         prefill_chunk=args.prefill_chunk, step_horizon=args.horizon,
-        kv_pages=args.kv_pages, clock=clock,
-        on_retire=lambda rid, toks: retired.setdefault(rid, clock()),
+        kv_pages=args.kv_pages, metrics=metrics,
         generator=torch.Generator(device=dev).manual_seed(args.seed + 1),
         device=dev)
 
@@ -119,24 +123,21 @@ def main(argv=None) -> dict:
         print(f"registered a {args.system_prompt_len}-token shared prefix "
               f"(id {prefix_id})")
 
-    def on_token(rid: int, tok: int) -> None:
-        first.setdefault(rid, clock())
-
+    submitted = 0
     finished = {}
     t0 = time.perf_counter()
     # the serving loop a frontend would run: submit arrivals, step, collect
-    while len(submitted) < args.n_requests or len(finished) < len(submitted):
-        if len(submitted) < args.n_requests:
+    while submitted < args.n_requests or len(finished) < submitted:
+        if submitted < args.n_requests:
             for _ in range(rng.poisson(args.arrival)):
-                if len(submitted) >= args.n_requests:
+                if submitted >= args.n_requests:
                     break
                 lp = int(rng.integers(args.prompt_min, args.prompt_max + 1))
                 prompt = rng.integers(0, cfg.vocab_size,
                                       size=lp).astype(np.int32)
-                at = clock()
                 rid = eng.submit(prompt, args.max_new_tokens,
-                                 prefix_id=prefix_id, on_token=on_token)
-                submitted[rid] = at
+                                 prefix_id=prefix_id)
+                submitted += 1
                 print(f"→ r{rid} submitted (prompt {lp} tokens)")
         for rid in eng.step():
             finished[rid] = eng.result(rid)
@@ -145,9 +146,9 @@ def main(argv=None) -> dict:
     total = sum(len(v) for v in finished.values())
     line = (f"served {len(finished)} requests, {total} tokens in {dt:.2f}s "
             f"({total / dt:.1f} tok/s) — stats {eng.stats}")
-    if finished:
-        lat = [retired[r] - submitted[r] for r in finished]
-        ttft = [first[r] - submitted[r] for r in finished]
+    lat = metrics.histograms["request_latency_seconds"]
+    ttft = metrics.histograms["time_to_first_token_seconds"]
+    if lat and ttft:
         line += (f"; p50 latency {statistics.median(lat) * 1e3:.0f}ms, "
                  f"p50 TTFT {statistics.median(ttft) * 1e3:.0f}ms")
     print(line)

@@ -83,6 +83,26 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    timed prefills launch must be among them. The handoff bytes, the
    export, seal, verify and adoption times of each request and both
    engines' decode step at occupancy 8 are printed;
+3g. speculative decoding on 3e's weights and traffic, ``spec_k`` 4, 8 slots
+   x 2048: (a) dense, the target itself as the draft; (b) dense, its first
+   4 layers (``truncated_draft``, the target's own tensors) as the draft,
+   3e's prefix registered (mirrored through the draft) and carried by 8
+   requests; (c) (b) on the paged pool; (d) (b) under
+   ``spec_draft_crash(at_round=2)``; (e) ``speculative_generate`` at batch
+   1 (prompt 512, 64 new) with both drafts; (f) phase 3b's W8A16 tree as
+   the target of (b)'s bf16 draft, 4 requests. Every request completes;
+   (a) accepts proposals, (b) rolls some back; (c)'s tokens equal (b)'s,
+   its pool drains with page 0 zero; (d) crashes on round 2 and finishes
+   on the plain step; every token of (a), (b), (d), (e) within tau of a
+   teacher-forced maximum (3e's gate; (f) of its own W8 model and of the
+   fp32 model of its dequantized weights, 3b's reference), a control
+   run of (b) with its verify's K/V written one position late caught in
+   every request; flash_fwd launches once a layer per fresh target prefill
+   and once a draft layer per fresh draft seed (none for a suffix seed);
+   every flash call of (b) within 3e's bf16 tolerance of the plain
+   attention. A round's draft and verify times, acceptance, tokens a
+   round, tokens/s and TTFT beside 3e (a)'s, and (e)'s ms a token beside
+   plain ``generate``'s are printed;
 4. training: a gradient gate (the first step's gradients of the kernel
    model against plain-attention models in bf16 and fp32), then ``Trainer``
    at ``llama2_1b`` (16 layers, full width, fp32 masters, bf16 compute,
@@ -110,6 +130,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from contextlib import nullcontext
 from pathlib import Path
 from unittest import mock
@@ -183,6 +204,11 @@ EXACT_MIN = 0.7
 # handoff's bytes a position at llama2_7b bf16: 32 layers x (K, V) x 8 kv
 # heads x 128 x 2 B.
 DISAGG_MIGRATED, DISAGG_ANCESTOR, HANDOFF_BYTES_PER_POSITION = 4, 256, 131072
+# Phase 3g, speculative decoding on phase 3e's weights and traffic: proposals
+# a round, the depth of the truncated draft, the requests the W8A16 target
+# serves, and the batch-1 request of speculative_generate (prompt, new).
+SPEC_K, SPEC_DRAFT_LAYERS, SPEC_W8_REQUESTS = 4, 4, 4
+SPEC_B1_PROMPT, SPEC_B1_NEW = 512, 64
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
 # The int8 GEMM at the llama2_1b training shapes, M = batch x seq rows:
@@ -355,6 +381,12 @@ def wall_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def median(xs) -> float:
+    """The median of ``xs``, nan when there are none."""
+    xs = list(xs)
+    return statistics.median(xs) if xs else math.nan
 
 
 def bound_ms(flops: float, nbytes: float,
@@ -689,8 +721,8 @@ def serve_w8(cfg, params, prompt4, prefill_logits, mods, convert, decode):
     gen64_ms = wall_ms(lambda: decode.generate(wcfg, wparams, prompt4, 64))
     return {"counts": path, "prefill_ms": prefill_ms, "gen64_ms": gen64_ms,
             "decode_ms": (gen64_ms - prefill_ms) / 63, "rel": rel,
-            "ratio": noise_w8 / noise_bf16, "convert_s": convert_s,
-            "gb": w8_gb}
+            "ratio": noise_w8 / noise_bf16, "noise": noise_w8,
+            "convert_s": convert_s, "gb": w8_gb, "tree": (wcfg, wparams)}
 
 
 def pytree_roundtrip(tparams: dict, mods) -> dict:
@@ -821,13 +853,17 @@ def engine_traffic(vocab: int):
     return reqs, prefix, carriers
 
 
-def drive_engine(engine, reqs, prefix, carriers, mods, clock) -> dict:
+def drive_engine(engine, reqs, prefix, carriers, mods, clock,
+                 draft=None) -> dict:
     """Serve ``reqs`` on ``engine`` (two submitted per step until all are
     in; with ``prefix``, registered first and carried by ``carriers``) and
     check its flash launches: one a layer per prefill from an empty cache,
     as the engine counts them in ``stats["fresh_prefills"]`` (the batched
     admissions, the prefix, each chunked prompt's first chunk; never a
-    later chunk or a suffix). Returns the tokens, the launches and the
+    later chunk or a suffix), and, for a speculative engine, one a draft
+    layer per fresh draft prefill as its ``draft`` runner counts them
+    (each admission's seed and the mirrored prefix; never a suffix seed
+    after it). Returns the tokens, the launches, the prefix id and the
     times: decode steps entered with every slot busy (host clock; each
     step ends in its copy of tokens to the host), admission prefills by
     (bucket, batch) on CUDA events (no synchronize inside the run), time to
@@ -873,18 +909,21 @@ def drive_engine(engine, reqs, prefix, carriers, mods, clock) -> dict:
     after = read_counts(mods)
     launched = {name: after[name] - before[name] for name in after}
     fresh = engine.stats["fresh_prefills"]
+    want = engine.cfg.n_layers * fresh
+    if draft is not None:
+        want += draft._prefill_model.cfg.n_layers * draft.fresh_prefills
     for j, (_, n) in enumerate(reqs):
         if j not in out or out[j].shape != (n,):
             fail(f"engine request {j}: {out.get(j)} for {n} new tokens")
-    if (launched["flash_fwd"] != engine.cfg.n_layers * fresh
+    if (launched["flash_fwd"] != want
             or any(c for name, c in launched.items() if name != "flash_fwd")):
         fail(f"engine launches {launched} for {fresh} fresh prefills "
-             f"(engine stats {engine.stats})")
+             f"(engine stats {engine.stats}), expected {want} flash_fwd")
     torch.cuda.synchronize()
     prefill_ms: dict = {}
     for shape, start, end in events:
         prefill_ms.setdefault(shape, []).append(start.elapsed_time(end))
-    return {"tokens": out, "launched": launched, "fresh": fresh,
+    return {"tokens": out, "launched": launched, "fresh": fresh, "pid": pid,
             "step_ms": step_ms, "prefill_ms": prefill_ms,
             "ttft_ms": [(first[j] - submitted[j]) * 1e3 for j in out],
             "wall": wall, "emitted": sum(len(t) for t in out.values())}
@@ -928,6 +967,32 @@ def teacher_forced_gaps(model, reqs, tokens, prefix, carriers, plain_flash,
     return gaps
 
 
+def tau_gate(tag: str, per_req: list, tau: float, diff: float,
+             control: bool = False) -> None:
+    """The teacher-forced gate on one run's per-request gaps: every
+    request's worst gap within ``tau`` and at least EXACT_MIN of all tokens
+    the teacher-forced argmax; a ``control`` run (a planted fault) must
+    break both, in every request."""
+    gaps = torch.cat(per_req)
+    exact = (gaps == 0).float().mean().item()
+    req_max = torch.stack([g.max() for g in per_req])
+    caught = int((req_max > tau).sum())
+    print(f"{tag} teacher-forced check of {gaps.numel()} tokens: exact "
+          f"argmax {int((gaps == 0).sum())} ({exact:.4f}, min "
+          f"{EXACT_MIN:g}), max gap {gaps.max().item():.4f}, median gap "
+          f"{gaps.median().item():.4f}; per request max gap min "
+          f"{req_max.min().item():.4f} median "
+          f"{req_max.median().item():.4f}, {caught} of {len(per_req)} above "
+          f"tau {tau:.4f} = {TAU_MULT:g} x phase 3's max|kernel - plain| "
+          f"{diff:.4f}")
+    if not control and (caught or exact < EXACT_MIN):
+        fail(f"{tag} emitted tokens off the teacher-forced maximum (tau "
+             f"{tau:.4f}, exact share {EXACT_MIN:g})")
+    if control and (caught < len(per_req) or exact >= EXACT_MIN):
+        fail(f"{tag} the teacher-forced gate did not catch the planted "
+             f"fault in every request")
+
+
 def serve_engine(cfg, params, mods, plain_flash, diff, gpu, serving,
                  transformer, decode) -> dict:
     """Phase 3e: the continuous-batching engine at llama2_7b width, greedy,
@@ -943,7 +1008,7 @@ def serve_engine(cfg, params, mods, plain_flash, diff, gpu, serving,
     late) caught by both in every request; flash launches
     one a layer per fresh prefill (``drive_engine``); every request
     complete; (b)'s pool drained and its null page zero. Prints the times
-    of (a) and (b). Returns the launches of (a)-(e)."""
+    of (a) and (b). Returns the launches of (a)-(e) and (a)'s readings."""
     reqs, prefix, carriers = engine_traffic(cfg.vocab_size)
     dev = params["embed"].device
     kinds = {"a": ("dense", {}),
@@ -1021,25 +1086,7 @@ def serve_engine(cfg, params, mods, plain_flash, diff, gpu, serving,
             model, reqs, runs[key]["tokens"], prefix,
             carriers if key == "d" else set(), plain_flash, transformer,
             decode)
-        gaps = torch.cat(per_req)
-        exact = (gaps == 0).float().mean().item()
-        req_max = torch.stack([g.max() for g in per_req])
-        caught = int((req_max > tau).sum())
-        print(f"[engine] ({key}) teacher-forced check of {gaps.numel()} "
-              f"tokens: exact argmax {int((gaps == 0).sum())} ({exact:.4f}, "
-              f"min {EXACT_MIN:g}), max gap {gaps.max().item():.4f}, median "
-              f"gap {gaps.median().item():.4f}; per request max gap min "
-              f"{req_max.min().item():.4f} median "
-              f"{req_max.median().item():.4f}, {caught} of {len(per_req)} "
-              f"above tau {tau:.4f} = {TAU_MULT:g} x phase 3's max|kernel "
-              f"- plain| {diff:.4f}")
-        if key != "control" and (caught or exact < EXACT_MIN):
-            fail(f"engine ({key}) emitted tokens off the teacher-forced "
-                 f"maximum (tau {tau:.4f}, exact share {EXACT_MIN:g})")
-        if key == "control" and (caught < len(per_req)
-                                 or exact >= EXACT_MIN):
-            fail("the teacher-forced gate did not catch the planted fault "
-                 "in every request")
+        tau_gate(f"[engine] ({key})", per_req, tau, diff, key == "control")
     del model
 
     for key in "ab":
@@ -1055,7 +1102,7 @@ def serve_engine(cfg, params, mods, plain_flash, diff, gpu, serving,
               f"{run['emitted'] / run['wall']:.1f} tokens/s aggregate "
               f"({run['emitted']} tokens in {run['wall']:.2f} s); p50 TTFT "
               f"{statistics.median(run['ttft_ms']):.1f} ms")
-    return launches
+    return launches, runs["a"]
 
 
 def scrape(metrics_mod, metrics) -> dict:
@@ -1433,6 +1480,271 @@ def serve_disagg(cfg, params, mods, plain_flash, gpu, serving, transformer,
     return launched
 
 
+def serve_spec(cfg, params, w8_tree, mods, plain_flash, diff, gpu, plain_a,
+               serving, transformer, decode, chaos_mod) -> dict:
+    """Phase 3g: speculative decoding at llama2_7b width on phase 3e's
+    traffic and weights, SPEC_K proposals a round, 8 slots x 2048. Engines:
+    (a) dense, the target itself as the draft; (b) dense, its first
+    SPEC_DRAFT_LAYERS layers (``truncated_draft``: the target's tensors) as
+    the draft, with the ENGINE_PREFIX-token prefix carried by
+    ENGINE_CARRIERS requests and mirrored through the draft; (c) (b) on the
+    paged pool; (d) (b) under ``spec_draft_crash(at_round=2)``; (e)
+    ``speculative_generate`` at batch 1 with both drafts; (f) the W8A16
+    tree of phase 3b as the target of (b)'s bf16 draft, SPEC_W8_REQUESTS
+    requests. Gates: every request complete; (a) accepts some proposals,
+    (b) rolls some back, its draft's tensors are the target's; (c)'s tokens
+    equal (b)'s and its pool drains with page 0 zero; (d) crashes once on
+    round 2 and finishes on the plain step; every token of (a), (b), (d),
+    (e) within tau of a teacher-forced maximum of the bf16 model on the
+    plain attention, of (f) of the W8 model's and of the fp32 model of its
+    dequantized weights, at least EXACT_MIN of them its argmax; a control
+    run of (b) with its verify's K/V written one
+    position late caught in every request; flash_fwd launches once a target
+    layer per fresh prefill and once a draft layer per fresh draft seed;
+    every flash call of (b) within 3e's bf16 tolerance of the plain
+    attention. Prints round times (draft and verify), acceptance, tokens a
+    round, tokens/s and TTFT beside 3e (a)'s plain run, and (e)'s ms a
+    token beside plain ``generate``'s. Returns the launches of (a)-(f)."""
+    reqs, prefix, carriers = engine_traffic(cfg.vocab_size)
+    dev = params["embed"].device
+    dcfg, dparams = decode.truncated_draft(cfg, params, SPEC_DRAFT_LAYERS)
+    drafts = {"self": (cfg, params), "layers": (dcfg, dparams)}
+    shape = dict(n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+                 clock=time.monotonic, device=dev, spec_k=SPEC_K)
+    tau = TAU_MULT * diff
+    kinds = {
+        "a": ("dense, the target itself as the draft", "self", {}),
+        "b": (f"dense, its first {SPEC_DRAFT_LAYERS} layers as the draft, "
+              f"the {ENGINE_PREFIX}-token prefix carried by "
+              f"{ENGINE_CARRIERS} requests", "layers", {}),
+        "c": (f"paged, {ENGINE_PAGES} pages of 128, as (b)", "layers",
+              {"kv_pages": ENGINE_PAGES, "page_tokens": 128}),
+        "d": ("(b) under chaos.spec_draft_crash(at_round=2)", "layers", {}),
+        "control": ("(b) with its verify's K/V written one position late "
+                    "(a planted fault)", "layers", {})}
+    append = transformer._append_per_row
+
+    def late(k, v, positions, cache):
+        append(k, v, positions + 1, cache)
+
+    worst: dict = {}     # (bucket, batch) -> max|o - plain| of (b)'s flash
+    runs = {}
+
+    def serve(key):
+        label, draft, kw = kinds[key]
+        rounds: list = []
+        engine = serving.ContinuousBatchingEngine(
+            cfg, params, draft_cfg=drafts[draft][0],
+            draft_params=drafts[draft][1],
+            on_spec_round=lambda *r: rounds.append(r), **shape, **kw)
+        runner = engine._draft
+        if key == "b":
+            models = (runner._prefill_model, runner._step_model)
+            aliased = all(t.data_ptr() == params[n].data_ptr()
+                          for m in models for n, t in m.named_parameters())
+            print(f"[spec] (b) the draft's {len(dparams)} tensors are the "
+                  f"target's own (data_ptr equal in both draft models): "
+                  f"{aliased}")
+            if not aliased:
+                fail("the truncated draft copied the target's weights")
+        if key == "control":
+            verify = engine._verify
+
+            def faulty(chunk, cpos):
+                with mock.patch.object(transformer, "_append_per_row", late):
+                    return verify(chunk, cpos)
+
+            engine._verify = faulty
+        ctx = (flash_checked(transformer, plain_flash, worst)
+               if key == "b" else
+               chaos_mod.spec_draft_crash(at_round=2).injector()
+               if key == "d" else nullcontext())
+        with ctx, warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            run = drive_engine(engine, reqs,
+                               None if key == "a" else prefix,
+                               set() if key == "a" else carriers, mods,
+                               time.monotonic, draft=runner)
+        st = run["stats"] = dict(engine.stats)
+        if run["pid"] is not None:
+            engine.drop_prefix(run["pid"])
+        run.update(rounds=rounds, seeds=runner.fresh_prefills,
+                   warned=[str(w.message) for w in warned],
+                   pages_in_use=engine.pages_in_use,
+                   null_page_zero=engine.null_page_is_zero())
+        runs[key] = run
+        print(f"[spec] ({key}) {label}: {len(run['tokens'])} requests, "
+              f"{run['emitted']} tokens, steps {st['steps']}, spec rounds "
+              f"{st['spec_rounds']}, proposed {st['spec_proposed']}, "
+              f"accepted {st['spec_accepted']} (acceptance "
+              f"{st['spec_accepted'] / max(st['spec_proposed'], 1):.4f}), "
+              f"rollbacks {st['spec_rollbacks']}, draft crashes "
+              f"{st['draft_crashes']}; flash_fwd launches "
+              f"{run['launched']['flash_fwd']} = {cfg.n_layers} x "
+              f"{run['fresh']} fresh target prefills + "
+              f"{runner._prefill_model.cfg.n_layers} x {run['seeds']} fresh "
+              f"draft seeds (a suffix seed after the mirrored prefix "
+              f"launches none)")
+        del engine, runner
+        torch.cuda.empty_cache()
+
+    reset_counts(mods)
+    for key in "abcd":
+        serve(key)
+    a, b, c, d = (runs[key] for key in "abcd")
+    if a["stats"]["spec_accepted"] <= 0:
+        fail("the self-draft engine accepted no proposal")
+    if b["stats"]["spec_rollbacks"] <= 0:
+        fail("the truncated draft was never rolled back")
+    same = all(np.array_equal(b["tokens"][j], c["tokens"][j])
+               for j in b["tokens"])
+    print(f"[spec] (c) tokens equal to (b)'s, request for request: {same}; "
+          f"pages in use after the run {c['pages_in_use']}, null page zero "
+          f"{c['null_page_zero']}")
+    if not same:
+        fail("the paged speculative engine's tokens differ from the dense "
+             "one's")
+    if c["pages_in_use"] or not c["null_page_zero"]:
+        fail("the paged pool did not drain, or its null page is not zero")
+    ds = d["stats"]
+    print(f"[spec] (d) draft crashes {ds['draft_crashes']}, spec rounds "
+          f"{ds['spec_rounds']}, then {ds['steps'] - ds['spec_rounds']} plain "
+          f"steps; warned: {d['warned']}")
+    if (ds["draft_crashes"] != 1 or not 1 <= ds["spec_rounds"] <= 2
+            or ds["steps"] <= ds["spec_rounds"] or not d["warned"]):
+        fail("the draft crash did not degrade the engine to the plain step "
+             "on round 2")
+    tol_o = TOL[torch.bfloat16][0]
+    print(f"[spec] (b) flash_fwd against the plain attention on the engine's "
+          f"own q, k, v (target prefills and draft seeds), max|o - plain| by "
+          f"bucket x batch (tol {tol_o:g}): " + ", ".join(
+              f"{l} x {n}: {e:.3e}" for (l, n), e in sorted(worst.items())))
+    if not worst or max(worst.values()) > tol_o:
+        fail("the flash forward strays from the plain attention on phase "
+             "3g's inputs")
+    for key in "abc":
+        run, st = runs[key], runs[key]["stats"]
+        slot_rounds = st["spec_proposed"] // SPEC_K
+        in_rounds = run["emitted"] - len(reqs)    # less admissions' firsts
+        print(f"[time] {gpu}: spec ({key}) {kinds[key][0]}, llama2_7b bf16, "
+              f"{ENGINE_SLOTS} slots, k {SPEC_K}"
+              f"{', flash calls checked' if key == 'b' else ''}: round at "
+              f"occupancy {ENGINE_SLOTS} median "
+              f"{median(run['step_ms']):.2f} ms over "
+              f"{len(run['step_ms'])}; a round's draft median "
+              f"{statistics.median(r[1] for r in run['rounds']) * 1e3:.2f} "
+              f"ms + verify median "
+              f"{statistics.median(r[2] for r in run['rounds']) * 1e3:.2f} "
+              f"ms (engine clock; in all spec_draft_s "
+              f"{st['spec_draft_s']:.3f} s, spec_verify_s "
+              f"{st['spec_verify_s']:.3f} s over {st['spec_rounds']} "
+              f"rounds); acceptance "
+              f"{st['spec_accepted'] / max(st['spec_proposed'], 1):.4f}; "
+              f"tokens a round {in_rounds / st['spec_rounds']:.2f}, a "
+              f"slot-round {in_rounds / max(slot_rounds, 1):.3f}; "
+              f"{run['emitted'] / run['wall']:.1f} tokens/s aggregate, p50 "
+              f"TTFT {statistics.median(run['ttft_ms']):.1f} ms; 3e (a) "
+              f"plain dense: {plain_a['emitted'] / plain_a['wall']:.1f} "
+              f"tokens/s, p50 TTFT "
+              f"{statistics.median(plain_a['ttft_ms']):.1f} ms, decode step "
+              f"at occupancy {ENGINE_SLOTS} "
+              f"{statistics.median(plain_a['step_ms']):.2f} ms")
+
+    # ---- (e) speculative_generate at batch 1
+    pgen = torch.Generator(device=dev).manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab_size, (1, SPEC_B1_PROMPT),
+                           generator=pgen, device=dev, dtype=torch.int32)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    b1 = {}
+    for key, (dc, dp) in drafts.items():
+        before = mods["fa"].launches
+        (toks, st), first_ms = timed(lambda: decode.speculative_generate(
+            cfg, params, dc, dp, prompt, SPEC_B1_NEW, k=SPEC_K, device=dev))
+        flash = mods["fa"].launches - before
+        if (tuple(toks.shape) != (1, SPEC_B1_NEW)
+                or flash != cfg.n_layers + dc.n_layers):
+            fail(f"speculative_generate ({key}): tokens {tuple(toks.shape)}, "
+                 f"flash_fwd launches {flash}")
+        b1[key] = (toks[0].cpu().numpy(), st, first_ms)
+        print(f"[spec] (e) speculative_generate, draft {key} "
+              f"({dc.n_layers} layers), batch 1 x prompt {SPEC_B1_PROMPT} -> "
+              f"{SPEC_B1_NEW}, k {SPEC_K}: rounds {st['rounds']}, acceptance "
+              f"{st['acceptance_rate']:.4f}, tokens per target forward "
+              f"{st['tokens_per_target_forward']:.3f}; flash_fwd launches "
+              f"{flash} = {cfg.n_layers} + {dc.n_layers} (the two prefills)")
+
+    # ---- (f) the W8A16 tree as the target of the bf16 draft
+    wcfg, wparams = w8_tree
+    w8_reqs = reqs[:SPEC_W8_REQUESTS]
+    engine = serving.ContinuousBatchingEngine(
+        wcfg, wparams, draft_cfg=dcfg, draft_params=dparams, **shape)
+    w8_run = drive_engine(engine, w8_reqs, None, set(), mods,
+                          time.monotonic, draft=engine._draft)
+    st = engine.stats
+    print(f"[spec] (f) W8A16 target (phase 3b's tree), bf16 "
+          f"{SPEC_DRAFT_LAYERS}-layer draft, dense: "
+          f"{len(w8_run['tokens'])} requests, {w8_run['emitted']} tokens, "
+          f"spec rounds {st['spec_rounds']}, acceptance "
+          f"{st['spec_accepted'] / max(st['spec_proposed'], 1):.4f}")
+    del engine
+    launches = read_counts(mods)
+
+    # ---- off the path: the control, plain generate's time, the gates
+    serve("control")
+    for _ in range(2):      # the second call is timed
+        plain_ms = timed(lambda: decode.generate(cfg, params, prompt,
+                                                 SPEC_B1_NEW, device=dev))[1]
+    for key, (dc, dp) in drafts.items():
+        (_, st2), ms = timed(lambda: decode.speculative_generate(
+            cfg, params, dc, dp, prompt, SPEC_B1_NEW, k=SPEC_K, device=dev))
+        if st2 != b1[key][1]:
+            fail(f"speculative_generate ({key}) repeated: stats {st2}, "
+                 f"first {b1[key][1]}")
+        print(f"[time] {gpu}: (e) speculative_generate, draft {key}, "
+              f"llama2_7b bf16, batch 1 x {SPEC_B1_PROMPT} -> {SPEC_B1_NEW}: "
+              f"{ms:.1f} ms, {ms / SPEC_B1_NEW:.2f} ms a token, prefill "
+              f"included (first call {b1[key][2]:.1f} ms); plain generate "
+              f"{plain_ms:.1f} ms, {plain_ms / SPEC_B1_NEW:.2f} ms a token")
+    model = decode.decode_model(
+        dataclasses.replace(cfg, max_seq_len=ENGINE_MAX_LEN), params, dev)
+    for key in ("a", "b", "d", "control"):
+        per_req = teacher_forced_gaps(
+            model, reqs, runs[key]["tokens"], prefix,
+            set() if key == "a" else carriers, plain_flash, transformer,
+            decode)
+        tau_gate(f"[spec] ({key})", per_req, tau, diff, key == "control")
+    print("[spec] (c) holds (b)'s tokens, so (b)'s check covers it")
+    b1_reqs = [(prompt[0].cpu().numpy(), SPEC_B1_NEW)]
+    for key, (toks, _, _) in b1.items():
+        tau_gate(f"[spec] (e) draft {key}", teacher_forced_gaps(
+            model, b1_reqs, {0: toks}, prefix, set(), plain_flash,
+            transformer, decode), tau, diff)
+    del model
+    wmodel = decode.decode_model(
+        dataclasses.replace(wcfg, max_seq_len=ENGINE_MAX_LEN), wparams, dev)
+    tau_gate("[spec] (f) against the W8 model", teacher_forced_gaps(
+        wmodel, w8_reqs, w8_run["tokens"], prefix, set(), plain_flash,
+        transformer, decode), tau, diff)
+    del wmodel
+    f32 = decode.decode_model(
+        dataclasses.replace(cfg, dtype=torch.float32,
+                            max_seq_len=ENGINE_MAX_LEN),
+        dequantized(wparams), dev)
+    tau_gate("[spec] (f) against the fp32 model of its dequantized "
+             "weights (phase 3b's reference)", teacher_forced_gaps(
+                 f32, w8_reqs, w8_run["tokens"], prefix, set(), plain_flash,
+                 transformer, decode), tau, diff)
+    del f32
+    torch.cuda.empty_cache()
+    return launches
+
+
 def backward_products(model, loss_fn, tokens) -> int:
     """The ``aten.mm`` calls in one backward pass of ``model``."""
     loss, _ = loss_fn(tokens)
@@ -1501,6 +1813,7 @@ def main() -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 1
 
+    from tpu_on_k8s_torch import chaos as chaos_mod
     from tpu_on_k8s_torch import metrics as metrics_mod
     from tpu_on_k8s_torch.models import convert, decode, serving, transformer
     from tpu_on_k8s_torch.models.params import init_params, load_model
@@ -1890,13 +2203,21 @@ def main() -> int:
                                               decode)
 
     # ---- 3e. continuous batching at llama2_7b width --------------------
-    by_path["engine"] = serve_engine(cfg, params, mods, plain_flash, diff,
-                                     gpu, serving, transformer, decode)
+    by_path["engine"], plain_a = serve_engine(
+        cfg, params, mods, plain_flash, diff, gpu, serving, transformer,
+        decode)
 
     # ---- 3f. disaggregated prefill at llama2_7b width -------------------
     by_path["disagg"] = serve_disagg(cfg, params, mods, plain_flash, gpu,
                                      serving, transformer, decode,
                                      metrics_mod)
+
+    # ---- 3g. speculative decoding at llama2_7b width -------------------
+    t0 = time.perf_counter()
+    by_path["spec"] = serve_spec(cfg, params, w8.pop("tree"), mods,
+                                 plain_flash, diff, gpu, plain_a, serving,
+                                 transformer, decode, chaos_mod)
+    print(f"[time] phase 3g {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
     by_path["cli"] = run_clis(mods)

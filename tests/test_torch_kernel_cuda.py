@@ -460,3 +460,59 @@ def test_kv_handoff_roundtrip_on_the_card(cuda):
         np.testing.assert_array_equal(dec.run()[rid], want)
         assert fa.launches == before
         assert dec.stats["prefill_positions"] == 0
+
+
+def test_multislot_append_of_a_chunk_on_the_card(cuda):
+    """The multislot append of a 5-token chunk a row on the card (a valid
+    write at the last position beside dropped ones aimed at it, a sentinel
+    row): bit for bit the CPU's, and two launches agree."""
+    from tpu_on_k8s_torch.models.transformer import KVCache, _append_per_row
+
+    rng = np.random.default_rng(5)
+    b, l, length = 3, 5, 64
+    cache = torch.from_numpy(rng.standard_normal(
+        (b, length, 8, 128)).astype(np.float32)).to(torch.bfloat16)
+    new = torch.from_numpy(rng.standard_normal(
+        (b, l, 8, 128)).astype(np.float32)).to(torch.bfloat16)
+    pos = torch.from_numpy(np.stack([
+        np.full(l, length), length - 1 + np.arange(l),
+        4 + np.arange(l)]).astype(np.int32))
+    outs = []
+    for dev in ("cpu", "cuda", "cuda"):
+        kv = KVCache(cache.clone().to(dev), cache.clone().to(dev))
+        _append_per_row(new.to(dev), new.to(dev), pos.to(dev), kv)
+        outs.append((kv.k.cpu(), kv.v.cpu()))
+    for k, v in outs[1:]:
+        assert torch.equal(k, outs[0][0]) and torch.equal(v, outs[0][1])
+    assert torch.equal(outs[0][0][1, length - 1], new[1, 0])
+
+
+def test_speculative_engine_on_the_card(cuda):
+    """Speculative rounds at ``tiny`` (bf16) on the card, with the target
+    itself and its first layer as the draft: every request completes, and
+    the flash forward launches once a layer for each fresh prefill of the
+    target and each fresh seed of the draft (bf16 GEMMs of the verify's
+    rows and the draft's round differently, so acceptance is not held)."""
+    from tpu_on_k8s_torch.models.decode import truncated_draft
+    from tpu_on_k8s_torch.models.params import init_params
+    from tpu_on_k8s_torch.models.serving import ContinuousBatchingEngine
+    from tpu_on_k8s_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig.tiny()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, 40).astype(np.int32)
+    for dcfg, dparams in ((cfg, params), truncated_draft(cfg, params, 1)):
+        eng = ContinuousBatchingEngine(cfg, params, n_slots=2, device="cuda",
+                                       draft_cfg=dcfg, draft_params=dparams,
+                                       spec_k=3)
+        draft = eng._draft
+        before = fa.launches
+        r = eng.submit(prompt, 12)
+        out = eng.run()[r]
+        assert out.shape == (12,) and 0 <= out.min() <= out.max() < 256
+        assert fa.launches - before == (
+            cfg.n_layers * eng.stats["fresh_prefills"]
+            + dcfg.n_layers * draft.fresh_prefills) > 0
+        assert eng.stats["spec_rounds"] > 0

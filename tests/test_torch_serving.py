@@ -142,13 +142,13 @@ def both(setup, traffic, jax_kw=None, **kw):
 
 # ---- the multislot append --------------------------------------------------
 
-@pytest.mark.parametrize("l", [1, 3])
+@pytest.mark.parametrize("l", [1, 3, 5])
 def test_multislot_append_drops_like_the_reference(l):
-    """Each row writes at its own position; a position at or past the cache
+    """Each row writes at its own positions; a position at or past the cache
     length writes nothing (the reference's ``mode="drop"``). Rows: a
-    sentinel row, one at the last position, one inside: the cache must be
-    byte-equal to the reference's scatter. A call of more than one token a
-    row (speculative decoding's verify step, a later slice) raises."""
+    sentinel row, one whose first write lands at the last position beside
+    dropped ones aimed at the same index, one inside: the cache must be
+    byte-equal to the reference's scatter."""
     rng = np.random.default_rng(5)
     b, length, hkv, d = 3, 16, 2, 8
     cache = rng.standard_normal((b, length, hkv, d)).astype(np.float32)
@@ -158,12 +158,6 @@ def test_multislot_append_drops_like_the_reference(l):
                     4 + np.arange(l)]).astype(np.int32)
     kv = KVCache(torch.from_numpy(cache.copy()),
                  torch.from_numpy(cache.copy()))
-    if l > 1:
-        with pytest.raises(NotImplementedError, match="speculative"):
-            _append_per_row(torch.from_numpy(k), torch.from_numpy(k),
-                            torch.from_numpy(pos), kv)
-        np.testing.assert_array_equal(kv.k.numpy(), cache)
-        return
     rows = jnp.arange(b)[:, None]
     want = np.asarray(jnp.asarray(cache).at[rows, jnp.asarray(pos)].set(
         jnp.asarray(k), mode="drop"))
@@ -172,6 +166,7 @@ def test_multislot_append_drops_like_the_reference(l):
     np.testing.assert_array_equal(kv.k.numpy(), want)
     np.testing.assert_array_equal(kv.v.numpy(), want)
     np.testing.assert_array_equal(kv.k[0].numpy(), cache[0])
+    np.testing.assert_array_equal(kv.k[1, length - 1].numpy(), k[1, 0])
     assert kv.index == 0
 
 
@@ -221,6 +216,53 @@ def test_multislot_attention_matches_reference(setup):
         np.testing.assert_array_equal(after.numpy()[~written],
                                       before[~written])
         np.testing.assert_array_equal(ref[~written], before[~written])
+
+
+def test_multislot_verify_chunk_matches_reference(setup):
+    """A speculative verify chunk through a multislot ``Attention``: 5
+    tokens a row at GQA rep 2 (tiny: 4 heads, 2 kv heads), a drafted row at
+    its own positions, one whose last writes pass the cache end, and an
+    undrafted row at the sentinel past column 0. Outputs within FP32_ATOL
+    of the reference's multislot apply (the ``_over_cache`` mask takes each
+    row's ``[B, l]`` positions, rep-major as the query rows are laid out),
+    and the caches equal its."""
+    jcfg = dataclasses.replace(setup.jcfg, decode=True, remat=False,
+                               attn_impl="xla", decode_multislot=True)
+    pcfg = dataclasses.replace(setup.pcfg, decode=True, remat=False,
+                               decode_multislot=True)
+    assert pcfg.n_heads // pcfg.n_kv_heads == 2
+    rng = np.random.default_rng(7)
+    b, l, length = 3, 5, jcfg.max_seq_len
+    shape = (b, length, jcfg.n_kv_heads, jcfg.head_dim)
+    k0 = rng.standard_normal(shape).astype(np.float32)
+    v0 = rng.standard_normal(shape).astype(np.float32)
+    x = rng.standard_normal((b, l, jcfg.d_model)).astype(np.float32)
+    pos = np.stack([9 + np.arange(l), length - 3 + np.arange(l),
+                    [20] + [length] * (l - 1)]).astype(np.int32)
+
+    layer0 = jax.tree.map(lambda a: a[0], setup.jparams["blocks"]["attn"])
+    want, upd = JAttention(jcfg).apply(
+        {"params": layer0,
+         "cache": {"k": jnp.asarray(k0), "v": jnp.asarray(v0)}},
+        jnp.asarray(x), jnp.asarray(pos), mutable=["cache"])
+
+    attn = Attention(pcfg)
+    attn.load_state_dict({name[len("blocks.0.attn."):]: t
+                          for name, t in setup.params.items()
+                          if name.startswith("blocks.0.attn.")})
+    ids = torch.from_numpy(pos)
+    cos, sin = _rope_tables(ids, pcfg.head_dim // 2, pcfg.rope_theta)
+    cache = KVCache(torch.from_numpy(k0.copy()), torch.from_numpy(v0.copy()))
+    with torch.no_grad():
+        got = attn(torch.from_numpy(x),
+                   Positions(ids, cos[:, :, None], sin[:, :, None], False),
+                   cache)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FP32_ATOL,
+                               rtol=0)
+    for name, after in (("k", cache.k), ("v", cache.v)):
+        np.testing.assert_allclose(after.numpy(),
+                                   np.asarray(upd["cache"][name]),
+                                   atol=FP32_ATOL, rtol=0)
 
 
 # ---- token identity with the JAX engine and generate -----------------------

@@ -1,11 +1,11 @@
-"""Deterministic, seed-driven fault injection at the engine's step.
+"""Deterministic, seed-driven fault injection at the engine's sites.
 
 Counterpart of the part of ``tpu_on_k8s/chaos/`` that the serving engine's
-step site needs: the ``Fault`` base with ``EngineCrash`` and
-``EngineStall`` (``faults.py``), ``SITE_SERVE_STEP``, the ``FaultInjector``
-that evaluates a schedule of ``FaultRule(site, trigger, fault)``
-(``injector.py``) and the ``engine_crash_mid_decode`` scenario
-(``scenarios.py``).
+sites need: the ``Fault`` base with ``EngineCrash``, ``EngineStall`` and
+``DraftCrash`` (``faults.py``), ``SITE_SERVE_STEP`` and ``SITE_SPEC_DRAFT``,
+the ``FaultInjector`` that evaluates a schedule of ``FaultRule(site,
+trigger, fault)`` (``injector.py``) and the ``engine_crash_mid_decode`` and
+``spec_draft_crash`` scenarios (``scenarios.py``).
 
 Every instrumented call site calls ``fire(site, **ctx)``; with no injector
 installed that is one module-global read and a None return. With one
@@ -27,6 +27,8 @@ from typing import ClassVar, Dict, List, Mapping, Optional, Sequence, Tuple
 
 #: ``ContinuousBatchingEngine.step``: ``EngineCrash``, ``EngineStall``
 SITE_SERVE_STEP = "serve.engine.step"
+#: the engine's speculative round: ``DraftCrash``
+SITE_SPEC_DRAFT = "serve.engine.spec_draft"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +58,17 @@ class EngineStall(Fault):
     timeouts are the recovery under test."""
 
     kind: ClassVar[str] = "engine_stall"
+
+
+@dataclasses.dataclass(frozen=True)
+class DraftCrash(Fault):
+    """The draft model of a speculative engine dies. The draft only speeds
+    decoding up, so the recovery under test is degradation: the engine drops
+    the draft and finishes every in-flight request on the plain step,
+    token for token (greedy), with the crash counted
+    (``stats["draft_crashes"]``, ``SpecMetrics.spec_draft_crashes``)."""
+
+    kind: ClassVar[str] = "draft_crash"
 
 
 def describe(fault: Fault, note: Optional[str] = None) -> str:
@@ -321,4 +334,13 @@ def engine_crash_mid_decode(at_steps: Tuple[int, ...] = (3,), *,
     return Scenario("engine-crash", (
         FaultRule(SITE_SERVE_STEP, on_call(*at_steps), EngineCrash(),
                   note="crash mid-decode"),
+    ), seed)
+
+
+def spec_draft_crash(at_round: int = 2, *, seed: int = 0) -> Scenario:
+    """Kill the speculative draft on its ``at_round``-th round (counted per
+    speculative round of ``engine.step()``)."""
+    return Scenario("spec-draft-crash", (
+        FaultRule(SITE_SPEC_DRAFT, on_call(at_round), DraftCrash(),
+                  note="draft dies mid-speculation"),
     ), seed)

@@ -1,10 +1,15 @@
 """Autoregressive generation on the card (the port's serving entry point).
 
 Counterpart of ``examples/generate.py``: random weights from ``--seed`` (no
-checkpoint restore yet), a random prompt, and ``models.decode.generate``::
+checkpoint restore yet), a random prompt, and ``models.decode.generate``;
+``--draft-config`` decodes greedily through ``speculative_generate`` with a
+random draft of that config (same vocabulary, ``--spec-k`` proposals a
+round) and prints its stats::
 
     python -m tpu_on_k8s_torch.generate --config llama2_7b --batch 4 \\
         --prompt-len 512 --max-new-tokens 64
+    python -m tpu_on_k8s_torch.generate --config tiny --device cpu \\
+        --draft-config tiny
 """
 from __future__ import annotations
 
@@ -13,7 +18,7 @@ import argparse
 import torch
 
 from tpu_on_k8s_torch.device import resolve_device
-from tpu_on_k8s_torch.models.decode import generate
+from tpu_on_k8s_torch.models.decode import generate, speculative_generate
 from tpu_on_k8s_torch.models.params import init_params
 from tpu_on_k8s_torch.models.transformer import TransformerConfig
 
@@ -38,7 +43,21 @@ def main(argv=None) -> torch.Tensor:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
+    p.add_argument("--draft-config", default="",
+                   choices=["", *sorted(CONFIGS)],
+                   help="greedy speculative decoding with a random draft of "
+                        "this config (same vocabulary): a mechanism demo, "
+                        "acceptance of a random draft is ~0")
+    p.add_argument("--draft-checkpoint-dir", default="")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="draft proposals per speculative round")
     args = p.parse_args(argv)
+    if args.draft_checkpoint_dir:
+        raise NotImplementedError(
+            "--draft-checkpoint-dir is not ported to tpu_on_k8s_torch yet "
+            "(checkpoints (train/checkpoint.py) is a later slice)")
+    if args.draft_config and args.temperature:
+        raise SystemExit("speculative decoding is greedy-only")
 
     dev = resolve_device(args.device)
     cfg = CONFIGS[args.config]()
@@ -46,11 +65,22 @@ def main(argv=None) -> torch.Tensor:
     params = init_params(cfg, gen, dev)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev, dtype=torch.int32)
-    out = generate(cfg, params, prompt, args.max_new_tokens,
-                   temperature=args.temperature, top_k=args.top_k,
-                   top_p=args.top_p, device=dev,
-                   generator=torch.Generator(device=dev).manual_seed(
-                       args.seed + 1))
+    if args.draft_config:
+        draft_cfg = CONFIGS[args.draft_config]()
+        draft_params = init_params(
+            draft_cfg, torch.Generator(device=dev).manual_seed(args.seed + 2),
+            dev)
+        out, stats = speculative_generate(cfg, params, draft_cfg,
+                                          draft_params, prompt,
+                                          args.max_new_tokens, k=args.spec_k,
+                                          device=dev)
+        print("speculative stats:", stats)
+    else:
+        out = generate(cfg, params, prompt, args.max_new_tokens,
+                       temperature=args.temperature, top_k=args.top_k,
+                       top_p=args.top_p, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(
+                           args.seed + 1))
     for row in range(args.batch):
         print(f"prompt[{row}]:", prompt[row].tolist())
         print(f"continuation[{row}]:", out[row].tolist())

@@ -2,8 +2,10 @@
 
 Counterpart of the serving half of ``tpu_on_k8s/metrics/metrics.py``:
 ``ServingMetrics`` (request counters, time-to-first-token, queue-wait and
-latency histograms, slot and queue gauges) and ``PagedKVMetrics`` (page
-occupancy, allocations, aliases, admission stalls). Each is backed by
+latency histograms, slot and queue gauges), ``PagedKVMetrics`` (page
+occupancy, allocations, aliases, admission stalls) and ``SpecMetrics``
+(speculative decoding's proposals, acceptances, rollbacks and draft
+crashes). Each is backed by
 ``prometheus_client`` when it imports and always mirrored in plain dicts,
 so tests and drivers read them without a scrape. ``exposition`` renders
 the scrape body with the client or, without it, with ``render_text`` over
@@ -214,6 +216,28 @@ class PagedKVMetrics(_MetricsBase):
         for name in ("pages_total", "pages_in_use"):
             self._declare(name, f"{ns}_{name}", "gauge",
                           f"Paged KV {name}")
+
+
+class SpecMetrics(_MetricsBase):
+    """Speculative decoding (the engine's ``spec_metrics=``): draft tokens
+    proposed and accepted (their ratio is the acceptance rate, the number
+    that decides whether speculation pays), rollbacks (a slot-round in
+    which the target rejected at least one proposal), draft crashes (the
+    engine degraded to plain decode) and the running acceptance-rate
+    gauge."""
+
+    def __init__(self, registry=None) -> None:
+        super().__init__()
+        if _prom is not None:
+            self.registry = registry or _prom.CollectorRegistry()
+        ns = "tpu_on_k8s_spec"
+        for name in ("spec_tokens_proposed", "spec_tokens_accepted",
+                     "spec_rollbacks", "spec_draft_crashes"):
+            self._declare(name, f"{ns}_{name[5:]}", "counter",
+                          f"Speculative decoding {name[5:]}")
+        self._declare("spec_acceptance_rate", f"{ns}_acceptance_rate",
+                      "gauge", "Running draft-token acceptance rate "
+                      "(accepted / proposed over the engine's lifetime)")
 
 
 def count_detached_callback(metrics, message: str) -> None:

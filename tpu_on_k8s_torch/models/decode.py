@@ -9,6 +9,14 @@ step then attends over the cache with a single-token query. The reference's
 ``serve_int8_weights`` config serves. ``cache_shapes``, ``init_cache`` and
 ``_set_cursor`` also serve the continuous-batching engine
 (``models/serving.py``).
+
+``speculative_generate`` is the reference's greedy speculative decoding at
+batch 1: a draft model (``truncated_draft`` makes one from the target's
+first layers) proposes ``k`` tokens a round, the target verifies them in one
+``k+1``-token forward over its cache, and the longest agreeing prefix plus
+the target's own next token are emitted. Its three jitted programs
+(prefill, draft, verify) become three eager phases; rejecting draft K/V is
+a cursor rollback (``_set_cursor``).
 """
 from __future__ import annotations
 
@@ -81,6 +89,27 @@ def quantize_weights_for_serving(params: Dict[str, torch.Tensor],
         else:
             out[name] = t
     return out
+
+
+def truncated_draft(cfg: TransformerConfig, params: Dict[str, torch.Tensor],
+                    n_layers: int
+                    ) -> Tuple[TransformerConfig, Dict[str, torch.Tensor]]:
+    """A layer-truncated self-draft for speculative decoding: the target's
+    first ``n_layers`` blocks (``blocks.{i}.*``, ``i < n_layers``) and every
+    tensor outside the blocks (embeddings, final norm, head; the int8 head
+    of a W8A16 tree). The draft holds the target's tensors themselves, not
+    copies, so a model built from it on the target's device and dtype
+    aliases the target's weights."""
+    if not 1 <= n_layers < cfg.n_layers:
+        raise ValueError(f"draft layers must be in [1, {cfg.n_layers}), "
+                         f"got {n_layers}")
+
+    def kept(name: str) -> bool:
+        head, _, rest = name.partition(".")
+        return head != "blocks" or int(rest.partition(".")[0]) < n_layers
+
+    return (dataclasses.replace(cfg, n_layers=n_layers),
+            {name: t for name, t in params.items() if kept(name)})
 
 
 def decode_model(cfg: TransformerConfig, params: Dict[str, torch.Tensor],
@@ -192,3 +221,98 @@ def generate(cfg: TransformerConfig, params: Dict[str, torch.Tensor],
             tok = sample(logits[:, -1], generator, sp)
             out.append(tok)
     return torch.stack(out, dim=1)
+
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def speculative_generate(cfg: TransformerConfig,
+                         params: Dict[str, torch.Tensor],
+                         draft_cfg: TransformerConfig,
+                         draft_params: Dict[str, torch.Tensor],
+                         prompt: torch.Tensor, max_new_tokens: int,
+                         k: int = 4, device: str | torch.device = "cuda"
+                         ) -> Tuple[torch.Tensor, Dict[str, float]]:
+    """Greedy speculative decoding at batch 1: each round the draft feeds
+    ``k+1`` tokens (the last emitted one, then its own ``k`` proposals, so
+    that its cache also holds the last proposal), the target verifies
+    ``[last, d_1..d_k]`` in one forward over its cache, and the longest
+    prefix of proposals the target agrees with is emitted, then the
+    target's token after it (a correction, or a bonus when all ``k``
+    agree). The tokens equal ``generate``'s greedy tokens up to the
+    rounding of a ``k+1``-row forward against one-row steps.
+
+    Both caches are allocated at ``_bucket_len(lp + new + k + 1)``; each
+    phase first rolls its cache's cursor back to the last emitted token's
+    position (``_set_cursor``), which rejects the unaccepted K/V. Both
+    prefills start from an empty cache at ``arange`` positions, so they run
+    the flash forward kernel. Returns ``(tokens int32 [1, new], stats)``
+    with the reference's stats: rounds, proposed, accepted,
+    acceptance_rate, target_forwards and tokens_per_target_forward."""
+    dev = resolve_device(device)
+    b, lp = prompt.shape
+    if b != 1:
+        raise ValueError("speculative_generate is batch-1 (per-row accept "
+                         "counts diverge); batch requests use generate()")
+    if k < 1:
+        raise ValueError(f"speculation window k must be >= 1, got {k}")
+    if cfg.vocab_size != draft_cfg.vocab_size:
+        raise ValueError("draft and target must share a vocabulary")
+    max_total = lp + max_new_tokens + k + 1
+    if max_total > cfg.max_seq_len or max_total > draft_cfg.max_seq_len:
+        raise ValueError(
+            f"prompt {lp} + new {max_new_tokens} + speculation window "
+            f"{k + 1} exceeds max_seq_len")
+
+    def bucketed(c: TransformerConfig) -> TransformerConfig:
+        return dataclasses.replace(
+            c, max_seq_len=_bucket_len(max_total, c.max_seq_len))
+
+    target = decode_model(bucketed(cfg), params, dev)
+    draft = decode_model(bucketed(draft_cfg), draft_params, dev)
+    prompt = prompt.to(device=dev, dtype=torch.int32)
+    t_cache, d_cache = init_cache(target, 1), init_cache(draft, 1)
+    with torch.inference_mode():
+        positions = torch.arange(lp, dtype=torch.int32, device=dev)[None]
+        last = torch.full((1,), lp - 1, device=dev)
+        t_last = _greedy(target(prompt, positions, t_cache, at=last)[:, -1])
+        draft.extend_cache(prompt, positions, d_cache)
+        emitted = [int(t_last[0])]
+        p = lp                 # position of t_last (emitted, not yet fed)
+        rounds = accepted_total = 0
+        steps = torch.arange(k + 1, dtype=torch.int32, device=dev)[None]
+        while len(emitted) < max_new_tokens:
+            # draft: k+1 feeds; the last only caches d_k (no head)
+            _set_cursor(d_cache, p)
+            tok, proposals = t_last, []
+            for i in range(k):
+                tok = _greedy(draft(tok[:, None], p + steps[:, i:i + 1],
+                                    d_cache)[:, -1])
+                proposals.append(tok)
+            draft.extend_cache(tok[:, None], p + steps[:, k:], d_cache)
+            # verify: greedy[i] is the target's token after chunk[:i+1]
+            _set_cursor(t_cache, p)
+            chunk = torch.cat([t_last, *proposals])[None]        # [1, k+1]
+            greedy = _greedy(target(chunk, p + steps, t_cache))[0]
+            props, target_toks = torch.cat(    # one transfer a round
+                [chunk[0, 1:], greedy]).cpu().split([k, k + 1])
+            props, target_toks = props.tolist(), target_toks.tolist()
+            j = 0
+            while j < k and props[j] == target_toks[j]:
+                j += 1
+            emitted.extend(props[:j])
+            emitted.append(target_toks[j])   # correction (or bonus at j=k)
+            rounds += 1
+            accepted_total += j
+            p += j + 1                       # position of the new t_last
+            t_last = greedy[j:j + 1]
+    kept = emitted[:max_new_tokens]
+    tokens = torch.tensor(kept, dtype=torch.int32, device=dev)[None]
+    stats = {"rounds": rounds, "proposed": rounds * k,
+             "accepted": accepted_total,
+             "acceptance_rate": (accepted_total / (rounds * k)
+                                 if rounds else 0.0),
+             "target_forwards": rounds + 1,
+             "tokens_per_target_forward": len(kept) / (rounds + 1)}
+    return tokens, stats

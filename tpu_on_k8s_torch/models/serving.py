@@ -40,9 +40,21 @@ static batch runs until its longest member finishes. Here:
   ``export_kv`` takes a decoding request's accumulated cache the same way
   (migration), and ``export_prefix`` / ``import_prefix`` move a registered
   prefix between engines (paged: aliasing a resident ancestor's pages).
-* **Metrics and chaos**: ``metrics=`` (``ServingMetrics``) and
-  ``kv_metrics=`` (``PagedKVMetrics``) are fed where the reference feeds
-  them; ``step()`` fires ``chaos.SITE_SERVE_STEP`` first.
+* **Speculative decoding** (``draft_cfg``/``draft_params``): a second,
+  small model (``_DraftRunner``) keeps its own dense multislot cache in step
+  with the slot pool and proposes ``spec_k`` greedy tokens a slot a round;
+  one batched ``[n_slots, spec_k+1]`` forward of the step model verifies
+  every slot's chunk, and each slot emits its longest agreeing prefix plus
+  the target's own next token. Rejected K/V needs no rollback: a query
+  attends only to positions at or below its own, and the next round's
+  appends overwrite it first. Slots the draft cannot seed (adopted
+  handoffs, imported prefixes) ride the rounds at the sentinel position
+  past column 0; a draft crash (``chaos.SITE_SPEC_DRAFT``) degrades the
+  engine to the plain step.
+* **Metrics and chaos**: ``metrics=`` (``ServingMetrics``),
+  ``kv_metrics=`` (``PagedKVMetrics``) and ``spec_metrics=``
+  (``SpecMetrics``) are fed where the reference feeds them; ``step()``
+  fires ``chaos.SITE_SERVE_STEP`` first.
 
 The reference scans the horizon inside one compiled program and gathers
 the paged view as a transient inside it. Run eagerly, the horizon is a
@@ -54,9 +66,8 @@ serializes the queues and the slot bookkeeping against the stepping
 thread; device work is single-threaded.
 
 Not in this slice (each constructor argument raises ``NotImplementedError``
-naming its slice): speculative decoding and mesh serving, with their
-metrics objects. The int8 KV cache (``cache_int8``) raises where the model
-is built.
+naming its slice): mesh serving, with its metrics object. The int8 KV
+cache (``cache_int8``) raises where the model is built.
 """
 from __future__ import annotations
 
@@ -65,6 +76,7 @@ import hashlib
 import itertools
 import threading
 import time
+import warnings
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -77,6 +89,7 @@ from tpu_on_k8s_torch.metrics import count_detached_callback
 from tpu_on_k8s_torch.models.decode import (
     PAGE_TOKENS,
     _bucket_len,
+    _greedy,
     _set_cursor,
     cache_shapes,
     decode_model,
@@ -115,11 +128,7 @@ class EngineCrashError(RuntimeError):
 _NOT_PORTED = (
     ("mesh", "mesh serving (_ShardPlan)"),
     ("rules", "mesh serving (_ShardPlan)"),
-    ("draft_cfg", "speculative decoding (_DraftRunner)"),
-    ("draft_params", "speculative decoding (_DraftRunner)"),
-    ("on_spec_round", "speculative decoding (_DraftRunner)"),
     ("shard_metrics", "mesh serving (ShardMetrics)"),
-    ("spec_metrics", "speculative decoding (SpecMetrics)"),
 )
 
 
@@ -134,6 +143,9 @@ class _Slot:
     eos_id: Optional[int]
     submitted_at: float = 0.0     # submit time on the engine's clock
     on_token: Optional[Callable[[int, int], Any]] = None
+    draft: bool = False           # the draft runner holds this slot's
+                                  # context (speculative rounds propose
+                                  # for it)
     pages: Optional[List[int]] = None   # paged mode: this slot's block
                                   # table (pages[j] backs positions
                                   # [j*page, (j+1)*page)); leading entries
@@ -270,6 +282,20 @@ def _zeros(shape_dtype, device: torch.device) -> _KV:
                torch.zeros(shape, dtype=dtype, device=device))
 
 
+def _prefixed_cache(model, device: torch.device,
+                    prefix: Optional[Tuple[_KV, int]]) -> _KV:
+    """A zeroed batch-1 cache at ``model``'s ``max_seq_len`` holding a
+    registered prefix's positions ``[0, plen)`` when ``prefix`` (its KV and
+    length) is given; the prefix's own cache stays untouched."""
+    with torch.inference_mode():
+        kv = _zeros(cache_shapes(model, 1), device)
+        if prefix is not None:
+            pkv, plen = prefix
+            kv.k[:, :, :plen] = pkv.k[:, :, :plen]
+            kv.v[:, :, :plen] = pkv.v[:, :, :plen]
+    return kv
+
+
 def _signature(params: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
     return {name: (tuple(t.shape), t.dtype) for name, t in params.items()}
 
@@ -359,6 +385,115 @@ class KVHandoff:
         return _cache_nbytes(self.cache)
 
 
+class _DraftRunner:
+    """The draft half of batched speculative decoding: a second (small)
+    model kept in step with the engine's slot pool.
+
+    It owns a dense ``[n_layers, n_slots, max_len, Hkv, Dh]`` multislot
+    cache, also under a paged engine. Each admission seeds its slot's row
+    (``seed``) with a batch-1 draft prefill of the request's whole context,
+    never chunked; after a prefix mirrored through ``register_prefix``, a
+    prefill of the suffix only. Each round ``propose`` runs ``k+1`` greedy
+    multislot steps over every slot. Rows it could not seed (an adopted
+    handoff carries no prompt; an imported prefix was never prefilled
+    here) ride the rounds at the sentinel position ``max_len``, whose
+    appends write nothing, and their proposals are ignored.
+    ``fresh_prefills`` counts the prefills that start from an empty cache,
+    each of which runs the flash forward kernel once a layer.
+
+    Greedy only (argmax): token identity with plain decode is the
+    contract, and sampled speculation needs rejection sampling, which the
+    engine does not implement."""
+
+    def __init__(self, cfg: TransformerConfig,
+                 params: Dict[str, torch.Tensor], n_slots: int,
+                 max_len: int, k: int, device: torch.device) -> None:
+        base = dataclasses.replace(cfg, max_seq_len=max_len)
+        self._prefill_model = decode_model(base, params, device)
+        self._step_model = decode_model(
+            dataclasses.replace(base, decode_multislot=True),
+            self._prefill_model.state_dict(), device)
+        self.device = device
+        self.k = k
+        self.max_len = max_len
+        self.cache = _zeros(cache_shapes(self._step_model, n_slots), device)
+        self.prefixes: Dict[int, Tuple[_KV, int]] = {}  # engine pid → KV
+        self.fresh_prefills = 0
+
+    def propose(self, toks: np.ndarray, pos: np.ndarray) -> np.ndarray:
+        """One draft phase over the whole slot pool, from each row's last
+        token ``toks`` at ``pos`` → proposals ``[k, n_slots]`` on the host.
+        The ``k+1``-th feed only caches ``d_k`` (a fully accepted round's
+        next draft appends right after it), so it skips the head."""
+        dev = self.device
+        cache = self.cache.layers()
+        with torch.inference_mode():
+            tok = torch.from_numpy(toks).to(dev)
+            p = torch.from_numpy(pos).to(dev)
+            out = []
+            for _ in range(self.k):
+                tok = _greedy(self._step_model(tok[:, None], p[:, None],
+                                               cache)[:, -1])
+                out.append(tok)
+                p = p + 1
+            self._step_model.extend_cache(tok[:, None], p[:, None], cache)
+            return torch.stack(out).cpu().numpy()
+
+    def _prefill(self, kv: _KV, tokens: np.ndarray, start: int) -> None:
+        """Prefill ``tokens`` into ``kv`` after the ``start`` positions it
+        holds, padded to their bucket; from ``start == 0`` a fresh
+        prefill. Only the cache is wanted, so the head is skipped."""
+        n = int(tokens.size)
+        bucket = _bucket_len(n, kv.k.shape[2] - start)
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :n] = tokens
+        dev = self.device
+        with torch.inference_mode():
+            positions = start + torch.arange(bucket, dtype=torch.int32,
+                                             device=dev)[None]
+            self._prefill_model.extend_cache(
+                torch.from_numpy(padded).to(dev), positions,
+                _set_cursor(kv.layers(), start))
+        self.fresh_prefills += start == 0
+
+    def _fresh_cache(self, n: int) -> _KV:
+        return _zeros(cache_shapes(self._prefill_model, 1,
+                                   _bucket_len(n, self.max_len)), self.device)
+
+    def register_prefix(self, pid: int, tokens: np.ndarray) -> None:
+        """Prefill a shared prefix through the draft under the engine's
+        prefix id, so that admissions carrying it seed their rows too."""
+        kv = self._fresh_cache(int(tokens.size))
+        self._prefill(kv, tokens, 0)
+        self.prefixes[pid] = (kv, int(tokens.size))
+
+    def drop_prefix(self, pid: int) -> None:
+        self.prefixes.pop(pid, None)
+
+    def seed(self, slot: int, prompt: np.ndarray,
+             prefix_id: Optional[int]) -> bool:
+        """Prefill ``prompt`` (the suffix, with ``prefix_id``) through the
+        draft and copy its positions ``< lp`` into the draft cache's row
+        ``slot``. False when the row cannot be drafted: an
+        ``import_prefix`` id the draft never saw; the slot then decodes
+        plain."""
+        plen = 0
+        if prefix_id is not None:
+            entry = self.prefixes.get(prefix_id)
+            if entry is None:
+                return False
+            plen = entry[1]
+            kv = _prefixed_cache(self._prefill_model, self.device, entry)
+        else:
+            kv = self._fresh_cache(int(prompt.size))
+        self._prefill(kv, prompt, plen)
+        lp = plen + int(prompt.size)
+        with torch.inference_mode():
+            self.cache.k[:, slot, :lp] = kv.k[:, 0, :lp]
+            self.cache.v[:, slot, :lp] = kv.v[:, 0, :lp]
+        return True
+
+
 class ContinuousBatchingEngine:
     """Slot-pool continuous batching over one model and parameter set.
 
@@ -372,6 +507,13 @@ class ContinuousBatchingEngine:
     the queue-wait, time-to-first-token and latency histograms and the slot
     and queue gauges; ``kv_metrics`` (``PagedKVMetrics``) the page gauges
     and the allocation, alias and stall counters.
+
+    ``draft_cfg`` and ``draft_params`` (together) make the engine
+    speculative: greedy rounds of ``spec_k`` draft proposals a slot and one
+    batched verify (``_spec_round``). ``spec_metrics`` (``SpecMetrics``)
+    takes their counts; ``on_spec_round(request_ids, draft_s, verify_s,
+    proposed, accepted)`` fires after each round, and detaches with a
+    warning if it raises.
     """
 
     #: batched-admission prefill sizes (the largest that fits is used); a
@@ -388,8 +530,11 @@ class ContinuousBatchingEngine:
                  queue_cap: Optional[int] = None,
                  on_retire: Optional[Callable[[int, np.ndarray], Any]] = None,
                  clock: Callable[[], float] = time.monotonic,
-                 draft_cfg=None, draft_params=None, spec_metrics=None,
-                 on_spec_round=None, shard_metrics=None,
+                 draft_cfg: Optional[TransformerConfig] = None,
+                 draft_params: Optional[Dict[str, torch.Tensor]] = None,
+                 spec_k: int = 4, spec_metrics=None,
+                 on_spec_round: Optional[Callable[..., Any]] = None,
+                 shard_metrics=None,
                  kv_pages: int = 0, page_tokens: Optional[int] = None,
                  kv_metrics=None, device: str | torch.device = "cuda"):
         if step_horizon < 1:
@@ -399,9 +544,7 @@ class ContinuousBatchingEngine:
         if prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0, got "
                              f"{prefill_chunk}")
-        given = dict(mesh=mesh, rules=rules, draft_cfg=draft_cfg,
-                     draft_params=draft_params, on_spec_round=on_spec_round,
-                     shard_metrics=shard_metrics, spec_metrics=spec_metrics)
+        given = dict(mesh=mesh, rules=rules, shard_metrics=shard_metrics)
         for arg, later in _NOT_PORTED:
             if given[arg] is not None:
                 raise NotImplementedError(
@@ -460,6 +603,28 @@ class ContinuousBatchingEngine:
         self._generator = (generator if generator is not None else
                            torch.Generator(device=self.device).manual_seed(0))
         self.step_horizon = step_horizon
+        speculative = draft_cfg is not None or draft_params is not None
+        if speculative:
+            if draft_cfg is None or draft_params is None:
+                raise ValueError("draft_cfg and draft_params come together")
+            if step_horizon != 1:
+                raise ValueError(
+                    "speculative decoding replaces the step horizon (each "
+                    "round already runs k draft steps); use step_horizon=1")
+            if not self.sampling.is_greedy:
+                raise ValueError(
+                    "speculative decoding is greedy-only: token identity "
+                    "with plain decode is the correctness contract, and "
+                    "sampled acceptance needs rejection sampling")
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError("draft and target must share a vocabulary")
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            if kv_pages and spec_k + 1 > page:
+                raise ValueError(
+                    f"spec_k + 1 ({spec_k + 1}) exceeds page_tokens {page}: "
+                    f"a verify chunk's appends must span at most two pages "
+                    f"(the scatter-back window)")
         self._load(params)
 
         self._cache: Optional[_KV] = None
@@ -489,6 +654,12 @@ class ContinuousBatchingEngine:
                                  self.device)
         self._prefixes: Dict[int, Tuple[_KV, int]] = {}  # id → (KV, length)
         self._next_prefix_id = 0
+        self.spec_metrics = spec_metrics
+        self._on_spec_round = on_spec_round
+        self._spec_k = spec_k
+        self._draft: Optional[_DraftRunner] = (
+            _DraftRunner(draft_cfg, draft_params, n_slots, max_len, spec_k,
+                         self.device) if speculative else None)
         #: {axis: size} of the mesh's non-trivial axes: {} on one device
         #: (the layout block every export carries)
         self.mesh_axes: Dict[str, int] = {}
@@ -526,7 +697,16 @@ class ContinuousBatchingEngine:
                       "pages_allocated": 0, "pages_aliased": 0,
                       "admission_stalls": 0,
                       # parameter swaps applied (``replace_params``)
-                      "param_swaps": 0}
+                      "param_swaps": 0,
+                      # speculative decoding: rounds run, draft tokens
+                      # proposed and accepted, slot-rounds with at least one
+                      # rejection, draft crashes (degradations to the plain
+                      # step), and the seconds of the draft and verify
+                      # phases on the engine's clock
+                      "spec_rounds": 0, "spec_proposed": 0,
+                      "spec_accepted": 0, "spec_rollbacks": 0,
+                      "draft_crashes": 0,
+                      "spec_draft_s": 0.0, "spec_verify_s": 0.0}
         #: hard bound on requests in flight (queued + prefilling + slots);
         #: ``submit`` past it raises ``EngineOverloadedError``. None keeps an
         #: unbounded queue.
@@ -557,7 +737,12 @@ class ContinuousBatchingEngine:
         engine unless ``quantized``). A mismatch raises before anything is
         touched, and so does a busy engine (queued, prefilling or in-slot
         requests): a mid-request swap would splice two models into one
-        decode stream. Returns the previous tree."""
+        decode stream. A speculative engine refuses: the swap would desync
+        the draft from the target. Returns the previous tree."""
+        if self._draft is not None:
+            raise ValueError(
+                "replace_params on a speculative engine would desync the "
+                "draft from the target; model pools run plain engines")
         if self.cfg.serve_int8_weights and not quantized:
             params = quantize_weights_for_serving(params)
         old, new = _signature(self._params), _signature(params)
@@ -703,13 +888,14 @@ class ContinuousBatchingEngine:
                                out=view.view(pool.shape[0], -1,
                                              *pool.shape[2:]))
 
-    def _scatter_tails(self, pos: np.ndarray) -> None:
-        """Scatter each slot's two tail pages of the view back to the pool,
-        then zero the null page. Every other gathered page is unchanged
-        private data or a shared prefix page below the fork, which appends
-        never reach. Duplicate ids carry identical bytes (one block twice)
-        or hit the null page, so the scatter is order-insensitive."""
-        blocks, pids = self._tail_args(pos, self.step_horizon)
+    def _scatter_tails(self, pos: np.ndarray, span: int) -> None:
+        """Scatter each slot's two tail pages of the view back to the pool
+        (the blocks that ``span`` appends from ``pos`` can touch), then zero
+        the null page. Every other gathered page is unchanged private data
+        or a shared prefix page below the fork, which appends never reach.
+        Duplicate ids carry identical bytes (one block twice) or hit the
+        null page, so the scatter is order-insensitive."""
+        blocks, pids = self._tail_args(pos, span)
         dev = self.device
         rows = torch.arange(self.n_slots, device=dev)[:, None]
         blocks = torch.from_numpy(blocks.astype(np.int64)).to(dev)
@@ -746,14 +932,10 @@ class ContinuousBatchingEngine:
     def _private_cache(self, prefix_id: Optional[int]) -> _KV:
         """A batch-1 cache at ``max_len`` for a suffix or chunked prefill,
         holding the registered prefix's positions when ``prefix_id`` is
-        given (the prefix's own cache stays untouched)."""
-        with torch.inference_mode():
-            kv = _zeros(cache_shapes(self._prefill_model, 1), self.device)
-            if prefix_id is not None:
-                prefix, plen = self._prefixes[prefix_id]
-                kv.k[:, :, :plen] = prefix.k[:, :, :plen]
-                kv.v[:, :, :plen] = prefix.v[:, :, :plen]
-        return kv
+        given (``_prefixed_cache``)."""
+        return _prefixed_cache(
+            self._prefill_model, self.device,
+            None if prefix_id is None else self._prefixes[prefix_id])
 
     def _append_prefill(self, kv: _KV, tokens: np.ndarray,
                         start: int) -> torch.Tensor:
@@ -821,6 +1003,10 @@ class ContinuousBatchingEngine:
                 self._write_pages(kv, 0, self._table_row(pids))
             self._prefix_pages[pid] = pids
             self._update_page_gauges()
+        if self._draft is not None:
+            # mirrored through the draft, so that admissions carrying the
+            # prefix seed their draft rows too
+            self._draft.register_prefix(pid, tokens)
         return pid
 
     def export_prefix(self, prefix_id: int
@@ -903,6 +1089,8 @@ class ContinuousBatchingEngine:
     def drop_prefix(self, prefix_id: int) -> bool:
         """Release a registered prefix's KV. The caller owns the invariant
         that no queued or in-flight request still references the id."""
+        if self._draft is not None:
+            self._draft.drop_prefix(prefix_id)
         if self._pool is not None:
             # refcounted: slots still aliasing these pages keep them live
             # until they retire; only the prefix's own reference drops here
@@ -1364,11 +1552,15 @@ class ContinuousBatchingEngine:
                 self._cache.v[:, i, :lp] = kv.v[:, row, :lp]
             self.stats["admit_copy_positions"] += lp
         first = int(first)   # host sync: the first token IS emitted now
+        # seed the slot's draft row from the request's own tokens (False:
+        # an imported prefix the draft never saw; the slot decodes plain)
+        drafted = (self._draft is not None
+                   and self._draft.seed(i, req.prompt, req.prefix_id))
         with self._lock:
             self._slots[i] = _Slot(req.request_id, lp, first, [first],
                                    req.max_new_tokens, req.eos_id,
                                    req.submitted_at, req.on_token,
-                                   pages=pages)
+                                   draft=drafted, pages=pages)
             self._admitting.discard(i)
         self._fire_on_token(self._slots[i], first)
         self.stats["admitted"] += 1
@@ -1527,7 +1719,9 @@ class ContinuousBatchingEngine:
             before = set(self._finished)
         self._admit_pending()
         active = [i for i, s in enumerate(self._slots) if s is not None]
-        if active:
+        if active and self._use_spec_round(active):
+            self._spec_round(active)
+        elif active:
             out = self._decode(active)              # [horizon, n_slots]
             self.stats["steps"] += self.step_horizon
             emitted_now = sum(self._emit_tokens(i, out[:, i])
@@ -1565,7 +1759,7 @@ class ContinuousBatchingEngine:
                 p = p + 1
                 out.append(tok)
             if self._pool is not None:
-                self._scatter_tails(pos)
+                self._scatter_tails(pos, self.step_horizon)
             return torch.stack(out).cpu().numpy()
 
     def _emit_tokens(self, i: int, tokens) -> int:
@@ -1585,6 +1779,133 @@ class ContinuousBatchingEngine:
             if self._retire_if_done(i):
                 break
         return n
+
+    # ---- speculative rounds ------------------------------------------------
+    def _use_spec_round(self, active: List[int]) -> bool:
+        """Whether this step runs a speculative round: a draft is attached,
+        at least one active slot is drafted (an all-undrafted pool takes
+        the plain step rather than a ``k+1``-wide verify that emits one
+        token a slot), and the draft survives this round's
+        ``chaos.SITE_SPEC_DRAFT``."""
+        if self._draft is None:
+            return False
+        if not any(self._slots[i].draft for i in active):
+            return False
+        fault = chaos.fire(chaos.SITE_SPEC_DRAFT,
+                           rounds=self.stats["spec_rounds"])
+        if isinstance(fault, chaos.DraftCrash):
+            self.degrade_draft()
+            return False
+        return True
+
+    def degrade_draft(self) -> None:
+        """Drop a dead draft model and keep serving: every in-flight request
+        continues on the plain step from this very step, token for token
+        (greedy: the draft only speeds decoding up). Counted and warned,
+        never silent; a supervisor that sees a draft worker die calls it
+        too."""
+        self._draft = None
+        self.stats["draft_crashes"] += 1
+        if self.spec_metrics is not None:
+            self.spec_metrics.inc("spec_draft_crashes")
+        warnings.warn("speculative draft crashed; engine degraded to plain "
+                      "decode (token-identical, nothing lost)", stacklevel=3)
+
+    def _spec_round(self, active: List[int]) -> None:
+        """One speculative round over the whole slot pool: the draft
+        proposes ``k`` greedy tokens for each drafted slot, one batched
+        forward of the step model verifies every slot's ``[last_token,
+        d_1..d_k]`` chunk at its own positions, and each drafted slot emits
+        its longest agreeing prefix plus the target's token after it (a
+        correction, or a bonus when all ``k`` agree): 1 to ``k+1`` tokens,
+        as plain greedy decode would emit them. An undrafted slot carries
+        the sentinel past column 0 and emits its ordinary next token."""
+        k = self._spec_k
+        t0 = self._clock()
+        toks = np.zeros(self.n_slots, np.int32)
+        pos = np.full(self.n_slots, self.max_len, np.int32)   # sentinel
+        for i in active:
+            s = self._slots[i]
+            toks[i] = s.last_token
+            if s.draft:
+                pos[i] = s.pos
+        proposals = self._draft.propose(toks, pos)            # [k, n_slots]
+        t1 = self._clock()
+        chunk = np.zeros((self.n_slots, k + 1), np.int32)
+        cpos = np.full((self.n_slots, k + 1), self.max_len, np.int32)
+        for i in active:
+            s = self._slots[i]
+            chunk[i, 0] = s.last_token
+            cpos[i, 0] = s.pos
+            if s.draft:
+                chunk[i, 1:] = proposals[:, i]
+                cpos[i] = s.pos + np.arange(k + 1, dtype=np.int32)
+        greedy = self._verify(chunk, cpos)                    # [n_slots, k+1]
+        t2 = self._clock()
+        self.stats["steps"] += 1
+        rids = sorted(self._slots[i].request_id for i in active)
+        emitted_now = proposed = accepted_n = rollbacks = 0
+        for i in active:
+            if self._slots[i].draft:
+                j = 0
+                while j < k and proposals[j, i] == greedy[i, j]:
+                    j += 1
+                out = [*proposals[:j, i], greedy[i, j]]
+                proposed += k
+                accepted_n += j
+                rollbacks += j < k
+            else:
+                out = [greedy[i, 0]]
+            emitted_now += self._emit_tokens(i, out)
+        self.stats["spec_rounds"] += 1
+        self.stats["spec_proposed"] += proposed
+        self.stats["spec_accepted"] += accepted_n
+        self.stats["spec_rollbacks"] += rollbacks
+        self.stats["spec_draft_s"] += t1 - t0
+        self.stats["spec_verify_s"] += t2 - t1
+        if self.spec_metrics is not None and proposed:
+            self.spec_metrics.inc("spec_tokens_proposed", proposed)
+            if accepted_n:
+                self.spec_metrics.inc("spec_tokens_accepted", accepted_n)
+            if rollbacks:
+                self.spec_metrics.inc("spec_rollbacks", rollbacks)
+            self.spec_metrics.set_gauge(
+                "spec_acceptance_rate",
+                self.stats["spec_accepted"]
+                / max(self.stats["spec_proposed"], 1))
+        if self.metrics is not None:
+            self.metrics.inc("tokens_emitted", emitted_now)
+        if self._on_spec_round is not None:
+            try:
+                self._on_spec_round(rids, t1 - t0, t2 - t1, proposed,
+                                    accepted_n)
+            except Exception as e:  # noqa: BLE001 — isolate like on_retire
+                self._on_spec_round = None
+                count_detached_callback(
+                    self.metrics,
+                    f"on_spec_round callback raised {type(e).__name__}: "
+                    f"{e}; detached")
+
+    def _verify(self, chunk: np.ndarray, cpos: np.ndarray) -> np.ndarray:
+        """One forward of the step model over every slot's chunk ``[n_slots,
+        k+1]`` at positions ``cpos`` → the target's greedy token after each
+        chunk prefix, ``[n_slots, k+1]`` on the host. Paged mode gathers the
+        view first and scatters the tail pages back after, over a span of
+        ``k+1``: rejected proposals land in the slot's own tail pages, never
+        in a shared prefix page."""
+        dev = self.device
+        with torch.inference_mode():
+            if self._pool is not None:
+                self._gather_view()
+                cache = self._view.layers()
+            else:
+                cache = self._cache.layers()
+            greedy = _greedy(self._step_model(
+                torch.from_numpy(chunk).to(dev),
+                torch.from_numpy(cpos).to(dev), cache))
+            if self._pool is not None:
+                self._scatter_tails(cpos[:, 0], chunk.shape[1])
+            return greedy.cpu().numpy()
 
     def run(self) -> Dict[int, np.ndarray]:
         """Drain the queue and every active slot; returns {id: tokens}."""

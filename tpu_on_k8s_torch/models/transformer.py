@@ -431,26 +431,25 @@ class Attention(nn.Module):
 
 def _append_per_row(k: torch.Tensor, v: torch.Tensor,
                     positions: torch.Tensor, cache: KVCache) -> None:
-    """The multislot append of one token a row: row b's keys/values ``[B, 1,
-    Hkv, Dh]`` land at ``positions[b]`` of its own cache row, in place;
+    """The multislot append: row b's keys/values ``[B, l, Hkv, Dh]`` land at
+    ``positions[b]`` ``[B, l]`` of its own cache row, in place;
     ``cache.index`` is not touched. A position at or past the cache length
-    (the free-slot sentinel ``max_len``, or a horizon's steps past a
-    request's end) writes nothing, as the reference's ``mode="drop"``: its
-    write is aimed at the last position and carries the bytes already
-    there, so a live row's bytes never change. All on the device, with no
-    host sync."""
+    (the free-slot sentinel ``max_len``, a horizon's steps past a request's
+    end, a verify chunk's columns past column 0 on an undrafted row) writes
+    nothing, as the reference's ``mode="drop"``: its write is aimed at the
+    last position and carries the bytes there. Columns are written one at
+    a time, in order: the rows of one column are distinct, so no index
+    repeats within a write, and a dropped write carries what an earlier
+    column just wrote there. All on the device, with no host sync."""
     b, l = positions.shape
-    if l > 1:
-        raise NotImplementedError(
-            f"a multislot call of {l} tokens a row is not ported to "
-            f"tpu_on_k8s_torch yet (speculative decoding's verify step is a "
-            f"later slice)")
     length = cache.k.shape[1]
     keep = (positions < length)[..., None, None]
     idx = positions.clamp(max=length - 1).long()
-    rows = torch.arange(b, device=positions.device)[:, None]
-    for new, dst in ((k, cache.k), (v, cache.v)):
-        dst[rows, idx] = torch.where(keep, new, dst[:, length - 1:])
+    rows = torch.arange(b, device=positions.device)
+    for j in range(l):
+        for new, dst in ((k, cache.k), (v, cache.v)):
+            dst[rows, idx[:, j]] = torch.where(keep[:, j], new[:, j],
+                                               dst[:, length - 1])
 
 
 class MLP(nn.Module):
@@ -537,7 +536,8 @@ class Transformer(nn.Module):
     with ``at [B]``: each row's logits at its own position only (a prompt's
     last token, or a padded prompt's last real one);
     ``features`` → the final-norm hidden states and the head ``[D, V]`` in
-    ``cfg.dtype`` for the chunked loss.
+    ``cfg.dtype`` for the chunked loss; ``extend_cache`` → the cache's
+    appends alone, without the head.
 
     With ``cfg.decode`` every call takes one ``KVCache`` per layer (build it
     with ``decode.decode_model``); otherwise no cache, and ``segments
@@ -589,6 +589,13 @@ class Transformer(nn.Module):
         if cfg.head_int8:
             return _int8_mm(cfg.int8_impl)(x, head.t(), torch.float32)
         return torch.matmul(x.float(), head.float())
+
+    def extend_cache(self, tokens: torch.Tensor, positions: torch.Tensor,
+                     cache: List[KVCache]) -> None:
+        """Append ``tokens``' keys/values to ``cache`` as ``forward`` does,
+        without the head: a speculative draft's prefill and its last feed,
+        whose logits nobody reads."""
+        self._trunk(tokens, positions, cache, None)
 
     def features(self, tokens: torch.Tensor,
                  positions: Optional[torch.Tensor] = None,

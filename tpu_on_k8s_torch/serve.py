@@ -11,12 +11,18 @@ loop, as this file does::
     python -m tpu_on_k8s_torch.serve --config llama2_7b --n-slots 8 \\
         --max-len 2048 --prompt-min 64 --prompt-max 1000 --max-new-tokens 64
     python -m tpu_on_k8s_torch.serve --config tiny --device cpu
+    python -m tpu_on_k8s_torch.serve --config tiny --device cpu --spec \\
+        --spec-draft-layers 1
 
 The engine reports through a ``ServingMetrics``; ``--metrics-port`` serves
 it at ``/metrics`` (without ``prometheus_client``, from a stdlib HTTP
 thread). The closing line reports the p50 latency and time to first token
-from its histograms, on the engine's clock. Flags of the example that
-belong to later slices raise ``NotImplementedError``.
+from its histograms, on the engine's clock. ``--spec`` decodes
+speculatively (greedy; ``--spec-k`` proposals a round) with the target's
+first ``--spec-draft-layers`` layers as the draft, or the target itself
+(0, the acceptance-1 upper bound), and the closing line adds the rounds
+and the acceptance. Flags of the example that belong to later slices raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,8 +35,9 @@ import torch
 
 from tpu_on_k8s_torch.device import resolve_device
 from tpu_on_k8s_torch.generate import CONFIGS
-from tpu_on_k8s_torch.metrics import ServingMetrics
+from tpu_on_k8s_torch.metrics import ServingMetrics, SpecMetrics
 from tpu_on_k8s_torch.metrics import serve as serve_metrics
+from tpu_on_k8s_torch.models.decode import truncated_draft
 from tpu_on_k8s_torch.models.params import init_params
 from tpu_on_k8s_torch.models.serving import ContinuousBatchingEngine
 
@@ -74,6 +81,14 @@ def main(argv=None) -> dict:
                         "only its own suffix")
     p.add_argument("--kv-pages", type=int, default=0,
                    help=">0: a paged KV pool of this many pages")
+    p.add_argument("--spec", action="store_true",
+                   help="speculative decoding (greedy): a draft proposes, "
+                        "one batched forward verifies")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="draft proposals per speculative round (--spec)")
+    p.add_argument("--spec-draft-layers", type=int, default=0,
+                   help="draft with the target's first N layers (--spec); "
+                        "0 drafts with the target itself")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     p.add_argument("--checkpoint-dir", default="")
@@ -97,6 +112,12 @@ def main(argv=None) -> dict:
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(
         args.seed), dev)
     metrics = ServingMetrics()
+    spec_metrics = SpecMetrics() if args.spec else None
+    draft_cfg = draft_params = None
+    if args.spec:
+        draft_cfg, draft_params = (
+            truncated_draft(cfg, params, args.spec_draft_layers)
+            if args.spec_draft_layers > 0 else (cfg, params))
     if args.metrics_port:
         serve_metrics(metrics, args.metrics_port)
         print(f"metrics at :{args.metrics_port}/metrics")
@@ -104,7 +125,9 @@ def main(argv=None) -> dict:
         cfg, params, n_slots=args.n_slots, max_len=args.max_len or None,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         prefill_chunk=args.prefill_chunk, step_horizon=args.horizon,
-        kv_pages=args.kv_pages, metrics=metrics,
+        kv_pages=args.kv_pages, metrics=metrics, draft_cfg=draft_cfg,
+        draft_params=draft_params, spec_k=args.spec_k,
+        spec_metrics=spec_metrics,
         generator=torch.Generator(device=dev).manual_seed(args.seed + 1),
         device=dev)
 
@@ -151,6 +174,11 @@ def main(argv=None) -> dict:
     if lat and ttft:
         line += (f"; p50 latency {statistics.median(lat) * 1e3:.0f}ms, "
                  f"p50 TTFT {statistics.median(ttft) * 1e3:.0f}ms")
+    if args.spec:
+        st = eng.stats
+        line += (f"; spec rounds {st['spec_rounds']}, acceptance "
+                 f"{st['spec_accepted'] / max(st['spec_proposed'], 1):.3f} "
+                 f"({st['spec_accepted']}/{st['spec_proposed']})")
     print(line)
     return finished
 

@@ -103,6 +103,24 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    attention. A round's draft and verify times, acceptance, tokens a
    round, tokens/s and TTFT beside 3e (a)'s, and (e)'s ms a token beside
    plain ``generate``'s are printed;
+3h. the int8 KV cache (``cache_int8``) on phase 3's weights: (a)
+   ``generate`` batch 4 x 512 -> 64 greedy off the int8 cache, its prefill
+   through the flash forward on the unquantized K, V (one launch a layer,
+   each call held against the plain attention), its prefill logits equal
+   to the bf16 cache's bit for bit, one decode step teacher-forced off
+   both caches within rel 0.05 of the bf16 cache's logits (the reference's
+   own oracle); (b) the cache quantizer of the K and V that (a)'s bf16
+   prefill wrote, on the card and on the CPU: int8 values and scales bit
+   for bit, and equal to the int8 prefill's stored leaves; (c) 3e's first
+   8 requests with its prefix, dense and paged (160 x 128): paged tokens
+   equal dense, every token within 3e's tau gate, the pool drained with
+   page 0 zero, ``kv_bytes_per_chip`` beside bf16's; (d) a handoff at
+   bucket 1024 (69,206,016 B) from the dense engine to the paged one,
+   verified, a flipped scale byte caught, its tokens equal to the dense
+   engine's own batch-1 admission of the request. The decode step at
+   occupancy 8 beside 3e (a)'s, the handoff's export, seal, verify and
+   adoption times and ``generate``'s times off the int8 cache are
+   printed;
 4. training: a gradient gate (the first step's gradients of the kernel
    model against plain-attention models in bf16 and fp32), then ``Trainer``
    at ``llama2_1b`` (16 layers, full width, fp32 masters, bf16 compute,
@@ -130,6 +148,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
 from contextlib import nullcontext
 from pathlib import Path
@@ -209,6 +228,24 @@ DISAGG_MIGRATED, DISAGG_ANCESTOR, HANDOFF_BYTES_PER_POSITION = 4, 256, 131072
 # serves, and the batch-1 request of speculative_generate (prompt, new).
 SPEC_K, SPEC_DRAFT_LAYERS, SPEC_W8_REQUESTS = 4, 4, 4
 SPEC_B1_PROMPT, SPEC_B1_NEW = 512, 64
+# Phase 3h, the int8 KV cache on phase 3e's weights and traffic: the
+# requests of 3e it serves, the one it hands off (prompt 981: bucket 1024,
+# not a prefix carrier) and that handoff's bytes, 1024 positions x 32
+# layers x 8 kv heads x (K, V) x (128 int8 + one fp32 scale).
+KV8_REQUESTS, KV8_HANDOFF_REQUEST = 8, 4
+KV8_HANDOFF_BYTES = 1024 * 32 * 8 * 2 * (128 + 4)
+# One decode step off the int8 cache, 32 bf16 layers of random weights:
+# held, as phase 3's and 3b's logits are, against an fp32 model of the same
+# weights with an fp32 cache; its distance may be at most 3x the bf16
+# cache's. The reference's own oracle (tests/test_decode.py, 2 layers),
+# max|int8 - bf16| / max|bf16| < 0.05, is below this depth's bf16 noise:
+# the first reading on an H100 (see PERF.md) was 0.0907, where bf16 alone
+# moves the prefill logits by 0.068 of their maximum from the fp32
+# model's. int8 rounds each K, V element to within absmax/254, a few times
+# bf16's relative rounding, so the two distances add to at most ~2.3x
+# bf16's; a misplaced or misscaled K/V moves logits by O(max|logit|),
+# ~14x it.
+KV8_NOISE_MULT = 3.0
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
 # The int8 GEMM at the llama2_1b training shapes, M = batch x seq rows:
@@ -947,19 +984,31 @@ def flash_checked(transformer, plain_flash, worst: dict):
 
 
 def teacher_forced_gaps(model, reqs, tokens, prefix, carriers, plain_flash,
-                        transformer, decode) -> list:
+                        transformer, decode, over_cache=False) -> list:
     """max logit - logit[emitted token] at every emitted position, from one
     no-cache forward per request of prompt + emitted tokens on the plain
-    attention (the flash kernel patched out)."""
+    attention (the flash kernel patched out). With ``over_cache`` (a model
+    of the int8 KV cache) the sequence goes in as the engine feeds its
+    cache: the prompt (a carrier's: the prefix) from an empty cache, then
+    the rest in one call over the cache, so that every later query reads
+    the quantized K and V, as the engine's do."""
     dev = model.embed.device
     gaps = []
     with torch.inference_mode(), mock.patch.object(
             transformer, "flash_attention", plain_flash):
         for j, (p, n) in enumerate(reqs):
             full = np.concatenate([prefix, p]) if j in carriers else p
-            seq = np.concatenate([full, tokens[j][:-1]])
-            logits = model(torch.from_numpy(seq)[None].to(dev), None,
-                           decode.init_cache(model, 1, seq.size))
+            seq = torch.from_numpy(np.concatenate([full, tokens[j][:-1]]))
+            seq = seq[None].to(dev)
+            cache = decode.init_cache(model, 1, seq.shape[1])
+            if over_cache:
+                head = prefix.size if j in carriers else p.size
+                rest = torch.arange(head, seq.shape[1], dtype=torch.int32,
+                                    device=dev)[None]
+                logits = torch.cat([model(seq[:, :head], None, cache),
+                                    model(seq[:, head:], rest, cache)], 1)
+            else:
+                logits = model(seq, None, cache)
             rows = logits[0, full.size - 1:]
             emitted = torch.from_numpy(tokens[j]).to(dev, torch.long)
             gaps.append(rows.max(dim=-1).values
@@ -968,11 +1017,12 @@ def teacher_forced_gaps(model, reqs, tokens, prefix, carriers, plain_flash,
 
 
 def tau_gate(tag: str, per_req: list, tau: float, diff: float,
-             control: bool = False) -> None:
+             control: bool = False, every: bool = True) -> None:
     """The teacher-forced gate on one run's per-request gaps: every
     request's worst gap within ``tau`` and at least EXACT_MIN of all tokens
     the teacher-forced argmax; a ``control`` run (a planted fault) must
-    break both, in every request."""
+    break both, in every request, or with ``every=False`` be rejected by
+    the gate as a whole (either limit broken)."""
     gaps = torch.cat(per_req)
     exact = (gaps == 0).float().mean().item()
     req_max = torch.stack([g.max() for g in per_req])
@@ -988,9 +1038,12 @@ def tau_gate(tag: str, per_req: list, tau: float, diff: float,
     if not control and (caught or exact < EXACT_MIN):
         fail(f"{tag} emitted tokens off the teacher-forced maximum (tau "
              f"{tau:.4f}, exact share {EXACT_MIN:g})")
-    if control and (caught < len(per_req) or exact >= EXACT_MIN):
+    if control and every and (caught < len(per_req) or exact >= EXACT_MIN):
         fail(f"{tag} the teacher-forced gate did not catch the planted "
              f"fault in every request")
+    if control and not every and not (caught or exact < EXACT_MIN):
+        fail(f"{tag} the teacher-forced gate did not reject the planted "
+             f"fault")
 
 
 def serve_engine(cfg, params, mods, plain_flash, diff, gpu, serving,
@@ -1745,6 +1798,302 @@ def serve_spec(cfg, params, w8_tree, mods, plain_flash, diff, gpu, plain_a,
     return launches
 
 
+def cache_nbytes(decode, cfg, batch: int, length: int) -> int:
+    """The bytes of a cache of ``cfg``'s leaves (``decode.cache_shapes``)
+    for ``batch`` rows of ``length`` positions."""
+    shapes = decode.cache_shapes(types.SimpleNamespace(cfg=cfg), batch,
+                                 length)
+    return sum(math.prod(shape) * torch.empty(0, dtype=dtype).element_size()
+               for shape, dtype in shapes.values())
+
+
+def serve_kv_int8(cfg, params, prompt4, greedy, bf16_ms, mods, plain_flash,
+                  diff, gpu, plain_a, serving, transformer, decode) -> dict:
+    """Phase 3h: the int8 KV cache (``cache_int8``) at llama2_7b width on
+    phase 3's weights. (a) ``generate`` batch 4 x 512 -> 64 greedy off the
+    int8 cache beside phase 3's bf16-cache run: its prefill (flash over the
+    unquantized K, V, every call held against the plain attention) launches
+    flash_fwd once a layer, its prefill logits equal the bf16 cache's
+    exactly, and one decode step teacher-forced off it stays within
+    KV8_NOISE_MULT x the bf16 cache's distance from an fp32 model's step.
+    (b) ``quantize_kv`` of the K and V that (a)'s bf16 prefill wrote, on
+    the card and on the CPU: int8 values and scales bit for bit, and equal
+    to what the int8 prefill stored. (c) phase 3e's first KV8_REQUESTS
+    requests with its prefix, dense and paged (ENGINE_PAGES x 128): paged
+    tokens equal dense, every token within 3e's tau gate of the
+    teacher-forced maximum of the same int8-cache model fed as the engine
+    feeds its cache (``teacher_forced_gaps(over_cache=True)``), and a
+    control with each decode step's K/V written one position late rejected
+    by that gate (8 requests are too few to ask it of each, as 3e does of
+    24: one short request's worst gap stayed under tau); flash launches one a layer per fresh
+    prefill, the paged pool drained with page 0 zero; the pools' bytes
+    against bf16's and the decode step at occupancy 8 printed. (d)
+    request KV8_HANDOFF_REQUEST handed off at bucket 1024 from the dense
+    engine (``start_prefill``) to the paged one: its bytes, export, seal,
+    verify and adoption times, a flipped scale byte caught, and its tokens
+    equal to the dense engine's own batch-1 admission of it (M). Returns
+    the launches of (a), (c) and (d)."""
+    dev = params["embed"].device
+    cfg8 = dataclasses.replace(cfg, cache_int8=True)
+    t_phase = time.perf_counter()
+
+    # ---- (a) generate off the int8 cache
+    worst: dict = {}
+    reset_counts(mods)
+    with flash_checked(transformer, plain_flash, worst):
+        tokens8 = decode.generate(cfg8, params, prompt4, 64)
+    torch.cuda.synchronize()
+    launches = read_counts(mods)
+    err = max(worst.values())
+    same = (tokens8 == greedy).float().mean().item()
+    print(f"[kv_int8] (a) generate, batch 4 x prompt 512 -> 64 greedy off "
+          f"the int8 cache: flash_fwd launches {launches['flash_fwd']} (= "
+          f"{cfg.n_layers} layers x 1 prefill), max|o - plain| {err:.3e} "
+          f"(tol {TOL[torch.bfloat16][0]:g}); tokens equal to the bf16 "
+          f"cache's run in {same:.4f} of positions; row 0: "
+          f"{tokens8[0, :16].tolist()} ...")
+    if (launches["flash_fwd"] != cfg.n_layers
+            or any(c for name, c in launches.items() if name != "flash_fwd")
+            or err > TOL[torch.bfloat16][0]):
+        fail(f"int8-cache generate launches {launches}, flash error {err}")
+    if (tuple(tokens8.shape) != (4, 64) or int(tokens8.min()) < 0
+            or int(tokens8.max()) >= cfg.vocab_size):
+        fail(f"int8-cache tokens {tuple(tokens8.shape)} out of range")
+
+    # the prefill and one decode step teacher-forced (the bf16 cache's first
+    # token) off the bf16 cache, the int8 cache and an fp32 model of the
+    # same weights with an fp32 cache, on the plain attention
+    bucket = decode._bucket_len(512 + 64, cfg.max_seq_len)
+    step_pos = torch.full((4, 1), 512, dtype=torch.int32, device=dev)
+    logits, leaves = {}, {}
+    with torch.inference_mode():
+        for key, kw, weights in (
+                ("bf16", {}, params), ("int8", {"cache_int8": True}, params),
+                ("fp32", {"dtype": torch.float32},
+                 {name: p.float() for name, p in params.items()})):
+            model = decode.decode_model(dataclasses.replace(
+                cfg, max_seq_len=bucket, **kw), weights, dev)
+            leaves[key] = decode.zeros_like_shapes(
+                decode.cache_shapes(model, 4), dev)
+            cache = decode.layer_caches(leaves[key])
+            with (mock.patch.object(transformer, "flash_attention",
+                                    plain_flash)
+                  if key == "fp32" else nullcontext()):
+                pre = model(prompt4, None, cache)
+            logits[key] = (pre, model(greedy[:, :1], step_pos, cache))
+            del model, cache, weights
+    del leaves["fp32"]
+    torch.cuda.synchronize()
+    pre_same = torch.equal(logits["int8"][0], logits["bf16"][0])
+    steps = {key: step for key, (_, step) in logits.items()}
+    top = steps["bf16"].abs().max().item()
+    dist = {key: (steps[key] - steps["fp32"]).abs().max().item()
+            for key in ("bf16", "int8")}
+    rel = (steps["int8"] - steps["bf16"]).abs().max().item() / top
+    agree = (steps["int8"].argmax(-1) == steps["bf16"].argmax(-1)
+             ).float().mean().item()
+    print(f"[kv_int8] (a) prefill logits [4, 512, {cfg.vocab_size}] off the "
+          f"int8 cache equal the bf16 cache's bit for bit: {pre_same}; one "
+          f"decode step teacher-forced off each cache, against the fp32 "
+          f"model's: max|int8 - fp32| {dist['int8']:.4f} (tol "
+          f"{KV8_NOISE_MULT:g} x bf16 noise {dist['bf16']:.4f} = max|bf16 - "
+          f"fp32|; ratio {dist['int8'] / dist['bf16']:.3f}); max|int8 - "
+          f"bf16| / max|bf16| {rel:.4e} (the reference's tiny oracle asks "
+          f"< 0.05; bf16 against fp32 here {dist['bf16'] / top:.4e}); "
+          f"argmax agreement int8/bf16 {agree:.2f}")
+    if not pre_same or dist["int8"] > KV8_NOISE_MULT * dist["bf16"]:
+        fail("the int8 cache's prefill logits differ from the bf16 cache's, "
+             "or its decode step strays beyond its noise bound")
+    del logits, pre, steps
+
+    # ---- (b) the quantizer, on the card and on the CPU
+    for name in ("k", "v"):
+        x = leaves["bf16"][name][:, :, :512]          # bf16, as written
+        q_dev, s_dev = transformer.quantize_kv(x)
+        q_cpu, s_cpu = transformer.quantize_kv(x.cpu())
+        true_div = x.float().abs().amax(-1) / torch.tensor(
+            127.0, device=dev)
+        stored_q = leaves["int8"][name][:, :, :512]
+        stored_s = leaves["int8"][f"{name}_scale"][:, :, :512]
+        checks = {
+            "card = CPU": (torch.equal(q_dev.cpu(), q_cpu) and torch.equal(
+                s_dev.cpu().view(torch.int32), s_cpu.view(torch.int32))),
+            "card = stored": (torch.equal(q_dev, stored_q) and torch.equal(
+                s_dev.view(torch.int32), stored_s.view(torch.int32)))}
+        off = int((s_dev != true_div).sum())
+        rows = s_dev.numel()
+        print(f"[kv_int8] (b) quantize_kv of the bf16 prefill's {name} "
+              f"{list(x.shape)} ({rows} rows of {x.shape[-1]}): int8 values "
+              f"and scales bit for bit, card against CPU {checks['card = CPU']}"
+              f", card against the int8 prefill's stored leaves "
+              f"{checks['card = stored']}; scales off the true division by "
+              f"127 in {off} rows (the reference's jitted fp32(1/127) "
+              f"product)")
+        if not all(checks.values()):
+            fail(f"the cache quantizer of {name} differs between the card, "
+                 f"the CPU and the int8 prefill")
+    del leaves, x, q_dev, s_dev, q_cpu, s_cpu, true_div, stored_q, stored_s
+    torch.cuda.empty_cache()
+
+    # ---- (c) the engine, dense and paged, with 3e's prefix
+    reqs, prefix, carriers = engine_traffic(cfg.vocab_size)
+    reqs = reqs[:KV8_REQUESTS]
+    carriers = {j for j in carriers if j < KV8_REQUESTS}
+    kinds = {"dense": {},
+             "paged": {"kv_pages": ENGINE_PAGES, "page_tokens": 128}}
+    engines, runs = {}, {}
+    reset_counts(mods)
+    for key, kw in kinds.items():
+        engine = serving.ContinuousBatchingEngine(
+            cfg8, params, n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+            clock=time.monotonic, device=dev, **kw)
+        run = drive_engine(engine, reqs, prefix, carriers, mods,
+                           time.monotonic)
+        engine.drop_prefix(run["pid"])
+        engines[key], runs[key] = engine, run
+        print(f"[kv_int8] (c) engine {key}, {len(reqs)} requests of phase "
+              f"3e with its {ENGINE_PREFIX}-token prefix on {len(carriers)}: "
+              f"{run['emitted']} tokens, fresh prefills {run['fresh']}, "
+              f"flash_fwd launches {run['launched']['flash_fwd']}; pages in "
+              f"use after {engine.pages_in_use}, null page zero "
+              f"{engine.null_page_is_zero()}")
+        if engine.pages_in_use or not engine.null_page_is_zero():
+            fail(f"the int8 {key} pool did not drain, or page 0 is not zero")
+    engine_launches = read_counts(mods)
+    dense, paged = engines["dense"], engines["paged"]
+    same = all(np.array_equal(runs["dense"]["tokens"][j],
+                              runs["paged"]["tokens"][j]) for j in range(
+                                  len(reqs)))
+    print(f"[kv_int8] (c) paged tokens equal dense, token for token: {same}")
+    if not same:
+        fail("the int8 paged engine's tokens differ from the dense one's")
+    # the control, off the counted path: each decode step's K/V (and
+    # scales) written one position late
+    append = transformer._append_per_row
+
+    def late(k, v, positions, cache):
+        append(k, v, positions + 1, cache)
+
+    control = serving.ContinuousBatchingEngine(
+        cfg8, params, n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+        clock=time.monotonic, device=dev)
+    with mock.patch.object(transformer, "_append_per_row", late):
+        runs["control"] = drive_engine(control, reqs, prefix, carriers,
+                                       mods, time.monotonic)
+    del control
+    # the teacher: the int8-cache model fed as the engine feeds its cache
+    model = decode.decode_model(
+        dataclasses.replace(cfg8, max_seq_len=ENGINE_MAX_LEN), params, dev)
+    tau = TAU_MULT * diff
+    for key in ("dense", "control"):
+        tau_gate(f"[kv_int8] (c) {key}", teacher_forced_gaps(
+            model, reqs, runs[key]["tokens"], prefix, carriers, plain_flash,
+            transformer, decode, over_cache=True), tau, diff,
+            control=key == "control", every=False)
+    del model
+    for key, engine in engines.items():
+        shape = dict(batch=ENGINE_SLOTS, length=ENGINE_MAX_LEN)
+        if key == "paged":
+            shape = dict(batch=ENGINE_PAGES + 1, length=128)
+        want8 = cache_nbytes(decode, cfg8, **shape)
+        bf16 = cache_nbytes(decode, cfg, **shape)
+        print(f"[kv_int8] (c) kv_bytes_per_chip {key}: "
+              f"{engine.kv_bytes_per_chip:,} B against bf16's {bf16:,} B: "
+              f"{engine.kv_bytes_per_chip / bf16:.4f}")
+        if engine.kv_bytes_per_chip != want8:
+            fail(f"the int8 {key} pool holds {engine.kv_bytes_per_chip} B, "
+                 f"not {want8}")
+    print(f"[time] {gpu}: engine llama2_7b bf16 weights, {ENGINE_SLOTS} "
+          f"slots x {ENGINE_MAX_LEN}, decode step at occupancy "
+          f"{ENGINE_SLOTS} (median, host clock): int8 cache dense "
+          f"{median(runs['dense']['step_ms']):.2f} ms over "
+          f"{len(runs['dense']['step_ms'])} steps, paged "
+          f"{median(runs['paged']['step_ms']):.2f} ms over "
+          f"{len(runs['paged']['step_ms'])}; bf16 cache dense (phase 3e (a)) "
+          f"{median(plain_a['step_ms']):.2f} ms over "
+          f"{len(plain_a['step_ms'])}")
+
+    # ---- (d) one handoff at bucket 1024, dense (M, P) -> paged (D)
+    prompt, n_new = reqs[KV8_HANDOFF_REQUEST]
+    reset_counts(mods)
+    rid = dense.submit(prompt, n_new)
+    m_tokens = dense.run()[rid]
+    timing = {}
+    t0 = time.perf_counter()
+    job = dense.start_prefill(prompt)
+    while not job.advance():
+        pass
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    seal = serving.KVHandoff.seal
+
+    def timed_seal(self):
+        t = time.perf_counter()
+        out = seal(self)
+        timing["seal"] = (time.perf_counter() - t) * 1e3
+        return out
+
+    with mock.patch.object(serving.KVHandoff, "seal", timed_seal):
+        h = job.handoff()
+    timing["prefill"] = (t1 - t0) * 1e3
+    timing["export"] = (time.perf_counter() - t1) * 1e3 - timing["seal"]
+    t0 = time.perf_counter()
+    ok = h.verify()
+    timing["verify"] = (time.perf_counter() - t0) * 1e3
+    byte = h.cache["k_scale"].view(torch.uint8).view(-1)
+    byte[0] ^= 0xFF
+    caught = not h.verify()
+    byte[0] ^= 0xFF
+    pb = decode._bucket_len(h.pos, ENGINE_MAX_LEN)
+    adopt = paged._adopt_into_slot
+
+    def timed_adopt(*args, **kw):
+        t = time.perf_counter()
+        adopt(*args, **kw)
+        torch.cuda.synchronize()
+        timing["adopt"] = (time.perf_counter() - t) * 1e3
+
+    d_prefilled = paged.stats["prefill_positions"]
+    with mock.patch.object(paged, "_adopt_into_slot", timed_adopt):
+        d_rid = paged.submit_kv(h, n_new)
+        d_tokens = paged.run()[d_rid]
+    handoff_launches = read_counts(mods)
+    d_prefilled = paged.stats["prefill_positions"] - d_prefilled
+    print(f"[kv_int8] (d) handoff of request {KV8_HANDOFF_REQUEST} (prompt "
+          f"{prompt.size}, bucket {pb}): leaves {list(h.cache)}, "
+          f"{h.nbytes:,} B (bf16: {pb * HANDOFF_BYTES_PER_POSITION:,} B); "
+          f"verify {ok}, a flipped k_scale byte caught {caught}; D's "
+          f"{d_tokens.size} tokens equal M's batch-1 admission: "
+          f"{np.array_equal(d_tokens, m_tokens)}; flash_fwd launches "
+          f"{handoff_launches['flash_fwd']} (M's and P's prefills; D none), "
+          f"D prefill positions {d_prefilled}")
+    if (pb != 1024 or h.nbytes != KV8_HANDOFF_BYTES or not ok or not caught
+            or list(h.cache) != ["k", "k_scale", "v", "v_scale"]
+            or not np.array_equal(d_tokens, m_tokens)
+            or handoff_launches["flash_fwd"] != 2 * cfg.n_layers
+            or d_prefilled or paged.pages_in_use):
+        fail("the int8 handoff at bucket 1024 is not sound")
+    print(f"[time] {gpu}: int8 handoff at bucket 1024 ({h.nbytes:,} B): P "
+          f"prefill {timing['prefill']:.2f} ms, export (device → host) "
+          f"{timing['export']:.2f} ms, seal {timing['seal']:.2f} ms, verify "
+          f"{timing['verify']:.2f} ms, submit_kv → adoption (host → "
+          f"device, splice) {timing['adopt']:.2f} ms")
+    del engines, dense, paged, h
+    torch.cuda.empty_cache()
+
+    # ---- times of (a), off the counted path
+    prefill8 = wall_ms(lambda: decode.generate(cfg8, params, prompt4, 1), 3)
+    gen8 = wall_ms(lambda: decode.generate(cfg8, params, prompt4, 64), 3)
+    print(f"[time] {gpu}: generate llama2_7b bf16 batch 4 x prompt 512, int8 "
+          f"cache: prefill (+1 token) {prefill8:.2f} ms, 64 tokens "
+          f"{gen8:.2f} ms, per-token decode {(gen8 - prefill8) / 63:.3f} ms "
+          f"(bf16 cache: {bf16_ms[0]:.2f}, {bf16_ms[1]:.2f}, "
+          f"{bf16_ms[2]:.3f})")
+    print(f"[time] phase 3h {time.perf_counter() - t_phase:.1f} s")
+    return {name: launches[name] + engine_launches[name]
+            + handoff_launches[name] for name in launches}
+
+
 def backward_products(model, loss_fn, tokens) -> int:
     """The ``aten.mm`` calls in one backward pass of ``model``."""
     loss, _ = loss_fn(tokens)
@@ -2218,6 +2567,11 @@ def main() -> int:
                                  plain_flash, diff, gpu, plain_a, serving,
                                  transformer, decode, chaos_mod)
     print(f"[time] phase 3g {time.perf_counter() - t0:.1f} s")
+
+    # ---- 3h. the int8 KV cache at llama2_7b width ----------------------
+    by_path["kv_int8"] = serve_kv_int8(
+        cfg, params, prompt4, greedy, (prefill_ms, gen64_ms, decode_ms),
+        mods, plain_flash, diff, gpu, plain_a, serving, transformer, decode)
     del params
     torch.cuda.empty_cache()
     by_path["cli"] = run_clis(mods)

@@ -233,7 +233,7 @@ def test_overflow_raises(setup):
 
 
 @pytest.mark.parametrize("flag, value", [
-    ("cache_int8", True), ("fused_qkv", True), ("n_experts", 4),
+    ("fused_qkv", True), ("n_experts", 4),
     ("pos_emb", "learned"), ("norm", "ln"), ("activation", "gelu"),
     ("tie_embeddings", True), ("use_bias", True), ("attn_impl", "ring"),
 ])

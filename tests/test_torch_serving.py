@@ -721,12 +721,6 @@ def test_unported_arguments_raise(setup, arg):
         setup.engine(**{arg: object()})
 
 
-def test_unported_cache_int8_raises(setup):
-    cfg = dataclasses.replace(setup.pcfg, cache_int8=True)
-    with pytest.raises(NotImplementedError, match="cache_int8"):
-        ContinuousBatchingEngine(cfg, setup.params, device="cpu")
-
-
 def test_int8_weights_engine_serves(setup):
     """``int8_weights`` serves the W8A16 tree of the deterministic
     quantizer; its tokens equal the JAX int8 engine's."""

@@ -8,7 +8,8 @@ step then attends over the cache with a single-token query. The reference's
 ``quantize_weights_for_serving`` makes the W8A16 tree that a
 ``serve_int8_weights`` config serves. ``cache_shapes``, ``init_cache`` and
 ``_set_cursor`` also serve the continuous-batching engine
-(``models/serving.py``).
+(``models/serving.py``); with ``cache_int8`` every one of them carries the
+int8 cache's scale leaves.
 
 ``speculative_generate`` is the reference's greedy speculative decoding at
 batch 1: a draft model (``truncated_draft`` makes one from the target's
@@ -126,32 +127,47 @@ def decode_model(cfg: TransformerConfig, params: Dict[str, torch.Tensor],
     return model.eval().requires_grad_(False)
 
 
+#: A cache's leaves: name → (shape, dtype) of the layer-stacked tensor.
+CacheShapes = Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
+
+
 def cache_shapes(model: Transformer, batch: int,
-                 length: Optional[int] = None
-                 ) -> Tuple[Tuple[int, ...], torch.dtype]:
-    """The shape and dtype of each of a cache's two stacked tensors (K and
-    V): ``[n_layers, batch, length, Hkv, Dh]`` in ``cfg.dtype``, ``length``
-    defaulting to the model's ``max_seq_len``."""
+                 length: Optional[int] = None) -> CacheShapes:
+    """Every leaf of a cache, stacked over the layers, in the reference's
+    flatten order: ``k`` and ``v`` ``[n_layers, batch, length, Hkv, Dh]``
+    in ``cfg.dtype``; with ``cache_int8``, ``k``, ``k_scale``, ``v``,
+    ``v_scale``: int8 values and fp32 scales ``[n_layers, batch, length,
+    Hkv]``. ``length`` defaults to the model's ``max_seq_len``."""
     cfg = model.cfg
-    return ((cfg.n_layers, batch, length or cfg.max_seq_len,
-             cfg.n_kv_heads, cfg.head_dim), cfg.dtype)
+    shape = (cfg.n_layers, batch, length or cfg.max_seq_len,
+             cfg.n_kv_heads, cfg.head_dim)
+    if not cfg.cache_int8:
+        return {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
+    return {"k": (shape, torch.int8), "k_scale": (shape[:-1], torch.float32),
+            "v": (shape, torch.int8), "v_scale": (shape[:-1], torch.float32)}
 
 
-def layer_caches(k: torch.Tensor, v: torch.Tensor) -> List[KVCache]:
-    """The per-layer ``KVCache`` views of stacked ``[n_layers, B, ...]`` K
-    and V tensors: a write through a layer's cache lands in the stack."""
-    return [KVCache(k[i], v[i]) for i in range(k.shape[0])]
+def layer_caches(leaves: Dict[str, torch.Tensor]) -> List[KVCache]:
+    """The per-layer ``KVCache`` views of stacked ``[n_layers, B, ...]``
+    leaves (``cache_shapes``' names): a write through a layer's cache
+    lands in the stack."""
+    return [KVCache(**{name: t[i] for name, t in leaves.items()})
+            for i in range(leaves["k"].shape[0])]
+
+
+def zeros_like_shapes(shapes: CacheShapes,
+                      device: torch.device) -> Dict[str, torch.Tensor]:
+    """Zeroed tensors of ``cache_shapes``' leaves, on ``device``."""
+    return {name: torch.zeros(shape, dtype=dtype, device=device)
+            for name, (shape, dtype) in shapes.items()}
 
 
 def init_cache(model: Transformer, batch: int,
                length: Optional[int] = None) -> List[KVCache]:
     """Zeroed per-layer caches for a generation batch, on the model's
-    device: ``[batch, length, Hkv, Dh]`` in ``cfg.dtype``, views of one
-    stacked K and one stacked V (``cache_shapes``)."""
-    shape, dtype = cache_shapes(model, batch, length)
-    dev = model.embed.device
-    return layer_caches(torch.zeros(shape, dtype=dtype, device=dev),
-                        torch.zeros(shape, dtype=dtype, device=dev))
+    device: views of one stacked tensor per leaf (``cache_shapes``)."""
+    return layer_caches(zeros_like_shapes(cache_shapes(model, batch, length),
+                                          model.embed.device))
 
 
 def _set_cursor(cache: List[KVCache], value: int) -> List[KVCache]:

@@ -23,7 +23,8 @@ class CacheLayout:
 
     ``mesh_axes`` records the source engine's non-trivial mesh axes ({} =
     one device) and ``gathered_bytes`` the bytes the export moved from the
-    device to the host. Frozen and hashable: safe as a payload field."""
+    device to the host: every leaf of the payload, an int8 cache's scales
+    included. Frozen and hashable: safe as a payload field."""
 
     mesh_axes: Dict[str, int] = field(default_factory=dict)
     gathered_bytes: int = 0

@@ -174,27 +174,34 @@ def _host_tensor(leaf) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+#: The cache layouts a reference handoff may carry: ``{k, v}``, and the
+#: int8 cache's ``{k, k_scale, v, v_scale}``.
+_HANDOFF_LAYOUTS = ({"k", "v"}, {"k", "k_scale", "v", "v_scale"})
+
+
 def handoff_from_numpy(cache: Mapping, *, pos: int, first_token: int,
                        emitted, base: int = 0,
                        prefix_hash: Optional[str] = None,
                        checksum: str = ""):
     """A reference engine's KV handoff (``cache`` its numpy pytree
     ``{"blocks": {"attn": {"k", "v"}}}``, each leaf ``[n_layers, 1, pb,
-    Hkv, Dh]``, and the handoff's metadata fields) as the port's
-    ``KVHandoff``, on the host. The bytes, the leaf order and the metadata
-    are carried unchanged, so ``checksum`` (the reference's seal) still
-    verifies. A tree of another layout (the int8 cache's scales, unstacked
-    layers) raises ``NotImplementedError``."""
+    Hkv, Dh]``, or the int8 cache's ``{"k", "k_scale", "v", "v_scale"}``
+    with scales ``[n_layers, 1, pb, Hkv]``, and the handoff's metadata
+    fields) as the port's ``KVHandoff``, on the host. The bytes, the leaf
+    order and the metadata are carried unchanged, so ``checksum`` (the
+    reference's seal) still verifies. A tree of another layout (unstacked
+    layers, a partial set of leaves) raises ``NotImplementedError``."""
     from tpu_on_k8s_torch.models.serving import KVHandoff
 
     if set(cache) != {"blocks"} or set(cache["blocks"]) != {"attn"} or set(
-            cache["blocks"]["attn"]) != {"k", "v"}:
+            cache["blocks"]["attn"]) not in _HANDOFF_LAYOUTS:
         raise NotImplementedError(
             "handoff payload layout not ported: only the layer-stacked "
-            "{'blocks': {'attn': {'k', 'v'}}} cache")
+            "{'blocks': {'attn': {'k', 'v'}}} cache and the int8 cache's "
+            "{'k', 'k_scale', 'v', 'v_scale'}")
     attn = cache["blocks"]["attn"]
     return KVHandoff(
-        cache={name: _host_tensor(attn[name]) for name in ("k", "v")},
+        cache={name: _host_tensor(attn[name]) for name in sorted(attn)},
         pos=int(pos), first_token=int(first_token),
         emitted=tuple(int(t) for t in emitted), base=int(base),
         prefix_hash=prefix_hash, checksum=checksum)

@@ -65,9 +65,14 @@ One thread calls ``step``/``run`` (the stepping thread); ``submit``,
 serializes the queues and the slot bookkeeping against the stepping
 thread; device work is single-threaded.
 
+With ``cache_int8`` every cache the engine keeps (the slot or page pool,
+prefill and prefix caches, the draft's, every host payload) holds int8 K/V
+and their fp32 scales: each of them is a set of leaves in the reference's
+flatten order, ``k, k_scale, v, v_scale`` (``k, v`` unquantized), and
+every copy, gather, scatter, export and checksum runs over all of them.
+
 Not in this slice (each constructor argument raises ``NotImplementedError``
-naming its slice): mesh serving, with its metrics object. The int8 KV
-cache (``cache_int8``) raises where the model is built.
+naming its slice): mesh serving, with its metrics object.
 """
 from __future__ import annotations
 
@@ -88,6 +93,7 @@ from tpu_on_k8s_torch.device import resolve_device
 from tpu_on_k8s_torch.metrics import count_detached_callback
 from tpu_on_k8s_torch.models.decode import (
     PAGE_TOKENS,
+    CacheShapes,
     _bucket_len,
     _greedy,
     _set_cursor,
@@ -95,6 +101,7 @@ from tpu_on_k8s_torch.models.decode import (
     decode_model,
     layer_caches,
     quantize_weights_for_serving,
+    zeros_like_shapes,
 )
 from tpu_on_k8s_torch.models.layouts import CacheLayout
 from tpu_on_k8s_torch.models.sampling import SamplingParams, sample
@@ -180,15 +187,27 @@ class _KVPending:
 
 @dataclasses.dataclass
 class _KV:
-    """A cache as two stacked tensors ``[n_layers, B, length, Hkv, Dh]``;
-    ``layers()`` gives the per-layer ``KVCache`` views a model writes
-    through."""
+    """A cache as its layer-stacked leaves ``[n_layers, B, length, ...]``,
+    named and ordered as ``decode.cache_shapes`` gives them (``k, v``, or
+    the int8 cache's ``k, k_scale, v, v_scale``); ``layers()`` gives the
+    per-layer ``KVCache`` views a model writes through."""
 
-    k: torch.Tensor
-    v: torch.Tensor
+    leaves: Dict[str, torch.Tensor]
+
+    @property
+    def k(self) -> torch.Tensor:
+        return self.leaves["k"]
+
+    @property
+    def v(self) -> torch.Tensor:
+        return self.leaves["v"]
 
     def layers(self) -> List[KVCache]:
-        return layer_caches(self.k, self.v)
+        return layer_caches(self.leaves)
+
+    def pairs(self, other: "_KV"):
+        """(this leaf, ``other``'s leaf of the same name), leaf by leaf."""
+        return ((t, other.leaves[name]) for name, t in self.leaves.items())
 
 
 @dataclasses.dataclass
@@ -276,10 +295,15 @@ class _PagePool:
         return freed
 
 
-def _zeros(shape_dtype, device: torch.device) -> _KV:
-    shape, dtype = shape_dtype
-    return _KV(torch.zeros(shape, dtype=dtype, device=device),
-               torch.zeros(shape, dtype=dtype, device=device))
+def _zeros(shapes: CacheShapes, device: torch.device) -> _KV:
+    return _KV(zeros_like_shapes(shapes, device))
+
+
+def _resized(shapes: CacheShapes, batch: int, length: int) -> CacheShapes:
+    """``shapes`` with their batch and position axes (1 and 2) replaced:
+    the paged pool's ``[L, pages, page, ...]`` and a staged row."""
+    return {name: ((shape[0], batch, length, *shape[3:]), dtype)
+            for name, (shape, dtype) in shapes.items()}
 
 
 def _prefixed_cache(model, device: torch.device,
@@ -291,18 +315,13 @@ def _prefixed_cache(model, device: torch.device,
         kv = _zeros(cache_shapes(model, 1), device)
         if prefix is not None:
             pkv, plen = prefix
-            kv.k[:, :, :plen] = pkv.k[:, :, :plen]
-            kv.v[:, :, :plen] = pkv.v[:, :, :plen]
+            for dst, src in kv.pairs(pkv):
+                dst[:, :, :plen] = src[:, :, :plen]
     return kv
 
 
 def _signature(params: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
     return {name: (tuple(t.shape), t.dtype) for name, t in params.items()}
-
-
-#: The leaves of a host KV payload, in the order the checksum hashes them:
-#: the reference's cache pytree flattens ``k`` before ``v``.
-_LEAVES = ("k", "v")
 
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:
@@ -312,8 +331,9 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
 
 
 def _host_payload(kv: _KV, pb: int) -> Dict[str, torch.Tensor]:
-    """Positions ``[0, pb)`` of a batch-1 cache as a host payload."""
-    return {"k": _to_host(kv.k[:, :, :pb]), "v": _to_host(kv.v[:, :, :pb])}
+    """Positions ``[0, pb)`` of a batch-1 cache as a host payload, every
+    leaf in the cache's order."""
+    return {name: _to_host(t[:, :, :pb]) for name, t in kv.leaves.items()}
 
 
 def _cache_nbytes(cache: Dict[str, torch.Tensor]) -> int:
@@ -326,19 +346,22 @@ def _cache_checksum(cache: Dict[str, torch.Tensor], *meta) -> str:
     decoding wrong tokens from it. The bytes are the reference's (its cache
     leaves in flatten order, raw, C order; numpy has no bfloat16, so every
     leaf is hashed as bytes), so a payload carried across from the JAX
-    package keeps its digest. ``meta`` must hold Python ints: under numpy 2
-    the ``repr`` of an ``np.int32`` reads ``np.int32(5)``."""
+    package keeps its digest. A dict flattens in sorted key order there:
+    ``k, v``, or ``k, k_scale, v, v_scale`` for the int8 cache. ``meta``
+    must hold Python ints: under numpy 2 the ``repr`` of an ``np.int32``
+    reads ``np.int32(5)``."""
     h = hashlib.blake2b(digest_size=16)
     h.update(repr(tuple(meta)).encode())
-    for name in _LEAVES:
+    for name in sorted(cache):
         h.update(cache[name].contiguous().view(torch.uint8).numpy())
     return h.hexdigest()
 
 
 def _zero_below(leaf: torch.Tensor, base: int) -> torch.Tensor:
-    """Zero a host leaf's positions < ``base`` (axis 2), in place: a
-    suffix-only handoff transfers nothing the adopting engine supplies
-    itself, and its checksum covers exactly the transferred bytes."""
+    """Zero a host leaf's positions < ``base`` (axis 2, also of a scale
+    leaf), in place: a suffix-only handoff transfers nothing the adopting
+    engine supplies itself, and its checksum covers exactly the
+    transferred bytes."""
     leaf[:, :, :base] = 0
     return leaf
 
@@ -350,9 +373,10 @@ class KVHandoff:
     decode pool.
 
     ``cache`` is ``{"k": Tensor, "v": Tensor}``, each ``[n_layers, 1, pb,
-    Hkv, Dh]`` on the host, trimmed to the position bucket ``pb`` of
-    ``pos`` so payload, copy and checksum bytes scale with the request,
-    not the engine's ``max_len``. ``pos`` counts all cached positions;
+    Hkv, Dh]`` on the host (an int8 cache's adds ``k_scale`` and
+    ``v_scale``, ``[n_layers, 1, pb, Hkv]``), trimmed to the position
+    bucket ``pb`` of ``pos`` so payload, copy and checksum bytes scale
+    with the request, not the engine's ``max_len``. ``pos`` counts all cached positions;
     ``base`` counts leading positions not carried (a suffix-only handoff:
     the shared prefix named by ``prefix_hash`` is expected resident on the
     adopting engine; its rows here are zero). ``emitted`` holds the tokens
@@ -390,7 +414,9 @@ class _DraftRunner:
     model kept in step with the engine's slot pool.
 
     It owns a dense ``[n_layers, n_slots, max_len, Hkv, Dh]`` multislot
-    cache, also under a paged engine. Each admission seeds its slot's row
+    cache (int8 with its scales when the draft's config, like
+    ``truncated_draft``'s copy of the target's, has ``cache_int8``), also
+    under a paged engine. Each admission seeds its slot's row
     (``seed``) with a batch-1 draft prefill of the request's whole context,
     never chunked; after a prefix mirrored through ``register_prefix``, a
     prefill of the suffix only. Each round ``propose`` runs ``k+1`` greedy
@@ -489,8 +515,8 @@ class _DraftRunner:
         self._prefill(kv, prompt, plen)
         lp = plen + int(prompt.size)
         with torch.inference_mode():
-            self.cache.k[:, slot, :lp] = kv.k[:, 0, :lp]
-            self.cache.v[:, slot, :lp] = kv.v[:, 0, :lp]
+            for dst, src in self.cache.pairs(kv):
+                dst[:, slot, :lp] = src[:, 0, :lp]
         return True
 
 
@@ -635,9 +661,9 @@ class ContinuousBatchingEngine:
             # the dense pool has slots, the position axis cut to one page.
             # P = kv_pages + 1: page id 0 is the null page.
             self._pool = _PagePool(kv_pages)
-            (layers, _, _, *rest), dtype = cache_shapes(self._step_model, 1)
             self._pool_cache = _zeros(
-                ((layers, kv_pages + 1, page, *rest), dtype), self.device)
+                _resized(cache_shapes(self._step_model, 1), kv_pages + 1,
+                         page), self.device)
             #: the [L, n_slots, max_len, ...] view every paged step gathers
             #: the block tables into and decodes over
             self._view = _zeros(cache_shapes(self._step_model, n_slots),
@@ -816,8 +842,8 @@ class ContinuousBatchingEngine:
         (True on a dense engine). Reads the pool: one host sync."""
         if self._pool_cache is None:
             return True
-        return not (self._pool_cache.k[:, 0].any()
-                    or self._pool_cache.v[:, 0].any())
+        return not any(t[:, 0].any()
+                       for t in self._pool_cache.leaves.values())
 
     def _release_pages(self, pages: Optional[List[int]]) -> None:
         if self._pool is not None and pages:
@@ -847,8 +873,7 @@ class ContinuousBatchingEngine:
         js = torch.from_numpy(blocks).to(dev)
         pids = torch.from_numpy(pids_by_block[blocks].astype(np.int64)).to(dev)
         with torch.inference_mode():
-            for pool, pre in ((self._pool_cache.k, kv.k),
-                              (self._pool_cache.v, kv.v)):
+            for pool, pre in self._pool_cache.pairs(kv):
                 pool[:, pids] = pre[:, row].unflatten(
                     1, (-1, self.page_tokens))[:, js]
 
@@ -882,8 +907,7 @@ class ContinuousBatchingEngine:
         either way)."""
         flat = torch.from_numpy(self._tables.reshape(-1).astype(np.int64))
         flat = flat.to(self.device)
-        for pool, view in ((self._pool_cache.k, self._view.k),
-                           (self._pool_cache.v, self._view.v)):
+        for pool, view in self._pool_cache.pairs(self._view):
             torch.index_select(pool, 1, flat,
                                out=view.view(pool.shape[0], -1,
                                              *pool.shape[2:]))
@@ -900,8 +924,7 @@ class ContinuousBatchingEngine:
         rows = torch.arange(self.n_slots, device=dev)[:, None]
         blocks = torch.from_numpy(blocks.astype(np.int64)).to(dev)
         pids = torch.from_numpy(pids.reshape(-1).astype(np.int64)).to(dev)
-        for pool, view in ((self._pool_cache.k, self._view.k),
-                           (self._pool_cache.v, self._view.v)):
+        for pool, view in self._pool_cache.pairs(self._view):
             tails = view.unflatten(2, (self._nb_total, self.page_tokens))
             pool[:, pids] = tails[:, rows, blocks].flatten(1, 2)
             pool[:, 0].zero_()
@@ -1012,9 +1035,9 @@ class ContinuousBatchingEngine:
     def export_prefix(self, prefix_id: int
                       ) -> Tuple[Dict[str, torch.Tensor], int]:
         """Host copy of a registered prefix's KV: ``(payload, length)``,
-        the payload ``{"k", "v"}`` trimmed to the prefix's position bucket,
-        what another engine adopts through ``import_prefix`` without
-        recomputing the prefill."""
+        the payload's leaves (``KVHandoff.cache``'s) trimmed to the
+        prefix's position bucket, what another engine adopts through
+        ``import_prefix`` without recomputing the prefill."""
         with self._lock:
             kv, lp = self._prefixes[prefix_id]
         host = _host_payload(kv, _bucket_len(lp, self.max_len))
@@ -1040,7 +1063,8 @@ class ContinuousBatchingEngine:
                              f"max_len {self.max_len}")
         self._check_payload(cache, lp)
         with torch.inference_mode():
-            kv = _KV(cache["k"].to(self.device), cache["v"].to(self.device))
+            kv = _KV({name: cache[name].to(self.device)
+                      for name in cache_shapes(self._prefill_model, 1)})
         with self._lock:
             pid = self._next_prefix_id
             self._next_prefix_id += 1
@@ -1071,20 +1095,26 @@ class ContinuousBatchingEngine:
 
     def _check_payload(self, cache: Dict[str, torch.Tensor],
                        positions: int) -> None:
-        """A host payload from outside must be this engine's cache shape
-        and dtype, holding at least ``positions`` positions."""
-        (layers, _, _, hkv, dh), dtype = cache_shapes(self._prefill_model, 1)
-        for name in _LEAVES:
+        """A host payload from outside must hold this engine's cache leaves
+        (``k, v``, or ``k, k_scale, v, v_scale`` with ``cache_int8``), each
+        of its shape and dtype, holding at least ``positions`` positions
+        on axis 2."""
+        shapes = cache_shapes(self._prefill_model, 1)
+        if set(cache) != set(shapes):
+            raise ValueError(f"payload leaves {sorted(cache)} do not fit "
+                             f"this engine's cache leaves {sorted(shapes)}")
+        for name, (shape, dtype) in shapes.items():
             t = cache[name]
-            n = t.shape[2] if t.dim() == 5 else -1
-            if (t.dim() != 5 or (t.shape[0], t.shape[1], t.shape[3],
-                                 t.shape[4]) != (layers, 1, hkv, dh)
-                    or t.dtype != dtype
-                    or not positions <= n <= self.max_len):
+            fits = (t.dim() == len(shape) and t.dtype == dtype
+                    and t.shape[:2] == shape[:2] and t.shape[3:] == shape[3:]
+                    and positions <= t.shape[2] <= self.max_len)
+            if not fits:
+                want = [*shape[:2], f"{positions}..{self.max_len}",
+                        *shape[3:]]
                 raise ValueError(
                     f"payload {name} {tuple(t.shape)} {t.dtype} does not fit "
-                    f"this engine's [{layers}, 1, {positions}..{self.max_len},"
-                    f" {hkv}, {dh}] {dtype} cache")
+                    f"this engine's [{', '.join(map(str, want))}] {dtype} "
+                    f"cache")
 
     def drop_prefix(self, prefix_id: int) -> bool:
         """Release a registered prefix's KV. The caller owns the invariant
@@ -1249,11 +1279,10 @@ class ContinuousBatchingEngine:
             table = torch.from_numpy(
                 self._tables[i, :nbp].astype(np.int64)).to(self.device)
             row = {name: _to_host(pool[:, table].flatten(1, 2)[:, None])
-                   for name, pool in (("k", self._pool_cache.k),
-                                      ("v", self._pool_cache.v))}
+                   for name, pool in self._pool_cache.leaves.items()}
         else:
-            row = _host_payload(_KV(self._cache.k[:, i:i + 1],
-                                    self._cache.v[:, i:i + 1]), pb)
+            row = _host_payload(_KV({name: t[:, i:i + 1] for name, t
+                                     in self._cache.leaves.items()}), pb)
         self.stats["kv_exported"] += 1
         layout = self._export_layout(_cache_nbytes(row))
         return KVHandoff(cache=row, pos=pos, first_token=emitted[0],
@@ -1324,20 +1353,18 @@ class ContinuousBatchingEngine:
         with torch.inference_mode():
             if self._pool is not None:
                 nbp = self._pages_for_span(pos)
-                (layers, _, _, *rest), dtype = cache_shapes(
-                    self._prefill_model, 1)
-                staged = _zeros(((layers, 1, nbp * self.page_tokens,
-                                  *rest), dtype), self.device)
-                target = (staged.k, staged.v, 0)
+                staged = _zeros(_resized(cache_shapes(self._prefill_model, 1),
+                                         1, nbp * self.page_tokens),
+                                self.device)
+                target, row = staged, 0
             else:
-                target = (self._cache.k, self._cache.v, i)
-            k, v, row = target
-            if base > 0:
-                prefix, _ = self._prefixes[req.prefix_id]
-                k[:, row, :base] = prefix.k[:, 0, :base]
-                v[:, row, :base] = prefix.v[:, 0, :base]
-            k[:, row, base:pos] = h.cache["k"][:, 0, base:pos]
-            v[:, row, base:pos] = h.cache["v"][:, 0, base:pos]
+                target, row = self._cache, i
+            prefix = (self._prefixes[req.prefix_id][0] if base > 0
+                      else None)
+            for name, dst in target.leaves.items():
+                if prefix is not None:
+                    dst[:, row, :base] = prefix.leaves[name][:, 0, :base]
+                dst[:, row, base:pos] = h.cache[name][:, 0, base:pos]
         if self._pool is not None:
             pids_row = np.zeros(self._nb_total, np.int32)
             pids_row[fb:nbp] = pages[fb:nbp]
@@ -1548,8 +1575,8 @@ class ContinuousBatchingEngine:
             self._update_page_gauges()
         else:
             with torch.inference_mode():
-                self._cache.k[:, i, :lp] = kv.k[:, row, :lp]
-                self._cache.v[:, i, :lp] = kv.v[:, row, :lp]
+                for dst, src in self._cache.pairs(kv):
+                    dst[:, i, :lp] = src[:, row, :lp]
             self.stats["admit_copy_positions"] += lp
         first = int(first)   # host sync: the first token IS emitted now
         # seed the slot's draft row from the request's own tokens (False:
@@ -1945,11 +1972,11 @@ class ContinuousBatchingEngine:
 
     @property
     def kv_bytes_per_chip(self) -> int:
-        """Slot-pool (dense) or page-pool (paged) KV bytes on the device;
-        registered prefixes are not counted."""
+        """Slot-pool (dense) or page-pool (paged) KV bytes on the device,
+        an int8 cache's scales included; registered prefixes are not
+        counted."""
         pool = self._pool_cache if self._pool is not None else self._cache
-        return (pool.k.numel() * pool.k.element_size()
-                + pool.v.numel() * pool.v.element_size())
+        return _cache_nbytes(pool.leaves)
 
 
 class PrefillJob:

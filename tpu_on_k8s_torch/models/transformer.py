@@ -29,6 +29,9 @@ through ``ops/int8_matmul.py`` (``Int8Dense``; ``int8_impl`` "xla" or
 ``weight_q [out, in]`` with a per-output-channel fp32 ``weight_scale``
 (``W8Dense``) and the head as ``lm_head_q [D, V]`` with ``lm_head_scale
 [V]``: the tree ``decode.quantize_weights_for_serving`` makes.
+``cache_int8`` (serving only) keeps the KV cache as int8 values with one
+fp32 absmax scale per (token, kv head): ``quantize_kv`` at every append,
+``dequantize_kv`` at every read over the cache.
 
 A config flag this port does not cover raises ``NotImplementedError``
 naming it (``check_supported``; ``check_trainable`` for the training
@@ -40,8 +43,9 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -129,7 +133,6 @@ class TransformerConfig:
 
 #: (flag, holds when unsupported, the later slice that brings it)
 _NOT_PORTED = (
-    ("cache_int8", lambda c: c.cache_int8, "the int8 KV cache"),
     ("fused_qkv", lambda c: c.fused_qkv, "the fused wqkv projection"),
     ("n_experts", lambda c: c.n_experts > 0, "MoE (models/moe.py)"),
     ("pos_emb", lambda c: c.pos_emb != "rope", "GPT-2 family serving"),
@@ -254,16 +257,73 @@ class Positions(NamedTuple):
     is_arange: bool
 
 
+#: The cache quantizer's scale factor: the reference writes ``max|x| /
+#: 127.0``, which XLA evaluates under ``jit`` (every serving path) as a
+#: product with the fp32 reciprocal. The fp32 constant makes the product
+#: the same on every device and route.
+_INV127 = float(np.float32(1.0 / 127.0))
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[..., Dh]`` keys or values → (int8 ``[..., Dh]``, fp32 scales
+    ``[...]``), the reference's cache quantizer in its order: the fp32
+    absmax times fp32(1/127) is the scale ``s``; the values are divided
+    (a true division) by ``max(s, 1e-9)``, rounded half to even and cast.
+    The stored scale is ``s`` itself, so a zero row keeps scale 0. Not the
+    ``ops/quantization.py`` kernels: those round stochastically and floor
+    the absmax at 1e-30."""
+    x32 = x.float()
+    s = x32.abs().amax(dim=-1) * _INV127
+    q = torch.round(x32 / torch.clamp(s, min=1e-9)[..., None])
+    return q.to(torch.int8), s
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """int8 ``[..., Dh]`` times fp32 scales ``[...]`` in fp32, then cast to
+    ``dtype``: on a bf16 model the read rounds through bf16, as the
+    reference's does before its fp32 scores."""
+    return (q.float() * scale[..., None]).to(dtype)
+
+
 @dataclasses.dataclass
 class KVCache:
     """One layer's KV cache: ``[B, max_seq_len, Hkv, Dh]`` tensors allocated
     once and written in place, plus the shared append cursor (positions
     ``[0, index)`` hold keys/values). A ``decode_multislot`` model neither
-    reads nor moves the cursor: each row appends at its own positions."""
+    reads nor moves the cursor: each row appends at its own positions.
+
+    An int8 cache (``cfg.cache_int8``) holds int8 ``k``/``v`` and fp32
+    ``k_scale``/``v_scale`` ``[B, max_seq_len, Hkv]``: appends quantize
+    once (``quantize_kv``), reads dequantize (``dequantize_kv``)."""
 
     k: torch.Tensor
     v: torch.Tensor
     index: int = 0
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def int8(self) -> bool:
+        return self.k_scale is not None
+
+    def writes(self, k: torch.Tensor, v: torch.Tensor):
+        """The (destination, value) pairs that append keys and values
+        ``[B, l, Hkv, Dh]``: as they are, or quantized into the int8
+        values and the scales, in the reference's leaf order."""
+        if not self.int8:
+            return ((self.k, k), (self.v, v))
+        (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+        return ((self.k, k8), (self.k_scale, ks), (self.v, v8),
+                (self.v_scale, vs))
+
+    def read(self, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The whole cache's K and V as attention reads them: the stored
+        tensors, or the int8 ones dequantized to ``dtype``."""
+        if not self.int8:
+            return self.k, self.v
+        return (dequantize_kv(self.k, self.k_scale, dtype),
+                dequantize_kv(self.v, self.v_scale, dtype))
 
 
 class Dense(nn.Linear):
@@ -398,8 +458,8 @@ class Attention(nn.Module):
         if start + l > cache.k.shape[1]:
             raise ValueError(f"cache overflow: {start} + {l} positions > "
                              f"cache length {cache.k.shape[1]}")
-        cache.k[:, start:start + l] = k
-        cache.v[:, start:start + l] = v
+        for dst, new in cache.writes(k, v):
+            dst[:, start:start + l] = new
         cache.index = start + l
         if l > 1 and start == 0 and pos.is_arange:
             return flash_attention(q, k, v, causal=True)
@@ -412,19 +472,21 @@ class Attention(nn.Module):
         are -1e30, and probabilities are cast to q's dtype before the V
         product, as in the reference's ``over_cache``. The ``rep`` query
         heads of a kv head are stacked as rows, so both products are plain
-        batched matmuls over (B, Hkv): no repeated K/V is made."""
+        batched matmuls over (B, Hkv): no repeated K/V is made. An int8
+        cache is read dequantized to ``cfg.dtype`` (``KVCache.read``)."""
         b, l, h, hd = q.shape
         hkv = self.cfg.n_kv_heads
         rep = h // hkv
         qg = (q.float() * hd ** -0.5).view(b, l, hkv, rep, hd)
         qg = qg.permute(0, 2, 3, 1, 4).reshape(b, hkv, rep * l, hd)
-        kc = cache.k.transpose(1, 2).to(torch.float32,
-                                        memory_format=torch.contiguous_format)
+        kc, vc = cache.read(self.cfg.dtype)
+        kc = kc.transpose(1, 2).to(torch.float32,
+                                   memory_format=torch.contiguous_format)
         logits = torch.matmul(qg, kc.transpose(-1, -2))  # [B, Hkv, rep·l, max]
         k_pos = torch.arange(cache.k.shape[1], device=q.device)
         mask = k_pos <= positions.repeat(1, rep)[:, None, :, None]
         probs = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
-        out = torch.matmul(probs.to(q.dtype), cache.v.transpose(1, 2))
+        out = torch.matmul(probs.to(q.dtype), vc.transpose(1, 2))
         return out.view(b, hkv, rep, l, hd).permute(0, 3, 1, 2, 4).reshape(
             b, l, h, hd)
 
@@ -437,18 +499,21 @@ def _append_per_row(k: torch.Tensor, v: torch.Tensor,
     (the free-slot sentinel ``max_len``, a horizon's steps past a request's
     end, a verify chunk's columns past column 0 on an undrafted row) writes
     nothing, as the reference's ``mode="drop"``: its write is aimed at the
-    last position and carries the bytes there. Columns are written one at
-    a time, in order: the rows of one column are distinct, so no index
-    repeats within a write, and a dropped write carries what an earlier
-    column just wrote there. All on the device, with no host sync."""
+    last position and carries the bytes there (an int8 cache's scales
+    too). Columns are written one at a time, in order: the rows of one
+    column are distinct, so no index repeats within a write, and a dropped
+    write carries what an earlier column just wrote there. All on the
+    device, with no host sync."""
     b, l = positions.shape
     length = cache.k.shape[1]
-    keep = (positions < length)[..., None, None]
+    keep = positions < length
     idx = positions.clamp(max=length - 1).long()
     rows = torch.arange(b, device=positions.device)
+    writes = cache.writes(k, v)
     for j in range(l):
-        for new, dst in ((k, cache.k), (v, cache.v)):
-            dst[rows, idx[:, j]] = torch.where(keep[:, j], new[:, j],
+        for dst, new in writes:
+            kept = keep[:, j].view(b, *(1,) * (new.dim() - 2))
+            dst[rows, idx[:, j]] = torch.where(kept, new[:, j],
                                                dst[:, length - 1])
 
 
@@ -618,6 +683,11 @@ class Transformer(nn.Module):
             if segments is not None:
                 raise ValueError("segment-masked attention is a "
                                  "packed-window training feature")
+            if cache[0].int8 != cfg.cache_int8:
+                raise ValueError(
+                    f"an {'int8' if cache[0].int8 else 'unquantized'} cache "
+                    f"does not match cache_int8={cfg.cache_int8} "
+                    f"(decode.init_cache)")
         elif cache is not None:
             raise ValueError("the training model (decode=False) takes no "
                              "cache")

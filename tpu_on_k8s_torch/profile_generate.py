@@ -3,7 +3,8 @@
     python -m tpu_on_k8s_torch.profile_generate --config llama2_7b \\
         --batch 4 --prompt-len 512 --max-new-tokens 16
 
-Random weights from ``--seed``. After one warm-up request it traces a
+Random weights from ``--seed``; ``--cache-int8`` serves from the int8 KV
+cache. After one warm-up request it traces a
 one-token request (the prefill) and a ``--max-new-tokens`` request, and
 prints for each: the wall time, the device time summed over kernels, the
 device's busy share (kernel time over wall time) and the kernels with the
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import time
 
 import torch
@@ -74,18 +76,22 @@ def main(argv=None) -> None:
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--prompt-len", type=int, default=512)
     p.add_argument("--max-new-tokens", type=int, default=16)
+    p.add_argument("--cache-int8", action="store_true",
+                   help="the int8 KV cache (cache_int8)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--top", type=int, default=12)
     args = p.parse_args(argv)
 
     dev = resolve_device("cuda")
-    cfg = CONFIGS[args.config]()
+    cfg = dataclasses.replace(CONFIGS[args.config](),
+                              cache_int8=args.cache_int8)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, gen, dev)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev, dtype=torch.int32)
     print(f"[setup] {args.config} batch {args.batch} prompt "
-          f"{args.prompt_len} new {args.max_new_tokens} on "
+          f"{args.prompt_len} new {args.max_new_tokens}"
+          f"{', int8 KV cache' if args.cache_int8 else ''} on "
           f"{torch.cuda.get_device_name(0)}")
     generate(cfg, params, prompt, args.max_new_tokens, device=dev)  # warm-up
     report("prefill", lambda: generate(cfg, params, prompt, 1, device=dev),

@@ -4,7 +4,8 @@
     python -m tpu_on_k8s_torch.profile_serve --config llama2_7b --n-slots 8 \\
         --max-len 2048
 
-Random weights from ``--seed``. The engine's slots are filled with requests
+Random weights from ``--seed``; ``--cache-int8`` keeps the int8 KV cache.
+The engine's slots are filled with requests
 of ``--prompt-len`` tokens and warmed up; then one decode step at full
 occupancy is traced, and one admission prefill at each of ``--buckets``
 (one request, batch 1, into a slot just freed). Each trace prints the wall
@@ -15,6 +16,7 @@ CUDA card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -35,12 +37,15 @@ def main(argv=None) -> None:
     p.add_argument("--buckets", default="128,1024",
                    help="prompt lengths of the traced admission prefills")
     p.add_argument("--kv-pages", type=int, default=0)
+    p.add_argument("--cache-int8", action="store_true",
+                   help="the int8 KV cache (cache_int8)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--top", type=int, default=12)
     args = p.parse_args(argv)
 
     dev = resolve_device("cuda")
-    cfg = CONFIGS[args.config]()
+    cfg = dataclasses.replace(CONFIGS[args.config](),
+                              cache_int8=args.cache_int8)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(
         args.seed), dev)
     eng = ContinuousBatchingEngine(cfg, params, n_slots=args.n_slots,
@@ -57,7 +62,8 @@ def main(argv=None) -> None:
     for _ in range(4):                      # admission, then warm-up steps
         eng.step()
     print(f"[setup] {args.config} engine, {args.n_slots} slots of "
-          f"{args.max_len} positions{', paged' if args.kv_pages else ''}, "
+          f"{args.max_len} positions{', paged' if args.kv_pages else ''}"
+          f"{', int8 KV cache' if args.cache_int8 else ''}, "
           f"prompts {args.prompt_len}, on {torch.cuda.get_device_name(0)}")
     report(f"decode step, occupancy {args.n_slots}", eng.step, args.top)
     # a one-token request retires at its admission, freeing the slot again

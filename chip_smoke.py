@@ -45,7 +45,11 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    on the ``int8_impl="xla"`` route (``torch._int_mm`` at decode's M) and
    on the int8 GEMM kernel, with equal tokens;
 3d. the three CLIs (``generate``, ``train_llama``, ``serve``) with their
-   own defaults;
+   own defaults; then ``train_llama --config tiny --checkpoint-dir D
+   --eval-data F --eval-every 6`` on ``cuda`` (evaluations at steps 6 and
+   12, step 12 saved), and ``generate --checkpoint-dir D`` and ``serve
+   --checkpoint-dir D``, whose greedy tokens equal those of the restored
+   parameters held in memory;
 3e. continuous batching: ``ContinuousBatchingEngine`` on phase 3's weights,
    8 slots of 2048 positions, greedy, serves 24 seeded requests (prompts
    64-1000 tokens, 16-64 new, two submitted per step) five times: (a)
@@ -131,7 +135,27 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
 4b. int8 training: the same model with every int8 flag (``mlp_int8``,
    ``mlp_fused_gateup``, ``head_int8``, ``attn_int8``, ``int8_impl=
    "pallas"``): its first step's loss and gradients equal those of the same
-   model with the int8 GEMM's plain version patched in, then 8 steps;
+   model with the int8 GEMM's plain version patched in, with 113 int8 GEMM
+   launches a step (the recompute of remat "mlp" stops before w_down's
+   product, as the reference's XLA does), then 8 steps;
+4c. the training loop: ``train_step_flops`` on the card within 0.3-1.7 of
+   6·N·T; ``Trainer.fit`` at ``llama2_1b`` (remat mlp, flash, batch 4 x
+   2048) over 12 distinct seeded batches through ``device_prefetch``,
+   ``log_every`` 4: a fault-free run with 3 host syncs and, under
+   ``torch.cuda.set_sync_debug_mode("warn")``, no other synchronizing call;
+   a fresh run under ``train_preemption(7)`` with ``checkpoint_every`` 4,
+   ``max_to_keep`` 1, that stops preempted after step 6 with steps 4 and 6
+   saved (only the checkpoint writer's thread syncs besides the windows);
+   a third, fresh ``TrainState`` restored from it runs steps 7-12, and the
+   stitched losses and the final weights equal the fault-free run's bit
+   for bit; 16 launches of each flash kernel a step. The loop's step time
+   beside phase 4's bare step, the ``mfu`` gauge, the checkpoint's bytes,
+   the snapshot's stall, a blocking write and the restore are printed;
+4d. the remat policies at ``llama2_1b``: one forward and backward each
+   under full, mlp, dots and dots_kernels, whose loss and gradients equal
+   the no-remat step's bit for bit, with 32, 16, 32 and 16 flash forward
+   launches, and (mlp, dots, dots_kernels) the no-remat backward's count
+   of dense products; each policy's peak memory and step time printed;
 5. times on the card, each beside the card's name and power limit.
 
 Then one JSON line for the kernels, the card's line, and as the last line
@@ -144,9 +168,11 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 import warnings
@@ -248,6 +274,8 @@ KV8_HANDOFF_BYTES = 1024 * 32 * 8 * 2 * (128 + 4)
 KV8_NOISE_MULT = 3.0
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
+# Phase 4c: the loop's steps (12 distinct batches from this numpy seed)
+LOOP_STEPS, LOOP_SEED = 12, 4
 # The int8 GEMM at the llama2_1b training shapes, M = batch x seq rows:
 # (N, K, out) for wq/wo, wk/wv, the fused gate+up, w_down and the fp32-out
 # head, then ragged shapes.
@@ -827,10 +855,11 @@ def serve_int8_routes(cfg, params, prompt4, mods, decode) -> dict:
     return launched["pallas"]
 
 
-def run_clis(mods) -> dict:
+def run_clis(mods, dev, tmp: Path) -> dict:
     """Phase 3d: the three CLIs with their own defaults (``--config tiny``
     on ``cuda``: head dim 16, through the padded flash kernels), in
-    process. Returns their launches."""
+    process, then their checkpoint flags (``checkpoint_cli_roundtrip``).
+    Returns their launches."""
     import contextlib
     import io
 
@@ -845,6 +874,7 @@ def run_clis(mods) -> dict:
         loss = train_llama.main([])
     with contextlib.redirect_stdout(served_out):
         served = serve_cli.main([])
+    checkpoint_cli_roundtrip(mods, dev, tmp)
     torch.cuda.synchronize()
     launched = read_counts(mods)
     lines = out.getvalue().splitlines()
@@ -2156,11 +2186,429 @@ def fuse_gateup(params: dict, n_layers: int) -> dict:
     return out
 
 
+def sync_warnings(caught) -> list:
+    """(file, line) of each synchronizing-call warning that
+    ``torch.cuda.set_sync_debug_mode("warn")`` raised, in order."""
+    return [(Path(w.filename).name, w.lineno) for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def by_site(syncs: list) -> dict:
+    """Synchronizing calls counted by "file:line"."""
+    out = {}
+    for f, n in syncs:
+        out[f"{f}:{n}"] = out.get(f"{f}:{n}", 0) + 1
+    return out
+
+
+def source_lines(fn) -> tuple:
+    """(file name, the line numbers of ``fn``'s source)."""
+    import inspect
+    lines, start = inspect.getsourcelines(fn)
+    return Path(inspect.getsourcefile(fn)).name, set(
+        range(start, start + len(lines)))
+
+
+def allowed_syncs(syncs: list, allowed: list) -> list:
+    """The syncs that fall outside every (file, lines) of ``allowed``."""
+    return [(f, n) for f, n in syncs
+            if not any(f == af and n in lines for af, lines in allowed)]
+
+
+def checkpoint_cli_roundtrip(mods, dev, tmp: Path) -> None:
+    """Phase 3d, the checkpoint flags: ``train_llama --config tiny
+    --checkpoint-dir D --eval-data F`` on ``cuda``, then ``generate
+    --checkpoint-dir D`` and ``serve --checkpoint-dir D``, whose greedy
+    tokens must equal those of the same parameters held in memory."""
+    import contextlib
+    import io
+
+    from tpu_on_k8s_torch import generate as generate_cli
+    from tpu_on_k8s_torch import serve as serve_cli
+    from tpu_on_k8s_torch import train_llama
+    from tpu_on_k8s_torch.data import write_records
+    from tpu_on_k8s_torch.models import decode
+    from tpu_on_k8s_torch.models.serving import ContinuousBatchingEngine
+    from tpu_on_k8s_torch.models.transformer import TransformerConfig
+    from tpu_on_k8s_torch.train import train_state_template
+    from tpu_on_k8s_torch.train.checkpoint import CheckpointManager
+
+    cfg = TransformerConfig.tiny()
+    ckpt, evalf = tmp / "ckpt", tmp / "eval.bin"
+    write_records(str(evalf), np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (16, cfg.max_seq_len + 1)).astype(np.int32))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        loss = train_llama.main(["--steps", "12", "--eval-every", "6",
+                                 "--checkpoint-dir", str(ckpt),
+                                 "--eval-data", str(evalf)])
+    evals = [l for l in out.getvalue().splitlines() if l.startswith("[eval]")]
+    state, gen, step = CheckpointManager(str(ckpt)).restore(
+        train_state_template(cfg, dev, warmup_steps=10, decay_steps=12))
+    held = {n: p.detach().to(torch.float32 if n.endswith("scale")
+                             else cfg.dtype)
+            for n, p in state.model.named_parameters()}
+    with contextlib.redirect_stdout(io.StringIO()):
+        tokens = generate_cli.main(["--checkpoint-dir", str(ckpt)])
+        served = serve_cli.main(["--checkpoint-dir", str(ckpt)])
+    prompt = torch.randint(0, cfg.vocab_size, (1, 8), generator=torch.
+                           Generator(device=dev).manual_seed(0), device=dev,
+                           dtype=torch.int32)
+    want = decode.generate(cfg, held, prompt, 32, device=dev)
+    # serve's traffic with its defaults: the same seeded arrivals
+    rng = np.random.default_rng(0)
+    eng = ContinuousBatchingEngine(cfg, held, n_slots=8, device=dev)
+    done, n = {}, 0
+    while n < 16:
+        for _ in range(rng.poisson(1.0)):
+            if n < 16:
+                lp = int(rng.integers(4, 25))
+                eng.submit(rng.integers(0, cfg.vocab_size,
+                                        size=lp).astype(np.int32), 16)
+                n += 1
+        for rid in eng.step():
+            done[rid] = eng.result(rid)
+    done.update(eng.run())
+    same_serve = (set(done) == set(served) and all(
+        np.array_equal(np.asarray(served[r]), np.asarray(done[r]))
+        for r in done))
+    print(f"[cli] train_llama --config tiny --checkpoint-dir --eval-data "
+          f"--eval-every 6 (cuda, 12 steps): final loss {loss:.5f}; "
+          f"{evals}; restored generation {gen} step {step} (count "
+          f"{state.optimizer.count}); generate --checkpoint-dir tokens equal "
+          f"to the held parameters' generate: {torch.equal(tokens, want)}; "
+          f"serve --checkpoint-dir, {len(served)} requests equal to the held "
+          f"parameters' engine: {same_serve}")
+    if (not math.isfinite(loss) or len(evals) != 2 or (gen, step) != (0, 12)
+            or state.optimizer.count != 12):
+        fail("train_llama --checkpoint-dir/--eval-data did not save step 12 "
+             "and evaluate at steps 6 and 12")
+    if not torch.equal(tokens, want) or not same_serve:
+        fail("a CLI restored from the checkpoint decoded other tokens than "
+             "the same parameters held in memory")
+
+
+def train_loop_phase(tcfg, mods, gpu, dev, train_ms, tmp: Path) -> dict:
+    """Phase 4c: ``Trainer.fit`` at llama2_1b (remat mlp, flash), 12
+    distinct seeded batches through ``device_prefetch``; a fault-free run,
+    a run preempted before step 7 (``train_preemption(7)``) saving at steps
+    4 and 6, and a resume from the checkpoint, whose stitched losses must
+    equal the fault-free run's bit for bit. Returns the launches of the
+    three runs."""
+    from tpu_on_k8s_torch import chaos
+    from tpu_on_k8s_torch.data.prefetch import device_prefetch
+    from tpu_on_k8s_torch.metrics import TrainMetrics
+    from tpu_on_k8s_torch.models.params import init_params, load_model
+    from tpu_on_k8s_torch.train import Trainer, default_optimizer
+    from tpu_on_k8s_torch.train import checkpoint as ckpt_mod
+    from tpu_on_k8s_torch.train import loop as loop_mod
+    from tpu_on_k8s_torch.train import train_state_template
+    from tpu_on_k8s_torch.train.compile import (
+        analytic_train_flops,
+        train_step_flops,
+    )
+
+    class Recording(Trainer):
+        """The two-argument ``train_step`` (the one ``fit`` drives) also
+        keeps each step's loss, a 0-d device tensor: no sync."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.losses = []
+
+        def train_step(self, *args):
+            out = super().train_step(*args)
+            if len(args) == 2:
+                self.losses.append(out[1]["loss"])
+            return out
+
+    steps, every, preempt_at, log_every = LOOP_STEPS, 4, 7, 4
+    opt_kw = dict(warmup_steps=10, decay_steps=max(steps, 11))
+    p0 = init_params(tcfg, torch.Generator(device=dev).manual_seed(0), dev,
+                     dtype=tcfg.param_dtype)
+    batches = np.random.default_rng(LOOP_SEED).integers(
+        0, tcfg.vocab_size, (steps, TRAIN_BATCH, TRAIN_SEQ + 1)).astype(
+            np.int32)
+
+    def fresh():
+        model = load_model(tcfg, {k: v.clone() for k, v in p0.items()}, dev)
+        return Recording(model, default_optimizer(model.parameters(),
+                                                **opt_kw))
+
+    host_sync = source_lines(loop_mod._host_sync)
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+
+    # the exact FLOP count of a step, on the card, beside 6·N·T
+    trainer = fresh()
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    flops, _ = train_step_flops(trainer, trainer.state(),
+                                torch.from_numpy(batches[0]).to(dev))
+    analytic = analytic_train_flops(n_params, tokens_per_step)
+    print(f"[train-loop] {gpu}: train_step_flops (FlopCounterMode, the flash "
+          f"and int8 kernels as operators with their formulas) {flops:.6e} "
+          f"FLOPs a step, 6·N·T {analytic:.6e} (N {n_params:,}, T "
+          f"{tokens_per_step}): ratio {flops / analytic:.4f} (gate "
+          f"0.3-1.7)")
+    if not 0.3 < flops / analytic < 1.7:
+        fail(f"train_step_flops {flops:.4e} is not within 0.3-1.7 of 6NT "
+             f"{analytic:.4e}")
+
+    def run(trainer, state, first, n, **kw):
+        windows = []
+        metrics = TrainMetrics()
+        torch.cuda.synchronize()
+        reset_counts(mods)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                result = trainer.fit(
+                    state, device_prefetch(iter(batches[first:first + n]),
+                                           dev), n,
+                    log_every=log_every, metrics=metrics,
+                    tokens_per_step=tokens_per_step, flops_per_step=flops,
+                    peak_flops=PEAK_BF16_FLOPS,
+                    on_metrics=lambda s, m, dt: windows.append(dt), **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return result, windows, metrics, read_counts(mods), sync_warnings(
+            caught)
+
+    # (a) the fault-free run
+    torch.cuda.reset_peak_memory_stats()
+    ref, ref_windows, ref_metrics, ref_counts, ref_syncs = run(
+        trainer, trainer.state(), 0, steps)
+    ref_losses = torch.stack(trainer.losses).cpu()
+    ref_final = {n: p.detach().clone()
+                 for n, p in trainer.model.named_parameters()}
+    ref_peak = torch.cuda.max_memory_allocated() / 1e9
+    stray = allowed_syncs(ref_syncs, [host_sync])
+    loop_ms = statistics.median(ref_windows[1:]) * 1e3
+    print(f"[train-loop] fault-free Trainer.fit, {steps} steps, log_every "
+          f"{log_every}: host_syncs {ref.host_syncs}, windows at "
+          f"{[s for s, _ in ref.history]}, losses "
+          f"{[round(x, 5) for x in ref_losses.tolist()]}; launches "
+          f"{ref_counts}; synchronizing calls under set_sync_debug_mode: "
+          f"{len(ref_syncs)} {by_site(ref_syncs)}, outside _host_sync "
+          f"{by_site(stray)}")
+    print(f"[train-loop] {gpu}: loop step ms by window "
+          f"{[round(x * 1e3, 2) for x in ref_windows]}; median of windows "
+          f"2-{len(ref_windows)} {loop_ms:.2f} ms beside phase 4's bare "
+          f"train_step median {train_ms:.2f} ms ({loop_ms / train_ms:.4f}x); "
+          f"mfu gauge {ref_metrics.gauges['mfu']:.4f} of "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 dense; "
+          f"tokens_per_sec gauge {ref_metrics.gauges['tokens_per_sec']:,.0f}"
+          f"; peak memory {ref_peak:.2f} GB")
+    want = {k: steps * tcfg.n_layers
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    if ref.host_syncs != 3 or len(ref_syncs) != 3 or stray:
+        fail(f"the fault-free loop synced {ref_syncs} ({ref.host_syncs} "
+             f"windows): expected the 3 window syncs and nothing else")
+    if any(ref_counts[k] != v for k, v in want.items()):
+        fail(f"loop launches {ref_counts}; expected {want}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (b) the preempted run: saves at step 4 (async) and 6 (preemption)
+    trainer = fresh()
+    ckdir = tmp / "loop_ckpt"
+    mgr = ckpt_mod.CheckpointManager(str(ckdir), max_to_keep=1)
+    with chaos.train_preemption(preempt_at).injector():
+        first, _, _, first_counts, first_syncs = run(
+            trainer, trainer.state(), 0, steps, checkpoint_manager=mgr,
+            checkpoint_every=every)
+    first_losses = torch.stack(trainer.losses).cpu()
+    stray = allowed_syncs(first_syncs, [host_sync])
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in trainer.state().state_dict().values())
+    print(f"[train-loop] preempted run under train_preemption({preempt_at}), "
+          f"checkpoint_every {every}, max_to_keep 1: preempted "
+          f"{first.preempted}, steps {first.steps}, saves enqueued "
+          f"{first.checkpoints_enqueued}, failures "
+          f"{first.checkpoint_failures}, kept {mgr.steps(0)}; launches "
+          f"{first_counts}; synchronizing calls {len(first_syncs)} "
+          f"{by_site(first_syncs)}, outside _host_sync {by_site(stray)}")
+    if (not first.preempted or first.steps != preempt_at - 1
+            or first.checkpoints_enqueued != 2 or first.checkpoint_failures
+            or mgr.steps(0) != [preempt_at - 1] or stray):
+        fail("the preempted loop did not stop at step 6 with steps 4 and 6 "
+             "saved (or synced outside its windows)")
+    del trainer
+    mgr.close()
+    torch.cuda.empty_cache()
+
+    # (c) the resume into a third, fresh TrainState
+    template = train_state_template(tcfg, dev, **opt_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, gen, step = mgr.restore(template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    count = state.optimizer.count
+    shutil.rmtree(ckdir, ignore_errors=True)
+    trainer = Recording(state.model, state.optimizer)
+    resumed, _, _, resumed_counts, resumed_syncs = run(
+        trainer, state, step, steps - step)
+    stitched = torch.cat([first_losses, torch.stack(trainer.losses).cpu()])
+    same_losses = torch.equal(stitched, ref_losses)
+    same_params = all(torch.equal(p, ref_final[n])
+                      for n, p in state.model.named_parameters())
+    print(f"[train-loop] resumed from generation {gen} step {step} (count "
+          f"{count}) into a fresh TrainState, steps "
+          f"{step + 1}-{steps}: launches {resumed_counts}; stitched losses "
+          f"equal to the fault-free run's bit for bit: {same_losses}; final "
+          f"weights equal bit for bit: {same_params}")
+    if (not same_losses or not same_params or step != preempt_at - 1
+            or count != step):
+        fail(f"the stitched run differs from the fault-free one: "
+             f"{stitched.tolist()} vs {ref_losses.tolist()}")
+    stray = allowed_syncs(resumed_syncs, [host_sync])
+    if stray or resumed.host_syncs != 2:
+        fail(f"the resumed loop synced outside its windows: "
+             f"{by_site(stray)}")
+
+    # the checkpoint's costs on this state: the snapshot's stall on the
+    # compute stream, the next step beside a plain one, a blocking write
+    mgr = ckpt_mod.CheckpointManager(str(tmp / "timed_ckpt"), max_to_keep=1)
+    tok = torch.from_numpy(batches[0]).to(dev)
+
+    def timed_step() -> float:
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        start.record()
+        trainer.train_step(state, tok)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    plain_step = min(timed_step() for _ in range(2))
+    t0 = time.perf_counter()
+    mgr.save(state, step=100, wait=False)       # buffers allocated here
+    first_save_s = time.perf_counter() - t0
+    mgr.wait_until_finished()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+    t0 = time.perf_counter()
+    e0.record()
+    mgr.save(state, step=101, wait=False)
+    e1.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    after_save = timed_step()
+    e1.synchronize()
+    stall_ms = e0.elapsed_time(e1)
+    mgr.wait_until_finished()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(state, step=102, wait=True)
+    write_s = time.perf_counter() - t0
+    mgr.close()
+    print(f"[train-loop] {gpu}: checkpoint of the llama2_1b TrainState "
+          f"{nbytes:,} B (fp32 masters and both fp32 moments); a "
+          f"manager's first save {first_save_s:.2f} s on the host (device "
+          f"and pinned buffers allocated); then an async save: "
+          f"{enqueue_ms:.2f} ms on the host to enqueue, the snapshot's "
+          f"stall on the compute stream {stall_ms:.2f} ms, the next step "
+          f"{after_save:.2f} ms beside a step without a save "
+          f"{plain_step:.2f} ms (+{after_save - plain_step:.2f}); blocking "
+          f"write {write_s:.2f} s ({nbytes / write_s / 1e9:.3f} GB/s); "
+          f"restore into a fresh TrainState {restore_s:.2f} s "
+          f"({nbytes / restore_s / 1e9:.3f} GB/s)")
+    del trainer, state, template, ref_final, p0
+    torch.cuda.empty_cache()
+    return {k: ref_counts[k] + first_counts[k] + resumed_counts[k]
+            for k in ref_counts}
+
+
+def remat_phase(tcfg, mods, gpu, dev, tokens, trainer_mod) -> dict:
+    """Phase 4d: one step at llama2_1b under each remat policy: the loss
+    and the gradients equal the no-remat step's bit for bit, the flash
+    forward launches 32 (full), 16 (mlp), 32 (dots) and 16 (dots_kernels)
+    times, and the backward under dots runs as many dense products as
+    without remat. Returns the launches."""
+    from tpu_on_k8s_torch.models.params import init_params, load_model
+    from tpu_on_k8s_torch.train import Trainer, default_optimizer
+
+    p0 = init_params(tcfg, torch.Generator(device=dev).manual_seed(0), dev,
+                     dtype=tcfg.param_dtype)
+    want_fwd = {"full": 2 * tcfg.n_layers, "mlp": tcfg.n_layers,
+                "dots": 2 * tcfg.n_layers, "dots_kernels": tcfg.n_layers}
+    base = None
+    total = None
+    for policy in ("none", "full", "mlp", "dots", "dots_kernels"):
+        cfg = dataclasses.replace(tcfg, remat=policy != "none",
+                                  remat_policy=("mlp" if policy == "none"
+                                                else policy))
+        model = load_model(cfg, {k: v.clone() for k, v in p0.items()}, dev)
+        loss_fn = trainer_mod._make_loss_fn(model, 0, None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(mods)
+        loss, _ = loss_fn(tokens)
+        counter = _CountProducts()
+        with counter:
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        launched = read_counts(mods)
+        grad_peak = torch.cuda.max_memory_allocated() / 1e9
+        trainer = Trainer(model, default_optimizer(model.parameters(),
+                                                   warmup_steps=10,
+                                                   decay_steps=11))
+        trainer.train_step(tokens)              # warm: the moments allocate
+        torch.cuda.synchronize()
+        step_ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            trainer.train_step(tokens)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_peak = torch.cuda.max_memory_allocated() / 1e9
+        if policy == "none":
+            base = (loss.detach(), grads, counter.mm)
+            print(f"[remat] {gpu}: llama2_1b no remat: one forward+backward "
+                  f"peak {grad_peak:.2f} GB, backward aten.mm {counter.mm}; "
+                  f"train_step {min(step_ms):.2f} ms, peak {step_peak:.2f} "
+                  f"GB; launches {launched}")
+        else:
+            same = (torch.equal(loss.detach(), base[0])
+                    and all(torch.equal(a, b)
+                            for a, b in zip(grads, base[1])))
+            print(f"[remat] {gpu}: llama2_1b remat {policy}: loss and "
+                  f"{len(grads)} gradients equal to no remat's bit for bit: "
+                  f"{same}; flash_fwd {launched['flash_fwd']} (expected "
+                  f"{want_fwd[policy]}), dq {launched['flash_bwd_dq']}, dkv "
+                  f"{launched['flash_bwd_dkv']}; backward aten.mm "
+                  f"{counter.mm} (no remat {base[2]}); forward+backward peak "
+                  f"{grad_peak:.2f} GB; train_step {min(step_ms):.2f} ms, "
+                  f"peak {step_peak:.2f} GB")
+            if not same:
+                fail(f"remat {policy} changed the loss or the gradients")
+            if launched["flash_fwd"] != want_fwd[policy] or (
+                    launched["flash_bwd_dq"] != tcfg.n_layers):
+                fail(f"remat {policy} launches {launched}")
+            if policy in ("mlp", "dots", "dots_kernels") and (
+                    counter.mm != base[2]):
+                fail(f"remat {policy}'s backward re-runs dense products: "
+                     f"{counter.mm} against {base[2]}")
+            total = launched if total is None else {
+                k: total[k] + launched[k] for k in total}
+        del model, trainer, grads, loss
+        torch.cuda.empty_cache()
+    del base, p0
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
+    # checkpoints and record files of phases 3d and 4c, removed at the end
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        return run(Path(tmp))
+
+
+def run(tmp: Path) -> int:
 
     from tpu_on_k8s_torch import chaos as chaos_mod
     from tpu_on_k8s_torch import metrics as metrics_mod
@@ -2574,7 +3022,7 @@ def main() -> int:
         mods, plain_flash, diff, gpu, plain_a, serving, transformer, decode)
     del params
     torch.cuda.empty_cache()
-    by_path["cli"] = run_clis(mods)
+    by_path["cli"] = run_clis(mods, dev, tmp)
 
     # ---- 4. training: llama2_1b, full width and depth ------------------
     tcfg = dataclasses.replace(transformer.TransformerConfig.llama2_1b(),
@@ -2727,8 +3175,11 @@ def main() -> int:
                                  .manual_seed(0), dev,
                                  dtype=tcfg.param_dtype), tcfg.n_layers)
     # per step: q, k, v, o and the MLP's gate+up and down in every layer,
-    # the MLP again in its backward recompute (remat "mlp"), and the head
-    int8_per_step = (4 + 2 + 2) * tcfg.n_layers + 1
+    # the gate+up again in its backward recompute (remat "mlp": the
+    # kernel's output is no dot; the recompute stops before w_down's
+    # product, whose output the backward never reads), and the head: 113,
+    # as the reference's XLA runs them
+    int8_per_step = (4 + 2 + 1) * tcfg.n_layers + 1
 
     def int8_grads(model_cfg, plain):
         model = load_model(model_cfg, p8, dev)
@@ -2817,6 +3268,17 @@ def main() -> int:
           f"{peak_gb:.2f} GB)")
     del trainer, model, p8
     torch.cuda.empty_cache()
+
+    # ---- 4c. the training loop and checkpoints at llama2_1b -------------
+    t0 = time.perf_counter()
+    by_path["train_loop"] = train_loop_phase(tcfg, mods, gpu, dev, train_ms,
+                                             tmp)
+    print(f"[time] phase 4c {time.perf_counter() - t0:.1f} s")
+
+    # ---- 4d. the remat policies at llama2_1b ---------------------------
+    t0 = time.perf_counter()
+    by_path["remat"] = remat_phase(tcfg, mods, gpu, dev, tokens, trainer_mod)
+    print(f"[time] phase 4d {time.perf_counter() - t0:.1f} s")
 
     # ---- 5. times -----------------------------------------------------
     scfg = transformer.TransformerConfig.llama2_7b()

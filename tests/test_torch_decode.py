@@ -244,7 +244,6 @@ def test_unported_flags_raise(flag, value):
 
 
 @pytest.mark.parametrize("flag, value", [
-    ("remat_policy", "dots"), ("remat_policy", "dots_kernels"),
     ("fused_qkv", True), ("attn_impl", "ulysses"),
 ])
 def test_unported_training_flags_raise(flag, value):

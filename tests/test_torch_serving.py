@@ -995,11 +995,32 @@ def test_cli_metrics_port_serves_the_engine_metrics(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--checkpoint-dir", "ckpt"], ["--hf-model", "hf"], ["--model-axis", "2"],
+    ["--hf-model", "hf"], ["--model-axis", "2"],
     ["--fsdp", "2"], ["--gateway"], ["--replicas", "2"]])
 def test_cli_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="later slice"):
         cli.main(["--device", "cpu", *flag])
+
+
+def test_cli_checkpoint_dir_serves_the_saved_parameters(tmp_path, capsys):
+    """``--checkpoint-dir`` serves the newest checkpoint's parameters: the
+    same tokens as the CLI on the random weights it was saved from; a
+    directory without checkpoints raises."""
+    from tpu_on_k8s_torch.train.checkpoint import CheckpointManager
+
+    cfg = TransformerConfig.tiny()
+    params = pparams.init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu", dtype=torch.float32)
+    CheckpointManager(str(tmp_path / "ck")).save(
+        {f"params/{k}": v for k, v in params.items()}, step=5)
+    argv = ["--device", "cpu", "--n-requests", "3"]
+    want = cli.main(argv)
+    got = cli.main([*argv, "--checkpoint-dir", str(tmp_path / "ck")])
+    assert "restored generation=0 step=5" in capsys.readouterr().out
+    assert {r: t.tolist() for r, t in got.items()} == {
+        r: t.tolist() for r, t in want.items()}
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
+        cli.main([*argv, "--checkpoint-dir", str(tmp_path / "none")])
 
 
 def test_cli_and_engine_refuse_without_cuda(setup):

@@ -636,16 +636,17 @@ def test_serve_cli_spec(capsys, layers, exact):
     assert ("acceptance 1.000" in line) == exact
 
 
-def test_generate_cli_draft_config(capsys):
+def test_generate_cli_draft_config(capsys, tmp_path):
     out = gen_cli.main(["--config", "tiny", "--device", "cpu",
                         "--draft-config", "tiny", "--max-new-tokens", "6",
                         "--spec-k", "2"])
     assert tuple(out.shape) == (1, 6)
     lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith("speculative stats: {'rounds': ")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # the draft restores from a checkpoint directory, which must hold one
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
         gen_cli.main(["--device", "cpu", "--draft-config", "tiny",
-                      "--draft-checkpoint-dir", "ckpt"])
+                      "--draft-checkpoint-dir", str(tmp_path / "ckpt")])
     with pytest.raises(SystemExit, match="greedy-only"):
         gen_cli.main(["--device", "cpu", "--draft-config", "tiny",
                       "--temperature", "0.5"])

@@ -309,13 +309,88 @@ def test_cli_trains_from_a_packed_record_file(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["--eval-data", "x"], "--eval-data"),
-    (["--checkpoint-dir", "x"], "--checkpoint-dir"),
     (["--attn", "ring"], "ring"), (["--attn", "ulysses"], "ulysses"),
 ])
 def test_cli_unported_flags_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         train_llama.main(["--config", "tiny", "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("eval_every, evals", [(0, [3]), (2, [2, 3]),
+                                               (3, [3])])
+def test_cli_eval_data_evaluates_every_n_and_at_the_end(
+        tmp_path, capsys, eval_every, evals):
+    """``--eval-data`` loads the held-out batches once; the evaluation runs
+    every ``--eval-every`` steps and once at the end unless it has just
+    run, each on the same batches: the loss the eval step gives on them."""
+    path = str(tmp_path / "eval.bin")
+    write_records(path, packed_tokens(b=4, l=17, seed=9))
+    train_llama.main(["--config", "tiny", "--device", "cpu", "--steps", "3",
+                      "--batch", "2", "--seq-len", "16", "--eval-data", path,
+                      "--eval-every", str(eval_every)])
+    lines = [l for l in capsys.readouterr().out.splitlines()
+             if l.startswith("[eval]")]
+    assert [int(l.split("step=")[1].split()[0]) for l in lines] == evals
+    assert all(np.isfinite(float(l.split("loss=")[1].split()[0]))
+               for l in lines)
+
+
+def test_cli_checkpoint_round_trip_through_generate_and_serve(tmp_path,
+                                                              capsys):
+    """``train_llama --checkpoint-dir`` saves the trained state; ``generate
+    --checkpoint-dir`` and ``serve --checkpoint-dir`` restore its
+    parameters, and their greedy tokens equal those of the same parameters
+    held in memory."""
+    from tpu_on_k8s_torch import generate as generate_cli
+    from tpu_on_k8s_torch import serve as serve_cli
+    from tpu_on_k8s_torch.models import decode
+    from tpu_on_k8s_torch.models.serving import ContinuousBatchingEngine
+    from tpu_on_k8s_torch.train.checkpoint import CheckpointManager
+
+    ckpt = str(tmp_path / "ckpt")
+    train_llama.main(["--config", "tiny", "--device", "cpu", "--steps", "3",
+                      "--batch", "2", "--seq-len", "16",
+                      "--checkpoint-dir", ckpt])
+    cfg = TransformerConfig.tiny()
+    state = ptrainer.train_state_template(cfg, "cpu", warmup_steps=10,
+                                          decay_steps=11)
+    state, gen, step = CheckpointManager(ckpt).restore(state)
+    assert (gen, step, state.step, state.optimizer.count) == (0, 3, 3, 3)
+    held = {n: p.detach().to(torch.float32 if n.endswith("scale")
+                             else cfg.dtype)
+            for n, p in state.model.named_parameters()}
+
+    out = generate_cli.main(["--device", "cpu", "--checkpoint-dir", ckpt,
+                             "--max-new-tokens", "6"])
+    prompt = torch.randint(0, cfg.vocab_size, (1, 8), generator=torch.
+                           Generator().manual_seed(0), dtype=torch.int32)
+    want = decode.generate(cfg, held, prompt, 6, device="cpu")
+    assert torch.equal(out, want)
+    spec = generate_cli.main(["--device", "cpu", "--checkpoint-dir", ckpt,
+                              "--draft-config", "tiny",
+                              "--draft-checkpoint-dir", ckpt,
+                              "--max-new-tokens", "6"])
+    assert torch.equal(spec, want)
+
+    served = serve_cli.main(["--device", "cpu", "--checkpoint-dir", ckpt,
+                             "--n-requests", "3"])
+    assert "restored generation=0 step=3" in capsys.readouterr().out
+    rng = np.random.default_rng(0)
+    eng = ContinuousBatchingEngine(cfg, held, n_slots=8, device="cpu")
+    done, n = {}, 0
+    while n < 3:        # the CLI's arrivals: the same seeded draws
+        for _ in range(rng.poisson(1.0)):
+            if n < 3:
+                lp = int(rng.integers(4, 25))
+                eng.submit(rng.integers(0, cfg.vocab_size,
+                                        size=lp).astype(np.int32), 16)
+                n += 1
+        for rid in eng.step():
+            done[rid] = eng.result(rid)
+    done.update(eng.run())
+    assert len(served) == 3
+    assert {r: t.tolist() for r, t in served.items()} == {
+        r: t.tolist() for r, t in done.items()}
 
 
 class _CountProducts(TorchDispatchMode):
@@ -335,10 +410,11 @@ def test_mlp_remat_keeps_the_products_of_the_mlp_input(int8):
     """``remat_policy="mlp"`` saves what the reference's
     ``dots_with_no_batch_dims_saveable`` saves: the outputs of the gate and
     up products. Its backward runs as many dense products as the backward
-    without remat (the SiLU and the product are recomputed, no GEMM); with
-    ``mlp_int8`` it re-runs only w_down's int8 forward (whose product, on
-    CPU tensors, is the plain twin's ``mm``), one a layer. The fp32
-    gradients equal those without remat, bit for bit."""
+    without remat (the SiLU and the product are recomputed, no GEMM), with
+    ``mlp_int8`` too (whose product, on CPU tensors, is the plain twin's
+    ``mm``): the recompute stops before w_down's int8 forward, whose output
+    the backward never reads. The fp32 gradients equal those without
+    remat, bit for bit."""
     cfg = dataclasses.replace(TransformerConfig.tiny(), mlp_int8=int8,
                               remat_policy="mlp")
     tokens = torch.from_numpy(packed_tokens())
@@ -354,5 +430,94 @@ def test_mlp_remat_keeps_the_products_of_the_mlp_input(int8):
             grads = torch.autograd.grad(loss, list(model.parameters()))
         runs.append((counter.mm, grads))
     (mm_plain, g_plain), (mm_remat, g_remat) = runs
-    assert mm_remat == mm_plain + (cfg.n_layers if int8 else 0)
+    assert mm_remat == mm_plain
     assert all(torch.equal(a, b) for a, b in zip(g_plain, g_remat))
+
+
+class _CountOps(TorchDispatchMode):
+    """Counts every operator run under it, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func)
+        self.calls[name] = self.calls.get(name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+_INT8_OP = "tpu_on_k8s_torch.int8_matmul.default"
+_FLASH_OP = "tpu_on_k8s_torch.flash_fwd.default"
+
+
+def test_mlp_remat_does_not_replay_w_down_on_the_kernel_route():
+    """The int8 kernel route (``int8_impl="pallas"``, the plain twin behind
+    the operator on CPU tensors) under ``remat_policy="mlp"``: the
+    backward re-runs the gate and up products (the kernel is no dot, so
+    its outputs are recomputed, as a ``pallas_call``'s are in the
+    reference) and not w_down's, whose output the backward never reads: 2
+    int8 GEMMs a layer, as the reference's XLA runs them
+    (``tests/test_torch_int8.py``: 3 in the forward, 5 with the remat)."""
+    cfg = dataclasses.replace(TransformerConfig.tiny(), mlp_int8=True,
+                              int8_impl="pallas", remat=True,
+                              remat_policy="mlp")
+    tokens = torch.from_numpy(packed_tokens())
+    params = pparams.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                                 dtype=torch.float32)
+    model = pparams.load_model(cfg, params, "cpu")
+    forward = _CountOps()
+    with forward:
+        loss = model(tokens).square().mean()
+    backward = _CountOps()
+    with backward:
+        torch.autograd.grad(loss, list(model.parameters()))
+    assert forward.calls[_INT8_OP] == 3 * cfg.n_layers
+    assert backward.calls[_INT8_OP] == 2 * cfg.n_layers
+
+
+@pytest.mark.parametrize("policy", ["dots", "dots_kernels"])
+def test_dots_remat_policies_match_no_remat_and_jax(policy):
+    """``remat_policy="dots"`` and ``"dots_kernels"`` on tiny fp32 (flash
+    attention, and the int8 MLP on the kernel route): the gradients equal
+    the no-remat gradients bit for bit, and the JAX package's under the
+    same policy within the fp32 tolerance. The recompute re-runs no dense
+    product; "dots" re-runs the flash forward (a kernel's output is not a
+    dot), "dots_kernels" keeps its o and lse, and the int8 kernel's
+    outputs likewise."""
+    runs = {}
+    for int8 in (False, True):
+        jcfg, jparams, _, tokens = setup(
+            remat=True, remat_policy=policy, attn_impl="flash",
+            mlp_int8=int8, int8_impl="pallas")
+        tree = jax.tree.map(np.asarray, jparams)
+        grads = {}
+        for remat in (False, True):
+            pcfg = dataclasses.replace(port_config(jcfg), remat=remat)
+            model = pparams.load_model(pcfg, pparams.from_jax_params(
+                tree, torch.float32, "cpu"), "cpu")
+            fwd = _CountOps()
+            with fwd:
+                loss = model(torch.from_numpy(tokens)).square().mean()
+            bwd = _CountOps()
+            with bwd:
+                g = torch.autograd.grad(loss, list(model.parameters()))
+            grads[remat] = dict(zip([n for n, _ in model.named_parameters()],
+                                    g))
+            runs[(int8, remat)] = (fwd.calls, bwd.calls)
+        assert all(torch.equal(grads[True][n], grads[False][n])
+                   for n in grads[False])
+        jgrads = jax.grad(lambda p: jnp.mean(jnp.square(JTransformer(
+            jcfg).apply({"params": p}, jnp.asarray(tokens)))))(jparams)
+        want = pparams.from_jax_params(jax.tree.map(np.asarray, jgrads),
+                                       torch.float32, "cpu")
+        for name, g in grads[True].items():
+            np.testing.assert_allclose(g.numpy(), want[name].numpy(),
+                                       rtol=0, atol=FP32_ATOL, err_msg=name)
+    n = JConfig.tiny().n_layers
+    for int8 in (False, True):
+        (_, plain), (_, remat) = runs[(int8, False)], runs[(int8, True)]
+        assert remat.get("aten.mm.default") == plain.get("aten.mm.default")
+        assert remat.get(_FLASH_OP, 0) == (n if policy == "dots" else 0)
+        assert remat.get(_INT8_OP, 0) == (
+            2 * n if int8 and policy == "dots" else 0)

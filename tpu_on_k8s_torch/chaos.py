@@ -1,11 +1,14 @@
 """Deterministic, seed-driven fault injection at the engine's sites.
 
 Counterpart of the part of ``tpu_on_k8s/chaos/`` that the serving engine's
-sites need: the ``Fault`` base with ``EngineCrash``, ``EngineStall`` and
-``DraftCrash`` (``faults.py``), ``SITE_SERVE_STEP`` and ``SITE_SPEC_DRAFT``,
-the ``FaultInjector`` that evaluates a schedule of ``FaultRule(site,
-trigger, fault)`` (``injector.py``) and the ``engine_crash_mid_decode`` and
-``spec_draft_crash`` scenarios (``scenarios.py``).
+and the training loop's sites need: the ``Fault`` base with
+``EngineCrash``, ``EngineStall`` and ``DraftCrash``, and ``StepFailure``,
+``SaveFailure`` and ``PreemptNotice`` with their typed exceptions
+(``faults.py``), ``SITE_SERVE_STEP``, ``SITE_SPEC_DRAFT`` and the
+``SITE_TRAIN_*`` sites, the ``FaultInjector`` that evaluates a schedule of
+``FaultRule(site, trigger, fault)`` (``injector.py``) and the
+``engine_crash_mid_decode``, ``spec_draft_crash`` and ``train_preemption``
+scenarios (``scenarios.py``).
 
 Every instrumented call site calls ``fire(site, **ctx)``; with no injector
 installed that is one module-global read and a None return. With one
@@ -29,6 +32,21 @@ from typing import ClassVar, Dict, List, Mapping, Optional, Sequence, Tuple
 SITE_SERVE_STEP = "serve.engine.step"
 #: the engine's speculative round: ``DraftCrash``
 SITE_SPEC_DRAFT = "serve.engine.spec_draft"
+#: ``TrainLoop`` before a step dispatches: ``StepFailure``
+SITE_TRAIN_STEP = "train.step"
+#: ``TrainLoop`` enqueueing a checkpoint save: ``SaveFailure``
+SITE_TRAIN_SAVE = "train.save"
+#: ``TrainLoop`` before each step, a preemption source: ``PreemptNotice``
+SITE_TRAIN_PREEMPT = "train.preempt"
+
+
+class ChaosStepError(RuntimeError):
+    """An injected training-step failure (``StepFailure``)."""
+
+
+class ChaosSaveError(OSError):
+    """An injected checkpoint-save failure (``SaveFailure``): an OSError,
+    as a full disk or revoked credentials raise."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +87,36 @@ class DraftCrash(Fault):
     (``stats["draft_crashes"]``, ``SpecMetrics.spec_draft_crashes``)."""
 
     kind: ClassVar[str] = "draft_crash"
+
+
+@dataclasses.dataclass(frozen=True)
+class StepFailure(Fault):
+    """A training step raises (bad batch, NaN guard, device error)."""
+
+    kind: ClassVar[str] = "step_failure"
+
+    def to_exception(self) -> Exception:
+        return ChaosStepError("chaos injected training-step failure")
+
+
+@dataclasses.dataclass(frozen=True)
+class SaveFailure(Fault):
+    """A checkpoint save fails (full disk, revoked credentials). The loop
+    must survive it: training continues, and resume falls back to the last
+    good checkpoint."""
+
+    kind: ClassVar[str] = "save_failure"
+
+    def to_exception(self) -> Exception:
+        return ChaosSaveError("chaos injected checkpoint-save failure")
+
+
+@dataclasses.dataclass(frozen=True)
+class PreemptNotice(Fault):
+    """A SIGTERM-style preemption notice: the train loop must save its
+    exact stopping point, drain, and stop cleanly."""
+
+    kind: ClassVar[str] = "preempt_notice"
 
 
 def describe(fault: Fault, note: Optional[str] = None) -> str:
@@ -344,3 +392,24 @@ def spec_draft_crash(at_round: int = 2, *, seed: int = 0) -> Scenario:
         FaultRule(SITE_SPEC_DRAFT, on_call(at_round), DraftCrash(),
                   note="draft dies mid-speculation"),
     ), seed)
+
+
+def train_preemption(at_step: int, *, fail_save: bool = False,
+                     seed: int = 0) -> Scenario:
+    """Deliver a SIGTERM-style preemption notice before training step
+    ``at_step`` dispatches; with ``fail_save`` the preemption-time save
+    also fails, forcing resume to fall back to the last periodic
+    checkpoint. Recovery under test: generation-versioned resume
+    reproduces the no-fault loss trajectory bit for bit."""
+    rules = [FaultRule(SITE_TRAIN_PREEMPT, on_call(at_step), PreemptNotice(),
+                       note=f"preempt before step {at_step}")]
+    if fail_save:
+        # the preemption-time save carries the stopping step (at_step - 1)
+        # in its ctx: match it, so periodic saves land and only the final
+        # one fails
+        rules.append(FaultRule(SITE_TRAIN_SAVE,
+                               Trigger(every=1, limit=1,
+                                       match={"step": at_step - 1}),
+                               SaveFailure(),
+                               note="fail the preemption save"))
+    return Scenario("train-preemption", tuple(rules), seed)

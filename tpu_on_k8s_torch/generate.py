@@ -1,10 +1,12 @@
 """Autoregressive generation on the card (the port's serving entry point).
 
-Counterpart of ``examples/generate.py``: random weights from ``--seed`` (no
-checkpoint restore yet), a random prompt, and ``models.decode.generate``;
-``--draft-config`` decodes greedily through ``speculative_generate`` with a
-random draft of that config (same vocabulary, ``--spec-k`` proposals a
-round) and prints its stats::
+Counterpart of ``examples/generate.py``: the parameters of a checkpoint
+(``--checkpoint-dir``, a directory ``train_llama --checkpoint-dir`` wrote;
+``train/checkpoint.py``) or random weights from ``--seed``, a random
+prompt, and ``models.decode.generate``; ``--draft-config`` decodes greedily
+through ``speculative_generate`` with a draft of that config (same
+vocabulary, ``--spec-k`` proposals a round), restored from
+``--draft-checkpoint-dir`` or random, and prints its stats::
 
     python -m tpu_on_k8s_torch.generate --config llama2_7b --batch 4 \\
         --prompt-len 512 --max-new-tokens 64
@@ -21,6 +23,7 @@ from tpu_on_k8s_torch.device import resolve_device
 from tpu_on_k8s_torch.models.decode import generate, speculative_generate
 from tpu_on_k8s_torch.models.params import init_params
 from tpu_on_k8s_torch.models.transformer import TransformerConfig
+from tpu_on_k8s_torch.train.checkpoint import load_params
 
 CONFIGS = {
     "llama2_7b": TransformerConfig.llama2_7b,
@@ -48,28 +51,42 @@ def main(argv=None) -> torch.Tensor:
                    help="greedy speculative decoding with a random draft of "
                         "this config (same vocabulary): a mechanism demo, "
                         "acceptance of a random draft is ~0")
-    p.add_argument("--draft-checkpoint-dir", default="")
+    p.add_argument("--checkpoint-dir", default="",
+                   help="restore the model's parameters from here (the "
+                        "newest generation and step)")
+    p.add_argument("--draft-checkpoint-dir", default="",
+                   help="restore the draft's parameters from here; without "
+                        "it the draft is random")
     p.add_argument("--spec-k", type=int, default=4,
                    help="draft proposals per speculative round")
     args = p.parse_args(argv)
-    if args.draft_checkpoint_dir:
-        raise NotImplementedError(
-            "--draft-checkpoint-dir is not ported to tpu_on_k8s_torch yet "
-            "(checkpoints (train/checkpoint.py) is a later slice)")
+    if args.draft_checkpoint_dir and not args.draft_config:
+        raise SystemExit("--draft-checkpoint-dir needs --draft-config")
     if args.draft_config and args.temperature:
         raise SystemExit("speculative decoding is greedy-only")
 
     dev = resolve_device(args.device)
     cfg = CONFIGS[args.config]()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = init_params(cfg, gen, dev)
+    if args.checkpoint_dir:
+        params, ck_gen, ck_step = load_params(args.checkpoint_dir, dev,
+                                              cfg.dtype)
+        print(f"restored generation={ck_gen} step={ck_step}")
+    else:
+        params = init_params(cfg, gen, dev)
+    # the prompt: the seed's first draw with a checkpoint, its draw after
+    # the random weights without one
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev, dtype=torch.int32)
     if args.draft_config:
         draft_cfg = CONFIGS[args.draft_config]()
-        draft_params = init_params(
-            draft_cfg, torch.Generator(device=dev).manual_seed(args.seed + 2),
-            dev)
+        if args.draft_checkpoint_dir:
+            draft_params, d_gen, d_step = load_params(
+                args.draft_checkpoint_dir, dev, draft_cfg.dtype)
+            print(f"restored draft generation={d_gen} step={d_step}")
+        else:
+            draft_params = init_params(draft_cfg, torch.Generator(
+                device=dev).manual_seed(args.seed + 2), dev)
         out, stats = speculative_generate(cfg, params, draft_cfg,
                                           draft_params, prompt,
                                           args.max_new_tokens, k=args.spec_k,

@@ -1,11 +1,13 @@
-"""Serving metrics: counters, histograms and gauges, scrapeable at /metrics.
+"""Serving and training metrics: counters, histograms and gauges, scrapeable at
+/metrics.
 
 Counterpart of the serving half of ``tpu_on_k8s/metrics/metrics.py``:
 ``ServingMetrics`` (request counters, time-to-first-token, queue-wait and
 latency histograms, slot and queue gauges), ``PagedKVMetrics`` (page
 occupancy, allocations, aliases, admission stalls) and ``SpecMetrics``
 (speculative decoding's proposals, acceptances, rollbacks and draft
-crashes). Each is backed by
+crashes), with the training half's ``TrainMetrics`` (the training loop's
+gauges and counters). Each is backed by
 ``prometheus_client`` when it imports and always mirrored in plain dicts,
 so tests and drivers read them without a scrape. ``exposition`` renders
 the scrape body with the client or, without it, with ``render_text`` over
@@ -238,6 +240,31 @@ class SpecMetrics(_MetricsBase):
         self._declare("spec_acceptance_rate", f"{ns}_acceptance_rate",
                       "gauge", "Running draft-token acceptance rate "
                       "(accepted / proposed over the engine's lifetime)")
+
+
+class TrainMetrics(_MetricsBase):
+    """The training loop's (``train/loop.py``'s ``TrainLoop``, fed at every
+    host-sync window): step-time, tokens-per-second and MFU gauges (MFU's
+    numerator from ``train/compile.py``'s ``train_step_flops``), the
+    unsynced dispatch depth, host-sync and async-checkpoint counters, the
+    watchdog's stalled-step counter, profiling hooks that degraded to
+    warnings, and the goodput gauge the ``TrainingAccountant`` feeds. The
+    reference's families, so one scrape schema serves both packages."""
+
+    def __init__(self, registry=None) -> None:
+        super().__init__()
+        if _prom is not None:
+            self.registry = registry or _prom.CollectorRegistry()
+        ns = "tpu_on_k8s_train"
+        for name in ("host_syncs", "checkpoints_enqueued",
+                     "checkpoint_failures", "stalled_steps",
+                     "profiling_failures"):
+            self._declare(name, f"{ns}_{name}", "counter",
+                          f"Training loop {name}")
+        for name in ("step_seconds", "tokens_per_sec", "mfu",
+                     "steps_inflight", "goodput_fraction"):
+            self._declare(name, f"{ns}_{name}", "gauge",
+                          f"Training loop {name}")
 
 
 def count_detached_callback(metrics, message: str) -> None:

@@ -11,6 +11,8 @@ as ``lm_head_q [D, V]`` int8 and ``lm_head_scale [V]``.
 
 ``from_jax_params`` carries a reference parameter tree across (the
 scan-stacked layout: every ``blocks/...`` leaf has a leading layer axis),
+``from_jax_train_state`` a reference training state (parameters, Adam
+moments, count and step: a JAX run stopped at step k continues here),
 ``handoff_from_numpy`` a reference engine's KV handoff;
 ``init_params`` draws fresh ones as Flax initialises them, on the device,
 from a seeded generator. Serving stores matrices in ``cfg.dtype`` (the
@@ -162,6 +164,52 @@ def from_jax_params(tree: Mapping, dtype: Optional[torch.dtype] = None,
     else:
         params["lm_head"] = mat(tree["lm_head"])
     return params
+
+
+def _adam_state(opt_state):
+    """The optax Adam state (the one leaf-holder with ``mu``, ``nu`` and
+    ``count``) inside a reference optimizer state of nested tuples."""
+    if all(hasattr(opt_state, f) for f in ("mu", "nu", "count")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            found = _adam_state(part)
+            if found is not None:
+                return found
+    return None
+
+
+def from_jax_train_state(cfg: TransformerConfig, state,
+                         device: str | torch.device = "cuda",
+                         **optimizer_kwargs):
+    """A reference ``TrainState`` (its leaves as numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, state)``: ``step``, ``params`` and an optax
+    ``opt_state`` holding Adam's ``mu``, ``nu`` and ``count``, in fp32 or
+    bf16) as the port's ``TrainState`` on ``device``: the model of ``cfg``
+    holding the fp32 masters, ``default_optimizer(**optimizer_kwargs)``
+    (the reference run's hyperparameters and moment dtypes) with both
+    moments and the count, and the step. The next port step is the
+    reference's next step."""
+    from tpu_on_k8s_torch.train.trainer import TrainState
+    from tpu_on_k8s_torch.train.optimizer import default_optimizer
+
+    dev = resolve_device(device)
+    adam = _adam_state(state.opt_state)
+    if adam is None:
+        raise ValueError("the optimizer state holds no Adam state (mu, nu, "
+                         "count)")
+    model = load_model(cfg, from_jax_params(state.params, torch.float32,
+                                            dev), dev)
+    optimizer = default_optimizer(model.parameters(), **optimizer_kwargs)
+    optimizer.init_state()
+    with torch.no_grad():
+        for key, tree in (("mu", adam.mu), ("nu", adam.nu)):
+            moments = from_jax_params(tree, torch.float32, dev)
+            for name, p in model.named_parameters():
+                # exact: a bf16 moment was widened to fp32 on the way in
+                optimizer.state[p][key].copy_(moments[name])
+    optimizer.count = int(np.asarray(adam.count))
+    return TrainState(model, optimizer, int(np.asarray(state.step)))
 
 
 def _host_tensor(leaf) -> torch.Tensor:

@@ -12,7 +12,9 @@ cache's batch rows independent slots, each appending at its own position.
 PyTorch idiom in place of Flax's: ``nn.Module``s whose parameters are plain
 tensors, a Python loop over per-layer blocks in place of ``nn.scan`` over
 stacked parameters, ``torch.utils.checkpoint`` in place of ``nn.remat``
-(selective, with a policy, where the reference's remat has one), and
+(selective, with a policy, where the reference's remat has one: "mlp",
+"dots", "dots_kernels"; the hand-written kernels are operators the
+policies see), and
 KV caches preallocated by ``decode.init_cache`` and written in place. Dense
 layers are ``Dense`` (an ``nn.Linear``: weight ``[out, in]``, the transpose
 of a Flax ``kernel``) stored in ``cfg.param_dtype`` and cast to ``cfg.dtype``
@@ -34,10 +36,9 @@ fp32 absmax scale per (token, kv head): ``quantize_kv`` at every append,
 ``dequantize_kv`` at every read over the cache.
 
 A config flag this port does not cover raises ``NotImplementedError``
-naming it (``check_supported``; ``check_trainable`` for the training
-forward); none is silently ignored. ``scan_unroll`` and
-``attn_block_q``/``attn_block_k`` are TPU compile and tiling knobs with no
-counterpart here: they are accepted and have no effect.
+naming it (``check_supported``); none is silently ignored. ``scan_unroll``
+and ``attn_block_q``/``attn_block_k`` are TPU compile and tiling knobs with
+no counterpart here: they are accepted and have no effect.
 """
 from __future__ import annotations
 
@@ -54,6 +55,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
     create_selective_checkpoint_contexts,
+    noop_context_fn,
 )
 
 from tpu_on_k8s_torch.ops.flash_attention import (
@@ -166,20 +168,6 @@ def check_supported(cfg: TransformerConfig) -> None:
         raise ValueError("use_bias is not supported with the int8 or "
                          "fused-qkv projection layouts")
     _raise_first(cfg, _NOT_PORTED)
-
-
-#: What the training forward does not cover on top of ``_NOT_PORTED``.
-_NOT_TRAINABLE = (
-    ("remat_policy",
-     lambda c: c.remat and c.remat_policy in ("dots", "dots_kernels"),
-     "the dots/dots_kernels remat policies"),
-)
-
-
-def check_trainable(cfg: TransformerConfig) -> None:
-    """``check_supported``, and the flags only the training forward reads."""
-    check_supported(cfg)
-    _raise_first(cfg, _NOT_TRAINABLE)
 
 
 def _rope_tables(positions: torch.Tensor, half: int, theta: float):
@@ -541,29 +529,65 @@ class MLP(nn.Module):
         return self.w_down(F.silu(gate) * up)
 
 
-#: The products whose outputs ``remat_policy="mlp"`` keeps: the dense
-#: ``mm`` and the ``int8_impl="xla"`` route's ``_int_mm``, as the
-#: reference's ``dots_with_no_batch_dims_saveable`` keeps ``dot_general``
-#: outputs (its bf16 dots and its int8 ``dot_general``). The hand-written
-#: int8 kernel is no dot, so its output is recomputed, as a ``pallas_call``'s
-#: is there.
-_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten._int_mm.default)
+#: The products with no batch dimension, the reference's
+#: ``dots_with_no_batch_dims_saveable`` dots: the dense ``mm`` (and
+#: ``addmm``) and the ``int8_impl="xla"`` route's ``_int_mm``. Batched
+#: products (``bmm``: the plain attention's) are not among them.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten._int_mm.default)
+#: The hand-written kernels a training forward runs, as operators: the
+#: flash forward (o and lse) and the int8 GEMM, the reference's
+#: ``pallas_call``s.
+_KERNELS = (torch.ops.tpu_on_k8s_torch.flash_fwd.default,
+            torch.ops.tpu_on_k8s_torch.int8_matmul.default)
 
 
 def _mlp_remat_policy(width: int):
-    """The policy of the MLP's selective checkpoint: save the outputs of the
-    products that read the MLP's input (gate and up, or the fused gate+up:
-    their first operand is ``width`` wide), recompute everything else. The
+    """The policy of the MLP's selective checkpoint (``remat_policy="mlp"``):
+    save the outputs of the dots that read the MLP's input (gate and up, or
+    the fused gate+up: their first operand is ``width`` wide), recompute
+    everything else, as the reference's MLP ``nn.remat`` with
+    ``dots_with_no_batch_dims_saveable`` keeps its dot outputs. The
     backward then re-runs only the SiLU and the product (and the int8
-    quantization and epilogue). ``w_down``'s output is not read by the
-    backward, so it is not kept; the reference's XLA drops its product from
-    the recompute, and torch's recompute stops before a dense ``mm`` whose
-    inputs are the last tensors it saves."""
+    quantization and epilogue); the int8 kernel is no dot, so its gate and
+    up products run again, as a ``pallas_call`` does there. ``w_down``'s
+    output is not read by the backward: its product (a dense ``mm``, or
+    ``int8_matmul``'s ``_Int8Product``) runs after the last tensor the
+    recompute needs is saved, so the recompute stops before it."""
     def policy(ctx, op, *args, **kwargs):
-        if op in _SAVED_PRODUCTS and args[0].shape[-1] == width:
+        if op in _DOTS and args[0].shape[-1] == width:
             return CheckpointPolicy.MUST_SAVE
         return CheckpointPolicy.PREFER_RECOMPUTE
     return policy
+
+
+def _dots_remat_policy(kernels: bool):
+    """The policy of a block's selective checkpoint under
+    ``remat_policy="dots"`` (``kernels=False``: the outputs of every
+    product with no batch dimension are saved, the hand-written kernels'
+    recomputed) or ``"dots_kernels"`` (the kernels' outputs saved too: the
+    flash forward's o and lse and the int8 GEMM's output), the reference's
+    ``dots_with_no_batch_dims_saveable`` and ``_dots_and_kernels_saveable``.
+    Everything else is recomputed."""
+    saved = _DOTS + _KERNELS if kernels else _DOTS
+
+    def policy(ctx, op, *args, **kwargs):
+        if op in saved:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
+def _block_remat_context(cfg: TransformerConfig):
+    """The ``context_fn`` of a whole block's checkpoint: the selective
+    policy for ``remat_policy`` "dots" and "dots_kernels", none for any
+    other ("full": everything recomputed, as the reference's ``nn.remat``
+    without a policy)."""
+    if cfg.remat_policy in ("dots", "dots_kernels"):
+        return functools.partial(
+            create_selective_checkpoint_contexts,
+            _dots_remat_policy(cfg.remat_policy == "dots_kernels"))
+    return noop_context_fn
 
 
 class Block(nn.Module):
@@ -606,20 +630,21 @@ class Transformer(nn.Module):
 
     With ``cfg.decode`` every call takes one ``KVCache`` per layer (build it
     with ``decode.decode_model``); otherwise no cache, and ``segments
-    [B, L]`` restrict attention to packed documents. ``remat`` with any
-    policy but "mlp" recomputes each whole block in the backward pass
-    (``torch.utils.checkpoint``, non-reentrant); "mlp" only the MLP."""
+    [B, L]`` restrict attention to packed documents. ``remat`` checkpoints
+    each whole block (``torch.utils.checkpoint``, non-reentrant) under
+    ``remat_policy`` "full" (all of it recomputed in the backward pass),
+    "dots" (the outputs of products with no batch dimension saved) and
+    "dots_kernels" (the hand-written kernels' outputs saved too); "mlp"
+    checkpoints only the MLP (``Block``)."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         if cfg.serve_int8_weights and not cfg.decode:
             raise ValueError("serve_int8_weights is a serving (decode) "
                              "recipe; training keeps bf16 weights")
-        if cfg.decode:
-            check_supported(cfg)
-        else:
-            check_trainable(cfg)
+        check_supported(cfg)
         self.cfg = cfg
+        self.remat_context = _block_remat_context(cfg)
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
                                               dtype=cfg.param_dtype))
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.n_layers))
@@ -707,7 +732,8 @@ class Transformer(nn.Module):
         for i, block in enumerate(self.blocks):
             if remat_block:
                 x = checkpoint(block, x, pos, None, segments,
-                               use_reentrant=False)
+                               use_reentrant=False,
+                               context_fn=self.remat_context)
             else:
                 x = block(x, pos, cache[i] if cache is not None else None,
                           segments)

@@ -17,8 +17,12 @@ reference's: q ``[B, H, L, D]``, k/v ``[B, Hkv, L, D]`` with GQA by index
   the counterpart of the reference's custom VJPs ``_flash``, ``_flash_seg``
   and ``flash_with_lse``.
 
-On a CUDA tensor each wrapper launches its kernel (bf16 or fp32) or raises;
-it never falls back. The kernels are built for head dims 64 and 128; any
+Each kernel runs behind an operator (``torch.library.custom_op``:
+``tpu_on_k8s_torch::flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``),
+which is what the dispatcher, a selective checkpoint's policy (the remat
+policies of ``models/transformer.py``) and ``torch.utils.flop_counter``
+(with a FLOP formula for each) see of it. On a CUDA tensor each wrapper
+launches its kernel (bf16 or fp32) or raises; it never falls back. The kernels are built for head dims 64 and 128; any
 other head dim up to 128 is zero-padded to the next of them before the
 launch and the outputs sliced back (``with_kernel_head_dim``), with the
 scale of the true head dim, as Mosaic pads the reference's head dim to its
@@ -41,6 +45,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 NEG_INF = -1e30  # large-but-finite: keeps exp(masked - m) an exact underflow
 
@@ -360,11 +365,66 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  segments: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dq from the forward's lse and ``delta`` (the counterpart of the
     reference's ``_dq_kernel`` call): ``csrc/flash_bwd.cu``'s dq kernel on
-    CUDA tensors, ``flash_bwd_dq_plain`` on CPU tensors. dq has q's dtype
-    and strides."""
-    global dq_launches
+    CUDA tensors, ``flash_bwd_dq_plain`` on CPU tensors, through the
+    operator ``tpu_on_k8s_torch::flash_bwd_dq``. dq has q's dtype and
+    strides."""
     _check_bwd(q, k, v, do, {"lse": lse, "delta": delta}, valid_len,
                segments)
+    return _dq_op(q, k, v, do, lse, delta, segments, causal, valid_len)
+
+
+def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  causal: bool = True, valid_len: int = 0,
+                  segments: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) from the forward's lse and ``delta`` (the counterpart of the
+    reference's ``_dkv_kernel`` call), the rep q-heads of a kv head summed:
+    ``csrc/flash_bwd.cu``'s dk/dv kernel on CUDA tensors,
+    ``flash_bwd_dkv_plain`` on CPU tensors, through the operator
+    ``tpu_on_k8s_torch::flash_bwd_dkv``. dk/dv have k's and v's dtype and
+    strides."""
+    _check_bwd(q, k, v, do, {"lse": lse, "delta": delta}, valid_len,
+               segments)
+    return _dkv_op(q, k, v, do, lse, delta, segments, causal, valid_len)
+
+
+def _require_cuda(q: torch.Tensor) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not "
+                         f"{q.device.type}")
+
+
+# The three kernels as operators (``torch.library.custom_op``): the
+# dispatcher sees a call as the operator, not as the ctypes launch inside
+# it, so a selective checkpoint's policy can save or recompute a kernel's
+# outputs and ``torch.utils.flop_counter`` counts its products (formulas
+# below). On CPU tensors each runs its plain twin.
+
+@torch.library.custom_op("tpu_on_k8s_torch::flash_fwd", mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            segments: Optional[torch.Tensor], causal: bool,
+            valid_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, valid_len, segments)
+    _require_cuda(q)
+    return with_kernel_head_dim(
+        lambda q, k, v, scale: _launch(q, k, v, causal, valid_len, segments,
+                                       scale), (q, k, v), 1)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, segments, causal, valid_len):
+    b, h, l, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, 1, l), dtype=torch.float32)
+
+
+@torch.library.custom_op("tpu_on_k8s_torch::flash_bwd_dq", mutates_args=())
+def _dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+           segments: Optional[torch.Tensor], causal: bool,
+           valid_len: int) -> torch.Tensor:
+    global dq_launches
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, valid_len,
                                   segments)
@@ -381,19 +441,17 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq
 
 
-def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-                  causal: bool = True, valid_len: int = 0,
-                  segments: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) from the forward's lse and ``delta`` (the counterpart of the
-    reference's ``_dkv_kernel`` call), the rep q-heads of a kv head summed:
-    ``csrc/flash_bwd.cu``'s dk/dv kernel on CUDA tensors,
-    ``flash_bwd_dkv_plain`` on CPU tensors. dk/dv have k's and v's dtype
-    and strides."""
+@_dq_op.register_fake
+def _(q, k, v, do, lse, delta, segments, causal, valid_len):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("tpu_on_k8s_torch::flash_bwd_dkv", mutates_args=())
+def _dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+            segments: Optional[torch.Tensor], causal: bool,
+            valid_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
     global dkv_launches
-    _check_bwd(q, k, v, do, {"lse": lse, "delta": delta}, valid_len,
-               segments)
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
                                    valid_len, segments)
@@ -410,29 +468,56 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dk, dv
 
 
-def _require_cuda(q: torch.Tensor) -> None:
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu, not "
-                         f"{q.device.type}")
+@_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, segments, causal, valid_len):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+def causal_pairs(l: int, causal: bool) -> int:
+    """The (query, key) pairs that attention of length ``l`` keeps, causal
+    or not: what the FLOP formulas count (``valid_len`` and segment masks
+    are not subtracted)."""
+    return l * (l + 1) // 2 if causal else l * l
+
+
+# Each kernel's products over the kept pairs, 2·B·H·d FLOPs a pair and
+# product with the true head dim d: the forward's 2 (QKᵀ, PV), dq's 3 (QKᵀ,
+# dO Vᵀ, dS K) and dk/dv's 4 (QKᵀ, dO Vᵀ, Pᵀ dO, dSᵀ Q).
+
+@register_flop_formula(torch.ops.tpu_on_k8s_torch.flash_fwd)
+def _fwd_flops(q_shape, k_shape, v_shape, segments, causal, valid_len, *,
+               out_shape=None, **kwargs) -> int:
+    b, h, l, d = q_shape
+    return 4 * b * h * d * causal_pairs(l, causal)
+
+
+@register_flop_formula(torch.ops.tpu_on_k8s_torch.flash_bwd_dq)
+def _dq_flops(q_shape, k_shape, v_shape, do, lse, delta, segments, causal,
+              valid_len, *, out_shape=None, **kwargs) -> int:
+    b, h, l, d = q_shape
+    return 6 * b * h * d * causal_pairs(l, causal)
+
+
+@register_flop_formula(torch.ops.tpu_on_k8s_torch.flash_bwd_dkv)
+def _dkv_flops(q_shape, k_shape, v_shape, do, lse, delta, segments, causal,
+               valid_len, *, out_shape=None, **kwargs) -> int:
+    b, h, l, d = q_shape
+    return 8 * b * h * d * causal_pairs(l, causal)
 
 
 def flash_with_lse_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        causal: bool = True, valid_len: int = 0,
                        segments: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention forward with the per-row logsumexp.
+    """Attention forward with the per-row logsumexp, through the operator
+    ``tpu_on_k8s_torch::flash_fwd``.
 
     q ``[B, H, L, D]``, k/v ``[B, Hkv, L, D]`` (any strides with a
     contiguous head dim) → ``(o, lse)``: o in q's dtype and layout, lse fp32
     ``[B, H, 1, L]``. ``valid_len`` > 0 masks keys at positions ≥ it;
     ``segments [B, L]`` keeps only same-segment pairs."""
     _check(q, k, v, valid_len, segments)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, valid_len, segments)
-    _require_cuda(q)
-    return with_kernel_head_dim(
-        lambda q, k, v, scale: _launch(q, k, v, causal, valid_len, segments,
-                                       scale), (q, k, v), 1)
+    return _fwd_op(q, k, v, segments, causal, valid_len)
 
 
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

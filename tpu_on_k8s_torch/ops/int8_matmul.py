@@ -25,7 +25,13 @@ result is ``[..., N]``.
   ``csrc/int8_matmul.cu`` (the counterpart of ``_mm_kernel``): the int32
   accumulator never reaches device memory. The kernel masks ragged M, N and
   K itself, so it takes every shape; there is no fallback. ``bm``/``bn``/
-  ``bk`` are TPU tiling knobs: accepted, no effect.
+  ``bk`` are TPU tiling knobs: accepted, no effect. The kernel runs behind
+  the operator ``tpu_on_k8s_torch::int8_matmul`` (on CPU tensors, the plain
+  twin), which remat policies and ``torch.utils.flop_counter`` see.
+
+The gradient half (``_Int8Grad``: it saves the unquantized x and w) runs
+before the product (``_Int8Product``), so a checkpoint's recompute that
+needs only x and w stops before the quantization and the GEMM.
 
 On CPU tensors both run ``int8_matmul_plain``, whose int32 product is exact
 (an fp64 product of int8 values: every partial sum is an integer below
@@ -41,6 +47,11 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import (
+    flop_registry,
+    mm_flop,
+    register_flop_formula,
+)
 
 #: Launches of ``csrc/int8_matmul.cu`` since the count was last set to 0.
 launches = 0
@@ -169,6 +180,35 @@ def int8_matmul_kernel(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("tpu_on_k8s_torch::int8_matmul", mutates_args=())
+def _kernel_op(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
+               sw: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """The ``int8_impl="pallas"`` product as an operator: one launch of
+    ``int8_matmul_kernel`` on CUDA tensors, ``int8_matmul_plain`` on CPU
+    tensors. The dispatcher sees the operator, so a selective checkpoint's
+    policy can save or recompute its output and
+    ``torch.utils.flop_counter`` counts it."""
+    if xq.device.type == "cpu":
+        return int8_matmul_plain(xq, sx, wq, sw, out_dtype)
+    return int8_matmul_kernel(xq, sx, wq, sw, out_dtype)
+
+
+@_kernel_op.register_fake
+def _(xq, sx, wq, sw, out_dtype):
+    return xq.new_empty((xq.shape[0], wq.shape[0]), dtype=out_dtype)
+
+
+@register_flop_formula(torch.ops.tpu_on_k8s_torch.int8_matmul)
+def _kernel_flops(xq_shape, sx_shape, wq_shape, *args, out_shape=None,
+                  **kwargs) -> int:
+    return 2 * xq_shape[0] * wq_shape[0] * xq_shape[1]
+
+
+if torch.ops.aten._int_mm not in flop_registry:
+    # the int8_impl="xla" route's product on the card: 2·M·N·K
+    register_flop_formula(torch.ops.aten._int_mm, get_raw=True)(mm_flop)
+
+
 def _forward(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
              impl: str) -> torch.Tensor:
     if w.dim() != 2 or x.shape[-1] != w.shape[1]:
@@ -177,25 +217,33 @@ def _forward(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
     lead, n = x.shape[:-1], w.shape[0]
     xq, sx = _quant_rows(x.reshape(-1, x.shape[-1]))
     wq, sw = _quant_rows(w)
-    if x.device.type == "cpu":
-        y = int8_matmul_plain(xq, sx, wq, sw, out_dtype)
-    elif x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int8 matmul runs on cuda or cpu, not "
                          f"{x.device.type}")
-    elif impl == "pallas":
-        y = int8_matmul_kernel(xq, sx, wq, sw, out_dtype)
+    if impl == "pallas":
+        y = _kernel_op(xq, sx, wq, sw, out_dtype)
+    elif x.device.type == "cpu":
+        y = int8_matmul_plain(xq, sx, wq, sw, out_dtype)
     else:
         y = _int_mm(xq, sx, wq, sw, out_dtype)
     return y.reshape(*lead, n)
 
 
-class _Int8Matmul(torch.autograd.Function):
-    """Int8 forward; the backward from the saved unquantized x and w."""
+class _Int8Grad(torch.autograd.Function):
+    """The gradient half of an int8 matmul: saves the unquantized x and w
+    and returns a stand-in for the output (zeros of its shape, one element
+    broadcast); its backward is the reference's ``_bwd``, ``dx = g·w`` and
+    ``dw = gᵀ·x`` in the promoted types. It runs, and saves, before the
+    product does (``_Int8Product``), so a checkpoint's recompute that needs
+    only x and w stops before the quantization and the GEMM, as the
+    reference's XLA drops a product whose output the backward never reads
+    (w_down's, under ``remat_policy="mlp"``)."""
 
     @staticmethod
-    def forward(ctx, x, w, out_dtype, impl):
+    def forward(ctx, x, w, out_dtype):
         ctx.save_for_backward(x, w)
-        return _forward(x, w, out_dtype or x.dtype, impl)
+        return x.new_zeros((), dtype=out_dtype).expand(*x.shape[:-1],
+                                                       w.shape[0])
 
     @staticmethod
     def backward(ctx, g):
@@ -209,7 +257,28 @@ class _Int8Matmul(torch.autograd.Function):
             g2 = g.reshape(-1, g.shape[-1]).to(ct)
             dw = torch.matmul(g2.t(), x.reshape(-1, x.shape[-1]).to(ct)
                               ).to(w.dtype)
-        return dx, dw, None, None
+        return dx, dw, None
+
+
+class _Int8Product(torch.autograd.Function):
+    """The int8 forward of detached x and w; its output's gradient flows
+    unchanged into ``_Int8Grad``'s stand-in."""
+
+    @staticmethod
+    def forward(ctx, stand_in, x, w, out_dtype, impl):
+        return _forward(x, w, out_dtype, impl)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None, None
+
+
+def _apply(x: torch.Tensor, w: torch.Tensor,
+           out_dtype: Optional[torch.dtype], impl: str) -> torch.Tensor:
+    out_dtype = out_dtype or x.dtype
+    stand_in = _Int8Grad.apply(x, w, out_dtype)
+    return _Int8Product.apply(stand_in, x.detach(), w.detach(), out_dtype,
+                              impl)
 
 
 def int8_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -217,7 +286,7 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor,
     """``x @ wᵀ`` with an int8 forward and the exact backward: x ``[..., K]``,
     w ``[N, K]`` → ``[..., N]`` in ``out_dtype`` (default x's dtype; fp32 for
     the lm head's logits). The ``int8_impl="xla"`` route."""
-    return _Int8Matmul.apply(x, w, out_dtype, "xla")
+    return _apply(x, w, out_dtype, "xla")
 
 
 def int8_matmul_pallas(x: torch.Tensor, w: torch.Tensor,
@@ -228,4 +297,4 @@ def int8_matmul_pallas(x: torch.Tensor, w: torch.Tensor,
     kernel on the card (``int8_impl="pallas"``). ``bm``/``bn``/``bk`` are
     the TPU kernel's tiles and have no effect."""
     del bm, bn, bk
-    return _Int8Matmul.apply(x, w, out_dtype, "pallas")
+    return _apply(x, w, out_dtype, "pallas")

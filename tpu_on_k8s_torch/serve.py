@@ -1,8 +1,9 @@
 """Continuous-batching serving on the card (the port's production serving
 entry point).
 
-Counterpart of ``examples/serve.py``: random weights from ``--seed`` (no
-checkpoint restore yet), synthetic ragged traffic (seeded prompts arriving
+Counterpart of ``examples/serve.py``: the parameters of a checkpoint
+(``--checkpoint-dir``, as ``train_llama --checkpoint-dir`` writes it) or
+random weights from ``--seed``, synthetic ragged traffic (seeded prompts arriving
 at ``--arrival`` requests per engine step on average) and
 ``models.serving.ContinuousBatchingEngine``; a real frontend would call
 ``engine.submit()`` from its request handler and ``engine.step()`` on a
@@ -40,10 +41,10 @@ from tpu_on_k8s_torch.metrics import serve as serve_metrics
 from tpu_on_k8s_torch.models.decode import truncated_draft
 from tpu_on_k8s_torch.models.params import init_params
 from tpu_on_k8s_torch.models.serving import ContinuousBatchingEngine
+from tpu_on_k8s_torch.train.checkpoint import load_params
 
 #: example flag → the later slice that brings it
 _LATER = {
-    "checkpoint_dir": "checkpoints (train/checkpoint.py)",
     "hf_model": "HF interop (models/convert.py)",
     "model_axis": "mesh serving (_ShardPlan)",
     "fsdp": "mesh serving (_ShardPlan)",
@@ -91,7 +92,9 @@ def main(argv=None) -> dict:
                         "0 drafts with the target itself")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
-    p.add_argument("--checkpoint-dir", default="")
+    p.add_argument("--checkpoint-dir", default="",
+                   help="restore the model's parameters from here (the "
+                        "newest generation and step)")
     p.add_argument("--hf-model", default="")
     p.add_argument("--model-axis", type=int, default=1)
     p.add_argument("--fsdp", type=int, default=0)
@@ -109,8 +112,13 @@ def main(argv=None) -> dict:
 
     dev = resolve_device(args.device)
     cfg = CONFIGS[args.config]()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
-        args.seed), dev)
+    if args.checkpoint_dir:
+        params, ck_gen, ck_step = load_params(args.checkpoint_dir, dev,
+                                              cfg.dtype)
+        print(f"restored generation={ck_gen} step={ck_step}")
+    else:
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            args.seed), dev)
     metrics = ServingMetrics()
     spec_metrics = SpecMetrics() if args.spec else None
     draft_cfg = draft_params = None

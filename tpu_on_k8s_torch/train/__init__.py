@@ -1,6 +1,7 @@
 """Training on one card: the counterpart of ``tpu_on_k8s/train/`` (the step,
-the loss and the optimizer; the loop, checkpoints and the mesh are later
-slices)."""
+the loss, the optimizer, ``TrainLoop`` in ``loop.py``, checkpoints in
+``checkpoint.py`` and the FLOP count in ``compile.py``; the mesh is a later
+slice)."""
 from tpu_on_k8s_torch.train.optimizer import (  # noqa: F401
     ClipAdamW,
     default_optimizer,
@@ -8,10 +9,13 @@ from tpu_on_k8s_torch.train.optimizer import (  # noqa: F401
 )
 from tpu_on_k8s_torch.train.trainer import (  # noqa: F401
     Trainer,
+    TrainState,
     chunked_cross_entropy,
     cross_entropy_loss,
     make_eval_step,
+    make_grads_fn,
     make_train_step,
     packed_loss_mask,
     packed_positions_and_segments,
+    train_state_template,
 )

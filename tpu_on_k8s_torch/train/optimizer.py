@@ -88,6 +88,19 @@ class ClipAdamW(torch.optim.Optimizer):
     def _params(self):
         return [p for group in self.param_groups for p in group["params"]]
 
+    def init_state(self) -> None:
+        """Allocate both moments (zeros, in ``mu_dtype`` / ``nu_dtype``) of
+        every parameter that has none yet: what the first ``step`` would
+        make, so a checkpoint of a fresh run, or a template to restore
+        into, holds them."""
+        for p in self._params():
+            state = self.state[p]
+            if not state:
+                state["mu"] = torch.zeros_like(
+                    p, dtype=self.mu_dtype or p.dtype)
+                state["nu"] = torch.zeros_like(
+                    p, dtype=self.nu_dtype or p.dtype)
+
     @torch.no_grad()
     def step(self, closure=None) -> torch.Tensor:
         if closure is not None:
@@ -112,10 +125,9 @@ class ClipAdamW(torch.optim.Optimizer):
         g = p.grad
         g = torch.where(norm < self.max_grad_norm, g,
                         (g / norm.to(g.dtype)) * self.max_grad_norm)
+        if not self.state[p]:
+            self.init_state()
         state = self.state[p]
-        if not state:
-            state["mu"] = torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
-            state["nu"] = torch.zeros_like(p, dtype=self.nu_dtype or p.dtype)
         f32 = torch.float32
         count = np.float32(self.count)
         bc1 = float(np.float32(1) - np.float32(b1) ** count)

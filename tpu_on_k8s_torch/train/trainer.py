@@ -3,20 +3,25 @@
 
 Next-token cross-entropy on fp32 logits (or chunked, never materialising
 them), packed-window positions, segments and loss masks, gradient
-accumulation weighted by counted targets, and ``ClipAdamW`` (optax's chain).
-PyTorch idiom in place of JAX's: the model's parameters and the optimizer's
-state are the training state and are updated in place; a step is eager, not
-jitted. There is no mesh: the reference's sharding rules and its
-``TrainState`` are for the slice that ports mesh sharding.
+accumulation weighted by counted targets, ``ClipAdamW`` (optax's chain),
+the ``TrainState`` a checkpoint holds and ``Trainer.fit``, which drives
+``train/loop.py``'s ``TrainLoop``. PyTorch idiom in place of JAX's: the
+model's parameters and the optimizer's state are the training state and are
+updated in place (a ``TrainState`` names them, with the step); a step is
+eager, not jitted. There is no mesh: the reference's sharding rules are for
+the slice that ports mesh sharding.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from tpu_on_k8s_torch.models.transformer import Transformer
+from tpu_on_k8s_torch.device import resolve_device
+from tpu_on_k8s_torch.models.params import load_model
+from tpu_on_k8s_torch.models.transformer import Transformer, TransformerConfig
 from tpu_on_k8s_torch.train.optimizer import ClipAdamW, default_optimizer
 
 
@@ -114,8 +119,8 @@ def _make_loss_fn(model: Transformer, loss_chunks: int,
             logits = model(inputs, positions, segments=segments)
             ce = cross_entropy_loss(logits, targets, mask=loss_mask)
         weight = (loss_mask.sum() if loss_mask is not None
-                  else torch.tensor(float(inputs.numel()),
-                                    device=tokens.device))
+                  else torch.full((), float(inputs.numel()),
+                                  device=tokens.device))
         return ce, weight
 
     return loss_fn
@@ -136,42 +141,59 @@ def make_eval_step(model: Transformer, loss_chunks: int = 0,
     return step
 
 
+GradsFn = Callable[[torch.Tensor], Tuple[torch.Tensor, List[torch.Tensor]]]
+
+
+def make_grads_fn(model: Transformer, loss_chunks: int = 0,
+                  grad_accum: int = 1, segment_eos: Optional[int] = None
+                  ) -> GradsFn:
+    """The step's forward and backward on a [B, L+1] token batch, without
+    the update: tokens → (loss, one gradient per parameter).
+
+    ``grad_accum`` > 1 splits the batch into that many microbatches and sums
+    their gradients, each weighted by its counted targets, in fp32, then
+    divides by the total weight: the full-batch mean even when packed loss
+    masks count different targets per microbatch."""
+    loss_fn = _make_loss_fn(model, loss_chunks, segment_eos)
+    params = list(model.parameters())
+
+    def grads_fn(tokens: torch.Tensor):
+        if grad_accum <= 1:
+            loss, _ = loss_fn(tokens)
+            return loss, list(torch.autograd.grad(loss, params))
+        b = tokens.shape[0]
+        if b % grad_accum:
+            raise ValueError(
+                f"batch {b} not divisible by grad_accum {grad_accum}")
+        gsum = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        lsum = wsum = torch.zeros((), device=tokens.device)
+        for mb in tokens.reshape(grad_accum, b // grad_accum, -1):
+            mloss, w = loss_fn(mb)
+            for s, g in zip(gsum, torch.autograd.grad(mloss, params)):
+                s.add_(w * g.float())
+            lsum, wsum = lsum + w * mloss.detach(), wsum + w
+        wsum = torch.clamp(wsum, min=1.0)
+        return lsum / wsum, [(s / wsum).to(p.dtype)
+                             for s, p in zip(gsum, params)]
+
+    return grads_fn
+
+
 def make_train_step(model: Transformer, optimizer: ClipAdamW,
                     loss_chunks: int = 0, grad_accum: int = 1,
                     segment_eos: Optional[int] = None
                     ) -> Callable[[torch.Tensor], Dict[str, object]]:
     """One training step on a [B, L+1] token batch (next-token CE, shifted
-    inside): gradients into each parameter's ``.grad``, then one optimizer
-    step. Returns {"loss", "grad_norm" (before the clip)} as 0-d device
-    tensors and "step", the optimizer's count before this step.
-
-    ``grad_accum`` > 1 splits the batch into that many microbatches and sums
-    their gradients, each weighted by its counted targets, in fp32, then
-    divides by the total weight before the one update: the full-batch mean
-    even when packed loss masks count different targets per microbatch."""
-    loss_fn = _make_loss_fn(model, loss_chunks, segment_eos)
+    inside): ``make_grads_fn``'s gradients into each parameter's ``.grad``,
+    then one optimizer step. Returns {"loss", "grad_norm" (before the
+    clip)} as 0-d device tensors and "step", the optimizer's count before
+    this step."""
+    grads_fn = make_grads_fn(model, loss_chunks, grad_accum, segment_eos)
     params = list(model.parameters())
 
     def step(tokens: torch.Tensor) -> Dict[str, object]:
         count = optimizer.count
-        if grad_accum <= 1:
-            loss, _ = loss_fn(tokens)
-            grads = torch.autograd.grad(loss, params)
-        else:
-            b = tokens.shape[0]
-            if b % grad_accum:
-                raise ValueError(
-                    f"batch {b} not divisible by grad_accum {grad_accum}")
-            gsum = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-            lsum = wsum = torch.zeros((), device=tokens.device)
-            for mb in tokens.reshape(grad_accum, b // grad_accum, -1):
-                mloss, w = loss_fn(mb)
-                for s, g in zip(gsum, torch.autograd.grad(mloss, params)):
-                    s.add_(w * g.float())
-                lsum, wsum = lsum + w * mloss.detach(), wsum + w
-            wsum = torch.clamp(wsum, min=1.0)
-            grads = [(s / wsum).to(p.dtype) for s, p in zip(gsum, params)]
-            loss = lsum / wsum
+        loss, grads = grads_fn(tokens)
         for p, g in zip(params, grads):
             p.grad = g
         grad_norm = optimizer.step()
@@ -183,10 +205,83 @@ def make_train_step(model: Transformer, optimizer: ClipAdamW,
     return step
 
 
+@dataclasses.dataclass
+class TrainState:
+    """What a checkpoint holds of a run: the model (its parameters, the fp32
+    masters), the optimizer (both Adam moments in their stored dtypes and
+    ``count``, which sets the schedule's learning rate and the bias
+    correction) and the step. Updated in place by each step; the
+    counterpart of the reference's ``TrainState(step, params, opt_state)``.
+
+    ``state_dict()`` is the flat mapping a checkpoint stores, of the live
+    tensors (no copies): ``params/<name>``, ``mu/<name>``, ``nu/<name>``
+    for every parameter, and ``count`` and ``step`` as 0-d int64 tensors
+    on the CPU. ``load_state_dict`` writes such a mapping back in place."""
+
+    model: Transformer
+    optimizer: ClipAdamW
+    step: int = 0
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.model.named_parameters())
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        self.optimizer.init_state()
+        out = {}
+        for name, p in self.model.named_parameters():
+            out[f"params/{name}"] = p.data
+        for name, p in self.model.named_parameters():
+            out[f"mu/{name}"] = self.optimizer.state[p]["mu"]
+        for name, p in self.model.named_parameters():
+            out[f"nu/{name}"] = self.optimizer.state[p]["nu"]
+        out["count"] = torch.tensor(self.optimizer.count, dtype=torch.int64)
+        out["step"] = torch.tensor(self.step, dtype=torch.int64)
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: Dict[str, torch.Tensor]) -> None:
+        own = self.state_dict()
+        if set(own) != set(sd):
+            raise KeyError(f"state keys differ: missing "
+                           f"{sorted(set(own) - set(sd))[:4]}, unexpected "
+                           f"{sorted(set(sd) - set(own))[:4]}")
+        for key, t in own.items():
+            if key not in ("count", "step") and t is not sd[key]:
+                t.copy_(sd[key])
+        self.optimizer.count = int(sd["count"])
+        self.step = int(sd["step"])
+
+
+def train_state_template(cfg: TransformerConfig,
+                         device: str | torch.device = "cuda",
+                         **optimizer_kwargs) -> TrainState:
+    """An empty ``TrainState`` to restore a checkpoint into, the counterpart
+    of the reference's ``abstract_train_state``: a model of ``cfg`` whose
+    parameters are allocated on ``device`` and not initialised, and a
+    ``default_optimizer(**optimizer_kwargs)`` over them with both moments
+    allocated (in ``mu_dtype`` / ``nu_dtype``, as the run that saved used)."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        shapes = Transformer(cfg).state_dict()
+    model = load_model(cfg, {name: torch.empty_like(t, device=dev)
+                             for name, t in shapes.items()}, dev)
+    optimizer = default_optimizer(model.parameters(), **optimizer_kwargs)
+    optimizer.init_state()
+    return TrainState(model, optimizer)
+
+
 class Trainer:
     """A model, its optimizer (``default_optimizer`` over the model's
-    parameters unless given) and the steps built from them: ``train_step``
-    and ``eval_step`` on [B, L+1] token batches on the model's device."""
+    parameters unless given) and the steps built from them, on [B, L+1]
+    token batches on the model's device.
+
+    ``train_step(tokens)`` and ``eval_step(tokens)`` take one batch;
+    ``train_step(state, tokens)`` → ``(state, metrics)`` and
+    ``eval_step(state, tokens)`` are the reference's forms, on the
+    ``TrainState`` of this trainer's model and optimizer (``state()``, or
+    a restored ``train_state_template`` that the trainer was built on).
+    ``fit`` drives ``TrainLoop``."""
 
     def __init__(self, model: Transformer,
                  optimizer: Optional[ClipAdamW] = None,
@@ -194,12 +289,49 @@ class Trainer:
                  segment_eos: Optional[int] = None):
         self.model = model
         self.optimizer = optimizer or default_optimizer(model.parameters())
+        self._grads = make_grads_fn(model, loss_chunks, grad_accum,
+                                    segment_eos)
         self._step = make_train_step(model, self.optimizer, loss_chunks,
                                      grad_accum, segment_eos)
         self._eval = make_eval_step(model, loss_chunks, segment_eos)
 
-    def train_step(self, tokens: torch.Tensor) -> Dict[str, object]:
-        return self._step(tokens)
+    def state(self) -> TrainState:
+        """This trainer's ``TrainState``, at the optimizer's count."""
+        return TrainState(self.model, self.optimizer, self.optimizer.count)
 
-    def eval_step(self, tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return self._eval(tokens)
+    def _check(self, state: TrainState) -> None:
+        if state.model is not self.model or (
+                state.optimizer is not self.optimizer):
+            raise ValueError("the TrainState is not this trainer's model and "
+                             "optimizer")
+
+    def train_step(self, *args):
+        """``train_step(tokens)`` → metrics, or ``train_step(state,
+        tokens)`` → ``(state, metrics)`` with ``state.step`` advanced."""
+        if len(args) == 1:
+            return self._step(args[0])
+        state, tokens = args
+        self._check(state)
+        metrics = self._step(tokens)
+        state.step += 1
+        return state, metrics
+
+    def eval_step(self, *args) -> Dict[str, torch.Tensor]:
+        """Forward-only loss and perplexity: ``eval_step(tokens)`` or
+        ``eval_step(state, tokens)``. No state changes."""
+        if len(args) == 2:
+            self._check(args[0])
+        return self._eval(args[-1])
+
+    def fit(self, state: TrainState, batches, steps: int, **loop_kwargs):
+        """Drive ``steps`` training steps through ``TrainLoop``
+        (device-resident metrics, bounded dispatch, non-blocking
+        checkpoints; ``train/loop.py``), as the reference's ``fit``.
+        ``batches`` yields device-ready token batches (pair with
+        ``data/prefetch.py``'s ``device_prefetch``). Returns a
+        ``LoopResult``."""
+        from tpu_on_k8s_torch.train.loop import TrainLoop
+
+        self._check(state)
+        return TrainLoop(self.train_step, state, batches,
+                         **loop_kwargs).run(steps)

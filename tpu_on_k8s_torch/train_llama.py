@@ -3,56 +3,61 @@
 Counterpart of ``examples/train_llama.py``: random fp32 master weights from
 ``--seed``, bf16 compute, the reference's optimizer
 (``default_optimizer(warmup_steps=10, decay_steps=max(steps, 11))``), remat
-and flash attention (whose backward runs the port's two CUDA kernels), on
-synthetic tokens (one fixed batch, as the example) or a packed record file
-(``--data``). Each step prints the example's ``[elastic-metrics]`` line::
+(``--remat-policy`` full, mlp, dots or dots_kernels) and flash attention
+(whose backward runs the port's two CUDA kernels), on synthetic tokens (one
+fixed batch, as the example) or a packed record file (``--data``), driven
+by ``Trainer.fit`` (``train/loop.py``'s ``TrainLoop``) with the batches
+copied ahead by ``data/prefetch.py``'s ``device_prefetch``. Each step
+prints the example's ``[elastic-metrics]`` line (a host-sync window of
+one step: the line the autoscaler scrapes comes once a step, as the
+example's)::
 
     python -m tpu_on_k8s_torch.train_llama --config llama2_1b --batch 4 \\
         --seq-len 2048 --steps 8
-    python -m tpu_on_k8s_torch.train_llama --config tiny --device cpu
+    python -m tpu_on_k8s_torch.train_llama --config tiny --device cpu \\
+        --checkpoint-dir /tmp/ckpt --eval-data eval.bin --eval-every 10
 
-``--int8`` is the example's int8 recipe: int8-forward MLP matmuls with the
-fused gate+up weight (``mlp_int8``, ``mlp_fused_gateup``), an exact bf16
-backward (``ops/int8_matmul.py``). There is no mesh: one process, one card.
-Flags of the example that belong to later slices (``--eval-data``,
-``--checkpoint-dir``, ring and ulysses attention) raise
+``--eval-data`` loads up to 8 held-out batches once, up front, and
+evaluates them every ``--eval-every`` steps and once at the end (unless
+that evaluation just ran); ``--checkpoint-dir`` saves the ``TrainState`` at
+the end (``train/checkpoint.py``), which ``generate`` and ``serve``
+restore with their own ``--checkpoint-dir``. ``--int8`` is the example's
+int8 recipe: int8-forward MLP matmuls with the fused gate+up weight
+(``mlp_int8``, ``mlp_fused_gateup``), an exact bf16 backward
+(``ops/int8_matmul.py``). There is no mesh: one process, one card. Ring and
+ulysses attention belong to a later slice and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import time
+import itertools
+import math
 
 import numpy as np
 import torch
 
+from tpu_on_k8s_torch.data.prefetch import device_prefetch
 from tpu_on_k8s_torch.device import resolve_device
 from tpu_on_k8s_torch.generate import CONFIGS
 from tpu_on_k8s_torch.models.params import init_params, load_model
 from tpu_on_k8s_torch.train import Trainer, default_optimizer
-
-#: example flag → the later slice that brings it
-_LATER = {
-    "eval_data": "eval data and the training loop (train/loop.py)",
-    "checkpoint_dir": "checkpoints (train/checkpoint.py)",
-}
+from tpu_on_k8s_torch.train.checkpoint import CheckpointManager
 
 
 class StepTimer:
     """Prints the observation line the elastic autoscaler scrapes from
-    worker-0 logs (the reference's ``examples/common.py::StepTimer``)."""
+    worker-0 logs (the reference's ``examples/common.py::StepTimer``), once
+    a host-sync window, with the window's time a step."""
 
     def __init__(self, tokens_per_step: int):
         self.tokens_per_step = tokens_per_step
-        self.t0 = time.perf_counter()
 
-    def report(self, step: int, loss: float) -> None:
-        dt = time.perf_counter() - self.t0
-        self.t0 = time.perf_counter()
-        print(f"[elastic-metrics] epoch=0 batch={step} latency={dt:.4f} "
+    def report(self, step: int, loss: float, seconds: float) -> None:
+        print(f"[elastic-metrics] epoch=0 batch={step} latency={seconds:.4f} "
               f"loss={loss:.4f} "
-              f"tok_s={self.tokens_per_step / max(dt, 1e-9):.1f}",
+              f"tok_s={self.tokens_per_step / max(seconds, 1e-9):.1f}",
               flush=True)
 
 
@@ -64,7 +69,8 @@ def main(argv=None) -> float:
     p.add_argument("--steps", type=int, default=50)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--remat", default="true")
-    p.add_argument("--remat-policy", default="mlp", choices=["full", "mlp"])
+    p.add_argument("--remat-policy", default="mlp",
+                   choices=["full", "dots", "dots_kernels", "mlp"])
     p.add_argument("--attn", default="flash",
                    choices=["xla", "flash", "ring", "ulysses"])
     p.add_argument("--grad-accum", type=int, default=1,
@@ -80,16 +86,17 @@ def main(argv=None) -> float:
     p.add_argument("--int8", action="store_true",
                    help="int8-forward MLP matmuls + fused gate+up (exact "
                         "bf16 backward; ops/int8_matmul.py)")
-    p.add_argument("--eval-data", default="")
-    p.add_argument("--checkpoint-dir", default="")
+    p.add_argument("--eval-data", default="",
+                   help="held-out packed records file; evaluated with the "
+                        "shared-objective forward-only eval step")
+    p.add_argument("--eval-every", type=int, default=0,
+                   help="evaluate every N steps (0 = only at the end; "
+                        "needs --eval-data)")
+    p.add_argument("--checkpoint-dir", default="",
+                   help="save the training state here at the end")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     args = p.parse_args(argv)
-    for flag, later in _LATER.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported to "
-                f"tpu_on_k8s_torch yet ({later} is a later slice)")
     if args.attn in ("ring", "ulysses"):
         raise NotImplementedError(
             f"--attn {args.attn} is not ported to tpu_on_k8s_torch yet "
@@ -120,23 +127,64 @@ def main(argv=None) -> float:
         loader = DataLoader(FixedRecordDataset(args.data, (seq + 1,),
                                                np.int32),
                             batch_size=args.batch, seed=args.seed)
-        next_batch = lambda: torch.from_numpy(next(loader)).to(dev)
-        batch = next_batch()
+        source = loader
     else:
-        batch = torch.randint(0, cfg.vocab_size, (args.batch, seq + 1),
-                              generator=gen, device=dev, dtype=torch.int32)
+        source = itertools.repeat(torch.randint(
+            0, cfg.vocab_size, (args.batch, seq + 1), generator=gen,
+            device=dev, dtype=torch.int32))
+
+    # the held-out sample loads ONCE, up front: a bad eval file fails here,
+    # before any training compute, and evaluations reuse the same batches
+    eval_batches = []
+    if args.eval_data:
+        from tpu_on_k8s_torch.data import DataLoader, FixedRecordDataset
+        eld = DataLoader(FixedRecordDataset(args.eval_data, (seq + 1,),
+                                            np.int32),
+                         batch_size=args.batch, seed=0, shuffle=False)
+        eval_batches = [torch.from_numpy(next(eld).copy()).to(dev)
+                        for _ in range(min(eld.batches_per_epoch, 8))]
+        eld.close()
+
+    state = trainer.state()
+
+    def evaluate() -> None:
+        total = sum(float(trainer.eval_step(state, eb)["loss"])
+                    for eb in eval_batches)
+        mean = total / len(eval_batches)
+        print(f"[eval] step={state.step} loss={mean:.4f} "
+              f"perplexity={math.exp(mean):.1f}", flush=True)
+
     timer = StepTimer(args.batch * seq)
-    loss = float("nan")
+    batches = device_prefetch(source, dev)
+    loss, done, evaluated_at = float("nan"), 0, -1
+    chunk = args.eval_every if eval_batches and args.eval_every else (
+        args.steps)
     try:
-        for i in range(args.steps):
-            metrics = trainer.train_step(batch)
-            loss = float(metrics["loss"])
-            timer.report(i, loss)
-            if loader is not None and i + 1 < args.steps:
-                batch = next_batch()
+        while done < args.steps:
+            n = min(chunk, args.steps - done)
+            result = trainer.fit(
+                state, batches, n, log_every=1,
+                on_metrics=lambda step, m, dt, base=done: timer.report(
+                    base + step - 1, m["loss"], dt))
+            done += result.steps
+            loss = result.last_metrics.get("loss", loss)
+            if result.steps < n:
+                break           # the data ran out
+            if eval_batches and args.eval_every and (
+                    done % args.eval_every == 0):
+                evaluate()
+                evaluated_at = done
+        if eval_batches and evaluated_at != done:
+            evaluate()          # the final evaluation, unless one just ran
     finally:
         if loader is not None:
             loader.close()
+    if args.checkpoint_dir:
+        manager = CheckpointManager(args.checkpoint_dir)
+        manager.save(state, step=state.step)
+        manager.close()
+        print(f"saved step {state.step} to {args.checkpoint_dir}",
+              flush=True)
     return loss
 
 

@@ -156,7 +156,32 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    the no-remat step's bit for bit, with 32, 16, 32 and 16 flash forward
    launches, and (mlp, dots, dots_kernels) the no-remat backward's count
    of dense products; each policy's peak memory and step time printed;
-5. times on the card, each beside the card's name and power limit.
+5. times on the card, each beside the card's name and power limit;
+6. the GPT-2 family at ``gpt2_small`` width (12 layers, d_model 768, 12
+   heads of 64, d_ff 3072, vocab 50257, 1024 learned positions, LayerNorm,
+   tanh-GELU, tied head): (a) a biased tree from seed 0 exported with
+   ``to_hf_gpt2`` and restored with ``config_from_hf_gpt2`` (a namespace of
+   ``GPT2Config``'s documented defaults: no ``transformers`` here) and
+   ``params_from_hf_gpt2``, bit for bit; (b) ``generate`` batch 4 x 512 ->
+   64 greedy in bf16: 12 ``flash_fwd`` launches for its fresh prefill, the
+   prefill logits within ``LOGITS_NOISE_MULT`` of the bf16 noise floor;
+   (c) the engine, ``max_len`` pinned to the table's 1024 (256 pinned up,
+   2048 refused), 8 slots, 24 requests from numpy seed 5 (prompts 64-896,
+   16-64 new), a 128-token prefix carried by 8, dense and paged: equal
+   tokens, every flash call of the paged run within 3e's bf16 tolerance of
+   the plain attention, the pool drained; every token within tau
+   (``GPT2_TAU_MULT`` x (b)'s max|kernel - plain|) of a teacher-forced
+   maximum, a planted fault (the decode steps' position table shifted one
+   row) caught in every request and 3e's K/V-late fault rejected as a
+   whole; (d) ``gpt2_small`` (bias-free) with flash and remat full, batch
+   8 x 1024: 24 / 12 / 12 flash launches a step (12 / 12 / 12 under remat
+   mlp), the step-1 gradients within ``GRAD_NOISE_MULT`` of the kernels'
+   plain twins' bf16 model's distance from fp32 (the plain attention's and
+   SDPA's printed beside it), 8 steps through ``Trainer.fit`` with a
+   falling loss; (e) ``train_gpt2`` at its defaults (8 x 512), 2 steps
+   saved, then 2 more resumed from them as generation 1; (f) the three
+   flash kernels timed at D 64, GPT-2's training and prefill shapes,
+   beside their plain twins, SDPA and their bounds.
 
 Then one JSON line for the kernels, the card's line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -272,6 +297,27 @@ KV8_HANDOFF_BYTES = 1024 * 32 * 8 * 2 * (128 + 4)
 # bf16's; a misplaced or misscaled K/V moves logits by O(max|logit|),
 # ~14x it.
 KV8_NOISE_MULT = 3.0
+
+# Phase 6, the GPT-2 family at gpt2_small width. The converters are driven
+# with a namespace carrying GPT2Config's documented defaults (the card has
+# no transformers).
+GPT2_HF_CONFIG = dict(vocab_size=50257, n_embd=768, n_layer=12, n_head=12,
+                      n_positions=1024, n_inner=None,
+                      layer_norm_epsilon=1e-5,
+                      activation_function="gelu_new")
+# (c): 24 requests from numpy seed 5, prompts 64-896 tokens, 16-64 new
+# tokens, two submitted per step, on 8 slots of the table's 1024
+# positions; a 128-token prefix carried by 8 of the requests that fit it.
+GPT2_SEED, GPT2_REQUESTS, GPT2_SLOTS, GPT2_PAGES = 5, 24, 8, 80
+GPT2_PREFIX, GPT2_CARRIERS = 128, 8
+# (c)'s teacher-forced gate, in units of (b)'s max|kernel - plain| prefill
+# logits, calibrated as 3e's: between the sound engine's worst gap and the
+# planted fault's least (readings in PERF.md).
+GPT2_TAU_MULT = 0.9
+GPT2_EXACT_MIN = 0.7
+# (d): gpt2_small training, batch 8 x 1024, 8 steps on one batch; (e) the
+# CLI at its defaults (8 x 512), 2 steps.
+GPT2_TRAIN_BATCH, GPT2_TRAIN_SEQ, GPT2_TRAIN_STEPS = 8, 1024, 8
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
 # Phase 4c: the loop's steps (12 distinct batches from this numpy seed)
@@ -1047,31 +1093,34 @@ def teacher_forced_gaps(model, reqs, tokens, prefix, carriers, plain_flash,
 
 
 def tau_gate(tag: str, per_req: list, tau: float, diff: float,
-             control: bool = False, every: bool = True) -> None:
+             control: bool = False, every: bool = True,
+             mult: float = TAU_MULT, exact_min: float = EXACT_MIN,
+             unit: str = "phase 3's") -> None:
     """The teacher-forced gate on one run's per-request gaps: every
-    request's worst gap within ``tau`` and at least EXACT_MIN of all tokens
-    the teacher-forced argmax; a ``control`` run (a planted fault) must
-    break both, in every request, or with ``every=False`` be rejected by
-    the gate as a whole (either limit broken)."""
+    request's worst gap within ``tau`` (``mult`` x ``diff``, the ``unit``
+    phase's max|kernel - plain| prefill logits) and at least ``exact_min``
+    of all tokens the teacher-forced argmax; a ``control`` run (a planted
+    fault) must break both, in every request, or with ``every=False`` be
+    rejected by the gate as a whole (either limit broken)."""
     gaps = torch.cat(per_req)
     exact = (gaps == 0).float().mean().item()
     req_max = torch.stack([g.max() for g in per_req])
     caught = int((req_max > tau).sum())
     print(f"{tag} teacher-forced check of {gaps.numel()} tokens: exact "
           f"argmax {int((gaps == 0).sum())} ({exact:.4f}, min "
-          f"{EXACT_MIN:g}), max gap {gaps.max().item():.4f}, median gap "
+          f"{exact_min:g}), max gap {gaps.max().item():.4f}, median gap "
           f"{gaps.median().item():.4f}; per request max gap min "
           f"{req_max.min().item():.4f} median "
           f"{req_max.median().item():.4f}, {caught} of {len(per_req)} above "
-          f"tau {tau:.4f} = {TAU_MULT:g} x phase 3's max|kernel - plain| "
+          f"tau {tau:.4f} = {mult:g} x {unit} max|kernel - plain| "
           f"{diff:.4f}")
-    if not control and (caught or exact < EXACT_MIN):
+    if not control and (caught or exact < exact_min):
         fail(f"{tag} emitted tokens off the teacher-forced maximum (tau "
-             f"{tau:.4f}, exact share {EXACT_MIN:g})")
-    if control and every and (caught < len(per_req) or exact >= EXACT_MIN):
+             f"{tau:.4f}, exact share {exact_min:g})")
+    if control and every and (caught < len(per_req) or exact >= exact_min):
         fail(f"{tag} the teacher-forced gate did not catch the planted "
              f"fault in every request")
-    if control and not every and not (caught or exact < EXACT_MIN):
+    if control and not every and not (caught or exact < exact_min):
         fail(f"{tag} the teacher-forced gate did not reject the planted "
              f"fault")
 
@@ -2598,6 +2647,501 @@ def remat_phase(tcfg, mods, gpu, dev, tokens, trainer_mod) -> dict:
     return total
 
 
+def gpt2_traffic(vocab: int):
+    """Phase 6 (c)'s requests [(prompt, max_new_tokens)], the prefix and
+    the indices of the requests that carry it, from GPT2_SEED; carriers are
+    drawn among the requests that fit the prefix beside them in the
+    1024-position table."""
+    rng = np.random.default_rng(GPT2_SEED)
+    reqs = [(rng.integers(0, vocab, size=int(rng.integers(64, 897)))
+             .astype(np.int32), int(rng.integers(16, 65)))
+            for _ in range(GPT2_REQUESTS)]
+    prefix = rng.integers(0, vocab, size=GPT2_PREFIX).astype(np.int32)
+    fits = [j for j, (p, n) in enumerate(reqs)
+            if GPT2_PREFIX + p.size + n <= GPT2_HF_CONFIG["n_positions"]]
+    carriers = set(rng.choice(fits, GPT2_CARRIERS, replace=False).tolist())
+    return reqs, prefix, carriers
+
+
+def gpt2_phase(mods, gpu, dev, tmp: Path, plain_flash, fa, transformer,
+               decode, serving, convert, trainer_mod) -> dict:
+    """Phase 6: the GPT-2 family at gpt2_small width (vocab 50257, d_model
+    768, 12 layers of 12 heads of 64, d_ff 3072, 1024 learned positions).
+    (a) a biased tree from seed 0 through ``to_hf_gpt2`` and back through
+    ``config_from_hf_gpt2`` (a namespace config) and
+    ``params_from_hf_gpt2``, bit for bit; (b) ``generate`` batch 4 x 512 ->
+    64 greedy in bf16, 12 flash_fwd launches a fresh prefill, the prefill
+    logits within LOGITS_NOISE_MULT of the bf16 noise floor; (c) the engine
+    on 8 slots (``max_len`` pinned at 1024), 24 seeded requests with a
+    128-token prefix, dense and paged (equal tokens; every flash call of
+    the paged run held against the plain attention), every token within
+    tau of a teacher-forced maximum and a planted fault caught in every
+    request; (d) gpt2_small (bias-free) training with flash and remat
+    full, batch 8 x 1024: the step-1 gradient gate, 24/12/12 flash
+    launches a step (12/12/12 under remat mlp), 8 steps through
+    ``Trainer.fit``; (e) ``train_gpt2`` at its defaults, 2 steps, saved
+    and resumed as generation 1; (f) the three flash kernels timed at
+    GPT-2's shapes. Returns {"paths": launches by path, "d64": timings}."""
+    import contextlib
+    import io
+    import itertools
+
+    from tpu_on_k8s_torch import train_gpt2
+    from tpu_on_k8s_torch.models.params import (
+        init_params,
+        keeps_fp32,
+        load_model,
+    )
+    from tpu_on_k8s_torch.train import Trainer, default_optimizer
+    from tpu_on_k8s_torch.train.compile import train_step_flops
+
+    t_phase = time.perf_counter()
+    paths = {}
+    # ---- (a) HF export and restore at full width -----------------------
+    hcfg = convert.config_from_hf_gpt2(types.SimpleNamespace(
+        **GPT2_HF_CONFIG))
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(hcfg, g, dev, dtype=torch.float32)
+    for name in params:     # Flax's zero biases would leave them unchecked
+        if name.endswith(".bias"):
+            params[name].normal_(0.0, 0.02, generator=g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sd = convert.to_hf_gpt2(hcfg, params)
+    t1 = time.perf_counter()
+    back = convert.params_from_hf_gpt2(sd, hcfg, torch.float32, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    same = set(back) == set(params) and all(
+        torch.equal(back[n], params[n]) for n in params)
+    tied = sd["lm_head.weight"] is sd["transformer.wte.weight"]
+    unique = {t.data_ptr(): t for t in sd.values()}
+    nbytes = sum(t.numel() * t.element_size() for t in unique.values())
+    n_params = sum(t.numel() for t in params.values())
+    print(f"[gpt2] (a) gpt2_small, use_bias (config_from_hf_gpt2 on a "
+          f"namespace of GPT2Config's defaults): {hcfg.n_layers} layers "
+          f"d_model {hcfg.d_model} heads {hcfg.n_heads} (head dim "
+          f"{hcfg.head_dim}) d_ff {hcfg.d_ff} vocab {hcfg.vocab_size} "
+          f"positions {hcfg.max_seq_len}, {n_params:,} params fp32; "
+          f"to_hf_gpt2: {len(sd)} entries, {len(unique)} tensors, "
+          f"{nbytes:,} B on the host (lm_head.weight is wte: {tied}), "
+          f"{(t1 - t0) * 1e3:.0f} ms; params_from_hf_gpt2 back to the card "
+          f"{(t2 - t1) * 1e3:.0f} ms; {len(back)} tensors equal to the "
+          f"original bit for bit: {same}")
+    if not same or not tied:
+        fail("the GPT-2 HF round trip changed the tree or untied the head")
+    del sd, back
+
+    # ---- (b) generate, bf16 -----------------------------------------------
+    cfg = dataclasses.replace(hcfg, dtype=torch.bfloat16)
+    bparams = {n: t if keeps_fp32(n) else t.to(torch.bfloat16)
+               for n, t in params.items()}
+    prompt = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (4, 512)).astype(np.int32)).to(dev)
+    reset_counts(mods)
+    greedy = decode.generate(cfg, bparams, prompt, 64)
+    torch.cuda.synchronize()
+    paths["gpt2_generate"] = read_counts(mods)
+    launched = paths["gpt2_generate"]
+    print(f"[gpt2] (b) generate, bf16, batch 4 x prompt 512 -> 64 greedy "
+          f"(cache at the table's 1024 positions): launches {launched}; "
+          f"row 0 {greedy[0, :12].tolist()} ...")
+    if launched["flash_fwd"] != cfg.n_layers or any(
+            c for k, c in launched.items() if k != "flash_fwd"):
+        fail(f"GPT-2 generate launches {launched}; expected "
+             f"{cfg.n_layers} flash_fwd for its one fresh prefill")
+    if (tuple(greedy.shape) != (4, 64) or int(greedy.min()) < 0
+            or int(greedy.max()) >= cfg.vocab_size):
+        fail(f"GPT-2 greedy tokens {tuple(greedy.shape)} out of range")
+    if not torch.equal(decode.generate(cfg, bparams, prompt, 64), greedy):
+        fail("a repeated GPT-2 greedy run gave other tokens")
+
+    def prefill(model_cfg, model_params):
+        model = decode.decode_model(model_cfg, model_params, dev)
+        with torch.inference_mode():
+            return model(prompt, None, decode.init_cache(model, 4))
+
+    logits_k = prefill(cfg, bparams)
+    with mock.patch.object(transformer, "flash_attention", plain_flash):
+        logits_p = prefill(cfg, bparams)
+        logits_32 = prefill(dataclasses.replace(cfg, dtype=torch.float32),
+                            params)
+    torch.cuda.synchronize()
+    diff = (logits_k - logits_p).abs().max().item()
+    noise = (logits_p - logits_32).abs().max().item()
+    k_noise = (logits_k - logits_32).abs().max().item()
+    agree = (logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean()
+    print(f"[gpt2] (b) prefill logits [4, 512, {cfg.vocab_size}]: "
+          f"max|kernel bf16 - fp32 model| {k_noise:.3e} (tol "
+          f"{LOGITS_NOISE_MULT:g} x bf16 noise {noise:.3e}); max|kernel - "
+          f"plain| {diff:.3e}; max |logit| "
+          f"{logits_p.abs().max().item():.3e}; argmax agreement "
+          f"{agree.item():.4f}")
+    if not bool(torch.isfinite(logits_k).all()) or (
+            k_noise > LOGITS_NOISE_MULT * noise):
+        fail("GPT-2 prefill logits with the kernel stray further from the "
+             "fp32 model than bf16 rounding explains")
+    del logits_k, logits_p, logits_32
+    prefill_ms = wall_ms(lambda: decode.generate(cfg, bparams, prompt, 1))
+    gen64_ms = wall_ms(lambda: decode.generate(cfg, bparams, prompt, 64))
+    print(f"[time] {gpu}: generate gpt2_small bf16 batch 4 x prompt 512: "
+          f"prefill (+1 token) {prefill_ms:.2f} ms, 64 tokens "
+          f"{gen64_ms:.2f} ms, per-token decode "
+          f"{(gen64_ms - prefill_ms) / 63:.3f} ms")
+
+    # ---- (c) the engine -----------------------------------------------------
+    reqs, prefix, carriers = gpt2_traffic(cfg.vocab_size)
+    probe = serving.ContinuousBatchingEngine(cfg, bparams, n_slots=2,
+                                             max_len=256, device=dev)
+    pinned = probe.max_len
+    try:
+        serving.ContinuousBatchingEngine(cfg, bparams, n_slots=2,
+                                         max_len=2048, device=dev)
+        refused = False
+    except ValueError:
+        refused = True
+    del probe
+    print(f"[gpt2] (c) engine max_len 256 pinned to {pinned}; max_len 2048 "
+          f"refused: {refused}")
+    if pinned != cfg.max_seq_len or not refused:
+        fail("a learned-position engine did not pin max_len to its table")
+    kinds = {"a": ("dense", {}),
+             "b": (f"paged, {GPT2_PAGES} pages of 128 tokens",
+                   {"kv_pages": GPT2_PAGES, "page_tokens": 128}),
+             "control": ("dense, each decode step reading its position's "
+                         "table row one late (a planted fault)", {}),
+             "kv_late": ("dense, each decode step's K/V written one "
+                         "position late (phase 3e's planted fault)", {})}
+    append = transformer._append_per_row
+
+    def late(k, v, positions, cache):
+        append(k, v, positions + 1, cache)
+
+    worst, runs = {}, {}
+    reset_counts(mods)
+    for key, (label, kw) in kinds.items():
+        if key == "control":
+            paths["gpt2_engine"] = read_counts(mods)
+        engine = serving.ContinuousBatchingEngine(
+            cfg, bparams, n_slots=GPT2_SLOTS, clock=time.monotonic,
+            device=dev, **kw)
+        if key == "control":
+            # the step model alone reads a table shifted by one row; the
+            # prefill model keeps the true one
+            step = engine._step_model
+            step.pos_embed = torch.nn.Parameter(
+                torch.roll(step.pos_embed, -1, 0), requires_grad=False)
+        ctx = (flash_checked(transformer, plain_flash, worst) if key == "b"
+               else mock.patch.object(transformer, "_append_per_row", late)
+               if key == "kv_late" else nullcontext())
+        with ctx:
+            run = drive_engine(engine, reqs, prefix, carriers, mods,
+                               time.monotonic)
+        engine.drop_prefix(run["pid"])
+        run["pages_in_use"] = engine.pages_in_use
+        run["null_page_zero"] = engine.null_page_is_zero()
+        runs[key] = run
+        print(f"[gpt2] (c) ({key}) {label}, {GPT2_SLOTS} slots x "
+              f"{engine.max_len}, a {GPT2_PREFIX}-token prefix carried by "
+              f"{len(carriers)} requests: {len(run['tokens'])} requests, "
+              f"{run['emitted']} tokens, steps {engine.stats['steps']}; "
+              f"fresh prefills {run['fresh']}, flash_fwd launches "
+              f"{run['launched']['flash_fwd']} = {cfg.n_layers} x "
+              f"{run['fresh']}")
+        del engine
+        torch.cuda.empty_cache()
+    tol_o = TOL[torch.bfloat16][0]
+    print(f"[gpt2] (c) (b) flash_fwd against the plain attention on the "
+          f"engine's own q, k, v, max|o - plain| by bucket x batch (tol "
+          f"{tol_o:g}): " + ", ".join(
+              f"{l} x {b}: {e:.3e}" for (l, b), e in sorted(worst.items())))
+    if not worst or max(worst.values()) > tol_o:
+        fail("the flash forward strays from the plain attention on the "
+             "GPT-2 engine's inputs")
+    a = runs["a"]["tokens"]
+    same = all(np.array_equal(a[j], runs["b"]["tokens"][j]) for j in a)
+    b = runs["b"]
+    print(f"[gpt2] (c) (b) tokens equal to (a): {same}; pages in use after "
+          f"the prefix is dropped {b['pages_in_use']}, null page zero "
+          f"{b['null_page_zero']}")
+    if not same or b["pages_in_use"] or not b["null_page_zero"]:
+        fail("the paged GPT-2 engine's tokens differ from the dense one's, "
+             "or its pool did not drain")
+    model = decode.decode_model(cfg, bparams, dev)
+    gaps = {key: teacher_forced_gaps(model, reqs, runs[key]["tokens"],
+                                     prefix, carriers, plain_flash,
+                                     transformer, decode)
+            for key in ("a", "control", "kv_late")}
+    del model
+    sound = torch.cat(gaps["a"]).max().item()
+    print(f"[gpt2] (c) calibration, in units of (b)'s max|kernel - plain| "
+          f"{diff:.4f}: the sound engine's worst gap {sound:.4f} "
+          f"({sound / diff:.3f}), exact share "
+          f"{(torch.cat(gaps['a']) == 0).float().mean().item():.4f}; "
+          + "; ".join(
+              f"{key}'s least per-request worst gap "
+              f"{min(g.max().item() for g in gaps[key]):.4f} "
+              f"({min(g.max().item() for g in gaps[key]) / diff:.3f}), "
+              f"exact share "
+              f"{(torch.cat(gaps[key]) == 0).float().mean().item():.4f}"
+              for key in ("control", "kv_late")))
+    tau = GPT2_TAU_MULT * diff
+    for key in ("a", "control", "kv_late"):
+        tau_gate(f"[gpt2] (c) ({key})", gaps[key], tau, diff,
+                 key != "a", every=key == "control", mult=GPT2_TAU_MULT,
+                 exact_min=GPT2_EXACT_MIN, unit="phase 6 (b)'s")
+    for key in "ab":
+        run = runs[key]
+        print(f"[time] {gpu}: engine gpt2_small bf16 ({key}) {kinds[key][0]}"
+              f", {GPT2_SLOTS} slots x 1024: decode step at occupancy "
+              f"{GPT2_SLOTS} median {median(run['step_ms']):.2f} ms over "
+              f"{len(run['step_ms'])} steps; "
+              f"{run['emitted'] / run['wall']:.1f} tokens/s aggregate "
+              f"({run['emitted']} tokens in {run['wall']:.2f} s); p50 TTFT "
+              f"{median(run['ttft_ms']):.1f} ms")
+    del runs, gaps, bparams, params
+    torch.cuda.empty_cache()
+
+    # ---- (d) training: gpt2_small, flash, remat full --------------------
+    tcfg = dataclasses.replace(transformer.TransformerConfig.gpt2_small(),
+                               attn_impl="flash")
+    tp = init_params(tcfg, torch.Generator(device=dev).manual_seed(1), dev,
+                     dtype=torch.float32)
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, tcfg.vocab_size, (GPT2_TRAIN_BATCH, GPT2_TRAIN_SEQ + 1))
+        .astype(np.int32)).to(dev)
+
+    def plain_bhld(q, k, v, causal=True, valid_len=0, segments=None):
+        return fa.flash_attention_plain(q, k, v, causal, valid_len,
+                                        segments)[0]
+
+    def sdpa_bhld(q, k, v, causal=True, valid_len=0, segments=None):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True)
+
+    def twins():
+        """The kernels' plain twins in their place, inside the kernels'
+        own autograd Function: the same arithmetic and bf16 roundings (P
+        and dS rounded before their products), in plain PyTorch."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(
+            fa, "flash_with_lse_fwd", fa.flash_attention_plain))
+        stack.enter_context(mock.patch.object(fa, "flash_bwd_dq",
+                                              fa.flash_bwd_dq_plain))
+        stack.enter_context(mock.patch.object(fa, "flash_bwd_dkv",
+                                              fa.flash_bwd_dkv_plain))
+        return stack
+
+    def first_grads(model_cfg, attention="kernel"):
+        model = load_model(model_cfg, tp, dev)
+        loss_fn = trainer_mod._make_loss_fn(model, 0, None)
+        patch = {"kernel": nullcontext,
+                 "twins": twins,
+                 "plain": lambda: mock.patch.object(
+                     transformer, "flash_attention_bhld", plain_bhld),
+                 "sdpa": lambda: mock.patch.object(
+                     transformer, "flash_attention_bhld", sdpa_bhld),
+                 }[attention]()
+        with patch:
+            loss, _ = loss_fn(tokens)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+        names = [n for n, _ in model.named_parameters()]
+        return loss.item(), dict(zip(names, grads))
+
+    reset_counts(mods)
+    loss_k, grads_k = first_grads(tcfg)
+    torch.cuda.synchronize()
+    full_counts = read_counts(mods)
+    loss_t, grads_t = first_grads(tcfg, "twins")
+    loss_p, grads_p = first_grads(tcfg, "plain")
+    _, grads_s = first_grads(tcfg, "sdpa")
+    loss_32, grads_32 = first_grads(
+        dataclasses.replace(tcfg, dtype=torch.float32), "plain")
+    reset_counts(mods)
+    first_grads(dataclasses.replace(tcfg, remat_policy="mlp"))
+    torch.cuda.synchronize()
+    mlp_counts = read_counts(mods)
+    n = tcfg.n_layers
+    print(f"[gpt2] (d) gpt2_small, attn flash (D 64), batch "
+          f"{GPT2_TRAIN_BATCH} x {GPT2_TRAIN_SEQ}, one forward+backward: "
+          f"launches under remat full {full_counts}; under remat mlp "
+          f"{mlp_counts}")
+    if [full_counts[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                 "flash_bwd_dkv")] != [2 * n, n, n] or [
+            mlp_counts[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv")] != [n, n, n]:
+        fail(f"GPT-2 training launches: full {full_counts}, mlp "
+             f"{mlp_counts}; expected {2 * n}/{n}/{n} and {n}/{n}/{n}")
+    def dist(g):
+        return {k: ((g[k].float() - grads_32[k]).norm()
+                    / grads_32[k].norm()).item() for k in grads_32}
+
+    dist_k, dist_t, dist_p = dist(grads_k), dist(grads_t), dist(grads_p)
+    dist_s = dist(grads_s)
+    ratios = {k: dist_k[k] / dist_t[k] for k in dist_k}
+    worst = max(ratios, key=ratios.get)
+    vs_plain = {k: dist_k[k] / dist_p[k] for k in dist_k}
+    twins_plain = {k: dist_t[k] / dist_p[k] for k in dist_k}
+    print(f"[gpt2] (d) gradient gate, step 1, {len(dist_k)} tensors, "
+          f"||g - g_fp32|| / ||g_fp32||: kernel bf16 max "
+          f"{max(dist_k.values()):.4e} (at {max(dist_k, key=dist_k.get)}), "
+          f"median {statistics.median(dist_k.values()):.4e}; the twins' "
+          f"bf16 model max {max(dist_t.values()):.4e}, median "
+          f"{statistics.median(dist_t.values()):.4e}; per-tensor ratio "
+          f"kernel/twins median {statistics.median(ratios.values()):.3f}, "
+          f"max {ratios[worst]:.3f} at {worst} (limit {GRAD_NOISE_MULT:g}); "
+          f"step-1 loss kernel {loss_k:.6f}, twins {loss_t:.6f}, plain "
+          f"{loss_p:.6f}, fp32 {loss_32:.6f}")
+    print(f"[gpt2] (d) reading, not a gate: against the plain attention "
+          f"through autograd (fp32 dS, phase 4's floor), kernel/plain "
+          f"median {statistics.median(vs_plain.values()):.3f}, max "
+          f"{max(vs_plain.values()):.3f} at {max(vs_plain, key=vs_plain.get)}"
+          f"; twins/plain max {max(twins_plain.values()):.3f}; SDPA/plain "
+          f"max {max(dist_s[k] / dist_p[k] for k in dist_k):.3f}: "
+          f"near-uniform "
+          f"random attention, where dS rounded to bf16 (the flash "
+          f"algorithm's, the reference's and SDPA's) costs more than at "
+          f"llama2_1b")
+    if not all(torch.isfinite(v).all() for v in grads_k.values()) or (
+            ratios[worst] > GRAD_NOISE_MULT):
+        fail("the GPT-2 kernel model's gradients stray further from the "
+             "fp32 model's than the kernels' own bf16 arithmetic explains")
+    del grads_k, grads_t, grads_p, grads_s, grads_32
+    torch.cuda.empty_cache()
+
+    model = load_model(tcfg, tp, dev)
+    trainer = Trainer(model, default_optimizer(
+        model.parameters(), warmup_steps=10,
+        decay_steps=max(GPT2_TRAIN_STEPS, 11)))
+    state = trainer.state()
+    flops, _ = train_step_flops(trainer, state, tokens)
+    history = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mods)
+    trainer.fit(state, itertools.repeat(tokens), GPT2_TRAIN_STEPS,
+                log_every=1, on_metrics=lambda step, m, dt: history.append(
+                    (m["loss"], dt)))
+    torch.cuda.synchronize()
+    paths["gpt2_train"] = read_counts(mods)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [l for l, _ in history]
+    step_s = statistics.median(dt for _, dt in history[1:])
+    tok_s = GPT2_TRAIN_BATCH * GPT2_TRAIN_SEQ / step_s
+    want = {"flash_fwd": 2 * n * GPT2_TRAIN_STEPS,
+            "flash_bwd_dq": n * GPT2_TRAIN_STEPS,
+            "flash_bwd_dkv": n * GPT2_TRAIN_STEPS}
+    print(f"[gpt2] (d) Trainer.fit, {GPT2_TRAIN_STEPS} steps on one batch: "
+          f"loss {[round(x, 5) for x in losses]}; launches "
+          f"{paths['gpt2_train']}")
+    print(f"[time] {gpu}: train step gpt2_small batch {GPT2_TRAIN_BATCH} x "
+          f"{GPT2_TRAIN_SEQ} (remat full, flash, bf16, fp32 masters): median "
+          f"of steps 2-{GPT2_TRAIN_STEPS} {step_s * 1e3:.1f} ms, "
+          f"{tok_s:,.0f} tokens/s, peak memory {peak_gb:.2f} GB; "
+          f"train_step_flops {flops:.4e} a step, mfu "
+          f"{flops / step_s / PEAK_BF16_FLOPS:.4f} (of {PEAK_BF16_FLOPS:.3g} "
+          f"bf16 FLOP/s)")
+    if any(paths["gpt2_train"][k] != v for k, v in want.items()):
+        fail(f"GPT-2 Trainer.fit launches {paths['gpt2_train']}; expected "
+             f"{want}")
+    if len(losses) != GPT2_TRAIN_STEPS or not all(
+            map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        fail(f"GPT-2 training loss not finite or not falling: {losses}")
+    del trainer, model, state, tp
+    torch.cuda.empty_cache()
+
+    # ---- (e) train_gpt2 at its defaults, saved and resumed ---------------
+    ckpt = str(tmp / "gpt2_ckpt")
+    outs = []
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    for extra in ([], ["--generation", "1"]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            loss = train_gpt2.main(["--steps", "2", "--checkpoint-dir", ckpt,
+                                    *extra])
+        outs.append((loss, out.getvalue()))
+    torch.cuda.synchronize()
+    paths["gpt2_cli"] = read_counts(mods)
+    second = outs[1][1]
+    resumed = [l for l in second.splitlines() if l.startswith("resumed")]
+    print(f"[gpt2] (e) python -m tpu_on_k8s_torch.train_gpt2 --steps 2 "
+          f"--checkpoint-dir D (defaults: gpt2_small, batch 8 x 512, cuda): "
+          f"loss {outs[0][0]:.5f}; again with --generation 1: {resumed}, "
+          f"loss {outs[1][0]:.5f}, "
+          f"'{second.strip().splitlines()[-1]}'; launches "
+          f"{paths['gpt2_cli']}; {time.perf_counter() - t0:.1f} s")
+    if (resumed != ["resumed generation=0 step=2"]
+            or "saved generation=1 step=4" not in second
+            or not all(math.isfinite(l) for l, _ in outs)
+            or paths["gpt2_cli"]["flash_fwd"] != 2 * 2 * 2 * n):
+        fail("train_gpt2 did not save, resume from generation 0 step 2 and "
+             "save generation 1 step 4")
+
+    # ---- (f) the flash kernels at D 64, GPT-2's shapes --------------------
+    tg = torch.Generator(device=dev).manual_seed(8)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=tg, device=dev).to(
+            torch.bfloat16)
+
+    d64 = {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    h, d = hcfg.n_heads, hcfg.head_dim
+    bb, lp = 4, 512
+    q, k, v = (randn(bb, h, lp, d) for _ in range(3))
+    d64["flash_fwd"] = [dict(
+        shape=f"B={bb} H={h} L={lp} D={d} bf16 causal (gpt2 prefill)",
+        ms=time_ms(lambda: fa.flash_with_lse_fwd(q, k, v, True)),
+        plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, True)),
+        library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True)),
+        **dict(zip(("bound_ms", "bound_by"),
+                   flash_bound_ms(bb, h, h, lp, d, True))))]
+    bt, lt = GPT2_TRAIN_BATCH, GPT2_TRAIN_SEQ
+    q, k, v, do = (randn(bt, h, lt, d) for _ in range(4))
+    o, lse = fa.flash_with_lse_fwd(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = sdpa(qg, kg, vg, is_causal=True)
+    sdpa_bwd = event_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                                    retain_graph=True))
+    shape = f"B={bt} H={h} L={lt} D={d} bf16 causal (gpt2 training)"
+    d64["flash_fwd"].append(dict(
+        shape=shape, ms=time_ms(lambda: fa.flash_with_lse_fwd(q, k, v, True)),
+        plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, True)),
+        library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True)),
+        **dict(zip(("bound_ms", "bound_by"),
+                   flash_bound_ms(bt, h, h, lt, d, True)))))
+    d64["flash_bwd_dq"] = [dict(
+        shape=shape,
+        ms=time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True)),
+        plain_ms=time_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse,
+                                                       delta, True)),
+        library_ms=sdpa_bwd,
+        **dict(zip(("bound_ms", "bound_by"),
+                   dq_bound_ms(bt, h, h, lt, d, True))))]
+    d64["flash_bwd_dkv"] = [dict(
+        shape=shape,
+        ms=time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)),
+        plain_ms=time_ms(lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse,
+                                                        delta, True)),
+        library_ms=sdpa_bwd,
+        **dict(zip(("bound_ms", "bound_by"),
+                   dkv_bound_ms(bt, h, h, lt, d, True))))]
+    for name, rows in d64.items():
+        for r in rows:
+            print(f"[time] {gpu}: {name} {r['shape']}: kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
+                  f"{'forward' if name == 'flash_fwd' else 'backward (dq, dk, dv together)'}"
+                  f" {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of "
+                  f"bound")
+    del q, k, v, do, o, lse, delta, qg, kg, vg, out
+    torch.cuda.empty_cache()
+    print(f"[time] phase 6 {time.perf_counter() - t_phase:.1f} s")
+    return {"paths": paths, "d64": d64}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -3407,6 +3951,11 @@ def run(tmp: Path) -> int:
               f"{plain:.4f} ms, library "
               f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
               f"{bound:.4f} ms ({by}), {bound / ms:.1%} of bound")
+
+    # ---- 6. the GPT-2 family at gpt2_small width -----------------------
+    gpt2 = gpt2_phase(mods, gpu, dev, tmp, plain_flash, fa, transformer,
+                      decode, serving, convert, trainer_mod)
+    by_path.update(gpt2["paths"])
     print(f"[time] script {time.perf_counter() - t_start:.0f} s")
 
     gemm = (TRAIN_BATCH * TRAIN_SEQ, 11264, 2048)
@@ -3446,6 +3995,8 @@ def run(tmp: Path) -> int:
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": library[name],
             "shape": shapes[name]})
+        if name in gpt2["d64"]:
+            kernels[-1]["gpt2_d64"] = gpt2["d64"][name]
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

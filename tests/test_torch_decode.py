@@ -233,14 +233,28 @@ def test_overflow_raises(setup):
 
 
 @pytest.mark.parametrize("flag, value", [
-    ("fused_qkv", True), ("n_experts", 4),
-    ("pos_emb", "learned"), ("norm", "ln"), ("activation", "gelu"),
-    ("tie_embeddings", True), ("use_bias", True), ("attn_impl", "ring"),
+    ("fused_qkv", True), ("n_experts", 4), ("attn_impl", "ring"),
 ])
 def test_unported_flags_raise(flag, value):
     cfg = dataclasses.replace(TransformerConfig.tiny(), **{flag: value})
     with pytest.raises(NotImplementedError, match=flag):
         decode.decode_model(cfg, {}, "cpu")
+
+
+@pytest.mark.parametrize("flag, value", [
+    ("pos_emb", "learned"), ("norm", "ln"), ("activation", "gelu"),
+    ("tie_embeddings", True), ("use_bias", True),
+])
+def test_gpt2_family_flags_serve(flag, value):
+    """The GPT-2 family's flags are ported: each alone builds a serving
+    model from its own parameter tree (``tests/test_torch_gpt2.py`` holds
+    them against the JAX package)."""
+    cfg = dataclasses.replace(TransformerConfig.tiny(), **{flag: value})
+    params = pparams.init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+    out = decode.generate(cfg, params, torch.zeros((1, 4), dtype=torch.int32),
+                          2, device="cpu")
+    assert out.shape == (1, 2)
 
 
 @pytest.mark.parametrize("flag, value", [

@@ -995,8 +995,8 @@ def test_cli_metrics_port_serves_the_engine_metrics(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--hf-model", "hf"], ["--model-axis", "2"],
-    ["--fsdp", "2"], ["--gateway"], ["--replicas", "2"]])
+    ["--model-axis", "2"], ["--fsdp", "2"], ["--gateway"],
+    ["--replicas", "2"]])
 def test_cli_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="later slice"):
         cli.main(["--device", "cpu", *flag])

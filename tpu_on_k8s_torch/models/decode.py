@@ -188,6 +188,17 @@ def _bucket_len(total: int, max_seq_len: int) -> int:
                max(PAGE_TOKENS, -(-total // PAGE_TOKENS) * PAGE_TOKENS))
 
 
+def _bucketed(cfg: TransformerConfig, total: int) -> TransformerConfig:
+    """``cfg`` with ``max_seq_len`` cut to ``total``'s bucket: RoPE
+    positions are absolute, so a shorter cache changes nothing but the
+    attention span. A learned position table is sized by ``max_seq_len``,
+    so such a model keeps the full-length cache, as the reference's."""
+    if cfg.pos_emb != "rope":
+        return cfg
+    return dataclasses.replace(
+        cfg, max_seq_len=_bucket_len(total, cfg.max_seq_len))
+
+
 def generate(cfg: TransformerConfig, params: Dict[str, torch.Tensor],
              prompt: torch.Tensor, max_new_tokens: int,
              temperature: float = 0.0,
@@ -200,7 +211,8 @@ def generate(cfg: TransformerConfig, params: Dict[str, torch.Tensor],
 
     Returns int32 [B, max_new_tokens]. Total length must fit
     ``cfg.max_seq_len``; the cache is allocated at the request's bucketed
-    length (``_bucket_len``)."""
+    length (``_bucketed``; a learned-position model's at its full
+    length)."""
     dev = resolve_device(device)
     b, lp = prompt.shape
     if lp + max_new_tokens > cfg.max_seq_len:
@@ -210,11 +222,7 @@ def generate(cfg: TransformerConfig, params: Dict[str, torch.Tensor],
     if max_new_tokens < 0:
         raise ValueError(f"max_new_tokens must be >= 0, got {max_new_tokens}")
     sp = SamplingParams(temperature=temperature, top_k=top_k, top_p=top_p)
-    # RoPE positions are absolute, so a shorter cache changes nothing but
-    # the attention span.
-    cfg = dataclasses.replace(
-        cfg, max_seq_len=_bucket_len(lp + max_new_tokens, cfg.max_seq_len))
-    model = decode_model(cfg, params, dev)
+    model = decode_model(_bucketed(cfg, lp + max_new_tokens), params, dev)
     prompt = prompt.to(device=dev, dtype=torch.int32)
     if max_new_tokens == 0:
         return prompt.new_zeros((b, 0))
@@ -259,7 +267,7 @@ def speculative_generate(cfg: TransformerConfig,
     agree). The tokens equal ``generate``'s greedy tokens up to the
     rounding of a ``k+1``-row forward against one-row steps.
 
-    Both caches are allocated at ``_bucket_len(lp + new + k + 1)``; each
+    Both caches are allocated at ``_bucketed(lp + new + k + 1)``; each
     phase first rolls its cache's cursor back to the last emitted token's
     position (``_set_cursor``), which rejects the unaccepted K/V. Both
     prefills start from an empty cache at ``arange`` positions, so they run
@@ -281,12 +289,8 @@ def speculative_generate(cfg: TransformerConfig,
             f"prompt {lp} + new {max_new_tokens} + speculation window "
             f"{k + 1} exceeds max_seq_len")
 
-    def bucketed(c: TransformerConfig) -> TransformerConfig:
-        return dataclasses.replace(
-            c, max_seq_len=_bucket_len(max_total, c.max_seq_len))
-
-    target = decode_model(bucketed(cfg), params, dev)
-    draft = decode_model(bucketed(draft_cfg), draft_params, dev)
+    target = decode_model(_bucketed(cfg, max_total), params, dev)
+    draft = decode_model(_bucketed(draft_cfg, max_total), draft_params, dev)
     prompt = prompt.to(device=dev, dtype=torch.int32)
     t_cache, d_cache = init_cache(target, 1), init_cache(draft, 1)
     with torch.inference_mode():

@@ -3,7 +3,11 @@
 Names are those of ``Transformer.state_dict()``: ``embed [V, D]``,
 ``blocks.{i}.attn_norm.scale``, ``blocks.{i}.attn.w{q,k,v,o}.weight``,
 ``blocks.{i}.mlp_norm.scale``, ``blocks.{i}.mlp.w_{gate,up,down}.weight``
-(or ``w_gateup``), ``final_norm.scale`` and ``lm_head [D, V]``. A ``weight``
+(or ``w_gateup``), ``final_norm.scale`` and ``lm_head [D, V]``. The GPT-2
+family adds ``pos_embed [max_seq_len, D]`` (learned positions), a ``bias``
+beside each LayerNorm ``scale`` and, with ``use_bias``, beside each
+projection's ``weight``; its MLP is ``w_up`` and ``w_down``, and a tied
+model has no ``lm_head``. A ``weight``
 is ``[out, in]``, the transpose of the reference's Flax ``kernel``. The
 W8A16 serving layout (``serve_int8_weights``) holds each projection as an
 int8 ``weight_q [out, in]`` and an fp32 ``weight_scale [out]``, and the head
@@ -39,23 +43,35 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, torch.Size]:
     return {name: p.shape for name, p in model.named_parameters()}
 
 
+def keeps_fp32(name: str) -> bool:
+    """Whether the model stores parameter ``name`` in fp32 whatever its
+    dtypes: a norm's scale and bias, an int8 weight's scale."""
+    return (name.endswith("scale")
+            or name.rpartition(".")[0].endswith("norm"))
+
+
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device: str | torch.device = "cuda",
                 dtype: Optional[torch.dtype] = None
                 ) -> Dict[str, torch.Tensor]:
     """Random parameters as Flax initialises them: normal(0, 0.02) for
-    embeddings and matrices, ones for norm scales. Drawn in fp32 on
-    ``device`` from ``generator`` (which must live there), one tensor after
-    another in registration order, then stored in ``dtype`` (default
-    ``cfg.dtype``; norm scales stay fp32). The int8 serving layout's
-    ``*_q`` / ``*_scale`` are zeros and ones, the reference's placeholders
-    (``quantize_weights_for_serving`` makes real ones)."""
+    embeddings, position tables and matrices, ones for norm scales, zeros
+    for biases. Drawn in fp32 on ``device`` from ``generator`` (which must
+    live there), one tensor after another in registration order, then
+    stored in ``dtype`` (default ``cfg.dtype``; norm scales and biases stay
+    fp32). The int8 serving layout's ``*_q`` / ``*_scale`` are zeros and
+    ones, the reference's placeholders (``quantize_weights_for_serving``
+    makes real ones)."""
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
     params = {}
     for name, shape in param_shapes(cfg).items():
         if name.endswith(".scale") or name.endswith("_scale"):
             params[name] = torch.ones(shape, dtype=torch.float32, device=dev)
+        elif name.endswith(".bias"):
+            params[name] = torch.zeros(
+                shape, dtype=torch.float32 if keeps_fp32(name) else dtype,
+                device=dev)
         elif name.endswith("_q"):
             params[name] = torch.zeros(shape, dtype=torch.int8, device=dev)
         else:
@@ -97,6 +113,11 @@ def _as_numpy(leaf) -> np.ndarray:
     return np.array(arr, order="C")      # a writable copy torch can own
 
 
+#: the leaf sets a reference projection and a reference norm may hold
+_DENSE_LEAVES = ({"kernel"}, {"kernel", "bias"}, {"kernel_q", "kernel_scale"})
+_NORM_LEAVES = ({"scale"}, {"scale", "bias"})
+
+
 def from_jax_params(tree: Mapping, dtype: Optional[torch.dtype] = None,
                     device: str | torch.device = "cuda"
                     ) -> Dict[str, torch.Tensor]:
@@ -104,13 +125,18 @@ def from_jax_params(tree: Mapping, dtype: Optional[torch.dtype] = None,
     ``blocks/attn/w{q,k,v,o}/kernel [L, D_in, D_out]``,
     ``blocks/{attn,mlp}_norm/scale [L, D]``,
     ``blocks/mlp/w_{gate,up,down}/kernel`` or ``w_gateup``,
-    ``embed [V, D]``, ``final_norm/scale [D]``, ``lm_head [D, V]``) as the
-    port's state dict on ``device``. Matrices are stored in ``dtype``
-    (default: the tree's own); norm scales stay fp32. The W8A16 tree of
+    ``embed [V, D]``, ``final_norm/scale [D]``, ``lm_head [D, V]``; the
+    GPT-2 family's ``pos_embed [max_seq_len, D]``, ``bias`` leaves beside
+    norm scales and projection kernels, and no ``lm_head`` when tied) as
+    the port's state dict on ``device``. Matrices, position tables and
+    projection biases are stored in ``dtype`` (default: the tree's own);
+    norm scales and biases stay fp32. The W8A16 tree of
     ``quantize_weights_for_serving`` (``kernel_q [L, D_in, D_out]`` int8 and
     ``kernel_scale [L, D_out]``; ``lm_head_q [D, V]``, ``lm_head_scale
     [V]``) keeps its int8 values and fp32 scales. A tree of a layout this
-    slice does not serve raises ``NotImplementedError``."""
+    port does not serve (fused qkv, MoE) raises ``NotImplementedError``.
+    Adam's moment trees have the same layout, so they cross the same
+    way."""
     dev = resolve_device(device)
 
     def mat(a) -> torch.Tensor:
@@ -123,45 +149,54 @@ def from_jax_params(tree: Mapping, dtype: Optional[torch.dtype] = None,
         return torch.from_numpy(_as_numpy(a)).to(device=dev,
                                                  dtype=torch.float32)
 
-    def layer(module, i) -> Dict[str, torch.Tensor]:
+    def dense(module, i) -> Dict[str, torch.Tensor]:
         if "kernel" in module:
-            return {"weight": mat(_as_numpy(module["kernel"][i]).T)}
+            out = {"weight": mat(_as_numpy(module["kernel"][i]).T)}
+            if "bias" in module:
+                out["bias"] = mat(module["bias"][i])
+            return out
         return {"weight_q": mat(_as_numpy(module["kernel_q"][i]).T),
                 "weight_scale": scale(module["kernel_scale"][i])}
 
+    def norm(module, i=None) -> Dict[str, torch.Tensor]:
+        return {leaf: scale(a if i is None else a[i])
+                for leaf, a in module.items()}
+
     base = {"blocks", "embed", "final_norm"}
-    int8_head = set(tree) == base | {"lm_head_q", "lm_head_scale"}
-    if set(tree) != base | {"lm_head"} and not int8_head:
-        raise NotImplementedError(
-            f"parameter tree with top-level keys {sorted(tree)}: only the "
-            f"untied rope/rms Llama layout is ported")
-    blocks = tree["blocks"]
-    attn, mlp = blocks["attn"], blocks["mlp"]
-    leaves = {"kernel_q", "kernel_scale"} if int8_head else {"kernel"}
-    if (set(blocks) != {"attn", "attn_norm", "mlp", "mlp_norm"}
+    optional = {"pos_embed", "lm_head", "lm_head_q", "lm_head_scale"}
+    blocks = tree.get("blocks", {})
+    attn, mlp = blocks.get("attn", {}), blocks.get("mlp", {})
+    if (not base <= set(tree) or not set(tree) <= base | optional
+            or set(blocks) != {"attn", "attn_norm", "mlp", "mlp_norm"}
             or set(attn) != set(_ATTN) or not set(mlp) <= set(_MLP)
-            or any(set(attn[w]) != leaves for w in attn)
-            or any(set(mlp[w]) != leaves for w in mlp)):
+            or any(set(m) not in _DENSE_LEAVES
+                   for m in (*attn.values(), *mlp.values()))
+            or any(set(blocks[n]) not in _NORM_LEAVES
+                   for n in ("attn_norm", "mlp_norm"))
+            or set(tree["final_norm"]) not in _NORM_LEAVES):
         raise NotImplementedError(
-            "parameter tree layout not ported (fused qkv, biases, MoE or "
-            "GPT-2 family)")
+            f"parameter tree layout not ported (fused qkv or MoE): "
+            f"top-level keys {sorted(tree)}, blocks "
+            f"{ {k: sorted(v) for k, v in blocks.items()} }")
     n_layers = np.shape(blocks["attn_norm"]["scale"])[0]
     params = {"embed": mat(tree["embed"])}
+    if "pos_embed" in tree:
+        params["pos_embed"] = mat(tree["pos_embed"])
     for i in range(n_layers):
         p = f"blocks.{i}."
-        params[p + "attn_norm.scale"] = scale(blocks["attn_norm"]["scale"][i])
-        for w in _ATTN:
-            for leaf, t in layer(attn[w], i).items():
-                params[p + f"attn.{w}.{leaf}"] = t
-        params[p + "mlp_norm.scale"] = scale(blocks["mlp_norm"]["scale"][i])
-        for w in mlp:
-            for leaf, t in layer(mlp[w], i).items():
-                params[p + f"mlp.{w}.{leaf}"] = t
-    params["final_norm.scale"] = scale(tree["final_norm"]["scale"])
-    if int8_head:
+        for group, names in (("attn_norm", ()), ("attn", _ATTN),
+                             ("mlp_norm", ()), ("mlp", _MLP)):
+            leaves = norm(blocks[group], i) if not names else {
+                f"{w}.{leaf}": t for w in names if w in blocks[group]
+                for leaf, t in dense(blocks[group][w], i).items()}
+            for leaf, t in leaves.items():
+                params[p + f"{group}.{leaf}"] = t
+    for leaf, t in norm(tree["final_norm"]).items():
+        params[f"final_norm.{leaf}"] = t
+    if "lm_head_q" in tree:
         params["lm_head_q"] = mat(tree["lm_head_q"])
         params["lm_head_scale"] = scale(tree["lm_head_scale"])
-    else:
+    elif "lm_head" in tree:
         params["lm_head"] = mat(tree["lm_head"])
     return params
 

@@ -51,6 +51,10 @@ static batch runs until its longest member finishes. Here:
   handoffs, imported prefixes) ride the rounds at the sentinel position
   past column 0; a draft crash (``chaos.SITE_SPEC_DRAFT``) degrades the
   engine to the plain step.
+* **Learned positions** (the GPT-2 family): the position table is sized
+  by ``max_seq_len``, so the engine serves at that length (``max_len`` is
+  pinned to it, a longer one refused) and a learned-position draft keeps
+  its own table, refused when shorter than the engine's ``max_len``.
 * **Metrics and chaos**: ``metrics=`` (``ServingMetrics``),
   ``kv_metrics=`` (``PagedKVMetrics``) and ``spec_metrics=``
   (``SpecMetrics``) are fed where the reference feeds them; ``step()``
@@ -307,12 +311,14 @@ def _resized(shapes: CacheShapes, batch: int, length: int) -> CacheShapes:
 
 
 def _prefixed_cache(model, device: torch.device,
-                    prefix: Optional[Tuple[_KV, int]]) -> _KV:
-    """A zeroed batch-1 cache at ``model``'s ``max_seq_len`` holding a
-    registered prefix's positions ``[0, plen)`` when ``prefix`` (its KV and
-    length) is given; the prefix's own cache stays untouched."""
+                    prefix: Optional[Tuple[_KV, int]],
+                    length: Optional[int] = None) -> _KV:
+    """A zeroed batch-1 cache of ``length`` positions (default: ``model``'s
+    ``max_seq_len``) holding a registered prefix's positions ``[0, plen)``
+    when ``prefix`` (its KV and length) is given; the prefix's own cache
+    stays untouched."""
     with torch.inference_mode():
-        kv = _zeros(cache_shapes(model, 1), device)
+        kv = _zeros(cache_shapes(model, 1, length), device)
         if prefix is not None:
             pkv, plen = prefix
             for dst, src in kv.pairs(pkv):
@@ -427,6 +433,10 @@ class _DraftRunner:
     ``fresh_prefills`` counts the prefills that start from an empty cache,
     each of which runs the flash forward kernel once a layer.
 
+    A learned-position draft keeps its table (its ``max_seq_len``), which
+    must reach the engine's ``max_len``; its caches are ``max_len`` long all
+    the same, so the sentinel's appends write nothing.
+
     Greedy only (argmax): token identity with plain decode is the
     contract, and sampled speculation needs rejection sampling, which the
     engine does not implement."""
@@ -434,7 +444,14 @@ class _DraftRunner:
     def __init__(self, cfg: TransformerConfig,
                  params: Dict[str, torch.Tensor], n_slots: int,
                  max_len: int, k: int, device: torch.device) -> None:
-        base = dataclasses.replace(cfg, max_seq_len=max_len)
+        if cfg.pos_emb == "rope":
+            base = dataclasses.replace(cfg, max_seq_len=max_len)
+        elif cfg.max_seq_len < max_len:
+            raise ValueError(
+                f"draft max_seq_len {cfg.max_seq_len} < engine max_len "
+                f"{max_len} (learned positions cannot extrapolate)")
+        else:
+            base = cfg
         self._prefill_model = decode_model(base, params, device)
         self._step_model = decode_model(
             dataclasses.replace(base, decode_multislot=True),
@@ -442,7 +459,8 @@ class _DraftRunner:
         self.device = device
         self.k = k
         self.max_len = max_len
-        self.cache = _zeros(cache_shapes(self._step_model, n_slots), device)
+        self.cache = _zeros(cache_shapes(self._step_model, n_slots, max_len),
+                            device)
         self.prefixes: Dict[int, Tuple[_KV, int]] = {}  # engine pid → KV
         self.fresh_prefills = 0
 
@@ -509,7 +527,8 @@ class _DraftRunner:
             if entry is None:
                 return False
             plen = entry[1]
-            kv = _prefixed_cache(self._prefill_model, self.device, entry)
+            kv = _prefixed_cache(self._prefill_model, self.device, entry,
+                                 self.max_len)
         else:
             kv = self._fresh_cache(int(prompt.size))
         self._prefill(kv, prompt, plen)
@@ -587,6 +606,13 @@ class ContinuousBatchingEngine:
         #: virtual clock are wall-time-free
         self._clock = clock
         max_len = max_len or cfg.max_seq_len
+        if cfg.pos_emb != "rope":
+            if max_len > cfg.max_seq_len:
+                raise ValueError("max_len beyond the trained table needs "
+                                 "rope")
+            # a learned position table is sized by max_seq_len: the engine
+            # serves at the trained length
+            max_len = cfg.max_seq_len
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
@@ -747,7 +773,8 @@ class ContinuousBatchingEngine:
         """Build the two models around ``params``: the cursor-mode prefill
         model and the multislot step model, sharing every weight (tensors
         already in ``cfg.dtype`` on the device are used as they are)."""
-        base = dataclasses.replace(self.cfg, max_seq_len=self.max_len)
+        base = (dataclasses.replace(self.cfg, max_seq_len=self.max_len)
+                if self.cfg.pos_emb == "rope" else self.cfg)
         prefill = decode_model(base, params, self.device)
         self._step_model = decode_model(
             dataclasses.replace(base, decode_multislot=True),

@@ -1,11 +1,14 @@
-"""Llama-family decoder: the training forward and the KV-cache (serving)
-mode.
+"""Llama- and GPT-2-family decoder: the training forward and the KV-cache
+(serving) mode.
 
 Counterpart of ``tpu_on_k8s/models/transformer.py``: ``TransformerConfig``,
-``RMSNorm``, half-split RoPE, ``Attention`` (heads-leading flash or plain
+``RMSNorm`` or ``LayerNorm`` (``norm``), half-split RoPE or a learned
+position table (``pos_emb``), ``Attention`` (heads-leading flash or plain
 attention in training, the single-cursor KV cache in decode mode), the
-SwiGLU ``MLP``, ``Block`` and ``Transformer`` with fp32 logits and an untied
-head, and ``features`` for the chunked loss. ``decode_multislot`` (the
+SwiGLU or tanh-GELU ``MLP`` (``activation``), biased projections
+(``use_bias``), ``Block`` and ``Transformer`` with fp32 logits from an
+untied head or the embedding table (``tie_embeddings``), and ``features``
+for the chunked loss. ``decode_multislot`` (the
 continuous-batching engine's step model, ``models/serving.py``) makes the
 cache's batch rows independent slots, each appending at its own position.
 
@@ -121,6 +124,16 @@ class TransformerConfig:
         return TransformerConfig()  # defaults are the 7B shape
 
     @staticmethod
+    def gpt2_small() -> "TransformerConfig":
+        """The 124M GPT-2 shape, bias-free as the reference defines it
+        (``convert.config_from_hf_gpt2`` sets ``use_bias``)."""
+        return TransformerConfig(vocab_size=50257, d_model=768, n_layers=12,
+                                 n_heads=12, n_kv_heads=12, d_ff=3072,
+                                 max_seq_len=1024, pos_emb="learned",
+                                 norm="ln", activation="gelu",
+                                 tie_embeddings=True)
+
+    @staticmethod
     def llama2_1b() -> "TransformerConfig":
         return TransformerConfig(d_model=2048, n_layers=16, n_heads=16,
                                  n_kv_heads=8, d_ff=5632)
@@ -137,12 +150,6 @@ class TransformerConfig:
 _NOT_PORTED = (
     ("fused_qkv", lambda c: c.fused_qkv, "the fused wqkv projection"),
     ("n_experts", lambda c: c.n_experts > 0, "MoE (models/moe.py)"),
-    ("pos_emb", lambda c: c.pos_emb != "rope", "GPT-2 family serving"),
-    ("norm", lambda c: c.norm != "rms", "GPT-2 family serving"),
-    ("activation", lambda c: c.activation != "swiglu",
-     "GPT-2 family serving"),
-    ("tie_embeddings", lambda c: c.tie_embeddings, "GPT-2 family serving"),
-    ("use_bias", lambda c: c.use_bias, "GPT-2 family serving"),
     ("attn_impl", lambda c: c.attn_impl not in ("xla", "flash"),
      "ring/ulysses sequence parallelism"),
 )
@@ -232,16 +239,46 @@ class RMSNorm(nn.Module):
         return (y * self.scale.float()).to(self.dtype)
 
 
+class LayerNorm(nn.Module):
+    """Flax's ``nn.LayerNorm`` as the reference builds it: the statistics in
+    fp32 with the fast variance ``E[x²] − E[x]²`` clipped at 0 (flax's
+    ``use_fast_variance`` default; ``F.layer_norm`` computes it another
+    way), then ``(x − mean) · (rsqrt(var + eps) · scale) + bias`` in fp32,
+    cast to ``dtype``. Scale and bias are fp32."""
+
+    def __init__(self, dim: int, eps: float, dtype: torch.dtype):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(dim, dtype=torch.float32))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=torch.float32))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = torch.clamp(x32.square().mean(dim=-1, keepdim=True)
+                          - mean.square(), min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale.float()
+        return ((x32 - mean) * mul + self.bias.float()).to(self.dtype)
+
+
+def make_norm(cfg: TransformerConfig) -> nn.Module:
+    if cfg.norm == "ln":
+        return LayerNorm(cfg.d_model, cfg.norm_eps, cfg.dtype)
+    return RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype)
+
+
 class Positions(NamedTuple):
     """What every layer reads of a call's positions, computed once per
     forward: the positions ``[B, L]``, the RoPE tables ``[B, L, 1, Dh/2]``
-    and whether the positions are the plain ``arange`` (one host sync per
-    forward, not one per layer; never for a multislot call, whose rows sit
-    at unrelated positions)."""
+    (None for learned positions, which the embedding adds) and whether the
+    positions are the plain ``arange`` (one host sync per forward, not one
+    per layer; never for a multislot call, whose rows sit at unrelated
+    positions)."""
 
     ids: torch.Tensor
-    cos: torch.Tensor
-    sin: torch.Tensor
+    cos: Optional[torch.Tensor]
+    sin: Optional[torch.Tensor]
     is_arange: bool
 
 
@@ -315,15 +352,23 @@ class KVCache:
 
 
 class Dense(nn.Linear):
-    """A bias-free ``nn.Linear`` whose weight is stored in
-    ``cfg.param_dtype`` and cast to ``cfg.dtype`` at every use."""
+    """An ``nn.Linear`` whose weight (and bias, with ``cfg.use_bias``) is
+    stored in ``cfg.param_dtype`` and cast to ``cfg.dtype`` at every use.
+    The bias is added after the product, in ``cfg.dtype``, as Flax's
+    ``Dense`` adds it (the product rounds once, the sum once), and the
+    product stays a plain ``mm`` whose first operand is the input, which
+    the remat policies read."""
 
     def __init__(self, n_in: int, n_out: int, cfg: TransformerConfig):
-        super().__init__(n_in, n_out, bias=False, dtype=cfg.param_dtype)
+        super().__init__(n_in, n_out, bias=cfg.use_bias,
+                         dtype=cfg.param_dtype)
         self.compute_dtype = cfg.dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(self.compute_dtype))
+        y = F.linear(x, self.weight.to(self.compute_dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(self.compute_dtype)
+        return y
 
 
 def _int8_mm(impl: str):
@@ -400,8 +445,9 @@ class Attention(nn.Module):
         q = self.wq(x).view(b, l, cfg.n_heads, cfg.head_dim)
         k = self.wk(x).view(b, l, cfg.n_kv_heads, cfg.head_dim)
         v = self.wv(x).view(b, l, cfg.n_kv_heads, cfg.head_dim)
-        q = _rope_rotate(q, pos.cos, pos.sin)
-        k = _rope_rotate(k, pos.cos, pos.sin)
+        if pos.cos is not None:
+            q = _rope_rotate(q, pos.cos, pos.sin)
+            k = _rope_rotate(k, pos.cos, pos.sin)
         if cache is not None:
             out = self._cached_attention(q, k, v, pos, cache)
         else:
@@ -507,14 +553,19 @@ def _append_per_row(k: torch.Tensor, v: torch.Tensor,
 
 class MLP(nn.Module):
     """SwiGLU; ``mlp_fused_gateup`` keeps one [2·d_ff, D] gate+up weight
-    (gate first), the layout of the reference's ``w_gateup`` kernel."""
+    (gate first), the layout of the reference's ``w_gateup`` kernel.
+    ``activation="gelu"`` is the GPT-2 MLP: ``w_down(gelu(w_up(x)))`` with
+    the tanh form of GELU, flax's ``nn.gelu`` default."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.d_ff = cfg.d_ff
-        self.fused = cfg.mlp_fused_gateup
+        self.gelu = cfg.activation == "gelu"
+        self.fused = cfg.mlp_fused_gateup and not self.gelu
         dense = _dense_class(cfg, cfg.mlp_int8)
-        if self.fused:
+        if self.gelu:
+            self.w_up = dense(cfg.d_model, cfg.d_ff, cfg)
+        elif self.fused:
             self.w_gateup = dense(cfg.d_model, 2 * cfg.d_ff, cfg)
         else:
             self.w_gate = dense(cfg.d_model, cfg.d_ff, cfg)
@@ -522,6 +573,8 @@ class MLP(nn.Module):
         self.w_down = dense(cfg.d_ff, cfg.d_model, cfg)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.gelu:
+            return self.w_down(F.gelu(self.w_up(x), approximate="tanh"))
         if self.fused:
             gate, up = self.w_gateup(x).split(self.d_ff, dim=-1)
         else:
@@ -544,12 +597,15 @@ _KERNELS = (torch.ops.tpu_on_k8s_torch.flash_fwd.default,
 
 def _mlp_remat_policy(width: int):
     """The policy of the MLP's selective checkpoint (``remat_policy="mlp"``):
-    save the outputs of the dots that read the MLP's input (gate and up, or
-    the fused gate+up: their first operand is ``width`` wide), recompute
-    everything else, as the reference's MLP ``nn.remat`` with
+    save the outputs of the dots that read the MLP's input (gate and up, the
+    fused gate+up, or GELU's up: their first operand is ``width`` wide),
+    recompute everything else, as the reference's MLP ``nn.remat`` with
     ``dots_with_no_batch_dims_saveable`` keeps its dot outputs. The
-    backward then re-runs only the SiLU and the product (and the int8
-    quantization and epilogue); the int8 kernel is no dot, so its gate and
+    backward then re-runs only the activation, the product and the bias
+    adds (and the int8 quantization and epilogue), never a dot: a bias is
+    added after its product (``Dense``), so an ``addmm`` whose first
+    operand is the bias never reaches the policy. The int8 kernel is no
+    dot, so its gate and
     up products run again, as a ``pallas_call`` does there. ``w_down``'s
     output is not read by the backward: its product (a dense ``mm``, or
     ``int8_matmul``'s ``_Int8Product``) runs after the last tensor the
@@ -603,9 +659,9 @@ class Block(nn.Module):
         self.remat_context = functools.partial(
             create_selective_checkpoint_contexts,
             _mlp_remat_policy(cfg.d_model))
-        self.attn_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype)
+        self.attn_norm = make_norm(cfg)
         self.attn = Attention(cfg)
-        self.mlp_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype)
+        self.mlp_norm = make_norm(cfg)
         self.mlp = MLP(cfg)
 
     def forward(self, x: torch.Tensor, pos: Positions,
@@ -626,7 +682,12 @@ class Transformer(nn.Module):
     last token, or a padded prompt's last real one);
     ``features`` → the final-norm hidden states and the head ``[D, V]`` in
     ``cfg.dtype`` for the chunked loss; ``extend_cache`` → the cache's
-    appends alone, without the head.
+    appends alone, without the head. With ``tie_embeddings`` the head is
+    ``embed`` cast to ``cfg.dtype`` and transposed (full precision also
+    under ``serve_int8_weights``), so ``embed``'s gradient sums the
+    gather's and the head's. With ``pos_emb="learned"`` the table
+    ``pos_embed [max_seq_len, D]`` is gathered at each call's positions
+    and added to the token embeddings in fp32, before the cast.
 
     With ``cfg.decode`` every call takes one ``KVCache`` per layer (build it
     with ``decode.decode_model``); otherwise no cache, and ``segments
@@ -647,9 +708,14 @@ class Transformer(nn.Module):
         self.remat_context = _block_remat_context(cfg)
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
                                               dtype=cfg.param_dtype))
+        if cfg.pos_emb == "learned":
+            self.pos_embed = nn.Parameter(torch.empty(
+                cfg.max_seq_len, cfg.d_model, dtype=cfg.param_dtype))
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.n_layers))
-        self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype)
-        if cfg.serve_int8_weights:
+        self.final_norm = make_norm(cfg)
+        if cfg.tie_embeddings:
+            pass                # the head is the embedding table
+        elif cfg.serve_int8_weights:
             self.lm_head_q = nn.Parameter(
                 torch.empty(cfg.d_model, cfg.vocab_size, dtype=torch.int8),
                 requires_grad=False)
@@ -672,10 +738,10 @@ class Transformer(nn.Module):
         # fp32 logits from the cfg.dtype (or int8) head: products of bf16
         # and int8 values are exact in fp32, so this is the reference's
         # fp32-accumulated einsum.
-        if cfg.serve_int8_weights:
+        if cfg.serve_int8_weights and not cfg.tie_embeddings:
             return (torch.matmul(x.float(), self.lm_head_q.float())
                     * self.lm_head_scale)
-        head = self.lm_head.to(cfg.dtype)
+        head = self._head()
         if cfg.head_int8:
             return _int8_mm(cfg.int8_impl)(x, head.t(), torch.float32)
         return torch.matmul(x.float(), head.float())
@@ -695,9 +761,16 @@ class Transformer(nn.Module):
         serving head is the pair (``lm_head_q``, ``lm_head_scale``), as the
         reference returns it."""
         x = self._trunk(tokens, positions, None, segments)
-        if self.cfg.serve_int8_weights:
+        if self.cfg.serve_int8_weights and not self.cfg.tie_embeddings:
             return x, (self.lm_head_q, self.lm_head_scale)
-        return x, self.lm_head.to(self.cfg.dtype)
+        return x, self._head()
+
+    def _head(self) -> torch.Tensor:
+        """The head ``[D, V]`` in ``cfg.dtype``: the tied embedding table,
+        transposed, or ``lm_head``."""
+        if self.cfg.tie_embeddings:
+            return self.embed.to(self.cfg.dtype).t()
+        return self.lm_head.to(self.cfg.dtype)
 
     def _trunk(self, tokens, positions, cache, segments):
         cfg = self.cfg
@@ -716,17 +789,36 @@ class Transformer(nn.Module):
         elif cache is not None:
             raise ValueError("the training model (decode=False) takes no "
                              "cache")
+        learned = cfg.pos_emb == "learned"
+        if learned and not cfg.decode and tokens.shape[1] > cfg.max_seq_len:
+            raise ValueError(f"sequence {tokens.shape[1]} exceeds the learned "
+                             f"position table ({cfg.max_seq_len})")
         arange = torch.arange(tokens.shape[1], dtype=torch.int32,
                               device=tokens.device).expand_as(tokens)
         if positions is None:
             positions = arange
-        cos, sin = _rope_tables(positions, cfg.head_dim // 2, cfg.rope_theta)
-        pos = Positions(positions, cos[:, :, None, :], sin[:, :, None, :],
-                        cfg.decode and not cfg.decode_multislot
-                        and tokens.shape[1] > 1
-                        and torch.equal(positions.int(), arange))
+        is_arange = (cfg.decode and not cfg.decode_multislot
+                     and tokens.shape[1] > 1
+                     and torch.equal(positions.int(), arange))
+        if learned:
+            pos = Positions(positions, None, None, is_arange)
+        else:
+            cos, sin = _rope_tables(positions, cfg.head_dim // 2,
+                                    cfg.rope_theta)
+            pos = Positions(positions, cos[:, :, None, :], sin[:, :, None, :],
+                            is_arange)
         # an fp32 gather from the master table, then the cast
-        x = F.embedding(tokens, self.embed).to(cfg.dtype)
+        x = F.embedding(tokens, self.embed)
+        if learned:
+            # A multislot step's free slots sit at the sentinel max_len (a
+            # horizon's or a verify chunk's later columns past it): their
+            # rows gather the last position, their appends write nothing
+            # and their logits are discarded. The reference's gather fills
+            # such rows with NaN; out of range, a CUDA gather would trap.
+            ids = (positions.clamp(max=cfg.max_seq_len - 1)
+                   if cfg.decode_multislot else positions)
+            x = x.float() + F.embedding(ids.long(), self.pos_embed).float()
+        x = x.to(cfg.dtype)
         remat_block = (cfg.remat and cfg.remat_policy != "mlp"
                        and torch.is_grad_enabled())
         for i, block in enumerate(self.blocks):

@@ -2,7 +2,11 @@
 entry point).
 
 Counterpart of ``examples/serve.py``: the parameters of a checkpoint
-(``--checkpoint-dir``, as ``train_llama --checkpoint-dir`` writes it) or
+(``--checkpoint-dir``, as ``train_llama --checkpoint-dir`` writes it), of
+a local Hugging Face checkpoint directory of the Llama or GPT-2 family
+(``--hf-model``, bf16 weights through ``models/convert.py``; it overrides
+``--config`` and ``--checkpoint-dir`` and needs ``transformers``, imported
+only for it) or
 random weights from ``--seed``, synthetic ragged traffic (seeded prompts arriving
 at ``--arrival`` requests per engine step on average) and
 ``models.serving.ContinuousBatchingEngine``; a real frontend would call
@@ -14,6 +18,7 @@ loop, as this file does::
     python -m tpu_on_k8s_torch.serve --config tiny --device cpu
     python -m tpu_on_k8s_torch.serve --config tiny --device cpu --spec \\
         --spec-draft-layers 1
+    python -m tpu_on_k8s_torch.serve --hf-model ./gpt2 --device cpu
 
 The engine reports through a ``ServingMetrics``; ``--metrics-port`` serves
 it at ``/metrics`` (without ``prometheus_client``, from a stdlib HTTP
@@ -35,7 +40,7 @@ import numpy as np
 import torch
 
 from tpu_on_k8s_torch.device import resolve_device
-from tpu_on_k8s_torch.generate import CONFIGS
+from tpu_on_k8s_torch.generate import CONFIGS, load_hf
 from tpu_on_k8s_torch.metrics import ServingMetrics, SpecMetrics
 from tpu_on_k8s_torch.metrics import serve as serve_metrics
 from tpu_on_k8s_torch.models.decode import truncated_draft
@@ -45,7 +50,6 @@ from tpu_on_k8s_torch.train.checkpoint import load_params
 
 #: example flag → the later slice that brings it
 _LATER = {
-    "hf_model": "HF interop (models/convert.py)",
     "model_axis": "mesh serving (_ShardPlan)",
     "fsdp": "mesh serving (_ShardPlan)",
     "gateway": "the serving plane (serve/gateway.py)",
@@ -95,7 +99,10 @@ def main(argv=None) -> dict:
     p.add_argument("--checkpoint-dir", default="",
                    help="restore the model's parameters from here (the "
                         "newest generation and step)")
-    p.add_argument("--hf-model", default="")
+    p.add_argument("--hf-model", default="",
+                   help="local HF checkpoint dir (Llama or GPT-2 family), "
+                        "served with bf16 weights; overrides --config and "
+                        "--checkpoint-dir")
     p.add_argument("--model-axis", type=int, default=1)
     p.add_argument("--fsdp", type=int, default=0)
     p.add_argument("--metrics-port", type=int, default=0)
@@ -112,7 +119,9 @@ def main(argv=None) -> dict:
 
     dev = resolve_device(args.device)
     cfg = CONFIGS[args.config]()
-    if args.checkpoint_dir:
+    if args.hf_model:
+        cfg, params = load_hf(args.hf_model, dev)
+    elif args.checkpoint_dir:
         params, ck_gen, ck_step = load_params(args.checkpoint_dir, dev,
                                               cfg.dtype)
         print(f"restored generation={ck_gen} step={ck_step}")

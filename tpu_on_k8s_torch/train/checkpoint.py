@@ -53,6 +53,7 @@ import torch
 import torch.distributed.checkpoint as dcp
 
 from tpu_on_k8s_torch import constants
+from tpu_on_k8s_torch.models.params import keeps_fp32
 from tpu_on_k8s_torch.train.trainer import TrainState
 
 #: Threads (and files) a step's directory is written with.
@@ -314,7 +315,8 @@ def load_params(directory: str, device: str | torch.device = "cuda",
     restores): ``{name: tensor}`` on ``device``, the matrices cast to
     ``dtype`` when given (norm scales stay fp32, as ``init_params`` stores
     serving weights), else in their stored dtypes (the fp32 masters), with
-    the generation and step (default: the newest)."""
+    the generation and step (default: the newest). Norm biases stay fp32
+    too (``params.keeps_fp32``)."""
     if not Path(directory).is_dir():
         raise FileNotFoundError(f"no checkpoints under {directory}")
     mgr = CheckpointManager(directory)
@@ -328,7 +330,7 @@ def load_params(directory: str, device: str | torch.device = "cuda",
     params = {}
     for key, t in flat.items():
         name = key[len("params/"):]
-        keep = dtype is None or name.endswith("scale")
+        keep = dtype is None or keeps_fp32(name)
         params[name] = t if keep else t.to(dtype)
     return params, generation, step
 

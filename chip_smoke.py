@@ -45,7 +45,8 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    on the ``int8_impl="xla"`` route (``torch._int_mm`` at decode's M) and
    on the int8 GEMM kernel, with equal tokens;
 3d. the three CLIs (``generate``, ``train_llama``, ``serve``) with their
-   own defaults; then ``train_llama --config tiny --checkpoint-dir D
+   own defaults, and ``serve --gateway`` and ``serve --replicas 2
+   --rollout-demo`` (the serving plane's), every request served; then ``train_llama --config tiny --checkpoint-dir D
    --eval-data F --eval-every 6`` on ``cuda`` (evaluations at steps 6 and
    12, step 12 saved), and ``generate --checkpoint-dir D`` and ``serve
    --checkpoint-dir D``, whose greedy tokens equal those of the restored
@@ -125,6 +126,35 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    occupancy 8 beside 3e (a)'s, the handoff's export, seal, verify and
    adoption times and ``generate``'s times off the int8 cache are
    printed;
+7. the serving plane (``tpu_on_k8s_torch/serve/``; run after 3h, on
+   phase 3's weights, with 3e's traffic and engines of 8 slots x 2048):
+   (a) ``ServingGateway`` over one engine, tenants at weights 1:2:4, a
+   queue bound of 16: the 24 requests submitted at once (8 shed with a
+   typed queue-full ``Rejected`` and submitted again once the queue
+   drains), one cancelled mid-decode, one expiring mid-decode (both
+   leave their slots on the step that finalizes them), under
+   ``engine_crash_mid_decode(at_steps=(5,))`` (the survivors replayed);
+   (b) ``ServingFleet``, two replicas, prefix bucket 16, rolled to a
+   second tree ``v2`` (``torch.Generator`` seed 1) with ``max_surge=1``
+   once half the requests are in, under
+   ``replica_crash_mid_decode("replica-1")``; (c) ``DisaggFleet``, a
+   dense prefill replica and a paged decode replica, 3e's prefix in its
+   ``FleetPrefixStore``, under ``disagg_handoff_chaos`` (one handoff lost,
+   one corrupted: the corrupted one fails ``verify`` and both are
+   replayed); (d) ``ModelPool`` over one engine with v1 and v2, the
+   requests alternating between the two lanes, 4 admissions a turn, under
+   ``model_swap_failure(at_swap=2)`` (the refused swap leaves v1 live and
+   is retried). Every request ends as planned (DONE, or the cancel and
+   the expiry of (a)), none lost; (a)'s streamed tokens end in each
+   result; ``flash_fwd`` launches once a layer per fresh prefill on every
+   path (replays, the fleet's auto-registered heads and the rollout's new
+   replicas included) and never on (c)'s decode replica; every DONE
+   request's tokens within 3e's tau gate against the model that served
+   it (v1 or v2). The gateway's host time a step, queue wait, TTFT,
+   tokens/s beside 3e (a)'s, the fleet's reroutes, prefix hits and
+   rollout phases, the handoffs' bytes, seal and verify times and the
+   store's counters, and the pool's swaps, ``replace_params`` times and
+   decision ledger are printed;
 4. training: a gradient gate (the first step's gradients of the kernel
    model against plain-attention models in bf16 and fp32), then ``Trainer``
    at ``llama2_1b`` (16 layers, full width, fp32 masters, bf16 compute,
@@ -190,6 +220,7 @@ that line; so does a machine without CUDA. Imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -201,6 +232,7 @@ import tempfile
 import time
 import types
 import warnings
+from collections import Counter
 from contextlib import nullcontext
 from pathlib import Path
 from unittest import mock
@@ -297,6 +329,17 @@ KV8_HANDOFF_BYTES = 1024 * 32 * 8 * 2 * (128 + 4)
 # bf16's; a misplaced or misscaled K/V moves logits by O(max|logit|),
 # ~14x it.
 KV8_NOISE_MULT = 3.0
+# Phase 7, the serving plane on phase 3e's weights and traffic: (a) the
+# gateway's queue bound, its tenants' weights, the engine step that crashes
+# and the deadline (s) of the request that expires mid-decode; (b) the
+# fleet's prefix-affinity bucket; (d) the model pool's admissions a lane
+# turn.
+PLANE_QUEUE_BOUND = 16
+PLANE_TENANTS = {"tenant-0": 1.0, "tenant-1": 2.0, "tenant-2": 4.0}
+PLANE_CRASH_STEP, PLANE_DEADLINE_S = 5, 0.6
+PLANE_PREFIX_BUCKET, PLANE_SWAP_BATCH = 16, 4
+# Phase 3d: the serving plane's CLI forms, each at its defaults
+PLANE_CLI_FLAGS = (("--gateway",), ("--replicas", "2", "--rollout-demo"))
 
 # Phase 6, the GPT-2 family at gpt2_small width. The converters are driven
 # with a namespace carrying GPT2Config's documented defaults (the card has
@@ -915,11 +958,16 @@ def run_clis(mods, dev, tmp: Path) -> dict:
 
     reset_counts(mods)
     out, served_out = io.StringIO(), io.StringIO()
+    plane_out = {flags: io.StringIO() for flags in PLANE_CLI_FLAGS}
     with contextlib.redirect_stdout(out):
         tokens = generate_cli.main([])
         loss = train_llama.main([])
     with contextlib.redirect_stdout(served_out):
         served = serve_cli.main([])
+    plane_done = {}
+    for flags, buf in plane_out.items():
+        with contextlib.redirect_stdout(buf):
+            plane_done[flags] = serve_cli.main(list(flags))
     checkpoint_cli_roundtrip(mods, dev, tmp)
     torch.cuda.synchronize()
     launched = read_counts(mods)
@@ -931,9 +979,18 @@ def run_clis(mods, dev, tmp: Path) -> dict:
           f"launches {launched}")
     print(f"[cli] python -m tpu_on_k8s_torch.serve (defaults: tiny, cuda, 16 "
           f"requests): {served_out.getvalue().splitlines()[-1]}")
+    for flags, buf in plane_out.items():
+        lines = buf.getvalue().splitlines()
+        print(f"[cli] python -m tpu_on_k8s_torch.serve {' '.join(flags)} "
+              f"(tiny, cuda): " + " | ".join(
+                  ln for ln in lines if ln.startswith(
+                      ("served", "fleet served", "rollout phases"))))
     if (tuple(tokens.shape) != (1, 32) or not math.isfinite(loss)
             or len(served) != 16
-            or any(t.shape != (16,) for t in served.values())):
+            or any(t.shape != (16,) for t in served.values())
+            or any(len(done) != 16 or any(t.shape != (16,)
+                                          for t in done.values())
+                   for done in plane_done.values())):
         fail("a CLI with its own defaults did not finish")
     if not (launched["flash_fwd"] and launched["flash_bwd_dq"]
             and launched["flash_bwd_dkv"]):
@@ -2171,6 +2228,524 @@ def serve_kv_int8(cfg, params, prompt4, greedy, bf16_ms, mods, plain_flash,
     print(f"[time] phase 3h {time.perf_counter() - t_phase:.1f} s")
     return {name: launches[name] + engine_launches[name]
             + handoff_launches[name] for name in launches}
+
+
+def served_gate(tag, reqs, served, prefix, carriers, models, plain_flash,
+                transformer, decode, diff) -> None:
+    """3e's teacher-forced gate on a serving-plane run: ``served`` maps
+    request index -> (tokens, the version whose parameters served it), and
+    each request is held against the no-cache forward of that version's
+    model (``models``)."""
+    per_req = []
+    for version, model in models.items():
+        js = sorted(j for j, (_, v) in served.items() if v == version)
+        if js:
+            per_req += teacher_forced_gaps(
+                model, [reqs[j] for j in js],
+                {i: served[j][0] for i, j in enumerate(js)}, prefix,
+                {i for i, j in enumerate(js) if j in carriers}, plain_flash,
+                transformer, decode)
+    tau_gate(tag, per_req, TAU_MULT * diff, diff)
+
+
+def flash_per_fresh_prefill(tag, engines: dict, launched: dict,
+                            n_layers: int) -> None:
+    """The path's flash_fwd launches must be one a layer per fresh prefill
+    of its engines, and no other kernel may launch."""
+    fresh = {name: e.stats["fresh_prefills"] for name, e in engines.items()}
+    want = n_layers * sum(fresh.values())
+    print(f"{tag} flash_fwd launches {launched['flash_fwd']} = {n_layers} x "
+          f"fresh prefills " + ", ".join(
+              f"{name} {n} ({n_layers * n} launches)"
+              for name, n in fresh.items()))
+    if (launched["flash_fwd"] != want or not want
+            or any(c for name, c in launched.items() if name != "flash_fwd")):
+        fail(f"{tag} launches {launched}, expected {want} flash_fwd")
+
+
+def plane_gateway(cfg, params, traffic, mods, serving, plane, chaos_mod,
+                  metrics_mod, dev, plain_a) -> tuple:
+    """Phase 7 (a): ``ServingGateway`` over one engine, three tenants at
+    weights 1:2:4 and a queue bound of PLANE_QUEUE_BOUND, under
+    ``engine_crash_mid_decode(at_steps=(PLANE_CRASH_STEP,))``. All 24
+    requests are submitted at once: the queue takes PLANE_QUEUE_BOUND and
+    sheds the rest with a typed queue-full ``Rejected``; the shed ones are
+    submitted again once the queue has drained. One request is cancelled
+    mid-decode; one, submitted last into a free slot with a
+    PLANE_DEADLINE_S deadline, expires mid-decode. Both must leave their
+    slots on the step that finalizes them. Returns the served tokens and
+    the launches."""
+    reqs, prefix, carriers = traffic
+    RS = plane.RequestState
+    reset_counts(mods)
+    engine = serving.ContinuousBatchingEngine(
+        cfg, params, n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+        clock=time.monotonic, device=dev)
+    metrics = metrics_mod.ServingMetrics()
+    gw = plane.ServingGateway(
+        engine, plane.AdmissionConfig(max_queue_depth=PLANE_QUEUE_BOUND),
+        tenant_weights=PLANE_TENANTS, metrics=metrics, clock=time.monotonic)
+    pid = engine.register_prefix(prefix)
+    engine_ms = [0.0]
+    engine_step = engine.step
+
+    def timed_step():
+        t0 = time.perf_counter()
+        try:
+            return engine_step()
+        finally:
+            engine_ms[0] += (time.perf_counter() - t0) * 1e3
+
+    engine.step = timed_step
+    engine_abort = engine.abort
+    aborts = []            # (free_slots before, after) of each abort a step
+
+    def counted_abort(erid):
+        before = engine.free_slots
+        try:
+            return engine_abort(erid)
+        finally:
+            aborts.append((before, engine.free_slots))
+
+    engine.abort = counted_abort
+    tenants = sorted(PLANE_TENANTS)
+    streams, job, results = {}, {}, {}
+
+    def submit(j, **kw):
+        p, n = reqs[j]
+        r = gw.submit(p, n, tenant=tenants[j % len(tenants)],
+                      prefix_id=pid if j in carriers else None,
+                      on_token=lambda rid, t: streams[rid].append(t), **kw)
+        if not isinstance(r, plane.Rejected):
+            streams[r], job[r] = [], j
+        return r
+
+    shed, reasons = [], Counter()
+    for j in range(len(reqs)):
+        r = submit(j)
+        if isinstance(r, plane.Rejected):
+            shed.append(j)
+            reasons[r.reason] += 1
+    print(f"[plane] (a) {len(reqs)} requests submitted at once: "
+          f"{len(reqs) - len(shed)} queued, {len(shed)} shed {dict(reasons)}")
+    if (len(shed) != len(reqs) - PLANE_QUEUE_BOUND
+            or set(reasons) != {plane.admission.REASON_QUEUE_FULL}):
+        fail(f"the gateway shed {dict(reasons)} of {len(reqs)} at a queue "
+             f"bound of {PLANE_QUEUE_BOUND}")
+    j_dead = max(shed, key=lambda j: reqs[j][1])
+    j_cancel = max((job[r] for r in job), key=lambda j: reqs[j][1])
+    r_cancel = next(r for r, j in job.items() if j == j_cancel)
+    r_dead = resubmitted = None
+    step_host, freed = [], {}
+    inj = chaos_mod.engine_crash_mid_decode(
+        at_steps=(PLANE_CRASH_STEP,)).injector()
+    chaos_mod.install(inj)
+    t0 = time.perf_counter()
+    try:
+        while (r_dead is None or resubmitted is None
+               or gw.has_live_requests):
+            if resubmitted is None and gw.queue_depth == 0:
+                resubmitted = [submit(j) for j in shed if j != j_dead]
+                if any(isinstance(r, plane.Rejected) for r in resubmitted):
+                    fail(f"the gateway refused a resubmission: {resubmitted}")
+            elif (r_dead is None and resubmitted is not None
+                  and gw.queue_depth == 0 and engine.free_slots > 0):
+                r_dead = submit(j_dead, deadline_s=PLANE_DEADLINE_S)
+            if (gw.state(r_cancel) is RS.DECODING
+                    and len(streams[r_cancel]) >= 4
+                    and r_cancel not in freed):
+                gw.cancel(r_cancel)
+            engine_ms[0] = 0.0
+            aborts.clear()
+            t_step = time.perf_counter()
+            done = gw.step()
+            step_host.append((time.perf_counter() - t_step) * 1e3
+                             - engine_ms[0])
+            # a cancelled or expired request leaves its slot through
+            # engine.abort on the step that finalizes it: that step holds
+            # one abort that raised free_slots by one for each of them
+            ending = [rid for rid in (r_cancel, r_dead)
+                      if rid in done and rid not in freed]
+            n_freed = sum(after == before + 1 for before, after in aborts)
+            for rid in ending:
+                freed[rid] = n_freed >= len(ending)
+            for rid in done:
+                results[rid] = gw.result(rid)
+    finally:
+        chaos_mod.uninstall()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launched = read_counts(mods)
+    states = Counter(res.state.value for res in results.values())
+    print(f"[plane] (a) outcomes {dict(states)}; injector {inj.events}; "
+          f"engine crashes {engine.stats['crashes']}, replayed "
+          f"{metrics.counters['requests_replayed']}; cancelled and expired "
+          f"slots freed on their step {freed}")
+    if set(results) != set(job):
+        fail("the gateway lost a request silently")
+    planned = {rid: (RS.CANCELLED if rid == r_cancel
+                     else RS.DEADLINE_EXCEEDED if rid == r_dead
+                     else RS.DONE) for rid in job}
+    wrong = {rid: res.state.value for rid, res in results.items()
+             if res.state is not planned[rid]}
+    if wrong:
+        fail(f"gateway requests ended off plan: {wrong}")
+    for rid in (r_cancel, r_dead):
+        n = results[rid].tokens.size
+        if not 0 < n < reqs[job[rid]][1] or not freed.get(rid):
+            fail(f"gateway request {rid} ({results[rid].state.value}) "
+                 f"kept {n} tokens or its slot")
+    if engine.stats["crashes"] != 1 or inj.fired_total() != 1:
+        fail("the planted engine crash did not happen once")
+    replayed = 0
+    for rid, res in results.items():
+        toks = res.tokens.tolist()
+        stream = streams[rid]
+        replayed += len(stream) > len(toks)
+        if stream[len(stream) - len(toks):] != toks:
+            fail(f"gateway request {rid}: streamed {stream} for {toks}")
+    if replayed > metrics.counters["requests_replayed"]:
+        fail(f"{replayed} streams re-emitted tokens, "
+             f"{metrics.counters['requests_replayed']} requests replayed")
+    flash_per_fresh_prefill("[plane] (a)", {"engine": engine}, launched,
+                            cfg.n_layers)
+    served = {job[rid]: (res.tokens, "v1") for rid, res in results.items()
+              if res.state is RS.DONE}
+    emitted = sum(res.tokens.size for res in results.values())
+    qwait = metrics.histograms["queue_wait_seconds"]
+    ttft = metrics.histograms["time_to_first_token_seconds"]
+    print(f"[plane] (a) gateway host time a step (gateway.step less "
+          f"engine.step, wall) median {median(step_host):.3f} ms over "
+          f"{len(step_host)} steps; p50 queue wait "
+          f"{median(qwait) * 1e3:.1f} ms; p50 TTFT {median(ttft) * 1e3:.1f} "
+          f"ms; {emitted / wall:.1f} tokens/s ({emitted} tokens in "
+          f"{wall:.2f} s); 3e (a), the bare engine: "
+          f"{plain_a['emitted'] / plain_a['wall']:.1f} tokens/s, p50 TTFT "
+          f"{median(plain_a['ttft_ms']):.1f} ms")
+    del engine, gw
+    gc.collect()            # the gateway and its engine hold each other
+    torch.cuda.empty_cache()
+    return served, launched
+
+
+def plane_fleet(cfg, params, v2, traffic, mods, serving, plane, chaos_mod,
+                metrics_mod, dev) -> tuple:
+    """Phase 7 (b): ``ServingFleet`` of two replicas over phase 3's
+    tensors, prefix_bucket PLANE_PREFIX_BUCKET, under
+    ``replica_crash_mid_decode("replica-1")`` (installed once the replicas
+    are ready, so that its third step is mid-decode). Two requests arrive a
+    step, the carriers as prefix + prompt; once half are in, the fleet
+    rolls to ``v2`` with ``FleetRolloutPolicy(max_surge=1)``. Returns the
+    served tokens, each with the version of the replica that served it,
+    and the launches."""
+    reqs, prefix, carriers = traffic
+    RS = plane.RequestState
+    reset_counts(mods)
+    engines, version_of = {}, {}
+
+    def factory_for(tree, version):
+        def make(name):
+            version_of[name] = version
+            engines[name] = serving.ContinuousBatchingEngine(
+                cfg, tree, n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+                clock=time.monotonic, device=dev)
+            return engines[name]
+        return make
+
+    fleet = plane.ServingFleet(
+        factory_for(params, "v1"), 2,
+        probe=plane.ProbeConfig(slow_start_steps=2),
+        router=plane.Router(prefix_bucket_len=PLANE_PREFIX_BUCKET),
+        metrics=metrics_mod.FleetMetrics())
+    while not all(r.routable for r in fleet.replicas.values()):
+        fleet.step()
+    inj = chaos_mod.replica_crash_mid_decode("replica-1").injector()
+    chaos_mod.install(inj)
+    job, results, refused, served_by = {}, {}, {}, {}
+    phases = [(fleet.rollout_phase.value, 0.0)]
+    t0 = time.perf_counter()
+    try:
+        while (len(job) + len(refused) < len(reqs) or fleet.has_live_requests
+               or fleet.rollout_phase not in (plane.RolloutPhase.IDLE,
+                                              plane.RolloutPhase.COMPLETE)):
+            for _ in range(2):
+                j = len(job) + len(refused)
+                if j < len(reqs):
+                    p, n = reqs[j]
+                    full = np.concatenate([prefix, p]) if j in carriers else p
+                    r = fleet.submit(full, n)
+                    if isinstance(r, plane.Rejected):
+                        refused[j] = r.reason
+                    else:
+                        job[r] = j
+            if (fleet.rollout_phase is plane.RolloutPhase.IDLE
+                    and len(job) + len(refused) >= len(reqs) // 2
+                    and not phases[1:]):
+                fleet.start_rollout(factory_for(v2, "v2"), "v2",
+                                    plane.FleetRolloutPolicy(max_surge=1))
+            for rid in fleet.step():
+                served_by[rid] = fleet.replica_of(rid)
+                results[rid] = fleet.result(rid)
+            if fleet.rollout_phase.value != phases[-1][0]:
+                phases.append((fleet.rollout_phase.value,
+                               time.perf_counter() - t0))
+    finally:
+        chaos_mod.uninstall()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launched = read_counts(mods)
+    states = Counter(res.state.value for res in results.values())
+    print(f"[plane] (b) outcomes {dict(states)}, typed refusals "
+          f"{refused}; injector {inj.events}; fleet stats {fleet.stats}")
+    if set(results) != set(job) or len(job) + len(refused) != len(reqs):
+        fail("the fleet lost a request silently")
+    if any(res.state is not RS.DONE for res in results.values()):
+        fail(f"fleet requests ended off DONE: {dict(states)}")
+    if fleet.stats["ejected"] != 1 or inj.fired_total() != 1:
+        fail("the planted replica crash did not eject replica-1 once")
+    if fleet.stats["prefix_hits"] < 1:
+        fail(f"the fleet hit no prefix: {fleet.stats}")
+    if (fleet.rollout_phase is not plane.RolloutPhase.COMPLETE
+            or fleet.router.weights != {"v2": 1.0}):
+        fail(f"the rollout did not complete: {fleet.rollout_phase} "
+             f"{fleet.router.weights}")
+    flash_per_fresh_prefill("[plane] (b)", engines, launched, cfg.n_layers)
+    served = {job[rid]: (res.tokens, version_of[served_by[rid]])
+              for rid, res in results.items()}
+    emitted = sum(res.tokens.size for res in results.values())
+    print(f"[plane] (b) {emitted / wall:.1f} tokens/s ({emitted} tokens in "
+          f"{wall:.2f} s); rerouted {fleet.stats['rerouted']}; prefix hits "
+          f"{fleet.stats['prefix_hits']} misses "
+          f"{fleet.stats['prefix_misses']}; requests by version "
+          f"{dict(Counter(v for _, v in served.values()))}; rollout phases "
+          f"(s from the first request) " + ", ".join(
+              f"{ph} {t:.2f}" for ph, t in phases))
+    del fleet, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return served, launched
+
+
+def plane_disagg(cfg, params, traffic, mods, serving, plane, chaos_mod,
+                 metrics_mod, dev) -> tuple:
+    """Phase 7 (c): ``DisaggFleet`` with one prefill replica (dense) and one
+    paged decode replica over phase 3's tensors, 3e's prefix registered in
+    its ``FleetPrefixStore`` (so the carriers hand off suffix-only), under
+    ``disagg_handoff_chaos`` (the 2nd handoff lost, the 4th corrupted).
+    Returns the served tokens and the launches."""
+    reqs, prefix, carriers = traffic
+    RS = plane.RequestState
+    reset_counts(mods)
+    engines = {}
+
+    def factory(name):
+        paged = ({"kv_pages": ENGINE_PAGES, "page_tokens": 128}
+                 if name.startswith("decode") else {})
+        engines[name] = serving.ContinuousBatchingEngine(
+            cfg, params, n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+            clock=time.monotonic, device=dev, **paged)
+        return engines[name]
+
+    fm = metrics_mod.FleetMetrics()
+    fleet = plane.DisaggFleet(
+        factory, 1, 1, store=plane.FleetPrefixStore(metrics=fm),
+        replay=plane.ReplayPolicy(max_replays=3),
+        auto_register_prefixes=False, metrics=fm)
+    fleet.register_prefix(prefix)
+    seal_ms, verify = [], []
+    seal, check = serving.KVHandoff.seal, serving.KVHandoff.verify
+
+    def timed_seal(handoff):
+        t0 = time.perf_counter()
+        out = seal(handoff)
+        seal_ms.append(((time.perf_counter() - t0) * 1e3, handoff.nbytes))
+        return out
+
+    def timed_verify(handoff):
+        t0 = time.perf_counter()
+        ok = check(handoff)
+        verify.append(((time.perf_counter() - t0) * 1e3, ok))
+        return ok
+
+    inj = chaos_mod.disagg_handoff_chaos().injector()
+    job, results, submitted, first = {}, {}, {}, {}
+    t0 = time.perf_counter()
+    with mock.patch.object(serving.KVHandoff, "seal", timed_seal), \
+            mock.patch.object(serving.KVHandoff, "verify", timed_verify):
+        chaos_mod.install(inj)
+        try:
+            while len(job) < len(reqs) or fleet.has_live_requests:
+                for _ in range(2):
+                    j = len(job)
+                    if j < len(reqs):
+                        p, n = reqs[j]
+                        full = (np.concatenate([prefix, p]) if j in carriers
+                                else p)
+                        r = fleet.submit(
+                            full, n, on_token=lambda rid, t: first.setdefault(
+                                rid, time.monotonic()))
+                        if isinstance(r, plane.Rejected):
+                            fail(f"the disaggregated fleet refused request "
+                                 f"{j}: {r.reason}")
+                        job[r], submitted[r] = j, time.monotonic()
+                for rid in fleet.step():
+                    results[rid] = fleet.result(rid)
+        finally:
+            chaos_mod.uninstall()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launched = read_counts(mods)
+    st, store = fleet.stats, fleet.store.stats
+    states = Counter(res.state.value for res in results.values())
+    failed = sum(not ok for _, ok in verify)
+    print(f"[plane] (c) outcomes {dict(states)}; injector {inj.events}; "
+          f"handoffs enqueued {st['handoffs_enqueued']} adopted "
+          f"{st['handoffs_adopted']} lost {st['handoffs_lost']} corrupt "
+          f"{st['handoffs_corrupt']}, replayed {st['replayed']}, "
+          f"verify failures {failed}; events: "
+          + "; ".join(ln for ln in fleet.event_log
+                      if ln.startswith(("handoff_", "replay"))))
+    if set(results) != set(job) or any(res.state is not RS.DONE
+                                       for res in results.values()):
+        fail(f"the disaggregated fleet lost or failed a request: "
+             f"{dict(states)}")
+    if (st["handoffs_lost"], st["handoffs_corrupt"], st["replayed"],
+            st["retry_exhausted"], failed) != (1, 1, 2, 0, 1):
+        fail(f"the handoff chaos was not caught and replayed: {st}")
+    decode, prefill = engines["decode-0"], engines["prefill-0"]
+    if decode.stats["fresh_prefills"] or decode.stats["prefill_positions"]:
+        fail(f"the decode replica prefilled: {decode.stats}")
+    flash_per_fresh_prefill("[plane] (c)", {"prefill-0": prefill,
+                                            "decode-0": decode},
+                            launched, cfg.n_layers)
+    served = {job[rid]: (res.tokens, "v1") for rid, res in results.items()}
+    emitted = sum(res.tokens.size for res in results.values())
+    ttft = [(first[rid] - submitted[rid]) * 1e3 for rid in results]
+    print(f"[plane] (c) handoff bytes median "
+          f"{median(b for _, b in seal_ms):.0f} (max "
+          f"{max(b for _, b in seal_ms)}), seal median "
+          f"{median(ms for ms, _ in seal_ms):.1f} ms, verify median "
+          f"{median(ms for ms, _ in verify):.1f} ms over {len(seal_ms)} "
+          f"handoffs; p50 TTFT {median(ttft):.1f} ms; {emitted / wall:.1f} "
+          f"tokens/s ({emitted} tokens in {wall:.2f} s); store hits "
+          f"{store['hits']} promotes {store['promotes']} misses "
+          f"{store['misses']}, overflow bytes {store['overflow_bytes']}")
+    del fleet, engines, decode, prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+    return served, launched
+
+
+def plane_modelpool(cfg, params, v2, traffic, mods, serving, plane,
+                    chaos_mod, metrics_mod, ledger_mod, dev) -> tuple:
+    """Phase 7 (d): ``ModelPool`` over one engine with two models, phase 3's
+    tree (v1) and ``v2``; the requests alternate between their lanes (the
+    carriers as prefix + prompt), PLANE_SWAP_BATCH admissions a turn,
+    under ``model_swap_failure(at_swap=2)``. Returns the served tokens,
+    each with its model, and the launches."""
+    reqs, prefix, carriers = traffic
+    reset_counts(mods)
+    engine = serving.ContinuousBatchingEngine(
+        cfg, params, n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+        clock=time.monotonic, device=dev)
+    swap_ms = []
+    replace = engine.replace_params
+
+    def timed_replace(tree, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = replace(tree, **kw)
+        torch.cuda.synchronize()
+        swap_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    engine.replace_params = timed_replace
+    ledger = ledger_mod.DecisionLedger(time.monotonic)
+    metrics = metrics_mod.ModelPoolMetrics()
+    pool = plane.ModelPool(engine, {"v1": params, "v2": v2}, active="v1",
+                           swap_batch=PLANE_SWAP_BATCH, metrics=metrics,
+                           ledger=ledger)
+    job = {}
+    for j, (p, n) in enumerate(reqs):
+        full = np.concatenate([prefix, p]) if j in carriers else p
+        job[pool.submit(("v1", "v2")[j % 2], full, n)] = j
+    inj = chaos_mod.model_swap_failure(at_swap=2).injector()
+    t0 = time.perf_counter()
+    with inj:
+        out = pool.run()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launched = read_counts(mods)
+    print(f"[plane] (d) pool stats {pool.stats}; injector {inj.events}; "
+          f"engine param swaps {engine.stats['param_swaps']}; decision log: "
+          + "; ".join(pool.decision_log))
+    for line in ledger.lines():
+        print(f"[plane] (d) ledger: {line}")
+    if set(out) != set(job) or any(out[rid].shape != (reqs[j][1],)
+                                   for rid, j in job.items()):
+        fail("the model pool lost or cut a request")
+    if (pool.stats["swap_failures"], pool.stats["swap_retries"]) != (1, 1) \
+            or engine.stats["param_swaps"] != pool.stats["swaps"]:
+        fail(f"the refused swap was not retried once: {pool.stats}")
+    flash_per_fresh_prefill("[plane] (d)", {"engine": engine}, launched,
+                            cfg.n_layers)
+    served = {job[rid]: (toks, ("v1", "v2")[job[rid] % 2])
+              for rid, toks in out.items()}
+    emitted = sum(t.size for t in out.values())
+    print(f"[plane] (d) swaps {pool.stats['swaps']}, swap failures "
+          f"{pool.stats['swap_failures']}; replace_params median "
+          f"{median(swap_ms):.2f} ms a swap over {len(swap_ms)} "
+          f"({', '.join(f'{ms:.2f}' for ms in swap_ms)}); "
+          f"{emitted / wall:.1f} tokens/s ({emitted} tokens in "
+          f"{wall:.2f} s)")
+    del pool, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return served, launched
+
+
+def serve_plane(cfg, params, mods, plain_flash, diff, plain_a, serving,
+                transformer, decode, chaos_mod, metrics_mod, dev) -> dict:
+    """Phase 7: the serving plane (``tpu_on_k8s_torch/serve/``) over
+    engines on phase 3's weights with 3e's traffic: (a) the gateway, (b)
+    the fleet with a rollout to a second tree ``v2`` (torch.Generator seed
+    1), (c) the disaggregated fleet, (d) the model pool over v1 and v2,
+    each under its chaos scenario. Every DONE request's tokens must pass
+    3e's teacher-forced gate against the model that served it. Returns
+    each path's launches."""
+    from tpu_on_k8s_torch import serve as plane
+    from tpu_on_k8s_torch.models.params import init_params
+    from tpu_on_k8s_torch.obs import ledger as ledger_mod
+
+    t_phase = time.perf_counter()
+    traffic = engine_traffic(cfg.vocab_size)
+    reqs, prefix, carriers = traffic
+    v2 = init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    bcfg = dataclasses.replace(cfg, max_seq_len=ENGINE_MAX_LEN)
+    models = {"v1": decode.decode_model(bcfg, params, dev),
+              "v2": decode.decode_model(bcfg, v2, dev)}
+    paths, served = {}, {}
+    served["gateway"], paths["gateway"] = plane_gateway(
+        cfg, params, traffic, mods, serving, plane, chaos_mod, metrics_mod,
+        dev, plain_a)
+    served["fleet"], paths["fleet"] = plane_fleet(
+        cfg, params, v2, traffic, mods, serving, plane, chaos_mod,
+        metrics_mod, dev)
+    served["disagg_fleet"], paths["disagg_fleet"] = plane_disagg(
+        cfg, params, traffic, mods, serving, plane, chaos_mod, metrics_mod,
+        dev)
+    served["modelpool"], paths["modelpool"] = plane_modelpool(
+        cfg, params, v2, traffic, mods, serving, plane, chaos_mod,
+        metrics_mod, ledger_mod, dev)
+    for tag, path in (("(a)", "gateway"), ("(b)", "fleet"),
+                      ("(c)", "disagg_fleet"), ("(d)", "modelpool")):
+        served_gate(f"[plane] {tag}", reqs, served[path], prefix, carriers,
+                    models, plain_flash, transformer, decode, diff)
+    del models, v2
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[time] phase 7 {time.perf_counter() - t_phase:.1f} s")
+    return paths
 
 
 def backward_products(model, loss_fn, tokens) -> int:
@@ -3564,6 +4139,11 @@ def run(tmp: Path) -> int:
     by_path["kv_int8"] = serve_kv_int8(
         cfg, params, prompt4, greedy, (prefill_ms, gen64_ms, decode_ms),
         mods, plain_flash, diff, gpu, plain_a, serving, transformer, decode)
+
+    # ---- 7. the serving plane at llama2_7b width ------------------------
+    by_path.update(serve_plane(cfg, params, mods, plain_flash, diff, plain_a,
+                               serving, transformer, decode, chaos_mod,
+                               metrics_mod, dev))
     del params
     torch.cuda.empty_cache()
     by_path["cli"] = run_clis(mods, dev, tmp)

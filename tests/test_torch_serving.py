@@ -36,6 +36,7 @@ from tpu_on_k8s.models.transformer import TransformerConfig as JConfig
 from tpu_on_k8s_torch import chaos
 from tpu_on_k8s_torch import metrics as pmetrics
 from tpu_on_k8s_torch import serve as cli
+from tpu_on_k8s_torch.serve import cli as cli_module
 from tpu_on_k8s_torch.models import params as pparams
 from tpu_on_k8s_torch.models import serving
 from tpu_on_k8s_torch.models.serving import (
@@ -975,7 +976,7 @@ def test_cli_metrics_port_serves_the_engine_metrics(capsys, monkeypatch):
     ``serve`` (patched here: no port is bound), and the closing line's p50
     latency and TTFT come from its histograms."""
     bound = []
-    monkeypatch.setattr(cli, "serve_metrics",
+    monkeypatch.setattr(cli_module, "serve_metrics",
                         lambda m, port: bound.append((m, port)))
     out = cli.main(["--config", "tiny", "--device", "cpu", "--n-requests",
                     "3", "--n-slots", "2", "--max-new-tokens", "3",
@@ -995,8 +996,7 @@ def test_cli_metrics_port_serves_the_engine_metrics(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--model-axis", "2"], ["--fsdp", "2"], ["--gateway"],
-    ["--replicas", "2"]])
+    ["--model-axis", "2"], ["--fsdp", "2"]])
 def test_cli_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="later slice"):
         cli.main(["--device", "cpu", *flag])

@@ -3,12 +3,15 @@
 Counterpart of the part of ``tpu_on_k8s/chaos/`` that the serving engine's
 and the training loop's sites need: the ``Fault`` base with
 ``EngineCrash``, ``EngineStall`` and ``DraftCrash``, and ``StepFailure``,
-``SaveFailure`` and ``PreemptNotice`` with their typed exceptions
-(``faults.py``), ``SITE_SERVE_STEP``, ``SITE_SPEC_DRAFT`` and the
-``SITE_TRAIN_*`` sites, the ``FaultInjector`` that evaluates a schedule of
-``FaultRule(site, trigger, fault)`` (``injector.py``) and the
-``engine_crash_mid_decode``, ``spec_draft_crash`` and ``train_preemption``
-scenarios (``scenarios.py``).
+``SaveFailure`` and ``PreemptNotice`` with their typed exceptions, and the
+serving plane's ``ReplicaCrash``, ``ReadinessFlap``, ``RolloutInterrupt``,
+``HandoffLoss``, ``HandoffCorrupt`` and ``SwapFailure`` (``faults.py``),
+the engine's, the plane's and the training loop's sites, the
+``FaultInjector`` that evaluates a schedule of ``FaultRule(site, trigger,
+fault)`` (``injector.py``) and the ``engine_crash_mid_decode``,
+``spec_draft_crash``, ``replica_crash_mid_decode``,
+``fleet_rollout_chaos``, ``disagg_handoff_chaos``, ``model_swap_failure``
+and ``train_preemption`` scenarios (``scenarios.py``).
 
 Every instrumented call site calls ``fire(site, **ctx)``; with no injector
 installed that is one module-global read and a None return. With one
@@ -32,6 +35,15 @@ from typing import ClassVar, Dict, List, Mapping, Optional, Sequence, Tuple
 SITE_SERVE_STEP = "serve.engine.step"
 #: the engine's speculative round: ``DraftCrash``
 SITE_SPEC_DRAFT = "serve.engine.spec_draft"
+#: ``ServingFleet.step`` per replica: ``ReplicaCrash``, ``ReadinessFlap``
+SITE_FLEET_REPLICA = "serve.fleet.replica"
+#: the fleet's rollout driver: ``RolloutInterrupt``
+SITE_FLEET_ROLLOUT = "serve.fleet.rollout"
+#: a disaggregated fleet's prefill-to-decode handoff: ``HandoffLoss``,
+#: ``HandoffCorrupt``
+SITE_KV_HANDOFF = "serve.kv.handoff"
+#: ``ModelPool``'s params swap: ``SwapFailure``
+SITE_MODEL_SWAP = "serve.model.swap"
 #: ``TrainLoop`` before a step dispatches: ``StepFailure``
 SITE_TRAIN_STEP = "train.step"
 #: ``TrainLoop`` enqueueing a checkpoint save: ``SaveFailure``
@@ -87,6 +99,69 @@ class DraftCrash(Fault):
     (``stats["draft_crashes"]``, ``SpecMetrics.spec_draft_crashes``)."""
 
     kind: ClassVar[str] = "draft_crash"
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicaCrash(Fault):
+    """A whole serving replica dies (pod kill, VM preemption): harder than
+    ``EngineCrash``, which the replica's own gateway replays in place. The
+    fleet must eject the replica and re-route every one of its live
+    requests through a survivor under the ``ReplayPolicy`` budget. Matched
+    by ``replica`` in the site ctx to target one replica."""
+
+    kind: ClassVar[str] = "replica_crash"
+
+
+@dataclasses.dataclass(frozen=True)
+class ReadinessFlap(Fault):
+    """The replica's readiness probe fails for ``steps`` fleet steps: the
+    router must stop sending it new traffic (in-flight work keeps
+    decoding) and resume only after the replica re-earns its slow-start
+    streak."""
+
+    steps: int = 2
+    kind: ClassVar[str] = "readiness_flap"
+
+
+@dataclasses.dataclass(frozen=True)
+class RolloutInterrupt(Fault):
+    """The rollout driver is interrupted mid-transition (controller
+    restart, lost leadership): transient surge state is discarded and the
+    state machine must re-derive its position and still converge, with
+    every in-flight request reaching a typed terminal state."""
+
+    kind: ClassVar[str] = "rollout_interrupt"
+
+
+@dataclasses.dataclass(frozen=True)
+class HandoffLoss(Fault):
+    """A prefill-to-decode KV handoff vanishes in transfer: the payload
+    never reaches the handoff queue. The disaggregated fleet re-runs the
+    prefill under the request's ``ReplayPolicy`` budget."""
+
+    kind: ClassVar[str] = "handoff_loss"
+
+
+@dataclasses.dataclass(frozen=True)
+class HandoffCorrupt(Fault):
+    """A KV handoff arrives with flipped bytes. The adopting replica must
+    reject it (``KVHandoff.verify()``) and route the request back through
+    the re-prefill replay path instead of decoding from a poisoned
+    cache."""
+
+    kind: ClassVar[str] = "handoff_corrupt"
+
+
+@dataclasses.dataclass(frozen=True)
+class SwapFailure(Fault):
+    """A model hot-swap dies mid-replace (a torn checkpoint read, an OOM
+    while staging the incoming tree). It fires before the engine's params
+    pointer moves: the previous model's params stay live and keep serving,
+    the failure is counted and the swap retried on the scheduler's next
+    pass, and every request queued for the incoming model still reaches a
+    typed terminal state."""
+
+    kind: ClassVar[str] = "swap_failure"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -391,6 +466,71 @@ def spec_draft_crash(at_round: int = 2, *, seed: int = 0) -> Scenario:
     return Scenario("spec-draft-crash", (
         FaultRule(SITE_SPEC_DRAFT, on_call(at_round), DraftCrash(),
                   note="draft dies mid-speculation"),
+    ), seed)
+
+
+def replica_crash_mid_decode(replica: str = "replica-1", *,
+                             at_steps: Tuple[int, ...] = (3,),
+                             seed: int = 0) -> Scenario:
+    """Kill one serving-fleet replica on these fleet steps (counted per
+    replica per ``fleet.step()``). The fleet ejects it and re-routes every
+    live request through a survivor under the ``ReplayPolicy`` budget."""
+    return Scenario("replica-crash", (
+        FaultRule(SITE_FLEET_REPLICA,
+                  Trigger(at=at_steps, match={"replica": replica}),
+                  ReplicaCrash(), note=f"crash {replica} mid-decode"),
+    ), seed)
+
+
+def fleet_rollout_chaos(*, flap_replica: str = "replica-0",
+                        flap_at: int = 2, flap_steps: int = 3,
+                        interrupt_at: Tuple[int, ...] = (4,),
+                        seed: int = 0) -> Scenario:
+    """A rollout under weather: one replica's readiness flaps and the
+    rollout driver is interrupted mid-transition. The rollout must still
+    complete with every request terminal."""
+    return Scenario("fleet-rollout-chaos", (
+        FaultRule(SITE_FLEET_REPLICA,
+                  Trigger(at=(flap_at,), match={"replica": flap_replica}),
+                  ReadinessFlap(steps=flap_steps),
+                  note=f"flap {flap_replica} readiness"),
+        FaultRule(SITE_FLEET_ROLLOUT, Trigger(at=interrupt_at),
+                  RolloutInterrupt(), note="interrupt the rollout driver"),
+    ), seed)
+
+
+def disagg_handoff_chaos(*, lose_at: Tuple[int, ...] = (2,),
+                         corrupt_at: Tuple[int, ...] = (4,),
+                         seed: int = 0) -> Scenario:
+    """The prefill-to-decode handoff link under weather: the
+    ``lose_at``-th handoffs vanish and the ``corrupt_at``-th arrive with
+    flipped bytes (counted per handoff enqueue across the fleet). A lost
+    handoff re-runs its prefill; a corrupted one fails the adopting
+    replica's checksum and is replayed the same way."""
+    rules = []
+    if lose_at:
+        rules.append(FaultRule(SITE_KV_HANDOFF, Trigger(at=lose_at),
+                               HandoffLoss(),
+                               note="lose the KV handoff in transfer"))
+    if corrupt_at:
+        rules.append(FaultRule(SITE_KV_HANDOFF, Trigger(at=corrupt_at),
+                               HandoffCorrupt(),
+                               note="corrupt the KV handoff payload"))
+    return Scenario("disagg-handoff-chaos", tuple(rules), seed)
+
+
+def model_swap_failure(*, at_swap: int = 2, model: str = "",
+                       seed: int = 0) -> Scenario:
+    """Fail the ``at_swap``-th model hot-swap mid-replace (counted per
+    ``ModelPool`` activation; ``model`` narrows it to one model's
+    swap-ins). The previous model keeps serving, the failure is ledgered
+    with its ``chaos#N`` trigger ref and the swap retries."""
+    match = {"model": model} if model else {}
+    return Scenario("model-swap-failure", (
+        FaultRule(SITE_MODEL_SWAP, Trigger(at=(at_swap,), match=match),
+                  SwapFailure(),
+                  note=(f"fail swap #{at_swap}"
+                        + (f" into {model}" if model else ""))),
     ), seed)
 
 

@@ -6,7 +6,10 @@ Counterpart of the serving half of ``tpu_on_k8s/metrics/metrics.py``:
 latency histograms, slot and queue gauges), ``PagedKVMetrics`` (page
 occupancy, allocations, aliases, admission stalls) and ``SpecMetrics``
 (speculative decoding's proposals, acceptances, rollbacks and draft
-crashes), with the training half's ``TrainMetrics`` (the training loop's
+crashes), the serving plane's ``FleetMetrics`` (routing, rollouts,
+handoffs and the fleet prefix store, labelled by replica or pool) and
+``ModelPoolMetrics`` (model swaps and per-model counters, labelled by
+model), with the training half's ``TrainMetrics`` (the training loop's
 gauges and counters). Each is backed by
 ``prometheus_client`` when it imports and always mirrored in plain dicts,
 so tests and drivers read them without a scrape. ``exposition`` renders
@@ -265,6 +268,162 @@ class TrainMetrics(_MetricsBase):
                      "steps_inflight", "goodput_fraction"):
             self._declare(name, f"{ns}_{name}", "gauge",
                           f"Training loop {name}")
+
+
+class FleetMetrics(_MetricsBase):
+    """Serving-fleet observability (`tpu_on_k8s_torch/serve/fleet.py`): the
+    router/rollout layer above per-replica ``ServingMetrics``. Counters
+    and gauges carry a ``replica`` label so one scrape shows the whole
+    fleet's balance (in-flight per replica, routed/rerouted per replica)
+    next to the fleet-wide rollout state — the per-replica breakdown an
+    operator needs to see a hot replica or a stuck drain. Mirror dicts
+    key by ``(name, replica)`` like ``JobMetrics`` keys by label."""
+
+    #: rollout phase gauge encoding (stable — lands in dashboards)
+    ROLLOUT_PHASE_CODES = {"idle": 0, "surging": 1, "shifting": 2,
+                           "draining": 3, "complete": 4}
+
+    _LABELED_COUNTERS = ("requests_routed", "requests_rerouted",
+                         "requests_rebalanced")
+    _PLAIN_COUNTERS = ("replicas_ejected", "prefix_cache_hits",
+                       "prefix_cache_misses", "rollout_interrupts",
+                       "rollouts_completed", "readiness_flaps",
+                       "scale_ups", "scale_downs",
+                       # disaggregated serving (serve/disagg.py):
+                       # the prefill→decode KV handoff link — lost/corrupt
+                       # are the chaos-injected failures whose replays the
+                       # zero-silent-loss proof counts
+                       "handoffs_enqueued", "handoffs_adopted",
+                       "handoffs_lost", "handoffs_corrupt",
+                       "requests_replayed",
+                       # fleet prefix/KV store (serve/kvstore.py):
+                       # misses ARE the fleet-wide prefix-prefill recompute
+                       # count the disagg acceptance test compares
+                       "prefix_store_hits", "prefix_store_misses",
+                       "prefix_store_promotes", "prefix_store_evictions",
+                       "prefix_store_demotes",
+                       # streaming callbacks that raised and were
+                       # detached (disagg token hook) — warned AND
+                       # counted, mirroring ServingMetrics
+                       "callback_errors")
+    _LABELED_GAUGES = ("in_flight", "queue_depth", "outstanding_tokens")
+    _PLAIN_GAUGES = ("replicas_ready", "replicas_total", "rollout_phase",
+                     "handoff_queue_depth", "prefix_store_overflow_bytes")
+    #: per-pool view of a disaggregated fleet (label value: "prefill" /
+    #: "decode") — one scrape shows both pools' load side by side, which
+    #: is exactly what the per-pool autoscaler loops act on
+    _POOL_GAUGES = ("pool_replicas_ready", "pool_queue_depth",
+                    "pool_inflight_tokens", "pool_slots")
+
+    def __init__(self, registry=None) -> None:
+        super().__init__()
+        self.counters: Dict[Tuple[str, str], int] = defaultdict(int)
+        self.gauges: Dict[Tuple[str, str], float] = {}
+        if _prom is not None:
+            self.registry = registry or _prom.CollectorRegistry()
+        ns = "tpu_on_k8s_fleet"
+        for name in self._LABELED_COUNTERS:
+            self._declare(name, f"{ns}_{name}", "counter", f"Fleet {name}",
+                          labels=("replica",))
+        for name in self._PLAIN_COUNTERS:
+            self._declare(name, f"{ns}_{name}", "counter", f"Fleet {name}")
+        for name in self._LABELED_GAUGES:
+            self._declare(name, f"{ns}_{name}", "gauge", f"Fleet {name}",
+                          labels=("replica",))
+        for name in self._PLAIN_GAUGES:
+            self._declare(name, f"{ns}_{name}", "gauge", f"Fleet {name}")
+        for name in self._POOL_GAUGES:
+            self._declare(name, f"{ns}_{name}", "gauge", f"Fleet {name}",
+                          labels=("pool",))
+        # handoff queue wait: enqueue → adoption on a decode replica
+        # (the latency the handoff link adds to TTFT)
+        self._declare("handoff_wait_seconds", f"{ns}_handoff_wait_seconds",
+                      "histogram", "Fleet handoff_wait_seconds",
+                      buckets=_SERVING_BUCKETS)
+
+    def inc(self, name: str, n: int = 1, replica: str = "") -> None:
+        with self._lock:
+            self.counters[(name, replica)] += n
+        c = self._prom_counters.get(name)
+        if c is not None:
+            (c.labels(replica) if name in self._LABELED_COUNTERS
+             else c).inc(n)
+
+    def set_gauge(self, name: str, value: float, replica: str = "",
+                  pool: str = "") -> None:
+        label = pool or replica
+        with self._lock:
+            self.gauges[(name, label)] = value
+        g = self._prom_gauges.get(name)
+        if g is not None:
+            if name in self._LABELED_GAUGES:
+                g.labels(replica).set(value)
+            elif name in self._POOL_GAUGES:
+                g.labels(pool).set(value)
+            else:
+                g.set(value)
+
+    def set_rollout_phase(self, phase: str) -> None:
+        self.set_gauge("rollout_phase",
+                       self.ROLLOUT_PHASE_CODES.get(phase, -1))
+
+
+class ModelPoolMetrics(_MetricsBase):
+    """Multi-model density telemetry (`tpu_on_k8s_torch/serve/modelpool.py`):
+    the hot-swap plane one replica gang runs when it hosts several
+    ModelVersion serving trees. Counters: swaps applied (a params-tree
+    replace, no recompile), swap failures (the replace died mid-flight —
+    previous params stayed live; a climbing rate means the artifact
+    store or staging path is sick), swap retries, residency evictions
+    (a model pushed out of the LRU set — its prefix pages flushed
+    surgically), and the per-model token/request counters (labelled by
+    model, the tenant-accounting join key). The ``swap_seconds``
+    histogram is the measured swap-in latency — the cold-start signal
+    the FleetAutoscaler reads beside TTFT. Gauges: models resident
+    (prefixes warm on device) and queued requests across the per-model
+    lanes. Same prometheus + plain-dict mirror pattern as the other
+    classes; mirror dicts key by ``(name, label)`` like
+    ``AutoscaleMetrics``."""
+
+    _MODEL_COUNTERS = ("model_tokens", "model_requests")
+    _PLAIN_COUNTERS = ("swaps", "swap_failures", "swap_retries",
+                       "evictions", "prefix_flushes")
+    _PLAIN_GAUGES = ("resident_models", "queued_requests")
+
+    def __init__(self, registry=None) -> None:
+        super().__init__()
+        self.counters: Dict[Tuple[str, str], int] = defaultdict(int)
+        self.gauges: Dict[Tuple[str, str], float] = {}
+        if _prom is not None:
+            self.registry = registry or _prom.CollectorRegistry()
+        ns = "tpu_on_k8s_modelpool"
+        for name in self._MODEL_COUNTERS:
+            self._declare(name, f"{ns}_{name}", "counter",
+                          f"Model pool {name}", labels=("model",))
+        for name in self._PLAIN_COUNTERS:
+            self._declare(name, f"{ns}_{name}", "counter",
+                          f"Model pool {name}")
+        for name in self._PLAIN_GAUGES:
+            self._declare(name, f"{ns}_{name}", "gauge",
+                          f"Model pool {name}")
+        self._declare("swap_seconds", f"{ns}_swap_seconds", "histogram",
+                      "Model pool swap_seconds (swap-in latency: the "
+                      "cold-start signal beside TTFT)",
+                      buckets=_SERVING_BUCKETS)
+
+    def inc(self, name: str, n: int = 1, label: str = "") -> None:
+        with self._lock:
+            self.counters[(name, label)] += n
+        c = self._prom_counters.get(name)
+        if c is not None:
+            (c.labels(label) if name in self._MODEL_COUNTERS else c).inc(n)
+
+    def set_gauge(self, name: str, value: float, label: str = "") -> None:
+        with self._lock:
+            self.gauges[(name, label)] = value
+        g = self._prom_gauges.get(name)
+        if g is not None:
+            g.set(value)
 
 
 def count_detached_callback(metrics, message: str) -> None:

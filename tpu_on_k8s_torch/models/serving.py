@@ -715,6 +715,10 @@ class ContinuousBatchingEngine:
         #: {axis: size} of the mesh's non-trivial axes: {} on one device
         #: (the layout block every export carries)
         self.mesh_axes: Dict[str, int] = {}
+        #: True on paged engines: ``import_prefix`` takes ``base_pid`` and
+        #: ``base_len`` and aliases the ancestor's full pages; the fleet
+        #: prefix store takes its page-aliasing promote on this
+        self.supports_page_alias = bool(kv_pages)
 
         self._slots: List[Optional[_Slot]] = [None] * n_slots
         self._queue: deque[_Pending] = deque()

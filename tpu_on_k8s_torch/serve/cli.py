@@ -19,6 +19,9 @@ loop, as this file does::
     python -m tpu_on_k8s_torch.serve --config tiny --device cpu --spec \\
         --spec-draft-layers 1
     python -m tpu_on_k8s_torch.serve --hf-model ./gpt2 --device cpu
+    python -m tpu_on_k8s_torch.serve --config tiny --device cpu --gateway
+    python -m tpu_on_k8s_torch.serve --config tiny --device cpu \\
+        --replicas 2 --rollout-demo
 
 The engine reports through a ``ServingMetrics``; ``--metrics-port`` serves
 it at ``/metrics`` (without ``prometheus_client``, from a stdlib HTTP
@@ -27,8 +30,19 @@ from its histograms, on the engine's clock. ``--spec`` decodes
 speculatively (greedy; ``--spec-k`` proposals a round) with the target's
 first ``--spec-draft-layers`` layers as the draft, or the target itself
 (0, the acceptance-1 upper bound), and the closing line adds the rounds
-and the acceptance. Flags of the example that belong to later slices raise
-``NotImplementedError``.
+and the acceptance.
+
+``--gateway`` serves the same traffic through ``serve.ServingGateway``:
+bounded admission (``--queue-bound``; overflow prints as a typed
+rejection), smooth-WRR fairness over ``--tenants`` synthetic tenants,
+optional per-request deadlines (``--deadline-s``) and a graceful drain at
+the end. ``--replicas N`` serves a routed ``serve.ServingFleet`` of N
+engines (prefix affinity over ``--prefix-bucket``-token heads of three
+repeated system prompts, least-outstanding-tokens balance, slow-start
+readiness); with ``--rollout-demo`` it rolls the fleet to a second random
+parameter set after half the trace, under load, and prints the phases.
+Every engine is on ``--device``. Flags of the example that belong to later
+slices raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,14 +60,22 @@ from tpu_on_k8s_torch.metrics import serve as serve_metrics
 from tpu_on_k8s_torch.models.decode import truncated_draft
 from tpu_on_k8s_torch.models.params import init_params
 from tpu_on_k8s_torch.models.serving import ContinuousBatchingEngine
+from tpu_on_k8s_torch.serve.admission import AdmissionConfig, Rejected
+from tpu_on_k8s_torch.serve.fleet import (
+    FleetRolloutPolicy,
+    RolloutPhase,
+    ServingFleet,
+)
+from tpu_on_k8s_torch.serve.gateway import ServingGateway
+from tpu_on_k8s_torch.serve.health import ProbeConfig
+from tpu_on_k8s_torch.serve.lifecycle import RequestState
+from tpu_on_k8s_torch.serve.router import Router
 from tpu_on_k8s_torch.train.checkpoint import load_params
 
 #: example flag → the later slice that brings it
 _LATER = {
     "model_axis": "mesh serving (_ShardPlan)",
     "fsdp": "mesh serving (_ShardPlan)",
-    "gateway": "the serving plane (serve/gateway.py)",
-    "replicas": "the serving plane (serve/fleet.py)",
 }
 
 
@@ -106,8 +128,30 @@ def main(argv=None) -> dict:
     p.add_argument("--model-axis", type=int, default=1)
     p.add_argument("--fsdp", type=int, default=0)
     p.add_argument("--metrics-port", type=int, default=0)
-    p.add_argument("--gateway", action="store_true")
-    p.add_argument("--replicas", type=int, default=0)
+    p.add_argument("--gateway", action="store_true",
+                   help="serve through serve.ServingGateway: bounded "
+                        "admission, tenant fairness, deadlines")
+    p.add_argument("--replicas", type=int, default=0,
+                   help=">0: serve a routed fleet of this many replicas "
+                        "(serve.ServingFleet): prefix-affinity + "
+                        "least-outstanding-tokens routing, slow-start "
+                        "readiness, crash ejection with replay")
+    p.add_argument("--prefix-bucket", type=int, default=16,
+                   help="router prefix-affinity bucket length "
+                        "(with --replicas)")
+    p.add_argument("--rollout-demo", action="store_true",
+                   help="with --replicas: after half the trace, roll the "
+                        "fleet to a v2 parameter set under load and "
+                        "report the phases")
+    p.add_argument("--queue-bound", type=int, default=16,
+                   help="admission queue bound (with --gateway or "
+                        "--replicas)")
+    p.add_argument("--tenants", type=int, default=3,
+                   help="synthetic tenants to spread traffic across "
+                        "(with --gateway)")
+    p.add_argument("--deadline-s", type=float, default=0.0,
+                   help=">0: per-request deadline in seconds "
+                        "(with --gateway)")
     args = p.parse_args(argv)
     asked = {flag: getattr(args, flag) for flag in _LATER}
     asked["model_axis"] = args.model_axis > 1    # 1: no tensor parallelism
@@ -128,6 +172,8 @@ def main(argv=None) -> dict:
     else:
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(
             args.seed), dev)
+    if args.replicas > 0:
+        return _fleet_loop(args, cfg, params, dev)
     metrics = ServingMetrics()
     spec_metrics = SpecMetrics() if args.spec else None
     draft_cfg = draft_params = None
@@ -142,7 +188,8 @@ def main(argv=None) -> dict:
         cfg, params, n_slots=args.n_slots, max_len=args.max_len or None,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         prefill_chunk=args.prefill_chunk, step_horizon=args.horizon,
-        kv_pages=args.kv_pages, metrics=metrics, draft_cfg=draft_cfg,
+        kv_pages=args.kv_pages,
+        metrics=None if args.gateway else metrics, draft_cfg=draft_cfg,
         draft_params=draft_params, spec_k=args.spec_k,
         spec_metrics=spec_metrics,
         generator=torch.Generator(device=dev).manual_seed(args.seed + 1),
@@ -162,6 +209,8 @@ def main(argv=None) -> dict:
             0, cfg.vocab_size, size=args.system_prompt_len).astype(np.int32))
         print(f"registered a {args.system_prompt_len}-token shared prefix "
               f"(id {prefix_id})")
+    if args.gateway:
+        return _gateway_loop(args, cfg, eng, metrics, rng, prefix_id)
 
     submitted = 0
     finished = {}
@@ -198,6 +247,142 @@ def main(argv=None) -> dict:
                  f"({st['spec_accepted']}/{st['spec_proposed']})")
     print(line)
     return finished
+
+
+def _gateway_loop(args, cfg, eng, metrics, rng, prefix_id) -> dict:
+    """The production shape: the same synthetic traffic through the
+    gateway, with bounded admission (overflow prints as typed
+    rejections), smooth-WRR fairness across synthetic tenants, optional
+    per-request deadlines and a graceful drain at the end. Returns the
+    tokens of the requests that finished DONE."""
+    gw = ServingGateway(
+        eng, AdmissionConfig(max_queue_depth=args.queue_bound),
+        metrics=metrics)
+    submitted = rejected = 0
+    finished = {}
+    t0 = time.perf_counter()
+    while submitted < args.n_requests:
+        for _ in range(rng.poisson(args.arrival)):
+            if submitted >= args.n_requests:
+                break
+            lp = int(rng.integers(args.prompt_min, args.prompt_max + 1))
+            prompt = rng.integers(0, cfg.vocab_size, size=lp).astype(np.int32)
+            r = gw.submit(prompt, args.max_new_tokens,
+                          tenant=f"tenant-{submitted % args.tenants}",
+                          deadline_s=args.deadline_s or None,
+                          prefix_id=prefix_id)
+            submitted += 1
+            if isinstance(r, Rejected):
+                rejected += 1
+                print(f"✗ rejected ({r.reason}): {r.detail}")
+            else:
+                print(f"→ r{r} submitted (prompt {lp} tokens)")
+        for rid in gw.step():
+            res = gw.result(rid)
+            if res is not None:
+                finished[rid] = res
+                print(f"← r{rid} {res.state.value}: {res.tokens.tolist()}")
+    for rid, res in gw.drain().items():
+        finished[rid] = res
+        print(f"← r{rid} {res.state.value}: {res.tokens.tolist()}")
+    dt = time.perf_counter() - t0
+    done = {rid: r.tokens for rid, r in finished.items() if r.ok}
+    expired = sum(r.state is RequestState.DEADLINE_EXCEEDED
+                  for r in finished.values())
+    total = sum(len(v) for v in done.values())
+    line = (f"served {len(done)}/{submitted} requests ({rejected} rejected, "
+            f"{expired} expired), {total} tokens in {dt:.2f}s "
+            f"({total / dt:.1f} tok/s) — stats {eng.stats}")
+    ttft = metrics.histograms["time_to_first_token_seconds"]
+    if ttft:
+        line += f"; p50 TTFT {statistics.median(ttft) * 1e3:.0f}ms"
+    print(line)
+    return done
+
+
+def _fleet_loop(args, cfg, params, dev) -> dict:
+    """The fleet shape: ``--replicas`` engines behind the router. Traffic
+    repeats three synthetic system prompts so prefix affinity has
+    something to exploit; with ``--rollout-demo`` a second random
+    parameter set rolls in under load. Returns the tokens of the
+    requests that finished DONE."""
+    def factory_for(tree):
+        def make(name):
+            return ContinuousBatchingEngine(
+                cfg, tree, n_slots=args.n_slots,
+                max_len=args.max_len or None, temperature=args.temperature,
+                top_k=args.top_k, top_p=args.top_p,
+                step_horizon=args.horizon,
+                generator=torch.Generator(device=dev).manual_seed(
+                    args.seed + 1),
+                device=dev)
+        return make
+
+    fleet = ServingFleet(
+        factory_for(params), args.replicas,
+        admission=AdmissionConfig(max_queue_depth=args.queue_bound),
+        probe=ProbeConfig(slow_start_steps=2),
+        router=Router(prefix_bucket_len=args.prefix_bucket))
+    while not any(r.routable for r in fleet.replicas.values()):
+        fleet.step()                       # slow start: earn readiness
+    rng = np.random.default_rng(args.seed)
+    shared = [rng.integers(0, cfg.vocab_size,
+                           size=args.prefix_bucket).astype(np.int32)
+              for _ in range(3)]           # repeated "system prompts"
+    submitted = rejected = 0
+    finished = {}
+    rollout_started = False
+    phases = []
+    t0 = time.perf_counter()
+    while submitted < args.n_requests or fleet.has_live_requests \
+            or fleet.rollout_phase not in (RolloutPhase.IDLE,
+                                           RolloutPhase.COMPLETE):
+        if args.rollout_demo and not rollout_started \
+                and submitted >= args.n_requests // 2:
+            v2 = init_params(cfg, torch.Generator(device=dev).manual_seed(
+                args.seed + 99), dev)
+            fleet.start_rollout(factory_for(v2), "v2",
+                                FleetRolloutPolicy(max_surge=1,
+                                                   canary_weight=0.25))
+            rollout_started = True
+            print("=== rollout v1 → v2 started under load ===")
+        if submitted < args.n_requests:
+            for _ in range(rng.poisson(args.arrival)):
+                if submitted >= args.n_requests:
+                    break
+                suffix = rng.integers(
+                    0, cfg.vocab_size,
+                    size=int(rng.integers(2, 9))).astype(np.int32)
+                prompt = np.concatenate(
+                    [shared[submitted % len(shared)], suffix])
+                r = fleet.submit(prompt, args.max_new_tokens)
+                submitted += 1
+                if isinstance(r, Rejected):
+                    rejected += 1
+                    print(f"✗ rejected ({r.reason})")
+        for rid in fleet.step():
+            res = fleet.result(rid)
+            if res is not None:
+                finished[rid] = res
+        if not phases or phases[-1] != fleet.rollout_phase:
+            phases.append(fleet.rollout_phase)
+            if args.rollout_demo and rollout_started:
+                print(f"--- rollout phase: {fleet.rollout_phase.value} "
+                      f"(weights {fleet.router.weights})")
+    dt = time.perf_counter() - t0
+    done = {rid: r.tokens for rid, r in finished.items() if r.ok}
+    total = sum(len(v) for v in done.values())
+    per = {name: rep.routed for name, rep in sorted(fleet.replicas.items())}
+    print(f"fleet served {len(done)}/{submitted} requests "
+          f"({rejected} rejected), {total} tokens in {dt:.2f}s "
+          f"({total / dt:.1f} tok/s) — routed {per}, "
+          f"prefix hits/misses {fleet.stats['prefix_hits']}/"
+          f"{fleet.stats['prefix_misses']}, rerouted "
+          f"{fleet.stats['rerouted']}")
+    if args.rollout_demo:
+        print(f"rollout phases: {[p.value for p in phases]}; retired "
+              f"{[(r['name'], r['drained_clean']) for r in fleet.retired]}")
+    return done
 
 
 if __name__ == "__main__":

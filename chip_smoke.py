@@ -213,6 +213,23 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    flash kernels timed at D 64, GPT-2's training and prefill shapes,
    beside their plain twins, SDPA and their bounds.
 
+8. mesh-sharded training at ``llama2_1b`` (run last) on a world of
+   one rank made by ``train/distributed.py``'s ``initialize`` over NCCL
+   (torchrun's variables, a loopback port; the group destroyed after):
+   (a) ``Trainer(model, rules=flagship_partition_rules(),
+   mesh=create_mesh(MeshConfig()))`` (FSDP2 over the card), 8 steps on
+   phase 4's batch, loss and grad norm equal to phase 4's bit for bit, 16
+   launches of each flash kernel a step, step ms and peak memory beside
+   phase 4's; (c) its state through the collective DCP save, restored onto
+   the unsharded layout and back onto the mesh, every tensor bit-equal and
+   the next step's loss and norm equal, bytes and save / restore times
+   printed; (d) ``TrainLoop`` with a ``ReshardNotice`` before step 5 (the
+   flagship rules to model-only rules on the same mesh: n_moved and
+   bytes_moved printed, 0 at world 1), the losses equal (a)'s; (b) every
+   int8 flag on the mesh, 113 ``int8_matmul`` a step, phase 4b's losses
+   bit for bit; (e) ``python -m tpu_on_k8s_torch.train_llama --config
+   tiny --fsdp -1 --steps 3`` in a subprocess.
+
 Then one JSON line for the kernels, the card's line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line; so does a machine without CUDA. Imports nothing of JAX.
@@ -3717,6 +3734,280 @@ def gpt2_phase(mods, gpu, dev, tmp: Path, plain_flash, fa, transformer,
     return {"paths": paths, "d64": d64}
 
 
+def free_port() -> int:
+    """A free TCP port on this machine's loopback, for the world's store."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def first_difference(got, want) -> str:
+    """'' when both sequences are equal; else the first step that differs."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return f"step {i + 1}: {a!r} vs {b!r} (diff {a - b:.3e})"
+    return "" if len(got) == len(want) else f"lengths {len(got)}, {len(want)}"
+
+
+def mesh_phase(tcfg, i8cfg, mods, gpu, dev, tokens, p4: dict,
+               tmp: Path) -> dict:
+    """Phase 8: mesh-sharded training at llama2_1b on a world of one rank
+    made by ``train/distributed.py``'s ``initialize`` over NCCL (torchrun's
+    variables, a loopback port): (a) ``Trainer(model, rules=
+    flagship_partition_rules(), mesh=create_mesh(MeshConfig()))``, FSDP2
+    over the one card, 8 steps on phase 4's batch, loss and grad norm
+    against phase 4's unsharded run (predicted bit for bit), 16 launches of
+    each flash kernel a step; (c) its state saved through the collective
+    DCP path, restored onto the unsharded layout and back onto the mesh,
+    every tensor bit-equal, and the next step's loss equal on both; (d) a
+    ``ReshardNotice`` through ``TrainLoop`` before step 5, from the
+    flagship rules to model-only rules on the same mesh, the trajectory
+    equal to (a)'s; (b) every int8 flag on the mesh, 113 ``int8_matmul``
+    launches a step, against phase 4b; (e) ``python -m
+    tpu_on_k8s_torch.train_llama --config tiny --fsdp -1 --steps 3``.
+    Returns the launches of the counted paths."""
+    import torch.distributed as dist
+
+    from tpu_on_k8s_torch.models.params import init_params, load_model
+    from tpu_on_k8s_torch.models.transformer import (
+        flagship_partition_rules,
+    )
+    from tpu_on_k8s_torch.parallel.mesh import (
+        MeshConfig,
+        create_mesh,
+        mesh_shape,
+    )
+    from tpu_on_k8s_torch.parallel.partition import PartitionRule
+    from tpu_on_k8s_torch.parallel.reshard import ReshardNotice
+    from tpu_on_k8s_torch.train import (
+        Trainer,
+        default_optimizer,
+        train_state_template,
+    )
+    from tpu_on_k8s_torch.train.checkpoint import CheckpointManager
+    from tpu_on_k8s_torch.train.distributed import initialize
+
+    paths = {}
+    t_phase = time.perf_counter()
+    env = {"RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(free_port())}
+    ctx = initialize(env, device=dev)
+    rules = flagship_partition_rules()
+    mesh = create_mesh(MeshConfig(), device=dev)
+    print(f"[mesh] world {dist.get_world_size()} (rank {ctx.process_id}, "
+          f"backend {dist.get_backend()}, coordinator "
+          f"{ctx.coordinator_address}): mesh {mesh_shape(mesh)} on "
+          f"{mesh.device_type}")
+    if dist.get_backend() != "nccl":
+        fail(f"the mesh's world runs on {dist.get_backend()}, not nccl")
+    opt_kw = dict(warmup_steps=10, decay_steps=max(TRAIN_STEPS, 11))
+
+    def p0():
+        return init_params(tcfg, torch.Generator(device=dev).manual_seed(0),
+                           dev, dtype=tcfg.param_dtype)
+
+    def sharded(cfg, params, rule_list=rules):
+        model = load_model(cfg, params, dev)
+        return Trainer(model, default_optimizer(model.parameters(), **opt_kw),
+                       rules=rule_list, mesh=mesh)
+
+    def train(trainer, state, n):
+        losses, norms, ms = [], [], []
+        batch = trainer.shard_batch(tokens)
+        for _ in range(n):
+            t0 = time.perf_counter()
+            _, m = trainer.train_step(state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, norms, ms
+
+    # ---- (a) FSDP2 over the one card, phase 4's model and batch ---------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = sharded(tcfg, p0())
+    state = trainer.state()
+    reset_counts(mods)
+    losses, norms, step_ms = train(trainer, state, TRAIN_STEPS)
+    paths["mesh"] = read_counts(mods)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mesh_ms = statistics.median(step_ms[1:])
+    print(f"[mesh] (a) llama2_1b on the mesh (FSDP2 per block and root, "
+          f"flagship rules), {TRAIN_STEPS} steps on phase 4's batch: loss "
+          f"{[round(x, 5) for x in losses]}, grad_norm "
+          f"{[round(x, 4) for x in norms]}; launches {paths['mesh']}")
+    per_step = {k: paths["mesh"][k] / TRAIN_STEPS
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    print(f"[mesh] (a) flash launches a step {per_step['flash_fwd']:g} / "
+          f"{per_step['flash_bwd_dq']:g} / {per_step['flash_bwd_dkv']:g}")
+    if any(v != tcfg.n_layers for v in per_step.values()):
+        fail(f"mesh training launches {paths['mesh']}; expected "
+             f"{tcfg.n_layers} of each flash kernel a step")
+    loss_diff = first_difference(losses, p4["losses"])
+    norm_diff = first_difference(norms, p4["norms"])
+    print(f"[mesh] (a) against phase 4's unsharded run: losses "
+          f"{'bit for bit' if not loss_diff else 'differ at ' + loss_diff}; "
+          f"grad norms "
+          f"{'bit for bit' if not norm_diff else 'differ at ' + norm_diff}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        fail(f"mesh training loss not finite or not falling: {losses}")
+    if loss_diff or norm_diff:
+        fail("the world-1 mesh trajectory differs from phase 4's")
+    print(f"[mesh] (a) {gpu}: step wall ms {[round(x, 1) for x in step_ms]}; "
+          f"median of steps 2-{TRAIN_STEPS} {mesh_ms:.1f} ms (phase 4 "
+          f"{p4['ms']:.1f} ms); peak memory {peak_gb:.2f} GB (phase 4 "
+          f"{p4['peak_gb']:.2f} GB)")
+
+    # ---- (c) the collective DCP path: mesh -> unsharded -> mesh ---------
+    mgr = CheckpointManager(str(tmp / "mesh_ckpt"), max_to_keep=1)
+    saved = {k: (v.full_tensor() if hasattr(v, "full_tensor") else v)
+             for k, v in state.state_dict().items()}
+    nbytes = sum(v.numel() * v.element_size() for v in saved.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(state, step=TRAIN_STEPS, wait=False)
+    stall_s = time.perf_counter() - t0
+    mgr.wait_until_finished()
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mgr.save(state, step=TRAIN_STEPS + 1, wait=True)
+    write2_s = time.perf_counter() - t0
+    plain = train_state_template(tcfg, dev, **opt_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain, _, at = mgr.restore(plain)
+    torch.cuda.synchronize()
+    restore_plain_s = time.perf_counter() - t0
+    same_plain = [k for k, v in plain.state_dict().items()
+                  if torch.equal(v, saved[k])]
+    t0 = time.perf_counter()
+    back, _, _ = mgr.restore(plain, mesh=mesh, rules=rules)
+    torch.cuda.synchronize()
+    restore_mesh_s = time.perf_counter() - t0
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    same_mesh = [k for k, v in back.state_dict().items()
+                 if torch.equal(v.full_tensor()
+                                if hasattr(v, "full_tensor") else v,
+                                saved[k])]
+    back_trainer = Trainer(back.model, back.optimizer, rules=rules,
+                           mesh=mesh)
+    next_back = train(back_trainer, back, 1)
+    next_live = train(trainer, state, 1)
+    print(f"[mesh] (c) {gpu}: the mesh TrainState, {nbytes:,} B, through "
+          f"the collective DCP path (the manager's gloo group): async save "
+          f"{stall_s:.3f} s on the host to enqueue, written {write_s:.2f} s "
+          f"after it began (first save: buffers allocated); a blocking "
+          f"save {write2_s:.2f} s ({nbytes / write2_s / 1e9:.3f} GB/s); "
+          f"restore onto the unsharded layout {restore_plain_s:.2f} s "
+          f"(step {at}; {len(same_plain)} of {len(saved)} tensors "
+          f"bit-equal) and back onto the mesh {restore_mesh_s:.2f} s "
+          f"({len(same_mesh)} of {len(saved)} bit-equal); the next step's "
+          f"loss {next_back[0][0]!r} restored vs {next_live[0][0]!r} live")
+    if (len(same_plain) != len(saved) or len(same_mesh) != len(saved)
+            or next_back[0] != next_live[0] or next_back[1] != next_live[1]
+            or at != TRAIN_STEPS + 1):
+        fail("the checkpoint round trip through the unsharded layout is "
+             "not exact")
+    mgr.close()
+    del back, back_trainer, trainer, state, saved
+    gc.collect()    # FSDP2's hooks hold cycles
+    torch.cuda.empty_cache()
+
+    # ---- (d) a live reshard through TrainLoop before step 5 -------------
+    model_rules = [PartitionRule(r.pattern, tuple(
+        None if e == "fsdp" else e for e in r.spec)) for r in rules]
+    trainer = sharded(tcfg, p0())
+    state = trainer.state()
+    seen = []
+
+    def signal():
+        seen.append(len(seen) + 1)
+        if len(seen) != 5:
+            return None
+        return ReshardNotice(
+            mesh, rules, mesh, model_rules, tag="flagship->model",
+            step_builder=lambda m, st: Trainer(
+                st.model, st.optimizer, rules=model_rules, mesh=m).train_step)
+
+    from tpu_on_k8s_torch.obs.trace import Tracer
+    tracer = Tracer(time.monotonic)
+    batch = trainer.shard_batch(tokens)
+    reset_counts(mods)
+    result = trainer.fit(state, (batch for _ in range(TRAIN_STEPS)),
+                         TRAIN_STEPS, log_every=1, reshard_signal=signal,
+                         tracer=tracer)
+    torch.cuda.synchronize()
+    paths["mesh_reshard"] = read_counts(mods)
+    loop_losses = [h["loss"] for _, h in result.history]
+    loop_diff = first_difference(loop_losses, losses)
+    new_rules = result.state.model.layout.rules
+    span = next(sp["attrs"] for sp in tracer.export()
+                if sp["name"] == "train.reshard")
+    print(f"[mesh] (d) TrainLoop with a ReshardNotice before step 5 (the "
+          f"flagship rules -> the model-only rules, same mesh): reshards "
+          f"{result.reshards}, n_moved {span['leaves_moved']}, bytes_moved "
+          f"{span['bytes_moved']:,} (a world of 1 holds every tensor whole "
+          f"under either layout: no leaf moves); the state moved into a "
+          f"fresh model laid out under the new rules in "
+          f"{span['seconds']:.2f} s; losses "
+          f"{'equal (a)' if not loop_diff else 'differ at ' + loop_diff}; "
+          f"launches {paths['mesh_reshard']}")
+    if (result.reshards != 1 or result.steps != TRAIN_STEPS or loop_diff
+            or tuple(new_rules) != tuple(model_rules)):
+        fail("the live reshard did not continue the trajectory")
+    del trainer, state, result
+    gc.collect()    # FSDP2's hooks hold cycles
+    torch.cuda.empty_cache()
+
+    # ---- (b) every int8 flag on the mesh --------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    trainer = sharded(i8cfg, fuse_gateup(p0(), tcfg.n_layers))
+    state = trainer.state()
+    reset_counts(mods)
+    losses8, _, step8_ms = train(trainer, state, TRAIN_STEPS)
+    paths["mesh_int8"] = read_counts(mods)
+    peak8_gb = torch.cuda.max_memory_allocated() / 1e9
+    int8_per_step = paths["mesh_int8"]["int8_matmul"] / TRAIN_STEPS
+    diff8 = first_difference(losses8, p4["losses8"])
+    print(f"[mesh] (b) every int8 flag on the mesh: {int8_per_step:g} "
+          f"int8_matmul launches a step; loss {[round(x, 5) for x in losses8]}"
+          f" ({'equal phase 4b' if not diff8 else 'differ at ' + diff8}); "
+          f"{gpu}: median step {statistics.median(step8_ms[1:]):.1f} ms "
+          f"(phase 4b {p4['ms8']:.1f} ms), peak {peak8_gb:.2f} GB (phase 4b "
+          f"{p4['peak8_gb']:.2f} GB)")
+    if int8_per_step != (4 + 2 + 1) * tcfg.n_layers + 1 or diff8:
+        fail(f"int8 mesh training: launches {paths['mesh_int8']}, losses "
+             f"{losses8} vs {p4['losses8']}")
+    del trainer, state
+    gc.collect()    # FSDP2's hooks hold cycles
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+    # ---- (e) the CLI on the card ----------------------------------------
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "tpu_on_k8s_torch.train_llama", "--config",
+         "tiny", "--fsdp", "-1", "--steps", "3"],
+        capture_output=True, text=True, timeout=600,
+        cwd=str(Path(__file__).resolve().parent))
+    lines = cli.stdout.splitlines()
+    mesh_lines = [ln for ln in lines if "mesh=" in ln]
+    metric_lines = [ln for ln in lines if ln.startswith("[elastic-metrics]")]
+    print(f"[mesh] (e) python -m tpu_on_k8s_torch.train_llama --config tiny "
+          f"--fsdp -1 --steps 3: exit {cli.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; {mesh_lines[:1]}; "
+          f"{len(metric_lines)} metric lines, the last: "
+          f"{metric_lines[-1] if metric_lines else None}")
+    if cli.returncode != 0 or not mesh_lines or len(metric_lines) != 3:
+        print(cli.stderr[-4000:], file=sys.stderr)
+        fail("train_llama on the mesh did not finish")
+    print(f"[time] phase 8 {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -4287,6 +4578,7 @@ def run(tmp: Path) -> int:
           f"of steps 2-{TRAIN_STEPS} {train_ms:.1f} ms, "
           f"{TRAIN_BATCH * TRAIN_SEQ / train_ms * 1e3:,.0f} tokens/s; peak "
           f"memory {peak_gb:.2f} GB")
+    p4 = dict(losses=losses, norms=norms, ms=train_ms, peak_gb=peak_gb)
     del trainer, model, tparams
     torch.cuda.empty_cache()
 
@@ -4390,6 +4682,7 @@ def run(tmp: Path) -> int:
           f"{TRAIN_BATCH * TRAIN_SEQ / train8_ms * 1e3:,.0f} tokens/s, peak "
           f"memory {peak8_gb:.2f} GB (bf16 step {train_ms:.1f} ms, peak "
           f"{peak_gb:.2f} GB)")
+    p4.update(losses8=losses8, ms8=train8_ms, peak8_gb=peak8_gb)
     del trainer, model, p8
     torch.cuda.empty_cache()
 
@@ -4536,6 +4829,9 @@ def run(tmp: Path) -> int:
     gpt2 = gpt2_phase(mods, gpu, dev, tmp, plain_flash, fa, transformer,
                       decode, serving, convert, trainer_mod)
     by_path.update(gpt2["paths"])
+
+    # ---- 8. mesh-sharded training at llama2_1b --------------------------
+    by_path.update(mesh_phase(tcfg, i8cfg, mods, gpu, dev, tokens, p4, tmp))
     print(f"[time] script {time.perf_counter() - t_start:.0f} s")
 
     gemm = (TRAIN_BATCH * TRAIN_SEQ, 11264, 2048)

@@ -11,8 +11,12 @@ is survived and counted, an injected step failure raises its type),
 too) and the prefetch case of ``tests/test_plane_integration.py``. The
 port's own: a ``tiny`` model's preempted-and-resumed run equals its
 uninterrupted run bit for bit, an async save holds the state of its step
-while the next step runs, and restores check shapes and dtypes. Restoring onto a mesh and the fused
-layout migration wait for mesh sharding.
+while the next step runs, and restores check shapes and dtypes. The mesh
+cases of ``tests/test_checkpoint.py``: a ``TrainState`` saved by a
+``Trainer`` on one mesh restores onto another (a spawned world of 4 gloo
+ranks, ``test_torch_mesh_train.run_world``) with equal values and trains
+there, and ``migrate_param_layout`` is exact both ways and agrees with the
+reference's.
 """
 from __future__ import annotations
 
@@ -173,8 +177,8 @@ def test_restore_checks_shapes_and_dtypes(tmp_path, setup):
                                          **OPT))
     with pytest.raises(ValueError, match="embed"):
         mgr.restore({"params/embed": torch.zeros(8, 8)})
-    with pytest.raises(NotImplementedError, match="mesh"):
-        mgr.restore(state, mesh=object(), rules=())
+    with pytest.raises(ValueError, match="mesh and rules together"):
+        mgr.restore(state, mesh=object())
     mgr.close()
 
 
@@ -480,3 +484,103 @@ def test_device_prefetch_keeps_depth_and_transform():
     rest = list(stream)
     assert [int(b[1]) for b in rest] == [1, 2, 3, 4]
     assert torch.equal(rest[-1][0], torch.tensor([8.0, 8.0]))
+
+
+# ---- onto another mesh (test_checkpoint.py::test_restore_onto_different_mesh)
+
+def _restore_onto_another_mesh(rank, world, tmp):
+    from test_torch_mesh_train import run_cases
+    from tpu_on_k8s_torch.models.params import init_params, load_model
+    from tpu_on_k8s_torch.models.transformer import flagship_partition_rules
+    from tpu_on_k8s_torch.parallel.mesh import MeshConfig, create_mesh
+
+    def case():
+        cfg = dataclasses.replace(TransformerConfig.tiny(),
+                                  dtype=torch.float32)
+        rules = flagship_partition_rules()
+        model = load_model(cfg, init_params(
+            cfg, torch.Generator().manual_seed(0), "cpu", torch.float32),
+            "cpu")
+        mesh = create_mesh(MeshConfig(fsdp=4), device="cpu")
+        trainer = Trainer(model, default_optimizer(model.parameters(), **OPT),
+                          rules=rules, mesh=mesh)
+        state = trainer.state()
+        for i in range(2):
+            trainer.train_step(state, trainer.shard_batch(_tokens(i)))
+        saved = {k: (v.full_tensor() if hasattr(v, "full_tensor") else v)
+                 for k, v in state.state_dict().items()}
+        mgr = CheckpointManager(tmp)
+        mgr.save(state, step=2, generation=1)
+        new_mesh = create_mesh(MeshConfig(fsdp=2, model=2), device="cpu")
+        template = train_state_template(cfg, "cpu", mesh=mesh, rules=rules,
+                                        **OPT)
+        restored, gen, step = mgr.restore(template, mesh=new_mesh,
+                                          rules=rules)
+        got = {k: (v.full_tensor() if hasattr(v, "full_tensor") else v)
+               for k, v in restored.state_dict().items()}
+        wq = dict(restored.model.named_parameters())[
+            "blocks.0.attn.wq.weight"]
+        # the restored state trains on the new mesh
+        new_trainer = Trainer(restored.model, restored.optimizer,
+                              rules=rules, mesh=new_mesh)
+        restored, m = new_trainer.train_step(
+            restored, new_trainer.shard_batch(_tokens(2)))
+        mgr.close()
+        return dict(gen_step=(gen, step), keys=sorted(saved),
+                    equal=sorted(k for k in saved
+                                 if torch.equal(saved[k], got[k])),
+                    wq=(tuple(wq.device_mesh.mesh_dim_names),
+                        " ".join(map(str, wq.placements))),
+                    loss=m["loss"].item(), count=new_trainer.optimizer.count)
+
+    return run_cases(rank, {"case": case})
+
+
+def test_restore_onto_different_mesh(tmp_path):
+    """Elastic rescale: a checkpoint written on one mesh (fsdp 4) restores
+    onto another (fsdp 2, model 2) with identical values, parameters,
+    moments, count and step, and trains there."""
+    from test_torch_mesh_train import case_result, run_world
+    got = case_result(run_world(_restore_onto_another_mesh,
+                                (str(tmp_path / "ckpt"),), tmp_path), "case")
+    assert got["gen_step"] == (1, 2)
+    assert got["equal"] == got["keys"]
+    assert got["wq"] == (("fsdp", "model"), "S(1) S(0)")
+    assert np.isfinite(got["loss"]) and got["count"] == 3
+
+
+def test_migrate_param_layout_roundtrip_exact():
+    """Unfused <-> fused migration is exact: a tiny tree gives identical
+    logits through the fused config, the round trip restores it bit for
+    bit, and the fused tree is the reference's migration carried across."""
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_on_k8s.models.transformer import Transformer as JTransformer
+    from tpu_on_k8s.models.transformer import TransformerConfig as JConfig
+    from tpu_on_k8s.train.checkpoint import (
+        migrate_param_layout as jmigrate,
+    )
+    from tpu_on_k8s_torch.models.layouts import migrate_param_layout
+
+    tok = np.random.default_rng(1).integers(0, 256, (2, 32)).astype(np.int32)
+    jtree = JTransformer(JConfig.tiny()).init(
+        jax.random.key(0), jnp.asarray(tok))["params"]
+    cfg = dataclasses.replace(TransformerConfig.tiny(), dtype=torch.float32)
+    params = pparams.from_jax_params(jtree, torch.float32, "cpu")
+    fused = migrate_param_layout(params, fused_qkv=True, fused_gateup=True)
+    want = pparams.from_jax_params(
+        jmigrate(jtree, fused_qkv=True, fused_gateup=True), torch.float32,
+        "cpu")
+    assert set(fused) == set(want)
+    for k in want:
+        assert torch.equal(fused[k], want[k]), k
+    cfg_f = dataclasses.replace(cfg, fused_qkv=True, mlp_fused_gateup=True)
+    with torch.no_grad():
+        out0 = pparams.load_model(cfg, params, "cpu")(torch.from_numpy(tok))
+        out_f = pparams.load_model(cfg_f, fused, "cpu")(torch.from_numpy(tok))
+    assert torch.equal(out0, out_f)
+    back = migrate_param_layout(fused, fused_qkv=False, fused_gateup=False)
+    assert set(back) == set(params)
+    for k in params:
+        assert torch.equal(back[k], params[k]), k

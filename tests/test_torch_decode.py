@@ -3,8 +3,8 @@
 A ``TransformerConfig.tiny()`` model is initialised by the JAX package and
 carried across with ``from_jax_params``; prompts come from a numpy seed.
 Both packages then serve them: prefill and stepwise logits, greedy
-``generate`` (token for token), the bucketed cache, the fused gate+up
-layout, the config guards and the sampler.
+``generate`` (token for token), the bucketed cache, the fused gate+up and
+fused qkv layouts (served and trained), the config guards and the sampler.
 """
 import dataclasses
 import functools
@@ -206,6 +206,58 @@ def test_fused_gateup_layout_matches_jax():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_fused_qkv_layout_serves_as_jax():
+    """``fused_qkv``: the reference's ``attn/wqkv`` tree carried across,
+    prefill logits and greedy tokens as the JAX fused model's."""
+    jcfg, jparams, pcfg, tree, tokens = _setup(fused_qkv=True)
+    assert set(tree["blocks"]["attn"]) == {"wqkv", "wo"}
+    params = pparams.from_jax_params(tree, device="cpu")
+    assert "blocks.0.attn.wqkv.weight" in params
+    want_logits, _ = _jax_decode(jcfg, jparams, tokens)
+    model, cache = _port_model(pcfg, params)
+    with torch.no_grad():
+        got_logits = model(torch.from_numpy(tokens), None, cache)
+    np.testing.assert_allclose(got_logits.numpy(), want_logits,
+                               atol=FP32_ATOL, rtol=0)
+    want = np.asarray(jdecode.generate(jcfg, jparams,
+                                       jnp.asarray(tokens[:, :8]), 12))
+    got = decode.generate(pcfg, params, torch.from_numpy(tokens[:, :8]), 12,
+                          device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_fused_qkv_layout_trains_as_jax():
+    """``fused_qkv`` in training: 3 fp32 steps of both packages' steps from
+    the same fused tree, loss and grad norm each step and the weights after
+    them, within ``test_torch_train_step.py``'s fp32 tolerances."""
+    from tpu_on_k8s.train import trainer as jtrainer
+    from tpu_on_k8s_torch.train import default_optimizer, make_train_step
+    jcfg, jparams, pcfg, tree, tokens = _setup(fused_qkv=True,
+                                               attn_impl="flash")
+    batch = np.concatenate([tokens, tokens[:, :1]], axis=1)
+    opt = jtrainer.default_optimizer(warmup_steps=2, decay_steps=3)
+    jstep = jtrainer.make_train_step(JTransformer(jcfg), opt)
+    state = jtrainer.TrainState(step=jnp.zeros((), jnp.int32),
+                                params=jparams, opt_state=opt.init(jparams))
+    model = pparams.load_model(
+        pcfg, pparams.from_jax_params(tree, torch.float32, "cpu"), "cpu")
+    step = make_train_step(model, default_optimizer(
+        model.parameters(), warmup_steps=2, decay_steps=3))
+    for _ in range(3):
+        state, want = jstep(state, jnp.asarray(batch))
+        got = step(torch.from_numpy(batch))
+        np.testing.assert_allclose(got["loss"].item(), float(want["loss"]),
+                                   atol=5e-6, rtol=0)
+        np.testing.assert_allclose(got["grad_norm"].item(),
+                                   float(want["grad_norm"]), rtol=1e-6)
+    expected = pparams.from_jax_params(jax.tree.map(np.asarray,
+                                                    state.params),
+                                       torch.float32, "cpu")
+    for name, p in model.state_dict().items():
+        np.testing.assert_allclose(p.numpy(), expected[name].numpy(),
+                                   atol=1.5e-6, rtol=0, err_msg=name)
+
+
 def test_bf16_prefill_logits_match_jax(setup):
     """bf16 serving: the JAX model casts its fp32 master weights to bf16 at
     every call; the port stores them in bf16. Same numbers, bf16 rounding
@@ -233,7 +285,7 @@ def test_overflow_raises(setup):
 
 
 @pytest.mark.parametrize("flag, value", [
-    ("fused_qkv", True), ("n_experts", 4), ("attn_impl", "ring"),
+    ("n_experts", 4), ("attn_impl", "ring"),
 ])
 def test_unported_flags_raise(flag, value):
     cfg = dataclasses.replace(TransformerConfig.tiny(), **{flag: value})
@@ -258,7 +310,7 @@ def test_gpt2_family_flags_serve(flag, value):
 
 
 @pytest.mark.parametrize("flag, value", [
-    ("fused_qkv", True), ("attn_impl", "ulysses"),
+    ("attn_impl", "ulysses"),
 ])
 def test_unported_training_flags_raise(flag, value):
     from tpu_on_k8s_torch.models.transformer import Transformer

@@ -7,10 +7,8 @@ configs written here (nothing is downloaded), converted, and their logits,
 greedy tokens and exported state dicts held against the HF models'; the
 ``--hf-model`` paths of the ``serve`` and ``generate`` CLIs serve a saved
 checkpoint directory; and for each family the port's converted model and
-the JAX package's give the same logits. Waiting for later slices: the
-``fused_qkv`` export case (ROADMAP Queue 1 item 3, which ports
-``fused_qkv`` and ``migrate_param_layout``) and ``TestBert``
-(``from_hf_bert``, Queue 1 item 5).
+the JAX package's give the same logits. Waiting for a later slice:
+``TestBert`` (``from_hf_bert``, Queue 1 item 5).
 
 Tolerances: logits against HF within the reference's atol 2e-4 / rtol
 2e-3; export round trips exact (atol 1e-6 on HF's own logits, as the
@@ -194,10 +192,8 @@ class TestExport:
 
     def test_fused_layout_exports(self):
         """A fused gate+up tree (``mlp_fused_gateup``, gate first) unfuses
-        on export, exactly. The fused-qkv half of the reference's case waits
-        for ROADMAP Queue 1 item 3 (``fused_qkv`` and
-        ``migrate_param_layout``); until then ``to_hf_llama`` refuses a
-        ``fused_qkv`` config as unported."""
+        on export, exactly; so does a tree with both fused layouts
+        (``fused_qkv`` too), the reference's case."""
         a = _tiny_llama()
         cfg, params = convert.from_hf_llama(a, device="cpu")
         fused = dict(params)
@@ -212,9 +208,19 @@ class TestExport:
         assert set(sd) == set(want)
         for k in want:
             assert torch.equal(sd[k], want[k]), k
-        with pytest.raises(NotImplementedError, match="fused_qkv"):
-            convert.to_hf_llama(dataclasses.replace(cfg, fused_qkv=True),
-                                params)
+        # the fused-qkv half: a tree migrated to both fused layouts
+        # (``layouts.migrate_param_layout``, the reference's
+        # ``migrate_param_layout``) unfuses on export, exactly
+        from tpu_on_k8s_torch.models.layouts import migrate_param_layout
+        both = migrate_param_layout(params, fused_qkv=True,
+                                    fused_gateup=True)
+        bcfg = dataclasses.replace(cfg, fused_qkv=True,
+                                   mlp_fused_gateup=True)
+        load_model(bcfg, both, "cpu")            # a tree the port serves
+        sd = convert.to_hf_llama(bcfg, both)
+        assert set(sd) == set(want)
+        for k in want:
+            assert torch.equal(sd[k], want[k]), k
 
     def test_rejects_non_llama_families(self):
         cfg, params = convert.from_hf_gpt2(_tiny_gpt2(), device="cpu")

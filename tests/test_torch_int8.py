@@ -197,6 +197,10 @@ _VARIANTS = {
     "attn": dict(attn_int8=True),
     "all": dict(mlp_int8=True, mlp_fused_gateup=True, head_int8=True,
                 attn_int8=True),
+    # the fused wqkv projection through the int8 GEMM (one product, cut
+    # on the head axis), as the reference's _FusedQKVProj(int8=True)
+    "all-fused-qkv": dict(mlp_int8=True, mlp_fused_gateup=True,
+                          head_int8=True, attn_int8=True, fused_qkv=True),
 }
 # fp32 compute: the packages' activations differ in the last bits (summation
 # order); a value whose x / scale lies that close to a .5 boundary would
@@ -295,8 +299,7 @@ def test_reference_value_errors(changes, match):
         Transformer(cfg)
 
 
-@pytest.mark.parametrize("changes", [dict(fused_qkv=True),
-                                     dict(n_experts=4)])
+@pytest.mark.parametrize("changes", [dict(n_experts=4)])
 def test_int8_with_unported_layouts_raises(changes):
     cfg = dataclasses.replace(TransformerConfig.tiny(), mlp_int8=True,
                               **changes)

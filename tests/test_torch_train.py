@@ -335,6 +335,23 @@ def test_cli_eval_data_evaluates_every_n_and_at_the_end(
                for l in lines)
 
 
+def test_cli_saves_after_an_evaluation(tmp_path):
+    """An evaluation between steps leaves the model's parameters the
+    optimizer's (the mesh's eval step reshards FSDP2's gathered root), so
+    the final save holds every parameter with its moments."""
+    from tpu_on_k8s_torch.train.checkpoint import CheckpointManager
+    path, ckpt = str(tmp_path / "eval.bin"), str(tmp_path / "ckpt")
+    write_records(path, packed_tokens(b=4, l=17, seed=9))
+    train_llama.main(["--config", "tiny", "--device", "cpu", "--steps", "3",
+                      "--batch", "2", "--seq-len", "16", "--eval-data", path,
+                      "--eval-every", "2", "--checkpoint-dir", ckpt])
+    state = ptrainer.train_state_template(TransformerConfig.tiny(), "cpu",
+                                          warmup_steps=10, decay_steps=11)
+    state, gen, step = CheckpointManager(ckpt).restore(state)
+    assert (gen, step, state.optimizer.count) == (0, 3, 3)
+    assert all(torch.isfinite(p).all() for p in state.model.parameters())
+
+
 def test_cli_checkpoint_round_trip_through_generate_and_serve(tmp_path,
                                                               capsys):
     """``train_llama --checkpoint-dir`` saves the trained state; ``generate

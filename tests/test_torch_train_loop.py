@@ -489,10 +489,52 @@ def test_torch_profiler_trace_writes_a_chrome_trace(tmp_path, monkeypatch):
     assert len(traces) == 1 and "train.step" in traces[0].read_text()
 
 
-def test_reshard_signal_is_not_ported():
-    with pytest.raises(NotImplementedError, match="reshard_signal"):
-        TrainLoop(_toy_step, _toy_state(), _batches(),
-                  reshard_signal=lambda: None)
+def test_reshard_signal_drives_a_live_reshard():
+    """A ``ReshardNotice`` from ``reshard_signal`` moves the loop's state
+    onto the notice's layout and the run goes on counting global steps
+    (here on a world of one rank in this process;
+    ``tests/test_torch_reshard.py`` holds the reference's cases on four)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from tpu_on_k8s_torch.parallel.mesh import MeshConfig, create_mesh
+    from tpu_on_k8s_torch.parallel.partition import (
+        PartitionRule,
+        shard_pytree,
+    )
+    from tpu_on_k8s_torch.parallel.reshard import ReshardNotice
+    from tpu_on_k8s_torch.train.distributed import local_world
+
+    def step(state, batch):
+        w = state["w"]
+        return ({"w": distribute_tensor(w.full_tensor() + batch,
+                                        w.device_mesh, w.placements,
+                                        src_data_rank=None)},
+                {"loss": batch.mean()})
+
+    made = local_world("cpu")
+    try:
+        mesh = create_mesh(MeshConfig(), device="cpu")
+        sharded = [PartitionRule("w", ("fsdp",))]
+        state = shard_pytree({"w": torch.zeros(4)}, mesh, sharded)
+        applied = []
+        notice = ReshardNotice(mesh, sharded, mesh, [], tag="replicate",
+                               on_applied=lambda: applied.append(True))
+        calls = {"n": 0}
+
+        def signal():
+            calls["n"] += 1
+            return notice if calls["n"] == 3 else None
+
+        result = TrainLoop(step, state, _batches(), log_every=2,
+                           reshard_signal=signal).run(6)
+        assert result.steps == 6 and result.reshards == 1
+        assert not result.reshard_fallback and applied == [True]
+        assert [s for s, _ in result.history] == [2, 4, 6]
+        assert torch.equal(result.state["w"].full_tensor(),
+                           torch.full((4,), 6.0))
+    finally:
+        if made:
+            torch.distributed.destroy_process_group()
 
 
 # ---- against the JAX package ----------------------------------------------

@@ -3,7 +3,8 @@
 Counterpart of the part of ``tpu_on_k8s/chaos/`` that the serving engine's
 and the training loop's sites need: the ``Fault`` base with
 ``EngineCrash``, ``EngineStall`` and ``DraftCrash``, and ``StepFailure``,
-``SaveFailure`` and ``PreemptNotice`` with their typed exceptions, and the
+``SaveFailure``, ``PreemptNotice`` and ``ReshardAbort`` with their typed
+exceptions, and the
 serving plane's ``ReplicaCrash``, ``ReadinessFlap``, ``RolloutInterrupt``,
 ``HandoffLoss``, ``HandoffCorrupt`` and ``SwapFailure`` (``faults.py``),
 the engine's, the plane's and the training loop's sites, the
@@ -11,7 +12,8 @@ the engine's, the plane's and the training loop's sites, the
 fault)`` (``injector.py``) and the ``engine_crash_mid_decode``,
 ``spec_draft_crash``, ``replica_crash_mid_decode``,
 ``fleet_rollout_chaos``, ``disagg_handoff_chaos``, ``model_swap_failure``
-and ``train_preemption`` scenarios (``scenarios.py``).
+``train_preemption`` and ``live_reshard_abort`` scenarios
+(``scenarios.py``).
 
 Every instrumented call site calls ``fire(site, **ctx)``; with no injector
 installed that is one module-global read and a None return. With one
@@ -50,10 +52,17 @@ SITE_TRAIN_STEP = "train.step"
 SITE_TRAIN_SAVE = "train.save"
 #: ``TrainLoop`` before each step, a preemption source: ``PreemptNotice``
 SITE_TRAIN_PREEMPT = "train.preempt"
+#: ``parallel/reshard.py``'s plan execution, before any leaf moves:
+#: ``ReshardAbort``
+SITE_RESHARD = "train.reshard"
 
 
 class ChaosStepError(RuntimeError):
     """An injected training-step failure (``StepFailure``)."""
+
+
+class ChaosReshardError(RuntimeError):
+    """An injected live-reshard abort (``ReshardAbort``)."""
 
 
 class ChaosSaveError(OSError):
@@ -192,6 +201,20 @@ class PreemptNotice(Fault):
     exact stopping point, drain, and stop cleanly."""
 
     kind: ClassVar[str] = "preempt_notice"
+
+
+@dataclasses.dataclass(frozen=True)
+class ReshardAbort(Fault):
+    """A live mesh reshard dies mid-transform (a rank lost, an out-of-memory
+    in the transfer, a wedged collective). Fired before the first leaf
+    moves, so the source state is intact: the train loop counts the
+    fallback and leaves through the preemption path, and the
+    checkpoint-restart rescale takes over."""
+
+    kind: ClassVar[str] = "reshard_abort"
+
+    def to_exception(self) -> Exception:
+        return ChaosReshardError("chaos injected live-reshard abort")
 
 
 def describe(fault: Fault, note: Optional[str] = None) -> str:
@@ -553,3 +576,16 @@ def train_preemption(at_step: int, *, fail_save: bool = False,
                                SaveFailure(),
                                note="fail the preemption save"))
     return Scenario("train-preemption", tuple(rules), seed)
+
+
+def live_reshard_abort(at_transform: int = 1, *, seed: int = 0) -> Scenario:
+    """Abort the ``at_transform``-th live mesh reshard (counted per plan
+    execution, ``parallel/reshard.py``) before any leaf moves. Recovery
+    under test: the train loop counts the fallback, leaves through the
+    preemption path (a final save of the intact state, then the drain),
+    and a checkpoint restart reproduces the fault-free trajectory bit for
+    bit."""
+    return Scenario("live-reshard-abort", (
+        FaultRule(SITE_RESHARD, on_call(at_transform), ReshardAbort(),
+                  note=f"abort live reshard #{at_transform}"),
+    ), seed)

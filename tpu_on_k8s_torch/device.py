@@ -20,3 +20,16 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {str(dev)!r} (use 'cuda' or 'cpu')")
+
+
+def refuse_dtensor(name: str, *tensors) -> None:
+    """Raise ``TypeError`` if any of ``tensors`` is a ``DTensor``: a
+    kernel's wrapper takes plain tensors (on a mesh, each rank's local
+    blocks), so a sharded call cannot quietly take another route."""
+    from torch.distributed.tensor import DTensor
+    for t in tensors:
+        if isinstance(t, DTensor):
+            raise TypeError(
+                f"{name} takes plain tensors, not a DTensor "
+                f"({t.placements} on {t.device_mesh}): pass each rank's "
+                f"local block (DTensor.to_local())")

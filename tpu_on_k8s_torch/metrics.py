@@ -270,6 +270,34 @@ class TrainMetrics(_MetricsBase):
                           f"Training loop {name}")
 
 
+class ReshardMetrics(_MetricsBase):
+    """Live mesh reconfiguration (``parallel/reshard.py``'s transforms,
+    driven through ``train/loop.py``): reshards applied, reshards that fell
+    back to the checkpoint-restart path, acknowledgements that raised, the
+    bytes the plans moved (leaves whose layout changed) and the last
+    transform's pause in seconds, which the goodput ledger's ``reshard``
+    bucket adds up. The reference's families."""
+
+    def __init__(self, registry=None) -> None:
+        super().__init__()
+        if _prom is not None:
+            self.registry = registry or _prom.CollectorRegistry()
+        ns = "tpu_on_k8s_reshard"
+        for name, help in (("reshards", "Live mesh reshards applied"),
+                           ("reshard_fallbacks",
+                            "Live reshards aborted and fallen back to "
+                            "checkpoint-restart"),
+                           ("reshard_ack_failures",
+                            "Reshard ack callbacks that raised (the "
+                            "transform outcome stands; the control-plane "
+                            "write did not land)"),
+                           ("bytes_moved",
+                            "Bytes moved by reshard transfer plans")):
+            self._declare(name, f"{ns}_{name}", "counter", help)
+        self._declare("transform_seconds", f"{ns}_transform_seconds",
+                      "gauge", "Last reshard transform pause in seconds")
+
+
 class FleetMetrics(_MetricsBase):
     """Serving-fleet observability (`tpu_on_k8s_torch/serve/fleet.py`): the
     router/rollout layer above per-replica ``ServingMetrics``. Counters

@@ -32,6 +32,7 @@ import torch
 
 from tpu_on_k8s_torch.device import resolve_device
 from tpu_on_k8s_torch.models.decode import quantize_weights_for_serving
+from tpu_on_k8s_torch.models.layouts import migrate_param_layout
 from tpu_on_k8s_torch.models.params import keeps_fp32
 from tpu_on_k8s_torch.models.transformer import Transformer, TransformerConfig
 from tpu_on_k8s_torch.ops.quantization import quantize_int8
@@ -256,29 +257,25 @@ def _host(t: torch.Tensor) -> torch.Tensor:
 def to_hf_llama(cfg: TransformerConfig, params: Params
                 ) -> Dict[str, torch.Tensor]:
     """HF Llama ``state_dict`` (fp32 host tensors) from the port's state
-    dict, the inverse of ``params_from_hf_llama``. A ``mlp_fused_gateup``
-    tree's ``w_gateup [2·d_ff, D]`` (gate first) unfuses; a tied head is
-    the embedding tensor itself, as HF ties them."""
+    dict, the inverse of ``params_from_hf_llama``. A ``fused_qkv`` or
+    ``mlp_fused_gateup`` tree's ``wqkv`` / ``w_gateup`` unfuse
+    (``layouts.migrate_param_layout``); a tied head is the embedding
+    tensor itself, as HF ties them."""
     if (cfg.pos_emb, cfg.norm, cfg.activation) != ("rope", "rms", "swiglu"):
         raise ValueError("to_hf_llama exports the Llama family only "
                          "(rope + rmsnorm + swiglu)")
     if cfg.use_bias or cfg.n_experts or cfg.serve_int8_weights:
         raise ValueError("biased, MoE, or int8-serving param trees have no "
                          "Llama state-dict form")
-    if cfg.fused_qkv:
-        raise NotImplementedError(
-            "fused_qkv=True is not ported to tpu_on_k8s_torch yet (the "
-            "fused wqkv projection is a later slice)")
+    # a fused tree unfuses first (``layouts.migrate_param_layout``: exact)
+    params = migrate_param_layout(params, fused_qkv=False,
+                                  fused_gateup=False)
     sd = {"model.embed_tokens.weight": _host(params["embed"]),
           "model.norm.weight": _host(params["final_norm.scale"])}
     for i in range(cfg.n_layers):
         p = f"blocks.{i}."
-        layer = {port: params.get(p + port) for _, port in _LLAMA_LAYER}
-        if cfg.mlp_fused_gateup:
-            gate, up = params[p + "mlp.w_gateup.weight"].split(cfg.d_ff)
-            layer["mlp.w_gate.weight"], layer["mlp.w_up.weight"] = gate, up
         for hf, port in _LLAMA_LAYER:
-            sd[f"model.layers.{i}.{hf}"] = _host(layer[port])
+            sd[f"model.layers.{i}.{hf}"] = _host(params[p + port])
     sd["lm_head.weight"] = (sd["model.embed_tokens.weight"]
                             if cfg.tie_embeddings
                             else _host(params["lm_head"].t()))

@@ -1,13 +1,16 @@
-"""The cache layout a KV payload carries across engines.
+"""The cache layout a KV payload carries across engines, and the
+conversion between the fused and unfused projection layouts.
 
-Counterpart of ``tpu_on_k8s/models/layouts.py``'s ``CacheLayout``. The
-parameter-layout conversion beside it there (``fused_qkv``,
-``migrate_param_layout``) belongs to mesh sharding, a later slice.
+Counterpart of ``tpu_on_k8s/models/layouts.py``: ``CacheLayout`` and
+``migrate_param_layout`` on the port's names.
 """
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, Mapping, Optional
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -46,3 +49,65 @@ class CacheLayout:
 
     def __hash__(self) -> int:
         return hash((self.signature(), self.gathered_bytes))
+
+
+#: (fused leaf, its parts in row order) of each fusable family
+_FAMILIES = {
+    "qkv": ("attn.wqkv.weight", ("attn.wq.weight", "attn.wk.weight",
+                                 "attn.wv.weight")),
+    "gateup": ("mlp.w_gateup.weight", ("mlp.w_gate.weight",
+                                       "mlp.w_up.weight")),
+}
+
+
+def migrate_param_layout(params: Mapping[str, torch.Tensor], *,
+                         fused_qkv: Optional[bool] = None,
+                         fused_gateup: Optional[bool] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """Convert a state dict (the port's names; any key prefix, so a
+    checkpoint's ``params/``, ``mu/`` and ``nu/`` trees convert alike)
+    between the fused and unfused projection layouts:
+
+    * ``fused_qkv=True`` packs ``attn.{wq,wk,wv}.weight`` into
+      ``attn.wqkv.weight`` (q, then k, then v rows); ``False`` splits it,
+      q as wide as ``wo``'s input and k, v halving the rest (GQA);
+    * ``fused_gateup=True`` packs ``mlp.{w_gate,w_up}.weight`` into
+      ``mlp.w_gateup.weight`` (gate first); ``False`` splits it in halves.
+
+    A port weight is ``[out, in]``, so the reference's concatenation on a
+    kernel's last (output) axis is a concatenation on dim 0 here. Exact
+    both ways; ``None`` leaves a family as it is. Returns a new dict (the
+    tensors it does not touch are the same objects)."""
+    out = dict(params)
+    for family, want in (("qkv", fused_qkv), ("gateup", fused_gateup)):
+        if want is None:
+            continue
+        fused, parts = _FAMILIES[family]
+        if want:
+            for key in [k for k in out if k.endswith(parts[0])]:
+                prefix = key[:-len(parts[0])]
+                if all(prefix + p in out for p in parts):
+                    out[prefix + fused] = torch.cat(
+                        [out.pop(prefix + p) for p in parts], dim=0)
+            continue
+        for key in [k for k in out if k.endswith(fused)]:
+            prefix = key[:-len(fused)]
+            w = out.pop(key)
+            if family == "qkv":
+                q = out[prefix + "attn.wo.weight"].shape[1]
+                kv = (w.shape[0] - q) // 2
+                sizes = (q, kv, kv)
+            else:
+                sizes = (w.shape[0] // 2,) * 2
+            for name, piece in zip(parts, torch.split(w, sizes, dim=0)):
+                out[prefix + name] = piece.clone()
+    return _ordered(out)
+
+
+def _ordered(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Keys in block order (``blocks.<i>.`` numerically), the rest kept in
+    place: what a ``Transformer``'s ``state_dict`` lists."""
+    def key(item):
+        m = re.search(r"blocks\.(\d+)\.", item[0])
+        return (int(m.group(1)) if m else -1)
+    return dict(sorted(params.items(), key=key))

@@ -80,7 +80,9 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     return params
 
 
-_ATTN = ("wq", "wk", "wv", "wo")
+_ATTN = ("wq", "wk", "wv", "wqkv", "wo")
+#: the attention projections a reference tree may hold: unfused or fused
+_ATTN_LAYOUTS = ({"wq", "wk", "wv", "wo"}, {"wqkv", "wo"})
 _MLP = ("w_gate", "w_up", "w_down", "w_gateup")
 
 
@@ -133,8 +135,9 @@ def from_jax_params(tree: Mapping, dtype: Optional[torch.dtype] = None,
     norm scales and biases stay fp32. The W8A16 tree of
     ``quantize_weights_for_serving`` (``kernel_q [L, D_in, D_out]`` int8 and
     ``kernel_scale [L, D_out]``; ``lm_head_q [D, V]``, ``lm_head_scale
-    [V]``) keeps its int8 values and fp32 scales. A tree of a layout this
-    port does not serve (fused qkv, MoE) raises ``NotImplementedError``.
+    [V]``) keeps its int8 values and fp32 scales. A fused ``attn/wqkv``
+    tree becomes ``attn.wqkv.weight``. A tree of a layout this port does
+    not serve (MoE) raises ``NotImplementedError``.
     Adam's moment trees have the same layout, so they cross the same
     way."""
     dev = resolve_device(device)
@@ -168,14 +171,14 @@ def from_jax_params(tree: Mapping, dtype: Optional[torch.dtype] = None,
     attn, mlp = blocks.get("attn", {}), blocks.get("mlp", {})
     if (not base <= set(tree) or not set(tree) <= base | optional
             or set(blocks) != {"attn", "attn_norm", "mlp", "mlp_norm"}
-            or set(attn) != set(_ATTN) or not set(mlp) <= set(_MLP)
+            or set(attn) not in _ATTN_LAYOUTS or not set(mlp) <= set(_MLP)
             or any(set(m) not in _DENSE_LEAVES
                    for m in (*attn.values(), *mlp.values()))
             or any(set(blocks[n]) not in _NORM_LEAVES
                    for n in ("attn_norm", "mlp_norm"))
             or set(tree["final_norm"]) not in _NORM_LEAVES):
         raise NotImplementedError(
-            f"parameter tree layout not ported (fused qkv or MoE): "
+            f"parameter tree layout not ported (MoE): "
             f"top-level keys {sorted(tree)}, blocks "
             f"{ {k: sorted(v) for k, v in blocks.items()} }")
     n_layers = np.shape(blocks["attn_norm"]["scale"])[0]

@@ -38,6 +38,15 @@ through ``ops/int8_matmul.py`` (``Int8Dense``; ``int8_impl`` "xla" or
 fp32 absmax scale per (token, kv head): ``quantize_kv`` at every append,
 ``dequantize_kv`` at every read over the cache.
 
+``fused_qkv`` keeps one ``wqkv`` weight ``[(H + 2·Hkv)·Dh, D]`` (q, then k,
+then v rows), the reference's ``attn/wqkv/kernel`` transposed, in training
+and serving alike. Under a mesh (``parallel/sharded.py``) the projections
+run tensor-parallel on local heads (H/model query heads a rank), and
+``embed``, ``lm_head`` and the tied head are vocab-sharded ``DTensor``s:
+``_embed`` and ``_logits`` gather their products over the ``model`` axis.
+``flagship_partition_rules`` and ``serving_partition_rules`` are the
+reference's rules on the port's names.
+
 A config flag this port does not cover raises ``NotImplementedError``
 naming it (``check_supported``); none is silently ignored. ``scan_unroll``
 and ``attn_block_q``/``attn_block_k`` are TPU compile and tiling knobs with
@@ -53,6 +62,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -67,6 +77,8 @@ from tpu_on_k8s_torch.ops.flash_attention import (
     flash_attention_bhld,
 )
 from tpu_on_k8s_torch.ops.int8_matmul import int8_matmul, int8_matmul_pallas
+from tpu_on_k8s_torch.parallel.mesh import AXIS_FSDP, AXIS_MODEL
+from tpu_on_k8s_torch.parallel.partition import PartitionRule
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,7 +160,6 @@ class TransformerConfig:
 
 #: (flag, holds when unsupported, the later slice that brings it)
 _NOT_PORTED = (
-    ("fused_qkv", lambda c: c.fused_qkv, "the fused wqkv projection"),
     ("n_experts", lambda c: c.n_experts > 0, "MoE (models/moe.py)"),
     ("attn_impl", lambda c: c.attn_impl not in ("xla", "flash"),
      "ring/ulysses sequence parallelism"),
@@ -432,19 +443,34 @@ class Attention(nn.Module):
         hd = cfg.head_dim
         # decode keeps bf16 projections under attn_int8, as the reference
         dense = _dense_class(cfg, cfg.attn_int8 and not cfg.decode)
-        self.wq = dense(cfg.d_model, cfg.n_heads * hd, cfg)
-        self.wk = dense(cfg.d_model, cfg.n_kv_heads * hd, cfg)
-        self.wv = dense(cfg.d_model, cfg.n_kv_heads * hd, cfg)
+        if cfg.fused_qkv:
+            self.wqkv = dense(cfg.d_model,
+                              (cfg.n_heads + 2 * cfg.n_kv_heads) * hd, cfg)
+        else:
+            self.wq = dense(cfg.d_model, cfg.n_heads * hd, cfg)
+            self.wk = dense(cfg.d_model, cfg.n_kv_heads * hd, cfg)
+            self.wv = dense(cfg.d_model, cfg.n_kv_heads * hd, cfg)
         self.wo = dense(cfg.n_heads * hd, cfg.d_model, cfg)
+
+    def _project(self, x: torch.Tensor):
+        """q ``[B, L, h, Dh]``, k, v ``[B, L, hkv, Dh]``: the rank's heads
+        (all of them off a mesh). The fused weight is one product, cut on
+        the head axis as the reference's ``_FusedQKVProj``."""
+        cfg = self.cfg
+        b, l, _ = x.shape
+        hd = cfg.head_dim
+        if cfg.fused_qkv:
+            qkv = self.wqkv(x).view(b, l, -1, hd)
+            h, hk = cfg.n_heads, cfg.n_kv_heads
+            return qkv[:, :, :h], qkv[:, :, h:h + hk], qkv[:, :, h + hk:]
+        return (self.wq(x).view(b, l, -1, hd), self.wk(x).view(b, l, -1, hd),
+                self.wv(x).view(b, l, -1, hd))
 
     def forward(self, x: torch.Tensor, pos: Positions,
                 cache: Optional[KVCache] = None,
                 segments: Optional[torch.Tensor] = None) -> torch.Tensor:
-        cfg = self.cfg
         b, l, _ = x.shape
-        q = self.wq(x).view(b, l, cfg.n_heads, cfg.head_dim)
-        k = self.wk(x).view(b, l, cfg.n_kv_heads, cfg.head_dim)
-        v = self.wv(x).view(b, l, cfg.n_kv_heads, cfg.head_dim)
+        q, k, v = self._project(x)
         if pos.cos is not None:
             q = _rope_rotate(q, pos.cos, pos.sin)
             k = _rope_rotate(k, pos.cos, pos.sin)
@@ -452,7 +478,7 @@ class Attention(nn.Module):
             out = self._cached_attention(q, k, v, pos, cache)
         else:
             out = self._attention_bhld(q, k, v, segments)
-        return self.wo(out.reshape(b, l, cfg.n_heads * cfg.head_dim))
+        return self.wo(out.reshape(b, l, -1))
 
     def _attention_bhld(self, q, k, v, segments) -> torch.Tensor:
         """The training path's attention, as the reference's
@@ -462,7 +488,7 @@ class Attention(nn.Module):
         ``"xla"`` repeats k/v and runs ``xla_attention_bhld``. Autograd sums
         the gradients of a repeat. Returns ``[B, L, H, Dh]``."""
         cfg = self.cfg
-        rep = cfg.n_heads // cfg.n_kv_heads
+        rep = q.shape[2] // k.shape[2]
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
         if cfg.attn_impl == "flash":
             if not cfg.attn_native_gqa:
@@ -509,11 +535,11 @@ class Attention(nn.Module):
         batched matmuls over (B, Hkv): no repeated K/V is made. An int8
         cache is read dequantized to ``cfg.dtype`` (``KVCache.read``)."""
         b, l, h, hd = q.shape
-        hkv = self.cfg.n_kv_heads
+        kc, vc = cache.read(self.cfg.dtype)
+        hkv = kc.shape[2]
         rep = h // hkv
         qg = (q.float() * hd ** -0.5).view(b, l, hkv, rep, hd)
         qg = qg.permute(0, 2, 3, 1, 4).reshape(b, hkv, rep * l, hd)
-        kc, vc = cache.read(self.cfg.dtype)
         kc = kc.transpose(1, 2).to(torch.float32,
                                    memory_format=torch.contiguous_format)
         logits = torch.matmul(qg, kc.transpose(-1, -2))  # [B, Hkv, rep·l, max]
@@ -523,6 +549,36 @@ class Attention(nn.Module):
         out = torch.matmul(probs.to(q.dtype), vc.transpose(1, 2))
         return out.view(b, hkv, rep, l, hd).permute(0, 3, 1, 2, 4).reshape(
             b, l, h, hd)
+
+
+def _replicated_like(x: torch.Tensor, ref: DTensor) -> DTensor:
+    """``x``, which every rank of ``ref``'s mesh holds alike, as a
+    replicated ``DTensor`` there: its gradient is summed over the mesh."""
+    return DTensor.from_local(x, ref.device_mesh,
+                              [Replicate()] * ref.device_mesh.ndim,
+                              run_check=False)
+
+
+def _embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The embedding gather. A vocab-sharded table (a ``DTensor`` over the
+    ``model`` axis) gathers its rows where they live and sums the
+    partial rows over the axis (each row lives on one rank, the others add
+    zeros): the full rows, exact."""
+    if isinstance(table, DTensor):
+        return F.embedding(_replicated_like(tokens, table),
+                           table).full_tensor()
+    return F.embedding(tokens, table)
+
+
+def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """fp32 logits ``x @ head`` for a head ``[D, V]``. A vocab-sharded head
+    makes its V/model columns on each rank and gathers them over the
+    ``model`` axis, so the loss reads the whole row as off a mesh; x's
+    gradient is summed over the axis."""
+    if isinstance(head, DTensor):
+        return torch.matmul(_replicated_like(x, head).float(),
+                            head.float()).full_tensor()
+    return torch.matmul(x.float(), head.float())
 
 
 def _append_per_row(k: torch.Tensor, v: torch.Tensor,
@@ -744,7 +800,7 @@ class Transformer(nn.Module):
         head = self._head()
         if cfg.head_int8:
             return _int8_mm(cfg.int8_impl)(x, head.t(), torch.float32)
-        return torch.matmul(x.float(), head.float())
+        return _logits(x, head)
 
     def extend_cache(self, tokens: torch.Tensor, positions: torch.Tensor,
                      cache: List[KVCache]) -> None:
@@ -808,7 +864,7 @@ class Transformer(nn.Module):
             pos = Positions(positions, cos[:, :, None, :], sin[:, :, None, :],
                             is_arange)
         # an fp32 gather from the master table, then the cast
-        x = F.embedding(tokens, self.embed)
+        x = _embed(tokens, self.embed)
         if learned:
             # A multislot step's free slots sit at the sentinel max_len (a
             # horizon's or a verify chunk's later columns past it): their
@@ -830,3 +886,53 @@ class Transformer(nn.Module):
                 x = block(x, pos, cache[i] if cache is not None else None,
                           segments)
         return self.final_norm(x)
+
+
+def flagship_partition_rules() -> List[PartitionRule]:
+    """The reference's Megatron-layout rules on the port's names. A port
+    weight is ``[out, in]``, the transpose of a reference ``kernel [L, in,
+    out]`` without the layer axis, so each projection's spec is the
+    reference's reversed: column-parallel ``wq``/``wk``/``wv``/``wqkv`` and
+    ``w_gate``/``w_up``/``w_gateup`` put ``model`` on the output rows (dim
+    0) and ``fsdp`` on the input (dim 1); row-parallel ``wo`` and
+    ``w_down`` the other way round. ``embed [V, D]`` keeps (model, fsdp),
+    ``lm_head [D, V]`` (fsdp, model), ``pos_embed`` (None, fsdp); norms and
+    everything else are replicated. The reference's MoE rules have no port
+    leaves (MoE is not ported)."""
+    return [
+        # attention: qkv column-parallel, output row-parallel
+        PartitionRule(r"attn\.w[qkv]\.weight", (AXIS_MODEL, AXIS_FSDP)),
+        PartitionRule(r"attn\.wqkv\.weight", (AXIS_MODEL, AXIS_FSDP)),
+        PartitionRule(r"attn\.wo\.weight", (AXIS_FSDP, AXIS_MODEL)),
+        # mlp: gate/up column-parallel, down row-parallel
+        PartitionRule(r"mlp\.w_(gate|up|gateup)\.weight",
+                      (AXIS_MODEL, AXIS_FSDP)),
+        PartitionRule(r"mlp\.w_down\.weight", (AXIS_FSDP, AXIS_MODEL)),
+        # embeddings: vocab-parallel over model, hidden over fsdp
+        PartitionRule(r"(^|/)embed$", (AXIS_MODEL, AXIS_FSDP)),
+        PartitionRule(r"pos_embed", (None, AXIS_FSDP)),
+        PartitionRule(r"lm_head", (AXIS_FSDP, AXIS_MODEL)),
+        # norms and everything else: replicated (listed for clarity)
+        PartitionRule(r"norm\.scale", ()),
+    ]
+
+
+def serving_partition_rules(int8: bool = False) -> List[PartitionRule]:
+    """The serving rule set: the flagship layout, extended for the W8A16
+    tree when ``int8``. A quantized projection's ``weight_q`` rides its
+    weight's rule (``re.search``); its per-output-channel ``weight_scale
+    [out]`` is sharded like the weight's output dim (``model`` for
+    column-parallel projections, ``fsdp`` for row-parallel ones), so the
+    scale rules come first; ``lm_head_scale [V]`` shards with the vocab."""
+    rules: List[PartitionRule] = []
+    if int8:
+        rules += [
+            PartitionRule(r"attn\.w[qkv]\.weight_scale", (AXIS_MODEL,)),
+            PartitionRule(r"attn\.wqkv\.weight_scale", (AXIS_MODEL,)),
+            PartitionRule(r"mlp\.w_(gate|up|gateup)\.weight_scale",
+                          (AXIS_MODEL,)),
+            PartitionRule(r"attn\.wo\.weight_scale", (AXIS_FSDP,)),
+            PartitionRule(r"mlp\.w_down\.weight_scale", (AXIS_FSDP,)),
+            PartitionRule(r"lm_head_scale", (AXIS_MODEL,)),
+        ]
+    return rules + flagship_partition_rules()

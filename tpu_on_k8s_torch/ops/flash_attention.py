@@ -47,6 +47,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
+from tpu_on_k8s_torch.device import refuse_dtensor
+
 NEG_INF = -1e30  # large-but-finite: keeps exp(masked - m) an exact underflow
 
 #: Kernel launches since each count was last set to 0 (a check on the card
@@ -89,6 +91,7 @@ def with_kernel_head_dim(call, tensors, n_wide: int):
 
 
 def _check(q, k, v, valid_len: int, segments) -> None:
+    refuse_dtensor("flash attention", q, k, v, segments)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash attention takes 4-D q, k, v [B, H, L, D]")
     b, h, l, d = q.shape

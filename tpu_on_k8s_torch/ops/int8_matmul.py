@@ -53,6 +53,8 @@ from torch.utils.flop_counter import (
     register_flop_formula,
 )
 
+from tpu_on_k8s_torch.device import refuse_dtensor
+
 #: Launches of ``csrc/int8_matmul.cu`` since the count was last set to 0.
 launches = 0
 
@@ -275,6 +277,7 @@ class _Int8Product(torch.autograd.Function):
 
 def _apply(x: torch.Tensor, w: torch.Tensor,
            out_dtype: Optional[torch.dtype], impl: str) -> torch.Tensor:
+    refuse_dtensor("int8_matmul", x, w)
     out_dtype = out_dtype or x.dtype
     stand_in = _Int8Grad.apply(x, w, out_dtype)
     return _Int8Product.apply(stand_in, x.detach(), w.detach(), out_dtype,

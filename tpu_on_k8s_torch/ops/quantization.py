@@ -30,6 +30,8 @@ from typing import Dict, Mapping, Tuple
 
 import torch
 
+from tpu_on_k8s_torch.device import refuse_dtensor
+
 #: Launches of the quantize and dequantize kernels since each count was last
 #: set to 0.
 quant_launches = 0
@@ -141,6 +143,7 @@ def quantize_int8(x: torch.Tensor, seed: int = 0, block_rows: int = 256
     stochastic rounding keyed by ``seed``."""
     global quant_launches
     del block_rows
+    refuse_dtensor("quantize_int8", x)
     if x.dim() != 2 or not x.is_floating_point():
         raise ValueError(f"quantize_int8 takes a 2-D float tensor, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -170,6 +173,7 @@ def dequantize_int8(values: torch.Tensor, scales: torch.Tensor,
     """Inverse of ``quantize_int8``: ``values · scales`` in ``dtype``."""
     global dequant_launches
     del block_rows
+    refuse_dtensor("dequantize_int8", values, scales)
     if values.dim() != 2 or values.dtype != torch.int8:
         raise ValueError(f"dequantize_int8 takes 2-D int8 values, got "
                          f"{tuple(values.shape)} {values.dtype}")

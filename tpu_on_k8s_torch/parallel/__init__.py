@@ -1,0 +1,59 @@
+"""Mesh parallelism over the job's ranks: the counterpart of
+``tpu_on_k8s/parallel/``.
+
+The vocabulary is the reference's: a ``DeviceMesh`` with the axes ``data``
+(batch split, gradients summed), ``fsdp`` (batch and parameters split),
+``model`` (tensor parallelism: heads and hidden split), ``seq`` and
+``expert`` (not ported: they must be 1), and regex rules over leaf paths
+that give each parameter its layout. Where the reference hands the specs to
+XLA's SPMD partitioner, ``sharded.py`` writes the layout out with
+``parallelize_module`` and FSDP2; ``reshard.py`` moves a live state from
+one (mesh, rules) to another. Ring, Ulysses and pipeline parallelism
+(``ring.py``, ``ulysses.py``, ``pipeline.py`` in the reference) are not
+ported.
+"""
+from tpu_on_k8s_torch.parallel.mesh import (
+    AXIS_DATA,
+    AXIS_FSDP,
+    AXIS_MODEL,
+    AXIS_SEQ,
+    MeshConfig,
+    batch_sharding,
+    create_mesh,
+)
+from tpu_on_k8s_torch.parallel.partition import (
+    PartitionRule,
+    named_sharding,
+    shard_pytree,
+    spec_for_path,
+    specs_for_pytree,
+)
+from tpu_on_k8s_torch.parallel.reshard import (
+    ReshardAgent,
+    ReshardNotice,
+    ReshardPlan,
+    plan_reshard,
+    reshard_state,
+    restore_resharded,
+)
+
+__all__ = [
+    "AXIS_DATA",
+    "AXIS_FSDP",
+    "AXIS_MODEL",
+    "AXIS_SEQ",
+    "MeshConfig",
+    "create_mesh",
+    "batch_sharding",
+    "PartitionRule",
+    "ReshardAgent",
+    "ReshardNotice",
+    "ReshardPlan",
+    "named_sharding",
+    "plan_reshard",
+    "reshard_state",
+    "restore_resharded",
+    "shard_pytree",
+    "spec_for_path",
+    "specs_for_pytree",
+]

@@ -36,6 +36,19 @@ into pageable memory. One save is in
 flight at a time: a new ``save`` first waits for the previous one to end
 (its error is kept for the drain). On the CPU the snapshot is a clone.
 
+On a mesh (a state whose tensors are ``DTensor``s: a ``Trainer`` laid out
+by ``parallel/sharded.py``) every rank takes part in each save and restore.
+Each rank snapshots its own blocks (on the card into spare device buffers,
+as above) and its writer thread saves them with ``dcp.save`` over a gloo
+process group of the manager's own, made once on every rank at the first
+sharded save or restore, so the save's collectives never interleave with
+the step's NCCL ones. The coordinator (rank 0) renames the finished
+directory; a barrier on that group then closes the save on every rank.
+``restore(template, mesh=, rules=)`` lays the template out on another mesh
+first (``parallel/reshard.py``'s ``abstract_resharded``, validated before
+any read: ``ShardingValidationError``) and ``dcp.load`` reads each rank's
+blocks of the new layout from whatever layout wrote the files.
+
 This package cannot read the JAX package's orbax checkpoints (orbax and
 tensorstore are not imported here); carry a JAX state across with
 ``models/params.py``'s ``from_jax_train_state`` instead.
@@ -50,7 +63,9 @@ from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
+from torch.distributed.tensor import DTensor
 
 from tpu_on_k8s_torch import constants
 from tpu_on_k8s_torch.models.params import keeps_fp32
@@ -87,6 +102,32 @@ def _flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
+def _sharded(flat: Dict[str, torch.Tensor]) -> bool:
+    return any(isinstance(t, DTensor) for t in flat.values())
+
+
+def _held(flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``flat`` less the ``DTensor``s on a mesh this rank is not in (it
+    holds no block of them: their members write and read them)."""
+    return {k: t for k, t in flat.items()
+            if not (isinstance(t, DTensor)
+                    and t.device_mesh.get_coordinate() is None)}
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _like(t: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """``local`` in ``t``'s place: wrapped as a ``DTensor`` of ``t``'s
+    layout when ``t`` is one."""
+    if not isinstance(t, DTensor):
+        return local
+    return DTensor.from_local(local, t.device_mesh, t.placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
 def _unflatten_like(tree: dict, flat: Dict[str, torch.Tensor],
                     prefix: str = "") -> dict:
     return {k: (_unflatten_like(v, flat, f"{prefix}{k}/")
@@ -107,6 +148,7 @@ class CheckpointManager:
         self._buffers: Dict[str, torch.Tensor] = {}
         self._host: Dict[str, torch.Tensor] = {}
         self._copy_stream = None
+        self._group = None
 
     # ------------------------------------------------------------- discovery
     def generations(self) -> Sequence[int]:
@@ -143,24 +185,33 @@ class CheckpointManager:
         a thread (see the module docstring)."""
         self._join()
         flat = _flatten(state)
-        snapshot, host, copied = self._snapshot(flat)
+        group = self._process_group() if _sharded(flat) else None
+        snapshot, host, copied = self._snapshot(_held(flat))
         target = _gen_dir(self.root, generation) / str(step)
         self._thread = threading.Thread(
             target=self._write,
-            args=(snapshot, host, copied, target, generation),
+            args=(snapshot, host, copied, target, generation, group),
             name="checkpoint-writer", daemon=True)
         self._thread.start()
         if wait:
             self.wait_until_finished()
 
+    def _process_group(self):
+        """The manager's own gloo group over the world, made on first use
+        (on every rank at once: the first sharded save or restore)."""
+        if self._group is None:
+            self._group = dist.new_group(backend="gloo")
+        return self._group
+
     def _snapshot(self, flat: Dict[str, torch.Tensor]):
-        """Copies of ``flat``'s tensors taken at this point of the stream
-        order: (the copies, the pinned host buffers the writer copies the
-        card's into, the CUDA event after which the device copies hold
-        them; both None on the CPU)."""
-        on_card = [k for k, t in flat.items() if t.is_cuda]
-        snap = {k: t.detach().clone() for k, t in flat.items()
-                if not t.is_cuda}
+        """Copies of ``flat``'s tensors (a ``DTensor``'s local block, as a
+        ``DTensor`` of its layout) taken at this point of the stream order:
+        (the copies, the pinned host buffers the writer copies the card's
+        plain tensors into, the CUDA event after which the device copies
+        hold them; both None on the CPU)."""
+        on_card = [k for k, t in flat.items() if _local(t).is_cuda]
+        snap = {k: _like(t, _local(t).detach().clone())
+                for k, t in flat.items() if not _local(t).is_cuda}
         if not on_card:
             return snap, None, None
         device = flat[on_card[0]].device
@@ -168,30 +219,40 @@ class CheckpointManager:
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(device)
         for k in on_card:
-            t, buf = flat[k], self._buffers.get(k)
+            t, buf = _local(flat[k]), self._buffers.get(k)
             if (buf is None or buf.shape != t.shape or buf.dtype != t.dtype
                     or buf.device != t.device):
                 with torch.cuda.stream(self._copy_stream):
                     self._buffers[k] = torch.empty_like(
                         t, memory_format=torch.contiguous_format)
-                # pinned, allocated once: a copy into pageable memory holds
-                # up the compute stream's launches for its whole length
-                self._host[k] = torch.empty(t.shape, dtype=t.dtype,
-                                            pin_memory=True)
+                if not isinstance(flat[k], DTensor):
+                    # pinned, allocated once: a copy into pageable memory
+                    # holds up the compute stream's launches for its whole
+                    # length
+                    self._host[k] = torch.empty(t.shape, dtype=t.dtype,
+                                                pin_memory=True)
         self._copy_stream.wait_stream(compute)
         with torch.cuda.stream(self._copy_stream):
             torch._foreach_copy_([self._buffers[k] for k in on_card],
-                                 [flat[k] for k in on_card])
+                                 [_local(flat[k]) for k in on_card])
             copied = torch.cuda.Event()
             copied.record(self._copy_stream)
         compute.wait_event(copied)
-        snap.update((k, self._buffers[k]) for k in on_card)
-        return snap, {k: self._host[k] for k in on_card}, copied
+        snap.update((k, _like(flat[k], self._buffers[k])) for k in on_card)
+        # a DTensor's blocks go to the files from the device (dcp.save over
+        # the manager's group copies them); plain tensors through pinned
+        # host buffers
+        host = {k: self._host[k] for k in on_card
+                if not isinstance(flat[k], DTensor)}
+        return snap, host, copied
 
     def _write(self, snap: Dict[str, torch.Tensor],
                host: Optional[Dict[str, torch.Tensor]], copied, target: Path,
-               generation: int) -> None:
+               generation: int, group=None) -> None:
         try:
+            if group is not None:
+                self._write_sharded(snap, copied, target, generation, group)
+                return
             if copied is not None:
                 # device to pinned host memory on the copy stream, after
                 # the snapshot; an event wait, not a stream sync
@@ -221,6 +282,34 @@ class CheckpointManager:
         except Exception as e:  # noqa: BLE001 — raised at the drain
             self._errors.append(e)
 
+    def _write_sharded(self, snap: Dict[str, torch.Tensor], copied,
+                       target: Path, generation: int, group) -> None:
+        """Every rank's blocks through ``dcp.save`` over the manager's
+        group (on the card once the snapshot's event has fired); the
+        coordinator renames and prunes, then a barrier."""
+        coordinator = dist.get_rank(group) == 0
+        tmp = target.with_name(f".{target.name}.tmp-sharded")
+        if coordinator:
+            target.parent.mkdir(parents=True, exist_ok=True)
+            shutil.rmtree(tmp, ignore_errors=True)
+        dist.barrier(group=group)
+        if copied is not None:
+            # dcp.save copies the blocks off the card on streams of its
+            # own: this thread waits for the snapshot first (the training
+            # thread does not)
+            copied.synchronize()
+        dcp.save(snap, storage_writer=dcp.FileSystemWriter(
+            str(tmp), thread_count=WRITE_THREADS), process_group=group)
+        if coordinator:
+            if target.exists():
+                shutil.rmtree(target)
+            os.replace(tmp, target)
+            if self.max_to_keep:
+                for old in self.steps(generation)[:-self.max_to_keep]:
+                    shutil.rmtree(_gen_dir(self.root, generation) / str(old),
+                                  ignore_errors=True)
+        dist.barrier(group=group)
+
     def _join(self) -> None:
         if self._thread is not None:
             self._thread.join()
@@ -234,21 +323,31 @@ class CheckpointManager:
         in place and returned, or a dict of tensors, whose keys name what
         to read: a new dict of new tensors comes back). Defaults to the
         newest generation and step. Returns (state, generation, step).
-        Each tensor's shape and dtype must match the file's. ``mesh`` and
-        ``rules`` (restore onto another sharded layout) raise
-        ``NotImplementedError``: mesh sharding is a later slice."""
-        if mesh is not None or rules is not None:
-            raise NotImplementedError(
-                "restoring onto a mesh (mesh, rules) is not ported to "
-                "tpu_on_k8s_torch yet (mesh sharding is a later slice)")
+        Each tensor's shape and dtype must match the file's.
+
+        ``mesh`` and ``rules`` (together or not at all) restore onto that
+        layout, whatever layout wrote the files: the template is laid out
+        there first (validated before any read), and a new state comes
+        back (a ``TrainState`` on a fresh model laid out on the mesh, or a
+        dict of ``DTensor``s)."""
+        if (mesh is None) != (rules is None):
+            raise ValueError("pass mesh and rules together (or neither)")
+        if mesh is not None:
+            from tpu_on_k8s_torch.parallel.reshard import abstract_resharded
+            template = abstract_resharded(template, mesh, rules)
         generation, step, path = self._locate(generation, step)
         if isinstance(template, dict):
-            flat = {k: torch.empty_like(t)
+            flat = {k: (t if isinstance(t, DTensor) and mesh is not None
+                        else torch.empty_like(t))
                     for k, t in _flatten(template).items()}
         else:
             flat = _flatten(template)
         self._check(path, flat)
-        dcp.load(flat, checkpoint_id=str(path), no_dist=True)
+        if _sharded(flat):
+            dcp.load(_held(flat), checkpoint_id=str(path),
+                     process_group=self._process_group())
+        else:
+            dcp.load(flat, checkpoint_id=str(path), no_dist=True)
         if isinstance(template, dict):
             return _unflatten_like(template, flat), generation, step
         template.load_state_dict(flat)

@@ -34,6 +34,10 @@ def train_step_flops(trainer: Any, state: Any, tokens: torch.Tensor
     backward run once under the counter, on ``state``'s model, and their
     gradients are dropped: the state does not change."""
     trainer._check(state)
+    if trainer.mesh is not None:
+        raise NotImplementedError(
+            "train_step_flops counts an unsharded step; on a mesh FSDP2's "
+            "backward feeds its own gradient reduction")
     with FlopCounterMode(display=False) as counter:
         trainer._grads(tokens)
     return float(counter.get_total_flops()), trainer.train_step

@@ -28,10 +28,14 @@ its bookkeeping.
   progress the watchdog thread emits one structured ``stalled_step`` event
   (a log line, ``on_stall``, the ``TrainMetrics`` counter) per stall.
 
-Live resharding (``reshard_signal``) needs mesh sharding, which this port
-does not have yet: passing one raises ``NotImplementedError``; the
-``reshards`` and ``reshard_fallback`` fields of ``LoopResult`` stay 0 and
-False.
+* **A rescale is a transform, not a restart.** A ``reshard_signal``
+  returning a ``ReshardNotice`` (``parallel/reshard.py``) makes the loop
+  sync its window, drain pending saves, move the state onto the notice's
+  mesh and rules, swap in the rebuilt step, and go on counting global
+  steps (``LoopResult.reshards``). A transform that fails before any leaf
+  moves (validation, an injected ``ReshardAbort``) leaves the state
+  intact: the loop counts the fallback and leaves through the preemption
+  path (``reshard_fallback``, ``preempted``).
 """
 from __future__ import annotations
 
@@ -145,9 +149,17 @@ class TrainLoop:
         N steps; drained at exit and on preemption.
       preemption_signal: polled once per step; returning True triggers
         final save + drain + clean stop (``LoopResult.preempted``).
-      reshard_signal / reshard_metrics: live resharding onto another
-        mesh; not ported yet (mesh sharding is a later slice): a
-        ``reshard_signal`` raises ``NotImplementedError``.
+      reshard_signal: the live-rescale sibling of ``preemption_signal``
+        (``parallel/reshard.py``): polled once per step; a returned
+        ``ReshardNotice`` makes the loop drain its window and pending
+        saves, transform params and optimizer state onto the notice's
+        (mesh, rules), swap in the rebuilt step and continue counting
+        global steps: the run never exits. A transform that fails before
+        any leaf moves leaves the state intact; the loop counts the
+        fallback and exits through the preemption path, so the
+        orchestrator's checkpoint-restart rescale takes over.
+      reshard_metrics: optional ``ReshardMetrics``: reshards and fallback
+        counters, bytes moved, the transform's pause.
       on_metrics: ``(step, metrics_dict, step_seconds)`` per sync window.
       on_stall / stall_timeout: watchdog — with ``stall_timeout > 0`` a
         daemon thread emits one structured stall event per episode when no
@@ -202,10 +214,6 @@ class TrainLoop:
                  annotate_steps: Optional[bool] = None):
         if log_every < 1:
             raise ValueError(f"log_every must be >= 1, got {log_every}")
-        if reshard_signal is not None:
-            raise NotImplementedError(
-                "reshard_signal is not ported to tpu_on_k8s_torch yet (live "
-                "resharding needs mesh sharding, a later slice)")
         self.step_fn = step_fn
         self.state = state
         self.batches = batches
@@ -370,6 +378,18 @@ class TrainLoop:
                         is not None):
                     result.preempted = True
                     break
+                if self.reshard_signal is not None:
+                    notice = self.reshard_signal()
+                    if notice is not None:
+                        t_window = self._do_reshard(result, pending, notice,
+                                                    t_window)
+                        if result.reshard_fallback:
+                            # the transform failed before any leaf moved:
+                            # the state is the intact source; leave through
+                            # the preemption path (final save + drain) and
+                            # let the checkpoint-restart rescale take over
+                            result.preempted = True
+                            break
                 try:
                     batch = next(batches)
                 except StopIteration:
@@ -462,6 +482,83 @@ class TrainLoop:
             self.accountant.run_complete(result.seconds,
                                          preempted=result.preempted)
         return result
+
+    # ------------------------------------------------------------- reshard
+    def _do_reshard(self, result: LoopResult, pending: collections.deque,
+                    notice: Any, t_window: float) -> float:
+        """Apply one live-reshard notice: sync the in-flight window, drain
+        pending saves, transform the state and the step, continue. Returns
+        the new window clock (the pause is accounted as ``reshard`` waste,
+        never charged to the next window's step time). A failed transform
+        sets ``result.reshard_fallback``; the state is then the intact
+        source (every failure path fires before the first leaf moves)."""
+        if pending:
+            # pre-reshard steps are attributed at the pre-reshard cadence
+            t_window = self._sync_window(result, pending, result.steps,
+                                         t_window)
+        if self.checkpoint_manager is not None:
+            # a save of the old layout must finish before its tensors go
+            try:
+                self.checkpoint_manager.wait_until_finished()
+            except Exception as e:  # noqa: BLE001 — as the exit drain
+                result.checkpoint_failures += 1
+                kv(log, logging.WARNING, "checkpoint_drain_failed",
+                   error=f"{type(e).__name__}: {e}")
+                if self.metrics is not None:
+                    self.metrics.inc("checkpoint_failures")
+        span = self._tracer.start("train.reshard", step=result.steps,
+                                  **({"tag": notice.tag}
+                                     if getattr(notice, "tag", "") else {}))
+        t0 = time.perf_counter()
+        try:
+            new_state, new_step, plan = notice.apply(self.state, self.step_fn)
+        except Exception as e:  # noqa: BLE001 — fall back, never corrupt
+            result.reshard_fallback = True
+            if self.reshard_metrics is not None:
+                self.reshard_metrics.inc("reshard_fallbacks")
+            kv(log, logging.WARNING, "reshard_fallback", step=result.steps,
+               error=f"{type(e).__name__}: {e}")
+            span.set(error=f"{type(e).__name__}: {e}")
+            span.finish("aborted")
+            self._notify_reshard(notice, "on_failed")
+            return t_window
+        dt = time.perf_counter() - t0
+        self.state = new_state
+        self.step_fn = new_step
+        if getattr(notice, "generation", None) is not None:
+            # later checkpoints land in the rescale's generation
+            self.generation = notice.generation
+        result.reshards += 1
+        if self.accountant is not None:
+            # a live-reshard pause is neither a restart nor a preemption
+            self.accountant.pause("reshard", dt)
+        if self.reshard_metrics is not None:
+            self.reshard_metrics.inc("reshards")
+            self.reshard_metrics.inc("bytes_moved", plan.bytes_moved)
+            self.reshard_metrics.set_gauge("transform_seconds", dt)
+        span.set(bytes_moved=plan.bytes_moved, leaves_moved=plan.n_moved,
+                 seconds=round(dt, 6))
+        span.finish()
+        kv(log, logging.INFO, "reshard", step=result.steps,
+           plan=plan.describe(), seconds=round(dt, 3))
+        self._notify_reshard(notice, "on_applied")
+        self._touch()
+        return time.perf_counter()
+
+    def _notify_reshard(self, notice: Any, hook: str) -> None:
+        """Fire a notice's ack (``on_applied`` / ``on_failed``): a
+        control-plane write whose failure must not kill a run whose
+        transform already reached its outcome; warned and counted."""
+        cb = getattr(notice, hook, None)
+        if cb is None:
+            return
+        try:
+            cb()
+        except Exception as e:  # noqa: BLE001 — the run outlives its ack
+            if self.reshard_metrics is not None:
+                self.reshard_metrics.inc("reshard_ack_failures")
+            kv(log, logging.WARNING, "reshard_ack_failed", hook=hook,
+               error=f"{type(e).__name__}: {e}")
 
     # ------------------------------------------------------------- windows
     def _sync_window(self, result: LoopResult, pending: collections.deque,

@@ -21,6 +21,14 @@ Moment dtypes: ``mu_dtype`` alone is ``optax.adamw(mu_dtype=…)``: this
 step's fp32 mu drives the update and is stored cast. With ``nu_dtype`` both
 moments are cast first and the cast values drive the update, as
 ``_scale_by_adam_lp`` does. Parameters are updated in place.
+
+On a mesh (``parallel/sharded.py``) the parameters, gradients and moments
+are ``DTensor``s, each moment laid out like its parameter. The update is
+element-wise, so it runs on each rank's local blocks, in the same order of
+operations as off a mesh. The clip's norm is that of the full gradient:
+each rank sums the squares of the blocks it owns (a block replicated over
+a mesh axis counts once, at coordinate 0 of that axis), and all-reduces
+over the mesh's axes add them.
 """
 from __future__ import annotations
 
@@ -29,6 +37,8 @@ from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 Schedule = Callable[[int], float]
 
@@ -84,6 +94,28 @@ class ClipAdamW(torch.optim.Optimizer):
         self.nu_dtype = nu_dtype
         #: optimizer steps taken (optax's ``count``)
         self.count = 0
+        #: the mesh the parameters are laid out on (``Trainer`` sets it)
+        self.mesh = None
+        self._owned: Optional[list] = None
+
+    def hyperparameters(self) -> dict:
+        """The keyword arguments that rebuild this optimizer's arithmetic
+        over other parameters (``ClipAdamW(params, **them)``)."""
+        group = self.param_groups[0]
+        return dict(schedule=self.schedule, b1=group["b1"], b2=group["b2"],
+                    eps=group["eps"], weight_decay=group["weight_decay"],
+                    max_grad_norm=self.max_grad_norm,
+                    mu_dtype=self.mu_dtype, nu_dtype=self.nu_dtype)
+
+    def rebind(self, params: Iterable[torch.Tensor]) -> None:
+        """Point a fresh optimizer (no step taken, no moments made) at other
+        parameters: the ones a model has after ``shard_model`` replaced
+        them."""
+        if self.count or self.state:
+            raise ValueError("the optimizer has state already: lay the "
+                             "model out on its mesh before it steps")
+        self.param_groups[0]["params"] = list(params)
+        self._owned = None
 
     def _params(self):
         return [p for group in self.param_groups for p in group["params"]]
@@ -110,8 +142,7 @@ class ClipAdamW(torch.optim.Optimizer):
         if missing:
             raise ValueError(f"parameters {missing} have no gradient")
         # optax.global_norm: sqrt of the sum over leaves of each leaf's sum
-        norm = torch.sqrt(sum(torch.sum(p.grad.float().square())
-                              for p in params))
+        norm = torch.sqrt(self._square_sum(params))
         lr = self.schedule(self.count)
         self.count += 1
         for group in self.param_groups:
@@ -119,10 +150,25 @@ class ClipAdamW(torch.optim.Optimizer):
                 self._update(p, group, norm, lr)
         return norm
 
+    def _square_sum(self, params) -> torch.Tensor:
+        """Σ over the parameters of each gradient's sum of squares: off a
+        mesh in one sum; on one, the blocks this rank owns, all-reduced."""
+        if self.mesh is None:
+            return sum(torch.sum(p.grad.float().square()) for p in params)
+        if self._owned is None:
+            self._owned = [_owns_block(p, self.mesh) for p in params]
+        total = sum(torch.sum(_local(p.grad).float().square()) if own
+                    else torch.zeros((), device=_local(p.grad).device)
+                    for p, own in zip(params, self._owned))
+        for i in range(self.mesh.ndim):
+            if self.mesh.size(i) > 1:     # the sum over each axis in turn
+                dist.all_reduce(total, group=self.mesh.get_group(i))
+        return total
+
     def _update(self, p: torch.Tensor, group: dict, norm: torch.Tensor,
                 lr: float) -> None:
         b1, b2, eps = group["b1"], group["b2"], group["eps"]
-        g = p.grad
+        g = _local(p.grad)
         g = torch.where(norm < self.max_grad_norm, g,
                         (g / norm.to(g.dtype)) * self.max_grad_norm)
         if not self.state[p]:
@@ -134,22 +180,53 @@ class ClipAdamW(torch.optim.Optimizer):
         bc2 = float(np.float32(1) - np.float32(b2) ** count)
         if self.nu_dtype is None:
             # optax.scale_by_adam: update from this step's mu and nu
-            mu = (1 - b1) * g + b1 * state["mu"].to(g.dtype)
-            nu = (1 - b2) * g.square() + b2 * state["nu"]
+            mu = (1 - b1) * g + b1 * _local(state["mu"]).to(g.dtype)
+            nu = (1 - b2) * g.square() + b2 * _local(state["nu"])
             update = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
-            state["mu"] = mu.to(state["mu"].dtype)
-            state["nu"] = nu
+            _store(state, "mu", mu.to(state["mu"].dtype))
+            _store(state, "nu", nu)
         else:
             # _scale_by_adam_lp: accumulate in fp32, store, use the stored
-            mu = (b1 * state["mu"].to(f32) + (1 - b1) * g.to(f32)).to(
-                self.mu_dtype or g.dtype)
-            nu = (b2 * state["nu"].to(f32) + (1 - b2) * g.to(f32).square()
-                  ).to(self.nu_dtype)
+            mu = (b1 * _local(state["mu"]).to(f32)
+                  + (1 - b1) * g.to(f32)).to(self.mu_dtype or g.dtype)
+            nu = (b2 * _local(state["nu"]).to(f32)
+                  + (1 - b2) * g.to(f32).square()).to(self.nu_dtype)
             update = ((mu.to(f32) / bc1)
                       / (torch.sqrt(nu.to(f32) / bc2) + eps)).to(g.dtype)
-            state["mu"], state["nu"] = mu, nu
-        update = update + group["weight_decay"] * p
-        p.add_(-lr * update)
+            _store(state, "mu", mu)
+            _store(state, "nu", nu)
+        w = _local(p)
+        update = update + group["weight_decay"] * w
+        w.add_(-lr * update)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _store(state: dict, key: str, value: torch.Tensor) -> None:
+    """A moment's new value: into a ``DTensor`` moment's local block in
+    place (its layout stays its parameter's), else as the new tensor."""
+    if isinstance(state[key], DTensor):
+        state[key].to_local().copy_(value)
+    else:
+        state[key] = value
+
+
+def _owns_block(p: torch.Tensor, mesh) -> bool:
+    """Whether this rank's block of ``p`` counts toward the global norm: on
+    every axis of ``mesh`` that does not shard ``p``, the rank sits at
+    coordinate 0 (so each replicated block counts once)."""
+    sharded = set()
+    if isinstance(p, DTensor):
+        names = p.device_mesh.mesh_dim_names
+        sharded = {names[i] for i, pl in enumerate(p.placements)
+                   if isinstance(pl, Shard)}
+    coord = mesh.get_coordinate()
+    if coord is None:
+        return False
+    return all(c == 0 for c, name in zip(coord, mesh.mesh_dim_names)
+               if name not in sharded)
 
 
 def default_optimizer(params: Iterable[torch.Tensor],

@@ -8,8 +8,17 @@ the ``TrainState`` a checkpoint holds and ``Trainer.fit``, which drives
 ``train/loop.py``'s ``TrainLoop``. PyTorch idiom in place of JAX's: the
 model's parameters and the optimizer's state are the training state and are
 updated in place (a ``TrainState`` names them, with the step); a step is
-eager, not jitted. There is no mesh: the reference's sharding rules are for
-the slice that ports mesh sharding.
+eager, not jitted.
+
+On a mesh (``Trainer(model, rules=..., mesh=...)``, the reference's
+``Trainer(model, rules, mesh, opt)``) the model is laid out by
+``parallel/sharded.py`` (tensor parallelism over ``model``, FSDP2 over
+``data`` and ``fsdp``) and each rank takes the rows of its (data, fsdp)
+coordinate (``shard_batch``). The objective stays the reference's: a mean
+over the global batch's counted targets. Each rank sums its targets' loss
+and divides by the count all-reduced over (data, fsdp), and FSDP2 sums the
+gradients, so packed batches whose masks count different targets on
+different ranks, and microbatches likewise, weigh as one batch.
 """
 from __future__ import annotations
 
@@ -17,11 +26,26 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from tpu_on_k8s_torch.device import resolve_device
 from tpu_on_k8s_torch.models.params import load_model
-from tpu_on_k8s_torch.models.transformer import Transformer, TransformerConfig
+from tpu_on_k8s_torch.models.transformer import (
+    Transformer,
+    TransformerConfig,
+    _logits,
+)
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from tpu_on_k8s_torch.parallel.mesh import (
+    AXIS_DATA,
+    AXIS_FSDP,
+    batch_sharding,
+    local_rows,
+    mesh_shape,
+)
+from tpu_on_k8s_torch.parallel.sharded import layout_of, shard_model
 from tpu_on_k8s_torch.train.optimizer import ClipAdamW, default_optimizer
 
 
@@ -29,17 +53,21 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token CE, ``logsumexp − gold``. logits [B, L, V] fp32;
     targets [B, L] int; ``mask`` [B, L] (1 = count the token)."""
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
-    nll = lse - gold
+    nll = _nll(logits, targets)
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
 
 
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return lse - gold
+
+
 def _chunk_nll_sum(f: torch.Tensor, head: torch.Tensor, t: torch.Tensor,
                    m: torch.Tensor) -> torch.Tensor:
-    logits = torch.matmul(f.float(), head.float())
+    logits = _logits(f, head)
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, t.long()[:, None])[:, 0]
     return ((lse - gold) * m).sum()
@@ -54,6 +82,13 @@ def chunked_cross_entropy(feats: torch.Tensor, head: torch.Tensor,
     ``n_chunks`` chunks, each under a checkpoint: its logits are made,
     reduced to Σ(lse − gold)·mask and dropped, and remade in the backward
     pass. The chunk sums add in order, in fp32."""
+    total, denom = _chunked_nll_sum(feats, head, targets, n_chunks, mask)
+    return total / (denom if mask is None
+                    else torch.clamp(denom, min=1.0))
+
+
+def _chunked_nll_sum(feats, head, targets, n_chunks: int, mask):
+    """(Σ(lse − gold)·mask over the chunks, the count of targets)."""
     b, l, d = feats.shape
     n = b * l
     if n % n_chunks:
@@ -67,8 +102,7 @@ def chunked_cross_entropy(feats: torch.Tensor, head: torch.Tensor,
     for i in range(n_chunks):
         total = total + checkpoint(_chunk_nll_sum, fl[i], head, tg[i], mk[i],
                                    use_reentrant=False)
-    denom = n if mask is None else torch.clamp(mk.sum(), min=1.0)
-    return total / denom
+    return total, (n if mask is None else mk.sum())
 
 
 def packed_positions_and_segments(tokens: torch.Tensor, eos_id: int
@@ -205,6 +239,101 @@ def make_train_step(model: Transformer, optimizer: ClipAdamW,
     return step
 
 
+def _dp_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` summed over the mesh's data-parallel axes (data, fsdp), in
+    place: the ranks that hold other rows of the batch."""
+    sizes = mesh_shape(mesh)
+    for axis in (AXIS_DATA, AXIS_FSDP):
+        if sizes[axis] > 1:
+            dist.all_reduce(t, group=mesh.get_group(axis))
+    return t
+
+
+def _targets_and_count(tokens: torch.Tensor, segment_eos: Optional[int]):
+    """(positions, segments, loss mask, counted targets) of a [B, L+1]
+    batch, as ``_make_loss_fn`` makes them."""
+    inputs = tokens[:, :-1]
+    positions = segments = mask = None
+    if segment_eos is not None:
+        positions, segments = packed_positions_and_segments(inputs,
+                                                            segment_eos)
+        mask = packed_loss_mask(tokens, segment_eos)
+    count = (mask.sum() if mask is not None
+             else torch.full((), float(inputs.numel()),
+                             device=tokens.device))
+    return positions, segments, mask, count
+
+
+def _nll_sum(model: Transformer, tokens: torch.Tensor, loss_chunks: int,
+             positions, segments, mask) -> torch.Tensor:
+    """Σ over this rank's counted targets of the next-token loss."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if loss_chunks:
+        feats, head = model.features(inputs, positions, segments)
+        return _chunked_nll_sum(feats, head, targets, loss_chunks, mask)[0]
+    nll = _nll(model(inputs, positions, segments=segments), targets)
+    return (nll * mask).sum() if mask is not None else nll.sum()
+
+
+def make_sharded_train_step(model: Transformer, optimizer: ClipAdamW,
+                            mesh, loss_chunks: int = 0, grad_accum: int = 1,
+                            segment_eos: Optional[int] = None
+                            ) -> Callable[[torch.Tensor],
+                                          Dict[str, object]]:
+    """``make_train_step`` for a model laid out on ``mesh``: this rank's
+    rows ``[b, L+1]`` (``Trainer.shard_batch``) → the same metrics, of the
+    global batch. Each microbatch's loss is its rows' summed loss over the
+    global count of targets (all microbatches, all ranks), so the
+    backward passes, summed by FSDP2 over the ranks and added up over the
+    microbatches, give the gradient of the global mean."""
+    def step(tokens: torch.Tensor) -> Dict[str, object]:
+        count = optimizer.count
+        b = tokens.shape[0]
+        if b % grad_accum:
+            raise ValueError(
+                f"batch {b} not divisible by grad_accum {grad_accum}")
+        micro = tokens.reshape(grad_accum, b // grad_accum, -1)
+        prepared = [_targets_and_count(mb, segment_eos) for mb in micro]
+        total = _dp_sum(sum(c for *_, c in prepared), mesh)
+        denom = torch.clamp(total, min=1.0)
+        lsum = torch.zeros((), device=tokens.device)
+        for mb, (positions, segments, mask, _) in zip(micro, prepared):
+            part = _nll_sum(model, mb, loss_chunks, positions, segments,
+                            mask)
+            (part / denom).backward()
+            lsum = lsum + part.detach()
+        grad_norm = optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        loss = _dp_sum(lsum, mesh) / denom
+        return {"loss": loss, "grad_norm": grad_norm, "step": count}
+
+    return step
+
+
+def make_sharded_eval_step(model: Transformer, mesh, loss_chunks: int = 0,
+                           segment_eos: Optional[int] = None
+                           ) -> Callable[[torch.Tensor],
+                                         Dict[str, torch.Tensor]]:
+    """``make_eval_step`` on this rank's rows: the global mean's loss and
+    perplexity. FSDP2 keeps the root's gathered parameters after a forward
+    until the backward frees them; with no backward the step reshards
+    them itself, so the model's parameters are again the optimizer's."""
+    @torch.no_grad()
+    def step(tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
+        positions, segments, mask, count = _targets_and_count(tokens,
+                                                              segment_eos)
+        try:
+            part = _nll_sum(model, tokens, loss_chunks, positions, segments,
+                            mask)
+        finally:
+            model.reshard()
+        loss = (_dp_sum(part, mesh)
+                / torch.clamp(_dp_sum(count, mesh), min=1.0))
+        return {"loss": loss, "perplexity": torch.exp(loss)}
+
+    return step
+
+
 @dataclasses.dataclass
 class TrainState:
     """What a checkpoint holds of a run: the model (its parameters, the fp32
@@ -216,7 +345,9 @@ class TrainState:
     ``state_dict()`` is the flat mapping a checkpoint stores, of the live
     tensors (no copies): ``params/<name>``, ``mu/<name>``, ``nu/<name>``
     for every parameter, and ``count`` and ``step`` as 0-d int64 tensors
-    on the CPU. ``load_state_dict`` writes such a mapping back in place."""
+    on the CPU. ``load_state_dict`` writes such a mapping back in place. On
+    a mesh the tensors are ``DTensor``s (each moment laid out like its
+    parameter), and a full tensor loads into one as its local block."""
 
     model: Transformer
     optimizer: ClipAdamW
@@ -248,20 +379,49 @@ class TrainState:
                            f"{sorted(set(sd) - set(own))[:4]}")
         for key, t in own.items():
             if key not in ("count", "step") and t is not sd[key]:
-                t.copy_(sd[key])
+                _copy_into(t, sd[key])
         self.optimizer.count = int(sd["count"])
         self.step = int(sd["step"])
 
 
+def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``src`` into ``dst`` in place: a full tensor into a ``DTensor`` as its
+    block (every rank holds the full value; no communication), a
+    ``DTensor`` into one of the same layout block for block."""
+    if isinstance(dst, DTensor):
+        if not isinstance(src, DTensor):
+            src = distribute_tensor(src.to(dst.to_local().device),
+                                    dst.device_mesh, dst.placements,
+                                    src_data_rank=None)
+        dst.to_local().copy_(src.to_local())
+    else:
+        dst.copy_(src)
+
+
 def train_state_template(cfg: TransformerConfig,
                          device: str | torch.device = "cuda",
+                         mesh=None, rules=None,
                          **optimizer_kwargs) -> TrainState:
     """An empty ``TrainState`` to restore a checkpoint into, the counterpart
     of the reference's ``abstract_train_state``: a model of ``cfg`` whose
     parameters are allocated on ``device`` and not initialised, and a
     ``default_optimizer(**optimizer_kwargs)`` over them with both moments
-    allocated (in ``mu_dtype`` / ``nu_dtype``, as the run that saved used)."""
+    allocated (in ``mu_dtype`` / ``nu_dtype``, as the run that saved used).
+    With ``mesh`` and ``rules`` the model is laid out there first
+    (``parallel/sharded.py``, validated before anything is allocated): each
+    rank allocates its blocks only."""
+    if (mesh is None) != (rules is None):
+        raise ValueError("pass mesh and rules together (or neither)")
     dev = resolve_device(device)
+    if mesh is not None:
+        with torch.device("meta"):
+            model = Transformer(cfg)
+        shard_model(model, mesh, rules)
+        model.to_empty(device=dev)
+        optimizer = default_optimizer(model.parameters(), **optimizer_kwargs)
+        optimizer.mesh = mesh
+        optimizer.init_state()
+        return TrainState(model, optimizer)
     with torch.device("meta"):
         shapes = Transformer(cfg).state_dict()
     model = load_model(cfg, {name: torch.empty_like(t, device=dev)
@@ -281,19 +441,80 @@ class Trainer:
     ``eval_step(state, tokens)`` are the reference's forms, on the
     ``TrainState`` of this trainer's model and optimizer (``state()``, or
     a restored ``train_state_template`` that the trainer was built on).
-    ``fit`` drives ``TrainLoop``."""
+    ``fit`` drives ``TrainLoop``.
+
+    With ``mesh`` (``parallel/mesh.py``'s ``create_mesh``) and ``rules``
+    (default ``flagship_partition_rules()``) the model is laid out on the
+    mesh (``parallel/sharded.py``; a model laid out there already, e.g. a
+    restored template, is taken as it is) and a fresh optimizer is pointed
+    at its new parameters; the steps then take this rank's rows
+    (``shard_batch``). Without a mesh nothing changes."""
 
     def __init__(self, model: Transformer,
                  optimizer: Optional[ClipAdamW] = None,
                  loss_chunks: int = 0, grad_accum: int = 1,
-                 segment_eos: Optional[int] = None):
+                 segment_eos: Optional[int] = None, *,
+                 rules=None, mesh=None):
         self.model = model
-        self.optimizer = optimizer or default_optimizer(model.parameters())
-        self._grads = make_grads_fn(model, loss_chunks, grad_accum,
-                                    segment_eos)
-        self._step = make_train_step(model, self.optimizer, loss_chunks,
-                                     grad_accum, segment_eos)
-        self._eval = make_eval_step(model, loss_chunks, segment_eos)
+        self.mesh = mesh
+        if mesh is None:
+            if rules is not None:
+                raise ValueError("rules without a mesh lay nothing out")
+            self.rules = None
+            self.optimizer = optimizer or default_optimizer(
+                model.parameters())
+            self._grads = make_grads_fn(model, loss_chunks, grad_accum,
+                                        segment_eos)
+            self._step = make_train_step(model, self.optimizer, loss_chunks,
+                                         grad_accum, segment_eos)
+            self._eval = make_eval_step(model, loss_chunks, segment_eos)
+            return
+        from tpu_on_k8s_torch.models.transformer import (
+            flagship_partition_rules,
+        )
+        self.rules = tuple(flagship_partition_rules() if rules is None
+                           else rules)
+        layout = layout_of(model)
+        if layout is None:
+            shard_model(model, mesh, self.rules)
+        elif layout.mesh is not mesh or layout.rules != self.rules:
+            raise ValueError("the model is laid out on another mesh or "
+                             "under other rules")
+        if optimizer is None:
+            optimizer = default_optimizer(model.parameters())
+        elif layout is None:
+            optimizer.rebind(model.parameters())
+        optimizer.mesh = mesh
+        self.optimizer = optimizer
+        self._grads = None
+        self._step = make_sharded_train_step(model, optimizer, mesh,
+                                             loss_chunks, grad_accum,
+                                             segment_eos)
+        self._eval = make_sharded_eval_step(model, mesh, loss_chunks,
+                                            segment_eos)
+
+    def shard_batch(self, tokens: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a batch every rank holds in full (the
+        reference's ``shard_batch``): its (data, fsdp) coordinate's block;
+        an axis that does not divide the batch is shed (those ranks take
+        the same rows). Off a mesh, the batch itself."""
+        if self.mesh is None:
+            return tokens
+        return local_rows(tokens, batch_sharding(self.mesh, tokens.shape))
+
+    def data_shard(self) -> Tuple[int, int]:
+        """(shard id, shard count) for this rank's ``DataLoader``: its
+        (data, fsdp) coordinate among data × fsdp (ranks that differ only
+        on ``model`` read the same rows). (0, 1) off a mesh. A loader so
+        sharded yields this rank's rows, which the steps take as they are:
+        the reference's ``shard_local_batch`` has nothing left to do."""
+        if self.mesh is None:
+            return 0, 1
+        sizes = mesh_shape(self.mesh)
+        coord = dict(zip(self.mesh.mesh_dim_names,
+                         self.mesh.get_coordinate()))
+        return (coord[AXIS_DATA] * sizes[AXIS_FSDP] + coord[AXIS_FSDP],
+                sizes[AXIS_DATA] * sizes[AXIS_FSDP])
 
     def state(self) -> TrainState:
         """This trainer's ``TrainState``, at the optimizer's count."""

@@ -1,4 +1,4 @@
-"""Llama-2 training on one card (the port's training entry point).
+"""Llama-2 training on a mesh of cards (the port's training entry point).
 
 Counterpart of ``examples/train_llama.py``: random fp32 master weights from
 ``--seed``, bf16 compute, the reference's optimizer
@@ -24,9 +24,22 @@ the end (``train/checkpoint.py``), which ``generate`` and ``serve``
 restore with their own ``--checkpoint-dir``. ``--int8`` is the example's
 int8 recipe: int8-forward MLP matmuls with the fused gate+up weight
 (``mlp_int8``, ``mlp_fused_gateup``), an exact bf16 backward
-(``ops/int8_matmul.py``). There is no mesh: one process, one card. Ring and
-ulysses attention belong to a later slice and raise
-``NotImplementedError``.
+(``ops/int8_matmul.py``).
+
+As the example's ``bring_up``, it joins the job's world
+(``train/distributed.py``'s ``initialize``: torchrun's variables or the
+operator's; off-cluster a world of one rank in the process) and trains on
+``create_mesh(MeshConfig(data=1, fsdp=--fsdp, model=--model-axis,
+seq=--seq-axis))`` under ``flagship_partition_rules`` (FSDP2 and tensor
+parallelism, ``parallel/sharded.py``); rank 0 prints the mesh. ``--batch``
+is the global batch: each rank takes the rows of its (data, fsdp)
+coordinate. Four CPU ranks::
+
+    torchrun --nproc-per-node 4 -m tpu_on_k8s_torch.train_llama \\
+        --config tiny --device cpu --fsdp 2 --model-axis 2 --steps 3
+
+Ring and ulysses attention and a ``seq`` axis > 1 belong to a later slice
+(ROADMAP Queue 1 item 4) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,13 +50,17 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_on_k8s_torch.data.prefetch import device_prefetch
 from tpu_on_k8s_torch.device import resolve_device
 from tpu_on_k8s_torch.generate import CONFIGS
 from tpu_on_k8s_torch.models.params import init_params, load_model
+from tpu_on_k8s_torch.models.transformer import flagship_partition_rules
+from tpu_on_k8s_torch.parallel.mesh import MeshConfig, create_mesh, mesh_shape
 from tpu_on_k8s_torch.train import Trainer, default_optimizer
 from tpu_on_k8s_torch.train.checkpoint import CheckpointManager
+from tpu_on_k8s_torch.train.distributed import initialize, local_world
 
 
 class StepTimer:
@@ -51,10 +68,13 @@ class StepTimer:
     worker-0 logs (the reference's ``examples/common.py::StepTimer``), once
     a host-sync window, with the window's time a step."""
 
-    def __init__(self, tokens_per_step: int):
+    def __init__(self, tokens_per_step: int, enabled: bool = True):
         self.tokens_per_step = tokens_per_step
+        self.enabled = enabled
 
     def report(self, step: int, loss: float, seconds: float) -> None:
+        if not self.enabled:
+            return
         print(f"[elastic-metrics] epoch=0 batch={step} latency={seconds:.4f} "
               f"loss={loss:.4f} "
               f"tok_s={self.tokens_per_step / max(seconds, 1e-9):.1f}",
@@ -62,10 +82,11 @@ class StepTimer:
 
 
 def main(argv=None) -> float:
-    p = argparse.ArgumentParser(description="Llama-2 training on one card")
+    p = argparse.ArgumentParser(description="Llama-2 training on a mesh")
     p.add_argument("--config", default="tiny", choices=sorted(CONFIGS))
     p.add_argument("--seq-len", type=int, default=0, help="0 = model max")
-    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--batch", type=int, default=8,
+                   help="the global batch, split over data x fsdp")
     p.add_argument("--steps", type=int, default=50)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--remat", default="true")
@@ -96,13 +117,41 @@ def main(argv=None) -> float:
                    help="save the training state here at the end")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
+    p.add_argument("--fsdp", type=int, default=-1,
+                   help="fsdp axis size (-1 = all ranks)")
+    p.add_argument("--model-axis", type=int, default=1,
+                   help="tensor-parallel axis size")
+    p.add_argument("--seq-axis", type=int, default=1,
+                   help="sequence-parallel axis size (1: not ported)")
     args = p.parse_args(argv)
     if args.attn in ("ring", "ulysses"):
         raise NotImplementedError(
             f"--attn {args.attn} is not ported to tpu_on_k8s_torch yet "
-            f"(sequence parallelism over a mesh is a later slice)")
+            f"(sequence parallelism over a mesh is ROADMAP Queue 1 item 4)")
+    if args.seq_axis > 1:
+        raise NotImplementedError(
+            f"--seq-axis {args.seq_axis} is not ported to tpu_on_k8s_torch "
+            f"yet (sequence parallelism over a mesh is ROADMAP Queue 1 "
+            f"item 4)")
 
     dev = resolve_device(args.device)
+    ctx = initialize(device=dev)
+    made_world = local_world(dev)
+    try:
+        return _train(args, dev, ctx)
+    finally:
+        if made_world:
+            dist.destroy_process_group()
+
+
+def _train(args, dev: torch.device, ctx) -> float:
+    mesh = create_mesh(MeshConfig(data=1, fsdp=args.fsdp,
+                                  model=args.model_axis, seq=args.seq_axis),
+                       device=dev)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if rank == 0:
+        print(f"[{rank}/{world}] mesh={mesh_shape(mesh)} devices={world}",
+              flush=True)
     cfg = dataclasses.replace(CONFIGS[args.config](),
                               remat=args.remat.lower() == "true",
                               remat_policy=args.remat_policy,
@@ -119,19 +168,27 @@ def main(argv=None) -> float:
                             mu_dtype=moments, nu_dtype=moments)
     trainer = Trainer(model, opt, grad_accum=args.grad_accum,
                       segment_eos=(args.segment_eos
-                                   if args.segment_eos >= 0 else None))
+                                   if args.segment_eos >= 0 else None),
+                      rules=flagship_partition_rules(), mesh=mesh)
 
     loader = None
     if args.data:
         from tpu_on_k8s_torch.data import DataLoader, FixedRecordDataset
+        shard_id, n_shards = trainer.data_shard()
+        if args.batch % n_shards:
+            raise ValueError(f"--batch {args.batch} does not split over "
+                             f"{n_shards} data-parallel ranks")
+        # each rank reads its own disjoint shard of the records
         loader = DataLoader(FixedRecordDataset(args.data, (seq + 1,),
                                                np.int32),
-                            batch_size=args.batch, seed=args.seed)
+                            batch_size=args.batch // n_shards,
+                            shard_id=shard_id, num_shards=n_shards,
+                            seed=args.seed)
         source = loader
     else:
-        source = itertools.repeat(torch.randint(
+        source = itertools.repeat(trainer.shard_batch(torch.randint(
             0, cfg.vocab_size, (args.batch, seq + 1), generator=gen,
-            device=dev, dtype=torch.int32))
+            device=dev, dtype=torch.int32)))
 
     # the held-out sample loads ONCE, up front: a bad eval file fails here,
     # before any training compute, and evaluations reuse the same batches
@@ -141,7 +198,8 @@ def main(argv=None) -> float:
         eld = DataLoader(FixedRecordDataset(args.eval_data, (seq + 1,),
                                             np.int32),
                          batch_size=args.batch, seed=0, shuffle=False)
-        eval_batches = [torch.from_numpy(next(eld).copy()).to(dev)
+        eval_batches = [trainer.shard_batch(torch.from_numpy(
+                            next(eld).copy()).to(dev))
                         for _ in range(min(eld.batches_per_epoch, 8))]
         eld.close()
 
@@ -151,10 +209,11 @@ def main(argv=None) -> float:
         total = sum(float(trainer.eval_step(state, eb)["loss"])
                     for eb in eval_batches)
         mean = total / len(eval_batches)
-        print(f"[eval] step={state.step} loss={mean:.4f} "
-              f"perplexity={math.exp(mean):.1f}", flush=True)
+        if rank == 0:
+            print(f"[eval] step={state.step} loss={mean:.4f} "
+                  f"perplexity={math.exp(mean):.1f}", flush=True)
 
-    timer = StepTimer(args.batch * seq)
+    timer = StepTimer(args.batch * seq, enabled=rank == 0)
     batches = device_prefetch(source, dev)
     loss, done, evaluated_at = float("nan"), 0, -1
     chunk = args.eval_every if eval_batches and args.eval_every else (
@@ -183,8 +242,9 @@ def main(argv=None) -> float:
         manager = CheckpointManager(args.checkpoint_dir)
         manager.save(state, step=state.step)
         manager.close()
-        print(f"saved step {state.step} to {args.checkpoint_dir}",
-              flush=True)
+        if rank == 0:
+            print(f"saved step {state.step} to {args.checkpoint_dir}",
+                  flush=True)
     return loss
 
 

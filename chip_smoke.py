@@ -228,7 +228,28 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    bytes_moved printed, 0 at world 1), the losses equal (a)'s; (b) every
    int8 flag on the mesh, 113 ``int8_matmul`` a step, phase 4b's losses
    bit for bit; (e) ``python -m tpu_on_k8s_torch.train_llama --config
-   tiny --fsdp -1 --steps 3`` in a subprocess.
+   tiny --fsdp -1 --steps 3`` in a subprocess;
+9. mesh-sharded serving at ``llama2_7b`` width (after phase 8, on phase 3's
+   weights made again from their seed) on a world of one rank made by
+   ``initialize`` over NCCL, with the serving command channel's gloo group
+   (the group destroyed after): (a) phase 3e's first MESH_REQUESTS
+   requests through ``ContinuousBatchingEngine(mesh=serving_mesh(model=
+   1))`` and through the meshless engine, dense and paged: the mesh
+   engine's models hold the parameter tensors themselves, its tokens equal
+   the meshless engine's token for token, with the same flash launches
+   (one a layer per fresh prefill); decode step ms and peak memory of both
+   beside 3e (a)'s step, and the host time of a command header, an
+   all-reduce and the logits' all-gather on the one-rank groups; (b) phase
+   3b's W8A16 tree (the quantize kernel
+   again) on the mesh and meshless, tokens equal; (c) a mid-decode export
+   from the mesh engine adopted meshless and one the other way: both
+   verify, each checksum equal to the other engine's export at the same
+   step, the continuations equal the uninterrupted tokens; (d)
+   ``shard_report()`` and the ``ShardMetrics`` gauges: per-chip bytes equal
+   the totals, the mesh-axis gauges all 1; (e) a two-replica
+   ``ServingFleet`` rolled from meshless to mesh replicas under load with
+   zero loss (a world-1 mesh has no non-trivial axis, so the mesh
+   signature and ``reshard_rollouts`` stay as they were).
 
 Then one JSON line for the kernels, the card's line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -355,6 +376,9 @@ PLANE_QUEUE_BOUND = 16
 PLANE_TENANTS = {"tenant-0": 1.0, "tenant-1": 2.0, "tenant-2": 4.0}
 PLANE_CRASH_STEP, PLANE_DEADLINE_S = 5, 0.6
 PLANE_PREFIX_BUCKET, PLANE_SWAP_BATCH = 16, 4
+# Phase 9, mesh-sharded serving at world 1: the requests of phase 3e it
+# serves, the one it moves mid-decode in (c) and the steps before the move
+MESH_REQUESTS, MESH_MOVED, MESH_MOVE_STEPS = 8, 2, 6
 # Phase 3d: the serving plane's CLI forms, each at its defaults
 PLANE_CLI_FLAGS = (("--gateway",), ("--replicas", "2", "--rollout-demo"))
 
@@ -4008,6 +4032,248 @@ def mesh_phase(tcfg, i8cfg, mods, gpu, dev, tokens, p4: dict,
     print(f"[time] phase 8 {time.perf_counter() - t_phase:.1f} s")
     return paths
 
+def mesh_serve_phase(cfg, mods, gpu, dev, plain_a, serving, convert,
+                     metrics_mod) -> dict:
+    """Phase 9: mesh-sharded serving at llama2_7b width on a world of one
+    rank (module docstring). Returns the launches of its mesh paths:
+    ``mesh_serve`` (the mesh engines of (a)) and ``mesh_serve_w8`` (the
+    W8A16 tree's quantization and its mesh engine, (b))."""
+    import torch.distributed as dist
+
+    from tpu_on_k8s_torch.models.params import init_params
+    from tpu_on_k8s_torch.parallel.mesh import serving_mesh
+    from tpu_on_k8s_torch.parallel.serving import shutdown_mesh_workers
+    from tpu_on_k8s_torch.serve import (
+        FleetRolloutPolicy,
+        ProbeConfig,
+        Rejected,
+        ServingFleet,
+    )
+    from tpu_on_k8s_torch.train.distributed import initialize
+
+    t_phase = time.perf_counter()
+    paths = {}
+    # phase 3's weights, made again from its seed (the tensors phase 3
+    # made were freed before training)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    ctx = initialize({"RANK": "0", "WORLD_SIZE": "1",
+                      "MASTER_ADDR": "localhost",
+                      "MASTER_PORT": str(free_port())}, device=dev)
+    mesh = serving_mesh(model=1, device=dev)
+    print(f"[mesh-serve] world {dist.get_world_size()} (backend "
+          f"{dist.get_backend()}, coordinator {ctx.coordinator_address}): "
+          f"serving_mesh(model=1) on {mesh.device_type}")
+    reqs = engine_traffic(cfg.vocab_size)[0][:MESH_REQUESTS]
+    shape = dict(n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+                 clock=time.monotonic, device=dev)
+
+    def serve(key, tree_cfg, tree, **kw):
+        gc.collect()        # drive_engine's wrapper ties an engine in a cycle
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine = serving.ContinuousBatchingEngine(tree_cfg, tree, **shape,
+                                                  **kw)
+        shared = all(t.data_ptr() == tree[n].data_ptr()
+                     for model in (engine._prefill_model,
+                                   engine._step_model)
+                     for n, t in model.named_parameters())
+        run = drive_engine(engine, reqs, None, set(), mods, time.monotonic)
+        run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        run["shared"] = shared
+        run["pages_in_use"] = engine.pages_in_use
+        print(f"[mesh-serve] {key}: {len(run['tokens'])} requests, "
+              f"{run['emitted']} tokens; flash_fwd {run['launched']['flash_fwd']}"
+              f" = {tree_cfg.n_layers} x {run['fresh']} fresh prefills; "
+              f"models hold the given tensors: {shared}; {gpu}: decode step "
+              f"at occupancy {ENGINE_SLOTS} median "
+              f"{statistics.median(run['step_ms']):.2f} ms over "
+              f"{len(run['step_ms'])} steps; peak {run['peak_gb']:.2f} GB")
+        return engine, run
+
+    # ---- (a) dense and paged, meshless and on the mesh --------------------
+    runs = {}
+    paged = {"kv_pages": ENGINE_PAGES, "page_tokens": 128}
+    for kind, kw in (("dense", {}), ("paged", paged)):
+        runs[kind] = serve(f"(a) {kind}, meshless", cfg, params, **kw)[1]
+        reset_counts(mods)
+        engine, run = serve(f"(a) {kind}, mesh", cfg, params, mesh=mesh,
+                            **kw)
+        paths[f"mesh_serve_{kind}"] = read_counts(mods)
+        runs[f"mesh_{kind}"] = run
+        same = all(np.array_equal(run["tokens"][j], runs[kind]["tokens"][j])
+                   for j in run["tokens"])
+        print(f"[mesh-serve] (a) {kind}: mesh tokens equal the meshless "
+              f"engine's token for token: {same}; flash launches "
+              f"{run['launched']['flash_fwd']} vs "
+              f"{runs[kind]['launched']['flash_fwd']}")
+        if (not same or not run["shared"] or run["pages_in_use"]
+                or run["launched"] != runs[kind]["launched"]):
+            fail(f"the world-1 mesh engine ({kind}) differs from the "
+                 f"meshless one")
+        del engine
+    # the host cost of the mesh's calls in a decode step: a decode
+    # command's header, a pickled command (with a program that does
+    # nothing), an all-reduce of a row-parallel product and the logits'
+    # all-gather, each on its one-rank group
+    engine = serving.ContinuousBatchingEngine(cfg, params, mesh=mesh,
+                                              **shape)
+    tp = engine._prefill_model.head_tp
+    x = torch.zeros(ENGINE_SLOTS, 1, cfg.d_model, dtype=cfg.dtype,
+                    device=dev)
+    y = torch.zeros(ENGINE_SLOTS, 1, cfg.vocab_size, device=dev)
+    step_args = dict(toks=np.zeros(ENGINE_SLOTS, np.int32),
+                     pos=np.zeros(ENGINE_SLOTS, np.int32), tables=None)
+    host_us = {}
+    for name, call in (("header", lambda: engine._channel.send(
+                            engine._eid, "decode", step_args)),
+                       ("pickled", lambda: engine._run("reset", handles=[])),
+                       ("all_reduce", lambda: tp.reduce(x)),
+                       ("all_gather", lambda: tp.gather(y))):
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            call()
+        host_us[name] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+    n_reduce = 2 * cfg.n_layers + 1       # wo and w_down a layer, the embed
+    print(f"[mesh-serve] (a) {gpu}: host us a call on the one-rank groups: "
+          f"decode command header {host_us['header']:.1f}, pickled command "
+          f"{host_us['pickled']:.1f}, all_reduce "
+          f"[{ENGINE_SLOTS}, 1, {cfg.d_model}] {host_us['all_reduce']:.1f}, "
+          f"all_gather [{ENGINE_SLOTS}, 1, {cfg.vocab_size}] fp32 "
+          f"{host_us['all_gather']:.1f}; a decode step's {n_reduce} "
+          f"all-reduces, one gather and one header: "
+          f"{(n_reduce * host_us['all_reduce'] + host_us['all_gather'] + host_us['header']) / 1e3:.2f} ms")
+    del engine, tp, x, y
+    dense_3e = all(np.array_equal(runs["dense"]["tokens"][j],
+                                  plain_a["tokens"][j]) for j in range(
+                                      MESH_REQUESTS))
+    print(f"[mesh-serve] (a) {gpu}: decode step median "
+          f"{statistics.median(runs['mesh_dense']['step_ms']):.2f} ms on the "
+          f"mesh, {statistics.median(runs['dense']['step_ms']):.2f} ms "
+          f"meshless, 3e (a) {statistics.median(plain_a['step_ms']):.2f} ms; "
+          f"peak {runs['mesh_dense']['peak_gb']:.2f} GB on the mesh, "
+          f"{runs['dense']['peak_gb']:.2f} GB meshless; the meshless tokens "
+          f"equal 3e (a)'s first {MESH_REQUESTS}: {dense_3e}")
+
+    # ---- (b) the W8A16 tree ----------------------------------------------
+    reset_counts(mods)
+    wcfg, wparams = convert.quantize_serving_tree(cfg, params,
+                                                  stochastic=True,
+                                                  seed=W8_SEED)
+    engine, w8_mesh = serve("(b) W8A16, mesh", wcfg, wparams, mesh=mesh)
+    paths["mesh_serve_w8"] = read_counts(mods)
+    del engine
+    w8_plain = serve("(b) W8A16, meshless", wcfg, wparams)[1]
+    same = all(np.array_equal(w8_mesh["tokens"][j], w8_plain["tokens"][j])
+               for j in w8_mesh["tokens"])
+    print(f"[mesh-serve] (b) W8A16: {paths['mesh_serve_w8']['quantize_int8']}"
+          f" quantize launches; mesh tokens equal the meshless engine's: "
+          f"{same}")
+    if not same or not paths["mesh_serve_w8"]["quantize_int8"]:
+        fail("the world-1 mesh W8A16 engine differs from the meshless one")
+    del wparams
+
+    # ---- (c) exports both ways ---------------------------------------------
+    prompt, n = reqs[MESH_MOVED]
+    moved = {}
+    for src_mesh, key in ((mesh, "mesh -> meshless"),
+                          (None, "meshless -> mesh")):
+        # fresh engines (zeros past every cached position), the request on
+        # both to the same step: the source exports it, the destination's
+        # own copy runs on uninterrupted
+        src = serving.ContinuousBatchingEngine(cfg, params, mesh=src_mesh,
+                                               **shape)
+        dst = serving.ContinuousBatchingEngine(
+            cfg, params, mesh=None if src_mesh is not None else mesh,
+            **shape)
+        r, twin = src.submit(prompt, n), dst.submit(prompt, n)
+        for _ in range(MESH_MOVE_STEPS):
+            src.step()
+            dst.step()
+        t0 = time.perf_counter()
+        h = src.export_kv(r)
+        export_ms = (time.perf_counter() - t0) * 1e3
+        src.abort(r)
+        same_bytes = h.checksum == dst.export_kv(twin).checksum
+        want = dst.run()[twin]
+        r2 = dst.submit_kv(h, n)
+        got = dst.run()[r2]
+        moved[key] = (h.verify(), same_bytes, np.array_equal(got, want))
+        print(f"[mesh-serve] (c) {key}: {h.nbytes} B at position {h.pos}, "
+              f"layout {h.layout.mesh_axes}, export {export_ms:.2f} ms; "
+              f"verifies {moved[key][0]}; checksum equal to the other "
+              f"engine's export at the same step {same_bytes}; continuation "
+              f"equal to the uninterrupted copy's {moved[key][2]}")
+        del src, dst
+    if not all(all(v) for v in moved.values()):
+        fail(f"a world-1 export across the mesh boundary failed: {moved}")
+
+    # ---- (d) the shard surface ---------------------------------------------
+    sm = metrics_mod.ShardMetrics()
+    report_eng = serving.ContinuousBatchingEngine(cfg, params, mesh=mesh,
+                                                  shard_metrics=sm, **shape)
+    rep = report_eng.shard_report()
+    axes = {k[1]: v for k, v in sm.gauges.items()
+            if k[0] == "mesh_axis_size"}
+    print(f"[mesh-serve] (d) shard_report {rep}; ShardMetrics mesh axes "
+          f"{axes}, param_bytes_per_chip "
+          f"{sm.gauges[('param_bytes_per_chip', '')]:.0f}")
+    if (rep["param_bytes_per_chip"] != rep["param_bytes_total"]
+            or rep["kv_bytes_per_chip"] != rep["kv_bytes_total"]
+            or rep["n_chips"] != 1 or set(axes.values()) != {1}
+            or sm.gauges[("kv_bytes_per_chip", "")]
+            != rep["kv_bytes_total"]):
+        fail(f"the world-1 shard surface is not the identity: {rep}")
+    del report_eng
+
+    # ---- (e) a fleet rolled onto mesh replicas ---------------------------
+    def plain_factory(name):
+        return serving.ContinuousBatchingEngine(cfg, params, **shape)
+
+    def mesh_factory(name):
+        return serving.ContinuousBatchingEngine(cfg, params, mesh=mesh,
+                                                **shape)
+
+    fleet = ServingFleet(plain_factory, 2,
+                         probe=ProbeConfig(slow_start_steps=1),
+                         shard_metrics=metrics_mod.ShardMetrics())
+    rids = []
+    for _ in range(3):
+        fleet.step()
+    for j, (prompt, n) in enumerate(reqs):
+        if j == MESH_REQUESTS // 2:
+            fleet.start_rollout(mesh_factory, "v1-mesh", FleetRolloutPolicy(
+                max_surge=1, drain_timeout_s=None))
+        r = fleet.submit(prompt, n)
+        if isinstance(r, Rejected):
+            fail(f"the fleet rejected request {j}: {r}")
+        rids.append(r)
+        fleet.step()
+    out = fleet.run()
+    states = {out[r].state.value for r in rids if r in out}
+    live = [rep.engine.mesh is not None for rep in fleet.replicas.values()
+            if rep.engine is not None]
+    print(f"[mesh-serve] (e) fleet: rollout {fleet.rollout_phase.value}, "
+          f"{len([r for r in rids if r in out])}/{len(rids)} requests "
+          f"{states}; live replicas on the mesh {live}; reshard_rollouts "
+          f"{fleet.stats['reshard_rollouts']} (the world-1 mesh signature "
+          f"is {{}} on both sides)")
+    if (fleet.rollout_phase.value != "complete" or states != {"done"}
+            or len(out) != len(rids) or not live or not all(live)):
+        fail("the fleet's roll onto mesh replicas lost requests")
+    del fleet, out
+    gc.collect()
+    shutdown_mesh_workers()
+    dist.destroy_process_group()
+    del params
+    torch.cuda.empty_cache()
+    print(f"[time] phase 9 {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -4832,6 +5098,10 @@ def run(tmp: Path) -> int:
 
     # ---- 8. mesh-sharded training at llama2_1b --------------------------
     by_path.update(mesh_phase(tcfg, i8cfg, mods, gpu, dev, tokens, p4, tmp))
+
+    # ---- 9. mesh-sharded serving at llama2_7b width -----------------------
+    by_path.update(mesh_serve_phase(cfg, mods, gpu, dev, plain_a, serving,
+                                    convert, metrics_mod))
     print(f"[time] script {time.perf_counter() - t_start:.0f} s")
 
     gemm = (TRAIN_BATCH * TRAIN_SEQ, 11264, 2048)

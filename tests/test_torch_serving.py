@@ -204,7 +204,8 @@ def test_multislot_attention_matches_reference(setup):
     cache = KVCache(torch.from_numpy(k0.copy()), torch.from_numpy(v0.copy()))
     with torch.no_grad():
         got = attn(torch.from_numpy(x),
-                   Positions(ids, cos[:, :, None], sin[:, :, None], False),
+                   Positions(ids, cos[:, :, None], sin[:, :, None], False,
+                             multislot=True),
                    cache)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FP32_ATOL,
                                rtol=0)
@@ -256,7 +257,8 @@ def test_multislot_verify_chunk_matches_reference(setup):
     cache = KVCache(torch.from_numpy(k0.copy()), torch.from_numpy(v0.copy()))
     with torch.no_grad():
         got = attn(torch.from_numpy(x),
-                   Positions(ids, cos[:, :, None], sin[:, :, None], False),
+                   Positions(ids, cos[:, :, None], sin[:, :, None], False,
+                             multislot=True),
                    cache)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FP32_ATOL,
                                rtol=0)
@@ -715,11 +717,15 @@ def test_bad_constructor_arguments(setup, kw, match):
         setup.engine(**kw)
 
 
-@pytest.mark.parametrize("arg", [a for a, _ in serving._NOT_PORTED])
+@pytest.mark.parametrize("arg", ["mesh", "rules", "shard_metrics"])
 def test_unported_arguments_raise(setup, arg):
-    with pytest.raises(NotImplementedError,
-                       match=f"{arg}=.*later slice"):
-        setup.engine(**{arg: object()})
+    """The mesh arguments are ported (``tests/test_torch_serve_shard.py``
+    serves on meshes); a value the engine cannot serve with raises before
+    anything is built, naming the argument: a mesh that is not a
+    ``DeviceMesh``, rules without a mesh (never quietly meshless), a
+    metrics object that is not a ``ShardMetrics``."""
+    with pytest.raises((TypeError, ValueError), match=f"{arg}="):
+        setup.engine(**{arg: object() if arg != "rules" else []})
 
 
 def test_int8_weights_engine_serves(setup):
@@ -998,8 +1004,15 @@ def test_cli_metrics_port_serves_the_engine_metrics(capsys, monkeypatch):
 @pytest.mark.parametrize("flag", [
     ["--model-axis", "2"], ["--fsdp", "2"]])
 def test_cli_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="later slice"):
+    """The mesh flags are ported; without a launcher's world the process is
+    a world of one rank, which a two-rank mesh does not fit (the
+    reference's JAX raises alike on one device). The world it made is gone
+    after the error."""
+    import torch.distributed as dist
+    with pytest.raises(ValueError, match="onto 1 devices|needs 2 devices "
+                                         "but 1"):
         cli.main(["--device", "cpu", *flag])
+    assert not dist.is_initialized()
 
 
 def test_cli_checkpoint_dir_serves_the_saved_parameters(tmp_path, capsys):

@@ -454,6 +454,63 @@ class ModelPoolMetrics(_MetricsBase):
             g.set(value)
 
 
+class ShardMetrics(_MetricsBase):
+    """Mesh-sharded serving observability (the engine's ``shard_metrics=``
+    and ``serve/fleet.py``'s reshard rollouts), the reference's
+    ``ShardMetrics``: the replica's mesh shape as axis-labelled
+    ``mesh_axis_size`` gauges, the per-chip parameter and KV byte gauges,
+    the ``export_gather_bytes`` counter (what every KV or prefix export
+    gathered to the driver's host) and the ``reshard_rollouts`` counter.
+    Mirror dicts key by ``(name, label)`` like ``ModelPoolMetrics``."""
+
+    _AXIS_GAUGES = ("mesh_axis_size",)
+    _PLAIN_GAUGES = ("param_bytes_per_chip", "kv_bytes_per_chip")
+    _PLAIN_COUNTERS = ("reshard_rollouts", "export_gather_bytes")
+    #: the serving mesh's standard axes: every ``set_mesh_axes`` writes at
+    #: least these, so a reshard that drops an axis overwrites its gauge
+    #: (absent = 1) instead of leaving it stale
+    MESH_AXES = ("data", "model", "expert")
+
+    def __init__(self, registry=None) -> None:
+        super().__init__()
+        self.counters: Dict[Tuple[str, str], int] = defaultdict(int)
+        self.gauges: Dict[Tuple[str, str], float] = {}
+        if _prom is not None:
+            self.registry = registry or _prom.CollectorRegistry()
+        ns = "tpu_on_k8s_shard"
+        for name in self._AXIS_GAUGES:
+            self._declare(name, f"{ns}_{name}", "gauge", f"Shard {name}",
+                          labels=("axis",))
+        for name in self._PLAIN_GAUGES:
+            self._declare(name, f"{ns}_{name}", "gauge", f"Shard {name}")
+        for name in self._PLAIN_COUNTERS:
+            self._declare(name, f"{ns}_{name}", "counter", f"Shard {name}")
+
+    def inc(self, name: str, n: int = 1, label: str = "") -> None:
+        with self._lock:
+            self.counters[(name, label)] += n
+        c = self._prom_counters.get(name)
+        if c is not None:
+            c.inc(n)
+
+    def set_gauge(self, name: str, value: float, label: str = "") -> None:
+        with self._lock:
+            self.gauges[(name, label)] = value
+        g = self._prom_gauges.get(name)
+        if g is not None:
+            (g.labels(label) if name in self._AXIS_GAUGES else g).set(value)
+
+    def set_mesh_axes(self, mesh_axes) -> None:
+        """Publish a replica's mesh shape: every standard axis (absent = 1)
+        and any other non-trivial one. The engine and the fleet both call
+        it; the last writer wins (``engine.shard_report()`` is the
+        per-replica view)."""
+        axes = {a: 1 for a in self.MESH_AXES}
+        axes.update(mesh_axes or {})
+        for axis, size in sorted(axes.items()):
+            self.set_gauge("mesh_axis_size", size, label=axis)
+
+
 def count_detached_callback(metrics, message: str) -> None:
     """The count-and-warn tail of every streaming-callback isolation site
     (the engine's ``on_token`` and ``on_retire``): the caller has already

@@ -75,22 +75,41 @@ and their fp32 scales: each of them is a set of leaves in the reference's
 flatten order, ``k, k_scale, v, v_scale`` (``k, v`` unquantized), and
 every copy, gather, scatter, export and checksum runs over all of them.
 
-Not in this slice (each constructor argument raises ``NotImplementedError``
-naming its slice): mesh serving, with its metrics object.
+**Mesh serving** (``mesh=``, a ``parallel/mesh.serving_mesh``; ``rules=``,
+default ``serving_partition_rules``): ``_ShardPlan`` holds the layout. The
+two models are laid out by ``parallel/sharded.shard_serving_model``
+(tensor parallelism over ``model``: a rank runs its H/model query heads and
+Hkv/model kv heads, the logits are gathered whole before any token is
+chosen; FSDP2 over ``fsdp``), every KV cache holds the rank's kv heads, and
+the dense slot pool puts slots ``[r·S/d, (r+1)·S/d)`` on ``data`` rank r
+(the paged pool, and each prefill, run whole on every ``data`` rank). The
+engine is the **driver**: all its host state stays here, and every device
+program runs through ``_run``, which first sends the command to the mesh's
+workers (``parallel/serving.py``), then runs the same program on this
+rank's shard. Exports gather every rank's heads to the driver (the full
+logical cache, so a payload's checksum is the meshless engine's); imports
+put a payload's heads onto each rank, whatever mesh it came from. Sampling
+draws on the driver from the gathered logits. ``shard_metrics=``
+(``ShardMetrics``) takes the mesh shape and per-chip bytes at construction
+and the export-gather bytes; ``shard_report()`` is the same surface as a
+dict. ``close()`` releases the workers' shards.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import hashlib
 import itertools
 import threading
 import time
 import warnings
+import weakref
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_on_k8s_torch import chaos
 from tpu_on_k8s_torch.device import resolve_device
@@ -109,7 +128,27 @@ from tpu_on_k8s_torch.models.decode import (
 )
 from tpu_on_k8s_torch.models.layouts import CacheLayout
 from tpu_on_k8s_torch.models.sampling import SamplingParams, sample
-from tpu_on_k8s_torch.models.transformer import KVCache, TransformerConfig
+from tpu_on_k8s_torch.models.transformer import (
+    KVCache,
+    Transformer,
+    TransformerConfig,
+    serving_partition_rules,
+)
+from tpu_on_k8s_torch.parallel.mesh import (
+    AXIS_DATA,
+    AXIS_FSDP,
+    AXIS_MODEL,
+    mesh_axes,
+    mesh_shape,
+)
+from tpu_on_k8s_torch.parallel.serving import (
+    CommandChannel,
+    broadcast_from_origin,
+    mesh_key,
+    payload_specs,
+    share_payload,
+)
+from tpu_on_k8s_torch.parallel.sharded import shard_serving_model
 
 
 class EngineOverloadedError(RuntimeError):
@@ -132,15 +171,6 @@ class EngineCrashError(RuntimeError):
     engine itself back, with its models, prefixes and cache pool; whoever
     owns the requests re-admits them. A supervisor translating a real worker
     death raises it so that recovery stays typed."""
-
-
-#: Constructor arguments of the reference's engine that this port does not
-#: cover yet: (argument, the later slice that brings it).
-_NOT_PORTED = (
-    ("mesh", "mesh serving (_ShardPlan)"),
-    ("rules", "mesh serving (_ShardPlan)"),
-    ("shard_metrics", "mesh serving (ShardMetrics)"),
-)
 
 
 @dataclasses.dataclass
@@ -221,7 +251,8 @@ class _Prefilling:
     everyone else; the reserved slot admits it when the last chunk lands."""
 
     req: _Pending
-    pre_cache: _KV                # [.., 1, max_len, ..] accumulating KV
+    pre_cache: int                # handle of the [.., 1, max_len, ..]
+                                  # cache accumulating its KV
     base: int                     # prefix length (0 without a prefix_id)
     done: int                     # positions cached so far (incl. prefix)
     total: int                    # base + prompt length
@@ -310,20 +341,33 @@ def _resized(shapes: CacheShapes, batch: int, length: int) -> CacheShapes:
             for name, (shape, dtype) in shapes.items()}
 
 
-def _prefixed_cache(model, device: torch.device,
-                    prefix: Optional[Tuple[_KV, int]],
-                    length: Optional[int] = None) -> _KV:
-    """A zeroed batch-1 cache of ``length`` positions (default: ``model``'s
-    ``max_seq_len``) holding a registered prefix's positions ``[0, plen)``
-    when ``prefix`` (its KV and length) is given; the prefix's own cache
-    stays untouched."""
-    with torch.inference_mode():
-        kv = _zeros(cache_shapes(model, 1, length), device)
-        if prefix is not None:
-            pkv, plen = prefix
-            for dst, src in kv.pairs(pkv):
-                dst[:, :, :plen] = src[:, :, :plen]
+def _prefixed_cache(shapes: CacheShapes, device: torch.device,
+                    prefix: Optional[Tuple[_KV, int]]) -> _KV:
+    """A zeroed batch-1 cache of ``shapes`` holding a registered prefix's
+    positions ``[0, plen)`` when ``prefix`` (its KV and length) is given;
+    the prefix's own cache stays untouched."""
+    kv = _zeros(shapes, device)
+    if prefix is not None:
+        pkv, plen = prefix
+        for dst, src in kv.pairs(pkv):
+            dst[:, :, :plen] = src[:, :, :plen]
     return kv
+
+
+def multislot_twin(model: Transformer) -> Transformer:
+    """The ``decode_multislot`` model over ``model``'s very modules and
+    parameters: a shallow copy with its own config and registries (the
+    blocks read the mode from each call's ``Positions``). An engine's (and
+    a draft's) step model is the twin of its prefill model, so a layout
+    applied to one (the blocks' FSDP2 state included) is the other's."""
+    twin = copy.copy(model)
+    # its own registries over the same objects: a leaf set on one model
+    # alone stays its own
+    twin._parameters = dict(model._parameters)
+    twin._buffers = dict(model._buffers)
+    twin._modules = dict(model._modules)
+    twin.cfg = dataclasses.replace(model.cfg, decode_multislot=True)
+    return twin
 
 
 def _signature(params: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
@@ -334,12 +378,6 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     """A contiguous host copy: never a view of an engine's cache, also
     when the engine runs on the CPU."""
     return t.to("cpu", copy=True).contiguous()
-
-
-def _host_payload(kv: _KV, pb: int) -> Dict[str, torch.Tensor]:
-    """Positions ``[0, pb)`` of a batch-1 cache as a host payload, every
-    leaf in the cache's order."""
-    return {name: _to_host(t[:, :, :pb]) for name, t in kv.leaves.items()}
 
 
 def _cache_nbytes(cache: Dict[str, torch.Tensor]) -> int:
@@ -415,6 +453,146 @@ class KVHandoff:
         return _cache_nbytes(self.cache)
 
 
+class _ShardPlan:
+    """The engine's layout over a serving mesh (``parallel/mesh.
+    serving_mesh``, or any mesh ``check_mesh`` accepts), as the
+    reference's ``_ShardPlan``: ``mesh``, its non-trivial ``axes``,
+    ``n_chips``, ``n_model``, ``n_data`` and ``n_fsdp``. Every parameter is
+    validated against ``rules`` at construction (``partition.
+    named_sharding``: a bad rule is a ``ShardingValidationError`` naming
+    the path, the dim and the axis, before anything moves), then the
+    mesh (``sharded.check_mesh``) and the layout the rules give the
+    serving model (``sharded.serving_cuts``).
+
+    ``put_params`` lays a model out (``sharded.shard_serving_model``).
+    Caches: every leaf ``[L, B, len, Hkv, ...]`` (k, v, and an int8
+    cache's scales) holds this rank's kv heads ``[r·Hkv/m, (r+1)·Hkv/m)``
+    on dim 3 (``kv_shapes``; ``put_cache`` cuts a whole payload's, the
+    reshard-on-import half, and ``gather_to_driver`` joins them again for
+    an export). The dense slot pool puts slot rows ``[r·S/d, (r+1)·S/d)``
+    on ``data`` rank r where d divides S (``rows_on_data``); a decode step
+    runs the rank's own rows and ``gather_rows`` joins their tokens. The
+    paged pool, prefill caches and registered prefixes are whole over
+    ``data`` (and over ``fsdp``). ``bytes_per_chip`` counts what a rank
+    really holds."""
+
+    def __init__(self, mesh, params: Dict[str, torch.Tensor], rules,
+                 cfg: TransformerConfig, n_slots: int, paged: bool) -> None:
+        from tpu_on_k8s_torch.parallel.partition import named_sharding
+        from tpu_on_k8s_torch.parallel.sharded import check_mesh, serving_cuts
+        self.mesh = mesh
+        self.rules = tuple(rules)
+        named_sharding(params, mesh, self.rules)
+        check_mesh(cfg, mesh)
+        sizes = mesh_shape(mesh)
+        serving_cuts(params, self.rules, sizes[AXIS_MODEL])
+        self.axes = mesh_axes(mesh)
+        self.n_chips = int(mesh.size())
+        self.n_model = sizes[AXIS_MODEL]
+        self.n_data = sizes[AXIS_DATA]
+        self.n_fsdp = sizes[AXIS_FSDP]
+        coord = mesh.get_coordinate()
+        if coord is None:
+            raise ValueError("this rank is not in the engine's mesh")
+        names = list(mesh.mesh_dim_names)
+        self.is_origin = not any(coord)
+        self.model_rank = coord[names.index(AXIS_MODEL)]
+        self.data_rank = coord[names.index(AXIS_DATA)]
+        self.fsdp_rank = coord[names.index(AXIS_FSDP)]
+        self.model_group = mesh[AXIS_MODEL].get_group()
+        self.data_group = mesh[AXIS_DATA].get_group()
+        self.rows_on_data = (not paged and self.n_data > 1
+                             and n_slots % self.n_data == 0)
+        n = n_slots // self.n_data if self.rows_on_data else n_slots
+        start = self.data_rank * n if self.rows_on_data else 0
+        #: this rank's slot rows of the pool
+        self.rows = slice(start, start + n)
+
+    def kv_shapes(self, shapes: CacheShapes) -> CacheShapes:
+        """``shapes`` with dim 3 (kv heads) cut to this rank's."""
+        return {name: ((*shape[:3], shape[3] // self.n_model, *shape[4:]),
+                       dtype)
+                for name, (shape, dtype) in shapes.items()}
+
+    def put_params(self, model: Transformer) -> None:
+        """Lay a model holding the whole tree out on the mesh, in place
+        (``sharded.shard_serving_model``)."""
+        shard_serving_model(model, self.mesh, self.rules)
+
+    def put_cache(self, leaves: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """This rank's kv heads of whole cache leaves (views): the
+        reshard-on-import half, whatever mesh the leaves came from."""
+        out = {}
+        for name, t in leaves.items():
+            n = t.shape[3] // self.n_model
+            out[name] = t.narrow(3, self.model_rank * n, n)
+        return out
+
+    def owner(self, slot: int) -> int:
+        """The ``data`` rank that holds slot ``slot``."""
+        if not self.rows_on_data:
+            return self.data_rank
+        return slot // (self.rows.stop - self.rows.start)
+
+    def local_row(self, slot: int) -> Optional[int]:
+        """Slot ``slot``'s row in this rank's pool; None if another
+        ``data`` rank holds it."""
+        if self.rows.start <= slot < self.rows.stop:
+            return slot - self.rows.start
+        return None
+
+    def _gather(self, t: torch.Tensor, group, size: int, dim: int
+                ) -> torch.Tensor:
+        t = t.contiguous()
+        parts = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                 for _ in range(size)]
+        dist.all_gather([p.view(-1).view(torch.uint8) for p in parts],
+                        t.view(-1).view(torch.uint8), group=group)
+        return torch.cat(parts, dim=dim)
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every slot's values from each ``data`` rank's rows (dim 0)."""
+        if not self.rows_on_data:
+            return t
+        return self._gather(t, self.data_group, self.n_data, 0)
+
+    def gather_to_driver(self, leaves: Optional[Dict[str, torch.Tensor]],
+                         full: CacheShapes, src_data: int,
+                         device: torch.device
+                         ) -> Optional[Dict[str, torch.Tensor]]:
+        """The whole heads of cache leaves that the ``data`` rank
+        ``src_data`` holds (``leaves``: this rank's heads there; ignored
+        elsewhere), on the driver; None on every other rank. The ranks of
+        that data row (fsdp 0) gather over ``model``; if the row is not
+        the driver's, its first rank sends the result along ``data``."""
+        if self.fsdp_rank != 0:
+            return None
+        out = None
+        if self.data_rank == src_data:
+            out = {name: self._gather(t, self.model_group, self.n_model, 3)
+                   for name, t in leaves.items()}
+        if src_data != 0 and self.model_rank == 0:
+            if out is None:
+                out = {name: torch.empty(shape, dtype=dtype, device=device)
+                       for name, (shape, dtype) in full.items()}
+            src = dist.get_global_rank(self.data_group, src_data)
+            for t in out.values():
+                dist.broadcast(t.view(-1).view(torch.uint8), src=src,
+                               group=self.data_group)
+        return out if self.is_origin else None
+
+    @staticmethod
+    def bytes_per_chip(tensors) -> int:
+        """Bytes of ``tensors`` as this rank holds them (an FSDP2 leaf's
+        local shard)."""
+        total = 0
+        for t in tensors:
+            local = t.to_local() if hasattr(t, "to_local") else t
+            total += local.numel() * local.element_size()
+        return total
+
+
 class _DraftRunner:
     """The draft half of batched speculative decoding: a second (small)
     model kept in step with the engine's slot pool.
@@ -453,9 +631,7 @@ class _DraftRunner:
         else:
             base = cfg
         self._prefill_model = decode_model(base, params, device)
-        self._step_model = decode_model(
-            dataclasses.replace(base, decode_multislot=True),
-            self._prefill_model.state_dict(), device)
+        self._step_model = multislot_twin(self._prefill_model)
         self.device = device
         self.k = k
         self.max_len = max_len
@@ -527,8 +703,10 @@ class _DraftRunner:
             if entry is None:
                 return False
             plen = entry[1]
-            kv = _prefixed_cache(self._prefill_model, self.device, entry,
-                                 self.max_len)
+            with torch.inference_mode():
+                kv = _prefixed_cache(
+                    cache_shapes(self._prefill_model, 1, self.max_len),
+                    self.device, entry)
         else:
             kv = self._fresh_cache(int(prompt.size))
         self._prefill(kv, prompt, plen)
@@ -559,6 +737,11 @@ class ContinuousBatchingEngine:
     takes their counts; ``on_spec_round(request_ids, draft_s, verify_s,
     proposed, accepted)`` fires after each round, and detaches with a
     warning if it raises.
+
+    ``mesh`` (a ``DeviceMesh`` over the ``torch.distributed`` world, whose
+    first rank is this one; every other rank runs ``parallel/serving.
+    serve_mesh_worker``) serves on the mesh under ``rules`` (module
+    docstring); ``shard_metrics`` (``ShardMetrics``) takes its gauges.
     """
 
     #: batched-admission prefill sizes (the largest that fits is used); a
@@ -581,7 +764,8 @@ class ContinuousBatchingEngine:
                  on_spec_round: Optional[Callable[..., Any]] = None,
                  shard_metrics=None,
                  kv_pages: int = 0, page_tokens: Optional[int] = None,
-                 kv_metrics=None, device: str | torch.device = "cuda"):
+                 kv_metrics=None, device: str | torch.device = "cuda",
+                 _worker: bool = False):
         if step_horizon < 1:
             raise ValueError(f"step_horizon must be >= 1, got {step_horizon}")
         if queue_cap is not None and queue_cap < 1:
@@ -589,13 +773,22 @@ class ContinuousBatchingEngine:
         if prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0, got "
                              f"{prefill_chunk}")
-        given = dict(mesh=mesh, rules=rules, shard_metrics=shard_metrics)
-        for arg, later in _NOT_PORTED:
-            if given[arg] is not None:
-                raise NotImplementedError(
-                    f"{arg}= is not ported to tpu_on_k8s_torch yet ({later} "
-                    f"is a later slice)")
+        from torch.distributed.device_mesh import DeviceMesh
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh= takes a torch DeviceMesh "
+                            f"(parallel.mesh.serving_mesh), got "
+                            f"{type(mesh).__name__}")
+        if rules is not None and mesh is None:
+            raise ValueError("rules= lays the parameters out on a mesh: "
+                             "pass mesh= too")
+        if shard_metrics is not None and not hasattr(shard_metrics,
+                                                     "set_mesh_axes"):
+            raise TypeError(f"shard_metrics= takes a metrics.ShardMetrics, "
+                            f"got {type(shard_metrics).__name__}")
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot serve on "
+                             f"{self.device}")
         if int8_weights:
             cfg = dataclasses.replace(cfg, serve_int8_weights=True)
             params = quantize_weights_for_serving(params)
@@ -677,6 +870,56 @@ class ContinuousBatchingEngine:
                     f"spec_k + 1 ({spec_k + 1}) exceeds page_tokens {page}: "
                     f"a verify chunk's appends must span at most two pages "
                     f"(the scatter-back window)")
+        plan: Optional[_ShardPlan] = None
+        self._channel: Optional[CommandChannel] = None
+        if mesh is not None:
+            if rules is None:
+                rules = serving_partition_rules(int8=cfg.serve_int8_weights)
+            plan = _ShardPlan(mesh, params, rules, cfg, n_slots,
+                              bool(kv_pages))
+            if not _worker:
+                if not plan.is_origin:
+                    raise ValueError("the engine's driver is the first "
+                                     "rank of its mesh")
+                self._channel = CommandChannel.of_world(dist.get_rank())
+        self.mesh = mesh
+        self._plan = plan
+        self._worker = _worker
+        #: {axis: size} of the mesh's non-trivial axes: {} without a mesh
+        #: (the replica's sharding signature, the layout every export
+        #: carries)
+        self.mesh_axes: Dict[str, int] = dict(plan.axes) if plan else {}
+        self.n_chips = plan.n_chips if plan else 1
+        #: the grad mode of every device program: FSDP2's gather does not
+        #: run under inference mode
+        self._mode = (torch.no_grad if plan is not None and plan.n_fsdp > 1
+                      else torch.inference_mode)
+        #: every device cache but the pool, by handle: prefill outputs,
+        #: private (suffix and chunked) caches, registered prefixes; the
+        #: workers keep theirs under the same handles
+        self._kvs: Dict[int, _KV] = {}
+        self._handles = itertools.count()
+        #: the tree as the caller handed it (prepared): what
+        #: ``replace_params`` checks a new tree against and hands back, and
+        #: the total the shard report counts. On a mesh the models hold
+        #: this rank's blocks of a device copy, and the copy's whole
+        #: tensors are not kept
+        self._params = None if _worker else params
+        if self._channel is not None:
+            self._eid = self._channel.new_engine_id()
+            specs = payload_specs(params)
+            self._channel.send(self._eid, "init", dict(
+                mesh=mesh_key(mesh),
+                spec=dict(cfg=cfg, n_slots=n_slots, max_len=max_len,
+                          temperature=temperature, top_k=top_k, top_p=top_p,
+                          step_horizon=step_horizon,
+                          prefill_chunk=prefill_chunk, kv_pages=kv_pages,
+                          page_tokens=page_tokens, rules=rules)), specs)
+            params = share_payload(mesh, self.device, params, specs)
+            # a garbage-collected engine releases its workers' shards at
+            # the next command; ``close()`` does it at once
+            self._finalizer = weakref.finalize(
+                self, self._channel.defer, "close", self._eid)
         self._load(params)
 
         self._cache: Optional[_KV] = None
@@ -688,12 +931,10 @@ class ContinuousBatchingEngine:
             # P = kv_pages + 1: page id 0 is the null page.
             self._pool = _PagePool(kv_pages)
             self._pool_cache = _zeros(
-                _resized(cache_shapes(self._step_model, 1), kv_pages + 1,
-                         page), self.device)
+                _resized(self._shapes(1), kv_pages + 1, page), self.device)
             #: the [L, n_slots, max_len, ...] view every paged step gathers
             #: the block tables into and decodes over
-            self._view = _zeros(cache_shapes(self._step_model, n_slots),
-                                self.device)
+            self._view = _zeros(self._shapes(n_slots), self.device)
             #: per-slot block tables, host-resident (int32 page ids; 0 =
             #: unallocated → the null page). One small copy per step.
             self._tables = np.zeros((n_slots, self._nb_total), np.int32)
@@ -702,9 +943,10 @@ class ContinuousBatchingEngine:
                 kv_metrics.set_gauge("pages_total", self._pool.capacity)
                 kv_metrics.set_gauge("pages_in_use", 0)
         else:
-            self._cache = _zeros(cache_shapes(self._step_model, n_slots),
-                                 self.device)
-        self._prefixes: Dict[int, Tuple[_KV, int]] = {}  # id → (KV, length)
+            rows = (plan.rows.stop - plan.rows.start) if plan else n_slots
+            self._cache = _zeros(self._shapes(rows), self.device)
+        #: prefix id → (cache handle, length)
+        self._prefixes: Dict[int, Tuple[int, int]] = {}
         self._next_prefix_id = 0
         self.spec_metrics = spec_metrics
         self._on_spec_round = on_spec_round
@@ -712,9 +954,6 @@ class ContinuousBatchingEngine:
         self._draft: Optional[_DraftRunner] = (
             _DraftRunner(draft_cfg, draft_params, n_slots, max_len, spec_k,
                          self.device) if speculative else None)
-        #: {axis: size} of the mesh's non-trivial axes: {} on one device
-        #: (the layout block every export carries)
-        self.mesh_axes: Dict[str, int] = {}
         #: True on paged engines: ``import_prefix`` takes ``base_pid`` and
         #: ``base_len`` and aliases the ancestor's full pages; the fleet
         #: prefix store takes its page-aliasing promote on this
@@ -772,19 +1011,101 @@ class ContinuousBatchingEngine:
         #: raising callback detaches with a warning.
         self._on_retire = on_retire
         self._lock = threading.Lock()
+        #: optional ``metrics.ShardMetrics``: the mesh-shape gauges and the
+        #: per-chip bytes here, the export-gather bytes at every export
+        self.shard_metrics = shard_metrics
+        if shard_metrics is not None:
+            shard_metrics.set_mesh_axes(self.mesh_axes)
+            shard_metrics.set_gauge("param_bytes_per_chip",
+                                    self.param_bytes_per_chip)
+            shard_metrics.set_gauge("kv_bytes_per_chip",
+                                    self.kv_bytes_per_chip)
+
+    @classmethod
+    def _as_mesh_worker(cls, spec: dict, mesh, specs
+                        ) -> "ContinuousBatchingEngine":
+        """A worker's half of a driver's engine (``parallel/serving.
+        serve_mesh_worker``): the parameters come from the driver."""
+        dev = torch.device(mesh.device_type)
+        params = share_payload(mesh, dev, None, specs)
+        return cls(params=params, mesh=mesh, device=dev, _worker=True,
+                   **spec)
+
+    # ---- the device programs and their command channel ---------------------
+    def _run(self, op: str, payload: Optional[Dict[str, torch.Tensor]] = None,
+             **args):
+        """Run device program ``_p_<op>`` with host ``args`` (and a tensor
+        ``payload``): on a mesh the command goes to the workers first and
+        the payload to every rank, then the program runs on this rank's
+        shard. Host validation happens before this call, so a worker never
+        waits in a collective the driver will not enter."""
+        if self.mesh is not None and self._channel is None \
+                and not self._worker:
+            raise RuntimeError("the engine is closed")
+        if self._channel is not None:
+            specs = payload_specs(payload) if payload is not None else ()
+            self._channel.send(self._eid, op, args, specs)
+            if payload is not None:
+                payload = share_payload(self.mesh, self.device, payload,
+                                        specs)
+        if payload is not None:
+            args["payload"] = payload
+        return getattr(self, f"_p_{op}")(**args)
+
+    def _serve_command(self, op: str, args: dict, specs) -> None:
+        """A worker runs the driver's command on its shard."""
+        if specs:
+            args = dict(args, payload=share_payload(
+                self.mesh, self.device, None, specs))
+        getattr(self, f"_p_{op}")(**args)
+
+    def _new_handle(self) -> int:
+        return next(self._handles)
+
+    def _free(self, h: Optional[int]) -> None:
+        """Drop a device cache here and, at the next command, on the
+        workers."""
+        if h is None:
+            return
+        self._kvs.pop(h, None)
+        if self._channel is not None:
+            self._channel.defer("free", self._eid, h)
+
+    def _shapes(self, batch: int, length: Optional[int] = None
+                ) -> CacheShapes:
+        """The leaves of a cache as this rank holds them: its kv heads."""
+        shapes = cache_shapes(self._prefill_model, batch, length)
+        return self._plan.kv_shapes(shapes) if self._plan else shapes
+
+    def close(self) -> None:
+        """Release the workers' shards of this engine (on a mesh; nothing
+        to do without one). The engine serves no more afterwards."""
+        if self._channel is not None:
+            self._finalizer.detach()
+            self._channel.send(self._eid, "close")
+            self._channel = None
 
     def _load(self, params: Dict[str, torch.Tensor]) -> None:
         """Build the two models around ``params``: the cursor-mode prefill
-        model and the multislot step model, sharing every weight (tensors
-        already in ``cfg.dtype`` on the device are used as they are)."""
+        model (tensors already in ``cfg.dtype`` on the device are used as
+        they are) and its multislot twin, laid out on the mesh when there
+        is one."""
         base = (dataclasses.replace(self.cfg, max_seq_len=self.max_len)
                 if self.cfg.pos_emb == "rope" else self.cfg)
         prefill = decode_model(base, params, self.device)
-        self._step_model = decode_model(
-            dataclasses.replace(base, decode_multislot=True),
-            prefill.state_dict(), self.device)
+        if self._plan is not None:
+            self._plan.put_params(prefill)
+            if self._plan.n_fsdp > 1:
+                # each block is its own FSDP2 root, which keeps its
+                # gathered weights after a forward: give them back
+                for block in prefill.blocks:
+                    block.register_forward_hook(
+                        lambda m, args, out: m.reshard())
+        self._step_model = multislot_twin(prefill)
         self._prefill_model = prefill
-        self._params = params
+
+    def _p_load(self, payload: Dict[str, torch.Tensor]) -> None:
+        self._load(payload)
 
     # ---- model hot-swap ----------------------------------------------------
     def replace_params(self, params: Dict[str, torch.Tensor], *,
@@ -821,7 +1142,9 @@ class ContinuousBatchingEngine:
                     "replace_params on a busy engine: drain in-flight "
                     "requests first")
             prev = self._params
-            self._load(params)
+            # on a mesh: the new tree to every rank, laid out as the old
+            self._run("load", payload=params)
+            self._params = params
             self.stats["param_swaps"] += 1
         return prev
 
@@ -903,10 +1226,14 @@ class ContinuousBatchingEngine:
         dev = self.device
         js = torch.from_numpy(blocks).to(dev)
         pids = torch.from_numpy(pids_by_block[blocks].astype(np.int64)).to(dev)
-        with torch.inference_mode():
+        with self._mode():
             for pool, pre in self._pool_cache.pairs(kv):
                 pool[:, pids] = pre[:, row].unflatten(
                     1, (-1, self.page_tokens))[:, js]
+
+    def _p_write_pages(self, h: int, row: int,
+                       pids_by_block: np.ndarray) -> None:
+        self._write_pages(self._kvs[h], row, pids_by_block)
 
     def _table_row(self, pages: Optional[List[int]]) -> np.ndarray:
         row = np.zeros(self._nb_total, np.int32)
@@ -914,7 +1241,7 @@ class ContinuousBatchingEngine:
             row[:len(pages)] = pages
         return row
 
-    def _tail_args(self, pos: np.ndarray, span: int
+    def _tail_args(self, tables: np.ndarray, pos: np.ndarray, span: int
                    ) -> Tuple[np.ndarray, np.ndarray]:
         """Per-slot tail blocks and their page ids ``[n_slots, 2]`` for a
         step appending ``span`` positions from each slot's ``pos``: the at
@@ -925,32 +1252,33 @@ class ContinuousBatchingEngine:
         b0 = np.clip(pos // page, 0, nb - 1)
         b1 = np.clip((pos + span - 1) // page, 0, nb - 1)
         blocks = np.stack([b0, b1], axis=1).astype(np.int32)
-        pids = np.take_along_axis(self._tables, blocks, axis=1)
+        pids = np.take_along_axis(tables, blocks, axis=1)
         sentinel = pos >= self.max_len
         blocks[sentinel] = 0
         pids[sentinel] = 0
         return blocks, pids
 
-    def _gather_view(self) -> None:
+    def _gather_view(self, tables: np.ndarray) -> None:
         """Fill the step's ``[L, n_slots, max_len, ...]`` view from the
-        pool through the block tables (unallocated blocks read the null
+        pool through the block ``tables`` (unallocated blocks read the null
         page's zeros; positions past a slot's cursor are never attended
         either way)."""
-        flat = torch.from_numpy(self._tables.reshape(-1).astype(np.int64))
+        flat = torch.from_numpy(tables.reshape(-1).astype(np.int64))
         flat = flat.to(self.device)
         for pool, view in self._pool_cache.pairs(self._view):
             torch.index_select(pool, 1, flat,
                                out=view.view(pool.shape[0], -1,
                                              *pool.shape[2:]))
 
-    def _scatter_tails(self, pos: np.ndarray, span: int) -> None:
+    def _scatter_tails(self, tables: np.ndarray, pos: np.ndarray,
+                       span: int) -> None:
         """Scatter each slot's two tail pages of the view back to the pool
         (the blocks that ``span`` appends from ``pos`` can touch), then zero
         the null page. Every other gathered page is unchanged private data
         or a shared prefix page below the fork, which appends never reach.
         Duplicate ids carry identical bytes (one block twice) or hit the
         null page, so the scatter is order-insensitive."""
-        blocks, pids = self._tail_args(pos, span)
+        blocks, pids = self._tail_args(tables, pos, span)
         dev = self.device
         rows = torch.arange(self.n_slots, device=dev)[:, None]
         blocks = torch.from_numpy(blocks.astype(np.int64)).to(dev)
@@ -962,62 +1290,86 @@ class ContinuousBatchingEngine:
 
     # ---- prefill calls -----------------------------------------------------
     def _prefill(self, prompts: np.ndarray, lps: np.ndarray
-                 ) -> Tuple[_KV, torch.Tensor]:
+                 ) -> Tuple[int, torch.Tensor]:
         """Prefill ``b`` same-bucket prompts ``[b, bucket]`` (true lengths
         ``lps [b]``) in one call of the cursor-mode model, into a fresh
-        cache of the bucket's length: an empty cache and ``arange``
-        positions take the among-prompt branch, which runs the flash
-        forward kernel. Returns the cache and each row's first token,
-        sampled from the hidden state at its own ``lp - 1``."""
+        cache of the bucket's length (``_p_prefill``). Returns the cache's
+        handle and each row's first token, sampled from the hidden state at
+        its own ``lp - 1``."""
         b, bucket = prompts.shape
-        dev = self.device
-        with torch.inference_mode():
-            kv = _zeros(cache_shapes(self._prefill_model, b, bucket), dev)
-            positions = torch.arange(bucket, dtype=torch.int32,
-                                     device=dev).expand(b, bucket)
-            logits = self._prefill_model(
-                torch.from_numpy(prompts).to(dev), positions, kv.layers(),
-                at=torch.from_numpy(lps - 1).to(dev))
-            first = sample(logits[:, -1], self._generator, self.sampling)
+        h = self._new_handle()
+        logits = self._run("prefill", h=h, prompts=prompts, lps=lps)
+        with self._mode():
+            first = sample(logits, self._generator, self.sampling)
         self.stats["fresh_prefills"] += 1
         self.stats["prefill_positions"] += bucket * b
-        return kv, first
+        return h, first
 
-    def _private_cache(self, prefix_id: Optional[int]) -> _KV:
+    def _p_prefill(self, h: int, prompts: np.ndarray, lps: np.ndarray
+                   ) -> torch.Tensor:
+        """An empty cache and ``arange`` positions take the among-prompt
+        branch, which runs the flash forward kernel. Returns each row's
+        last-position logits ``[b, V]``."""
+        b, bucket = prompts.shape
+        dev = self.device
+        with self._mode():
+            kv = self._kvs[h] = _zeros(self._shapes(b, bucket), dev)
+            positions = torch.arange(bucket, dtype=torch.int32,
+                                     device=dev).expand(b, bucket)
+            return self._prefill_model(
+                torch.from_numpy(prompts).to(dev), positions, kv.layers(),
+                at=torch.from_numpy(lps - 1).to(dev))[:, -1]
+
+    def _private_cache(self, prefix_id: Optional[int]) -> int:
         """A batch-1 cache at ``max_len`` for a suffix or chunked prefill,
         holding the registered prefix's positions when ``prefix_id`` is
-        given (``_prefixed_cache``)."""
-        return _prefixed_cache(
-            self._prefill_model, self.device,
-            None if prefix_id is None else self._prefixes[prefix_id])
+        given (``_prefixed_cache``); returns its handle."""
+        h = self._new_handle()
+        self._run("private", h=h, prefix=(
+            None if prefix_id is None else self._prefixes[prefix_id]))
+        return h
 
-    def _append_prefill(self, kv: _KV, tokens: np.ndarray,
+    def _p_private(self, h: int, prefix: Optional[Tuple[int, int]]) -> None:
+        with self._mode():
+            self._kvs[h] = _prefixed_cache(
+                self._shapes(1), self.device,
+                None if prefix is None else (self._kvs[prefix[0]],
+                                             prefix[1]))
+
+    def _append_prefill(self, h: int, tokens: np.ndarray,
                         start: int) -> torch.Tensor:
-        """Prefill ``tokens`` (a suffix or a chunk) into ``kv`` after the
-        ``start`` positions it already holds, in place: the cursor set to
-        ``start`` (``_set_cursor``), positions ``start + arange(bucket)``.
-        From ``start > 0`` every query attends over the whole cache, prefix
-        included; from an empty cache it is a fresh prefill. Returns the
-        token sampled at the last real position."""
+        """Prefill ``tokens`` (a suffix or a chunk) into cache ``h`` after
+        the ``start`` positions it already holds, in place
+        (``_p_append``). Returns the token sampled at the last real
+        position."""
+        logits = self._run("append", h=h, tokens=tokens, start=start)
+        with self._mode():
+            first = sample(logits, self._generator, self.sampling)
+        if start == 0:
+            self.stats["fresh_prefills"] += 1
+        self.stats["prefill_positions"] += _bucket_len(
+            int(tokens.size), self.max_len - start)
+        return first
+
+    def _p_append(self, h: int, tokens: np.ndarray, start: int
+                  ) -> torch.Tensor:
+        """The cursor set to ``start`` (``_set_cursor``), positions ``start
+        + arange(bucket)``: from ``start > 0`` every query attends over the
+        whole cache, prefix included; from an empty cache it is a fresh
+        prefill. The bucket may not spill past max_len (appends land at
+        start..start+bucket-1). Returns the last real position's logits."""
         n = int(tokens.size)
-        # the bucket may not spill past max_len: appends land at
-        # start..start+bucket-1
         bucket = _bucket_len(n, self.max_len - start)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :n] = tokens
         dev = self.device
-        with torch.inference_mode():
+        with self._mode():
             positions = start + torch.arange(bucket, dtype=torch.int32,
                                              device=dev)[None]
-            logits = self._prefill_model(
+            return self._prefill_model(
                 torch.from_numpy(padded).to(dev), positions,
-                _set_cursor(kv.layers(), start),
-                at=torch.full((1,), n - 1, device=dev))
-            first = sample(logits[:, -1], self._generator, self.sampling)
-        if start == 0:
-            self.stats["fresh_prefills"] += 1
-        self.stats["prefill_positions"] += bucket
-        return first
+                _set_cursor(self._kvs[h].layers(), start),
+                at=torch.full((1,), n - 1, device=dev))[:, -1]
 
     # ---- request lifecycle -------------------------------------------------
     def register_prefix(self, tokens) -> int:
@@ -1039,12 +1391,12 @@ class ContinuousBatchingEngine:
         lp = int(tokens.size)
         padded = np.zeros((1, _bucket_len(lp, self.max_len)), np.int32)
         padded[0, :lp] = tokens
-        kv, _ = self._prefill(padded, np.asarray([lp], np.int32))
+        h, _ = self._prefill(padded, np.asarray([lp], np.int32))
         self.stats["prefix_prefills"] += 1
         with self._lock:
             pid = self._next_prefix_id
             self._next_prefix_id += 1
-            self._prefixes[pid] = (kv, lp)
+            self._prefixes[pid] = (h, lp)
         if self._pool is not None:
             # paged: ALSO write the prefix's full pages into the pool so
             # admissions alias them (refcount, not copy). The partial tail
@@ -1054,7 +1406,8 @@ class ContinuousBatchingEngine:
             pids = (self._pool.alloc(fb) if fb else []) or []
             if pids:
                 self._count_allocs(pids)
-                self._write_pages(kv, 0, self._table_row(pids))
+                self._run("write_pages", h=h, row=0,
+                          pids_by_block=self._table_row(pids))
             self._prefix_pages[pid] = pids
             self._update_page_gauges()
         if self._draft is not None:
@@ -1070,8 +1423,8 @@ class ContinuousBatchingEngine:
         prefix's position bucket, what another engine adopts through
         ``import_prefix`` without recomputing the prefill."""
         with self._lock:
-            kv, lp = self._prefixes[prefix_id]
-        host = _host_payload(kv, _bucket_len(lp, self.max_len))
+            h, lp = self._prefixes[prefix_id]
+        host = self._run("export", h=h, pb=_bucket_len(lp, self.max_len))
         self._export_layout(_cache_nbytes(host))
         return host, lp
 
@@ -1093,13 +1446,14 @@ class ContinuousBatchingEngine:
             raise ValueError(f"prefix length {lp} does not fit under "
                              f"max_len {self.max_len}")
         self._check_payload(cache, lp)
-        with torch.inference_mode():
-            kv = _KV({name: cache[name].to(self.device)
-                      for name in cache_shapes(self._prefill_model, 1)})
+        h = self._new_handle()
+        self._run("import", h=h, payload={
+            name: cache[name] for name in cache_shapes(self._prefill_model,
+                                                       1)})
         with self._lock:
             pid = self._next_prefix_id
             self._next_prefix_id += 1
-            self._prefixes[pid] = (kv, lp)
+            self._prefixes[pid] = (h, lp)
         if self._pool is not None:
             fb = lp // self.page_tokens
             aliased: List[int] = []
@@ -1118,11 +1472,38 @@ class ContinuousBatchingEngine:
                     self._count_allocs(fresh)
                     row = np.zeros(self._nb_total, np.int32)
                     row[len(aliased):fb] = fresh
-                    self._write_pages(kv, 0, row)
+                    self._run("write_pages", h=h, row=0, pids_by_block=row)
                 pids = aliased + fresh
             self._prefix_pages[pid] = pids
             self._update_page_gauges()
         return pid
+
+    def _p_import(self, h: int, payload: Dict[str, torch.Tensor]) -> None:
+        """A whole payload's leaves as cache ``h``: this rank's heads."""
+        with self._mode():
+            heads = self._plan.put_cache(payload) if self._plan else payload
+            self._kvs[h] = _KV({name: t.to(self.device).contiguous()
+                                for name, t in heads.items()})
+
+    def _p_export(self, h: int, pb: int
+                  ) -> Optional[Dict[str, torch.Tensor]]:
+        """Positions ``[0, pb)`` of batch-1 cache ``h`` as a host payload
+        on the driver (every rank's heads gathered; None on a worker)."""
+        kv = self._kvs[h]
+        leaves = {name: t[:, :, :pb] for name, t in kv.leaves.items()}
+        return self._to_driver(leaves, pb, 0)    # whole on every data rank
+
+    def _to_driver(self, leaves: Optional[Dict[str, torch.Tensor]], pb: int,
+                   src_data: int) -> Optional[Dict[str, torch.Tensor]]:
+        """Batch-1 leaves of ``pb`` positions, as this rank holds them on
+        ``data`` rank ``src_data``, whole on the driver's host."""
+        if self._plan is not None:
+            leaves = self._plan.gather_to_driver(
+                leaves, cache_shapes(self._prefill_model, 1, pb), src_data,
+                self.device)
+        if leaves is None:
+            return None
+        return {name: _to_host(t) for name, t in leaves.items()}
 
     def _check_payload(self, cache: Dict[str, torch.Tensor],
                        positions: int) -> None:
@@ -1158,7 +1539,11 @@ class ContinuousBatchingEngine:
             self._release_pages(self._prefix_pages.pop(prefix_id, None))
             self._update_page_gauges()
         with self._lock:
-            return self._prefixes.pop(prefix_id, None) is not None
+            entry = self._prefixes.pop(prefix_id, None)
+        if entry is None:
+            return False
+        self._free(entry[0])
+        return True
 
     def check_request(self, prompt, max_new_tokens: int,
                       prefix_id: Optional[int] = None) -> np.ndarray:
@@ -1305,19 +1690,33 @@ class ContinuousBatchingEngine:
         # Pages and buckets share the PAGE_TOKENS granule, so the paged
         # gather ships exactly the bucket's pages.
         pb = _bucket_len(pos, self.max_len)
-        if self._pool is not None:
-            nbp = pb // self.page_tokens
-            table = torch.from_numpy(
-                self._tables[i, :nbp].astype(np.int64)).to(self.device)
-            row = {name: _to_host(pool[:, table].flatten(1, 2)[:, None])
-                   for name, pool in self._pool_cache.leaves.items()}
-        else:
-            row = _host_payload(_KV({name: t[:, i:i + 1] for name, t
-                                     in self._cache.leaves.items()}), pb)
+        table = (self._tables[i, :pb // self.page_tokens]
+                 if self._pool is not None else None)
+        row = self._run("export_slot", slot=i, pb=pb, table=table)
         self.stats["kv_exported"] += 1
         layout = self._export_layout(_cache_nbytes(row))
         return KVHandoff(cache=row, pos=pos, first_token=emitted[0],
                          emitted=emitted, layout=layout).seal()
+
+    def _p_export_slot(self, slot: int, pb: int,
+                       table: Optional[np.ndarray]
+                       ) -> Optional[Dict[str, torch.Tensor]]:
+        """Positions ``[0, pb)`` of slot ``slot`` (paged: through its block
+        ``table``) as a host payload on the driver: the ``data`` rank that
+        holds the slot gathers its heads."""
+        plan = self._plan
+        with self._mode():
+            if self._pool is not None:
+                idx = torch.from_numpy(table.astype(np.int64)).to(self.device)
+                leaves = {name: pool[:, idx].flatten(1, 2)[:, None]
+                          for name, pool in self._pool_cache.leaves.items()}
+                return self._to_driver(leaves, pb, 0)
+            row = plan.local_row(slot) if plan else slot
+            leaves = (None if row is None else
+                      {name: t[:, row:row + 1, :pb]
+                       for name, t in self._cache.leaves.items()})
+            return self._to_driver(leaves, pb,
+                                   plan.owner(slot) if plan else 0)
 
     def start_prefill(self, prompt, prefix_id: Optional[int] = None
                       ) -> "PrefillJob":
@@ -1381,25 +1780,16 @@ class ContinuousBatchingEngine:
         ``fb`` entries of ``pages`` alias the prefix's full pages."""
         h = req.handoff
         base, pos = h.base, h.pos
-        with torch.inference_mode():
-            if self._pool is not None:
-                nbp = self._pages_for_span(pos)
-                staged = _zeros(_resized(cache_shapes(self._prefill_model, 1),
-                                         1, nbp * self.page_tokens),
-                                self.device)
-                target, row = staged, 0
-            else:
-                target, row = self._cache, i
-            prefix = (self._prefixes[req.prefix_id][0] if base > 0
-                      else None)
-            for name, dst in target.leaves.items():
-                if prefix is not None:
-                    dst[:, row, :base] = prefix.leaves[name][:, 0, :base]
-                dst[:, row, base:pos] = h.cache[name][:, 0, base:pos]
+        pids_row = None
         if self._pool is not None:
+            nbp = self._pages_for_span(pos)
             pids_row = np.zeros(self._nb_total, np.int32)
             pids_row[fb:nbp] = pages[fb:nbp]
-            self._write_pages(staged, 0, pids_row)
+        self._run("adopt", slot=i, base=base, pos=pos,
+                  prefix=(self._prefixes[req.prefix_id][0] if base > 0
+                          else None),
+                  pids_row=pids_row, payload=h.cache)
+        if self._pool is not None:
             self._tables[i] = self._table_row(pages)
             self.stats["admit_copy_positions"] += ((nbp - fb)
                                                    * self.page_tokens)
@@ -1418,6 +1808,33 @@ class ContinuousBatchingEngine:
         if self.metrics is not None:
             self.metrics.set_gauge("queue_depth", len(self._queue))
         self._retire_if_done(i)
+
+    def _p_adopt(self, slot: int, base: int, pos: int,
+                 prefix: Optional[int], pids_row: Optional[np.ndarray],
+                 payload: Dict[str, torch.Tensor]) -> None:
+        """The splice: positions ``[base, pos)`` of the payload's heads
+        over the prefix cache's ``[0, base)``, into the slot's row (dense,
+        on the ``data`` rank that holds it) or into a staged row whose
+        blocks ``pids_row`` names go to the pool (paged)."""
+        heads = self._plan.put_cache(payload) if self._plan else payload
+        with self._mode():
+            if self._pool is not None:
+                nbp = self._pages_for_span(pos)
+                target, row = _zeros(_resized(self._shapes(1), 1,
+                                              nbp * self.page_tokens),
+                                     self.device), 0
+            else:
+                row = self._plan.local_row(slot) if self._plan else slot
+                if row is None:
+                    return
+                target = self._cache
+            pkv = self._kvs[prefix] if prefix is not None else None
+            for name, dst in target.leaves.items():
+                if pkv is not None:
+                    dst[:, row, :base] = pkv.leaves[name][:, 0, :base]
+                dst[:, row, base:pos] = heads[name][:, 0, base:pos]
+        if self._pool is not None:
+            self._write_pages(target, 0, pids_row)
 
     def _admit_pending(self) -> None:
         if self._prefilling is not None:
@@ -1533,6 +1950,7 @@ class ContinuousBatchingEngine:
                 self._advance_prefill()
                 continue
             unconsumed = list(group_pages) if group_pages else []
+            kv = None
             try:
                 dequeued_at = self._clock()
                 if req.prefix_id is not None:
@@ -1562,6 +1980,7 @@ class ContinuousBatchingEngine:
                 # ``unconsumed`` as rows land)
                 for pl in unconsumed:
                     self._release_pages(pl)
+                self._free(kv)
                 with self._lock:
                     self._admitting.difference_update(free)
 
@@ -1580,34 +1999,36 @@ class ContinuousBatchingEngine:
             # fill the slot first, then drop the reservation: the brief
             # filled+reserved overlap UNDERcounts free_slots (safe for
             # admission control); the reverse order would overcount
-            self._finish_admission(i, st.req, st.pre_cache, first, st.total,
-                                   st.dequeued_at, pages=st.pages,
-                                   fresh_from=st.fresh_from)
+            try:
+                self._finish_admission(i, st.req, st.pre_cache, first,
+                                       st.total, st.dequeued_at,
+                                       pages=st.pages,
+                                       fresh_from=st.fresh_from)
+            finally:
+                self._free(st.pre_cache)
             with self._lock:
                 self._reserved_slot = None
 
-    def _finish_admission(self, i: int, req: _Pending, kv: _KV, first,
+    def _finish_admission(self, i: int, req: _Pending, kv: int, first,
                           lp: int, dequeued_at: float, row: int = 0,
                           pages: Optional[List[int]] = None,
                           fresh_from: int = 0) -> None:
-        """Copy row ``row`` of a prefilled cache's first ``lp`` positions
-        into slot ``i`` and activate it; the first token (sampled by the
-        prefill) is emitted here. Positions >= lp keep the slot's old bytes,
-        never attended. Paged mode writes only the blocks past
+        """Copy row ``row`` of prefilled cache ``kv``'s first ``lp``
+        positions into slot ``i`` and activate it; the first token (sampled
+        by the prefill) is emitted here. Positions >= lp keep the slot's old
+        bytes, never attended. Paged mode writes only the blocks past
         ``fresh_from`` (aliased prefix pages are already live)."""
         if self._pool is not None:
             wb = self._pages_for_span(lp)
             pids_row = np.zeros(self._nb_total, np.int32)
             pids_row[fresh_from:wb] = pages[fresh_from:wb]
-            self._write_pages(kv, row, pids_row)
+            self._run("write_pages", h=kv, row=row, pids_by_block=pids_row)
             self._tables[i] = self._table_row(pages)
             self.stats["admit_copy_positions"] += ((wb - fresh_from)
                                                    * self.page_tokens)
             self._update_page_gauges()
         else:
-            with torch.inference_mode():
-                for dst, src in self._cache.pairs(kv):
-                    dst[:, i, :lp] = src[:, row, :lp]
+            self._run("admit", slot=i, h=kv, row=row, lp=lp)
             self.stats["admit_copy_positions"] += lp
         first = int(first)   # host sync: the first token IS emitted now
         # seed the slot's draft row from the request's own tokens (False:
@@ -1631,6 +2052,15 @@ class ContinuousBatchingEngine:
             self.metrics.inc("tokens_emitted")
             self.metrics.set_gauge("queue_depth", len(self._queue))
         self._retire_if_done(i)
+
+    def _p_admit(self, slot: int, h: int, row: int, lp: int) -> None:
+        """The dense splice, on the ``data`` rank that holds the slot."""
+        local = self._plan.local_row(slot) if self._plan else slot
+        if local is None:
+            return
+        with self._mode():
+            for dst, src in self._cache.pairs(self._kvs[h]):
+                dst[:, local, :lp] = src[:, row, :lp]
 
     def _fire_on_token(self, slot: _Slot, token: int) -> None:
         """Streaming callbacks run between device steps: a raising callback
@@ -1710,6 +2140,7 @@ class ContinuousBatchingEngine:
                 self._reserved_slot = None
                 self._release_pages(st.pages)
                 self._update_page_gauges()
+                self._free(st.pre_cache)
                 return np.zeros(0, np.int32)
             for i, s in enumerate(self._slots):
                 if s is not None and s.request_id == request_id:
@@ -1742,17 +2173,26 @@ class ContinuousBatchingEngine:
                 if self._prefilling is not None:
                     self._release_pages(self._prefilling.pages)
                 self._tables[:, :] = 0
+            staged = ([self._prefilling.pre_cache]
+                      if self._prefilling is not None else [])
             self._slots = [None] * self.n_slots
             self._queue.clear()
             self._kv_queue.clear()
             self._prefilling = None
             self._reserved_slot = None
             self._admitting.clear()
+        # the chunked prefill's private cache goes here and on the workers
+        self._run("reset", handles=staged)
         self._update_page_gauges()
         if self.metrics is not None:
             self.metrics.set_gauge("queue_depth", 0)
             self.metrics.set_gauge("slots_active", 0)
         return sorted(lost)
+
+    def _p_reset(self, handles: List[int]) -> None:
+        """Drop device caches by handle (also a worker's deferred frees)."""
+        for h in handles:
+            self._kvs.pop(h, None)
 
     # ---- the engine loop ---------------------------------------------------
     def step(self) -> List[int]:
@@ -1801,24 +2241,59 @@ class ContinuousBatchingEngine:
         for i in active:
             toks[i] = self._slots[i].last_token
             pos[i] = self._slots[i].pos
+        return self._run("decode", toks=toks, pos=pos, tables=(
+            self._tables if self._pool is not None else None))
+
+    def _step_cache(self, tables: Optional[np.ndarray]) -> List[KVCache]:
+        """The caches a step reads: the dense pool (this rank's rows), or
+        the paged view gathered through ``tables``."""
+        if self._pool is not None:
+            self._gather_view(tables)
+            return self._view.layers()
+        return self._cache.layers()
+
+    def _rows(self) -> slice:
+        return self._plan.rows if self._plan is not None else slice(None)
+
+    def _p_decode(self, toks: np.ndarray, pos: np.ndarray,
+                  tables: Optional[np.ndarray]) -> Optional[np.ndarray]:
+        """``step_horizon`` steps of this rank's rows; the tokens of every
+        row ``[horizon, n_slots]`` on the driver's host."""
         dev = self.device
-        with torch.inference_mode():
-            if self._pool is not None:
-                self._gather_view()
-                cache = self._view.layers()
-            else:
-                cache = self._cache.layers()
-            tok = torch.from_numpy(toks).to(dev)
-            p = torch.from_numpy(pos).to(dev)
+        rows = self._rows()
+        with self._mode():
+            cache = self._step_cache(tables)
+            tok = torch.from_numpy(toks[rows]).to(dev)
+            p = torch.from_numpy(pos[rows]).to(dev)
             out = []
             for _ in range(self.step_horizon):
                 logits = self._step_model(tok[:, None], p[:, None], cache)
-                tok = sample(logits[:, -1], self._generator, self.sampling)
+                tok = self._choose(logits[:, -1])
                 p = p + 1
                 out.append(tok)
             if self._pool is not None:
-                self._scatter_tails(pos, self.step_horizon)
-            return torch.stack(out).cpu().numpy()
+                self._scatter_tails(tables, pos, self.step_horizon)
+            out = torch.stack(out)
+            if self._plan is not None:
+                out = self._plan.gather_rows(out.t().contiguous()).t()
+            return None if self._worker else out.cpu().numpy()
+
+    def _choose(self, logits: torch.Tensor) -> torch.Tensor:
+        """This rank's rows' next tokens from their logits ``[rows, V]``
+        (whole over ``model``). Greedy: the argmax, alike on every rank.
+        Sampled on a mesh: the driver draws for every row from the logits
+        gathered over ``data`` and broadcasts the tokens."""
+        plan = self._plan
+        if plan is None or self.sampling.is_greedy:
+            return sample(logits, self._generator, self.sampling)
+        full = plan.gather_rows(logits)
+        if self._worker:
+            tok = torch.empty(full.shape[0], dtype=torch.int32,
+                              device=self.device)
+        else:
+            tok = sample(full, self._generator, self.sampling)
+        broadcast_from_origin(tok, plan.mesh)
+        return tok[self._rows()]
 
     def _emit_tokens(self, i: int, tokens) -> int:
         """Append host-side ``tokens`` to slot ``i`` in order: position,
@@ -1951,19 +2426,23 @@ class ContinuousBatchingEngine:
         view first and scatters the tail pages back after, over a span of
         ``k+1``: rejected proposals land in the slot's own tail pages, never
         in a shared prefix page."""
+        return self._run("verify", chunk=chunk, cpos=cpos, tables=(
+            self._tables if self._pool is not None else None))
+
+    def _p_verify(self, chunk: np.ndarray, cpos: np.ndarray,
+                  tables: Optional[np.ndarray]) -> Optional[np.ndarray]:
         dev = self.device
-        with torch.inference_mode():
-            if self._pool is not None:
-                self._gather_view()
-                cache = self._view.layers()
-            else:
-                cache = self._cache.layers()
+        rows = self._rows()
+        with self._mode():
+            cache = self._step_cache(tables)
             greedy = _greedy(self._step_model(
-                torch.from_numpy(chunk).to(dev),
-                torch.from_numpy(cpos).to(dev), cache))
+                torch.from_numpy(chunk[rows]).to(dev),
+                torch.from_numpy(cpos[rows]).to(dev), cache))
             if self._pool is not None:
-                self._scatter_tails(cpos[:, 0], chunk.shape[1])
-            return greedy.cpu().numpy()
+                self._scatter_tails(tables, cpos[:, 0], chunk.shape[1])
+            if self._plan is not None:
+                greedy = self._plan.gather_rows(greedy)
+            return None if self._worker else greedy.cpu().numpy()
 
     def run(self) -> Dict[int, np.ndarray]:
         """Drain the queue and every active slot; returns {id: tokens}."""
@@ -1990,24 +2469,54 @@ class ContinuousBatchingEngine:
     # ---- export accounting -------------------------------------------------
     def _export_layout(self, nbytes: int) -> CacheLayout:
         """The layout block every KV or prefix export carries, and the
-        export's device-to-host bytes counted."""
+        export's gathered device-to-host bytes counted (on ``stats`` and
+        ``shard_metrics``)."""
         self.stats["export_gather_bytes"] += nbytes
+        if self.shard_metrics is not None:
+            self.shard_metrics.inc("export_gather_bytes", nbytes)
         return CacheLayout(mesh_axes=dict(self.mesh_axes),
                            gathered_bytes=nbytes)
 
     @property
     def param_bytes_per_chip(self) -> int:
-        """Serving parameter bytes on the device (all of them, on one)."""
-        return sum(t.numel() * t.element_size()
-                   for t in self._params.values())
+        """Serving parameter bytes a chip holds: the whole tree without a
+        mesh; this rank's blocks of the laid-out model on one."""
+        if self._plan is None:
+            return _cache_nbytes(self._params)
+        return self._plan.bytes_per_chip(self._prefill_model.parameters())
+
+    def _pool_shapes(self) -> CacheShapes:
+        """The pool's leaves, whole (every kv head, every slot)."""
+        shapes = cache_shapes(self._prefill_model, self.n_slots)
+        if self._pool is not None:
+            shapes = _resized(cache_shapes(self._prefill_model, 1),
+                              self._pool.capacity + 1, self.page_tokens)
+        return shapes
 
     @property
     def kv_bytes_per_chip(self) -> int:
-        """Slot-pool (dense) or page-pool (paged) KV bytes on the device,
-        an int8 cache's scales included; registered prefixes are not
-        counted."""
+        """Slot-pool (dense) or page-pool (paged) KV bytes a chip holds, an
+        int8 cache's scales included: this rank's kv heads, and on
+        ``data`` its slot rows (the paged pool is whole there); registered
+        prefixes are not counted."""
         pool = self._pool_cache if self._pool is not None else self._cache
         return _cache_nbytes(pool.leaves)
+
+    def shard_report(self) -> Dict[str, Any]:
+        """The shard accounting as one dict (the reference's keys): mesh
+        axes, chip count, and per-chip against total parameter and KV-pool
+        bytes."""
+        return {
+            "mesh_axes": dict(self.mesh_axes),
+            "n_chips": self.n_chips,
+            "param_bytes_per_chip": self.param_bytes_per_chip,
+            "param_bytes_total": _cache_nbytes(self._params),
+            "kv_bytes_per_chip": self.kv_bytes_per_chip,
+            "kv_bytes_total": sum(
+                int(np.prod(shape)) * torch.empty((), dtype=dtype)
+                .element_size()
+                for shape, dtype in self._pool_shapes().values()),
+        }
 
 
 class PrefillJob:
@@ -2036,7 +2545,11 @@ class PrefillJob:
         self.done = base                   # positions cached so far
         self.total = base + int(prompt.size)
         self.first_token: Optional[int] = None
-        self._kv: Optional[_KV] = None
+        self._kv: Optional[int] = None      # the engine's cache handle
+
+    def _release_with_job(self) -> None:
+        # the job's cache lives as long as the job
+        weakref.finalize(self, self._engine._free, self._kv)
 
     @property
     def finished(self) -> bool:
@@ -2060,10 +2573,12 @@ class PrefillJob:
             padded = np.zeros((1, _bucket_len(lp, eng.max_len)), np.int32)
             padded[0, :lp] = self.prompt
             self._kv, first = eng._prefill(padded, np.asarray([lp], np.int32))
+            self._release_with_job()
             self.done = self.total
         else:
             if self._kv is None:
                 self._kv = eng._private_cache(self.prefix_id)
+                self._release_with_job()
             offset = self.done - self.base
             chunk = (self.prompt[offset:offset + eng.prefill_chunk]
                      if chunked else self.prompt[offset:])
@@ -2082,8 +2597,8 @@ class PrefillJob:
         registered copy of ``prefix_hash``, so only suffix bytes travel."""
         if not self.finished:
             raise RuntimeError("prefill is not finished")
-        host = _host_payload(self._kv, _bucket_len(self.total,
-                                                   self._engine.max_len))
+        host = self._engine._run("export", h=self._kv, pb=_bucket_len(
+            self.total, self._engine.max_len))
         base = 0
         if suffix_only and self.base > 0:
             base = self.base

@@ -44,6 +44,9 @@ and serving alike. Under a mesh (``parallel/sharded.py``) the projections
 run tensor-parallel on local heads (H/model query heads a rank), and
 ``embed``, ``lm_head`` and the tied head are vocab-sharded ``DTensor``s:
 ``_embed`` and ``_logits`` gather their products over the ``model`` axis.
+A serving model (``sharded.shard_serving_model``) holds the same blocks as
+plain local tensors: row-parallel projections and the vocab-parallel
+embedding and head call their ``tp`` group's collectives.
 ``flagship_partition_rules`` and ``serving_partition_rules`` are the
 reference's rules on the port's names.
 
@@ -285,12 +288,15 @@ class Positions(NamedTuple):
     (None for learned positions, which the embedding adds) and whether the
     positions are the plain ``arange`` (one host sync per forward, not one
     per layer; never for a multislot call, whose rows sit at unrelated
-    positions)."""
+    positions) and whether the call is multislot (the root's
+    ``decode_multislot``: a serving engine's step model shares its blocks
+    with its prefill model, ``serving.multislot_twin``)."""
 
     ids: torch.Tensor
     cos: Optional[torch.Tensor]
     sin: Optional[torch.Tensor]
     is_arange: bool
+    multislot: bool = False
 
 
 #: The cache quantizer's scale factor: the reference writes ``max|x| /
@@ -368,7 +374,13 @@ class Dense(nn.Linear):
     The bias is added after the product, in ``cfg.dtype``, as Flax's
     ``Dense`` adds it (the product rounds once, the sum once), and the
     product stays a plain ``mm`` whose first operand is the input, which
-    the remat policies read."""
+    the remat policies read. A row-parallel serving projection
+    (``parallel/sharded.shard_serving_model``) holds its rank's input
+    columns and sums the partial products over ``tp`` before the bias."""
+
+    #: the tensor-parallel group a row-parallel serving projection sums
+    #: its partial products over (None: the whole product is here)
+    tp = None
 
     def __init__(self, n_in: int, n_out: int, cfg: TransformerConfig):
         super().__init__(n_in, n_out, bias=cfg.use_bias,
@@ -377,6 +389,8 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.linear(x, self.weight.to(self.compute_dtype))
+        if self.tp is not None:
+            y = self.tp.reduce(y)
         if self.bias is not None:
             y = y + self.bias.to(self.compute_dtype)
         return y
@@ -410,7 +424,11 @@ class W8Dense(nn.Module):
     ``weight_scale [out]`` per output channel. The product of x with the
     int8 values widened to ``cfg.dtype`` is rescaled in fp32 (a bf16 scale
     would add a systematic per-channel error), then cast: ``x @ (q·s)ᵀ ==
-    (x @ qᵀ)·s`` for a per-channel scale."""
+    (x @ qᵀ)·s`` for a per-channel scale. Row-parallel (``tp`` set, as
+    ``Dense``), the rescaled fp32 partial products are summed over the
+    group before the cast; the scale is whole on every rank."""
+
+    tp = None
 
     def __init__(self, n_in: int, n_out: int, cfg: TransformerConfig):
         super().__init__()
@@ -423,8 +441,11 @@ class W8Dense(nn.Module):
                                          requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x, self.weight_q.to(self.compute_dtype))
-        return (y.float() * self.weight_scale).to(self.compute_dtype)
+        y = F.linear(x, self.weight_q.to(self.compute_dtype)).float()
+        y = y * self.weight_scale
+        if self.tp is not None:
+            y = self.tp.reduce(y)
+        return y.to(self.compute_dtype)
 
 
 def _dense_class(cfg: TransformerConfig, int8: bool):
@@ -507,10 +528,11 @@ class Attention(nn.Module):
         then attend. A multi-token call into an empty cache whose positions
         are the plain ``arange`` (how ``generate`` starts) attends among its
         own L tokens through ``flash_attention`` with Hkv-head k/v; every
-        other call attends over the whole cache. A ``decode_multislot``
-        call appends at each row's own positions and always attends over
-        the cache, as the reference does."""
-        if self.cfg.decode_multislot:
+        other call attends over the whole cache. A multislot call
+        (``pos.multislot``: the root's ``decode_multislot``) appends at
+        each row's own positions and always attends over the cache, as the
+        reference does."""
+        if pos.multislot:
             _append_per_row(k, v, pos.ids, cache)
             return self._over_cache(q, pos.ids, cache)
         l = q.shape[1]
@@ -743,7 +765,11 @@ class Transformer(nn.Module):
     under ``serve_int8_weights``), so ``embed``'s gradient sums the
     gather's and the head's. With ``pos_emb="learned"`` the table
     ``pos_embed [max_seq_len, D]`` is gathered at each call's positions
-    and added to the token embeddings in fp32, before the cast.
+    and added to the token embeddings in fp32, before the cast. A serving
+    model laid out by ``parallel/sharded.shard_serving_model`` may hold
+    its rank's vocab rows of ``embed`` and columns of the head, gathered
+    over ``embed_tp`` and ``head_tp`` (plain tensors and explicit
+    collectives).
 
     With ``cfg.decode`` every call takes one ``KVCache`` per layer (build it
     with ``decode.decode_model``); otherwise no cache, and ``segments
@@ -753,6 +779,11 @@ class Transformer(nn.Module):
     "dots" (the outputs of products with no batch dimension saved) and
     "dots_kernels" (the hand-written kernels' outputs saved too); "mlp"
     checkpoints only the MLP (``Block``)."""
+
+    #: the vocab-parallel groups of a serving model's embedding and head
+    #: (``parallel/sharded.shard_serving_model``; None: held whole)
+    embed_tp = None
+    head_tp = None
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -795,12 +826,15 @@ class Transformer(nn.Module):
         # and int8 values are exact in fp32, so this is the reference's
         # fp32-accumulated einsum.
         if cfg.serve_int8_weights and not cfg.tie_embeddings:
-            return (torch.matmul(x.float(), self.lm_head_q.float())
-                    * self.lm_head_scale)
-        head = self._head()
-        if cfg.head_int8:
-            return _int8_mm(cfg.int8_impl)(x, head.t(), torch.float32)
-        return _logits(x, head)
+            logits = (torch.matmul(x.float(), self.lm_head_q.float())
+                      * self.lm_head_scale)
+        elif cfg.head_int8:
+            logits = _int8_mm(cfg.int8_impl)(x, self._head().t(),
+                                             torch.float32)
+        else:
+            logits = _logits(x, self._head())
+        # a vocab-parallel serving head made this rank's V/model columns
+        return logits if self.head_tp is None else self.head_tp.gather(logits)
 
     def extend_cache(self, tokens: torch.Tensor, positions: torch.Tensor,
                      cache: List[KVCache]) -> None:
@@ -856,15 +890,17 @@ class Transformer(nn.Module):
         is_arange = (cfg.decode and not cfg.decode_multislot
                      and tokens.shape[1] > 1
                      and torch.equal(positions.int(), arange))
+        multislot = cfg.decode_multislot
         if learned:
-            pos = Positions(positions, None, None, is_arange)
+            pos = Positions(positions, None, None, is_arange, multislot)
         else:
             cos, sin = _rope_tables(positions, cfg.head_dim // 2,
                                     cfg.rope_theta)
             pos = Positions(positions, cos[:, :, None, :], sin[:, :, None, :],
-                            is_arange)
+                            is_arange, multislot)
         # an fp32 gather from the master table, then the cast
-        x = _embed(tokens, self.embed)
+        x = (_embed(tokens, self.embed) if self.embed_tp is None
+             else self.embed_tp.embed(tokens, self.embed))
         if learned:
             # A multislot step's free slots sit at the sentinel max_len (a
             # horizon's or a verify chunk's later columns past it): their

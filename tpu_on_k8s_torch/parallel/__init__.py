@@ -7,8 +7,11 @@ The vocabulary is the reference's: a ``DeviceMesh`` with the axes ``data``
 ``expert`` (not ported: they must be 1), and regex rules over leaf paths
 that give each parameter its layout. Where the reference hands the specs to
 XLA's SPMD partitioner, ``sharded.py`` writes the layout out with
-``parallelize_module`` and FSDP2; ``reshard.py`` moves a live state from
-one (mesh, rules) to another. Ring, Ulysses and pipeline parallelism
+``parallelize_module`` and FSDP2 (a serving model's with plain local
+tensors and explicit collectives, ``shard_serving_model``);
+``reshard.py`` moves a live state from one (mesh, rules) to another;
+``serving.py`` runs a serving engine's device programs on every rank of
+its mesh (the driver's command channel and ``serve_mesh_worker``). Ring, Ulysses and pipeline parallelism
 (``ring.py``, ``ulysses.py``, ``pipeline.py`` in the reference) are not
 ported.
 """

@@ -27,11 +27,12 @@ from tpu_on_k8s_torch.models.decode import generate
 from tpu_on_k8s_torch.models.params import init_params
 
 
-def report(label: str, fn, top: int, group=None) -> None:
+def report(label: str, fn, top: int, group=None, host_top: int = 0) -> None:
     """Trace ``fn()`` and print its wall time, the device time summed over
     kernels, the device's busy share and the ``top`` kernels by device
     time; with ``group`` (kernel name → group name), the device time by
-    group as well."""
+    group as well; with ``host_top``, the operators with the most host
+    (self CPU) time."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -68,6 +69,11 @@ def report(label: str, fn, top: int, group=None) -> None:
                                 key=lambda kv: -kv[1][1])[:top]:
         print(f"[{label}]   {us / 1e3:9.3f} ms {us / busy_us:6.1%} "
               f"x{n:<5d} {name[:110]}")
+    if host_top:
+        ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        for e in ops[:host_top]:
+            print(f"[{label}] host {e.self_cpu_time_total / 1e3:9.3f} ms "
+                  f"x{e.count:<5d} {e.key[:110]}")
 
 
 def main(argv=None) -> None:

@@ -41,8 +41,20 @@ engines (prefix affinity over ``--prefix-bucket``-token heads of three
 repeated system prompts, least-outstanding-tokens balance, slow-start
 readiness); with ``--rollout-demo`` it rolls the fleet to a second random
 parameter set after half the trace, under load, and prints the phases.
-Every engine is on ``--device``. Flags of the example that belong to later
-slices raise ``NotImplementedError``.
+Every engine is on ``--device``.
+
+``--model-axis N`` / ``--fsdp N`` serve the engine tensor-parallel on a
+mesh of the job's ranks (``data`` 1, ``fsdp`` the given count or the ranks
+left over, ``model`` N) under the flagship rules, as the reference does.
+The world is the launcher's (``train/distributed.initialize``: torchrun's
+variables or the operator's), else this process alone::
+
+    torchrun --nproc-per-node 2 -m tpu_on_k8s_torch.serve --config tiny \
+        --device cpu --model-axis 2
+
+Rank 0 is the driver (it serves and prints); every other rank runs
+``parallel/serving.serve_mesh_worker`` and returns when the driver is
+done. ``--replicas`` serves meshless replicas and refuses the mesh flags.
 """
 from __future__ import annotations
 
@@ -52,6 +64,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_on_k8s_torch.device import resolve_device
 from tpu_on_k8s_torch.generate import CONFIGS, load_hf
@@ -60,6 +73,12 @@ from tpu_on_k8s_torch.metrics import serve as serve_metrics
 from tpu_on_k8s_torch.models.decode import truncated_draft
 from tpu_on_k8s_torch.models.params import init_params
 from tpu_on_k8s_torch.models.serving import ContinuousBatchingEngine
+from tpu_on_k8s_torch.models.transformer import flagship_partition_rules
+from tpu_on_k8s_torch.parallel.mesh import MeshConfig, create_mesh, mesh_shape
+from tpu_on_k8s_torch.parallel.serving import (
+    serve_mesh_worker,
+    shutdown_mesh_workers,
+)
 from tpu_on_k8s_torch.serve.admission import AdmissionConfig, Rejected
 from tpu_on_k8s_torch.serve.fleet import (
     FleetRolloutPolicy,
@@ -71,12 +90,7 @@ from tpu_on_k8s_torch.serve.health import ProbeConfig
 from tpu_on_k8s_torch.serve.lifecycle import RequestState
 from tpu_on_k8s_torch.serve.router import Router
 from tpu_on_k8s_torch.train.checkpoint import load_params
-
-#: example flag → the later slice that brings it
-_LATER = {
-    "model_axis": "mesh serving (_ShardPlan)",
-    "fsdp": "mesh serving (_ShardPlan)",
-}
+from tpu_on_k8s_torch.train.distributed import initialize, local_world
 
 
 def main(argv=None) -> dict:
@@ -153,15 +167,42 @@ def main(argv=None) -> dict:
                    help=">0: per-request deadline in seconds "
                         "(with --gateway)")
     args = p.parse_args(argv)
-    asked = {flag: getattr(args, flag) for flag in _LATER}
-    asked["model_axis"] = args.model_axis > 1    # 1: no tensor parallelism
-    for flag, later in _LATER.items():
-        if asked[flag]:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported to "
-                f"tpu_on_k8s_torch yet ({later} is a later slice)")
-
     dev = resolve_device(args.device)
+    if args.model_axis > 1 or args.fsdp > 1:
+        if args.replicas > 0:
+            raise ValueError("--replicas serves meshless replicas; "
+                             "--model-axis / --fsdp serve one engine on a "
+                             "mesh")
+        return _on_mesh(args, dev)
+    return _serve(args, dev)
+
+
+def _on_mesh(args, dev) -> dict:
+    """Serve on a mesh of the job's ranks: rank 0 drives, the others run
+    their mesh workers. A world this call made is destroyed before it
+    returns."""
+    made = not dist.is_initialized()
+    initialize(device=dev)
+    if not dist.is_initialized():
+        local_world(dev)
+    try:
+        mesh = create_mesh(MeshConfig(data=1, fsdp=args.fsdp or -1,
+                                      model=args.model_axis, seq=1),
+                           device=dev)
+        if dist.get_rank() != 0:
+            serve_mesh_worker(mesh)
+            return {}
+        print(f"serving tensor-parallel over mesh {mesh_shape(mesh)}")
+        try:
+            return _serve(args, dev, mesh)
+        finally:
+            shutdown_mesh_workers()
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+def _serve(args, dev, mesh=None) -> dict:
     cfg = CONFIGS[args.config]()
     if args.hf_model:
         cfg, params = load_hf(args.hf_model, dev)
@@ -193,6 +234,7 @@ def main(argv=None) -> dict:
         draft_params=draft_params, spec_k=args.spec_k,
         spec_metrics=spec_metrics,
         generator=torch.Generator(device=dev).manual_seed(args.seed + 1),
+        mesh=mesh, rules=None if mesh is None else flagship_partition_rules(),
         device=dev)
 
     worst = (args.system_prompt_len + args.prompt_max

@@ -180,11 +180,10 @@ class ServingFleet:
                  tracer=None) -> None:
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
-        if shard_metrics is not None:
-            raise NotImplementedError(
-                "shard_metrics (mesh-shaped replicas) is not ported to "
-                "tpu_on_k8s_torch yet: the port's engines run on one card")
         self._factory = engine_factory
+        #: optional ``metrics.ShardMetrics``: each replica's mesh shape at
+        #: creation and the reshard rollouts
+        self.shard_metrics = shard_metrics
         self._admission = admission
         self._tenant_weights = tenant_weights
         self._replay = replay or ReplayPolicy()
@@ -246,6 +245,11 @@ class ServingFleet:
         # count
         self.router.set_capacity(name,
                                  int(getattr(engine, "n_chips", 1) or 1))
+        if self.shard_metrics is not None:
+            # one writer for the mesh gauges: the fleet converges to one
+            # shape, so the last replica built wins
+            self.shard_metrics.set_mesh_axes(
+                getattr(engine, "mesh_axes", {}) or {})
         rmetrics = ServingMetrics() if self._replica_metrics else None
         gateway = ServingGateway(
             engine, self._admission, tenant_weights=self._tenant_weights,
@@ -268,6 +272,9 @@ class ServingFleet:
         # long-lived server rolls out repeatedly, and keeping every dead
         # replica's model weights referenced would accumulate to OOM.
         # The record above, .metrics, .routed, and .state stay readable.
+        close = getattr(rep.engine, "close", None)
+        if close is not None:
+            close()                 # a mesh engine's workers drop theirs
         rep.engine = None
         rep.gateway = None
         rep.prefix_ids.clear()
@@ -1001,6 +1008,8 @@ class ServingFleet:
                 self.metrics.inc("rollouts_completed")
             if self._mesh_signature_locked() != ro.from_mesh:
                 self.stats["reshard_rollouts"] += 1
+                if self.shard_metrics is not None:
+                    self.shard_metrics.inc("reshard_rollouts")
             self._rollout = None
             return
 

@@ -228,7 +228,10 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    bytes_moved printed, 0 at world 1), the losses equal (a)'s; (b) every
    int8 flag on the mesh, 113 ``int8_matmul`` a step, phase 4b's losses
    bit for bit; (e) ``python -m tpu_on_k8s_torch.train_llama --config
-   tiny --fsdp -1 --steps 3`` in a subprocess;
+   tiny --fsdp -1 --steps 3`` in a subprocess; (f) ``train_step_flops`` of
+   (a)'s trainer on the mesh (the per-device count) equal to phase 4c's
+   meshless count exactly, and a ``TrainLoop`` on the mesh fed with it
+   sets a finite ``mfu`` gauge;
 9. mesh-sharded serving at ``llama2_7b`` width (after phase 8, on phase 3's
    weights made again from their seed) on a world of one rank made by
    ``initialize`` over NCCL, with the serving command channel's gloo group
@@ -249,7 +252,14 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    the totals, the mesh-axis gauges all 1; (e) a two-replica
    ``ServingFleet`` rolled from meshless to mesh replicas under load with
    zero loss (a world-1 mesh has no non-trivial axis, so the mesh
-   signature and ``reshard_rollouts`` stay as they were).
+   signature and ``reshard_rollouts`` stay as they were); (f) phase 3c's
+   int8-recipe config with every serving-time int8 and fused flag
+   (``mlp_int8``, ``head_int8``, ``mlp_fused_gateup``, ``fused_qkv``,
+   ``int8_impl="pallas"``) on phase 3's weights fused, the same requests
+   on the mesh and meshless: tokens equal, ``int8_matmul`` launches equal
+   in both engines and above 0 (``mesh_serve_int8``), the row-parallel
+   ``w_down``'s absmax all-reduce-max and fp32 sum run on the one-rank
+   group, step ms and peak memory beside (a)'s.
 
 Then one JSON line for the kernels, the card's line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -1065,7 +1075,7 @@ def engine_traffic(vocab: int):
 
 
 def drive_engine(engine, reqs, prefix, carriers, mods, clock,
-                 draft=None) -> dict:
+                 draft=None, also=()) -> dict:
     """Serve ``reqs`` on ``engine`` (two submitted per step until all are
     in; with ``prefix``, registered first and carried by ``carriers``) and
     check its flash launches: one a layer per prefill from an empty cache,
@@ -1074,7 +1084,9 @@ def drive_engine(engine, reqs, prefix, carriers, mods, clock,
     later chunk or a suffix), and, for a speculative engine, one a draft
     layer per fresh draft prefill as its ``draft`` runner counts them
     (each admission's seed and the mirrored prefix; never a suffix seed
-    after it). Returns the tokens, the launches, the prefix id and the
+    after it), and that no other kernel launched (but those in ``also``,
+    whose count is the caller's to check). Returns the tokens, the
+    launches, the prefix id and the
     times: decode steps entered with every slot busy (host clock; each
     step ends in its copy of tokens to the host), admission prefills by
     (bucket, batch) on CUDA events (no synchronize inside the run), time to
@@ -1127,7 +1139,8 @@ def drive_engine(engine, reqs, prefix, carriers, mods, clock,
         if j not in out or out[j].shape != (n,):
             fail(f"engine request {j}: {out.get(j)} for {n} new tokens")
     if (launched["flash_fwd"] != want
-            or any(c for name, c in launched.items() if name != "flash_fwd")):
+            or any(c for name, c in launched.items()
+                   if name not in ("flash_fwd", *also))):
         fail(f"engine launches {launched} for {fresh} fresh prefills "
              f"(engine stats {engine.stats}), expected {want} flash_fwd")
     torch.cuda.synchronize()
@@ -2851,6 +2864,17 @@ def fuse_gateup(params: dict, n_layers: int) -> dict:
     return out
 
 
+def fuse_qkv(params: dict, n_layers: int) -> dict:
+    """The same weights in the ``fused_qkv`` layout (q, then k, then v
+    rows)."""
+    out = dict(params)
+    for i in range(n_layers):
+        p = f"blocks.{i}.attn."
+        out[p + "wqkv.weight"] = torch.cat(
+            [out.pop(p + f"w{x}.weight") for x in "qkv"])
+    return out
+
+
 def sync_warnings(caught) -> list:
     """(file, line) of each synchronizing-call warning that
     ``torch.cuda.set_sync_debug_mode("warn")`` raised, in order."""
@@ -2953,13 +2977,14 @@ def checkpoint_cli_roundtrip(mods, dev, tmp: Path) -> None:
              "the same parameters held in memory")
 
 
-def train_loop_phase(tcfg, mods, gpu, dev, train_ms, tmp: Path) -> dict:
+def train_loop_phase(tcfg, mods, gpu, dev, train_ms, tmp: Path,
+                     p4: dict) -> dict:
     """Phase 4c: ``Trainer.fit`` at llama2_1b (remat mlp, flash), 12
     distinct seeded batches through ``device_prefetch``; a fault-free run,
     a run preempted before step 7 (``train_preemption(7)``) saving at steps
     4 and 6, and a resume from the checkpoint, whose stitched losses must
     equal the fault-free run's bit for bit. Returns the launches of the
-    three runs."""
+    three runs; the step's FLOP count goes into ``p4["flops"]``."""
     from tpu_on_k8s_torch import chaos
     from tpu_on_k8s_torch.data.prefetch import device_prefetch
     from tpu_on_k8s_torch.metrics import TrainMetrics
@@ -3009,6 +3034,7 @@ def train_loop_phase(tcfg, mods, gpu, dev, train_ms, tmp: Path) -> dict:
     flops, _ = train_step_flops(trainer, trainer.state(),
                                 torch.from_numpy(batches[0]).to(dev))
     analytic = analytic_train_flops(n_params, tokens_per_step)
+    p4["flops"] = flops
     print(f"[train-loop] {gpu}: train_step_flops (FlopCounterMode, the flash "
           f"and int8 kernels as operators with their formulas) {flops:.6e} "
           f"FLOPs a step, 6·N·T {analytic:.6e} (N {n_params:,}, T "
@@ -3789,7 +3815,9 @@ def mesh_phase(tcfg, i8cfg, mods, gpu, dev, tokens, p4: dict,
     flagship rules to model-only rules on the same mesh, the trajectory
     equal to (a)'s; (b) every int8 flag on the mesh, 113 ``int8_matmul``
     launches a step, against phase 4b; (e) ``python -m
-    tpu_on_k8s_torch.train_llama --config tiny --fsdp -1 --steps 3``.
+    tpu_on_k8s_torch.train_llama --config tiny --fsdp -1 --steps 3``; (f)
+    ``train_step_flops`` on the mesh against phase 4c's count
+    (``p4["flops"]``) and the ``mfu`` gauge of a ``TrainLoop`` on the mesh.
     Returns the launches of the counted paths."""
     import torch.distributed as dist
 
@@ -3809,8 +3837,11 @@ def mesh_phase(tcfg, i8cfg, mods, gpu, dev, tokens, p4: dict,
         default_optimizer,
         train_state_template,
     )
+    from tpu_on_k8s_torch.metrics import TrainMetrics
     from tpu_on_k8s_torch.train.checkpoint import CheckpointManager
+    from tpu_on_k8s_torch.train.compile import train_step_flops
     from tpu_on_k8s_torch.train.distributed import initialize
+    from tpu_on_k8s_torch.train.loop import TrainLoop
 
     paths = {}
     t_phase = time.perf_counter()
@@ -4009,6 +4040,32 @@ def mesh_phase(tcfg, i8cfg, mods, gpu, dev, tokens, p4: dict,
     del trainer, state
     gc.collect()    # FSDP2's hooks hold cycles
     torch.cuda.empty_cache()
+
+    # ---- (f) the per-device FLOP count on the mesh, and mfu -------------
+    trainer = sharded(tcfg, p0())
+    state = trainer.state()
+    batch = trainer.shard_batch(tokens)
+    t0 = time.perf_counter()
+    flops8, step_fn = train_step_flops(trainer, state, batch)
+    count_s = time.perf_counter() - t0
+    gauges = TrainMetrics()
+    TrainLoop(step_fn, state, (batch for _ in range(4)), log_every=2,
+              metrics=gauges, tokens_per_step=TRAIN_BATCH * TRAIN_SEQ,
+              flops_per_step=flops8, peak_flops=PEAK_BF16_FLOPS).run(4)
+    mfu = gauges.gauges.get("mfu", float("nan"))
+    print(f"[mesh] (f) {gpu}: train_step_flops of (a)'s trainer on the mesh "
+          f"(this rank's count, LocalFlopCounter) {flops8:.6e} FLOPs a step "
+          f"against phase 4c's meshless {p4['flops']:.6e}: "
+          f"{'equal' if flops8 == p4['flops'] else 'differ'} (counted in "
+          f"{count_s:.1f} s); TrainLoop on the mesh, 4 steps, log_every 2: "
+          f"mfu gauge {mfu:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s "
+          f"bf16 dense, step_seconds {gauges.gauges['step_seconds']:.4f}")
+    if flops8 != p4["flops"] or not (math.isfinite(mfu) and mfu > 0):
+        fail(f"the mesh FLOP count {flops8} (phase 4c {p4['flops']}) or its "
+             f"mfu {mfu}")
+    del trainer, state, step_fn
+    gc.collect()    # FSDP2's hooks hold cycles
+    torch.cuda.empty_cache()
     dist.destroy_process_group()
 
     # ---- (e) the CLI on the card ----------------------------------------
@@ -4036,13 +4093,15 @@ def mesh_serve_phase(cfg, mods, gpu, dev, plain_a, serving, convert,
                      metrics_mod) -> dict:
     """Phase 9: mesh-sharded serving at llama2_7b width on a world of one
     rank (module docstring). Returns the launches of its mesh paths:
-    ``mesh_serve`` (the mesh engines of (a)) and ``mesh_serve_w8`` (the
-    W8A16 tree's quantization and its mesh engine, (b))."""
+    ``mesh_serve`` (the mesh engines of (a)), ``mesh_serve_w8`` (the
+    W8A16 tree's quantization and its mesh engine, (b)) and
+    ``mesh_serve_int8`` (the int8-recipe mesh engine of (f))."""
     import torch.distributed as dist
 
     from tpu_on_k8s_torch.models.params import init_params
     from tpu_on_k8s_torch.parallel.mesh import serving_mesh
     from tpu_on_k8s_torch.parallel.serving import shutdown_mesh_workers
+    from tpu_on_k8s_torch.parallel.sharded import TensorParallel
     from tpu_on_k8s_torch.serve import (
         FleetRolloutPolicy,
         ProbeConfig,
@@ -4067,7 +4126,7 @@ def mesh_serve_phase(cfg, mods, gpu, dev, plain_a, serving, convert,
     shape = dict(n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
                  clock=time.monotonic, device=dev)
 
-    def serve(key, tree_cfg, tree, **kw):
+    def serve(key, tree_cfg, tree, also=(), **kw):
         gc.collect()        # drive_engine's wrapper ties an engine in a cycle
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4077,7 +4136,8 @@ def mesh_serve_phase(cfg, mods, gpu, dev, plain_a, serving, convert,
                      for model in (engine._prefill_model,
                                    engine._step_model)
                      for n, t in model.named_parameters())
-        run = drive_engine(engine, reqs, None, set(), mods, time.monotonic)
+        run = drive_engine(engine, reqs, None, set(), mods, time.monotonic,
+                           also=also)
         run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         run["shared"] = shared
         run["pages_in_use"] = engine.pages_in_use
@@ -4266,9 +4326,69 @@ def mesh_serve_phase(cfg, mods, gpu, dev, plain_a, serving, convert,
         fail("the fleet's roll onto mesh replicas lost requests")
     del fleet, out
     gc.collect()
+
+    # ---- (f) the int8 recipes and the fused rows on the mesh -------------
+    # phase 3c's recipe with the fused layouts, on phase 3's weights fused
+    # (the unfused tree freed): the MLP's and the head's products on the
+    # int8 kernel, w_down row parallel (its absmax all-reduced, its fp32
+    # partial products summed, on the one-rank group)
+    icfg = dataclasses.replace(cfg, mlp_int8=True, head_int8=True,
+                               mlp_fused_gateup=True, fused_qkv=True,
+                               int8_impl="pallas")
+    fused = fuse_qkv(fuse_gateup(params, cfg.n_layers), cfg.n_layers)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    also = ("int8_matmul",)
+    int8_plain = serve("(f) int8 recipe + fused, meshless", icfg, fused,
+                       also=also)[1]
+    # the collectives of the model axis, counted over the mesh run
+    calls = {"reduce_max": 0, "reduce": 0}
+    originals = {name: getattr(TensorParallel, name) for name in calls}
+
+    def counted(name):
+        def call(self, t):
+            calls[name] += 1
+            return originals[name](self, t)
+        return call
+
+    for name in calls:
+        setattr(TensorParallel, name, counted(name))
+    try:
+        reset_counts(mods)
+        int8_mesh = serve("(f) int8 recipe + fused, mesh", icfg, fused,
+                          mesh=mesh, also=also)[1]
+        paths["mesh_serve_int8"] = read_counts(mods)
+    finally:
+        for name, call in originals.items():
+            setattr(TensorParallel, name, call)
+    same = all(np.array_equal(int8_mesh["tokens"][j], int8_plain["tokens"][j])
+               for j in int8_mesh["tokens"])
+    n8 = (int8_mesh["launched"]["int8_matmul"],
+          int8_plain["launched"]["int8_matmul"])
+    print(f"[mesh-serve] (f) mlp_int8 + head_int8 + mlp_fused_gateup + "
+          f"fused_qkv, int8_impl pallas: mesh tokens equal the meshless "
+          f"engine's token for token: {same}; int8_matmul launches mesh "
+          f"{n8[0]}, meshless {n8[1]}; on the one-rank group the row-parallel "
+          f"w_down's all-reduce-max ran {calls['reduce_max']} times (x and "
+          f"w a call), the sums {calls['reduce']} times (wo, w_down, the "
+          f"embedding); {gpu}: decode step median "
+          f"{statistics.median(int8_mesh['step_ms']):.2f} ms on the mesh, "
+          f"{statistics.median(int8_plain['step_ms']):.2f} ms meshless "
+          f"((a) dense: {statistics.median(runs['mesh_dense']['step_ms']):.2f}"
+          f" / {statistics.median(runs['dense']['step_ms']):.2f} ms); peak "
+          f"{int8_mesh['peak_gb']:.2f} / {int8_plain['peak_gb']:.2f} GB "
+          f"((a) dense: {runs['mesh_dense']['peak_gb']:.2f} / "
+          f"{runs['dense']['peak_gb']:.2f} GB)")
+    if (not same or n8[0] != n8[1] or not n8[0]
+            or not calls["reduce_max"] or calls["reduce_max"] % 2
+            or calls["reduce"] < calls["reduce_max"] // 2):
+        fail(f"the world-1 int8-recipe mesh engine: tokens equal {same}, "
+             f"int8 launches {n8}, collectives {calls}")
+    del fused
+    gc.collect()
     shutdown_mesh_workers()
     dist.destroy_process_group()
-    del params
     torch.cuda.empty_cache()
     print(f"[time] phase 9 {time.perf_counter() - t_phase:.1f} s")
     return paths
@@ -4955,7 +5075,7 @@ def run(tmp: Path) -> int:
     # ---- 4c. the training loop and checkpoints at llama2_1b -------------
     t0 = time.perf_counter()
     by_path["train_loop"] = train_loop_phase(tcfg, mods, gpu, dev, train_ms,
-                                             tmp)
+                                             tmp, p4)
     print(f"[time] phase 4c {time.perf_counter() - t0:.1f} s")
 
     # ---- 4d. the remat policies at llama2_1b ---------------------------

@@ -9,9 +9,9 @@ validation, and ``shard_pytree``'s placements. Then the port's own
 layout: ``flagship_partition_rules`` and ``serving_partition_rules`` leaf for
 leaf against the reference's rules (a port weight ``[out, in]`` is the
 transpose of a reference ``kernel [L, in, out]``), a model laid out by
-``Trainer(..., mesh=...)`` as the rules say, and the meshes and layouts the
-port refuses: the fused layouts and the int8 recipes with ``model`` > 1, a
-``seq`` axis > 1 and a head count ``model`` does not divide.
+``Trainer(..., mesh=...)`` as the rules say (the fused layouts, the int8
+recipes and a head count ``model`` does not divide among them), and the
+meshes the port refuses: a ``seq`` axis > 1.
 """
 from __future__ import annotations
 
@@ -352,10 +352,36 @@ def test_trainer_lays_the_model_out_as_the_rules_say():
     (dict(head_int8=True), "int8"),
 ])
 def test_model_axis_refuses_fused_and_int8_layouts(changes, match):
+    """With ``model`` 2 the fused and int8 layouts are laid out as the
+    rules say, not refused: a fused weight is a plain split of the
+    reference's q | k | v (gate | up) rows, so this rank (fsdp 0, model
+    0) holds their first block, as XLA stores it (its block gathers the
+    product whole and takes its heads); an int8 projection is the same
+    column- or row-parallel ``DTensor`` a bf16 one is."""
     mesh = create_mesh(MeshConfig(fsdp=4, model=2), device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        Trainer(_model(**changes), rules=flagship_partition_rules(),
-                mesh=mesh)
+    model = _model(**changes)
+    whole = {n: p.detach().clone() for n, p in model.named_parameters()}
+    trainer = Trainer(model, rules=flagship_partition_rules(), mesh=mesh)
+    params = dict(trainer.model.named_parameters())
+    cfg = trainer.model.cfg
+    if match == "fused":
+        name = ("blocks.0.attn.wqkv.weight" if cfg.fused_qkv
+                else "blocks.0.mlp.w_gateup.weight")
+        w = params[name]
+        assert w.placements == (Shard(1), Shard(0))
+        n, k = whole[name].shape
+        assert torch.equal(w.to_local(), whole[name][:n // 2, :k // 4])
+        block = trainer.model.blocks[0]
+        assert block.attn.tp.size == 2 and not block.attn.compact
+        assert block.mlp.tp.size == 2 and not block.mlp.compact
+    else:
+        for name, dim in (("blocks.1.attn.wq.weight", 0),
+                          ("blocks.1.attn.wo.weight", 1),
+                          ("blocks.0.mlp.w_down.weight", 1),
+                          ("lm_head", 1)):
+            assert params[name].placements[-1] == Shard(dim), name
+        flag = next(iter(changes))
+        assert getattr(cfg, flag)
 
 
 def test_fused_and_int8_layouts_run_on_fsdp_meshes():
@@ -370,12 +396,22 @@ def test_fused_and_int8_layouts_run_on_fsdp_meshes():
 
 
 def test_indivisible_heads_raise_naming_the_head_count():
-    """tiny has 4 query heads on 2 kv heads: model 4 would split a kv head
-    across ranks (the reference's XLA reshards it; the port runs whole
-    heads a rank)."""
+    """tiny has 4 query heads on 2 kv heads: model 4 splits a kv head
+    across ranks, as the rules split wk's rows. The reference's XLA
+    reshards it; the port lays it out as the rules say and each rank runs
+    its own query head against both kv heads, gathered whole: this rank's
+    query head 0 reads kv head 0."""
     mesh = create_mesh(MeshConfig(fsdp=2, model=4), device="cpu")
-    with pytest.raises(ShardingValidationError, match="n_kv_heads=2"):
-        Trainer(_model(), rules=flagship_partition_rules(), mesh=mesh)
+    trainer = Trainer(_model(), rules=flagship_partition_rules(), mesh=mesh)
+    wk = dict(trainer.model.named_parameters())["blocks.0.attn.wk.weight"]
+    assert wk.placements == (Shard(1), Shard(0))
+    assert wk.to_local().shape == (2 * 16 // 4, 64 // 2)   # half a head
+    attn = trainer.model.blocks[0].attn
+    assert (attn.own_q, attn.own_kv, attn.kv_index) == (True, False, (0,))
+    with pytest.raises(ShardingValidationError, match="model=3"):
+        Trainer(_model(), rules=flagship_partition_rules(),
+                mesh=create_mesh(MeshConfig(fsdp=2, model=3),
+                                 device="cpu", ranks=range(6)))
 
 
 def test_seq_axis_raises():

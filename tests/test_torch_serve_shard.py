@@ -34,16 +34,13 @@ import gc
 import os
 import pickle
 import re
-import socket
-import time
-from pathlib import Path
 from typing import Callable, Dict
 
 import numpy as np
 import pytest
 import torch
 
-from test_torch_mesh_train import case_result, run_cases
+from test_torch_mesh_train import World, _free_port, case_result, run_cases
 from tpu_on_k8s_torch.parallel.partition import ShardingValidationError
 
 # tiny shapes: one intra-op thread, so that parallel test workers do not
@@ -57,6 +54,15 @@ MESHES = {
     "model4": dict(model=4),
     "data2_model2": dict(data=2, model=2),
     "fsdp2_model2": dict(fsdp=2, model=2),
+}
+#: rule sets whose layouts XLA reshards, before the serving rules: (the
+#: port's rule, the reference's on its layer-stacked leaves)
+RULES = {
+    "attn_whole": ((r"attn\.", ()), (r"attn/", ())),
+    "norm_split": ((r"attn_norm", ("model",)),
+                   (r"attn_norm", (None, "model"))),
+    "head_hidden": ((r"lm_head", ("model", None)),
+                    (r"lm_head", ("model", None))),
 }
 #: the stats both engines keep alike
 STATS = ("steps", "emitted", "admitted", "prefill_positions",
@@ -104,6 +110,14 @@ class _Port:
             flagship_partition_rules,
         )
         return flagship_partition_rules()
+
+    def rules(self, kind):
+        """The rule set ``kind`` of ``RULES`` on the port's leaves."""
+        from tpu_on_k8s_torch.models.transformer import (
+            serving_partition_rules,
+        )
+        from tpu_on_k8s_torch.parallel.partition import PartitionRule
+        return [PartitionRule(*RULES[kind][0])] + serving_partition_rules()
 
     @staticmethod
     def kv_shard_shape(eng):
@@ -175,6 +189,15 @@ class _Jax:
     def flagship_rules(self):
         from tpu_on_k8s.models.transformer import flagship_partition_rules
         return flagship_partition_rules()
+
+    def rules(self, kind):
+        """The rule set ``kind`` of ``RULES`` on the reference's leaves."""
+        from jax.sharding import PartitionSpec as P
+
+        from tpu_on_k8s.models.transformer import serving_partition_rules
+        from tpu_on_k8s.parallel.partition import PartitionRule
+        pattern, spec = RULES[kind][1]
+        return [PartitionRule(pattern, P(*spec))] + serving_partition_rules()
 
     @staticmethod
     def kv_shard_shape(eng):
@@ -482,6 +505,58 @@ def case_cache_int8(api):
                 adopted=_adopt(api.engine(n_slots=2, cfg=cfg), h, 10))
 
 
+def case_recipe_int8(api):
+    """An int8-recipe engine (``mlp_int8`` + ``head_int8``: decode runs
+    them too) on model 2 against the meshless one: the column-parallel
+    products on local blocks, the row-parallel ``w_down`` quantized over
+    the whole K, its fp32 partial products summed."""
+    cfg = api.config(mlp_int8=True, head_int8=True)
+    prompts = _prompts(24, (6, 9))
+    got = {}
+    for mesh in (None, "model2"):
+        eng = api.engine(n_slots=2, cfg=cfg, mesh=mesh)
+        ids = [eng.submit(p, 8) for p in prompts]
+        got[mesh or "meshless"] = _tokens(eng.run(), ids)
+    return got
+
+
+def case_fused(api):
+    """A fused engine (``fused_qkv`` + ``mlp_fused_gateup``, GQA rep 2) on
+    model 2: each rank's q heads read its own kv head, and gate and up
+    are its own halves."""
+    cfg = api.config(n_kv_heads=2, fused_qkv=True, mlp_fused_gateup=True)
+    prompts, news = _prompts(25, (5, 12, 7)), (7, 6, 5)
+    eng = api.engine(n_slots=2, mesh="model2", cfg=cfg,
+                     params=api.params("fused"))
+    ids = [eng.submit(p, n) for p, n in zip(prompts, news)]
+    return dict(kv=api.kv_shard_shape(eng), tokens=_tokens(eng.run(), ids))
+
+
+def case_uneven_heads(api):
+    """``tiny``'s heads (4 query on 2 kv) at model 4: the 2 kv heads do not
+    divide, so the pool holds both on every rank (the reference's
+    ``kv_sharding``) and a rank's query head reads them gathered."""
+    cfg = api.config(n_kv_heads=2)
+    prompts, news = _prompts(26, (6, 10)), (8, 6)
+    eng = api.engine(n_slots=2, mesh="model4", cfg=cfg,
+                     params=api.params("gqa"))
+    ids = [eng.submit(p, n) for p, n in zip(prompts, news)]
+    rep = eng.shard_report()
+    return dict(kv=api.kv_shard_shape(eng), tokens=_tokens(eng.run(), ids),
+                kv_per_chip=int(rep["kv_bytes_per_chip"]),
+                kv_total=int(rep["kv_bytes_total"]))
+
+
+def case_rules(api, kind):
+    """A rule set whose layout XLA reshards (``RULES``), on model 2. (The
+    pools differ by design where attention runs whole: the reference
+    splits its kv heads all the same, the port's holds them all.)"""
+    prompts, news = _prompts(27, (6, 9)), (7, 5)
+    eng = api.engine(n_slots=2, mesh="model2", rules=api.rules(kind))
+    ids = [eng.submit(p, n) for p, n in zip(prompts, news)]
+    return dict(tokens=_tokens(eng.run(), ids))
+
+
 #: name → (case, its arguments); every case runs in both packages
 CASES: Dict[str, tuple] = {
     "staggered_model2": (case_staggered, (2,)),
@@ -501,6 +576,10 @@ CASES: Dict[str, tuple] = {
     "fsdp": (case_fsdp, ()),
     "paged_data": (case_paged_data, ()),
     "cache_int8": (case_cache_int8, ()),
+    "recipe_int8": (case_recipe_int8, ()),
+    "fused": (case_fused, ()),
+    "uneven_heads": (case_uneven_heads, ()),
+    **{f"rules_{kind}": (case_rules, (kind,)) for kind in RULES},
 }
 
 
@@ -538,8 +617,9 @@ def port_uneven_rules(api):
 def port_rules_layout(api):
     """The rules decide the serving layout: an MLP they leave whole over
     ``model`` is whole on each rank (no all-reduce after ``w_down``) and
-    the tokens equal the meshless engine's; attention they leave whole is
-    refused before the workers hear of the engine."""
+    the tokens equal the meshless engine's; so do attention they leave
+    whole (every rank runs it, and its pool holds every kv head) and a
+    whole ``wo`` after column-parallel q/k/v (their heads gathered)."""
     from tpu_on_k8s_torch.models.transformer import serving_partition_rules
     from tpu_on_k8s_torch.parallel.partition import PartitionRule
     prompt = _prompts(20, (7,))[0]
@@ -551,11 +631,13 @@ def port_rules_layout(api):
                w_up=list(blocks[0].mlp.w_up.weight.shape),
                w_down_tp=blocks[0].mlp.w_down.tp is not None,
                wo_tp=blocks[0].attn.wo.tp is not None)
-    try:
-        api.engine(n_slots=2, mesh="model2", rules=[
-            PartitionRule(r"attn\.", ())] + serving_partition_rules())
-    except NotImplementedError as e:
-        out["refused"] = str(e)
+    for name, rule in (("attn_whole", r"attn\."), ("wo_whole", r"attn\.wo")):
+        eng = api.engine(n_slots=2, mesh="model2", rules=[
+            PartitionRule(rule, ())] + serving_partition_rules())
+        out[name] = dict(
+            tokens=np.asarray(_run_one(eng, prompt, 6)).tolist(),
+            kv=list(eng._cache.k.shape),
+            wq=list(eng._prefill_model.blocks[0].attn.wq.weight.shape))
     return out
 
 
@@ -629,36 +711,6 @@ def _cli_rank(rank: int, world: int, port: int, argv: list,
         pickle.dump({r: np.asarray(t).tolist() for r, t in got.items()}, f)
 
 
-class _Spawned:
-    """Ranks started without waiting: ``results()`` joins them under a
-    timeout (then terminates them: a hang fails the module's tests, not
-    the suite's clock) and returns every rank's pickled result."""
-
-    def __init__(self, fn: Callable, args: tuple, nprocs: int, out: Path,
-                 timeout: float) -> None:
-        import torch.multiprocessing as mp
-        self.out, self.nprocs = out, nprocs
-        self.deadline = time.monotonic() + timeout
-        self.ctx = mp.start_processes(fn, args=args, nprocs=nprocs,
-                                      join=False, start_method="spawn")
-
-    def results(self) -> list:
-        try:
-            while not self.ctx.join(
-                    timeout=max(self.deadline - time.monotonic(), 0.1)):
-                if time.monotonic() > self.deadline:
-                    raise TimeoutError("the spawned world did not finish")
-        finally:
-            for p in self.ctx.processes:
-                if p.is_alive():
-                    p.terminate()
-        out = []
-        for r in range(self.nprocs):
-            with open(f"{self.out}.{r}", "rb") as f:
-                out.append(pickle.load(f))
-        return out
-
-
 def _shard_world(rank: int, world: int, trees: dict):
     from tpu_on_k8s_torch.parallel.mesh import MeshConfig, create_mesh
     from tpu_on_k8s_torch.parallel.serving import (
@@ -685,12 +737,6 @@ def _shard_world(rank: int, world: int, trees: dict):
         shutdown_mesh_workers()
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 CLI_ARGV = ["--config", "tiny", "--device", "cpu", "--n-requests", "4",
             "--max-new-tokens", "6"]
 
@@ -700,7 +746,8 @@ CLI_ARGV = ["--config", "tiny", "--device", "cpu", "--n-requests", "4",
 @pytest.fixture(scope="module")
 def trees():
     """The JAX weights of the fixture's config (and of its GQA-rep-2
-    variant), and the port's from them."""
+    variant, and that variant's fused layout), and the port's from
+    them."""
     import jax
     import jax.numpy as jnp
 
@@ -714,7 +761,10 @@ def trees():
     jtrees = {
         "base": Transformer(cfg).init(jax.random.key(1), tok)["params"],
         "gqa": Transformer(dataclasses.replace(cfg, n_kv_heads=2)).init(
-            jax.random.key(2), tok)["params"]}
+            jax.random.key(2), tok)["params"],
+        "fused": Transformer(dataclasses.replace(
+            cfg, n_kv_heads=2, fused_qkv=True, mlp_fused_gateup=True)).init(
+                jax.random.key(3), tok)["params"]}
     ptrees = {k: pparams.from_jax_params(jax.tree.map(np.asarray, t),
                                          torch.float32, "cpu")
               for k, t in jtrees.items()}
@@ -725,14 +775,13 @@ def trees():
 def worlds(trees, tmp_path_factory):
     """Both spawned worlds, started before the JAX cases compute."""
     tmp = tmp_path_factory.mktemp("serve_shard")
-    shard = _Spawned(_rank_main, (WORLD, str(tmp / "store"), _shard_world,
-                                  (trees[1],), str(tmp / "shard")),
-                     WORLD, tmp / "shard", timeout=300)
-    cli = _Spawned(_cli_rank, (2, _free_port(),
-                               [*CLI_ARGV, "--model-axis", "2"],
-                               str(tmp / "cli")), 2, tmp / "cli",
-                   timeout=300)
-    return shard, cli
+    shard = World(_rank_main, (WORLD, str(tmp / "store"), _shard_world,
+                               (trees[1],), str(tmp / "shard")),
+                  WORLD, timeout=300)
+    cli = World(_cli_rank, (2, _free_port(),
+                            [*CLI_ARGV, "--model-axis", "2"],
+                            str(tmp / "cli")), 2, timeout=300)
+    return (shard, tmp / "shard"), (cli, tmp / "cli")
 
 
 @pytest.fixture(scope="module")
@@ -741,9 +790,9 @@ def results(worlds, trees):
     the port's from the world."""
     api = _Jax(trees[0])
     want = {name: fn(api, *args) for name, (fn, args) in CASES.items()}
-    shard, cli = worlds
-    got = shard.results()
-    return want, got[0], got[1:], cli.results()
+    (shard, shard_out), (cli, cli_out) = worlds
+    got = shard.results(shard_out)
+    return want, got[0], got[1:], cli.results(cli_out)
 
 
 # ---- the tests --------------------------------------------------------------
@@ -806,7 +855,32 @@ def test_rules_decide_the_serving_layout(results):
     assert got["tokens"][0] == got["tokens"][1]
     assert got["w_up"] == [128, 64]                 # tiny d_ff x d_model
     assert not got["w_down_tp"] and got["wo_tp"]
-    assert "blocks.0.attn" in got["refused"] and "3c" in got["refused"]
+    # attention left whole: whole weights, every kv head in the pool
+    whole = got["attn_whole"]
+    assert whole["tokens"] == got["tokens"][0]
+    assert whole["wq"] == [64, 64] and whole["kv"][3] == 4
+    # a whole wo after column-parallel heads: the rank's heads, gathered
+    wo = got["wo_whole"]
+    assert wo["tokens"] == got["tokens"][0]
+    assert wo["wq"] == [32, 64] and wo["kv"][3] == 2
+
+
+def test_layouts_xla_reshards_serve_the_reference_tokens(results):
+    """The int8 recipes, the fused rows, indivisible kv heads, whole
+    attention, a split norm and a head split on its hidden dim: the tokens
+    equal the meshless engine's (the case above holds them to the JAX
+    engine's on the same layout), and the pool's bytes are what a rank
+    holds."""
+    got = results[1]
+    r = case_result(got, "recipe_int8")
+    assert r["model2"] == r["meshless"]
+    assert case_result(got, "fused")["kv"] == [2, 2, 64, 1, 16]
+    r = case_result(got, "uneven_heads")
+    assert r["kv"] == [2, 2, 64, 2, 16]
+    assert r["kv_per_chip"] == r["kv_total"]       # the whole pool
+    for kind in RULES:
+        assert case_result(got, f"rules_{kind}")["tokens"] == case_result(
+            got, "rules_attn_whole")["tokens"]
 
 
 def test_cache_int8_on_a_mesh(results):
@@ -884,7 +958,7 @@ def test_serving_cuts_follow_the_rules(int8):
     from tpu_on_k8s_torch.parallel.sharded import serving_cuts
     w = "weight_q" if int8 else "weight"
     rules = serving_partition_rules(int8=int8)
-    cuts, rows = serving_cuts(_tiny_tree(int8), rules, 2)
+    cuts, rows = serving_cuts(_tiny_tree(int8), rules)
     for i in range(2):
         for mod in ("attn.wq", "attn.wk", "attn.wv", "mlp.w_gate",
                     "mlp.w_up"):
@@ -901,19 +975,29 @@ def test_serving_cuts_follow_the_rules(int8):
     assert {k: v for k, v in cuts.items() if "blocks" not in k} == {
         "embed": 0, **head}
     cuts, rows = serving_cuts(_tiny_tree(int8),
-                              [PartitionRule(r"mlp\.", ())] + rules, 2)
+                              [PartitionRule(r"mlp\.", ())] + rules)
     assert not any(".mlp." in k for k in cuts) and rows == [
         "blocks.0.attn.wo", "blocks.1.attn.wo"]
 
 
+def _whole(*names):
+    """A check that no leaf under any of ``names`` is cut."""
+    return lambda cuts, rows: not any(k.startswith(names) for k in cuts)
+
+
 @pytest.mark.parametrize("rule,error,names", [
-    ((r"attn\.", ()), NotImplementedError, "blocks.0.attn"),
-    ((r"attn\.wo", ()), NotImplementedError, "blocks.0.attn"),
-    ((r"mlp\.w_down", ()), NotImplementedError, "blocks.0.mlp"),
-    ((r"attn_norm", ("model",)), NotImplementedError,
-     "blocks.0.attn_norm.scale"),
-    ((r"final_norm", ("model",)), NotImplementedError, "final_norm.scale"),
-    ((r"lm_head", ("model", None)), NotImplementedError, "lm_head"),
+    ((r"attn\.", ()), None, lambda cuts, rows: _whole("blocks.0.attn.")(
+        cuts, rows) and rows == ["blocks.0.mlp.w_down", "blocks.1.mlp.w_down"]),
+    ((r"attn\.wo", ()), None, lambda cuts, rows: "blocks.0.attn.wo.weight"
+     not in cuts and cuts["blocks.0.attn.wq.weight"] == 0
+     and "blocks.0.attn.wo" not in rows),
+    ((r"mlp\.w_down", ()), None, lambda cuts, rows: "blocks.0.mlp.w_down.weight"
+     not in cuts and cuts["blocks.1.mlp.w_up.weight"] == 0
+     and rows == ["blocks.0.attn.wo", "blocks.1.attn.wo"]),
+    ((r"attn_norm", ("model",)), None, _whole("blocks.0.attn_norm")),
+    ((r"final_norm", ("model",)), None, _whole("final_norm")),
+    ((r"lm_head", ("model", None)), None,
+     lambda cuts, rows: cuts["lm_head"] == 0),
     ((r"attn\.wq\.weight", (None, None, "model")),
      ShardingValidationError, "blocks.0.attn.wq.weight"),
     ((r"attn\.wo\.weight_scale", ("model",)), ShardingValidationError,
@@ -922,15 +1006,22 @@ def test_serving_cuts_follow_the_rules(int8):
         "head-hidden", "dim-2", "row-scale-split"])
 def test_serving_cuts_refuse_what_a_serving_model_cannot_run(rule, error,
                                                              names):
-    """A layout the serving model cannot run raises before anything moves,
-    naming the leaf or the block."""
+    """A layout no projection can run raises before anything moves, naming
+    the leaf (a ``model`` dim past the weight's rank, a scale split against
+    its projection's role); the layouts XLA reshards give their cuts
+    (``names``: a check of the cuts and the row-parallel projections): a
+    projection the rules leave whole keeps every leaf, a split norm stays
+    whole, a head split on its hidden dim is cut on dim 0."""
     from tpu_on_k8s_torch.models.transformer import serving_partition_rules
     from tpu_on_k8s_torch.parallel.partition import PartitionRule
     from tpu_on_k8s_torch.parallel.sharded import serving_cuts
     int8 = "scale" in rule[0]
+    rules = [PartitionRule(*rule)] + serving_partition_rules(int8=int8)
+    if error is None:
+        assert names(*serving_cuts(_tiny_tree(int8), rules))
+        return
     with pytest.raises(error, match=re.escape(names)):
-        serving_cuts(_tiny_tree(int8), [PartitionRule(*rule)]
-                     + serving_partition_rules(int8=int8), 2)
+        serving_cuts(_tiny_tree(int8), rules)
 
 
 @pytest.mark.parametrize("op,shapes", [

@@ -325,6 +325,46 @@ class TestFlopCount:
                                     _tokens(b, l + 1))
         assert flops == want
 
+    @pytest.mark.parametrize("shape", [dict(fsdp=1), dict(fsdp=1, model=1)],
+                             ids=["fsdp", "fsdp_model"])
+    def test_train_step_flops_on_a_world_1_mesh_is_the_meshless_count(
+            self, shape):
+        """F5: on a mesh of one rank (what the card runs) the count is the
+        meshless step's exactly, the state is unchanged, and a
+        ``TrainLoop`` fed with it sets its ``mfu`` gauge."""
+        import torch.distributed as dist
+
+        from tpu_on_k8s_torch.models.transformer import (
+            flagship_partition_rules,
+        )
+        from tpu_on_k8s_torch.parallel.mesh import MeshConfig, create_mesh
+        from tpu_on_k8s_torch.train.distributed import local_world
+
+        tokens = _tokens(2, 33)
+        _, plain = _tiny_trainer(attn_impl="flash")
+        want, _ = train_step_flops(plain, plain.state(), tokens)
+        assert local_world("cpu")
+        try:
+            cfg, trainer = _tiny_trainer(attn_impl="flash")
+            trainer = Trainer(trainer.model, rules=flagship_partition_rules(),
+                              mesh=create_mesh(MeshConfig(**shape),
+                                               device="cpu"))
+            state = trainer.state()
+            before = [p.full_tensor().clone()
+                      for p in trainer.model.parameters()]
+            flops, step_fn = train_step_flops(trainer, state, tokens)
+            assert flops == want
+            assert all(torch.equal(a, b.full_tensor()) for a, b in
+                       zip(before, trainer.model.parameters()))
+            assert all(p.grad is None for p in trainer.model.parameters())
+            metrics = TrainMetrics(registry=None)
+            TrainLoop(step_fn, state, _repeat(tokens), log_every=2,
+                      metrics=metrics, flops_per_step=flops,
+                      peak_flops=1e12).run(2)
+            assert metrics.gauges["mfu"] > 0
+        finally:
+            dist.destroy_process_group()
+
     def test_the_port_leaves_the_environment_as_the_user_set_it(
             self, monkeypatch):
         """The reference's compile-cache and libtpu flags have no eager

@@ -79,8 +79,10 @@ every copy, gather, scatter, export and checksum runs over all of them.
 default ``serving_partition_rules``): ``_ShardPlan`` holds the layout. The
 two models are laid out by ``parallel/sharded.shard_serving_model``
 (tensor parallelism over ``model``: a rank runs its H/model query heads and
-Hkv/model kv heads, the logits are gathered whole before any token is
-chosen; FSDP2 over ``fsdp``), every KV cache holds the rank's kv heads, and
+Hkv/model kv heads, or the heads gathered whole where ``model`` does not
+divide them or the rules leave attention whole; the logits are gathered
+whole before any token is chosen; FSDP2 over ``fsdp``), every KV cache
+holds the rank's kv heads (every kv head where they are not split), and
 the dense slot pool puts slots ``[r·S/d, (r+1)·S/d)`` on ``data`` rank r
 (the paged pool, and each prefill, run whole on every ``data`` rank). The
 engine is the **driver**: all its host state stays here, and every device
@@ -467,7 +469,10 @@ class _ShardPlan:
     ``put_params`` lays a model out (``sharded.shard_serving_model``).
     Caches: every leaf ``[L, B, len, Hkv, ...]`` (k, v, and an int8
     cache's scales) holds this rank's kv heads ``[r·Hkv/m, (r+1)·Hkv/m)``
-    on dim 3 (``kv_shapes``; ``put_cache`` cuts a whole payload's, the
+    on dim 3 where the layout runs kv heads head parallel and ``m``
+    divides them (``kv_split``), else every kv head, as the reference's
+    ``kv_sharding`` replicates a dim the axis does not divide
+    (``kv_shapes``; ``put_cache`` cuts a whole payload's, the
     reshard-on-import half, and ``gather_to_driver`` joins them again for
     an export). The dense slot pool puts slot rows ``[r·S/d, (r+1)·S/d)``
     on ``data`` rank r where d divides S (``rows_on_data``); a decode step
@@ -479,13 +484,18 @@ class _ShardPlan:
     def __init__(self, mesh, params: Dict[str, torch.Tensor], rules,
                  cfg: TransformerConfig, n_slots: int, paged: bool) -> None:
         from tpu_on_k8s_torch.parallel.partition import named_sharding
-        from tpu_on_k8s_torch.parallel.sharded import check_mesh, serving_cuts
+        from tpu_on_k8s_torch.parallel.sharded import (
+            check_mesh,
+            serving_layout,
+        )
         self.mesh = mesh
         self.rules = tuple(rules)
         named_sharding(params, mesh, self.rules)
         check_mesh(cfg, mesh)
         sizes = mesh_shape(mesh)
-        serving_cuts(params, self.rules, sizes[AXIS_MODEL])
+        #: whether the caches hold this rank's kv heads (else every one)
+        self.kv_split = serving_layout(cfg, params, self.rules,
+                                       sizes[AXIS_MODEL]).kv_split
         self.axes = mesh_axes(mesh)
         self.n_chips = int(mesh.size())
         self.n_model = sizes[AXIS_MODEL]
@@ -508,9 +518,14 @@ class _ShardPlan:
         #: this rank's slot rows of the pool
         self.rows = slice(start, start + n)
 
+    @property
+    def kv_parts(self) -> int:
+        """The ranks the kv heads are split over (1: each holds all)."""
+        return self.n_model if self.kv_split else 1
+
     def kv_shapes(self, shapes: CacheShapes) -> CacheShapes:
         """``shapes`` with dim 3 (kv heads) cut to this rank's."""
-        return {name: ((*shape[:3], shape[3] // self.n_model, *shape[4:]),
+        return {name: ((*shape[:3], shape[3] // self.kv_parts, *shape[4:]),
                        dtype)
                 for name, (shape, dtype) in shapes.items()}
 
@@ -525,8 +540,9 @@ class _ShardPlan:
         reshard-on-import half, whatever mesh the leaves came from."""
         out = {}
         for name, t in leaves.items():
-            n = t.shape[3] // self.n_model
-            out[name] = t.narrow(3, self.model_rank * n, n)
+            n = t.shape[3] // self.kv_parts
+            start = self.model_rank * n if self.kv_split else 0
+            out[name] = t.narrow(3, start, n)
         return out
 
     def owner(self, slot: int) -> int:
@@ -570,7 +586,8 @@ class _ShardPlan:
             return None
         out = None
         if self.data_rank == src_data:
-            out = {name: self._gather(t, self.model_group, self.n_model, 3)
+            out = {name: (self._gather(t, self.model_group, self.n_model, 3)
+                          if self.kv_split else t)
                    for name, t in leaves.items()}
         if src_data != 0 and self.model_rank == 0:
             if out is None:

@@ -41,9 +41,11 @@ fp32 absmax scale per (token, kv head): ``quantize_kv`` at every append,
 ``fused_qkv`` keeps one ``wqkv`` weight ``[(H + 2·Hkv)·Dh, D]`` (q, then k,
 then v rows), the reference's ``attn/wqkv/kernel`` transposed, in training
 and serving alike. Under a mesh (``parallel/sharded.py``) the projections
-run tensor-parallel on local heads (H/model query heads a rank), and
+run tensor-parallel on local heads (H/model query heads a rank, or every
+head gathered where ``model`` does not divide them: ``Attention.tp``), and
 ``embed``, ``lm_head`` and the tied head are vocab-sharded ``DTensor``s:
-``_embed`` and ``_logits`` gather their products over the ``model`` axis.
+``_embed`` and ``_logits`` gather their products over the ``model`` axis;
+the int8 recipes run on the ranks' local blocks (``_int8_on_blocks``).
 A serving model (``sharded.shard_serving_model``) holds the same blocks as
 plain local tensors: row-parallel projections and the vocab-parallel
 embedding and head call their ``tp`` group's collectives.
@@ -65,7 +67,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -381,6 +383,9 @@ class Dense(nn.Linear):
     #: the tensor-parallel group a row-parallel serving projection sums
     #: its partial products over (None: the whole product is here)
     tp = None
+    #: on a ``model`` axis: 0 column parallel (the rank's output rows), 1
+    #: row parallel (its input columns), None whole (``_in_width``)
+    role = None
 
     def __init__(self, n_in: int, n_out: int, cfg: TransformerConfig):
         super().__init__(n_in, n_out, bias=cfg.use_bias,
@@ -409,14 +414,59 @@ def _int8_mm(impl: str):
 class Int8Dense(Dense):
     """``Dense`` whose matmul runs the int8-forward path on the weight cast
     to ``cfg.dtype``; the parameter is the same, so the int8 recipes apply
-    to a checkpoint as it is."""
+    to a checkpoint as it is. On a ``model`` axis the kernel sees local
+    blocks: a column-parallel product (the rank's output rows) is the
+    unsharded product's columns; a row-parallel one (``tp`` set, or a
+    ``DTensor`` weight split on its input columns) quantizes with the
+    absmax all-reduced (max) over the axis and sums its fp32 partial
+    products before one cast (``_int8_on_blocks``)."""
 
     def __init__(self, n_in: int, n_out: int, cfg: TransformerConfig):
         super().__init__(n_in, n_out, cfg)
         self.impl = cfg.int8_impl
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _int8_mm(self.impl)(x, self.weight.to(self.compute_dtype))
+        mm = _int8_mm(self.impl)
+        w = self.weight.to(self.compute_dtype)
+        if isinstance(w, DTensor):
+            return _int8_on_blocks(mm, x, w)
+        return mm(x, w, **_row_sums(self.tp))
+
+
+def _row_sums(tp) -> dict:
+    """The collectives a row-parallel int8 product over the ``model`` axis
+    ``tp`` passes the kernel's wrapper (none for a whole product)."""
+    if tp is None:
+        return {}
+    return dict(reduce_max=tp.reduce_max, reduce_sum=tp.reduce)
+
+
+def _int8_on_blocks(mm, x: DTensor, w: DTensor,
+                    out_dtype: Optional[torch.dtype] = None) -> DTensor:
+    """An int8 product of ``DTensor``s on the ``model`` axis, as the
+    kernel's wrappers take it: on this rank's blocks. A weight split on
+    its output rows (column parallel; ``x`` replicated) makes the rank's
+    output columns, and ``x``'s gradient is summed over the axis (a
+    ``Partial`` gradient); one split on its input columns (row parallel;
+    ``x`` split alike) quantizes over the whole K (``reduce_max``) and sums
+    the fp32 partial products before the cast: the whole output on every
+    rank."""
+    mesh = w.device_mesh
+    if w.placements[0].is_shard(0):
+        y = mm(x.to_local(grad_placements=[Partial()]), w.to_local(),
+               out_dtype)
+        return DTensor.from_local(y, mesh, [Shard(y.dim() - 1)],
+                                  run_check=False)
+    from tpu_on_k8s_torch.parallel.sharded import TensorParallel
+    y = mm(x.to_local(), w.to_local(), out_dtype,
+           **_row_sums(TensorParallel(mesh)))
+    return DTensor.from_local(y, mesh, [Replicate()], run_check=False)
+
+
+def _in_width(proj: nn.Module, n: int) -> int:
+    """The width of the input a projection takes on a rank of a ``model``
+    axis of ``n``: its input columns when row parallel, else all."""
+    return proj.in_features // n if proj.role == 1 else proj.in_features
 
 
 class W8Dense(nn.Module):
@@ -429,10 +479,12 @@ class W8Dense(nn.Module):
     group before the cast; the scale is whole on every rank."""
 
     tp = None
+    role = None
 
     def __init__(self, n_in: int, n_out: int, cfg: TransformerConfig):
         super().__init__()
         self.compute_dtype = cfg.dtype
+        self.in_features, self.out_features = n_in, n_out
         self.weight_q = nn.Parameter(torch.empty(n_out, n_in,
                                                  dtype=torch.int8),
                                      requires_grad=False)
@@ -458,6 +510,22 @@ def _dense_class(cfg: TransformerConfig, int8: bool):
 
 
 class Attention(nn.Module):
+    """Self-attention over the ``model`` axis ``tp`` when a layout sets it
+    (``shard_heads``): the rank runs its own query heads (``own_q``) or all
+    of them, against its own kv heads (``own_kv``) or all of them; a head
+    count the axis does not divide comes gathered whole
+    (``TensorParallel.fit``). Where the rank runs its own query heads
+    against every kv head, ``kv_index`` names the kv head each reads."""
+
+    #: the ``model`` axis of a laid-out model (None: every head here)
+    tp = None
+    own_q = own_kv = True
+    #: a column-parallel ``wqkv`` holds q_r | k_r | v_r (a serving
+    #: layout's compact rows) rather than a block of the q | k | v rows
+    #: (the reference's order: its product is gathered whole)
+    compact = False
+    kv_index = None
+
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
@@ -473,6 +541,29 @@ class Attention(nn.Module):
             self.wv = dense(cfg.d_model, cfg.n_kv_heads * hd, cfg)
         self.wo = dense(cfg.n_heads * hd, cfg.d_model, cfg)
 
+    def shard_heads(self, tp, own_q: bool, own_kv: bool,
+                    compact: bool = False) -> None:
+        """Run on the ``model`` axis ``tp`` (``parallel/sharded.py``)."""
+        cfg = self.cfg
+        self.tp, self.own_q, self.own_kv = tp, own_q, own_kv
+        self.compact = compact
+        self._kv_index = {}
+        if own_q and not own_kv:
+            h = cfg.n_heads // tp.size
+            rep = cfg.n_heads // cfg.n_kv_heads
+            self.kv_index = tuple((tp.rank * h + i) // rep for i in range(h))
+
+    def _kv(self, t: torch.Tensor) -> torch.Tensor:
+        """Keys or values ``[B, L, Hkv, Dh]`` as the rank's query heads read
+        them: one kv head per query head where ``kv_index`` names them."""
+        if self.kv_index is None:
+            return t
+        idx = self._kv_index.get(t.device)
+        if idx is None:
+            idx = self._kv_index[t.device] = torch.tensor(
+                self.kv_index, device=t.device)
+        return t.index_select(2, idx)
+
     def _project(self, x: torch.Tensor):
         """q ``[B, L, h, Dh]``, k, v ``[B, L, hkv, Dh]``: the rank's heads
         (all of them off a mesh). The fused weight is one product, cut on
@@ -480,12 +571,30 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, l, _ = x.shape
         hd = cfg.head_dim
-        if cfg.fused_qkv:
+        tp = self.tp
+        widths = (cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.n_kv_heads * hd)
+        if tp is None and cfg.fused_qkv:
             qkv = self.wqkv(x).view(b, l, -1, hd)
             h, hk = cfg.n_heads, cfg.n_kv_heads
             return qkv[:, :, :h], qkv[:, :, h:h + hk], qkv[:, :, h + hk:]
-        return (self.wq(x).view(b, l, -1, hd), self.wk(x).view(b, l, -1, hd),
-                self.wv(x).view(b, l, -1, hd))
+        if tp is None:
+            return (self.wq(x).view(b, l, -1, hd),
+                    self.wk(x).view(b, l, -1, hd),
+                    self.wv(x).view(b, l, -1, hd))
+        n = tp.size
+        if cfg.fused_qkv:
+            y = self.wqkv(tp.fit(x, _in_width(self.wqkv, n)))
+            if y.shape[-1] != sum(widths) and not self.compact:
+                y = tp.gather(y)
+            m = sum(widths) // y.shape[-1]
+            q, k, v = y.split([w // m for w in widths], dim=-1)
+        else:
+            q, k, v = (p(tp.fit(x, _in_width(p, n)))
+                       for p in (self.wq, self.wk, self.wv))
+        q = tp.fit(q, widths[0] // n if self.own_q else widths[0])
+        k = tp.fit(k, widths[1] // n if self.own_kv else widths[1])
+        v = tp.fit(v, widths[2] // n if self.own_kv else widths[2])
+        return q.view(b, l, -1, hd), k.view(b, l, -1, hd), v.view(b, l, -1, hd)
 
     def forward(self, x: torch.Tensor, pos: Positions,
                 cache: Optional[KVCache] = None,
@@ -498,8 +607,13 @@ class Attention(nn.Module):
         if cache is not None:
             out = self._cached_attention(q, k, v, pos, cache)
         else:
-            out = self._attention_bhld(q, k, v, segments)
-        return self.wo(out.reshape(b, l, -1))
+            out = self._attention_bhld(q, self._kv(k), self._kv(v), segments)
+        out = out.reshape(b, l, -1)
+        tp = self.tp
+        if tp is None:
+            return self.wo(out)
+        y = self.wo(tp.fit(out, _in_width(self.wo, tp.size)))
+        return tp.fit(y, x.shape[-1])
 
     def _attention_bhld(self, q, k, v, segments) -> torch.Tensor:
         """The training path's attention, as the reference's
@@ -544,7 +658,7 @@ class Attention(nn.Module):
             dst[:, start:start + l] = new
         cache.index = start + l
         if l > 1 and start == 0 and pos.is_arange:
-            return flash_attention(q, k, v, causal=True)
+            return flash_attention(q, self._kv(k), self._kv(v), causal=True)
         return self._over_cache(q, pos.ids, cache)
 
     def _over_cache(self, q: torch.Tensor, positions: torch.Tensor,
@@ -557,7 +671,7 @@ class Attention(nn.Module):
         batched matmuls over (B, Hkv): no repeated K/V is made. An int8
         cache is read dequantized to ``cfg.dtype`` (``KVCache.read``)."""
         b, l, h, hd = q.shape
-        kc, vc = cache.read(self.cfg.dtype)
+        kc, vc = (self._kv(t) for t in cache.read(self.cfg.dtype))
         hkv = kc.shape[2]
         rep = h // hkv
         qg = (q.float() * hd ** -0.5).view(b, l, hkv, rep, hd)
@@ -603,6 +717,12 @@ def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), head.float())
 
 
+def _rows_of(x: torch.Tensor, head: torch.Tensor, rows) -> torch.Tensor:
+    """``x``'s columns that meet a head ``[D, V]`` of this rank's hidden rows
+    (``rows``: the head's ``model`` axis; None: the head is whole)."""
+    return x if rows is None else rows.fit(x, head.shape[0])
+
+
 def _append_per_row(k: torch.Tensor, v: torch.Tensor,
                     positions: torch.Tensor, cache: KVCache) -> None:
     """The multislot append: row b's keys/values ``[B, l, Hkv, Dh]`` land at
@@ -633,7 +753,14 @@ class MLP(nn.Module):
     """SwiGLU; ``mlp_fused_gateup`` keeps one [2·d_ff, D] gate+up weight
     (gate first), the layout of the reference's ``w_gateup`` kernel.
     ``activation="gelu"`` is the GPT-2 MLP: ``w_down(gelu(w_up(x)))`` with
-    the tanh form of GELU, flax's ``nn.gelu`` default."""
+    the tanh form of GELU, flax's ``nn.gelu`` default. On the ``model``
+    axis ``tp`` (``shard``) the hidden activation is fitted to what
+    ``w_down`` takes (the rank's block, or gathered whole), and a
+    column-parallel ``w_gateup`` in the reference's row order is gathered
+    whole first (``compact``: it holds gate_r | up_r)."""
+
+    tp = None
+    compact = False
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -650,14 +777,38 @@ class MLP(nn.Module):
             self.w_up = dense(cfg.d_model, cfg.d_ff, cfg)
         self.w_down = dense(cfg.d_ff, cfg.d_model, cfg)
 
+    def shard(self, tp, compact: bool = False) -> None:
+        """Run on the ``model`` axis ``tp`` (``parallel/sharded.py``)."""
+        self.tp, self.compact = tp, compact
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        tp = self.tp
+        if tp is None:
+            if self.gelu:
+                return self.w_down(F.gelu(self.w_up(x), approximate="tanh"))
+            if self.fused:
+                gate, up = self.w_gateup(x).split(self.d_ff, dim=-1)
+            else:
+                gate, up = self.w_gate(x), self.w_up(x)
+            return self.w_down(F.silu(gate) * up)
+        n = tp.size
+        width = _in_width(self.w_down, n)
+
+        def project(p):
+            return p(tp.fit(x, _in_width(p, n)))
+
         if self.gelu:
-            return self.w_down(F.gelu(self.w_up(x), approximate="tanh"))
-        if self.fused:
-            gate, up = self.w_gateup(x).split(self.d_ff, dim=-1)
+            h = F.gelu(tp.fit(project(self.w_up), width), approximate="tanh")
         else:
-            gate, up = self.w_gate(x), self.w_up(x)
-        return self.w_down(F.silu(gate) * up)
+            if self.fused:
+                y = project(self.w_gateup)
+                if y.shape[-1] != 2 * self.d_ff and not self.compact:
+                    y = tp.gather(y)
+                gate, up = y.chunk(2, dim=-1)
+            else:
+                gate, up = project(self.w_gate), project(self.w_up)
+            h = F.silu(tp.fit(gate, width)) * tp.fit(up, width)
+        return tp.fit(self.w_down(h), x.shape[-1])
 
 
 #: The products with no batch dimension, the reference's
@@ -781,9 +932,12 @@ class Transformer(nn.Module):
     checkpoints only the MLP (``Block``)."""
 
     #: the vocab-parallel groups of a serving model's embedding and head
-    #: (``parallel/sharded.shard_serving_model``; None: held whole)
+    #: (``parallel/sharded.shard_serving_model``; None: held whole), and
+    #: the group a head split on its hidden dim sums its partial logits
+    #: over
     embed_tp = None
     head_tp = None
+    head_row_tp = None
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -825,14 +979,28 @@ class Transformer(nn.Module):
         # fp32 logits from the cfg.dtype (or int8) head: products of bf16
         # and int8 values are exact in fp32, so this is the reference's
         # fp32-accumulated einsum.
+        rows = self.head_row_tp
         if cfg.serve_int8_weights and not cfg.tie_embeddings:
-            logits = (torch.matmul(x.float(), self.lm_head_q.float())
-                      * self.lm_head_scale)
+            head = self.lm_head_q
+            logits = torch.matmul(_rows_of(x, head, rows).float(),
+                                  head.float())
+            if rows is not None:
+                logits = rows.reduce(logits)
+            logits = logits * self.lm_head_scale
         elif cfg.head_int8:
-            logits = _int8_mm(cfg.int8_impl)(x, self._head().t(),
-                                             torch.float32)
+            head, mm = self._head(), _int8_mm(cfg.int8_impl)
+            if isinstance(head, DTensor):
+                logits = _int8_on_blocks(mm, _replicated_like(x, head),
+                                         head.t(), torch.float32
+                                         ).full_tensor()
+            else:
+                logits = mm(_rows_of(x, head, rows), head.t(), torch.float32,
+                            **_row_sums(rows))
         else:
-            logits = _logits(x, self._head())
+            head = self._head()
+            logits = _logits(_rows_of(x, head, rows), head)
+            if rows is not None:
+                logits = rows.reduce(logits)
         # a vocab-parallel serving head made this rank's V/model columns
         return logits if self.head_tp is None else self.head_tp.gather(logits)
 

@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -63,6 +63,9 @@ MAX_K = (2 ** 31 - 1) // (127 * 127)
 
 _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
+#: a collective over the ranks that hold the other blocks of K, in place
+Reduce = Callable[[torch.Tensor], torch.Tensor]
+
 
 @functools.lru_cache(maxsize=None)
 def _one_twenty_seven(device: torch.device) -> torch.Tensor:
@@ -77,14 +80,19 @@ def div127(t: torch.Tensor) -> torch.Tensor:
     return t / _one_twenty_seven(t.device)
 
 
-def _quant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quant_rows(x: torch.Tensor, reduce_max: Optional[Reduce] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[..., K] → (int8 values [..., K], fp32 scales [..., 1]): one scale per
     row, the last dim reduced. The reference's ``_quant_rows``; for the
     port's ``[N, K]`` weight it is also ``_quant_cols`` (one scale per
-    output channel)."""
+    output channel). ``reduce_max`` takes each row's absmax to the max over
+    the blocks of K that other ranks hold (a row-parallel product): the
+    values and scales are then the whole row's, bit for bit."""
     x32 = x.float()
-    scale = div127(torch.clamp(x32.abs().amax(dim=-1, keepdim=True),
-                               min=1e-30))
+    absmax = x32.abs().amax(dim=-1, keepdim=True)
+    if reduce_max is not None:
+        absmax = reduce_max(absmax)
+    scale = div127(torch.clamp(absmax, min=1e-30))
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -212,22 +220,30 @@ if torch.ops.aten._int_mm not in flop_registry:
 
 
 def _forward(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
-             impl: str) -> torch.Tensor:
+             impl: str, reduce_max: Optional[Reduce] = None,
+             reduce_sum: Optional[Reduce] = None) -> torch.Tensor:
+    """The product of x and w, quantized (over the whole K with
+    ``reduce_max``); with ``reduce_sum`` (a row-parallel product: x and w
+    hold one block of K) the fp32 partial products are summed over the
+    ranks, then cast once."""
     if w.dim() != 2 or x.shape[-1] != w.shape[1]:
         raise ValueError(f"x [..., K] and w [N, K] expected, got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     lead, n = x.shape[:-1], w.shape[0]
-    xq, sx = _quant_rows(x.reshape(-1, x.shape[-1]))
-    wq, sw = _quant_rows(w)
+    xq, sx = _quant_rows(x.reshape(-1, x.shape[-1]), reduce_max)
+    wq, sw = _quant_rows(w, reduce_max)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int8 matmul runs on cuda or cpu, not "
                          f"{x.device.type}")
+    dtype = out_dtype if reduce_sum is None else torch.float32
     if impl == "pallas":
-        y = _kernel_op(xq, sx, wq, sw, out_dtype)
+        y = _kernel_op(xq, sx, wq, sw, dtype)
     elif x.device.type == "cpu":
-        y = int8_matmul_plain(xq, sx, wq, sw, out_dtype)
+        y = int8_matmul_plain(xq, sx, wq, sw, dtype)
     else:
-        y = _int_mm(xq, sx, wq, sw, out_dtype)
+        y = _int_mm(xq, sx, wq, sw, dtype)
+    if reduce_sum is not None:
+        y = reduce_sum(y).to(out_dtype)
     return y.reshape(*lead, n)
 
 
@@ -267,37 +283,52 @@ class _Int8Product(torch.autograd.Function):
     unchanged into ``_Int8Grad``'s stand-in."""
 
     @staticmethod
-    def forward(ctx, stand_in, x, w, out_dtype, impl):
-        return _forward(x, w, out_dtype, impl)
+    def forward(ctx, stand_in, x, w, out_dtype, impl, reduce_max,
+                reduce_sum):
+        return _forward(x, w, out_dtype, impl, reduce_max, reduce_sum)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None, None, None
+        return g, None, None, None, None, None, None
 
 
 def _apply(x: torch.Tensor, w: torch.Tensor,
-           out_dtype: Optional[torch.dtype], impl: str) -> torch.Tensor:
+           out_dtype: Optional[torch.dtype], impl: str,
+           reduce_max: Optional[Reduce], reduce_sum: Optional[Reduce]
+           ) -> torch.Tensor:
     refuse_dtensor("int8_matmul", x, w)
+    if (reduce_max is None) != (reduce_sum is None):
+        raise ValueError("a row-parallel int8 product takes reduce_max and "
+                         "reduce_sum together")
     out_dtype = out_dtype or x.dtype
     stand_in = _Int8Grad.apply(x, w, out_dtype)
     return _Int8Product.apply(stand_in, x.detach(), w.detach(), out_dtype,
-                              impl)
+                              impl, reduce_max, reduce_sum)
 
 
 def int8_matmul(x: torch.Tensor, w: torch.Tensor,
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None, *,
+                reduce_max: Optional[Reduce] = None,
+                reduce_sum: Optional[Reduce] = None) -> torch.Tensor:
     """``x @ wᵀ`` with an int8 forward and the exact backward: x ``[..., K]``,
     w ``[N, K]`` → ``[..., N]`` in ``out_dtype`` (default x's dtype; fp32 for
-    the lm head's logits). The ``int8_impl="xla"`` route."""
-    return _apply(x, w, out_dtype, "xla")
+    the lm head's logits). The ``int8_impl="xla"`` route. A row-parallel
+    caller, whose x and w hold one block of K, passes the collectives over
+    the ranks that hold the others: ``reduce_max`` (in place, the max) for
+    the absmax of x's rows and w's output channels, ``reduce_sum`` (in
+    place, the sum) for the fp32 partial products; the backward stays the
+    local blocks' (``_Int8Grad``)."""
+    return _apply(x, w, out_dtype, "xla", reduce_max, reduce_sum)
 
 
 def int8_matmul_pallas(x: torch.Tensor, w: torch.Tensor,
                        out_dtype: Optional[torch.dtype] = None,
                        bm: int = 512, bn: int = 1024,
-                       bk: int = 512) -> torch.Tensor:
+                       bk: int = 512, *,
+                       reduce_max: Optional[Reduce] = None,
+                       reduce_sum: Optional[Reduce] = None) -> torch.Tensor:
     """``int8_matmul`` whose product and epilogue are one hand-written
     kernel on the card (``int8_impl="pallas"``). ``bm``/``bn``/``bk`` are
     the TPU kernel's tiles and have no effect."""
     del bm, bn, bk
-    return _apply(x, w, out_dtype, "pallas")
+    return _apply(x, w, out_dtype, "pallas", reduce_max, reduce_sum)

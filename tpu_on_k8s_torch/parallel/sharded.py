@@ -6,12 +6,13 @@ reference leaves to XLA's SPMD partitioner given its rules, written out.
 rules first (``ShardingValidationError`` before anything moves), then:
 
 * with ``model`` > 1, ``parallelize_module`` on the ``model`` sub-mesh:
-  ``ColwiseParallel`` for ``wq``/``wk``/``wv`` and ``w_gate``/``w_up``,
-  ``RowwiseParallel`` for ``wo`` and ``w_down``, and the vocab-sharded
-  ``embed`` (rows) and ``lm_head`` (columns) as ``DTensor`` parameters
-  (``models/transformer.py``'s ``_embed`` and ``_logits`` gather their
-  products). A rank then runs H/model query heads and Hkv/model kv heads;
-  the flash and int8 kernels see plain local tensors;
+  ``ColwiseParallel`` for ``wq``/``wk``/``wv`` (or ``wqkv``) and
+  ``w_gate``/``w_up`` (or ``w_gateup``), ``RowwiseParallel`` for ``wo``
+  and ``w_down``, and the vocab-sharded ``embed`` (rows) and ``lm_head``
+  (columns) as ``DTensor`` parameters (``models/transformer.py``'s
+  ``_embed`` and ``_logits`` gather their products). A rank then runs
+  H/model query heads and Hkv/model kv heads (see "A rank's heads"
+  below); the flash and int8 kernels see plain local tensors;
 * FSDP2's ``fully_shard`` on every ``Block``, then on the root, over the
   (data, fsdp) sub-mesh (HSDP when data > 1), each parameter sharded on
   the dim its rule gives ``fsdp`` (``shard_placement_fn``: the reference's
@@ -19,12 +20,23 @@ rules first (``ShardingValidationError`` before anything moves), then:
   ``fsdp`` dim takes dim 0). Gradients are summed across ranks, never
   averaged: the trainer's loss is already a mean over the global targets.
 
-What it refuses: ``seq`` > 1 (sequence parallelism is ROADMAP Queue 1 item
-4) and ``expert`` > 1 (MoE is not ported); under ``model`` > 1 the fused
-``wqkv`` / ``w_gateup`` layouts (a plain row split would hand rank 0 all
-of q), the int8 recipes (a row-parallel product would quantize its input
-with a per-rank absmax, the reference's covers the whole K) and a head
-count ``model`` does not divide (``ShardingValidationError``).
+A rank's heads: the fused ``wqkv`` / ``w_gateup`` keep the reference's row
+order (q, k, v; gate, up) as a plain ``Shard(0)``, the layout XLA stores,
+so checkpoints, reshards and exports see the reference's rows; the block
+gathers the product whole over ``model`` (``TensorParallel.gather``, whose
+backward sums each rank's gradient back to the rank that holds the rows)
+and takes its own heads, or gate and up halves. A head count ``model``
+does not divide is run the same way: the projection's output is gathered
+whole, and each rank runs its own query heads against every kv head (or
+every head, where the query heads do not divide either; ``wo`` then takes
+the rank's input columns of the whole output). The int8 recipes run on
+local blocks: a column-parallel product is the unsharded product's
+columns; a row-parallel one quantizes with the activation's and the
+weight's absmax all-reduced (max) over ``model``, so its int8 values and
+scales are the unsharded ones, and sums the fp32 partial products before
+one cast (``Int8Dense``). What it refuses: ``seq`` > 1 (sequence
+parallelism is ROADMAP Queue 1 item 4) and ``expert`` > 1 (MoE is not
+ported).
 
 ``shard_serving_model(model, mesh, rules)`` lays a serving model (the
 engine's, ``models/serving.py``) out with plain local tensors and explicit
@@ -33,21 +45,34 @@ after another, and ``DTensor``'s per-operator dispatch would sit on the
 host path of every one. The rules decide the layout (``serving_cuts``): a
 projection whose weight's rule puts ``model`` on its output rows (dim 0)
 is column parallel and keeps the rank's rows of every leaf (``weight``, a
-bias, ``weight_q`` and its per-output-channel ``weight_scale``); one with
-``model`` on its input columns (dim 1) is row parallel, keeps the rank's
-columns of ``weight`` / ``weight_q`` (a bias and an int8 scale stay
-whole) and sums the partial products over ``model`` (``Dense.tp``); one
-with no ``model`` is whole. ``embed``'s vocab rows and the head's vocab
-columns (``lm_head``, ``lm_head_q`` with ``lm_head_scale``), where their
-rules split them, are the rank's and gathered over ``model``
-(``Transformer.embed_tp`` / ``head_tp``). Layouts a serving model cannot
-run raise, naming the leaf. A leaf a size-1 axis does not split stays the
-tensor it was (a view, no copy); a split leaf is copied out, so the whole
-tensor can be freed. With ``fsdp`` > 1 every block is ``fully_shard``-ed
-over the ``fsdp`` sub-mesh on the dim its rule gives ``fsdp``, and FSDP2's
-forward gathers it for each call; ``embed``, the head and the final norm
-stay whole over ``fsdp`` (the step and prefill models share them and the
-blocks: ``serving.multislot_twin``). ``data`` replicates the parameters.
+bias, ``weight_q`` and its per-output-channel ``weight_scale``; a fused
+``wqkv`` / ``w_gateup`` keeps the rank's rows of each part, q_r | k_r |
+v_r, as one compact copy, so no collective is added); one with ``model``
+on its input columns (dim 1) is row parallel, keeps the rank's columns of
+``weight`` / ``weight_q`` (a bias and an int8 scale stay whole) and sums
+the partial products over ``model`` (``Dense.tp``); one with no ``model``
+is whole. Between projections a block fits each activation to what the
+next one takes (``TensorParallel.fit``: the rank's columns of a whole
+activation, or a rank block gathered whole), so any mix of roles runs, as
+XLA reshards any mix: attention the rules leave whole runs whole on every
+rank, a whole ``wo`` / ``w_down`` after column-parallel inputs reads their
+output gathered. ``embed``'s vocab rows and the head's vocab columns
+(``lm_head``, ``lm_head_q`` with ``lm_head_scale``), where their rules
+split them, are the rank's and gathered over ``model``
+(``Transformer.embed_tp`` / ``head_tp``); a head split on its hidden dim
+is row parallel, its partial logits summed (``head_row_tp``). A norm,
+``pos_embed`` or ``embed``'s hidden dim split on ``model`` stays whole on
+every rank (the reference's result is the whole norm). The KV pool holds
+the rank's kv heads where every layer runs them head parallel and
+``model`` divides them, else every kv head (the reference's
+``kv_sharding``). Rules no projection can run raise, naming the leaf. A
+leaf a size-1 axis does not split stays the tensor it was (a view, no
+copy); a split leaf is copied out, so the whole tensor can be freed. With
+``fsdp`` > 1 every block is ``fully_shard``-ed over the ``fsdp`` sub-mesh
+on the dim its rule gives ``fsdp``, and FSDP2's forward gathers it for
+each call; ``embed``, the head and the final norm stay whole over
+``fsdp`` (the step and prefill models share them and the blocks:
+``serving.multislot_twin``). ``data`` replicates the parameters.
 """
 from __future__ import annotations
 
@@ -101,9 +126,9 @@ def layout_of(model: nn.Module) -> Optional[Layout]:
 
 
 def check_mesh(cfg, mesh) -> None:
-    """Raise for a mesh this port does not run ``cfg`` on (see the module
-    docstring); ``ShardingValidationError`` names an indivisible head
-    count."""
+    """Raise for a mesh this port does not run ``cfg`` on: a ``seq`` or an
+    ``expert`` axis over 1 (see the module docstring)."""
+    del cfg
     sizes = mesh_shape(mesh)
     if sizes.get(AXIS_SEQ, 1) > 1:
         raise NotImplementedError(
@@ -113,27 +138,30 @@ def check_mesh(cfg, mesh) -> None:
         raise NotImplementedError(
             "an expert mesh axis > 1 is not ported to tpu_on_k8s_torch yet "
             "(MoE is ROADMAP Queue 1 item 5)")
-    tp = sizes.get(AXIS_MODEL, 1)
-    if tp == 1:
-        return
-    if cfg.fused_qkv or cfg.mlp_fused_gateup:
-        raise NotImplementedError(
-            "the fused wqkv / w_gateup layouts with a model axis > 1 are not "
-            "ported to tpu_on_k8s_torch yet (their rows need a per-rank "
-            "q|k|v and gate|up reslice; ROADMAP Queue 1 item 3c)")
-    if cfg.mlp_int8 or cfg.attn_int8 or cfg.head_int8:
-        raise NotImplementedError(
-            "the int8 recipes with a model axis > 1 are not ported to "
-            "tpu_on_k8s_torch yet (a row-parallel product needs the "
-            "activation's absmax all-reduced over the axis; ROADMAP Queue 1 "
-            "item 3c)")
-    for name, heads in (("n_heads", cfg.n_heads),
-                        ("n_kv_heads", cfg.n_kv_heads)):
-        if heads % tp:
-            raise ShardingValidationError(
-                f"{name}={heads} is not divisible by mesh axis model={tp}: "
-                f"each rank runs whole heads (the port's local-head "
-                f"attention); pick a model axis that divides {heads}")
+
+
+def own_heads(cfg, n_model: int, q_block: bool = True,
+              kv_block: bool = True) -> Tuple[bool, bool]:
+    """(whether a rank runs its own query heads, and its own kv heads) over
+    a ``model`` axis of ``n_model``. Its own query heads where the query
+    projection's output comes as the rank's block (``q_block``) and
+    ``model`` divides ``n_heads``; its own kv heads where, besides, the kv
+    projections' outputs do (``kv_block``) and ``model`` divides
+    ``n_kv_heads``. Heads a rank does not own are gathered whole."""
+    own_q = q_block and cfg.n_heads % n_model == 0
+    return own_q, own_q and kv_block and cfg.n_kv_heads % n_model == 0
+
+
+def fused_parts(cfg, path: str) -> Optional[Tuple[int, ...]]:
+    """The row counts of the parts of a fused projection's output (``wqkv``:
+    q, k, v; ``w_gateup``: gate, up), by its module path; None for any
+    other projection."""
+    if path.endswith(".attn.wqkv"):
+        hd = cfg.head_dim
+        return (cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.n_kv_heads * hd)
+    if path.endswith(".mlp.w_gateup"):
+        return (cfg.d_ff, cfg.d_ff)
+    return None
 
 
 def _axis_dim(name: str, rules: Sequence[PartitionRule], axis: str
@@ -148,17 +176,25 @@ def _axis_dim(name: str, rules: Sequence[PartitionRule], axis: str
 
 def tensor_parallel(model: nn.Module, tp_mesh) -> None:
     """``shard_model``'s tensor parallelism over the one-dim ``tp_mesh``,
-    in place: ``parallelize_module`` with column-parallel ``wq``/``wk``/
-    ``wv``/``w_gate``/``w_up`` and row-parallel ``wo``/``w_down``, and
-    ``embed`` (rows) and ``lm_head`` (columns) as vocab-sharded ``DTensor``
-    parameters."""
+    in place: ``parallelize_module`` with every input projection (``wq``/
+    ``wk``/``wv`` or ``wqkv``; ``w_gate``/``w_up`` or ``w_gateup``)
+    column parallel and ``wo``/``w_down`` row parallel, and ``embed``
+    (rows) and ``lm_head`` (columns) as vocab-sharded ``DTensor``
+    parameters. Each block's attention and MLP take the axis
+    (``Attention.shard_heads``, ``MLP.shard``): they gather a fused
+    product, or the heads ``model`` does not divide, whole."""
     col, row = ColwiseParallel(), RowwiseParallel()
+    tp = TensorParallel(tp_mesh)
+    own_q, own_kv = own_heads(model.cfg, tp.size)
     for block in model.blocks:
-        plan = {"attn.wq": col, "attn.wk": col, "attn.wv": col,
-                "attn.wo": row, "mlp.w_up": col, "mlp.w_down": row}
-        if hasattr(block.mlp, "w_gate"):
-            plan["mlp.w_gate"] = col
+        plan = {}
+        for part in ("attn", "mlp"):
+            for name, proj in getattr(block, part).named_children():
+                proj.role = int(name in ("wo", "w_down"))
+                plan[f"{part}.{name}"] = row if proj.role else col
         parallelize_module(block, tp_mesh, plan)
+        block.attn.shard_heads(tp, own_q, own_kv)
+        block.mlp.shard(tp)
     for name, dim in (("embed", 0), ("lm_head", 1)):
         p = getattr(model, name, None)
         if p is not None:
@@ -206,14 +242,36 @@ def shard_model(model: nn.Module, mesh, rules: Sequence[PartitionRule]
 
 
 
+class _Gather(torch.autograd.Function):
+    """The whole last dim from each rank's block of it; the backward sums
+    the gradient over the axis and keeps the rank's block (a
+    reduce-scatter): each rank reads its own part of the whole, and every
+    rank's reading of a block reaches the rank that holds it."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp.all_gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=tp.group)
+        n = g.shape[-1] // tp.size
+        return g.narrow(-1, tp.rank * n, n), None
+
+
 class TensorParallel:
-    """A serving model's ``model`` axis: its process group, this rank's
-    index on it and its size, and the three collectives a laid-out serving
-    model calls (``shard_serving_model``). Each runs also on a group of
-    one, where it is an identity."""
+    """A model's ``model`` axis: its process group, this rank's index on it
+    and its size, and the collectives a laid-out model calls
+    (``shard_serving_model``; ``tensor_parallel``'s blocks and int8
+    products). Each runs also on a group of one, where it is an
+    identity. Made from a mesh with a ``model`` dim or from the one-dim
+    ``model`` mesh itself."""
 
     def __init__(self, mesh) -> None:
-        tp_mesh = mesh[AXIS_MODEL]
+        tp_mesh = mesh if mesh.ndim == 1 else mesh[AXIS_MODEL]
         self.group = tp_mesh.get_group()
         self.rank = tp_mesh.get_local_rank()
         self.size = tp_mesh.size()
@@ -221,6 +279,12 @@ class TensorParallel:
     def reduce(self, y: torch.Tensor) -> torch.Tensor:
         """Sum a row-parallel product's partial results over the axis."""
         dist.all_reduce(y, group=self.group)
+        return y
+
+    def reduce_max(self, y: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the axis, in place: a row-parallel int8
+        product's row absmax over the whole K."""
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.group)
         return y
 
     def embed(self, tokens: torch.Tensor, rows: torch.Tensor
@@ -235,12 +299,32 @@ class TensorParallel:
         out = torch.where(inside[..., None], out, out.new_zeros(()))
         return self.reduce(out)
 
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """The whole last dim from each rank's block of it (the rank's
-        vocab columns of the logits), in rank order."""
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole last dim from each rank's block of it, in rank order
+        (no gradient)."""
         parts = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(parts, x.contiguous(), group=self.group)
         return torch.cat(parts, dim=-1)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``all_gather`` with a gradient (``_Gather``) where autograd
+        records one."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Gather.apply(x, self)
+        return self.all_gather(x)
+
+    def fit(self, t: torch.Tensor, width: int) -> torch.Tensor:
+        """``t`` with ``width`` on its last dim: as it is, gathered whole
+        from the ranks' blocks, or this rank's block of the whole."""
+        have = t.shape[-1]
+        if have == width:
+            return t
+        if have * self.size == width:
+            return self.gather(t)
+        if have == width * self.size:
+            return t.narrow(-1, self.rank * width, width)
+        raise ValueError(f"an activation of width {have} cannot fit {width} "
+                         f"over a model axis of {self.size}")
 
     def block(self, p: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's block of ``p`` along ``dim``: ``p`` itself when the
@@ -250,11 +334,23 @@ class TensorParallel:
         n = p.shape[dim] // self.size
         return p.detach().narrow(dim, self.rank * n, n).clone()
 
+    def parts_block(self, p: torch.Tensor, parts: Sequence[int]
+                    ) -> torch.Tensor:
+        """This rank's rows of each part of a fused leaf (``parts``: their
+        row counts along dim 0), as one compact copy: q_r | k_r | v_r."""
+        if self.size == 1:
+            return p
+        return torch.cat([self.block(t, 0) for t in
+                          p.detach().split(list(parts), dim=0)])
+
 
 #: what the model dim of a projection's weight makes it
 _ROLES = {None: "whole", 0: "column parallel", 1: "row parallel"}
-#: the root leaves a serving model may split on their vocab dim
-_VOCAB_DIMS = {"embed": 0, "lm_head": 1, "lm_head_q": 1, "lm_head_scale": 0}
+#: the root leaves a serving model splits over ``model``, and on which dim:
+#: the vocab (embed's rows, the head's columns and scale) or the head's
+#: hidden dim (row parallel); any other root leaf stays whole
+_ROOT_DIMS = {"embed": (0,), "lm_head": (1, 0), "lm_head_q": (1, 0),
+              "lm_head_scale": (0,)}
 
 
 def _projection_cuts(prefix: str, leaves: Sequence[str], rules
@@ -286,62 +382,93 @@ def _projection_cuts(prefix: str, leaves: Sequence[str], rules
     return dim, cuts
 
 
-def serving_cuts(names: Iterable[str], rules: Sequence[PartitionRule],
-                 n_model: int) -> Tuple[Dict[str, int], List[str]]:
+def serving_cuts(names: Iterable[str], rules: Sequence[PartitionRule]
+                 ) -> Tuple[Dict[str, int], List[str]]:
     """The serving layout the rules give a model's parameters (``names``)
-    over a ``model`` axis of ``n_model``: the dim each split parameter is
-    cut on, by name, and the row-parallel projections, by module path.
+    over the ``model`` axis: the dim each split parameter is cut on, by
+    name, and the row-parallel projections, by module path.
     Each projection's role comes from its weight's rule
-    (``_projection_cuts``). A block's attention must be head parallel on
-    a split axis (wq/wk/wv column, wo row: the KV pool holds each rank's kv
-    heads, as the reference's ``kv_sharding`` does), its MLP whole or
-    column then row parallel; ``embed`` and the head (``lm_head``, or
-    ``lm_head_q`` with its scale) may split on their vocab dim; nothing
-    else splits over ``model``. A layout outside these raises (the
-    engine's plan calls this before anything moves)."""
+    (``_projection_cuts``), and any mix of roles runs (the blocks fit each
+    activation to the next projection). ``embed`` splits on its vocab
+    rows, the head (``lm_head``, or ``lm_head_q`` with its scale) on its
+    vocab columns or its hidden rows; a root leaf split otherwise (a norm,
+    ``pos_embed``, ``embed``'s hidden dim) stays whole. What no projection
+    can run raises (the engine's plan calls this before anything moves):
+    a ``model`` dim past a weight's rank, a leaf whose own rule disagrees
+    with its projection's role, a head scale split unlike its values."""
     names = list(names)
     cuts: Dict[str, int] = {}
     rows: List[str] = []
-    parts: Dict[str, Dict[str, List[str]]] = {}
+    projections: Dict[str, List[str]] = {}
     others = []
     for name in names:
-        m = re.fullmatch(r"(blocks\.\d+\.(?:attn|mlp))\.(\w+)\.(\w+)", name)
+        m = re.fullmatch(r"(blocks\.\d+\.(?:attn|mlp)\.\w+)\.(\w+)", name)
         if m:
-            parts.setdefault(m[1], {}).setdefault(m[2], []).append(m[3])
+            projections.setdefault(m[1], []).append(m[2])
         else:
             others.append(name)
-    for part, projections in parts.items():
-        roles = {}
-        for n, leaves in projections.items():
-            roles[n], leaf_cuts = _projection_cuts(f"{part}.{n}", leaves,
-                                                   rules)
-            cuts.update(leaf_cuts)
-            if roles[n] == 1:
-                rows.append(f"{part}.{n}")
-        last = "wo" if part.endswith("attn") else "w_down"
-        pair = {n: int(n == last) for n in roles}
-        allowed = [pair]
-        if not (part.endswith("attn") and n_model > 1):
-            allowed.append(dict.fromkeys(roles))
-        if roles not in allowed:
-            raise NotImplementedError(
-                f"{part}: the rules put {AXIS_MODEL} on its projections' "
-                f"dims {roles}; a serving {part.rpartition('.')[2]} takes "
-                f"{' or '.join(map(str, allowed))}; other layouts are "
-                f"ROADMAP Queue 1 item 3c")
+    for path, leaves in projections.items():
+        role, leaf_cuts = _projection_cuts(path, leaves, rules)
+        cuts.update(leaf_cuts)
+        if role == 1:
+            rows.append(path)
     for name in others:
         dim = _axis_dim(name, rules, AXIS_MODEL)
-        if dim is not None and dim != _VOCAB_DIMS.get(name):
-            raise NotImplementedError(
-                f"{name}: a rule puts {AXIS_MODEL} on dim {dim}; a serving "
-                f"model splits only embed and the head, on their vocab dim")
-        if dim is not None:
+        if dim is not None and dim in _ROOT_DIMS.get(name, ()):
             cuts[name] = dim
-    if ("lm_head_q" in cuts) != ("lm_head_scale" in cuts):
+    if "lm_head_q" in names and (cuts.get("lm_head_q") == 1) != (
+            "lm_head_scale" in cuts):
         raise ShardingValidationError(
             "lm_head_q and lm_head_scale: the rules split one over "
-            f"{AXIS_MODEL} and not the other")
+            f"{AXIS_MODEL}'s vocab and not the other")
     return cuts, rows
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingLayout:
+    """What the rules make of a serving model over ``model``
+    (``serving_layout``): ``serving_cuts``' cuts and row-parallel
+    projections, whether each layer runs its own query heads, and whether
+    the KV pool holds each rank's kv heads (``kv_split``: every layer runs
+    its own, the reference's ``kv_sharding`` where ``model`` divides the
+    kv heads) or every kv head."""
+
+    cuts: Dict[str, int]
+    rows: List[str]
+    own_q: Tuple[bool, ...]
+    kv_split: bool
+
+
+def serving_layout(cfg, names: Iterable[str],
+                   rules: Sequence[PartitionRule], n_model: int
+                   ) -> ServingLayout:
+    """``serving_cuts`` and the heads each rank runs, for ``cfg``'s model.
+    A fused projection split on its rows needs ``model`` to divide each
+    of its parts (``ShardingValidationError``)."""
+    cuts, rows = serving_cuts(names, rules)
+
+    def column(path: str) -> bool:
+        return 0 in (cuts.get(f"{path}.weight"), cuts.get(f"{path}.weight_q"))
+
+    own_q, own_kv = [], []
+    for i in range(cfg.n_layers):
+        for part in ("attn.wqkv", "mlp.w_gateup"):
+            parts = fused_parts(cfg, f".{part}")
+            path = f"blocks.{i}.{part}"
+            if column(path) and any(n % n_model for n in parts):
+                raise ShardingValidationError(
+                    f"{path}: {AXIS_MODEL}={n_model} does not divide its "
+                    f"parts {parts} (each rank keeps its rows of each)")
+        attn = f"blocks.{i}.attn"
+        if cfg.fused_qkv:
+            q = kv = column(f"{attn}.wqkv")
+        else:
+            q = column(f"{attn}.wq")
+            kv = column(f"{attn}.wk") and column(f"{attn}.wv")
+        heads = own_heads(cfg, n_model, q, kv)
+        own_q.append(heads[0])
+        own_kv.append(heads[1])
+    return ServingLayout(cuts, rows, tuple(own_q), all(own_kv))
 
 
 def _keep(module: nn.Module, name: str, t: torch.Tensor) -> None:
@@ -353,27 +480,46 @@ def shard_serving_model(model: nn.Module, mesh,
                         rules: Sequence[PartitionRule]) -> TensorParallel:
     """Lay a serving (decode-mode) model out on ``mesh`` in place (see the
     module docstring); returns its ``TensorParallel``. Refuses what
-    ``check_mesh`` and ``serving_cuts`` refuse, and validates every
+    ``check_mesh`` and ``serving_layout`` refuse, and validates every
     parameter against ``rules``, before anything moves."""
     rules = tuple(rules)
     if layout_of(model) is not None:
         raise ValueError("the model is laid out on a mesh already")
-    check_mesh(model.cfg, mesh)
+    cfg = model.cfg
+    check_mesh(cfg, mesh)
     named_sharding(dict(model.named_parameters()), mesh, rules)
     names = [n for n, _ in model.named_parameters()]
     tp = TensorParallel(mesh)
-    cuts, rows = serving_cuts(names, rules, tp.size)
+    layout = serving_layout(cfg, names, rules, tp.size)
+    cuts = layout.cuts
     for name, dim in cuts.items():
         path, _, leaf = name.rpartition(".")
         mod = model.get_submodule(path)
-        _keep(mod, leaf, tp.block(getattr(mod, leaf), dim))
-    for path in rows:
+        parts = fused_parts(cfg, path)
+        t = getattr(mod, leaf)
+        _keep(mod, leaf, tp.block(t, dim) if parts is None or dim
+              else tp.parts_block(t, parts))
+    for i, block in enumerate(model.blocks):
+        for part in ("attn", "mlp"):
+            for name, proj in getattr(block, part).named_children():
+                path = f"blocks.{i}.{part}.{name}"
+                proj.role = (1 if path in layout.rows else
+                             0 if any(k.startswith(f"{path}.") for k in cuts)
+                             else None)
+        if tp.size > 1:
+            block.attn.shard_heads(tp, layout.own_q[i], layout.kv_split,
+                                   compact=True)
+            block.mlp.shard(tp, compact=True)
+    for path in layout.rows:
         model.get_submodule(path).tp = tp
     if "embed" in cuts:
         model.embed_tp = tp
-    head = {"lm_head", "lm_head_q"}
-    if head & set(cuts) or "embed" in cuts and not head & set(names):
+    head = cuts.get("lm_head", cuts.get("lm_head_q"))
+    tied = not {"lm_head", "lm_head_q"} & set(names)
+    if head == 1 or "embed" in cuts and tied:
         model.head_tp = tp              # a tied head is embed's transpose
+    elif head == 0:
+        model.head_row_tp = tp
     if mesh_shape(mesh)[AXIS_FSDP] > 1:
         names = {id(p): n for n, p in model.named_parameters()}
 

@@ -167,7 +167,8 @@ class TrainLoop:
       metrics: optional ``TrainMetrics`` — step-time/tokens-per-sec/MFU
         gauges and sync/stall counters, fed at each window.
       tokens_per_step / flops_per_step / peak_flops: throughput/MFU gauge
-        inputs (``flops_per_step`` from ``compile.train_step_flops``).
+        inputs (``flops_per_step`` from ``compile.train_step_flops``: on a
+        mesh this rank's count, so ``peak_flops`` is one card's).
       tracer: optional ``obs.Tracer`` — one ``train.window`` span per
         host-sync window (step range, loss, step time).
       accountant: optional ``obs.account.TrainingAccountant`` — the

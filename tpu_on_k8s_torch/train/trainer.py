@@ -275,19 +275,19 @@ def _nll_sum(model: Transformer, tokens: torch.Tensor, loss_chunks: int,
     return (nll * mask).sum() if mask is not None else nll.sum()
 
 
-def make_sharded_train_step(model: Transformer, optimizer: ClipAdamW,
-                            mesh, loss_chunks: int = 0, grad_accum: int = 1,
-                            segment_eos: Optional[int] = None
-                            ) -> Callable[[torch.Tensor],
-                                          Dict[str, object]]:
-    """``make_train_step`` for a model laid out on ``mesh``: this rank's
-    rows ``[b, L+1]`` (``Trainer.shard_batch``) → the same metrics, of the
-    global batch. Each microbatch's loss is its rows' summed loss over the
-    global count of targets (all microbatches, all ranks), so the
-    backward passes, summed by FSDP2 over the ranks and added up over the
-    microbatches, give the gradient of the global mean."""
-    def step(tokens: torch.Tensor) -> Dict[str, object]:
-        count = optimizer.count
+def make_sharded_grads_fn(model: Transformer, mesh, loss_chunks: int = 0,
+                          grad_accum: int = 1,
+                          segment_eos: Optional[int] = None
+                          ) -> Callable[[torch.Tensor],
+                                        Tuple[torch.Tensor, torch.Tensor]]:
+    """The sharded step's forward and backward, without the update: this
+    rank's rows ``[b, L+1]`` → (the global batch's summed loss on this
+    rank's rows, the global count of targets), each parameter's ``.grad``
+    the gradient of the global mean (summed by FSDP2 over the ranks). Each
+    microbatch's loss is its rows' summed loss over the global count of
+    targets (all microbatches, all ranks), so the backward passes added up
+    over the microbatches give the gradient of the global mean."""
+    def grads(tokens: torch.Tensor):
         b = tokens.shape[0]
         if b % grad_accum:
             raise ValueError(
@@ -302,6 +302,26 @@ def make_sharded_train_step(model: Transformer, optimizer: ClipAdamW,
                             mask)
             (part / denom).backward()
             lsum = lsum + part.detach()
+        return lsum, denom
+
+    return grads
+
+
+def make_sharded_train_step(model: Transformer, optimizer: ClipAdamW,
+                            mesh, loss_chunks: int = 0, grad_accum: int = 1,
+                            segment_eos: Optional[int] = None
+                            ) -> Callable[[torch.Tensor],
+                                          Dict[str, object]]:
+    """``make_train_step`` for a model laid out on ``mesh``: this rank's
+    rows ``[b, L+1]`` (``Trainer.shard_batch``) → the same metrics, of the
+    global batch: ``make_sharded_grads_fn``'s gradients, then one
+    optimizer step."""
+    grads = make_sharded_grads_fn(model, mesh, loss_chunks, grad_accum,
+                                  segment_eos)
+
+    def step(tokens: torch.Tensor) -> Dict[str, object]:
+        count = optimizer.count
+        lsum, denom = grads(tokens)
         grad_norm = optimizer.step()
         optimizer.zero_grad(set_to_none=True)
         loss = _dp_sum(lsum, mesh) / denom
@@ -486,7 +506,8 @@ class Trainer:
             optimizer.rebind(model.parameters())
         optimizer.mesh = mesh
         self.optimizer = optimizer
-        self._grads = None
+        self._grads = make_sharded_grads_fn(model, mesh, loss_chunks,
+                                            grad_accum, segment_eos)
         self._step = make_sharded_train_step(model, optimizer, mesh,
                                              loss_chunks, grad_accum,
                                              segment_eos)

@@ -186,7 +186,11 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    the no-remat step's bit for bit, with 32, 16, 32 and 16 flash forward
    launches, and (mlp, dots, dots_kernels) the no-remat backward's count
    of dense products; each policy's peak memory and step time printed;
-5. times on the card, each beside the card's name and power limit;
+5. times on the card, each beside the card's name and power limit; the
+   library columns (SDPA's forward and backward, ``torch._int_mm`` with
+   its epilogue, ``torch.mul``) as the kernels are timed, 20 calls in a
+   CUDA graph (``time_ms``), SDPA's backward through autograd captured on
+   the stream its forward ran on (``sdpa_backward``);
 6. the GPT-2 family at ``gpt2_small`` width (12 layers, d_model 768, 12
    heads of 64, d_ff 3072, vocab 50257, 1024 learned positions, LayerNorm,
    tanh-GELU, tied head): (a) a biased tree from seed 0 exported with
@@ -259,7 +263,39 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    on the mesh and meshless: tokens equal, ``int8_matmul`` launches equal
    in both engines and above 0 (``mesh_serve_int8``), the row-parallel
    ``w_down``'s absmax all-reduce-max and fp32 sum run on the one-rank
-   group, step ms and peak memory beside (a)'s.
+   group, step ms and peak memory beside (a)'s;
+10. the vision models and BERT (after phase 9; ``phase 10`` is timed):
+   (a) ResNet-50 in fp32 with every BatchNorm's scale and bias from a seed,
+   a train-mode forward of 8 images on the card (TF32 off) against the CPU
+   within ``RESNET_GATE_TOL`` of the logits' largest; then in bf16,
+   ``ClassifierTrainer`` with adam(1e-3) on one card, 10 steps on one
+   batch of 256 x 224 x 224 x 3 NHWC images from numpy (or the largest of
+   192, 128, 64 that fits, printed as a finding): images/s (median of
+   steps 2-10, each ending in a synchronize), step ms and peak memory, one
+   more step's kernels under ``torch.profiler``, each counted to the op
+   that launched it (BatchNorm's forward and backward, the convolutions,
+   the optimizer and the rest by op and by kernel: ``profiled_step``),
+   beside ``BASELINE.json``'s v5e 2513.5 images/s as a reading, not a
+   target; every BatchNorm buffer moved and finite; the last loss below
+   the first; (b) ``python -m tpu_on_k8s_torch.train_mnist`` and
+   ``train_resnet --tiny`` at their defaults (50 steps, cuda), in process,
+   finite; (c) BERT-base (attn xla, adamw) at 32 x 128, 6 steps: step ms,
+   tokens/s and peak, step 0's loss within 1.0 of ln(30522); then
+   ``train_bert`` at its defaults; (d) BERT-base with attn flash and a
+   padding mask, 8 x 512, each row's real length from numpy seed 6 in
+   64-512: the real-position logits within ``LOGITS_NOISE_MULT`` of the
+   xla bf16 model's distance from the fp32 model; one step's gradients,
+   as one vector, within ``GRAD_NOISE_MULT`` of the xla bf16 model's, and
+   the q/k/v projections' (what the kernels' gradients feed), as one
+   vector, within ``GRAD_NOISE_MULT`` of the kernels' plain twins' (per
+   tensor the ratios are printed: against xla they pass 2 in the last
+   blocks, near-uniform random attention where dS rounds to bf16, as
+   GPT-2's in phase 6 (d)); 12 flash forward launches in a forward
+   and 12 / 12 / 12 in a training step; the three kernels at this shape
+   (non-causal, padding segments, D 64) against their plain twins, twice
+   launched bit for bit, and timed beside their plain twins, SDPA with
+   the equivalent boolean mask and their bound over the data's kept
+   pairs (the JSON's ``bert_padded_d64``).
 
 Then one JSON line for the kernels, the card's line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -413,6 +449,21 @@ GPT2_EXACT_MIN = 0.7
 # CLI at its defaults (8 x 512), 2 steps.
 GPT2_TRAIN_BATCH, GPT2_TRAIN_SEQ, GPT2_TRAIN_STEPS = 8, 1024, 8
 
+# Phase 10, the vision models and BERT. (a) ResNet-50 at BASELINE.json's
+# batch (256, then smaller ones if it does not fit), 10 adam steps on one
+# batch from numpy seed 11 (weights from torch seed 11); its fp32 gate
+# against the CPU: the logits of 8 images within this share of their
+# largest (the two differ in summation order only, TF32 off; a wrong
+# padding or BatchNorm moves them by O(1)); BASELINE.json's v5e images/s,
+# printed beside the card's as a reading. (c) BERT-base at 32 x 128, 6
+# steps, attn xla; (d) at 8 x 512, attn flash, each row's real length from
+# numpy seed 6 in 64-512.
+RESNET_SEED, RESNET_BATCHES, VISION_STEPS = 11, (256, 192, 128, 64), 10
+RESNET_GATE_TOL = 1e-3
+V5E_IMAGES_S = 2513.5
+BERT_SEED, BERT_LEN_SEED, BERT_STEPS = 12, 6, 6
+BERT_XLA_SHAPE, BERT_FLASH_SHAPE = (32, 128), (8, 512)
+
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
 # Phase 4c: the loop's steps (12 distinct batches from this numpy seed)
 LOOP_STEPS, LOOP_SEED = 12, 4
@@ -525,11 +576,12 @@ def sass_stats(lib) -> dict:
     return {fn: tuple(v) for fn, v in stats.items()}
 
 
-def time_ms(fn, iters: int = 20, reps: int = 7) -> float:
+def time_ms(fn, iters: int = 20, reps: int = 7, stream=None) -> float:
     """Median device time of one ``fn()`` call: ``iters`` calls captured in
     a CUDA graph (no host launch cost inside), replayed ``reps`` times
-    between CUDA events, after warm-up."""
-    side = torch.cuda.Stream()
+    between CUDA events, after warm-up; warmed up and captured on
+    ``stream`` when given (``sdpa_backward``'s)."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
@@ -537,7 +589,7 @@ def time_ms(fn, iters: int = 20, reps: int = 7) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -572,6 +624,25 @@ def event_ms(fn, iters: int = 10, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def sdpa_backward(q, k, v, do, **sdpa_kwargs):
+    """(``fn``, ``stream``): ``fn()`` runs SDPA's backward through autograd
+    for ``scaled_dot_product_attention(q, k, v, **sdpa_kwargs)``, whose
+    forward ran once on ``stream``. Autograd runs each backward operator on
+    its forward's stream, so ``time_ms(fn, stream=stream)`` captures the
+    library's backward kernels in a CUDA graph and times them as it times
+    the kernels (``make_graphed_callables`` captures a backward the same
+    way)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, **sdpa_kwargs)
+    torch.cuda.current_stream().wait_stream(stream)
+    return (lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                        retain_graph=True)), stream
 
 
 def wall_ms(fn, reps: int = 5) -> float:
@@ -628,26 +699,33 @@ def causal_pairs(l: int, causal: bool) -> int:
     return l * (l + 1) // 2 if causal else l * l
 
 
-def flash_bound_ms(b, h, hkv, l, d, causal) -> tuple[float, str]:
-    """The bf16 flash forward: QK^T and PV over the kept pairs; q, k, v read
-    once, o and the fp32 lse written once."""
-    return bound_ms(4 * b * h * d * causal_pairs(l, causal),
+def flash_bound_ms(b, h, hkv, l, d, causal,
+                   pairs=None) -> tuple[float, str]:
+    """The bf16 flash forward: QK^T and PV over the kept pairs (``pairs``:
+    the batch's kept (query, key) pairs a head, where the data decides
+    them); q, k, v read once, o and the fp32 lse written once."""
+    pairs = b * causal_pairs(l, causal) if pairs is None else pairs
+    return bound_ms(4 * h * d * pairs,
                     2 * (2 * b * h * l * d + 2 * b * hkv * l * d)
                     + 4 * b * h * l)
 
 
-def dq_bound_ms(b, h, hkv, l, d, causal) -> tuple[float, str]:
+def dq_bound_ms(b, h, hkv, l, d, causal,
+                pairs=None) -> tuple[float, str]:
     """The bf16 dq kernel: QK^T, dO V^T and dS K over the kept pairs; q, dO,
     k, v, lse and delta read once, dq written once."""
-    return bound_ms(6 * b * h * d * causal_pairs(l, causal),
+    pairs = b * causal_pairs(l, causal) if pairs is None else pairs
+    return bound_ms(6 * h * d * pairs,
                     2 * (3 * b * h * l * d + 2 * b * hkv * l * d)
                     + 2 * 4 * b * h * l)
 
 
-def dkv_bound_ms(b, h, hkv, l, d, causal) -> tuple[float, str]:
+def dkv_bound_ms(b, h, hkv, l, d, causal,
+                 pairs=None) -> tuple[float, str]:
     """The bf16 dk/dv kernel: QK^T, dO V^T, P^T dO and dS^T Q over the kept
     pairs; q, dO, k, v, lse and delta read once, dk and dv written once."""
-    return bound_ms(8 * b * h * d * causal_pairs(l, causal),
+    pairs = b * causal_pairs(l, causal) if pairs is None else pairs
+    return bound_ms(8 * h * d * pairs,
                     2 * (2 * b * h * l * d + 4 * b * hkv * l * d)
                     + 2 * 4 * b * h * l)
 
@@ -3743,10 +3821,8 @@ def gpt2_phase(mods, gpu, dev, tmp: Path, plain_flash, fa, transformer,
     q, k, v, do = (randn(bt, h, lt, d) for _ in range(4))
     o, lse = fa.flash_with_lse_fwd(q, k, v, True)
     delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    out = sdpa(qg, kg, vg, is_causal=True)
-    sdpa_bwd = event_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
-                                                    retain_graph=True))
+    fn, stream = sdpa_backward(q, k, v, do, is_causal=True)
+    sdpa_bwd = time_ms(fn, stream=stream)
     shape = f"B={bt} H={h} L={lt} D={d} bf16 causal (gpt2 training)"
     d64["flash_fwd"].append(dict(
         shape=shape, ms=time_ms(lambda: fa.flash_with_lse_fwd(q, k, v, True)),
@@ -3778,7 +3854,7 @@ def gpt2_phase(mods, gpu, dev, tmp: Path, plain_flash, fa, transformer,
                   f" {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of "
                   f"bound")
-    del q, k, v, do, o, lse, delta, qg, kg, vg, out
+    del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
     print(f"[time] phase 6 {time.perf_counter() - t_phase:.1f} s")
     return {"paths": paths, "d64": d64}
@@ -4392,6 +4468,564 @@ def mesh_serve_phase(cfg, mods, gpu, dev, plain_a, serving, convert,
     torch.cuda.empty_cache()
     print(f"[time] phase 9 {time.perf_counter() - t_phase:.1f} s")
     return paths
+
+
+def resnet_gate(dev, vision, load_module) -> float:
+    """Phase 10 (a)'s gate: ResNet-50 in fp32, every BatchNorm's scale and
+    bias drawn from a seed (the reference's zero bn3 scale would leave each
+    block's main branch out), a train-mode forward on 8 images on the card
+    and on the CPU from the same weights. Returns max|card − CPU| over
+    max|CPU|."""
+    cfg = dataclasses.replace(vision.ResNetConfig.resnet50(),
+                              dtype=torch.float32)
+    with torch.device("meta"):
+        shape = vision.ResNet(cfg)
+    gen = torch.Generator().manual_seed(RESNET_SEED)
+    values = vision.init_variables(shape, gen)
+    for name, t in values.items():
+        if name.endswith(".scale"):
+            values[name] = 1 + 0.3 * torch.randn(t.shape, generator=gen)
+        elif ".bn" in name and name.endswith(".bias"):
+            values[name] = 0.2 * torch.randn(t.shape, generator=gen)
+    x = torch.from_numpy(np.random.default_rng(RESNET_SEED).standard_normal(
+        (8, 224, 224, 3), dtype=np.float32))
+    with torch.device("meta"):
+        cpu_model, card_model = vision.ResNet(cfg), vision.ResNet(cfg)
+    cpu_model = load_module(cpu_model, {k: v.clone()
+                                        for k, v in values.items()}, "cpu")
+    card_model = load_module(card_model, values, dev)
+    with torch.no_grad():
+        want = cpu_model(x, train=True)
+        got = card_model(x.to(dev), train=True).cpu()
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"[vision] (a) gate: resnet50 fp32, train-mode forward of 8 "
+          f"images on the card (TF32 off) against the CPU, same weights "
+          f"(BatchNorm scales and biases from seed {RESNET_SEED}): "
+          f"max|card - cpu| / max|cpu| {err:.3e} (tol {RESNET_GATE_TOL:g})")
+    if not err <= RESNET_GATE_TOL or not torch.isfinite(got).all():
+        fail("the card's fp32 ResNet-50 forward differs from the CPU's")
+    return err
+
+
+#: what a kernel's time counts as: the group of the first of these marks
+#: found in the names of the ops around the op that launched it, innermost
+#: first (``chip_smoke.batch_norm`` is the range ``profiled_step`` opens
+#: around each BatchNorm's forward; ``aten::convolution`` also marks
+#: ``aten::convolution_backward``)
+PROFILE_GROUPS = (
+    ("BatchNorm forward", ("chip_smoke.batch_norm",)),
+    ("BatchNorm backward", ("_BatchNormTrainBackward",)),
+    ("convolutions", ("aten::convolution", "ConvolutionBackward")),
+    ("optimizer", ("Optimizer.step",)),
+)
+_EVALUATE = "autograd::engine::evaluate_function: "
+
+
+def _op_chain(e):
+    """The names of a profiled op and of the ops around it, innermost
+    first."""
+    while e is not None:
+        yield e.name
+        e = e.cpu_parent
+
+
+def attribute_kernels(events, kernels_of=None):
+    """Each device kernel of a profile's ``events()`` counted once, to the
+    CPU op that launched it: ({group: ms} over ``PROFILE_GROUPS`` and "the
+    rest"; of the rest, {op: ms} by the outermost aten op or autograd node
+    around the launch, and {kernel: ms}). ``kernels_of(event)`` gives an
+    op's (name, µs) kernels (default: the ones the profiler linked to
+    it)."""
+    from torch.autograd import DeviceType
+
+    if kernels_of is None:
+        def kernels_of(e):
+            return [(k.name, k.duration) for k in e.kernels]
+    groups = dict.fromkeys([g for g, _ in PROFILE_GROUPS] + ["the rest"],
+                           0.0)
+    rest_ops, rest_kernels = {}, {}
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            continue
+        kernels = kernels_of(e)
+        if not kernels:
+            continue
+        chain = list(_op_chain(e))
+        group = next((g for name in chain for g, marks in PROFILE_GROUPS
+                      if any(m in name for m in marks)), "the rest")
+        ms = sum(us for _, us in kernels) / 1e3
+        groups[group] += ms
+        if group == "the rest":
+            ops = [n for n in chain if n.startswith(("aten::", _EVALUATE))]
+            op = (ops[-1] if ops else chain[-1]).replace(_EVALUATE, "")
+            rest_ops[op] = rest_ops.get(op, 0.0) + ms
+            for name, us in kernels:
+                rest_kernels[name] = rest_kernels.get(name, 0.0) + us / 1e3
+    return groups, rest_ops, rest_kernels
+
+
+def profiled_step(step, model, marked_cls, n_top: int = 8) -> str:
+    """One ``step()`` under ``torch.profiler`` (CPU and CUDA activity):
+    its device time by ``attribute_kernels``, each module of
+    ``marked_cls`` in ``model`` run inside a ``chip_smoke.batch_norm``
+    range for this step only, with the ``n_top`` longest ops and kernels
+    of the rest, beside every device kernel the profile holds."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+
+    open_ranges, handles = {}, []
+
+    def enter(module, _args):
+        open_ranges[id(module)] = rf = record_function(
+            "chip_smoke.batch_norm")
+        rf.__enter__()
+
+    def leave(module, _args, _out):
+        open_ranges.pop(id(module)).__exit__(None, None, None)
+
+    for module in model.modules():
+        if isinstance(module, marked_cls):
+            handles += [module.register_forward_pre_hook(enter),
+                        module.register_forward_hook(leave)]
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    events = prof.events()
+    groups, rest_ops, rest_kernels = attribute_kernels(events)
+    total = sum(groups.values())
+    if not total:
+        return "no device time seen by the profiler (not measured)"
+    every = sum(e.device_time_total for e in events
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)) / 1e3
+
+    def top(d):
+        return "; ".join(f"{k[:70]} {d[k]:.2f} ms" for k in
+                         sorted(d, key=d.get, reverse=True)[:n_top])
+
+    return (f"{total:.2f} ms of kernels attributed to the ops that launched "
+            f"them (the profile's device kernels: {every:.2f} ms): "
+            + ", ".join(f"{g} {t:.2f} ms ({t / total:.1%})"
+                        for g, t in groups.items())
+            + f". The rest by op: {top(rest_ops)}. The rest by kernel: "
+            + top(rest_kernels))
+
+
+def resnet_throughput(dev, gpu, vision, load_module, popt, trainer_cls,
+                      batch: int) -> dict:
+    """Phase 10 (a): ResNet-50 bf16, ``ClassifierTrainer`` with adam(1e-3)
+    on one card, ``VISION_STEPS`` steps on one fixed batch of ``batch`` x
+    224 x 224 x 3 NHWC images from numpy, each step ending in a
+    synchronize."""
+    cfg = vision.ResNetConfig.resnet50()
+    with torch.device("meta"):
+        model = vision.ResNet(cfg)
+    gen = torch.Generator(device=dev).manual_seed(RESNET_SEED)
+    model = load_module(model, vision.init_variables(model, gen), dev)
+    trainer = trainer_cls(model, popt.adam(model.parameters(), 1e-3))
+    rng = np.random.default_rng(RESNET_SEED + 1)
+    images = torch.from_numpy(rng.standard_normal(
+        (batch, 224, 224, 3), dtype=np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.num_classes,
+                                           (batch,))).to(dev)
+    before = {n: b.clone() for n, b in model.named_buffers()}
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(VISION_STEPS):
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, images, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    split = profiled_step(lambda: trainer.train_step(state, images, labels),
+                          model, vision.BatchNorm)
+    moved = sum(not torch.equal(before[n], b)
+                for n, b in model.named_buffers())
+    finite = all(torch.isfinite(b).all() for b in model.buffers())
+    step_s = statistics.median(times[1:])
+    print(f"[time] {gpu}: resnet50 bf16 train step (ClassifierTrainer, "
+          f"adam 1e-3, fp32 masters, one card) batch {batch} x 224 x 224 x "
+          f"3: median of steps 2-{VISION_STEPS} {step_s * 1e3:.2f} ms, "
+          f"{batch / step_s:,.1f} images/s, peak memory {peak:.2f} GB; "
+          f"BASELINE.json's v5e reading {V5E_IMAGES_S} images/s/chip (a "
+          f"TPU's, beside it as a reading, not a target)")
+    print(f"[vision] (a) one more step under torch.profiler: {split}")
+    print(f"[vision] (a) losses {[round(l, 4) for l in losses]}; "
+          f"{moved} of {len(before)} BatchNorm buffers moved in train "
+          f"mode, all finite: {finite}")
+    if moved != len(before) or not finite:
+        fail("train mode did not move every BatchNorm buffer, or left one "
+             "not finite")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        fail(f"ResNet-50's loss did not fall over {VISION_STEPS} adam steps "
+             f"on one batch: {losses}")
+    return dict(batch=batch, step_ms=step_s * 1e3, peak_gb=peak,
+                images_s=batch / step_s, profile=split)
+
+
+def bert_batch(cfg, batch: int, seq: int, seed: int, padded: bool):
+    """(tokens, MLM mask, padding mask or None) on numpy seeds: 15% of the
+    positions masked; with ``padded`` each row's real length drawn in
+    64 ... seq from ``BERT_LEN_SEED``."""
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))
+    mlm = torch.from_numpy((rng.uniform(size=(batch, seq)) < 0.15).astype(
+        np.float32))
+    if not padded:
+        return tokens, mlm, None
+    lengths = np.random.default_rng(BERT_LEN_SEED).integers(64, seq + 1,
+                                                            batch)
+    mask = torch.from_numpy((np.arange(seq)[None] < lengths[:, None]).astype(
+        np.int32))
+    return tokens, mlm * mask, mask
+
+
+def vision_bert_phase(mods, gpu, dev, tmp, fa) -> dict:
+    """Phase 10: the vision models and BERT (see the module docstring).
+    Returns the launches of its paths and the flash kernels' rows at
+    BERT's padded shape."""
+    import contextlib
+    import io
+
+    from tpu_on_k8s_torch import train_bert, train_mnist, train_resnet
+    from tpu_on_k8s_torch.models import bert, vision
+    from tpu_on_k8s_torch.models.params import load_module
+    from tpu_on_k8s_torch.train import optimizer as popt
+    from tpu_on_k8s_torch.train.mlm import make_mlm_step
+    from tpu_on_k8s_torch.train.vision import ClassifierTrainer
+
+    t_phase = time.perf_counter()
+    paths = {}
+    # ---- (a) ResNet-50 --------------------------------------------------
+    resnet_gate(dev, vision, load_module)
+    resnet = None
+    for batch in RESNET_BATCHES:
+        try:
+            resnet = resnet_throughput(dev, gpu, vision, load_module, popt,
+                                       ClassifierTrainer, batch)
+            break
+        except torch.OutOfMemoryError:
+            print(f"[vision] (a) batch {batch} does not fit the card "
+                  f"(out of memory); trying the next")
+        finally:
+            gc.collect()
+            torch.cuda.empty_cache()
+    if resnet is None:
+        fail(f"ResNet-50 fits none of the batches {RESNET_BATCHES}")
+    if resnet["batch"] != RESNET_BATCHES[0]:
+        print(f"[vision] (a) finding: batch {RESNET_BATCHES[0]} did not "
+              f"fit; {resnet['batch']} is the largest tried that does, "
+              f"peak {resnet['peak_gb']:.2f} GB")
+
+    # ---- (b) the vision CLIs at their defaults ---------------------------
+    t0 = time.perf_counter()
+    reset_counts(mods)
+    outs = {}
+    for name, cli, argv in (("train_mnist", train_mnist, []),
+                            ("train_resnet --tiny", train_resnet,
+                             ["--tiny"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            loss = cli.main(argv)
+        lines = [l for l in buf.getvalue().splitlines()
+                 if l.startswith("[elastic-metrics]")]
+        outs[name] = (loss, len(lines), lines[-1] if lines else "")
+    torch.cuda.synchronize()
+    for name, (loss, n, last) in outs.items():
+        print(f"[vision] (b) python -m tpu_on_k8s_torch.{name} (defaults, "
+              f"cuda): final loss {loss:.5f}, {n} [elastic-metrics] lines, "
+              f"the last: {last}")
+        if not math.isfinite(loss) or n != 50:
+            fail(f"{name} at its defaults did not train 50 finite steps")
+    print(f"[vision] (b) {time.perf_counter() - t0:.1f} s")
+
+    # ---- (c) BERT-base, attn xla ------------------------------------------
+    cfg = bert.BertConfig.base()
+    gen = torch.Generator(device=dev).manual_seed(BERT_SEED)
+    masters = bert.init_params(cfg, gen)
+
+    def model_of(impl="xla", dtype=torch.bfloat16):
+        """A ``Bert`` on the masters themselves (no copy)."""
+        with torch.device("meta"):
+            m = bert.Bert(dataclasses.replace(cfg, attn_impl=impl,
+                                              dtype=dtype))
+        return load_module(m, masters, dev)
+
+    model = model_of()
+    opt = popt.adamw(model.parameters(), popt.warmup_cosine_decay_schedule(
+        0.0, 1e-4, 10, 11), weight_decay=0.01)
+    step = make_mlm_step(model, opt)
+    tokens, mlm, _ = (t.to(dev) if t is not None else None for t in
+                      bert_batch(cfg, *BERT_XLA_SHAPE, BERT_SEED, False))
+    reset_counts(mods)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(BERT_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(tokens, mlm)["loss"].item())
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_s = statistics.median(times[1:])
+    b, l = BERT_XLA_SHAPE
+    print(f"[time] {gpu}: bert_base bf16 train step (attn xla, adamw, fp32 "
+          f"masters) batch {b} x {l}: median of steps 2-{BERT_STEPS} "
+          f"{step_s * 1e3:.2f} ms, {b * l / step_s:,.0f} tokens/s, peak "
+          f"memory {peak:.2f} GB; losses {[round(x, 4) for x in losses]}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) >= 1.0 or not all(
+            map(math.isfinite, losses)):
+        fail(f"BERT-base's step-0 loss {losses[0]} is not within 1.0 of "
+             f"ln({cfg.vocab_size})")
+    del model, opt, step
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        loss = train_bert.main([])
+    lines = [l for l in buf.getvalue().splitlines()
+             if l.startswith("[elastic-metrics]")]
+    print(f"[vision] (c) python -m tpu_on_k8s_torch.train_bert (defaults: "
+          f"bert_base, 8 x 128, xla, cuda): final loss {loss:.5f}, "
+          f"{len(lines)} lines, the last: {lines[-1] if lines else ''}")
+    if not math.isfinite(loss) or len(lines) != 50:
+        fail("train_bert at its defaults did not train 50 finite steps")
+
+    # ---- (d) BERT-base, attn flash, a padding mask ------------------------
+    # fresh masters from the seed: (c)'s steps moved the first ones
+    masters = bert.init_params(cfg, gen.manual_seed(BERT_SEED))
+    b, l = BERT_FLASH_SHAPE
+    tokens, mlm, mask = (t.to(dev) for t in
+                         bert_batch(cfg, b, l, BERT_SEED + 1, True))
+    real = mask.bool()
+    flash, xla32 = model_of("flash"), model_of("xla", torch.float32)
+    xla = model_of("xla")
+    reset_counts(mods)
+    with torch.no_grad():
+        logits_k = flash(tokens, None, mask)
+        torch.cuda.synchronize()
+        fwd_counts = read_counts(mods)
+        logits_p = xla(tokens, None, mask)
+        logits_32 = xla32(tokens, None, mask)
+    dist_k = (logits_k - logits_32)[real].abs().max().item()
+    dist_p = (logits_p - logits_32)[real].abs().max().item()
+    del logits_k, logits_p, logits_32
+
+    def twins():
+        stack = contextlib.ExitStack()
+        for name, plain in (("flash_with_lse_fwd", "flash_attention_plain"),
+                            ("flash_bwd_dq", "flash_bwd_dq_plain"),
+                            ("flash_bwd_dkv", "flash_bwd_dkv_plain")):
+            stack.enter_context(mock.patch.object(fa, name,
+                                                  getattr(fa, plain)))
+        return stack
+
+    def grads_of(model, patch=nullcontext):
+        with patch():
+            loss = bert.mlm_loss(model(tokens, None, mask), tokens, mlm)
+            return dict(zip([n for n, _ in model.named_parameters()],
+                            torch.autograd.grad(loss, list(
+                                model.parameters()))))
+
+    g32 = grads_of(xla32)
+
+    def rel(g):
+        # not the key biases: a key bias adds the same q·b to every score
+        # of a query's row, which softmax cancels, so their gradient is 0
+        # and every model's reading of it is rounding alone
+        return {k: ((g[k].float() - g32[k]).norm() / g32[k].norm()).item()
+                for k in g32 if not k.endswith(".wk.bias")}
+
+    reset_counts(mods)
+    gk = rel(grads_of(flash))
+    torch.cuda.synchronize()
+    grad_counts = read_counts(mods)
+    gt, gp = rel(grads_of(flash, twins)), rel(grads_of(xla))
+    vs_twins = {k: gk[k] / gt[k] for k in gk}
+    vs_plain = {k: gk[k] / gp[k] for k in gk}
+    worst_t = max(vs_twins, key=vs_twins.get)
+    worst_p = max(vs_plain, key=vs_plain.get)
+
+    def top(r):
+        return ", ".join(f"{k} {r[k]:.3f}" for k in sorted(
+            r, key=r.get, reverse=True)[:6])
+
+    attn = [k for k in gk if re.search(r"\.w[qkv]\.", k)]
+
+    def total(g, keys=tuple(gk)):
+        """The distance of the tensors ``keys`` as one vector."""
+        return math.sqrt(sum((g[k] * g32[k].norm().item()) ** 2
+                             for k in keys)) / math.sqrt(sum(
+            g32[k].norm().item() ** 2 for k in keys))
+
+    whole = {name: total(g) for name, g in (("flash", gk), ("twins", gt),
+                                            ("xla", gp))}
+    qkv = {name: total(g, attn) for name, g in (("flash", gk),
+                                                ("twins", gt), ("xla", gp))}
+    print(f"[vision] (d) highest ratios, readings: against the twins "
+          f"{top(vs_twins)}; against xla {top(vs_plain)}")
+    lens = real.sum(1).tolist()
+    print(f"[vision] (d) bert_base bf16, attn flash, batch {b} x {l}, real "
+          f"lengths {lens} (numpy seed {BERT_LEN_SEED}): real-position "
+          f"logits max|flash - fp32| {dist_k:.4e}, max|xla bf16 - fp32| "
+          f"{dist_p:.4e}, ratio {dist_k / dist_p:.3f} (limit "
+          f"{LOGITS_NOISE_MULT:g}); launches in the forward {fwd_counts}")
+    print(f"[vision] (d) gradient gate, one step, {len(gk)} tensors, "
+          f"||g - g_fp32|| / ||g_fp32||: all of them as one vector: flash "
+          f"{whole['flash']:.4e}, xla bf16 {whole['xla']:.4e}, ratio "
+          f"{whole['flash'] / whole['xla']:.3f} (limit {GRAD_NOISE_MULT:g})"
+          f"; the {len(attn)} q/k/v projections' (what the kernels' "
+          f"gradients feed) as one vector: flash {qkv['flash']:.4e}, the "
+          f"twins' bf16 model (the kernels' arithmetic in plain PyTorch) "
+          f"{qkv['twins']:.4e}, ratio {qkv['flash'] / qkv['twins']:.3f} "
+          f"(limit {GRAD_NOISE_MULT:g}), xla {qkv['xla']:.4e}; per tensor "
+          f"(readings) flash max {max(gk.values()):.4e}, median "
+          f"{statistics.median(gk.values()):.4e}, against the twins "
+          f"median {statistics.median(vs_twins.values()):.3f}, max "
+          f"{vs_twins[worst_t]:.3f} at {worst_t}, against xla median "
+          f"{statistics.median(vs_plain.values()):.3f}, max "
+          f"{vs_plain[worst_p]:.3f} at {worst_p}; launches in the step's "
+          f"forward and backward {grad_counts}")
+    n = cfg.n_layers
+    if (dist_k > LOGITS_NOISE_MULT * dist_p
+            or whole["flash"] > GRAD_NOISE_MULT * whole["xla"]
+            or qkv["flash"] > GRAD_NOISE_MULT * qkv["twins"]):
+        fail("BERT's flash path strays further from the fp32 model than "
+             "the bf16 plain path and the kernels' arithmetic explain")
+    if [fwd_counts[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                "flash_bwd_dkv")] != [n, 0, 0] or [
+            grad_counts[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv")] != [n, n, n]:
+        fail(f"BERT flash launches: forward {fwd_counts}, step "
+             f"{grad_counts}; expected {n}/0/0 and {n}/{n}/{n}")
+    del xla32, xla, g32
+    gc.collect()
+    torch.cuda.empty_cache()
+    # training steps through make_mlm_step: launches a step and step ms
+    opt = popt.adamw(flash.parameters(), popt.warmup_cosine_decay_schedule(
+        0.0, 1e-4, 10, 11), weight_decay=0.01)
+    step = make_mlm_step(flash, opt)
+    times, per_step = [], []
+    for _ in range(4):
+        reset_counts(mods)
+        t0 = time.perf_counter()
+        step(tokens, mlm, None, mask)["loss"].item()
+        times.append(time.perf_counter() - t0)
+        per_step.append(read_counts(mods))
+    paths["bert_flash"] = {k: fwd_counts[k] + grad_counts[k]
+                           + sum(c[k] for c in per_step)
+                           for k in fwd_counts}
+    step_s = statistics.median(times[1:])
+    print(f"[time] {gpu}: bert_base bf16 train step (attn flash, padding "
+          f"mask, adamw) batch {b} x {l}: median of steps 2-4 "
+          f"{step_s * 1e3:.2f} ms, {b * l / step_s:,.0f} tokens/s "
+          f"({sum(lens):,} real); launches a step {per_step[-1]}")
+    if any([c[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
+           != [n, n, n] for c in per_step):
+        fail(f"a BERT training step launched {per_step}; expected "
+             f"{n}/{n}/{n}")
+    del flash, opt, step, masters
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the three kernels at this shape: against the plain twins, twice
+    # launched bit for bit, timed beside SDPA with the equivalent mask
+    h, d = cfg.n_heads, cfg.head_dim
+    kg = torch.Generator(device=dev).manual_seed(BERT_SEED + 2)
+    q, k, v, do = (torch.randn(b, h, l, d, generator=kg, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    seg = bert.padding_segments(mask)
+    o, lse = fa.flash_with_lse_fwd(q, k, v, False, 0, seg)
+    o2, lse2 = fa.flash_with_lse_fwd(q, k, v, False, 0, seg)
+    po, plse = fa.flash_attention_plain(q, k, v, False, 0, seg)
+    delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, False, 0, seg)
+    dq2 = fa.flash_bwd_dq(q, k, v, do, lse, delta, False, 0, seg)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, False, 0, seg)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, False, 0, seg)
+    pdq = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, False, 0, seg)
+    pdk, pdv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, False, 0,
+                                      seg)
+    torch.cuda.synchronize()
+    tol_o, tol_lse = TOL[torch.bfloat16]
+    err_o = (o.float() - po.float()).abs().max().item()
+    err_lse = (lse - plse).abs().max().item()
+
+    def rel_err(a, w):
+        return ((a.float() - w.float()).abs().max()
+                / w.float().abs().max()).item()
+
+    errs = {"dq": rel_err(dq, pdq), "dk": rel_err(dk, pdk),
+            "dv": rel_err(dv, pdv)}
+    same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+            and torch.equal(dq, dq2) and torch.equal(dk, dk2)
+            and torch.equal(dv, dv2))
+    shape = (f"B={b} H={h} L={l} D={d} bf16 non-causal, padding segments "
+             f"(bert_base)")
+    print(f"[kernel] {shape}: flash_fwd max|o-plain| {err_o:.3e} (tol "
+          f"{tol_o:g}) max|lse-plain| {err_lse:.3e} (tol {tol_lse:g}); "
+          f"flash_bwd dq rel {errs['dq']:.2e}, dk rel {errs['dk']:.2e}, dv "
+          f"rel {errs['dv']:.2e} (tol rel {BWD_REL_TOL[torch.bfloat16]:g}); "
+          f"two launches bit-identical: {same}")
+    if (err_o > tol_o or err_lse > tol_lse
+            or max(errs.values()) > BWD_REL_TOL[torch.bfloat16] or not same):
+        fail(f"the flash kernels at BERT's padded shape: {shape}")
+    keep = (seg[:, :, None] == seg[:, None, :])
+    pairs = int(keep.sum())
+    sdpa_mask = keep[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fn, stream = sdpa_backward(q, k, v, do, attn_mask=sdpa_mask)
+    sdpa_bwd = time_ms(fn, stream=stream)
+    rows = {
+        "flash_fwd": dict(
+            ms=time_ms(lambda: fa.flash_with_lse_fwd(q, k, v, False, 0,
+                                                     seg)),
+            plain_ms=time_ms(lambda: fa.flash_attention_plain(
+                q, k, v, False, 0, seg)),
+            library_ms=time_ms(lambda: sdpa(q, k, v, attn_mask=sdpa_mask)),
+            max_abs_err=err_o,
+            **dict(zip(("bound_ms", "bound_by"), flash_bound_ms(
+                b, h, h, l, d, False, pairs)))),
+        "flash_bwd_dq": dict(
+            ms=time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                               False, 0, seg)),
+            plain_ms=time_ms(lambda: fa.flash_bwd_dq_plain(
+                q, k, v, do, lse, delta, False, 0, seg)),
+            library_ms=sdpa_bwd,
+            max_abs_err=(dq.float() - pdq.float()).abs().max().item(),
+            **dict(zip(("bound_ms", "bound_by"), dq_bound_ms(
+                b, h, h, l, d, False, pairs)))),
+        "flash_bwd_dkv": dict(
+            ms=time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                False, 0, seg)),
+            plain_ms=time_ms(lambda: fa.flash_bwd_dkv_plain(
+                q, k, v, do, lse, delta, False, 0, seg)),
+            library_ms=sdpa_bwd,
+            max_abs_err=max((dk.float() - pdk.float()).abs().max().item(),
+                            (dv.float() - pdv.float()).abs().max().item()),
+            **dict(zip(("bound_ms", "bound_by"), dkv_bound_ms(
+                b, h, h, l, d, False, pairs)))),
+    }
+    full = flash_bound_ms(b, h, h, l, d, False)[0]
+    for name, r in rows.items():
+        r.update(shape=shape, kept_pairs=pairs * h)
+        print(f"[time] {gpu}: {name} {shape}: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, sdpa with the boolean mask "
+              f"{'forward' if name == 'flash_fwd' else 'backward (dq, dk, dv together)'}"
+              f" {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; {pairs:,} kept pairs a head of "
+              f"{b * l * l:,}), {r['bound_ms'] / r['ms']:.1%} of bound")
+    print(f"[time] {gpu}: (the forward's bound over all {b * l * l:,} "
+          f"pairs a head would be {full:.4f} ms)")
+    del q, k, v, do, o, lse, o2, lse2, po, plse, dq, dq2, dk, dv, dk2, dv2
+    torch.cuda.empty_cache()
+    print(f"[time] phase 10 {time.perf_counter() - t_phase:.1f} s")
+    return {"paths": paths, "bert_padded": rows, "resnet": resnet}
 
 
 def main() -> int:
@@ -5128,11 +5762,8 @@ def run(tmp: Path) -> int:
     sdpa_fwd_ms = time_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=True))
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg,
-                                                           is_causal=True)
-    sdpa_bwd_ms = event_ms(lambda: torch.autograd.grad(
-        out, (qg, kg, vg), do, retain_graph=True))
+    fn, stream = sdpa_backward(q, k, v, do, is_causal=True)
+    sdpa_bwd_ms = time_ms(fn, stream=stream)
     library = {"flash_fwd": sdpa_fwd_ms, "flash_bwd_dq": sdpa_bwd_ms,
                "flash_bwd_dkv": sdpa_bwd_ms}
     for name, (ms, plain, (bound, by)) in timed.items():
@@ -5152,7 +5783,7 @@ def run(tmp: Path) -> int:
           f"prefill (+1 token) {w8['prefill_ms']:.2f} ms, 64 tokens "
           f"{w8['gen64_ms']:.2f} ms, per-token decode {w8['decode_ms']:.3f} "
           f"ms (bf16: {prefill_ms:.2f}, {gen64_ms:.2f}, {decode_ms:.3f})")
-    del q, k, v, do, o, lse, delta, qg, kg, vg, out
+    del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
 
     # the int8 GEMM at the training shapes: kernel, plain, and
@@ -5165,7 +5796,7 @@ def run(tmp: Path) -> int:
         ms = time_ms(lambda: i8.int8_matmul_kernel(xq, sx, wq, sw, out_dtype))
         plain = event_ms(lambda: i8.int8_matmul_plain(xq, sx, wq, sw,
                                                        out_dtype))
-        lib = event_ms(lambda: i8._int_mm(xq, sx, wq, sw, out_dtype))
+        lib = time_ms(lambda: i8._int_mm(xq, sx, wq, sw, out_dtype))
         bound, by = int8_bound_ms(m, n, kk, out_dtype)
         int8_times[(m, n, kk)] = (ms, plain, bound, by, lib)
         print(f"[time] {gpu}: int8_matmul M={m} N={n} K={kk} out "
@@ -5222,6 +5853,10 @@ def run(tmp: Path) -> int:
     # ---- 9. mesh-sharded serving at llama2_7b width -----------------------
     by_path.update(mesh_serve_phase(cfg, mods, gpu, dev, plain_a, serving,
                                     convert, metrics_mod))
+
+    # ---- 10. the vision models and BERT ----------------------------------
+    phase10 = vision_bert_phase(mods, gpu, dev, tmp, fa)
+    by_path.update(phase10["paths"])
     print(f"[time] script {time.perf_counter() - t_start:.0f} s")
 
     gemm = (TRAIN_BATCH * TRAIN_SEQ, 11264, 2048)
@@ -5263,6 +5898,8 @@ def run(tmp: Path) -> int:
             "shape": shapes[name]})
         if name in gpt2["d64"]:
             kernels[-1]["gpt2_d64"] = gpt2["d64"][name]
+        if name in phase10["bert_padded"]:
+            kernels[-1]["bert_padded_d64"] = phase10["bert_padded"][name]
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

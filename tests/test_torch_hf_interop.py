@@ -7,8 +7,10 @@ configs written here (nothing is downloaded), converted, and their logits,
 greedy tokens and exported state dicts held against the HF models'; the
 ``--hf-model`` paths of the ``serve`` and ``generate`` CLIs serve a saved
 checkpoint directory; and for each family the port's converted model and
-the JAX package's give the same logits. Waiting for a later slice:
-``TestBert`` (``from_hf_bert``, Queue 1 item 5).
+the JAX package's give the same logits. ``TestBert`` holds
+``from_hf_bert`` to the reference's three BERT oracles (MLM logits with
+token types, the padding mask on the xla and the flash path, the refused
+configs) and to the JAX package's converted model.
 
 Tolerances: logits against HF within the reference's atol 2e-4 / rtol
 2e-3; export round trips exact (atol 1e-6 on HF's own logits, as the
@@ -312,6 +314,110 @@ class TestGPT2:
         with pytest.raises(ValueError, match="vocab"):
             convert.draft_from_hf_gpt2(
                 hf, dataclasses.replace(tcfg, vocab_size=256), device="cpu")
+
+
+class TestBert:
+    """Encoder-family oracle: post-LN blocks, erf-gelu, token types, tied
+    MLM decoder against ``transformers.BertForMaskedLM``."""
+
+    @staticmethod
+    def _hf(seed: int, **extra):
+        hf_cfg = transformers.BertConfig(
+            vocab_size=128, hidden_size=64, num_hidden_layers=2,
+            num_attention_heads=4, intermediate_size=128,
+            max_position_embeddings=64, hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0, **extra)
+        torch.manual_seed(seed)
+        return transformers.BertForMaskedLM(hf_cfg).eval()
+
+    @staticmethod
+    def _logits(cfg, params, tokens, types=None, mask=None) -> np.ndarray:
+        from tpu_on_k8s_torch.models.bert import Bert
+        from tpu_on_k8s_torch.models.params import load_module
+
+        model = load_module(Bert(cfg), params, "cpu")
+        with torch.no_grad():
+            return model(*(None if a is None else torch.from_numpy(a)
+                           for a in (tokens, types, mask))).numpy()
+
+    def test_mlm_logits_match_hf(self):
+        hf = self._hf(0, type_vocab_size=2)
+        cfg, params = convert.from_hf_bert(hf, device="cpu")
+        tokens = np.array([[3, 17, 95, 4, 88, 120, 7, 1]], np.int32)
+        types = np.array([[0, 0, 0, 0, 1, 1, 1, 1]], np.int32)
+        with torch.no_grad():
+            want = hf(torch.tensor(tokens, dtype=torch.long),
+                      token_type_ids=torch.tensor(types, dtype=torch.long)
+                      ).logits.numpy()
+        np.testing.assert_allclose(self._logits(cfg, params, tokens, types),
+                                   want, atol=HF_ATOL, rtol=HF_RTOL)
+
+    @pytest.mark.parametrize("impl", ["xla", "flash"])
+    def test_padding_mask_matches_hf(self, impl):
+        """Batched ragged encoder inputs: the padding attention_mask yields
+        the same real-position logits HF computes, on the plain attention
+        and on the flash path (the segments the reference builds)."""
+        hf = self._hf(1)
+        cfg, params = convert.from_hf_bert(hf, device="cpu")
+        cfg = dataclasses.replace(cfg, attn_impl=impl)
+        tokens = np.array([[3, 17, 95, 4, 0, 0, 0, 0],
+                           [9, 2, 64, 31, 5, 77, 12, 40]], np.int32)
+        mask = np.array([[1, 1, 1, 1, 0, 0, 0, 0],
+                         [1, 1, 1, 1, 1, 1, 1, 1]], np.int32)
+        with torch.no_grad():
+            want = hf(torch.tensor(tokens, dtype=torch.long),
+                      attention_mask=torch.tensor(mask, dtype=torch.long)
+                      ).logits.numpy()
+        got = self._logits(cfg, params, tokens, None, mask)
+        # real positions agree; pad positions are model-undefined in HF too
+        np.testing.assert_allclose(got[mask == 1], want[mask == 1],
+                                   atol=HF_ATOL, rtol=HF_RTOL)
+
+    def test_unsupported_configs_rejected(self):
+        hf = transformers.BertForMaskedLM(transformers.BertConfig(
+            vocab_size=64, hidden_size=32, num_hidden_layers=1,
+            num_attention_heads=2, intermediate_size=64))
+        hf.config.hidden_act = "relu"
+        with pytest.raises(ValueError, match="hidden_act"):
+            convert.from_hf_bert(hf, device="cpu")
+        hf.config.hidden_act = "gelu"
+        hf.config.position_embedding_type = "relative_key"
+        with pytest.raises(ValueError, match="absolute"):
+            convert.from_hf_bert(hf, device="cpu")
+        hf.config.position_embedding_type = "absolute"
+        hf.config.tie_word_embeddings = False
+        with pytest.raises(ValueError, match="untied"):
+            convert.from_hf_bert(hf, device="cpu")
+
+    def test_port_and_jax_converted_models_agree(self):
+        """The same HF model through both packages' ``from_hf_bert``: equal
+        fp32 logits with types and a padding mask."""
+        from tpu_on_k8s.models.bert import Bert as JBert
+
+        hf = self._hf(2)
+        cfg, params = convert.from_hf_bert(hf, device="cpu")
+        jcfg, jparams = jconvert.from_hf_bert(hf)
+        mask = np.ones_like(TOKENS)
+        mask[0, 5:] = 0
+        types = (np.arange(8)[None] >= 4).astype(np.int32).repeat(2, 0)
+        want = np.asarray(JBert(jcfg).apply(
+            {"params": jparams}, jnp.asarray(TOKENS), jnp.asarray(types),
+            jnp.asarray(mask)))
+        np.testing.assert_allclose(
+            self._logits(cfg, params, TOKENS, types, mask), want,
+            atol=FP32_ATOL, rtol=0)
+        assert convert.config_from_hf_bert(types_namespace(
+            hf.config)) == dataclasses.replace(cfg, dtype=torch.bfloat16)
+
+
+def types_namespace(hf_config) -> types.SimpleNamespace:
+    """A config object with only ``BertConfig``'s documented fields, as the
+    card (no ``transformers``) would build one."""
+    return types.SimpleNamespace(**{k: getattr(hf_config, k) for k in (
+        "vocab_size", "hidden_size", "num_hidden_layers",
+        "num_attention_heads", "intermediate_size",
+        "max_position_embeddings", "type_vocab_size", "layer_norm_eps",
+        "hidden_act", "position_embedding_type")})
 
 
 # ---- the port against the JAX package's converters ----------------------------

@@ -68,7 +68,14 @@ def test_the_scan_sees_the_whole_port():
             "tpu_on_k8s_torch/train_llama.py",
             "tpu_on_k8s_torch/train/trainer.py",
             "tpu_on_k8s_torch/train/optimizer.py",
-            "tpu_on_k8s_torch/data/loader.py"} <= names
+            "tpu_on_k8s_torch/data/loader.py",
+            "tpu_on_k8s_torch/models/vision.py",
+            "tpu_on_k8s_torch/models/bert.py",
+            "tpu_on_k8s_torch/train/vision.py",
+            "tpu_on_k8s_torch/train/mlm.py",
+            "tpu_on_k8s_torch/train_resnet.py",
+            "tpu_on_k8s_torch/train_mnist.py",
+            "tpu_on_k8s_torch/train_bert.py"} <= names
 
 
 def test_copied_modules_import_without_prometheus_client():

@@ -1,5 +1,5 @@
 """Conversions of parameter trees: Hugging Face Llama and GPT-2 checkpoints
-in and out, and the W8A16 serving variant.
+in and out, BERT checkpoints in, and the W8A16 serving variant.
 
 Counterpart of ``tpu_on_k8s/models/convert.py``. ``from_hf_llama`` and
 ``from_hf_gpt2`` map a ``transformers`` causal LM (anything with a
@@ -19,8 +19,10 @@ table in HF's state dict, and the export shares it the same way. Norm
 scales and biases are fp32 in the port; a converter rounds them through
 ``dtype`` first, as the reference stores them in ``dtype``.
 
-The reference's orbax checkpoint converters and ``from_hf_bert`` belong to
-later slices.
+``from_hf_bert`` maps a ``BertForMaskedLM`` onto ``models/bert.py``'s
+state dict (``nn.Linear`` weights carry over as they are; the MLM decoder
+is the word-embedding table, so an untied checkpoint is refused). The
+reference's orbax checkpoint converters belong to a later slice.
 """
 from __future__ import annotations
 
@@ -246,6 +248,93 @@ def draft_from_hf_gpt2(hf_model, target_cfg: TransformerConfig,
             f"draft vocab {cfg.vocab_size} != target vocab "
             f"{target_cfg.vocab_size}: a speculative draft must share "
             f"the target's tokenizer")
+    return cfg, params
+
+
+def config_from_hf_bert(hf_config):
+    """A ``BertConfig`` matching a ``transformers.BertConfig`` (any object
+    with its fields). Refused, as the reference refuses them: an activation
+    other than the exact gelu, position embeddings other than absolute, an
+    untied MLM decoder."""
+    from tpu_on_k8s_torch.models.bert import BertConfig
+
+    act = getattr(hf_config, "hidden_act", "gelu")
+    if act != "gelu":
+        raise ValueError(f"unsupported hidden_act {act!r}: this encoder "
+                         f"uses the exact (erf) gelu")
+    if getattr(hf_config, "position_embedding_type",
+               "absolute") != "absolute":
+        raise ValueError("only absolute position embeddings are supported")
+    if not getattr(hf_config, "tie_word_embeddings", True):
+        # the MLM decoder here IS the word-embedding matrix; an untied
+        # checkpoint's own decoder.weight would be silently dropped
+        raise ValueError("untied MLM decoder weights are not supported "
+                         "(this encoder ties the decoder to the "
+                         "embeddings)")
+    return BertConfig(
+        vocab_size=hf_config.vocab_size, d_model=hf_config.hidden_size,
+        n_layers=hf_config.num_hidden_layers,
+        n_heads=hf_config.num_attention_heads,
+        d_ff=hf_config.intermediate_size,
+        max_seq_len=hf_config.max_position_embeddings,
+        type_vocab_size=hf_config.type_vocab_size,
+        norm_eps=float(hf_config.layer_norm_eps))
+
+
+#: HF BERT's per-layer module names past ``bert.encoder.layer.{i}.`` → the
+#: port's past ``blocks.{i}.``
+_BERT_LAYER = (("attention.self.query", "wq"), ("attention.self.key", "wk"),
+               ("attention.self.value", "wv"),
+               ("attention.output.dense", "wo"),
+               ("attention.output.LayerNorm", "attn_norm"),
+               ("intermediate.dense", "w_fc"), ("output.dense", "w_proj"),
+               ("output.LayerNorm", "mlp_norm"))
+#: the rest of ``BertForMaskedLM``'s tensors → the port's
+_BERT_TOP = (("bert.embeddings.word_embeddings.weight", "embed"),
+             ("bert.embeddings.position_embeddings.weight", "pos_embed"),
+             ("bert.embeddings.token_type_embeddings.weight", "type_embed"),
+             ("bert.embeddings.LayerNorm.weight", "embed_norm.scale"),
+             ("bert.embeddings.LayerNorm.bias", "embed_norm.bias"),
+             ("cls.predictions.transform.dense.weight",
+              "mlm_transform.weight"),
+             ("cls.predictions.transform.dense.bias", "mlm_transform.bias"),
+             ("cls.predictions.transform.LayerNorm.weight",
+              "mlm_norm.scale"),
+             ("cls.predictions.transform.LayerNorm.bias", "mlm_norm.bias"),
+             ("cls.predictions.bias", "mlm_bias"))
+
+
+def params_from_hf_bert(state_dict, cfg, dtype: torch.dtype = torch.float32,
+                        device: str | torch.device = "cuda") -> Params:
+    """The port's BERT state dict from an HF ``BertForMaskedLM``
+    ``state_dict``, on ``device`` in ``dtype`` (norms fp32)."""
+    def arr(name: str) -> torch.Tensor:
+        return _host_fp32(state_dict, name)
+
+    params = {port: arr(hf) for hf, port in _BERT_TOP}
+    for i in range(cfg.n_layers):
+        hf, port = f"bert.encoder.layer.{i}.", f"blocks.{i}."
+        for hf_name, port_name in _BERT_LAYER:
+            norm = port_name.endswith("norm")
+            params[port + port_name + (".scale" if norm else ".weight")] = (
+                arr(hf + hf_name + ".weight"))
+            params[port + port_name + ".bias"] = arr(hf + hf_name + ".bias")
+    return _placed(params, dtype, device)
+
+
+def from_hf_bert(hf_model, dtype: torch.dtype = torch.float32,
+                 compute_dtype: torch.dtype | None = None,
+                 device: str | torch.device = "cuda"):
+    """(``BertConfig``, params) from a loaded ``BertForMaskedLM``, ready for
+    ``params.load_module(Bert(cfg), params)``, as ``from_hf_llama``."""
+    from tpu_on_k8s_torch.models.bert import Bert
+
+    cfg = dataclasses.replace(config_from_hf_bert(hf_model.config),
+                              dtype=compute_dtype or dtype,
+                              param_dtype=dtype)
+    params = params_from_hf_bert(hf_model.state_dict(), cfg, dtype, device)
+    with torch.device("meta"):
+        Bert(cfg)           # the config constructs: bad fields fail here
     return cfg, params
 
 

@@ -291,3 +291,95 @@ def handoff_from_numpy(cache: Mapping, *, pos: int, first_token: int,
         pos=int(pos), first_token=int(first_token),
         emitted=tuple(int(t) for t in emitted), base=int(base),
         prefix_hash=prefix_hash, checksum=checksum)
+
+
+def load_module(model: torch.nn.Module, state: Mapping[str, torch.Tensor],
+                device: str | torch.device = "cuda") -> torch.nn.Module:
+    """``model`` (built anywhere, the meta device included) holding
+    ``state``, a full state dict of its parameters and buffers, on
+    ``device``, each tensor in the dtype the model declares for it. A
+    tensor already so placed becomes the parameter or buffer itself."""
+    dev = resolve_device(device)
+    own = model.state_dict()
+    if set(own) != set(state):
+        raise KeyError(f"state keys differ: missing "
+                       f"{sorted(set(own) - set(state))[:4]}, unexpected "
+                       f"{sorted(set(state) - set(own))[:4]}")
+    model.load_state_dict({name: state[name].to(device=dev, dtype=t.dtype)
+                           for name, t in own.items()},
+                          strict=True, assign=True)
+    return model
+
+
+def from_jax_variables(variables: Mapping,
+                       device: str | torch.device = "cuda"
+                       ) -> Dict[str, torch.Tensor]:
+    """A reference vision model's variables (``{"params": ...,
+    "batch_stats": ...}``, nested dicts of arrays, as ``model.init``
+    returns them) as the port's state dict (``models/vision.py``) on
+    ``device``: ``a/b/kernel`` becomes ``a.b.weight``, an HWIO conv
+    kernel transposed to ``[out, in, kh, kw]`` and a Dense kernel to
+    ``[out, in]``; scales, biases and the ``batch_stats``' ``mean`` and
+    ``var`` keep their names and fp32."""
+    from tpu_on_k8s_torch.parallel.partition import flatten_tree
+
+    dev = resolve_device(device)
+    out = {}
+    for collection in ("params", "batch_stats"):
+        for path, leaf in flatten_tree(dict(variables.get(collection, {}))):
+            a = _as_numpy(leaf)
+            module, _, name = path.rpartition("/")
+            if name == "kernel":
+                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+                name = "weight"
+            out[f"{module.replace('/', '.')}.{name}"] = torch.from_numpy(
+                np.ascontiguousarray(a)).to(device=dev, dtype=torch.float32)
+    return out
+
+
+#: the reference encoder block's projections and norms (``models/bert.py``)
+_BERT_DENSE = ("wq", "wk", "wv", "wo", "w_fc", "w_proj")
+_BERT_NORMS = ("attn_norm", "mlp_norm")
+
+
+def from_jax_bert_params(tree: Mapping,
+                         device: str | torch.device = "cuda"
+                         ) -> Dict[str, torch.Tensor]:
+    """The reference BERT's parameter tree (scan-stacked ``blocks/{wq, wk,
+    wv, wo, w_fc, w_proj}/{kernel [L, in, out], bias [L, out]}`` and
+    ``blocks/{attn,mlp}_norm/{scale, bias} [L, D]``; ``embed``,
+    ``pos_embed``, ``type_embed``, ``embed_norm``, ``mlm_transform``,
+    ``mlm_norm``, ``mlm_bias``) as the port's state dict
+    (``models/bert.py``) in fp32 on ``device``: per layer
+    ``blocks.{i}.wq.weight [out, in]`` and so on; ``load_module`` stores
+    each in the dtype the model declares. Adam's moment trees have the
+    same layout, so they cross the same way."""
+    dev = resolve_device(device)
+
+    def fp32(a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(_as_numpy(a))).to(
+            device=dev, dtype=torch.float32)
+
+    blocks = tree["blocks"]
+    if set(blocks) != {*_BERT_DENSE, *_BERT_NORMS}:
+        raise NotImplementedError(f"not a BERT block tree: "
+                                  f"{sorted(blocks)}")
+    params = {name: fp32(tree[name])
+              for name in ("embed", "pos_embed", "type_embed")}
+    params["embed_norm.scale"] = fp32(tree["embed_norm"]["scale"])
+    params["embed_norm.bias"] = fp32(tree["embed_norm"]["bias"])
+    for i in range(np.shape(blocks["attn_norm"]["scale"])[0]):
+        for w in _BERT_DENSE:
+            params[f"blocks.{i}.{w}.weight"] = fp32(
+                _as_numpy(blocks[w]["kernel"][i]).T)
+            params[f"blocks.{i}.{w}.bias"] = fp32(blocks[w]["bias"][i])
+        for n in _BERT_NORMS:
+            for leaf in ("scale", "bias"):
+                params[f"blocks.{i}.{n}.{leaf}"] = fp32(blocks[n][leaf][i])
+    params["mlm_transform.weight"] = fp32(
+        _as_numpy(tree["mlm_transform"]["kernel"]).T)
+    params["mlm_transform.bias"] = fp32(tree["mlm_transform"]["bias"])
+    params["mlm_norm.scale"] = fp32(tree["mlm_norm"]["scale"])
+    params["mlm_norm.bias"] = fp32(tree["mlm_norm"]["bias"])
+    params["mlm_bias"] = fp32(tree["mlm_bias"])
+    return params

@@ -967,6 +967,12 @@ class Transformer(nn.Module):
             self.lm_head = nn.Parameter(torch.empty(
                 cfg.d_model, cfg.vocab_size, dtype=cfg.param_dtype))
 
+    def tensor_parallel(self, tp_mesh) -> None:
+        """What ``shard_model`` does over a ``model`` axis > 1:
+        ``parallel/sharded.tensor_parallel``."""
+        from tpu_on_k8s_torch.parallel.sharded import tensor_parallel
+        tensor_parallel(self, tp_mesh)
+
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 cache: Optional[List[KVCache]] = None,

@@ -237,6 +237,16 @@ def data_sharding(mesh: DeviceMesh) -> NamedSharding:
     return NamedSharding(mesh, ((AXIS_DATA, AXIS_FSDP),))
 
 
+def data_shard(mesh: DeviceMesh) -> Tuple[int, int]:
+    """(shard id, shard count) of this rank's rows among data × fsdp: its
+    (data, fsdp) coordinate (ranks that differ only on other axes read the
+    same rows)."""
+    sizes = mesh_shape(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    return (coord[AXIS_DATA] * sizes[AXIS_FSDP] + coord[AXIS_FSDP],
+            sizes[AXIS_DATA] * sizes[AXIS_FSDP])
+
+
 def replicated(mesh: DeviceMesh) -> NamedSharding:
     return NamedSharding(mesh, ())
 

@@ -1,6 +1,11 @@
 """A ``Transformer`` laid out on a mesh: tensor parallelism over ``model``
 and FSDP2 over (``data``, ``fsdp``), in PyTorch's own idiom. What the
 reference leaves to XLA's SPMD partitioner given its rules, written out.
+``shard_model`` lays ``Bert`` and the vision models out too: FSDP2 over
+their ``blocks`` and root. Over a ``model`` axis > 1 it calls the model's
+own ``tensor_parallel(tp_mesh)``: the ``Transformer``'s runs
+``tensor_parallel`` below, the vision models' keeps whole weights (their
+rules name no ``model`` axis) and ``Bert``'s refuses.
 
 ``shard_model(model, mesh, rules)`` validates every parameter against the
 rules first (``ShardingValidationError`` before anything moves), then:
@@ -211,13 +216,13 @@ def shard_model(model: nn.Module, mesh, rules: Sequence[PartitionRule]
     rules = tuple(rules)
     if layout_of(model) is not None:
         raise ValueError("the model is laid out on a mesh already")
-    cfg = model.cfg
-    check_mesh(cfg, mesh)
+    check_mesh(getattr(model, "cfg", None), mesh)
     # every parameter validated before anything is placed
     named_sharding(dict(model.named_parameters()), mesh, rules)
     sizes = mesh_shape(mesh)
     if sizes[AXIS_MODEL] > 1:
-        tensor_parallel(model, mesh[AXIS_MODEL])
+        # the model says what a model axis does to it
+        model.tensor_parallel(mesh[AXIS_MODEL])
     dp_axes = ((AXIS_DATA, AXIS_FSDP) if sizes[AXIS_DATA] > 1
                else (AXIS_FSDP,))
     dp_mesh = mesh[dp_axes] if len(dp_axes) > 1 else mesh[dp_axes[0]]
@@ -230,8 +235,9 @@ def shard_model(model: nn.Module, mesh, rules: Sequence[PartitionRule]
     for block in model.blocks:
         fully_shard(block, mesh=dp_mesh, shard_placement_fn=placement)
     fully_shard(model, mesh=dp_mesh, shard_placement_fn=placement)
-    # the chunked loss calls ``features``, not ``forward``: gather there too
-    register_fsdp_forward_method(model, "features")
+    if hasattr(model, "features"):
+        # the chunked loss calls ``features``, not ``forward``: gather there
+        register_fsdp_forward_method(model, "features")
     for module in model.modules():
         if isinstance(module, FSDPModule):
             # a sum: the loss is a mean over the global targets already

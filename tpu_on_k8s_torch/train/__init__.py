@@ -1,7 +1,8 @@
-"""Training on one card: the counterpart of ``tpu_on_k8s/train/`` (the step,
-the loss, the optimizer, ``TrainLoop`` in ``loop.py``, checkpoints in
-``checkpoint.py`` and the FLOP count in ``compile.py``; the mesh is a later
-slice)."""
+"""Training: the counterpart of ``tpu_on_k8s/train/`` (the step, the loss,
+the optimizers, ``TrainLoop`` in ``loop.py``, checkpoints in
+``checkpoint.py``, the FLOP count in ``compile.py``, the classifier
+trainer in ``vision.py`` and BERT's masked-LM step in ``mlm.py``; on a
+mesh through ``parallel/``)."""
 from tpu_on_k8s_torch.train.optimizer import (  # noqa: F401
     ClipAdamW,
     default_optimizer,

@@ -8,7 +8,8 @@ decoupled decay scaled differently, the schedule read after the increment),
 so ``ClipAdamW`` repeats optax's arithmetic step for step:
 
 1. ``clip_by_global_norm``: g if ‖g‖ < max, else g / ‖g‖ · max (no epsilon);
-   ‖g‖ is the global norm over every parameter, returned by ``step``;
+   ‖g‖ is the global norm over every parameter, returned by ``step``
+   (``max_grad_norm=None``: no clip and no norm, ``optax.adam(w)``'s chain);
 2. Adam moments with bias correction at the incremented count;
    ``mu_hat / (sqrt(nu_hat) + eps)``;
 3. weight decay on every parameter (norms and embedding included):
@@ -16,6 +17,10 @@ so ``ClipAdamW`` repeats optax's arithmetic step for step:
 4. ``update *= −lr(count)`` with the schedule read at the count *before*
    the increment, so the first step runs at lr 0 under warmup from 0;
 5. ``p += update``.
+
+``adam`` and ``adamw`` build ``optax.adam`` and ``optax.adamw`` (b2 0.999,
+no clip) this way, and ``SGD`` is ``optax.sgd``'s chain: the vision and
+BERT examples' optimizers.
 
 Moment dtypes: ``mu_dtype`` alone is ``optax.adamw(mu_dtype=…)``: this
 step's fp32 mu drives the update and is stored cast. With ``nu_dtype`` both
@@ -33,7 +38,7 @@ over the mesh's axes add them.
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Optional
+from typing import Callable, Iterable, Optional, Union
 
 import numpy as np
 import torch
@@ -41,6 +46,14 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Shard
 
 Schedule = Callable[[int], float]
+
+
+def as_schedule(learning_rate: Union[float, Schedule]) -> Schedule:
+    """A learning rate as optax takes it: a schedule of the count, or a
+    constant."""
+    if callable(learning_rate):
+        return learning_rate
+    return lambda count: learning_rate
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
@@ -79,11 +92,13 @@ class ClipAdamW(torch.optim.Optimizer):
     """optax's ``clip_by_global_norm → adamw`` chain (see the module
     docstring). ``step()`` takes no closure, reads each parameter's
     ``.grad``, and returns the global norm of the gradients before the clip,
-    a 0-d fp32 tensor on their device (no host sync)."""
+    a 0-d fp32 tensor on their device (no host sync); with
+    ``max_grad_norm=None`` nothing is clipped and it returns None."""
 
     def __init__(self, params: Iterable[torch.Tensor], schedule: Schedule,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, max_grad_norm: float = 1.0,
+                 weight_decay: float = 0.1,
+                 max_grad_norm: Optional[float] = 1.0,
                  mu_dtype: Optional[torch.dtype] = None,
                  nu_dtype: Optional[torch.dtype] = None):
         super().__init__(params, dict(b1=b1, b2=b2, eps=eps,
@@ -142,7 +157,8 @@ class ClipAdamW(torch.optim.Optimizer):
         if missing:
             raise ValueError(f"parameters {missing} have no gradient")
         # optax.global_norm: sqrt of the sum over leaves of each leaf's sum
-        norm = torch.sqrt(self._square_sum(params))
+        norm = (None if self.max_grad_norm is None
+                else torch.sqrt(self._square_sum(params)))
         lr = self.schedule(self.count)
         self.count += 1
         for group in self.param_groups:
@@ -169,8 +185,9 @@ class ClipAdamW(torch.optim.Optimizer):
                 lr: float) -> None:
         b1, b2, eps = group["b1"], group["b2"], group["eps"]
         g = _local(p.grad)
-        g = torch.where(norm < self.max_grad_norm, g,
-                        (g / norm.to(g.dtype)) * self.max_grad_norm)
+        if norm is not None:
+            g = torch.where(norm < self.max_grad_norm, g,
+                            (g / norm.to(g.dtype)) * self.max_grad_norm)
         if not self.state[p]:
             self.init_state()
         state = self.state[p]
@@ -196,7 +213,8 @@ class ClipAdamW(torch.optim.Optimizer):
             _store(state, "mu", mu)
             _store(state, "nu", nu)
         w = _local(p)
-        update = update + group["weight_decay"] * w
+        if group["weight_decay"]:
+            update = update + group["weight_decay"] * w
         w.add_(-lr * update)
 
 
@@ -245,3 +263,65 @@ def default_optimizer(params: Iterable[torch.Tensor],
     return ClipAdamW(params, sched, weight_decay=weight_decay,
                      max_grad_norm=max_grad_norm, mu_dtype=mu_dtype,
                      nu_dtype=nu_dtype)
+
+
+class SGD(torch.optim.Optimizer):
+    """``optax.sgd(learning_rate, momentum, nesterov)``: with a momentum
+    the trace ``t' = g + momentum·t`` (zeros at first), the update ``g +
+    momentum·t'`` (nesterov) or ``t'``; without one the update is ``g``;
+    then ``p += −lr(count)·update``, the schedule read at the count before
+    the increment, as ``ClipAdamW``. Element-wise, so on a mesh it runs on
+    each rank's local blocks, each trace laid out like its parameter.
+    ``step()`` returns None."""
+
+    def __init__(self, params: Iterable[torch.Tensor],
+                 learning_rate: Union[float, Schedule],
+                 momentum: Optional[float] = None, nesterov: bool = False):
+        super().__init__(params, dict(momentum=momentum, nesterov=nesterov))
+        self.schedule = as_schedule(learning_rate)
+        #: optimizer steps taken (optax's ``count``)
+        self.count = 0
+
+    def rebind(self, params: Iterable[torch.Tensor]) -> None:
+        """Point a fresh optimizer at other parameters (``ClipAdamW``'s)."""
+        if self.count or self.state:
+            raise ValueError("the optimizer has state already: lay the "
+                             "model out on its mesh before it steps")
+        self.param_groups[0]["params"] = list(params)
+
+    @torch.no_grad()
+    def step(self, closure=None) -> None:
+        if closure is not None:
+            raise ValueError("SGD.step takes no closure")
+        lr = self.schedule(self.count)
+        self.count += 1
+        for group in self.param_groups:
+            m = group["momentum"]
+            for p in group["params"]:
+                if p.grad is None:
+                    raise ValueError("a parameter has no gradient")
+                g = _local(p.grad)
+                if m is not None:
+                    state = self.state[p]
+                    if not state:
+                        state["trace"] = torch.zeros_like(p)
+                    trace = g + m * _local(state["trace"])
+                    _store(state, "trace", trace)
+                    g = g + m * trace if group["nesterov"] else trace
+                _local(p).add_(-lr * g)
+
+
+def adam(params: Iterable[torch.Tensor],
+         learning_rate: Union[float, Schedule]) -> ClipAdamW:
+    """``optax.adam`` (b1 0.9, b2 0.999, eps 1e-8): ``ClipAdamW`` with no
+    weight decay and no clip."""
+    return adamw(params, learning_rate, weight_decay=0.0)
+
+
+def adamw(params: Iterable[torch.Tensor],
+          learning_rate: Union[float, Schedule],
+          weight_decay: float = 1e-4) -> ClipAdamW:
+    """``optax.adamw`` (b1 0.9, b2 0.999, eps 1e-8) with no mask: the decay
+    on every parameter, norms and biases included; no clip."""
+    return ClipAdamW(params, as_schedule(learning_rate), b2=0.999,
+                     weight_decay=weight_decay, max_grad_norm=None)

@@ -42,6 +42,7 @@ from tpu_on_k8s_torch.parallel.mesh import (
     AXIS_DATA,
     AXIS_FSDP,
     batch_sharding,
+    data_shard,
     local_rows,
     mesh_shape,
 )
@@ -529,13 +530,7 @@ class Trainer:
         on ``model`` read the same rows). (0, 1) off a mesh. A loader so
         sharded yields this rank's rows, which the steps take as they are:
         the reference's ``shard_local_batch`` has nothing left to do."""
-        if self.mesh is None:
-            return 0, 1
-        sizes = mesh_shape(self.mesh)
-        coord = dict(zip(self.mesh.mesh_dim_names,
-                         self.mesh.get_coordinate()))
-        return (coord[AXIS_DATA] * sizes[AXIS_FSDP] + coord[AXIS_FSDP],
-                sizes[AXIS_DATA] * sizes[AXIS_FSDP])
+        return (0, 1) if self.mesh is None else data_shard(self.mesh)
 
     def state(self) -> TrainState:
         """This trainer's ``TrainState``, at the optimizer's count."""

@@ -72,11 +72,13 @@ class StepTimer:
         self.tokens_per_step = tokens_per_step
         self.enabled = enabled
 
-    def report(self, step: int, loss: float, seconds: float) -> None:
+    def report(self, step: int, loss: float, seconds: float,
+               accuracy: float | None = None) -> None:
         if not self.enabled:
             return
-        print(f"[elastic-metrics] epoch=0 batch={step} latency={seconds:.4f} "
-              f"loss={loss:.4f} "
+        acc = f" accuracy={accuracy:.4f}" if accuracy is not None else ""
+        print(f"[elastic-metrics] epoch=0 batch={step} latency={seconds:.4f}"
+              f"{acc} loss={loss:.4f} "
               f"tok_s={self.tokens_per_step / max(seconds, 1e-9):.1f}",
               flush=True)
 

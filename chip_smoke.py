@@ -295,7 +295,39 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    (non-causal, padding segments, D 64) against their plain twins, twice
    launched bit for bit, and timed beside their plain twins, SDPA with
    the equivalent boolean mask and their bound over the data's kept
-   pairs (the JSON's ``bert_padded_d64``).
+   pairs (the JSON's ``bert_padded_d64``);
+11. sequence and pipeline parallelism (after phase 10; ``phase 11`` is
+   timed). The card is one, so the ``seq`` and ``stage`` axes run at world
+   1 and the ring's and Ulysses's per-rank bodies run over virtual chunks:
+   (a) ``parallel/ring.py``'s bodies at llama2_1b's attention width (B 1,
+   H 16, L 8192, D 128) in 4 chunks of 2048, each rank's body fed, through
+   the rotate seam, the chunks it would receive (``ring_in_lockstep``),
+   then the hand-written backward, causal and non-causal: the concatenated
+   output within ``TOL`` of its row's largest against one flash call over
+   the whole 8192 (``row_rel_err``; lse within ``TOL`` absolute), dq/dk/dv
+   within ``BWD_REL_TOL`` of the largest against the whole-sequence
+   backward, 10 forward, 10 dq and 10 dk/dv launches causal (4 diagonal, 6
+   past) and 16 of each non-causal, the ring's forward + backward ms
+   beside the whole-sequence kernels', the host's ms to enqueue the ring,
+   and one ring under ``torch.profiler`` (device time by kernel group);
+   (b) Ulysses's body over
+   4 virtual head groups of 4 heads at that shape: each group's output and
+   gradients equal the whole-head call's heads bit for bit; (c) llama2_1b
+   on a world-1 NCCL mesh ``MeshConfig(seq=1)`` with ``attn_impl`` xla,
+   ring, ulysses and flash, 2 steps each on phase 4's batch: ring and
+   ulysses (a ring of one is the plain attention) equal xla bit for bit,
+   flash 16 launches of each kernel a step; then ``python -m
+   tpu_on_k8s_torch.train_llama --config tiny --attn ring --seq-axis 1
+   --steps 3``; (d) ``gpipe`` over ``stage_mesh(1, 1)`` with llama2_1b's 16
+   blocks (flash) stacked through ``torch.func.functional_call`` on 2 x
+   2048 in 2 microbatches: the output within ``TOL`` of the sequential
+   blocks' largest, each stacked leaf's gradient (and the input's) within
+   ``GRAD_NOISE_MULT`` of the sequential bf16 run's distance from fp32,
+   16 x 2 launches of each flash kernel; (e) the three kernels at the
+   ring's chunk shape (B 1, H 16, L 2048, D 128, non-causal) against their
+   plain twins (the output by ``row_rel_err``) and timed beside them, SDPA non-causal and their bound (the
+   JSON's ``ring_chunk_d128``). It bypasses what one card cannot run: the
+   P2P exchanges, the all-to-alls and the stage sends between cards.
 
 Then one JSON line for the kernels, the card's line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -463,6 +495,15 @@ RESNET_GATE_TOL = 1e-3
 V5E_IMAGES_S = 2513.5
 BERT_SEED, BERT_LEN_SEED, BERT_STEPS = 12, 6, 6
 BERT_XLA_SHAPE, BERT_FLASH_SHAPE = (32, 128), (8, 512)
+
+# Phase 11, sequence and pipeline parallelism on one card. (a) the ring at
+# llama2_1b's attention width (B, H, L, D) in n chunks, and (b) Ulysses over
+# n head groups, from this seed; (c) steps a run on the seq-1 mesh; (d)
+# GPipe on (rows, seq) in microbatches, x and the loss's weights from this
+# seed.
+RING_SHAPE, RING_SEED = (1, 16, 8192, 128, 4), 13
+SEQ_STEPS = 2
+PIPE_SHAPE, PIPE_SEED = (2, 2048, 2), 14
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
 # Phase 4c: the loop's steps (12 distinct batches from this numpy seed)
@@ -5028,6 +5069,397 @@ def vision_bert_phase(mods, gpu, dev, tmp, fa) -> dict:
     return {"paths": paths, "bert_padded": rows, "resnet": resnet}
 
 
+def ring_phase(mods, gpu, dev, fa) -> dict:
+    """Phase 11 (a), (b) and (e): the ring's and Ulysses's per-rank bodies
+    at llama2_1b's attention width on one card, over virtual chunks, and
+    the flash kernels at the ring's chunk shape. Returns the launches of
+    the ``ring`` and ``ulysses`` paths and the kernels' rows at the chunk
+    shape."""
+    from tpu_on_k8s_torch.parallel import ring, ulysses
+    from tpu_on_k8s_torch.profile_generate import report
+    from tpu_on_k8s_torch.profile_train import group
+
+    paths = {}
+    b, h, l, d, n = RING_SHAPE
+    lc, hn = l // n, h // n
+    gen = torch.Generator(device=dev).manual_seed(RING_SEED)
+    q, k, v, do = (torch.randn(b, h, l, d, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    tol_o, tol_lse = TOL[torch.bfloat16]
+    tol_g = BWD_REL_TOL[torch.bfloat16]
+
+    def rel_err(a, w):
+        return ((a.float() - w.float()).abs().max()
+                / w.float().abs().max()).item()
+
+    def row_rel_err(a, w):
+        # each output row's largest difference over its largest value: the
+        # rows' scales differ by 100x (a causal row 0 is v's row 0, a late
+        # row averages thousands), so a merge off by a few percent on some
+        # rows shows here and not against one absolute limit; both sides
+        # round to bf16 (1 ulp is at most 2^-7 of a value)
+        return ((a.float() - w.float()).abs().amax(-1)
+                / w.float().abs().amax(-1)).max().item()
+
+    def enqueue_ms(causal):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_ring(causal)
+        ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        return ms
+
+    # ---- (a) the ring's bodies, each fed the chunks it would receive ----
+    chunks = [t.chunk(n, dim=2) for t in (q, k, v, do)]
+
+    def run_ring(causal):
+        fwd = ring.ring_in_lockstep([ring.ring_forward(
+            chunks[0][r], chunks[1][r], chunks[2][r], r, n, causal)
+            for r in range(n)])
+        bwd = ring.ring_in_lockstep([ring.ring_backward(
+            chunks[0][r], chunks[1][r], chunks[2][r], fwd[r][0], fwd[r][1],
+            chunks[3][r], r, n, causal) for r in range(n)])
+        return fwd, bwd
+
+    def run_whole(causal):
+        o, lse = fa.flash_with_lse_fwd(q, k, v, causal)
+        return (o, lse), fa.flash_bwd(q, k, v, o, lse, do, causal)
+
+    ring_counts = Counter()
+    ring_errs = {}
+    for causal in (True, False):
+        (o_w, lse_w), grads_w = run_whole(causal)
+        torch.cuda.synchronize()
+        reset_counts(mods)
+        fwd, bwd = run_ring(causal)
+        torch.cuda.synchronize()
+        got = read_counts(mods)
+        ring_counts.update(got)
+        runs = n * (n + 1) // 2 if causal else n * n
+        o = torch.cat([f[0] for f in fwd], dim=2)
+        lse = torch.cat([f[1] for f in fwd], dim=3)
+        grads = [torch.cat([g[i] for g in bwd], dim=2) for i in range(3)]
+        abs_o = (o.float() - o_w.float()).abs().max().item()
+        err_o = row_rel_err(o, o_w)
+        err_lse = (lse - lse_w).abs().max().item()
+        errs = {name: rel_err(g, w)
+                for name, g, w in zip(("dq", "dk", "dv"), grads, grads_w)}
+        ring_errs[causal] = dict(o=err_o, lse=err_lse, **errs)
+        ring_ms = event_ms(lambda: run_ring(causal), iters=5, reps=5)
+        whole_ms = event_ms(lambda: run_whole(causal), iters=5, reps=5)
+        host_ms = median(enqueue_ms(causal) for _ in range(5))
+        kind = "causal" if causal else "non-causal"
+        print(f"[ring] (a) B={b} H={h} L={l} D={d} bf16 {kind} in {n} "
+              f"chunks of {lc} (the rotate seam, ranks in lockstep): "
+              f"launches flash_fwd {got['flash_fwd']}, dq "
+              f"{got['flash_bwd_dq']}, dkv {got['flash_bwd_dkv']} (expected "
+              f"{runs} each); against one flash call over {l}: max|o| diff "
+              f"{abs_o:.3e}, of its row's largest {err_o:.3e} (tol "
+              f"{tol_o:g}), max|lse| diff {err_lse:.3e} (tol {tol_lse:g}), "
+              f"dq rel {errs['dq']:.2e}, dk rel {errs['dk']:.2e}, dv rel "
+              f"{errs['dv']:.2e} (tol rel {tol_g:g}); {gpu}: ring forward + "
+              f"backward {ring_ms:.4f} ms, whole-sequence kernels "
+              f"{whole_ms:.4f} ms; the host enqueues the ring in "
+              f"{host_ms:.4f} ms (median of 5)")
+        try:
+            report(f"ring {kind}", lambda: run_ring(causal), 8, group)
+        except RuntimeError as e:
+            print(f"[ring {kind}] profiler: {e} (not measured)")
+        if (got["flash_fwd"], got["flash_bwd_dq"], got["flash_bwd_dkv"]) != (
+                runs, runs, runs):
+            fail(f"ring {kind}: launches {got}, expected {runs} of each")
+        if err_o > tol_o or err_lse > tol_lse or max(errs.values()) > tol_g:
+            fail(f"ring {kind} against the whole-sequence kernels: "
+                 f"{ring_errs[causal]}")
+        del fwd, bwd, o, lse, grads, o_w, lse_w, grads_w
+    paths["ring"] = dict(ring_counts)
+
+    # ---- (b) Ulysses's body over 4 virtual head groups -----------------
+    # [B, L, H, D] as the model holds them; rank g's exchanges take the
+    # whole sequence of its head group (the all-to-all on one card)
+    whole = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    out_w = fa.flash_attention(*whole, causal=True)
+    grads_w = torch.autograd.grad(out_w, whole, do.transpose(1, 2))
+    torch.cuda.synchronize()
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    reset_counts(mods)
+    same = True
+    for g in range(n):
+        heads = slice(g * hn, (g + 1) * hn)
+        mine = [t[:, g * lc:(g + 1) * lc] for t in leaves]
+        group = {id(c): t[:, :, heads] for c, t in zip(mine, leaves)}
+        out = ulysses.ulysses_body(*mine, True, lambda t: group[id(t)],
+                                   lambda o: o)
+        grads = torch.autograd.grad(out, leaves,
+                                    do.transpose(1, 2)[:, :, heads])
+        same = same and torch.equal(out, out_w[:, :, heads]) and all(
+            torch.equal(gr[:, :, heads], gw[:, :, heads])
+            for gr, gw in zip(grads, grads_w))
+    torch.cuda.synchronize()
+    paths["ulysses"] = got = read_counts(mods)
+    print(f"[ulysses] (b) B={b} H={h} L={l} D={d} bf16 causal, {n} virtual "
+          f"head groups of {hn}: each group's output and dq/dk/dv equal the "
+          f"whole-head call's heads bit for bit: {same}; launches flash_fwd "
+          f"{got['flash_fwd']}, dq {got['flash_bwd_dq']}, dkv "
+          f"{got['flash_bwd_dkv']} (expected {n} each)")
+    if not same or (got["flash_fwd"], got["flash_bwd_dq"],
+                    got["flash_bwd_dkv"]) != (n, n, n):
+        fail(f"Ulysses's head groups: bit for bit {same}, launches {got}")
+    del whole, out_w, grads_w, leaves, out, grads
+
+    # ---- (e) the kernels at the ring's chunk shape, non-causal ---------
+    qc, kc, vc, dc = (t[:, :, :lc].contiguous() for t in (q, k, v, do))
+    o, lse = fa.flash_with_lse_fwd(qc, kc, vc, False)
+    po, _ = fa.flash_attention_plain(qc, kc, vc, False)
+    delta = (dc.float() * o.float()).sum(-1)[:, :, None, :]
+    dq = fa.flash_bwd_dq(qc, kc, vc, dc, lse, delta, False)
+    dk, dv = fa.flash_bwd_dkv(qc, kc, vc, dc, lse, delta, False)
+    pdq = fa.flash_bwd_dq_plain(qc, kc, vc, dc, lse, delta, False)
+    pdk, pdv = fa.flash_bwd_dkv_plain(qc, kc, vc, dc, lse, delta, False)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fn, stream = sdpa_backward(qc, kc, vc, dc)
+    sdpa_bwd = time_ms(fn, stream=stream)
+    shape = (f"B={b} H={h} L={lc} D={d} bf16 non-causal (the ring's "
+             f"{n}-way chunk of {l})")
+    rows = {
+        "flash_fwd": dict(
+            ms=time_ms(lambda: fa.flash_with_lse_fwd(qc, kc, vc, False)),
+            plain_ms=time_ms(lambda: fa.flash_attention_plain(qc, kc, vc,
+                                                              False)),
+            library_ms=time_ms(lambda: sdpa(qc, kc, vc)),
+            max_abs_err=(o.float() - po.float()).abs().max().item(),
+            **dict(zip(("bound_ms", "bound_by"),
+                       flash_bound_ms(b, h, h, lc, d, False)))),
+        "flash_bwd_dq": dict(
+            ms=time_ms(lambda: fa.flash_bwd_dq(qc, kc, vc, dc, lse, delta,
+                                               False)),
+            plain_ms=time_ms(lambda: fa.flash_bwd_dq_plain(
+                qc, kc, vc, dc, lse, delta, False)),
+            library_ms=sdpa_bwd,
+            max_abs_err=(dq.float() - pdq.float()).abs().max().item(),
+            **dict(zip(("bound_ms", "bound_by"),
+                       dq_bound_ms(b, h, h, lc, d, False)))),
+        "flash_bwd_dkv": dict(
+            ms=time_ms(lambda: fa.flash_bwd_dkv(qc, kc, vc, dc, lse, delta,
+                                                False)),
+            plain_ms=time_ms(lambda: fa.flash_bwd_dkv_plain(
+                qc, kc, vc, dc, lse, delta, False)),
+            library_ms=sdpa_bwd,
+            max_abs_err=max((dk.float() - pdk.float()).abs().max().item(),
+                            (dv.float() - pdv.float()).abs().max().item()),
+            **dict(zip(("bound_ms", "bound_by"),
+                       dkv_bound_ms(b, h, h, lc, d, False)))),
+    }
+    errs = {"flash_fwd": row_rel_err(o, po) > tol_o,
+            "flash_bwd_dq": rel_err(dq, pdq) > tol_g,
+            "flash_bwd_dkv": max(rel_err(dk, pdk), rel_err(dv, pdv)) > tol_g}
+    for name, r in rows.items():
+        r["shape"] = shape
+        print(f"[time] {gpu}: {name} {shape}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, sdpa non-causal "
+              f"{'forward' if name == 'flash_fwd' else 'backward (dq, dk, dv together)'}"
+              f" {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of bound; "
+              f"max|kernel - plain| {r['max_abs_err']:.3e}")
+    print(f"[time] {gpu}: flash_fwd {shape}: max|kernel - plain| of its "
+          f"row's largest {row_rel_err(o, po):.3e} (tol {tol_o:g})")
+    if any(errs.values()):
+        fail(f"the flash kernels at the ring's chunk shape against their "
+             f"plain twins: {errs}")
+    del q, k, v, do, qc, kc, vc, dc, o, lse, po, dq, dk, dv, pdq, pdk, pdv
+    torch.cuda.empty_cache()
+    return {"paths": paths, "rows": rows}
+
+
+def pipeline_phase(tcfg, mods, gpu, dev, stage_mesh, gpipe) -> dict:
+    """Phase 11 (d): ``gpipe`` over ``stage_mesh(1, 1)`` with llama2_1b's
+    16 blocks (flash, bf16 compute on fp32 masters) stacked and run
+    through ``torch.func.functional_call``, 2 x 2048 in 2 microbatches,
+    against the same blocks run in turn in bf16 and in fp32. Returns the
+    ``pipeline`` path's launches."""
+    from torch.func import functional_call
+
+    from tpu_on_k8s_torch.models.params import init_params
+    from tpu_on_k8s_torch.models.transformer import (
+        Block,
+        Positions,
+        _rope_tables,
+    )
+
+    rows, seq, n_micro = PIPE_SHAPE
+    p0 = init_params(tcfg, torch.Generator(device=dev).manual_seed(0), dev,
+                     dtype=tcfg.param_dtype)
+    names = sorted({k.split(".", 2)[2] for k in p0 if k.startswith("blocks.")})
+    stacked = {name: torch.stack([p0[f"blocks.{i}.{name}"]
+                                  for i in range(tcfg.n_layers)])
+               for name in names}
+    del p0
+    gen = torch.Generator(device=dev).manual_seed(PIPE_SEED)
+    x = torch.randn(rows, seq, tcfg.d_model, generator=gen, device=dev)
+    weight = torch.randn(rows, seq, tcfg.d_model, generator=gen, device=dev)
+
+    def run(cfg, pipelined):
+        with torch.device("meta"):
+            block = Block(cfg)
+        pos = {}
+        for r in (rows, rows // n_micro):
+            ids = torch.arange(seq, dtype=torch.int32, device=dev).expand(
+                r, -1)
+            cos, sin = _rope_tables(ids, cfg.head_dim // 2, cfg.rope_theta)
+            pos[r] = Positions(ids, cos[:, :, None, :], sin[:, :, None, :],
+                               False)
+
+        def layer_fn(p, h):
+            return functional_call(block, p, (h, pos[h.shape[0]]))
+
+        leaves = {k: t.detach().requires_grad_() for k, t in stacked.items()}
+        h0 = x.detach().to(cfg.dtype).requires_grad_()
+        if pipelined:
+            out = gpipe(layer_fn, leaves, h0, mesh=stage_mesh(1, 1,
+                                                             device=dev),
+                        n_micro=n_micro)
+        else:
+            out = h0
+            for i in range(cfg.n_layers):
+                out = layer_fn({k: t[i] for k, t in leaves.items()}, out)
+        grads = torch.autograd.grad((out.float() * weight).sum(),
+                                    [h0, *leaves.values()])
+        return out.detach().float(), dict(zip(["x", *leaves], grads))
+
+    bcfg = dataclasses.replace(tcfg, remat=False, attn_impl="flash")
+    reset_counts(mods)
+    out_p, g_p = run(bcfg, True)
+    torch.cuda.synchronize()
+    got = read_counts(mods)
+    out_s, g_s = run(bcfg, False)
+    out_32, g_32 = run(dataclasses.replace(bcfg, dtype=torch.float32), False)
+    torch.cuda.synchronize()
+    err = ((out_p - out_s).abs().max() / out_s.abs().max()).item()
+
+    def rel_dist(g, ref):
+        return {n: ((g[n].float() - ref[n].float()).norm()
+                    / ref[n].float().norm()).item() for n in ref}
+
+    dist_p, dist_s = rel_dist(g_p, g_32), rel_dist(g_s, g_32)
+    ratios = {n: dist_p[n] / dist_s[n] if dist_s[n] else 1.0 for n in dist_p}
+    worst = max(ratios, key=ratios.get)
+    want = tcfg.n_layers * n_micro
+    print(f"[pipeline] (d) gpipe over stage_mesh(1, 1), {tcfg.n_layers} "
+          f"llama2_1b blocks (flash) stacked through functional_call, "
+          f"{rows} x {seq} in {n_micro} microbatches: max|pipelined - "
+          f"sequential| / max|sequential| {err:.3e} (tol "
+          f"{TOL[torch.bfloat16][0]:g}); gradients (x and {len(names)} "
+          f"stacked leaves) ||g - g_fp32|| / ||g_fp32|| pipelined max "
+          f"{max(dist_p.values()):.4e}, sequential bf16 max "
+          f"{max(dist_s.values()):.4e}, ratio max {ratios[worst]:.3f} at "
+          f"{worst} (limit {GRAD_NOISE_MULT:g}); launches flash_fwd "
+          f"{got['flash_fwd']}, dq {got['flash_bwd_dq']}, dkv "
+          f"{got['flash_bwd_dkv']} (expected {want} each)")
+    if err > TOL[torch.bfloat16][0] or ratios[worst] > GRAD_NOISE_MULT:
+        fail(f"gpipe against the sequential blocks: output {err}, gradient "
+             f"ratios {ratios}")
+    if (got["flash_fwd"], got["flash_bwd_dq"], got["flash_bwd_dkv"]) != (
+            want, want, want):
+        fail(f"gpipe launches {got}, expected {want} of each")
+    del stacked, out_p, out_s, out_32, g_p, g_s, g_32
+    torch.cuda.empty_cache()
+    return got
+
+
+def seq_phase(tcfg, mods, gpu, dev, tokens, fa) -> dict:
+    """Phase 11: sequence and pipeline parallelism (see the module
+    docstring). Returns the launches of its paths and the flash kernels'
+    rows at the ring's chunk shape."""
+    import torch.distributed as dist
+
+    from tpu_on_k8s_torch.models.params import init_params, load_model
+    from tpu_on_k8s_torch.models.transformer import flagship_partition_rules
+    from tpu_on_k8s_torch.parallel.mesh import (
+        MeshConfig,
+        create_mesh,
+        mesh_shape,
+    )
+    from tpu_on_k8s_torch.parallel.pipeline import gpipe, stage_mesh
+    from tpu_on_k8s_torch.train import Trainer, default_optimizer
+    from tpu_on_k8s_torch.train.distributed import initialize
+
+    t_phase = time.perf_counter()
+    ring = ring_phase(mods, gpu, dev, fa)
+    paths = ring["paths"]
+
+    # ---- (c) the model on a seq axis of 1 ------------------------------
+    initialize({"RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+                "MASTER_PORT": str(free_port())}, device=dev)
+    mesh = create_mesh(MeshConfig(seq=1), device=dev)
+    opt_kw = dict(warmup_steps=10, decay_steps=max(TRAIN_STEPS, 11))
+
+    def two_steps(attn):
+        cfg = dataclasses.replace(tcfg, attn_impl=attn)
+        model = load_model(cfg, init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev,
+            dtype=cfg.param_dtype), dev)
+        trainer = Trainer(model, default_optimizer(model.parameters(),
+                                                   **opt_kw),
+                          rules=flagship_partition_rules(), mesh=mesh)
+        batch = trainer.shard_batch(tokens)
+        out = []
+        for _ in range(SEQ_STEPS):
+            m = trainer.train_step(batch)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        del trainer, model
+        gc.collect()    # FSDP2's hooks hold cycles
+        torch.cuda.empty_cache()
+        return out
+
+    reset_counts(mods)
+    runs = {attn: two_steps(attn) for attn in ("xla", "ring", "ulysses",
+                                               "flash")}
+    torch.cuda.synchronize()
+    paths["seq_model"] = got = read_counts(mods)
+    want = SEQ_STEPS * tcfg.n_layers
+    equal = {attn: runs[attn] == runs["xla"] for attn in ("ring", "ulysses")}
+    print(f"[seq] (c) llama2_1b on a world-1 {dist.get_backend()} mesh "
+          f"{mesh_shape(mesh)}, {SEQ_STEPS} steps on phase 4's batch "
+          f"({TRAIN_BATCH} x {TRAIN_SEQ}), (loss, grad norm): "
+          + "; ".join(f"{attn} {[(round(a, 5), round(g, 5)) for a, g in r]}"
+                      for attn, r in runs.items())
+          + f"; ring and ulysses (a ring of one: the plain attention) equal "
+          f"xla bit for bit: {equal}; flash launches flash_fwd "
+          f"{got['flash_fwd']}, dq {got['flash_bwd_dq']}, dkv "
+          f"{got['flash_bwd_dkv']} (expected {want} each)")
+    if not all(equal.values()) or not all(
+            math.isfinite(a) for a, _ in runs["flash"]):
+        fail(f"the seq-axis model runs: {runs}")
+    if (got["flash_fwd"], got["flash_bwd_dq"], got["flash_bwd_dkv"]) != (
+            want, want, want):
+        fail(f"the seq mesh's flash launches {got}, expected {want}")
+
+    # ---- (d) GPipe over a stage axis of 1 ------------------------------
+    paths["pipeline"] = pipeline_phase(tcfg, mods, gpu, dev, stage_mesh,
+                                       gpipe)
+    dist.destroy_process_group()
+
+    # ---- (c) the CLI on the card ---------------------------------------
+    t0 = time.perf_counter()
+    argv = ["--config", "tiny", "--attn", "ring", "--seq-axis", "1",
+            "--steps", "3"]
+    cli = subprocess.run(
+        [sys.executable, "-m", "tpu_on_k8s_torch.train_llama", *argv],
+        capture_output=True, text=True, timeout=600,
+        cwd=str(Path(__file__).resolve().parent))
+    lines = cli.stdout.splitlines()
+    metric_lines = [ln for ln in lines if ln.startswith("[elastic-metrics]")]
+    print(f"[seq] (c) python -m tpu_on_k8s_torch.train_llama "
+          f"{' '.join(argv)}: exit {cli.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; {len(metric_lines)} metric "
+          f"lines, the last: {metric_lines[-1] if metric_lines else None}")
+    if cli.returncode != 0 or len(metric_lines) != 3:
+        print(cli.stderr[-4000:], file=sys.stderr)
+        fail("train_llama --attn ring did not finish")
+    print(f"[time] phase 11 {time.perf_counter() - t_phase:.1f} s")
+    return {"paths": paths, "ring_chunk": ring["rows"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -5857,6 +6289,10 @@ def run(tmp: Path) -> int:
     # ---- 10. the vision models and BERT ----------------------------------
     phase10 = vision_bert_phase(mods, gpu, dev, tmp, fa)
     by_path.update(phase10["paths"])
+
+    # ---- 11. sequence and pipeline parallelism ---------------------------
+    phase11 = seq_phase(tcfg, mods, gpu, dev, tokens, fa)
+    by_path.update(phase11["paths"])
     print(f"[time] script {time.perf_counter() - t_start:.0f} s")
 
     gemm = (TRAIN_BATCH * TRAIN_SEQ, 11264, 2048)
@@ -5900,6 +6336,8 @@ def run(tmp: Path) -> int:
             kernels[-1]["gpt2_d64"] = gpt2["d64"][name]
         if name in phase10["bert_padded"]:
             kernels[-1]["bert_padded_d64"] = phase10["bert_padded"][name]
+        if name in phase11["ring_chunk"]:
+            kernels[-1]["ring_chunk_d128"] = phase11["ring_chunk"][name]
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

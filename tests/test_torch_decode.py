@@ -285,7 +285,7 @@ def test_overflow_raises(setup):
 
 
 @pytest.mark.parametrize("flag, value", [
-    ("n_experts", 4), ("attn_impl", "ring"),
+    ("n_experts", 4),
 ])
 def test_unported_flags_raise(flag, value):
     cfg = dataclasses.replace(TransformerConfig.tiny(), **{flag: value})
@@ -309,15 +309,26 @@ def test_gpt2_family_flags_serve(flag, value):
     assert out.shape == (1, 2)
 
 
-@pytest.mark.parametrize("flag, value", [
-    ("attn_impl", "ulysses"),
-])
-def test_unported_training_flags_raise(flag, value):
+@pytest.mark.parametrize("attn_impl", ["ring", "ulysses"])
+def test_sequence_parallel_configs_serve_as_xla(attn_impl):
+    """A ring or Ulysses training config serves: its decode model runs
+    attention "xla", as the reference's ``decode_model`` makes it, so its
+    tokens are the xla config's."""
+    cfg = TransformerConfig.tiny()
+    params = pparams.init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+    prompt = torch.arange(8, dtype=torch.int32).reshape(2, 4)
+    want = decode.generate(cfg, params, prompt, 4, device="cpu")
+    got = decode.generate(dataclasses.replace(cfg, attn_impl=attn_impl),
+                          params, prompt, 4, device="cpu")
+    assert torch.equal(got, want)
+
+
+def test_unknown_attn_impl_raises():
     from tpu_on_k8s_torch.models.transformer import Transformer
-    cfg = dataclasses.replace(TransformerConfig.tiny(), remat=True,
-                              **{flag: value})
-    with pytest.raises(NotImplementedError, match=flag):
-        Transformer(cfg)
+    with pytest.raises(ValueError, match="unknown attn_impl 'sparse'"):
+        Transformer(dataclasses.replace(TransformerConfig.tiny(),
+                                        attn_impl="sparse"))
 
 
 # ---- sampling ----------------------------------------------------------

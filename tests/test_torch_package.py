@@ -75,7 +75,10 @@ def test_the_scan_sees_the_whole_port():
             "tpu_on_k8s_torch/train/mlm.py",
             "tpu_on_k8s_torch/train_resnet.py",
             "tpu_on_k8s_torch/train_mnist.py",
-            "tpu_on_k8s_torch/train_bert.py"} <= names
+            "tpu_on_k8s_torch/train_bert.py",
+            "tpu_on_k8s_torch/parallel/ring.py",
+            "tpu_on_k8s_torch/parallel/ulysses.py",
+            "tpu_on_k8s_torch/parallel/pipeline.py"} <= names
 
 
 def test_copied_modules_import_without_prometheus_client():

@@ -27,7 +27,6 @@ from torch.distributed.tensor import Replicate, Shard
 from tpu_on_k8s.models import transformer as jtransformer
 from tpu_on_k8s.parallel import mesh as jmesh
 from tpu_on_k8s.parallel import partition as jpartition
-from tpu_on_k8s_torch import train_llama
 from tpu_on_k8s_torch.models.params import init_params, load_model, param_shapes
 from tpu_on_k8s_torch.models.transformer import (
     TransformerConfig,
@@ -414,13 +413,41 @@ def test_indivisible_heads_raise_naming_the_head_count():
                                  device="cpu", ranks=range(6)))
 
 
-def test_seq_axis_raises():
+def test_trainer_accepts_a_seq_mesh():
+    """A ``seq`` axis splits the decoder's sequences: the ``Trainer`` lays
+    the model out on it, every block's attention runs over that mesh, and
+    ``shard_batch`` keeps each ``[B, L+1]`` row whole over ``seq`` even
+    where ``seq`` divides L+1 (the steps cut each rank's chunk after the
+    shift); the rows split over ``fsdp`` alone."""
     mesh = create_mesh(MeshConfig(fsdp=4, seq=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
+    trainer = Trainer(_model(attn_impl="ring"),
+                      rules=flagship_partition_rules(), mesh=mesh)
+    assert all(b.attn.seq_mesh is mesh for b in trainer.model.blocks)
+    tokens = torch.arange(8 * 18, dtype=torch.int32).reshape(8, 18)
+    assert torch.equal(trainer.shard_batch(tokens), tokens[:2])
+    assert trainer.data_shard() == (0, 4)
+
+
+def test_expert_axis_still_raises():
+    mesh = create_mesh(MeshConfig(fsdp=4, expert=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="expert"):
         Trainer(_model(), rules=flagship_partition_rules(), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="--seq-axis 2"):
-        train_llama.main(["--config", "tiny", "--device", "cpu",
-                          "--seq-axis", "2"])
+
+
+def test_seq_axis_is_refused_where_it_is_not_ported():
+    """Serving, BERT and the vision CLIs refuse a ``seq`` axis > 1, naming
+    ROADMAP Queue 1 item 4b: serving's mesh check and
+    ``cli_common.bring_up --seq-axis 2``."""
+    from tpu_on_k8s_torch import cli_common
+    from tpu_on_k8s_torch.parallel.sharded import check_mesh
+    mesh = create_mesh(MeshConfig(fsdp=4, seq=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 4b"):
+        check_mesh(TransformerConfig.tiny(), mesh)
+    args = cli_common.standard_parser("test").parse_args(
+        ["--device", "cpu", "--seq-axis", "2"])
+    with pytest.raises(NotImplementedError, match="item 4b"):
+        with cli_common.bring_up(args):
+            pass
 
 
 def test_rules_are_validated_before_any_placement():

@@ -308,12 +308,15 @@ def test_cli_trains_from_a_packed_record_file(tmp_path, capsys):
     assert capsys.readouterr().out.count("[elastic-metrics]") == 2
 
 
-@pytest.mark.parametrize("argv, match", [
-    (["--attn", "ring"], "ring"), (["--attn", "ulysses"], "ulysses"),
-])
-def test_cli_unported_flags_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        train_llama.main(["--config", "tiny", "--device", "cpu", *argv])
+@pytest.mark.parametrize("attn", ["ring", "ulysses"])
+def test_cli_sequence_attention_on_one_rank(attn):
+    """``--attn ring`` and ``--attn ulysses`` train on a world of one rank,
+    a ``seq`` axis of 1, where each is the plain attention (the
+    reference's semantics): the loss is ``--attn xla``'s, bit for bit."""
+    argv = ["--config", "tiny", "--device", "cpu", "--steps", "2",
+            "--batch", "2", "--seq-len", "16"]
+    assert train_llama.main(argv + ["--attn", attn]) == train_llama.main(
+        argv + ["--attn", "xla"])
 
 
 @pytest.mark.parametrize("eval_every, evals", [(0, [3]), (2, [2, 3]),

@@ -49,8 +49,9 @@ def bring_up(args: argparse.Namespace):
     if args.seq_axis > 1:
         raise NotImplementedError(
             f"--seq-axis {args.seq_axis} is not ported to tpu_on_k8s_torch "
-            f"yet (sequence parallelism over a mesh is ROADMAP Queue 1 "
-            f"item 4)")
+            f"for BERT and the vision models (sequence parallelism trains "
+            f"the decoder, train_llama; the rest is ROADMAP Queue 1 item "
+            f"4b)")
     dev = resolve_device(args.device)
     initialize(device=dev)
     made_world = local_world(dev)

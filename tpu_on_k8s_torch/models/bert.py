@@ -37,13 +37,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from tpu_on_k8s_torch.models.transformer import (
-    Dense,
-    LayerNorm,
-    _logits,
+from tpu_on_k8s_torch.models.transformer import Dense, LayerNorm, _logits
+from tpu_on_k8s_torch.ops.flash_attention import (
+    flash_attention,
     xla_attention_bhld,
 )
-from tpu_on_k8s_torch.ops.flash_attention import flash_attention
 from tpu_on_k8s_torch.parallel.mesh import AXIS_FSDP, AXIS_MODEL
 from tpu_on_k8s_torch.parallel.partition import PartitionRule
 

@@ -48,7 +48,12 @@ head gathered where ``model`` does not divide them: ``Attention.tp``), and
 the int8 recipes run on the ranks' local blocks (``_int8_on_blocks``).
 A serving model (``sharded.shard_serving_model``) holds the same blocks as
 plain local tensors: row-parallel projections and the vocab-parallel
-embedding and head call their ``tp`` group's collectives.
+embedding and head call their ``tp`` group's collectives. On a ``seq``
+axis > 1 (training) each rank runs one chunk of every sequence at its
+global positions, and ``attn_impl`` "ring" or "ulysses" runs attention
+over the axis (``parallel/ring.py``, ``parallel/ulysses.py``; off such an
+axis both are the plain attention, as the reference's), while "xla" and
+"flash" gather the chunks whole (``Attention``).
 ``flagship_partition_rules`` and ``serving_partition_rules`` are the
 reference's rules on the port's names.
 
@@ -80,10 +85,18 @@ from tpu_on_k8s_torch.ops.flash_attention import (
     NEG_INF,
     flash_attention,
     flash_attention_bhld,
+    xla_attention_bhld,
 )
 from tpu_on_k8s_torch.ops.int8_matmul import int8_matmul, int8_matmul_pallas
-from tpu_on_k8s_torch.parallel.mesh import AXIS_FSDP, AXIS_MODEL
+from tpu_on_k8s_torch.parallel.mesh import (
+    AXIS_FSDP,
+    AXIS_MODEL,
+    AXIS_SEQ,
+    MeshAxis,
+)
 from tpu_on_k8s_torch.parallel.partition import PartitionRule
+from tpu_on_k8s_torch.parallel.ring import plain_attention, ring_attention_shard
+from tpu_on_k8s_torch.parallel.ulysses import ulysses_attention_shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,9 +179,11 @@ class TransformerConfig:
 #: (flag, holds when unsupported, the later slice that brings it)
 _NOT_PORTED = (
     ("n_experts", lambda c: c.n_experts > 0, "MoE (models/moe.py)"),
-    ("attn_impl", lambda c: c.attn_impl not in ("xla", "flash"),
-     "ring/ulysses sequence parallelism"),
 )
+#: the training attentions: the heads-leading single-sequence paths, and
+#: the sequence-parallel ones over a ``seq`` mesh axis (``parallel/ring.py``,
+#: ``parallel/ulysses.py``)
+ATTN_IMPLS = ("xla", "flash", "ring", "ulysses")
 
 
 def _raise_first(cfg: TransformerConfig, table) -> None:
@@ -181,8 +196,9 @@ def _raise_first(cfg: TransformerConfig, table) -> None:
 
 def check_supported(cfg: TransformerConfig) -> None:
     """Raise ``ValueError`` for the layouts the reference rejects with int8
-    weights, then ``NotImplementedError`` naming the first flag of ``cfg``
-    that this port does not cover yet."""
+    weights and for an unknown ``attn_impl``, then
+    ``NotImplementedError`` naming the first flag of ``cfg`` that this
+    port does not cover yet."""
     if cfg.serve_int8_weights and (cfg.fused_qkv or cfg.n_experts > 0):
         raise ValueError("serve_int8_weights does not cover fused_qkv or MoE "
                          "layouts")
@@ -190,6 +206,8 @@ def check_supported(cfg: TransformerConfig) -> None:
                          or cfg.serve_int8_weights or cfg.fused_qkv):
         raise ValueError("use_bias is not supported with the int8 or "
                          "fused-qkv projection layouts")
+    if cfg.attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     _raise_first(cfg, _NOT_PORTED)
 
 
@@ -214,29 +232,6 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     """Rotary position embedding. x: [B, L, H, Dh]; positions: [B, L]."""
     cos, sin = _rope_tables(positions, x.shape[-1] // 2, theta)
     return _rope_rotate(x, cos[:, :, None, :], sin[:, :, None, :])
-
-
-def xla_attention_bhld(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       causal: bool = True,
-                       segments: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
-    """Plain attention on heads-leading ``[B, H, L, Dh]`` q/k/v (kv already
-    repeated to H heads), the reference's ``attn_impl="xla"`` training path:
-    fp32 scores scaled after the dot, masked to the fp32 minimum, softmax in
-    fp32, probabilities cast to q's dtype before the V product.
-    ``segments [B, L]`` keeps only same-segment pairs (packed windows)."""
-    scale = q.shape[-1] ** -0.5
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    l = logits.shape[-1]
-    mask = torch.ones(1, 1, l, l, dtype=torch.bool, device=q.device)
-    if causal:
-        mask = torch.tril(mask)
-    if segments is not None:
-        mask = mask & (segments[:, None, :, None]
-                       == segments[:, None, None, :])
-    logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.matmul(probs, v)
 
 
 class RMSNorm(nn.Module):
@@ -515,10 +510,24 @@ class Attention(nn.Module):
     of them, against its own kv heads (``own_kv``) or all of them; a head
     count the axis does not divide comes gathered whole
     (``TensorParallel.fit``). Where the rank runs its own query heads
-    against every kv head, ``kv_index`` names the kv head each reads."""
+    against every kv head, ``kv_index`` names the kv head each reads.
+
+    On a ``seq`` axis > 1 (``seq_mesh``, which a layout sets: the rank
+    holds one chunk of the sequence, at its global positions)
+    ``attn_impl`` "ring" and "ulysses" run ``parallel/ring.py``'s and
+    ``parallel/ulysses.py``'s attention on the rank's chunk and heads,
+    after the reference's non-heads-leading path: k/v repeated to the
+    query heads, the projections bf16 even under ``attn_int8``; "xla" and
+    "flash", where the reference lets XLA reshard, gather q/k/v (and the
+    segments) whole over ``seq``, run the causal attention whole on every
+    rank of it and keep the rank's rows. Off a ``seq`` axis ring and
+    ulysses are the plain attention, as the reference's."""
 
     #: the ``model`` axis of a laid-out model (None: every head here)
     tp = None
+    #: the mesh whose ``seq`` axis splits the sequence (None: the whole
+    #: sequence is here)
+    seq_mesh = None
     own_q = own_kv = True
     #: a column-parallel ``wqkv`` holds q_r | k_r | v_r (a serving
     #: layout's compact rows) rather than a block of the q | k | v rows
@@ -530,8 +539,10 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         hd = cfg.head_dim
-        # decode keeps bf16 projections under attn_int8, as the reference
-        dense = _dense_class(cfg, cfg.attn_int8 and not cfg.decode)
+        # decode and the sequence-parallel paths keep bf16 projections
+        # under attn_int8, as the reference's
+        dense = _dense_class(cfg, cfg.attn_int8 and not cfg.decode
+                             and cfg.attn_impl in ("xla", "flash"))
         if cfg.fused_qkv:
             self.wqkv = dense(cfg.d_model,
                               (cfg.n_heads + 2 * cfg.n_kv_heads) * hd, cfg)
@@ -606,6 +617,14 @@ class Attention(nn.Module):
             k = _rope_rotate(k, pos.cos, pos.sin)
         if cache is not None:
             out = self._cached_attention(q, k, v, pos, cache)
+        elif self.cfg.attn_impl in ("ring", "ulysses"):
+            if segments is not None:
+                raise ValueError("segment-masked attention is a packed-window "
+                                 "TRAINING feature (xla/flash paths only)")
+            out = self._sequence_attention(q, self._kv(k), self._kv(v))
+        elif self.seq_mesh is not None:
+            out = self._gathered_attention(q, self._kv(k), self._kv(v),
+                                           segments)
         else:
             out = self._attention_bhld(q, self._kv(k), self._kv(v), segments)
         out = out.reshape(b, l, -1)
@@ -635,6 +654,37 @@ class Attention(nn.Module):
                                      v.repeat_interleave(rep, dim=1), True,
                                      segments)
         return out.transpose(1, 2)
+
+    def _sequence_attention(self, q, k, v) -> torch.Tensor:
+        """``attn_impl`` "ring" or "ulysses" on ``[B, L, h, Dh]`` q and
+        ``[B, L, hkv, Dh]`` k/v: k/v repeated to the query heads (as the
+        reference's ``jnp.repeat``, laid out heads-leading as the plain
+        path lays them, so a ring of one is that path), then the rank's
+        chunk through ``ring_attention_shard`` or
+        ``ulysses_attention_shard`` over ``seq_mesh``; off a ``seq`` axis
+        the plain attention."""
+        rep = q.shape[2] // k.shape[2]
+        k, v = (t.transpose(1, 2).repeat_interleave(rep, dim=1).transpose(1, 2)
+                for t in (k, v))
+        if self.seq_mesh is None:
+            return plain_attention(q, k, v, True)
+        if self.cfg.attn_impl == "ring":
+            return ring_attention_shard(q, k, v, True, mesh=self.seq_mesh)
+        return ulysses_attention_shard(q, k, v, True, mesh=self.seq_mesh,
+                                       n_heads=self.cfg.n_heads)
+
+    def _gathered_attention(self, q, k, v, segments) -> torch.Tensor:
+        """``attn_impl`` "xla" or "flash" on a ``seq`` axis: q/k/v and the
+        segments gathered whole over it, the attention run whole, and the
+        rank's rows kept (the gradients summed back to the rank that holds
+        each chunk: ``sharded.gather``)."""
+        from tpu_on_k8s_torch.parallel.sharded import gather
+
+        seq = MeshAxis(self.seq_mesh, AXIS_SEQ)
+        q, k, v = (gather(t, seq, 1) for t in (q, k, v))
+        if segments is not None:
+            segments = seq.all_gather(segments, 1)
+        return seq.own(self._attention_bhld(q, k, v, segments), 1)
 
     def _cached_attention(self, q, k, v, pos: Positions,
                           cache: KVCache) -> torch.Tensor:
@@ -972,6 +1022,13 @@ class Transformer(nn.Module):
         ``parallel/sharded.tensor_parallel``."""
         from tpu_on_k8s_torch.parallel.sharded import tensor_parallel
         tensor_parallel(self, tp_mesh)
+
+    def split_sequence(self, mesh) -> None:
+        """What ``shard_model`` does over a ``seq`` axis > 1: every block's
+        attention runs on the rank's chunk of the sequence over ``mesh``'s
+        ``seq`` axis (``Attention.seq_mesh``)."""
+        for block in self.blocks:
+            block.attn.seq_mesh = mesh
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,

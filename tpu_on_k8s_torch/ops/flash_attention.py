@@ -16,6 +16,9 @@ reference's: q ``[B, H, L, D]``, k/v ``[B, Hkv, L, D]`` with GQA by index
   ``_Flash``, a ``torch.autograd.Function`` that saves (q, k, v, o, lse) —
   the counterpart of the reference's custom VJPs ``_flash``, ``_flash_seg``
   and ``flash_with_lse``.
+- ``xla_attention_bhld`` is the reference's ``attn_impl="xla"`` attention
+  (``models/transformer.py``), plain PyTorch that autograd differentiates:
+  the models' plain path and the ring's plain result.
 
 Each kernel runs behind an operator (``torch.library.custom_op``:
 ``tpu_on_k8s_torch::flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``),
@@ -175,6 +178,29 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = (acc / denom).to(q.dtype).reshape(b, h, l, d)
     lse = (m + torch.log(denom)).reshape(b, h, 1, l)
     return o, lse
+
+
+def xla_attention_bhld(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool = True,
+                       segments: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Plain attention on heads-leading ``[B, H, L, Dh]`` q/k/v (kv already
+    repeated to H heads), the reference's ``attn_impl="xla"`` training path:
+    fp32 scores scaled after the dot, masked to the fp32 minimum, softmax in
+    fp32, probabilities cast to q's dtype before the V product.
+    ``segments [B, L]`` keeps only same-segment pairs (packed windows)."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    l = logits.shape[-1]
+    mask = torch.ones(1, 1, l, l, dtype=torch.bool, device=q.device)
+    if causal:
+        mask = torch.tril(mask)
+    if segments is not None:
+        mask = mask & (segments[:, None, :, None]
+                       == segments[:, None, None, :])
+    logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(probs, v)
 
 
 def _probs_and_ds(q, k, v, do, lse, delta, causal, valid_len, segments,

@@ -231,6 +231,44 @@ def batch_sharding(mesh: DeviceMesh,
     return NamedSharding(mesh, spec)
 
 
+def axis_size(mesh: Optional[DeviceMesh], axis: str) -> int:
+    """The size of ``axis`` on ``mesh`` (1 for None or a mesh without it)."""
+    if mesh is None or axis not in (mesh.mesh_dim_names or ()):
+        return 1
+    return int(mesh.size(mesh.mesh_dim_names.index(axis)))
+
+
+class MeshAxis:
+    """One axis of a mesh as this rank sees it: the process group along it
+    (``group``), the global ranks along it in coordinate order (``ranks``:
+    a ring's members in ring order; the peers a ``P2POp`` names are global
+    ranks), their count (``size``) and this rank's coordinate on it
+    (``rank``: on ``seq``, which chunk of the sequence it holds). ``axis``
+    names a dim of ``mesh``; None takes a one-dim mesh's only dim."""
+
+    def __init__(self, mesh: DeviceMesh, axis: Optional[str] = None) -> None:
+        dim = 0 if axis is None else mesh.mesh_dim_names.index(axis)
+        self.group = mesh.get_group(dim)
+        coord = list(mesh.get_coordinate())
+        self.rank = coord[dim]
+        coord[dim] = slice(None)
+        self.ranks = tuple(int(r) for r in mesh.mesh[tuple(coord)].tolist())
+        self.size = len(self.ranks)
+
+    def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Every rank's block of ``dim``, concatenated in order (no
+        gradient)."""
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(self.size)]
+        torch.distributed.all_gather(parts, x.contiguous(), group=self.group)
+        return torch.cat(parts, dim=dim)
+
+    def own(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of ``dim``."""
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.rank * n, n)
+
+
 def data_sharding(mesh: DeviceMesh) -> NamedSharding:
     """Only the leading batch dim over (data, fsdp), for inputs whose other
     dims carry no sequence (images, labels)."""

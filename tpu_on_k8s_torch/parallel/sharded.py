@@ -39,9 +39,19 @@ local blocks: a column-parallel product is the unsharded product's
 columns; a row-parallel one quantizes with the activation's and the
 weight's absmax all-reduced (max) over ``model``, so its int8 values and
 scales are the unsharded ones, and sums the fp32 partial products before
-one cast (``Int8Dense``). What it refuses: ``seq`` > 1 (sequence
-parallelism is ROADMAP Queue 1 item 4) and ``expert`` > 1 (MoE is not
-ported).
+one cast (``Int8Dense``).
+
+Over a ``seq`` axis > 1 (a model with ``split_sequence``: the decoder
+``Transformer``) each block's attention is handed the mesh
+(``Transformer.split_sequence``): each rank of a ``seq`` group runs
+one chunk of every sequence, the trainer's steps cut it
+(``train/trainer.py``), and the attention runs as ``attn_impl`` says
+(ring, Ulysses, or gathered whole over ``seq``). Parameters are
+replicated over ``seq``: FSDP2 sums each gradient over (data, fsdp), and
+``sum_grads_over_seq`` then sums its local block over ``seq`` before the
+clip (a sum: the loss is a mean over the global count). What it refuses:
+``seq`` > 1 for the other models and for serving (ROADMAP Queue 1 item
+4b) and ``expert`` > 1 (MoE is not ported).
 
 ``shard_serving_model(model, mesh, rules)`` lays a serving model (the
 engine's, ``models/serving.py``) out with plain local tensors and explicit
@@ -94,7 +104,7 @@ from torch.distributed.fsdp import (
     fully_shard,
     register_fsdp_forward_method,
 )
-from torch.distributed.tensor import Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 from torch.distributed.tensor.parallel import (
     ColwiseParallel,
     RowwiseParallel,
@@ -107,6 +117,7 @@ from tpu_on_k8s_torch.parallel.mesh import (
     AXIS_FSDP,
     AXIS_MODEL,
     AXIS_SEQ,
+    MeshAxis,
     mesh_shape,
 )
 from tpu_on_k8s_torch.parallel.partition import (
@@ -130,15 +141,17 @@ def layout_of(model: nn.Module) -> Optional[Layout]:
     return getattr(model, "layout", None)
 
 
-def check_mesh(cfg, mesh) -> None:
-    """Raise for a mesh this port does not run ``cfg`` on: a ``seq`` or an
-    ``expert`` axis over 1 (see the module docstring)."""
+def check_mesh(cfg, mesh, splits_sequence: bool = False) -> None:
+    """Raise for a mesh this port does not run ``cfg`` on: a ``seq`` axis
+    over 1 unless the model splits its sequence (training the decoder),
+    or an ``expert`` axis over 1 (see the module docstring)."""
     del cfg
     sizes = mesh_shape(mesh)
-    if sizes.get(AXIS_SEQ, 1) > 1:
+    if sizes.get(AXIS_SEQ, 1) > 1 and not splits_sequence:
         raise NotImplementedError(
-            "a seq mesh axis > 1 is not ported to tpu_on_k8s_torch yet "
-            "(sequence parallelism is ROADMAP Queue 1 item 4)")
+            "a seq mesh axis > 1 runs the decoder's training only in "
+            "tpu_on_k8s_torch; for serving, BERT and the vision models it "
+            "is ROADMAP Queue 1 item 4b")
     if sizes.get(AXIS_EXPERT, 1) > 1:
         raise NotImplementedError(
             "an expert mesh axis > 1 is not ported to tpu_on_k8s_torch yet "
@@ -216,13 +229,16 @@ def shard_model(model: nn.Module, mesh, rules: Sequence[PartitionRule]
     rules = tuple(rules)
     if layout_of(model) is not None:
         raise ValueError("the model is laid out on a mesh already")
-    check_mesh(getattr(model, "cfg", None), mesh)
+    check_mesh(getattr(model, "cfg", None), mesh,
+               hasattr(model, "split_sequence"))
     # every parameter validated before anything is placed
     named_sharding(dict(model.named_parameters()), mesh, rules)
     sizes = mesh_shape(mesh)
     if sizes[AXIS_MODEL] > 1:
         # the model says what a model axis does to it
         model.tensor_parallel(mesh[AXIS_MODEL])
+    if sizes[AXIS_SEQ] > 1:
+        model.split_sequence(mesh)
     dp_axes = ((AXIS_DATA, AXIS_FSDP) if sizes[AXIS_DATA] > 1
                else (AXIS_FSDP,))
     dp_mesh = mesh[dp_axes] if len(dp_axes) > 1 else mesh[dp_axes[0]]
@@ -247,40 +263,60 @@ def shard_model(model: nn.Module, mesh, rules: Sequence[PartitionRule]
     return model
 
 
+def sum_grads_over_seq(model: nn.Module, mesh) -> None:
+    """Each parameter's gradient summed over the mesh's ``seq`` axis, in
+    place, on its local block (every rank of a ``seq`` group holds the
+    same blocks, each with its chunk's share); nothing on a ``seq`` axis
+    of 1."""
+    if mesh_shape(mesh).get(AXIS_SEQ, 1) == 1:
+        return
+    group = mesh.get_group(AXIS_SEQ)
+    for p in model.parameters():
+        if p.grad is not None:
+            g = p.grad
+            dist.all_reduce(g.to_local() if isinstance(g, DTensor) else g,
+                            group=group)
+
 
 class _Gather(torch.autograd.Function):
-    """The whole last dim from each rank's block of it; the backward sums
-    the gradient over the axis and keeps the rank's block (a
-    reduce-scatter): each rank reads its own part of the whole, and every
-    rank's reading of a block reaches the rank that holds it."""
+    """The whole of dim ``dim`` from each rank's block of it along a
+    ``MeshAxis``; the backward sums the gradient over the axis and keeps
+    the rank's block (a reduce-scatter, as an all-reduce and a slice: gloo
+    has no reduce-scatter): each rank reads its own part of the whole, and
+    every rank's reading of a block reaches the rank that holds it."""
 
     @staticmethod
-    def forward(ctx, x, tp):
-        ctx.tp = tp
-        return tp.all_gather(x)
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis.all_gather(x, dim)
 
     @staticmethod
     def backward(ctx, g):
-        tp = ctx.tp
+        axis, dim = ctx.axis, ctx.dim
         g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, group=tp.group)
-        n = g.shape[-1] // tp.size
-        return g.narrow(-1, tp.rank * n, n), None
+        dist.all_reduce(g, group=axis.group)
+        n = g.shape[dim] // axis.size
+        return g.narrow(dim, axis.rank * n, n), None, None
 
 
-class TensorParallel:
-    """A model's ``model`` axis: its process group, this rank's index on it
-    and its size, and the collectives a laid-out model calls
-    (``shard_serving_model``; ``tensor_parallel``'s blocks and int8
-    products). Each runs also on a group of one, where it is an
-    identity. Made from a mesh with a ``model`` dim or from the one-dim
-    ``model`` mesh itself."""
+def gather(x: torch.Tensor, axis, dim: int = -1) -> torch.Tensor:
+    """``axis.all_gather(x, dim)`` with a gradient (``_Gather``) where
+    autograd records one."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Gather.apply(x, axis, dim)
+    return axis.all_gather(x, dim)
+
+
+class TensorParallel(MeshAxis):
+    """A model's ``model`` axis (``MeshAxis``: its process group, this
+    rank's index on it and its size) and the collectives a laid-out model
+    calls (``shard_serving_model``; ``tensor_parallel``'s blocks and int8
+    products). Each runs also on a group of one, where it is an identity.
+    Made from a mesh with a ``model`` dim or from the one-dim ``model``
+    mesh itself."""
 
     def __init__(self, mesh) -> None:
-        tp_mesh = mesh if mesh.ndim == 1 else mesh[AXIS_MODEL]
-        self.group = tp_mesh.get_group()
-        self.rank = tp_mesh.get_local_rank()
-        self.size = tp_mesh.size()
+        super().__init__(mesh, None if mesh.ndim == 1 else AXIS_MODEL)
 
     def reduce(self, y: torch.Tensor) -> torch.Tensor:
         """Sum a row-parallel product's partial results over the axis."""
@@ -305,19 +341,10 @@ class TensorParallel:
         out = torch.where(inside[..., None], out, out.new_zeros(()))
         return self.reduce(out)
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """The whole last dim from each rank's block of it, in rank order
-        (no gradient)."""
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x.contiguous(), group=self.group)
-        return torch.cat(parts, dim=-1)
-
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """``all_gather`` with a gradient (``_Gather``) where autograd
         records one."""
-        if torch.is_grad_enabled() and x.requires_grad:
-            return _Gather.apply(x, self)
-        return self.all_gather(x)
+        return gather(x, self)
 
     def fit(self, t: torch.Tensor, width: int) -> torch.Tensor:
         """``t`` with ``width`` on its last dim: as it is, gathered whole

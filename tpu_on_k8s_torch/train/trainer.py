@@ -14,11 +14,20 @@ On a mesh (``Trainer(model, rules=..., mesh=...)``, the reference's
 ``Trainer(model, rules, mesh, opt)``) the model is laid out by
 ``parallel/sharded.py`` (tensor parallelism over ``model``, FSDP2 over
 ``data`` and ``fsdp``) and each rank takes the rows of its (data, fsdp)
-coordinate (``shard_batch``). The objective stays the reference's: a mean
-over the global batch's counted targets. Each rank sums its targets' loss
-and divides by the count all-reduced over (data, fsdp), and FSDP2 sums the
-gradients, so packed batches whose masks count different targets on
-different ranks, and microbatches likewise, weigh as one batch.
+coordinate (``shard_batch``). On a ``seq`` axis > 1 each rank then runs
+one chunk of every row: the steps shift the ``[b, L+1]`` rows, then keep
+the rank's chunk of the inputs, targets, loss mask, segments and *global*
+positions (so RoPE and a learned position table read the right rows),
+and the model's attention runs over ``seq`` as ``attn_impl`` says
+(``parallel/ring.py``, ``parallel/ulysses.py``, or gathered whole). The
+objective stays the reference's: a mean over the global batch's counted
+targets. Each rank sums its targets' loss and divides by the count
+all-reduced over (data, fsdp, seq); FSDP2 sums the gradients over (data,
+fsdp) and ``sum_grads_over_seq`` over ``seq``, so packed batches whose
+masks count different targets on different ranks, and microbatches
+likewise, weigh as one batch. Unlike the reference's, the ``Trainer``
+enters no ``ring_context``: ``shard_model`` hands each block's attention
+the mesh itself.
 """
 from __future__ import annotations
 
@@ -41,12 +50,19 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 from tpu_on_k8s_torch.parallel.mesh import (
     AXIS_DATA,
     AXIS_FSDP,
+    AXIS_SEQ,
+    MeshAxis,
+    NamedSharding,
     batch_sharding,
     data_shard,
     local_rows,
     mesh_shape,
 )
-from tpu_on_k8s_torch.parallel.sharded import layout_of, shard_model
+from tpu_on_k8s_torch.parallel.sharded import (
+    layout_of,
+    shard_model,
+    sum_grads_over_seq,
+)
 from tpu_on_k8s_torch.train.optimizer import ClipAdamW, default_optimizer
 
 
@@ -241,34 +257,65 @@ def make_train_step(model: Transformer, optimizer: ClipAdamW,
 
 
 def _dp_sum(t: torch.Tensor, mesh) -> torch.Tensor:
-    """``t`` summed over the mesh's data-parallel axes (data, fsdp), in
-    place: the ranks that hold other rows of the batch."""
+    """``t`` summed over the ranks that hold other targets of the batch, in
+    place: over the data-parallel axes (data, fsdp) and ``seq``."""
     sizes = mesh_shape(mesh)
-    for axis in (AXIS_DATA, AXIS_FSDP):
+    for axis in (AXIS_DATA, AXIS_FSDP, AXIS_SEQ):
         if sizes[axis] > 1:
             dist.all_reduce(t, group=mesh.get_group(axis))
     return t
 
 
-def _targets_and_count(tokens: torch.Tensor, segment_eos: Optional[int]):
-    """(positions, segments, loss mask, counted targets) of a [B, L+1]
-    batch, as ``_make_loss_fn`` makes them."""
-    inputs = tokens[:, :-1]
+@dataclasses.dataclass
+class _Rows:
+    """What a rank's step runs of its ``[b, L+1]`` rows: the inputs and
+    targets, and the positions, segments and loss mask (None where
+    ``_make_loss_fn`` makes none) of its chunk of the sequence, and the
+    count of its targets."""
+
+    inputs: torch.Tensor
+    targets: torch.Tensor
+    positions: Optional[torch.Tensor]
+    segments: Optional[torch.Tensor]
+    mask: Optional[torch.Tensor]
+    count: torch.Tensor
+
+
+def _rank_rows(tokens: torch.Tensor, segment_eos: Optional[int],
+               mesh) -> _Rows:
+    """A ``[b, L+1]`` batch shifted and made into ``_make_loss_fn``'s
+    positions, segments and mask, then cut to this rank's chunk of the
+    sequence on a ``seq`` axis of n > 1 (chunk i of L/n, i the rank's place
+    on ``seq``), with the positions global."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
     positions = segments = mask = None
     if segment_eos is not None:
         positions, segments = packed_positions_and_segments(inputs,
                                                             segment_eos)
         mask = packed_loss_mask(tokens, segment_eos)
+    n = mesh_shape(mesh)[AXIS_SEQ]
+    if n > 1:
+        l = inputs.shape[1]
+        if l % n:
+            raise ValueError(f"sequence {l} not divisible by {AXIS_SEQ}={n}")
+        if positions is None:
+            positions = torch.arange(l, dtype=torch.int32,
+                                     device=tokens.device).expand_as(inputs)
+        i, c = MeshAxis(mesh, AXIS_SEQ).rank, l // n
+        inputs, targets, positions, segments, mask = (
+            None if t is None else t[:, i * c:(i + 1) * c]
+            for t in (inputs, targets, positions, segments, mask))
     count = (mask.sum() if mask is not None
              else torch.full((), float(inputs.numel()),
                              device=tokens.device))
-    return positions, segments, mask, count
+    return _Rows(inputs, targets, positions, segments, mask, count)
 
 
-def _nll_sum(model: Transformer, tokens: torch.Tensor, loss_chunks: int,
-             positions, segments, mask) -> torch.Tensor:
+def _nll_sum(model: Transformer, rows: _Rows, loss_chunks: int
+             ) -> torch.Tensor:
     """Σ over this rank's counted targets of the next-token loss."""
-    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    inputs, targets = rows.inputs, rows.targets
+    positions, segments, mask = rows.positions, rows.segments, rows.mask
     if loss_chunks:
         feats, head = model.features(inputs, positions, segments)
         return _chunked_nll_sum(feats, head, targets, loss_chunks, mask)[0]
@@ -283,26 +330,27 @@ def make_sharded_grads_fn(model: Transformer, mesh, loss_chunks: int = 0,
                                         Tuple[torch.Tensor, torch.Tensor]]:
     """The sharded step's forward and backward, without the update: this
     rank's rows ``[b, L+1]`` → (the global batch's summed loss on this
-    rank's rows, the global count of targets), each parameter's ``.grad``
-    the gradient of the global mean (summed by FSDP2 over the ranks). Each
-    microbatch's loss is its rows' summed loss over the global count of
-    targets (all microbatches, all ranks), so the backward passes added up
-    over the microbatches give the gradient of the global mean."""
+    rank's rows and chunk, the global count of targets), each parameter's
+    ``.grad`` the gradient of the global mean (summed by FSDP2 over the
+    data-parallel ranks, then over ``seq``). Each microbatch's loss is its
+    rows' summed loss over the global count of targets (all microbatches,
+    all ranks), so the backward passes added up over the microbatches give
+    the gradient of the global mean."""
     def grads(tokens: torch.Tensor):
         b = tokens.shape[0]
         if b % grad_accum:
             raise ValueError(
                 f"batch {b} not divisible by grad_accum {grad_accum}")
         micro = tokens.reshape(grad_accum, b // grad_accum, -1)
-        prepared = [_targets_and_count(mb, segment_eos) for mb in micro]
-        total = _dp_sum(sum(c for *_, c in prepared), mesh)
+        prepared = [_rank_rows(mb, segment_eos, mesh) for mb in micro]
+        total = _dp_sum(sum(rows.count for rows in prepared), mesh)
         denom = torch.clamp(total, min=1.0)
         lsum = torch.zeros((), device=tokens.device)
-        for mb, (positions, segments, mask, _) in zip(micro, prepared):
-            part = _nll_sum(model, mb, loss_chunks, positions, segments,
-                            mask)
+        for rows in prepared:
+            part = _nll_sum(model, rows, loss_chunks)
             (part / denom).backward()
             lsum = lsum + part.detach()
+        sum_grads_over_seq(model, mesh)
         return lsum, denom
 
     return grads
@@ -341,15 +389,13 @@ def make_sharded_eval_step(model: Transformer, mesh, loss_chunks: int = 0,
     them itself, so the model's parameters are again the optimizer's."""
     @torch.no_grad()
     def step(tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
-        positions, segments, mask, count = _targets_and_count(tokens,
-                                                              segment_eos)
+        rows = _rank_rows(tokens, segment_eos, mesh)
         try:
-            part = _nll_sum(model, tokens, loss_chunks, positions, segments,
-                            mask)
+            part = _nll_sum(model, rows, loss_chunks)
         finally:
             model.reshard()
         loss = (_dp_sum(part, mesh)
-                / torch.clamp(_dp_sum(count, mesh), min=1.0))
+                / torch.clamp(_dp_sum(rows.count, mesh), min=1.0))
         return {"loss": loss, "perplexity": torch.exp(loss)}
 
     return step
@@ -519,10 +565,13 @@ class Trainer:
         """This rank's rows of a batch every rank holds in full (the
         reference's ``shard_batch``): its (data, fsdp) coordinate's block;
         an axis that does not divide the batch is shed (those ranks take
-        the same rows). Off a mesh, the batch itself."""
+        the same rows). The ``[B, L+1]`` rows stay whole over ``seq``: the
+        steps cut each rank's chunk after the shift. Off a mesh, the batch
+        itself."""
         if self.mesh is None:
             return tokens
-        return local_rows(tokens, batch_sharding(self.mesh, tokens.shape))
+        spec = batch_sharding(self.mesh, tokens.shape).spec[:1]
+        return local_rows(tokens, NamedSharding(self.mesh, spec))
 
     def data_shard(self) -> Tuple[int, int]:
         """(shard id, shard count) for this rank's ``DataLoader``: its

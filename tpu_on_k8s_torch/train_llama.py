@@ -38,8 +38,16 @@ coordinate. Four CPU ranks::
     torchrun --nproc-per-node 4 -m tpu_on_k8s_torch.train_llama \\
         --config tiny --device cpu --fsdp 2 --model-axis 2 --steps 3
 
-Ring and ulysses attention and a ``seq`` axis > 1 belong to a later slice
-(ROADMAP Queue 1 item 4) and raise ``NotImplementedError``.
+``--seq-axis N`` splits every sequence over N ranks (the mesh's ``seq``
+axis): each runs one chunk of L/N rows, and ``--attn`` says how attention
+crosses the chunks: ``ring`` (K/V chunks passed round the ranks,
+``parallel/ring.py``), ``ulysses`` (all-to-alls from sequence to heads,
+``parallel/ulysses.py``), or ``flash`` / ``xla`` (q, k and v gathered
+whole over the axis). With one rank on the axis, ring and ulysses are
+the plain attention, as the reference's::
+
+    torchrun --nproc-per-node 4 -m tpu_on_k8s_torch.train_llama \\
+        --config tiny --device cpu --attn ring --fsdp 2 --seq-axis 2
 """
 from __future__ import annotations
 
@@ -124,17 +132,9 @@ def main(argv=None) -> float:
     p.add_argument("--model-axis", type=int, default=1,
                    help="tensor-parallel axis size")
     p.add_argument("--seq-axis", type=int, default=1,
-                   help="sequence-parallel axis size (1: not ported)")
+                   help="sequence-parallel axis size: each sequence split "
+                        "over this many ranks")
     args = p.parse_args(argv)
-    if args.attn in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"--attn {args.attn} is not ported to tpu_on_k8s_torch yet "
-            f"(sequence parallelism over a mesh is ROADMAP Queue 1 item 4)")
-    if args.seq_axis > 1:
-        raise NotImplementedError(
-            f"--seq-axis {args.seq_axis} is not ported to tpu_on_k8s_torch "
-            f"yet (sequence parallelism over a mesh is ROADMAP Queue 1 "
-            f"item 4)")
 
     dev = resolve_device(args.device)
     ctx = initialize(device=dev)

@@ -328,6 +328,39 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    plain twins (the output by ``row_rel_err``) and timed beside them, SDPA non-causal and their bound (the
    JSON's ``ring_chunk_d128``). It bypasses what one card cannot run: the
    P2P exchanges, the all-to-alls and the stage sends between cards.
+12. MoE (after phase 11; ``phase 12`` is timed): llama2_1b's width with
+   Mixtral-8x7B's routing, 8 experts and top 2 (``num_local_experts`` and
+   ``num_experts_per_tok`` of mistralai/Mixtral-8x7B-v0.1), made in the
+   script: (a) the engine, 16 layers bf16 with seeded random weights, 8
+   slots x 2048, on the first ``MOE_REQUESTS`` of phase 3e's requests (16
+   flash launches per fresh prefill, nothing else); each emitted token
+   held by a teacher-forced gate against the plain attention, routed as
+   the engine routed it (the prompt padded to its bucket, so its capacity
+   is the engine's, then the emitted tokens at a capacity that drops
+   nothing, as the one-token steps drop nothing), the gate's limits
+   between that sound reading and a control whose engine drops each
+   token's second expert, which must break both limits over its requests
+   as a whole (``MOE_CONTROL_SHARE``); the share of routing decisions on
+   which the kernel and plain-attention prefills agree; 4 decode steps
+   with every slot busy under ``torch.profiler``; (b) training at
+   ``MOE_TRAIN_LAYERS`` layers on phase 4's batch (4 x 2048, flash, aux
+   weight ``MOE_AUX``): the first step's gradients by phase 4's
+   noise-floor rule (remat full) with the routing pinned (the fp32 plain
+   model's dispatch masks replayed in the kernel and plain bf16 models,
+   each gate recomputed from the model's own router, so that the floor is
+   bf16 rounding and not tokens routed apart) and a finite aux loss; the
+   same under ``mlp_int8`` with ``int8_impl="pallas"``, whose plain side
+   runs the int8 kernel's plain twin; one step (remat mlp) with 4
+   launches of each flash kernel, then one under ``mlp_int8`` whose int8
+   launches equal layers x 3 products x 8 experts x 2 (the MoE's
+   checkpoint runs its products again);
+   (c) the int8 kernel at one expert's product (M = 4 x 640 capacity rows,
+   N 5632, K 2048) against its plain twin bit for bit, timed beside
+   ``_int_mm`` with its epilogue and its bound (the JSON's
+   ``moe_expert``); (d) world-1 NCCL meshes: ``MeshConfig(expert=1)``
+   training one step equal to the meshless step bit for bit, and the
+   engine on ``serving_mesh(1, 1, 1)`` equal to the meshless engine token
+   for token.
 
 Then one JSON line for the kernels, the card's line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -502,6 +535,25 @@ BERT_XLA_SHAPE, BERT_FLASH_SHAPE = (32, 128), (8, 512)
 # GPipe on (rows, seq) in microbatches, x and the loss's weights from this
 # seed.
 RING_SHAPE, RING_SEED = (1, 16, 8192, 128, 4), 13
+# Phase 12, MoE at llama2_1b width with Mixtral-8x7B's routing: experts and
+# top k; (a) the requests of phase 3e the engine serves and its weights'
+# seed; (b) the training depth and the aux loss's weight; (d) the requests
+# the mesh engines serve.
+MOE_EXPERTS, MOE_TOP_K = 8, 2
+MOE_REQUESTS, MOE_SEED, MOE_TRAIN_LAYERS, MOE_AUX = 12, 12, 4, 0.01
+MOE_MESH_REQUESTS = 4
+# (a)'s teacher-forced gate, in units of the phase's max|kernel - plain|
+# last-position prefill logits (0.7907 at the first reading): the sound
+# engine's worst gap 0.3289 (0.42 of it), 94.35% exact; the control, whose
+# engine drops each token's second expert, 33.48% exact, its requests'
+# worst gaps median 0.8875 (1.12 of it), 9 of 12 above 0.9 of it (my chip
+# run, PR 19, H100 80GB HBM3, 700 W; see PERF.md). The control cannot
+# break tau in every request: where routing at random init sends most
+# prompt tokens to two experts past their capacity, dropping the second
+# expert leaves some short requests' greedy tokens unchanged. So it must
+# break both limits as a whole: its exact share below MOE_EXACT_MIN and
+# its worst gap above tau in at least MOE_CONTROL_SHARE of its requests.
+MOE_TAU_MULT, MOE_EXACT_MIN, MOE_CONTROL_SHARE = 0.9, 0.7, 0.5
 SEQ_STEPS = 2
 PIPE_SHAPE, PIPE_SEED = (2, 2048, 2), 14
 
@@ -5460,6 +5512,399 @@ def seq_phase(tcfg, mods, gpu, dev, tokens, fa) -> dict:
     return {"paths": paths, "ring_chunk": ring["rows"]}
 
 
+def moe_routing_recorder(moe, store: list):
+    """Patch ``moe.route`` so that each call also records its tokens' top-k
+    experts ``[B, L, k]`` in ``store``."""
+    route = moe.route
+
+    def recording(x, router, k, cap):
+        out = route(x, router, k, cap)
+        store.append(out.probs.topk(k, dim=-1).indices)
+        return out
+
+    return mock.patch.object(moe, "route", recording)
+
+
+def moe_teacher_forced(models, reqs, tokens, plain_flash, transformer,
+                       decode, moe, dev) -> dict:
+    """For each request: its prompt padded to the engine's bucket through
+    the kernel model and through the plain attention (their last-position
+    logits and routing), then the emitted tokens after it over the plain
+    prefill's cache at a capacity that drops nothing. Returns the gaps
+    (max logit - logit[emitted]) per request, max|kernel - plain| of the
+    last-position logits and the share of agreeing routing decisions."""
+    model, nodrop = models
+    gaps, diff, same, total = [], 0.0, 0, 0
+    with torch.inference_mode():
+        for j, (p, _) in enumerate(reqs):
+            n, emitted = p.size, tokens[j]
+            bucket = decode._bucket_len(n, ENGINE_MAX_LEN)
+            padded = np.zeros((1, bucket), np.int32)
+            padded[0, :n] = p
+            prompt = torch.from_numpy(padded).to(dev)
+            at = torch.tensor([n - 1], device=dev)
+            length = decode._bucket_len(max(bucket, n + emitted.size),
+                                        ENGINE_MAX_LEN)
+            routes = {}
+            for kind in ("kernel", "plain"):
+                routes[kind] = []
+                cache = decode.init_cache(model, 1, length)
+                patch = (mock.patch.object(transformer, "flash_attention",
+                                           plain_flash)
+                         if kind == "plain" else nullcontext())
+                with patch, moe_routing_recorder(moe, routes[kind]):
+                    last = model(prompt, None, cache, at=at)[0, 0]
+                if kind == "kernel":
+                    last_k = last
+            diff = max(diff, (last_k - last).abs().max().item())
+            for rk, rp in zip(routes["kernel"], routes["plain"]):
+                same += int((rk[:, :n] == rp[:, :n]).sum())
+                total += rk[:, :n].numel()
+            decode._set_cursor(cache, n)
+            rest = torch.from_numpy(emitted[:-1].astype(np.int32))[None]
+            pos = torch.arange(n, n + rest.shape[1], dtype=torch.int32)[None]
+            with mock.patch.object(transformer, "flash_attention",
+                                   plain_flash):
+                later = (nodrop(rest.to(dev), pos.to(dev), cache)[0]
+                         if rest.shape[1] else last[None][:0])
+            rows = torch.cat([last[None], later])
+            want = torch.from_numpy(emitted).to(dev, torch.long)
+            gaps.append(rows.max(dim=-1).values
+                        - rows.gather(1, want[:, None])[:, 0])
+    return {"gaps": gaps, "diff": diff, "agree": same / total,
+            "decisions": total}
+
+
+def moe_phase(tokens, mods, gpu, dev, fa) -> dict:
+    """Phase 12: MoE at llama2_1b width with Mixtral-8x7B's routing (see the
+    module docstring). Returns the launches of its paths and the int8
+    kernel's row at one expert's product."""
+    import torch.distributed as dist
+
+    from tpu_on_k8s_torch.models import decode, moe, serving, transformer
+    from tpu_on_k8s_torch.models.params import init_params, load_model
+    from tpu_on_k8s_torch.parallel.mesh import (
+        MeshConfig,
+        create_mesh,
+        serving_mesh,
+    )
+    from tpu_on_k8s_torch.parallel.serving import shutdown_mesh_workers
+    from tpu_on_k8s_torch.profile_generate import report
+    from tpu_on_k8s_torch.profile_train import group
+    from tpu_on_k8s_torch.train import Trainer, default_optimizer
+    from tpu_on_k8s_torch.train import trainer as trainer_mod
+    from tpu_on_k8s_torch.train.distributed import initialize
+
+    i8 = mods["i8"]
+    t_phase = time.perf_counter()
+    paths = {}
+    cfg = dataclasses.replace(transformer.TransformerConfig.llama2_1b(),
+                              n_experts=MOE_EXPERTS, experts_top_k=MOE_TOP_K)
+    e, k = cfg.n_experts, cfg.experts_top_k
+
+    def plain_flash(q, k_, v, causal=True, segments=None):
+        o, _ = fa.flash_attention_plain(q.transpose(1, 2), k_.transpose(1, 2),
+                                        v.transpose(1, 2), causal, 0, segments)
+        return o.transpose(1, 2)
+
+    # ---- (a) the engine --------------------------------------------------
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        MOE_SEED), dev)
+    reqs = engine_traffic(cfg.vocab_size)[0][:MOE_REQUESTS]
+    shape = dict(n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+                 clock=time.monotonic, device=dev)
+    n_params = sum(t.numel() for t in params.values())
+    print(f"[moe] llama2_1b width, {cfg.n_layers} layers, {e} experts top "
+          f"{k} (capacity factor {cfg.expert_capacity_factor}), "
+          f"{n_params:,} params bf16 (router fp32); {len(reqs)} of phase "
+          f"3e's requests on {ENGINE_SLOTS} slots x {ENGINE_MAX_LEN}")
+    engine = serving.ContinuousBatchingEngine(cfg, params, **shape)
+    reset_counts(mods)
+    run = drive_engine(engine, reqs, None, set(), mods, time.monotonic)
+    paths["moe_serve"] = run["launched"]
+    # where a decode step's time goes: 4 steps with every slot busy
+    for p, _ in reqs[:ENGINE_SLOTS]:
+        engine.submit(p, 64)
+    while engine.free_slots:
+        engine.step()
+    report("moe decode x4", lambda: [engine.step() for _ in range(4)], 8,
+           group, host_top=6)
+    del engine
+    orig_route = moe.route
+
+    def second_dropped(x, router, k_, cap):
+        return orig_route(x, router, 1, cap)
+
+    control_engine = serving.ContinuousBatchingEngine(cfg, params, **shape)
+    with mock.patch.object(moe, "route", second_dropped):
+        control = drive_engine(control_engine, reqs, None, set(), mods,
+                               time.monotonic)
+    del control_engine
+    gc.collect()
+    tf_cfg = dataclasses.replace(cfg, max_seq_len=ENGINE_MAX_LEN)
+    models = (decode.decode_model(tf_cfg, params, dev),
+              decode.decode_model(dataclasses.replace(
+                  tf_cfg, expert_capacity_factor=e / k), params, dev))
+    sound = moe_teacher_forced(models, reqs, run["tokens"], plain_flash,
+                               transformer, decode, moe, dev)
+    fault = moe_teacher_forced(models, reqs, control["tokens"], plain_flash,
+                               transformer, decode, moe, dev)
+    tau = MOE_TAU_MULT * sound["diff"]
+    steps = run["step_ms"]
+    print(f"[moe] (a) engine: {run['emitted']} tokens in {run['wall']:.2f} "
+          f"s, {run['fresh']} fresh prefills, launches {run['launched']}; "
+          f"decode step (all slots busy) median "
+          f"{statistics.median(steps) if steps else float('nan'):.2f} ms "
+          f"over {len(steps)} steps; routing decisions (layer, prompt "
+          f"token, round) on which the kernel and plain-attention prefills "
+          f"agree: {sound['agree']:.5f} of {sound['decisions']}; max|kernel "
+          f"- plain| last-position prefill logits {sound['diff']:.4f}")
+    tau_gate("[moe] (a) engine", sound["gaps"], tau, sound["diff"],
+             mult=MOE_TAU_MULT, exact_min=MOE_EXACT_MIN, unit="phase 12's")
+    tau_gate("[moe] (a) control (second expert dropped)", fault["gaps"], tau,
+             sound["diff"], control=True, every=False, mult=MOE_TAU_MULT,
+             exact_min=MOE_EXACT_MIN, unit="phase 12's")
+    exact = (torch.cat(fault["gaps"]) == 0).float().mean().item()
+    caught = sum(int(g.max() > tau) for g in fault["gaps"])
+    if exact >= MOE_EXACT_MIN or caught < MOE_CONTROL_SHARE * len(reqs):
+        fail(f"[moe] (a) the control broke the gate's limits too weakly: "
+             f"exact share {exact:.4f} (must be below {MOE_EXACT_MIN}), "
+             f"{caught} of {len(reqs)} requests above tau (at least "
+             f"{MOE_CONTROL_SHARE:g} of them)")
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) the serving mesh of one rank --------------------------------
+    initialize({"RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+                "MASTER_PORT": str(free_port())}, device=dev)
+    few = reqs[:MOE_MESH_REQUESTS]
+    outs = {}
+    for kind, mesh in (("meshless", None),
+                       ("serving_mesh(1, 1, 1)", serving_mesh(1, 1, 1,
+                                                              device=dev))):
+        engine = serving.ContinuousBatchingEngine(cfg, params, mesh=mesh,
+                                                  **shape)
+        reset_counts(mods)
+        outs[kind] = drive_engine(engine, few, None, set(), mods,
+                                  time.monotonic)
+        if mesh is not None:
+            paths["moe_serve_mesh"] = outs[kind]["launched"]
+        engine.close()
+        del engine
+        gc.collect()
+    shutdown_mesh_workers()
+    equal = all(np.array_equal(outs["meshless"]["tokens"][j], t)
+                for j, t in outs["serving_mesh(1, 1, 1)"]["tokens"].items())
+    print(f"[moe] (d) engine on serving_mesh(1, 1, 1) ({dist.get_backend()})"
+          f", {len(few)} requests: tokens equal the meshless engine's: "
+          f"{equal}")
+    if not equal:
+        fail("the MoE engine on a serving mesh of one rank differs from "
+             "the meshless engine")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) training -----------------------------------------------------
+    tcfg = dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS, remat=True,
+                               remat_policy="mlp", attn_impl="flash")
+    tparams = init_params(tcfg, torch.Generator(device=dev).manual_seed(
+        MOE_SEED), dev, dtype=tcfg.param_dtype)
+
+    def pinned_routing(model, masks: dict, record: bool):
+        """Patch ``moe.route`` for ``model``: with ``record`` each layer's
+        dispatch mask goes into ``masks`` (the first call's; a checkpoint's
+        recompute routes alike); else each layer dispatches as ``masks``
+        holds, its probabilities and gates from its own router, as
+        ``moe.route`` computes them (a chosen expert's gate is its
+        probability)."""
+        layer_of = {blk.moe.router.data_ptr(): i
+                    for i, blk in enumerate(model.blocks)}
+        route = moe.route
+
+        def pinned(x, router, k_, cap):
+            i = layer_of[router.data_ptr()]
+            if record:
+                out = route(x, router, k_, cap)
+                masks.setdefault(i, out.dispatch.bool())
+                return out
+            mask = masks[i]
+            probs = torch.softmax(torch.matmul(x.float(), router.float()),
+                                  dim=-1)
+            return moe.Routing(probs, mask.to(x.dtype),
+                               mask.float() * probs[..., None])
+
+        return mock.patch.object(moe, "route", pinned)
+
+    def first_grads(model_cfg, plain, masks, record=False):
+        model = load_model(model_cfg, tparams, dev)
+        loss_fn = trainer_mod._make_loss_fn(model, 0, None, MOE_AUX)
+        attn = (mock.patch.object(transformer, "flash_attention_bhld",
+                                  lambda q, k_, v, causal=True, valid_len=0,
+                                  segments=None: fa.flash_attention_plain(
+                                      q, k_, v, causal, valid_len,
+                                      segments)[0])
+                if plain else nullcontext())
+        # the int8 products' plain twin in place of the kernel
+        gemm = (mock.patch.object(i8, "_kernel_op", i8.int8_matmul_plain)
+                if plain else nullcontext())
+        with attn, gemm, pinned_routing(model, masks, record):
+            loss, (aux, _) = loss_fn(tokens)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+        names = [n for n, _ in model.named_parameters()]
+        out = loss.item(), aux.item(), dict(zip(names, grads))
+        del model, loss, aux, grads
+        return out
+
+    def rel_dist(g, ref):
+        return {n: ((g[n].float() - ref[n]).norm() / ref[n].norm()).item()
+                for n in ref}
+
+    def gradient_gate(tag: str, gcfg) -> None:
+        """Phase 4's noise-floor rule on ``gcfg``'s first-step gradients,
+        the routing pinned to the fp32 plain model's."""
+        masks = {}
+        loss_32, aux_32, grads_32 = first_grads(
+            dataclasses.replace(gcfg, dtype=torch.float32), True, masks,
+            record=True)
+        loss_k, aux_k, grads_k = first_grads(gcfg, False, masks)
+        loss_p, aux_p, grads_p = first_grads(gcfg, True, masks)
+        del masks
+        dist_k = rel_dist(grads_k, grads_32)
+        dist_p = rel_dist(grads_p, grads_32)
+        ratios = sorted(dist_k[n] / dist_p[n] for n in dist_k)
+        print(f"[moe] (b) gradient gate{tag}, step 1, {MOE_TRAIN_LAYERS} "
+              f"layers, {len(dist_k)} tensors, routing pinned to the fp32 "
+              f"plain model's, ||g - g_fp32|| / ||g_fp32||: kernel bf16 max "
+              f"{max(dist_k.values()):.4e} (at "
+              f"{max(dist_k, key=dist_k.get)}), median "
+              f"{statistics.median(dist_k.values()):.4e}; plain bf16 max "
+              f"{max(dist_p.values()):.4e}, median "
+              f"{statistics.median(dist_p.values()):.4e}; per-tensor ratio "
+              f"kernel/plain median {statistics.median(ratios):.3f}, max "
+              f"{ratios[-1]:.3f} (limit {GRAD_NOISE_MULT:g}); loss kernel "
+              f"{loss_k:.6f} plain {loss_p:.6f} fp32 {loss_32:.6f}; aux "
+              f"kernel {aux_k:.6f} plain {aux_p:.6f} fp32 {aux_32:.6f}")
+        for name in ("blocks.0.moe.router", "blocks.0.moe.w_gate",
+                     f"blocks.{MOE_TRAIN_LAYERS - 1}.moe.w_down",
+                     "blocks.0.attn.wq.weight", "lm_head"):
+            print(f"[moe]   {name}: kernel {dist_k[name]:.4e} plain "
+                  f"{dist_p[name]:.4e}")
+        if not all(torch.isfinite(g).all() for g in grads_k.values()) or not (
+                math.isfinite(aux_k) and aux_k > 0):
+            fail(f"the MoE model's gradients or aux loss{tag} are not "
+                 f"finite")
+        if ratios[-1] > GRAD_NOISE_MULT:
+            fail(f"the MoE kernel model's gradients{tag} stray further from "
+                 f"the fp32 model's than bf16 rounding explains")
+        del grads_k, grads_p, grads_32
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    gcfg = dataclasses.replace(tcfg, remat_policy="full")
+    gradient_gate("", gcfg)
+    gradient_gate(" under mlp_int8 (pallas; plain side the int8 GEMM's "
+                  "plain twin)", dataclasses.replace(
+                      gcfg, mlp_int8=True, int8_impl="pallas"))
+
+    opt_kw = dict(warmup_steps=10, decay_steps=11)
+
+    def one_step(model_cfg, mesh=None):
+        model = load_model(model_cfg, {n: t.clone() for n, t in
+                                       tparams.items()}, dev)
+        trainer = Trainer(model, default_optimizer(model.parameters(),
+                                                   **opt_kw),
+                          rules=(None if mesh is None else
+                                 transformer.flagship_partition_rules()),
+                          mesh=mesh, aux_loss_weight=MOE_AUX)
+        reset_counts(mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(trainer.shard_batch(tokens))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = read_counts(mods)
+        weights = {n: (p.full_tensor() if mesh is not None else p).detach()
+                   for n, p in trainer.model.named_parameters()}
+        out = ({key: float(m[key]) for key in ("loss", "aux_loss",
+                                              "grad_norm")},
+               launched, ms, weights)
+        del trainer, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    base, launched, ms, base_w = one_step(tcfg)
+    paths["moe_train"] = launched
+    n = tcfg.n_layers
+    print(f"[moe] (b) one step, remat mlp, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: {base}, {ms:.1f} ms (the first, host clock); "
+          f"launches {launched} (expected {n} of each flash kernel)")
+    if (launched["flash_fwd"], launched["flash_bwd_dq"],
+            launched["flash_bwd_dkv"], launched["int8_matmul"]) != (
+                n, n, n, 0) or not all(map(math.isfinite, base.values())):
+        fail(f"the MoE step: {base}, launches {launched}")
+    i8cfg = dataclasses.replace(tcfg, mlp_int8=True, int8_impl="pallas")
+    q8, launched8, ms8, _ = one_step(i8cfg)
+    paths["moe_train_int8"] = launched8
+    # each expert's gate, up and down products, in the forward and again
+    # in the MoE's checkpoint
+    want8 = n * 3 * e * 2
+    print(f"[moe] (b) one step under mlp_int8 (pallas): {q8}, {ms8:.1f} ms; "
+          f"int8_matmul launches {launched8['int8_matmul']} (expected "
+          f"{want8} = {n} layers x 3 products x {e} experts x 2)")
+    if launched8["int8_matmul"] != want8 or not math.isfinite(q8["loss"]):
+        fail(f"the MoE int8 step: {q8}, launches {launched8}")
+
+    # ---- (d) the training mesh of one rank --------------------------------
+    mesh = create_mesh(MeshConfig(expert=1), device=dev)
+    meshed, launched_m, _, mesh_w = one_step(tcfg, mesh)
+    paths["moe_train_mesh"] = launched_m
+    same_w = all(torch.equal(mesh_w[name], w) for name, w in base_w.items())
+    print(f"[moe] (d) one step on MeshConfig(expert=1): {meshed}; equal to "
+          f"the meshless step: metrics {meshed == base}, weights {same_w}")
+    if meshed != base or not same_w:
+        fail("the MoE step on a mesh of one rank differs from the meshless "
+             "step")
+    dist.destroy_process_group()
+    del tparams, base_w, mesh_w
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) the int8 kernel at one expert's product ----------------------
+    cap = moe.capacity(tcfg, TRAIN_SEQ)
+    m_rows, n_cols, k_in = TRAIN_BATCH * cap, cfg.d_ff, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+    xq, sx = i8._quant_rows(torch.randn(m_rows, k_in, generator=gen,
+                                        device=dev).to(torch.bfloat16))
+    wq, sw = i8._quant_rows((0.02 * torch.randn(n_cols, k_in, generator=gen,
+                                                device=dev)).to(torch.bfloat16))
+    out = i8.int8_matmul_kernel(xq, sx, wq, sw, torch.bfloat16)
+    want = i8.int8_matmul_plain(xq, sx, wq, sw, torch.bfloat16)
+    err = (out.float() - want.float()).abs().max().item()
+    kernel_ms = time_ms(lambda: i8.int8_matmul_kernel(xq, sx, wq, sw,
+                                                      torch.bfloat16))
+    plain_ms = event_ms(lambda: i8.int8_matmul_plain(xq, sx, wq, sw,
+                                                     torch.bfloat16))
+    lib_ms = time_ms(lambda: i8._int_mm(xq, sx, wq, sw, torch.bfloat16))
+    bound, by = int8_bound_ms(m_rows, n_cols, k_in, torch.bfloat16)
+    print(f"[moe] (c) {gpu}: int8_matmul at one expert's product M={m_rows} "
+          f"({TRAIN_BATCH} x capacity {cap}) N={n_cols} K={k_in} bf16 out: "
+          f"max|kernel - plain| {err} (bit for bit: {torch.equal(out, want)})"
+          f"; kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch._int_mm + epilogue {lib_ms:.4f} ms, bound {bound:.4f} ms "
+          f"({by}), {bound / kernel_ms:.1%} of bound")
+    if not torch.equal(out, want):
+        fail("the int8 kernel differs from its plain twin at the expert's "
+             "shape")
+    print(f"[time] phase 12 {time.perf_counter() - t_phase:.1f} s")
+    return {"paths": paths, "expert_row": {
+        "shape": f"M={m_rows} N={n_cols} K={k_in} bf16 out",
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": by, "library_ms": lib_ms, "max_abs_err": err}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -6293,6 +6738,10 @@ def run(tmp: Path) -> int:
     # ---- 11. sequence and pipeline parallelism ---------------------------
     phase11 = seq_phase(tcfg, mods, gpu, dev, tokens, fa)
     by_path.update(phase11["paths"])
+
+    # ---- 12. MoE -----------------------------------------------------------
+    phase12 = moe_phase(tokens, mods, gpu, dev, fa)
+    by_path.update(phase12["paths"])
     print(f"[time] script {time.perf_counter() - t_start:.0f} s")
 
     gemm = (TRAIN_BATCH * TRAIN_SEQ, 11264, 2048)
@@ -6338,6 +6787,8 @@ def run(tmp: Path) -> int:
             kernels[-1]["bert_padded_d64"] = phase10["bert_padded"][name]
         if name in phase11["ring_chunk"]:
             kernels[-1]["ring_chunk_d128"] = phase11["ring_chunk"][name]
+        if name == "int8_matmul":
+            kernels[-1]["moe_expert"] = phase12["expert_row"]
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -288,9 +288,18 @@ def test_overflow_raises(setup):
     ("n_experts", 4),
 ])
 def test_unported_flags_raise(flag, value):
+    """The flags that once raised here are ported: an MoE config builds its
+    decode model (the experts stored in ``cfg.dtype``, the router in fp32)
+    and refuses only what the reference refuses (W8A16 weights)."""
+    from tpu_on_k8s_torch.models.params import init_params
     cfg = dataclasses.replace(TransformerConfig.tiny(), **{flag: value})
-    with pytest.raises(NotImplementedError, match=flag):
-        decode.decode_model(cfg, {}, "cpu")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    model = decode.decode_model(cfg, params, "cpu")
+    assert model.blocks[0].moe.w_up.dtype == cfg.dtype
+    assert model.blocks[0].moe.router.dtype == torch.float32
+    with pytest.raises(ValueError, match="MoE"):
+        decode.decode_model(dataclasses.replace(cfg, serve_int8_weights=True),
+                            params, "cpu")
 
 
 @pytest.mark.parametrize("flag, value", [

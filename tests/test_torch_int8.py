@@ -301,10 +301,18 @@ def test_reference_value_errors(changes, match):
 
 @pytest.mark.parametrize("changes", [dict(n_experts=4)])
 def test_int8_with_unported_layouts_raises(changes):
+    """The layouts that once raised with ``mlp_int8`` are ported: an MoE
+    model's experts run the batched int8 product (``tests/test_torch_moe.py``
+    holds it against the reference's), here a forward that runs it."""
+    from tpu_on_k8s_torch.models.params import init_params, load_model
     cfg = dataclasses.replace(TransformerConfig.tiny(), mlp_int8=True,
                               **changes)
-    with pytest.raises(NotImplementedError):
-        Transformer(cfg)
+    model = load_model(cfg, init_params(cfg, torch.Generator().manual_seed(0),
+                                        "cpu", torch.float32), "cpu")
+    assert not hasattr(model.blocks[0], "mlp")
+    with torch.no_grad():
+        logits = model(torch.zeros((1, 8), dtype=torch.int32))
+    assert torch.isfinite(logits).all()
 
 
 def test_train_llama_int8_on_cpu(capsys):

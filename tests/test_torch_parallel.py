@@ -429,9 +429,25 @@ def test_trainer_accepts_a_seq_mesh():
 
 
 def test_expert_axis_still_raises():
+    """An ``expert`` axis > 1 lays an MoE model's experts out (each rank
+    its E/expert experts); it still raises for a dense model, for experts
+    it does not divide (naming both numbers) and, with a ``seq`` axis, for
+    an MoE model (ROADMAP Queue 1 item 4b)."""
     mesh = create_mesh(MeshConfig(fsdp=4, expert=2), device="cpu")
     with pytest.raises(NotImplementedError, match="expert"):
         Trainer(_model(), rules=flagship_partition_rules(), mesh=mesh)
+    trainer = Trainer(_model(n_experts=4), rules=flagship_partition_rules(),
+                      mesh=mesh)
+    w_up = trainer.model.blocks[0].moe.w_up
+    assert w_up.shape == (4, 64, 128)
+    assert w_up.to_local().shape == (2, 16, 128)
+    with pytest.raises(ValueError, match="expert mesh axis \\(2\\) does "
+                       "not divide n_experts \\(3\\)"):
+        Trainer(_model(n_experts=3), rules=flagship_partition_rules(),
+                mesh=create_mesh(MeshConfig(fsdp=4, expert=2), device="cpu"))
+    with pytest.raises(NotImplementedError, match="4b"):
+        Trainer(_model(n_experts=4), rules=flagship_partition_rules(),
+                mesh=create_mesh(MeshConfig(fsdp=4, seq=2), device="cpu"))
 
 
 def test_seq_axis_is_refused_where_it_is_not_ported():

@@ -7,7 +7,10 @@ Names are those of ``Transformer.state_dict()``: ``embed [V, D]``,
 family adds ``pos_embed [max_seq_len, D]`` (learned positions), a ``bias``
 beside each LayerNorm ``scale`` and, with ``use_bias``, beside each
 projection's ``weight``; its MLP is ``w_up`` and ``w_down``, and a tied
-model has no ``lm_head``. A ``weight``
+model has no ``lm_head``. An MoE model (``n_experts > 0``) holds
+``blocks.{i}.moe.router [D, E]`` (fp32 always) and the stacked experts
+``blocks.{i}.moe.w_{gate,up} [E, D, F]`` and ``moe.w_down [E, F, D]`` (the
+reference's layouts) in place of ``blocks.{i}.mlp``. A ``weight``
 is ``[out, in]``, the transpose of the reference's Flax ``kernel``. The
 W8A16 serving layout (``serve_int8_weights``) holds each projection as an
 int8 ``weight_q [out, in]`` and an fp32 ``weight_scale [out]``, and the head
@@ -45,8 +48,9 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, torch.Size]:
 
 def keeps_fp32(name: str) -> bool:
     """Whether the model stores parameter ``name`` in fp32 whatever its
-    dtypes: a norm's scale and bias, an int8 weight's scale."""
-    return (name.endswith("scale")
+    dtypes: a norm's scale and bias, an int8 weight's scale, the MoE
+    router."""
+    return (name.endswith("scale") or name.endswith("moe.router")
             or name.rpartition(".")[0].endswith("norm"))
 
 
@@ -59,7 +63,7 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     for biases. Drawn in fp32 on ``device`` from ``generator`` (which must
     live there), one tensor after another in registration order, then
     stored in ``dtype`` (default ``cfg.dtype``; norm scales and biases stay
-    fp32). The int8 serving layout's ``*_q`` / ``*_scale`` are zeros and
+    fp32, and so does the MoE router). The int8 serving layout's ``*_q`` / ``*_scale`` are zeros and
     ones, the reference's placeholders (``quantize_weights_for_serving``
     makes real ones)."""
     dev = resolve_device(device)
@@ -76,7 +80,8 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
             params[name] = torch.zeros(shape, dtype=torch.int8, device=dev)
         else:
             w = torch.empty(shape, dtype=torch.float32, device=dev)
-            params[name] = w.normal_(0.0, 0.02, generator=generator).to(dtype)
+            params[name] = w.normal_(0.0, 0.02, generator=generator).to(
+                torch.float32 if keeps_fp32(name) else dtype)
     return params
 
 
@@ -84,6 +89,11 @@ _ATTN = ("wq", "wk", "wv", "wqkv", "wo")
 #: the attention projections a reference tree may hold: unfused or fused
 _ATTN_LAYOUTS = ({"wq", "wk", "wv", "wo"}, {"wqkv", "wo"})
 _MLP = ("w_gate", "w_up", "w_down", "w_gateup")
+#: the stacked MoE leaves (``models/moe.py``), kept in the reference's
+#: layouts; a GELU MoE has no ``w_gate``
+_MOE = ("router", "w_gate", "w_up", "w_down")
+_MOE_LAYOUTS = ({"router", "w_gate", "w_up", "w_down"},
+                {"router", "w_up", "w_down"})
 
 
 def load_model(cfg: TransformerConfig, params: Mapping[str, torch.Tensor],
@@ -136,8 +146,11 @@ def from_jax_params(tree: Mapping, dtype: Optional[torch.dtype] = None,
     ``quantize_weights_for_serving`` (``kernel_q [L, D_in, D_out]`` int8 and
     ``kernel_scale [L, D_out]``; ``lm_head_q [D, V]``, ``lm_head_scale
     [V]``) keeps its int8 values and fp32 scales. A fused ``attn/wqkv``
-    tree becomes ``attn.wqkv.weight``. A tree of a layout this port does
-    not serve (MoE) raises ``NotImplementedError``.
+    tree becomes ``attn.wqkv.weight``. An MoE tree's ``blocks/moe/router
+    [L, D, E]`` (fp32 whatever ``dtype`` says), ``w_gate``/``w_up [L, E, D,
+    F]`` and ``w_down [L, E, F, D]`` become ``blocks.{i}.moe.*`` as they
+    are (no transpose). A tree of another layout raises
+    ``NotImplementedError``.
     Adam's moment trees have the same layout, so they cross the same
     way."""
     dev = resolve_device(device)
@@ -169,8 +182,10 @@ def from_jax_params(tree: Mapping, dtype: Optional[torch.dtype] = None,
     optional = {"pos_embed", "lm_head", "lm_head_q", "lm_head_scale"}
     blocks = tree.get("blocks", {})
     attn, mlp = blocks.get("attn", {}), blocks.get("mlp", {})
+    ffn = "moe" if "moe" in blocks else "mlp"
     if (not base <= set(tree) or not set(tree) <= base | optional
-            or set(blocks) != {"attn", "attn_norm", "mlp", "mlp_norm"}
+            or set(blocks) != {"attn", "attn_norm", ffn, "mlp_norm"}
+            or ffn == "moe" and set(blocks["moe"]) not in _MOE_LAYOUTS
             or set(attn) not in _ATTN_LAYOUTS or not set(mlp) <= set(_MLP)
             or any(set(m) not in _DENSE_LEAVES
                    for m in (*attn.values(), *mlp.values()))
@@ -178,22 +193,27 @@ def from_jax_params(tree: Mapping, dtype: Optional[torch.dtype] = None,
                    for n in ("attn_norm", "mlp_norm"))
             or set(tree["final_norm"]) not in _NORM_LEAVES):
         raise NotImplementedError(
-            f"parameter tree layout not ported (MoE): "
+            f"parameter tree layout not ported: "
             f"top-level keys {sorted(tree)}, blocks "
             f"{ {k: sorted(v) for k, v in blocks.items()} }")
     n_layers = np.shape(blocks["attn_norm"]["scale"])[0]
     params = {"embed": mat(tree["embed"])}
     if "pos_embed" in tree:
         params["pos_embed"] = mat(tree["pos_embed"])
+    groups = (("attn_norm", ()), ("attn", _ATTN), ("mlp_norm", ()),
+              ("mlp", _MLP))
     for i in range(n_layers):
         p = f"blocks.{i}."
-        for group, names in (("attn_norm", ()), ("attn", _ATTN),
-                             ("mlp_norm", ()), ("mlp", _MLP)):
+        for group, names in groups[:3] if ffn == "moe" else groups:
             leaves = norm(blocks[group], i) if not names else {
                 f"{w}.{leaf}": t for w in names if w in blocks[group]
                 for leaf, t in dense(blocks[group][w], i).items()}
             for leaf, t in leaves.items():
                 params[p + f"{group}.{leaf}"] = t
+        for w in _MOE if ffn == "moe" else ():
+            if w in blocks["moe"]:
+                a = blocks["moe"][w][i]
+                params[p + f"moe.{w}"] = scale(a) if w == "router" else mat(a)
     for leaf, t in norm(tree["final_norm"]).items():
         params[f"final_norm.{leaf}"] = t
     if "lm_head_q" in tree:

@@ -54,6 +54,9 @@ global positions, and ``attn_impl`` "ring" or "ulysses" runs attention
 over the axis (``parallel/ring.py``, ``parallel/ulysses.py``; off such an
 axis both are the plain attention, as the reference's), while "xla" and
 "flash" gather the chunks whole (``Attention``).
+``n_experts > 0`` swaps each block's MLP for ``models/moe.py``'s
+``MoEMLP`` (``Block.moe``), whose load-balance losses ``forward`` and
+``features`` return summed with ``with_aux=True``.
 ``flagship_partition_rules`` and ``serving_partition_rules`` are the
 reference's rules on the port's names.
 
@@ -87,8 +90,10 @@ from tpu_on_k8s_torch.ops.flash_attention import (
     flash_attention_bhld,
     xla_attention_bhld,
 )
+from tpu_on_k8s_torch.models import moe
 from tpu_on_k8s_torch.ops.int8_matmul import int8_matmul, int8_matmul_pallas
 from tpu_on_k8s_torch.parallel.mesh import (
+    AXIS_EXPERT,
     AXIS_FSDP,
     AXIS_MODEL,
     AXIS_SEQ,
@@ -176,10 +181,9 @@ class TransformerConfig:
                                  max_seq_len=128, remat=False)
 
 
-#: (flag, holds when unsupported, the later slice that brings it)
-_NOT_PORTED = (
-    ("n_experts", lambda c: c.n_experts > 0, "MoE (models/moe.py)"),
-)
+#: (flag, holds when unsupported, the later slice that brings it); empty
+#: while every flag of the reference's config is ported
+_NOT_PORTED = ()
 #: the training attentions: the heads-leading single-sequence paths, and
 #: the sequence-parallel ones over a ``seq`` mesh axis (``parallel/ring.py``,
 #: ``parallel/ulysses.py``)
@@ -890,7 +894,8 @@ def _mlp_remat_policy(width: int):
     ``int8_matmul``'s ``_Int8Product``) runs after the last tensor the
     recompute needs is saved, so the recompute stops before it."""
     def policy(ctx, op, *args, **kwargs):
-        if op in _DOTS and args[0].shape[-1] == width:
+        if (op in _DOTS and args[0].shape[-1] == width
+                and not moe.in_batched_products()):
             return CheckpointPolicy.MUST_SAVE
         return CheckpointPolicy.PREFER_RECOMPUTE
     return policy
@@ -903,11 +908,14 @@ def _dots_remat_policy(kernels: bool):
     recomputed) or ``"dots_kernels"`` (the kernels' outputs saved too: the
     flash forward's o and lse and the int8 GEMM's output), the reference's
     ``dots_with_no_batch_dims_saveable`` and ``_dots_and_kernels_saveable``.
-    Everything else is recomputed."""
+    Everything else is recomputed, the MoE's products batched over its
+    experts too (``moe.batched_products``: an expert's int8 product runs as
+    a 2-D operator, but the reference's batched product has a batch
+    dim)."""
     saved = _DOTS + _KERNELS if kernels else _DOTS
 
     def policy(ctx, op, *args, **kwargs):
-        if op in saved:
+        if op in saved and not moe.in_batched_products():
             return CheckpointPolicy.MUST_SAVE
         return CheckpointPolicy.PREFER_RECOMPUTE
     return policy
@@ -930,7 +938,14 @@ class Block(nn.Module):
     checkpointed selectively in the backward pass while the attention's
     residuals stay (the reference's MLP-only ``nn.remat`` with
     ``dots_with_no_batch_dims_saveable``): the outputs of the gate and up
-    products are kept, the rest of the MLP is recomputed."""
+    products are kept, the rest of the MLP is recomputed. With
+    ``n_experts > 0`` the MLP is ``moe.MoEMLP`` (``self.moe``), checkpointed
+    alike under "mlp": of its products only the router's has no batch dim
+    and is kept.
+
+    ``forward(x, pos, cache, segments)`` returns the block's output; with
+    ``with_aux=True`` the pair (output, the MoE's load-balance loss, None
+    for a dense block)."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -941,17 +956,25 @@ class Block(nn.Module):
         self.attn_norm = make_norm(cfg)
         self.attn = Attention(cfg)
         self.mlp_norm = make_norm(cfg)
-        self.mlp = MLP(cfg)
+        if cfg.n_experts > 0:
+            self.moe = moe.MoEMLP(cfg)
+        else:
+            self.mlp = MLP(cfg)
 
     def forward(self, x: torch.Tensor, pos: Positions,
                 cache: Optional[KVCache] = None,
-                segments: Optional[torch.Tensor] = None) -> torch.Tensor:
+                segments: Optional[torch.Tensor] = None,
+                with_aux: bool = False):
         h = x + self.attn(self.attn_norm(x), pos, cache, segments)
         y = self.mlp_norm(h)
+        mlp = self.moe if hasattr(self, "moe") else self.mlp
         if self.remat_mlp and torch.is_grad_enabled():
-            return h + checkpoint(self.mlp, y, use_reentrant=False,
-                                  context_fn=self.remat_context)
-        return h + self.mlp(y)
+            y = checkpoint(mlp, y, use_reentrant=False,
+                           context_fn=self.remat_context)
+        else:
+            y = mlp(y)
+        y, aux = y if isinstance(y, tuple) else (y, None)
+        return (h + y, aux) if with_aux else h + y
 
 
 class Transformer(nn.Module):
@@ -979,7 +1002,12 @@ class Transformer(nn.Module):
     ``remat_policy`` "full" (all of it recomputed in the backward pass),
     "dots" (the outputs of products with no batch dimension saved) and
     "dots_kernels" (the hand-written kernels' outputs saved too); "mlp"
-    checkpoints only the MLP (``Block``)."""
+    checkpoints only the MLP (``Block``).
+
+    ``with_aux=True`` (``forward`` and ``features``) also returns the MoE
+    blocks' load-balance losses summed in block order (the reference's sum
+    over the ``losses`` collection), an fp32 0-d tensor: 0 for a dense
+    model."""
 
     #: the vocab-parallel groups of a serving model's embedding and head
     #: (``parallel/sharded.shard_serving_model``; None: held whole), and
@@ -1034,9 +1062,9 @@ class Transformer(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 cache: Optional[List[KVCache]] = None,
                 segments: Optional[torch.Tensor] = None,
-                at: Optional[torch.Tensor] = None) -> torch.Tensor:
+                at: Optional[torch.Tensor] = None, with_aux: bool = False):
         cfg = self.cfg
-        x = self._trunk(tokens, positions, cache, segments)
+        x, aux = self._trunk(tokens, positions, cache, segments)
         if at is not None:
             x = x[torch.arange(x.shape[0], device=x.device), at][:, None]
         # fp32 logits from the cfg.dtype (or int8) head: products of bf16
@@ -1065,7 +1093,9 @@ class Transformer(nn.Module):
             if rows is not None:
                 logits = rows.reduce(logits)
         # a vocab-parallel serving head made this rank's V/model columns
-        return logits if self.head_tp is None else self.head_tp.gather(logits)
+        if self.head_tp is not None:
+            logits = self.head_tp.gather(logits)
+        return (logits, _aux_value(aux, x)) if with_aux else logits
 
     def extend_cache(self, tokens: torch.Tensor, positions: torch.Tensor,
                      cache: List[KVCache]) -> None:
@@ -1076,15 +1106,19 @@ class Transformer(nn.Module):
 
     def features(self, tokens: torch.Tensor,
                  positions: Optional[torch.Tensor] = None,
-                 segments: Optional[torch.Tensor] = None):
+                 segments: Optional[torch.Tensor] = None,
+                 with_aux: bool = False):
         """(final-norm hidden states ``[B, L, D]``, head ``[D, V]``), both
         in ``cfg.dtype``: what ``chunked_cross_entropy`` takes. The int8
         serving head is the pair (``lm_head_q``, ``lm_head_scale``), as the
-        reference returns it."""
-        x = self._trunk(tokens, positions, None, segments)
+        reference returns it. ``with_aux=True`` adds the load-balance loss
+        as a third element."""
+        x, aux = self._trunk(tokens, positions, None, segments)
         if self.cfg.serve_int8_weights and not self.cfg.tie_embeddings:
-            return x, (self.lm_head_q, self.lm_head_scale)
-        return x, self._head()
+            head = (self.lm_head_q, self.lm_head_scale)
+        else:
+            head = self._head()
+        return (x, head, _aux_value(aux, x)) if with_aux else (x, head)
 
     def _head(self) -> torch.Tensor:
         """The head ``[D, V]`` in ``cfg.dtype``: the tied embedding table,
@@ -1144,15 +1178,26 @@ class Transformer(nn.Module):
         x = x.to(cfg.dtype)
         remat_block = (cfg.remat and cfg.remat_policy != "mlp"
                        and torch.is_grad_enabled())
+        aux = None
         for i, block in enumerate(self.blocks):
             if remat_block:
-                x = checkpoint(block, x, pos, None, segments,
-                               use_reentrant=False,
-                               context_fn=self.remat_context)
+                x, a = checkpoint(block, x, pos, None, segments,
+                                  use_reentrant=False,
+                                  context_fn=self.remat_context,
+                                  with_aux=True)
             else:
-                x = block(x, pos, cache[i] if cache is not None else None,
-                          segments)
-        return self.final_norm(x)
+                x, a = block(x, pos, cache[i] if cache is not None else None,
+                             segments, with_aux=True)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return self.final_norm(x), aux
+
+
+def _aux_value(aux: Optional[torch.Tensor], x: torch.Tensor
+               ) -> torch.Tensor:
+    """The blocks' summed load-balance loss, or an fp32 0 where no block
+    is an MoE block."""
+    return x.new_zeros((), dtype=torch.float32) if aux is None else aux
 
 
 def flagship_partition_rules() -> List[PartitionRule]:
@@ -1164,8 +1209,11 @@ def flagship_partition_rules() -> List[PartitionRule]:
     0) and ``fsdp`` on the input (dim 1); row-parallel ``wo`` and
     ``w_down`` the other way round. ``embed [V, D]`` keeps (model, fsdp),
     ``lm_head [D, V]`` (fsdp, model), ``pos_embed`` (None, fsdp); norms and
-    everything else are replicated. The reference's MoE rules have no port
-    leaves (MoE is not ported)."""
+    everything else are replicated. The MoE's stacked ``moe.router [D,
+    E]``, ``moe.w_gate``/``moe.w_up [E, D, F]`` and ``moe.w_down [E, F,
+    D]`` keep the reference's layouts, so their rules are the reference's
+    with the layer axis dropped: experts over ``expert``, then Megatron
+    within each expert."""
     return [
         # attention: qkv column-parallel, output row-parallel
         PartitionRule(r"attn\.w[qkv]\.weight", (AXIS_MODEL, AXIS_FSDP)),
@@ -1175,6 +1223,11 @@ def flagship_partition_rules() -> List[PartitionRule]:
         PartitionRule(r"mlp\.w_(gate|up|gateup)\.weight",
                       (AXIS_MODEL, AXIS_FSDP)),
         PartitionRule(r"mlp\.w_down\.weight", (AXIS_FSDP, AXIS_MODEL)),
+        # MoE: experts over the expert axis, then megatron within each expert
+        PartitionRule(r"moe\.router", (AXIS_FSDP, None)),
+        PartitionRule(r"moe\.w_(gate|up)$", (AXIS_EXPERT, AXIS_FSDP,
+                                              AXIS_MODEL)),
+        PartitionRule(r"moe\.w_down$", (AXIS_EXPERT, AXIS_MODEL, AXIS_FSDP)),
         # embeddings: vocab-parallel over model, hidden over fsdp
         PartitionRule(r"(^|/)embed$", (AXIS_MODEL, AXIS_FSDP)),
         PartitionRule(r"pos_embed", (None, AXIS_FSDP)),

@@ -33,6 +33,11 @@ The gradient half (``_Int8Grad``: it saves the unquantized x and w) runs
 before the product (``_Int8Product``), so a checkpoint's recompute that
 needs only x and w stops before the quantization and the GEMM.
 
+- ``int8_matmul_batched``: the MoE experts' products, ``x[e] @ w[e]`` for
+  stacked ``[E, K, N]`` weights (the reference's layout), one expert after
+  another through the same path and the same autograd pair, ``impl``
+  choosing the route.
+
 On CPU tensors both run ``int8_matmul_plain``, whose int32 product is exact
 (an fp64 product of int8 values: every partial sum is an integer below
 2⁵³). Both routes give the same bits as the plain version. Quantizing the
@@ -222,26 +227,36 @@ if torch.ops.aten._int_mm not in flop_registry:
 def _forward(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
              impl: str, reduce_max: Optional[Reduce] = None,
              reduce_sum: Optional[Reduce] = None) -> torch.Tensor:
-    """The product of x and w, quantized (over the whole K with
-    ``reduce_max``); with ``reduce_sum`` (a row-parallel product: x and w
-    hold one block of K) the fp32 partial products are summed over the
-    ranks, then cast once."""
-    if w.dim() != 2 or x.shape[-1] != w.shape[1]:
-        raise ValueError(f"x [..., K] and w [N, K] expected, got "
-                         f"{tuple(x.shape)} and {tuple(w.shape)}")
-    lead, n = x.shape[:-1], w.shape[0]
-    xq, sx = _quant_rows(x.reshape(-1, x.shape[-1]), reduce_max)
+    """The product of x ``[..., K]`` and w ``[N, K]`` (or of each expert's
+    x ``[E, ..., K]`` and w ``[E, N, K]``, one product after another),
+    quantized (over the whole K with ``reduce_max``); with ``reduce_sum``
+    (a row-parallel product: x and w hold one block of K) the fp32 partial
+    products are summed over the ranks, then cast once."""
+    batched = w.dim() == 3
+    if w.dim() not in (2, 3) or x.shape[-1] != w.shape[-1] or (
+            batched and x.shape[0] != w.shape[0]):
+        raise ValueError(f"x [..., K] and w [N, K] (or x [E, ..., K] and w "
+                         f"[E, N, K]) expected, got {tuple(x.shape)} and "
+                         f"{tuple(w.shape)}")
+    lead, n = x.shape[:-1], w.shape[-2]
+    xq, sx = _quant_rows(x.reshape(*w.shape[:-2], -1, x.shape[-1]),
+                         reduce_max)
     wq, sw = _quant_rows(w, reduce_max)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int8 matmul runs on cuda or cpu, not "
                          f"{x.device.type}")
     dtype = out_dtype if reduce_sum is None else torch.float32
     if impl == "pallas":
-        y = _kernel_op(xq, sx, wq, sw, dtype)
+        product = _kernel_op
     elif x.device.type == "cpu":
-        y = int8_matmul_plain(xq, sx, wq, sw, dtype)
+        product = int8_matmul_plain
     else:
-        y = _int_mm(xq, sx, wq, sw, dtype)
+        product = _int_mm
+    if batched:
+        y = torch.stack([product(xq[i], sx[i], wq[i], sw[i], dtype)
+                         for i in range(w.shape[0])])
+    else:
+        y = product(xq, sx, wq, sw, dtype)
     if reduce_sum is not None:
         y = reduce_sum(y).to(out_dtype)
     return y.reshape(*lead, n)
@@ -250,7 +265,8 @@ def _forward(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
 class _Int8Grad(torch.autograd.Function):
     """The gradient half of an int8 matmul: saves the unquantized x and w
     and returns a stand-in for the output (zeros of its shape, one element
-    broadcast); its backward is the reference's ``_bwd``, ``dx = g·w`` and
+    broadcast); its backward is the reference's ``_bwd`` (``_bwd_b`` for
+    the experts' ``[E, N, K]`` weights, per expert), ``dx = g·w`` and
     ``dw = gᵀ·x`` in the promoted types. It runs, and saves, before the
     product does (``_Int8Product``), so a checkpoint's recompute that needs
     only x and w stops before the quantization and the GEMM, as the
@@ -261,19 +277,23 @@ class _Int8Grad(torch.autograd.Function):
     def forward(ctx, x, w, out_dtype):
         ctx.save_for_backward(x, w)
         return x.new_zeros((), dtype=out_dtype).expand(*x.shape[:-1],
-                                                       w.shape[0])
+                                                       w.shape[-2])
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
+        # rows of each product: all of x's, or each expert's
+        lead = w.shape[:-2]
+        g2 = g.reshape(*lead, -1, g.shape[-1])
         dx = dw = None
         if ctx.needs_input_grad[0]:
             ct = torch.promote_types(g.dtype, w.dtype)
-            dx = torch.matmul(g.to(ct), w.to(ct)).to(x.dtype)
+            dx = torch.matmul(g2.to(ct), w.to(ct)).reshape(x.shape).to(
+                x.dtype)
         if ctx.needs_input_grad[1]:
             ct = torch.promote_types(x.dtype, g.dtype)
-            g2 = g.reshape(-1, g.shape[-1]).to(ct)
-            dw = torch.matmul(g2.t(), x.reshape(-1, x.shape[-1]).to(ct)
+            dw = torch.matmul(g2.to(ct).transpose(-1, -2),
+                              x.reshape(*lead, -1, x.shape[-1]).to(ct)
                               ).to(w.dtype)
         return dx, dw, None
 
@@ -332,3 +352,31 @@ def int8_matmul_pallas(x: torch.Tensor, w: torch.Tensor,
     the TPU kernel's tiles and have no effect."""
     del bm, bn, bk
     return _apply(x, w, out_dtype, "pallas", reduce_max, reduce_sum)
+
+
+def int8_matmul_batched(x: torch.Tensor, w: torch.Tensor,
+                        impl: str = "xla", *,
+                        reduce_max: Optional[Reduce] = None,
+                        reduce_sum: Optional[Reduce] = None) -> torch.Tensor:
+    """Per-expert ``x[e] @ w[e]`` with an int8 forward and the exact
+    backward: x ``[E, ..., K]`` (the dispatched expert inputs), w ``[E, K,
+    N]`` (the stacked expert weights, the reference's layout) → ``[E, ...,
+    N]`` in x's dtype. The reference's ``int8_matmul_batched``: x's rows
+    quantized per row (``_quant_rows``), each expert's weight per output
+    column (``_quant_rows`` of ``w[e]ᵀ``, the reference's ``_quant_cols``:
+    K reduced), the exact int32 sum, ``(acc · sx) · sw`` cast to x's dtype.
+
+    Each expert's product runs through the 2-D path: ``impl="pallas"``
+    launches the hand-written kernel once per expert, ``"xla"`` takes
+    ``torch._int_mm`` on the card. The reference runs XLA here whatever
+    ``int8_impl`` says; both routes compute the same bits (the exact int32
+    sum and the same epilogue), so ``impl`` chooses a speed, not a result.
+    An expert's empty capacity rows are all zero: their absmax takes the
+    1e-30 floor and their output is zero. A row-parallel caller (``w_down``
+    with F split over ``model``) passes ``reduce_max`` and ``reduce_sum``
+    as ``int8_matmul`` takes them: every expert is quantized over its whole
+    K and its fp32 partial products are summed before one cast."""
+    if w.dim() != 3:
+        raise ValueError(f"w [E, K, N] expected, got {tuple(w.shape)}")
+    return _apply(x, w.transpose(1, 2), x.dtype, impl, reduce_max,
+                  reduce_sum)

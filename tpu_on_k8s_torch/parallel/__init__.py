@@ -4,8 +4,9 @@
 The vocabulary is the reference's: a ``DeviceMesh`` with the axes ``data``
 (batch split, gradients summed), ``fsdp`` (batch and parameters split),
 ``model`` (tensor parallelism: heads and hidden split), ``seq`` (each
-sequence split, for the decoder's training) and ``expert`` (not ported:
-it must be 1), and regex rules over leaf paths
+sequence split, for the decoder's training) and ``expert`` (an MoE
+model's experts split; the batch is the same on its ranks), and regex
+rules over leaf paths
 that give each parameter its layout. Where the reference hands the specs to
 XLA's SPMD partitioner, ``sharded.py`` writes the layout out with
 ``parallelize_module`` and FSDP2 (a serving model's with plain local

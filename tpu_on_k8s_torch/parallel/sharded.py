@@ -51,7 +51,17 @@ replicated over ``seq``: FSDP2 sums each gradient over (data, fsdp), and
 ``sum_grads_over_seq`` then sums its local block over ``seq`` before the
 clip (a sum: the loss is a mean over the global count). What it refuses:
 ``seq`` > 1 for the other models and for serving (ROADMAP Queue 1 item
-4b) and ``expert`` > 1 (MoE is not ported).
+4b), ``seq`` > 1 for an MoE model (the same item) and ``expert`` > 1 for
+a dense model or one whose experts it does not divide.
+
+MoE blocks (``models/moe.py``; ``moe_parallel``): each expert weight is a
+``DTensor`` over the (``expert``, ``model``) axes that split it, the
+rank's experts and its block of ``F`` (gate and up column parallel,
+``w_down`` row parallel), which FSDP2 then shards over (data, fsdp) on the
+dim its rule gives ``fsdp``; the router stays whole. The batch is the same
+on every ``expert`` and ``model`` rank, so the block dispatches every token
+to the rank's own experts and sums over the axes, with no all-to-all (the
+layout XLA derives from the reference's rules).
 
 ``shard_serving_model(model, mesh, rules)`` lays a serving model (the
 engine's, ``models/serving.py``) out with plain local tensors and explicit
@@ -104,7 +114,12 @@ from torch.distributed.fsdp import (
     fully_shard,
     register_fsdp_forward_method,
 )
-from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+from torch.distributed.tensor import (
+    DTensor,
+    Replicate,
+    Shard,
+    distribute_tensor,
+)
 from torch.distributed.tensor.parallel import (
     ColwiseParallel,
     RowwiseParallel,
@@ -143,19 +158,29 @@ def layout_of(model: nn.Module) -> Optional[Layout]:
 
 def check_mesh(cfg, mesh, splits_sequence: bool = False) -> None:
     """Raise for a mesh this port does not run ``cfg`` on: a ``seq`` axis
-    over 1 unless the model splits its sequence (training the decoder),
-    or an ``expert`` axis over 1 (see the module docstring)."""
-    del cfg
+    over 1 unless the model splits its sequence (training the dense
+    decoder), or an ``expert`` axis over 1 unless ``cfg`` is an MoE model
+    whose experts it divides (see the module docstring)."""
     sizes = mesh_shape(mesh)
+    n_experts = getattr(cfg, "n_experts", 0)
     if sizes.get(AXIS_SEQ, 1) > 1 and not splits_sequence:
         raise NotImplementedError(
             "a seq mesh axis > 1 runs the decoder's training only in "
             "tpu_on_k8s_torch; for serving, BERT and the vision models it "
             "is ROADMAP Queue 1 item 4b")
-    if sizes.get(AXIS_EXPERT, 1) > 1:
+    if sizes.get(AXIS_SEQ, 1) > 1 and n_experts:
         raise NotImplementedError(
-            "an expert mesh axis > 1 is not ported to tpu_on_k8s_torch yet "
-            "(MoE is ROADMAP Queue 1 item 5)")
+            "a seq mesh axis > 1 with n_experts > 0 is ROADMAP Queue 1 item "
+            "4b: the reference routes over the whole sequence (its capacity "
+            "and slot counts span the chunks)")
+    expert = sizes.get(AXIS_EXPERT, 1)
+    if expert > 1 and not n_experts:
+        raise NotImplementedError(
+            f"an expert mesh axis of {expert} splits the experts of an MoE "
+            f"model (n_experts > 0); this model has none")
+    if expert > 1 and n_experts % expert:
+        raise ValueError(f"the expert mesh axis ({expert}) does not divide "
+                         f"n_experts ({n_experts})")
 
 
 def own_heads(cfg, n_model: int, q_block: bool = True,
@@ -192,6 +217,12 @@ def _axis_dim(name: str, rules: Sequence[PartitionRule], axis: str
     return None
 
 
+def _dense_parts(block: nn.Module) -> Tuple[str, ...]:
+    """A block's parts made of ``Dense`` projections: its attention, and
+    its MLP unless it is an MoE block (``block.moe``, laid out apart)."""
+    return ("attn", "mlp") if hasattr(block, "mlp") else ("attn",)
+
+
 def tensor_parallel(model: nn.Module, tp_mesh) -> None:
     """``shard_model``'s tensor parallelism over the one-dim ``tp_mesh``,
     in place: ``parallelize_module`` with every input projection (``wq``/
@@ -206,19 +237,114 @@ def tensor_parallel(model: nn.Module, tp_mesh) -> None:
     own_q, own_kv = own_heads(model.cfg, tp.size)
     for block in model.blocks:
         plan = {}
-        for part in ("attn", "mlp"):
+        for part in _dense_parts(block):
             for name, proj in getattr(block, part).named_children():
                 proj.role = int(name in ("wo", "w_down"))
                 plan[f"{part}.{name}"] = row if proj.role else col
         parallelize_module(block, tp_mesh, plan)
         block.attn.shard_heads(tp, own_q, own_kv)
-        block.mlp.shard(tp)
+        if hasattr(block, "mlp"):
+            block.mlp.shard(tp)
     for name, dim in (("embed", 0), ("lm_head", 1)):
         p = getattr(model, name, None)
         if p is not None:
             setattr(model, name, nn.Parameter(distribute_tensor(
                 p.data, tp_mesh, [Shard(dim)], src_data_rank=None),
                 requires_grad=p.requires_grad))
+
+
+#: an MoE leaf's dims (``models/moe.py``'s stacked layouts): its experts,
+#: and the ``F`` that ``model`` may split (Megatron within each expert)
+_MOE_DIMS = {"w_gate": (0, 2), "w_up": (0, 2), "w_down": (0, 1),
+             "router": (None, None)}
+
+
+def moe_cuts(names: Iterable[str], rules: Sequence[PartitionRule]
+             ) -> Dict[str, Tuple[Optional[int], Optional[int]]]:
+    """The dims the rules put ``expert`` and ``model`` on, for each MoE
+    leaf (``blocks.{i}.moe.*``): ``expert`` on the experts (dim 0) or
+    nowhere; ``model`` on the expert weights' ``F`` (column-parallel
+    ``w_gate``/``w_up``, row-parallel ``w_down``) for every one of a
+    block's weights or for none; the router whole. Any other layout
+    raises ``ShardingValidationError``, naming the leaf."""
+    cuts: Dict[str, Tuple[Optional[int], Optional[int]]] = {}
+    for name in names:
+        m = re.fullmatch(r"(blocks\.\d+\.moe)\.(\w+)", name)
+        if not m:
+            continue
+        allowed = _MOE_DIMS[m[2]]
+        got = (_axis_dim(name, rules, AXIS_EXPERT),
+               _axis_dim(name, rules, AXIS_MODEL))
+        if any(g is not None and g != a for g, a in zip(got, allowed)):
+            raise ShardingValidationError(
+                f"{name}: its rule puts {AXIS_EXPERT} on dim {got[0]} and "
+                f"{AXIS_MODEL} on dim {got[1]}; an MoE leaf takes "
+                f"{AXIS_EXPERT} on its experts (dim 0) and {AXIS_MODEL} on "
+                f"F only ({allowed})")
+        cuts[name] = got
+    by_block: Dict[str, set] = {}
+    for name, (_, model_dim) in cuts.items():
+        if not name.endswith(".router"):
+            by_block.setdefault(name.rpartition(".")[0], set()).add(
+                model_dim is None)
+    for path, whole in by_block.items():
+        if len(whole) > 1:
+            raise ShardingValidationError(
+                f"{path}: the rules split F over {AXIS_MODEL} for some of "
+                f"its expert weights and not for others")
+    return cuts
+
+
+def moe_axes(block_moe, mesh, cuts, path: str, tp=None) -> None:
+    """Hand an MoE block (``moe.MoEMLP`` at ``path``) the axes its layout
+    splits it over (``moe_cuts``): ``ep`` where its experts are split over
+    ``expert``, ``tp`` (default the mesh's ``TensorParallel``, whose
+    collectives a row-parallel int8 ``w_down`` takes) where ``F`` is
+    split."""
+    sizes = mesh_shape(mesh)
+    expert_dim, model_dim = cuts[f"{path}.w_up"]
+    block_moe.ep = (MeshAxis(mesh, AXIS_EXPERT)
+                    if expert_dim is not None and sizes[AXIS_EXPERT] > 1
+                    else None)
+    block_moe.tp = (tp or TensorParallel(mesh)
+                    if model_dim is not None and sizes[AXIS_MODEL] > 1
+                    else None)
+
+
+def moe_parallel(model: nn.Module, mesh, rules: Sequence[PartitionRule]
+                 ) -> None:
+    """``shard_model``'s layout of the MoE blocks, in place: each expert
+    weight becomes a ``DTensor`` over the (``expert``, ``model``) axes
+    that split it (its rank's experts and its block of ``F``; FSDP2 adds
+    the data-parallel axes), each block is handed those axes
+    (``moe_axes``) and the data-parallel ones whose ranks hold other rows
+    (``MoEMLP.dp``: the load-balance loss is the global batch's)."""
+    sizes = mesh_shape(mesh)
+    names = [n for n, _ in model.named_parameters()]
+    cuts = moe_cuts(names, rules)
+    dp = tuple(MeshAxis(mesh, a) for a in (AXIS_DATA, AXIS_FSDP)
+               if sizes[a] > 1)
+    axes = [a for a in (AXIS_EXPERT, AXIS_MODEL) if sizes[a] > 1]
+    sub = (None if not axes else mesh[axes[0]] if len(axes) == 1
+           else mesh[tuple(axes)])
+    for i, block in enumerate(model.blocks):
+        block_moe = getattr(block, "moe", None)
+        if block_moe is None:
+            continue
+        path = f"blocks.{i}.moe"
+        for leaf in ("w_gate", "w_up", "w_down") if sub is not None else ():
+            p = getattr(block_moe, leaf, None)
+            if p is None:
+                continue
+            dims = cuts[f"{path}.{leaf}"]
+            placements = [
+                Replicate() if dims[j] is None else Shard(dims[j])
+                for j in (0 if a == AXIS_EXPERT else 1 for a in axes)]
+            setattr(block_moe, leaf, nn.Parameter(distribute_tensor(
+                p.data, sub, placements, src_data_rank=None),
+                requires_grad=p.requires_grad))
+        moe_axes(block_moe, mesh, cuts, path)
+        block_moe.dp = dp
 
 
 def shard_model(model: nn.Module, mesh, rules: Sequence[PartitionRule]
@@ -237,6 +363,8 @@ def shard_model(model: nn.Module, mesh, rules: Sequence[PartitionRule]
     if sizes[AXIS_MODEL] > 1:
         # the model says what a model axis does to it
         model.tensor_parallel(mesh[AXIS_MODEL])
+    if getattr(getattr(model, "cfg", None), "n_experts", 0):
+        moe_parallel(model, mesh, rules)
     if sizes[AXIS_SEQ] > 1:
         model.split_sequence(mesh)
     dp_axes = ((AXIS_DATA, AXIS_FSDP) if sizes[AXIS_DATA] > 1
@@ -478,7 +606,9 @@ def serving_layout(cfg, names: Iterable[str],
     """``serving_cuts`` and the heads each rank runs, for ``cfg``'s model.
     A fused projection split on its rows needs ``model`` to divide each
     of its parts (``ShardingValidationError``)."""
+    names = list(names)
     cuts, rows = serving_cuts(names, rules)
+    moe_cuts(names, rules)
 
     def column(path: str) -> bool:
         return 0 in (cuts.get(f"{path}.weight"), cuts.get(f"{path}.weight_q"))
@@ -502,6 +632,32 @@ def serving_layout(cfg, names: Iterable[str],
         own_q.append(heads[0])
         own_kv.append(heads[1])
     return ServingLayout(cuts, rows, tuple(own_q), all(own_kv))
+
+
+def _cut_experts(model: nn.Module, mesh, rules, tp: TensorParallel) -> None:
+    """A serving model's MoE blocks as plain local tensors: each expert
+    weight keeps its rank's experts over ``expert`` and its block of ``F``
+    over ``model`` (``moe_cuts``), and each block sums ``w_down``'s partial
+    products over ``model`` and the combined output over ``expert``
+    (``moe_axes``)."""
+    cuts = moe_cuts([n for n, _ in model.named_parameters()], rules)
+    if not cuts:
+        return
+    sizes = mesh_shape(mesh)
+    axes = {AXIS_EXPERT: MeshAxis(mesh, AXIS_EXPERT), AXIS_MODEL: tp}
+    for name, dims in cuts.items():
+        path, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(path)
+        t = getattr(mod, leaf)
+        for axis, dim in zip((AXIS_EXPERT, AXIS_MODEL), dims):
+            if dim is not None and sizes[axis] > 1:
+                a = axes[axis]
+                n = t.shape[dim] // a.size
+                t = t.detach().narrow(dim, a.rank * n, n).clone()
+        _keep(mod, leaf, t)
+    for i, block in enumerate(model.blocks):
+        if hasattr(block, "moe"):
+            moe_axes(block.moe, mesh, cuts, f"blocks.{i}.moe", tp)
 
 
 def _keep(module: nn.Module, name: str, t: torch.Tensor) -> None:
@@ -533,7 +689,7 @@ def shard_serving_model(model: nn.Module, mesh,
         _keep(mod, leaf, tp.block(t, dim) if parts is None or dim
               else tp.parts_block(t, parts))
     for i, block in enumerate(model.blocks):
-        for part in ("attn", "mlp"):
+        for part in _dense_parts(block):
             for name, proj in getattr(block, part).named_children():
                 path = f"blocks.{i}.{part}.{name}"
                 proj.role = (1 if path in layout.rows else
@@ -542,7 +698,9 @@ def shard_serving_model(model: nn.Module, mesh,
         if tp.size > 1:
             block.attn.shard_heads(tp, layout.own_q[i], layout.kv_split,
                                    compact=True)
-            block.mlp.shard(tp, compact=True)
+            if hasattr(block, "mlp"):
+                block.mlp.shard(tp, compact=True)
+    _cut_experts(model, mesh, rules, tp)
     for path in layout.rows:
         model.get_submodule(path).tp = tp
     if "embed" in cuts:

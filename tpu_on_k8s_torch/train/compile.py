@@ -3,7 +3,9 @@
 
 ``train_step_flops`` counts one step's products with
 ``torch.utils.flop_counter.FlopCounterMode``: every dense and batched
-matmul PyTorch runs, and the hand-written kernels, which run as operators
+matmul PyTorch runs (an MoE block's router, dispatch, expert and combine
+products among them, so ``mfu`` divides the work the dense dispatch
+runs), and the hand-written kernels, which run as operators
 with FLOP formulas of their own (``ops/flash_attention.py``: the flash
 forward, dq and dk/dv over the causal pairs; ``ops/int8_matmul.py``: the
 int8 GEMM, and ``torch._int_mm``). The count includes what a remat policy

@@ -2,7 +2,9 @@
 ``tpu_on_k8s/train/trainer.py``.
 
 Next-token cross-entropy on fp32 logits (or chunked, never materialising
-them), packed-window positions, segments and loss masks, gradient
+them), plus ``aux_loss_weight`` times the MoE blocks' load-balance loss
+(every step reports ``"aux_loss"``), packed-window positions, segments and
+loss masks, gradient
 accumulation weighted by counted targets, ``ClipAdamW`` (optax's chain),
 the ``TrainState`` a checkpoint holds and ``Trainer.fit``, which drives
 ``train/loop.py``'s ``TrainLoop``. PyTorch idiom in place of JAX's: the
@@ -146,13 +148,26 @@ def packed_loss_mask(tokens: torch.Tensor, eos_id: int) -> torch.Tensor:
     return (seg[:, :-1] == seg[:, 1:]).float()
 
 
-LossFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+LossFn = Callable[[torch.Tensor],
+                  Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]]
+
+
+def _aux_term(aux: torch.Tensor, aux_loss_weight: float) -> torch.Tensor:
+    """The load-balance loss a step reports: the model's (summed over its
+    MoE blocks) where ``aux_loss_weight`` folds it into the objective, else
+    0, as the reference collects the ``losses`` only then."""
+    if aux_loss_weight:
+        return aux
+    return torch.zeros((), dtype=torch.float32, device=aux.device)
 
 
 def _make_loss_fn(model: Transformer, loss_chunks: int,
-                  segment_eos: Optional[int] = None) -> LossFn:
-    """tokens [B, L+1] → (objective, weight), shared by the train and eval
-    steps. ``weight`` counts the targets the mean covers: gradient
+                  segment_eos: Optional[int] = None,
+                  aux_loss_weight: float = 0.0) -> LossFn:
+    """tokens [B, L+1] → (objective, (aux, weight)), shared by the train
+    and eval steps: the objective is ``ce + aux_loss_weight · aux``, aux
+    the MoE blocks' load-balance loss (0 for a dense model or a weight of
+    0). ``weight`` counts the targets the mean covers: gradient
     accumulation weights microbatch means by it."""
 
     def loss_fn(tokens: torch.Tensor):
@@ -163,95 +178,112 @@ def _make_loss_fn(model: Transformer, loss_chunks: int,
                 inputs, segment_eos)
             loss_mask = packed_loss_mask(tokens, segment_eos)
         if loss_chunks:
-            feats, head = model.features(inputs, positions, segments)
+            feats, head, aux = model.features(inputs, positions, segments,
+                                              with_aux=True)
             ce = chunked_cross_entropy(feats, head, targets, loss_chunks,
                                        mask=loss_mask)
         else:
-            logits = model(inputs, positions, segments=segments)
+            logits, aux = model(inputs, positions, segments=segments,
+                                with_aux=True)
             ce = cross_entropy_loss(logits, targets, mask=loss_mask)
         weight = (loss_mask.sum() if loss_mask is not None
                   else torch.full((), float(inputs.numel()),
                                   device=tokens.device))
-        return ce, weight
+        aux = _aux_term(aux, aux_loss_weight)
+        loss = ce + aux_loss_weight * aux if aux_loss_weight else ce
+        return loss, (aux, weight)
 
     return loss_fn
 
 
 def make_eval_step(model: Transformer, loss_chunks: int = 0,
-                   segment_eos: Optional[int] = None
+                   segment_eos: Optional[int] = None,
+                   aux_loss_weight: float = 0.0
                    ) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
     """Forward-only loss on a [B, L+1] batch, the train step's objective:
-    {"loss", "perplexity"}. No gradients, no state change."""
-    loss_fn = _make_loss_fn(model, loss_chunks, segment_eos)
+    {"loss", "perplexity", "aux_loss"}, the perplexity that of the
+    cross-entropy alone (``exp(loss − aux_loss_weight · aux)``). No
+    gradients, no state change."""
+    loss_fn = _make_loss_fn(model, loss_chunks, segment_eos, aux_loss_weight)
 
     @torch.no_grad()
     def step(tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
-        loss, _ = loss_fn(tokens)
-        return {"loss": loss, "perplexity": torch.exp(loss)}
+        loss, (aux, _) = loss_fn(tokens)
+        return {"loss": loss,
+                "perplexity": torch.exp(loss - aux_loss_weight * aux),
+                "aux_loss": aux}
 
     return step
 
 
-GradsFn = Callable[[torch.Tensor], Tuple[torch.Tensor, List[torch.Tensor]]]
+GradsFn = Callable[[torch.Tensor],
+                   Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor]]
 
 
 def make_grads_fn(model: Transformer, loss_chunks: int = 0,
-                  grad_accum: int = 1, segment_eos: Optional[int] = None
-                  ) -> GradsFn:
+                  grad_accum: int = 1, segment_eos: Optional[int] = None,
+                  aux_loss_weight: float = 0.0) -> GradsFn:
     """The step's forward and backward on a [B, L+1] token batch, without
-    the update: tokens → (loss, one gradient per parameter).
+    the update: tokens → (loss, one gradient per parameter, aux loss). The
+    loss is the objective, ``ce + aux_loss_weight · aux``.
 
     ``grad_accum`` > 1 splits the batch into that many microbatches and sums
     their gradients, each weighted by its counted targets, in fp32, then
     divides by the total weight: the full-batch mean even when packed loss
-    masks count different targets per microbatch."""
-    loss_fn = _make_loss_fn(model, loss_chunks, segment_eos)
+    masks count different targets per microbatch. The aux loss is the
+    microbatches' weighted mean alike."""
+    loss_fn = _make_loss_fn(model, loss_chunks, segment_eos, aux_loss_weight)
     params = list(model.parameters())
 
     def grads_fn(tokens: torch.Tensor):
         if grad_accum <= 1:
-            loss, _ = loss_fn(tokens)
-            return loss, list(torch.autograd.grad(loss, params))
+            loss, (aux, _) = loss_fn(tokens)
+            return (loss, list(torch.autograd.grad(loss, params)),
+                    aux.detach())
         b = tokens.shape[0]
         if b % grad_accum:
             raise ValueError(
                 f"batch {b} not divisible by grad_accum {grad_accum}")
         gsum = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-        lsum = wsum = torch.zeros((), device=tokens.device)
+        lsum = asum = wsum = torch.zeros((), device=tokens.device)
         for mb in tokens.reshape(grad_accum, b // grad_accum, -1):
-            mloss, w = loss_fn(mb)
+            mloss, (aux, w) = loss_fn(mb)
             for s, g in zip(gsum, torch.autograd.grad(mloss, params)):
                 s.add_(w * g.float())
             lsum, wsum = lsum + w * mloss.detach(), wsum + w
+            asum = asum + w * aux.detach()
         wsum = torch.clamp(wsum, min=1.0)
         return lsum / wsum, [(s / wsum).to(p.dtype)
-                             for s, p in zip(gsum, params)]
+                             for s, p in zip(gsum, params)], asum / wsum
 
     return grads_fn
 
 
 def make_train_step(model: Transformer, optimizer: ClipAdamW,
                     loss_chunks: int = 0, grad_accum: int = 1,
-                    segment_eos: Optional[int] = None
+                    segment_eos: Optional[int] = None,
+                    aux_loss_weight: float = 0.0
                     ) -> Callable[[torch.Tensor], Dict[str, object]]:
     """One training step on a [B, L+1] token batch (next-token CE, shifted
-    inside): ``make_grads_fn``'s gradients into each parameter's ``.grad``,
-    then one optimizer step. Returns {"loss", "grad_norm" (before the
+    inside, plus ``aux_loss_weight`` times the MoE load-balance loss):
+    ``make_grads_fn``'s gradients into each parameter's ``.grad``, then one
+    optimizer step. Returns {"loss", "aux_loss", "grad_norm" (before the
     clip)} as 0-d device tensors and "step", the optimizer's count before
     this step."""
-    grads_fn = make_grads_fn(model, loss_chunks, grad_accum, segment_eos)
+    grads_fn = make_grads_fn(model, loss_chunks, grad_accum, segment_eos,
+                             aux_loss_weight)
     params = list(model.parameters())
 
     def step(tokens: torch.Tensor) -> Dict[str, object]:
         count = optimizer.count
-        loss, grads = grads_fn(tokens)
+        loss, grads, aux = grads_fn(tokens)
         for p, g in zip(params, grads):
             p.grad = g
         grad_norm = optimizer.step()
         for p in params:
             p.grad = None
-        return {"loss": loss.detach(), "grad_norm": grad_norm,
-                "step": count}
+        return {"loss": loss.detach(), "aux_loss": aux,
+                "grad_norm": grad_norm, "step": count}
 
     return step
 
@@ -312,30 +344,41 @@ def _rank_rows(tokens: torch.Tensor, segment_eos: Optional[int],
 
 
 def _nll_sum(model: Transformer, rows: _Rows, loss_chunks: int
-             ) -> torch.Tensor:
-    """Σ over this rank's counted targets of the next-token loss."""
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Σ over this rank's counted targets of the next-token loss, the
+    model's load-balance loss: the global batch's on a laid-out MoE
+    model)."""
     inputs, targets = rows.inputs, rows.targets
     positions, segments, mask = rows.positions, rows.segments, rows.mask
     if loss_chunks:
-        feats, head = model.features(inputs, positions, segments)
-        return _chunked_nll_sum(feats, head, targets, loss_chunks, mask)[0]
-    nll = _nll(model(inputs, positions, segments=segments), targets)
-    return (nll * mask).sum() if mask is not None else nll.sum()
+        feats, head, aux = model.features(inputs, positions, segments,
+                                          with_aux=True)
+        return (_chunked_nll_sum(feats, head, targets, loss_chunks,
+                                 mask)[0], aux)
+    logits, aux = model(inputs, positions, segments=segments, with_aux=True)
+    nll = _nll(logits, targets)
+    return (nll * mask).sum() if mask is not None else nll.sum(), aux
 
 
 def make_sharded_grads_fn(model: Transformer, mesh, loss_chunks: int = 0,
                           grad_accum: int = 1,
-                          segment_eos: Optional[int] = None
+                          segment_eos: Optional[int] = None,
+                          aux_loss_weight: float = 0.0
                           ) -> Callable[[torch.Tensor],
-                                        Tuple[torch.Tensor, torch.Tensor]]:
+                                        Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]]:
     """The sharded step's forward and backward, without the update: this
     rank's rows ``[b, L+1]`` → (the global batch's summed loss on this
-    rank's rows and chunk, the global count of targets), each parameter's
-    ``.grad`` the gradient of the global mean (summed by FSDP2 over the
-    data-parallel ranks, then over ``seq``). Each microbatch's loss is its
-    rows' summed loss over the global count of targets (all microbatches,
-    all ranks), so the backward passes added up over the microbatches give
-    the gradient of the global mean."""
+    rank's rows and chunk, the global count of targets, the aux loss), each
+    parameter's ``.grad`` the gradient of the global objective (summed by
+    FSDP2 over the data-parallel ranks, then over ``seq``). Each
+    microbatch's loss is its rows' summed loss over the global count of
+    targets (all microbatches, all ranks), so the backward passes added up
+    over the microbatches give the gradient of the global mean. The
+    load-balance loss (the global batch's on every rank: ``moe.MoEMLP.dp``)
+    enters each rank's objective once, weighted by its microbatch's share
+    of the targets: its statistics' sum over the ranks has an identity
+    backward, so FSDP2's sum over the ranks makes its whole gradient."""
     def grads(tokens: torch.Tensor):
         b = tokens.shape[0]
         if b % grad_accum:
@@ -343,22 +386,30 @@ def make_sharded_grads_fn(model: Transformer, mesh, loss_chunks: int = 0,
                 f"batch {b} not divisible by grad_accum {grad_accum}")
         micro = tokens.reshape(grad_accum, b // grad_accum, -1)
         prepared = [_rank_rows(mb, segment_eos, mesh) for mb in micro]
-        total = _dp_sum(sum(rows.count for rows in prepared), mesh)
-        denom = torch.clamp(total, min=1.0)
-        lsum = torch.zeros((), device=tokens.device)
-        for rows in prepared:
-            part = _nll_sum(model, rows, loss_chunks)
-            (part / denom).backward()
+        counts = _dp_sum(torch.stack([rows.count for rows in prepared]),
+                         mesh)
+        denom = torch.clamp(counts.sum(), min=1.0)
+        lsum = asum = torch.zeros((), device=tokens.device)
+        for rows, weight in zip(prepared, counts):
+            part, aux = _nll_sum(model, rows, loss_chunks)
+            objective = part / denom
+            aux = _aux_term(aux, aux_loss_weight)
+            if aux_loss_weight:
+                objective = objective + aux_loss_weight * aux * (
+                    weight / denom)
+            objective.backward()
             lsum = lsum + part.detach()
+            asum = asum + aux.detach() * weight
         sum_grads_over_seq(model, mesh)
-        return lsum, denom
+        return lsum, denom, asum / denom
 
     return grads
 
 
 def make_sharded_train_step(model: Transformer, optimizer: ClipAdamW,
                             mesh, loss_chunks: int = 0, grad_accum: int = 1,
-                            segment_eos: Optional[int] = None
+                            segment_eos: Optional[int] = None,
+                            aux_loss_weight: float = 0.0
                             ) -> Callable[[torch.Tensor],
                                           Dict[str, object]]:
     """``make_train_step`` for a model laid out on ``mesh``: this rank's
@@ -366,37 +417,46 @@ def make_sharded_train_step(model: Transformer, optimizer: ClipAdamW,
     global batch: ``make_sharded_grads_fn``'s gradients, then one
     optimizer step."""
     grads = make_sharded_grads_fn(model, mesh, loss_chunks, grad_accum,
-                                  segment_eos)
+                                  segment_eos, aux_loss_weight)
 
     def step(tokens: torch.Tensor) -> Dict[str, object]:
         count = optimizer.count
-        lsum, denom = grads(tokens)
+        lsum, denom, aux = grads(tokens)
         grad_norm = optimizer.step()
         optimizer.zero_grad(set_to_none=True)
         loss = _dp_sum(lsum, mesh) / denom
-        return {"loss": loss, "grad_norm": grad_norm, "step": count}
+        if aux_loss_weight:
+            loss = loss + aux_loss_weight * aux
+        return {"loss": loss, "aux_loss": aux, "grad_norm": grad_norm,
+                "step": count}
 
     return step
 
 
 def make_sharded_eval_step(model: Transformer, mesh, loss_chunks: int = 0,
-                           segment_eos: Optional[int] = None
+                           segment_eos: Optional[int] = None,
+                           aux_loss_weight: float = 0.0
                            ) -> Callable[[torch.Tensor],
                                          Dict[str, torch.Tensor]]:
-    """``make_eval_step`` on this rank's rows: the global mean's loss and
-    perplexity. FSDP2 keeps the root's gathered parameters after a forward
-    until the backward frees them; with no backward the step reshards
-    them itself, so the model's parameters are again the optimizer's."""
+    """``make_eval_step`` on this rank's rows: the global objective's loss,
+    the perplexity of its cross-entropy and the aux loss. FSDP2 keeps the
+    root's gathered parameters after a forward until the backward frees
+    them; with no backward the step reshards them itself, so the model's
+    parameters are again the optimizer's."""
     @torch.no_grad()
     def step(tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
         rows = _rank_rows(tokens, segment_eos, mesh)
         try:
-            part = _nll_sum(model, rows, loss_chunks)
+            part, aux = _nll_sum(model, rows, loss_chunks)
         finally:
             model.reshard()
-        loss = (_dp_sum(part, mesh)
-                / torch.clamp(_dp_sum(rows.count, mesh), min=1.0))
-        return {"loss": loss, "perplexity": torch.exp(loss)}
+        aux = _aux_term(aux, aux_loss_weight)
+        ce = (_dp_sum(part, mesh)
+              / torch.clamp(_dp_sum(rows.count, mesh), min=1.0))
+        loss = ce + aux_loss_weight * aux if aux_loss_weight else ce
+        return {"loss": loss,
+                "perplexity": torch.exp(loss - aux_loss_weight * aux),
+                "aux_loss": aux}
 
     return step
 
@@ -515,13 +575,18 @@ class Trainer:
     mesh (``parallel/sharded.py``; a model laid out there already, e.g. a
     restored template, is taken as it is) and a fresh optimizer is pointed
     at its new parameters; the steps then take this rank's rows
-    (``shard_batch``). Without a mesh nothing changes."""
+    (``shard_batch``). Without a mesh nothing changes.
+
+    ``aux_loss_weight`` folds the MoE blocks' load-balance loss into the
+    objective (``ce + aux_loss_weight · aux``), as the reference's; every
+    step's metrics carry ``"aux_loss"`` (0 for a dense model or a weight
+    of 0)."""
 
     def __init__(self, model: Transformer,
                  optimizer: Optional[ClipAdamW] = None,
                  loss_chunks: int = 0, grad_accum: int = 1,
                  segment_eos: Optional[int] = None, *,
-                 rules=None, mesh=None):
+                 rules=None, mesh=None, aux_loss_weight: float = 0.0):
         self.model = model
         self.mesh = mesh
         if mesh is None:
@@ -531,10 +596,12 @@ class Trainer:
             self.optimizer = optimizer or default_optimizer(
                 model.parameters())
             self._grads = make_grads_fn(model, loss_chunks, grad_accum,
-                                        segment_eos)
+                                        segment_eos, aux_loss_weight)
             self._step = make_train_step(model, self.optimizer, loss_chunks,
-                                         grad_accum, segment_eos)
-            self._eval = make_eval_step(model, loss_chunks, segment_eos)
+                                         grad_accum, segment_eos,
+                                         aux_loss_weight)
+            self._eval = make_eval_step(model, loss_chunks, segment_eos,
+                                        aux_loss_weight)
             return
         from tpu_on_k8s_torch.models.transformer import (
             flagship_partition_rules,
@@ -554,12 +621,13 @@ class Trainer:
         optimizer.mesh = mesh
         self.optimizer = optimizer
         self._grads = make_sharded_grads_fn(model, mesh, loss_chunks,
-                                            grad_accum, segment_eos)
+                                            grad_accum, segment_eos,
+                                            aux_loss_weight)
         self._step = make_sharded_train_step(model, optimizer, mesh,
                                              loss_chunks, grad_accum,
-                                             segment_eos)
+                                             segment_eos, aux_loss_weight)
         self._eval = make_sharded_eval_step(model, mesh, loss_chunks,
-                                            segment_eos)
+                                            segment_eos, aux_loss_weight)
 
     def shard_batch(self, tokens: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a batch every rank holds in full (the

@@ -18,9 +18,12 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    backward kernels (dq, dk/dv) within stated tolerances, all three also
    at the Hopper kernels' tile edges (L 63-65, 127-129, 255, 2047; D 64
    and 128; GQA rep 1, 2, 4; valid_len 129; segments crossing a 128-row
-   tile) and launched twice on the same inputs, which must agree bit for
-   bit; the flash kernels at head dims 16, 32, 80 and 96 (zero-padded to
-   64 or 128 in the wrappers), forward and backward; the int8 GEMM (also
+   tile; and all of it at D 256, whose forward and dk/dv tiles hold 64
+   keys) and launched twice on the same inputs, which must agree bit for
+   bit; the kernels at head dim 256 (google/gemma-7b's 16 heads x 256) in
+   bf16 and fp32, causal, with valid_len, segments and GQA; the flash
+   kernels at head dims 16, 32, 80, 96 and 192 (zero-padded to 64, 128 or
+   256 in the wrappers), forward and backward; the int8 GEMM (also
    against ``torch._int_mm``) at the training shapes and at its tile edges
    (M 1-8192, N 129/257, K 16-2064, and a K that takes the byte-wise
    path); the ``torch._int_mm`` route at M 1, 16 and 17, K 40, N 129
@@ -191,6 +194,17 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    its epilogue, ``torch.mul``) as the kernels are timed, 20 calls in a
    CUDA graph (``time_ms``), SDPA's backward through autograd captured on
    the stream its forward ran on (``sdpa_backward``);
+5b. head dim 256 (``phase 5b`` is timed): (a) the three kernels at
+   google/gemma-7b's attention width (B 4, H 16, L 2048, D 256, causal)
+   against their plain twins and timed beside them, SDPA and their bound
+   (the JSON's ``d256``); (b) a model made here at that head dim
+   (llama2_7b's widths over 16 heads, 2 layers, seeded random weights):
+   ``generate`` 2 x 512 -> 16 with one flash forward a layer, its prefill
+   logits within ``LOGITS_NOISE_MULT`` of the plain-attention bf16
+   model's distance from the fp32 model; (c) one forward and backward on
+   2 x 1024 tokens, each kernel launched once a layer, every gradient
+   within ``GRAD_NOISE_MULT`` of the plain bf16 model's distance from fp32
+   (phase 4's gate);
 6. the GPT-2 family at ``gpt2_small`` width (12 layers, d_model 768, 12
    heads of 64, d_ff 3072, vocab 50257, 1024 learned positions, LayerNorm,
    tanh-GELU, tied head): (a) a biased tree from seed 0 exported with
@@ -295,7 +309,15 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    (non-causal, padding segments, D 64) against their plain twins, twice
    launched bit for bit, and timed beside their plain twins, SDPA with
    the equivalent boolean mask and their bound over the data's kept
-   pairs (the JSON's ``bert_padded_d64``);
+   pairs (the JSON's ``bert_padded_d64``); (e) the three kernels at a
+   rank's heads over a model axis of 2 and 4 (H 6 and 3 of 12, laid out
+   as a rank's projections make them, the same shape and segments)
+   against their plain twins, the backward twice launched bit for bit;
+   BERT-base (flash, the padding mask) on a world-1 NCCL mesh
+   ``MeshConfig(model=1, seq=1)`` through ``Bert.tensor_parallel`` and
+   ``split_sequence`` (which ``shard_model`` calls only over an axis > 1):
+   logits within (d)'s bf16 noise and gradients within (d)'s xla distance
+   of the meshless model's, 12 launches of each kernel;
 11. sequence and pipeline parallelism (after phase 10; ``phase 11`` is
    timed). The card is one, so the ``seq`` and ``stage`` axes run at world
    1 and the ring's and Ulysses's per-rank bodies run over virtual chunks:
@@ -360,7 +382,12 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    ``moe_expert``); (d) world-1 NCCL meshes: ``MeshConfig(expert=1)``
    training one step equal to the meshless step bit for bit, and the
    engine on ``serving_mesh(1, 1, 1)`` equal to the meshless engine token
-   for token.
+   for token; (e) one step on ``MeshConfig(seq=1)`` through
+   ``Transformer.split_sequence`` (the seq-aware route, its slot counts
+   all-gathered each round; attention gathered over ``seq``) equal to the
+   meshless step bit for bit. The sums over a ``seq`` axis > 1 are held
+   on the CPU over gloo (``tests/test_torch_moe.py``,
+   ``tests/test_torch_vision_mesh.py``).
 
 Then one JSON line for the kernels, the card's line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -556,6 +583,14 @@ MOE_MESH_REQUESTS = 4
 MOE_TAU_MULT, MOE_EXACT_MIN, MOE_CONTROL_SHARE = 0.9, 0.7, 0.5
 SEQ_STEPS = 2
 PIPE_SHAPE, PIPE_SEED = (2, 2048, 2), 14
+# Phase 5b, head dim 256: the kernels timed at google/gemma-7b's attention
+# width (B, H, L, D, causal; its config's 16 heads x head_dim 256), and a
+# model at that head dim made here (llama2_7b's widths at d_model 4096 over
+# 16 heads, D_256_LAYERS layers, seeded random weights): generate on a
+# (batch, prompt) prompt for D_256_NEW tokens, and the gradient gate on
+# (batch, seq) tokens.
+D_256_SHAPE, D_256_SEED, D_256_LAYERS = (4, 16, 2048, 256, True), 15, 2
+D_256_PROMPT, D_256_NEW, D_256_BATCH = (2, 512), 16, (2, 1024)
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
 # Phase 4c: the loop's steps (12 distinct batches from this numpy seed)
@@ -600,24 +635,25 @@ DEQUANT_CASES = [(5632, 2048, torch.float32), (32000, 2048, torch.float32),
                  (333, 1001, torch.float32), (500, 1, torch.float32),
                  (333, 3, torch.bfloat16), (333, 17, torch.float16),
                  (2048, 32000, torch.bfloat16), (2048, 32000, torch.float16)]
-# Head dims the flash kernels are not built for (zero-padded to 64 or 128
-# in the wrappers), forward and backward, causal, GQA rep 2:
+# Head dims the flash kernels are not built for (zero-padded to 64, 128 or
+# 256 in the wrappers), forward and backward, causal, GQA rep 2:
 # (d, l) with 4 q-heads on 2 kv heads, batch 1
-HEAD_DIM_CASES = [(d, l) for d in (16, 32, 80, 96) for l in (129, 2047)]
+HEAD_DIM_CASES = [(d, l) for d in (16, 32, 80, 96, 192) for l in (129, 2047)]
 # The int8_impl="xla" route (torch._int_mm, zero-padded to the shapes it
 # takes on the card) at decode's M and ragged K, N: (m, n, k)
 INT_MM_CASES = [(m, 129, 40) for m in (1, 16, 17)]
 # The bf16 flash kernels at their tile edges (128-row query tiles and K/V
-# tiles of 128 keys in the forward; 128-row query tiles and 64-key tiles in
-# dq; 128-key tiles and 64-row query tiles in dk/dv), with 4 q-heads on 4, 2
-# and 1 kv heads: (h, hkv, l, d, causal, valid_len, segments), batch 1;
-# "tile" segments are cut at rows 120 and 136, across the 128-row boundary.
-EDGE_CASES = ([(4, hkv, l, d, True, 0, None) for d in (64, 128)
+# tiles of 128 keys in the forward, 64 at D 256; 128-row query tiles and
+# 64-key tiles in dq; 128-key tiles, 64 at D 256, and 64-row query tiles in
+# dk/dv), with 4 q-heads on 4, 2 and 1 kv heads: (h, hkv, l, d, causal,
+# valid_len, segments), batch 1; "tile" segments are cut at rows 120 and
+# 136, across the 128-row boundary.
+EDGE_CASES = ([(4, hkv, l, d, True, 0, None) for d in (64, 128, 256)
                for l in (63, 64, 65, 127, 128, 129, 255, 2047)
                for hkv in (4, 2, 1)]
-              + [(4, 1, 255, d, True, 129, None) for d in (64, 128)]
-              + [(4, 2, 255, d, True, 0, "tile") for d in (64, 128)]
-              + [(4, 4, 300, d, False, 0, "tile") for d in (64, 128)])
+              + [(4, 1, 255, d, True, 129, None) for d in (64, 128, 256)]
+              + [(4, 2, 255, d, True, 0, "tile") for d in (64, 128, 256)]
+              + [(4, 4, 300, d, False, 0, "tile") for d in (64, 128, 256)])
 # The int8 GEMM at its tile edges (128 x 256 output tiles, 128-byte K
 # tiles), fp32 and bf16 out: (m, n, k, out); K 40 takes the byte-wise path.
 INT8_EDGE_CASES = ([(m, n, k, out) for m in (1, 127, 129, 8192)
@@ -5115,7 +5151,103 @@ def vision_bert_phase(mods, gpu, dev, tmp, fa) -> dict:
               f"{b * l * l:,}), {r['bound_ms'] / r['ms']:.1%} of bound")
     print(f"[time] {gpu}: (the forward's bound over all {b * l * l:,} "
           f"pairs a head would be {full:.4f} ms)")
+
+    # ---- (e) the model and seq axes --------------------------------------
+    # the kernels at a rank's heads over a model axis of 2 and 4 (6 and 3
+    # of BERT-base's 12), laid out as a rank's projections make them
+    for heads in (h // 2, h // 4):
+        hq, hk, hv, hdo = (t.transpose(1, 2)[:, :, :heads].contiguous()
+                           .transpose(1, 2) for t in (q, k, v, do))
+        ho, hlse = fa.flash_with_lse_fwd(hq, hk, hv, False, 0, seg)
+        hpo, hplse = fa.flash_attention_plain(hq, hk, hv, False, 0, seg)
+        hdelta = (hdo.float() * ho.float()).sum(-1)[:, :, None, :]
+        got = (fa.flash_bwd_dq(hq, hk, hv, hdo, hlse, hdelta, False, 0, seg),
+               *fa.flash_bwd_dkv(hq, hk, hv, hdo, hlse, hdelta, False, 0,
+                                 seg))
+        again = (fa.flash_bwd_dq(hq, hk, hv, hdo, hlse, hdelta, False, 0,
+                                 seg),
+                 *fa.flash_bwd_dkv(hq, hk, hv, hdo, hlse, hdelta, False, 0,
+                                   seg))
+        want = (fa.flash_bwd_dq_plain(hq, hk, hv, hdo, hlse, hdelta, False,
+                                      0, seg),
+                *fa.flash_bwd_dkv_plain(hq, hk, hv, hdo, hlse, hdelta, False,
+                                        0, seg))
+        torch.cuda.synchronize()
+        herr_o = (ho.float() - hpo.float()).abs().max().item()
+        herr_lse = (hlse - hplse).abs().max().item()
+        hrels = [rel_err(a, w) for a, w in zip(got, want)]
+        hsame = all(map(torch.equal, got, again))
+        print(f"[kernel] (e) a rank's heads, B={b} H={heads} L={l} D={d} "
+              f"bf16 non-causal, padding segments (bert_base over a model "
+              f"axis of {h // heads}): max|o-plain| {herr_o:.3e} "
+              f"max|lse-plain| {herr_lse:.3e}, rel dq {hrels[0]:.2e} dk "
+              f"{hrels[1]:.2e} dv {hrels[2]:.2e}; two launches of the "
+              f"backward bit-identical: {hsame}")
+        if (herr_o > tol_o or herr_lse > tol_lse or not hsame
+                or max(hrels) > BWD_REL_TOL[torch.bfloat16]):
+            fail(f"the flash kernels at a rank's {heads} heads of BERT")
+        del hq, hk, hv, hdo, ho, hlse, hpo, hplse, got, again, want
     del q, k, v, do, o, lse, o2, lse2, po, plse, dq, dq2, dk, dv, dk2, dv2
+    torch.cuda.empty_cache()
+    # the encoder's tensor parallelism and split sequence on a world-1
+    # mesh: model and seq axes of one rank, laid out by the code that runs
+    # them over more (shard_model calls it only for an axis over 1)
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from tpu_on_k8s_torch.parallel.mesh import (
+        AXIS_MODEL,
+        MeshConfig,
+        create_mesh,
+    )
+    from tpu_on_k8s_torch.train.distributed import initialize
+
+    initialize({"RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+                "MASTER_PORT": str(free_port())}, device=dev)
+    mesh = create_mesh(MeshConfig(model=1, seq=1), device=dev)
+    masters = bert.init_params(cfg, gen.manual_seed(BERT_SEED))
+
+    def logits_and_grads(model, **kw):
+        out = model(tokens, None, mask, **kw)
+        g = torch.autograd.grad(bert.mlm_loss(out, tokens, mlm),
+                                list(model.parameters()))
+        return out.detach(), {
+            name: (t.full_tensor() if isinstance(t, DTensor) else t).float()
+            for (name, _), t in zip(model.named_parameters(), g)}
+
+    base_logits, base_grads = logits_and_grads(model_of("flash"))
+    laid = model_of("flash")
+    laid.tensor_parallel(mesh[AXIS_MODEL])
+    laid.split_sequence(mesh)
+    reset_counts(mods)
+    mesh_logits, mesh_grads = logits_and_grads(laid, seq_chunk=True)
+    torch.cuda.synchronize()
+    paths["bert_model_seq_mesh"] = launched = read_counts(mods)
+    logit_diff = (mesh_logits - base_logits)[real].abs().max().item()
+    grad_dist = math.sqrt(sum(
+        (mesh_grads[k] - base_grads[k]).norm().item() ** 2
+        for k in base_grads)) / math.sqrt(sum(
+            g.norm().item() ** 2 for g in base_grads.values()))
+    same = torch.equal(mesh_logits, base_logits) and all(
+        torch.equal(mesh_grads[k], base_grads[k]) for k in base_grads)
+    print(f"[vision] (e) bert_base flash, padding mask, {b} x {l}, on a "
+          f"world-1 {dist.get_backend()} mesh MeshConfig(model=1, seq=1) "
+          f"through Bert.tensor_parallel and split_sequence (column and row "
+          f"parallel projections, the gathered mlm_transform, the "
+          f"vocab-split embed, attention gathered over seq): real-position "
+          f"logits max|mesh - meshless| {logit_diff:.3e} (limit: (d)'s bf16 "
+          f"noise {dist_p:.3e}); gradients as one vector "
+          f"||mesh - meshless|| / ||meshless|| {grad_dist:.3e} (limit: (d)'s "
+          f"xla bf16 distance {whole['xla']:.3e}); bit for bit: {same}; "
+          f"launches {launched}")
+    if (logit_diff > dist_p or grad_dist > whole["xla"]
+            or [launched[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                      "flash_bwd_dkv")] != [n, n, n]):
+        fail("BERT laid out on a world-1 model and seq mesh differs from "
+             "the meshless model")
+    dist.destroy_process_group()
+    del laid, masters, base_grads, mesh_grads, base_logits, mesh_logits
+    gc.collect()
     torch.cuda.empty_cache()
     print(f"[time] phase 10 {time.perf_counter() - t_phase:.1f} s")
     return {"paths": paths, "bert_padded": rows, "resnet": resnet}
@@ -5517,8 +5649,8 @@ def moe_routing_recorder(moe, store: list):
     experts ``[B, L, k]`` in ``store``."""
     route = moe.route
 
-    def recording(x, router, k, cap):
-        out = route(x, router, k, cap)
+    def recording(x, router, k, cap, seq=None):
+        out = route(x, router, k, cap, seq)
         store.append(out.probs.topk(k, dim=-1).indices)
         return out
 
@@ -5632,8 +5764,8 @@ def moe_phase(tokens, mods, gpu, dev, fa) -> dict:
     del engine
     orig_route = moe.route
 
-    def second_dropped(x, router, k_, cap):
-        return orig_route(x, router, 1, cap)
+    def second_dropped(x, router, k_, cap, seq=None):
+        return orig_route(x, router, 1, cap, seq)
 
     control_engine = serving.ContinuousBatchingEngine(cfg, params, **shape)
     with mock.patch.object(moe, "route", second_dropped):
@@ -5723,10 +5855,10 @@ def moe_phase(tokens, mods, gpu, dev, fa) -> dict:
                     for i, blk in enumerate(model.blocks)}
         route = moe.route
 
-        def pinned(x, router, k_, cap):
+        def pinned(x, router, k_, cap, seq=None):
             i = layer_of[router.data_ptr()]
             if record:
-                out = route(x, router, k_, cap)
+                out = route(x, router, k_, cap, seq)
                 masks.setdefault(i, out.dispatch.bool())
                 return out
             mask = masks[i]
@@ -5810,9 +5942,13 @@ def moe_phase(tokens, mods, gpu, dev, fa) -> dict:
 
     opt_kw = dict(warmup_steps=10, decay_steps=11)
 
-    def one_step(model_cfg, mesh=None):
+    def one_step(model_cfg, mesh=None, split=False):
         model = load_model(model_cfg, {n: t.clone() for n, t in
                                        tparams.items()}, dev)
+        if split:
+            # the seq axis's code paths, which shard_model runs only over
+            # an axis > 1: the seq-aware route, attention gathered over it
+            model.split_sequence(mesh)
         trainer = Trainer(model, default_optimizer(model.parameters(),
                                                    **opt_kw),
                           rules=(None if mesh is None else
@@ -5867,6 +6003,19 @@ def moe_phase(tokens, mods, gpu, dev, fa) -> dict:
     if meshed != base or not same_w:
         fail("the MoE step on a mesh of one rank differs from the meshless "
              "step")
+    # ---- (e) a seq axis of one rank: the seq-aware route -----------------
+    seq_mesh = create_mesh(MeshConfig(seq=1), device=dev)
+    seqd, launched_s, _, seq_w = one_step(tcfg, seq_mesh, split=True)
+    paths["moe_train_seq"] = launched_s
+    same_s = all(torch.equal(seq_w[name], w) for name, w in base_w.items())
+    print(f"[moe] (e) one step on MeshConfig(seq=1) through "
+          f"Transformer.split_sequence (the seq-aware route, its slot "
+          f"counts all-gathered over seq each round; attention gathered "
+          f"over seq): {seqd}; equal to the meshless step bit for bit: "
+          f"metrics {seqd == base}, weights {same_s}; launches {launched_s}")
+    if seqd != base or not same_s:
+        fail("the MoE step on a seq axis of one rank differs from the "
+             "meshless step")
     dist.destroy_process_group()
     del tparams, base_w, mesh_w
     gc.collect()
@@ -5903,6 +6052,199 @@ def moe_phase(tokens, mods, gpu, dev, fa) -> dict:
         "shape": f"M={m_rows} N={n_cols} K={k_in} bf16 out",
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": by, "library_ms": lib_ms, "max_abs_err": err}}
+
+
+def head_dim_256_phase(mods, gpu, dev, fa, transformer, decode,
+                        trainer_mod, init_params, load_model) -> dict:
+    """Phase 5b: head dim 256. (a) the three kernels at google/gemma-7b's
+    attention width (``D_256_SHAPE``) against their plain twins and timed
+    beside them, SDPA (the forward; the backward through autograd in a
+    graph) and their bound (the JSON's ``d256``); (b) a model of head dim
+    256 (``D_256_LAYERS`` layers of d_model 4096 over 16 heads): generate,
+    its flash forward launched once a layer per prefill, its prefill logits
+    held by phase 3's noise-floor rule; (c) one forward and backward by
+    phase 4's gradient gate, each kernel launched once a layer. Returns the
+    launches of its paths and the kernels' rows."""
+    t_phase = time.perf_counter()
+    b, h, l, d, causal = D_256_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(D_256_SEED)
+    q, k, v, do = (torch.randn(b, h, l, d, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_with_lse_fwd(q, k, v, causal)
+    po, plse = fa.flash_attention_plain(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
+    grads = (fa.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+             *fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal))
+    plain = (fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal),
+             *fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal))
+    torch.cuda.synchronize()
+    tol_o, tol_lse = TOL[torch.bfloat16]
+    err_o = (o.float() - po.float()).abs().max().item()
+    err_lse = (lse - plse).abs().max().item()
+    errs = [(a.float() - w.float()).abs().max().item()
+            for a, w in zip(grads, plain)]
+    rels = [e / w.float().abs().max().item() for e, w in zip(errs, plain)]
+    shape = (f"B={b} H={h} L={l} D={d} bf16 "
+             f"{'causal' if causal else 'non-causal'} (gemma-7b's heads)")
+    print(f"[d256] (a) {shape}: max|o-plain| {err_o:.3e} (tol {tol_o:g}) "
+          f"max|lse-plain| {err_lse:.3e} (tol {tol_lse:g}); rel dq "
+          f"{rels[0]:.2e} dk {rels[1]:.2e} dv {rels[2]:.2e} (tol rel "
+          f"{BWD_REL_TOL[torch.bfloat16]:g})")
+    if (err_o > tol_o or err_lse > tol_lse
+            or max(rels) > BWD_REL_TOL[torch.bfloat16]):
+        fail(f"the D 256 kernels disagree with their plain twins: {shape}")
+    del po, plse, plain
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fn, stream = sdpa_backward(q, k, v, do, is_causal=causal)
+    sdpa_bwd = time_ms(fn, stream=stream)
+    rows = {
+        "flash_fwd": dict(
+            ms=time_ms(lambda: fa.flash_with_lse_fwd(q, k, v, causal)),
+            plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                              causal)),
+            library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=causal)),
+            max_abs_err=err_o,
+            **dict(zip(("bound_ms", "bound_by"),
+                       flash_bound_ms(b, h, h, l, d, causal)))),
+        "flash_bwd_dq": dict(
+            ms=time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                               causal)),
+            plain_ms=time_ms(lambda: fa.flash_bwd_dq_plain(
+                q, k, v, do, lse, delta, causal)),
+            library_ms=sdpa_bwd, max_abs_err=errs[0],
+            **dict(zip(("bound_ms", "bound_by"),
+                       dq_bound_ms(b, h, h, l, d, causal)))),
+        "flash_bwd_dkv": dict(
+            ms=time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                causal)),
+            plain_ms=time_ms(lambda: fa.flash_bwd_dkv_plain(
+                q, k, v, do, lse, delta, causal)),
+            library_ms=sdpa_bwd, max_abs_err=max(errs[1:]),
+            **dict(zip(("bound_ms", "bound_by"),
+                       dkv_bound_ms(b, h, h, l, d, causal)))),
+    }
+    for name, r in rows.items():
+        r["shape"] = shape
+        print(f"[time] {gpu}: {name} {shape}: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, sdpa "
+              f"{'forward' if name == 'flash_fwd' else 'backward (dq, dk, dv together)'}"
+              f" {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of bound, "
+              f"{r['library_ms'] / r['ms']:.2f} x sdpa's speed")
+    del q, k, v, do, o, lse, delta, grads, fn
+    torch.cuda.empty_cache()
+
+    # ---- (b) a model at head dim 256: generate ---------------------------
+    paths = {}
+    cfg = dataclasses.replace(transformer.TransformerConfig.llama2_7b(),
+                              n_layers=D_256_LAYERS, n_heads=16,
+                              n_kv_heads=16)
+    n = cfg.n_layers
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        D_256_SEED), dev)
+    prompt = torch.randint(0, cfg.vocab_size, D_256_PROMPT, generator=gen,
+                           device=dev, dtype=torch.int32)
+    reset_counts(mods)
+    tokens = decode.generate(cfg, params, prompt, D_256_NEW)
+    torch.cuda.synchronize()
+    paths["d256_generate"] = launched = read_counts(mods)
+    print(f"[d256] (b) {n} layers d_model {cfg.d_model} heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} head_dim {cfg.head_dim}: "
+          f"generate {tuple(prompt.shape)} -> {D_256_NEW} tokens, row 0 "
+          f"{tokens[0, :8].tolist()} ...; launches {launched}")
+    if (launched["flash_fwd"], launched["flash_bwd_dq"],
+            launched["flash_bwd_dkv"]) != (n, 0, 0) or tuple(
+                tokens.shape) != (D_256_PROMPT[0], D_256_NEW) or int(
+                    tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
+        fail(f"generate at head dim 256: tokens {tuple(tokens.shape)}, "
+             f"launches {launched}; expected {n} flash_fwd")
+
+    def plain_flash(q, k, v, causal=True, segments=None):
+        o, _ = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                        v.transpose(1, 2), causal, 0, segments)
+        return o.transpose(1, 2)
+
+    def prefill_logits(model_cfg, model_params):
+        model = decode.decode_model(model_cfg, model_params, dev)
+        with torch.inference_mode():
+            return model(prompt, None, decode.init_cache(
+                model, D_256_PROMPT[0]))
+
+    logits_kernel = prefill_logits(cfg, params)
+    with mock.patch.object(transformer, "flash_attention", plain_flash):
+        logits_plain = prefill_logits(cfg, params)
+        logits_f32 = prefill_logits(
+            dataclasses.replace(cfg, dtype=torch.float32),
+            {name: p.float() for name, p in params.items()})
+    noise = (logits_plain - logits_f32).abs().max().item()
+    kernel_noise = (logits_kernel - logits_f32).abs().max().item()
+    print(f"[d256] (b) prefill logits: max|kernel bf16 - fp32 model| "
+          f"{kernel_noise:.3e} (tol {LOGITS_NOISE_MULT:g} x max|plain bf16 "
+          f"- fp32 model| {noise:.3e})")
+    if not bool(torch.isfinite(logits_kernel).all()) or (
+            kernel_noise > LOGITS_NOISE_MULT * noise):
+        fail("the head-dim-256 prefill logits stray further from the fp32 "
+             "model than bf16 rounding explains")
+    del logits_kernel, logits_plain, logits_f32
+    torch.cuda.empty_cache()
+
+    # ---- (c) one forward and backward: the gradient gate -----------------
+    batch = torch.randint(0, cfg.vocab_size, (D_256_BATCH[0],
+                                              D_256_BATCH[1] + 1),
+                          generator=gen, device=dev, dtype=torch.int32)
+    tcfg = dataclasses.replace(cfg, attn_impl="flash", remat=False)
+    masters = {name: t.float() for name, t in params.items()}
+    del params
+
+    def plain_bhld(q, k, v, causal=True, valid_len=0, segments=None):
+        return fa.flash_attention_plain(q, k, v, causal, valid_len,
+                                        segments)[0]
+
+    def first_grads(model_cfg, plain_attn):
+        model = load_model(model_cfg, masters, dev)
+        loss_fn = trainer_mod._make_loss_fn(model, 0, None)
+        patch = (mock.patch.object(transformer, "flash_attention_bhld",
+                                   plain_bhld) if plain_attn
+                 else nullcontext())
+        with patch:
+            loss, _ = loss_fn(batch)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+        names = [name for name, _ in model.named_parameters()]
+        out = dict(zip(names, (g.float() for g in grads)))
+        del model
+        return loss.item(), out
+
+    reset_counts(mods)
+    loss_k, grads_k = first_grads(tcfg, False)
+    torch.cuda.synchronize()
+    paths["d256_train"] = launched = read_counts(mods)
+    loss_p, grads_p = first_grads(tcfg, True)
+    loss_32, grads_32 = first_grads(
+        dataclasses.replace(tcfg, dtype=torch.float32), True)
+    ratios = {name: ((grads_k[name] - grads_32[name]).norm()
+                     / (grads_p[name] - grads_32[name]).norm()).item()
+              for name in grads_32}
+    worst = max(ratios, key=ratios.get)
+    print(f"[d256] (c) one forward and backward, batch "
+          f"{D_256_BATCH[0]} x {D_256_BATCH[1]}: loss kernel {loss_k:.6f} "
+          f"plain {loss_p:.6f} fp32 {loss_32:.6f}; gradient gate, "
+          f"{len(ratios)} tensors, ||g - g_fp32|| kernel / plain median "
+          f"{statistics.median(ratios.values()):.3f}, max "
+          f"{ratios[worst]:.3f} at {worst} (limit {GRAD_NOISE_MULT:g}); "
+          f"launches {launched}")
+    if (launched["flash_fwd"], launched["flash_bwd_dq"],
+            launched["flash_bwd_dkv"]) != (n, n, n):
+        fail(f"the head-dim-256 step launched {launched}; expected "
+             f"{n}/{n}/{n}")
+    if not all(torch.isfinite(g).all() for g in grads_k.values()) or (
+            ratios[worst] > GRAD_NOISE_MULT):
+        fail("the head-dim-256 model's gradients stray further from the "
+             "fp32 model's than bf16 rounding explains")
+    del grads_k, grads_p, grads_32, masters
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[time] phase 5b {time.perf_counter() - t_phase:.1f} s")
+    return {"paths": paths, "rows": rows}
 
 
 def main() -> int:
@@ -5997,6 +6339,14 @@ def run(tmp: Path) -> int:
         (2, 32, 8, 333, 128, torch.float32, True, 0, False),
         (2, 32, 8, 333, 128, torch.float32, False, 0, True),
         (2, 16, 4, 200, 64, torch.float32, True, 150, False),
+        # head dim 256 (google/gemma-7b's 16 heads x 256)
+        (2, 16, 16, 512, 256, torch.bfloat16, True, 0, False),
+        (2, 16, 8, 333, 256, torch.bfloat16, True, 0, True),
+        (2, 16, 16, 333, 256, torch.bfloat16, False, 0, True),
+        (2, 16, 4, 512, 256, torch.bfloat16, True, 400, False),
+        (2, 16, 8, 333, 256, torch.float32, True, 0, False),
+        (2, 16, 16, 333, 256, torch.float32, False, 0, True),
+        (2, 16, 4, 200, 256, torch.float32, True, 150, False),
     ]
     misses = []
     bf16_err = 0.0
@@ -6065,6 +6415,13 @@ def run(tmp: Path) -> int:
         (2, 32, 8, 333, 128, torch.float32, True, 0, False, False),
         (2, 16, 8, 333, 128, torch.float32, False, 0, True, False),
         (2, 16, 4, 200, 64, torch.float32, True, 150, False, True),
+        # head dim 256
+        (2, 16, 16, 512, 256, torch.bfloat16, True, 0, False, False),
+        (2, 16, 8, 333, 256, torch.bfloat16, False, 0, True, False),
+        (2, 16, 4, 333, 256, torch.bfloat16, True, 200, False, True),
+        (2, 16, 8, 333, 256, torch.float32, True, 0, False, False),
+        (2, 16, 16, 333, 256, torch.float32, False, 0, True, False),
+        (2, 16, 4, 200, 256, torch.float32, True, 150, False, True),
     ]
     bwd_err = {"dq": 0.0, "dkv": 0.0}
     for b, h, hkv, l, d, dtype, causal, valid, segmented, cot in bwd_cases:
@@ -6146,7 +6503,7 @@ def run(tmp: Path) -> int:
         if not ok:
             misses.append(label)
     # head dims the kernels are not built for: q, k, v (and dO) zero-padded
-    # to 64 or 128 in the wrappers, the outputs sliced back
+    # to 64, 128 or 256 in the wrappers, the outputs sliced back
     for d, l in HEAD_DIM_CASES:
         q, k, v = qkv(1, 4, 2, l, d, torch.bfloat16)
         do = randn(1, 4, l, d)
@@ -6719,6 +7076,11 @@ def run(tmp: Path) -> int:
               f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
               f"{bound:.4f} ms ({by}), {bound / ms:.1%} of bound")
 
+    # ---- 5b. head dim 256 ------------------------------------------------
+    d256 = head_dim_256_phase(mods, gpu, dev, fa, transformer, decode,
+                              trainer_mod, init_params, load_model)
+    by_path.update(d256["paths"])
+
     # ---- 6. the GPT-2 family at gpt2_small width -----------------------
     gpt2 = gpt2_phase(mods, gpu, dev, tmp, plain_flash, fa, transformer,
                       decode, serving, convert, trainer_mod)
@@ -6783,6 +7145,8 @@ def run(tmp: Path) -> int:
             "shape": shapes[name]})
         if name in gpt2["d64"]:
             kernels[-1]["gpt2_d64"] = gpt2["d64"][name]
+        if name in d256["rows"]:
+            kernels[-1]["d256"] = d256["rows"][name]
         if name in phase10["bert_padded"]:
             kernels[-1]["bert_padded_d64"] = phase10["bert_padded"][name]
         if name in phase11["ring_chunk"]:

@@ -10,9 +10,10 @@ its own tests run it), 5-step adamw trajectories of ``train/mlm.py``'s
 ``make_mlm_step`` against the example's optax step (on the xla and the
 flash path, with a padding mask), and the partition rules leaf for leaf.
 Also: the rules' placements validate on a (fsdp 2, model 4) mesh, as the
-reference's test has them; ``shard_model`` refuses a ``model`` axis over 1
-for the encoder; the initialisers; ``train_bert --tiny`` on the CPU. The
-mesh trajectory is in ``test_torch_vision_mesh.py``.
+reference's test has them, and ``shard_model`` lays the encoder out there
+(one head a rank, ``embed``'s vocab split); the initialisers;
+``train_bert --tiny`` on the CPU. The mesh trajectories (data x fsdp,
+model, seq) are in ``test_torch_vision_mesh.py``.
 
 Tolerances: fp32 logits within ``FP32_ATOL`` (measured 2.7e-7) at every
 position (a pad's row is its own segment, in both packages alike);
@@ -238,22 +239,35 @@ def fake_world():
 
 def test_rules_validate_on_fsdp2_model4_and_model_axis_refused(fake_world):
     """Every BERT parameter lands on a valid placement on (fsdp 2, model 4),
-    as the reference's test has it; laying the encoder out there is
-    refused (tensor parallelism for the encoder is ROADMAP Queue 1 item
-    5c), before anything moves, and data x fsdp runs FSDP2."""
+    as the reference's test has it, and the encoder lays out there: the
+    tiny config's 4 heads give each rank 1 (``wq``'s 64 rows 16 a rank,
+    split again over fsdp), ``wo`` and ``w_proj`` are row parallel,
+    ``embed``'s 256 vocab rows give each rank 64, the position and type
+    tables stay whole over ``model``; data x fsdp runs FSDP2 alone."""
     mesh = create_mesh(MeshConfig(data=1, fsdp=2, model=4), device="cpu")
     model = pparams.load_module(bert.Bert(_pcfg()), bert.init_params(
         _pcfg(), torch.Generator().manual_seed(0)), "cpu")
     named_sharding(dict(model.named_parameters()), mesh,
                    bert.bert_partition_rules())
-    with pytest.raises(NotImplementedError, match="item 5c"):
-        shard_model(model, mesh, bert.bert_partition_rules())
-    assert not any(hasattr(p, "placements") for p in model.parameters())
-    shard_model(model, create_mesh(MeshConfig(data=2, fsdp=4),
+    shard_model(model, mesh, bert.bert_partition_rules())
+    got = dict(model.named_parameters())
+    block = model.blocks[0]
+    # 16 rows of wq: one head of 16 dims
+    assert block.own_heads and block.tp.size == 4
+    assert tuple(got["blocks.0.wq.weight"].to_local().shape) == (16, 32)
+    assert got["embed"].full_tensor().shape == (256, 64)
+    assert tuple(got["embed"].to_local().shape) == (64, 32)
+    assert tuple(got["pos_embed"].to_local().shape) == (128, 32)
+    assert (block.wq.role, block.w_fc.role, block.wo.role,
+            block.w_proj.role, model.mlm_transform.role) == (0, 0, 1, 1, 0)
+    other = pparams.load_module(bert.Bert(_pcfg()), bert.init_params(
+        _pcfg(), torch.Generator().manual_seed(0)), "cpu")
+    shard_model(other, create_mesh(MeshConfig(data=2, fsdp=4),
                                    device="cpu"),
                 bert.bert_partition_rules())
-    wq = dict(model.named_parameters())["blocks.0.wq.weight"]
+    wq = dict(other.named_parameters())["blocks.0.wq.weight"]
     assert tuple(str(p) for p in wq.placements) == ("R", "S(1)")
+    assert other.blocks[0].tp is None
 
 
 def test_init_params_follow_the_reference_initialisers():

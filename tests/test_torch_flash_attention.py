@@ -206,14 +206,15 @@ def test_wrapper_rejects_malformed_inputs(bad, match):
 
 
 # Head dims the kernels are not built for: the CUDA wrappers zero-pad q, k
-# and v to the next kernel width (64 or 128) and pass the true head dim's
-# scale. Here the same pad-and-slice wraps the plain twin.
+# and v to the next kernel width (64, 128 or 256) and pass the true head
+# dim's scale. Here the same pad-and-slice wraps the plain twin (at 256,
+# the kernels' own width, it passes the tensors through).
 @pytest.mark.parametrize("rep", [1, 2])
-@pytest.mark.parametrize("d", [16, 32, 80])
+@pytest.mark.parametrize("d", [16, 32, 80, 192, 256])
 def test_padded_head_dim_matches_pallas(d, rep):
     q, k, v = _qkv(1, 4, 4 // rep, 136, d, seed=12)
     want_o, want_lse = _pallas_fwd(q, k, v, True)
-    assert pfa.kernel_head_dim(d) in (64, 128)
+    assert pfa.kernel_head_dim(d) in (64, 128, 256)
     o, lse = pfa.with_kernel_head_dim(
         lambda q_, k_, v_, scale: pfa.flash_attention_plain(
             q_, k_, v_, True, 0, None, scale),
@@ -224,7 +225,10 @@ def test_padded_head_dim_matches_pallas(d, rep):
 
 
 def test_head_dim_above_the_kernels_raises():
-    assert [pfa.kernel_head_dim(d) for d in (1, 64, 65, 128)] == [64, 64, 128,
-                                                                   128]
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        pfa.kernel_head_dim(129)
+    """Head dims up to 256 run on the kernels (129-256 padded to 256, as
+    the reference pads to its 128-lane tile); 257 raises, naming 256."""
+    assert [pfa.kernel_head_dim(d) for d in (1, 64, 65, 128, 129, 192,
+                                             256)] == [64, 64, 128, 128,
+                                                       256, 256, 256]
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        pfa.kernel_head_dim(257)

@@ -56,8 +56,10 @@ def _segments(b, l, seed=1):
     (torch.bfloat16, 128, True, 333, 0, False),
     (torch.bfloat16, 128, False, 200, 0, True),
     (torch.bfloat16, 64, True, 512, 400, False),
+    (torch.bfloat16, 256, True, 333, 0, True),
     (torch.float32, 128, True, 333, 0, True),
     (torch.float32, 64, False, 130, 100, False),
+    (torch.float32, 256, False, 200, 150, False),
 ])
 def test_kernel_matches_plain(cuda, dtype, d, causal, l, valid, segmented):
     q, k, v = _qkv(2, 32, 8, l, d, dtype)
@@ -91,7 +93,7 @@ def test_layout_wrapper_reads_strided_views(cuda, b, l):
 
 @pytest.mark.parametrize("dtype, d, match", [
     (torch.float16, 128, "bfloat16 or float32"),
-    (torch.bfloat16, 192, "head dim"),
+    (torch.bfloat16, 257, "head dims up to 256"),
 ])
 def test_kernel_refuses_what_it_does_not_take(cuda, dtype, d, match):
     q, k, v = _qkv(1, 4, 2, 64, d, dtype)
@@ -119,8 +121,10 @@ def _plain_bwd(q, k, v, o, lse, do, causal, valid, seg):
     (torch.bfloat16, 128, 16, 8, False, 200, 0, True),
     (torch.bfloat16, 64, 16, 16, True, 512, 400, False),
     (torch.bfloat16, 128, 16, 4, True, 256, 0, True),
+    (torch.bfloat16, 256, 16, 8, True, 333, 0, True),
     (torch.float32, 128, 32, 8, True, 333, 0, True),
     (torch.float32, 64, 16, 4, False, 130, 100, False),
+    (torch.float32, 256, 16, 4, True, 200, 150, False),
 ])
 def test_backward_kernels_match_plain(cuda, dtype, d, h, hkv, causal, l,
                                       valid, segmented):
@@ -146,13 +150,13 @@ def _segments_across_tile(b, l):
 
 
 # The bf16 forward and dq kernels at their tile edges: 128-row query tiles,
-# K/V tiles of 128 keys (forward) and 64 (dq).
+# K/V tiles of 128 keys (forward; 64 at D 256) and 64 (dq).
 @pytest.mark.parametrize("d, l, hkv, causal, valid, segmented", [
-    *[(d, l, 2, True, 0, False) for d in (64, 128)
-      for l in (127, 128, 129, 255, 2047)],
-    (64, 255, 1, True, 129, False), (128, 255, 1, True, 129, False),
-    (64, 255, 2, True, 0, True), (128, 255, 2, True, 0, True),
-    (128, 300, 4, False, 0, True),
+    *[(d, l, 2, True, 0, False) for d in (64, 128, 256)
+      for l in (63, 65, 127, 128, 129, 255, 2047)],
+    *[(d, 255, 1, True, 129, False) for d in (64, 128, 256)],
+    *[(d, 255, 2, True, 0, True) for d in (64, 128, 256)],
+    (128, 300, 4, False, 0, True), (256, 300, 4, False, 0, True),
 ])
 def test_sm90_kernels_at_tile_edges(cuda, d, l, hkv, causal, valid,
                                     segmented):
@@ -172,13 +176,14 @@ def test_sm90_kernels_at_tile_edges(cuda, d, l, hkv, causal, valid,
 
 
 # The bf16 dk/dv kernel at its tile edges: 128-key blocks of two 64-key
-# warpgroups, 64-row query tiles, the q-heads of a GQA group (rep 1, 2, 4)
+# warpgroups (at D 256 64-key blocks, each warpgroup half of dK and dV's
+# columns), 64-row query tiles, the q-heads of a GQA group (rep 1, 2, 4)
 # summed in order in bf16.
 @pytest.mark.parametrize("d, l, hkv, valid, segmented", [
-    *[(d, l, hkv, 0, False) for d in (64, 128)
+    *[(d, l, hkv, 0, False) for d in (64, 128, 256)
       for l in (63, 64, 65, 127, 128, 129, 255, 2047) for hkv in (4, 2, 1)],
-    *[(d, 255, hkv, 129, False) for d in (64, 128) for hkv in (4, 1)],
-    *[(d, 255, hkv, 0, True) for d in (64, 128) for hkv in (4, 2)],
+    *[(d, 255, hkv, 129, False) for d in (64, 128, 256) for hkv in (4, 1)],
+    *[(d, 255, hkv, 0, True) for d in (64, 128, 256) for hkv in (4, 2)],
 ])
 def test_dkv_kernel_at_tile_edges(cuda, d, l, hkv, valid, segmented):
     q, k, v = _qkv(1, 4, hkv, l, d, torch.bfloat16)

@@ -16,8 +16,10 @@ fp32) within ``test_torch_train_step.py``'s ``FP32_TOL``, and with
 prefix, speculative) token for token; the FLOP count of a step.
 
 One spawned world of 4 gloo ranks (``test_torch_mesh_train.start_world``)
-trains on (fsdp 2, expert 2) and (model 2, expert 2) against the JAX
-``Trainer`` on 4 CPU devices, counts each rank's FLOPs, then serves on
+trains on (fsdp 2, expert 2), (model 2, expert 2) and (fsdp 2, seq 2)
+against the JAX ``Trainer`` on 4 CPU devices, counts each rank's FLOPs,
+routes one MoE layer over the (fsdp 2, seq 2) mesh's chunks (the dispatch
+exactly the reference's over the whole sequence), then serves on
 ``serving_mesh(model=2, expert=2)`` (rank 0 drives, ranks 1-3 run
 ``serve_mesh_worker``) against the JAX engine on the same serving mesh.
 
@@ -98,7 +100,8 @@ def _min_gap(probs: np.ndarray, k: int) -> float:
 MESH_CASES = {"fsdp2_expert2": (dict(fsdp=2, expert=2), {}),
               "model2_expert2": (dict(model=2, expert=2), {}),
               "model2_expert2_int8": (dict(model=2, expert=2),
-                                      dict(mlp_int8=True))}
+                                      dict(mlp_int8=True)),
+              "fsdp2_seq2": (dict(fsdp=2, seq=2), {})}
 #: the engine's config changes in the world's serving cases
 SERVE_CASES = {"serve": {}, "serve_int8": dict(mlp_int8=True)}
 FLOP_LEN = 16
@@ -176,6 +179,38 @@ def _int8_layer_case(params, x) -> np.ndarray:
         return model.blocks[0].moe(x)[0].numpy()
 
 
+def _seq_layer_case(params, x) -> list:
+    """Block 0's MoE layer with a (fsdp 2, seq 2) mesh's ``seq`` axis, each
+    rank its 8-token chunk of x's 16: every rank's (place on ``seq``, its
+    chunk's dispatch mask, output and aux loss)."""
+    import torch.distributed as dist
+
+    from tpu_on_k8s_torch.models import moe
+    from tpu_on_k8s_torch.parallel.mesh import (
+        AXIS_SEQ,
+        MeshAxis,
+        MeshConfig,
+        create_mesh,
+    )
+    cfg = _config()
+    layer = moe.MoEMLP(cfg)
+    layer.load_state_dict({k.rpartition(".")[2]: v.clone()
+                           for k, v in params.items()
+                           if k.startswith("blocks.0.moe.")})
+    seq = MeshAxis(create_mesh(MeshConfig(fsdp=2, seq=2), device="cpu"),
+                   AXIS_SEQ)
+    layer.seq = seq
+    chunk = seq.own(x, 1)
+    with torch.no_grad():
+        y, aux = layer(chunk)
+        routing = moe.route(chunk, layer.router, cfg.experts_top_k,
+                            moe.capacity(cfg, x.shape[1]), seq)
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, (seq.rank, routing.dispatch.numpy(),
+                                   y.numpy(), aux.item()))
+    return parts
+
+
 def _moe_world(rank: int, world: int, params, batches, prompts):
     from tpu_on_k8s_torch.parallel.mesh import serving_mesh
     from tpu_on_k8s_torch.parallel.serving import (
@@ -187,6 +222,8 @@ def _moe_world(rank: int, world: int, params, batches, prompts):
              for name, (shape, changes) in MESH_CASES.items()}
     cases["int8_layer"] = functools.partial(_int8_layer_case, params,
                                             _layer_input())
+    cases["seq_layer"] = functools.partial(_seq_layer_case, params,
+                                           _layer_input())
     results = run_cases(rank, cases)
     mesh = serving_mesh(model=2, expert=2, device="cpu")
     if rank:
@@ -847,9 +884,11 @@ def _unsharded_trajectory(changes, params, batches) -> dict:
 def test_expert_parallel_trajectory_matches_jax(case, tree, mesh_reference,
                                                 port_results):
     """``tests/test_moe.py::test_moe_trains_expert_parallel`` on (fsdp 2,
-    expert 2) and (model 2, expert 2): 3 steps at aux weight 0.01 and an
-    eval step against the JAX ``Trainer`` on the same mesh within
-    ``FP32_TOL``; the aux loss is positive and the loss falls.
+    expert 2), (model 2, expert 2) and (fsdp 2, seq 2) (each rank a chunk
+    of 12 of every row's 24 tokens, routed over the whole row): 3 steps at
+    aux weight 0.01 and an eval step against the JAX ``Trainer`` on the
+    same mesh within ``FP32_TOL``; the aux loss is positive and the loss
+    falls.
 
     Under ``mlp_int8`` on (model 2, expert 2), where ``w_down`` is row
     parallel: the losses, aux losses, grad norms and eval metrics against
@@ -886,6 +925,42 @@ def test_expert_parallel_trajectory_matches_jax(case, tree, mesh_reference,
         np.testing.assert_allclose(got["params"][name].numpy(), w.numpy(),
                                    atol=FP32_TOL["params"], rtol=0,
                                    err_msg=f"{case}: {name}")
+
+
+def test_seq_axis_routes_over_the_whole_sequence(tree, port_results,
+                                                  monkeypatch):
+    """Block 0's MoE layer on (fsdp 2, seq 2), each rank an 8-token chunk
+    of x's 16, against the reference's layer on the whole x: the chunks'
+    dispatch masks, in the order of their ranks on ``seq``, are the
+    reference's exactly (read off its own einsum; capacity and slots the
+    whole sequence's); the outputs within ``MOE_TOL``; the aux loss, which
+    every rank computes from statistics summed over ``seq``, within 2e-6
+    of the reference's."""
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_on_k8s.models.moe import MoEMLP as JMoE
+    x = _layer_input().numpy()
+    jparams = {k: jnp.asarray(v[0])
+               for k, v in tree[0]["blocks"]["moe"].items()}
+    probs = np.asarray(jax.nn.softmax(jnp.asarray(x) @ jparams["router"]))
+    assert _min_gap(probs, MOE["experts_top_k"]) > MIN_GAP
+    seen = _record_einsums(monkeypatch)
+    want_y, losses = JMoE(_jax_config()).apply(
+        {"params": jparams}, jnp.asarray(x), mutable=["losses"])
+    monkeypatch.undo()
+    want_aux = float(sum(jnp.sum(v) for v in jax.tree.leaves(losses)))
+    parts = case_result(port_results, "seq_layer")
+    chunks = {place: (dispatch, y) for place, dispatch, y, _ in parts}
+    assert sorted(chunks) == [0, 1]
+    dispatch = np.concatenate([chunks[i][0] for i in (0, 1)], axis=1)
+    np.testing.assert_array_equal(dispatch, seen["dispatch"])
+    np.testing.assert_allclose(
+        np.concatenate([chunks[i][1] for i in (0, 1)], axis=1),
+        np.asarray(want_y), atol=MOE_TOL["out"], rtol=0)
+    for *_, aux in parts:
+        np.testing.assert_allclose(aux, want_aux, atol=MOE_TOL["aux"],
+                                   rtol=0)
 
 
 def test_expert_weights_are_laid_out_as_the_rules_say(port_results):

@@ -430,9 +430,9 @@ def test_trainer_accepts_a_seq_mesh():
 
 def test_expert_axis_still_raises():
     """An ``expert`` axis > 1 lays an MoE model's experts out (each rank
-    its E/expert experts); it still raises for a dense model, for experts
-    it does not divide (naming both numbers) and, with a ``seq`` axis, for
-    an MoE model (ROADMAP Queue 1 item 4b)."""
+    its E/expert experts); it still raises for a dense model and for
+    experts it does not divide (naming both numbers). An MoE model lays
+    out on a ``seq`` axis: each block routes over the whole sequence."""
     mesh = create_mesh(MeshConfig(fsdp=4, expert=2), device="cpu")
     with pytest.raises(NotImplementedError, match="expert"):
         Trainer(_model(), rules=flagship_partition_rules(), mesh=mesh)
@@ -445,25 +445,33 @@ def test_expert_axis_still_raises():
                        "not divide n_experts \\(3\\)"):
         Trainer(_model(n_experts=3), rules=flagship_partition_rules(),
                 mesh=create_mesh(MeshConfig(fsdp=4, expert=2), device="cpu"))
-    with pytest.raises(NotImplementedError, match="4b"):
-        Trainer(_model(n_experts=4), rules=flagship_partition_rules(),
-                mesh=create_mesh(MeshConfig(fsdp=4, seq=2), device="cpu"))
+    seq_mesh = create_mesh(MeshConfig(fsdp=4, seq=2), device="cpu")
+    trainer = Trainer(_model(n_experts=4), rules=flagship_partition_rules(),
+                      mesh=seq_mesh)
+    moe = trainer.model.blocks[0].moe
+    assert moe.seq is not None and moe.seq.size == 2
+    assert trainer.model.blocks[0].attn.seq_mesh is seq_mesh
+    with pytest.raises(NotImplementedError, match="expert"):
+        Trainer(_model(), rules=flagship_partition_rules(),
+                mesh=create_mesh(MeshConfig(fsdp=2, seq=2, expert=2),
+                                 device="cpu"))
 
 
 def test_seq_axis_is_refused_where_it_is_not_ported():
-    """Serving, BERT and the vision CLIs refuse a ``seq`` axis > 1, naming
-    ROADMAP Queue 1 item 4b: serving's mesh check and
-    ``cli_common.bring_up --seq-axis 2``."""
+    """Serving refuses a ``seq`` axis > 1, as the reference's
+    ``serving_mesh`` fixes it at 1; training lays out on it, and
+    ``cli_common.bring_up --seq-axis 2`` makes the mesh."""
     from tpu_on_k8s_torch import cli_common
     from tpu_on_k8s_torch.parallel.sharded import check_mesh
     mesh = create_mesh(MeshConfig(fsdp=4, seq=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        check_mesh(TransformerConfig.tiny(), mesh)
+    with pytest.raises(NotImplementedError, match="serving_mesh"):
+        check_mesh(TransformerConfig.tiny(), mesh, serving=True)
+    check_mesh(TransformerConfig.tiny(), mesh)
     args = cli_common.standard_parser("test").parse_args(
         ["--device", "cpu", "--seq-axis", "2"])
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        with cli_common.bring_up(args):
-            pass
+    with cli_common.bring_up(args) as (dev, got):
+        assert dev.type == "cpu"
+        assert mesh_shape(got)["seq"] == 2
 
 
 def test_rules_are_validated_before_any_placement():

@@ -1,11 +1,11 @@
-"""The vision models and BERT on a (data 2, fsdp 2) mesh, the port against
-the JAX package, on the CPU.
+"""The vision models and BERT on meshes of 4, the port against the JAX
+package, on the CPU.
 
 One world of 4 spawned gloo ranks (``test_torch_mesh_train.start_world``)
-runs every case; the JAX package runs the same cases on a (data 2, fsdp 2)
-mesh over 4 of its 8 CPU devices, first, since the port's steps start from
-its states. Inputs come from numpy seeds; weights are the JAX package's
-initial ones, in fp32.
+runs every case; the JAX package runs the same cases on the same meshes
+over 4 of its 8 CPU devices: the vision ones first, since the port's steps
+start from their states, and BERT's while the world runs. Inputs come
+from numpy seeds; weights are the JAX package's initial ones, in fp32.
 
 * ``resnet18ish`` (nesterov SGD) and ``MnistCNN`` (adam): at each of 3
   steps of the reference's ``ClassifierTrainer`` the port's
@@ -16,11 +16,18 @@ initial ones, in fp32.
   and the statistics it leaves, as ``test_torch_vision.py`` holds them
   unsharded. The statistics cover the
   global batch (every BatchNorm sums over data and fsdp), so a rank's
-  batch of 2 does not move them: dropping that sum fails this case.
+  batch of 2 does not move them: dropping that sum fails this case. On
+  (data 2, fsdp 2), and ``resnet18ish`` on (fsdp 2, seq 2), where ``seq``
+  is a replica axis: every rank of it steps the same rows, so a gradient
+  (or a count, or a statistic) summed over it comes out twice the
+  reference's and fails.
 * tiny BERT (``train/mlm.py``'s ``make_mlm_step``, the example's adamw,
   type ids and a padding mask): 5 free-running steps under
-  ``bert_partition_rules`` (FSDP2 over data x fsdp), losses and final
-  weights within ``FP32_TOL``.
+  ``bert_partition_rules``, losses and final weights within ``FP32_TOL``:
+  on (data 2, fsdp 2) (FSDP2), and on (fsdp 2, model 2) (tensor
+  parallelism: 2 of the 4 heads a rank, ``embed``'s vocab split) and
+  (fsdp 2, seq 2) (each rank a 16-token chunk of every row, attention
+  gathered whole over ``seq``), each on the xla and the flash path.
 
 This module imports no JAX at its top: its rank bodies run in spawned
 processes that import it.
@@ -39,16 +46,27 @@ torch.set_num_threads(1)
 
 WORLD = 4
 MESH = dict(data=2, fsdp=2)
+SEQ_MESH = dict(fsdp=2, seq=2)
 VISION_STEPS = 3
 BERT_STEPS = 5
 FP32_TOL = dict(loss=5e-6, grad_norm=1e-6, params=1.5e-6)
 
 #: case → (model, images shape, classes, optimizer, adam's learning rate
-#: or None for SGD)
+#: or None for SGD, mesh)
 VISION = {
-    "resnet18ish_sgd": ("resnet", (8, 32, 32, 3), 4, "sgd", None),
-    "mnist_adam": ("mnist", (8, 28, 28, 1), 10, "adam", 1e-3),
+    "resnet18ish_sgd": ("resnet", (8, 32, 32, 3), 4, "sgd", None, MESH),
+    "mnist_adam": ("mnist", (8, 28, 28, 1), 10, "adam", 1e-3, MESH),
+    "resnet18ish_sgd_seq2": ("resnet", (8, 32, 32, 3), 4, "sgd", None,
+                             SEQ_MESH),
 }
+#: BERT case → (mesh, config changes); the last runs 2 heads of 32 dims
+#: on a model axis of 4, which cuts a head: q, k and v gathered whole
+BERT = {"bert": (MESH, {})}
+BERT.update({f"bert_{name}_{impl}": (shape, dict(attn_impl=impl))
+             for name, shape in (("fsdp2_model2", dict(fsdp=2, model=2)),
+                                 ("fsdp2_seq2", SEQ_MESH))
+             for impl in ("xla", "flash")})
+BERT["bert_model4_2heads"] = (dict(model=4), dict(n_heads=2))
 
 
 def record_grads(opt: torch.optim.Optimizer, model: torch.nn.Module
@@ -105,9 +123,9 @@ def _vision_case(name: str, states) -> list:
     from tpu_on_k8s_torch.train import optimizer as popt
     from tpu_on_k8s_torch.train.vision import ClassifierTrainer
 
-    kind, shape, classes, opt_kind, lr = VISION[name]
+    kind, shape, classes, opt_kind, lr, mesh_shape = VISION[name]
     x, y = _images(shape, classes)
-    mesh = create_mesh(MeshConfig(**MESH), device="cpu")
+    mesh = create_mesh(MeshConfig(**mesh_shape), device="cpu")
     out = []
     for step, (variables, moments, count) in enumerate(states):
         # copies: the spawned ranks share the tensors they were handed
@@ -140,40 +158,44 @@ def _vision_case(name: str, states) -> list:
     return out
 
 
-def _bert_case(params) -> dict:
+def _bert_case(name: str, params) -> dict:
     from tpu_on_k8s_torch.models import bert
     from tpu_on_k8s_torch.models.params import load_module
-    from tpu_on_k8s_torch.parallel.mesh import (
-        MeshConfig,
-        batch_sharding,
-        create_mesh,
-        local_rows,
-    )
+    from tpu_on_k8s_torch.parallel.mesh import MeshConfig, create_mesh
     from tpu_on_k8s_torch.parallel.sharded import shard_model
     from tpu_on_k8s_torch.train import optimizer as popt
-    from tpu_on_k8s_torch.train.mlm import make_mlm_step
+    from tpu_on_k8s_torch.train.mlm import make_mlm_step, mlm_rows
 
-    cfg = dataclasses.replace(bert.BertConfig.tiny(), dtype=torch.float32)
+    shape, changes = BERT[name]
+    cfg = dataclasses.replace(bert.BertConfig.tiny(), dtype=torch.float32,
+                              **changes)
     model = load_module(bert.Bert(cfg),
                         {k: v.clone() for k, v in params.items()}, "cpu")
-    mesh = create_mesh(MeshConfig(**MESH), device="cpu")
+    mesh = create_mesh(MeshConfig(**shape), device="cpu")
     shard_model(model, mesh, bert.bert_partition_rules())
     opt = popt.adamw(model.parameters(), popt.warmup_cosine_decay_schedule(
         0.0, 1e-4, 10, 11), weight_decay=0.01)
     step = make_mlm_step(model, opt, mesh)
     tokens, types, mask, mlm = (torch.from_numpy(a) for a in _bert_inputs())
-    rows = batch_sharding(mesh, tuple(tokens.shape))
-    batch = [local_rows(t, rows) for t in (tokens, mlm, types, mask)]
+    batch = mlm_rows(mesh, tokens, mlm, types, mask)
+    # the shape of the queries a rank runs: [rows, tokens, its heads' dims]
+    seen = []
+    model.blocks[0].wq.register_forward_hook(
+        lambda mod, args, out: seen.append(tuple(out.shape)))
     losses = [step(*batch)["loss"].item() for _ in range(BERT_STEPS)]
+    wq = dict(model.named_parameters())["blocks.0.wq.weight"]
     return dict(losses=losses,
                 params={n: p.full_tensor().detach().clone()
-                        for n, p in model.named_parameters()})
+                        for n, p in model.named_parameters()},
+                wq_local=tuple(wq.to_local().shape), queries=seen[0][1:],
+                own_heads=model.blocks[0].own_heads)
 
 
 def _world(rank: int, world: int, vision_states, bert_params):
     cases = {name: (lambda n=name: _vision_case(n, vision_states[n]))
              for name in VISION}
-    cases["bert"] = lambda: _bert_case(bert_params)
+    cases.update({name: (lambda n=name: _bert_case(n, bert_params))
+                  for name in BERT})
     return run_cases(rank, cases)
 
 
@@ -198,13 +220,14 @@ def _reference_vision(name: str):
 
     from test_torch_vision import recorded_grads, recording
 
-    kind, shape, classes, opt_kind, lr = VISION[name]
+    kind, shape, classes, opt_kind, lr, mesh_shape = VISION[name]
     model = (jvision.ResNet(dataclasses.replace(
         jvision.ResNetConfig.resnet18ish(4), dtype=jnp.float32))
         if kind == "resnet" else jvision.MnistCNN(dtype=jnp.float32))
     opt = (optax.sgd(0.1, momentum=0.9, nesterov=True) if opt_kind == "sgd"
            else optax.adam(lr))
-    mesh = create_mesh(MeshConfig(model=1, seq=1, **MESH),
+    mesh = create_mesh(MeshConfig(**{"data": 1, "model": 1, "seq": 1,
+                                     **mesh_shape}),
                        jax.devices()[:WORLD])
     trainer = ClassifierTrainer(model, jvision.vision_partition_rules(),
                                 mesh, recording(opt))
@@ -232,7 +255,23 @@ def _reference_vision(name: str):
     return inputs, results
 
 
-def _reference_bert():
+def _bert_start():
+    """The JAX package's initial tiny BERT weights (fp32), as the JAX tree
+    and as the port's."""
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_on_k8s.models import bert as jbert
+    from tpu_on_k8s_torch.models.params import from_jax_bert_params
+
+    cfg = dataclasses.replace(jbert.BertConfig.tiny(), dtype=jnp.float32)
+    params = jbert.Bert(cfg).init(jax.random.key(1), jnp.asarray(
+        _bert_inputs()[0]))["params"]
+    params = jax.tree.map(np.asarray, params)
+    return params, from_jax_bert_params(params, "cpu")
+
+
+def _reference_bert(name: str, params):
     import jax
     import jax.numpy as jnp
     import optax
@@ -243,12 +282,14 @@ def _reference_bert():
     from tpu_on_k8s.parallel.partition import named_sharding
     from tpu_on_k8s_torch.models.params import from_jax_bert_params
 
-    cfg = dataclasses.replace(jbert.BertConfig.tiny(), dtype=jnp.float32)
+    shape, changes = BERT[name]
+    cfg = dataclasses.replace(jbert.BertConfig.tiny(), dtype=jnp.float32,
+                              **changes)
     model = jbert.Bert(cfg)
     tokens, types, mask, mlm = _bert_inputs()
-    params = model.init(jax.random.key(1), jnp.asarray(tokens))["params"]
-    start = from_jax_bert_params(jax.tree.map(np.asarray, params), "cpu")
-    mesh = create_mesh(MeshConfig(model=1, seq=1, **MESH),
+    params = jax.tree.map(jnp.asarray, params)
+    mesh = create_mesh(MeshConfig(**{"data": 1, "model": 1, "seq": 1,
+                                     **shape}),
                        jax.devices()[:WORLD])
     params = jax.device_put(params, named_sharding(
         params, mesh, jbert.bert_partition_rules()))
@@ -272,20 +313,22 @@ def _reference_bert():
     for _ in range(BERT_STEPS):
         params, opt_state, loss = step(params, opt_state)
         losses.append(float(loss))
-    return start, dict(losses=losses, params=from_jax_bert_params(
+    return dict(losses=losses, params=from_jax_bert_params(
         jax.tree.map(np.asarray, params), "cpu"))
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The JAX package's runs, then the port's world from their states."""
+    """The JAX package's vision runs, then the port's world from their
+    states, while the JAX package runs BERT's cases."""
     vision = {name: _reference_vision(name) for name in VISION}
-    bert_start, bert_want = _reference_bert()
+    bert_tree, bert_start = _bert_start()
     result = start_world(_world, ({n: v[0] for n, v in vision.items()},
                                   bert_start),
                          tmp_path_factory.mktemp("vision_mesh"),
-                         world=WORLD)()
-    return {n: v[1] for n, v in vision.items()}, bert_want, result
+                         world=WORLD)
+    bert_want = {name: _reference_bert(name, bert_tree) for name in BERT}
+    return {n: v[1] for n, v in vision.items()}, bert_want, result()
 
 
 @pytest.mark.parametrize("case", list(VISION))
@@ -326,12 +369,38 @@ def test_classifier_steps_on_the_mesh_match_jax(case, runs):
                                        err_msg=f"step {step}: {name}")
 
 
-def test_bert_trajectory_on_the_mesh_matches_jax(runs):
-    got = case_result(runs[2], "bert")
-    want = runs[1]
+def _assert_bert_case(runs, case: str) -> dict:
+    got = case_result(runs[2], case)
+    want = runs[1][case]
     np.testing.assert_allclose(got["losses"], want["losses"],
                                atol=FP32_TOL["loss"], rtol=0)
     for name, w in want["params"].items():
         np.testing.assert_allclose(got["params"][name].numpy(), w.numpy(),
                                    atol=FP32_TOL["params"], rtol=0,
-                                   err_msg=name)
+                                   err_msg=f"{case}: {name}")
+    return got
+
+
+def test_bert_trajectory_on_the_mesh_matches_jax(runs):
+    _assert_bert_case(runs, "bert")
+
+
+#: what a rank of each case runs: its queries' (tokens, columns) out of
+#: ``wq``, its block of ``wq`` and whether it runs its own heads
+BERT_RANK = {"fsdp2_model2": ((32, 32), (32, 32), True),
+             "fsdp2_seq2": ((16, 64), (64, 32), True),
+             "model4_2heads": ((32, 16), (16, 64), False)}
+
+
+@pytest.mark.parametrize("case", [c for c in BERT if c != "bert"])
+def test_bert_model_and_seq_axes_match_jax(case, runs):
+    """Tiny BERT on (fsdp 2, model 2) and (fsdp 2, seq 2), xla and flash,
+    and with 2 heads on (model 4): the losses and final weights of 5 steps
+    against the JAX package's on the same mesh. On model 2 a rank runs 2
+    of the 4 heads (32 of ``wq``'s 64 rows, split again over fsdp); on
+    seq 2 every head of its 16 tokens; on model 4 its 16 rows cut a head
+    of 32, so it runs every head on q, k and v gathered whole."""
+    got = _assert_bert_case(runs, case)
+    key = next(k for k in BERT_RANK if k in case)
+    assert (got["queries"], got["wq_local"], got["own_heads"]) == \
+        BERT_RANK[key]

@@ -45,13 +45,9 @@ def standard_parser(desc: str) -> argparse.ArgumentParser:
 @contextlib.contextmanager
 def bring_up(args: argparse.Namespace):
     """(device, mesh) of the job's world, as the examples' ``bring_up``;
-    rank 0 prints the mesh."""
-    if args.seq_axis > 1:
-        raise NotImplementedError(
-            f"--seq-axis {args.seq_axis} is not ported to tpu_on_k8s_torch "
-            f"for BERT and the vision models (sequence parallelism trains "
-            f"the decoder, train_llama; the rest is ROADMAP Queue 1 item "
-            f"4b)")
+    rank 0 prints the mesh. A ``--seq-axis`` over 1 splits BERT's
+    sequence (``models/bert.py``) and is one more replica axis for the
+    vision models, whose images have none."""
     dev = resolve_device(args.device)
     initialize(device=dev)
     made_world = local_world(dev)

@@ -24,8 +24,24 @@ real token sees a pad.
 
 On a mesh ``parallel/sharded.py``'s ``shard_model`` runs FSDP2 over data ×
 fsdp, per block and at the root, on the dims the rules give ``fsdp``.
-Tensor parallelism over ``model`` is not ported for the encoder
-(``Bert.tensor_parallel`` refuses it).
+Over a ``model`` axis > 1 (``Bert.tensor_parallel``, the decoder's
+machinery: ``sharded.parallelize_projections`` and ``vocab_parallel``)
+``wq``/``wk``/``wv`` and ``w_fc`` are column parallel (their biases split
+with their rows), ``wo`` and ``w_proj`` row parallel (their biases added
+once, after the sum over ``model``); a rank runs its H/model heads, or,
+where ``model`` does not divide the heads, every head on q/k/v gathered
+whole, ``wo`` then taking its input columns of the whole output.
+``mlm_transform`` is column parallel, its output gathered whole before the
+GELU and ``mlm_norm``; ``embed`` is split on its vocab rows for the lookup
+and the tied head (``models/transformer.py``'s ``_embed`` and
+``_logits``), ``mlm_bias`` added to the gathered logits.
+
+Over a ``seq`` axis > 1 (``split_sequence``) a rank runs one chunk of
+every row (``seq_chunk``), at its global positions: each block's
+attention gathers q/k/v and the segments whole over ``seq``, runs
+non-causal attention whole and keeps the rank's rows, the gradients
+summed back to the rank that holds each chunk (``sharded.gather``). The
+reference has no ring or Ulysses attention for the encoder.
 """
 from __future__ import annotations
 
@@ -37,12 +53,23 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from tpu_on_k8s_torch.models.transformer import Dense, LayerNorm, _logits
+from tpu_on_k8s_torch.models.transformer import (
+    Dense,
+    LayerNorm,
+    _embed,
+    _in_width,
+    _logits,
+)
 from tpu_on_k8s_torch.ops.flash_attention import (
     flash_attention,
     xla_attention_bhld,
 )
-from tpu_on_k8s_torch.parallel.mesh import AXIS_FSDP, AXIS_MODEL
+from tpu_on_k8s_torch.parallel.mesh import (
+    AXIS_FSDP,
+    AXIS_MODEL,
+    AXIS_SEQ,
+    MeshAxis,
+)
 from tpu_on_k8s_torch.parallel.partition import PartitionRule
 
 ATTN_IMPLS = ("xla", "flash")
@@ -82,11 +109,14 @@ class BertConfig:
                           d_ff=128, max_seq_len=128)
 
 
-def padding_segments(attention_mask: torch.Tensor) -> torch.Tensor:
+def padding_segments(attention_mask: torch.Tensor,
+                     start: int = 0) -> torch.Tensor:
     """A padding mask ``[B, L]`` (1 = real token) as segments ``[B, L]``
     int32: real tokens share segment 0, the pad at position i gets
-    ``-(i + 1)``."""
-    idx = torch.arange(attention_mask.shape[1], dtype=torch.int32,
+    ``-(i + 1)``; ``start``: the position of the mask's first column (a
+    chunk of the sequence)."""
+    idx = torch.arange(start, start + attention_mask.shape[1],
+                       dtype=torch.int32,
                        device=attention_mask.device)[None, :]
     return torch.where(attention_mask.bool(), torch.zeros_like(idx),
                        -(idx + 1)).to(torch.int32)
@@ -102,7 +132,15 @@ def _attention(impl: str, q, k, v, segments) -> torch.Tensor:
 
 
 class EncoderBlock(nn.Module):
-    """Post-LN transformer encoder block (the BERT arrangement)."""
+    """Post-LN transformer encoder block (the BERT arrangement). On the
+    ``model`` axis ``tp`` (``Bert.tensor_parallel``) it runs its own heads
+    (``own_heads``) or every head gathered whole; with ``seq`` (a
+    ``MeshAxis``, ``Bert.split_sequence``) its attention runs over the
+    whole sequence gathered from the ranks' chunks."""
+
+    #: the ``model`` axis of a laid-out encoder (None: every head here)
+    tp = None
+    own_heads = True
 
     def __init__(self, cfg: BertConfig):
         super().__init__()
@@ -116,16 +154,42 @@ class EncoderBlock(nn.Module):
         self.mlp_norm = LayerNorm(d, cfg.norm_eps, cfg.dtype)
 
     def forward(self, x: torch.Tensor,
-                segments: Optional[torch.Tensor] = None) -> torch.Tensor:
+                segments: Optional[torch.Tensor] = None,
+                seq: Optional[MeshAxis] = None) -> torch.Tensor:
+        """``seq``: the rank holds one chunk of the sequence over this
+        axis (None: the whole sequence is here)."""
         cfg = self.cfg
         b, l, _ = x.shape
-        q, k, v = (w(x).view(b, l, cfg.n_heads, cfg.head_dim)
-                   for w in (self.wq, self.wk, self.wv))
-        attn = _attention(cfg.attn_impl, q, k, v, segments)
-        x = self.attn_norm(x + self.wo(attn.reshape(b, l, cfg.d_model)))
+        tp = self.tp
+        q, k, v = (w(x) for w in (self.wq, self.wk, self.wv))
+        if tp is not None and not self.own_heads:
+            q, k, v = (tp.gather(t) for t in (q, k, v))
+        q, k, v = (t.view(b, l, -1, cfg.head_dim) for t in (q, k, v))
+        if seq is None:
+            attn = _attention(cfg.attn_impl, q, k, v, segments)
+        else:
+            attn = _gathered_attention(cfg.attn_impl, q, k, v, segments, seq)
+        attn = attn.reshape(b, l, -1)
+        if tp is not None:
+            attn = tp.fit(attn, _in_width(self.wo, tp.size))
+        x = self.attn_norm(x + self.wo(attn))
         # BERT's published activation is the exact (erf) gelu
         h = self.w_proj(F.gelu(self.w_fc(x)))
         return self.mlp_norm(x + h)
+
+
+def _gathered_attention(impl: str, q, k, v, segments,
+                        seq: MeshAxis) -> torch.Tensor:
+    """The attention of a rank's chunk of the sequence: q/k/v (and the
+    segments) gathered whole over ``seq``, non-causal attention on the whole
+    sequence, the rank's rows kept (the gradients summed back to the rank
+    that holds each chunk)."""
+    from tpu_on_k8s_torch.parallel.sharded import gather
+
+    q, k, v = (gather(t, seq, 1) for t in (q, k, v))
+    if segments is not None:
+        segments = seq.all_gather(segments, 1)
+    return seq.own(_attention(impl, q, k, v, segments), 1)
 
 
 class Bert(nn.Module):
@@ -152,34 +216,66 @@ class Bert(nn.Module):
         self.mlm_norm = LayerNorm(cfg.d_model, cfg.norm_eps, cfg.dtype)
         self.mlm_bias = nn.Parameter(torch.empty(cfg.vocab_size, dtype=pdt))
 
+    #: the ``seq`` axis whose ranks each hold a chunk of every row (None:
+    #: rows are whole)
+    seq = None
+
     def tensor_parallel(self, tp_mesh) -> None:
-        """What ``shard_model`` does over a ``model`` axis > 1: refuse."""
-        raise NotImplementedError(
-            "tensor parallelism over a model mesh axis > 1 is not ported for "
-            "Bert to tpu_on_k8s_torch yet (ROADMAP Queue 1 item 5c); run it "
-            "on data x fsdp")
+        """What ``shard_model`` does over a ``model`` axis > 1, in place
+        (see the module docstring): the decoder's machinery on the
+        encoder's projections and tables."""
+        from tpu_on_k8s_torch.parallel.sharded import (
+            TensorParallel,
+            parallelize_projections,
+            vocab_parallel,
+        )
+        tp = TensorParallel(tp_mesh)
+        own = self.cfg.n_heads % tp.size == 0
+        for block in self.blocks:
+            parallelize_projections(block, tp_mesh, {
+                name: proj for name, proj in block.named_children()
+                if isinstance(proj, Dense)})
+            block.tp, block.own_heads = tp, own
+        # every rank reads the whole transform, so its gather's backward
+        # keeps the rank's block of the (equal) gradients: no sum
+        parallelize_projections(self, tp_mesh,
+                                {"mlm_transform": self.mlm_transform},
+                                gathered=True)
+        vocab_parallel(self, tp_mesh)
+
+    def split_sequence(self, mesh) -> None:
+        """What ``shard_model`` does over a ``seq`` axis > 1: a call runs
+        the rank's chunk of every row (``forward``'s ``seq_chunk``)."""
+        self.seq = MeshAxis(mesh, AXIS_SEQ)
 
     def forward(self, tokens: torch.Tensor,
                 type_ids: Optional[torch.Tensor] = None,
-                attention_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                attention_mask: Optional[torch.Tensor] = None,
+                seq_chunk: bool = True) -> torch.Tensor:
+        """On a ``seq`` axis (``split_sequence``) the inputs are the
+        rank's chunk of every row, chunk i of ``seq`` (i the rank's place on
+        the axis), where ``seq_chunk``; with ``seq_chunk=False`` they are
+        the whole rows, which every rank of the axis then runs alike."""
         cfg = self.cfg
+        seq = self.seq if seq_chunk else None
         l = tokens.shape[1]
-        if l > cfg.max_seq_len:
-            raise ValueError(f"sequence {l} exceeds the position table "
+        start, whole = (0, l) if seq is None else (seq.rank * l, seq.size * l)
+        if whole > cfg.max_seq_len:
+            raise ValueError(f"sequence {whole} exceeds the position table "
                              f"({cfg.max_seq_len})")
         if type_ids is None:
             type_ids = torch.zeros_like(tokens)
-        x = (F.embedding(tokens.long(), self.embed) + self.pos_embed[None, :l]
+        x = (_embed(tokens.long(), self.embed)
+             + self.pos_embed[None, start:start + l]
              + F.embedding(type_ids.long(), self.type_embed))
         x = self.embed_norm(x)
         segments = (None if attention_mask is None
-                    else padding_segments(attention_mask))
+                    else padding_segments(attention_mask, start))
         for block in self.blocks:
             if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, segments, use_reentrant=False)
+                x = checkpoint(block, x, segments, seq, use_reentrant=False)
             else:
-                x = block(x, segments)
+                x = block(x, segments, seq)
         # MLM head: transform (dense + erf-gelu) + LN + the tied embedding
         x = self.mlm_norm(F.gelu(self.mlm_transform(x)))
         return _logits(x, self.embed.to(cfg.dtype).t()) + self.mlm_bias

@@ -42,6 +42,18 @@ computed from the whole routing on every rank, once. Training's step
 (``train/trainer.py``) sets ``dp`` on a data-parallel mesh: the load-balance
 statistics are then summed over the ranks that hold other rows of the
 batch, so the loss is the global batch's, as the reference's.
+
+On a ``seq`` axis (``seq``, which ``Transformer.split_sequence`` sets: the
+rank holds one chunk of every row) the block routes as the reference
+routes the whole sequence: the capacity comes from the whole length, and
+in each of the k rounds a token's slot counts the tokens of the chunks
+before its own (an exclusive prefix of the per-(row, expert) counts, from
+one all-gather of ``[B, E]`` a round), so the slots are the whole
+sequence's. Each slot then holds one token of one chunk: a rank's
+dispatch fills the slots of its own tokens, its expert products leave the
+others zero, and its combine reads its own, so no token moves between
+ranks. The load-balance statistics are summed over ``seq`` as over the
+data-parallel axes.
 """
 from __future__ import annotations
 
@@ -160,8 +172,11 @@ class Routing(NamedTuple):
 
 
 def route(x: torch.Tensor, router: torch.Tensor, k: int,
-          cap: int) -> Routing:
-    """GShard top-k routing with a capacity of ``cap`` per (row, expert)."""
+          cap: int, seq=None) -> Routing:
+    """GShard top-k routing with a capacity of ``cap`` per (row, expert).
+    ``seq`` (a ``MeshAxis``): ``x`` is the rank's chunk of every row, and
+    the slots are counted over the whole rows, the chunks of the ranks
+    before this one first."""
     b, l, _ = x.shape
     e = router.shape[-1]
     logits = torch.matmul(x.float(), router.float())        # [B, L, E]
@@ -177,8 +192,17 @@ def route(x: torch.Tensor, router: torch.Tensor, k: int,
         gate = remaining.gather(-1, choice[..., None])[..., 0]
         # F.one_hot's range check would sync the host with the card
         onehot_e = (choice[..., None] == experts).to(torch.int32)  # [B, L, E]
+        counts = onehot_e.sum(dim=1, keepdim=True, dtype=torch.int32)
+        before = 0
+        if seq is not None:
+            # every chunk's counts [n, B, 1, E]: the chunks before this one
+            # take their slots first, and the round fills the whole rows'
+            every = seq.all_gather(counts[None], 0)
+            before = every[:seq.rank].sum(dim=0, dtype=torch.int32)
+            counts = every.sum(dim=0, dtype=torch.int32)
         # slot index per token: tokens earlier in the sequence win
-        pos = fill + torch.cumsum(onehot_e, dim=1, dtype=torch.int32) - onehot_e
+        pos = (fill + before + torch.cumsum(onehot_e, dim=1, dtype=torch.int32)
+               - onehot_e)
         slot = (pos * onehot_e).sum(dim=-1)                  # [B, L]
         # a slot at or past the capacity matches no column: dropped
         onehot_c = slot[..., None] == slots                  # [B, L, C]
@@ -186,7 +210,7 @@ def route(x: torch.Tensor, router: torch.Tensor, k: int,
                 & onehot_c[:, :, None, :]).to(x.dtype)
         dispatch = dispatch + mask
         combine = combine + mask.float() * gate[:, :, None, None]
-        fill = fill + onehot_e.sum(dim=1, keepdim=True, dtype=torch.int32)
+        fill = fill + counts
         remaining = remaining * (1.0 - onehot_e.float())
     return Routing(probs, dispatch, combine)
 
@@ -227,6 +251,9 @@ class MoEMLP(nn.Module):
     ep = None
     tp = None
     dp: Sequence = ()
+    #: the ``seq`` axis whose ranks hold the other chunks of every row
+    #: (None: the rows are whole here)
+    seq = None
 
     def __init__(self, cfg):
         super().__init__()
@@ -261,9 +288,10 @@ class MoEMLP(nn.Module):
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
+        n_seq = 1 if self.seq is None else self.seq.size
         routing = route(x, self.router, cfg.experts_top_k,
-                        capacity(cfg, x.shape[1]))
-        aux = load_balance(routing, self.dp)
+                        capacity(cfg, x.shape[1] * n_seq), self.seq)
+        aux = load_balance(routing, (*self.dp, self.seq))
         w_up = _local(self.w_up)
         w_down = _local(self.w_down)
         n = w_up.shape[0]

@@ -491,7 +491,7 @@ class _ShardPlan:
         self.mesh = mesh
         self.rules = tuple(rules)
         named_sharding(params, mesh, self.rules)
-        check_mesh(cfg, mesh)
+        check_mesh(cfg, mesh, serving=True)
         sizes = mesh_shape(mesh)
         #: whether the caches hold this rank's kv heads (else every one)
         self.kv_split = serving_layout(cfg, params, self.rules,

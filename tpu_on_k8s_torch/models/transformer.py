@@ -375,9 +375,10 @@ class Dense(nn.Linear):
     The bias is added after the product, in ``cfg.dtype``, as Flax's
     ``Dense`` adds it (the product rounds once, the sum once), and the
     product stays a plain ``mm`` whose first operand is the input, which
-    the remat policies read. A row-parallel serving projection
-    (``parallel/sharded.shard_serving_model``) holds its rank's input
-    columns and sums the partial products over ``tp`` before the bias."""
+    the remat policies read. A row-parallel projection, a serving one
+    (``parallel/sharded.shard_serving_model``) on its rank's input columns
+    or a training one on ``DTensor``s, sums the partial products over the
+    ``model`` axis before the bias."""
 
     #: the tensor-parallel group a row-parallel serving projection sums
     #: its partial products over (None: the whole product is here)
@@ -395,6 +396,10 @@ class Dense(nn.Linear):
         y = F.linear(x, self.weight.to(self.compute_dtype))
         if self.tp is not None:
             y = self.tp.reduce(y)
+        elif self.role == 1 and isinstance(y, DTensor):
+            # a row-parallel product's partial sums, summed over the model
+            # axis before the bias, which is then added once
+            y = y.redistribute(y.device_mesh, [Replicate()])
         if self.bias is not None:
             y = y + self.bias.to(self.compute_dtype)
         return y
@@ -1054,9 +1059,12 @@ class Transformer(nn.Module):
     def split_sequence(self, mesh) -> None:
         """What ``shard_model`` does over a ``seq`` axis > 1: every block's
         attention runs on the rank's chunk of the sequence over ``mesh``'s
-        ``seq`` axis (``Attention.seq_mesh``)."""
+        ``seq`` axis (``Attention.seq_mesh``), and every MoE block routes
+        over the whole sequence (``moe.MoEMLP.seq``)."""
         for block in self.blocks:
             block.attn.seq_mesh = mesh
+            if hasattr(block, "moe"):
+                block.moe.seq = MeshAxis(mesh, AXIS_SEQ)
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,

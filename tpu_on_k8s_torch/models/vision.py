@@ -39,7 +39,10 @@ On a mesh the reference's statistics cover the global batch sharded over
 every ``BatchNorm`` the process groups of those axes; a training call sums
 its per-channel sums and sums of squares over them (every rank holds as
 many rows), and its backward the two per-channel gradient sums. The running averages then
-agree on every rank, and FSDP2 leaves them replicated.
+agree on every rank, and FSDP2 leaves them replicated. A ``seq`` axis
+splits nothing of an image (the reference's ``data_sharding``): the models
+have no ``split_sequence``, every rank of the axis holds the same rows,
+and the statistics are summed over (data, fsdp) alone.
 """
 from __future__ import annotations
 

@@ -25,8 +25,12 @@ from typing import Dict, Iterable, List, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 
+# --split-compile=0: each source's kernels are compiled in parallel, a
+# thread a core, as the sources are (one nvcc each); the flash sources hold
+# one kernel per head dim and dtype
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+              "--split-compile=0")
 
 
 def nvcc_path() -> str:

@@ -45,7 +45,10 @@
 //     a warpgroup skips the products of tiles entirely above its rows. dq is
 //     written as bf16 over the warpgroup's Q rows in shared memory and stored
 //     by TMA (rows past L dropped). Shared memory at D 128: Q and dO 64 KB +
-//     3 x (K 16 KB + V 16 KB) = 160 KB.
+//     3 x (K 16 KB + V 16 KB) = 160 KB; at D 256 the ring has one stage
+//     (Q and dO 128 KB + K 32 KB + V 32 KB = 192 KB), so a tile's loads do
+//     not overlap the one before, and dQ += dS K is one m64n256k16 wgmma a
+//     k-step (dq takes 128 fp32 registers a thread).
 //   * dk/dv (bf16, the same pieces): one block of 384 threads per (b, kv
 //     head, 128-key tile), heaviest tiles first: a producer thread and two
 //     consumer warpgroups of 64 keys each. K and V are TMA-loaded once and
@@ -70,6 +73,16 @@
 //     as _dkv_kernel's `dk_ref += dk.astype(dtype)`); the last is stored by
 //     TMA. Shared memory at D 128: K and V 64 KB + 2 x (Q 16 KB + dO 16 KB)
 //     + the two sums 64 KB = 192 KB.
+//   * dk/dv at D 256 (DkvTiling): a warpgroup's dK and dV of 64 keys x 256
+//     columns would take 256 fp32 registers a thread, more than it has. So a
+//     block holds 64 keys and consumer warpgroup w accumulates columns
+//     [128w, 128w + 128) of their dK and dV; both compute the same S^T and
+//     dP^T, the products that need every column (two of the four products
+//     run twice), and read their half of Q and dO as the MN-major B operand.
+//     Shared memory: K, V 64 KB + one stage of Q and dO 64 KB + the sums
+//     64 KB = 192 KB, so the ring has one stage.
+// The float32 paths' tiles are 64 x 64, 32 x 32 at D 256 (so that the
+// tiles fit in a block's shared memory: 133 KB for dq, 137 KB for dk/dv).
 // The float32 paths run a 64 x 64 tiling with scalar FMAs in shared memory.
 // They exist so that a check on the card can also compare at full
 // precision; they are not tuned.
@@ -80,7 +93,12 @@
 namespace {
 
 constexpr int kF32Threads = 256;
-constexpr int kF32Tile = 64;  // float32 path: every tile is 64 rows
+
+// float32 path: rows of every tile, at head dim D
+template <int D>
+__host__ __device__ constexpr int f32_tile() {
+  return D == 256 ? 32 : 64;
+}
 
 struct BwdArgs {
   const void* q;
@@ -150,7 +168,12 @@ __device__ __forceinline__ void store_or_add(float* p, float x, bool first) {
 // ---------------------------------------------------------------------------
 
 constexpr int kDqKeys = 64;   // keys per K/V tile
-constexpr int kDqStages = 3;  // K/V tiles in flight
+
+// K/V tiles in flight: three, one at D 256 (Q and dO take 128 KB)
+template <int D>
+__host__ __device__ constexpr int dq_stages() {
+  return D == 256 ? 1 : 3;
+}
 
 struct DqSm90Params {
   CUtensorMap q;     // boxes of [128 rows, 64]
@@ -169,14 +192,15 @@ struct DqSm90Params {
 // Byte offsets in the block's shared memory (after aligning it to 1024).
 template <int D>
 struct DqSmem {
+  static constexpr int kStages = dq_stages<D>();
   static constexpr int kQ = kSm90Rows * D * 2;        // Q tile, later dQ
   static constexpr int kDo = kQ;                      // dO tile
   static constexpr int kKV = kDqKeys * D * 2;         // one K or V tile
   static constexpr int kK = 2 * kQ;
-  static constexpr int kV = kK + kDqStages * kKV;
-  static constexpr int kSeg = kV + kDqStages * kKV;   // [2 wg][2][keys]
+  static constexpr int kV = kK + kStages * kKV;
+  static constexpr int kSeg = kV + kStages * kKV;     // [2 wg][2][keys]
   static constexpr int kBar = kSeg + 2 * 2 * kDqKeys * 4;
-  static constexpr int kLaunch = kBar + (1 + 3 * kDqStages) * 8 + 1024;
+  static constexpr int kLaunch = kBar + (1 + 3 * kStages) * 8 + 1024;
 };
 
 template <int D>
@@ -184,6 +208,7 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
     dq_sm90_kernel(const __grid_constant__ DqSm90Params p) {
   using S = DqSmem<D>;
   constexpr int kN = kDqKeys;
+  constexpr int kDqStages = S::kStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + S::kBar);
@@ -320,8 +345,9 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
   }
 }
 
-// Builds the five tensor maps and launches the bf16 dq kernel.
-cudaError_t launch_dq_sm90(const BwdArgs& a, int D, int batch, int kv_heads,
+// Builds the five tensor maps and launches the bf16 dq kernel at head dim D.
+template <int D>
+cudaError_t launch_dq_sm90(const BwdArgs& a, int batch, int kv_heads,
                            cudaStream_t stream) {
   DqSm90Params p;
   const bool mapped =
@@ -347,33 +373,35 @@ cudaError_t launch_dq_sm90(const BwdArgs& a, int D, int batch, int kv_heads,
   p.scale = a.scale;
   p.scale_log2 = a.scale * kLog2e;
   const dim3 grid((a.L + kSm90Rows - 1) / kSm90Rows, a.H, batch);
-  if (D == 128) {
-    return launch_kernel(dq_sm90_kernel<128>, grid, kSm90Threads,
-                         DqSmem<128>::kLaunch, p, stream);
-  }
-  return launch_kernel(dq_sm90_kernel<64>, grid, kSm90Threads,
-                       DqSmem<64>::kLaunch, p, stream);
+  return launch_kernel(dq_sm90_kernel<D>, grid, kSm90Threads,
+                       DqSmem<D>::kLaunch, p, stream);
 }
 
 // ---------------------------------------------------------------------------
 // bf16 dk/dv: TMA-fed wgmma, one producer thread and two consumer warpgroups
 // ---------------------------------------------------------------------------
 
-constexpr int kDkvKeys = 128;  // keys per block: 2 consumer warpgroups x 64
 constexpr int kDkvRows = 64;   // query rows per Q/dO tile of the ring
 
-// Q/dO tiles in flight: two at D 128 (the ring, K, V and the two running sums
-// take 192 KB), four at D 64.
+// The dk/dv kernel's tiling at head dim D. Up to D 128 a block holds 128
+// keys, 64 for each consumer warpgroup, which accumulates every column of
+// its keys' dK and dV. At D 256 (kSplit) a block holds 64 keys, and
+// warpgroup w accumulates columns [kCols w, kCols (w + 1)) of all of them.
+// Q/dO tiles in flight: four at D 64, two at D 128 (the ring, K, V and the
+// two running sums take 192 KB), one at D 256 (likewise).
 template <int D>
-constexpr int dkv_stages() {
-  return D == 128 ? 2 : 4;
-}
+struct DkvTiling {
+  static constexpr bool kSplit = D == 256;
+  static constexpr int kKeys = kSplit ? 64 : 128;   // keys per block
+  static constexpr int kCols = kSplit ? D / 2 : D;  // a warpgroup's columns
+  static constexpr int kStages = D == 64 ? 4 : D == 128 ? 2 : 1;
+};
 
 struct DkvSm90Params {
   CUtensorMap q;      // boxes of [kDkvRows rows, 64]
   CUtensorMap dout;   // [kDkvRows rows, 64]
-  CUtensorMap k;      // [kDkvKeys rows, 64]
-  CUtensorMap v;      // [kDkvKeys rows, 64]
+  CUtensorMap k;      // [DkvTiling<D>::kKeys rows, 64]
+  CUtensorMap v;      // [DkvTiling<D>::kKeys rows, 64]
   CUtensorMap dk;     // [64 rows, 64]: one consumer warpgroup's keys
   CUtensorMap dv;     // [64 rows, 64]
   const float* lse;    // [B, H, 1, L]
@@ -387,8 +415,8 @@ struct DkvSm90Params {
 // Byte offsets in the block's shared memory (after aligning it to 1024).
 template <int D>
 struct DkvSmem {
-  static constexpr int kStages = dkv_stages<D>();
-  static constexpr int kKV = kDkvKeys * D * 2;   // the K or V tile
+  static constexpr int kStages = DkvTiling<D>::kStages;
+  static constexpr int kKV = DkvTiling<D>::kKeys * D * 2;  // the K or V tile
   static constexpr int kTile = kDkvRows * D * 2;  // one Q or dO tile
   static constexpr int kK = 0;
   static constexpr int kV = kKV;
@@ -403,20 +431,21 @@ struct DkvSmem {
   static constexpr int kLaunch = kBar + (1 + 2 * kStages) * 8 + 1024;
 };
 
-// A consumer warpgroup's fp32 [64, D] sum over one q-head, rounded to bf16
-// and added, in bf16, to the sum of the earlier q-heads in its 64 rows of a
-// 128-row swizzled tile at `tile` (row 0 of the warpgroup, column block 0);
-// the first q-head stores its rounded sum. `ref[...] += x.astype(dtype)` of
-// the reference. Each thread reads back only the elements it wrote.
-template <int D>
+// A consumer warpgroup's fp32 [64, kCols] sum over one q-head, rounded to
+// bf16 and added, in bf16, to the sum of the earlier q-heads in its 64 rows
+// and kCols columns of a kRows-row swizzled tile at `tile` (row 0 of the
+// warpgroup, its first column block); the first q-head stores its rounded
+// sum. `ref[...] += x.astype(dtype)` of the reference. Each thread reads
+// back only the elements it wrote.
+template <int kCols, int kRows>
 __device__ __forceinline__ void add_head(unsigned char* tile,
-                                         const float (&acc)[D / 2],
+                                         const float (&acc)[kCols / 2],
                                          bool first, int tid) {
   const int r0 = 16 * (tid / 32) + (tid % 32) / 4;
   const int t = tid % 4;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    unsigned char* block = tile + (j / 8) * kDkvKeys * 128;
+  for (int j = 0; j < kCols / 8; ++j) {
+    unsigned char* block = tile + (j / 8) * kRows * 128;
     const int col = (j % 8) * 8 + 2 * t;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -438,18 +467,21 @@ template <int D>
 __global__ void __launch_bounds__(kSm90Threads, 1)
     dkv_sm90_kernel(const __grid_constant__ DkvSm90Params p) {
   using S = DkvSmem<D>;
+  using T = DkvTiling<D>;
   constexpr int kStages = S::kStages;
   constexpr int kM = kDkvRows;
+  constexpr int kKeys = T::kKeys;
+  constexpr int kCols = T::kCols;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + S::kBar);
   uint64_t* full = bar_kv + 1;
   uint64_t* empty = full + kStages;
 
-  const int k0 = blockIdx.x * kDkvKeys;  // under causal masking, heaviest first
+  const int k0 = blockIdx.x * kKeys;  // under causal masking, heaviest first
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
-  // the query tiles that attend into keys [k0, k0 + 128), for each q-head of
+  // the query tiles that attend into keys [k0, k0 + kKeys), for each q-head of
   // the group: from the diagonal on under causal masking, none when no key of
   // the block is valid
   const int i_begin = p.causal ? k0 / kM : 0;
@@ -472,8 +504,8 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(bar_kv, 2 * S::kKV);
-      load_rows<D, kDkvKeys>(smem + S::kK, &p.k, bar_kv, k0, hk, b);
-      load_rows<D, kDkvKeys>(smem + S::kV, &p.v, bar_kv, k0, hk, b);
+      load_rows<D, kKeys>(smem + S::kK, &p.k, bar_kv, k0, hk, b);
+      load_rows<D, kKeys>(smem + S::kV, &p.v, bar_kv, k0, hk, b);
       for (int it = 0; it < n_items; ++it) {
         const int s = it % kStages;
         const int r = it / n_q;
@@ -491,7 +523,10 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
     const int wg = threadIdx.x / 128 - 1;  // consumer warpgroup: 0 or 1
     const int tid = threadIdx.x % 128;
     const int t = tid % 4;
-    const int key0 = k0 + 64 * wg;  // the warpgroup's first key
+    // the warpgroup's first key, and the first of the columns of dK and dV
+    // it accumulates
+    const int key0 = T::kSplit ? k0 : k0 + 64 * wg;
+    const int col0 = T::kSplit ? kCols * wg : 0;
     // this thread's accumulator rows are keys[0] and keys[1]
     const int keys[2] = {key0 + 16 * (tid / 32) + (tid % 32) / 4,
                          key0 + 16 * (tid / 32) + (tid % 32) / 4 + 8};
@@ -506,15 +541,21 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
       }
     }
     const bool live = key0 < p.kv_end;  // some key of the warpgroup is valid
-    const uint32_t k_tile = smem_u32(smem + S::kK) + wg * 64 * 128;
-    const uint32_t v_tile = smem_u32(smem + S::kV) + wg * 64 * 128;
-    unsigned char* sum_k = smem + S::kSumK + wg * 64 * 128;
-    unsigned char* sum_v = smem + S::kSumV + wg * 64 * 128;
+    // the warpgroup's rows of K and V, and its rows and first column block
+    // of the two sums (column blocks are kKeys rows of 128 bytes)
+    const int rows_at = (key0 - k0) * 128;
+    const int cols_at = (col0 / 64) * kKeys * 128;
+    const uint32_t k_tile = smem_u32(smem + S::kK) + rows_at;
+    const uint32_t v_tile = smem_u32(smem + S::kV) + rows_at;
+    unsigned char* sum_k = smem + S::kSumK + rows_at + cols_at;
+    unsigned char* sum_v = smem + S::kSumV + rows_at + cols_at;
+    // its columns of a Q or dO tile (column blocks of kM rows)
+    const int half_at = (col0 / 64) * kM * 128;
 
-    float dk[D / 2];
-    float dv[D / 2];
+    float dk[kCols / 2];
+    float dv[kCols / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) {
+    for (int i = 0; i < kCols / 2; ++i) {
       dk[i] = 0.f;
       dv[i] = 0.f;
     }
@@ -582,13 +623,13 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          Wgmma<kM>::ss(st, desc_k_major(k_tile, kDkvKeys, kk),
+          Wgmma<kM>::ss(st, desc_k_major(k_tile, kKeys, kk),
                         desc_k_major(q_tile, kM, kk), kk > 0);
         }
         wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          Wgmma<kM>::ss(dpt, desc_k_major(v_tile, kDkvKeys, kk),
+          Wgmma<kM>::ss(dpt, desc_k_major(v_tile, kKeys, kk),
                         desc_k_major(do_tile, kM, kk), kk > 0);
         }
         wgmma_commit();
@@ -618,15 +659,23 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
           acc_to_a(pa[kk], st, kk);
         }
         // dV += P^T dO, dO read MN-major (queries are the reduction); runs
-        // while dS^T is computed
+        // while dS^T is computed, except at D 256, where P^T's registers are
+        // freed first for dS^T's
         fence_operand(dv);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kM / 16; ++kk) {
-          Wgmma<D>::rs(dv, pa[kk], desc_mn_major(do_tile, kM, kk), 1);
+          Wgmma<kCols>::rs(dv, pa[kk],
+                           desc_mn_major(do_tile + half_at, kM, kk), 1);
         }
         wgmma_commit();
-        wgmma_wait<1>();  // dP^T is done; dV may still run
+        if constexpr (T::kSplit) {
+          wgmma_wait<0>();
+          fence_operand(dv);
+          fence_operand(pa);
+        } else {
+          wgmma_wait<1>();  // dP^T is done; dV may still run
+        }
         fence_operand(dpt);
 
         // dS^T = P^T * (dP^T - delta) * scale, cast to bf16
@@ -645,49 +694,56 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kM / 16; ++kk) {
-          Wgmma<D>::rs(dk, da[kk], desc_mn_major(q_tile, kM, kk), 1);
+          Wgmma<kCols>::rs(dk, da[kk],
+                           desc_mn_major(q_tile + half_at, kM, kk), 1);
         }
         wgmma_commit();
         wgmma_wait<0>();
         fence_operand(dv);
         fence_operand(dk);
-        fence_operand(pa);
+        if constexpr (!T::kSplit) fence_operand(pa);
         fence_operand(da);
       }
       mbar_arrive(&empty[s]);
       if (it + 1 < n_items) publish(it + 1);
       if (it - r * n_q == n_q - 1) {
         // the q-head's last tile: add its sums to the earlier q-heads'
-        add_head<D>(sum_k, dk, r == 0, tid);
-        add_head<D>(sum_v, dv, r == 0, tid);
+        add_head<kCols, kKeys>(sum_k, dk, r == 0, tid);
+        add_head<kCols, kKeys>(sum_v, dv, r == 0, tid);
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) {
+        for (int i = 0; i < kCols / 2; ++i) {
           dk[i] = 0.f;
           dv[i] = 0.f;
         }
       }
     }
     if (n_items == 0) {  // no valid key in the block: dk = dv = 0
-      add_head<D>(sum_k, dk, true, tid);
-      add_head<D>(sum_v, dv, true, tid);
+      add_head<kCols, kKeys>(sum_k, dk, true, tid);
+      add_head<kCols, kKeys>(sum_v, dv, true, tid);
     }
 
-    // the warpgroup's 64 keys of dK and dV, by TMA (keys past L dropped)
+    // the warpgroup's 64 keys x kCols columns of dK and dV, by TMA (keys
+    // past L dropped)
     fence_proxy_async();
     named_barrier(1 + wg, 128);
     if (tid == 0) {
-      for (int c = 0; c < D / 64; ++c) {
-        tma_store_4d(&p.dk, sum_k + c * kDkvKeys * 128, c * 64, key0, hk, b);
-        tma_store_4d(&p.dv, sum_v + c * kDkvKeys * 128, c * 64, key0, hk, b);
+      for (int c = 0; c < kCols / 64; ++c) {
+        tma_store_4d(&p.dk, sum_k + c * kKeys * 128, col0 + c * 64, key0, hk,
+                     b);
+        tma_store_4d(&p.dv, sum_v + c * kKeys * 128, col0 + c * 64, key0, hk,
+                     b);
       }
       tma_store_wait();
     }
   }
 }
 
-// Builds the six tensor maps and launches the bf16 dk/dv kernel.
-cudaError_t launch_dkv_sm90(const BwdArgs& a, int D, int batch, int kv_heads,
+// Builds the six tensor maps and launches the bf16 dk/dv kernel at head dim
+// D.
+template <int D>
+cudaError_t launch_dkv_sm90(const BwdArgs& a, int batch, int kv_heads,
                             cudaStream_t stream) {
+  constexpr int kKeys = DkvTiling<D>::kKeys;
   DkvSm90Params p;
   const bool mapped =
       make_tile_map(&p.q, a.q, D, a.L, a.H, batch, a.q_s.l, a.q_s.h, a.q_s.b,
@@ -695,9 +751,9 @@ cudaError_t launch_dkv_sm90(const BwdArgs& a, int D, int batch, int kv_heads,
       make_tile_map(&p.dout, a.dout, D, a.L, a.H, batch, a.do_s.l, a.do_s.h,
                     a.do_s.b, kDkvRows) &&
       make_tile_map(&p.k, a.k, D, a.L, kv_heads, batch, a.k_s.l, a.k_s.h,
-                    a.k_s.b, kDkvKeys) &&
+                    a.k_s.b, kKeys) &&
       make_tile_map(&p.v, a.v, D, a.L, kv_heads, batch, a.v_s.l, a.v_s.h,
-                    a.v_s.b, kDkvKeys) &&
+                    a.v_s.b, kKeys) &&
       make_tile_map(&p.dk, a.dk, D, a.L, kv_heads, batch, a.dk_s.l, a.dk_s.h,
                     a.dk_s.b, 64) &&
       make_tile_map(&p.dv, a.dv, D, a.L, kv_heads, batch, a.dv_s.l, a.dv_s.h,
@@ -713,26 +769,23 @@ cudaError_t launch_dkv_sm90(const BwdArgs& a, int D, int batch, int kv_heads,
   p.causal = a.causal;
   p.scale = a.scale;
   p.scale_log2 = a.scale * kLog2e;
-  const dim3 grid((a.L + kDkvKeys - 1) / kDkvKeys, kv_heads, batch);
-  if (D == 128) {
-    return launch_kernel(dkv_sm90_kernel<128>, grid, kSm90Threads,
-                         DkvSmem<128>::kLaunch, p, stream);
-  }
-  return launch_kernel(dkv_sm90_kernel<64>, grid, kSm90Threads,
-                       DkvSmem<64>::kLaunch, p, stream);
+  const dim3 grid((a.L + kKeys - 1) / kKeys, kv_heads, batch);
+  return launch_kernel(dkv_sm90_kernel<D>, grid, kSm90Threads,
+                       DkvSmem<D>::kLaunch, p, stream);
 }
 
 // ---------------------------------------------------------------------------
 // float32: scalar FMAs in shared memory (full-precision reference path)
 // ---------------------------------------------------------------------------
 
-// Rows [row0, row0+64) of a [L, D] fp32 head into shared memory with row
-// stride ld; rows past L are zero.
+// Rows [row0, row0 + f32_tile<D>()) of a [L, D] fp32 head into shared
+// memory with row stride ld; rows past L are zero.
 template <int D>
 __device__ __forceinline__ void load_tile_f32(float* dst, int ld,
                                               const float* src,
                                               long long stride, int row0,
                                               int rows, int tid) {
+  constexpr int kF32Tile = f32_tile<D>();
   for (int i = tid; i < kF32Tile * D; i += kF32Threads) {
     const int r = i / D;
     const int c = i % D;
@@ -740,9 +793,10 @@ __device__ __forceinline__ void load_tile_f32(float* dst, int ld,
   }
 }
 
-// dS (dq kernel) or P and dS (dk/dv kernel) of a 64 x 64 tile pair into
-// shared memory, indexed [query][key] with row stride 65. sQ/sDo are [64][D]
-// query rows from q0, sK/sV [64][D+1] key rows from k0.
+// dS (dq kernel) or P and dS (dk/dv kernel) of a T x T tile pair (T =
+// f32_tile<D>()) into shared memory, indexed [query][key] with row stride
+// T + 1. sQ/sDo are [T][D] query rows from q0, sK/sV [T][D+1] key rows from
+// k0.
 template <int D>
 __device__ __forceinline__ void scores_f32(const BwdArgs& a, const int* seg_b,
                                            const float* sQ, const float* sDo,
@@ -750,6 +804,7 @@ __device__ __forceinline__ void scores_f32(const BwdArgs& a, const int* seg_b,
                                            const float* sLse,
                                            const float* sDelta, int q0, int k0,
                                            float* sP, float* sDs, int tid) {
+  constexpr int kF32Tile = f32_tile<D>();
   constexpr int kLdK = D + 1;
   constexpr int kLdS = kF32Tile + 1;
   const int c = tid % kF32Tile;
@@ -774,16 +829,17 @@ __device__ __forceinline__ void scores_f32(const BwdArgs& a, const int* seg_b,
 
 template <int D>
 __global__ void __launch_bounds__(kF32Threads) dq_f32_kernel(BwdArgs a) {
+  constexpr int kF32Tile = f32_tile<D>();
   constexpr int kLdK = D + 1;  // thread c reads key row c: no bank conflicts
   constexpr int kLdS = kF32Tile + 1;
   constexpr int kRowGroups = kF32Threads / D;
   constexpr int kRowsPerThread = kF32Tile / kRowGroups;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);  // [64][D]
-  float* sDo = sQ + kF32Tile * D;                  // [64][D]
-  float* sK = sDo + kF32Tile * D;                  // [64][D+1]
-  float* sV = sK + kF32Tile * kLdK;                // [64][D+1]
-  float* sDs = sV + kF32Tile * kLdK;               // [64][65]
+  float* sQ = reinterpret_cast<float*>(smem_raw);  // [T = f32_tile<D>()][D]
+  float* sDo = sQ + kF32Tile * D;                  // [T][D]
+  float* sK = sDo + kF32Tile * D;                  // [T][D+1]
+  float* sV = sK + kF32Tile * kLdK;                // [T][D+1]
+  float* sDs = sV + kF32Tile * kLdK;               // [T][T+1]
   float* sLse = sDs + kF32Tile * kLdS;
   float* sDelta = sLse + kF32Tile;
 
@@ -841,17 +897,18 @@ __global__ void __launch_bounds__(kF32Threads) dq_f32_kernel(BwdArgs a) {
 
 template <int D>
 __global__ void __launch_bounds__(kF32Threads) dkv_f32_kernel(BwdArgs a) {
+  constexpr int kF32Tile = f32_tile<D>();
   constexpr int kLdK = D + 1;
   constexpr int kLdS = kF32Tile + 1;
   constexpr int kKeyGroups = kF32Threads / D;
   constexpr int kKeysPerThread = kF32Tile / kKeyGroups;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sK = reinterpret_cast<float*>(smem_raw);  // [64][D+1]
-  float* sV = sK + kF32Tile * kLdK;                // [64][D+1]
-  float* sQ = sV + kF32Tile * kLdK;                // [64][D]
-  float* sDo = sQ + kF32Tile * D;                  // [64][D]
-  float* sP = sDo + kF32Tile * D;                  // [64][65]
-  float* sDs = sP + kF32Tile * kLdS;               // [64][65]
+  float* sK = reinterpret_cast<float*>(smem_raw);  // [T = f32_tile<D>()][D+1]
+  float* sV = sK + kF32Tile * kLdK;                // [T][D+1]
+  float* sQ = sV + kF32Tile * kLdK;                // [T][D]
+  float* sDo = sQ + kF32Tile * D;                  // [T][D]
+  float* sP = sDo + kF32Tile * D;                  // [T][T+1]
+  float* sDs = sP + kF32Tile * kLdS;               // [T][T+1]
   float* sLse = sDs + kF32Tile * kLdS;
   float* sDelta = sLse + kF32Tile;
 
@@ -919,15 +976,42 @@ __global__ void __launch_bounds__(kF32Threads) dkv_f32_kernel(BwdArgs a) {
 }
 
 template <int D>
-int dq_f32_smem() {
+constexpr int dq_f32_smem() {
+  constexpr int kF32Tile = f32_tile<D>();
   return (2 * kF32Tile * D + 2 * kF32Tile * (D + 1) +
           kF32Tile * (kF32Tile + 1) + 2 * kF32Tile) * 4;
 }
 
 template <int D>
-int dkv_f32_smem() {
+constexpr int dkv_f32_smem() {
+  constexpr int kF32Tile = f32_tile<D>();
   return (2 * kF32Tile * (D + 1) + 2 * kF32Tile * D +
           2 * kF32Tile * (kF32Tile + 1) + 2 * kF32Tile) * 4;
+}
+// within the 232,448 bytes a block may opt into, at every head dim
+static_assert(dq_f32_smem<128>() <= 232448 && dq_f32_smem<256>() <= 232448 &&
+                  dkv_f32_smem<128>() <= 232448 &&
+                  dkv_f32_smem<256>() <= 232448,
+              "the fp32 paths' tiles fit");
+static_assert(DqSmem<256>::kLaunch <= 232448 &&
+                  DkvSmem<256>::kLaunch <= 232448 &&
+                  DkvSmem<128>::kLaunch <= 232448,
+              "the bf16 kernels' shared memory fits");
+
+// Launches the fp32 dq or dk/dv kernel at head dim D over `heads` heads.
+template <int D>
+cudaError_t launch_dq_f32(const BwdArgs& a, int batch, cudaStream_t s) {
+  const dim3 grid((a.L + f32_tile<D>() - 1) / f32_tile<D>(), a.H, batch);
+  return launch_kernel(dq_f32_kernel<D>, grid, kF32Threads, dq_f32_smem<D>(),
+                       a, s);
+}
+
+template <int D>
+cudaError_t launch_dkv_f32(const BwdArgs& a, int batch, int kv_heads,
+                           cudaStream_t s) {
+  const dim3 grid((a.L + f32_tile<D>() - 1) / f32_tile<D>(), kv_heads, batch);
+  return launch_kernel(dkv_f32_kernel<D>, grid, kF32Threads,
+                       dkv_f32_smem<D>(), a, s);
 }
 
 // Fills BwdArgs from the C arguments; false for shapes the kernels refuse.
@@ -968,14 +1052,14 @@ bool make_args(BwdArgs* a, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 64 or 128. strides: the batch,
-// head and sequence strides (in elements) of q, k, v, dout, dq, dk and dv, in
-// that order (21 values; flash_bwd_dq ignores the last six, flash_bwd_dkv
-// those of dq); the head dim must be contiguous (bf16: every stride of q, k,
-// v, dout and the outputs a multiple of 8 elements, as TMA requires). lse and
-// delta: [batch, heads, 1, seq_len] fp32, contiguous. segments: [batch,
-// seq_len] int32 or null. valid_len: 0, or mask keys at positions >=
-// valid_len. Each returns a cudaError_t: the launch's, or
+// dtype: 0 = float32, 1 = bfloat16. head_dim: 64, 128 or 256. strides:
+// the batch, head and sequence strides (in elements) of q, k, v, dout, dq,
+// dk and dv, in that order (21 values; flash_bwd_dq ignores the last six,
+// flash_bwd_dkv those of dq); the head dim must be contiguous (bf16: every
+// stride of q, k, v, dout and the outputs a multiple of 8 elements, as TMA
+// requires). lse and delta: [batch, heads, 1, seq_len] fp32, contiguous.
+// segments: [batch, seq_len] int32 or null. valid_len: 0, or mask keys at
+// positions >= valid_len. Each returns a cudaError_t: the launch's, or
 // cudaErrorInvalidValue for an unsupported dtype, head_dim, shape or layout.
 int flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
                  const void* v, const void* dout, const void* lse,
@@ -990,16 +1074,17 @@ int flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid_f32((seq_len + kF32Tile - 1) / kF32Tile, heads, batch);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 1 && (head_dim == 128 || head_dim == 64)) {
-    err = launch_dq_sm90(a, head_dim, batch, kv_heads, s);
-  } else if (dtype == 0 && head_dim == 128) {
-    err = launch_kernel(dq_f32_kernel<128>, grid_f32, kF32Threads,
-                        dq_f32_smem<128>(), a, s);
-  } else if (dtype == 0 && head_dim == 64) {
-    err = launch_kernel(dq_f32_kernel<64>, grid_f32, kF32Threads,
-                        dq_f32_smem<64>(), a, s);
+  if (dtype == 1) {
+    err = head_dim == 256   ? launch_dq_sm90<256>(a, batch, kv_heads, s)
+          : head_dim == 128 ? launch_dq_sm90<128>(a, batch, kv_heads, s)
+          : head_dim == 64  ? launch_dq_sm90<64>(a, batch, kv_heads, s)
+                            : err;
+  } else if (dtype == 0) {
+    err = head_dim == 256   ? launch_dq_f32<256>(a, batch, s)
+          : head_dim == 128 ? launch_dq_f32<128>(a, batch, s)
+          : head_dim == 64  ? launch_dq_f32<64>(a, batch, s)
+                            : err;
   }
   return static_cast<int>(err);
 }
@@ -1017,16 +1102,17 @@ int flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid_f32((seq_len + kF32Tile - 1) / kF32Tile, kv_heads, batch);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 1 && (head_dim == 128 || head_dim == 64)) {
-    err = launch_dkv_sm90(a, head_dim, batch, kv_heads, s);
-  } else if (dtype == 0 && head_dim == 128) {
-    err = launch_kernel(dkv_f32_kernel<128>, grid_f32, kF32Threads,
-                        dkv_f32_smem<128>(), a, s);
-  } else if (dtype == 0 && head_dim == 64) {
-    err = launch_kernel(dkv_f32_kernel<64>, grid_f32, kF32Threads,
-                        dkv_f32_smem<64>(), a, s);
+  if (dtype == 1) {
+    err = head_dim == 256   ? launch_dkv_sm90<256>(a, batch, kv_heads, s)
+          : head_dim == 128 ? launch_dkv_sm90<128>(a, batch, kv_heads, s)
+          : head_dim == 64  ? launch_dkv_sm90<64>(a, batch, kv_heads, s)
+                            : err;
+  } else if (dtype == 0) {
+    err = head_dim == 256   ? launch_dkv_f32<256>(a, batch, kv_heads, s)
+          : head_dim == 128 ? launch_dkv_f32<128>(a, batch, kv_heads, s)
+          : head_dim == 64  ? launch_dkv_f32<64>(a, batch, kv_heads, s)
+                            : err;
   }
   return static_cast<int>(err);
 }

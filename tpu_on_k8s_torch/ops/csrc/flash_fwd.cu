@@ -40,11 +40,16 @@
 //   * o = acc / l is written as bf16 over the warpgroup's own Q rows in
 //     shared memory and stored by TMA, which drops rows past L; lse is
 //     stored by the threads that hold it.
-// Shared memory at D 128: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB.
+// Shared memory at D 128: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB. At
+// D 256 the K/V tiles hold 64 keys (Q 64 KB + 2 x (K 32 KB + V 32 KB) =
+// 192 KB; 128-key tiles would need 320 KB), the O accumulator takes 128 fp32
+// registers a thread and O += P V is one m64n256k16 wgmma a k-step; the
+// first warpgroup skips the products of a causal tile wholly after its rows.
 //
-// The float32 path runs a 64 x 64 tiling with scalar FMAs in shared memory.
-// It exists so that a check on the card can also compare at full precision;
-// it is not tuned.
+// The float32 path runs a 64 x 64 tiling with scalar FMAs in shared memory
+// (209 KB of it at D 256, under the 227 KB a block may use). It exists so
+// that a check on the card can also compare at full precision; it is not
+// tuned.
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
@@ -90,13 +95,19 @@ __device__ __forceinline__ int num_kv_tiles(const FwdArgs& a, int q0) {
 // bf16: TMA-fed wgmma, one producer thread and two consumer warpgroups
 // ---------------------------------------------------------------------------
 
-constexpr int kFwdKeys = 128;  // keys per K/V tile
 constexpr int kFwdStages = 2;  // K/V tiles in flight
+
+// Keys per K/V tile: 128, as tall as the query tile; 64 at D 256, where two
+// stages of 128-key K and V tiles beside Q would not fit in shared memory.
+template <int D>
+__host__ __device__ constexpr int fwd_keys() {
+  return D == 256 ? 64 : 128;
+}
 
 struct FwdSm90Params {
   CUtensorMap q;   // boxes of [128 rows, 64]
-  CUtensorMap k;   // [kFwdKeys rows, 64]
-  CUtensorMap v;   // [kFwdKeys rows, 64]
+  CUtensorMap k;   // [fwd_keys<D>() rows, 64]
+  CUtensorMap v;   // [fwd_keys<D>() rows, 64]
   CUtensorMap o;   // [64 rows, 64]: one consumer warpgroup's rows
   const int* seg;  // [B, L] int32 or null
   float* lse;      // [B, H, 1, L]
@@ -107,11 +118,12 @@ struct FwdSm90Params {
 // Byte offsets in the block's shared memory (after aligning it to 1024).
 template <int D>
 struct FwdSmem {
-  static constexpr int kKV = kFwdKeys * D * 2;          // one K or V tile
+  static constexpr int kN = fwd_keys<D>();
+  static constexpr int kKV = kN * D * 2;                // one K or V tile
   static constexpr int kK = kSm90Rows * D * 2;          // Q (later O) first
   static constexpr int kV = kK + kFwdStages * kKV;
   static constexpr int kSeg = kV + kFwdStages * kKV;    // [2 wg][2][keys]
-  static constexpr int kBar = kSeg + 2 * 2 * kFwdKeys * 4;
+  static constexpr int kBar = kSeg + 2 * 2 * kN * 4;
   static constexpr int kLaunch = kBar + (1 + 3 * kFwdStages) * 8 + 1024;
 };
 
@@ -119,7 +131,7 @@ template <int D>
 __global__ void __launch_bounds__(kSm90Threads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ FwdSm90Params p) {
   using S = FwdSmem<D>;
-  constexpr int kN = kFwdKeys;
+  constexpr int kN = S::kN;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + S::kBar);
@@ -175,9 +187,6 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
     const uint32_t q_tile = smem_u32(smem) + wg * 64 * 128;
     mbar_wait(bar_q, 0);
 
-    // K/V tiles are as tall as the query tile, so the causal loop reaches
-    // no tile that lies wholly after a warpgroup's rows: every tile computes
-    static_assert(kFwdKeys == kSm90Rows, "no tile is skipped");
     for (int j = 0; j < n_tiles; ++j) {
       const int s = j % kFwdStages;
       const uint32_t parity = (j / kFwdStages) & 1;
@@ -191,6 +200,15 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
         int* buf = seg_keys + (j & 1) * kN;
         load_key_segments(buf, seg_b, k0, kN, p.L, tid, 1 + wg);
         seg_tile = buf;
+      }
+      // every key of the tile after every row of the warpgroup: under
+      // causal masking with tiles shorter than the query tile (D 256), the
+      // first warpgroup's last tile, which would add exactly 0
+      if (kN < kSm90Rows && p.causal && k0 > row0 + 63) {
+        mbar_wait(&full_k[s], parity);
+        mbar_wait(&full_v[s], parity);
+        mbar_arrive(&empty[s]);
+        continue;
       }
       float sc[kN / 2];
       mbar_wait(&full_k[s], parity);
@@ -294,8 +312,9 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
   }
 }
 
-// Builds the four tensor maps and launches the bf16 kernel.
-cudaError_t launch_fwd_sm90(int D, const void* q, const void* k, const void* v,
+// Builds the four tensor maps and launches the bf16 kernel at head dim D.
+template <int D>
+cudaError_t launch_fwd_sm90(const void* q, const void* k, const void* v,
                             const void* segments, void* o, void* lse,
                             int batch, int heads, int kv_heads, int seq_len,
                             int causal, int kv_end, float scale,
@@ -305,9 +324,9 @@ cudaError_t launch_fwd_sm90(int D, const void* q, const void* k, const void* v,
       make_tile_map(&p.q, q, D, seq_len, heads, batch, st[2], st[1], st[0],
                     kSm90Rows) &&
       make_tile_map(&p.k, k, D, seq_len, kv_heads, batch, st[5], st[4], st[3],
-                    kFwdKeys) &&
+                    fwd_keys<D>()) &&
       make_tile_map(&p.v, v, D, seq_len, kv_heads, batch, st[8], st[7], st[6],
-                    kFwdKeys) &&
+                    fwd_keys<D>()) &&
       make_tile_map(&p.o, o, D, seq_len, heads, batch, st[11], st[10], st[9],
                     64);
   if (!mapped) return cudaErrorInvalidValue;
@@ -320,12 +339,8 @@ cudaError_t launch_fwd_sm90(int D, const void* q, const void* k, const void* v,
   p.causal = causal;
   p.scale_log2 = scale * kLog2e;
   const dim3 grid((seq_len + kSm90Rows - 1) / kSm90Rows, heads, batch);
-  if (D == 128) {
-    return launch_kernel(flash_fwd_sm90_kernel<128>, grid, kSm90Threads,
-                         FwdSmem<128>::kLaunch, p, stream);
-  }
-  return launch_kernel(flash_fwd_sm90_kernel<64>, grid, kSm90Threads,
-                       FwdSmem<64>::kLaunch, p, stream);
+  return launch_kernel(flash_fwd_sm90_kernel<D>, grid, kSm90Threads,
+                       FwdSmem<D>::kLaunch, p, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -436,19 +451,22 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(FwdArgs a) {
 }
 
 template <int D>
-int f32_smem() {
+constexpr int f32_smem() {
   return (kBlockM * D + kBlockN * (D + 1) + kBlockN * D +
           kBlockM * (kBlockN + 1) + 3 * kBlockM) * 4;
 }
+// 214,272 bytes at D 256: within the 232,448 a block may opt into
+static_assert(f32_smem<256>() <= 232448, "the fp32 path's D 256 tiles fit");
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 64 or 128. strides: the batch,
-// head and sequence strides (in elements) of q, k, v and o, in that order;
-// the head dim must be contiguous (bf16: every stride a multiple of 8
-// elements, as TMA requires). segments: [batch, seq_len] int32 or null.
+// dtype: 0 = float32, 1 = bfloat16. head_dim: 64, 128 or 256. strides:
+// the batch, head and sequence strides (in elements) of q, k, v and o, in
+// that order; the head dim must be contiguous (bf16: every stride a
+// multiple of 8 elements, as TMA requires). segments: [batch, seq_len]
+// int32 or null.
 // valid_len: 0, or mask keys at positions >= valid_len. Returns a
 // cudaError_t: the launch's, or cudaErrorInvalidValue for an unsupported
 // dtype, head_dim or layout.
@@ -459,15 +477,21 @@ int flash_fwd(int dtype, int head_dim, const void* q, const void* k,
               void* stream) {
   if (heads <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || seq_len <= 0 ||
       batch <= 0 || valid_len < 0 || valid_len > seq_len ||
-      (head_dim != 64 && head_dim != 128)) {
+      (head_dim != 64 && head_dim != 128 && head_dim != 256)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int kv_end = valid_len > 0 ? valid_len : seq_len;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    return static_cast<int>(launch_fwd_sm90(
-        head_dim, q, k, v, segments, o, lse, batch, heads, kv_heads, seq_len,
-        causal, kv_end, scale, strides, s));
+    cudaError_t (*launch)(const void*, const void*, const void*, const void*,
+                          void*, void*, int, int, int, int, int, int, float,
+                          const long long*, cudaStream_t) =
+        head_dim == 256   ? &launch_fwd_sm90<256>
+        : head_dim == 128 ? &launch_fwd_sm90<128>
+                          : &launch_fwd_sm90<64>;
+    return static_cast<int>(launch(q, k, v, segments, o, lse, batch, heads,
+                                   kv_heads, seq_len, causal, kv_end, scale,
+                                   strides, s));
   }
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   FwdArgs a;
@@ -488,11 +512,13 @@ int flash_fwd(int dtype, int head_dim, const void* q, const void* k,
   a.v_sb = strides[6]; a.v_sh = strides[7]; a.v_sl = strides[8];
   a.o_sb = strides[9]; a.o_sh = strides[10]; a.o_sl = strides[11];
   const dim3 grid((seq_len + kBlockM - 1) / kBlockM, heads, batch);
-  cudaError_t err = head_dim == 128
-      ? launch_kernel(flash_fwd_f32_kernel<128>, grid, kF32Threads,
-                      f32_smem<128>(), a, s)
-      : launch_kernel(flash_fwd_f32_kernel<64>, grid, kF32Threads,
-                      f32_smem<64>(), a, s);
+  cudaError_t err =
+      head_dim == 256 ? launch_kernel(flash_fwd_f32_kernel<256>, grid,
+                                      kF32Threads, f32_smem<256>(), a, s)
+      : head_dim == 128 ? launch_kernel(flash_fwd_f32_kernel<128>, grid,
+                                        kF32Threads, f32_smem<128>(), a, s)
+                        : launch_kernel(flash_fwd_f32_kernel<64>, grid,
+                                        kF32Threads, f32_smem<64>(), a, s);
   return static_cast<int>(err);
 }
 

@@ -25,12 +25,13 @@ Each kernel runs behind an operator (``torch.library.custom_op``:
 which is what the dispatcher, a selective checkpoint's policy (the remat
 policies of ``models/transformer.py``) and ``torch.utils.flop_counter``
 (with a FLOP formula for each) see of it. On a CUDA tensor each wrapper
-launches its kernel (bf16 or fp32) or raises; it never falls back. The kernels are built for head dims 64 and 128; any
-other head dim up to 128 is zero-padded to the next of them before the
-launch and the outputs sliced back (``with_kernel_head_dim``), with the
-scale of the true head dim, as Mosaic pads the reference's head dim to its
-128-lane tile. Zero columns add nothing to q·k, to o, or to the gradients'
-sums, so the padding is exact; a head dim above 128 raises. On a CPU
+launches its kernel (bf16 or fp32) or raises; it never falls back. The
+kernels are built for head dims 64, 128 and 256; any other head dim up to
+256 is zero-padded to the next of them before the launch and the outputs
+sliced back (``with_kernel_head_dim``), with the scale of the true head
+dim, as Mosaic pads the reference's head dim to its 128-lane tile. Zero
+columns add nothing to q·k, to o, or to the gradients' sums, so the
+padding is exact; a head dim above 256 raises. On a CPU
 tensor it runs the plain twin (``flash_attention_plain``,
 ``flash_bwd_dq_plain``, ``flash_bwd_dkv_plain``), the same function in
 plain PyTorch. The TPU
@@ -62,11 +63,11 @@ dq_launches = 0
 dkv_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 
 
 def kernel_head_dim(d: int) -> int:
-    """The head dim the kernels run a head dim ``d`` at: 64 or 128."""
+    """The head dim the kernels run a head dim ``d`` at: 64, 128 or 256."""
     for width in _HEAD_DIMS:
         if d <= width:
             return width

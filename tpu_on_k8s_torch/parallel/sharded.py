@@ -4,8 +4,9 @@ reference leaves to XLA's SPMD partitioner given its rules, written out.
 ``shard_model`` lays ``Bert`` and the vision models out too: FSDP2 over
 their ``blocks`` and root. Over a ``model`` axis > 1 it calls the model's
 own ``tensor_parallel(tp_mesh)``: the ``Transformer``'s runs
-``tensor_parallel`` below, the vision models' keeps whole weights (their
-rules name no ``model`` axis) and ``Bert``'s refuses.
+``tensor_parallel`` below, ``Bert``'s the same machinery on the encoder's
+projections (``parallelize_projections``, ``vocab_parallel``), and the
+vision models' keeps whole weights (their rules name no ``model`` axis).
 
 ``shard_model(model, mesh, rules)`` validates every parameter against the
 rules first (``ShardingValidationError`` before anything moves), then:
@@ -41,18 +42,21 @@ weight's absmax all-reduced (max) over ``model``, so its int8 values and
 scales are the unsharded ones, and sums the fp32 partial products before
 one cast (``Int8Dense``).
 
-Over a ``seq`` axis > 1 (a model with ``split_sequence``: the decoder
-``Transformer``) each block's attention is handed the mesh
-(``Transformer.split_sequence``): each rank of a ``seq`` group runs
-one chunk of every sequence, the trainer's steps cut it
-(``train/trainer.py``), and the attention runs as ``attn_impl`` says
-(ring, Ulysses, or gathered whole over ``seq``). Parameters are
-replicated over ``seq``: FSDP2 sums each gradient over (data, fsdp), and
+Over a ``seq`` axis > 1 a model with ``split_sequence`` is handed the
+mesh: each rank of a ``seq`` group runs one chunk of every sequence, which
+the steps cut (``train/trainer.py``, ``train/mlm.py``). The decoder
+``Transformer``'s attention runs as ``attn_impl`` says (ring, Ulysses, or
+gathered whole over ``seq``) and its MoE blocks route over the whole
+sequence (``models/moe.py``); ``Bert``'s attention is gathered whole. A
+model without one (the vision models, whose images have no sequence)
+takes ``seq`` as one more replica axis: every rank of it steps the same
+rows. Parameters are replicated over ``seq``: FSDP2 sums each gradient
+over (data, fsdp), and where the sequence is split
 ``sum_grads_over_seq`` then sums its local block over ``seq`` before the
 clip (a sum: the loss is a mean over the global count). What it refuses:
-``seq`` > 1 for the other models and for serving (ROADMAP Queue 1 item
-4b), ``seq`` > 1 for an MoE model (the same item) and ``expert`` > 1 for
-a dense model or one whose experts it does not divide.
+``seq`` > 1 for serving (the reference's ``serving_mesh`` fixes it at 1),
+and ``expert`` > 1 for a dense model or one whose experts it does not
+divide.
 
 MoE blocks (``models/moe.py``; ``moe_parallel``): each expert weight is a
 ``DTensor`` over the (``expert``, ``model``) axes that split it, the
@@ -156,23 +160,18 @@ def layout_of(model: nn.Module) -> Optional[Layout]:
     return getattr(model, "layout", None)
 
 
-def check_mesh(cfg, mesh, splits_sequence: bool = False) -> None:
+def check_mesh(cfg, mesh, serving: bool = False) -> None:
     """Raise for a mesh this port does not run ``cfg`` on: a ``seq`` axis
-    over 1 unless the model splits its sequence (training the dense
-    decoder), or an ``expert`` axis over 1 unless ``cfg`` is an MoE model
-    whose experts it divides (see the module docstring)."""
+    over 1 for serving (``serving``), or an ``expert`` axis over 1 unless
+    ``cfg`` is an MoE model whose experts it divides (see the module
+    docstring)."""
     sizes = mesh_shape(mesh)
     n_experts = getattr(cfg, "n_experts", 0)
-    if sizes.get(AXIS_SEQ, 1) > 1 and not splits_sequence:
+    if sizes.get(AXIS_SEQ, 1) > 1 and serving:
         raise NotImplementedError(
-            "a seq mesh axis > 1 runs the decoder's training only in "
-            "tpu_on_k8s_torch; for serving, BERT and the vision models it "
-            "is ROADMAP Queue 1 item 4b")
-    if sizes.get(AXIS_SEQ, 1) > 1 and n_experts:
-        raise NotImplementedError(
-            "a seq mesh axis > 1 with n_experts > 0 is ROADMAP Queue 1 item "
-            "4b: the reference routes over the whole sequence (its capacity "
-            "and slot counts span the chunks)")
+            "serving runs no seq mesh axis > 1: the reference's serving_mesh "
+            "fixes seq at 1 (a decode step has no sequence axis to split); "
+            "split the sequence in training")
     expert = sizes.get(AXIS_EXPERT, 1)
     if expert > 1 and not n_experts:
         raise NotImplementedError(
@@ -223,34 +222,62 @@ def _dense_parts(block: nn.Module) -> Tuple[str, ...]:
     return ("attn", "mlp") if hasattr(block, "mlp") else ("attn",)
 
 
-def tensor_parallel(model: nn.Module, tp_mesh) -> None:
-    """``shard_model``'s tensor parallelism over the one-dim ``tp_mesh``,
-    in place: ``parallelize_module`` with every input projection (``wq``/
-    ``wk``/``wv`` or ``wqkv``; ``w_gate``/``w_up`` or ``w_gateup``)
-    column parallel and ``wo``/``w_down`` row parallel, and ``embed``
-    (rows) and ``lm_head`` (columns) as vocab-sharded ``DTensor``
-    parameters. Each block's attention and MLP take the axis
-    (``Attention.shard_heads``, ``MLP.shard``): they gather a fused
-    product, or the heads ``model`` does not divide, whole."""
-    col, row = ColwiseParallel(), RowwiseParallel()
-    tp = TensorParallel(tp_mesh)
-    own_q, own_kv = own_heads(model.cfg, tp.size)
-    for block in model.blocks:
-        plan = {}
-        for part in _dense_parts(block):
-            for name, proj in getattr(block, part).named_children():
-                proj.role = int(name in ("wo", "w_down"))
-                plan[f"{part}.{name}"] = row if proj.role else col
-        parallelize_module(block, tp_mesh, plan)
-        block.attn.shard_heads(tp, own_q, own_kv)
-        if hasattr(block, "mlp"):
-            block.mlp.shard(tp)
+#: the projections a model axis makes row parallel (their input columns):
+#: the attention's output and the MLP's last, in the decoder and the
+#: encoder; every other projection is column parallel
+_ROW_PARALLEL = ("wo", "w_down", "w_proj")
+
+
+def parallelize_projections(module: nn.Module, tp_mesh,
+                            projections: Dict[str, nn.Module],
+                            gathered: bool = False) -> None:
+    """``parallelize_module`` of ``module`` over the one-dim ``tp_mesh``,
+    in place: each of ``projections`` (by path in ``module``) row parallel
+    where its name is in ``_ROW_PARALLEL``, else column parallel, with its
+    ``role`` set to match. ``gathered``: a column-parallel product's output
+    comes gathered whole, as a replicated ``DTensor`` whose backward keeps
+    the rank's block of the gradient (every rank reads the whole alike)."""
+    col = ColwiseParallel(output_layouts=Replicate() if gathered else None)
+    row = RowwiseParallel()
+    plan = {}
+    for path, proj in projections.items():
+        proj.role = int(path.rpartition(".")[2] in _ROW_PARALLEL)
+        plan[path] = row if proj.role else col
+    parallelize_module(module, tp_mesh, plan)
+
+
+def vocab_parallel(model: nn.Module, tp_mesh) -> None:
+    """``embed`` (its vocab rows) and ``lm_head`` (its vocab columns), where
+    ``model`` has them, as ``DTensor`` parameters split over the one-dim
+    ``tp_mesh``, in place: ``models/transformer.py``'s ``_embed`` and
+    ``_logits`` gather their products."""
     for name, dim in (("embed", 0), ("lm_head", 1)):
         p = getattr(model, name, None)
         if p is not None:
             setattr(model, name, nn.Parameter(distribute_tensor(
                 p.data, tp_mesh, [Shard(dim)], src_data_rank=None),
                 requires_grad=p.requires_grad))
+
+
+def tensor_parallel(model: nn.Module, tp_mesh) -> None:
+    """``shard_model``'s tensor parallelism over the one-dim ``tp_mesh``,
+    in place: every input projection (``wq``/``wk``/``wv`` or ``wqkv``;
+    ``w_gate``/``w_up`` or ``w_gateup``) column parallel and
+    ``wo``/``w_down`` row parallel (``parallelize_projections``), and the
+    vocab-sharded ``embed`` and ``lm_head`` (``vocab_parallel``). Each
+    block's attention and MLP take the axis (``Attention.shard_heads``,
+    ``MLP.shard``): they gather a fused product, or the heads ``model``
+    does not divide, whole."""
+    tp = TensorParallel(tp_mesh)
+    own_q, own_kv = own_heads(model.cfg, tp.size)
+    for block in model.blocks:
+        parallelize_projections(block, tp_mesh, {
+            f"{part}.{name}": proj for part in _dense_parts(block)
+            for name, proj in getattr(block, part).named_children()})
+        block.attn.shard_heads(tp, own_q, own_kv)
+        if hasattr(block, "mlp"):
+            block.mlp.shard(tp)
+    vocab_parallel(model, tp_mesh)
 
 
 #: an MoE leaf's dims (``models/moe.py``'s stacked layouts): its experts,
@@ -355,8 +382,7 @@ def shard_model(model: nn.Module, mesh, rules: Sequence[PartitionRule]
     rules = tuple(rules)
     if layout_of(model) is not None:
         raise ValueError("the model is laid out on a mesh already")
-    check_mesh(getattr(model, "cfg", None), mesh,
-               hasattr(model, "split_sequence"))
+    check_mesh(getattr(model, "cfg", None), mesh)
     # every parameter validated before anything is placed
     named_sharding(dict(model.named_parameters()), mesh, rules)
     sizes = mesh_shape(mesh)
@@ -365,7 +391,7 @@ def shard_model(model: nn.Module, mesh, rules: Sequence[PartitionRule]
         model.tensor_parallel(mesh[AXIS_MODEL])
     if getattr(getattr(model, "cfg", None), "n_experts", 0):
         moe_parallel(model, mesh, rules)
-    if sizes[AXIS_SEQ] > 1:
+    if sizes[AXIS_SEQ] > 1 and hasattr(model, "split_sequence"):
         model.split_sequence(mesh)
     dp_axes = ((AXIS_DATA, AXIS_FSDP) if sizes[AXIS_DATA] > 1
                else (AXIS_FSDP,))
@@ -675,7 +701,7 @@ def shard_serving_model(model: nn.Module, mesh,
     if layout_of(model) is not None:
         raise ValueError("the model is laid out on a mesh already")
     cfg = model.cfg
-    check_mesh(cfg, mesh)
+    check_mesh(cfg, mesh, serving=True)
     named_sharding(dict(model.named_parameters()), mesh, rules)
     names = [n for n, _ in model.named_parameters()]
     tp = TensorParallel(mesh)

@@ -288,11 +288,14 @@ def make_train_step(model: Transformer, optimizer: ClipAdamW,
     return step
 
 
-def _dp_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+def _dp_sum(t: torch.Tensor, mesh,
+            axes=(AXIS_DATA, AXIS_FSDP, AXIS_SEQ)) -> torch.Tensor:
     """``t`` summed over the ranks that hold other targets of the batch, in
-    place: over the data-parallel axes (data, fsdp) and ``seq``."""
+    place: over the data-parallel axes (data, fsdp) and ``seq`` (``axes``:
+    those of them whose ranks hold other targets; a ``seq`` axis that
+    splits nothing holds the same ones)."""
     sizes = mesh_shape(mesh)
-    for axis in (AXIS_DATA, AXIS_FSDP, AXIS_SEQ):
+    for axis in axes:
         if sizes[axis] > 1:
             dist.all_reduce(t, group=mesh.get_group(axis))
     return t

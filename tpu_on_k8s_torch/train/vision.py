@@ -14,7 +14,10 @@ whole weights), each rank takes the rows of its (data, fsdp) coordinate
 (``shard_batch``), every BatchNorm sums its statistics over the batch axes
 (``models/vision.py``'s ``sync_batch_stats``), and the objective stays the
 reference's mean over the global batch: each rank's summed loss over the
-all-reduced count, with FSDP2 summing the gradients.
+all-reduced count, with FSDP2 summing the gradients. A ``seq`` axis is one
+more replica axis, as the reference's ``data_sharding`` leaves images
+whole over it: every rank of it steps the same rows, so the count, the
+statistics and the gradients are summed over (data, fsdp) alone.
 """
 from __future__ import annotations
 
@@ -107,7 +110,10 @@ class ClassifierTrainer:
 
     # ------------------------------------------------------------------ step
     def _dp_sum(self, t: torch.Tensor) -> torch.Tensor:
-        return t if self.mesh is None else _dp_sum(t, self.mesh)
+        # over the batch axes alone: every rank of a seq axis holds the
+        # same rows
+        return (t if self.mesh is None
+                else _dp_sum(t, self.mesh, (AXIS_DATA, AXIS_FSDP)))
 
     def _sums(self, images, labels, train: bool):
         """(summed loss, correct count, global count) of this rank's rows."""

@@ -8,12 +8,16 @@ bf16 compute, ``--attn`` xla (the config's default) or flash (the port's
 CUDA kernels, non-causal), ``optax.adamw`` on the warm-up cosine schedule
 (peak 1e-4, 10 warm-up steps, weight decay 0.01 on every parameter:
 ``train/optimizer.py``'s ``adamw``), laid out by ``bert_partition_rules``
-on the job's mesh (``cli_common.bring_up``: FSDP2 over data x fsdp; a
-model axis > 1 is refused), one fixed batch, driven by ``TrainLoop`` one
-step a window with the ``[elastic-metrics]`` line (``tok_s``: tokens/s)::
+on the job's mesh (``cli_common.bring_up``: FSDP2 over data x fsdp,
+tensor parallelism over ``--model-axis``, the sequence split over
+``--seq-axis`` where it divides ``--seq-len``), one fixed batch, driven by
+``TrainLoop`` one step a window with the ``[elastic-metrics]`` line
+(``tok_s``: tokens/s)::
 
     python -m tpu_on_k8s_torch.train_bert --steps 20 --batch-per-host 32
     python -m tpu_on_k8s_torch.train_bert --tiny --device cpu --steps 3
+    torchrun --nproc-per-node 4 -m tpu_on_k8s_torch.train_bert --tiny \
+        --device cpu --fsdp 2 --model-axis 2 --steps 3
 
 The step is ``train/mlm.py``'s ``make_mlm_step``.
 """
@@ -38,10 +42,9 @@ from tpu_on_k8s_torch.models.bert import (
     init_params,
 )
 from tpu_on_k8s_torch.models.params import load_module
-from tpu_on_k8s_torch.parallel.mesh import batch_sharding, local_rows
 from tpu_on_k8s_torch.parallel.sharded import shard_model
 from tpu_on_k8s_torch.train.loop import TrainLoop
-from tpu_on_k8s_torch.train.mlm import make_mlm_step
+from tpu_on_k8s_torch.train.mlm import make_mlm_step, mlm_rows
 from tpu_on_k8s_torch.train.optimizer import (
     adamw,
     warmup_cosine_decay_schedule,
@@ -76,8 +79,7 @@ def _train(args, dev: torch.device, mesh) -> float:
                               cfg.vocab_size)
     mask = torch.from_numpy((np.random.default_rng(args.seed + 1).uniform(
         size=tuple(tokens.shape)) < 0.15).astype(np.float32))
-    rows = batch_sharding(mesh, tuple(tokens.shape))
-    batch = (local_rows(tokens, rows).to(dev), local_rows(mask, rows).to(dev))
+    batch = tuple(t.to(dev) for t in mlm_rows(mesh, tokens, mask))
     step = make_mlm_step(model, optimizer, mesh)
     timer = StepTimer(global_batch * args.seq_len,
                       enabled=dist.get_rank() == 0)

@@ -419,6 +419,19 @@ def test_cli_generates_on_cpu(capsys):
     assert "continuation[1]:" in capsys.readouterr().out
 
 
+def test_cli_k_is_the_reference_name_of_spec_k(capsys):
+    """``--k`` (the reference's flag) is an alias of ``--spec-k``: the same
+    speculative run gives the same tokens and the same round counts."""
+    argv = ["--config", "tiny", "--device", "cpu", "--draft-config", "tiny",
+            "--max-new-tokens", "6"]
+    by_k = cli.main(argv + ["--k", "2"])
+    out_k = capsys.readouterr().out
+    by_spec_k = cli.main(argv + ["--spec-k", "2"])
+    assert torch.equal(by_k, by_spec_k)
+    assert out_k == capsys.readouterr().out
+    assert "speculative stats:" in out_k
+
+
 def test_init_params_are_seeded_and_flax_shaped():
     cfg = TransformerConfig.tiny()
     a = pparams.init_params(cfg, torch.Generator().manual_seed(0), "cpu")

@@ -79,14 +79,41 @@ def test_the_scan_sees_the_whole_port():
             "tpu_on_k8s_torch/parallel/ring.py",
             "tpu_on_k8s_torch/parallel/ulysses.py",
             "tpu_on_k8s_torch/parallel/pipeline.py"} <= names
+    # the operator plane's subpackages
+    assert set(OPERATOR_MODULES) <= names
+
+
+#: the operator plane's modules (its API, gang topology, feature gates,
+#: cluster client, controller runtime, storage and utilities)
+OPERATOR_MODULES = tuple(
+    f"tpu_on_k8s_torch/{m}.py" for m in (
+        "api/__init__", "api/constants", "api/core", "api/crr",
+        "api/defaults", "api/inference_types", "api/model_types",
+        "api/types", "client/__init__", "client/apiserver", "client/cluster",
+        "client/kubeconfig", "client/resources", "client/rest",
+        "client/testing", "controller/__init__", "controller/leaderelection",
+        "controller/runtime", "features/__init__", "features/features",
+        "gang/__init__", "gang/scheduler", "gang/topology",
+        "storage/__init__", "storage/providers", "utils/concurrent",
+        "utils/conditions", "utils/flowcontrol", "utils/resources",
+        "utils/serde"))
 
 
 def test_copied_modules_import_without_prometheus_client():
-    """The card's machine has no prometheus_client: the metrics module (and
-    the engine and CLI that import it) load without it, and the scrape body
-    is ``render_text``'s."""
+    """The card's machine has no prometheus_client and no PyYAML: the
+    metrics module (and the engine and CLI that import it) load without it,
+    and the scrape body is ``render_text``'s; every operator-plane module
+    imports with both hidden (kubeconfig reads YAML only when it resolves a
+    file) and initialises no CUDA state."""
+    mods = [m[:-3].replace("/", ".").removesuffix(".__init__")
+            for m in OPERATOR_MODULES]
     code = (
         "import sys; sys.modules['prometheus_client'] = None\n"
+        "sys.modules['yaml'] = None\n"
+        f"import importlib\nfor m in {mods!r}: importlib.import_module(m)\n"
+        "import torch\nassert not torch.cuda.is_initialized()\n"
+        "from tpu_on_k8s_torch.client import kubeconfig\n"
+        "assert kubeconfig.resolve({'HOME': '/nonexistent'}).mode == 'none'\n"
         "from tpu_on_k8s_torch import metrics, serve\n"
         "from tpu_on_k8s_torch.models import serving\n"
         "assert metrics._prom is None\n"

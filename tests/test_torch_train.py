@@ -308,6 +308,23 @@ def test_cli_trains_from_a_packed_record_file(tmp_path, capsys):
     assert capsys.readouterr().out.count("[elastic-metrics]") == 2
 
 
+def test_cli_accepts_the_reference_unroll_flag(capsys):
+    """``--unroll`` (the reference's layers per scan step) parses and
+    changes nothing: the port runs its blocks as a Python loop, so every
+    step's loss is the run's without the flag, bit for bit."""
+    argv = ["--config", "tiny", "--device", "cpu", "--steps", "2",
+            "--batch", "2", "--seq-len", "16"]
+    train_llama.main(argv)
+    plain = [ln.split(" tok_s=")[0] for ln in capsys.readouterr().out
+             .splitlines() if ln.startswith("[elastic-metrics]")]
+    train_llama.main(argv + ["--unroll", "2"])
+    unrolled = [ln.split(" tok_s=")[0] for ln in capsys.readouterr().out
+                .splitlines() if ln.startswith("[elastic-metrics]")]
+    losses = [[ln.split("loss=")[1] for ln in run]
+              for run in (plain, unrolled)]
+    assert len(losses[0]) == 2 and losses[0] == losses[1]
+
+
 @pytest.mark.parametrize("attn", ["ring", "ulysses"])
 def test_cli_sequence_attention_on_one_rank(attn):
     """``--attn ring`` and ``--attn ulysses`` train on a world of one rank,

@@ -1,7 +1,9 @@
 """Deterministic, seed-driven fault injection at the engine's sites.
 
-Counterpart of the part of ``tpu_on_k8s/chaos/`` that the serving engine's
-and the training loop's sites need: the ``Fault`` base with
+Counterpart of the part of ``tpu_on_k8s/chaos/`` that the serving engine's,
+the training loop's and the cluster client's sites need: the ``Fault`` base
+with ``HttpError``, ``Conflict``, ``TimeoutFault``, ``ConnectionResetFault``
+and ``WatchDrop`` (the REST client's and the apiserver's),
 ``EngineCrash``, ``EngineStall`` and ``DraftCrash``, and ``StepFailure``,
 ``SaveFailure``, ``PreemptNotice`` and ``ReshardAbort`` with their typed
 exceptions, and the
@@ -33,6 +35,19 @@ import random
 import threading
 from typing import ClassVar, Dict, List, Mapping, Optional, Sequence, Tuple
 
+#: ``RestCluster._request``: ``HttpError``, ``Conflict``, ``TimeoutFault``,
+#: ``ConnectionResetFault``
+SITE_REST_REQUEST = "rest.request"
+#: ``RestCluster._watch_loop`` dialling a stream: ``ConnectionResetFault``,
+#: ``HttpError``
+SITE_REST_WATCH_CONNECT = "rest.watch.connect"
+#: ``RestCluster._watch_loop`` per delivered frame: ``WatchDrop``
+SITE_REST_WATCH_EVENT = "rest.watch.event"
+#: the apiserver's handler before every verb: ``HttpError``, ``Conflict``,
+#: ``ConnectionResetFault``, ``TimeoutFault``
+SITE_APISERVER_REQUEST = "apiserver.request"
+#: the apiserver's watch stream per delivered frame: ``WatchDrop``
+SITE_APISERVER_WATCH = "apiserver.watch"
 #: ``ContinuousBatchingEngine.step``: ``EngineCrash``, ``EngineStall``
 SITE_SERVE_STEP = "serve.engine.step"
 #: the engine's speculative round: ``DraftCrash``
@@ -79,6 +94,65 @@ class Fault:
     def to_exception(self) -> Exception:
         raise NotImplementedError(f"{self.kind} is interpreted by its call "
                                   f"site, not raised")
+
+
+@dataclasses.dataclass(frozen=True)
+class HttpError(Fault):
+    """A server-side 5xx. Client sites raise the generic ``ApiError`` the
+    real client maps unrecognized statuses to; the apiserver site answers
+    with this code and a Status body."""
+
+    code: int = 503
+    kind: ClassVar[str] = "http_error"
+
+    def to_exception(self) -> Exception:
+        from tpu_on_k8s_torch.client.cluster import ApiError
+        return ApiError(f"HTTP {self.code}: chaos injected server error")
+
+
+@dataclasses.dataclass(frozen=True)
+class Conflict(Fault):
+    """An optimistic-concurrency 409: what a losing read-modify-write
+    write sees under contention."""
+
+    kind: ClassVar[str] = "conflict"
+
+    def to_exception(self) -> Exception:
+        from tpu_on_k8s_torch.client.cluster import ConflictError
+        return ConflictError("chaos injected write conflict")
+
+
+@dataclasses.dataclass(frozen=True)
+class TimeoutFault(Fault):
+    """A request that never completes within the socket timeout.
+    ``TimeoutError`` is an ``OSError``, so client sites exercise the real
+    stale-connection retry path."""
+
+    kind: ClassVar[str] = "timeout"
+
+    def to_exception(self) -> Exception:
+        return TimeoutError("chaos injected request timeout")
+
+
+@dataclasses.dataclass(frozen=True)
+class ConnectionResetFault(Fault):
+    """Peer reset mid-request (load-balancer restart, apiserver roll)."""
+
+    kind: ClassVar[str] = "connection_reset"
+
+    def to_exception(self) -> Exception:
+        return ConnectionResetError("chaos injected connection reset")
+
+
+@dataclasses.dataclass(frozen=True)
+class WatchDrop(Fault):
+    """Close the watch stream: the client must reconnect from its last
+    observed revision (or re-list on 410) without going deaf."""
+
+    kind: ClassVar[str] = "watch_drop"
+
+    def to_exception(self) -> Exception:
+        return ConnectionResetError("chaos injected watch-stream drop")
 
 
 @dataclasses.dataclass(frozen=True)

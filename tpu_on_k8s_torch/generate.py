@@ -91,7 +91,7 @@ def main(argv=None) -> torch.Tensor:
     p.add_argument("--draft-checkpoint-dir", default="",
                    help="restore the draft's parameters from here; without "
                         "it the draft is random")
-    p.add_argument("--spec-k", type=int, default=4,
+    p.add_argument("--spec-k", "--k", dest="spec_k", type=int, default=4,
                    help="draft proposals per speculative round")
     args = p.parse_args(argv)
     if args.draft_checkpoint_dir and not args.draft_config:

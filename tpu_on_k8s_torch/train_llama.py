@@ -104,6 +104,10 @@ def main(argv=None) -> float:
                    choices=["full", "dots", "dots_kernels", "mlp"])
     p.add_argument("--attn", default="flash",
                    choices=["xla", "flash", "ring", "ulysses"])
+    p.add_argument("--unroll", type=int, default=0,
+                   help="accepted for the reference's command lines and "
+                        "ignored: the blocks run as a Python loop, so there "
+                        "is no layer scan to unroll")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="microbatches per optimizer update")
     p.add_argument("--bf16-moments", action="store_true",

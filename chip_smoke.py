@@ -91,11 +91,12 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    timed prefills launch must be among them. The handoff bytes, the
    export, seal, verify and adoption times of each request and both
    engines' decode step at occupancy 8 are printed;
-3g. speculative decoding on 3e's weights and traffic, ``spec_k`` 4, 8 slots
-   x 2048: (a) dense, the target itself as the draft; (b) dense, its first
-   4 layers (``truncated_draft``, the target's own tensors) as the draft,
-   3e's prefix registered (mirrored through the draft) and carried by 8
-   requests; (c) (b) on the paged pool; (d) (b) under
+3g. speculative decoding on 3e's weights and the first SPEC_REQUESTS (12)
+   of its requests, ``spec_k`` 4, 8 slots x 2048: (a) dense, the target
+   itself as the draft; (b) dense, its first 4 layers (``truncated_draft``,
+   the target's own tensors) as the draft, 3e's prefix registered
+   (mirrored through the draft) and carried by the 4 of them that carry it
+   in 3e; (c) (b) on the paged pool; (d) (b) under
    ``spec_draft_crash(at_round=2)``; (e) ``speculative_generate`` at batch
    1 (prompt 512, 64 new) with both drafts; (f) phase 3b's W8A16 tree as
    the target of (b)'s bf16 draft, 4 requests. Every request completes;
@@ -245,8 +246,7 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    flagship rules to model-only rules on the same mesh: n_moved and
    bytes_moved printed, 0 at world 1), the losses equal (a)'s; (b) every
    int8 flag on the mesh, 113 ``int8_matmul`` a step, phase 4b's losses
-   bit for bit; (e) ``python -m tpu_on_k8s_torch.train_llama --config
-   tiny --fsdp -1 --steps 3`` in a subprocess; (f) ``train_step_flops`` of
+   bit for bit; (f) ``train_step_flops`` of
    (a)'s trainer on the mesh (the per-device count) equal to phase 4c's
    meshless count exactly, and a ``TrainLoop`` on the mesh fed with it
    sets a finite ``mfu`` gauge;
@@ -388,6 +388,25 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    meshless step bit for bit. The sums over a ``seq`` axis > 1 are held
    on the CPU over gloo (``tests/test_torch_moe.py``,
    ``tests/test_torch_vision_mesh.py``).
+13. A TorchJob runs the port's trainer on the card (``phase 13`` is
+   timed): (a) the job controller (``controller/torchjob.py``'s
+   ``setup_torchjob_controller`` on an ``InMemoryCluster``) reconciles a
+   ``TorchJob`` of one Master on a ``1x1`` ``GPUPolicy`` whose container
+   runs ``python -m tpu_on_k8s_torch.train_llama --config llama2_1b
+   --steps 2`` at ``TORCHJOB_BATCH`` x ``TORCHJOB_SEQ``; the pod's env
+   must hold ``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE`` and
+   ``nvidia.com/gpu`` and no TPU name; the container's command runs as a
+   subprocess, as a kubelet would, with exactly the pod's env on top of
+   ``PATH`` and ``HOME``, so ``train/distributed.py::initialize`` joins
+   NCCL at world 1 from that env and the CLI trains on a mesh over it (it
+   takes the place of phase 8's former ``train_llama --config tiny`` run
+   on a mesh); its exit code goes back through
+   ``KubeletSim.terminate_pod`` and the job must reach ``Succeeded``
+   (the times from submit to Running and to Succeeded are printed);
+   (b) a job whose container exits 138 (user-retryable) once is recreated
+   by the engine (a new pod uid, ``Restarting``) and succeeds on its
+   second run; one whose container exits 1 fails the job (``PodFailed``).
+   Every container here really runs, and any disagreement fails the run.
 
 Then one JSON line for the kernels, the card's line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -403,6 +422,7 @@ import re
 import shutil
 import statistics
 import subprocess
+import os
 import sys
 import tempfile
 import time
@@ -483,9 +503,11 @@ EXACT_MIN = 0.7
 # heads x 128 x 2 B.
 DISAGG_MIGRATED, DISAGG_ANCESTOR, HANDOFF_BYTES_PER_POSITION = 4, 256, 131072
 # Phase 3g, speculative decoding on phase 3e's weights and traffic: proposals
-# a round, the depth of the truncated draft, the requests the W8A16 target
+# a round, the depth of the truncated draft, the requests of 3e it serves
+# (the first 12 of 24: 4 carry the prefix, 460 of 924 new tokens; cut from
+# 24 to keep the script in its time limit), the requests the W8A16 target
 # serves, and the batch-1 request of speculative_generate (prompt, new).
-SPEC_K, SPEC_DRAFT_LAYERS, SPEC_W8_REQUESTS = 4, 4, 4
+SPEC_K, SPEC_DRAFT_LAYERS, SPEC_REQUESTS, SPEC_W8_REQUESTS = 4, 4, 12, 4
 SPEC_B1_PROMPT, SPEC_B1_NEW = 512, 64
 # Phase 3h, the int8 KV cache on phase 3e's weights and traffic: the
 # requests of 3e it serves, the one it hands off (prompt 981: bucket 1024,
@@ -1933,11 +1955,12 @@ def serve_disagg(cfg, params, mods, plain_flash, gpu, serving, transformer,
 def serve_spec(cfg, params, w8_tree, mods, plain_flash, diff, gpu, plain_a,
                serving, transformer, decode, chaos_mod) -> dict:
     """Phase 3g: speculative decoding at llama2_7b width on phase 3e's
-    traffic and weights, SPEC_K proposals a round, 8 slots x 2048. Engines:
+    weights and its first SPEC_REQUESTS requests, SPEC_K proposals a round,
+    8 slots x 2048. Engines:
     (a) dense, the target itself as the draft; (b) dense, its first
     SPEC_DRAFT_LAYERS layers (``truncated_draft``: the target's tensors) as
-    the draft, with the ENGINE_PREFIX-token prefix carried by
-    ENGINE_CARRIERS requests and mirrored through the draft; (c) (b) on the
+    the draft, with the ENGINE_PREFIX-token prefix carried by the requests
+    that carry it in 3e and mirrored through the draft; (c) (b) on the
     paged pool; (d) (b) under ``spec_draft_crash(at_round=2)``; (e)
     ``speculative_generate`` at batch 1 with both drafts; (f) the W8A16
     tree of phase 3b as the target of (b)'s bf16 draft, SPEC_W8_REQUESTS
@@ -1956,6 +1979,8 @@ def serve_spec(cfg, params, w8_tree, mods, plain_flash, diff, gpu, plain_a,
     round, tokens/s and TTFT beside 3e (a)'s plain run, and (e)'s ms a
     token beside plain ``generate``'s. Returns the launches of (a)-(f)."""
     reqs, prefix, carriers = engine_traffic(cfg.vocab_size)
+    reqs = reqs[:SPEC_REQUESTS]
+    carriers = {j for j in carriers if j < SPEC_REQUESTS}
     dev = params["embed"].device
     dcfg, dparams = decode.truncated_draft(cfg, params, SPEC_DRAFT_LAYERS)
     drafts = {"self": (cfg, params), "layers": (dcfg, dparams)}
@@ -1966,7 +1991,7 @@ def serve_spec(cfg, params, w8_tree, mods, plain_flash, diff, gpu, plain_a,
         "a": ("dense, the target itself as the draft", "self", {}),
         "b": (f"dense, its first {SPEC_DRAFT_LAYERS} layers as the draft, "
               f"the {ENGINE_PREFIX}-token prefix carried by "
-              f"{ENGINE_CARRIERS} requests", "layers", {}),
+              f"{len(carriers)} requests", "layers", {}),
         "c": (f"paged, {ENGINE_PAGES} pages of 128, as (b)", "layers",
               {"kv_pages": ENGINE_PAGES, "page_tokens": 128}),
         "d": ("(b) under chaos.spec_draft_crash(at_round=2)", "layers", {}),
@@ -4019,9 +4044,7 @@ def mesh_phase(tcfg, i8cfg, mods, gpu, dev, tokens, p4: dict,
     ``ReshardNotice`` through ``TrainLoop`` before step 5, from the
     flagship rules to model-only rules on the same mesh, the trajectory
     equal to (a)'s; (b) every int8 flag on the mesh, 113 ``int8_matmul``
-    launches a step, against phase 4b; (e) ``python -m
-    tpu_on_k8s_torch.train_llama --config tiny --fsdp -1 --steps 3``; (f)
-    ``train_step_flops`` on the mesh against phase 4c's count
+    launches a step, against phase 4b; (f) ``train_step_flops`` on the mesh against phase 4c's count
     (``p4["flops"]``) and the ``mfu`` gauge of a ``TrainLoop`` on the mesh.
     Returns the launches of the counted paths."""
     import torch.distributed as dist
@@ -4272,25 +4295,6 @@ def mesh_phase(tcfg, i8cfg, mods, gpu, dev, tokens, p4: dict,
     gc.collect()    # FSDP2's hooks hold cycles
     torch.cuda.empty_cache()
     dist.destroy_process_group()
-
-    # ---- (e) the CLI on the card ----------------------------------------
-    t0 = time.perf_counter()
-    cli = subprocess.run(
-        [sys.executable, "-m", "tpu_on_k8s_torch.train_llama", "--config",
-         "tiny", "--fsdp", "-1", "--steps", "3"],
-        capture_output=True, text=True, timeout=600,
-        cwd=str(Path(__file__).resolve().parent))
-    lines = cli.stdout.splitlines()
-    mesh_lines = [ln for ln in lines if "mesh=" in ln]
-    metric_lines = [ln for ln in lines if ln.startswith("[elastic-metrics]")]
-    print(f"[mesh] (e) python -m tpu_on_k8s_torch.train_llama --config tiny "
-          f"--fsdp -1 --steps 3: exit {cli.returncode} in "
-          f"{time.perf_counter() - t0:.1f} s; {mesh_lines[:1]}; "
-          f"{len(metric_lines)} metric lines, the last: "
-          f"{metric_lines[-1] if metric_lines else None}")
-    if cli.returncode != 0 or not mesh_lines or len(metric_lines) != 3:
-        print(cli.stderr[-4000:], file=sys.stderr)
-        fail("train_llama on the mesh did not finish")
     print(f"[time] phase 8 {time.perf_counter() - t_phase:.1f} s")
     return paths
 
@@ -6247,6 +6251,174 @@ def head_dim_256_phase(mods, gpu, dev, fa, transformer, decode,
     return {"paths": paths, "rows": rows}
 
 
+#: phase 13's trainer: llama2_1b at full width and depth, 2 steps of this
+#: batch x sequence
+TORCHJOB_BATCH, TORCHJOB_SEQ = 2, 512
+TORCHJOB_ARGV = ["--config", "llama2_1b", "--steps", "2", "--batch",
+                 str(TORCHJOB_BATCH), "--seq-len", str(TORCHJOB_SEQ)]
+
+
+def torchjob_phase(gpu: str, tmp: Path) -> None:
+    """Phase 13: a TorchJob reconciled by the port's job controller runs
+    the port's trainer on the card from its pod's env (module docstring)."""
+    from tpu_on_k8s_torch.api import constants
+    from tpu_on_k8s_torch.api.core import (
+        Container,
+        ObjectMeta,
+        Pod,
+        PodSpec,
+        PodTemplateSpec,
+    )
+    from tpu_on_k8s_torch.api.types import (
+        GPUPolicy,
+        JobConditionType,
+        TaskSpec,
+        TaskType,
+        TorchJob,
+        TorchJobSpec,
+    )
+    from tpu_on_k8s_torch.client import InMemoryCluster, KubeletSim
+    from tpu_on_k8s_torch.controller.runtime import Manager
+    from tpu_on_k8s_torch.controller.torchjob import (
+        setup_torchjob_controller,
+        submit_job,
+    )
+    from tpu_on_k8s_torch.utils import conditions
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    cluster, manager = InMemoryCluster(), Manager()
+    engine = setup_torchjob_controller(cluster, manager)
+    sim = KubeletSim(cluster)
+    tpu_env = {"PJRT_DEVICE", "TPU_WORKER_ID", "TPU_WORKER_HOSTNAMES",
+               "TPU_PROCESS_ID", "TPU_NUM_PROCESSES",
+               "XLA_COORDINATOR_ADDRESS", "MEGASCALE_NUM_SLICES",
+               "MEGASCALE_SLICE_ID", "MEGASCALE_COORDINATOR_ADDRESS",
+               "LIBTPU_INIT_ARGS", "JAX_COMPILATION_CACHE_DIR"}
+
+    def submit(name: str, command: list) -> float:
+        template = PodTemplateSpec(spec=PodSpec(containers=[Container(
+            name=constants.DEFAULT_CONTAINER_NAME, image="tpu-on-k8s-torch",
+            command=command)]))
+        submit_job(cluster, TorchJob(
+            metadata=ObjectMeta(name=name),
+            spec=TorchJobSpec(
+                tasks={TaskType.MASTER: TaskSpec(num_tasks=1,
+                                                 template=template)},
+                gpu_policy=GPUPolicy(accelerator="nvidia-h100-80gb",
+                                     topology="1x1"))))
+        return time.perf_counter()
+
+    def pod_of(name: str) -> Pod:
+        manager.run_until_idle()
+        pod = cluster.try_get(Pod, "default", f"{name}-master-0")
+        if pod is None:
+            fail(f"the TorchJob {name} made no pod")
+        return pod
+
+    def condition(name: str) -> str:
+        job = cluster.get(TorchJob, "default", name)
+        if not job.status.conditions:
+            return ""
+        return getattr(job.status.conditions[-1].type, "value",
+                       job.status.conditions[-1].type)
+
+    def kubelet_run(pod: Pod, timeout: float) -> tuple:
+        """Run the pod's container as a kubelet would: its command and
+        args, exactly its env on top of PATH and HOME; report the exit
+        code back on the pod."""
+        sim.run_pod("default", pod.metadata.name)
+        manager.run_until_idle()
+        c = pod.spec.containers[0]
+        env = {e.name: e.value for e in c.env if e.value is not None}
+        proc = subprocess.run(
+            c.command + c.args, cwd=str(root), capture_output=True,
+            text=True, timeout=timeout,
+            env={"PATH": os.environ.get("PATH", ""),
+                 "HOME": os.environ.get("HOME", str(root)), **env})
+        sim.terminate_pod("default", pod.metadata.name, proc.returncode,
+                          reason="Completed" if proc.returncode == 0
+                          else "Error")
+        manager.run_until_idle()
+        return proc, env
+
+    # ---- (a) the trainer from the pod's env ------------------------------
+    argv = TORCHJOB_ARGV
+    t_submit = submit("train", [sys.executable, "-m",
+                                "tpu_on_k8s_torch.train_llama", *argv])
+    pod = pod_of("train")
+    main = pod.spec.containers[0]
+    env = {e.name: e.value for e in main.env if e.value is not None}
+    want = {constants.ENV_MASTER_ADDR: "localhost",
+            constants.ENV_MASTER_PORT: str(constants.DEFAULT_COORDINATOR_PORT),
+            constants.ENV_PROCESS_ID: "0", constants.ENV_NUM_PROCESSES: "1"}
+    if ({k: env.get(k) for k in want} != want or tpu_env & set(env)
+            or main.resources.requests.get(constants.RESOURCE_GPU) != 8):
+        fail(f"the TorchJob's pod env {env} / requests "
+             f"{main.resources.requests}")
+    sim.run_pod("default", pod.metadata.name)
+    manager.run_until_idle()
+    if condition("train") != JobConditionType.RUNNING.value:
+        fail(f"the TorchJob is {condition('train')!r}, not Running")
+    t_running = time.perf_counter()
+    proc, _ = kubelet_run(cluster.get(Pod, "default", "train-master-0"), 300)
+    lines = proc.stdout.splitlines()
+    mesh_lines = [ln for ln in lines if "mesh=" in ln]
+    metric_lines = [ln for ln in lines if ln.startswith("[elastic-metrics]")]
+    if proc.returncode != 0 or not mesh_lines or len(metric_lines) != 2:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+        fail(f"the TorchJob's trainer exited {proc.returncode} with "
+             f"{len(metric_lines)} metric lines")
+    if condition("train") != JobConditionType.SUCCEEDED.value:
+        fail(f"the TorchJob is {condition('train')!r}, not Succeeded")
+    t_done = time.perf_counter()
+    print(f"[torchjob] (a) TorchJob 'train' (Master x1, 1x1 "
+          f"nvidia-h100-80gb): env {want}, nvidia.com/gpu 8; "
+          f"train_llama {' '.join(argv)} from the pod's env: exit 0, "
+          f"{mesh_lines[0]}; the last metric line "
+          f"{metric_lines[-1]}")
+    print(f"[torchjob] (a) submit to Running {t_running - t_submit:.3f} s, "
+          f"submit to Succeeded {t_done - t_submit:.3f} s (the trainer's "
+          f"process {t_done - t_running:.3f} s) on {gpu}")
+
+    # ---- (b) a retryable exit is recreated; a permanent one fails --------
+    marker = tmp / "torchjob_retry.marker"
+    retry = ("import os, pathlib, sys; p = pathlib.Path(sys.argv[1]); "
+             "assert os.environ['RANK'] == '0' and os.environ['WORLD_SIZE'] "
+             "== '1'; first = not p.exists(); p.touch(); "
+             "sys.exit(138 if first else 0)")
+    submit("retry", [sys.executable, "-c", retry, str(marker)])
+    first = pod_of("retry")
+    proc, _ = kubelet_run(first, 60)
+    second = pod_of("retry")
+    restarting = condition("retry")
+    if (proc.returncode != 138 or second.metadata.uid == first.metadata.uid
+            or second.status.phase != "Pending"
+            or restarting != JobConditionType.RESTARTING.value):
+        fail(f"exit {proc.returncode}: the pod was not recreated "
+             f"({first.metadata.uid} -> {second.metadata.uid}, "
+             f"{second.status.phase}, {restarting!r})")
+    proc, _ = kubelet_run(second, 60)
+    if proc.returncode != 0 or condition("retry") != "Succeeded":
+        fail(f"the recreated pod exited {proc.returncode}; the job is "
+             f"{condition('retry')!r}")
+    submit("permanent", [sys.executable, "-c", "raise SystemExit(1)"])
+    proc, _ = kubelet_run(pod_of("permanent"), 60)
+    job = cluster.get(TorchJob, "default", "permanent")
+    if (proc.returncode != 1 or not conditions.is_failed(job.status)
+            or job.status.conditions[-1].reason != "PodFailed"):
+        fail(f"exit {proc.returncode}: the job is "
+             f"{[(c.type, c.reason) for c in job.status.conditions]}")
+    counters = dict(engine.metrics.counters)
+    print(f"[torchjob] (b) exit 138 -> pod recreated ({restarting}), then "
+          f"exit 0 -> Succeeded; exit 1 -> Failed (PodFailed); job "
+          f"metrics {counters}")
+    if counters.get("restarted") != 1 or counters.get("successful") != 2 \
+            or counters.get("failed") != 1:
+        fail(f"the job metrics {counters}")
+    print(f"[time] phase 13 {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -7104,6 +7276,9 @@ def run(tmp: Path) -> int:
     # ---- 12. MoE -----------------------------------------------------------
     phase12 = moe_phase(tokens, mods, gpu, dev, fa)
     by_path.update(phase12["paths"])
+
+    # ---- 13. a TorchJob runs the trainer on the card ---------------------
+    torchjob_phase(gpu, tmp)
     print(f"[time] script {time.perf_counter() - t_start:.0f} s")
 
     gemm = (TRAIN_BATCH * TRAIN_SEQ, 11264, 2048)

@@ -81,7 +81,9 @@ RENAMED = {"KIND_TPUJOB": "KIND_TORCHJOB", "RESOURCE_TPU": "RESOURCE_GPU",
 DROPPED = ("ENV_PJRT_DEVICE", "ENV_TPU_WORKER_ID", "ENV_TPU_WORKER_HOSTNAMES",
            "ENV_MEGASCALE_COORDINATOR", "ENV_MEGASCALE_NUM_SLICES",
            "ENV_MEGASCALE_SLICE_ID", "ENV_LIBTPU_INIT_ARGS",
-           "LIBTPU_PERF_ARGS", "NODE_SELECTOR_TPU_TOPOLOGY")
+           "LIBTPU_PERF_ARGS", "NODE_SELECTOR_TPU_TOPOLOGY",
+           "ENV_JAX_COMPILATION_CACHE_DIR", "COMPILE_CACHE_VOLUME",
+           "DEFAULT_COMPILE_CACHE_DIR")
 #: the coordinator's host:port becomes two variables
 SPLIT = {"ENV_COORDINATOR_ADDRESS": ("ENV_MASTER_ADDR", "ENV_MASTER_PORT")}
 #: spec fields the GPU flavour renames (snake_case and wire camelCase)
@@ -89,6 +91,11 @@ FIELDS = {"tpu_policy": "gpu_policy", "tpuPolicy": "gpuPolicy"}
 #: the reference accelerator whose host counts the port's table carries
 REF_ACCELERATOR = "tpu-v5-lite-podslice"
 PORT_ACCELERATOR = "nvidia-h100-80gb"
+#: values outside ``api/constants.py`` that the GPU flavour renames: the
+#: elastic rendezvous backend (torchrun has no ``xla``), the gang
+#: scheduler's name and the engine's reason for an unschedulable slice
+VALUES = {"xla": "c10d", "tpu-slice": "gpu-slice",
+          "InvalidTPUPolicy": "InvalidGPUPolicy"}
 
 
 def _constants(mod) -> dict:
@@ -105,14 +112,17 @@ def _build_map() -> dict:
         if mine != value:
             out[value] = mine
     out[REF_ACCELERATOR] = PORT_ACCELERATOR
+    out.update(VALUES)
     return out
 
 
 REF_TO_PORT = _build_map()
 PORT_TO_REF = {v: k for k, v in REF_TO_PORT.items()}
-# substrings: the API group (in apiVersions, label keys, routes) and the job
-# kind's lower-case stem (the job-name label, the port name, the plural)
-_SUBSTR = [(RC.API_GROUP, PC.API_GROUP), ("tpujob", "torchjob")]
+# substrings: the API group (in apiVersions, label keys, routes), the job
+# kind's lower-case stem (the job-name label, the port name, the plural) and
+# the gang admission's fallback node names
+_SUBSTR = [(RC.API_GROUP, PC.API_GROUP), ("tpujob", "torchjob"),
+           ("tpu-node-", "gpu-node-")]
 
 
 def port_topology(accelerator: str, topo: str) -> str:
@@ -201,6 +211,8 @@ def port_kind(kind: str) -> str:
 # literals stay: the core kinds' data is the same in both packages)
 _SOURCE_RENAMES = [(r"\btpu_on_k8s\.", "tpu_on_k8s_torch."),
                    (r"\bset_defaults_tpujob\b", "set_defaults_torchjob"),
+                   (r"\bcontroller\.tpujob\b", "controller.torchjob"),
+                   (r"\bsetup_tpujob_controller\b", "setup_torchjob_controller"),
                    (r"\bKIND_TPUJOB\b", "KIND_TORCHJOB"),
                    (r"\bRESOURCE_TPU\b", "RESOURCE_GPU"),
                    (r"(?<![\"'])\bTPUJob", "TorchJob"),
@@ -208,21 +220,32 @@ _SOURCE_RENAMES = [(r"\btpu_on_k8s\.", "tpu_on_k8s_torch."),
                    (r"\btpu_policy\b", "gpu_policy")]
 
 
-def reference_cases(ref: str, *, only=None, skip=()) -> dict:
+def reference_cases(ref: str, *, only=None, skip=(), subs=()) -> dict:
     """The test functions, test classes and fixtures of ``tests/<ref>.py``,
     run against the port: the reference's source with its ``tpu_on_k8s``
     imports resolved in ``tpu_on_k8s_torch`` and the renamed identifiers of
     the GPU flavour applied, line for line, so a failure points at the
-    reference's line. ``only``/``skip`` choose the cases by name. A test
-    file does ``globals().update(reference_cases(...))``."""
+    reference's line. ``subs`` are further rewrites within a line, each a
+    ``(pattern, replacement)`` pair or a function of the source (a
+    reference slice's literals mapped by host count, ``slice_literals``).
+    ``only``/``skip`` choose the cases by name; a ``Class.method`` name in
+    ``skip`` drops that method of a test class. The module itself stays in
+    ``sys.modules`` as ``_port_<ref>``, for its helpers. A test file does
+    ``globals().update(reference_cases(...))``."""
     path = TESTS / f"{ref}.py"
     src = path.read_text()
-    for pattern, repl in _SOURCE_RENAMES:
-        src = re.sub(pattern, repl, src)
+    for rewrite in (*_SOURCE_RENAMES, *subs):
+        new = rewrite(src) if callable(rewrite) else re.sub(*rewrite, src)
+        assert new.count("\n") == src.count("\n"), rewrite
+        src = new
     mod = types.ModuleType(f"_port_{ref}")
     mod.__file__ = str(path)
     sys.modules[mod.__name__] = mod
     exec(compile(src, str(path), "exec"), mod.__dict__)
+    for name in skip:
+        cls, _, meth = name.partition(".")
+        if meth:
+            delattr(getattr(mod, cls), meth)
     out = {}
     for name, obj in vars(mod).items():
         is_case = name.startswith(("test_", "Test"))
@@ -235,6 +258,20 @@ def reference_cases(ref: str, *, only=None, skip=()) -> dict:
             continue
         out[name] = obj
     return out
+
+
+def slice_literals(src: str) -> str:
+    """A reference test's slice literals in the port: the accelerator
+    ``"tpu-v5-lite-podslice"`` and each quoted topology of it mapped by host
+    count (``port_topology``), and ``google.com/tpu`` as ``nvidia.com/gpu``.
+    Counts of chips are left alone (4 a TPU host, 8 a GPU host): a case
+    that asserts one needs its own rewrite or a twin."""
+    legal = set(rtopology.legal_topologies(REF_ACCELERATOR))
+    src = src.replace(f'"{REF_ACCELERATOR}"', f'"{PORT_ACCELERATOR}"')
+    src = src.replace(f'"{RC.RESOURCE_TPU}"', f'"{PC.RESOURCE_GPU}"')
+    return re.sub(r'"(\d+x\d+)"', lambda m: (
+        f'"{port_topology(REF_ACCELERATOR, m.group(1))}"'
+        if m.group(1) in legal else m.group(0)), src)
 
 
 def test_the_map_covers_every_constant():

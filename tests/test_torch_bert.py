@@ -32,8 +32,8 @@ import numpy as np
 import optax
 import pytest
 import torch
-import torch.distributed as dist
 
+from test_torch_parallel import end_fake_world, start_fake_world
 from tpu_on_k8s.models import bert as jbert
 from tpu_on_k8s.parallel import partition as jpartition
 from tpu_on_k8s_torch import train_bert
@@ -231,10 +231,9 @@ def test_rules_match_the_reference_leaf_for_leaf():
 def fake_world():
     """A world of 8 ranks (this process is rank 0) whose collectives do
     nothing: layout cases only."""
-    from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+    start_fake_world()
     yield
-    dist.destroy_process_group()
+    end_fake_world()
 
 
 def test_rules_validate_on_fsdp2_model4_and_model_axis_refused(fake_world):

@@ -83,16 +83,20 @@ def test_the_scan_sees_the_whole_port():
     assert set(OPERATOR_MODULES) <= names
 
 
-#: the operator plane's modules (its API, gang topology, feature gates,
-#: cluster client, controller runtime, storage and utilities)
+#: the operator plane's modules (its API, gang topology and scheduler,
+#: feature gates, cluster client, controller runtime, job controller,
+#: storage and utilities)
 OPERATOR_MODULES = tuple(
     f"tpu_on_k8s_torch/{m}.py" for m in (
         "api/__init__", "api/constants", "api/core", "api/crr",
         "api/defaults", "api/inference_types", "api/model_types",
         "api/types", "client/__init__", "client/apiserver", "client/cluster",
         "client/kubeconfig", "client/resources", "client/rest",
-        "client/testing", "controller/__init__", "controller/leaderelection",
-        "controller/runtime", "features/__init__", "features/features",
+        "client/testing", "controller/__init__", "controller/config",
+        "controller/dag", "controller/engine", "controller/expectations",
+        "controller/failover", "controller/hostnetwork",
+        "controller/leaderelection", "controller/runtime",
+        "controller/torchjob", "features/__init__", "features/features",
         "gang/__init__", "gang/scheduler", "gang/topology",
         "storage/__init__", "storage/providers", "utils/concurrent",
         "utils/conditions", "utils/flowcontrol", "utils/resources",

@@ -62,14 +62,29 @@ from tpu_on_k8s_torch.train import Trainer, default_optimizer
 torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def fake_world():
+def start_fake_world() -> None:
     """A world of 8 ranks (this process is rank 0) whose collectives do
     nothing."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
-    yield
+
+
+def end_fake_world() -> None:
+    """Destroy the world and DTensor's sharding-propagation caches with it.
+    torch keys those caches by a mesh's shape and axis names, not by its
+    world, so the next fake world in this process would replay cached
+    specs whose process groups are gone ("Could not resolve the process
+    group registered under the name ...")."""
+    from torch.distributed.tensor.debug import _clear_sharding_prop_cache
     dist.destroy_process_group()
+    _clear_sharding_prop_cache()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def fake_world():
+    start_fake_world()
+    yield
+    end_fake_world()
 
 
 def _spec(ref_spec) -> tuple:

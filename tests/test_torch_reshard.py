@@ -23,9 +23,9 @@ import time
 import numpy as np
 import pytest
 import torch
-import torch.distributed as dist
 
 from test_torch_mesh_train import FP32_TOL, case_result, run_cases, run_world
+from test_torch_parallel import end_fake_world, start_fake_world
 
 torch.set_num_threads(1)
 
@@ -445,11 +445,9 @@ class TestPlan:
 
     @pytest.fixture(scope="class", autouse=True)
     def fake_world(self):
-        from torch.testing._internal.distributed.fake_pg import FakeStore
-        dist.init_process_group("fake", store=FakeStore(), rank=0,
-                                world_size=8)
+        start_fake_world()
         yield
-        dist.destroy_process_group()
+        end_fake_world()
 
     def _state(self, mesh):
         from tpu_on_k8s_torch.parallel.partition import shard_pytree
@@ -797,12 +795,20 @@ class TestReshardAgent:
 
 
 def test_protocol_constants_are_the_operators():
+    """The compute plane reads the names the port's operator writes (its
+    ``api/constants.py``), which are the reference's through the map."""
+    from test_torch_api import REF_TO_PORT
     from tpu_on_k8s.api import constants as ref
     from tpu_on_k8s_torch import constants
+    from tpu_on_k8s_torch.api import constants as api
     for name in ("ANNOTATION_RESHARD_REQUESTED_SPEC",
                  "ANNOTATION_RESHARD_COMPLETED_SPEC",
-                 "ENV_COORDINATOR_ADDRESS", "ENV_NUM_PROCESSES",
-                 "ENV_PROCESS_ID", "ENV_TPU_WORKER_HOSTNAMES",
-                 "ENV_MEGASCALE_NUM_SLICES", "ENV_MEGASCALE_SLICE_ID",
-                 "ENV_MODEL_PATH"):
-        assert getattr(constants, name) == getattr(ref, name), name
+                 "ANNOTATION_CKPT_REQUESTED_VERSION",
+                 "ANNOTATION_CKPT_COMPLETED_VERSION",
+                 "ENV_NUM_PROCESSES", "ENV_PROCESS_ID", "ENV_MODEL_PATH",
+                 "ENV_PROFILE_DIR", "ENV_PROFILER_PORT"):
+        value = getattr(ref, name)
+        assert getattr(constants, name) == getattr(api, name) == \
+            REF_TO_PORT.get(value, value), name
+    assert (constants.ENV_MASTER_ADDR, constants.ENV_MASTER_PORT) == (
+        "MASTER_ADDR", "MASTER_PORT")

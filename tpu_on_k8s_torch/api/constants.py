@@ -105,17 +105,10 @@ ARG_RDZV_ID = "--rdzv_id"
 ARG_NPROC_PER_NODE = "--nproc_per_node"
 ARG_NNODES = "--nnodes"
 
-# ---- compile-cache / perf env (single source of truth) -------------------------
-# The reconciler injects the cache dir into every host pod, so the operator
-# and the user container agree on where the persistent compilation cache
-# lives.
-ENV_JAX_COMPILATION_CACHE_DIR = "JAX_COMPILATION_CACHE_DIR"
-# hostPath mount shared by every pod incarnation on the node: a restarted /
-# failed-over worker finds the previous incarnation's compiled programs and
-# skips straight to execution (compilation-cache keys are content-addressed,
-# so stale entries are never wrong — only unused).
-COMPILE_CACHE_VOLUME = "xla-compile-cache"
-DEFAULT_COMPILE_CACHE_DIR = "/var/cache/tpu-on-k8s/xla"
+# ---- profiling env (single source of truth) ------------------------------------
+# The port runs no XLA, so the reference's compile-cache env and hostPath
+# volume have no counterpart (the kernels' build cache is keyed under the
+# package, ``ops/_build.py``).
 # Profiling hooks (`tpu_on_k8s_torch/utils/profiling.py`, consumed by
 # `train/loop.py`): the operator's ``--profile-dir``/``--profiler-port``
 # flags land in host pods as these env vars, so trace capture and the

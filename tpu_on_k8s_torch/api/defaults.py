@@ -134,7 +134,7 @@ def _default_elastic(job: TorchJob) -> None:
         # A "proc" is one host process driving that host's GPUs.
         ep.nproc_per_node = 1
     if not ep.rendezvous_backend:
-        ep.rendezvous_backend = "xla"
+        ep.rendezvous_backend = "c10d"
 
 
 def _default_min_members(job: TorchJob) -> None:

@@ -122,11 +122,13 @@ class ElasticPolicy:
     """Elastic-training policy (reference TorchElasticPolicy,
     torchjob_types.go:160-173). Min/max replicas are expressed in *hosts*
     and must land on slice-legal quanta; an explicit rendezvous
-    backend/endpoint may be given."""
+    backend/endpoint may be given. The default backend is torchrun's
+    ``c10d`` (the reference operator's, torchjob_controller.go:385-417):
+    torchrun has no ``xla`` backend, the JAX package's default."""
 
     min_replicas: int = 1
     max_replicas: int = 1
-    rendezvous_backend: str = "xla"
+    rendezvous_backend: str = "c10d"
     rendezvous_endpoint: str = ""
     nproc_per_node: int = 1
     max_restarts: Optional[int] = None

@@ -4,6 +4,7 @@ Counterpart of the part of ``tpu_on_k8s/chaos/`` that the serving engine's,
 the training loop's and the cluster client's sites need: the ``Fault`` base
 with ``HttpError``, ``Conflict``, ``TimeoutFault``, ``ConnectionResetFault``
 and ``WatchDrop`` (the REST client's and the apiserver's),
+the job engine's ``PodFail`` and ``SlicePreempt``,
 ``EngineCrash``, ``EngineStall`` and ``DraftCrash``, and ``StepFailure``,
 ``SaveFailure``, ``PreemptNotice`` and ``ReshardAbort`` with their typed
 exceptions, and the
@@ -48,6 +49,10 @@ SITE_REST_WATCH_EVENT = "rest.watch.event"
 SITE_APISERVER_REQUEST = "apiserver.request"
 #: the apiserver's watch stream per delivered frame: ``WatchDrop``
 SITE_APISERVER_WATCH = "apiserver.watch"
+#: ``JobEngine.reconcile``, before the pass lists its pods: ``PodFail``,
+#: ``SlicePreempt`` (recovered by the failover policy: slice-atomic
+#: restart / recreate)
+SITE_RECONCILE = "controller.reconcile"
 #: ``ContinuousBatchingEngine.step``: ``EngineCrash``, ``EngineStall``
 SITE_SERVE_STEP = "serve.engine.step"
 #: the engine's speculative round: ``DraftCrash``
@@ -153,6 +158,34 @@ class WatchDrop(Fault):
 
     def to_exception(self) -> Exception:
         return ConnectionResetError("chaos injected watch-stream drop")
+
+
+@dataclasses.dataclass(frozen=True)
+class PodFail(Fault):
+    """Kill one pod of the reconciled job the way a kubelet reports it:
+    phase Failed, the given container exit code and kill reason. With
+    ``reason="Evicted"`` this is a node-pressure eviction / single-host
+    preemption (retryable per `controller/failover.py`)."""
+
+    task_type: str = "worker"
+    index: int = 0
+    exit_code: int = 137
+    reason: str = "Killed"
+    kind: ClassVar[str] = "pod_fail"
+
+
+@dataclasses.dataclass(frozen=True)
+class SlicePreempt(Fault):
+    """Preempt a whole GPU slice: every worker pod whose task index falls
+    in slice ``slice_index`` (hosts-per-slice, 8 GPUs a host, comes from
+    the job's gpu_policy through ``gang/topology.py``) goes Failed/Evicted
+    at once — how a real slice preemption lands (the slice is one failure
+    domain, SURVEY §5.3)."""
+
+    slice_index: int = 0
+    exit_code: int = 137
+    reason: str = "Evicted"
+    kind: ClassVar[str] = "slice_preempt"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,9 @@
-"""Controller plane: the controller runtime and leader election.
+"""Controller plane: the controller runtime, leader election, the generic
+job engine and the TorchJob reconciler.
 
-The part of ``tpu_on_k8s/controller`` that the cluster client's tests and
-its registry need (``runtime.py``: workqueue, rate limiting, reconcile pump;
-``leaderelection.py``: the Lease kind and its elector). The job engine and
-the reconcilers come with the controllers.
+The part of ``tpu_on_k8s/controller`` ported so far: ``runtime.py``
+(workqueue, rate limiting, reconcile pump), ``leaderelection.py``,
+``engine.py`` (the shared ``JobEngine``) with ``config``, ``expectations``,
+``dag``, ``hostnetwork`` and ``failover``, and ``torchjob.py`` (the
+TorchJob reconciler with the torch.distributed env).
 """

@@ -1,10 +1,18 @@
-"""Gang scheduling: GPU-slice host topology and the PodGroup kind.
+"""Gang scheduling: atomic GPU-slice allocation.
 
 The GPU flavour of ``tpu_on_k8s/gang``: PodGroup MinMember derives from the
-slice's host count (``tpu_on_k8s_torch.gang.topology``).
+slice's host count (``tpu_on_k8s_torch.gang.topology``, 8 GPUs a host).
 """
 
-from tpu_on_k8s_torch.gang.scheduler import PodGroup
+from tpu_on_k8s_torch.gang.scheduler import (
+    GANG_SCHEDULER_NAME,
+    GangRegistry,
+    PodGroup,
+    SliceGangAdmission,
+    SliceGangScheduler,
+    default_registry,
+    podgroup_name,
+)
 from tpu_on_k8s_torch.gang.topology import (
     SliceShape,
     chips_in_topology,

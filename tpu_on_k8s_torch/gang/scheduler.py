@@ -1,16 +1,50 @@
-"""Gang scheduling: the PodGroup objects.
+"""Gang scheduling: PodGroup objects, the scheduler seam, and its registry.
 
-The part of ``tpu_on_k8s/gang/scheduler.py`` that the API and the cluster
-client carry: the Volcano-style ``PodGroup`` kind the client's registry
-routes (``client/resources.py``). The scheduler itself (the registry of
-gang schedulers and the slice-aware admission) comes with the controllers.
+The counterpart of ``tpu_on_k8s/gang/scheduler.py``, after the reference
+operator's pkg/gangscheduler/: the ``GangScheduler`` contract
+(interface.go:31-48), the name-keyed registry (registry/registry.go:36-48),
+and a slice-aware scheduler playing Volcano's role (volcano/volcano.go):
+
+* per-task-type podgroups when DAGScheduling is on (generatePodGroupsByRole,
+  volcano.go:109-172), else one job-wide podgroup (generatePodGroupsByJob,
+  volcano.go:175-230);
+* slices (SURVEY §2.10, §7): for Worker groups, ``min_member`` is the **slice
+  host count** × num_slices, where a host holds 8 GPUs
+  (``gang/topology.py``) — a slice's world is atomic, so admitting fewer
+  hosts than the slice topology needs can never make progress;
+* ``min_resources`` is scaled to min_member when a MinAvailable override lowers
+  it — fixing the reference's own TODO (volcano.go:223-227);
+* AIMaster pods stay on the default scheduler (volcano.go:240-243) — they hold
+  no GPUs and must outlive gang preemption.
+
+The in-memory ``SliceGangAdmission`` stands in for the external Volcano binary:
+it atomically flips a whole podgroup's pods to schedulable once the gang is
+complete, which is what tests and the local driver observe.
 """
 from __future__ import annotations
 
+import re
+import threading
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, List, Optional
 
-from tpu_on_k8s_torch.api.core import ObjectMeta
+from tpu_on_k8s_torch.api import constants
+from tpu_on_k8s_torch.api.core import ObjectMeta, OwnerReference, Pod
+from tpu_on_k8s_torch.api.types import SchedulingPolicy, TaskType, TorchJob
+from tpu_on_k8s_torch.client.cluster import (
+    AlreadyExistsError,
+    InMemoryCluster,
+    NotFoundError,
+)
+from tpu_on_k8s_torch.gang import topology
+from tpu_on_k8s_torch.utils import resources as resmath
+
+GANG_SCHEDULER_NAME = "gpu-slice"
+
+# Marks podgroups whose admission consumes GPU slices from the pool
+# inventory (worker per-role gangs and job-wide gangs; coordinator-role
+# groups hold no slices).
+LABEL_SLICE_GANG = f"{constants.API_GROUP}/slice-gang"
 
 
 @dataclass
@@ -36,3 +70,621 @@ class PodGroup:
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     spec: PodGroupSpec = field(default_factory=PodGroupSpec)
     status: PodGroupStatus = field(default_factory=PodGroupStatus)
+
+
+def slice_quorum(job: TorchJob) -> int:
+    """Full slice host complement: hosts_per_slice × num_slices. The atomic
+    admission unit for the job's worker gang."""
+    gpu = job.spec.gpu_policy
+    return topology.hosts_per_slice(gpu.accelerator, gpu.topology) * max(gpu.num_slices, 1)
+
+
+def validate_gang_feasibility(job: TorchJob) -> None:
+    """Reject statically-deadlocked gangs: a worker group smaller than the
+    slice quorum can never be admitted (fewer pods will ever exist than
+    min_member requires), so surface it as a job failure instead of a
+    silently forever-Pending podgroup."""
+    task = job.spec.tasks.get(TaskType.WORKER)
+    if task is None:
+        return
+    quorum = slice_quorum(job)
+    if task.num_tasks < quorum:
+        raise ValueError(
+            f"worker num_tasks={task.num_tasks} is below the slice quorum "
+            f"{quorum} (hosts_per_slice × num_slices for "
+            f"{job.spec.gpu_policy.accelerator}/{job.spec.gpu_policy.topology} "
+            f"× {job.spec.gpu_policy.num_slices}); the gang could never admit")
+
+
+def podgroup_name(job: TorchJob, task_type: Optional[TaskType] = None) -> str:
+    """Job-wide ``{name}-{uid5}`` / per-role ``{name}-{role}-{uid5}``
+    (volcano.go name scheme)."""
+    uid5 = job.metadata.uid[:5]
+    if task_type is None:
+        return f"{job.metadata.name}-{uid5}"
+    return f"{job.metadata.name}-{task_type.value.lower()}-{uid5}"
+
+
+class SliceGangScheduler:
+    """The Volcano-adapter analog, targeting the in-memory cluster. A GKE
+    backend would emit the same PodGroup shapes as real Volcano CRs."""
+
+    def __init__(self, cluster: InMemoryCluster, *, per_role: bool = True) -> None:
+        self.cluster = cluster
+        self.per_role = per_role
+
+    def name(self) -> str:
+        return GANG_SCHEDULER_NAME
+
+    # ------------------------------------------------------------------ helpers
+    @staticmethod
+    def _scheduling_policy(job: TorchJob) -> SchedulingPolicy:
+        return job.spec.run_policy.scheduling_policy or SchedulingPolicy()
+
+    def _owner_ref(self, job: TorchJob) -> OwnerReference:
+        return OwnerReference(
+            api_version=job.api_version, kind=job.kind, name=job.metadata.name,
+            uid=job.metadata.uid, controller=True, block_owner_deletion=True)
+
+    def _min_member_for_task(self, job: TorchJob, task_type: TaskType) -> int:
+        """Per-role gang quorum. Worker groups are slice-atomic: quorum is
+        never below the full slice host complement (hosts_per_slice ×
+        num_slices) even if a user MinMembers override asks for less — a
+        partial slice cannot form its world. A user override may only
+        raise it. Other roles honor user MinMembers (volcano.go:127-131)."""
+        task = job.spec.tasks[task_type]
+        policy = self._scheduling_policy(job)
+        user_min = policy.min_members.get(task_type)
+        if task_type is TaskType.WORKER:
+            quorum = slice_quorum(job)
+            return max(user_min if user_min is not None else task.num_tasks, quorum)
+        if user_min is not None:
+            return min(user_min, task.num_tasks) if task.num_tasks else user_min
+        return task.num_tasks
+
+    # ---------------------------------------------------------------- interface
+    def create_podgroups(self, job: TorchJob) -> None:
+        """CreatePodGroup (volcano.go:61-106): idempotent create of the job's
+        podgroup(s)."""
+        policy = self._scheduling_policy(job)
+        if self.per_role:
+            for task_type, task in job.spec.tasks.items():
+                if task_type is TaskType.AIMASTER:
+                    # AIMaster never binds to a gang (bind_pod exempts it) —
+                    # creating a group for it would orphan a forever-Pending
+                    # podgroup (reference skips it too, volcano.go:116-117).
+                    continue
+                min_member = self._min_member_for_task(job, task_type)
+                # MinResources scaled to min_member (fixes volcano.go:223-227).
+                # GPUs are injected per-pod by SetClusterSpec at create
+                # time (controller/torchjob.py), so the gang's resource claim must
+                # count them too — admission capacity keys on this.
+                per_pod = dict(resmath.pod_requests(task.template.spec))
+                per_pod.setdefault(
+                    constants.RESOURCE_GPU,
+                    topology.chips_per_host(job.spec.gpu_policy.accelerator))
+                self._ensure(job, podgroup_name(job, task_type), PodGroupSpec(
+                    min_member=min_member,
+                    min_resources=resmath.scale(per_pod, min_member),
+                    queue=policy.queue,
+                    priority_class_name=policy.priority_class_name,
+                ), task_type=task_type,
+                    slice_gang=task_type is TaskType.WORKER)
+            return
+        # Job-wide group: all tasks except AIMaster (volcano.go:186-196).
+        total = sum(t.num_tasks for tt, t in job.spec.tasks.items()
+                    if tt is not TaskType.AIMASTER)
+        min_member = total
+        if policy.min_available is not None:
+            min_member = min(policy.min_available, total)
+        req = {}
+        for tt, t in job.spec.tasks.items():
+            if tt is TaskType.AIMASTER:
+                continue
+            req = resmath.add(req, resmath.task_requests(t))
+        # GPUs injected per-pod by SetClusterSpec count toward the gang claim
+        req = resmath.add(req, {constants.RESOURCE_GPU: total * topology.
+                                chips_per_host(job.spec.gpu_policy.accelerator)})
+        if 0 < min_member < total and total > 0:
+            req = resmath.scale(req, min_member / total)
+        # the job-wide gang holds the workers, so it consumes slices
+        self._ensure(job, podgroup_name(job), PodGroupSpec(
+            min_member=min_member, min_resources=req, queue=policy.queue,
+            priority_class_name=policy.priority_class_name), slice_gang=True)
+
+    def _ensure(self, job: TorchJob, name: str, spec: PodGroupSpec,
+                task_type: Optional[TaskType] = None,
+                slice_gang: bool = False) -> None:
+        labels = {constants.LABEL_JOB_NAME: job.metadata.name}
+        if task_type is not None:
+            labels[constants.LABEL_TASK_TYPE] = task_type.value.lower()
+        if slice_gang:
+            labels[LABEL_SLICE_GANG] = "true"
+        existing = self.cluster.try_get(PodGroup, job.metadata.namespace, name)
+        if existing is not None:
+            if existing.spec != spec:
+                def mutate(pg: PodGroup) -> None:
+                    pg.spec = spec
+                try:
+                    self.cluster.update_with_retry(
+                        PodGroup, job.metadata.namespace, name, mutate)
+                except NotFoundError:
+                    pass
+            missing = {k: v for k, v in labels.items()
+                       if existing.metadata.labels.get(k) != v}
+            if missing:
+                # backfill (pre-existing groups from an older manager must
+                # not silently bypass the capacity gate)
+                try:
+                    self.cluster.patch_meta(PodGroup, job.metadata.namespace,
+                                            name, labels=missing)
+                except NotFoundError:
+                    pass
+            return
+        pg = PodGroup(
+            metadata=ObjectMeta(
+                name=name, namespace=job.metadata.namespace,
+                labels=labels,
+                owner_references=[self._owner_ref(job)]),
+            spec=spec)
+        try:
+            self.cluster.create(pg)
+        except AlreadyExistsError:
+            pass
+
+    def bind_pod(self, job: TorchJob, pod: Pod, task_type: TaskType) -> None:
+        """BindPodToPodGroup (volcano.go:238-287): group annotation + scheduler
+        delegation. AIMaster keeps the default scheduler (volcano.go:240-243)."""
+        if task_type is TaskType.AIMASTER:
+            return
+        name = podgroup_name(job, task_type if self.per_role else None)
+        pod.metadata.annotations[constants.ANNOTATION_GANG_GROUP_NAME] = name
+        pod.spec.scheduler_name = GANG_SCHEDULER_NAME
+
+    def delete_podgroups(self, job: TorchJob) -> None:
+        for pg in self.cluster.list(PodGroup, job.metadata.namespace,
+                                    {constants.LABEL_JOB_NAME: job.metadata.name}):
+            try:
+                self.cluster.delete(PodGroup, pg.metadata.namespace, pg.metadata.name)
+            except NotFoundError:
+                pass
+
+
+@dataclass(frozen=True)
+class NodePool:
+    """A GKE GPU node pool: ``num_slices`` independent slices of
+    ``accelerator``/``topology``, each slice being ``hosts_per_slice``
+    accelerator/topology-labeled nodes. The finite inventory the Volcano
+    analog allocates from, in place of an unconstrained ``node-N`` string
+    generator.
+
+    ``cpu_per_host`` / ``memory_per_host`` bound the non-GPU resources of
+    each host (0 = unconstrained): admission compares the gang's per-pod
+    ``min_resources`` share against them (the reference delegates the same
+    check to Volcano's cluster-capacity filter, volcano.go:175-230), so a
+    gang can fit by slice count yet still wait on CPU/memory."""
+
+    name: str
+    accelerator: str
+    topology: str
+    num_slices: int
+    cpu_per_host: float = 0.0
+    memory_per_host: float = 0.0
+
+    @property
+    def hosts_per_slice(self) -> int:
+        return topology.hosts_per_slice(self.accelerator, self.topology)
+
+    def node_name(self, slice_idx: int, host_idx: int) -> str:
+        return f"{self.name}-s{slice_idx}-h{host_idx}"
+
+    def matches(self, accelerator: str, topo: str) -> bool:
+        return self.accelerator == accelerator and self.topology == topo
+
+    def fits_per_pod(self, per_pod: Dict[str, float]) -> bool:
+        """One worker pod per GPU host (the GKE GPU model): the pod's CPU and
+        memory share must fit a single host's capacity."""
+        if self.cpu_per_host and per_pod.get("cpu", 0.0) > self.cpu_per_host:
+            return False
+        if (self.memory_per_host
+                and per_pod.get("memory", 0.0) > self.memory_per_host):
+            return False
+        return True
+
+
+def parse_node_pools(spec: str) -> List[NodePool]:
+    """Parse the ``--node-pools`` flag: comma-separated
+    ``name=accelerator:topology:num_slices[:cpu=C][:mem=M]`` entries, e.g.
+    ``poolA=nvidia-h100-80gb:4x8:2:cpu=96:mem=384e9``."""
+    pools: List[NodePool] = []
+    for entry in filter(None, (e.strip() for e in spec.split(","))):
+        name, _, rest = entry.partition("=")
+        if not rest:
+            raise ValueError(f"node pool {entry!r}: expected name=acc:topo:n")
+        parts = rest.split(":")
+        if len(parts) < 3:
+            raise ValueError(f"node pool {entry!r}: expected acc:topo:n")
+        acc, topo, n = parts[0], parts[1], int(parts[2])
+        cpu = mem = 0.0
+        for extra in parts[3:]:
+            k, _, v = extra.partition("=")
+            if k == "cpu":
+                cpu = float(v)
+            elif k == "mem":
+                mem = float(v)
+            else:
+                raise ValueError(f"node pool {entry!r}: unknown option {k!r}")
+        topology.validate_slice(acc, topo)  # fail loudly at flag-parse time
+        pools.append(NodePool(name=name, accelerator=acc, topology=topo,
+                              num_slices=n, cpu_per_host=cpu,
+                              memory_per_host=mem))
+    return pools
+
+
+def load_node_pools_file(path: str) -> List[NodePool]:
+    """Load pools from YAML: a list of {name, accelerator, topology,
+    numSlices, cpuPerHost?, memoryPerHost?} (the ConfigMap the scheduler
+    Deployment mounts, config/scheduler/)."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f) or []
+    pools = []
+    for row in raw:
+        acc = row["accelerator"]
+        topo = row["topology"]
+        topology.validate_slice(acc, topo)
+        pools.append(NodePool(
+            name=row["name"], accelerator=acc, topology=topo,
+            num_slices=int(row.get("numSlices", row.get("num_slices", 1))),
+            cpu_per_host=float(row.get("cpuPerHost",
+                                       row.get("cpu_per_host", 0)) or 0),
+            memory_per_host=float(row.get("memoryPerHost",
+                                          row.get("memory_per_host", 0)) or 0)))
+    return pools
+
+
+class SliceGangAdmission:
+    """In-memory stand-in for the Volcano scheduler binary: watches pods and
+    podgroups; when a podgroup's full gang exists, admits them all atomically
+    (flips phase to Inqueue/Running and stamps pod node names). One reconcile
+    pass producing the whole gang — then one admission flipping it — is the
+    north-star criterion of the reference system.
+
+    With ``pools`` configured, GPU worker gangs contend for a finite slice
+    inventory: a gang admits only when its job's full ``num_slices``
+    complement of matching slices is free (slices are atomic — partial
+    allocation can never make progress), and the slices return to the pool
+    when the podgroup goes away. Groups that request no GPUs (master/
+    coordinator roles) are capacity-unconstrained. Without pools the legacy
+    unconstrained behavior is kept (pure protocol tests)."""
+
+    def __init__(self, cluster: InMemoryCluster,
+                 pools: Optional[List[NodePool]] = None) -> None:
+        self.cluster = cluster
+        self.pools = pools or []
+        names = [p.name for p in self.pools]
+        if len(set(names)) != len(names):
+            # name-keyed inventory: a silent last-wins overwrite would hand
+            # out slices from the wrong pool — refuse at construction
+            dupes = sorted({n for n in names if names.count(n) > 1})
+            raise ValueError(f"duplicate node pool names: {dupes}")
+        self._lock = threading.Lock()
+        self.admitted_groups: List[str] = []
+        # "ns/group" -> [(pool_name, slice_idx), ...]
+        self._allocations: Dict[str, List[tuple]] = {}
+        self._free: Dict[str, List[int]] = {
+            p.name: list(range(p.num_slices)) for p in (pools or [])}
+        self._pool_by_name = {p.name: p for p in (pools or [])}
+        # serializes the recovery REBUILD only (it does cluster I/O, so
+        # it cannot run under the inventory lock); always acquired
+        # before `_lock`, never after — no ordering cycle
+        self._recover_lock = threading.Lock()
+        self._recovered = not self.pools  # nothing to recover without pools
+        # recover eagerly: free_slices()/metrics must never observe a
+        # fully-free inventory while Running gangs still hold slices. A
+        # transient API error here must not crash the process — the
+        # scheduler loop's sync() retries on its next tick.
+        if self.pools:
+            try:
+                self._ensure_recovered()
+            # analyze: allow[silent-loss] startup recovery warns with exc_info and retries on every sync() tick
+            except Exception:
+                from tpu_on_k8s_torch.utils.logging import get_logger
+                get_logger("slicescheduler").warning(
+                    "allocation recovery failed at startup; retrying in "
+                    "sync()", exc_info=True)
+
+    def _ensure_recovered(self) -> None:
+        """Run recovery exactly once, even when the scheduler-loop tick
+        and a leadership-takeover resync() race here: the flag is read
+        and latched under the inventory lock, the rebuild itself under
+        the recovery lock (double-checked — the loser of the race must
+        not rebuild a second time over fresh allocations)."""
+        with self._lock:
+            if self._recovered:
+                return
+        with self._recover_lock:
+            with self._lock:
+                if self._recovered:       # lost the race: already rebuilt
+                    return
+            self._recover_allocations()
+            with self._lock:
+                self._recovered = True
+
+    def resync(self) -> None:
+        """Drop the in-memory inventory and rebuild it from cluster state.
+        Required on leadership takeover: allocations moved while this
+        candidate was not leading, and admitting from a stale inventory is
+        exactly the double-booking hazard leader election exists to stop.
+
+        The clear runs under the RECOVERY lock too: clearing while a
+        tick's in-flight ``_recover_allocations`` is mid-rebuild would
+        erase the groups it already wrote, after which its
+        ``_recovered = True`` latch makes the loss permanent — the
+        over-reporting free_slices() this method exists to prevent."""
+        with self._recover_lock:
+            with self._lock:
+                self._allocations.clear()
+                self._free = {p.name: list(range(p.num_slices))
+                              for p in self.pools}
+                self._recovered = not self.pools
+        self._ensure_recovered()
+
+    def _recover_allocations(self) -> None:
+        """Rebuild slice ownership after a scheduler restart: a Running
+        slice-gang podgroup's pods carry pool-encoded node names
+        (``{pool}-s{idx}-h{h}``) — without this, a restarted scheduler would
+        re-offer held slices and double-book hosts."""
+        # one pod list for the whole pass (not per group): over the REST
+        # backend each list is an HTTP round-trip
+        by_group = self._pods_by_group(None)
+        for pg in self.cluster.list(PodGroup, None):
+            if (pg.status.phase != "Running"
+                    or pg.metadata.labels.get(LABEL_SLICE_GANG) != "true"):
+                continue
+            key = f"{pg.metadata.namespace}/{pg.metadata.name}"
+            held: List[tuple] = []
+            for pod in by_group.get(
+                    (pg.metadata.namespace, pg.metadata.name), []):
+                node = pod.spec.node_name or ""
+                for pool in self.pools:
+                    # exact per-pool pattern: a prefix match would let pool
+                    # "h100" claim nodes of pool "h100-a3"
+                    m = re.fullmatch(
+                        rf"{re.escape(pool.name)}-s(\d+)-h\d+", node)
+                    if m:
+                        alloc = (pool.name, int(m.group(1)))
+                        if alloc not in held:
+                            held.append(alloc)
+                        break
+            with self._lock:
+                if held and key not in self._allocations:
+                    self._allocations[key] = held
+                    for pool_name, idx in held:
+                        if idx in self._free.get(pool_name, []):
+                            self._free[pool_name].remove(idx)
+
+    # ----------------------------------------------------------- slice capacity
+    def free_slices(self, pool_name: str) -> int:
+        self._ensure_recovered()  # loud, never a wrong fully-free answer
+        with self._lock:
+            return len(self._free.get(pool_name, []))
+
+    def _release_stale(self, namespace: Optional[str]) -> None:
+        """Slices whose podgroup is gone return to the pool (job finished or
+        deleted — the engine deletes podgroups on termination)."""
+        live = {f"{pg.metadata.namespace}/{pg.metadata.name}"
+                for pg in self.cluster.list(PodGroup, None)}
+        with self._lock:
+            for key in [k for k in self._allocations if k not in live]:
+                for pool_name, idx in self._allocations.pop(key):
+                    self._free[pool_name].append(idx)
+
+    def _try_allocate(self, key: str, job: TorchJob,
+                      pg: PodGroup) -> Optional[List[tuple]]:
+        """All-or-nothing slice allocation for the job's gpu_policy. A pool
+        must match the accelerator/topology, hold enough free slices, AND fit
+        the gang's per-pod CPU/memory share on each host (resource-aware
+        admission — a gang can fit by slice count yet wait on resources)."""
+        gpu = job.spec.gpu_policy
+        need = max(gpu.num_slices, 1)
+        # Per-pod fit uses the WORKER task's own requests (+ the chips
+        # SetClusterSpec injects), not min_resources/min_member — a job-wide
+        # group averages master+worker requests, which could admit a gang
+        # whose worker pods individually exceed a host.
+        worker = job.spec.tasks.get(TaskType.WORKER)
+        if worker is not None:
+            per_pod = dict(resmath.pod_requests(worker.template.spec))
+            per_pod.setdefault(constants.RESOURCE_GPU,
+                               topology.chips_per_host(gpu.accelerator))
+        else:
+            per_pod = {k: v / max(pg.spec.min_member, 1)
+                       for k, v in pg.spec.min_resources.items()}
+        with self._lock:
+            held = self._allocations.get(key)
+            if held is not None:
+                # An elastic rescale can change topology/num_slices under a
+                # held allocation; slices of the wrong shape can never serve
+                # the new gang — release and reallocate instead of handing
+                # back stale hosts.
+                shape_ok = (len(held) == need and all(
+                    self._pool_by_name[pn].matches(gpu.accelerator,
+                                                   gpu.topology)
+                    for pn, _ in held))
+                if shape_ok:
+                    return held
+                for pn, idx in self._allocations.pop(key):
+                    self._free[pn].append(idx)
+            for pool in self.pools:
+                if not pool.matches(gpu.accelerator, gpu.topology):
+                    continue
+                if not pool.fits_per_pod(per_pod):
+                    continue
+                free = self._free[pool.name]
+                if len(free) >= need:
+                    taken = [(pool.name, free.pop(0)) for _ in range(need)]
+                    self._allocations[key] = taken
+                    return taken
+        return None
+
+    def _owner_job(self, pg: PodGroup) -> Optional[TorchJob]:
+        for ref in pg.metadata.owner_references:
+            if ref.kind == constants.KIND_TORCHJOB:
+                return self.cluster.try_get(TorchJob, pg.metadata.namespace,
+                                            ref.name)
+        return None
+
+    # ----------------------------------------------------------------- admission
+    def sync(self, namespace: Optional[str] = None) -> List[str]:
+        """Admit every gang-complete podgroup (in creation order — the order
+        the coordinator dequeued their jobs); returns names admitted this
+        pass. Deterministic and pull-based so tests control timing.
+
+        Running groups are revisited when any of their pods lack a node —
+        an elastic rescale recreates pods under the same (still-Running)
+        group, possibly with a different topology; those pods need nodes
+        from a (possibly re-)allocated slice set."""
+        self._ensure_recovered()  # retries a failed startup recovery
+        if self.pools:
+            self._release_stale(namespace)
+        admitted = []
+        # one pod list per pass (not per group): over the REST backend each
+        # list is an HTTP round-trip and sync runs on a 100ms period
+        by_group = self._pods_by_group(namespace)
+        for pg in self.cluster.list(PodGroup, namespace):
+            pods = by_group.get(
+                (pg.metadata.namespace, pg.metadata.name), [])
+            if (pg.status.phase == "Running"
+                    and all(p.spec.node_name for p in pods)):
+                continue
+            if len(pods) < pg.spec.min_member:
+                continue
+            nodes: Optional[List[str]] = None
+            if (self.pools
+                    and pg.metadata.labels.get(LABEL_SLICE_GANG) == "true"
+                    and pg.spec.min_resources.get(constants.RESOURCE_GPU)):
+                job = self._owner_job(pg)
+                if job is None:
+                    continue
+                key = f"{pg.metadata.namespace}/{pg.metadata.name}"
+                taken = self._try_allocate(key, job, pg)
+                if taken is None:
+                    continue  # pool exhausted: gang waits, slices stay atomic
+                nodes = [self._pool_by_name[pn].node_name(idx, h)
+                         for pn, idx in taken
+                         for h in range(self._pool_by_name[pn].hosts_per_slice)]
+
+            def mutate(g: PodGroup) -> None:
+                g.status.phase = "Running"
+                g.status.admitted = len(pods)
+            try:
+                self.cluster.update_with_retry(
+                    PodGroup, pg.metadata.namespace, pg.metadata.name, mutate,
+                    subresource="status")
+            except NotFoundError:
+                continue
+            with self._lock:
+                self.admitted_groups.append(pg.metadata.name)
+            admitted.append(pg.metadata.name)
+            for i, pod in enumerate(pods):
+                node = (nodes[i] if nodes is not None and i < len(nodes)
+                        else f"gpu-node-{i}")
+                self._assign_node(pod, node)
+        return admitted
+
+    def _pods_by_group(self, namespace: Optional[str]) -> Dict[tuple, List[Pod]]:
+        """All gang-annotated pods, grouped by (namespace, group), each group
+        sorted by pod name."""
+        out: Dict[tuple, List[Pod]] = {}
+        for pod in self.cluster.list(Pod, namespace):
+            group = pod.metadata.annotations.get(
+                constants.ANNOTATION_GANG_GROUP_NAME)
+            if group:
+                out.setdefault((pod.metadata.namespace, group), []).append(pod)
+        for pods in out.values():
+            pods.sort(key=lambda p: p.metadata.name)
+        return out
+
+    def _group_pods(self, pg: PodGroup) -> List[Pod]:
+        return self._pods_by_group(pg.metadata.namespace).get(
+            (pg.metadata.namespace, pg.metadata.name), [])
+
+    def _assign_node(self, pod: Pod, node: str) -> None:
+        if pod.spec.node_name:
+            return
+
+        def mutate(p: Pod) -> None:
+            if not p.spec.node_name:
+                p.spec.node_name = node
+        try:
+            self.cluster.update_with_retry(
+                Pod, pod.metadata.namespace, pod.metadata.name, mutate)
+        except NotFoundError:
+            pass
+
+
+class SliceSchedulerLoop:
+    """The deployable admission actor: runs ``SliceGangAdmission.sync()`` on
+    a period against any cluster backend (in-memory or REST). This is the
+    process that plays Volcano's role in a deployment — the reference
+    delegates admission to the external Volcano binary
+    (volcano/volcano.go:238-287); here the slice scheduler is our own
+    deliverable, started in-process with the manager or as its own
+    Deployment."""
+
+    def __init__(self, admission: SliceGangAdmission,
+                 period_seconds: float = 0.1) -> None:
+        self.admission = admission
+        self.period_seconds = period_seconds
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def run(self) -> None:
+        if self._thread is not None:
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="slice-scheduler")
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                self.admission.sync()
+            # analyze: allow[silent-loss] scheduler loop survival; the failure is logged and the next tick retries
+            except Exception:  # noqa: BLE001 — the loop must survive blips
+                from tpu_on_k8s_torch.utils.logging import get_logger
+                get_logger("slicescheduler").exception("admission sync failed")
+            self._stop.wait(self.period_seconds)
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+
+
+class GangRegistry:
+    """Name-keyed scheduler registry (registry/registry.go:36-48)."""
+
+    def __init__(self) -> None:
+        self._schedulers: Dict[str, object] = {}
+
+    def register(self, scheduler) -> None:
+        self._schedulers[scheduler.name()] = scheduler
+
+    def get(self, name: str):
+        if name not in self._schedulers:
+            raise KeyError(f"gang scheduler {name!r} not registered; "
+                           f"have {sorted(self._schedulers)}")
+        return self._schedulers[name]
+
+    def names(self) -> List[str]:
+        return sorted(self._schedulers)
+
+
+def default_registry(cluster: InMemoryCluster, *, per_role: bool = True) -> GangRegistry:
+    reg = GangRegistry()
+    reg.register(SliceGangScheduler(cluster, per_role=per_role))
+    return reg

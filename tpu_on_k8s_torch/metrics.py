@@ -1,7 +1,8 @@
-"""Serving and training metrics: counters, histograms and gauges, scrapeable at
-/metrics.
+"""Job, serving and training metrics: counters, histograms and gauges,
+scrapeable at /metrics.
 
-Counterpart of the serving half of ``tpu_on_k8s/metrics/metrics.py``:
+Counterpart of ``tpu_on_k8s/metrics/metrics.py``: the job controller's
+``JobMetrics`` (lifecycle counters and launch delays, labelled by kind),
 ``ServingMetrics`` (request counters, time-to-first-token, queue-wait and
 latency histograms, slot and queue gauges), ``PagedKVMetrics`` (page
 occupancy, allocations, aliases, admission stalls) and ``SpecMetrics``
@@ -154,6 +155,75 @@ class _MetricsBase:
                     h.observe(seconds)
             else:
                 h.observe(seconds)
+
+
+_BUCKETS = (0.1, 0.5, 1, 2.5, 5, 10, 30, 60, 120, 300, 600)
+
+
+class JobMetrics(_MetricsBase):
+    """One instance per controller manager (kind-labelled like the reference):
+    job lifecycle counters, controller errors, conflict retries, the
+    launch-delay histograms and the running / pending / per-queue gauges."""
+
+    def __init__(self, kind: str = "TorchJob", registry=None) -> None:
+        super().__init__()
+        self.kind = kind
+        self.gauges: Dict[Tuple[str, str], float] = {}
+        if _prom is not None:
+            self.registry = registry or _prom.CollectorRegistry()
+        ns = "tpu_on_k8s"
+        for name in ("created", "deleted", "successful", "failed", "restarted"):
+            self._declare(name, f"{ns}_jobs_{name}", "counter",
+                          f"Jobs {name} for kind {kind}")
+        self._declare("errors", f"{ns}_controller_errors_total", "counter",
+                      "Exceptions caught in controller run loops")
+        # optimistic-concurrency health: every retried 409 in a
+        # read-modify-write loop (client update_with_retry/patch_meta)
+        self._declare("conflict_retries", f"{ns}_conflict_retries_total",
+                      "counter",
+                      "Conflict (409) retries across client write loops")
+        for name in ("first_pod_launch_delay_seconds",
+                     "all_pods_launch_delay_seconds"):
+            self._declare(name, f"{ns}_jobs_{name}", "histogram",
+                          f"Job {name}", buckets=_BUCKETS)
+        for name in ("running", "pending"):
+            self._declare(name, f"{ns}_jobs_{name}", "gauge",
+                          f"Jobs currently {name}")
+        self._declare("queue_pending",
+                      f"{ns}_tenant_queue_jobs_pending_count", "gauge",
+                      "Pending jobs per tenant queue", labels=("queue",))
+
+    def set_gauge(self, name: str, value: float, label: str = "") -> None:
+        with self._lock:
+            self.gauges[(name, label)] = value
+        g = self._prom_gauges.get(name)
+        if g is not None:
+            (g.labels(label) if label else g).set(value)
+
+    # convenience wrappers matching reference call sites
+    def created(self) -> None:
+        self.inc("created")
+
+    def deleted(self) -> None:
+        self.inc("deleted")
+
+    def success(self) -> None:
+        self.inc("successful")
+
+    def failure(self) -> None:
+        self.inc("failed")
+
+    def restarted(self) -> None:
+        self.inc("restarted")
+
+    def error(self) -> None:
+        self.inc("errors")
+
+    def first_pod_launch_delay(self, seconds: float) -> None:
+        self.observe("first_pod_launch_delay_seconds", seconds)
+
+    def all_pods_launch_delay(self, seconds: float) -> None:
+        self.observe("all_pods_launch_delay_seconds", seconds)
 
 
 _SERVING_BUCKETS = (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1,

@@ -1,17 +1,15 @@
 """Worker-side runtime init: the consumer of the operator's env, the
 counterpart of ``tpu_on_k8s/train/distributed.py``.
 
-The operator injects the coordinator's address, the process count and this
-process's index into every task pod; ``parse_env`` reads them under the
-reference's names and ``initialize`` joins the job's
-``torch.distributed`` world with them: NCCL on the card, and gloo only
-where the caller asked for ``device="cpu"``. Where torchrun's ``RANK``,
-``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` are set, their
-rendezvous takes the place of the operator's (the torch runtime's own launcher, as
-``jax.distributed`` detects its cluster). Off-cluster (neither env) it is a
-no-op returning a single-process context, so one training script runs on a
-laptop, in tests and on a cluster; ``local_world`` then makes a world of
-one rank in the process itself, for a mesh of one card.
+The operator (``controller/torchjob.py``) injects ``MASTER_ADDR``,
+``MASTER_PORT``, ``RANK`` and ``WORLD_SIZE`` into every task pod — the
+variables torchrun sets too — and ``parse_env`` reads them (with the model
+path) from the names in ``api/constants.py``. ``initialize`` joins the
+job's ``torch.distributed`` world with them: NCCL on the card, and gloo
+only where the caller asked for ``device="cpu"``. Off-cluster (no such
+env) it is a no-op returning a single-process context, so one training
+script runs on a laptop, in tests and on a cluster; ``local_world`` then
+makes a world of one rank in the process itself, for a mesh of one card.
 
     from tpu_on_k8s_torch.train.distributed import initialize
     ctx = initialize()              # no-op off-cluster
@@ -29,8 +27,10 @@ import torch.distributed as dist
 from tpu_on_k8s_torch import constants
 from tpu_on_k8s_torch.device import resolve_device
 
-#: torchrun's rendezvous variables; all four set select their rendezvous
-TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+#: the rendezvous variables, the operator's and torchrun's alike; all four
+#: set select their rendezvous
+TORCHRUN_ENV = (constants.ENV_PROCESS_ID, constants.ENV_NUM_PROCESSES,
+                constants.ENV_MASTER_ADDR, constants.ENV_MASTER_PORT)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,18 +40,11 @@ class DistributedContext:
     coordinator_address: Optional[str] = None
     process_id: int = 0
     num_processes: int = 1
-    worker_hostnames: tuple = ()
-    num_slices: int = 1
-    slice_id: int = 0
     model_path: Optional[str] = None
 
     @property
     def is_distributed(self) -> bool:
         return self.num_processes > 1 and self.coordinator_address is not None
-
-    @property
-    def is_multislice(self) -> bool:
-        return self.num_slices > 1
 
     @property
     def is_coordinator(self) -> bool:
@@ -61,16 +54,12 @@ class DistributedContext:
 def parse_env(env: Optional[Mapping[str, str]] = None) -> DistributedContext:
     """Read the operator-injected variables (missing ⇒ single-process)."""
     env = os.environ if env is None else env
-    hostnames = tuple(
-        h for h in env.get(constants.ENV_TPU_WORKER_HOSTNAMES, "").split(",")
-        if h)
+    addr = env.get(constants.ENV_MASTER_ADDR)
+    port = env.get(constants.ENV_MASTER_PORT)
     return DistributedContext(
-        coordinator_address=env.get(constants.ENV_COORDINATOR_ADDRESS) or None,
-        process_id=int(env.get(constants.ENV_PROCESS_ID, "0")),
-        num_processes=int(env.get(constants.ENV_NUM_PROCESSES, "1")),
-        worker_hostnames=hostnames,
-        num_slices=int(env.get(constants.ENV_MEGASCALE_NUM_SLICES, "1")),
-        slice_id=int(env.get(constants.ENV_MEGASCALE_SLICE_ID, "0")),
+        coordinator_address=f"{addr}:{port}" if addr and port else None,
+        process_id=int(env.get(constants.ENV_PROCESS_ID) or "0"),
+        num_processes=int(env.get(constants.ENV_NUM_PROCESSES) or "1"),
         model_path=env.get(constants.ENV_MODEL_PATH) or None,
     )
 
@@ -90,36 +79,18 @@ def _set_card(device: str | torch.device, local_rank: int) -> None:
 def initialize(env: Optional[Mapping[str, str]] = None,
                device: str | torch.device = "cuda") -> DistributedContext:
     """Join the job's ``torch.distributed`` world if the env says there is
-    one, and return this worker's context.
-
-    * torchrun's four variables set: their rendezvous
-      (``tcp://MASTER_ADDR:MASTER_PORT`` at ``RANK`` of ``WORLD_SIZE``), at
-      any world size;
-    * else the operator's ``XLA_COORDINATOR_ADDRESS`` with
-      ``TPU_NUM_PROCESSES`` > 1: ``tcp://<address>`` at rank
-      ``TPU_PROCESS_ID``;
-    * else a no-op (single process).
+    one, and return this worker's context: with ``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR`` and ``MASTER_PORT`` all set, the rendezvous at
+    ``tcp://MASTER_ADDR:MASTER_PORT`` as rank ``RANK`` of ``WORLD_SIZE``, at
+    any world size (one included); else a no-op (single process).
 
     The backend is NCCL on the card and gloo for ``device="cpu"``; a CUDA
     run that cannot join over NCCL raises. A world already initialised is
     left as it is."""
     env = os.environ if env is None else env
-    if all(env.get(k) for k in TORCHRUN_ENV):
-        rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
-        ctx = dataclasses.replace(
-            parse_env(env),
-            coordinator_address=f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
-            process_id=rank, num_processes=world)
-        if not dist.is_initialized():
-            _set_card(device, int(env.get("LOCAL_RANK", rank)))
-            dist.init_process_group(
-                backend_for(device),
-                init_method=f"tcp://{ctx.coordinator_address}", rank=rank,
-                world_size=world)
-        return ctx
     ctx = parse_env(env)
-    if ctx.is_distributed and not dist.is_initialized():
-        _set_card(device, ctx.process_id)
+    if all(env.get(k) for k in TORCHRUN_ENV) and not dist.is_initialized():
+        _set_card(device, int(env.get("LOCAL_RANK", ctx.process_id)))
         dist.init_process_group(
             backend_for(device),
             init_method=f"tcp://{ctx.coordinator_address}",
@@ -138,3 +109,4 @@ def local_world(device: str | torch.device = "cuda") -> bool:
     dist.init_process_group(backend_for(device), store=dist.HashStore(),
                             rank=0, world_size=1)
     return True
+

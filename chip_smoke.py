@@ -184,7 +184,9 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    stitched losses and the final weights equal the fault-free run's bit
    for bit; 16 launches of each flash kernel a step. The loop's step time
    beside phase 4's bare step, the ``mfu`` gauge, the checkpoint's bytes,
-   the snapshot's stall, a blocking write and the restore are printed;
+   the snapshot's stall and a blocking write (on the preempted run's
+   manager, whose saves allocated its buffers) and the restore are
+   printed;
 4d. the remat policies at ``llama2_1b``: one forward and backward each
    under full, mlp, dots and dots_kernels, whose loss and gradients equal
    the no-remat step's bit for bit, with 32, 16, 32 and 16 flash forward
@@ -407,6 +409,33 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    by the engine (a new pod uid, ``Restarting``) and succeeds on its
    second run; one whose container exits 1 fails the job (``PodFailed``).
    Every container here really runs, and any disagreement fails the run.
+14. An elastic TorchJob driven by the card (``phase 14`` is timed): the
+   job controller with an ``ElasticController`` and a ``CRRRestarter``, a
+   ``NodeAgentLoop`` over a ``KubeletSim`` runtime (both on their own
+   threads, as deployed) and an ``ElasticAutoscaler`` on a
+   ``DecisionLedger``, all on an ``InMemoryCluster``, run an elastic
+   worker-only ``TorchJob`` (one worker, ``1x8``, ``ElasticPolicy(1, 2)``)
+   whose training is the port's ``Trainer`` at gpt2_small's full width and
+   depth (flash, remat full, batch ``ELASTIC_BATCH`` x ``ELASTIC_SEQ``) in
+   this process. (a) ``ELASTIC_STEPS`` steps on the card, each step's
+   ``[elastic-metrics]`` line (``train_llama.StepTimer``'s, with the
+   step's measured seconds) written into worker-0's log; one autoscaler
+   tick must decide ``up`` 1 -> 2 with a ``landed`` ledger record, and the
+   respec must give 2 workers on ``2x8`` at generation 2, worker-1 with
+   ``RANK=1``, and worker-0 restarted in place through a CRR the node agent
+   executed (same uid, world-size annotation 2, elastic-restarts 1). (b)
+   worker-1 deleted: the finalizer holds it as a victim, the controller
+   requests a checkpoint at generation 2, and ``aimaster.run`` saves the
+   trainer's state on the card through ``CheckpointManager.save`` at that
+   generation and acknowledges; the controller must drain the victim,
+   respec to one host at generation 3 and restart worker-0 in place again.
+   (c) The checkpoint restored into a fresh ``train_state_template`` on
+   the card: every tensor bit-identical to the live state's, and one more
+   step on each gives step 7 on the restored state and the same loss.
+   The phase's flash launches (24/12/12 a step, 8 steps) are its path
+   ``elastic``; the decision and ledger lines, request-to-ack seconds and
+   the save and restore times and sizes are printed beside the card's
+   line.
 
 Then one JSON line for the kernels, the card's line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -3357,8 +3386,10 @@ def train_loop_phase(tcfg, mods, gpu, dev, train_ms, tmp: Path,
             or mgr.steps(0) != [preempt_at - 1] or stray):
         fail("the preempted loop did not stop at step 6 with steps 4 and 6 "
              "saved (or synced outside its windows)")
+    # the manager stays open: the snapshot buffers its two saves allocated
+    # serve the timed saves below, which need no save of their own to
+    # allocate them
     del trainer
-    mgr.close()
     torch.cuda.empty_cache()
 
     # (c) the resume into a third, fresh TrainState
@@ -3369,7 +3400,6 @@ def train_loop_phase(tcfg, mods, gpu, dev, train_ms, tmp: Path,
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
     count = state.optimizer.count
-    shutil.rmtree(ckdir, ignore_errors=True)
     trainer = Recording(state.model, state.optimizer)
     resumed, _, _, resumed_counts, resumed_syncs = run(
         trainer, state, step, steps - step)
@@ -3391,9 +3421,9 @@ def train_loop_phase(tcfg, mods, gpu, dev, train_ms, tmp: Path,
         fail(f"the resumed loop synced outside its windows: "
              f"{by_site(stray)}")
 
-    # the checkpoint's costs on this state: the snapshot's stall on the
-    # compute stream, the next step beside a plain one, a blocking write
-    mgr = ckpt_mod.CheckpointManager(str(tmp / "timed_ckpt"), max_to_keep=1)
+    # the checkpoint's costs on this state, on (b)'s manager (its buffers
+    # allocated): the snapshot's stall on the compute stream, the next step
+    # beside a plain one, a blocking write
     tok = torch.from_numpy(batches[0]).to(dev)
 
     def timed_step() -> float:
@@ -3405,10 +3435,6 @@ def train_loop_phase(tcfg, mods, gpu, dev, train_ms, tmp: Path,
         return start.elapsed_time(end)
 
     plain_step = min(timed_step() for _ in range(2))
-    t0 = time.perf_counter()
-    mgr.save(state, step=100, wait=False)       # buffers allocated here
-    first_save_s = time.perf_counter() - t0
-    mgr.wait_until_finished()
     torch.cuda.synchronize()
     e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
     t0 = time.perf_counter()
@@ -3425,10 +3451,11 @@ def train_loop_phase(tcfg, mods, gpu, dev, train_ms, tmp: Path,
     mgr.save(state, step=102, wait=True)
     write_s = time.perf_counter() - t0
     mgr.close()
+    shutil.rmtree(ckdir, ignore_errors=True)
     print(f"[train-loop] {gpu}: checkpoint of the llama2_1b TrainState "
-          f"{nbytes:,} B (fp32 masters and both fp32 moments); a "
-          f"manager's first save {first_save_s:.2f} s on the host (device "
-          f"and pinned buffers allocated); then an async save: "
+          f"{nbytes:,} B (fp32 masters and both fp32 moments); on the "
+          f"preempted run's manager (device and pinned buffers allocated "
+          f"by its saves) an async save: "
           f"{enqueue_ms:.2f} ms on the host to enqueue, the snapshot's "
           f"stall on the compute stream {stall_ms:.2f} ms, the next step "
           f"{after_save:.2f} ms beside a step without a save "
@@ -6419,6 +6446,296 @@ def torchjob_phase(gpu: str, tmp: Path) -> None:
     print(f"[time] phase 13 {time.perf_counter() - t_phase:.1f} s")
 
 
+#: phase 14's trainer: gpt2_small at full width and depth, this batch x
+#: sequence; the autoscaler decides on ELASTIC_STEPS step times (its
+#: ``elastic_metric_count`` is 5)
+ELASTIC_BATCH, ELASTIC_SEQ, ELASTIC_STEPS = 8, 1024, 6
+
+
+def elastic_phase(mods, gpu: str, dev, tmp: Path, transformer) -> dict:
+    """Phase 14: an elastic TorchJob driven by the card (module docstring).
+    Returns {"paths": {"elastic": launches}}."""
+    import contextlib
+    import io
+
+    from tpu_on_k8s_torch import aimaster
+    from tpu_on_k8s_torch.api import constants
+    from tpu_on_k8s_torch.api.core import (
+        Container,
+        ObjectMeta,
+        Pod,
+        PodSpec,
+        PodTemplateSpec,
+    )
+    from tpu_on_k8s_torch.api.crr import ContainerRecreateRequest
+    from tpu_on_k8s_torch.api.types import (
+        ElasticPolicy,
+        GPUPolicy,
+        TaskSpec,
+        TaskType,
+        TorchJob,
+        TorchJobSpec,
+    )
+    from tpu_on_k8s_torch.client import InMemoryCluster, KubeletSim
+    from tpu_on_k8s_torch.client.nodeagent import NodeAgentLoop
+    from tpu_on_k8s_torch.client.testing import append_pod_log
+    from tpu_on_k8s_torch.controller.autoscaler import setup_elastic_autoscaler
+    from tpu_on_k8s_torch.controller.elastic import ElasticController
+    from tpu_on_k8s_torch.controller.failover import CRRRestarter
+    from tpu_on_k8s_torch.controller.runtime import Manager
+    from tpu_on_k8s_torch.controller.torchjob import (
+        setup_torchjob_controller,
+        submit_job,
+    )
+    from tpu_on_k8s_torch.gang import topology
+    from tpu_on_k8s_torch.models.params import init_params, load_model
+    from tpu_on_k8s_torch.obs.ledger import COMMIT_LANDED, DecisionLedger
+    from tpu_on_k8s_torch.train import Trainer, default_optimizer
+    from tpu_on_k8s_torch.train.checkpoint import CheckpointManager
+    from tpu_on_k8s_torch.train.trainer import train_state_template
+    from tpu_on_k8s_torch.train_llama import StepTimer
+
+    t_phase = time.perf_counter()
+    name, ns = "elastic", "default"
+    w0, w1 = f"{name}-worker-0", f"{name}-worker-1"
+
+    # ---- the operator plane on an in-memory cluster ----------------------
+    cluster, manager = InMemoryCluster(), Manager()
+    restarter = CRRRestarter(cluster)
+    elastic = ElasticController(cluster, restarter=restarter)
+    setup_torchjob_controller(cluster, manager, restarter=restarter,
+                              elastic_controller=elastic)
+    sim = KubeletSim(cluster)
+    agent = NodeAgentLoop(cluster, runtime=KubeletSim(cluster))
+    ledger = DecisionLedger()
+    scaler = setup_elastic_autoscaler(cluster, ledger=ledger)
+    # live mode, as deployed: the controllers on their worker threads and
+    # the node agent on its watch; the kubelet is stepped by hand
+    manager.start()
+    agent.start()
+
+    def settle(done, what: str, timeout: float = 60.0) -> None:
+        """Run what is pending until ``done()`` holds."""
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            sim.run_all(ns)
+            if done():
+                return
+            time.sleep(0.01)
+        fail(f"phase 14: timed out waiting for {what}")
+
+    def job():
+        return cluster.get(TorchJob, ns, name)
+
+    def pod(pod_name):
+        return cluster.try_get(Pod, ns, pod_name)
+
+    def env_of(p) -> dict:
+        return {e.name: (e.value_from.field_path if e.value_from is not None
+                         else e.value)
+                for e in p.spec.containers[0].env}
+
+    template = PodTemplateSpec(spec=PodSpec(containers=[Container(
+        name=constants.DEFAULT_CONTAINER_NAME, image="tpu-on-k8s-torch")]))
+    submit_job(cluster, TorchJob(
+        metadata=ObjectMeta(name=name),
+        spec=TorchJobSpec(
+            tasks={TaskType.WORKER: TaskSpec(num_tasks=1, template=template)},
+            elastic_policy=ElasticPolicy(min_replicas=1, max_replicas=2),
+            gpu_policy=GPUPolicy(accelerator="nvidia-h100-80gb",
+                                 topology="1x8"))))
+
+    def running(pod_name: str, generation: int) -> bool:
+        p = pod(pod_name)
+        return (p is not None and p.status.phase == "Running"
+                and p.metadata.deletion_timestamp is None
+                and p.metadata.labels.get(constants.LABEL_JOB_GENERATION)
+                == str(generation))
+
+    settle(lambda: running(w0, 1), "worker-0 running")
+    first = pod(w0)
+    if scaler.registered() != [f"{ns}/{name}"]:
+        fail(f"the autoscaler registered {scaler.registered()}")
+
+    # ---- the trainer on the card -----------------------------------------
+    tcfg = dataclasses.replace(transformer.TransformerConfig.gpt2_small(),
+                               attn_impl="flash")
+    opt_kw = dict(warmup_steps=10, decay_steps=11)
+    p0 = init_params(tcfg, torch.Generator(device=dev).manual_seed(14), dev,
+                     dtype=torch.float32)
+    model = load_model(tcfg, p0, dev)
+    trainer = Trainer(model, default_optimizer(model.parameters(), **opt_kw))
+    state = trainer.state()
+    tokens = torch.from_numpy(np.random.default_rng(14).integers(
+        0, tcfg.vocab_size, (ELASTIC_BATCH, ELASTIC_SEQ + 1))
+        .astype(np.int32)).to(dev)
+    timer = StepTimer(ELASTIC_BATCH * ELASTIC_SEQ)
+    n = tcfg.n_layers
+    per_step = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+
+    # ---- (a) grow 1 -> 2 on the card's own step times ----------------------
+    torch.cuda.synchronize()
+    reset_counts(mods)
+    step_s, losses = [], []
+    for i in range(ELASTIC_STEPS):
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, tokens)
+        loss = float(m["loss"])                 # syncs: the step is done
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            timer.report(state.step, loss, step_s[-1])
+        [line] = out.getvalue().splitlines()
+        append_pod_log(cluster, ns, w0, line)
+    scaler.run_once()
+    decisions = list(scaler.decision_log)
+    records = [r for r in ledger.records if hasattr(r, "action")]
+    if (len(decisions) != 1 or len(records) != 1
+            or records[0].action != "up" or records[0].commit != COMMIT_LANDED
+            or (records[0].current, records[0].target) != (1, 2)):
+        fail(f"the autoscaler did not grow 1 -> 2 on the card's step times: "
+             f"{decisions}, {ledger.lines()}")
+    print(f"[elastic] (a) {ELASTIC_STEPS} gpt2_small steps at "
+          f"{ELASTIC_BATCH} x {ELASTIC_SEQ} on {gpu}: step s "
+          f"{[round(x, 4) for x in step_s]}, loss "
+          f"{[round(x, 4) for x in losses]}; worker-0's last line "
+          f"'{line}'")
+    print(f"[elastic] (a) decision: {decisions[0]}")
+    print(f"[elastic] (a) ledger: {ledger.lines()[0]}")
+    t0 = time.perf_counter()
+    settle(lambda: running(w0, 2) and running(w1, 2) and job().metadata
+           .annotations.get(constants.ANNOTATION_SCALE_STATE)
+           == constants.SCALE_STATE_DONE
+           and not cluster.list(ContainerRecreateRequest, ns),
+           "the grown world at generation 2")
+    grow_s = time.perf_counter() - t0
+    j = job()
+    grown0, grown1 = pod(w0), pod(w1)
+    crrs = cluster.list(ContainerRecreateRequest, ns)
+    if (j.spec.tasks[TaskType.WORKER].num_tasks != 2
+            or j.spec.gpu_policy.topology != "2x8"
+            or j.metadata.generation != 2 or grown1 is None
+            or env_of(grown1).get(constants.ENV_PROCESS_ID) != "1"
+            or grown0.metadata.uid != first.metadata.uid
+            or grown0.metadata.annotations.get(
+                constants.ANNOTATION_WORLD_SIZE) != "2"
+            or grown0.metadata.annotations.get(
+                constants.ANNOTATION_ELASTIC_RESTARTS) != "1"
+            or agent.executed != 1 or crrs):
+        fail(f"the grow was not applied as a respec to 2x8 with worker-0 "
+             f"restarted in place: generation {j.metadata.generation}, "
+             f"{j.spec.gpu_policy.topology}, worker-1 {grown1 and env_of(grown1)}"
+             f", worker-0 {grown0.metadata.annotations}, node agent "
+             f"{agent.executed}, CRRs left {len(crrs)}")
+    print(f"[elastic] (a) respec: generation {j.metadata.generation}, 2 "
+          f"workers, 2x8; worker-1 RANK=1 MASTER_ADDR="
+          f"{env_of(grown1)[constants.ENV_MASTER_ADDR]}; worker-0 restarted "
+          f"in place by the node agent's CRR (uid kept, world-size 2, "
+          f"elastic-restarts 1, RANK={env_of(grown0)[constants.ENV_PROCESS_ID]})"
+          f"; decision to the grown world running {grow_s:.3f} s")
+
+    # ---- (b) checkpoint the card's state on the controller's request -------
+    mgr = CheckpointManager(str(tmp / "elastic_ckpt"), max_to_keep=1)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in state.state_dict().values())
+    saved_at = {}
+
+    def save_fn(generation: int) -> None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(state, step=int(state.step), generation=generation)
+        saved_at["s"] = time.perf_counter() - t0
+        saved_at["generation"] = generation
+
+    cluster.delete(Pod, ns, w1)              # held by its finalizer: a victim
+    t_request = time.perf_counter()
+    settle(lambda: job().metadata.annotations.get(
+        constants.ANNOTATION_CKPT_REQUESTED_VERSION) is not None,
+        "the checkpoint request")
+    gen_req = job().metadata.annotations.get(
+        constants.ANNOTATION_CKPT_REQUESTED_VERSION)
+    if gen_req != "2" or pod(w1) is None:
+        fail(f"no checkpoint request for the victim: {gen_req}")
+    done = aimaster.run(cluster, ns, name, save_fn, period_seconds=0,
+                        max_polls=1)
+    ack_s = time.perf_counter() - t_request
+    settle(lambda: running(w0, 3) and pod(w1) is None and job().metadata
+           .annotations.get(constants.ANNOTATION_SCALE_STATE)
+           == constants.SCALE_STATE_DONE
+           and not cluster.list(ContainerRecreateRequest, ns),
+           "the shrunk world at generation 3")
+    agent.stop()
+    manager.stop()
+    j = job()
+    shrunk0 = pod(w0)
+    if (done != 1 or saved_at.get("generation") != 2
+            or j.metadata.annotations.get(
+                constants.ANNOTATION_CKPT_COMPLETED_VERSION) != "2"
+            or pod(w1) is not None
+            or j.spec.tasks[TaskType.WORKER].num_tasks != 1
+            or topology.hosts_per_slice(j.spec.gpu_policy.accelerator,
+                                        j.spec.gpu_policy.topology) != 1
+            or j.metadata.generation != 3
+            or shrunk0.metadata.uid != first.metadata.uid
+            or shrunk0.metadata.annotations.get(
+                constants.ANNOTATION_WORLD_SIZE) != "1"):
+        fail(f"the checkpoint round did not drain the victim and respec to "
+             f"1 host: done {done}, saved {saved_at}, generation "
+             f"{j.metadata.generation}, {j.spec.gpu_policy.topology}, "
+             f"worker-0 {shrunk0.metadata.annotations}")
+    print(f"[elastic] (b) worker-1 preempted: checkpoint requested at "
+          f"generation {gen_req}; the AIMaster saved the card's TrainState "
+          f"({nbytes:,} B, step {int(state.step)}) in {saved_at['s']:.2f} s "
+          f"({nbytes / saved_at['s'] / 1e9:.3f} GB/s) and acknowledged "
+          f"{ack_s:.2f} s after the request; respec to 1 host "
+          f"({j.spec.gpu_policy.topology}, the first legal one-host shape, as "
+          f"the reference's topology_for_hosts picks), generation "
+          f"{j.metadata.generation}, worker-0 restarted in place again "
+          f"(elastic-restarts "
+          f"{shrunk0.metadata.annotations[constants.ANNOTATION_ELASTIC_RESTARTS]})")
+
+    # ---- (c) restore into a fresh state; one more step on each ------------
+    fresh = train_state_template(tcfg, dev, **opt_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, gen, step = mgr.restore(fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    live_sd, back_sd = state.state_dict(), restored.state_dict()
+    same = [k for k, t in live_sd.items() if torch.equal(back_sd[k], t)]
+    trainer2 = Trainer(restored.model, restored.optimizer)
+    restored, m_back = trainer2.train_step(restored, tokens)
+    state, m_live = trainer.train_step(state, tokens)
+    loss_back, loss_live = float(m_back["loss"]), float(m_live["loss"])
+    torch.cuda.synchronize()
+    launched = read_counts(mods)
+    want = {k: v * (ELASTIC_STEPS + 2) for k, v in per_step.items()}
+    print(f"[elastic] (c) restored generation {gen} step {step} into a fresh "
+          f"TrainState in {restore_s:.2f} s ({nbytes / restore_s / 1e9:.3f} "
+          f"GB/s): {len(same)} of {len(live_sd)} tensors bit-identical; one "
+          f"more step: step {int(restored.step)}, loss {loss_back!r} "
+          f"restored vs {loss_live!r} never checkpointed; launches "
+          f"{launched}")
+    if (len(same) != len(live_sd) or gen != 2 or step != ELASTIC_STEPS
+            or int(restored.step) != step + 1 or loss_back != loss_live
+            or not math.isfinite(loss_back)):
+        fail("the restored state is not the saved one, or its next step "
+             "differs from the live state's")
+    if any(launched[k] != v for k, v in want.items()) or any(
+            c for k, c in launched.items() if k not in want):
+        fail(f"phase 14 launches {launched}; expected {want}")
+    mgr.close()
+    del trainer, trainer2, state, restored, fresh, model, p0
+    torch.cuda.empty_cache()
+    print(f"[time] {gpu}: phase 14 gpt2_small step median "
+          f"{statistics.median(step_s[1:]) * 1e3:.1f} ms; save "
+          f"{saved_at['s']:.2f} s, restore {restore_s:.2f} s of "
+          f"{nbytes:,} B; request to ack {ack_s:.2f} s")
+    print(f"[time] phase 14 {time.perf_counter() - t_phase:.1f} s")
+    return {"paths": {"elastic": launched}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -7279,6 +7596,9 @@ def run(tmp: Path) -> int:
 
     # ---- 13. a TorchJob runs the trainer on the card ---------------------
     torchjob_phase(gpu, tmp)
+
+    # ---- 14. an elastic TorchJob driven by the card ----------------------
+    by_path.update(elastic_phase(mods, gpu, dev, tmp, transformer)["paths"])
     print(f"[time] script {time.perf_counter() - t_start:.0f} s")
 
     gemm = (TRAIN_BATCH * TRAIN_SEQ, 11264, 2048)

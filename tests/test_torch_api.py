@@ -93,9 +93,12 @@ REF_ACCELERATOR = "tpu-v5-lite-podslice"
 PORT_ACCELERATOR = "nvidia-h100-80gb"
 #: values outside ``api/constants.py`` that the GPU flavour renames: the
 #: elastic rendezvous backend (torchrun has no ``xla``), the gang
-#: scheduler's name and the engine's reason for an unschedulable slice
+#: scheduler's name, the engine's reason for an unschedulable slice and the
+#: ModelVersion controller's label on the objects it makes
 VALUES = {"xla": "c10d", "tpu-slice": "gpu-slice",
-          "InvalidTPUPolicy": "InvalidGPUPolicy"}
+          "InvalidTPUPolicy": "InvalidGPUPolicy",
+          "model.distributed.tpu.io/model-version-name":
+              "model.distributed.torch.io/model-version-name"}
 
 
 def _constants(mod) -> dict:

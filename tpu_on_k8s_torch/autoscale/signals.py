@@ -1,8 +1,9 @@
-"""Serving-load signals: one scrape of a fleet, and its observation line.
+"""Serving-load signals: windowed aggregation with an explicit staleness
+bit (the counterpart of ``tpu_on_k8s/autoscale/signals.py``).
 
-Counterpart of the part of ``tpu_on_k8s/autoscale/signals.py`` that the
-serving plane emits through (``ServingFleet.observation_line`` and
-``DisaggFleet.pool_observation_line``):
+The serving plane emits through it (``ServingFleet.observation_line`` and
+``DisaggFleet.pool_observation_line``), and the policy layer
+(`autoscale/policy.py`) decides on its ``FleetObservation``:
 
 * ``FleetSample``: one scrape, the *new* latency observations since the
   previous scrape plus instantaneous load gauges. ``ok=False`` is a dead
@@ -12,7 +13,13 @@ serving plane emits through (``ServingFleet.observation_line`` and
   (the mirror deques are cumulative and bounded).
 * ``format_observation_line`` renders a sample as the extended
   ``[elastic-metrics]`` observation line, and ``sample_from_line`` parses
-  one back into a ``FleetSample``.
+  one back into a ``FleetSample``; ``line_watermark`` reads its ``batch=``
+  counter, the marker a log-tailing controller takes each line once by.
+* ``dead_sample`` is a failed scrape, and ``SignalAggregator`` folds a
+  bounded window of scrapes into a ``FleetObservation``. Staleness is
+  explicit: ``stale_after`` consecutive dead scrapes (or an all-empty
+  window) mark the observation stale, and the policy HOLDS on stale — a
+  dead scrape is "no data", not "the fleet is idle, scale to min".
 
 Everything here is stdlib-only and deterministic: percentiles are
 nearest-rank over sorted windows, sequence numbers are scrape counts, no
@@ -23,7 +30,8 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
-from typing import Dict, Optional, Tuple
+from collections import deque
+from typing import Deque, Dict, Optional, Tuple
 
 #: the no-data sentinel in observation lines: ``latency=nan`` means "no
 #: TTFT/queue sample exists yet" — parsers must map it to None, never 0.0
@@ -65,6 +73,46 @@ class FleetSample:
     #: (the decision ledger records these on every decision). Empty when
     #: tracing is off; the log-scrape plane leaves it empty too.
     exemplars: Tuple[int, ...] = ()
+
+
+def dead_sample(seq: int) -> FleetSample:
+    """A scrape that failed: no data, not zero load."""
+    return FleetSample(seq=seq, ok=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetObservation:
+    """The window folded down: what the policy decides on. Latency
+    percentiles are ``None`` (never 0.0) when the window holds no
+    sample of that kind; ``stale`` means the window itself can't be
+    trusted and the policy must hold last-known-good."""
+
+    seq: int
+    ttft_p95: Optional[float]
+    queue_wait_p95: Optional[float]
+    queue_depth: int
+    inflight_tokens: int
+    slots: int
+    ready_replicas: int
+    samples: int          # latency observations backing the percentiles
+    stale: bool
+    #: inter-token latency p95 (seconds/token) — the decode pool's SLO
+    #: signal in disaggregated serving; defaulted so pre-disagg
+    #: constructors (and their tests) stay source-compatible
+    tpot_p95: Optional[float] = None
+    #: model swap-in latency p95 (seconds) — the multi-model cold-start
+    #: signal (`policy.target_swap_s`); defaulted for the same
+    #: source-compatibility reason as ``tpot_p95``
+    swap_p95: Optional[float] = None
+
+    @property
+    def tokens_per_slot(self) -> Optional[float]:
+        """Utilization: outstanding token cost per engine slot (the
+        band `policy.util_high`/`util_low` compares against). None when
+        slot capacity is unknown (e.g. a stale window)."""
+        if self.slots <= 0:
+            return None
+        return self.inflight_tokens / self.slots
 
 
 def percentile(values, q: float) -> Optional[float]:
@@ -230,3 +278,96 @@ def sample_from_line(line: str, seq: int) -> Optional[FleetSample]:
         tpot=_lat("tpot"), swap=_lat("swap"),
         queue_depth=_int("queue_depth"), inflight_tokens=_int("inflight"),
         slots=_int("slots"), ready_replicas=_int("ready"))
+
+
+def line_watermark(line: str) -> Optional[int]:
+    """The ``batch=`` (fleet step) counter of an observation line — the
+    monotone marker the log-tailing controller uses to take each line
+    exactly once. None if the line isn't an observation."""
+    if METRICS_TAG not in line:
+        return None
+    fields = dict(KV_RE.findall(line))
+    try:
+        return int(float(fields["batch"]))
+    except (KeyError, ValueError, OverflowError):
+        return None
+
+
+class SignalAggregator:
+    """A bounded window of scrapes → one ``FleetObservation``.
+
+    ``window`` scrapes are aggregated (latency percentiles over their
+    union; gauges from the newest live scrape). ``stale_after``
+    consecutive dead scrapes mark the observation **stale** — the
+    policy's cue to hold last-known-good. Dead scrapes never evict live
+    data from the window (a one-tick outage must not blank the
+    picture); they only advance the staleness streak.
+
+    ``max_age_s`` adds TIME-based staleness on top of the count-based
+    streak: samples are stamped with the ``now`` the caller passes to
+    ``record``, and samples older than ``max_age_s`` stop contributing.
+    Without it, a clock that jumps past the whole window (a wedged
+    controller thread, a long GC pause, a virtual clock skipping ahead)
+    leaves ancient samples masquerading as fresh — the burn-rate /
+    policy layers would keep acting on a picture that is entirely
+    history. A window that ages out completely is **stale**, never a
+    frozen last-known-good. ``None`` (the default) disables aging —
+    byte-for-byte the previous behavior."""
+
+    def __init__(self, window: int = 4, stale_after: int = 3,
+                 max_age_s: Optional[float] = None) -> None:
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        if stale_after < 1:
+            raise ValueError(f"stale_after must be >= 1, got {stale_after}")
+        if max_age_s is not None and max_age_s <= 0:
+            raise ValueError(f"max_age_s must be > 0, got {max_age_s}")
+        self.window = window
+        self.stale_after = stale_after
+        self.max_age_s = max_age_s
+        # (sample, recorded-at) — the stamp is the caller's clock, None
+        # when the caller never passes one (aging then can't apply)
+        self._samples: Deque[Tuple[FleetSample, Optional[float]]] = deque(
+            maxlen=window)
+        self._dead_streak = 0
+        self._seq = 0
+        self._now: Optional[float] = None
+
+    def record(self, sample: FleetSample,
+               now: Optional[float] = None) -> FleetObservation:
+        self._seq = sample.seq
+        if now is not None:
+            self._now = now
+        if sample.ok:
+            self._dead_streak = 0
+            self._samples.append((sample, now))
+        else:
+            self._dead_streak += 1
+        return self.observation()
+
+    def _live_samples(self):
+        if self.max_age_s is None or self._now is None:
+            return [s for s, _ in self._samples]
+        return [s for s, t in self._samples
+                if t is None or self._now - t <= self.max_age_s]
+
+    def observation(self) -> FleetObservation:
+        live = self._live_samples()
+        ttft = [v for s in live for v in s.ttft]
+        qwait = [v for s in live for v in s.queue_wait]
+        tpot = [v for s in live for v in s.tpot]
+        swap = [v for s in live for v in s.swap]
+        latest = live[-1] if live else None
+        stale = self._dead_streak >= self.stale_after or latest is None
+        return FleetObservation(
+            seq=self._seq,
+            ttft_p95=percentile(ttft, 0.95),
+            queue_wait_p95=percentile(qwait, 0.95),
+            tpot_p95=percentile(tpot, 0.95),
+            swap_p95=percentile(swap, 0.95),
+            queue_depth=latest.queue_depth if latest else 0,
+            inflight_tokens=latest.inflight_tokens if latest else 0,
+            slots=latest.slots if latest else 0,
+            ready_replicas=latest.ready_replicas if latest else 0,
+            samples=len(ttft) + len(qwait) + len(tpot) + len(swap),
+            stale=stale)

@@ -12,7 +12,9 @@ serving plane's ``ReplicaCrash``, ``ReadinessFlap``, ``RolloutInterrupt``,
 ``HandoffLoss``, ``HandoffCorrupt`` and ``SwapFailure`` (``faults.py``),
 the engine's, the plane's and the training loop's sites, the
 ``FaultInjector`` that evaluates a schedule of ``FaultRule(site, trigger,
-fault)`` (``injector.py``) and the ``engine_crash_mid_decode``,
+fault)`` (``injector.py``) and the control plane's ``watch_outage``,
+``apiserver_flaky``, ``slice_preemption`` and ``pod_kill``, and the
+``engine_crash_mid_decode``,
 ``spec_draft_crash``, ``replica_crash_mid_decode``,
 ``fleet_rollout_chaos``, ``disagg_handoff_chaos``, ``model_swap_failure``
 ``train_preemption`` and ``live_reshard_abort`` scenarios
@@ -578,6 +580,65 @@ class Scenario:
 
     def injector(self) -> FaultInjector:
         return FaultInjector(self.rules, seed=self.seed, name=self.name)
+
+
+def watch_outage(kind: str = "Pod", *, reconnect_failures: int = 2,
+                 seed: int = 0) -> Scenario:
+    """Drop ``kind``'s live watch stream on the first frame delivered
+    after install, then fail the next ``reconnect_failures`` dials — an
+    API-server blip plus a slow comeback. Dial counting starts at
+    injector install (the stream is usually already established when
+    chaos arrives), so dial #1 is the reconnect the drop provokes.
+    Recovery under test: the informer resumes from its last revision with
+    decorrelated-jitter backoff and no controller goes deaf."""
+    rules = [FaultRule(SITE_REST_WATCH_EVENT,
+                       Trigger(at=(1,), match={"kind": kind}),
+                       WatchDrop(), note=f"drop {kind} stream")]
+    if reconnect_failures:
+        fail_at = tuple(range(1, 1 + reconnect_failures))
+        rules.append(FaultRule(SITE_REST_WATCH_CONNECT,
+                               Trigger(at=fail_at, match={"kind": kind}),
+                               ConnectionResetFault(),
+                               note=f"refuse {kind} reconnect"))
+    return Scenario("watch-outage", tuple(rules), seed)
+
+
+def apiserver_flaky(every_n: int = 7, *, limit: int = 4,
+                    seed: int = 0) -> Scenario:
+    """Every nth API request answers 503 — sustained flakiness the
+    clients' retries and the controllers' requeues must absorb."""
+    return Scenario("apiserver-flaky", (
+        FaultRule(SITE_APISERVER_REQUEST,
+                  Trigger(every=every_n, limit=limit),
+                  HttpError(503), note="flaky apiserver"),
+    ), seed)
+
+
+def slice_preemption(job: str, *, slice_index: int = 0,
+                     seed: int = 0) -> Scenario:
+    """Evict a whole slice of ``job`` (namespace/name) on the next
+    reconcile pass. Recovery under test: exit-code-classified failover
+    brings the slice's task group back to Running as one unit."""
+    return Scenario("slice-preemption", (
+        FaultRule(SITE_RECONCILE,
+                  Trigger(at=(1,), match={"job": job}),
+                  SlicePreempt(slice_index=slice_index),
+                  note=f"preempt slice {slice_index} of {job}"),
+    ), seed)
+
+
+def pod_kill(job: str, *, task_type: str = "worker", index: int = 0,
+             exit_code: int = 137, reason: str = "OOMKilled",
+             seed: int = 0) -> Scenario:
+    """Kill one pod of ``job`` with a classified exit code on the next
+    reconcile pass."""
+    return Scenario("pod-kill", (
+        FaultRule(SITE_RECONCILE,
+                  Trigger(at=(1,), match={"job": job}),
+                  PodFail(task_type=task_type, index=index,
+                                 exit_code=exit_code, reason=reason),
+                  note=f"kill {task_type}-{index} of {job}"),
+    ), seed)
 
 
 def engine_crash_mid_decode(at_steps: Tuple[int, ...] = (3,), *,

@@ -1,9 +1,13 @@
 """Controller plane: the controller runtime, leader election, the generic
-job engine and the TorchJob reconciler.
+job engine, the TorchJob reconciler and elasticity.
 
 The part of ``tpu_on_k8s/controller`` ported so far: ``runtime.py``
 (workqueue, rate limiting, reconcile pump), ``leaderelection.py``,
 ``engine.py`` (the shared ``JobEngine``) with ``config``, ``expectations``,
-``dag``, ``hostnetwork`` and ``failover``, and ``torchjob.py`` (the
-TorchJob reconciler with the torch.distributed env).
+``dag``, ``hostnetwork`` and ``failover``, ``torchjob.py`` (the TorchJob
+reconciler with the torch.distributed env), ``elastic.py`` (the
+checkpoint/generation protocol that rescales a job), ``autoscaler.py``
+(the throughput autoscaler) on ``loopkernel.py`` (the shared
+observe→decide→commit loop), and ``modelversion.py`` (a finished job's
+artifact → image pipeline).
 """

@@ -1,8 +1,16 @@
-"""Observability for the training loop: a copy of the parts of
-``tpu_on_k8s/obs/`` the loop reads (``trace``: spans and the tracer;
-``account``: the training goodput ledger)."""
+"""Observability: a copy of the parts of ``tpu_on_k8s/obs/`` the port
+reads (``trace``: spans and the tracer; ``account``: the training goodput
+ledger; ``ledger``: the decision ledger the control loops record through,
+with ``dumpio``'s deterministic dump files)."""
 from tpu_on_k8s_torch.obs.account import (  # noqa: F401
     TrainingAccountant,
     goodput_from_spans,
+)
+from tpu_on_k8s_torch.obs.ledger import (  # noqa: F401
+    LEDGER_FORMAT,
+    DecisionLedger,
+    DecisionRecord,
+    HorizonRecord,
+    load_ledger,
 )
 from tpu_on_k8s_torch.obs.trace import NOOP, Span, Tracer, ensure  # noqa: F401

@@ -98,7 +98,7 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    (mirrored through the draft) and carried by the 4 of them that carry it
    in 3e; (c) (b) on the paged pool; (d) (b) under
    ``spec_draft_crash(at_round=2)``; (e) ``speculative_generate`` at batch
-   1 (prompt 512, 64 new) with both drafts; (f) phase 3b's W8A16 tree as
+   1 (prompt 512, 16 new) with both drafts; (f) phase 3b's W8A16 tree as
    the target of (b)'s bf16 draft, 4 requests. Every request completes;
    (a) accepts proposals, (b) rolls some back; (c)'s tokens equal (b)'s,
    its pool drains with page 0 zero; (d) crashes on round 2 and finishes
@@ -241,9 +241,11 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    mesh=create_mesh(MeshConfig()))`` (FSDP2 over the card), 8 steps on
    phase 4's batch, loss and grad norm equal to phase 4's bit for bit, 16
    launches of each flash kernel a step, step ms and peak memory beside
-   phase 4's; (c) its state through the collective DCP save, restored onto
-   the unsharded layout and back onto the mesh, every tensor bit-equal and
-   the next step's loss and norm equal, bytes and save / restore times
+   phase 4's; (c) its state through one asynchronous collective DCP save
+   (the host's stall and the write's time; a second, blocking save of the
+   same 10.6 GB was cut to make room for phase 15), restored onto the
+   unsharded layout and back onto the mesh, every tensor bit-equal and the
+   next step's loss and norm equal, bytes and save / restore times
    printed; (d) ``TrainLoop`` with a ``ReshardNotice`` before step 5 (the
    flagship rules to model-only rules on the same mesh: n_moved and
    bytes_moved printed, 0 at world 1), the losses equal (a)'s; (b) every
@@ -437,6 +439,44 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    the save and restore times and sizes are printed beside the card's
    line.
 
+15. The serving control plane over gpt2_small replicas (``phase 15`` is
+   timed): ``tests/test_autoscale.py``'s acceptance loop
+   (``_drive_burst``) at gpt2_small's full width and depth (12 layers,
+   d_model 768, vocab 50257, bf16, phase 6's tree from its torch seed) in
+   ``fleet_burst``: a ``ServingFleet`` of replica engines (8 slots x 1024
+   positions, one weight set on the card, each its own cache), a
+   ``FleetAutoscaler`` attached to it with an ``AutoscaleMetrics`` on a
+   fake clock (0.05 s a fleet step, a tick every second step, the loop's
+   policy: min 1, max 4, target TTFT 0.3 s, max step 2, cooldowns 0.5 /
+   1.5 s, flap guard 1.0 s), and on the same ``InMemoryCluster`` the
+   ``InferenceService`` (``nvidia-h100-80gb``, ``1x8``, an ``slo`` block
+   with a TTFT objective) reconciled by ``setup_inferenceservice_controller``
+   on a ``Manager`` with a ``KubeletSim`` after every tick. The burst: 3-5
+   requests a fleet step over steps 4-13 from numpy seed 0, prompts of phase
+   6 (c)'s 64-896 tokens with 16-64 new, the tokens from a second seeded
+   stream. (a) The reference's gates of ``test_burst_scales_up_then_down``
+   (up, then back to 1, every transition on a legal host count, cooldowns
+   and the flap guard between executed scales, no thrash, every request
+   done, no ejection, every retired replica drained clean, ``status``
+   desired 1 with "down", the decisions counted); after every tick the
+   replica pods follow ``spec.replicas`` (live gangs, ``nvidia.com/gpu``
+   8, the accelerator selector, no TPU name) and ``status.slo`` is the SLO
+   engine's state; the decision log byte-identical to the same loop's at
+   ``tiny`` on the CPU (with gpt2_small's vocabulary, so that both take the
+   same prompts: the router hashes a prompt's first tokens); every greedy
+   token within phase 6 (c)'s tau of a teacher-forced maximum, at least
+   its exact share the argmax. (b) The same burst at seed 3 under
+   ``autoscale_under_crash(replica="replica-1", crash_at=3,
+   outage_at=(2, 3, 4))``: one ejection, ``stale_signal`` in the log, every
+   request done or retry_exhausted, up and no thrash, its log byte-identical
+   to its CPU twin's, its done requests through the same token gate. Not
+   "back at 1": the first scale goes 1 -> 4 in one step before the crash,
+   and the reference's loop then holds at 4 with 3 ready (it never shrinks
+   a world that has not assembled, and nothing replaces an ejected replica
+   outside a scale). Both runs' flash launches (one a layer a fresh
+   prefill) are the path ``fleet_autoscale``; the transitions, fleet steps,
+   wall seconds and host ms a fleet step are printed.
+
 Then one JSON line for the kernels, the card's line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line; so does a machine without CUDA. Imports nothing of JAX.
@@ -535,9 +575,11 @@ DISAGG_MIGRATED, DISAGG_ANCESTOR, HANDOFF_BYTES_PER_POSITION = 4, 256, 131072
 # a round, the depth of the truncated draft, the requests of 3e it serves
 # (the first 12 of 24: 4 carry the prefix, 460 of 924 new tokens; cut from
 # 24 to keep the script in its time limit), the requests the W8A16 target
-# serves, and the batch-1 request of speculative_generate (prompt, new).
+# serves, and the batch-1 request of speculative_generate (prompt, new; 16
+# new tokens, cut from 64 to make room for phase 15: its four
+# speculative_generate calls and two plain generate calls took ~22 s).
 SPEC_K, SPEC_DRAFT_LAYERS, SPEC_REQUESTS, SPEC_W8_REQUESTS = 4, 4, 12, 4
-SPEC_B1_PROMPT, SPEC_B1_NEW = 512, 64
+SPEC_B1_PROMPT, SPEC_B1_NEW = 512, 16
 # Phase 3h, the int8 KV cache on phase 3e's weights and traffic: the
 # requests of 3e it serves, the one it hands off (prompt 981: bucket 1024,
 # not a prefix carrier) and that handoff's bytes, 1024 positions x 32
@@ -591,6 +633,31 @@ GPT2_EXACT_MIN = 0.7
 # (d): gpt2_small training, batch 8 x 1024, 8 steps on one batch; (e) the
 # CLI at its defaults (8 x 512), 2 steps.
 GPT2_TRAIN_BATCH, GPT2_TRAIN_SEQ, GPT2_TRAIN_STEPS = 8, 1024, 8
+
+# Phase 15, the serving control plane over gpt2_small replicas:
+# tests/test_autoscale.py's acceptance loop (_drive_burst) at full width.
+# Replicas are engines of FLEET_SLOTS slots x the position table's 1024; the
+# fake clock advances FLEET_DT a fleet step and the autoscaler ticks every
+# second step under the loop's policy; one replica is one 8-GPU host
+# (FLEET_TOPOLOGY), and a retired one drains FLEET_DRAIN_S virtual seconds
+# before the reconciler reaps its pods. The burst: 3-5 requests a step over
+# FLEET_BURST's steps from numpy seed FLEET_SEED, prompts of phase 6 (c)'s
+# 64-896 tokens with 16-64 new; the prompt tokens come from a second stream
+# (FLEET_TOKEN_STREAM), so that the burst's counts and lengths do not depend
+# on the vocabulary. The loop's tail (60 idle steps) is kept: the longer
+# requests drain before it starts counting. (b) runs at FLEET_CRASH_SEED
+# under autoscale_under_crash, as the reference's crash case does.
+FLEET_SEED, FLEET_CRASH_SEED, FLEET_TOKEN_STREAM = 0, 3, 1
+FLEET_SLOTS, FLEET_MAX_LEN, FLEET_DT, FLEET_TAIL = 8, 1024, 0.05, 60
+FLEET_BURST = (4, 14)
+FLEET_ACCELERATOR, FLEET_TOPOLOGY, FLEET_DRAIN_S = (
+    "nvidia-h100-80gb", "1x8", 1.0)
+FLEET_POLICY = dict(min_replicas=1, max_replicas=4, target_ttft_s=0.3,
+                    hysteresis=0.1, max_step=2, scale_up_cooldown_s=0.5,
+                    scale_down_cooldown_s=1.5, flap_guard_s=1.0)
+# the spec.slo block's TTFT objective: burn windows in virtual seconds
+FLEET_SLO_WINDOWS = dict(window_s=60.0, fast_short_s=1.0, fast_long_s=2.0,
+                         slow_short_s=5.0, slow_long_s=10.0)
 
 # Phase 10, the vision models and BERT. (a) ResNet-50 at BASELINE.json's
 # batch (256, then smaller ones if it does not fit), 10 adam steps on one
@@ -3564,6 +3631,20 @@ def gpt2_traffic(vocab: int):
     return reqs, prefix, carriers
 
 
+def gpt2_small_tree(convert, init_params, dev):
+    """Phase 6's gpt2_small tree, fp32, from torch seed 0 on ``dev``: Flax's
+    initialisation with its zero biases drawn normal(0, 0.02) too (else
+    they would leave the bias paths unchecked). Returns (config, tree)."""
+    hcfg = convert.config_from_hf_gpt2(types.SimpleNamespace(
+        **GPT2_HF_CONFIG))
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(hcfg, g, dev, dtype=torch.float32)
+    for name in params:
+        if name.endswith(".bias"):
+            params[name].normal_(0.0, 0.02, generator=g)
+    return hcfg, params
+
+
 def gpt2_phase(mods, gpu, dev, tmp: Path, plain_flash, fa, transformer,
                decode, serving, convert, trainer_mod) -> dict:
     """Phase 6: the GPT-2 family at gpt2_small width (vocab 50257, d_model
@@ -3582,7 +3663,9 @@ def gpt2_phase(mods, gpu, dev, tmp: Path, plain_flash, fa, transformer,
     launches a step (12/12/12 under remat mlp), 8 steps through
     ``Trainer.fit``; (e) ``train_gpt2`` at its defaults, 2 steps, saved
     and resumed as generation 1; (f) the three flash kernels timed at
-    GPT-2's shapes. Returns {"paths": launches by path, "d64": timings}."""
+    GPT-2's shapes. Returns {"paths": launches by path, "d64": timings,
+    "diff": (b)'s max|kernel - plain| prefill logits, the unit of (c)'s
+    tau}."""
     import contextlib
     import io
     import itertools
@@ -3599,13 +3682,7 @@ def gpt2_phase(mods, gpu, dev, tmp: Path, plain_flash, fa, transformer,
     t_phase = time.perf_counter()
     paths = {}
     # ---- (a) HF export and restore at full width -----------------------
-    hcfg = convert.config_from_hf_gpt2(types.SimpleNamespace(
-        **GPT2_HF_CONFIG))
-    g = torch.Generator(device=dev).manual_seed(0)
-    params = init_params(hcfg, g, dev, dtype=torch.float32)
-    for name in params:     # Flax's zero biases would leave them unchecked
-        if name.endswith(".bias"):
-            params[name].normal_(0.0, 0.02, generator=g)
+    hcfg, params = gpt2_small_tree(convert, init_params, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sd = convert.to_hf_gpt2(hcfg, params)
@@ -4038,7 +4115,7 @@ def gpt2_phase(mods, gpu, dev, tmp: Path, plain_flash, fa, transformer,
     del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
     print(f"[time] phase 6 {time.perf_counter() - t_phase:.1f} s")
-    return {"paths": paths, "d64": d64}
+    return {"paths": paths, "d64": d64, "diff": diff}
 
 
 def free_port() -> int:
@@ -4181,9 +4258,6 @@ def mesh_phase(tcfg, i8cfg, mods, gpu, dev, tokens, p4: dict,
     stall_s = time.perf_counter() - t0
     mgr.wait_until_finished()
     write_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    mgr.save(state, step=TRAIN_STEPS + 1, wait=True)
-    write2_s = time.perf_counter() - t0
     plain = train_state_template(tcfg, dev, **opt_kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4210,8 +4284,8 @@ def mesh_phase(tcfg, i8cfg, mods, gpu, dev, tokens, p4: dict,
     print(f"[mesh] (c) {gpu}: the mesh TrainState, {nbytes:,} B, through "
           f"the collective DCP path (the manager's gloo group): async save "
           f"{stall_s:.3f} s on the host to enqueue, written {write_s:.2f} s "
-          f"after it began (first save: buffers allocated); a blocking "
-          f"save {write2_s:.2f} s ({nbytes / write2_s / 1e9:.3f} GB/s); "
+          f"after it began ({nbytes / write_s / 1e9:.3f} GB/s, the first "
+          f"save: its buffers allocated in it); "
           f"restore onto the unsharded layout {restore_plain_s:.2f} s "
           f"(step {at}; {len(same_plain)} of {len(saved)} tensors "
           f"bit-equal) and back onto the mesh {restore_mesh_s:.2f} s "
@@ -4219,7 +4293,7 @@ def mesh_phase(tcfg, i8cfg, mods, gpu, dev, tokens, p4: dict,
           f"loss {next_back[0][0]!r} restored vs {next_live[0][0]!r} live")
     if (len(same_plain) != len(saved) or len(same_mesh) != len(saved)
             or next_back[0] != next_live[0] or next_back[1] != next_live[1]
-            or at != TRAIN_STEPS + 1):
+            or at != TRAIN_STEPS):
         fail("the checkpoint round trip through the unsharded layout is "
              "not exact")
     mgr.close()
@@ -6736,6 +6810,398 @@ def elastic_phase(mods, gpu: str, dev, tmp: Path, transformer) -> dict:
     return {"paths": {"elastic": launched}}
 
 
+class FakeClock:
+    """A virtual clock the fleet, its gateways, the autoscaler and the
+    InferenceService reconciler share (``tests/test_autoscale.py``'s)."""
+
+    def __init__(self) -> None:
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> None:
+        self.t += dt
+
+
+def slo_rendered(statuses) -> dict:
+    """The engine's statuses as the autoscaler renders ``status.slo``."""
+    from tpu_on_k8s_torch.api.inference_types import SLOObjectiveStatus
+    return {name: SLOObjectiveStatus(
+        objective=st.objective, target=st.target, state=st.state,
+        burn_fast=-1.0 if st.burn_fast is None else round(st.burn_fast, 4),
+        burn_slow=-1.0 if st.burn_slow is None else round(st.burn_slow, 4),
+        budget_remaining=round(st.budget_remaining, 4), stale=st.stale)
+        for name, st in statuses.items()}
+
+
+def fleet_burst(cfg, params, device, *, seed, injector=None) -> dict:
+    """``tests/test_autoscale.py::_drive_burst``, the acceptance loop of
+    the serving autoscaler, over engines of ``cfg`` and ``params`` on
+    ``device`` (FLEET_SLOTS slots x FLEET_MAX_LEN positions, one weight set
+    shared by every replica, each replica its own cache), with the
+    InferenceService CRD plane on the same cluster: a ``ServingFleet``
+    (slow start 1, prefix bucket 8) on a fake clock that advances
+    FLEET_DT a fleet step; a ``FleetAutoscaler`` attached to it ticks
+    every second step under FLEET_POLICY; after each tick the reconciler
+    (``setup_inferenceservice_controller`` on a ``Manager``) turns the
+    patched ``spec.replicas`` into replica gangs and a ``KubeletSim`` runs
+    their pods. The burst: 3-5 requests a step over FLEET_BURST's steps
+    from numpy ``seed``, prompt lengths and new tokens as phase 6 (c)'s,
+    the prompt tokens from a second stream. After every tick the replica
+    pods must follow ``spec.replicas`` (live gangs, ``nvidia.com/gpu`` 8,
+    the accelerator selector, no name that says TPU) and ``status.slo``
+    must be the SLO engine's state. Returns what the gates read."""
+    from tpu_on_k8s_torch import chaos
+    from tpu_on_k8s_torch.api import constants
+    from tpu_on_k8s_torch.api.core import ObjectMeta, Pod
+    from tpu_on_k8s_torch.api.inference_types import (
+        AutoscalePolicy,
+        InferenceService,
+        InferenceServiceSpec,
+        RolloutPolicy,
+        SLOObjective,
+        SLOPolicy,
+    )
+    from tpu_on_k8s_torch.api.types import GPUPolicy
+    from tpu_on_k8s_torch.client import InMemoryCluster, KubeletSim
+    from tpu_on_k8s_torch.controller.config import JobControllerConfig
+    from tpu_on_k8s_torch.controller.fleetautoscaler import FleetAutoscaler
+    from tpu_on_k8s_torch.controller.inferenceservice import (
+        setup_inferenceservice_controller,
+    )
+    from tpu_on_k8s_torch.controller.runtime import Manager
+    from tpu_on_k8s_torch.metrics import AutoscaleMetrics
+    from tpu_on_k8s_torch.models.serving import ContinuousBatchingEngine
+    from tpu_on_k8s_torch.serve import (
+        ProbeConfig,
+        Rejected,
+        Router,
+        ServingFleet,
+    )
+
+    clock = FakeClock()
+    engines = []
+
+    def factory(name):
+        eng = ContinuousBatchingEngine(cfg, params, n_slots=FLEET_SLOTS,
+                                       max_len=FLEET_MAX_LEN, device=device)
+        engines.append(eng)
+        return eng
+
+    fleet = ServingFleet(factory, 1, probe=ProbeConfig(slow_start_steps=1),
+                         router=Router(prefix_bucket_len=8), clock=clock)
+    cluster = InMemoryCluster()
+    manager = Manager()
+    setup_inferenceservice_controller(cluster, manager, clock=clock)
+    sim = KubeletSim(cluster)
+    cluster.create(InferenceService(
+        metadata=ObjectMeta(name="svc"),
+        spec=InferenceServiceSpec(
+            image="inproc", replicas=1,
+            gpu_policy=GPUPolicy(accelerator=FLEET_ACCELERATOR,
+                                 topology=FLEET_TOPOLOGY),
+            rollout=RolloutPolicy(drain_seconds=FLEET_DRAIN_S),
+            autoscale=AutoscalePolicy(**FLEET_POLICY),
+            # one TTFT objective at the policy's own target
+            slo=SLOPolicy(objectives=[SLOObjective(
+                name="ttft", objective="ttft_p95",
+                target=FLEET_POLICY["target_ttft_s"],
+                **FLEET_SLO_WINDOWS)]))))
+    metrics = AutoscaleMetrics()
+    scaler = FleetAutoscaler(
+        cluster, config=JobControllerConfig(autoscale_window_scrapes=3,
+                                            autoscale_stale_scrapes=3),
+        metrics=metrics, clock=clock)
+    scaler.attach_fleet("default", "svc", fleet)
+    selector = {constants.LABEL_INFERENCESERVICE_NAME: "svc"}
+
+    def reconcile():
+        manager.run_until_idle()
+        sim.run_all("default", selector)
+        manager.run_until_idle()
+
+    def follows(svc) -> str:
+        """'' when the replica pods follow ``spec.replicas``, else why."""
+        live = {}
+        for pod in cluster.list(Pod, "default", selector):
+            [c] = pod.spec.containers
+            names = [e.name for e in c.env] + list(pod.spec.node_selector) \
+                + list(c.resources.requests) + list(c.resources.limits)
+            if (c.resources.requests.get(constants.RESOURCE_GPU) != 8
+                    or c.resources.limits.get(constants.RESOURCE_GPU) != 8
+                    or pod.spec.node_selector != {
+                        constants.NODE_SELECTOR_GPU_ACCELERATOR:
+                            FLEET_ACCELERATOR}
+                    or any("tpu" in n.lower() for n in names)):
+                return f"pod {pod.metadata.name} is not of the GPU flavour"
+            if constants.ANNOTATION_SERVING_DRAIN_DEADLINE \
+                    in pod.metadata.annotations:
+                continue
+            if pod.status.phase != "Running":
+                return f"pod {pod.metadata.name} is {pod.status.phase}"
+            live.setdefault(pod.metadata.labels[
+                constants.LABEL_SERVING_REPLICA_INDEX], []).append(pod)
+        want = {str(i) for i in range(svc.spec.replicas)}
+        if set(live) != want:
+            return f"live replica gangs {sorted(live)}, spec {sorted(want)}"
+        return ""
+
+    reconcile()
+    rng = np.random.default_rng(seed)
+    tokens_rng = np.random.default_rng((seed, FLEET_TOKEN_STREAM))
+    reqs, rejected, transitions, step_ms = {}, 0, [], []
+    ticks = {"n": 0, "slo_checked": 0}
+    step, tail = 0, FLEET_TAIL
+
+    def tick():
+        before = cluster.get(InferenceService, "default", "svc").spec.replicas
+        scaler.run_once()
+        svc = cluster.get(InferenceService, "default", "svc")
+        if svc.spec.replicas != before:
+            transitions.append((clock.t, before, svc.spec.replicas))
+        ticks["n"] += 1
+        engine = scaler._services["default/svc"].slo_engine
+        if engine is not None:
+            want = slo_rendered(engine.evaluate())
+            if svc.status.slo != want:
+                fail(f"tick {ticks['n']}: status.slo {svc.status.slo} is not "
+                     f"the SLO engine's state {want}")
+            ticks["slo_checked"] += 1
+        reconcile()
+        why = follows(cluster.get(InferenceService, "default", "svc"))
+        if why:
+            fail(f"tick {ticks['n']} (t {clock.t:.2f}): the replica pods do "
+                 f"not follow spec.replicas: {why}")
+
+    if injector is not None:
+        chaos.install(injector)
+    try:
+        while step < 40 or fleet.has_live_requests or fleet.queue_depth \
+                or tail > 0:
+            if FLEET_BURST[0] <= step < FLEET_BURST[1]:
+                for _ in range(int(rng.integers(3, 6))):
+                    n = int(rng.integers(64, 897))
+                    new = int(rng.integers(16, 65))
+                    prompt = tokens_rng.integers(0, cfg.vocab_size, size=n
+                                                 ).astype(np.int32)
+                    r = fleet.submit(prompt, new)
+                    if isinstance(r, Rejected):
+                        rejected += 1
+                    else:
+                        reqs[r] = (prompt, new)
+            t0 = time.perf_counter()
+            fleet.step()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            clock.advance(FLEET_DT)
+            if step % 2 == 0:
+                tick()
+            if step >= 40 and not fleet.has_live_requests \
+                    and not fleet.queue_depth:
+                tail -= 1
+            step += 1
+    finally:
+        if injector is not None:
+            chaos.uninstall(injector)
+    return dict(cluster=cluster, fleet=fleet, scaler=scaler, metrics=metrics,
+                transitions=transitions, reqs=reqs, rejected=rejected,
+                results={rid: fleet.result(rid) for rid in reqs},
+                engines=engines, steps=step, step_ms=step_ms, ticks=ticks,
+                svc=cluster.get(InferenceService, "default", "svc"))
+
+
+def burst_gates(tag: str, env: dict, crash: bool) -> None:
+    """``tests/test_autoscale.py``'s assertions on one ``fleet_burst`` run:
+    ``test_burst_scales_up_then_down``'s, or with ``crash``
+    ``test_autoscale_under_crash_converges_without_thrash``'s."""
+    from tpu_on_k8s_torch.gang import topology
+
+    trans, svc, fleet = env["transitions"], env["svc"], env["fleet"]
+    dirs = "".join("u" if n > o else "d" for _, o, n in trans)
+    if not trans or "u" not in dirs:
+        fail(f"{tag}: transitions {trans}: the burst must scale up")
+    if dirs != "u" * dirs.count("u") + "d" * dirs.count("d"):
+        fail(f"{tag}: the executed scales thrash: {dirs}")
+    states = Counter(r.state.value if r is not None else None
+                     for r in env["results"].values())
+    log = list(env["scaler"].decision_log)
+    if crash:
+        # not "back at 1": where the first scale goes 1 -> 4 in one step
+        # and the crash lands after it, the reference's loop holds at 4
+        # with 3 ready (its Recommender never shrinks a world that has not
+        # assembled, and nothing replaces an ejected replica outside a
+        # scale); the CPU twin's byte-identical log holds that state to
+        # the reference's logic, which tests/test_torch_autoscale_diff.py
+        # holds to the JAX package's
+        if fleet.stats["ejected"] != 1:
+            fail(f"{tag}: {fleet.stats['ejected']} ejections, not the "
+                 f"crashed replica's one")
+        if not any("stale_signal" in line for line in log):
+            fail(f"{tag}: the outage ticks did not hold as stale")
+        if set(states) - {"done", "retry_exhausted"}:
+            fail(f"{tag}: requests ended {dict(states)}")
+        return
+    if svc.spec.replicas != 1 or "d" not in dirs:
+        fail(f"{tag}: transitions {trans}, spec.replicas "
+             f"{svc.spec.replicas}: the burst must scale back down to 1")
+    legal = set(topology.legal_host_counts(FLEET_ACCELERATOR))
+    if any(new not in legal for _, _, new in trans):
+        fail(f"{tag}: a transition off the legal host counts {trans}")
+    for (t1, o1, n1), (t2, o2, n2) in zip(trans, trans[1:]):
+        up1, up2 = n1 > o1, n2 > o2
+        gap = (FLEET_POLICY["scale_up_cooldown_s"] if up1 and up2 else
+               FLEET_POLICY["scale_down_cooldown_s"]
+               if not up1 and not up2 else FLEET_POLICY["flap_guard_s"])
+        if t2 - t1 < gap - 1e-9:
+            fail(f"{tag}: scales at {t1:.2f} and {t2:.2f} s closer than "
+                 f"{gap} s")
+    if set(states) != {"done"} or fleet.stats["ejected"]:
+        fail(f"{tag}: requests ended {dict(states)}, ejected "
+             f"{fleet.stats['ejected']}")
+    if not all(rec["drained_clean"] for rec in fleet.retired):
+        fail(f"{tag}: a retired replica did not drain clean: "
+             f"{fleet.retired}")
+    m = env["metrics"]
+    if (svc.status.desired_replicas != 1
+            or "down" not in svc.status.autoscale_message
+            or m.counters[("decisions", "up")] < 1
+            or m.counters[("decisions", "down")] < 1
+            or m.gauges[("desired_replicas", "default/svc")] != 1):
+        fail(f"{tag}: status desired {svc.status.desired_replicas} "
+             f"{svc.status.autoscale_message!r}, decisions "
+             f"{dict(m.counters)}")
+
+
+def fleet_autoscale_phase(mods, gpu, dev, plain_flash, transformer, decode,
+                          convert, diff) -> dict:
+    """Phase 15: the serving control plane (``controller/fleetautoscaler.py``,
+    ``controller/inferenceservice.py``, ``obs/slo.py``) closing the loop
+    over gpt2_small replicas on the card. (a) ``fleet_burst`` at gpt2_small's
+    full width and depth in bf16 (phase 6's tree, from its torch seed), its
+    flash forward launches the path ``fleet_autoscale``; the gates of
+    ``burst_gates``, the decision log byte-identical to the same loop's at
+    the ``tiny`` config on the CPU (with gpt2_small's vocabulary and
+    positions, so that both runs take the same prompts: the router hashes a
+    prompt's first tokens), and every emitted token within phase 6 (c)'s tau
+    of a teacher-forced maximum, at least its exact share the argmax. (b)
+    the same at seed FLEET_CRASH_SEED under ``autoscale_under_crash``: the
+    crash's gates, its log against its CPU twin's too, and the tokens of
+    its done requests through the same teacher-forced gate. The flash
+    launches of both runs (counts set to 0 before each, read after) are
+    the path ``fleet_autoscale``. Returns the launches by path."""
+    from tpu_on_k8s_torch import chaos
+    from tpu_on_k8s_torch.models.params import init_params, keeps_fp32
+    from tpu_on_k8s_torch.models.transformer import TransformerConfig
+
+    t_phase = time.perf_counter()
+    hcfg, params = gpt2_small_tree(convert, init_params, dev)
+    cfg = dataclasses.replace(hcfg, dtype=torch.bfloat16)
+    bparams = {n: t if keeps_fp32(n) else t.to(torch.bfloat16)
+               for n, t in params.items()}
+    del params
+    twin_cfg = dataclasses.replace(
+        TransformerConfig.tiny(), max_seq_len=FLEET_MAX_LEN,
+        vocab_size=cfg.vocab_size, dtype=torch.float32)
+    twin = init_params(twin_cfg, torch.Generator().manual_seed(0), "cpu",
+                       dtype=torch.float32)
+
+    def crash_injector():
+        return chaos.autoscale_under_crash(
+            replica="replica-1", crash_at=3, outage_at=(2, 3, 4),
+            seed=FLEET_CRASH_SEED).injector()
+
+    runs, paths = {}, {}
+    for key, seed in (("a", FLEET_SEED), ("b", FLEET_CRASH_SEED)):
+        t0 = time.perf_counter()
+        cpu = fleet_burst(twin_cfg, twin, "cpu", seed=seed,
+                          injector=crash_injector() if key == "b" else None)
+        cpu_s = time.perf_counter() - t0
+        inj = crash_injector() if key == "b" else None
+        torch.cuda.synchronize()
+        reset_counts(mods)
+        t0 = time.perf_counter()
+        env = fleet_burst(cfg, bparams, dev, seed=seed, injector=inj)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = read_counts(mods)
+        paths["fleet_autoscale"] = {
+            k: c + paths.get("fleet_autoscale", {}).get(k, 0)
+            for k, c in launched.items()}
+        env.update(wall=wall, launched=launched, cpu_s=cpu_s,
+                   chaos=None if inj is None else list(inj.events))
+        runs[key] = env
+        log = "\n".join(env["scaler"].decision_log).encode()
+        cpu_log = "\n".join(cpu["scaler"].decision_log).encode()
+        fresh = sum(e.stats["fresh_prefills"] for e in env["engines"])
+        aliased = all(t.data_ptr() == bparams[n].data_ptr()
+                      for e in env["engines"]
+                      for m in (e._prefill_model, e._step_model)
+                      for n, t in m.named_parameters())
+        ended = Counter(r.state.value for r in env["results"].values())
+        routable = sorted(n for n, r in env["fleet"].replicas.items()
+                          if r.routable)
+        label = ("the burst" if key == "a" else
+                 "the burst under autoscale_under_crash(replica-1, crash_at 3,"
+                 " outage_at (2, 3, 4))")
+        print(f"[fleet] ({key}) {label}, seed {seed}: {len(env['reqs'])} "
+              f"requests ({env['rejected']} rejected), "
+              f"{sum(len(r.tokens) for r in env['results'].values())} tokens,"
+              f" {env['steps']} fleet steps, {env['ticks']['n']} ticks "
+              f"({env['ticks']['slo_checked']} with status.slo checked "
+              f"against the SLO engine, the replica pods checked against "
+              f"spec.replicas after each); {len(env['engines'])} replica "
+              f"engines over one weight set (every parameter aliased: "
+              f"{aliased}); results {dict(ended)}; "
+              f"fleet stats {dict(env['fleet'].stats)}")
+        print(f"[fleet] ({key}) transitions (virtual s, from, to): "
+              f"{[(round(t, 2), o, n) for t, o, n in env['transitions']]}; "
+              f"decision log {len(env['scaler'].decision_log)} lines, "
+              f"{len(log)} B, byte-identical to the CPU twin's "
+              f"(tiny, {cpu_s:.1f} s): {log == cpu_log}; chaos "
+              f"{env['chaos']}")
+        print(f"[fleet] ({key}) launches {launched} = {cfg.n_layers} x "
+              f"{fresh} fresh prefills on {len(env['engines'])} replicas; "
+              f"status.slo {env['svc'].status.slo}; spec.replicas "
+              f"{env['svc'].spec.replicas}, routable replicas "
+              f"{routable}")
+        print(f"[time] {gpu}: phase 15 ({key}) gpt2_small bf16, replicas of "
+              f"{FLEET_SLOTS} slots x {FLEET_MAX_LEN}: {env['steps']} fleet "
+              f"steps in {wall:.2f} s, host ms a fleet step median "
+              f"{statistics.median(env['step_ms']):.2f} (max "
+              f"{max(env['step_ms']):.2f}); the CPU twin {cpu_s:.2f} s")
+        if not aliased:
+            fail("a replica engine copied the shared weights")
+        if launched["flash_fwd"] != cfg.n_layers * fresh or not fresh or any(
+                c for k, c in launched.items() if k != "flash_fwd"):
+            fail(f"phase 15 ({key}) launches {launched} for {fresh} fresh "
+                 f"prefills")
+        if log != cpu_log:
+            mine, twins = env["scaler"].decision_log, cpu["scaler"].decision_log
+            first = next((i for i, (x, y) in enumerate(zip(mine, twins))
+                          if x != y), min(len(mine), len(twins)))
+            fail(f"phase 15 ({key}) decision log differs from the CPU "
+                 f"twin's at line {first}")
+        burst_gates(f"phase 15 ({key})", env, crash=key == "b")
+        burst_gates(f"phase 15 ({key}) CPU twin", cpu, crash=key == "b")
+        del cpu
+    model = decode.decode_model(cfg, bparams, dev)
+    tau = GPT2_TAU_MULT * diff
+    for key, env in runs.items():
+        done = [rid for rid, r in env["results"].items()
+                if r.state.value == "done"]
+        gaps = teacher_forced_gaps(
+            model, [env["reqs"][rid] for rid in done],
+            {j: np.asarray(env["results"][rid].tokens)
+             for j, rid in enumerate(done)}, None, set(), plain_flash,
+            transformer, decode)
+        tau_gate(f"[fleet] ({key})", gaps, tau, diff, mult=GPT2_TAU_MULT,
+                 exact_min=GPT2_EXACT_MIN, unit="phase 6 (b)'s")
+    del model, runs
+    torch.cuda.empty_cache()
+    print(f"[time] phase 15 {time.perf_counter() - t_phase:.1f} s")
+    return {"paths": paths}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -7599,6 +8065,11 @@ def run(tmp: Path) -> int:
 
     # ---- 14. an elastic TorchJob driven by the card ----------------------
     by_path.update(elastic_phase(mods, gpu, dev, tmp, transformer)["paths"])
+
+    # ---- 15. the serving control plane over gpt2_small replicas ----------
+    by_path.update(fleet_autoscale_phase(
+        mods, gpu, dev, plain_flash, transformer, decode, convert,
+        gpt2["diff"])["paths"])
     print(f"[time] script {time.perf_counter() - t_start:.0f} s")
 
     gemm = (TRAIN_BATCH * TRAIN_SEQ, 11264, 2048)

@@ -263,6 +263,30 @@ def reference_cases(ref: str, *, only=None, skip=(), subs=()) -> dict:
     return out
 
 
+def reference_functions(ref: str, names, namespace: dict,
+                        subs=()) -> dict:
+    """Module-level functions of ``tests/<ref>.py``, each one's source
+    mapped to the port as ``reference_cases`` maps a whole module (line
+    numbers kept, ``subs`` applied), and compiled into ``namespace``, which
+    supplies their module globals. For a reference module whose own
+    imports reach what the port has not yet (a later slice's modules):
+    only the named functions run. Returns ``namespace``."""
+    import ast
+
+    path = TESTS / f"{ref}.py"
+    src = path.read_text()
+    nodes = {n.name: n for n in ast.parse(src).body
+             if isinstance(n, ast.FunctionDef)}
+    for name in names:
+        node = nodes[name]
+        seg = "\n" * (node.lineno - 1) + ast.get_source_segment(src, node)
+        for rewrite in (*_SOURCE_RENAMES, *subs):
+            seg = rewrite(seg) if callable(rewrite) else re.sub(*rewrite,
+                                                                 seg)
+        exec(compile(seg, str(path), "exec"), namespace)
+    return namespace
+
+
 def slice_literals(src: str) -> str:
     """A reference test's slice literals in the port: the accelerator
     ``"tpu-v5-lite-podslice"`` and each quoted topology of it mapped by host

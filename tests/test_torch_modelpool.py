@@ -16,11 +16,17 @@ exposition text (``render_text``). Tolerances: none.
 that reads a checkpoint written by the port's ``CheckpointManager``
 through ``train/checkpoint.py::load_params``, on first activation.
 
-Left out, and why: ``test_per_model_slo_status_lands_on_crd_and_survives_
-reconcile`` drives the ``InferenceService`` CRD plane and
-``test_broker_grant_under_replica_crash_keeps_both_domains_typed`` the
-coordinator's ``CapacityBroker``; neither holds a model pool or an engine,
-and their port waits for Queue 1 item 6 (the operator's coordinator).
+``test_per_model_slo_status_lands_on_crd_and_survives_reconcile`` drives
+the ``InferenceService`` CRD plane (per-model SLOs fed through the port's
+``FleetAutoscaler.observe_model_latency`` into ``status.models[name].slo``,
+kept across a reconcile of the same entries): the reference's function and
+its helpers run against the port as written, its slice literals mapped by
+host count (``test_torch_api.reference_functions``; the reference's module
+imports the coordinator's broker, which the port has not yet).
+
+Left out, and why:
+``test_broker_grant_under_replica_crash_keeps_both_domains_typed`` drives
+the coordinator's ``CapacityBroker``, whose port waits for Queue 1 item 6e.
 """
 import numpy as np
 import pytest
@@ -35,6 +41,23 @@ from test_torch_serve_gateway import (
     make_setup,
     text,
 )
+from test_torch_api import reference_functions, slice_literals
+from tpu_on_k8s_torch.api.core import ObjectMeta
+from tpu_on_k8s_torch.api.inference_types import (
+    InferenceService,
+    InferenceServiceSpec,
+    ModelRef,
+    SLOObjective,
+    SLOPolicy,
+)
+from tpu_on_k8s_torch.api.types import GPUPolicy
+from tpu_on_k8s_torch.client import InMemoryCluster
+from tpu_on_k8s_torch.controller.config import JobControllerConfig
+from tpu_on_k8s_torch.controller.fleetautoscaler import FleetAutoscaler
+from tpu_on_k8s_torch.controller.inferenceservice import (
+    setup_inferenceservice_controller,
+)
+from tpu_on_k8s_torch.controller.runtime import Manager
 from tpu_on_k8s_torch.train.checkpoint import CheckpointManager, load_params
 
 torch.set_num_threads(1)
@@ -322,3 +345,20 @@ def test_pool_loads_a_checkpoint_through_a_callable_loader(setup, tmp_path):
     assert reads == [(0, 3)]
     assert from_disk == direct
 
+
+
+# ------------------------------------------------ per-model SLOs, CRD plane
+_SLO_CASE = "test_per_model_slo_status_lands_on_crd_and_survives_reconcile"
+test_per_model_slo_status_lands_on_crd_and_survives_reconcile = \
+    reference_functions(
+        "test_modelpool", ["_model_slo", "_pooled_svc", _SLO_CASE],
+        dict(FakeClock=FakeClock, InMemoryCluster=InMemoryCluster,
+             Manager=Manager, InferenceService=InferenceService,
+             InferenceServiceSpec=InferenceServiceSpec, ModelRef=ModelRef,
+             ObjectMeta=ObjectMeta, SLOObjective=SLOObjective,
+             SLOPolicy=SLOPolicy, GPUPolicy=GPUPolicy,
+             FleetAutoscaler=FleetAutoscaler,
+             JobControllerConfig=JobControllerConfig,
+             setup_inferenceservice_controller=(
+                 setup_inferenceservice_controller)),
+        subs=(slice_literals,))[_SLO_CASE]

@@ -9,7 +9,8 @@ greedy decoding, injected fake clocks). The two runs must agree exactly:
 each request's tokens and final state, the fleet's ``stats`` and
 ``event_log`` line for line, the prefix store's ``stats`` and
 ``snapshot()``, the engines' counters, the per-pool autoscaler's
-``decision_log`` line for line, the observation lines, and the
+``decision_log`` line for line (each plane's own ``FleetAutoscaler``
+driving its own fleet), the observation lines, and the
 ``FleetMetrics`` exposition text (``render_text``). Tolerances: none.
 
 The store's control-plane cases run over a stub engine whose exported
@@ -18,8 +19,8 @@ reference's); ``test_prefix_store_page_chunks_match_over_real_engines``
 adds what the reference's tiny prompts never reach, prefixes longer than
 a page chunk, so that the port slices, deduplicates and re-joins real
 torch payloads. The per-pool autoscaler cases drive the port's fleet
-through the reference's own ``FleetAutoscaler`` (duck-typed, as it drives
-the reference's fleet); only this test imports both packages.
+through the port's ``FleetAutoscaler`` on the port's ``InferenceService``
+and cluster, and the reference's fleet through the reference's.
 
 Direct cross-checks: ``prefix_hash`` on seeded token arrays, and
 ``pool_observation_line`` parsed by the reference's ``sample_from_line``.
@@ -38,17 +39,15 @@ from test_torch_serve_gateway import (
     result,
     text,
 )
-from tpu_on_k8s.api.core import ObjectMeta
-from tpu_on_k8s.api.inference_types import (
-    AutoscalePolicy,
-    InferenceService,
-    InferenceServiceSpec,
-    PoolSpec,
-    PoolsSpec,
-)
+import tpu_on_k8s.api.core as jcore
+import tpu_on_k8s.api.inference_types as jit
+import tpu_on_k8s.client.cluster as jcluster
+import tpu_on_k8s.controller.fleetautoscaler as jfleetautoscaler
+import tpu_on_k8s_torch.api.core as pcore
+import tpu_on_k8s_torch.api.inference_types as pit
+import tpu_on_k8s_torch.client.cluster as pcluster
+import tpu_on_k8s_torch.controller.fleetautoscaler as pfleetautoscaler
 from tpu_on_k8s.autoscale.signals import sample_from_line
-from tpu_on_k8s.client.cluster import InMemoryCluster
-from tpu_on_k8s.controller.fleetautoscaler import FleetAutoscaler
 from tpu_on_k8s.serve.kvstore import prefix_hash as j_prefix_hash
 from tpu_on_k8s_torch.serve.kvstore import prefix_hash as p_prefix_hash
 
@@ -663,29 +662,36 @@ def test_scale_pool_drains_zero_loss(setup):
 
 
 # ------------------------------------------------------ per-pool autoscaling
-def _pool_svc():
-    return InferenceService(
-        metadata=ObjectMeta(name="svc", namespace="default"),
-        spec=InferenceServiceSpec(
+#: each plane's control plane: API types, cluster and fleet autoscaler
+CONTROL = {"jax": (jcore, jit, jcluster, jfleetautoscaler),
+           "port": (pcore, pit, pcluster, pfleetautoscaler)}
+
+
+def _pool_svc(plane):
+    core, it, _, _ = CONTROL[plane.name]
+    return it.InferenceService(
+        metadata=core.ObjectMeta(name="svc", namespace="default"),
+        spec=it.InferenceServiceSpec(
             model_name="m", replicas=2,
-            pools=PoolsSpec(
-                prefill=PoolSpec(replicas=1, autoscale=AutoscalePolicy(
+            pools=it.PoolsSpec(
+                prefill=it.PoolSpec(replicas=1, autoscale=it.AutoscalePolicy(
                     min_replicas=1, max_replicas=4,
                     target_queue_wait_s=0.05, slice_legal=False,
                     scale_up_cooldown_s=0.0, scale_down_cooldown_s=0.0)),
-                decode=PoolSpec(replicas=1, autoscale=AutoscalePolicy(
+                decode=it.PoolSpec(replicas=1, autoscale=it.AutoscalePolicy(
                     min_replicas=1, max_replicas=4, target_tpot_s=0.01,
                     slice_legal=False, scale_up_cooldown_s=0.0,
                     scale_down_cooldown_s=0.0)))))
 
 
 def _run_pool_autoscale(plane, seed):
+    _, it, cl, fa = CONTROL[plane.name]
     clock = FakeClock()
     fleet = _disagg(plane, decode=1, clock=clock)
-    cluster = InMemoryCluster()
-    svc = _pool_svc()
+    cluster = cl.InMemoryCluster()
+    svc = _pool_svc(plane)
     cluster.create(svc)
-    scaler = FleetAutoscaler(cluster, clock=clock)
+    scaler = fa.FleetAutoscaler(cluster, clock=clock)
     scaler.register(svc)
     scaler.attach_fleet("default", "svc", fleet)
     rng = np.random.default_rng(seed)
@@ -699,7 +705,7 @@ def _run_pool_autoscale(plane, seed):
     clock.advance(1.0)
     scaler.run_once()
     res = fleet.run()
-    svc = cluster.get(InferenceService, "default", "svc")
+    svc = cluster.get(it.InferenceService, "default", "svc")
     return list(scaler.decision_log), svc, fleet, res
 
 

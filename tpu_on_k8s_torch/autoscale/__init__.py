@@ -11,9 +11,12 @@
   separate up/down cooldowns, flap damping, bounded step size, and a
   ``min_warm`` warm floor.
 
-Training replicas scale elastically through
-`controller/autoscaler.ElasticAutoscaler`, which shares ``Decision`` and
-the ``ACTION_*`` vocabulary with the policy.
+Execution lives in `controller/fleetautoscaler.FleetAutoscaler`, the
+second control loop over the ``InferenceService`` CRD: it patches
+``spec.replicas`` and lets the reconciler's surge/drain machinery (and,
+in-process, ``ServingFleet.scale_to``) do the rest. Training replicas
+scale elastically through `controller/autoscaler.ElasticAutoscaler`, which
+shares ``Decision`` and the ``ACTION_*`` vocabulary with the policy.
 """
 from tpu_on_k8s_torch.autoscale.policy import (
     ACTION_DOWN,

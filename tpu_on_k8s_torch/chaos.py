@@ -9,14 +9,16 @@ the job engine's ``PodFail`` and ``SlicePreempt``,
 ``SaveFailure``, ``PreemptNotice`` and ``ReshardAbort`` with their typed
 exceptions, and the
 serving plane's ``ReplicaCrash``, ``ReadinessFlap``, ``RolloutInterrupt``,
-``HandoffLoss``, ``HandoffCorrupt`` and ``SwapFailure`` (``faults.py``),
-the engine's, the plane's and the training loop's sites, the
+``HandoffLoss``, ``HandoffCorrupt`` and ``SwapFailure``, and the serving
+autoscaler's ``SignalOutage`` (``faults.py``), the engine's, the plane's,
+the autoscaler's and the training loop's sites, the
 ``FaultInjector`` that evaluates a schedule of ``FaultRule(site, trigger,
 fault)`` (``injector.py``) and the control plane's ``watch_outage``,
 ``apiserver_flaky``, ``slice_preemption`` and ``pod_kill``, and the
 ``engine_crash_mid_decode``,
 ``spec_draft_crash``, ``replica_crash_mid_decode``,
-``fleet_rollout_chaos``, ``disagg_handoff_chaos``, ``model_swap_failure``
+``fleet_rollout_chaos``, ``disagg_handoff_chaos``,
+``autoscale_under_crash``, ``model_swap_failure``,
 ``train_preemption`` and ``live_reshard_abort`` scenarios
 (``scenarios.py``).
 
@@ -77,6 +79,12 @@ SITE_TRAIN_PREEMPT = "train.preempt"
 #: ``parallel/reshard.py``'s plan execution, before any leaf moves:
 #: ``ReshardAbort``
 SITE_RESHARD = "train.reshard"
+#: ``FleetAutoscaler``'s signal scrape: ``SignalOutage`` (recovered by the
+#: signal layer's staleness: a dead scrape holds last-known-good)
+SITE_AUTOSCALE_SIGNAL = "autoscale.signal"
+#: ``FleetAutoscaler``'s ``spec.replicas`` patch: ``Conflict``,
+#: ``HttpError``, ``TimeoutFault`` (a failed patch burns no cooldown)
+SITE_AUTOSCALE_PATCH = "autoscale.patch"
 
 
 class ChaosStepError(RuntimeError):
@@ -280,6 +288,16 @@ class SwapFailure(Fault):
     typed terminal state."""
 
     kind: ClassVar[str] = "swap_failure"
+
+
+@dataclasses.dataclass(frozen=True)
+class SignalOutage(Fault):
+    """The autoscaler's fleet scrape fails (dead metrics endpoint, log
+    tail outage): the tick records a dead sample. The recovery under
+    test is the signal layer's staleness contract — "no data" must hold
+    last-known-good, never read as "zero load, scale to min"."""
+
+    kind: ClassVar[str] = "signal_outage"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -723,6 +741,40 @@ def model_swap_failure(*, at_swap: int = 2, model: str = "",
                   note=(f"fail swap #{at_swap}"
                         + (f" into {model}" if model else ""))),
     ), seed)
+
+
+def autoscale_under_crash(replica: str = "replica-1", *,
+                          crash_at: int = 3,
+                          outage_at: Tuple[int, ...] = (2, 3),
+                          conflict_at: Tuple[int, ...] = (),
+                          seed: int = 0) -> Scenario:
+    """A burst is in flight, the autoscaler is mid-reaction — and then a
+    serving replica dies (fleet step ``crash_at`` of that replica), the
+    signal scrape blacks out for the ticks in ``outage_at``, and
+    (optionally) the ``spec.replicas`` patch hits write conflicts.
+    Recovery under test: the crashed replica's requests re-route with
+    zero silent loss, the stale window HOLDS last-known-good instead of
+    scaling to min, a failed patch burns no cooldown, and the loop still
+    converges to the SLO-satisfying replica count without oscillating
+    (no up→down→up thrash) — the acceptance scenario for
+    `controller/fleetautoscaler.py`."""
+    rules = [
+        FaultRule(SITE_FLEET_REPLICA,
+                  Trigger(at=(crash_at,), match={"replica": replica}),
+                  ReplicaCrash(),
+                  note=f"crash {replica} mid-burst"),
+    ]
+    if outage_at:
+        rules.append(FaultRule(SITE_AUTOSCALE_SIGNAL,
+                               Trigger(at=outage_at),
+                               SignalOutage(),
+                               note="black out the fleet scrape"))
+    if conflict_at:
+        rules.append(FaultRule(SITE_AUTOSCALE_PATCH,
+                               Trigger(at=conflict_at),
+                               Conflict(),
+                               note="conflict the replicas patch"))
+    return Scenario("autoscale-under-crash", tuple(rules), seed)
 
 
 def train_preemption(at_step: int, *, fail_save: bool = False,

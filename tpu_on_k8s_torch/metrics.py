@@ -10,8 +10,12 @@ occupancy, allocations, aliases, admission stalls) and ``SpecMetrics``
 crashes), the serving plane's ``FleetMetrics`` (routing, rollouts,
 handoffs and the fleet prefix store, labelled by replica or pool) and
 ``ModelPoolMetrics`` (model swaps and per-model counters, labelled by
-model), with the training half's ``TrainMetrics`` (the training loop's
-gauges and counters). Each is backed by
+model), the serving control plane's ``AutoscaleMetrics`` (the fleet
+autoscaler's decisions and signals, labelled by action or service) and
+``SLOMetrics`` (burn rates, budget states and the goodput ledger,
+labelled by objective, state or tenant), with the training half's
+``TrainMetrics`` (the training loop's gauges and counters). Each is
+backed by
 ``prometheus_client`` when it imports and always mirrored in plain dicts,
 so tests and drivers read them without a scrape. ``exposition`` renders
 the scrape body with the client or, without it, with ``render_text`` over
@@ -579,6 +583,115 @@ class ShardMetrics(_MetricsBase):
         axes.update(mesh_axes or {})
         for axis, size in sorted(axes.items()):
             self.set_gauge("mesh_axis_size", size, label=axis)
+
+
+class AutoscaleMetrics(_MetricsBase):
+    """Serving-autoscaler observability (`controller/fleetautoscaler.py`
+    + `tpu_on_k8s_torch/autoscale/`): every decision (labelled by action,
+    so a thrashing loop is visible as alternating up/down increments),
+    patch failures, stale scrapes, and per-service gauges for the closed
+    loop's input (observed TTFT/queue-wait p95, queue depth, tokens per
+    slot) next to its output (``desired_replicas``) — an operator can
+    read SLO breach → decision → target off one scrape. Mirror dicts
+    key by ``(name, label)`` like ``JobMetrics``."""
+
+    _ACTION_COUNTERS = ("decisions",)
+    _PLAIN_COUNTERS = ("patch_failures", "stale_scrapes", "ticks",
+                       "tick_errors", "broker_harvests", "broker_degrades")
+    _SERVICE_GAUGES = ("desired_replicas", "current_replicas",
+                       "observed_ttft_p95", "observed_queue_wait_p95",
+                       "observed_tpot_p95",
+                       "observed_queue_depth", "observed_tokens_per_slot",
+                       "signal_stale")
+
+    def __init__(self, registry=None) -> None:
+        super().__init__()
+        self.counters: Dict[Tuple[str, str], int] = defaultdict(int)
+        self.gauges: Dict[Tuple[str, str], float] = {}
+        if _prom is not None:
+            self.registry = registry or _prom.CollectorRegistry()
+        ns = "tpu_on_k8s_autoscale"
+        for name in self._ACTION_COUNTERS:
+            self._declare(name, f"{ns}_{name}", "counter",
+                          f"Autoscale {name}", labels=("action",))
+        for name in self._PLAIN_COUNTERS:
+            self._declare(name, f"{ns}_{name}", "counter",
+                          f"Autoscale {name}")
+        for name in self._SERVICE_GAUGES:
+            self._declare(name, f"{ns}_{name}", "gauge",
+                          f"Autoscale {name}", labels=("service",))
+
+    def inc(self, name: str, n: int = 1, label: str = "") -> None:
+        with self._lock:
+            self.counters[(name, label)] += n
+        c = self._prom_counters.get(name)
+        if c is not None:
+            (c.labels(label) if name in self._ACTION_COUNTERS else c).inc(n)
+
+    def set_gauge(self, name: str, value: float, label: str = "") -> None:
+        with self._lock:
+            self.gauges[(name, label)] = value
+        g = self._prom_gauges.get(name)
+        if g is not None:
+            (g.labels(label) if name in self._SERVICE_GAUGES else g).set(
+                value)
+
+    def decision(self, action: str) -> None:
+        self.inc("decisions", label=action)
+
+
+class SLOMetrics(_MetricsBase):
+    """The SLO/error-budget telemetry plane (`obs/slo.py`'s engine and
+    `obs/account.py`'s accountants): per-objective multi-window burn-rate
+    gauges (fast pair pages, slow pair warns), the remaining error-budget
+    fraction, the encoded budget state, and the staleness bit — plus the
+    goodput/cost ledger: per-tenant good vs degraded tokens (served within
+    SLO or not), rejected/replayed requests, and chip-seconds attributed
+    through router capacity weights. Same prometheus + plain-dict mirror
+    pattern as the other classes; mirror dicts key by ``(name, label)``
+    like ``AutoscaleMetrics``."""
+
+    #: budget-state gauge encoding (stable — lands in dashboards);
+    #: mirrors `obs/slo.BUDGET_STATE_CODES`
+    BUDGET_STATE_CODES = {"ok": 0, "warn": 1, "page": 2, "exhausted": 3}
+
+    _SLO_GAUGES = ("burn_rate_fast", "burn_rate_slow", "budget_remaining",
+                   "budget_state", "slo_stale")
+    _STATE_COUNTERS = ("budget_transitions",)
+    _TENANT_COUNTERS = ("good_tokens", "degraded_tokens",
+                        "rejected_requests", "replayed_requests",
+                        "chip_seconds")
+
+    def __init__(self, registry=None) -> None:
+        super().__init__()
+        self.counters: Dict[Tuple[str, str], int] = defaultdict(int)
+        self.gauges: Dict[Tuple[str, str], float] = {}
+        if _prom is not None:
+            self.registry = registry or _prom.CollectorRegistry()
+        ns = "tpu_on_k8s_slo"
+        for name in self._SLO_GAUGES:
+            self._declare(name, f"{ns}_{name}", "gauge", f"SLO {name}",
+                          labels=("slo",))
+        for name in self._STATE_COUNTERS:
+            self._declare(name, f"{ns}_{name}", "counter", f"SLO {name}",
+                          labels=("state",))
+        for name in self._TENANT_COUNTERS:
+            self._declare(name, f"{ns}_{name}", "counter", f"SLO {name}",
+                          labels=("tenant",))
+
+    def inc(self, name: str, n=1, label: str = "") -> None:
+        with self._lock:
+            self.counters[(name, label)] += n
+        c = self._prom_counters.get(name)
+        if c is not None:
+            c.labels(label).inc(n)
+
+    def set_gauge(self, name: str, value: float, label: str = "") -> None:
+        with self._lock:
+            self.gauges[(name, label)] = value
+        g = self._prom_gauges.get(name)
+        if g is not None:
+            g.labels(label).set(value)
 
 
 def count_detached_callback(metrics, message: str) -> None:

@@ -1,19 +1,29 @@
-"""Training goodput: copies of ``TrainingAccountant`` and
-``goodput_from_spans`` from ``tpu_on_k8s/obs/account.py``, which the port
-may not import.
+"""Goodput and cost accounting: copies of ``ServingAccountant``,
+``TrainingAccountant`` and ``goodput_from_spans`` from
+``tpu_on_k8s/obs/account.py``, which the port may not import.
 
-Productive step seconds on NOVEL steps against waste (replayed steps after
-a preemption resume, restart and checkpoint gaps, unattributed overhead),
-surfaced as the ``TrainMetrics`` ``goodput_fraction`` gauge.
-``train/loop.py`` feeds it at every host-sync window; a window whose
-global steps were already accounted is replay. ``goodput_from_spans``
-computes the same split after the fact from a trace's ``train.window``
-spans. No clock reads (time enters as arguments the callers measured);
-stdlib only.
+* ``ServingAccountant`` classifies every finished request's tokens as
+  good (served within the latency SLO) or degraded (finished but
+  breached, or partial output from a cancel, expiry or exhaustion), and
+  counts rejected and replayed requests per tenant; chip-seconds are
+  charged per tenant through the router's capacity weights (a
+  mesh-sharded replica spans several cards).
+* ``TrainingAccountant``: productive step seconds on NOVEL steps against
+  waste (replayed steps after a preemption resume, restart and checkpoint
+  gaps, unattributed overhead), surfaced as the ``TrainMetrics``
+  ``goodput_fraction`` gauge. ``train/loop.py`` feeds it at every
+  host-sync window; a window whose global steps were already accounted is
+  replay.
+* ``goodput_from_spans`` computes the same split after the fact from a
+  trace's ``train.window`` spans.
+
+No clock reads (time enters as arguments the callers measured); stdlib
+only.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from collections import defaultdict
+from typing import Any, Dict, List, Optional
 
 
 #: waste attribution buckets the training ledger recognizes. ``reshard``
@@ -24,6 +34,122 @@ from typing import Any, Dict, List
 #: checkpoint-restart path honestly.
 WASTE_KINDS = ("replay", "restart", "recompile", "preempt", "checkpoint",
                "reshard", "overhead")
+
+
+class ServingAccountant:
+    """Per-tenant good/degraded token and chip-second ledger. SLO
+    targets come in at construction (``ttft_slo_s`` / ``tpot_slo_s``;
+    0 disables that check — a request is good when every *configured*
+    target holds). ``router`` supplies chip capacities
+    (``capacity_of``); explicit ``note_capacity`` calls win."""
+
+    def __init__(self, *, ttft_slo_s: float = 0.0, tpot_slo_s: float = 0.0,
+                 metrics=None, router=None) -> None:
+        self.ttft_slo_s = max(float(ttft_slo_s), 0.0)
+        self.tpot_slo_s = max(float(tpot_slo_s), 0.0)
+        self.metrics = metrics
+        self.router = router
+        self._capacity: Dict[str, float] = {}
+        self.good_tokens: Dict[str, int] = defaultdict(int)
+        self.degraded_tokens: Dict[str, int] = defaultdict(int)
+        self.rejected: Dict[str, int] = defaultdict(int)
+        self.replayed: Dict[str, int] = defaultdict(int)
+        self.chip_seconds: Dict[str, float] = defaultdict(float)
+
+    # ------------------------------------------------------------- capacity
+    def note_capacity(self, replica: str, chips: float) -> None:
+        """Declare a replica's chip count (mirrors
+        ``Router.set_capacity`` for callers without a router)."""
+        if chips < 1:
+            raise ValueError(f"chips must be >= 1, got {chips}")
+        self._capacity[replica] = float(chips)
+
+    def chips_of(self, replica: str) -> float:
+        got = self._capacity.get(replica)
+        if got is not None:
+            return got
+        if self.router is not None and replica:
+            return float(self.router.capacity_of(replica))
+        return 1.0
+
+    # ------------------------------------------------------------ the ledger
+    def within_slo(self, ttft: Optional[float],
+                   tpot: Optional[float]) -> bool:
+        """Every configured latency target holds. A missing sample for a
+        configured target reads as a breach — "we don't know how slow it
+        was" must not count as good (the no-data discipline again)."""
+        if self.ttft_slo_s > 0:
+            if ttft is None or ttft > self.ttft_slo_s:
+                return False
+        if self.tpot_slo_s > 0:
+            if tpot is None or tpot > self.tpot_slo_s:
+                return False
+        return True
+
+    def observe_request(self, *, tenant: str, state: str, tokens: int,
+                        ttft: Optional[float] = None,
+                        tpot: Optional[float] = None,
+                        duration_s: float = 0.0, replica: str = "",
+                        replays: int = 0) -> str:
+        """Account one terminal request; returns its classification
+        (``good`` / ``degraded`` / ``rejected``). ``duration_s`` is the
+        request's occupancy (submit → terminal) — chip-seconds charge
+        ``duration × chips(replica)`` to the tenant regardless of
+        outcome: a rejected request cost nothing, a degraded one cost
+        the same chips a good one did (which is the point of the
+        ledger)."""
+        m = self.metrics
+        if replays > 0:
+            self.replayed[tenant] += replays
+            if m is not None:
+                m.inc("replayed_requests", replays, label=tenant)
+        if state == "rejected":
+            self.rejected[tenant] += 1
+            if m is not None:
+                m.inc("rejected_requests", label=tenant)
+            return "rejected"
+        cost = self.chips_of(replica) * max(float(duration_s), 0.0)
+        if cost > 0:
+            self.chip_seconds[tenant] += cost
+            if m is not None:
+                m.inc("chip_seconds", cost, label=tenant)
+        good = state == "done" and self.within_slo(ttft, tpot)
+        if good:
+            self.good_tokens[tenant] += int(tokens)
+            if m is not None and tokens:
+                m.inc("good_tokens", int(tokens), label=tenant)
+            return "good"
+        self.degraded_tokens[tenant] += int(tokens)
+        if m is not None and tokens:
+            m.inc("degraded_tokens", int(tokens), label=tenant)
+        return "degraded"
+
+    def summary(self) -> Dict[str, Any]:
+        """Deterministic per-tenant rollup (sorted tenants) plus totals —
+        the shape `tools/serve_load.py --slo` folds into its summary."""
+        tenants = sorted(set(self.good_tokens) | set(self.degraded_tokens)
+                         | set(self.rejected) | set(self.replayed)
+                         | set(self.chip_seconds))
+        per_tenant = {
+            t: {
+                "good_tokens": self.good_tokens.get(t, 0),
+                "degraded_tokens": self.degraded_tokens.get(t, 0),
+                "rejected": self.rejected.get(t, 0),
+                "replayed": self.replayed.get(t, 0),
+                "chip_seconds": round(self.chip_seconds.get(t, 0.0), 6),
+            } for t in tenants}
+        good = sum(self.good_tokens.values())
+        degraded = sum(self.degraded_tokens.values())
+        return {
+            "good_tokens": good,
+            "degraded_tokens": degraded,
+            "goodput_token_fraction": (round(good / (good + degraded), 6)
+                                       if good + degraded else None),
+            "rejected": sum(self.rejected.values()),
+            "replayed": sum(self.replayed.values()),
+            "chip_seconds": round(sum(self.chip_seconds.values()), 6),
+            "per_tenant": per_tenant,
+        }
 
 
 class TrainingAccountant:

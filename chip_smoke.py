@@ -148,7 +148,12 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    replayed); (d) ``ModelPool`` over one engine with v1 and v2, the
    requests alternating between the two lanes, 4 admissions a turn, under
    ``model_swap_failure(at_swap=2)`` (the refused swap leaves v1 live and
-   is retried). Every request ends as planned (DONE, or the cancel and
+   is retried). (c) serves the first 8 of 3e's requests and (d) the
+   first 12 (PLANE_CUT; cut from all 24 to make room for phase 16): 3f
+   already hands off every one of the 24 through the same seal, verify
+   and adoption, 8 still take (c)'s lost and corrupted handoffs and a
+   prefix-store hit, and 12 still take (d)'s three swaps with the refused
+   one and its retry (8 take one swap). Every request ends as planned (DONE, or the cancel and
    the expiry of (a)), none lost; (a)'s streamed tokens end in each
    result; ``flash_fwd`` launches once a layer per fresh prefill on every
    path (replays, the fleet's auto-registered heads and the rollout's new
@@ -477,6 +482,47 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    prefill) are the path ``fleet_autoscale``; the transitions, fleet steps,
    wall seconds and host ms a fleet step are printed.
 
+16. The capacity market over gpt2_small (``phase 16`` is timed), built by
+   the port's entry: ``tpu_on_k8s_torch.main.Operator`` on the in-memory
+   backend with ``--feature-gates JobCoordinator=true`` and
+   ``--broker-capacity-chips 6``, a ``KubeletSim`` running every pod.
+   (a) ``brokered_burst``: three consumers share 6 hosts (BROKER_* above
+   give the arithmetic). Serving: phase 15's InferenceService, burst,
+   policy and fake clock, its operator-built ``FleetAutoscaler`` attached
+   to a ``ServingFleet`` of gpt2_small replicas in bf16 (phase 15's
+   factory, phase 6's tree). Batch: a ``BatchLane`` registered with the
+   operator's broker as a managed consumer and fed by
+   ``BatchGatewayBridge`` into a ``ServingGateway`` over one more
+   gpt2_small engine (fp32), 12 seeded items of 64-512 prompt tokens with
+   16-32 new. Training: the elastic TorchJob ``train`` (4 hosts, floor 2)
+   in tenant queue ``team-train`` beside ``eval`` in ``team-eval``,
+   admitted by the operator's ``Coordinator`` (default quota and priority
+   plugins) in the order smooth WRR gives, its pods carrying
+   ``nvidia.com/gpu`` and ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/
+   ``MASTER_PORT`` and no TPU name; its ``ElasticAutoscaler`` bids and
+   freezes at its max on worker-0's step lines. The gates: the broker's
+   decision log climbs harvest (the batch lane) -> preempt (training, to
+   no less than its floor) -> grant (serving), with no degrade (GPT-2's
+   biased layers refuse the int8 variant) and no refusal; the refused
+   scale-up burned no cooldown (the next up lands sooner than a cooldown
+   would allow); the lane's ``intact()`` after every fleet step, its
+   harvest cancels in-flight gateway requests through ``yield_excess``
+   (the gateway reports them cancelled), the fill grants it again after
+   the burst and every item completes with the tokens of a solo greedy
+   ``generate`` of its prompt on the card; phase 15's serving gates and
+   its teacher-forced token gate; the broker's, the fleet autoscaler's and
+   the elastic autoscaler's decision logs byte-identical to the same
+   driver's at ``tiny`` on the CPU. (b) ``broker_grant_crash``: the
+   reference's ``broker_grant_under_crash("replica-1")`` case on two
+   gpt2_small replicas: the stale-bid grant rejects the whole lane
+   transition, one ejection, the next clearing fills the lane, every
+   request done or retry_exhausted, a ``chaos#`` trigger on the ledger's
+   conflict, exactly one sequence-numbered flight-recorder dump, and a
+   Chrome trace with one complete event a finished span. The flash
+   launches of (a) and (b) are the path ``broker``; the rungs, each
+   consumer's hosts before and after, the yielded items, the fleet steps
+   and host ms a fleet step are printed.
+
 Then one JSON line for the kernels, the card's line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line; so does a machine without CUDA. Imports nothing of JAX.
@@ -607,6 +653,8 @@ PLANE_QUEUE_BOUND = 16
 PLANE_TENANTS = {"tenant-0": 1.0, "tenant-1": 2.0, "tenant-2": 4.0}
 PLANE_CRASH_STEP, PLANE_DEADLINE_S = 5, 0.6
 PLANE_PREFIX_BUCKET, PLANE_SWAP_BATCH = 16, 4
+# the first requests of 3e's that (c) and (d) serve (module docstring)
+PLANE_CUT = {"disagg_fleet": 8, "modelpool": 12}
 # Phase 9, mesh-sharded serving at world 1: the requests of phase 3e it
 # serves, the one it moves mid-decode in (c) and the steps before the move
 MESH_REQUESTS, MESH_MOVED, MESH_MOVE_STEPS = 8, 2, 6
@@ -658,6 +706,33 @@ FLEET_POLICY = dict(min_replicas=1, max_replicas=4, target_ttft_s=0.3,
 # the spec.slo block's TTFT objective: burn windows in virtual seconds
 FLEET_SLO_WINDOWS = dict(window_s=60.0, fast_short_s=1.0, fast_long_s=2.0,
                          slow_short_s=5.0, slow_long_s=10.0)
+
+# Phase 16, the capacity market over gpt2_small, built by the operator's
+# entry. Every bid's unit is one 8-GPU host: a serving replica (1x8,
+# spec.broker's unit_chips 1), a training worker (the elastic autoscaler's
+# bid, unit 1) and a batch-lane unit (one engine of BROKER_LANE_SLOTS
+# slots). So the market's capacity counts hosts: BROKER_CAPACITY = 1 serving
+# replica + BROKER_TRAIN_HOSTS training hosts + 1 batch unit = 6, and before
+# the burst the three consumers hold all of it (the lane's max_units 1 is
+# what the fill gives it). The burst's first scale-up (phase 15's 1 -> 4)
+# asks 3 more hosts and finds none free: the pressure episode's ladder
+# harvests the batch lane's 1 and shrinks training by 2 to its floor
+# BROKER_TRAIN_MIN, and the requester's retry is granted the 3. Rung 1
+# (degrade) is off in spec.broker: its only variant for a model without a
+# draft is int8 weights, which GPT-2's biased layers refuse
+# (models/convert.py), so there is nothing cheaper to flip to. After the
+# burst the serving scale-downs free hosts and the fill phase grants the
+# lane again. The serving replicas run bf16; the lane's engine runs the
+# same tree in fp32, since each item's tokens are held to a solo greedy
+# generate of its prompt token for token, and in bf16 a batch of 8 and a
+# batch of 1 round the logits apart enough to move an argmax now and then
+# (phase 6 (c): ~2% of greedy tokens off the teacher-forced maximum). BROKER_LANE_ITEMS items, prompts of 64-512 tokens with 16-32
+# new, from numpy stream (seed, BROKER_LANE_STREAM). (b) runs the
+# reference's broker_grant_under_crash case on two replicas with
+# BROKER_CRASH_REQUESTS requests.
+BROKER_CAPACITY, BROKER_TRAIN_HOSTS, BROKER_TRAIN_MIN = 6, 4, 2
+BROKER_LANE_ITEMS, BROKER_LANE_SLOTS, BROKER_LANE_STREAM = 12, 8, 16
+BROKER_CRASH_REQUESTS, BROKER_MAX_STEPS, BROKER_TRAIN_LINES = 4, 2000, 5
 
 # Phase 10, the vision models and BERT. (a) ResNet-50 at BASELINE.json's
 # batch (256, then smaller ones if it does not fit), 10 adam steps on one
@@ -3091,8 +3166,9 @@ def serve_plane(cfg, params, mods, plain_flash, diff, plain_a, serving,
     """Phase 7: the serving plane (``tpu_on_k8s_torch/serve/``) over
     engines on phase 3's weights with 3e's traffic: (a) the gateway, (b)
     the fleet with a rollout to a second tree ``v2`` (torch.Generator seed
-    1), (c) the disaggregated fleet, (d) the model pool over v1 and v2,
-    each under its chaos scenario. Every DONE request's tokens must pass
+    1), (c) the disaggregated fleet, (d) the model pool over v1 and v2
+    ((c) and (d) on its first PLANE_CUT requests), each under its chaos
+    scenario. Every DONE request's tokens must pass
     3e's teacher-forced gate against the model that served it. Returns
     each path's launches."""
     from tpu_on_k8s_torch import serve as plane
@@ -3113,11 +3189,13 @@ def serve_plane(cfg, params, mods, plain_flash, diff, plain_a, serving,
     served["fleet"], paths["fleet"] = plane_fleet(
         cfg, params, v2, traffic, mods, serving, plane, chaos_mod,
         metrics_mod, dev)
+    cut = {path: (reqs[:n], prefix, {j for j in carriers if j < n})
+           for path, n in PLANE_CUT.items()}
     served["disagg_fleet"], paths["disagg_fleet"] = plane_disagg(
-        cfg, params, traffic, mods, serving, plane, chaos_mod, metrics_mod,
-        dev)
+        cfg, params, cut["disagg_fleet"], mods, serving, plane, chaos_mod,
+        metrics_mod, dev)
     served["modelpool"], paths["modelpool"] = plane_modelpool(
-        cfg, params, v2, traffic, mods, serving, plane, chaos_mod,
+        cfg, params, v2, cut["modelpool"], mods, serving, plane, chaos_mod,
         metrics_mod, ledger_mod, dev)
     for tag, path in (("(a)", "gateway"), ("(b)", "fleet"),
                       ("(c)", "disagg_fleet"), ("(d)", "modelpool")):
@@ -6835,6 +6913,53 @@ def slo_rendered(statuses) -> dict:
         for name, st in statuses.items()}
 
 
+def replica_pods_follow(cluster, svc) -> str:
+    """'' when the replica pods of ``svc`` follow its ``spec.replicas``
+    (live gangs of ``nvidia.com/gpu`` 8 with the accelerator selector and
+    no name that says TPU; draining ones aside), else why."""
+    from tpu_on_k8s_torch.api import constants
+    from tpu_on_k8s_torch.api.core import Pod
+
+    live = {}
+    selector = {constants.LABEL_INFERENCESERVICE_NAME: svc.metadata.name}
+    for pod in cluster.list(Pod, svc.metadata.namespace, selector):
+        [c] = pod.spec.containers
+        names = [e.name for e in c.env] + list(pod.spec.node_selector) \
+            + list(c.resources.requests) + list(c.resources.limits)
+        if (c.resources.requests.get(constants.RESOURCE_GPU) != 8
+                or c.resources.limits.get(constants.RESOURCE_GPU) != 8
+                or pod.spec.node_selector != {
+                    constants.NODE_SELECTOR_GPU_ACCELERATOR:
+                        FLEET_ACCELERATOR}
+                or any("tpu" in n.lower() for n in names)):
+            return f"pod {pod.metadata.name} is not of the GPU flavour"
+        if constants.ANNOTATION_SERVING_DRAIN_DEADLINE \
+                in pod.metadata.annotations:
+            continue
+        if pod.status.phase != "Running":
+            return f"pod {pod.metadata.name} is {pod.status.phase}"
+        live.setdefault(pod.metadata.labels[
+            constants.LABEL_SERVING_REPLICA_INDEX], []).append(pod)
+    want = {str(i) for i in range(svc.spec.replicas)}
+    if set(live) != want:
+        return f"live replica gangs {sorted(live)}, spec {sorted(want)}"
+    return ""
+
+
+def burst_arrivals(step: int, rng, tokens_rng, vocab: int) -> list:
+    """The burst's arrivals at fleet step ``step``: 3-5 requests a step over
+    FLEET_BURST's steps, prompts of 64-896 tokens with 16-64 new (from
+    ``rng``), the prompt tokens from ``tokens_rng``."""
+    out = []
+    if FLEET_BURST[0] <= step < FLEET_BURST[1]:
+        for _ in range(int(rng.integers(3, 6))):
+            n = int(rng.integers(64, 897))
+            new = int(rng.integers(16, 65))
+            out.append((tokens_rng.integers(0, vocab, size=n).astype(np.int32),
+                        new))
+    return out
+
+
 def fleet_burst(cfg, params, device, *, seed, injector=None) -> dict:
     """``tests/test_autoscale.py::_drive_burst``, the acceptance loop of
     the serving autoscaler, over engines of ``cfg`` and ``params`` on
@@ -6854,7 +6979,7 @@ def fleet_burst(cfg, params, device, *, seed, injector=None) -> dict:
     must be the SLO engine's state. Returns what the gates read."""
     from tpu_on_k8s_torch import chaos
     from tpu_on_k8s_torch.api import constants
-    from tpu_on_k8s_torch.api.core import ObjectMeta, Pod
+    from tpu_on_k8s_torch.api.core import ObjectMeta
     from tpu_on_k8s_torch.api.inference_types import (
         AutoscalePolicy,
         InferenceService,
@@ -6921,32 +7046,6 @@ def fleet_burst(cfg, params, device, *, seed, injector=None) -> dict:
         sim.run_all("default", selector)
         manager.run_until_idle()
 
-    def follows(svc) -> str:
-        """'' when the replica pods follow ``spec.replicas``, else why."""
-        live = {}
-        for pod in cluster.list(Pod, "default", selector):
-            [c] = pod.spec.containers
-            names = [e.name for e in c.env] + list(pod.spec.node_selector) \
-                + list(c.resources.requests) + list(c.resources.limits)
-            if (c.resources.requests.get(constants.RESOURCE_GPU) != 8
-                    or c.resources.limits.get(constants.RESOURCE_GPU) != 8
-                    or pod.spec.node_selector != {
-                        constants.NODE_SELECTOR_GPU_ACCELERATOR:
-                            FLEET_ACCELERATOR}
-                    or any("tpu" in n.lower() for n in names)):
-                return f"pod {pod.metadata.name} is not of the GPU flavour"
-            if constants.ANNOTATION_SERVING_DRAIN_DEADLINE \
-                    in pod.metadata.annotations:
-                continue
-            if pod.status.phase != "Running":
-                return f"pod {pod.metadata.name} is {pod.status.phase}"
-            live.setdefault(pod.metadata.labels[
-                constants.LABEL_SERVING_REPLICA_INDEX], []).append(pod)
-        want = {str(i) for i in range(svc.spec.replicas)}
-        if set(live) != want:
-            return f"live replica gangs {sorted(live)}, spec {sorted(want)}"
-        return ""
-
     reconcile()
     rng = np.random.default_rng(seed)
     tokens_rng = np.random.default_rng((seed, FLEET_TOKEN_STREAM))
@@ -6969,7 +7068,8 @@ def fleet_burst(cfg, params, device, *, seed, injector=None) -> dict:
                      f"the SLO engine's state {want}")
             ticks["slo_checked"] += 1
         reconcile()
-        why = follows(cluster.get(InferenceService, "default", "svc"))
+        why = replica_pods_follow(
+            cluster, cluster.get(InferenceService, "default", "svc"))
         if why:
             fail(f"tick {ticks['n']} (t {clock.t:.2f}): the replica pods do "
                  f"not follow spec.replicas: {why}")
@@ -6979,17 +7079,13 @@ def fleet_burst(cfg, params, device, *, seed, injector=None) -> dict:
     try:
         while step < 40 or fleet.has_live_requests or fleet.queue_depth \
                 or tail > 0:
-            if FLEET_BURST[0] <= step < FLEET_BURST[1]:
-                for _ in range(int(rng.integers(3, 6))):
-                    n = int(rng.integers(64, 897))
-                    new = int(rng.integers(16, 65))
-                    prompt = tokens_rng.integers(0, cfg.vocab_size, size=n
-                                                 ).astype(np.int32)
-                    r = fleet.submit(prompt, new)
-                    if isinstance(r, Rejected):
-                        rejected += 1
-                    else:
-                        reqs[r] = (prompt, new)
+            for prompt, new in burst_arrivals(step, rng, tokens_rng,
+                                              cfg.vocab_size):
+                r = fleet.submit(prompt, new)
+                if isinstance(r, Rejected):
+                    rejected += 1
+                else:
+                    reqs[r] = (prompt, new)
             t0 = time.perf_counter()
             fleet.step()
             step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -7200,6 +7296,679 @@ def fleet_autoscale_phase(mods, gpu, dev, plain_flash, transformer, decode,
     torch.cuda.empty_cache()
     print(f"[time] phase 15 {time.perf_counter() - t_phase:.1f} s")
     return {"paths": paths}
+
+
+def brokered_burst(cfg, params, device, *, seed, lane_cfg=None,
+                   lane_params=None) -> dict:
+    """Phase 16 (a)'s market, built by the port's own entry
+    (``tpu_on_k8s_torch.main.Operator`` on the in-memory backend, the
+    ``JobCoordinator`` gate on, ``--broker-capacity-chips``
+    BROKER_CAPACITY), with a ``KubeletSim`` running every pod. Three
+    consumers share the market:
+
+    * serving: ``fleet_burst``'s InferenceService (``1x8``, phase 15's
+      policy and SLO) with ``spec.broker`` (one unit a replica, rung 1
+      off: see BROKER_* above), its operator-built ``FleetAutoscaler``
+      attached to a ``ServingFleet`` of ``cfg``/``params`` engines on
+      ``device``, under phase 15's burst at ``seed`` on phase 15's fake
+      clock;
+    * batch: a ``BatchLane`` registered with the operator's broker as a
+      managed consumer, fed through ``BatchGatewayBridge`` into a
+      ``ServingGateway`` over one more engine (``lane_cfg`` /
+      ``lane_params``, default the fleet's), BROKER_LANE_ITEMS seeded
+      items; a harvest shrinks the lane and ``yield_excess`` cancels its
+      newest gateway requests;
+    * training: the elastic TorchJob ``train`` (BROKER_TRAIN_HOSTS hosts,
+      floor BROKER_TRAIN_MIN) in tenant queue ``team-train`` beside the
+      job ``eval`` in ``team-eval``, both admitted by the operator's
+      ``Coordinator`` (default quota and priority plugins, smooth WRR);
+      its ``ElasticAutoscaler`` bids through ``_training_bid``.
+
+    Every tick (each second fleet step): the fleet autoscaler, the elastic
+    autoscaler and one market clearing, then the operator pumped to
+    quiescence and the kubelet run; the batch lane's zero-loss invariant
+    is checked after every fleet step and the replica pods after every
+    tick. Returns what the gates read."""
+    from tpu_on_k8s_torch.api import constants
+    from tpu_on_k8s_torch.api.core import (
+        Container,
+        ObjectMeta,
+        Pod,
+        PodSpec,
+        PodTemplateSpec,
+    )
+    from tpu_on_k8s_torch.api.inference_types import (
+        AutoscalePolicy,
+        BrokerPolicy,
+        InferenceService,
+        InferenceServiceSpec,
+        RolloutPolicy,
+        SLOObjective,
+        SLOPolicy,
+    )
+    from tpu_on_k8s_torch.api.types import (
+        ElasticPolicy,
+        GPUPolicy,
+        RunPolicy,
+        SchedulingPolicy,
+        TaskSpec,
+        TaskType,
+        TorchJob,
+        TorchJobSpec,
+    )
+    from tpu_on_k8s_torch.client import KubeletSim
+    from tpu_on_k8s_torch.client.testing import append_pod_log
+    from tpu_on_k8s_torch.controller.torchjob import submit_job
+    from tpu_on_k8s_torch.coordinator.policy import SmoothWRR
+    from tpu_on_k8s_torch.main import Operator, build_parser
+    from tpu_on_k8s_torch.models.serving import ContinuousBatchingEngine
+    from tpu_on_k8s_torch.serve import (
+        ProbeConfig,
+        Rejected,
+        Router,
+        ServingFleet,
+        ServingGateway,
+    )
+    from tpu_on_k8s_torch.serve.batchlane import BatchGatewayBridge, BatchLane
+
+    clock = FakeClock()
+    op = Operator(build_parser().parse_args(
+        ["--cluster-backend", "memory", "--feature-gates",
+         "JobCoordinator=true", "--broker-capacity-chips",
+         str(BROKER_CAPACITY)]))
+    # phase 15's loop on the operator's serving controllers: its scrape
+    # window and staleness, and its virtual clock for the autoscaler, the
+    # InferenceService reconciler and that reconciler's workqueue (phase
+    # 15 passed the clock to their constructors; the entry builds them)
+    op.config.autoscale_window_scrapes = 3
+    op.config.autoscale_stale_scrapes = 3
+    op.fleetautoscaler.clock = clock
+    op.inferenceservice.clock = clock
+    [isvc] = [c for c in op.manager.controllers
+              if c.name == "inferenceservice"]
+    isvc.queue._clock = clock
+    cluster, broker = op.cluster, op.broker
+    sim = KubeletSim(cluster)
+
+    def settle():
+        op.manager.run_until_idle()
+        sim.run_all("default")
+        op.manager.run_until_idle()
+
+    # ---- training: two tenant queues through the coordinator ------------
+    template = PodTemplateSpec(spec=PodSpec(containers=[Container(
+        name=constants.DEFAULT_CONTAINER_NAME, image="tpu-on-k8s-torch")]))
+    tenants = {"train": ("team-train", BROKER_TRAIN_HOSTS, "4x8",
+                         ElasticPolicy(min_replicas=BROKER_TRAIN_MIN,
+                                       max_replicas=BROKER_TRAIN_HOSTS)),
+               "eval": ("team-eval", 1, "1x8", None)}
+    for name, (queue, hosts, topo, elastic) in tenants.items():
+        submit_job(cluster, TorchJob(
+            metadata=ObjectMeta(name=name),
+            spec=TorchJobSpec(
+                tasks={TaskType.WORKER: TaskSpec(num_tasks=hosts,
+                                                 template=template)},
+                run_policy=RunPolicy(scheduling_policy=SchedulingPolicy(
+                    queue=queue)),
+                elastic_policy=elastic,
+                gpu_policy=GPUPolicy(accelerator=FLEET_ACCELERATOR,
+                                     topology=topo))))
+
+    def queuing(name):
+        job = cluster.get(TorchJob, "default", name)
+        return [(c.status, c.reason) for c in job.status.conditions
+                if c.type.value == "Queuing"]
+
+    held = {name: queuing(name) for name in tenants}
+    pods_before = len(cluster.list(Pod, "default"))
+    # the order smooth WRR gives the two queues, weighted by their tasks
+    wrr, weights, expected = SmoothWRR(), {
+        q: float(h) for q, h, _, _ in tenants.values()}, []
+    while weights:
+        queue = wrr.pick(weights)
+        expected.append(next(n for n, t in tenants.items() if t[0] == queue))
+        del weights[queue]
+    order = []
+    for _ in range(4):
+        key = op.coordinator.schedule_once()
+        if key is not None:
+            order.append(key.split("/", 1)[1])
+        settle()
+    admitted = {name: queuing(name) for name in tenants}
+    # worker-0 prints BROKER_TRAIN_LINES step lines at one latency, as the
+    # port's trainers do: the elastic autoscaler's window fills at its
+    # max_replicas and it freezes there (ReachMaxReplicas), so its only
+    # later move is the broker's preemption through shrink_to
+    for i in range(BROKER_TRAIN_LINES):
+        append_pod_log(cluster, "default", "train-worker-0",
+                       f"[elastic-metrics] epoch=0 batch={i} latency=0.5")
+
+    # ---- serving: the InferenceService and its fleet ---------------------
+    cluster.create(InferenceService(
+        metadata=ObjectMeta(name="svc"),
+        spec=InferenceServiceSpec(
+            image="inproc", replicas=1,
+            gpu_policy=GPUPolicy(accelerator=FLEET_ACCELERATOR,
+                                 topology=FLEET_TOPOLOGY),
+            rollout=RolloutPolicy(drain_seconds=FLEET_DRAIN_S),
+            autoscale=AutoscalePolicy(**FLEET_POLICY),
+            slo=SLOPolicy(objectives=[SLOObjective(
+                name="ttft", objective="ttft_p95",
+                target=FLEET_POLICY["target_ttft_s"],
+                **FLEET_SLO_WINDOWS)]),
+            broker=BrokerPolicy(degrade=False))))
+    engines = []
+
+    def factory(name):
+        eng = ContinuousBatchingEngine(cfg, params, n_slots=FLEET_SLOTS,
+                                       max_len=FLEET_MAX_LEN, device=device)
+        engines.append(eng)
+        return eng
+
+    fleet = ServingFleet(factory, 1, probe=ProbeConfig(slow_start_steps=1),
+                         router=Router(prefix_bucket_len=8), clock=clock)
+    op.fleetautoscaler.attach_fleet("default", "svc", fleet)
+
+    # ---- batch: the lane, its bridge and its gateway ---------------------
+    lane_engine = ContinuousBatchingEngine(
+        lane_cfg or cfg, params if lane_params is None else lane_params,
+        n_slots=BROKER_LANE_SLOTS, max_len=FLEET_MAX_LEN, device=device)
+    engines.append(lane_engine)
+    gateway = ServingGateway(lane_engine, clock=clock)
+    lane = BatchLane(slots_per_unit=BROKER_LANE_SLOTS, max_units=1)
+    items, rids, results, current, cancelled = {}, {}, {}, {}, []
+
+    class LaneGateway:
+        """The gateway as the bridge sees it: each submission noted
+        against the item the bridge rendered last, each result the bridge
+        takes (``result`` pops it) kept, each cancel noted."""
+
+        def submit(self, prompt, max_new_tokens, **kw):
+            rid = gateway.submit(prompt, max_new_tokens, **kw)
+            if not isinstance(rid, Rejected):
+                rids[rid] = current["item"]
+            return rid
+
+        def result(self, rid):
+            res = gateway.result(rid)
+            if res is not None:
+                results[rid] = res
+            return res
+
+        def cancel(self, rid):
+            cancelled.append(rid)
+            return gateway.cancel(rid)
+
+    bridge = BatchGatewayBridge(lane, LaneGateway())
+    brng = np.random.default_rng((seed, BROKER_LANE_STREAM))
+    for _ in range(BROKER_LANE_ITEMS):
+        n, new = int(brng.integers(64, 513)), int(brng.integers(16, 33))
+        prompt = brng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+        items[lane.submit(work=new)] = (prompt, new)
+
+    def render(item):
+        # the bridge reads max_new_tokens after rendering the prompt
+        current["item"] = item.item_id
+        bridge.max_new_tokens = items[item.item_id][1]
+        return items[item.item_id][0]
+
+    yields = []
+
+    def lane_apply(target, reason):
+        before = len(cancelled)
+        ok = lane.apply(target, reason)
+        n = bridge.yield_excess()
+        yields.append((clock.t, reason, target, n, cancelled[before:]))
+        return ok
+
+    broker.register(lane.name, lane.bid, apply_fn=lane_apply, managed=True)
+
+    # ---- the run ---------------------------------------------------------
+    settle()
+    rng = np.random.default_rng(seed)
+    tokens_rng = np.random.default_rng((seed, FLEET_TOKEN_STREAM))
+    reqs, rejected, transitions, step_ms, holdings = {}, 0, [], [], []
+    ticks = {"n": 0}
+    refusals = []
+    step, tail = 0, FLEET_TAIL
+
+    def holding():
+        """The units each consumer holds: replicas, worker hosts, lane
+        units (one 8-GPU host each)."""
+        job = cluster.get(TorchJob, "default", "train")
+        return {"serve": cluster.get(InferenceService, "default",
+                                     "svc").spec.replicas,
+                "train": job.spec.tasks[TaskType.WORKER].num_tasks,
+                "batch": lane.granted}
+
+    def tick():
+        before = cluster.get(InferenceService, "default", "svc").spec.replicas
+        op.fleetautoscaler.run_once()
+        if op.fleetautoscaler.decision_log and \
+                op.fleetautoscaler.decision_log[-1].endswith(
+                    "patch_failed BrokerRefused"):
+            refusals.append(clock.t)
+        op.autoscaler.run_once()
+        broker.run_once()
+        svc = cluster.get(InferenceService, "default", "svc")
+        if svc.spec.replicas != before:
+            transitions.append((clock.t, before, svc.spec.replicas))
+        ticks["n"] += 1
+        op.run_once()
+        sim.run_all("default")
+        op.run_once()
+        why = replica_pods_follow(
+            cluster, cluster.get(InferenceService, "default", "svc"))
+        if why:
+            fail(f"tick {ticks['n']} (t {clock.t:.2f}): the replica pods do "
+                 f"not follow spec.replicas: {why}")
+        holdings.append((clock.t, holding()))
+
+    while (step < 40 or fleet.has_live_requests or fleet.queue_depth
+           or tail > 0 or lane.completed < lane.submitted):
+        for prompt, new in burst_arrivals(step, rng, tokens_rng,
+                                          cfg.vocab_size):
+            r = fleet.submit(prompt, new)
+            if isinstance(r, Rejected):
+                rejected += 1
+            else:
+                reqs[r] = (prompt, new)
+        t0 = time.perf_counter()
+        fleet.step()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        gateway.step()
+        bridge.poll()
+        bridge.pump(render)
+        if not lane.intact():
+            fail(f"fleet step {step}: the batch lane lost an item: "
+                 f"{lane.snapshot()}")
+        clock.advance(FLEET_DT)
+        if step % 2 == 0:
+            tick()
+        if step >= 40 and not fleet.has_live_requests \
+                and not fleet.queue_depth:
+            tail -= 1
+        step += 1
+        if step > BROKER_MAX_STEPS:
+            fail(f"phase 16: the market did not settle in {step} fleet "
+                 f"steps: lane {lane.snapshot()}")
+    return dict(op=op, cluster=cluster, broker=broker, fleet=fleet,
+                scaler=op.fleetautoscaler, metrics=op.autoscale_metrics,
+                transitions=transitions, reqs=reqs, rejected=rejected,
+                results={rid: fleet.result(rid) for rid in reqs},
+                engines=engines, steps=step, step_ms=step_ms, ticks=ticks,
+                svc=cluster.get(InferenceService, "default", "svc"),
+                lane=lane, gateway=gateway, items=items,
+                lane_done={rids[rid]: (rid, res)
+                           for rid, res in results.items()},
+                yields=yields, holdings=holdings, refusals=refusals,
+                order=order,
+                expected=expected, held=held, admitted=admitted,
+                pods_before=pods_before, rids_item=rids)
+
+
+def broker_rungs(log) -> list:
+    """The broker's decision log as (lane, action, reason), the steady
+    holds left out."""
+    out = []
+    for line in log:
+        f = dict(kv.split("=", 1) for kv in line.split() if "=" in kv)
+        if "patch_failed" in line:
+            out.append((f.get("lane"), "patch_failed", line.split()[-1]))
+        elif f.get("reason") != "steady":
+            out.append((f["lane"], f["action"], f["reason"]))
+    return out
+
+
+def market_gates(tag: str, env: dict) -> None:
+    """Phase 16 (a)'s gates on one ``brokered_burst`` run (module
+    docstring): the ladder, the batch lane, serving (``burst_gates``), the
+    coordinator's admission and the training gang's pods."""
+    from tpu_on_k8s_torch.api import constants
+    from tpu_on_k8s_torch.api.core import Pod
+    from tpu_on_k8s_torch.api.types import TaskType, TorchJob
+    from tpu_on_k8s_torch.serve import RequestState
+
+    serve, train = "serve/default/svc", "train/default/train"
+    rungs = broker_rungs(env["broker"].decision_log)
+    moved = [(lane, reason.split(":")[0]) for lane, action, reason in rungs
+             if reason.split(":")[0] in ("degrade", "harvest", "preempt",
+                                         "grant", "refuse", "fill")]
+    first = {}
+    for i, (lane, verb) in enumerate(moved):
+        first.setdefault((lane, verb), i)
+    want = [("batch", "harvest"), (train, "preempt"), (serve, "grant")]
+    if not all(k in first for k in want) or [first[k] for k in want] != \
+            sorted(first[k] for k in want):
+        fail(f"{tag}: the ladder did not climb harvest -> preempt -> grant: "
+             f"{rungs}")
+    if any(verb in ("refuse", "degrade") for _, verb in moved):
+        fail(f"{tag}: a refusal or a degrade in the market: {rungs}")
+    if not any(lane == "batch" and verb == "fill"
+               and i > first[(serve, "grant")]
+               for i, (lane, verb) in enumerate(moved)):
+        fail(f"{tag}: the batch lane was not filled again after the grant")
+    trained = env["cluster"].get(TorchJob, "default", "train")
+    hosts = trained.spec.tasks[TaskType.WORKER].num_tasks
+    if not BROKER_TRAIN_MIN <= hosts < BROKER_TRAIN_HOSTS:
+        fail(f"{tag}: the training gang ended at {hosts} hosts")
+    # the refused scale-up burned no cooldown: the serving loop's next up
+    # landed inside the cooldown a landed patch would have started
+    if not env["refusals"]:
+        fail(f"{tag}: no scale-up was refused by the broker")
+    ups = [t for t, o, n in env["transitions"] if n > o]
+    t_refused = env["refusals"][0]
+    if not ups or ups[0] - t_refused >= FLEET_POLICY["scale_up_cooldown_s"]:
+        fail(f"{tag}: the first scale-up landed at {ups[:1]} after the "
+             f"refusal at {t_refused:.2f}: a cooldown was burned")
+    # the batch lane lost nothing and finished
+    lane, gateway = env["lane"], env["gateway"]
+    snap = lane.snapshot()
+    if (not lane.intact() or snap["completed"] != BROKER_LANE_ITEMS
+            or snap["backlog"] or snap["in_flight"]):
+        fail(f"{tag}: the batch lane ended {snap}")
+    cancelled = [rid for *_, rids in env["yields"] for rid in rids]
+    if not cancelled or snap["yields"] < len(cancelled):
+        fail(f"{tag}: the harvest cancelled no gateway request: "
+             f"{env['yields']}")
+    states = {rid: gateway.state(rid) for rid in cancelled}
+    if any(s is not RequestState.CANCELLED for s in states.values()):
+        fail(f"{tag}: harvested gateway requests ended {states}")
+    done = env["lane_done"]
+    if sorted(done) != sorted(env["items"]) or any(
+            res.state is not RequestState.DONE
+            or len(res.tokens) != env["items"][iid][1]
+            for iid, (_, res) in done.items()):
+        fail(f"{tag}: batch items ended "
+             f"{ {i: r.state.value for i, (_, r) in done.items()} }")
+    # serving holds phase 15's gates
+    burst_gates(tag, env, crash=False)
+    # the coordinator admitted the jobs in smooth WRR's order
+    if env["order"] != env["expected"]:
+        fail(f"{tag}: dequeue order {env['order']}, smooth WRR's "
+             f"{env['expected']}")
+    for name in env["expected"]:
+        if env["held"][name] != [("True", "JobEnqueued")] or \
+                env["admitted"][name] != [("False", "JobDequeued")]:
+            fail(f"{tag}: {name} went {env['held'][name]} -> "
+                 f"{env['admitted'][name]}, not Queuing -> Dequeued")
+    if env["pods_before"]:
+        fail(f"{tag}: {env['pods_before']} pods before the coordinator "
+             f"dequeued a job")
+    need = {constants.ENV_PROCESS_ID, constants.ENV_NUM_PROCESSES,
+            constants.ENV_MASTER_ADDR, constants.ENV_MASTER_PORT}
+    for name in env["expected"]:
+        pods = env["cluster"].list(Pod, "default",
+                                   {constants.LABEL_JOB_NAME: name})
+        if not pods:
+            fail(f"{tag}: job {name} has no pods")
+        for pod in pods:
+            [c] = pod.spec.containers
+            names = [e.name for e in c.env] + list(pod.spec.node_selector)
+            if (not need <= {e.name for e in c.env}
+                    or c.resources.requests.get(constants.RESOURCE_GPU) != 8
+                    or any("tpu" in n.lower() for n in names)):
+                fail(f"{tag}: pod {pod.metadata.name} env {sorted(names)}, "
+                     f"resources {c.resources.requests}")
+
+
+def broker_grant_crash(cfg, params, device, dump_dir: Path) -> dict:
+    """Phase 16 (b): ``tests/test_modelpool.py``'s
+    ``test_broker_grant_under_replica_crash_keeps_both_domains_typed`` with
+    two replica engines of ``cfg``/``params`` on ``device``: a
+    ``CapacityBroker`` of 8 units with one managed batch lane (its bid
+    wants 4), a ``ServingFleet`` of two replicas whose tracer rings its
+    finished spans in a ``FlightRecorder`` dumping under ``dump_dir``, and
+    BROKER_CRASH_REQUESTS requests (numpy seed 41, prompts 64-512 tokens,
+    16 new) under ``broker_grant_under_crash("replica-1")``. The
+    reference's assertions are this function's gates."""
+    from tpu_on_k8s_torch import chaos
+    from tpu_on_k8s_torch.coordinator.broker import (
+        KIND_BATCH,
+        PRIORITY_BATCH,
+        Bid,
+        CapacityBroker,
+    )
+    from tpu_on_k8s_torch.metrics import BrokerMetrics
+    from tpu_on_k8s_torch.models.serving import ContinuousBatchingEngine
+    from tpu_on_k8s_torch.obs import FlightRecorder, Tracer, to_chrome_trace
+    from tpu_on_k8s_torch.obs.ledger import DecisionLedger, DecisionRecord
+    from tpu_on_k8s_torch.serve import (
+        ProbeConfig,
+        RequestState,
+        Router,
+        ServingFleet,
+    )
+
+    class Lane:
+        current = 0
+
+        def __init__(self):
+            self.applied = []
+
+        def bid(self):
+            return Bid(name="bat", kind=KIND_BATCH, priority=PRIORITY_BATCH,
+                       current=self.current, desired=4, floor=0, unit=1)
+
+        def apply(self, target, reason):
+            self.applied.append((target, reason))
+            self.current = target
+            return True
+
+    clock = FakeClock()
+    led = DecisionLedger(clock)
+    broker = CapacityBroker(8, ledger=led, metrics=BrokerMetrics())
+    lane = Lane()
+    broker.register("bat", lane.bid, apply_fn=lane.apply, managed=True)
+    recorder = FlightRecorder(directory=str(dump_dir))
+    tracer = Tracer(time.perf_counter, recorder=recorder)
+    engines = []
+
+    def factory(name):
+        eng = ContinuousBatchingEngine(cfg, params, n_slots=2,
+                                       max_len=FLEET_MAX_LEN, device=device)
+        engines.append(eng)
+        return eng
+
+    fleet = ServingFleet(factory, 2, probe=ProbeConfig(slow_start_steps=1),
+                         router=Router(prefix_bucket_len=8), tracer=tracer)
+    for _ in range(3):
+        fleet.step()                          # both replicas ready
+    rng = np.random.default_rng(41)
+    reqs = {}
+    for _ in range(BROKER_CRASH_REQUESTS):
+        prompt = rng.integers(0, cfg.vocab_size, size=int(
+            rng.integers(64, 513))).astype(np.int32)
+        reqs[fleet.submit(prompt, 16)] = (prompt, 16)
+    inj = chaos.broker_grant_under_crash("replica-1").injector()
+    with inj:
+        broker.run_once()                     # grant #1 hits the stale bid
+        if lane.applied or lane.current:
+            fail(f"phase 16 (b): a partial apply: {lane.applied}")
+        if not any("patch_failed StaleBidError" in ln
+                   for ln in broker.decision_log):
+            fail(f"phase 16 (b): no stale-bid rejection in "
+                 f"{broker.decision_log}")
+        if broker.metrics.counters[("lane_conflicts", "")] != 1:
+            fail(f"phase 16 (b): lane conflicts {dict(broker.metrics.counters)}")
+        for _ in range(3):
+            fleet.step()                      # 3rd replica-1 step crashes
+        if fleet.stats["ejected"] != 1:
+            fail(f"phase 16 (b): {fleet.stats['ejected']} ejections")
+        broker.run_once()                     # market re-clears, unmasked
+        if lane.applied != [(4, "fill:idle_capacity")]:
+            fail(f"phase 16 (b): the next clearing applied {lane.applied}")
+        out = fleet.drain(timeout_s=120.0)
+    states = {rid: res.state for rid, res in out.items()}
+    if set(out) != set(reqs) or any(
+            s not in (RequestState.DONE, RequestState.RETRY_EXHAUSTED)
+            for s in states.values()) or not any(
+            s is RequestState.DONE for s in states.values()):
+        fail(f"phase 16 (b): requests ended {states}")
+    conflicts = [r for r in led.records if isinstance(r, DecisionRecord)
+                 and r.commit == "conflict:StaleBidError"]
+    if not conflicts or not conflicts[0].trigger.startswith("chaos#"):
+        fail(f"phase 16 (b): the ledger's conflict {conflicts}")
+    doc = json.loads(json.dumps(to_chrome_trace(tracer.spans)))
+    finished = [s for s in tracer.export() if s["end"] is not None]
+    if sum(e["ph"] == "X" for e in doc["traceEvents"]) != len(finished):
+        fail("phase 16 (b): the Chrome trace's complete events are not the "
+             "finished spans")
+    if [Path(p).name for p in recorder.dumps] != [
+            "flightrec-0001-replica_ejected.json"]:
+        fail(f"phase 16 (b): flight-recorder dumps {recorder.dumps}")
+    return dict(fleet=fleet, engines=engines, broker=broker, ledger=led,
+                reqs=reqs, out=out, chaos=list(inj.events),
+                dumps=list(recorder.dumps), trace=doc, spans=len(finished))
+
+
+def broker_phase(mods, gpu, dev, plain_flash, transformer, decode, convert,
+                 diff, tmp: Path) -> dict:
+    """Phase 16: the capacity market (``coordinator/broker.py``,
+    ``serve/batchlane.py``, ``coordinator/core.py``, ``main.py``) over
+    gpt2_small on the card (module docstring). (a) ``brokered_burst`` at
+    gpt2_small's full width and depth in bf16 (phase 6's tree, from its
+    torch seed), its decision logs (the broker's, the fleet autoscaler's,
+    the elastic autoscaler's) byte-identical to the same driver's at the
+    ``tiny`` config on the CPU (gpt2_small's vocabulary, as phase 15's
+    twin), ``market_gates`` on both runs, the serving tokens through phase
+    6 (c)'s teacher-forced gate, and each batch item's tokens equal to a
+    solo greedy ``generate`` of its prompt on the card. (b)
+    ``broker_grant_crash`` on two gpt2_small replicas. The flash launches
+    of (a) and (b) are the path ``broker``. Returns the launches by
+    path."""
+    from tpu_on_k8s_torch.models.params import init_params, keeps_fp32
+    from tpu_on_k8s_torch.models.transformer import TransformerConfig
+
+    t_phase = time.perf_counter()
+    lane_cfg, lane_params = gpt2_small_tree(convert, init_params, dev)
+    cfg = dataclasses.replace(lane_cfg, dtype=torch.bfloat16)
+    bparams = {n: t if keeps_fp32(n) else t.to(torch.bfloat16)
+               for n, t in lane_params.items()}
+    twin_cfg = dataclasses.replace(
+        TransformerConfig.tiny(), max_seq_len=FLEET_MAX_LEN,
+        vocab_size=cfg.vocab_size, dtype=torch.float32)
+    twin = init_params(twin_cfg, torch.Generator().manual_seed(0), "cpu",
+                       dtype=torch.float32)
+
+    t0 = time.perf_counter()
+    cpu = brokered_burst(twin_cfg, twin, "cpu", seed=FLEET_SEED)
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    env = brokered_burst(cfg, bparams, dev, seed=FLEET_SEED,
+                         lane_cfg=lane_cfg, lane_params=lane_params)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    launched_a = read_counts(mods)
+    fresh = sum(e.stats["fresh_prefills"] for e in env["engines"])
+    loops = (("broker", lambda e: e["broker"].decision_log),
+             ("fleet autoscaler", lambda e: e["scaler"].decision_log),
+             ("elastic autoscaler", lambda e: e["op"].autoscaler.decision_log))
+    for name, log_of in loops:
+        mine, twins = list(log_of(env)), list(log_of(cpu))
+        same = "\n".join(mine).encode() == "\n".join(twins).encode()
+        print(f"[broker] (a) {name} decision log {len(mine)} lines, byte-"
+              f"identical to the CPU twin's: {same}")
+        if not same:
+            at = next((i for i, (x, y) in enumerate(zip(mine, twins))
+                       if x != y), min(len(mine), len(twins)))
+            fail(f"phase 16 (a) {name} decision log differs from the CPU "
+                 f"twin's at line {at}: {mine[at:at + 1]} / "
+                 f"{twins[at:at + 1]}")
+    rungs = broker_rungs(env["broker"].decision_log)
+    when = {}
+    for t, held in env["holdings"]:
+        when.setdefault(tuple(sorted(held.items())), t)
+    print(f"[broker] (a) the market of {BROKER_CAPACITY} hosts: rungs "
+          f"(lane, action, reason) {rungs}")
+    print(f"[broker] (a) holdings (virtual s -> serve, train, batch hosts) "
+          f"{[(round(t, 2), dict(h)) for h, t in when.items()]}; "
+          f"before {env['holdings'][0][1]}, after {env['holdings'][-1][1]}")
+    yielded = sorted({env["rids_item"][rid] for *_, rids in env["yields"]
+                      for rid in rids})
+    print(f"[broker] (a) batch lane {env['lane'].snapshot()}: harvests "
+          f"{[(round(t, 2), r, tgt, n) for t, r, tgt, n, _ in env['yields']]}"
+          f"; items yielded then completed {yielded}; coordinator dequeue "
+          f"order {env['order']} (smooth WRR's {env['expected']})")
+    print(f"[broker] (a) serving transitions (virtual s, from, to) "
+          f"{[(round(t, 2), o, n) for t, o, n in env['transitions']]}, "
+          f"refused scale-ups at {[round(t, 2) for t in env['refusals']]}; "
+          f"{len(env['reqs'])} requests {dict(Counter(r.state.value for r in env['results'].values()))}; "
+          f"launches {launched_a} = {cfg.n_layers} x {fresh} fresh prefills "
+          f"on {len(env['engines'])} engines")
+    print(f"[time] {gpu}: phase 16 (a) gpt2_small bf16: {env['steps']} fleet "
+          f"steps in {wall_a:.2f} s, host ms a fleet step median "
+          f"{statistics.median(env['step_ms']):.2f} (max "
+          f"{max(env['step_ms']):.2f}); the CPU twin {cpu_s:.2f} s")
+    if launched_a["flash_fwd"] != cfg.n_layers * fresh or not fresh or any(
+            c for k, c in launched_a.items() if k != "flash_fwd"):
+        fail(f"phase 16 (a) launches {launched_a} for {fresh} fresh "
+             f"prefills")
+    market_gates("phase 16 (a)", env)
+    market_gates("phase 16 (a) CPU twin", cpu)
+    if yielded != sorted({cpu["rids_item"][rid] for *_, rids in cpu["yields"]
+                          for rid in rids}):
+        fail("phase 16 (a): the card and its twin yielded other items")
+    del cpu
+    # the batch items against a solo greedy generate of each prompt (the
+    # lane's fp32 engine: see BROKER_* above)
+    differ = []
+    for iid, (prompt, new) in sorted(env["items"].items()):
+        solo = decode.generate(lane_cfg, lane_params,
+                               torch.from_numpy(prompt)[None], new,
+                               device=dev)
+        got = np.asarray(env["lane_done"][iid][1].tokens)
+        if not np.array_equal(solo.cpu().numpy()[0], got):
+            differ.append(iid)
+    print(f"[broker] (a) batch items equal to a solo greedy generate on "
+          f"the card: {BROKER_LANE_ITEMS - len(differ)} of "
+          f"{BROKER_LANE_ITEMS} (the yielded {yielded} among them); "
+          f"differ {differ}")
+    if differ:
+        fail(f"phase 16 (a): batch items {differ} differ from a solo "
+             f"greedy generate")
+    model = decode.decode_model(cfg, bparams, dev)
+    done = [rid for rid, r in env["results"].items()
+            if r.state.value == "done"]
+    gaps = teacher_forced_gaps(
+        model, [env["reqs"][rid] for rid in done],
+        {j: np.asarray(env["results"][rid].tokens)
+         for j, rid in enumerate(done)}, None, set(), plain_flash,
+        transformer, decode)
+    tau_gate("[broker] (a)", gaps, GPT2_TAU_MULT * diff, diff,
+             mult=GPT2_TAU_MULT, exact_min=GPT2_EXACT_MIN,
+             unit="phase 6 (b)'s")
+    del env, model, gaps
+
+    torch.cuda.synchronize()
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    crash = broker_grant_crash(cfg, bparams, dev, tmp / "flightrec")
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    launched_b = read_counts(mods)
+    fresh = sum(e.stats["fresh_prefills"] for e in crash["engines"])
+    print(f"[broker] (b) broker_grant_under_crash(replica-1) on two "
+          f"gpt2_small replicas: chaos {crash['chaos']}; broker log "
+          f"{[r for r in broker_rungs(crash['broker'].decision_log)]}; "
+          f"ejected {crash['fleet'].stats['ejected']}; requests "
+          f"{ {rid: r.state.value for rid, r in crash['out'].items()} }; "
+          f"flight-recorder dumps {[Path(p).name for p in crash['dumps']]};"
+          f" Chrome trace {len(crash['trace']['traceEvents'])} events, "
+          f"{crash['spans']} complete spans; launches {launched_b} = "
+          f"{cfg.n_layers} x {fresh} fresh prefills; {wall_b:.2f} s")
+    if launched_b["flash_fwd"] != cfg.n_layers * fresh or not fresh:
+        fail(f"phase 16 (b) launches {launched_b} for {fresh} fresh "
+             f"prefills")
+    del crash, bparams, lane_params
+    torch.cuda.empty_cache()
+    launched = {k: launched_a[k] + launched_b[k] for k in launched_a}
+    print(f"[broker] flash launches, path broker: {launched['flash_fwd']}; "
+          f"{gpu}")
+    print(f"[time] phase 16 {time.perf_counter() - t_phase:.1f} s")
+    return {"paths": {"broker": launched}}
 
 
 def main() -> int:
@@ -8070,6 +8839,11 @@ def run(tmp: Path) -> int:
     by_path.update(fleet_autoscale_phase(
         mods, gpu, dev, plain_flash, transformer, decode, convert,
         gpt2["diff"])["paths"])
+
+    # ---- 16. the capacity market over gpt2_small -----------------------
+    by_path.update(broker_phase(
+        mods, gpu, dev, plain_flash, transformer, decode, convert,
+        gpt2["diff"], tmp)["paths"])
     print(f"[time] script {time.perf_counter() - t_start:.0f} s")
 
     gemm = (TRAIN_BATCH * TRAIN_SEQ, 11264, 2048)

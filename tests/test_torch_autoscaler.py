@@ -7,10 +7,8 @@ reference on the CPU.
   (grow to the next legal host count, freeze on a regression, cap at
   ``max_replicas``, revert on pending pods, the watermark over pre-scale
   lines, registration).
-* ``tests/test_autoscaler_over_rest.py``'s flow runs on a ``Manager`` wired
-  by hand (``test_torch_elastic.HandWired``; the reference's case builds
-  ``tpu_on_k8s.main.Operator``, which the port has not yet): the loop
-  scrapes worker-0's log through the pods/log subresource and grows the job
+* ``tests/test_autoscaler_over_rest.py``'s flow runs as a twin on the
+  port's ``Operator`` (``tpu_on_k8s_torch/main.py``): the loop scrapes worker-0's log through the pods/log subresource and grows the job
   from 2 hosts to 4 and 8. Each growth changes the slice's shape, so the
   running workers restart in place through ``ContainerRecreateRequest``s,
   and the twin runs the node agent that executes them beside the kubelet.
@@ -23,7 +21,6 @@ import time
 import torch
 
 from test_torch_api import reference_cases, slice_literals
-from test_torch_elastic import HandWired, operator_flags
 from tpu_on_k8s_torch.api import constants
 from tpu_on_k8s_torch.api.core import Pod, PodPhase
 from tpu_on_k8s_torch.api.types import TaskType, TorchJob
@@ -33,6 +30,7 @@ from tpu_on_k8s_torch.client.nodeagent import NodeAgentLoop
 from tpu_on_k8s_torch.client.rest import RestCluster
 from tpu_on_k8s_torch.client.testing import append_pod_log
 from tpu_on_k8s_torch.controller.torchjob import submit_job
+from tpu_on_k8s_torch.main import Operator, build_parser
 
 # one intra-op thread, so that parallel test workers do not oversubscribe
 # the cores under the suite's timing-sensitive tests
@@ -54,7 +52,7 @@ def test_autoscaler_grows_via_log_scrape_over_rest_with_node_agent():
     place (same uid, elastic-restarts stamped) as the node agent executes
     their CRRs. Every assertion of the reference's case is kept."""
     srv = ApiServer().start()
-    op = HandWired(operator_flags().parse_args(
+    op = Operator(build_parser().parse_args(
         ["--cluster-backend", "rest", "--api-server", srv.url,
          "--no-leader-elect", "--elastic-loop-period-seconds", "0.2",
          "--crr-wait-seconds", "10"]),

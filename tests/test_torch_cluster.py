@@ -8,9 +8,9 @@ The reference's oracles run against the port through
 ``Workqueue``), ``tests/test_utils_parity.py`` (the bounded map, the
 semaphore, kubeconfig resolution) and the four Lease cases of
 ``tests/test_leaderelection.py``. Its fifth case,
-``test_operator_leader_elect_flag_gates_controllers``, drives
-``tpu_on_k8s.main``'s ``Operator`` and waits for the operator entry point's
-slice (ROADMAP Queue 1, 6e).
+``test_operator_leader_elect_flag_gates_controllers``, drives the
+operator's entry point and runs with the entry's other cases in
+``tests/test_torch_main.py``.
 
 A seeded differential applies one sequence of creates, full and status
 updates (stale ones among them), metadata and merge patches, finalizer

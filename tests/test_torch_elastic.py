@@ -13,13 +13,11 @@ the CPU.
   passes as it is and gets a twin that also asserts the in-place restart.
   ``test_same_topology_rescale_restarts_in_place_with_fresh_env`` reads
   ``TPU_WORKER_HOSTNAMES``; its twin reads the torch.distributed env.
-* ``tests/test_elastic_over_rest.py``'s flow runs on a ``Manager`` wired
-  by hand (``HandWired``): the reference's case builds
-  ``tpu_on_k8s.main.Operator``, the operator's entry point, which the port
-  has not yet. Its respec changes the slice's shape (8 → 4 hosts), so the
-  survivors restart in place through ``ContainerRecreateRequest``s, and
-  the twin runs the node agent that executes them beside the kubelet. The
-  other operator-plane test files take ``HandWired`` from here.
+* ``tests/test_elastic_over_rest.py``'s flow runs on the port's
+  ``Operator`` (``tpu_on_k8s_torch/main.py``) as a twin: its respec
+  changes the slice's shape (8 → 4 hosts), so the survivors restart in
+  place through ``ContainerRecreateRequest``s, and the twin runs the node
+  agent that executes them beside the kubelet.
 * The seeded differential of both packages' elastic machinery is in
   ``tests/test_torch_elastic_diff.py``.
 * The elastic story (``tests/test_elastic_story.py``) is in
@@ -27,7 +25,6 @@ the CPU.
 """
 from __future__ import annotations
 
-import argparse
 import functools
 import sys
 
@@ -38,14 +35,11 @@ from tpu_on_k8s_torch.api import constants
 from tpu_on_k8s_torch.api.core import Pod
 from tpu_on_k8s_torch.api.types import TaskType, TorchJob
 from tpu_on_k8s_torch.client import InMemoryCluster
-from tpu_on_k8s_torch.controller.autoscaler import setup_elastic_autoscaler
-from tpu_on_k8s_torch.controller.config import JobControllerConfig
 from tpu_on_k8s_torch.controller.elastic import ElasticController, apply_host_count
-from tpu_on_k8s_torch.controller.failover import CRRRestarter, InMemoryRestarter
-from tpu_on_k8s_torch.controller.modelversion import setup_modelversion_controller
+from tpu_on_k8s_torch.controller.failover import InMemoryRestarter
 from tpu_on_k8s_torch.controller.runtime import Manager
 from tpu_on_k8s_torch.controller.torchjob import setup_torchjob_controller
-from tpu_on_k8s_torch.obs.ledger import DecisionLedger
+from tpu_on_k8s_torch.main import Operator, build_parser
 from tpu_on_k8s_torch.train.checkpoint import CheckpointAgent
 
 # tiny shapes: one intra-op thread, so that parallel test workers do not
@@ -53,73 +47,12 @@ from tpu_on_k8s_torch.train.checkpoint import CheckpointAgent
 torch.set_num_threads(1)
 
 
-# ---- the operator, wired by hand -------------------------------------------
-
-def operator_flags() -> argparse.ArgumentParser:
-    """The flags of the operator's entry point that the reference's REST
-    cases pass, with the reference's defaults."""
-    p = argparse.ArgumentParser()
-    p.add_argument("--cluster-backend", default="auto")
-    p.add_argument("--api-server", default="")
-    p.add_argument("--no-leader-elect", dest="leader_elect",
-                   action="store_false")
-    p.add_argument("--crr-wait-seconds", type=float, default=60.0)
-    p.add_argument("--elastic-loop-period-seconds", type=float, default=30.0)
-    return p
-
-
-class HandWired:
-    """What the operator's entry point wires for 6c's flows, on a
-    ``Manager`` by hand: the TorchJob controller with an
-    ``ElasticController``, ``CRRRestarter`` on a REST cluster and
-    ``InMemoryRestarter`` on an in-memory one (the reference's
-    ``build_restarter``), the elastic autoscaler on one ``DecisionLedger``,
-    and the ModelVersion controller. ``start``/``stop`` or ``run_once``."""
-
-    def __init__(self, args: argparse.Namespace, cluster=None) -> None:
-        self.cluster = cluster if cluster is not None else InMemoryCluster()
-        self.manager = Manager()
-        self.config = JobControllerConfig(
-            elastic_loop_period_seconds=args.elastic_loop_period_seconds)
-        rest = not isinstance(self.cluster, InMemoryCluster)
-        restarter = (CRRRestarter(self.cluster,
-                                  wait_seconds=args.crr_wait_seconds)
-                     if rest else InMemoryRestarter())
-        self.elastic = ElasticController(self.cluster, restarter=restarter)
-        self.engine = setup_torchjob_controller(
-            self.cluster, self.manager, config=self.config,
-            restarter=restarter, elastic_controller=self.elastic)
-        self.ledger = DecisionLedger()
-        self.autoscaler = setup_elastic_autoscaler(
-            self.cluster, config=self.config, ledger=self.ledger)
-        self.modelversion = setup_modelversion_controller(
-            self.cluster, self.manager, config=self.config)
-
-    def run_once(self) -> int:
-        return self.manager.run_until_idle()
-
-    def start(self) -> None:
-        self.manager.start(
-            workers_per_controller=self.config.max_concurrent_reconciles)
-        self.autoscaler.run()
-
-    def stop(self) -> None:
-        self.autoscaler.stop()
-        self.manager.stop()
-        close = getattr(self.cluster, "close", None)
-        if callable(close):
-            close()
-
-
 #: the port's agent over the port's job kind
 TorchJobCheckpointAgent = functools.partial(CheckpointAgent, job_cls=TorchJob)
 
-#: a reference line that imports the operator's entry point or the agent,
-#: resolved in the hand-wired stand-ins here
-HAND_WIRED = (
-    (r"from tpu_on_k8s_torch\.main import Operator, build_parser",
-     "from test_torch_elastic import HandWired as Operator, "
-     "operator_flags as build_parser"),
+#: a reference line that imports the checkpoint agent, resolved in the
+#: port's agent over the port's job kind
+AGENT = (
     (r"from tpu_on_k8s_torch\.train\.checkpoint import CheckpointAgent",
      "from test_torch_elastic import TorchJobCheckpointAgent as "
      "CheckpointAgent"),
@@ -326,7 +259,7 @@ def test_preemption_checkpoint_rescale_over_rest_restarts_in_place():
     from tpu_on_k8s_torch.controller.torchjob import submit_job
 
     srv = ApiServer().start()
-    op = HandWired(operator_flags().parse_args(
+    op = Operator(build_parser().parse_args(
         ["--cluster-backend", "rest", "--api-server", srv.url,
          "--no-leader-elect", "--crr-wait-seconds", "10"]),
         cluster=RestCluster(srv.url))

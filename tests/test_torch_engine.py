@@ -22,10 +22,10 @@ its gang scheduler against the reference on the CPU.
 * Over REST, the operator's flows of ``tests/test_rest_backend.py`` (a job's
   lifecycle, here with its TTL cleanup) and
   ``tests/test_hostnetwork_spot_over_rest.py`` (host ports allocated and
-  released on the DELETED event, spot replicas) run on the port's
-  ``ApiServer`` and ``RestCluster`` with the controller on a ``Manager``
-  wired by hand: the reference's cases build ``tpu_on_k8s.main.Operator``,
-  the operator's entry point, which the port has not yet.
+  released on the DELETED event, spot replicas) run as GPU twins on the
+  port's ``ApiServer`` and ``RestCluster`` with the port's ``Operator``
+  (``tpu_on_k8s_torch/main.py``); the reference's own cases run on it in
+  ``tests/test_torch_main.py``.
 """
 from __future__ import annotations
 
@@ -492,7 +492,7 @@ def test_controllers_agree_on_seeded_jobs(spec):
             assert main["resources"]["requests"][constants.RESOURCE_GPU] == 8
 
 
-# ---- over REST: the reference's operator flows on a Manager wired by hand --------
+# ---- over REST: the reference's operator flows on the port's Operator -----------
 
 def _wait(pred, what, timeout=30):
     deadline = time.monotonic() + timeout
@@ -505,9 +505,11 @@ def _wait(pred, what, timeout=30):
 
 @pytest.fixture()
 def rest_plane():
-    """The port's ApiServer, and the TorchJob controller over a RestCluster
-    on a started Manager (what the operator's entry point wires); yields
-    (server url, engine, a client factory). Everything stops after."""
+    """The port's ApiServer, and the port's ``Operator`` over a RestCluster,
+    started; yields (server url, its TorchJob engine, a client factory).
+    Everything stops after."""
+    from tpu_on_k8s_torch.main import Operator, build_parser
+
     srv = ApiServer().start()
     clients = []
 
@@ -515,13 +517,15 @@ def rest_plane():
         clients.append(RestCluster(srv.url))
         return clients[-1]
 
-    manager = pruntime.Manager()
-    engine = ptorchjob.setup_torchjob_controller(client(), manager)
-    manager.start()
+    op = Operator(build_parser().parse_args(
+        ["--cluster-backend", "rest", "--api-server", srv.url,
+         "--no-leader-elect", "--coordinator-period-seconds", "0.02"]),
+        cluster=client())
+    op.start()
     try:
-        yield srv.url, engine, client
+        yield srv.url, op.engine, client
     finally:
-        manager.stop()
+        op.stop()
         for c in clients:
             c.close()
         srv.stop()

@@ -6,7 +6,8 @@ reference on the CPU.
   ``test_torch_api.reference_cases``: its slices mapped by host count
   (``slice_literals``), its two chip counts doubled (a reference host holds
   4 TPU chips, a port host 8 GPUs) and its ``InvalidTPUPolicy`` read as
-  ``InvalidGPUPolicy``. One case waits (``WAITS``).
+  ``InvalidGPUPolicy``. One case runs on the port's ``Coordinator`` in
+  ``tests/test_torch_coordinator.py`` (``ELSEWHERE``).
 * The largest legal slice, ``64x8`` (64 hosts, 512 GPUs): a master and 63
   workers in one job-wide gang, and 64 workers in a per-role gang, each
   created, bound and admitted onto a node pool by both packages; every
@@ -38,11 +39,11 @@ from tpu_on_k8s_torch.gang import scheduler as pscheduler
 from tpu_on_k8s_torch.gang import topology
 from tpu_on_k8s_torch.utils import serde as pserde
 
-#: the reference's cases that wait for a later slice of the port
-WAITS = {
+#: the reference's cases that run in another file of the port's tests
+ELSEWHERE = {
     "TestSlicePoolCapacity.test_two_queue_wrr_contention_admission_follows_dequeue_order":
-        "builds tpu_on_k8s.coordinator.core.Coordinator, which the port "
-        "gains with the coordinator (ROADMAP Queue 1, 6e)",
+        "builds the coordinator's Coordinator: tests/test_torch_coordinator.py "
+        "runs it beside the coordinator's own cases",
 }
 
 #: the reference's chip counts as GPU counts: 8 hosts x 4 chips are 8 x 8
@@ -54,7 +55,7 @@ CHIP_COUNTS = (
 )
 
 globals().update(reference_cases(
-    "test_gang", skip=tuple(WAITS),
+    "test_gang", skip=tuple(ELSEWHERE),
     subs=(*CHIP_COUNTS, (r'"InvalidTPUPolicy"', '"InvalidGPUPolicy"'),
           slice_literals)))
 
@@ -64,7 +65,7 @@ def test_the_reference_cases_are_collected_here():
     assert {"TestPodGroupShapes", "TestBinding", "TestAdmission",
             "TestRegistry", "TestEngineIntegration",
             "TestSlicePoolCapacity"} <= names
-    for case in WAITS:
+    for case in ELSEWHERE:
         cls, meth = case.split(".")
         assert not hasattr(globals()[cls], meth), case
     assert hasattr(TestSlicePoolCapacity,

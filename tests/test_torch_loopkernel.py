@@ -7,17 +7,15 @@ The reference's test modules run against the port through
 ``test_torch_api.reference_cases``:
 
 * from ``tests/test_ledger.py``: ``TestDecisionLineSerde``,
-  ``TestDecisionLedger`` (but ``test_metrics_feed``, which tests
-  ``LedgerMetrics``, the coordinator's slice), ``TestCooldownGate``,
+  ``TestDecisionLedger`` (``test_metrics_feed`` on the port's
+  ``LedgerMetrics``), ``TestCooldownGate``,
   ``TestLoopKernel``, ``TestElasticLedger`` (the elastic autoscaler's
   decisions through the kernel, on ``tests/test_autoscaler.py``'s
   helpers run against the port) and ``TestFleetAutoscalerLedger`` (the
   serving autoscaler's decisions, commits, chaos triggers, abandoned
   horizons and SLO-page chains through the kernel, on the port's fleet of
-  engines built from the reference fixture's tiny parameters). Until the
-  coordinator's slice ports ``LedgerMetrics``, the ledger's metrics sink
-  in those cases is the reference's class (duck-typed: ``inc`` and
-  ``set_gauge``);
+  engines built from the reference fixture's tiny parameters), the
+  ledger's metrics sink the port's ``LedgerMetrics``;
 * from ``tests/test_autoscale.py``: ``TestPolicy`` (the ``Recommender`` on
   legal host counts of 8-GPU hosts) and ``TestSignals`` but
   ``test_scraper_reads_deltas_only``, which runs with the serving cases in
@@ -26,6 +24,7 @@ The reference's test modules run against the port through
 from __future__ import annotations
 
 import dataclasses
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -45,11 +44,6 @@ from tpu_on_k8s_torch.models import params as pparams
 # the cores under the suite's timing-sensitive tests
 torch.set_num_threads(1)
 
-#: ``LedgerMetrics`` comes with the coordinator's slice: the reference's
-#: class stands in as the ledger's metrics sink until then
-LEDGER_METRICS = (r"from tpu_on_k8s_torch\.metrics\.metrics import "
-                  r"LedgerMetrics",
-                  "from tpu_on_k8s.metrics.metrics import LedgerMetrics")
 #: the reference's chaos package is one module in the port
 SCENARIOS = (r"from tpu_on_k8s_torch\.chaos import scenarios",
              "from tpu_on_k8s_torch import chaos as scenarios")
@@ -65,8 +59,7 @@ _ledger = reference_cases(
     "test_ledger",
     only=("TestDecisionLineSerde", "TestDecisionLedger", "TestCooldownGate",
           "TestLoopKernel", "TestElasticLedger", "TestFleetAutoscalerLedger"),
-    skip=("TestDecisionLedger.test_metrics_feed",),
-    subs=(slice_literals, LEDGER_METRICS, METRICS, SCENARIOS, CHAOS,
+    subs=(slice_literals, METRICS, SCENARIOS, CHAOS,
           CPU_ENGINE, port_module("test_autoscaler")))
 _ledger.pop("tiny")                 # the reference's JAX fixture
 globals().update(_ledger)
@@ -94,8 +87,10 @@ def test_the_reference_cases_are_collected_here():
     assert {"TestDecisionLineSerde", "TestDecisionLedger", "TestCooldownGate",
             "TestLoopKernel", "TestElasticLedger", "TestFleetAutoscalerLedger",
             "TestPolicy", "TestSignals"} <= names
-    assert not hasattr(TestDecisionLedger, "test_metrics_feed")
+    assert hasattr(TestDecisionLedger, "test_metrics_feed")
     assert hasattr(TestDecisionLedger, "test_monotone_seq_and_deterministic_dump")
+    from tpu_on_k8s_torch.metrics import LedgerMetrics
+    assert sys.modules["_port_test_ledger"].LedgerMetrics is LedgerMetrics
 
 
 def test_ledger_dump_is_byte_identical_to_the_reference(tmp_path):

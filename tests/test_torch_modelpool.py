@@ -22,11 +22,14 @@ the ``InferenceService`` CRD plane (per-model SLOs fed through the port's
 kept across a reconcile of the same entries): the reference's function and
 its helpers run against the port as written, its slice literals mapped by
 host count (``test_torch_api.reference_functions``; the reference's module
-imports the coordinator's broker, which the port has not yet).
+imports JAX at its top).
 
-Left out, and why:
-``test_broker_grant_under_replica_crash_keeps_both_domains_typed`` drives
-the coordinator's ``CapacityBroker``, whose port waits for Queue 1 item 6e.
+``test_broker_grant_under_replica_crash_keeps_both_domains_typed`` runs the
+same way: the port's ``CapacityBroker`` with a managed batch lane and a
+fleet of two of the port's engines on the CPU (the reference's tiny m-a
+tree carried across) under the port's ``broker_grant_under_crash``: the
+stale-bid grant rejects the whole lane transition, the crashed replica is
+ejected, the next tick re-clears and every request ends typed.
 """
 import numpy as np
 import pytest
@@ -362,3 +365,43 @@ test_per_model_slo_status_lands_on_crd_and_survives_reconcile = \
              setup_inferenceservice_controller=(
                  setup_inferenceservice_controller)),
         subs=(slice_literals,))[_SLO_CASE]
+
+
+# ------------------------------------- the broker's grant under a replica crash
+from tpu_on_k8s_torch import chaos as pchaos  # noqa: E402
+from tpu_on_k8s_torch.coordinator.broker import (  # noqa: E402
+    KIND_BATCH,
+    PRIORITY_BATCH,
+    Bid,
+    CapacityBroker,
+)
+from tpu_on_k8s_torch.metrics import BrokerMetrics  # noqa: E402
+from tpu_on_k8s_torch.obs.ledger import (  # noqa: E402
+    DecisionLedger,
+    DecisionRecord,
+)
+from tpu_on_k8s_torch.serve import (  # noqa: E402
+    ProbeConfig,
+    RequestState,
+    Router,
+    ServingFleet,
+)
+
+_BROKER_CASE = "test_broker_grant_under_replica_crash_keeps_both_domains_typed"
+test_broker_grant_under_replica_crash_keeps_both_domains_typed = \
+    reference_functions(
+        "test_modelpool", ["_decisions", _BROKER_CASE],
+        dict(pytest=pytest, np=np, FakeClock=FakeClock,
+             DecisionLedger=DecisionLedger, DecisionRecord=DecisionRecord,
+             CapacityBroker=CapacityBroker, BrokerMetrics=BrokerMetrics,
+             Bid=Bid, KIND_BATCH=KIND_BATCH, PRIORITY_BATCH=PRIORITY_BATCH,
+             ServingFleet=ServingFleet, ProbeConfig=ProbeConfig,
+             Router=Router, RequestState=RequestState, scenarios=pchaos),
+        subs=(
+            # the port's fixture is both planes: the case reads the tiny
+            # config and builds the port's engines of the m-a tree
+            (r"(?m)cfg, params = setup$", "cfg = setup.cfg"),
+            (r'return ContinuousBatchingEngine\(cfg, params\["m-a"\], '
+             r'n_slots=2\)',
+             'return setup.port.engine("m-a", n_slots=2)'),
+        ))[_BROKER_CASE]

@@ -7,9 +7,8 @@ against the reference on the CPU.
   the ``dockerfile`` ConfigMap → the build pod → its phase →
   ``Model.status.latest_version_name``, for NFS, local and GCS storage.
 * ``tests/test_modelversion_over_rest.py`` runs as it is over the port's
-  ``ApiServer`` and ``RestCluster``, the controllers on a ``Manager`` wired
-  by hand (``test_torch_elastic.HandWired``; the reference's case builds
-  ``tpu_on_k8s.main.Operator``, which the port has not yet).
+  ``ApiServer`` and ``RestCluster``, the controllers wired by the port's
+  ``Operator`` (``tpu_on_k8s_torch/main.py``).
 * The controller's objects are equal to the reference's under
   ``to_port_wire``, the version label ``model.distributed.torch.io/
   model-version-name`` among them.
@@ -19,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from test_torch_api import reference_cases, slice_literals, to_port_wire
-from test_torch_elastic import HAND_WIRED, port_module
+from test_torch_elastic import AGENT, port_module
 
 # one intra-op thread, so that parallel test workers do not oversubscribe
 # the cores under the suite's timing-sensitive tests
@@ -29,7 +28,7 @@ globals().update(reference_cases("test_modelversion", subs=(slice_literals,)))
 reference_cases("test_elastic", only=(), subs=(slice_literals,))
 globals().update(reference_cases(
     "test_modelversion_over_rest",
-    subs=(slice_literals, *HAND_WIRED, port_module("test_elastic"))))
+    subs=(slice_literals, *AGENT, port_module("test_elastic"))))
 
 
 def test_the_reference_cases_are_collected_here():

@@ -85,7 +85,8 @@ def test_the_scan_sees_the_whole_port():
 
 #: the operator plane's modules (its API, gang topology and scheduler,
 #: feature gates, cluster client, controller runtime, job controller,
-#: storage and utilities)
+#: elasticity and serving control plane, coordinator and capacity broker,
+#: batch lane, trace export, storage, utilities and the entry point)
 OPERATOR_MODULES = tuple(
     f"tpu_on_k8s_torch/{m}.py" for m in (
         "api/__init__", "api/constants", "api/core", "api/crr",
@@ -96,11 +97,17 @@ OPERATOR_MODULES = tuple(
         "controller/dag", "controller/engine", "controller/expectations",
         "controller/failover", "controller/hostnetwork",
         "controller/leaderelection", "controller/runtime",
-        "controller/torchjob", "features/__init__", "features/features",
+        "controller/torchjob", "controller/elastic", "controller/autoscaler",
+        "controller/loopkernel", "controller/modelversion",
+        "controller/inferenceservice", "controller/fleetautoscaler",
+        "coordinator/__init__", "coordinator/types", "coordinator/queue",
+        "coordinator/policy", "coordinator/plugins", "coordinator/core",
+        "coordinator/broker", "serve/batchlane", "obs/export", "main",
+        "features/__init__", "features/features",
         "gang/__init__", "gang/scheduler", "gang/topology",
         "storage/__init__", "storage/providers", "utils/concurrent",
-        "utils/conditions", "utils/flowcontrol", "utils/resources",
-        "utils/serde"))
+        "utils/conditions", "utils/flowcontrol", "utils/logging",
+        "utils/resources", "utils/serde"))
 
 
 def test_copied_modules_import_without_prometheus_client():

@@ -7,14 +7,12 @@
   here in the GPU flavour: typed CRUD, the status subresource, label
   selection across namespaces, finalizer patches and graceful delete,
   owner cascade, watch delivery, pod logs and events, and Lease leader
-  election with fencing over the wire. Three of its cases wait:
-  ``test_full_tpujob_lifecycle_over_rest`` and
-  ``test_build_cluster_backend_selection`` for the operator entry point
-  (ROADMAP Queue 1, 6e; the lifecycle's flow runs in
-  ``tests/test_torch_engine.py`` on a hand-wired ``Manager``) and
-  ``test_aimaster_cli_runs_against_rest`` for the failover slice (6c).
-  ``tests/test_nodeagent_cri.py`` waits for 6c, which ports
-  ``client/cri.py`` and ``client/nodeagent.py``.
+  election with fencing over the wire. Three of its cases run in other
+  files: ``test_full_tpujob_lifecycle_over_rest`` and
+  ``test_build_cluster_backend_selection``, which drive the operator's
+  entry point, in ``tests/test_torch_main.py``, and
+  ``test_aimaster_cli_runs_against_rest`` in
+  ``tests/test_torch_nodeagent.py``.
 * The REST chaos sites (``rest.request``, ``rest.watch.connect``,
   ``rest.watch.event``, ``apiserver.request``, ``apiserver.watch``) surface
   their faults as the reference's ``tests/test_chaos.py`` pins them.

@@ -21,7 +21,8 @@ transitions on a seeded probe sequence, and ``observation_line`` parsed by
 the reference's own ``parse_observation``.
 
 Left out, and why: ``test_serve_load_fleet_mode_smoke`` drives
-``tools/serve_load.py``, whose port waits for Queue 1 item 6.
+``tools/serve_load.py``, whose port waits for the load driver's slice
+(ROADMAP Queue 1).
 """
 from collections import Counter
 

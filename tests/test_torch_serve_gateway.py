@@ -20,7 +20,7 @@ The pure modules get direct cross-checks on seeded inputs:
 ``AdmissionController``'s decisions and ``FairScheduler``'s pop order.
 
 Left out, and why: ``test_serve_load_smoke`` drives ``tools/serve_load.py``,
-whose port waits for Queue 1 item 6 (the coordinator and its load driver).
+whose port waits for the load driver's slice (ROADMAP Queue 1).
 
 JAX engines compile their programs when built, so each is built once per
 module and configuration and restored to its just-built state between

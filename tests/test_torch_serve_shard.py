@@ -21,8 +21,9 @@ run, sampling on ``data``, ``close()``, ``serve --model-axis 2`` on a
 torchrun-style world of 2 (its own spawn) and a world of one rank in this
 process (what the card runs).
 
-Waiting: ``test_sharding_policy_identity_and_normalization`` needs the
-controller's ``decode_variant`` (ROADMAP Queue 1 item 6).
+Elsewhere: ``test_sharding_policy_identity_and_normalization`` tests the
+controller's ``decode_variant`` and runs in
+``tests/test_torch_inferenceservice.py``.
 
 This module imports no JAX at its top: its rank bodies run in spawned
 processes that import it.

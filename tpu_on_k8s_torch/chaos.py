@@ -10,15 +10,17 @@ the job engine's ``PodFail`` and ``SlicePreempt``,
 exceptions, and the
 serving plane's ``ReplicaCrash``, ``ReadinessFlap``, ``RolloutInterrupt``,
 ``HandoffLoss``, ``HandoffCorrupt`` and ``SwapFailure``, and the serving
-autoscaler's ``SignalOutage`` (``faults.py``), the engine's, the plane's,
-the autoscaler's and the training loop's sites, the
+autoscaler's ``SignalOutage`` and the capacity broker's ``StaleBid``
+(``faults.py``), the engine's, the plane's, the autoscaler's, the broker's
+and the training loop's sites, the
 ``FaultInjector`` that evaluates a schedule of ``FaultRule(site, trigger,
 fault)`` (``injector.py``) and the control plane's ``watch_outage``,
 ``apiserver_flaky``, ``slice_preemption`` and ``pod_kill``, and the
 ``engine_crash_mid_decode``,
 ``spec_draft_crash``, ``replica_crash_mid_decode``,
 ``fleet_rollout_chaos``, ``disagg_handoff_chaos``,
-``autoscale_under_crash``, ``model_swap_failure``,
+``autoscale_under_crash``, ``broker_grant_under_crash``,
+``model_swap_failure``,
 ``train_preemption`` and ``live_reshard_abort`` scenarios
 (``scenarios.py``).
 
@@ -85,6 +87,10 @@ SITE_AUTOSCALE_SIGNAL = "autoscale.signal"
 #: ``FleetAutoscaler``'s ``spec.replicas`` patch: ``Conflict``,
 #: ``HttpError``, ``TimeoutFault`` (a failed patch burns no cooldown)
 SITE_AUTOSCALE_PATCH = "autoscale.patch"
+#: ``CapacityBroker``'s lane commit (a grant, harvest, fill or degrade
+#: applied): ``StaleBid``, ``Conflict`` (recovered by re-clearing next
+#: tick: no partial apply, no cooldown burned)
+SITE_BROKER_GRANT = "broker.grant"
 
 
 class ChaosStepError(RuntimeError):
@@ -93,6 +99,11 @@ class ChaosStepError(RuntimeError):
 
 class ChaosReshardError(RuntimeError):
     """An injected live-reshard abort (``ReshardAbort``)."""
+
+
+class StaleBidError(RuntimeError):
+    """An injected stale-bid rejection (``StaleBid``): a consumer's bid no
+    longer matches its live state when the broker applies the grant."""
 
 
 class ChaosSaveError(OSError):
@@ -320,6 +331,19 @@ class SaveFailure(Fault):
 
     def to_exception(self) -> Exception:
         return ChaosSaveError("chaos injected checkpoint-save failure")
+
+
+@dataclasses.dataclass(frozen=True)
+class StaleBid(Fault):
+    """A consumer's bid went stale between clearing and apply (the consumer
+    scaled itself, died, or re-bid concurrently). The broker must reject
+    the WHOLE grant — no partial apply — ledger the conflict, and re-clear
+    from fresh bids next tick; the refused requester burns no cooldown."""
+
+    kind: ClassVar[str] = "stale_bid"
+
+    def to_exception(self) -> Exception:
+        return StaleBidError("chaos injected stale bid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -775,6 +799,33 @@ def autoscale_under_crash(replica: str = "replica-1", *,
                                Conflict(),
                                note="conflict the replicas patch"))
     return Scenario("autoscale-under-crash", tuple(rules), seed)
+
+
+def broker_grant_under_crash(replica: str = "replica-1", *,
+                             grant_at: Tuple[int, ...] = (1,),
+                             crash_at: int = 3, consumer: str = "",
+                             seed: int = 0) -> Scenario:
+    """The market under compound weather: the ``grant_at``-th broker
+    grant applies against a stale bid (``consumer`` narrows it to one
+    lane) WHILE a serving replica dies mid-burst (fleet step
+    ``crash_at`` of ``replica``). Recovery under test: the faulted
+    grant rejects the WHOLE lane transition — no partial apply, the
+    conflict is ledgered, the refused lane burns no cooldown and the
+    market re-clears from fresh bids next tick — while the crashed
+    replica's requests re-route under the replay budget with zero
+    silent loss; neither failure is allowed to mask the other."""
+    match = {"consumer": consumer} if consumer else {}
+    return Scenario("broker-grant-under-crash", (
+        FaultRule(SITE_BROKER_GRANT,
+                  Trigger(at=grant_at, match=match),
+                  StaleBid(),
+                  note=("stale-bid the grant apply"
+                        + (f" of {consumer}" if consumer else ""))),
+        FaultRule(SITE_FLEET_REPLICA,
+                  Trigger(at=(crash_at,), match={"replica": replica}),
+                  ReplicaCrash(),
+                  note=f"crash {replica} mid-burst"),
+    ), seed)
 
 
 def train_preemption(at_step: int, *, fail_save: bool = False,

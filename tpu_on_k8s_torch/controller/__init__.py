@@ -2,7 +2,9 @@
 job engine, the TorchJob reconciler, elasticity and the serving control
 plane.
 
-The part of ``tpu_on_k8s/controller`` ported so far: ``runtime.py``
+The counterpart of ``tpu_on_k8s/controller``, module for module, wired
+together by the operator's entry point (``tpu_on_k8s_torch/main.py``):
+``runtime.py``
 (workqueue, rate limiting, reconcile pump), ``leaderelection.py``,
 ``engine.py`` (the shared ``JobEngine``) with ``config``, ``expectations``,
 ``dag``, ``hostnetwork`` and ``failover``, ``torchjob.py`` (the TorchJob

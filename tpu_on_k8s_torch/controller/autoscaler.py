@@ -362,9 +362,7 @@ class ElasticAutoscaler:
         self.cluster = cluster
         self.config = config or JobControllerConfig()
         self.metrics = metrics
-        # the capacity broker (the reference's
-        # `coordinator/broker.CapacityBroker`; the port's coordinator
-        # has none yet, so it is duck-typed and None in practice):
+        # the capacity broker (`coordinator/broker.CapacityBroker`):
         # set, every grow asks for chips before the rescale (a refusal
         # is ``conflict:BrokerRefused`` — the loop retries next tick)
         # and the job becomes a bidder (``train/<key>``) the broker's
@@ -473,8 +471,6 @@ class ElasticAutoscaler:
         floored at ``elastic_policy.min_replicas`` — the broker's
         rung-3 preemption can shrink the gang down to the floor but
         never below, and never touches a non-elastic job at all."""
-        # the broker's module comes with the coordinator; this runs only
-        # when a broker was passed in
         from tpu_on_k8s_torch.coordinator.broker import (
             KIND_TRAINING, PRIORITY_TRAINING, Bid)
         ns, name = key.split("/", 1)

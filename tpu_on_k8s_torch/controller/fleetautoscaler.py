@@ -32,7 +32,8 @@ runs only after the write lands — so the loop retries at full speed next
 tick instead of sulking through a cooldown it never used.
 
 ``run_once()`` is the deterministic unit tests and soak drive; ``run()``
-wraps it in a thread at ``serving_autoscale_period_seconds`` cadence.
+wraps it in a thread at ``serving_autoscale_period_seconds`` cadence,
+wired in `main.py` beside the elastic autoscaler.
 
 Both the service loop and the per-pool loops ride the shared
 observe→decide→commit kernel (`controller/loopkernel.LoopKernel`): the
@@ -505,8 +506,6 @@ class FleetAutoscaler:
         equal-priority one is harvested first. Unpriced bids keep the
         static 0.0 — broker decisions for all-static configs are
         byte-identical with or without this feature."""
-        # the broker's module comes with the coordinator; this runs only
-        # when a broker was passed in
         from tpu_on_k8s_torch.coordinator.broker import (
             KIND_SERVING, PRIORITY_SERVING, Bid)
         ns, svc_name = key.split("/", 1)

@@ -13,7 +13,11 @@ handoffs and the fleet prefix store, labelled by replica or pool) and
 model), the serving control plane's ``AutoscaleMetrics`` (the fleet
 autoscaler's decisions and signals, labelled by action or service) and
 ``SLOMetrics`` (burn rates, budget states and the goodput ledger,
-labelled by objective, state or tenant), with the training half's
+labelled by objective, state or tenant), the decision ledger's
+``LedgerMetrics`` (decisions by loop and outcome, commit failures, open
+effect horizons) and the capacity broker's ``BrokerMetrics`` (grants,
+refusals, ladder rungs, fills, lane conflicts; free chips and lanes under
+pressure), with the training half's
 ``TrainMetrics`` (the training loop's gauges and counters). Each is
 backed by
 ``prometheus_client`` when it imports and always mirrored in plain dicts,
@@ -692,6 +696,105 @@ class SLOMetrics(_MetricsBase):
         g = self._prom_gauges.get(name)
         if g is not None:
             g.labels(label).set(value)
+
+
+class LedgerMetrics(_MetricsBase):
+    """Decision-ledger telemetry (`obs/ledger.py`, fed by
+    every control loop riding `controller/loopkernel.LoopKernel`): the
+    per-loop decision counter labelled ``<loop>|<outcome>`` (outcome
+    class: ``landed`` / ``conflict`` / ``fallback`` / ``hold`` /
+    ``skip`` — one combined label because the mirror/fallback
+    exposition schema carries at most one label per family, and the
+    loop×outcome product is what an operator actually filters on),
+    commit failures (patches that never landed — the loop retries at
+    full speed, but a climbing rate means writers are fighting), and
+    the ``open_effect_horizons`` gauge — committed decisions whose
+    effect (replicas ready, rollout complete, burn recovered) has not
+    yet been observed; a climbing gauge means the loops are committing
+    changes whose effects never land. Same prometheus + plain-dict
+    mirror pattern as the other classes; mirror dicts key by
+    ``(name, label)`` like ``AutoscaleMetrics``."""
+
+    _LOOP_COUNTERS = ("decisions",)
+    _PLAIN_COUNTERS = ("commit_failures",)
+
+    def __init__(self, registry=None) -> None:
+        super().__init__()
+        self.counters: Dict[Tuple[str, str], int] = defaultdict(int)
+        self.gauges: Dict[Tuple[str, str], float] = {}
+        if _prom is not None:
+            self.registry = registry or _prom.CollectorRegistry()
+        ns = "tpu_on_k8s_ledger"
+        for name in self._LOOP_COUNTERS:
+            self._declare(name, f"{ns}_{name}", "counter",
+                          f"Ledger {name}", labels=("loop_outcome",))
+        for name in self._PLAIN_COUNTERS:
+            self._declare(name, f"{ns}_{name}", "counter",
+                          f"Ledger {name}")
+        self._declare("open_effect_horizons", f"{ns}_open_effect_horizons",
+                      "gauge", "Committed decisions whose effect horizon "
+                      "is still open")
+
+    def inc(self, name: str, n: int = 1, label: str = "") -> None:
+        with self._lock:
+            self.counters[(name, label)] += n
+        c = self._prom_counters.get(name)
+        if c is not None:
+            (c.labels(label) if name in self._LOOP_COUNTERS else c).inc(n)
+
+    def set_gauge(self, name: str, value: float, label: str = "") -> None:
+        with self._lock:
+            self.gauges[(name, label)] = value
+        g = self._prom_gauges.get(name)
+        if g is not None:
+            g.set(value)
+
+
+class BrokerMetrics(_MetricsBase):
+    """Capacity-market telemetry (`coordinator/broker.py`):
+    clearing counters — grants admitted through the ``request_capacity``
+    gate, refusals (pressure opened), degrades (rung 1), harvests /
+    preempts (rungs 2–3), final typed refusals (rung 4), managed-lane
+    fills, expired grants, lane commit conflicts, and crashed clearing
+    ticks — next to the
+    market gauges: free chips after clearing, lanes under pressure, and
+    the configured capacity. One label-free family each: the market is
+    one per operator, and per-lane attribution already lives in the
+    decision ledger's ``broker/<lane>`` loops. Mirror dicts key by
+    ``(name, label)`` like ``AutoscaleMetrics``."""
+
+    _PLAIN_COUNTERS = ("grants", "refusals", "degrades", "harvests",
+                       "preempts", "refuse_final", "fills",
+                       "grant_expired", "lane_conflicts", "tick_errors")
+    _MARKET_GAUGES = ("free_chips", "pressure_lanes", "capacity_chips")
+
+    def __init__(self, registry=None) -> None:
+        super().__init__()
+        self.counters: Dict[Tuple[str, str], int] = defaultdict(int)
+        self.gauges: Dict[Tuple[str, str], float] = {}
+        if _prom is not None:
+            self.registry = registry or _prom.CollectorRegistry()
+        ns = "tpu_on_k8s_broker"
+        for name in self._PLAIN_COUNTERS:
+            self._declare(name, f"{ns}_{name}", "counter",
+                          f"Broker {name}")
+        for name in self._MARKET_GAUGES:
+            self._declare(name, f"{ns}_{name}", "gauge",
+                          f"Broker {name}")
+
+    def inc(self, name: str, n: int = 1, label: str = "") -> None:
+        with self._lock:
+            self.counters[(name, label)] += n
+        c = self._prom_counters.get(name)
+        if c is not None:
+            c.inc(n)
+
+    def set_gauge(self, name: str, value: float, label: str = "") -> None:
+        with self._lock:
+            self.gauges[(name, label)] = value
+        g = self._prom_gauges.get(name)
+        if g is not None:
+            g.set(value)
 
 
 def count_detached_callback(metrics, message: str) -> None:

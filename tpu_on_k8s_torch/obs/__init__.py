@@ -4,11 +4,19 @@ training goodput ledgers; ``slo``: the SLO engine, declarative
 ``SLOSpec`` objectives evaluated over sliding windows into multi-window
 error-budget burn rates and typed ``ok/warn/page/exhausted`` budget
 states; ``ledger``: the decision ledger the control loops record through,
-with ``dumpio``'s deterministic dump files)."""
+with ``dumpio``'s deterministic dump files; ``export``: Chrome
+trace-event / Perfetto rendering and the ``FlightRecorder`` crash ring
+buffer)."""
 from tpu_on_k8s_torch.obs.account import (  # noqa: F401
     ServingAccountant,
     TrainingAccountant,
     goodput_from_spans,
+)
+from tpu_on_k8s_torch.obs.export import (  # noqa: F401
+    FlightRecorder,
+    dump_chrome_trace,
+    load_trace,
+    to_chrome_trace,
 )
 from tpu_on_k8s_torch.obs.ledger import (  # noqa: F401
     LEDGER_FORMAT,
@@ -27,4 +35,13 @@ from tpu_on_k8s_torch.obs.slo import (  # noqa: F401
     SLOSpec,
     SLOStatus,
 )
-from tpu_on_k8s_torch.obs.trace import NOOP, Span, Tracer, ensure  # noqa: F401
+from tpu_on_k8s_torch.obs.trace import (  # noqa: F401
+    NOOP,
+    NOOP_SPAN,
+    STATUS_ERROR,
+    STATUS_OK,
+    TRACE_FORMAT,
+    Span,
+    Tracer,
+    ensure,
+)

@@ -189,9 +189,10 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    stitched losses and the final weights equal the fault-free run's bit
    for bit; 16 launches of each flash kernel a step. The loop's step time
    beside phase 4's bare step, the ``mfu`` gauge, the checkpoint's bytes,
-   the snapshot's stall and a blocking write (on the preempted run's
-   manager, whose saves allocated its buffers) and the restore are
-   printed;
+   the snapshot's stall and one async save's write from its enqueue to
+   its last byte (on the preempted run's manager, whose saves allocated
+   its buffers; a second, blocking save was cut for phase 17) and the
+   restore are printed;
 4d. the remat policies at ``llama2_1b``: one forward and backward each
    under full, mlp, dots and dots_kernels, whose loss and gradients equal
    the no-remat step's bit for bit, with 32, 16, 32 and 16 flash forward
@@ -263,8 +264,9 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    weights made again from their seed) on a world of one rank made by
    ``initialize`` over NCCL, with the serving command channel's gloo group
    (the group destroyed after): (a) phase 3e's first MESH_REQUESTS
-   requests through ``ContinuousBatchingEngine(mesh=serving_mesh(model=
-   1))`` and through the meshless engine, dense and paged: the mesh
+   requests, each cut to at most MESH_NEW new tokens, through
+   ``ContinuousBatchingEngine(mesh=serving_mesh(model=1))`` and through
+   the meshless engine, dense and paged: the mesh
    engine's models hold the parameter tensors themselves, its tokens equal
    the meshless engine's token for token, with the same flash launches
    (one a layer per fresh prefill); decode step ms and peak memory of both
@@ -523,6 +525,31 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    consumer's hosts before and after, the yielded items, the fleet steps
    and host ms a fleet step are printed.
 
+17. The load driver on the card (``phase 17`` is timed):
+   ``tpu_on_k8s_torch.serve_load.main`` called in this process on
+   ``cuda`` with the ``--bench`` flagship (``serve_load.bench_config``:
+   ~350M parameters, 16 layers of 16 heads x 64 over 8 kv heads, flash
+   attention, the int8-forward MLP on the ``torch._int_mm`` route, random
+   bf16 weights from torch seed 0), as the reference's two serving stages
+   run it. (a) The gateway under wall-clock arrivals (LOAD_TTFT_ARGV: 48
+   seeded requests at 1.5 a step into 8 slots, after an off-trace warm-up
+   drawn from the trace's rng): every request served, rejected, expired
+   or cancelled, tokens > 0, TTFT and queue-wait p50 measured, and
+   ``flash_fwd`` launched exactly 16 times a prefill the engine counts
+   (``fresh_prefills``, warm-up included); TTFT and TPOT p50/p95/p99,
+   queue wait and tokens/s printed. (b) The traced disaggregated fleet
+   (LOAD_TRACE_ARGV, its ``--trace-out`` under the run's temporary
+   directory): the monolithic control arm of 3 engines, then 1 prefill
+   and 2 decode engines with a 128-token prefix store; the disaggregated
+   arm accounts for all 48 requests, the port's ``obs/trace_report`` on
+   the dump decomposes or marks every request (``decomposed + no_token``
+   = 48) and names the request, queue, prefill, handoff and decode spans,
+   and ``flash_fwd`` launches on both arms, 16 a fresh prefill. Each TTFT
+   segment's p50/p95 and share and the residual are printed. Greedy tokens
+   are not compared across the arms: bf16 does not keep them across batch
+   shapes (phase 6 (c)); phases 3e-3g hold those engines' tokens. Both
+   runs' flash launches are the path ``load``.
+
 Then one JSON line for the kernels, the card's line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line; so does a machine without CUDA. Imports nothing of JAX.
@@ -656,8 +683,10 @@ PLANE_PREFIX_BUCKET, PLANE_SWAP_BATCH = 16, 4
 # the first requests of 3e's that (c) and (d) serve (module docstring)
 PLANE_CUT = {"disagg_fleet": 8, "modelpool": 12}
 # Phase 9, mesh-sharded serving at world 1: the requests of phase 3e it
-# serves, the one it moves mid-decode in (c) and the steps before the move
-MESH_REQUESTS, MESH_MOVED, MESH_MOVE_STEPS = 8, 2, 6
+# serves, the one it moves mid-decode in (c) and the steps before the move;
+# each request's new tokens are capped at MESH_NEW (cut from 3e's 16-64 to
+# make room for phase 17: every drive is ~16 steps, not ~61)
+MESH_REQUESTS, MESH_MOVED, MESH_MOVE_STEPS, MESH_NEW = 8, 2, 6, 16
 # Phase 3d: the serving plane's CLI forms, each at its defaults
 PLANE_CLI_FLAGS = (("--gateway",), ("--replicas", "2", "--rollout-demo"))
 
@@ -733,6 +762,18 @@ FLEET_SLO_WINDOWS = dict(window_s=60.0, fast_short_s=1.0, fast_long_s=2.0,
 BROKER_CAPACITY, BROKER_TRAIN_HOSTS, BROKER_TRAIN_MIN = 6, 4, 2
 BROKER_LANE_ITEMS, BROKER_LANE_SLOTS, BROKER_LANE_STREAM = 12, 8, 16
 BROKER_CRASH_REQUESTS, BROKER_MAX_STEPS, BROKER_TRAIN_LINES = 4, 2000, 5
+
+# Phase 17, the load driver: the reference chip window's serve_ttft and
+# serve_trace stages, flag for flag (the trace's --trace-out is added)
+LOAD_TTFT_ARGV = ["--bench", "--n-slots", "8", "--n-requests", "48",
+                  "--rate", "1.5"]
+LOAD_TRACE_ARGV = ["--bench", "--disagg", "--n-slots", "4",
+                   "--prefill-replicas", "1", "--decode-replicas", "2",
+                   "--n-requests", "48", "--rate", "1.5", "--burst-rate",
+                   "6.0", "--prefix-bucket", "128", "--shared-prefixes",
+                   "2", "--shared-fraction", "0.8", "--prompt-min", "8",
+                   "--prompt-max", "64"]
+LOAD_SPANS = {"request", "queue", "prefill", "handoff", "decode"}
 
 # Phase 10, the vision models and BERT. (a) ResNet-50 at BASELINE.json's
 # batch (256, then smaller ones if it does not fit), 10 adam steps on one
@@ -3568,7 +3609,8 @@ def train_loop_phase(tcfg, mods, gpu, dev, train_ms, tmp: Path,
 
     # the checkpoint's costs on this state, on (b)'s manager (its buffers
     # allocated): the snapshot's stall on the compute stream, the next step
-    # beside a plain one, a blocking write
+    # beside a plain one, and the write, from the enqueue to its last byte
+    # (one save: a second, blocking one was cut to make room for phase 17)
     tok = torch.from_numpy(batches[0]).to(dev)
 
     def timed_step() -> float:
@@ -3591,9 +3633,6 @@ def train_loop_phase(tcfg, mods, gpu, dev, train_ms, tmp: Path,
     e1.synchronize()
     stall_ms = e0.elapsed_time(e1)
     mgr.wait_until_finished()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    mgr.save(state, step=102, wait=True)
     write_s = time.perf_counter() - t0
     mgr.close()
     shutil.rmtree(ckdir, ignore_errors=True)
@@ -3604,8 +3643,9 @@ def train_loop_phase(tcfg, mods, gpu, dev, train_ms, tmp: Path,
           f"{enqueue_ms:.2f} ms on the host to enqueue, the snapshot's "
           f"stall on the compute stream {stall_ms:.2f} ms, the next step "
           f"{after_save:.2f} ms beside a step without a save "
-          f"{plain_step:.2f} ms (+{after_save - plain_step:.2f}); blocking "
-          f"write {write_s:.2f} s ({nbytes / write_s / 1e9:.3f} GB/s); "
+          f"{plain_step:.2f} ms (+{after_save - plain_step:.2f}), written "
+          f"{write_s:.2f} s after the enqueue "
+          f"({nbytes / write_s / 1e9:.3f} GB/s); "
           f"restore into a fresh TrainState {restore_s:.2f} s "
           f"({nbytes / restore_s / 1e9:.3f} GB/s)")
     del trainer, state, template, ref_final, p0
@@ -4510,7 +4550,8 @@ def mesh_serve_phase(cfg, mods, gpu, dev, plain_a, serving, convert,
     print(f"[mesh-serve] world {dist.get_world_size()} (backend "
           f"{dist.get_backend()}, coordinator {ctx.coordinator_address}): "
           f"serving_mesh(model=1) on {mesh.device_type}")
-    reqs = engine_traffic(cfg.vocab_size)[0][:MESH_REQUESTS]
+    reqs = [(prompt, min(n, MESH_NEW)) for prompt, n in
+            engine_traffic(cfg.vocab_size)[0][:MESH_REQUESTS]]
     shape = dict(n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
                  clock=time.monotonic, device=dev)
 
@@ -4595,16 +4636,18 @@ def mesh_serve_phase(cfg, mods, gpu, dev, plain_a, serving, convert,
           f"all-reduces, one gather and one header: "
           f"{(n_reduce * host_us['all_reduce'] + host_us['all_gather'] + host_us['header']) / 1e3:.2f} ms")
     del engine, tp, x, y
-    dense_3e = all(np.array_equal(runs["dense"]["tokens"][j],
-                                  plain_a["tokens"][j]) for j in range(
-                                      MESH_REQUESTS))
+    dense_3e = all(np.array_equal(
+        runs["dense"]["tokens"][j],
+        plain_a["tokens"][j][:len(runs["dense"]["tokens"][j])])
+        for j in range(MESH_REQUESTS))
     print(f"[mesh-serve] (a) {gpu}: decode step median "
           f"{statistics.median(runs['mesh_dense']['step_ms']):.2f} ms on the "
           f"mesh, {statistics.median(runs['dense']['step_ms']):.2f} ms "
           f"meshless, 3e (a) {statistics.median(plain_a['step_ms']):.2f} ms; "
           f"peak {runs['mesh_dense']['peak_gb']:.2f} GB on the mesh, "
           f"{runs['dense']['peak_gb']:.2f} GB meshless; the meshless tokens "
-          f"equal 3e (a)'s first {MESH_REQUESTS}: {dense_3e}")
+          f"equal the first {MESH_NEW} or fewer of 3e (a)'s first "
+          f"{MESH_REQUESTS}: {dense_3e}")
 
     # ---- (b) the W8A16 tree ----------------------------------------------
     reset_counts(mods)
@@ -7971,6 +8014,158 @@ def broker_phase(mods, gpu, dev, plain_flash, transformer, decode, convert,
     return {"paths": {"broker": launched}}
 
 
+def load_phase(mods, gpu, tmp: Path) -> dict:
+    """Phase 17: the load driver (``serve_load.py``) on the card (module
+    docstring): (a) the gateway under wall-clock arrivals, (b) the traced
+    disaggregated fleet and its control arm, both through
+    ``serve_load.main`` on ``cuda``, each engine and gateway it builds
+    recorded to read their prefill counts and histograms. Returns the
+    launches by path."""
+    import contextlib
+    import io
+
+    from tpu_on_k8s_torch import serve_load
+    from tpu_on_k8s_torch.models import serving
+    from tpu_on_k8s_torch.obs.export import load_trace
+    from tpu_on_k8s_torch.obs.trace_report import SEGMENTS, build_report
+    from tpu_on_k8s_torch.serve import gateway as gateway_mod
+
+    t_phase = time.perf_counter()
+    n_layers = serve_load.bench_config().n_layers
+    engines, gateways, arms = [], [], []
+
+    def recorder(cls, store):
+        init = cls.__init__
+
+        def recorded(self, *args, **kw):
+            init(self, *args, **kw)
+            store.append(self)
+        return mock.patch.object(cls, "__init__", recorded)
+
+    run_disagg = serve_load.run_disagg_trace
+
+    def run_arm(*args, **kw):
+        first = len(engines)
+        out = run_disagg(*args, **kw)
+        arms.append(("disagg" if kw.get("disagg", True) else "control",
+                     engines[first:]))
+        return out
+
+    def drive(argv):
+        engines.clear()
+        gateways.clear()
+        torch.cuda.synchronize()
+        reset_counts(mods)
+        t0 = time.perf_counter()
+        with recorder(serving.ContinuousBatchingEngine, engines), \
+                recorder(gateway_mod.ServingGateway, gateways), \
+                mock.patch.object(serve_load, "run_disagg_trace", run_arm), \
+                contextlib.redirect_stdout(io.StringIO()) as out:
+            summary = serve_load.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if json.loads(out.getvalue().splitlines()[-1]) != json.loads(
+                json.dumps(summary)):
+            fail(f"phase 17: {argv} printed another summary than it "
+                 f"returned")
+        return summary, read_counts(mods), wall
+
+    def pctl(hist, q):
+        return serve_load._pctl(list(hist), q)
+
+    # (a) the gateway under wall-clock arrivals
+    a, launched_a, wall_a = drive(LOAD_TTFT_ARGV)
+    fresh_a = sum(e.stats["fresh_prefills"] for e in engines)
+    hist = gateways[0].metrics.histograms
+    accounted = (a["served"] + a["rejected"] + a["deadline_exceeded"]
+                 + a["cancelled"])
+    print(f"[load] (a) serve_load {' '.join(LOAD_TTFT_ARGV)}: {accounted} "
+          f"of {a['requests']} accounted ({a['served']} served, "
+          f"{a['rejected']} rejected, {a['deadline_exceeded']} expired, "
+          f"{a['cancelled']} cancelled), {a['tokens']} tokens in "
+          f"{a['driver_steps']} driver steps, {a['value']} tokens/s over "
+          f"{a['wall_s']} s; launches {launched_a} = {n_layers} x "
+          f"{fresh_a} fresh prefills (warm-up included) on "
+          f"{len(engines)} engine")
+    print(f"[load] (a) {gpu}: TTFT ms p50 {a['ttft_ms_p50']} p95 "
+          f"{pctl(hist['time_to_first_token_seconds'], 0.95)} p99 "
+          f"{a['ttft_ms_p99']}; TPOT ms p50 {a['tpot_ms_p50']} p95 "
+          f"{pctl(hist['time_per_output_token_seconds'], 0.95)} p99 "
+          f"{a['tpot_ms_p99']}; queue wait ms p50 {a['queue_wait_ms_p50']} "
+          f"p95 {pctl(hist['queue_wait_seconds'], 0.95)} p99 "
+          f"{a['queue_wait_ms_p99']}; phase 17 (a) {wall_a:.2f} s")
+    if accounted != 48 or a["requests"] != 48:
+        fail(f"phase 17 (a): {accounted} of 48 requests accounted for")
+    if not a["tokens"] > 0:
+        fail("phase 17 (a): no tokens")
+    if a["ttft_ms_p50"] is None or a["queue_wait_ms_p50"] is None:
+        fail(f"phase 17 (a): TTFT p50 {a['ttft_ms_p50']}, queue wait p50 "
+             f"{a['queue_wait_ms_p50']}")
+    if len(engines) != 1 or not fresh_a or \
+            launched_a["flash_fwd"] != n_layers * fresh_a:
+        fail(f"phase 17 (a): launches {launched_a} for {fresh_a} fresh "
+             f"prefills on {len(engines)} engines")
+
+    # (b) the traced disaggregated fleet and its monolithic control arm
+    dump = tmp / "load_trace.json"
+    b, launched_b, wall_b = drive(LOAD_TRACE_ARGV + ["--trace-out",
+                                                     str(dump)])
+    report = build_report(load_trace(str(dump)))
+    accounted = (b["served"] + b["rejected"] + b["deadline_exceeded"]
+                 + b["cancelled"] + b["retry_exhausted"])
+    fresh = {arm: [e.stats["fresh_prefills"] for e in engs]
+             for arm, engs in arms}
+    cp = b["ttft_critical_path"]
+    print(f"[load] (b) serve_load {' '.join(LOAD_TRACE_ARGV)} --trace-out: "
+          f"disagg {accounted} of {b['requests']} accounted "
+          f"({b['served']} served), {b['tokens']} tokens in "
+          f"{b['driver_steps']} steps; handoffs {b['handoffs_adopted']} of "
+          f"{b['handoffs_enqueued']} adopted, {b['handoffs_lost']} lost, "
+          f"{b['handoffs_corrupt']} corrupt; prefix store "
+          f"{b['prefix_store']}; decode TPOT cost p50/p95 "
+          f"{b['decode_tpot_cost_p50']}/{b['decode_tpot_cost_p95']} against "
+          f"the control's {b['control']['decode_tpot_cost_p50']}/"
+          f"{b['control']['decode_tpot_cost_p95']}; prefix recompute "
+          f"{b['prefix_prefill_recompute']} against "
+          f"{b['control']['prefix_prefill_recompute']}; per pool "
+          f"{b['per_pool']}")
+    print(f"[load] (b) the trace: {report['spans']} spans "
+          f"{report['span_names']}; {report['requests']} requests, "
+          f"{report['decomposed']} decomposed, {report['no_token']} without "
+          f"a token; fresh prefills by arm and engine {fresh}; launches "
+          f"{launched_b}")
+    print(f"[load] (b) {gpu}: TTFT critical path (virtual ms) p50 "
+          f"{cp['ttft_ms_p50']} p95 {cp['ttft_ms_p95']}; " + "; ".join(
+              f"{n} p50 {cp['segments'][n]['p50_ms']} p95 "
+              f"{cp['segments'][n]['p95_ms']} share "
+              f"{cp['segments'][n]['share']}" for n in SEGMENTS)
+          + f"; residual max {cp['residual_ms_max']} ms; phase 17 (b) "
+          f"{wall_b:.2f} s")
+    if accounted != 48 or b["requests"] != 48:
+        fail(f"phase 17 (b): the disagg arm accounts for {accounted} of 48")
+    if report["decomposed"] + report["no_token"] != 48:
+        fail(f"phase 17 (b): the trace decomposes {report['decomposed']} "
+             f"and marks {report['no_token']} of 48 requests")
+    if not LOAD_SPANS <= set(report["span_names"]):
+        fail(f"phase 17 (b): spans {sorted(report['span_names'])} lack "
+             f"{sorted(LOAD_SPANS - set(report['span_names']))}")
+    if [arm for arm, _ in arms] != ["control", "disagg"] or any(
+            not sum(f) for f in fresh.values()) or \
+            launched_b["flash_fwd"] != n_layers * sum(map(sum,
+                                                          fresh.values())):
+        fail(f"phase 17 (b): launches {launched_b} for fresh prefills "
+             f"{fresh} by arm")
+    engines.clear()
+    gateways.clear()
+    arms.clear()
+    torch.cuda.empty_cache()
+    launched = {k: launched_a[k] + launched_b[k] for k in launched_a}
+    print(f"[load] flash launches, path load: {launched['flash_fwd']} "
+          f"({launched_a['flash_fwd']} + {launched_b['flash_fwd']}); {gpu}")
+    print(f"[time] phase 17 {time.perf_counter() - t_phase:.1f} s")
+    return {"paths": {"load": launched}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -8844,6 +9039,9 @@ def run(tmp: Path) -> int:
     by_path.update(broker_phase(
         mods, gpu, dev, plain_flash, transformer, decode, convert,
         gpt2["diff"], tmp)["paths"])
+
+    # ---- 17. the load driver on the card ---------------------------------
+    by_path.update(load_phase(mods, gpu, tmp)["paths"])
     print(f"[time] script {time.perf_counter() - t_start:.0f} s")
 
     gemm = (TRAIN_BATCH * TRAIN_SEQ, 11264, 2048)

@@ -223,6 +223,16 @@ _SOURCE_RENAMES = [(r"\btpu_on_k8s\.", "tpu_on_k8s_torch."),
                    (r"\btpu_policy\b", "gpu_policy")]
 
 
+#: the load driver and its two report tools as the port names them, for a
+#: reference case that drives ``tools/serve_load.py`` (the port's ``main``
+#: runs on the card unless a case's flags add ``--device cpu``)
+TOOLS = [(r"\bfrom tools import serve_load\b",
+          "from tpu_on_k8s_torch import serve_load"),
+         (r"\btools\.serve_load\b", "tpu_on_k8s_torch.serve_load"),
+         (r"\btools\.trace_report\b", "tpu_on_k8s_torch.obs.trace_report"),
+         (r"\btools\.why_report\b", "tpu_on_k8s_torch.obs.why_report")]
+
+
 def reference_cases(ref: str, *, only=None, skip=(), subs=()) -> dict:
     """The test functions, test classes and fixtures of ``tests/<ref>.py``,
     run against the port: the reference's source with its ``tpu_on_k8s``
@@ -265,18 +275,19 @@ def reference_cases(ref: str, *, only=None, skip=(), subs=()) -> dict:
 
 def reference_functions(ref: str, names, namespace: dict,
                         subs=()) -> dict:
-    """Module-level functions of ``tests/<ref>.py``, each one's source
-    mapped to the port as ``reference_cases`` maps a whole module (line
-    numbers kept, ``subs`` applied), and compiled into ``namespace``, which
-    supplies their module globals. For a reference module whose own
-    imports reach what the port has not yet (a later slice's modules):
-    only the named functions run. Returns ``namespace``."""
+    """Module-level functions (or test classes) of ``tests/<ref>.py``,
+    each one's source mapped to the port as ``reference_cases`` maps a
+    whole module (line numbers kept, ``subs`` applied), and compiled into
+    ``namespace``, which supplies their module globals. For a reference
+    module whose own imports reach what the port has not yet (a later
+    slice's modules): only the named functions run. Returns
+    ``namespace``."""
     import ast
 
     path = TESTS / f"{ref}.py"
     src = path.read_text()
     nodes = {n.name: n for n in ast.parse(src).body
-             if isinstance(n, ast.FunctionDef)}
+             if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
     for name in names:
         node = nodes[name]
         seg = "\n" * (node.lineno - 1) + ast.get_source_segment(src, node)

@@ -12,9 +12,11 @@ reference's ``tools/trace_report.py`` decomposing the port's spans),
 the reference's but ``SimMetrics``, the digital twin's, whose port comes
 with ``sim/`` (ROADMAP Queue 1). Not run here: ``TestGatewaySpans`` (the
 serving plane's spans, held against the JAX plane in the serve test
-files), the docs and ``tools.analyze`` cases (the analyzer scans the
-reference's package) and the ``serve_load`` acceptance, which waits for
-the load driver's slice.
+files) and the docs and ``tools.analyze`` cases (the analyzer scans the
+reference's package). ``TestServeLoadTraceAcceptance`` runs on the port's
+load driver and its ``obs/trace_report`` copy (``test_torch_api.TOOLS``,
+applied to that class alone, so ``TestTraceReport`` keeps the reference's
+tool), with ``--device cpu`` on its flags.
 
 Here too: the same spans through both packages' exporters give the same
 Chrome trace, byte for byte, and the same flight-recorder dump; a
@@ -27,7 +29,7 @@ from __future__ import annotations
 import json
 import re
 
-from test_torch_api import reference_cases
+from test_torch_api import TOOLS, reference_cases
 from test_torch_autoscale import METRICS
 from tpu_on_k8s.obs import export as rexport
 from tpu_on_k8s.obs import trace as rtrace
@@ -43,10 +45,23 @@ def _without_sim(src: str) -> str:
     return re.sub(r"elif isinstance\(m, SimMetrics\):", "elif False:", src)
 
 
+def _load_driver_on_port(src: str) -> str:
+    """``TestServeLoadTraceAcceptance`` (the module's last class) on the
+    port's load driver and report, its flags on the CPU."""
+    at = src.index("class TestServeLoadTraceAcceptance")
+    tail = src[at:]
+    for pattern, repl in TOOLS:
+        tail = re.sub(pattern, repl, tail)
+    tail = tail.replace('flags = ["--disagg",',
+                        'flags = ["--device", "cpu", "--disagg",', 1)
+    return src[:at] + tail
+
+
 globals().update(reference_cases(
     "test_obs", only=("TestTracer", "TestExport", "TestTraceReport",
-                      "TestExposition", "TestOpenMetricsExemplars"),
-    subs=(METRICS, _without_sim)))
+                      "TestExposition", "TestOpenMetricsExemplars",
+                      "TestServeLoadTraceAcceptance"),
+    subs=(METRICS, _without_sim, _load_driver_on_port)))
 
 
 def test_the_reference_cases_are_collected_here():
@@ -54,7 +69,8 @@ def test_the_reference_cases_are_collected_here():
 
     names = set(globals())
     assert {"TestTracer", "TestExport", "TestTraceReport", "TestExposition",
-            "TestOpenMetricsExemplars"} <= names
+            "TestOpenMetricsExemplars",
+            "TestServeLoadTraceAcceptance"} <= names
     classes = sys.modules["_port_test_obs"]._ALL_CLASSES
     from tpu_on_k8s_torch.metrics import BrokerMetrics, LedgerMetrics
     assert LedgerMetrics in classes and BrokerMetrics in classes

@@ -79,8 +79,17 @@ def test_the_scan_sees_the_whole_port():
             "tpu_on_k8s_torch/parallel/ring.py",
             "tpu_on_k8s_torch/parallel/ulysses.py",
             "tpu_on_k8s_torch/parallel/pipeline.py"} <= names
-    # the operator plane's subpackages
+    # the operator plane's subpackages and the load driver's slice
     assert set(OPERATOR_MODULES) <= names
+    assert set(LOAD_MODULES) <= names
+
+
+#: the load driver and what it brought: the seeded traffic, the two
+#: reports it folds into its summaries
+LOAD_MODULES = tuple(
+    f"tpu_on_k8s_torch/{m}.py" for m in (
+        "serve_load", "sim/__init__", "sim/traffic", "obs/trace_report",
+        "obs/why_report"))
 
 
 #: the operator plane's modules (its API, gang topology and scheduler,
@@ -114,10 +123,10 @@ def test_copied_modules_import_without_prometheus_client():
     """The card's machine has no prometheus_client and no PyYAML: the
     metrics module (and the engine and CLI that import it) load without it,
     and the scrape body is ``render_text``'s; every operator-plane module
-    imports with both hidden (kubeconfig reads YAML only when it resolves a
-    file) and initialises no CUDA state."""
+    and load-driver module imports with both hidden (kubeconfig reads YAML
+    only when it resolves a file) and initialises no CUDA state."""
     mods = [m[:-3].replace("/", ".").removesuffix(".__init__")
-            for m in OPERATOR_MODULES]
+            for m in OPERATOR_MODULES + LOAD_MODULES]
     code = (
         "import sys; sys.modules['prometheus_client'] = None\n"
         "sys.modules['yaml'] = None\n"

@@ -20,9 +20,11 @@ bounded-load spill, canary split, noted prefixes), the ``HealthMonitor``'s
 transitions on a seeded probe sequence, and ``observation_line`` parsed by
 the reference's own ``parse_observation``.
 
-Left out, and why: ``test_serve_load_fleet_mode_smoke`` drives
-``tools/serve_load.py``, whose port waits for the load driver's slice
-(ROADMAP Queue 1).
+The reference's ``test_serve_load_fleet_mode_smoke`` (with its ``_factory``,
+``_fleet`` and ``_warm``) runs against the port through
+``test_torch_api.reference_functions`` and ``TOOLS``: the port's
+``serve_load.run_fleet_load`` through a two-replica fleet of the port's
+engines on the carried v1 weights.
 """
 from collections import Counter
 
@@ -723,3 +725,26 @@ def test_health_monitor_transitions_match_on_a_seeded_probe_sequence(setup):
     seen = both(setup, scenario)
     assert {s[:2] for s in seen} >= {(True, False), (False, False),
                                      (False, True)}
+
+
+def test_serve_load_fleet_mode_smoke(setup):
+    """The reference's ``test_serve_load_fleet_mode_smoke`` on the port:
+    the seeded trace through the fleet, zero-silent-loss accounting and the
+    per-replica TTFT and queue-wait breakdown in the summary."""
+    import tpu_on_k8s_torch.serve as pserve
+    from test_torch_api import TOOLS, reference_functions
+    from tpu_on_k8s_torch.models.serving import ContinuousBatchingEngine
+
+    cpu = (r"ContinuousBatchingEngine\(cfg, params, n_slots=n_slots\)",
+           'ContinuousBatchingEngine(cfg, params, n_slots=n_slots, '
+           'device="cpu")')
+    ns = reference_functions(
+        "test_serve_fleet",
+        ["_factory", "_fleet", "_warm", "test_serve_load_fleet_mode_smoke"],
+        {"np": np, "ContinuousBatchingEngine": ContinuousBatchingEngine,
+         "ServingFleet": pserve.ServingFleet,
+         "ProbeConfig": pserve.ProbeConfig, "Router": pserve.Router},
+        subs=(*TOOLS, cpu))
+    ns["test_serve_load_fleet_mode_smoke"]((
+        port_config(setup.cfg), setup.port.trees["v1"],
+        setup.port.trees["v2"]))

@@ -19,8 +19,10 @@ reference.
 The pure modules get direct cross-checks on seeded inputs:
 ``AdmissionController``'s decisions and ``FairScheduler``'s pop order.
 
-Left out, and why: ``test_serve_load_smoke`` drives ``tools/serve_load.py``,
-whose port waits for the load driver's slice (ROADMAP Queue 1).
+The reference's ``test_serve_load_smoke`` (with its ``_gw``) runs against
+the port through ``test_torch_api.reference_functions`` and ``TOOLS``: the
+port's ``serve_load.build_workload`` and ``run_load`` over the port's
+engine on the fixture's carried weights.
 
 JAX engines compile their programs when built, so each is built once per
 module and configuration and restored to its just-built state between
@@ -683,3 +685,24 @@ def test_fair_scheduler_pop_order_matches(setup):
             order.append(sched.pop().rid)
         return order
     both(setup, scenario)
+
+
+def test_serve_load_smoke(setup):
+    """The reference's ``test_serve_load_smoke`` on the port: the seeded
+    trace repeats, every request is accounted for, the summary's shape."""
+    from test_torch_api import TOOLS, reference_functions
+    from tpu_on_k8s_torch.metrics import ServingMetrics
+
+    cpu = (r"ContinuousBatchingEngine\(cfg, params, n_slots=n_slots, "
+           r"\*\*engine_kw\)",
+           'ContinuousBatchingEngine(cfg, params, n_slots=n_slots, '
+           'device="cpu", **engine_kw)')
+    ns = reference_functions(
+        "test_serve_gateway", ["_gw", "test_serve_load_smoke"],
+        {"np": np, "ServingMetrics": ServingMetrics,
+         "AdmissionConfig": pserve.AdmissionConfig,
+         "ServingGateway": pserve.ServingGateway,
+         "ContinuousBatchingEngine": pserving.ContinuousBatchingEngine},
+        subs=(*TOOLS, cpu))
+    ns["test_serve_load_smoke"]((port_config(setup.cfg),
+                                 setup.port.trees["v1"]))

@@ -16,7 +16,8 @@ A ``TransformerConfig.tiny()`` model (fp32, ``max_seq_len`` 64) is
 initialised by the JAX package and carried across with
 ``from_jax_params``; the draft is its first layer (``truncated_draft`` in
 each package). Prompts come from numpy seeds. The JAX engines are built
-once per module.
+once per module. The reference's ``test_serve_load_spec_trace`` runs on
+the port's load driver (``serve_load --spec --trace-out``).
 """
 import dataclasses
 import warnings
@@ -650,3 +651,22 @@ def test_generate_cli_draft_config(capsys, tmp_path):
     with pytest.raises(SystemExit, match="greedy-only"):
         gen_cli.main(["--device", "cpu", "--draft-config", "tiny",
                       "--temperature", "0.5"])
+
+
+def test_serve_load_spec_trace(tmp_path):
+    """The reference's ``test_serve_load_spec_trace`` on the port's load
+    driver and ``obs/trace_report`` copy (``test_torch_api.TOOLS``; its
+    flags with ``--device cpu``, its dump under ``tmp_path``): token
+    identity against the plain arm, the cost-model TPOT win, acceptance 1
+    for the self-draft and the trace's spec attribution."""
+    from test_torch_api import TOOLS, reference_functions
+
+    flags = (r'"--spec", "--n-requests", "10"',
+             '"--device", "cpu", "--spec", "--n-requests", "10"')
+    dump = (r'"/tmp/test_spec_trace\.json"', "SPEC_TRACE")
+    ns = reference_functions(
+        "test_speculative", ["test_serve_load_spec_trace"],
+        {"SPEC_TRACE": str(tmp_path / "test_spec_trace.json")},
+        subs=(*TOOLS, flags, dump))
+    ns["test_serve_load_spec_trace"](None)
+    assert (tmp_path / "test_spec_trace.json").exists()

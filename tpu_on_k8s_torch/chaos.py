@@ -13,8 +13,9 @@ serving plane's ``ReplicaCrash``, ``ReadinessFlap``, ``RolloutInterrupt``,
 autoscaler's ``SignalOutage`` and the capacity broker's ``StaleBid``
 (``faults.py``), the engine's, the plane's, the autoscaler's, the broker's
 and the training loop's sites, the
+the site catalog ``SITE_REGISTRY``, the
 ``FaultInjector`` that evaluates a schedule of ``FaultRule(site, trigger,
-fault)`` (``injector.py``) and the control plane's ``watch_outage``,
+fault)`` with ``last_event_seq`` (``injector.py``) and the control plane's ``watch_outage``,
 ``apiserver_flaky``, ``slice_preemption`` and ``pod_kill``, and the
 ``engine_crash_mid_decode``,
 ``spec_draft_crash``, ``replica_crash_mid_decode``,
@@ -91,6 +92,90 @@ SITE_AUTOSCALE_PATCH = "autoscale.patch"
 #: applied): ``StaleBid``, ``Conflict`` (recovered by re-clearing next
 #: tick: no partial apply, no cooldown burned)
 SITE_BROKER_GRANT = "broker.grant"
+
+#: The site catalog (the reference's ``chaos/faults.py`` table): site ->
+#: (where it fires, the fault class names it takes, the recovery under
+#: test). Every ``SITE_*`` constant has a row.
+SITE_REGISTRY = {
+    SITE_REST_REQUEST: (
+        "`client/rest.py` request path",
+        ("HttpError", "Conflict", "TimeoutFault", "ConnectionResetFault"),
+        "bounded `update_with_retry` / `patch_meta`, typed "
+        "`ConflictRetriesExhausted`"),
+    SITE_REST_WATCH_CONNECT: (
+        "`client/rest.py` watch (re)connect",
+        ("ConnectionResetFault", "HttpError"),
+        "decorrelated-jitter reconnect backoff"),
+    SITE_REST_WATCH_EVENT: (
+        "`client/rest.py` watch frame delivery",
+        ("WatchDrop",),
+        "reconnect + list resync, no missed state"),
+    SITE_APISERVER_REQUEST: (
+        "`client/apiserver.py` server side",
+        ("HttpError", "Conflict", "ConnectionResetFault"),
+        "same client retry ladder, server-originated"),
+    SITE_APISERVER_WATCH: (
+        "`client/apiserver.py` watch stream",
+        ("WatchDrop",),
+        "reconnect + resync"),
+    SITE_RECONCILE: (
+        "`controller/engine.py` reconcile",
+        ("PodFail", "SlicePreempt"),
+        "failover policy: slice-atomic restart / recreate"),
+    SITE_SERVE_STEP: (
+        "`models/serving.py` engine step",
+        ("EngineCrash", "EngineStall"),
+        "gateway `ReplayPolicy` re-admission, zero silent loss"),
+    SITE_SPEC_DRAFT: (
+        "`models/serving.py` speculative round",
+        ("DraftCrash",),
+        "engine degrades to plain decode, counted, token-identical"),
+    SITE_FLEET_REPLICA: (
+        "`serve/fleet.py` replica step",
+        ("ReplicaCrash", "ReadinessFlap"),
+        "ejection + cross-replica replay"),
+    SITE_FLEET_ROLLOUT: (
+        "`serve/fleet.py` rollout FSM",
+        ("RolloutInterrupt",),
+        "rollout resumes / drains clean"),
+    SITE_KV_HANDOFF: (
+        "`serve/disagg.py` prefill→decode transfer",
+        ("HandoffLoss", "HandoffCorrupt"),
+        "checksum reject + replay; token-identical oracle"),
+    SITE_MODEL_SWAP: (
+        "`serve/modelpool.py` params-tree replace",
+        ("SwapFailure",),
+        "previous params stay live; swap counted and retried, "
+        "zero silent request loss"),
+    SITE_TRAIN_STEP: (
+        "`train/loop.py` dispatched step",
+        ("StepFailure",),
+        "surfaced failure; checkpoint-resume trajectory"),
+    SITE_TRAIN_SAVE: (
+        "`train/loop.py` async save",
+        ("SaveFailure",),
+        "survivable: counted, next cadence save retries"),
+    SITE_TRAIN_PREEMPT: (
+        "`train/loop.py` loop head",
+        ("PreemptNotice",),
+        "final save + drain, bit-exact resume"),
+    SITE_RESHARD: (
+        "`parallel/reshard.py` transfer-plan execution",
+        ("ReshardAbort",),
+        "fallback to checkpoint-restart, zero state corruption"),
+    SITE_AUTOSCALE_SIGNAL: (
+        "`controller/fleetautoscaler.py` scrape",
+        ("SignalOutage",),
+        'staleness hold — never "no data" as "zero load"'),
+    SITE_AUTOSCALE_PATCH: (
+        "`controller/fleetautoscaler.py` patch",
+        ("Conflict", "HttpError"),
+        "failed patch burns no cooldown"),
+    SITE_BROKER_GRANT: (
+        "`coordinator/broker.py` grant apply",
+        ("StaleBid", "Conflict"),
+        "re-clear next tick; no partial apply, no cooldown burned"),
+}
 
 
 class ChaosStepError(RuntimeError):
@@ -546,6 +631,14 @@ class FaultInjector:
             return rng.random() < trigger.prob
         return False
 
+    @property
+    def last_seq(self) -> int:
+        """Sequence id of the newest logged injection (0 when nothing
+        fired yet): a high-water mark for inspection; a caller joining one
+        injection uses ``fire_seq``."""
+        with self._lock:
+            return len(self.events)
+
     def counts(self) -> Dict[str, Tuple[int, int]]:
         """{``site#index``: (seen, fired)}."""
         with self._lock:
@@ -608,6 +701,14 @@ def fire_seq(site: str, **ctx) -> Tuple[Optional[Fault], int]:
     if inj is None:
         return None, 0
     return inj.fire_seq(site, **ctx)
+
+
+def last_event_seq() -> int:
+    """Sequence id of the active injector's newest event (0 with no
+    injector, or nothing fired): a high-water mark; ``fire_seq`` joins
+    one injection."""
+    inj = _active
+    return 0 if inj is None else inj.last_seq
 
 
 @dataclasses.dataclass(frozen=True)

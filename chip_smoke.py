@@ -549,6 +549,25 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    are not compared across the arms: bf16 does not keep them across batch
    shapes (phase 6 (c)); phases 3e-3g hold those engines' tokens. Both
    runs' flash launches are the path ``load``.
+18. The digital twin priced by the card (``phase 18`` is timed): (a) phase
+   15's replica engine (gpt2_small bf16, 8 slots x 1024 positions, on
+   ``cuda``) measured three ways, each sample ended by a synchronize:
+   three replica starts (the weights from the host to the card, the
+   engine's set-up and its first step: what the cost model's
+   ``compile_s`` prices, though the port compiles nothing), every engine
+   step at full occupancy 8 (at least 32), and single-request prefills
+   at 8 prompt lengths from 16 to 1000 (max_new_tokens 1, twice each after
+   a warm pass); ``flash_fwd`` launched 12 times a fresh prefill, the path
+   ``twin``. (b) The samples written as one measurement document (with
+   the card's name and power limit) under the run's temporary directory
+   and fitted by ``python -m tpu_on_k8s_torch.sim.calibrate DOC --strict``:
+   exit 0, ``step_s``, ``prefill_cost`` and ``compile_s`` all fitted, the
+   calibration document round-trips; printed beside the defaults. (c) The
+   ``smoke`` preset on the fitted costs through the port's ``run_twin``,
+   twice: the four artifacts byte-identical, the summary's accounting
+   closed, ``fuzz_run.report_gate`` passing; the summary, the oracle's
+   verdict kinds, the ``SimMetrics`` exposition and the speedup (virtual
+   over wall, run A's ``time.perf_counter``) printed, the story not gated.
 
 Then one JSON line for the kernels, the card's line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -774,6 +793,24 @@ LOAD_TRACE_ARGV = ["--bench", "--disagg", "--n-slots", "4",
                    "2", "--shared-fraction", "0.8", "--prompt-min", "8",
                    "--prompt-max", "64"]
 LOAD_SPANS = {"request", "queue", "prefill", "handoff", "decode"}
+
+# Phase 18, the digital twin priced by the card: phase 15's replica engine
+# (gpt2_small bf16, FLEET_SLOTS slots x FLEET_MAX_LEN) measured three ways
+# and fitted by sim/calibrate. TWIN_STARTS replica starts (the weights from
+# the host to the card, the engine's set-up and its first step, one
+# TWIN_DECODE_PROMPT-token request: what the cost model's compile_s prices;
+# the port compiles nothing at start); FLEET_SLOTS requests of
+# TWIN_DECODE_PROMPT tokens and TWIN_DECODE_NEW new, every engine step at
+# full occupancy timed (at least TWIN_MIN_STEPS of them); single-request
+# admissions (max_new_tokens 1: the request retires at admission, so the
+# step is its prefill) at TWIN_PREFILL_LENS, TWIN_PREFILL_REPS each after
+# one unrecorded pass. Token ids from numpy seed TWIN_SEED. The fitted
+# costs price TWIN_SCENARIO's replicas.
+TWIN_STARTS, TWIN_DECODE_PROMPT, TWIN_DECODE_NEW = 3, 96, 48
+TWIN_MIN_STEPS, TWIN_PREFILL_REPS, TWIN_SEED = 32, 2, 18
+TWIN_PREFILL_LENS = (16, 64, 128, 256, 384, 512, 768, 1000)
+TWIN_SCENARIO = "smoke"
+TWIN_FITTED = ["step_s", "prefill_cost", "compile_s"]
 
 # Phase 10, the vision models and BERT. (a) ResNet-50 at BASELINE.json's
 # batch (256, then smaller ones if it does not fit), 10 adam steps on one
@@ -8166,6 +8203,194 @@ def load_phase(mods, gpu, tmp: Path) -> dict:
     return {"paths": {"load": launched}}
 
 
+def twin_measure(cfg, host_params, device, *, slots=FLEET_SLOTS,
+                 max_len=FLEET_MAX_LEN, starts=TWIN_STARTS,
+                 decode_prompt=TWIN_DECODE_PROMPT, decode_new=TWIN_DECODE_NEW,
+                 min_steps=TWIN_MIN_STEPS, prefill_lens=TWIN_PREFILL_LENS,
+                 reps=TWIN_PREFILL_REPS, seed=TWIN_SEED) -> dict:
+    """Phase 18 (a): the samples the cost model's constants are fitted
+    from, each ended by a synchronize on a card (module constants): replica
+    starts from ``host_params`` (a tree on the host), decode steps at full
+    occupancy, single-request prefills. Returns them in the shape
+    ``sim/calibrate`` reads, with the engines' fresh prefills."""
+    from tpu_on_k8s_torch.models.serving import ContinuousBatchingEngine
+
+    rng = np.random.default_rng(seed)
+
+    def prompt(n):
+        return rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    engines, compiles = [], []
+    for _ in range(starts):
+        sync()
+        t0 = time.perf_counter()
+        params = {n: t.to(device) for n, t in host_params.items()}
+        eng = ContinuousBatchingEngine(cfg, params, n_slots=slots,
+                                       max_len=max_len, device=device)
+        eng.submit(prompt(decode_prompt), 1)
+        eng.step()
+        sync()
+        compiles.append(time.perf_counter() - t0)
+        engines.append(eng)
+    # decode: one step admits every slot; then each step at occupancy
+    # ``slots`` (counted before it runs) is a sample
+    for _ in range(slots):
+        eng.submit(prompt(decode_prompt), decode_new)
+    eng.step()
+    steps = []
+    while sum(s is not None for s in eng._slots) == slots:
+        sync()
+        t0 = time.perf_counter()
+        eng.step()
+        sync()
+        steps.append(time.perf_counter() - t0)
+    eng.run()
+    if len(steps) < min_steps:
+        fail(f"phase 18 (a): {len(steps)} decode steps at occupancy "
+             f"{slots}, fewer than {min_steps}")
+    prefills = []
+    for rep in range(reps + 1):
+        for n in prefill_lens:
+            sync()
+            t0 = time.perf_counter()
+            eng.submit(prompt(n), 1)
+            eng.step()
+            sync()
+            if rep:                 # the first pass warms every bucket
+                prefills.append([n, time.perf_counter() - t0])
+    fresh = sum(e.stats["fresh_prefills"] for e in engines)
+    del engines, eng, params
+    return {"decode_steps": steps, "compiles": compiles,
+            "prefills": prefills, "fresh_prefills": fresh}
+
+
+def twin_priced(doc: Path, tmp: Path, scenario_name=TWIN_SCENARIO) -> dict:
+    """Phase 18 (b) and (c), device-free: ``sim/calibrate``'s CLI fits
+    ``doc`` (``--strict``), its document round-trips, and the preset runs
+    twice through the port's twin on the fitted costs, run A with
+    ``time.perf_counter`` as its wall clock. Gates: all three constants
+    fitted, the four artifacts byte-identical, the summary's accounting
+    closed (``tests/test_sim.py``'s), the fuzz driver's report gate passing
+    (``why_report`` and ``slo_report`` only on a run that paged, as the
+    reference's gate). The oracle's verdict and the story are read, not
+    gated: a card faster than the defaults may never page."""
+    import contextlib
+    import io
+
+    from tpu_on_k8s_torch import fuzz_run, metrics
+    from tpu_on_k8s_torch.sim import calibrate, scenario, twin
+    from tpu_on_k8s_torch.sim.fuzz import OracleConfig, judge_run
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = calibrate.main([str(doc), "--strict"])
+    if rc != 0:
+        fail(f"phase 18 (b): calibrate --strict exited {rc}")
+    cal = calibrate.calibration_from_doc(json.loads(out.getvalue()))
+    if cal.fitted != TWIN_FITTED:
+        fail(f"phase 18 (b): fitted {cal.fitted}, not {TWIN_FITTED}")
+    if calibrate.calibration_from_doc(cal.to_doc()) != cal:
+        fail("phase 18 (b): the calibration does not round-trip its doc")
+    base = scenario.preset(scenario_name)
+    sc = dataclasses.replace(base, cost=cal.cost_model(base.cost))
+    dir_a, dir_b = tmp / "twin_a", tmp / "twin_b"
+    run_a = twin.DigitalTwin(sc, wall_clock=time.perf_counter)
+    summary = run_a.run()
+    run_a.write(str(dir_a))
+    twin.run_twin(sc, str(dir_b))
+    artifacts = (twin.TRACE_FILE, twin.LEDGER_FILE, twin.SLO_FILE,
+                 twin.SUMMARY_FILE)
+    differ = [f for f in artifacts
+              if (dir_a / f).read_bytes() != (dir_b / f).read_bytes()]
+    if differ:
+        fail(f"phase 18 (c): {differ} differ between two runs")
+    if not (summary["served"] == summary["requests"] > 1000
+            and summary["rejected"] == 0 and summary["spans_dropped"] == 0):
+        fail(f"phase 18 (c): accounting {summary['requests']} requests, "
+             f"{summary['served']} served, {summary['rejected']} rejected, "
+             f"{summary['spans_dropped']} spans dropped")
+    gates = fuzz_run.report_gate(str(dir_a), summary["pages"])
+    if any(rc for _, rc in gates):
+        fail(f"phase 18 (c): report gate {gates}")
+    verdict = judge_run(run_a, None, OracleConfig())
+    return {"cal": cal, "base": base.cost, "summary": summary,
+            "perf": run_a.perf, "gates": gates, "verdict": verdict,
+            "exposition": metrics.exposition(run_a.sim_metrics)}
+
+
+def twin_phase(mods, gpu, dev, convert, tmp: Path) -> dict:
+    """Phase 18: the digital twin priced by the card (module docstring).
+    (a) ``twin_measure`` on phase 15's gpt2_small replica engine, its flash
+    launches the path ``twin``: 12 a fresh prefill; (b) the samples
+    written as one measurement document with the card's name and power
+    limit, fitted by ``sim/calibrate``; (c) ``twin_priced``. Returns the
+    launches by path."""
+    from tpu_on_k8s_torch.models.params import init_params, keeps_fp32
+
+    t_phase = time.perf_counter()
+    hcfg, params = gpt2_small_tree(convert, init_params, dev)
+    cfg = dataclasses.replace(hcfg, dtype=torch.bfloat16)
+    host = {n: (t if keeps_fp32(n) else t.to(torch.bfloat16)).cpu()
+            for n, t in params.items()}
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    m = twin_measure(cfg, host, dev)
+    torch.cuda.synchronize()
+    measure_s = time.perf_counter() - t0
+    launched = read_counts(mods)
+    torch.cuda.empty_cache()
+    fresh = m.pop("fresh_prefills")
+    steps_ms = [1e3 * x for x in m["decode_steps"]]
+    print(f"[twin] (a) gpt2_small bf16, {FLEET_SLOTS} slots x "
+          f"{FLEET_MAX_LEN}: replica starts (weights host -> card, engine "
+          f"set-up, first step; the port compiles nothing at start) "
+          f"{[round(x, 4) for x in m['compiles']]} s; {len(steps_ms)} "
+          f"decode steps at occupancy {FLEET_SLOTS}: median "
+          f"{statistics.median(steps_ms):.3f} ms (min {min(steps_ms):.3f}, "
+          f"max {max(steps_ms):.3f}); prefills (prompt, ms) "
+          f"{[(n, round(1e3 * s, 3)) for n, s in m['prefills']]}; "
+          f"{measure_s:.1f} s; {gpu}")
+    if (launched["flash_fwd"] != cfg.n_layers * fresh or not fresh
+            or any(c for k, c in launched.items() if k != "flash_fwd")):
+        fail(f"phase 18 (a) launches {launched} for {fresh} fresh prefills")
+    print(f"[twin] (d) flash launches, path twin: {launched['flash_fwd']} = "
+          f"{cfg.n_layers} x {fresh} fresh prefills")
+    name, _, limit = gpu.partition(", ")
+    doc = tmp / "twin_measurements.json"
+    doc.write_text(json.dumps({
+        "card": name, "power_limit": limit,
+        "engine": f"gpt2_small bf16, {FLEET_SLOTS} slots x {FLEET_MAX_LEN}",
+        "twin_engine": m}, indent=1))
+    res = twin_priced(doc, tmp)
+    cal, base, s = res["cal"], res["base"], res["summary"]
+    print(f"[twin] (b) fitted from the card ({gpu}): step_s {cal.step_s} "
+          f"(default {base.step_s}), prefill_cost {cal.prefill_cost} "
+          f"(default {base.prefill_cost}), compile_s {cal.compile_s} "
+          f"(default {base.compile_s}); from {cal.n_steps} steps, "
+          f"{cal.n_prefills} prefill fits, {cal.n_compiles} starts")
+    print(f"[twin] (c) {TWIN_SCENARIO} on the card's costs, twice, 4 "
+          f"artifacts byte-identical: requests {s['requests']}, served "
+          f"{s['served']}, rejected {s['rejected']}, pages {s['pages']}, "
+          f"budget transitions {s['budget_transitions']}, scale_ups "
+          f"{s['scale_ups']}, scale_downs {s['scale_downs']}, preemptions "
+          f"{s['preemptions']}, final replicas {s['final_replicas']}, train "
+          f"workers {s.get('train_final_workers')}; report gate "
+          f"{res['gates']}; oracle kinds {list(res['verdict'].kinds)}; "
+          f"virtual {s['virtual_s']} s in {res['perf']['wall_s']} s wall, "
+          f"speedup {res['perf']['speedup']}x")
+    for line in res["exposition"].splitlines():
+        if line.startswith("tpu_on_k8s_sim_") and "_created" not in line:
+            print(f"[twin] (c) {line}")
+    print(f"[time] phase 18 {time.perf_counter() - t_phase:.1f} s")
+    return {"paths": {"twin": launched}}
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -9042,6 +9267,9 @@ def run(tmp: Path) -> int:
 
     # ---- 17. the load driver on the card ---------------------------------
     by_path.update(load_phase(mods, gpu, tmp)["paths"])
+
+    # ---- 18. the digital twin priced by the card -------------------------
+    by_path.update(twin_phase(mods, gpu, dev, convert, tmp)["paths"])
     print(f"[time] script {time.perf_counter() - t_start:.0f} s")
 
     gemm = (TRAIN_BATCH * TRAIN_SEQ, 11264, 2048)

@@ -223,14 +223,21 @@ _SOURCE_RENAMES = [(r"\btpu_on_k8s\.", "tpu_on_k8s_torch."),
                    (r"\btpu_policy\b", "gpu_policy")]
 
 
-#: the load driver and its two report tools as the port names them, for a
-#: reference case that drives ``tools/serve_load.py`` (the port's ``main``
-#: runs on the card unless a case's flags add ``--device cpu``)
+#: the load driver, the fuzz driver and the three report tools as the port
+#: names them, for a reference case that drives ``tools/serve_load.py``
+#: (the port's ``main`` runs on the card unless a case's flags add
+#: ``--device cpu``), ``tools/fuzz_run.py`` or the reports over a twin's
+#: dumps
 TOOLS = [(r"\bfrom tools import serve_load\b",
           "from tpu_on_k8s_torch import serve_load"),
+         (r"\bfrom tools import slo_report, trace_report, why_report\b",
+          "from tpu_on_k8s_torch.obs import slo_report, trace_report, "
+          "why_report"),
          (r"\btools\.serve_load\b", "tpu_on_k8s_torch.serve_load"),
          (r"\btools\.trace_report\b", "tpu_on_k8s_torch.obs.trace_report"),
-         (r"\btools\.why_report\b", "tpu_on_k8s_torch.obs.why_report")]
+         (r"\btools\.why_report\b", "tpu_on_k8s_torch.obs.why_report"),
+         (r"\btools\.slo_report\b", "tpu_on_k8s_torch.obs.slo_report"),
+         (r"\btools\.fuzz_run\b", "tpu_on_k8s_torch.fuzz_run")]
 
 
 def reference_cases(ref: str, *, only=None, skip=(), subs=()) -> dict:

@@ -8,12 +8,11 @@ The reference's ``tests/test_obs.py`` runs against the port through
 dump round trip, the Chrome trace's shape, the flight recorder's bounded
 ring and its sequence-numbered dumps), ``TestTraceReport`` (the
 reference's ``tools/trace_report.py`` decomposing the port's spans),
-``TestExposition`` and ``TestOpenMetricsExemplars``. Their class list is
-the reference's but ``SimMetrics``, the digital twin's, whose port comes
-with ``sim/`` (ROADMAP Queue 1). Not run here: ``TestGatewaySpans`` (the
-serving plane's spans, held against the JAX plane in the serve test
-files) and the docs and ``tools.analyze`` cases (the analyzer scans the
-reference's package). ``TestServeLoadTraceAcceptance`` runs on the port's
+``TestExposition`` and ``TestOpenMetricsExemplars``, over the reference's
+whole class list (the digital twin's ``SimMetrics`` among them). Not run
+here: ``TestGatewaySpans`` (the serving plane's spans, held against the
+JAX plane in the serve test files) and the docs and ``tools.analyze``
+cases (the analyzer scans the reference's package). ``TestServeLoadTraceAcceptance`` runs on the port's
 load driver and its ``obs/trace_report`` copy (``test_torch_api.TOOLS``,
 applied to that class alone, so ``TestTraceReport`` keeps the reference's
 tool), with ``--device cpu`` on its flags.
@@ -37,14 +36,6 @@ from tpu_on_k8s_torch.obs import export as pexport
 from tpu_on_k8s_torch.obs import trace as ptrace
 
 
-def _without_sim(src: str) -> str:
-    """The reference module with ``SimMetrics`` taken out of its imports,
-    its class list and ``_populate``, line for line."""
-    src = src.replace("    SimMetrics,\n", "\n", 1)
-    src = src.replace("LedgerMetrics, SimMetrics,", "LedgerMetrics,", 1)
-    return re.sub(r"elif isinstance\(m, SimMetrics\):", "elif False:", src)
-
-
 def _load_driver_on_port(src: str) -> str:
     """``TestServeLoadTraceAcceptance`` (the module's last class) on the
     port's load driver and report, its flags on the CPU."""
@@ -61,7 +52,7 @@ globals().update(reference_cases(
     "test_obs", only=("TestTracer", "TestExport", "TestTraceReport",
                       "TestExposition", "TestOpenMetricsExemplars",
                       "TestServeLoadTraceAcceptance"),
-    subs=(METRICS, _without_sim, _load_driver_on_port)))
+    subs=(METRICS, _load_driver_on_port)))
 
 
 def test_the_reference_cases_are_collected_here():
@@ -72,9 +63,11 @@ def test_the_reference_cases_are_collected_here():
             "TestOpenMetricsExemplars",
             "TestServeLoadTraceAcceptance"} <= names
     classes = sys.modules["_port_test_obs"]._ALL_CLASSES
-    from tpu_on_k8s_torch.metrics import BrokerMetrics, LedgerMetrics
+    from tpu_on_k8s_torch.metrics import (BrokerMetrics, LedgerMetrics,
+                                          SimMetrics)
     assert LedgerMetrics in classes and BrokerMetrics in classes
-    assert len(classes) == 13
+    assert SimMetrics in classes
+    assert len(classes) == 14
 
 
 class _Clock:

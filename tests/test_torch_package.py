@@ -79,9 +79,11 @@ def test_the_scan_sees_the_whole_port():
             "tpu_on_k8s_torch/parallel/ring.py",
             "tpu_on_k8s_torch/parallel/ulysses.py",
             "tpu_on_k8s_torch/parallel/pipeline.py"} <= names
-    # the operator plane's subpackages and the load driver's slice
+    # the operator plane's subpackages, the load driver's slice and the
+    # digital twin's
     assert set(OPERATOR_MODULES) <= names
     assert set(LOAD_MODULES) <= names
+    assert set(SIM_MODULES) <= names
 
 
 #: the load driver and what it brought: the seeded traffic, the two
@@ -90,6 +92,17 @@ LOAD_MODULES = tuple(
     f"tpu_on_k8s_torch/{m}.py" for m in (
         "serve_load", "sim/__init__", "sim/traffic", "obs/trace_report",
         "obs/why_report"))
+
+
+#: the digital twin, its calibration and fuzzer, the SLO report and the
+#: drivers that run them
+SIM_MODULES = tuple(
+    f"tpu_on_k8s_torch/{m}.py" for m in (
+        "sim/clock", "sim/devices", "sim/scenario", "sim/calibrate",
+        "sim/twin", "sim/fuzz/__init__", "sim/fuzz/oracle", "sim/fuzz/mutate",
+        "sim/fuzz/shrink", "sim/fuzz/corpus", "sim/fuzz/search",
+        "obs/slo_report", "twin_soak", "broker_soak", "multimodel_soak",
+        "fuzz_run"))
 
 
 #: the operator plane's modules (its API, gang topology and scheduler,
@@ -119,14 +132,120 @@ OPERATOR_MODULES = tuple(
         "utils/resources", "utils/serde"))
 
 
+
+# ---- the twin's determinism gate -------------------------------------------
+# The rules of the reference's analyzer pass (``tools/analyze/passes/
+# determinism.py``), which scans the reference's package only, over the
+# port's ``sim/``: every artifact of the twin and the fuzzer is a pure
+# function of the scenario, so nothing there reads a wall clock or draws
+# ambient entropy, and directory listings are sorted.
+
+_WALL_CLOCK = {"time.time", "time.monotonic", "time.perf_counter",
+               "time.time_ns", "time.monotonic_ns", "time.perf_counter_ns"}
+_RANDOM_DRAWS = {"random", "randint", "randrange", "choice", "choices",
+                 "shuffle", "sample", "uniform", "gauss", "betavariate",
+                 "expovariate", "getrandbits", "randbytes", "triangular",
+                 "normalvariate", "vonmisesvariate"}
+_NP_RANDOM_OK = {"default_rng", "RandomState", "Generator", "SeedSequence",
+                 "PCG64", "Philox"}
+_LISTINGS = {"os.listdir", "os.scandir", "glob.glob", "glob.iglob"}
+
+
+def _dotted(node):
+    parts = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if isinstance(node, ast.Name):
+        return ".".join([node.id, *reversed(parts)])
+    return None
+
+
+def determinism_findings(src: str) -> list:
+    """``(line, what)`` for each wall-clock read, ambient draw, unsorted
+    listing or set iteration in ``src``."""
+    tree = ast.parse(src)
+    parents = {c: p for p in ast.walk(tree) for c in ast.iter_child_nodes(p)}
+
+    def sorted_wrapped(node):
+        parent = parents.get(node)
+        while isinstance(parent, ast.Call) and node in parent.args:
+            name = _dotted(parent.func)
+            if name == "sorted":
+                return True
+            if name not in ("list", "tuple"):
+                return False
+            node, parent = parent, parents.get(parent)
+        return False
+
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module in (
+                "time", "random", "secrets", "uuid"):
+            out.append((node.lineno, f"from {node.module} import"))
+        if isinstance(node, ast.For) and (
+                isinstance(node.iter, (ast.Set, ast.SetComp))
+                or (isinstance(node.iter, ast.Call) and _dotted(
+                    node.iter.func) in ("set", "frozenset"))):
+            out.append((node.lineno, "set iteration"))
+        if not isinstance(node, ast.Call):
+            continue
+        name = _dotted(node.func) or ""
+        root, leaf = name.split(".")[0], name.rsplit(".", 1)[-1]
+        parts = name.split(".")
+        if (name in _WALL_CLOCK
+                or (root in ("datetime", "date")
+                    and leaf in ("now", "utcnow", "today"))
+                or name in ("uuid.uuid1", "uuid.uuid4", "os.urandom")
+                or root == "secrets"
+                or (root == "random" and len(parts) > 1
+                    and (leaf in _RANDOM_DRAWS
+                         or (leaf == "Random" and not node.args
+                             and not node.keywords)))
+                or (root in ("np", "numpy") and len(parts) >= 3
+                    and parts[1] == "random" and leaf not in _NP_RANDOM_OK)
+                or ((name in _LISTINGS or (isinstance(node.func, ast.Attribute)
+                                           and node.func.attr == "iterdir"))
+                    and not sorted_wrapped(node))):
+            out.append((node.lineno, name))
+    return out
+
+
+SIM_FILES = sorted((REPO / "tpu_on_k8s_torch" / "sim").rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", SIM_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_sim_reads_no_wall_clock_and_no_ambient_entropy(path):
+    assert determinism_findings(path.read_text()) == []
+
+
+@pytest.mark.parametrize("planted", [
+    "import time\nt = time.perf_counter()",
+    "import datetime\nd = datetime.datetime.now()",
+    "import random\nx = random.random()",
+    "import random\nr = random.Random()",
+    "import numpy as np\nx = np.random.rand(3)",
+    "import os\nnames = os.listdir('.')",
+    "for x in {1, 2}:\n    pass",
+    "import uuid\nu = uuid.uuid4()",
+    "from time import monotonic"])
+def test_the_determinism_gate_catches_a_planted_read(planted):
+    assert determinism_findings(planted)
+    assert not determinism_findings(
+        "import random\nimport os\nimport numpy as np\n"
+        "r = random.Random(7)\ng = np.random.default_rng(3)\n"
+        "names = sorted(os.listdir('.'))")
+
+
 def test_copied_modules_import_without_prometheus_client():
     """The card's machine has no prometheus_client and no PyYAML: the
     metrics module (and the engine and CLI that import it) load without it,
     and the scrape body is ``render_text``'s; every operator-plane module
-    and load-driver module imports with both hidden (kubeconfig reads YAML
+    load-driver and twin module imports with both hidden (kubeconfig reads YAML
     only when it resolves a file) and initialises no CUDA state."""
     mods = [m[:-3].replace("/", ".").removesuffix(".__init__")
-            for m in OPERATOR_MODULES + LOAD_MODULES]
+            for m in OPERATOR_MODULES + LOAD_MODULES + SIM_MODULES]
     code = (
         "import sys; sys.modules['prometheus_client'] = None\n"
         "sys.modules['yaml'] = None\n"

@@ -17,7 +17,10 @@ labelled by objective, state or tenant), the decision ledger's
 ``LedgerMetrics`` (decisions by loop and outcome, commit failures, open
 effect horizons) and the capacity broker's ``BrokerMetrics`` (grants,
 refusals, ladder rungs, fills, lane conflicts; free chips and lanes under
-pressure), with the training half's
+pressure), the digital twin's ``SimMetrics`` (events, requests, virtual
+seconds and the speedup over the wall clock) and the scenario fuzzer's
+``FuzzMetrics`` (evaluations, failures, de-duplications, corpus entries),
+with the training half's
 ``TrainMetrics`` (the training loop's gauges and counters). Each is
 backed by
 ``prometheus_client`` when it imports and always mirrored in plain dicts,
@@ -795,6 +798,48 @@ class BrokerMetrics(_MetricsBase):
         g = self._prom_gauges.get(name)
         if g is not None:
             g.set(value)
+
+
+class SimMetrics(_MetricsBase):
+    """Digital-twin observability (``sim/twin.py``): how much virtual time
+    the event loop covered, how many events and requests it processed,
+    and — when the driver injects a wall clock (``twin_soak`` passes
+    ``time.perf_counter``; the twin itself never reads wall time) — the
+    wall seconds spent and the ``speedup`` gauge (virtual/wall). Same
+    prometheus + plain-dict mirror pattern as the other classes."""
+
+    def __init__(self, registry=None) -> None:
+        super().__init__()
+        if _prom is not None:
+            self.registry = registry or _prom.CollectorRegistry()
+        ns = "tpu_on_k8s_sim"
+        for name in ("events_processed", "requests_simulated"):
+            self._declare(name, f"{ns}_{name}", "counter",
+                          f"Digital twin {name}")
+        for name in ("virtual_seconds_simulated", "wall_seconds",
+                     "speedup"):
+            self._declare(name, f"{ns}_{name}", "gauge",
+                          f"Digital twin {name}")
+
+
+class FuzzMetrics(_MetricsBase):
+    """Scenario-fuzz campaign telemetry (``sim/fuzz/``): twin evaluations
+    spent (exploration + shrink combined count here; ``shrink_evals``
+    separates the minimization share), failures the oracle confirmed,
+    failures de-duplicated away as repeats of an already-recorded (base,
+    kind-set) signature, and corpus entries emitted. All counters: a
+    campaign is a batch run, the interesting rates are per-campaign
+    deltas, and the driver prints the totals."""
+
+    def __init__(self, registry=None) -> None:
+        super().__init__()
+        if _prom is not None:
+            self.registry = registry or _prom.CollectorRegistry()
+        ns = "tpu_on_k8s_fuzz"
+        for name in ("evals", "failures_found", "dedup_skipped",
+                     "shrink_evals", "corpus_entries"):
+            self._declare(name, f"{ns}_{name}", "counter",
+                          f"Scenario fuzzer {name}")
 
 
 def count_detached_callback(metrics, message: str) -> None:

@@ -148,8 +148,9 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    replayed); (d) ``ModelPool`` over one engine with v1 and v2, the
    requests alternating between the two lanes, 4 admissions a turn, under
    ``model_swap_failure(at_swap=2)`` (the refused swap leaves v1 live and
-   is retried). (c) serves the first 8 of 3e's requests and (d) the
-   first 12 (PLANE_CUT; cut from all 24 to make room for phase 16): 3f
+   is retried). (b) serves the first 16 of 3e's requests (cut from 24 to
+   make room for phase 19), (c) the first 8 and (d) the first 12
+   (PLANE_CUT; cut from all 24 to make room for phase 16): 3f
    already hands off every one of the 24 through the same seal, verify
    and adoption, 8 still take (c)'s lost and corrupted handoffs and a
    prefix-store hit, and 12 still take (d)'s three swaps with the refused
@@ -250,9 +251,10 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    phase 4's; (c) its state through one asynchronous collective DCP save
    (the host's stall and the write's time; a second, blocking save of the
    same 10.6 GB was cut to make room for phase 15), restored onto the
-   unsharded layout and back onto the mesh, every tensor bit-equal and the
-   next step's loss and norm equal, bytes and save / restore times
-   printed; (d) ``TrainLoop`` with a ``ReshardNotice`` before step 5 (the
+   unsharded layout, every tensor bit-equal, and the next step from it
+   equal to the live mesh's in loss and norm (its restore back onto the
+   mesh was cut to make room for phase 19), bytes and save / restore
+   times printed; (d) ``TrainLoop`` with a ``ReshardNotice`` before step 5 (the
    flagship rules to model-only rules on the same mesh: n_moved and
    bytes_moved printed, 0 at world 1), the losses equal (a)'s; (b) every
    int8 flag on the mesh, 113 ``int8_matmul`` a step, phase 4b's losses
@@ -306,7 +308,8 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    ``train_resnet --tiny`` at their defaults (50 steps, cuda), in process,
    finite; (c) BERT-base (attn xla, adamw) at 32 x 128, 6 steps: step ms,
    tokens/s and peak, step 0's loss within 1.0 of ln(30522); then
-   ``train_bert`` at its defaults; (d) BERT-base with attn flash and a
+   ``train_bert`` at its defaults but ``--steps 10`` (BERT_CLI_STEPS);
+   (d) BERT-base with attn flash and a
    padding mask, 8 x 512, each row's real length from numpy seed 6 in
    64-512: the real-position logits within ``LOGITS_NOISE_MULT`` of the
    xla bf16 model's distance from the fp32 model; one step's gradients,
@@ -349,9 +352,9 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    on a world-1 NCCL mesh ``MeshConfig(seq=1)`` with ``attn_impl`` xla,
    ring, ulysses and flash, 2 steps each on phase 4's batch: ring and
    ulysses (a ring of one is the plain attention) equal xla bit for bit,
-   flash 16 launches of each kernel a step; then ``python -m
-   tpu_on_k8s_torch.train_llama --config tiny --attn ring --seq-axis 1
-   --steps 3``; (d) ``gpipe`` over ``stage_mesh(1, 1)`` with llama2_1b's 16
+   flash 16 launches of each kernel a step; then ``train_llama.main``
+   with ``--config tiny --attn ring --seq-axis 1 --steps 3`` in the
+   process (its own process until phase 19, ~19 s); (d) ``gpipe`` over ``stage_mesh(1, 1)`` with llama2_1b's 16
    blocks (flash) stacked through ``torch.func.functional_call`` on 2 x
    2048 in 2 microbatches: the output within ``TOL`` of the sequential
    blocks' largest, each stacked leaf's gradient (and the input's) within
@@ -568,6 +571,41 @@ PyTorch built for CUDA. Phases, each reporting on lines of its own:
    closed, ``fuzz_run.report_gate`` passing; the summary, the oracle's
    verdict kinds, the ``SimMetrics`` exposition and the speedup (virtual
    over wall, run A's ``time.perf_counter``) printed, the story not gated.
+19. The drivers of the reference's ``tools/`` on the card (``phase 19`` is
+   timed): (a) ``chaos_soak.run_all(1234)`` twice, its serve stage on
+   gpt2_small (12 layers, d_model 768, vocab 50257) in fp32 with
+   ``max_seq_len`` 64, torch seed 1, on ``cuda``: ``replaced`` 4, ``done``
+   6, ``retry_exhausted_storm`` 2, ``steps`` 14, every DONE request's
+   tokens equal to ``generate``'s (``oracle_exact=6``), the two event logs
+   identical; a third run on the CPU at ``tiny`` without the operator stage
+   (it touches no device) gives the card's serve and train lines but the
+   train line's ``losses_crc`` (printed, with whether they agree); path
+   ``chaos``. (b) ``reshard_soak.main(["--repeat", "2", "--ledger-out",
+   ...])`` exits 0 with the reference's figures (``events_crc``
+   ``23b9ae46``, both arms' pause and goodput, the wins); no world left,
+   and then an NCCL world of one lays out and reduces a ``DTensor``;
+   ``--bench`` on ``cuda`` with one card raises. (c) ``attn_micro`` at its
+   default shape, its lines beside the card's name and power limit; the
+   flash forward and its gradients on its inputs within phase 2's
+   tolerances of the plain twins; path ``attn_micro``. (d)
+   ``perf_sweep.run_variant`` on the runbook's control variant and on the
+   same with ``i8impl=pallas``, SWEEP_STEPS timed steps each: finite rows,
+   step ms, tok/s and MFU of 989 TFLOP/s printed, ``int8_matmul`` 3 a
+   layer a step in the second and none in the first; path ``sweep``. (e)
+   ``step_breakdown`` at ``int8=1 nu=bf16``, BREAKDOWN_STEPS calls a part:
+   the four parts and their sum beside the full step; path ``breakdown``.
+   (f) ``longcontext_proof.card_part`` (4 layers at d 1024, batch 2, L 4096
+   and 4000): finite losses, step ms, tokens/s, the step's peak over the
+   held bytes beside the naive score matrix, the ragged ratio; path
+   ``longcontext``; then the three flash kernels at B 2, H 16 (k/v at 16
+   and at 8 heads), D 64, L 4096 and 4000 against their plain twins within
+   phase 2's tolerances and bit for bit on a second launch, and timed at
+   the training path's heads beside SDPA and the bound (the ``kernels``
+   line's ``longcontext`` rows). (g) ``driver_bench``: ResNet-50 at 256 for
+   3 steps, ``bench_decode`` 8 x 128 -> 32, ``bench_continuous`` 16
+   requests of 32 tokens (all served), ``bench_speculative`` 27 tokens
+   self-drafted, ``bench_submit_to_first_step`` 5 jobs (5 samples); each
+   JSON printed with the card's line; path ``driver_bench``.
 
 Then one JSON line for the kernels, the card's line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -666,12 +704,21 @@ DISAGG_MIGRATED, DISAGG_ANCESTOR, HANDOFF_BYTES_PER_POSITION = 4, 256, 131072
 # Phase 3g, speculative decoding on phase 3e's weights and traffic: proposals
 # a round, the depth of the truncated draft, the requests of 3e it serves
 # (the first 12 of 24: 4 carry the prefix, 460 of 924 new tokens; cut from
-# 24 to keep the script in its time limit), the requests the W8A16 target
-# serves, and the batch-1 request of speculative_generate (prompt, new; 16
-# new tokens, cut from 64 to make room for phase 15: its four
+# 24 to keep the script in its time limit; the first 8 leave the control's
+# exact share above EXACT_MIN, so 3g keeps 12), the requests the W8A16
+# target serves, and the batch-1 request of speculative_generate (prompt,
+# new; 16 new tokens, cut from 64 to make room for phase 15: its four
 # speculative_generate calls and two plain generate calls took ~22 s).
 SPEC_K, SPEC_DRAFT_LAYERS, SPEC_REQUESTS, SPEC_W8_REQUESTS = 4, 4, 12, 4
 SPEC_B1_PROMPT, SPEC_B1_NEW = 512, 16
+# The plain twins' times (phases 5, 5b, 6 (f), 10 (d), 11 (e), 19 (f)): a
+# CUDA graph of PLAIN_ITERS calls, median of PLAIN_REPS (the kernels' 20 and
+# 7 until phase 19; phase 5b's three plain twins alone took ~7.8 s so)
+PLAIN_ITERS, PLAIN_REPS = 5, 3
+# Phases 3, 3b and 6 (b): the 64-token generate is timed as the median of
+# GEN64_REPS calls after a warm-up (5 before phase 19; a llama2_7b call
+# takes ~2.7-3.0 s)
+GEN64_REPS = 3
 # Phase 3h, the int8 KV cache on phase 3e's weights and traffic: the
 # requests of 3e it serves, the one it hands off (prompt 981: bucket 1024,
 # not a prefix carrier) and that handoff's bytes, 1024 positions x 32
@@ -700,7 +747,7 @@ PLANE_TENANTS = {"tenant-0": 1.0, "tenant-1": 2.0, "tenant-2": 4.0}
 PLANE_CRASH_STEP, PLANE_DEADLINE_S = 5, 0.6
 PLANE_PREFIX_BUCKET, PLANE_SWAP_BATCH = 16, 4
 # the first requests of 3e's that (c) and (d) serve (module docstring)
-PLANE_CUT = {"disagg_fleet": 8, "modelpool": 12}
+PLANE_CUT = {"fleet": 16, "disagg_fleet": 8, "modelpool": 12}
 # Phase 9, mesh-sharded serving at world 1: the requests of phase 3e it
 # serves, the one it moves mid-decode in (c) and the steps before the move;
 # each request's new tokens are capped at MESH_NEW (cut from 3e's 16-64 to
@@ -825,6 +872,8 @@ RESNET_SEED, RESNET_BATCHES, VISION_STEPS = 11, (256, 192, 128, 64), 10
 RESNET_GATE_TOL = 1e-3
 V5E_IMAGES_S = 2513.5
 BERT_SEED, BERT_LEN_SEED, BERT_STEPS = 12, 6, 6
+# (c)'s train_bert CLI steps (its default 50, ~7 s, until phase 19)
+BERT_CLI_STEPS = 10
 BERT_XLA_SHAPE, BERT_FLASH_SHAPE = (32, 128), (8, 512)
 
 # Phase 11, sequence and pipeline parallelism on one card. (a) the ring at
@@ -1005,6 +1054,12 @@ def time_ms(fn, iters: int = 20, reps: int = 7, stream=None) -> float:
         times.append(start.elapsed_time(end) / iters)
     del graph
     return statistics.median(times)
+
+
+def plain_time_ms(fn) -> float:
+    """``time_ms`` for a kernel's plain twin: a CUDA graph of PLAIN_ITERS
+    calls, median of PLAIN_REPS (a plain twin takes 10-100x its kernel)."""
+    return time_ms(fn, iters=PLAIN_ITERS, reps=PLAIN_REPS)
 
 
 def event_ms(fn, iters: int = 10, reps: int = 5) -> float:
@@ -1401,7 +1456,8 @@ def serve_w8(cfg, params, prompt4, prefill_logits, mods, convert, decode):
              "than bf16 rounding explains")
     del lw8, lbf16, ldeq, l32
     prefill_ms = wall_ms(lambda: decode.generate(wcfg, wparams, prompt4, 1))
-    gen64_ms = wall_ms(lambda: decode.generate(wcfg, wparams, prompt4, 64))
+    gen64_ms = wall_ms(lambda: decode.generate(wcfg, wparams, prompt4, 64),
+                       GEN64_REPS)
     return {"counts": path, "prefill_ms": prefill_ms, "gen64_ms": gen64_ms,
             "decode_ms": (gen64_ms - prefill_ms) / 63, "rel": rel,
             "ratio": noise_w8 / noise_bf16, "noise": noise_w8,
@@ -3264,11 +3320,11 @@ def serve_plane(cfg, params, mods, plain_flash, diff, plain_a, serving,
     served["gateway"], paths["gateway"] = plane_gateway(
         cfg, params, traffic, mods, serving, plane, chaos_mod, metrics_mod,
         dev, plain_a)
-    served["fleet"], paths["fleet"] = plane_fleet(
-        cfg, params, v2, traffic, mods, serving, plane, chaos_mod,
-        metrics_mod, dev)
     cut = {path: (reqs[:n], prefix, {j for j in carriers if j < n})
            for path, n in PLANE_CUT.items()}
+    served["fleet"], paths["fleet"] = plane_fleet(
+        cfg, params, v2, cut["fleet"], mods, serving, plane, chaos_mod,
+        metrics_mod, dev)
     served["disagg_fleet"], paths["disagg_fleet"] = plane_disagg(
         cfg, params, cut["disagg_fleet"], mods, serving, plane, chaos_mod,
         metrics_mod, dev)
@@ -3916,7 +3972,8 @@ def gpt2_phase(mods, gpu, dev, tmp: Path, plain_flash, fa, transformer,
              "fp32 model than bf16 rounding explains")
     del logits_k, logits_p, logits_32
     prefill_ms = wall_ms(lambda: decode.generate(cfg, bparams, prompt, 1))
-    gen64_ms = wall_ms(lambda: decode.generate(cfg, bparams, prompt, 64))
+    gen64_ms = wall_ms(lambda: decode.generate(cfg, bparams, prompt, 64),
+                       GEN64_REPS)
     print(f"[time] {gpu}: generate gpt2_small bf16 batch 4 x prompt 512: "
           f"prefill (+1 token) {prefill_ms:.2f} ms, 64 tokens "
           f"{gen64_ms:.2f} ms, per-token decode "
@@ -4226,7 +4283,8 @@ def gpt2_phase(mods, gpu, dev, tmp: Path, plain_flash, fa, transformer,
     d64["flash_fwd"] = [dict(
         shape=f"B={bb} H={h} L={lp} D={d} bf16 causal (gpt2 prefill)",
         ms=time_ms(lambda: fa.flash_with_lse_fwd(q, k, v, True)),
-        plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, True)),
+        plain_ms=plain_time_ms(
+            lambda: fa.flash_attention_plain(q, k, v, True)),
         library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True)),
         **dict(zip(("bound_ms", "bound_by"),
                    flash_bound_ms(bb, h, h, lp, d, True))))]
@@ -4239,23 +4297,24 @@ def gpt2_phase(mods, gpu, dev, tmp: Path, plain_flash, fa, transformer,
     shape = f"B={bt} H={h} L={lt} D={d} bf16 causal (gpt2 training)"
     d64["flash_fwd"].append(dict(
         shape=shape, ms=time_ms(lambda: fa.flash_with_lse_fwd(q, k, v, True)),
-        plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, True)),
+        plain_ms=plain_time_ms(
+            lambda: fa.flash_attention_plain(q, k, v, True)),
         library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True)),
         **dict(zip(("bound_ms", "bound_by"),
                    flash_bound_ms(bt, h, h, lt, d, True)))))
     d64["flash_bwd_dq"] = [dict(
         shape=shape,
         ms=time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True)),
-        plain_ms=time_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse,
-                                                       delta, True)),
+        plain_ms=plain_time_ms(lambda: fa.flash_bwd_dq_plain(
+            q, k, v, do, lse, delta, True)),
         library_ms=sdpa_bwd,
         **dict(zip(("bound_ms", "bound_by"),
                    dq_bound_ms(bt, h, h, lt, d, True))))]
     d64["flash_bwd_dkv"] = [dict(
         shape=shape,
         ms=time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)),
-        plain_ms=time_ms(lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse,
-                                                        delta, True)),
+        plain_ms=plain_time_ms(lambda: fa.flash_bwd_dkv_plain(
+            q, k, v, do, lse, delta, True)),
         library_ms=sdpa_bwd,
         **dict(zip(("bound_ms", "bound_by"),
                    dkv_bound_ms(bt, h, h, lt, d, True))))]
@@ -4298,8 +4357,8 @@ def mesh_phase(tcfg, i8cfg, mods, gpu, dev, tokens, p4: dict,
     over the one card, 8 steps on phase 4's batch, loss and grad norm
     against phase 4's unsharded run (predicted bit for bit), 16 launches of
     each flash kernel a step; (c) its state saved through the collective
-    DCP path, restored onto the unsharded layout and back onto the mesh,
-    every tensor bit-equal, and the next step's loss equal on both; (d) a
+    DCP path and restored onto the unsharded layout, every tensor
+    bit-equal, and the next step from it equal to the live mesh's; (d) a
     ``ReshardNotice`` through ``TrainLoop`` before step 5, from the
     flagship rules to model-only rules on the same mesh, the trajectory
     equal to (a)'s; (b) every int8 flag on the mesh, 113 ``int8_matmul``
@@ -4402,7 +4461,7 @@ def mesh_phase(tcfg, i8cfg, mods, gpu, dev, tokens, p4: dict,
           f"{p4['ms']:.1f} ms); peak memory {peak_gb:.2f} GB (phase 4 "
           f"{p4['peak_gb']:.2f} GB)")
 
-    # ---- (c) the collective DCP path: mesh -> unsharded -> mesh ---------
+    # ---- (c) the collective DCP path: mesh -> unsharded ------------------
     mgr = CheckpointManager(str(tmp / "mesh_ckpt"), max_to_keep=1)
     saved = {k: (v.full_tensor() if hasattr(v, "full_tensor") else v)
              for k, v in state.state_dict().items()}
@@ -4421,20 +4480,10 @@ def mesh_phase(tcfg, i8cfg, mods, gpu, dev, tokens, p4: dict,
     restore_plain_s = time.perf_counter() - t0
     same_plain = [k for k, v in plain.state_dict().items()
                   if torch.equal(v, saved[k])]
-    t0 = time.perf_counter()
-    back, _, _ = mgr.restore(plain, mesh=mesh, rules=rules)
-    torch.cuda.synchronize()
-    restore_mesh_s = time.perf_counter() - t0
-    del plain
-    gc.collect()
-    torch.cuda.empty_cache()
-    same_mesh = [k for k, v in back.state_dict().items()
-                 if torch.equal(v.full_tensor()
-                                if hasattr(v, "full_tensor") else v,
-                                saved[k])]
-    back_trainer = Trainer(back.model, back.optimizer, rules=rules,
-                           mesh=mesh)
-    next_back = train(back_trainer, back, 1)
+    # the next step from the restored unsharded state, against the live
+    # mesh's: (a) holds the two layouts' trajectories equal bit for bit
+    back_trainer = Trainer(plain.model, plain.optimizer)
+    next_back = train(back_trainer, plain, 1)
     next_live = train(trainer, state, 1)
     print(f"[mesh] (c) {gpu}: the mesh TrainState, {nbytes:,} B, through "
           f"the collective DCP path (the manager's gloo group): async save "
@@ -4443,16 +4492,14 @@ def mesh_phase(tcfg, i8cfg, mods, gpu, dev, tokens, p4: dict,
           f"save: its buffers allocated in it); "
           f"restore onto the unsharded layout {restore_plain_s:.2f} s "
           f"(step {at}; {len(same_plain)} of {len(saved)} tensors "
-          f"bit-equal) and back onto the mesh {restore_mesh_s:.2f} s "
-          f"({len(same_mesh)} of {len(saved)} bit-equal); the next step's "
-          f"loss {next_back[0][0]!r} restored vs {next_live[0][0]!r} live")
-    if (len(same_plain) != len(saved) or len(same_mesh) != len(saved)
-            or next_back[0] != next_live[0] or next_back[1] != next_live[1]
-            or at != TRAIN_STEPS):
+          f"bit-equal); the next step's loss {next_back[0][0]!r} restored "
+          f"(unsharded) vs {next_live[0][0]!r} live (mesh)")
+    if (len(same_plain) != len(saved) or next_back[0] != next_live[0]
+            or next_back[1] != next_live[1] or at != TRAIN_STEPS):
         fail("the checkpoint round trip through the unsharded layout is "
              "not exact")
     mgr.close()
-    del back, back_trainer, trainer, state, saved
+    del plain, back_trainer, trainer, state, saved
     gc.collect()    # FSDP2's hooks hold cycles
     torch.cuda.empty_cache()
 
@@ -5179,14 +5226,15 @@ def vision_bert_phase(mods, gpu, dev, tmp, fa) -> dict:
     del model, opt, step
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        loss = train_bert.main([])
+        loss = train_bert.main(["--steps", str(BERT_CLI_STEPS)])
     lines = [l for l in buf.getvalue().splitlines()
              if l.startswith("[elastic-metrics]")]
-    print(f"[vision] (c) python -m tpu_on_k8s_torch.train_bert (defaults: "
-          f"bert_base, 8 x 128, xla, cuda): final loss {loss:.5f}, "
-          f"{len(lines)} lines, the last: {lines[-1] if lines else ''}")
-    if not math.isfinite(loss) or len(lines) != 50:
-        fail("train_bert at its defaults did not train 50 finite steps")
+    print(f"[vision] (c) python -m tpu_on_k8s_torch.train_bert --steps "
+          f"{BERT_CLI_STEPS} (defaults otherwise: bert_base, 8 x 128, xla, "
+          f"cuda): final loss {loss:.5f}, {len(lines)} lines, the last: "
+          f"{lines[-1] if lines else ''}")
+    if not math.isfinite(loss) or len(lines) != BERT_CLI_STEPS:
+        fail(f"train_bert did not train {BERT_CLI_STEPS} finite steps")
 
     # ---- (d) BERT-base, attn flash, a padding mask ------------------------
     # fresh masters from the seed: (c)'s steps moved the first ones
@@ -5377,7 +5425,7 @@ def vision_bert_phase(mods, gpu, dev, tmp, fa) -> dict:
         "flash_fwd": dict(
             ms=time_ms(lambda: fa.flash_with_lse_fwd(q, k, v, False, 0,
                                                      seg)),
-            plain_ms=time_ms(lambda: fa.flash_attention_plain(
+            plain_ms=plain_time_ms(lambda: fa.flash_attention_plain(
                 q, k, v, False, 0, seg)),
             library_ms=time_ms(lambda: sdpa(q, k, v, attn_mask=sdpa_mask)),
             max_abs_err=err_o,
@@ -5386,7 +5434,7 @@ def vision_bert_phase(mods, gpu, dev, tmp, fa) -> dict:
         "flash_bwd_dq": dict(
             ms=time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta,
                                                False, 0, seg)),
-            plain_ms=time_ms(lambda: fa.flash_bwd_dq_plain(
+            plain_ms=plain_time_ms(lambda: fa.flash_bwd_dq_plain(
                 q, k, v, do, lse, delta, False, 0, seg)),
             library_ms=sdpa_bwd,
             max_abs_err=(dq.float() - pdq.float()).abs().max().item(),
@@ -5395,7 +5443,7 @@ def vision_bert_phase(mods, gpu, dev, tmp, fa) -> dict:
         "flash_bwd_dkv": dict(
             ms=time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
                                                 False, 0, seg)),
-            plain_ms=time_ms(lambda: fa.flash_bwd_dkv_plain(
+            plain_ms=plain_time_ms(lambda: fa.flash_bwd_dkv_plain(
                 q, k, v, do, lse, delta, False, 0, seg)),
             library_ms=sdpa_bwd,
             max_abs_err=max((dk.float() - pdk.float()).abs().max().item(),
@@ -5671,8 +5719,8 @@ def ring_phase(mods, gpu, dev, fa) -> dict:
     rows = {
         "flash_fwd": dict(
             ms=time_ms(lambda: fa.flash_with_lse_fwd(qc, kc, vc, False)),
-            plain_ms=time_ms(lambda: fa.flash_attention_plain(qc, kc, vc,
-                                                              False)),
+            plain_ms=plain_time_ms(lambda: fa.flash_attention_plain(
+                qc, kc, vc, False)),
             library_ms=time_ms(lambda: sdpa(qc, kc, vc)),
             max_abs_err=(o.float() - po.float()).abs().max().item(),
             **dict(zip(("bound_ms", "bound_by"),
@@ -5680,7 +5728,7 @@ def ring_phase(mods, gpu, dev, fa) -> dict:
         "flash_bwd_dq": dict(
             ms=time_ms(lambda: fa.flash_bwd_dq(qc, kc, vc, dc, lse, delta,
                                                False)),
-            plain_ms=time_ms(lambda: fa.flash_bwd_dq_plain(
+            plain_ms=plain_time_ms(lambda: fa.flash_bwd_dq_plain(
                 qc, kc, vc, dc, lse, delta, False)),
             library_ms=sdpa_bwd,
             max_abs_err=(dq.float() - pdq.float()).abs().max().item(),
@@ -5689,7 +5737,7 @@ def ring_phase(mods, gpu, dev, fa) -> dict:
         "flash_bwd_dkv": dict(
             ms=time_ms(lambda: fa.flash_bwd_dkv(qc, kc, vc, dc, lse, delta,
                                                 False)),
-            plain_ms=time_ms(lambda: fa.flash_bwd_dkv_plain(
+            plain_ms=plain_time_ms(lambda: fa.flash_bwd_dkv_plain(
                 qc, kc, vc, dc, lse, delta, False)),
             library_ms=sdpa_bwd,
             max_abs_err=max((dk.float() - pdk.float()).abs().max().item(),
@@ -5886,22 +5934,28 @@ def seq_phase(tcfg, mods, gpu, dev, tokens, fa) -> dict:
                                        gpipe)
     dist.destroy_process_group()
 
-    # ---- (c) the CLI on the card ---------------------------------------
+    # ---- (c) the CLI on the card, in the process (a process of its own
+    # took ~19 s, most of it starting; cut to make room for phase 19) ----
+    import contextlib
+    import io
+
+    from tpu_on_k8s_torch import train_llama
+
     t0 = time.perf_counter()
     argv = ["--config", "tiny", "--attn", "ring", "--seq-axis", "1",
             "--steps", "3"]
-    cli = subprocess.run(
-        [sys.executable, "-m", "tpu_on_k8s_torch.train_llama", *argv],
-        capture_output=True, text=True, timeout=600,
-        cwd=str(Path(__file__).resolve().parent))
-    lines = cli.stdout.splitlines()
-    metric_lines = [ln for ln in lines if ln.startswith("[elastic-metrics]")]
-    print(f"[seq] (c) python -m tpu_on_k8s_torch.train_llama "
-          f"{' '.join(argv)}: exit {cli.returncode} in "
-          f"{time.perf_counter() - t0:.1f} s; {len(metric_lines)} metric "
-          f"lines, the last: {metric_lines[-1] if metric_lines else None}")
-    if cli.returncode != 0 or len(metric_lines) != 3:
-        print(cli.stderr[-4000:], file=sys.stderr)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        loss = train_llama.main(argv)
+    metric_lines = [ln for ln in buf.getvalue().splitlines()
+                    if ln.startswith("[elastic-metrics]")]
+    print(f"[seq] (c) train_llama.main({' '.join(argv)}) in the process: "
+          f"final loss {loss:.5f} in {time.perf_counter() - t0:.1f} s; "
+          f"{len(metric_lines)} metric lines, the last: "
+          f"{metric_lines[-1] if metric_lines else None}; no world left "
+          f"{not dist.is_initialized()}")
+    if (len(metric_lines) != 3 or not math.isfinite(loss)
+            or dist.is_initialized()):
         fail("train_llama --attn ring did not finish")
     print(f"[time] phase 11 {time.perf_counter() - t_phase:.1f} s")
     return {"paths": paths, "ring_chunk": ring["rows"]}
@@ -6363,8 +6417,8 @@ def head_dim_256_phase(mods, gpu, dev, fa, transformer, decode,
     rows = {
         "flash_fwd": dict(
             ms=time_ms(lambda: fa.flash_with_lse_fwd(q, k, v, causal)),
-            plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v,
-                                                              causal)),
+            plain_ms=plain_time_ms(lambda: fa.flash_attention_plain(
+                q, k, v, causal)),
             library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=causal)),
             max_abs_err=err_o,
             **dict(zip(("bound_ms", "bound_by"),
@@ -6372,7 +6426,7 @@ def head_dim_256_phase(mods, gpu, dev, fa, transformer, decode,
         "flash_bwd_dq": dict(
             ms=time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta,
                                                causal)),
-            plain_ms=time_ms(lambda: fa.flash_bwd_dq_plain(
+            plain_ms=plain_time_ms(lambda: fa.flash_bwd_dq_plain(
                 q, k, v, do, lse, delta, causal)),
             library_ms=sdpa_bwd, max_abs_err=errs[0],
             **dict(zip(("bound_ms", "bound_by"),
@@ -6380,7 +6434,7 @@ def head_dim_256_phase(mods, gpu, dev, fa, transformer, decode,
         "flash_bwd_dkv": dict(
             ms=time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
                                                 causal)),
-            plain_ms=time_ms(lambda: fa.flash_bwd_dkv_plain(
+            plain_ms=plain_time_ms(lambda: fa.flash_bwd_dkv_plain(
                 q, k, v, do, lse, delta, causal)),
             library_ms=sdpa_bwd, max_abs_err=max(errs[1:]),
             **dict(zip(("bound_ms", "bound_by"),
@@ -8391,6 +8445,393 @@ def twin_phase(mods, gpu, dev, convert, tmp: Path) -> dict:
     print(f"[time] phase 18 {time.perf_counter() - t_phase:.1f} s")
     return {"paths": {"twin": launched}}
 
+# Phase 19, the drivers of tools/ on the card: (a) chaos_soak's seed; (b)
+# reshard_soak's seed and the reference's figures for it (the cost model's
+# race, the same on any machine); (d) perf_sweep's two variants, the
+# runbook's control (the reference's tools/chip_window.py CONTROL) and the
+# same on the int8 GEMM kernel, SWEEP_STEPS timed steps each after its 3
+# warm-up steps; (e) step_breakdown's calls a part; (f) the long-context
+# lengths and (B, H, D) of longcontext_proof's model (its kv heads repeated
+# to H on the training path; also checked at its 8 kv heads).
+CHAOS_SEED = 1234
+RESHARD_SEED = 6172
+RESHARD_FIGURES = {"events_crc": "23b9ae46", "pause_win_s": 357.328755,
+                   "goodput_win": 0.790586,
+                   "live": {"pause_s": 4.332189, "goodput_fraction": 0.857875},
+                   "restart": {"pause_s": 361.660944,
+                               "goodput_fraction": 0.067289}}
+SWEEP_CONTROL = ("attn=flash,remat=mlp,unroll=16,int8=1,gateup=1,nu=bf16,"
+                 "batch=12")
+SWEEP_VARIANTS = (SWEEP_CONTROL, SWEEP_CONTROL + ",i8impl=pallas")
+SWEEP_STEPS, BREAKDOWN_STEPS = 5, 5
+LONG_LENGTHS, LONG_SHAPE = (4096, 4000), (2, 16, 64)
+# (c) attn_micro's default [B] [L] [H] [D], passed as its arguments
+ATTN_MICRO_SHAPE = (12, 1024, 16, 64)
+
+
+def long_kernels(fa, gpu, dev) -> dict:
+    """Phase 19 (f): the three flash kernels at longcontext_proof's shapes,
+    L 4096 and the ragged 4000 (past phase 2's tile edges, which stop at
+    2047), B 2, H 16, D 64, bf16, causal, with k/v at 16 heads (the
+    training path repeats them) and at 8: each held against its plain twin
+    within phase 2's tolerances (``TOL``, ``BWD_REL_TOL``) and launched
+    twice on the same inputs, bit for bit; then timed at the training
+    path's heads (kernels: a CUDA graph of 20 calls, median of 7; plain
+    twins: a graph of 5, median of 3) beside SDPA's forward and backward
+    and the bound. Returns ``{"errs": {kernel: max|err|}, "rows": {kernel:
+    {length: row}}}``."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    b, h, d = LONG_SHAPE
+    tol_o, tol_lse = TOL[torch.bfloat16]
+    tol_bwd = BWD_REL_TOL[torch.bfloat16]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    misses = []
+    for l in LONG_LENGTHS:
+        for hkv in (h, h // 2):
+            q, k, v, do = (randn(b, n, l, d) for n in (h, hkv, hkv, h))
+            o, lse = fa.flash_with_lse_fwd(q, k, v, True)
+            o2, lse2 = fa.flash_with_lse_fwd(q, k, v, True)
+            delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
+            grads = (fa.flash_bwd_dq(q, k, v, do, lse, delta, True),
+                     *fa.flash_bwd_dkv(q, k, v, do, lse, delta, True))
+            again = (fa.flash_bwd_dq(q, k, v, do, lse, delta, True),
+                     *fa.flash_bwd_dkv(q, k, v, do, lse, delta, True))
+            same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+                    and all(map(torch.equal, grads, again)))
+            del o2, lse2, again
+            po, plse = fa.flash_attention_plain(q, k, v, True)
+            err_o = (o.float() - po.float()).abs().max().item()
+            err_lse = (lse - plse).abs().max().item()
+            del po, plse
+            rels = []
+            for key, got, plain_fn in (
+                    ("flash_bwd_dq", grads[:1], fa.flash_bwd_dq_plain),
+                    ("flash_bwd_dkv", grads[1:], fa.flash_bwd_dkv_plain)):
+                want = plain_fn(q, k, v, do, lse, delta, True)
+                for g, w in zip(got, (want,) if len(got) == 1 else want):
+                    err = (g.float() - w.float()).abs().max().item()
+                    rels.append(err / w.float().abs().max().item())
+                    errs[key] = max(errs[key], err)
+                del want
+                torch.cuda.empty_cache()
+            errs["flash_fwd"] = max(errs["flash_fwd"], err_o)
+            ok = (err_o <= tol_o and err_lse <= tol_lse
+                  and max(rels) <= tol_bwd and same
+                  and bool(torch.isfinite(o).all())
+                  and all(bool(torch.isfinite(g).all()) for g in grads))
+            label = (f"B={b} H={h} Hkv={hkv} L={l} D={d} bf16 causal")
+            print(f"[tools] (f) flash_fwd + flash_bwd_dq + flash_bwd_dkv "
+                  f"{label}: max|o-plain| {err_o:.3e} max|lse-plain| "
+                  f"{err_lse:.3e} rel dq {rels[0]:.2e} dk {rels[1]:.2e} dv "
+                  f"{rels[2]:.2e} (tols {tol_o:g}, {tol_lse:g}, "
+                  f"{tol_bwd:g}); two launches bit-identical {same} "
+                  f"{'ok' if ok else 'MISS'}")
+            if not ok:
+                misses.append(label)
+            del q, k, v, do, o, lse, delta, grads
+            torch.cuda.empty_cache()
+    if misses:
+        fail(f"the flash kernels disagree with their plain twins at the "
+             f"long-context shapes: {misses}")
+
+    rows = {name: {} for name in errs}
+    for l in LONG_LENGTHS:
+        q, k, v, do = (randn(b, h, l, d) for _ in range(4))
+        o, lse = fa.flash_with_lse_fwd(q, k, v, True)
+        delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
+        sdpa_fwd = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True))
+        fn, stream = sdpa_backward(q, k, v, do, is_causal=True)
+        sdpa_bwd = time_ms(fn, stream=stream)
+        del fn
+        timed = {
+            "flash_fwd": (
+                lambda: fa.flash_with_lse_fwd(q, k, v, True),
+                lambda: fa.flash_attention_plain(q, k, v, True),
+                flash_bound_ms(b, h, h, l, d, True), sdpa_fwd),
+            "flash_bwd_dq": (
+                lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True),
+                lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, True),
+                dq_bound_ms(b, h, h, l, d, True), sdpa_bwd),
+            "flash_bwd_dkv": (
+                lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+                lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                               True),
+                dkv_bound_ms(b, h, h, l, d, True), sdpa_bwd)}
+        for name, (kernel, plain, (bound, by), lib) in timed.items():
+            ms = time_ms(kernel)
+            plain_ms = plain_time_ms(plain)
+            torch.cuda.empty_cache()
+            rows[name][str(l)] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib, max_abs_err=errs[name],
+                shape=f"B={b} H={h} Hkv={h} L={l} D={d} bf16 causal")
+            print(f"[time] {gpu}: {name} B={b} H={h} L={l} D={d} bf16 "
+                  f"causal (longcontext): kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+                  f"{bound / ms:.1%} of bound; sdpa "
+                  f"{'forward' if name == 'flash_fwd' else 'backward (dq, dk, dv together)'}"
+                  f" {lib:.4f} ms")
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+    return {"errs": errs, "rows": rows}
+
+
+def tools_phase(mods, gpu, dev, fa, tmp: Path) -> dict:
+    """Phase 19: the drivers of ``tools/`` that the port carries, on the
+    card (module docstring). Returns the launches by path and the flash
+    kernels' rows at the long-context shapes."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from tpu_on_k8s_torch import (
+        attn_micro,
+        chaos_soak,
+        driver_bench,
+        longcontext_proof,
+        perf_sweep,
+        reshard_soak,
+        step_breakdown,
+    )
+    from tpu_on_k8s_torch.models.params import init_params
+    from tpu_on_k8s_torch.models.transformer import TransformerConfig
+    from tpu_on_k8s_torch.parallel.mesh import MeshConfig, create_mesh
+    from tpu_on_k8s_torch.parallel.partition import (
+        PartitionRule,
+        shard_pytree,
+    )
+    from tpu_on_k8s_torch.train.distributed import initialize
+
+    paths = {}
+    t_phase = time.perf_counter()
+
+    # ---- (a) chaos_soak, twice on the card, once on the CPU --------------
+    t0 = time.perf_counter()
+    ccfg = dataclasses.replace(TransformerConfig.gpt2_small(),
+                               dtype=torch.float32, max_seq_len=64)
+    cparams = init_params(ccfg, torch.Generator(device=dev).manual_seed(1),
+                          dev)
+    reset_counts(mods)
+    runs = [chaos_soak.run_all(CHAOS_SEED, device=dev, cfg=ccfg,
+                               params=cparams) for _ in range(2)]
+    torch.cuda.synchronize()
+    paths["chaos"] = read_counts(mods)
+    del cparams
+    torch.cuda.empty_cache()
+    first = runs[0]
+    cpu = chaos_soak.run_all(CHAOS_SEED, skip_operator=True, device="cpu")
+
+    def crc_free(lines):
+        return [ln.rsplit(" losses_crc=", 1)[0] for ln in lines]
+
+    tail = first["events"][-len(cpu["events"]):]
+    for line in first["events"]:
+        print(f"[tools] (a) event: {line}")
+    print(f"[tools] (a) chaos_soak.run_all({CHAOS_SEED}) twice on {dev} "
+          f"(serve stage: gpt2_small fp32, {ccfg.n_layers} layers, d_model "
+          f"{ccfg.d_model}, vocab {ccfg.vocab_size}, max_seq_len 64): "
+          f"operator {first['operator']}, serve {first['serve']}, train "
+          f"{first['train']}, events_crc {first['events_crc']} / "
+          f"{runs[1]['events_crc']}; launches {paths['chaos']}; the CPU run "
+          f"at tiny (no operator stage: it touches no device) events_crc "
+          f"{cpu['events_crc']}, train {cpu['train']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if (first["operator"]["replaced"] != 4 or first["serve"]["done"] != 6
+            or first["serve"]["retry_exhausted_storm"] != 2
+            or first["train"]["steps"] != 14
+            or runs[1]["events"] != first["events"]
+            or not any("oracle_exact=6" in e for e in first["events"])):
+        fail(f"phase 19 (a) chaos soak gates: {first}")
+    if crc_free(tail) != crc_free(cpu["events"]):
+        fail(f"phase 19 (a) the CPU run's event lines differ from the "
+             f"card's: {cpu['events']} vs {tail}")
+    if (not paths["chaos"]["flash_fwd"]
+            or any(c for k, c in paths["chaos"].items() if k != "flash_fwd")):
+        fail(f"phase 19 (a) launches {paths['chaos']}")
+    print(f"[tools] (a) the CPU run's event lines equal the card's (the "
+          f"train line but losses_crc: card {first['train']['losses_crc']}, "
+          f"CPU {cpu['train']['losses_crc']}, equal "
+          f"{first['train']['losses_crc'] == cpu['train']['losses_crc']})")
+
+    # ---- (b) reshard_soak: the race twice, a later NCCL world ------------
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = reshard_soak.main(["--repeat", "2", "--ledger-out",
+                                str(tmp / "reshard_ledger.json")])
+    out = json.loads(buf.getvalue())
+    got = {"events_crc": out["events_crc"],
+           "pause_win_s": out["pause_win_s"],
+           "goodput_win": out["goodput_win"],
+           **{arm: {k: out[arm][k] for k in ("pause_s", "goodput_fraction")}
+              for arm in ("live", "restart")}}
+    print(f"[tools] (b) reshard_soak --repeat 2: exit {rc}, {got}, "
+          f"identical logs {out['identical_logs']}, ledger records "
+          f"{out['ledger_records']}; {out['events'][0]}")
+    if rc != 0 or got != RESHARD_FIGURES or dist.is_initialized():
+        fail(f"phase 19 (b) reshard soak: rc {rc}, {got}, a world left "
+             f"{dist.is_initialized()}")
+    env = {"RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(free_port())}
+    initialize(env, device=dev)
+    mesh = create_mesh(MeshConfig(), device=dev)
+    w = shard_pytree({"w": torch.ones(64, 64, device=dev)}, mesh,
+                     [PartitionRule("w$", ("fsdp", None))])["w"]
+    total = (w * 2).sum().full_tensor().item()
+    backend = dist.get_backend()
+    dist.destroy_process_group()
+    try:
+        reshard_soak.run_bench(RESHARD_SEED, dev)
+        fail("phase 19 (b) --bench on one card did not raise")
+    except RuntimeError as e:
+        bench_error = str(e)
+    print(f"[tools] (b) after the planner's fake world: an NCCL world of one "
+          f"({backend}) lays out and reduces a DTensor: sum {total:g} (want "
+          f"8192); --bench --device cuda on one card raises: {bench_error}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if backend != "nccl" or total != 8192 or "one card a rank" not in \
+            bench_error:
+        fail("phase 19 (b) the later NCCL world or the --bench refusal")
+
+    # ---- (c) attn_micro at its default shape ----------------------------
+    t0 = time.perf_counter()
+    print("[tools] (c) attn_micro B {} L {} H {} D {} bf16 causal on "
+          "{}:".format(*ATTN_MICRO_SHAPE, gpu))
+    reset_counts(mods)
+    attn_micro.main([str(x) for x in ATTN_MICRO_SHAPE])
+    torch.cuda.synchronize()
+    paths["attn_micro"] = read_counts(mods)
+    q, k, v = (t.transpose(1, 2) for t in attn_micro.make_inputs(
+        *ATTN_MICRO_SHAPE, dev))
+    o, lse = fa.flash_with_lse_fwd(q, k, v, True)
+    po, plse = fa.flash_attention_plain(q, k, v, True)
+    do = (2 * o.float()).to(torch.bfloat16)       # d sum(o.float() ** 2)
+    delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
+    grads = fa.flash_bwd(q, k, v, o, lse, do, True)
+    plain = (fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, True),
+             *fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True))
+    err_o = (o.float() - po.float()).abs().max().item()
+    err_lse = (lse - plse).abs().max().item()
+    rels = [((g.float() - p.float()).abs().max()
+             / p.float().abs().max()).item() for g, p in zip(grads, plain)]
+    tol_o, tol_lse = TOL[torch.bfloat16]
+    ok = (err_o <= tol_o and err_lse <= tol_lse
+          and max(rels) <= BWD_REL_TOL[torch.bfloat16])
+    print(f"[tools] (c) flash against the plain attention on attn_micro's "
+          f"inputs: max|o-plain| {err_o:.3e} max|lse-plain| {err_lse:.3e} "
+          f"rel dq {rels[0]:.2e} dk {rels[1]:.2e} dv {rels[2]:.2e} (tols "
+          f"{tol_o:g}, {tol_lse:g}, {BWD_REL_TOL[torch.bfloat16]:g}); "
+          f"launches {paths['attn_micro']}; {time.perf_counter() - t0:.1f} s")
+    if not ok or not all(paths["attn_micro"][n] for n in (
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+        fail("phase 19 (c) attn_micro's flash rows")
+    del q, k, v, o, lse, po, plse, do, delta, grads, plain
+    torch.cuda.empty_cache()
+
+    # ---- (d) perf_sweep: the runbook's control, then on the int8 kernel --
+    t0 = time.perf_counter()
+    n_layers = perf_sweep.bench_config().n_layers
+    sweep = {}
+    for spec in SWEEP_VARIANTS:
+        reset_counts(mods)
+        row = perf_sweep.run_variant(spec, dev, steps=SWEEP_STEPS)
+        torch.cuda.synchronize()
+        sweep[spec] = (row, read_counts(mods))
+        torch.cuda.empty_cache()
+    paths["sweep"] = {name: sum(c[name] for _, c in sweep.values())
+                      for name in COUNTERS}
+    for spec, (row, got) in sweep.items():
+        print(f"[tools] (d) {gpu}: {spec}: step {row['step_ms']:.1f} ms, "
+              f"{row['tok_s']:.1f} tok/s, MFU {row['mfu']:.4f} of 989 "
+              f"TFLOP/s bf16 dense (6 x {perf_sweep.n_params(perf_sweep.bench_config()):,} "
+              f"params x tok/s), loss {row['loss']:.5f}; launches {got}")
+    control, pallas = (sweep[s][1] for s in SWEEP_VARIANTS)
+    # the fused gate+up and the down product a layer, and the gate+up again
+    # in remat "mlp"'s recompute, over 3 warm-up and the timed steps
+    want8 = 3 * n_layers * (3 + SWEEP_STEPS)
+    if (control["int8_matmul"] or pallas["int8_matmul"] != want8
+            or not all(math.isfinite(r["loss"]) and r["step_ms"] > 0
+                       for r, _ in sweep.values())):
+        fail(f"phase 19 (d) sweep rows or launches (int8_matmul {want8} "
+             f"expected in the pallas variant only)")
+    print(f"[tools] (d) int8_matmul launches: control 0, i8impl=pallas "
+          f"{pallas['int8_matmul']} = 3 x {n_layers} layers x "
+          f"{3 + SWEEP_STEPS} steps; {time.perf_counter() - t0:.1f} s")
+
+    # ---- (e) step_breakdown int8=1 nu=bf16 ------------------------------
+    t0 = time.perf_counter()
+    print(f"[tools] (e) step_breakdown int8=1 nu=bf16 on {gpu}:")
+    reset_counts(mods)
+    parts = step_breakdown.breakdown({"int8": "1", "nu": "bf16"}, dev,
+                                     steps=BREAKDOWN_STEPS)
+    torch.cuda.synchronize()
+    paths["breakdown"] = read_counts(mods)
+    torch.cuda.empty_cache()
+    print(f"[tools] (e) {gpu}: parts fwd {parts['fwd']:.1f} ms, fwd+bwd "
+          f"{parts['fwd_bwd']:.1f} ms, optimizer {parts['opt']:.1f} ms; sum "
+          f"of parts {parts['sum_parts']:.1f} ms beside the full step "
+          f"{parts['step']:.1f} ms; launches {paths['breakdown']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not all(math.isfinite(x) and x > 0 for x in parts.values()):
+        fail(f"phase 19 (e) breakdown {parts}")
+
+    # ---- (f) longcontext_proof's card half, the kernels at its shapes ----
+    t0 = time.perf_counter()
+    reset_counts(mods)
+    lc = longcontext_proof.card_part(tmp / "LONGCONTEXT_torch.json", dev)
+    torch.cuda.synchronize()
+    paths["longcontext"] = read_counts(mods)
+    torch.cuda.empty_cache()
+    for label in ("flash_4096", "flash_4000_padded"):
+        r = lc[label]
+        print(f"[tools] (f) {gpu}: {label}: loss {r['loss']:.5f}, step "
+              f"{r['step_ms']} ms, {r['tokens_per_sec']} tokens/s, one "
+              f"step's peak over the held bytes {r['temp_bytes']:,} B "
+              f"beside the naive score matrix "
+              f"{r['naive_score_matrix_bytes']:,} B; {r['attn_path']}")
+        if not r["loss_finite"]:
+            fail(f"phase 19 (f) {label} loss not finite")
+    print(f"[tools] (f) ragged_cliff_check {lc['ragged_cliff_check']}; "
+          f"launches {paths['longcontext']}")
+    long = long_kernels(fa, gpu, dev)
+    print(f"[tools] (f) {time.perf_counter() - t0:.1f} s")
+
+    # ---- (g) driver_bench ------------------------------------------------
+    t0 = time.perf_counter()
+    reset_counts(mods)
+    benches = {
+        "resnet50": driver_bench.bench_resnet50(batch=256, steps=3,
+                                                device=dev),
+        "decode": driver_bench.bench_decode(batch=8, prompt_len=128,
+                                            new_tokens=32, device=dev),
+        "continuous": driver_bench.bench_continuous(
+            n_requests=16, new_tokens=32, device=dev),
+        "speculative": driver_bench.bench_speculative(new_tokens=27,
+                                                      device=dev),
+        "submit": driver_bench.bench_submit_to_first_step(n_jobs=5)}
+    torch.cuda.synchronize()
+    paths["driver_bench"] = read_counts(mods)
+    torch.cuda.empty_cache()
+    for name, rec in benches.items():
+        print(f"[tools] (g) {gpu}: {json.dumps(rec)}")
+    print(f"[tools] (g) launches {paths['driver_bench']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if (benches["continuous"]["served"] != 16
+            or benches["submit"]["samples"] != 5
+            or not all(benches[n]["value"] > 0 for n in benches)):
+        fail("phase 19 (g) driver_bench gates")
+    print(f"[time] phase 19 {time.perf_counter() - t_phase:.1f} s")
+    return {"paths": paths, "long": long}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -8796,7 +9237,8 @@ def run(tmp: Path) -> int:
              "model than bf16 rounding explains")
     del logits_kernel, logits_plain, logits_f32
     prefill_ms = wall_ms(lambda: decode.generate(cfg, params, prompt4, 1))
-    gen64_ms = wall_ms(lambda: decode.generate(cfg, params, prompt4, 64))
+    gen64_ms = wall_ms(lambda: decode.generate(cfg, params, prompt4, 64),
+                       GEN64_REPS)
     decode_ms = (gen64_ms - prefill_ms) / 63
 
     # ---- 3b. W8A16 serving from the same weights -----------------------
@@ -9100,7 +9542,8 @@ def run(tmp: Path) -> int:
     b, h, hkv, l, d = 4, scfg.n_heads, scfg.n_kv_heads, 512, scfg.head_dim
     q, k, v = qkv(b, h, hkv, l, d, torch.bfloat16)
     serve_fwd_ms = time_ms(lambda: fa.flash_with_lse_fwd(q, k, v, True))
-    serve_plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, True))
+    serve_plain_ms = plain_time_ms(
+        lambda: fa.flash_attention_plain(q, k, v, True))
     serve_sdpa_ms = time_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True))
@@ -9124,17 +9567,17 @@ def run(tmp: Path) -> int:
     timed = {
         "flash_fwd": (
             time_ms(lambda: fa.flash_with_lse_fwd(q, k, v, True)),
-            time_ms(lambda: fa.flash_attention_plain(q, k, v, True)),
+            plain_time_ms(lambda: fa.flash_attention_plain(q, k, v, True)),
             flash_bound_ms(b, h, hkv, l, d, True)),
         "flash_bwd_dq": (
             time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True)),
-            time_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta,
-                                                  True)),
+            plain_time_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse,
+                                                        delta, True)),
             dq_bound_ms(b, h, hkv, l, d, True)),
         "flash_bwd_dkv": (
             time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)),
-            time_ms(lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
-                                                   True)),
+            plain_time_ms(lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse,
+                                                         delta, True)),
             dkv_bound_ms(b, h, hkv, l, d, True)),
     }
     sdpa_fwd_ms = time_ms(
@@ -9270,6 +9713,10 @@ def run(tmp: Path) -> int:
 
     # ---- 18. the digital twin priced by the card -------------------------
     by_path.update(twin_phase(mods, gpu, dev, convert, tmp)["paths"])
+
+    # ---- 19. the drivers of tools/ on the card ----------------------------
+    phase19 = tools_phase(mods, gpu, dev, fa, tmp)
+    by_path.update(phase19["paths"])
     print(f"[time] script {time.perf_counter() - t_start:.0f} s")
 
     gemm = (TRAIN_BATCH * TRAIN_SEQ, 11264, 2048)
@@ -9317,6 +9764,8 @@ def run(tmp: Path) -> int:
             kernels[-1]["bert_padded_d64"] = phase10["bert_padded"][name]
         if name in phase11["ring_chunk"]:
             kernels[-1]["ring_chunk_d128"] = phase11["ring_chunk"][name]
+        if name in phase19["long"]["rows"]:
+            kernels[-1]["longcontext"] = phase19["long"]["rows"][name]
         if name == "int8_matmul":
             kernels[-1]["moe_expert"] = phase12["expert_row"]
     print(json.dumps({"kernels": kernels}))

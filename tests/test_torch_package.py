@@ -54,6 +54,13 @@ def test_the_scan_sees_the_whole_port():
             "tpu_on_k8s_torch/generate.py",
             "tpu_on_k8s_torch/models/serving.py",
             "tpu_on_k8s_torch/models/layouts.py",
+            "tpu_on_k8s_torch/chaos_soak.py",
+            "tpu_on_k8s_torch/reshard_soak.py",
+            "tpu_on_k8s_torch/attn_micro.py",
+            "tpu_on_k8s_torch/perf_sweep.py",
+            "tpu_on_k8s_torch/step_breakdown.py",
+            "tpu_on_k8s_torch/longcontext_proof.py",
+            "tpu_on_k8s_torch/driver_bench.py",
             "tpu_on_k8s_torch/metrics.py",
             "tpu_on_k8s_torch/chaos.py",
             "tpu_on_k8s_torch/serve/cli.py",
